@@ -250,3 +250,106 @@ def test_kernel_wrappers_refuse_bad_input_on_card():
         K.fused_leff(args[0], args[1][:, :100].contiguous(), *args[2:])
     with pytest.raises(ValueError):  # not contiguous
         K.fused_leff(args[0].transpose(1, 2), *args[1:])
+
+
+# ---- backward kernels on the card -------------------------------------
+
+def _check_grads(fused, plain, x, g, what):
+    """Every returned gradient, per tensor. fp32: max-abs <= 1e-4 (1 +
+    max|ref|), TF32 off. bf16: the kernel's error against the fp32 plain
+    VJP <= 1.5x the bf16 plain VJP's error + 1e-3 max(1, max|ref|): weight
+    grads are sums over every token, so the bound scales with each
+    tensor."""
+    ref = plain(x, g, torch.float32)
+    got = fused(x, g, torch.float32)
+    assert len(got) == len(ref)
+    low = plain(x.bfloat16(), g.bfloat16(), torch.bfloat16)
+    got16 = fused(x.bfloat16(), g.bfloat16(), torch.bfloat16)
+    for i, (r, k, p, k16) in enumerate(zip(ref, got, low, got16)):
+        if r is None:
+            assert k is None and k16 is None, (what, i)
+            continue
+        scale = float(r.abs().max())
+        err = float((k.float() - r.float()).abs().max())
+        assert err <= TOL * (1 + scale), (what, i, "fp32", err, scale)
+        e_plain = float((p.float() - r.float()).abs().max())
+        e16 = float((k16.float() - r.float()).abs().max())
+        assert e16 <= 1.5 * e_plain + 1e-3 * max(1.0, scale), \
+            (what, i, "bf16", e16, e_plain, scale)
+
+
+ATTN_BWD_GEOMS = [(2, 16, 16, 32, 1, 4), (2, 16, 16, 64, 2, 0),
+                  (2, 16, 16, 128, 4, 4), (2, 16, 16, 256, 8, 4),
+                  (2, 8, 8, 512, 16, 0), (2, 16, 16, 512, 16, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", ATTN_BWD_GEOMS)
+@pytest.mark.parametrize("residual", [True, False])
+def test_attention_bwd_kernel_on_card(geom, residual):
+    dev = _cuda()
+    B, H, W, C, nH, shift = geom
+    inp = _attn_inputs(10, B, H, W, C, nH)
+    x = _t(inp.pop("x"), dev).bfloat16().float()
+    g = _t(np.random.default_rng(11).standard_normal((B, H, W, C))
+           .astype(np.float32), dev).bfloat16().float()
+    prm = {dt: _cast(inp, dev, dt, ("mod", "wq", "wkv", "wo"))
+           for dt in (torch.float32, torch.bfloat16)}
+    kw = dict(win=8, shift=shift, scale=32 ** -0.5, num_heads=nH,
+              residual=residual)
+
+    def run(fn):
+        return lambda x, g, dt: fn(x, g, *prm[dt].values(), **kw)
+
+    K.reset_counts()
+    _check_grads(run(K.fused_attention_image_bwd),
+                 run(K.attention_image_vjp_reference), x, g, geom)
+    assert K.launch_counts()["attention_bwd"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("residual,has_ln", [(True, True), (False, True),
+                                             (False, False)])
+def test_leff_bwd_kernel_on_card(C, residual, has_ln):
+    dev = _cuda()
+    shape = (2, 16, 16, C)
+    inp = _leff_inputs(12, *shape, 4 * C)
+    x = _t(inp.pop("x"), dev).bfloat16().float()
+    g = _t(np.random.default_rng(13).standard_normal(shape)
+           .astype(np.float32), dev).bfloat16().float()
+    prm = {dt: _cast(inp, dev, dt, ("w1", "wd", "w2"))
+           for dt in (torch.float32, torch.bfloat16)}
+
+    def run(fn):
+        return lambda x, g, dt: fn(x, g, *(prm[dt][k] for k in (
+            "w1", "b1", "wd", "bd", "w2", "ln_s", "ln_b")), has_ln=has_ln,
+            residual=residual)
+
+    K.reset_counts()
+    _check_grads(run(K.fused_leff_bwd), run(K.leff_vjp_reference), x, g,
+                 (C, residual, has_ln))
+    assert K.launch_counts()["leff_bwd"] == 2
+
+
+@pytest.mark.gpu
+def test_backward_wrappers_refuse_bad_input_on_card():
+    dev = _cuda()
+    inp = _leff_inputs(14, 1, 8, 8, 32, 128)
+    x = _t(inp["x"], dev)
+    args = [_t(inp[k], dev) for k in ("w1", "b1", "wd", "bd", "w2", "ln_s",
+                                      "ln_b")]
+    with pytest.raises(ValueError):  # dy of another dtype
+        K.fused_leff_bwd(x, x.bfloat16(), *args)
+    with pytest.raises(TypeError):  # bf16 matrix under fp32 activations
+        K.fused_leff_bwd(x, x, args[0].bfloat16(), *args[1:])
+    ainp = _attn_inputs(15, 1, 16, 16, 64, 2)
+    ax = _t(ainp.pop("x"), dev)
+    aprm = [_t(v, dev) for v in ainp.values()]
+    with pytest.raises(ValueError):  # head dim 64, the kernel takes 32
+        K.fused_attention_image_bwd(ax, ax, *aprm, win=8, shift=0,
+                                    scale=0.125, num_heads=1)
+    with pytest.raises(ValueError):  # not contiguous
+        K.fused_attention_image_bwd(ax.transpose(1, 2), ax, *aprm, win=8,
+                                    shift=0, scale=0.125, num_heads=2)
+    assert K.plain_counts()["attention_bwd"] == 0

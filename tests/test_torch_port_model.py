@@ -71,7 +71,7 @@ def test_state_dict_from_jax_matches_exporter(small):
 def test_small_uformer_matches_jax(small):
     model, params, x = small
     want = np.asarray(jax.jit(model.apply)(params, jnp.asarray(x)))
-    port = Uformer(**SMALL)
+    port = Uformer(**SMALL).eval()  # eval: no drop path, stage route
     port.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in
                           state_dict_from_jax(params).items()}, strict=True)
     routes = [name for name, m in port.named_children()
@@ -152,9 +152,10 @@ def test_uformer_b_routing(golden_run):
     """6 stage, 4 attention-image and 4 LeFF dispatches per forward, the
     routing of the 256^2 main path; on the CPU all are plain versions."""
     *_, plain, launched = golden_run
-    assert plain == {"stage": 6, "attention_image": 4, "leff": 4}
-    assert launched == {"stage": 0, "attention_image": 0, "leff": 0}
-    model = get_arch({"arch": "Uformer_B", "train_ps": 256})
+    assert plain == {"stage": 6, "attention_image": 4, "leff": 4,
+                     "attention_bwd": 0, "leff_bwd": 0}
+    assert set(launched.values()) == {0}
+    model = get_arch({"arch": "Uformer_B", "train_ps": 256}).eval()
     stage_layers = [name for name, m in model.named_children()
                     if hasattr(m, "uses_stage") and m.uses_stage(
                         torch.empty(1, m.resolution, m.resolution, m.dim))]

@@ -1,10 +1,11 @@
-"""uformer_tpu_torch — the Uformer eval path in PyTorch, with hand-written
-CUDA kernels for NVIDIA Hopper (sm_90a).
+"""uformer_tpu_torch — the Uformer eval and train paths in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of `uformer_tpu` (JAX/Pallas on TPU), which stays the reference:
 the same NHWC activations, the reference state_dict key names, and one
-Hopper kernel for each Pallas kernel on the path (whole-stage, image
-attention, LeFF). Imports torch only, never jax.
+Hopper kernel for each Pallas kernel on the paths (whole-stage, image
+attention and LeFF forward; attention and LeFF backward). Imports torch
+only, never jax.
 """
 
 __version__ = "0.1.0"

@@ -47,6 +47,12 @@ __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
 }
 
+// d/dv of the exact GELU: Phi(v) + v * phi(v)
+__device__ __forceinline__ float gelu_grad(float v) {
+  return 0.5f * (1.0f + erff(v * 0.70710678118654752f)) +
+         v * 0.39894228040143268f * expf(-0.5f * v * v);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -73,9 +79,11 @@ struct Carver {
 
 // LayerNorm of one row (biased variance, eps 1e-5, fp32 statistics) by one
 // warp, rounded to T, then + mod (if given) and rounded again, in place.
+// With `stats`, lane 0 stores the row's mean and 1/std there.
 template <typename T>
 __device__ void ln_row(T* row, int C, const float* ln_s, const float* ln_b,
-                       bool has_ln, const T* mod_row) {
+                       bool has_ln, const T* mod_row,
+                       float* stats = nullptr) {
   const int lane = threadIdx.x & 31;
   float mean = 0.f, rstd = 0.f;
   if (has_ln) {
@@ -88,6 +96,10 @@ __device__ void ln_row(T* row, int C, const float* ln_s, const float* ln_b,
       v += d * d;
     }
     rstd = 1.0f / sqrtf(warp_sum(v) / C + 1e-5f);
+    if (stats != nullptr && lane == 0) {
+      stats[0] = mean;
+      stats[1] = rstd;
+    }
   }
   for (int c = lane; c < C; c += 32) {
     float y = to_f<T>(row[c]);
@@ -114,17 +126,20 @@ __device__ void stage_tile(T* dst, int dst_ld, const T* src, int src_ld,
 }
 
 // Cc[M x N] (fp32, row-major, ldc)  =  (ACCUM ? Cc : 0) + A @ B
-//   A: M x K row-major (lda);  B: K x N row-major (ldb), or with BT the
-//   N x K row-major matrix whose transpose is B.
+//   A: M x K row-major (lda), or with AT the K x M row-major matrix whose
+//   transpose is A;  B: K x N row-major (ldb), or with BT the N x K
+//   row-major matrix whose transpose is B.
 // All threads of the block call it; M, N, K are multiples of 16. The
 // caller synchronises before reading Cc. Tiles go to the warps in turn
 // from warp `first`, so products with few tiles issued back to back
 // (q, k, v) can start on different warps.
-template <typename T, bool BT, bool ACCUM>
+template <typename T, bool BT, bool ACCUM, bool AT = false>
 __device__ void block_gemm(const T* A, int lda, const T* B, int ldb, float* Cc,
                            int ldc, int M, int N, int K, int first = 0) {
   if constexpr (std::is_same<T, bf16>::value) {
     using namespace nvcuda;
+    using ALayout =
+        typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
     using BLayout =
         typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
     const int warp = ((threadIdx.x >> 5) + kWarps - first) % kWarps;
@@ -133,15 +148,20 @@ __device__ void block_gemm(const T* A, int lda, const T* B, int ldb, float* Cc,
     for (int tt = warp; tt < tiles; tt += kWarps) {
       const int m0 = (tt / tn) * 16, n0 = (tt % tn) * 16;
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      if (ACCUM)
+      if (ACCUM) {
+        __syncwarp();  // this warp's own earlier store of the tile
         wmma::load_matrix_sync(acc, Cc + m0 * ldc + n0, ldc,
                                wmma::mem_row_major);
+      }
       else
         wmma::fill_fragment(acc, 0.0f);
       for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b;
-        wmma::load_matrix_sync(a, A + m0 * lda + k0, lda);
+        if (AT)
+          wmma::load_matrix_sync(a, A + (size_t)k0 * lda + m0, lda);
+        else
+          wmma::load_matrix_sync(a, A + m0 * lda + k0, lda);
         if (BT)
           wmma::load_matrix_sync(b, B + n0 * ldb + k0, ldb);
         else
@@ -154,13 +174,10 @@ __device__ void block_gemm(const T* A, int lda, const T* B, int ldb, float* Cc,
   } else {
     for (int idx = threadIdx.x; idx < M * N; idx += blockDim.x) {
       const int m = idx / N, n = idx % N;
-      const T* a = A + (size_t)m * lda;
       float s = 0.f;
-      if (BT) {
-        const T* b = B + (size_t)n * ldb;
-        for (int k = 0; k < K; ++k) s = fmaf(a[k], b[k], s);
-      } else {
-        for (int k = 0; k < K; ++k) s = fmaf(a[k], B[(size_t)k * ldb + n], s);
+      for (int k = 0; k < K; ++k) {
+        const T a = AT ? A[(size_t)k * lda + m] : A[(size_t)m * lda + k];
+        s = fmaf(a, BT ? B[(size_t)n * ldb + k] : B[(size_t)k * ldb + n], s);
       }
       Cc[m * ldc + n] = ACCUM ? Cc[m * ldc + n] + s : s;
     }

@@ -1,5 +1,5 @@
-"""Building blocks of the Uformer eval path (NHWC), counterparts of
-`uformer_tpu/models/layers.py`.
+"""Building blocks of the Uformer eval and train paths (NHWC),
+counterparts of `uformer_tpu/models/layers.py`.
 
 Modules keep the reference state_dict key names (`attn.qkv.to_q.weight`,
 `mlp.linear1.0.weight`, `modulator.weight`, ...), so released `.pth`
@@ -7,32 +7,40 @@ files and the recorded goldens load with `load_state_dict(strict=True)`.
 Torch stores Linear weights as (out, in); the kernels take (in, out).
 `kernel_params(dtype)` builds that layout (>= 2-D weights cast to the
 working dtype; biases, LayerNorm parameters and the gathered
-relative-position bias stay float32), and `prepare(dtype)` keeps it, so
-a serving model pays the casts and transposes once
-(`uformer_tpu_torch.utils.params.prepare_serving`). Without it each
-forward builds them afresh.
+relative-position bias stay float32) without detaching, so autograd
+reaches the float32 parameters through the casts, transposes and the
+gather. `prepare(dtype)` keeps a copy built under no_grad, so a serving
+model pays the casts and transposes once
+(`uformer_tpu_torch.utils.params.prepare_serving`); `params_for` hands
+that copy out only while grad is disabled, and builds the weights afresh
+otherwise.
 
-Routing (`BasicLayer`): the whole-stage kernel for win 8 stages whose
-configured resolution is at least the window, with C % 128 == 0 and H, W
-multiples of 8; otherwise per block, one attention-image and one LeFF
-kernel. The convs around the stages stay cuDNN (`F.conv2d`).
+Routing (`BasicLayer`): in eval, the whole-stage kernel for win 8 stages
+whose configured resolution is at least the window, with C % 128 == 0 and
+H, W multiples of 8; otherwise, and always in training
+(`uformer_tpu` layers.py:979), per block, one attention-image and one
+LeFF kernel, differentiated by their backward kernels. In training a
+block with a drop-path rate above 0 runs both kernels without the
+residual and adds x + DropPath(y) outside (`layers.py:780-794`,
+`:860-871`). The convs around the stages stay cuDNN (`F.conv2d`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from uformer_tpu_torch.device import to_device_async
 from uformer_tpu_torch.ops.kernels import (
     STAGE_KEYS,
+    attention_image_ad,
     attention_image_reference,
-    fused_attention_image,
-    fused_leff,
     fused_stage,
+    leff_ad,
     leff_reference,
     stage_reference,
 )
@@ -55,14 +63,42 @@ class _Prepared:
         self._kp = (dtype, next(iter(p.values())).device, p)
 
     def params_for(self, dtype: torch.dtype, device: torch.device) -> Params:
-        if self._kp is not None and self._kp[:2] == (dtype, device):
+        """The prepared copy while grad is disabled; otherwise weights built
+        afresh, in the autograd graph of the parameters."""
+        if self._kp is not None and self._kp[:2] == (dtype, device) \
+                and not torch.is_grad_enabled():
             return self._kp[2]
         return self.kernel_params(dtype)
 
 
 def _conv_params(conv: nn.Module, dtype: torch.dtype) -> Params:
-    return {"w": conv.weight.detach().to(dtype),
-            "b": conv.bias.detach().to(dtype)}
+    return {"w": conv.weight.to(dtype), "b": conv.bias.to(dtype)}
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (`uformer_tpu` layers.py:60-77): in
+    training, each sample's branch is kept with probability 1 - rate and
+    then divided by it. The mask is drawn from the generator passed in,
+    never from the global RNG; a generator on the CPU serves tensors on any
+    device, its masks copied without a stream sync. Identity in eval and
+    at rate 0."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("DropPath in training needs a torch.Generator")
+        keep = 1.0 - self.rate
+        u = torch.rand(x.shape[0], generator=generator,
+                       device=generator.device)
+        mask = to_device_async(u < keep, x.device) \
+            .reshape((-1,) + (1,) * (x.dim() - 1))
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -89,14 +125,14 @@ class LeFF(nn.Module):
     def kernel_params(self, dtype: torch.dtype) -> Params:
         l1, dw, l2 = self.linear1[0], self.dwconv[0], self.linear2[0]
         return {
-            "w1": l1.weight.detach().t().to(dtype).contiguous(),
-            "b1": l1.bias.detach().float(),
+            "w1": l1.weight.t().to(dtype).contiguous(),
+            "b1": l1.bias.float(),
             # (Ch, 1, 3, 3) -> (3, 3, Ch)
-            "wd": dw.weight.detach()[:, 0].permute(1, 2, 0).to(dtype)
+            "wd": dw.weight[:, 0].permute(1, 2, 0).to(dtype)
             .contiguous(),
-            "bd": dw.bias.detach().float(),
-            "w2": l2.weight.detach().t().to(dtype).contiguous(),
-            "b2": l2.bias.detach().float(),
+            "bd": dw.bias.float(),
+            "w2": l2.weight.t().to(dtype).contiguous(),
+            "b2": l2.bias.float(),
         }
 
 
@@ -131,18 +167,18 @@ class WindowAttention(nn.Module):
         q, kv = self.qkv.to_q, self.qkv.to_kv
 
         def bias_of(lin, n):
-            return (lin.bias.detach().float() if lin.bias is not None
+            return (lin.bias.float() if lin.bias is not None
                     else torch.zeros(n, device=lin.weight.device))
 
-        table = self.relative_position_bias_table.detach().float()
+        table = self.relative_position_bias_table.float()
         bias = table[self.relative_position_index.reshape(-1)]
         return {
-            "wq": q.weight.detach().t().to(dtype).contiguous(),
+            "wq": q.weight.t().to(dtype).contiguous(),
             "bq": bias_of(q, C),
-            "wkv": kv.weight.detach().t().to(dtype).contiguous(),
+            "wkv": kv.weight.t().to(dtype).contiguous(),
             "bkv": bias_of(kv, 2 * C),
-            "wo": self.proj.weight.detach().t().to(dtype).contiguous(),
-            "bo": self.proj.bias.detach().float(),
+            "wo": self.proj.weight.t().to(dtype).contiguous(),
+            "bo": self.proj.bias.float(),
             "bias": bias.reshape(N, N, -1).permute(2, 0, 1).contiguous(),
         }
 
@@ -151,12 +187,12 @@ class LeWinBlock(_Prepared, nn.Module):
     """LeWin block (reference model.py:850-1008), NHWC in and out:
     x + Attn(LN1(x)) [shifted windows, + modulator] through the
     attention-image kernel, then x + LeFF(LN2(x)) through the LeFF
-    kernel."""
+    kernel; in training each branch under DropPath(drop_path)."""
 
     def __init__(self, dim: int, num_heads: int, win_size: int = 8,
                  shift_size: int = 0, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
-                 modulator: bool = False):
+                 modulator: bool = False, drop_path: float = 0.0):
         super().__init__()
         if not 0 <= shift_size < win_size:
             raise ValueError(f"shift {shift_size} outside [0, {win_size})")
@@ -169,32 +205,40 @@ class LeWinBlock(_Prepared, nn.Module):
                                     qk_scale)
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = LeFF(dim, int(dim * mlp_ratio))
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
 
     def kernel_params(self, dtype: torch.dtype) -> Params:
-        p = {"ln1_s": self.norm1.weight.detach().float(),
-             "ln1_b": self.norm1.bias.detach().float(),
-             "ln2_s": self.norm2.weight.detach().float(),
-             "ln2_b": self.norm2.bias.detach().float(),
-             "mod": (self.modulator.weight.detach().to(dtype).contiguous()
+        p = {"ln1_s": self.norm1.weight.float(),
+             "ln1_b": self.norm1.bias.float(),
+             "ln2_s": self.norm2.weight.float(),
+             "ln2_b": self.norm2.bias.float(),
+             "mod": (self.modulator.weight.to(dtype).contiguous()
                      if self.modulator is not None else None)}
         p.update(self.attn.kernel_params(dtype))
         p.update(self.mlp.kernel_params(dtype))
         return p
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        """plain=True calls the kernels' plain versions directly (the
-        comparison path); otherwise the kernel wrappers."""
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """plain=True runs the kernels' plain versions under torch autograd
+        (the comparison path); otherwise the kernels, whose backward is a
+        kernel too. `generator` feeds DropPath in training."""
         attention = attention_image_reference if plain else \
-            fused_attention_image
-        leff = leff_reference if plain else fused_leff
+            attention_image_ad
+        leff = leff_reference if plain else leff_ad
+        # active DropPath scales the branch: the residual stays outside
+        res = not (self.training and self.drop_path1.rate > 0.0)
         p = self.params_for(x.dtype, x.device)
-        x = attention(
+        y = attention(
             x, p["mod"], p["ln1_s"], p["ln1_b"], p["wq"], p["bq"], p["wkv"],
             p["bkv"], p["wo"], p["bo"], p["bias"], win=self.win_size,
             shift=self.shift_size, scale=self.attn.scale,
-            num_heads=self.num_heads)
-        return leff(x, p["w1"], p["b1"], p["wd"], p["bd"], p["w2"], p["b2"],
-                    ln_s=p["ln2_s"], ln_b=p["ln2_b"], residual=True)
+            num_heads=self.num_heads, residual=res)
+        x = y if res else x + self.drop_path1(y, generator)
+        y = leff(x, p["w1"], p["b1"], p["wd"], p["bd"], p["w2"], p["b2"],
+                 ln_s=p["ln2_s"], ln_b=p["ln2_b"], residual=res)
+        return y if res else x + self.drop_path2(y, generator)
 
 
 class BasicLayer(_Prepared, nn.Module):
@@ -206,7 +250,8 @@ class BasicLayer(_Prepared, nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int, win_size: int,
                  resolution: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
-                 shift_flag: bool = True, modulator: bool = False):
+                 shift_flag: bool = True, modulator: bool = False,
+                 drop_path: Sequence[float] = ()):
         super().__init__()
         self.dim, self.num_heads, self.win_size = dim, num_heads, win_size
         self.resolution = resolution
@@ -216,14 +261,17 @@ class BasicLayer(_Prepared, nn.Module):
         self.blocks = nn.ModuleList([
             LeWinBlock(dim, num_heads, win,
                        win // 2 if (self.use_shift and i % 2) else 0,
-                       mlp_ratio, qkv_bias, qk_scale, modulator)
+                       mlp_ratio, qkv_bias, qk_scale, modulator,
+                       drop_path[i] if len(drop_path) else 0.0)
             for i in range(depth)])
         # the stage kernel's static conditions (uformer_tpu layers.py:979)
         self.stage_ok = (win_size == 8 and resolution >= win_size
                          and dim % 128 == 0)
 
     def uses_stage(self, x: torch.Tensor) -> bool:
-        return self.stage_ok and x.shape[1] % 8 == 0 and x.shape[2] % 8 == 0
+        """The stage kernel runs in eval only: it has no backward kernel."""
+        return (not self.training and self.stage_ok and x.shape[1] % 8 == 0
+                and x.shape[2] % 8 == 0)
 
     def kernel_params(self, dtype: torch.dtype) -> Params:
         C = self.dim
@@ -245,7 +293,8 @@ class BasicLayer(_Prepared, nn.Module):
             for b in self.blocks:
                 b.prepare(dtype)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.uses_stage(x):
             stage = stage_reference if plain else fused_stage
             p = self.params_for(x.dtype, x.device)
@@ -253,7 +302,7 @@ class BasicLayer(_Prepared, nn.Module):
                          num_heads=self.num_heads, use_shift=self.use_shift,
                          has_mod=self.has_mod)
         for blk in self.blocks:
-            x = blk(x, plain)
+            x = blk(x, plain, generator)
         return x
 
 

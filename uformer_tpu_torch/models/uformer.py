@@ -1,16 +1,18 @@
-"""The Uformer U-Net (eval path), counterpart of
-`uformer_tpu/models/uformer.py:68-129`.
+"""The Uformer U-Net, counterpart of `uformer_tpu/models/uformer.py`.
 
 Channel plan (embed dim E): encoder E, 2E, 4E, 8E; bottleneck 16E;
 decoder stages at 16E/8E/4E/2E after concatenating the upsampled path
 with the encoder skip, upsampled first. The modulator sits in the decoder
-stages only. Global residual `x + y` in float32 when dd_in == 3.
+stages only. Global residual `x + y` in float32 when dd_in == 3. The
+stochastic-depth schedule is the reference's (`uformer.py:54-66`); the
+rates take effect in training only (`model.train()`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -31,15 +33,23 @@ class Uformer(nn.Module):
                  win_size: int = 8, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  shift_flag: bool = True, modulator: bool = False,
+                 drop_path_rate: float = 0.1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         E = embed_dim
         self.dd_in = dd_in
         self.dtype = dtype  # working dtype of the forward
+        self.depths, self.drop_path_rate = list(depths), drop_path_rate
+        enc, conv, dec = self.drop_path_schedule()
+        cum = np.cumsum([0] + self.depths[:4])
+        dcum = np.cumsum([0] + self.depths[5:])
+        rates = ([enc[cum[k]:cum[k + 1]] for k in range(4)] + [conv]
+                 + [dec[dcum[k]:dcum[k + 1]] for k in range(4)])
 
         def stage(k, dim, reso, mod=False):
             return BasicLayer(dim, depths[k], num_heads[k], win_size, reso,
-                              mlp_ratio, qkv_bias, qk_scale, shift_flag, mod)
+                              mlp_ratio, qkv_bias, qk_scale, shift_flag, mod,
+                              rates[k])
 
         self.input_proj = InputProj(dd_in, E)
         self.output_proj = OutputProj(2 * E, in_chans)
@@ -56,20 +66,33 @@ class Uformer(nn.Module):
                     stage(5 + k, E * 2 ** (4 - k), img_size // 2 ** (3 - k),
                           modulator))
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def drop_path_schedule(self) -> Tuple[List[float], List[float],
+                                          List[float]]:
+        """Per-block stochastic-depth rates (reference model.py:1093-1095):
+        a linear ramp over the encoder blocks, reversed for the decoder,
+        constant for the bottleneck. Python floats, as `uformer_tpu`
+        keeps them (uformer.py:57-63)."""
+        n_enc = sum(self.depths[:4])
+        enc = [float(v) for v in np.linspace(0, self.drop_path_rate, n_enc)]
+        conv = [float(self.drop_path_rate)] * self.depths[4]
+        return enc, conv, enc[::-1]
+
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, H, W, dd_in) NHWC, H and W multiples of 16 * win_size.
-        plain=True runs every kernel's plain version (for comparisons)."""
+        plain=True runs every kernel's plain version (for comparisons).
+        In training, `generator` draws every DropPath mask."""
         y = self.input_proj(x.to(self.dtype))
         skips = []
         for k in range(4):
-            y = getattr(self, f"encoderlayer_{k}")(y, plain)
+            y = getattr(self, f"encoderlayer_{k}")(y, plain, generator)
             skips.append(y)
             y = getattr(self, f"dowsample_{k}")(y)
-        y = self.conv(y, plain)
+        y = self.conv(y, plain, generator)
         for k in range(4):
             up = getattr(self, f"upsample_{k}")(y)
             y = torch.cat([up, skips[3 - k]], dim=-1)
-            y = getattr(self, f"decoderlayer_{k}")(y, plain)
+            y = getattr(self, f"decoderlayer_{k}")(y, plain, generator)
         y = self.output_proj(y).float()
         return x.float() + y if self.dd_in == 3 else y
 

@@ -1,19 +1,27 @@
-"""Hand-written Hopper kernels of the eval path, each beside its plain
-PyTorch version.
+"""Hand-written Hopper kernels of the eval and train paths, each beside
+its plain PyTorch version.
 
 Every wrapper counts its kernel launches (`wrapper.launches`) and, apart,
 the calls it answered with the plain version (`wrapper.plain_calls`),
-which it takes for a CPU tensor only. Importing this package builds nothing: the
-CUDA library is built at the first launch (`_build.load`).
+which it takes for a CPU tensor only. Importing this package builds
+nothing: the CUDA library is built at the first launch (`_build.load`).
+The `*_ad` functions are the differentiable forms: their backward is the
+backward kernel (`*_bwd`).
 """
 
 from uformer_tpu_torch.ops.kernels.attention_image import (  # noqa: F401
+    attention_image_ad,
     attention_image_reference,
+    attention_image_vjp_reference,
     fused_attention_image,
+    fused_attention_image_bwd,
 )
 from uformer_tpu_torch.ops.kernels.leff import (  # noqa: F401
     fused_leff,
+    fused_leff_bwd,
+    leff_ad,
     leff_reference,
+    leff_vjp_reference,
 )
 from uformer_tpu_torch.ops.kernels.stage import (  # noqa: F401
     STAGE_KEYS,
@@ -22,7 +30,8 @@ from uformer_tpu_torch.ops.kernels.stage import (  # noqa: F401
 )
 
 WRAPPERS = {"stage": fused_stage, "attention_image": fused_attention_image,
-            "leff": fused_leff}
+            "leff": fused_leff, "attention_bwd": fused_attention_image_bwd,
+            "leff_bwd": fused_leff_bwd}
 
 
 def reset_counts() -> None:

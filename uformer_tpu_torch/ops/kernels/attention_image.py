@@ -19,6 +19,7 @@ import torch
 from uformer_tpu_torch.ops.attention import window_attention
 from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
+from uformer_tpu_torch.ops.kernels.wgrad import colsum, wgrad
 from uformer_tpu_torch.ops.masks import shift_window_mask
 from uformer_tpu_torch.ops.norm import layer_norm
 from uformer_tpu_torch.ops.window import (
@@ -67,6 +68,17 @@ def attention_image_reference(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo,
     return x + out if residual else out
 
 
+def _check_geometry(x, win, shift, num_heads):
+    _, H, W, C = x.shape
+    if win != 8 or H % 8 or W % 8 or not 0 <= shift < 8:
+        raise ValueError(f"kernel needs win 8, H, W multiples of 8 and "
+                         f"0 <= shift < 8: win={win} H={H} W={W} "
+                         f"shift={shift}")
+    if C != num_heads * HEAD_DIM:
+        raise ValueError(f"kernel needs head dim {HEAD_DIM}: C={C}, "
+                         f"num_heads={num_heads}")
+
+
 def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
                           ln_s: Optional[torch.Tensor],
                           ln_b: Optional[torch.Tensor], wq, bq, wkv, bkv, wo,
@@ -88,13 +100,7 @@ def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
             residual=residual)
     _launch.check_input(x)
     B, H, W, C = x.shape
-    if win != 8 or H % 8 or W % 8 or not 0 <= shift < 8:
-        raise ValueError(f"kernel needs win 8, H, W multiples of 8 and "
-                         f"0 <= shift < 8: win={win} H={H} W={W} "
-                         f"shift={shift}")
-    if C != num_heads * HEAD_DIM:
-        raise ValueError(f"kernel needs head dim {HEAD_DIM}: C={C}, "
-                         f"num_heads={num_heads}")
+    _check_geometry(x, win, shift, num_heads)
     dt, dev, f32 = x.dtype, x.device, torch.float32
     if has_ln:
         _launch.expect(ln_s, "ln_s", (C,), f32, dev)
@@ -128,3 +134,150 @@ def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
 
 fused_attention_image.launches = 0
 fused_attention_image.plain_calls = 0
+
+
+def attention_image_vjp_reference(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv,
+                                  wo, bo, bias, *, win, shift, scale,
+                                  num_heads, has_ln=True, residual=True):
+    """The VJP of `attention_image_reference` by torch autograd, as the
+    tuple of `uformer_tpu` `attention_block.py:fused_attention_block_bwd`:
+    (dx, dmod, dln_s, dln_b, dwq, dbq, dwkv, dbkv, dwo, dbo, dbias), dx in
+    x's dtype and the rest float32 (None for an absent mod or LN)."""
+    args = [x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias]
+    if not has_ln:
+        args[2] = args[3] = None
+    with torch.enable_grad():
+        args = [None if t is None else t.detach().requires_grad_(True)
+                for t in args]
+        y = attention_image_reference(
+            *args, win=win, shift=shift, scale=scale, num_heads=num_heads,
+            has_ln=has_ln, residual=residual)
+        live = [t for t in args if t is not None]
+        grads = iter(torch.autograd.grad(y, live, g.to(y.dtype)))
+    out = [None if t is None else next(grads) for t in args]
+    return (out[0],) + tuple(None if d is None else d.float()
+                             for d in out[1:])
+
+
+def fused_attention_image_bwd(x: torch.Tensor, g: torch.Tensor,
+                              mod: Optional[torch.Tensor],
+                              ln_s: Optional[torch.Tensor],
+                              ln_b: Optional[torch.Tensor], wq, bq, wkv, bkv,
+                              wo, bo, bias, *, win: int, shift: int,
+                              scale: float, num_heads: int,
+                              has_ln: bool = True, residual: bool = True):
+    """VJP of the image-layout attention sub-block: (dx, dmod, dln_s,
+    dln_b, dwq, dbq, dwkv, dbkv, dwo, dbo, dbias), weight grads float32
+    (`uformer_tpu` `attention_block.py:877`, as `attention_image.py:482`
+    calls it).
+
+    Kernel source `csrc/attention_bwd.cu`: one block per shifted window
+    gathers x and g from the image, recomputes the forward and walks the
+    VJP; the weight gradients are then reduced over every token by
+    `csrc/wgrad.cu`. Inputs as `fused_attention_image` takes them. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernels or
+    raises."""
+    kw = dict(win=win, shift=shift, scale=scale, num_heads=num_heads,
+              has_ln=has_ln, residual=residual)
+    if x.device.type == "cpu":
+        fused_attention_image_bwd.plain_calls += 1
+        return attention_image_vjp_reference(x, g, mod, ln_s, ln_b, wq, bq,
+                                             wkv, bkv, wo, bo, bias, **kw)
+    _launch.check_input(x)
+    _launch.check_input(g)
+    B, H, W, C = x.shape
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    _check_geometry(x, win, shift, num_heads)
+    dt, dev, f32 = x.dtype, x.device, torch.float32
+    if has_ln:
+        _launch.expect(ln_s, "ln_s", (C,), f32, dev)
+        _launch.expect(ln_b, "ln_b", (C,), f32, dev)
+    if mod is not None:
+        _launch.expect(mod, "mod", (64, C), dt, dev)
+    for name, t, shape, tdt in (
+            ("wq", wq, (C, C), dt), ("bq", bq, (C,), f32),
+            ("wkv", wkv, (C, 2 * C), dt), ("bkv", bkv, (2 * C,), f32),
+            ("wo", wo, (C, C), dt), ("bias", bias, (num_heads, 64, 64), f32)):
+        _launch.expect(t, name, shape, tdt, dev)
+    lib = load()
+    is_bf16 = int(dt == torch.bfloat16)
+    nwin = B * (H // 8) * (W // 8)
+    M = nwin * 64
+
+    def empty(*shape, dtype=dt):
+        return torch.empty(*shape, dtype=dtype, device=dev)
+
+    need = lib.uf_attention_bwd_scratch(is_bf16, C)
+    x_scr = empty(M, C) if need & 1 else None
+    do_scr = empty(M, C) if need & 2 else None
+    dx, o_img = torch.empty_like(x), torch.empty_like(x)
+    xm_w, dqkv_w = empty(M, C), empty(M, 3 * C)
+    dbias_p = empty(nwin, num_heads * 4096, dtype=f32)
+    dmod_p = empty(nwin, 64 * C, dtype=f32) if mod is not None else None
+    dln_p = empty(nwin, 2 * C, dtype=f32) if has_ln else None
+    with torch.cuda.device(dev):
+        err = lib.uf_attention_bwd(
+            is_bf16, x.data_ptr(), g.data_ptr(), _launch.ptr(mod),
+            _launch.ptr(ln_s) if has_ln else None,
+            _launch.ptr(ln_b) if has_ln else None, wq.data_ptr(),
+            bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(), wo.data_ptr(),
+            bias.data_ptr(), dx.data_ptr(), xm_w.data_ptr(),
+            dqkv_w.data_ptr(), o_img.data_ptr(), dbias_p.data_ptr(),
+            _launch.ptr(dmod_p), _launch.ptr(dln_p), _launch.ptr(x_scr),
+            _launch.ptr(do_scr), B, H, W, C, num_heads, shift, float(scale),
+            int(has_ln), int(residual), _launch.stream(x))
+        _launch.check(err, "attention_bwd kernel")
+        del x_scr, do_scr
+        dw = wgrad(xm_w, dqkv_w)           # (C, 3C) = [dwq | dwk | dwv]
+        db = colsum(dqkv_w)
+        del xm_w, dqkv_w
+        dwo = wgrad(o_img.view(M, C), g.view(M, C))
+        dbo = colsum(g.view(M, C))
+        dbias = colsum(dbias_p).view(num_heads, 64, 64)
+        dmod = colsum(dmod_p).view(64, C) if mod is not None else None
+        dln = colsum(dln_p) if has_ln else None
+    fused_attention_image_bwd.launches += 1
+    return (dx, dmod, dln[:C] if has_ln else None,
+            dln[C:] if has_ln else None, dw[:, :C].contiguous(), db[:C],
+            dw[:, C:].contiguous(), db[C:], dwo, dbo, dbias)
+
+
+fused_attention_image_bwd.launches = 0
+fused_attention_image_bwd.plain_calls = 0
+
+
+class _AttentionImage(torch.autograd.Function):
+    """fused_attention_image forward; fused_attention_image_bwd backward.
+    Saves only the inputs and weights (`uformer_tpu`
+    `attention_image.py:479-480`); grads are cast to each input's dtype
+    (`attention_image.py:521-525`)."""
+
+    @staticmethod
+    def forward(ctx, x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias, kw):
+        ctx.kw = kw
+        ctx.save_for_backward(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo,
+                              bias)
+        return fused_attention_image(x, mod, ln_s, ln_b, wq, bq, wkv, bkv,
+                                     wo, bo, bias, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        grads = fused_attention_image_bwd(saved[0], g.contiguous(),
+                                          *saved[1:], **ctx.kw)
+        return tuple(None if d is None or t is None else d.to(t.dtype)
+                     for d, t in zip(grads, saved)) + (None,)
+
+
+def attention_image_ad(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias,
+                       *, win: int, shift: int, scale: float, num_heads: int,
+                       has_ln: bool = True,
+                       residual: bool = True) -> torch.Tensor:
+    """Differentiable `fused_attention_image`: its backward is
+    `fused_attention_image_bwd`."""
+    kw = dict(win=win, shift=shift, scale=scale, num_heads=num_heads,
+              has_ln=has_ln, residual=residual)
+    return _AttentionImage.apply(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
+                                 bo, bias, kw)

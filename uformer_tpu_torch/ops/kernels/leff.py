@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from uformer_tpu_torch.ops.dwconv import depthwise_conv2d
 from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
+from uformer_tpu_torch.ops.kernels.wgrad import colsum, wgrad
 from uformer_tpu_torch.ops.norm import layer_norm
 
 HIDDEN_CHUNK = 64  # the kernel walks the hidden in chunks of this width
@@ -80,3 +81,135 @@ def fused_leff(x: torch.Tensor, w1, b1, wd, bd, w2, b2, ln_s=None, ln_b=None,
 
 fused_leff.launches = 0
 fused_leff.plain_calls = 0
+
+
+def _f32(t):
+    return None if t is None else t.float()
+
+
+def leff_vjp_reference(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
+                       has_ln=True, residual=False):
+    """The VJP of `leff_reference` by torch autograd, as the tuple of
+    `uformer_tpu` `leff.py:fused_leff_bwd`: (dx, dw1, db1, dwd, dbd, dw2,
+    db2, dln_s, dln_b), dx in x's dtype and the rest float32 (dln_s, dln_b
+    None without LN). b2 does not enter the VJP."""
+    b2 = torch.zeros(w2.shape[-1], dtype=torch.float32, device=x.device)
+    prm = [x, w1, b1, wd, bd, w2, b2] + ([ln_s, ln_b] if has_ln else [])
+    with torch.enable_grad():
+        prm = [t.detach().requires_grad_(True) for t in prm]
+        y = leff_reference(*prm[:7], ln_s=prm[7] if has_ln else None,
+                           ln_b=prm[8] if has_ln else None,
+                           residual=residual)
+        grads = torch.autograd.grad(y, prm, dy.to(y.dtype))
+    if not has_ln:
+        grads = grads + (None, None)
+    return (grads[0],) + tuple(_f32(d) for d in grads[1:])
+
+
+def fused_leff_bwd(x: torch.Tensor, dy: torch.Tensor, w1, b1, wd, bd, w2,
+                   ln_s=None, ln_b=None, *, has_ln: bool = True,
+                   residual: bool = False):
+    """VJP of the LeFF sub-block: (dx, dw1, db1, dwd, dbd, dw2, db2, dln_s,
+    dln_b), weight grads float32 (`uformer_tpu` `leff.py:880`).
+
+    Kernel source `csrc/leff_bwd.cu` (two tile kernels that recompute the
+    hidden from x), then the weight gradients reduced over every pixel by
+    `csrc/wgrad.cu`. Weights as `fused_leff` takes them. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernels or raises."""
+    if x.device.type == "cpu":
+        fused_leff_bwd.plain_calls += 1
+        return leff_vjp_reference(x, dy, w1, b1, wd, bd, w2, ln_s, ln_b,
+                                  has_ln=has_ln, residual=residual)
+    _launch.check_input(x)
+    _launch.check_input(dy)
+    B, H, W, C = x.shape
+    Ch = w1.shape[-1]
+    dt, dev, f32 = x.dtype, x.device, torch.float32
+    if dy.shape != x.shape or dy.dtype != dt:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must match x "
+                         f"{tuple(x.shape)} {dt}")
+    lib = load()
+    is_bf16 = int(dt == torch.bfloat16)
+    tha = lib.uf_leff_bwd_tile_rows(0, is_bf16, C)
+    thb = lib.uf_leff_bwd_tile_rows(1, is_bf16, C)
+    if C % 16 or Ch % HIDDEN_CHUNK or H % max(tha, thb) or W % 8:
+        raise ValueError(f"kernel needs C % 16 == 0, Ch % {HIDDEN_CHUNK} "
+                         f"== 0, H % {max(tha, thb)} == 0 and W % 8 == 0: "
+                         f"C={C} Ch={Ch} H={H} W={W}")
+    if has_ln:
+        _launch.expect(ln_s, "ln_s", (C,), f32, dev)
+        _launch.expect(ln_b, "ln_b", (C,), f32, dev)
+    for name, t, shape, tdt in (
+            ("w1", w1, (C, Ch), dt), ("b1", b1, (Ch,), f32),
+            ("wd", wd, (3, 3, Ch), dt), ("bd", bd, (Ch,), f32),
+            ("w2", w2, (Ch, C), dt)):
+        _launch.expect(t, name, shape, tdt, dev)
+    ln_p = (_launch.ptr(ln_s), _launch.ptr(ln_b)) if has_ln else (None, None)
+    tail = (B, H, W, C, Ch, int(has_ln), int(residual), _launch.stream(x))
+    M = B * H * W
+    g = torch.empty(B, H, W, Ch, dtype=dt, device=dev)
+    dpre2 = torch.empty_like(g)
+    part_a = torch.empty(B * (H // tha) * (W // 8), 10 * Ch, dtype=f32,
+                         device=dev)
+    with torch.cuda.device(dev):
+        err = lib.uf_leff_bwd(
+            0, is_bf16, x.data_ptr(), dy.data_ptr(), *ln_p, w1.data_ptr(),
+            b1.data_ptr(), wd.data_ptr(), bd.data_ptr(), w2.data_ptr(),
+            g.data_ptr(), dpre2.data_ptr(), part_a.data_ptr(), None, None,
+            None, None, *tail)
+        _launch.check(err, "leff_bwd kernel A")
+        dw2 = wgrad(g.view(M, Ch), dy.view(M, C))
+        del g
+        dx = torch.empty_like(x)
+        ln = torch.empty_like(x)
+        dpre1 = torch.empty(B, H, W, Ch, dtype=dt, device=dev)
+        part_b = torch.empty(B * (H // thb) * (W // 8), 2 * C, dtype=f32,
+                             device=dev)
+        err = lib.uf_leff_bwd(
+            1, is_bf16, x.data_ptr(), dy.data_ptr(), *ln_p, w1.data_ptr(),
+            b1.data_ptr(), wd.data_ptr(), bd.data_ptr(), None, None,
+            dpre2.data_ptr(), None, dx.data_ptr(), ln.data_ptr(),
+            dpre1.data_ptr(), part_b.data_ptr(), *tail)
+        _launch.check(err, "leff_bwd kernel B")
+        del dpre2
+        dw1 = wgrad(ln.view(M, C), dpre1.view(M, Ch))
+        db1 = colsum(dpre1.view(M, Ch))
+        db2 = colsum(dy.view(M, C))
+        pa = colsum(part_a)
+        dln = colsum(part_b) if has_ln else None
+    fused_leff_bwd.launches += 1
+    return (dx, dw1, db1, pa[:9 * Ch].view(3, 3, Ch), pa[9 * Ch:], dw2, db2,
+            dln[:C] if has_ln else None, dln[C:] if has_ln else None)
+
+
+fused_leff_bwd.launches = 0
+fused_leff_bwd.plain_calls = 0
+
+
+class _LeFF(torch.autograd.Function):
+    """fused_leff forward; fused_leff_bwd backward. Saves only the inputs
+    and weights (`uformer_tpu` `leff.py:1086-1087`); grads are cast to each
+    input's dtype (`leff.py:1099-1103`)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, wd, bd, w2, b2, ln_s, ln_b, residual):
+        ctx.residual = residual
+        ctx.save_for_backward(x, w1, b1, wd, bd, w2, b2, ln_s, ln_b)
+        return fused_leff(x, w1, b1, wd, bd, w2, b2, ln_s=ln_s, ln_b=ln_b,
+                          residual=residual)
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        x, w1, b1, wd, bd, w2, _, ln_s, ln_b = saved
+        grads = fused_leff_bwd(x, dy.contiguous(), w1, b1, wd, bd, w2, ln_s,
+                               ln_b, has_ln=ln_s is not None,
+                               residual=ctx.residual)
+        return tuple(None if d is None else d.to(t.dtype)
+                     for d, t in zip(grads, saved)) + (None,)
+
+
+def leff_ad(x, w1, b1, wd, bd, w2, b2, ln_s=None, ln_b=None, *,
+            residual: bool = False) -> torch.Tensor:
+    """Differentiable `fused_leff`: its backward is `fused_leff_bwd`."""
+    return _LeFF.apply(x, w1, b1, wd, bd, w2, b2, ln_s, ln_b, residual)
