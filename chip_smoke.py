@@ -6,10 +6,16 @@
 
 Phases, each raising on failure (no phase is caught):
   1. device  - fails at once without CUDA; prints the card and power limit.
-  2. build   - nvcc builds the three kernels of csrc/ (sm_90a).
+  2. build   - nvcc builds the kernels of csrc/ (sm_90a), one process per
+               source, in parallel.
   3. kernels - each kernel against its plain PyTorch version at every
-               main-path shape of Uformer_B at 256^2 (batch 2), in fp32
-               (TF32 off) and bf16.
+               main-path shape of Uformer_B and of Uformer_T at 256^2
+               (batch 2), in fp32 (TF32 off) and bf16: for Uformer_T the
+               stage and attention-image kernels at head dim 16, the
+               attention-block kernel at enc0 (LN and modulator each way),
+               LeFF at C 16-64, and the window-attention core at every
+               stage's heads and shifts; kernels 4 and 5 also at one
+               Uformer_B (head dim 32) geometry.
   4. golden  - Uformer_B at 128^2, fp32, through the kernels, stage by stage
                against the recorded torch activations of
                tests/golden/uformer_b_128.npz.
@@ -18,7 +24,13 @@ Phases, each raising on failure (no phase is caught):
                peak memory; the kernel path against the plain path.
   6. timing  - each kernel against its plain version at the bs8 256^2
                shapes, stage by stage, and the whole forward.
-  7. train   - Uformer_B at 128^2 in training (drop path 0.1, mixup on):
+  7. serve T - the same for Uformer_T (seeded numpy weights over the port's
+               own parameter names): 4 requests of batch 8 at 256^2.
+  8. timing T - as 6 for Uformer_T, and the window-attention core alone at
+               its enc0 shape against its plain version and against
+               F.scaled_dot_product_attention (a yardstick the port never
+               calls).
+  9. train   - Uformer_B at 128^2 in training (drop path 0.1, mixup on):
                the forward kernels with residual=False and the backward
                kernels against their plain versions at every stage shape
                (shift 0 and 4, fp32 and bf16, every gradient) and one
@@ -34,7 +46,10 @@ fp32 plain result <= 1.5 x the bf16 plain version's error + 1e-3; for
 gradients, per tensor, the bf16 term is 1e-3 * max(1, max|ref|), since
 weight gradients are sums over every token; golden as
 tests/test_golden_parity.py. --json PATH writes every check and timing
-there. The last line is {"ok": true, "device": {...}}.
+there. Each kernel's bound is the larger of its operations at the bf16
+tensor-core peak and its bytes (inputs read once, outputs written once) at
+the HBM rate of an H100 SXM. The line before the last lists every kernel;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -50,15 +65,24 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 BATCH_CHECK, BATCH_SERVE, RES_SERVE, RES_GOLDEN = 2, 8, 256, 128
 BATCH_TRAIN, RES_TRAIN, N_TRAIN_STEPS = 32, 128, 3
 N_REQUESTS = 4
+SEED_T = 1235  # Uformer_T's seeded weights
 EXPECTED_LAUNCHES = {"stage": 6, "attention_image": 4, "leff": 4,
-                     "attention_bwd": 0, "leff_bwd": 0}
+                     "attention_bwd": 0, "leff_bwd": 0,
+                     "window_attention": 0, "attention_block": 0}
+T_LAUNCHES = {"stage": 4, "attention_image": 8, "leff": 10,
+              "attention_bwd": 0, "leff_bwd": 0, "window_attention": 0,
+              "attention_block": 2}
 TRAIN_LAUNCHES = {"stage": 0, "attention_image": 40, "leff": 40,
-                  "attention_bwd": 40, "leff_bwd": 40}
+                  "attention_bwd": 40, "leff_bwd": 40,
+                  "window_attention": 0, "attention_block": 0}
+# H100 SXM (NVIDIA data sheet): dense bf16 tensor-core FLOP/s, HBM bytes/s
+PEAK_BF16, PEAK_HBM = 989e12, 3.35e12
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "stage": ("uformer_tpu_torch/csrc/stage.cu",
               "uformer_tpu/ops/pallas/stage.py:418"),
@@ -70,6 +94,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                       "uformer_tpu/ops/pallas/attention_block.py:877"),
     "leff_bwd": ("uformer_tpu_torch/csrc/leff_bwd.cu",
                  "uformer_tpu/ops/pallas/leff.py:880"),
+    "window_attention": ("uformer_tpu_torch/csrc/window_attention.cu",
+                         "uformer_tpu/ops/pallas/window_attention.py:97"),
+    "attention_block": ("uformer_tpu_torch/csrc/attention_block.cu",
+                        "uformer_tpu/ops/pallas/attention_block.py:1152"),
 }
 STAGES = (["input_proj"] + [f"encoderlayer_{k}" for k in range(4)]
           + [f"dowsample_{k}" for k in range(4)] + ["conv"]
@@ -110,25 +138,105 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def seeded_weights():
-    """The golden Uformer_B state_dict, regenerated from its seed (numpy).
-    tests/golden/generate.py is loaded by path: a site package named
+def attn_cost(tokens, C, nH, s=2, mod=True, ln=True):
+    """(operations, bytes) of an attention sub-block (kernels 1 and 5) over
+    `tokens` tokens of width C: the q, kv and output projections and two
+    64 x 64 x D products per head and window; x read and y written once,
+    the weights, biases, bias table [, modulator, LN] read once."""
+    weights = (4 * C * C * s + 4 * C * 4 + nH * 4096 * 4
+               + (64 * C * s if mod else 0) + (2 * C * 4 if ln else 0))
+    return 2 * tokens * C * (4 * C + 128), 2 * tokens * C * s + weights
+
+
+def leff_cost(tokens, C, Ch, s=2):
+    """(operations, bytes) of a LeFF sub-block: two C x Ch products and
+    the 3 x 3 depthwise taps per token; x, y and the weights once."""
+    return (tokens * (4 * C * Ch + 18 * Ch),
+            2 * tokens * C * s + (2 * C * Ch + 9 * Ch) * s
+            + (2 * Ch + 3 * C) * 4)
+
+
+def stage_cost(tokens, C, nH, Ch, n, s=2, mod=True):
+    """n blocks of a stage: the stage image in and out once, every
+    block's weights once."""
+    fa, ba = attn_cost(tokens, C, nH, s, mod)
+    fl, bl = leff_cost(tokens, C, Ch, s)
+    act = 2 * tokens * C * s
+    return n * (fa + fl), act + n * (ba + bl - 2 * act)
+
+
+def core_cost(nH, Bw, D, s=2):
+    """The window-attention core: q, k, v read and the output written."""
+    return (4 * nH * Bw * 64 * 64 * D,
+            4 * nH * Bw * 64 * D * s + nH * 4096 * 4)
+
+
+def bwd_cost(fwd, tokens, C, s=2):
+    """A backward kernel of a sub-block of cost `fwd`: twice its products
+    (input and weight gradients); x and the output gradient read, dx
+    written, the weights read and their float32 gradients written."""
+    flops, nbytes = fwd
+    weights = nbytes - 2 * tokens * C * s
+    return 2 * flops, 3 * tokens * C * s + 3 * weights
+
+
+def tally(totals: dict, kernel: str, k_ms: float, p_ms: float, cost,
+          n: int = 1) -> float:
+    """Add n calls of `kernel` (its time, its plain version's, and the
+    bound of `cost` = (operations, bytes)) to totals; returns the bound
+    of the n calls in ms."""
+    t = totals.setdefault(kernel, {"ms": 0.0, "plain_ms": 0.0,
+                                   "launches": 0, "bound_ms": 0.0,
+                                   "op_ms": 0.0, "byte_ms": 0.0})
+    op, byte = cost[0] / PEAK_BF16 * 1e3, cost[1] / PEAK_HBM * 1e3
+    t["ms"] += n * k_ms
+    t["plain_ms"] += n * p_ms
+    t["launches"] += n
+    t["bound_ms"] += n * max(op, byte)
+    t["op_ms"] += n * op
+    t["byte_ms"] += n * byte
+    return n * max(op, byte)
+
+
+def bound_by(t: dict) -> str:
+    return "operations" if t["op_ms"] >= t["byte_ms"] else "bytes"
+
+
+def golden_module():
+    """tests/golden/generate.py, loaded by path: a site package named
     `tests` may shadow the repo's directory."""
     spec = importlib.util.spec_from_file_location(
         "golden_generate", REPO / "tests" / "golden" / "generate.py")
     gen = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(gen)
+    return gen
+
+
+def seeded_weights():
+    """The golden Uformer_B state_dict, regenerated from its seed (numpy)."""
     data = np.load(REPO / "tests" / "golden" / "uformer_b_128.npz")
     keys_shapes = json.loads(str(data["sd_manifest"]))
-    return data, gen.seeded_state_dict(keys_shapes, int(data["seed"]))
+    return data, golden_module().seeded_state_dict(keys_shapes,
+                                                   int(data["seed"]))
 
 
-def build_model(sd, train_ps: int, device):
+def build_model(sd, train_ps: int, device, arch: str = "Uformer_B"):
     from uformer_tpu_torch import get_arch
     from uformer_tpu_torch.convert import load_numpy_state_dict
 
-    model = get_arch({"arch": "Uformer_B", "train_ps": train_ps})
+    model = get_arch({"arch": arch, "train_ps": train_ps})
     return load_numpy_state_dict(model, sd).to(device).eval()
+
+
+def t_weights():
+    """Uformer_T's weights drawn with numpy from SEED_T over the port's own
+    parameter names, by the golden weights' rule (N(0, 1/fan_in) matrices,
+    LayerNorm scales near 1, small biases)."""
+    from uformer_tpu_torch import get_arch
+
+    model = get_arch({"arch": "Uformer_T"})
+    keys_shapes = [[k, list(v.shape)] for k, v in model.named_parameters()]
+    return golden_module().seeded_state_dict(keys_shapes, SEED_T)
 
 
 class Checks:
@@ -176,9 +284,12 @@ def compare(checks: Checks, kernel: str, what: str, fused, plain, x32):
                1.5 * e_plain + 1e-3, "bf16")
 
 
+@torch.no_grad()
 def kernel_phase(model, device) -> Checks:
     """Every kernel against its plain version at the main-path shapes of
-    Uformer_B at 256^2, batch BATCH_CHECK, with the model's own weights."""
+    `model` at 256^2, batch BATCH_CHECK, with the model's own weights: the
+    stage kernel, or per block the attention-image kernel or, off the
+    image route, the attention-block kernel (block_checks), and LeFF."""
     from uformer_tpu_torch.ops import kernels as K
 
     checks = Checks()
@@ -194,14 +305,16 @@ def kernel_phase(model, device) -> Checks:
             kw = dict(scale=layer.blocks[0].attn.scale,
                       num_heads=layer.num_heads, use_shift=layer.use_shift,
                       has_mod=layer.has_mod)
-            compare(checks, "stage", f"{name} {shape} n={len(layer.blocks)}",
+            compare(checks, "stage", f"{name} {shape} n={len(layer.blocks)} "
+                    f"nH={layer.num_heads}",
                     lambda x, dt: K.fused_stage(x, prm[dt], **kw),
                     lambda x, dt: K.stage_reference(x, prm[dt], **kw), x32)
             continue
         for i, blk in enumerate(layer.blocks):
             prm = {dt: blk.kernel_params(dt)
                    for dt in (torch.float32, torch.bfloat16)}
-            what = f"{name}.{i} {shape} shift={blk.shift_size}"
+            what = (f"{name}.{i} {shape} nH={blk.num_heads} "
+                    f"shift={blk.shift_size}")
 
             def attn(fn):
                 return lambda x, dt: fn(
@@ -218,11 +331,87 @@ def kernel_phase(model, device) -> Checks:
                     ln_s=prm[dt]["ln2_s"], ln_b=prm[dt]["ln2_b"],
                     residual=True)
 
-            compare(checks, "attention_image", what,
-                    attn(K.fused_attention_image),
-                    attn(K.attention_image_reference), x32)
+            if blk.image_route:
+                compare(checks, "attention_image", what,
+                        attn(K.fused_attention_image),
+                        attn(K.attention_image_reference), x32)
+            else:
+                block_checks(checks, blk, prm, shape, gen, device, what)
             compare(checks, "leff", what, leff(K.fused_leff),
                     leff(K.leff_reference), x32)
+    torch.cuda.synchronize()
+    return checks
+
+
+def block_checks(checks: Checks, blk, prm, shape, gen, device,
+                 what: str) -> None:
+    """The attention-block kernel at blk's geometry on random windows of a
+    `shape` image, with LN and a modulator each on and off (the model
+    runs it with LN outside, and with the block's own modulator)."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    B, H, W, C = shape
+    wnd = torch.randn((B * H * W // 64, 64, C), generator=gen) \
+        .bfloat16().float().to(device)
+    mod = torch.randn((64, C), generator=gen).bfloat16().float().to(device)
+    for has_ln in (False, True):
+        for with_mod in (False, True):
+            def run(fn, has_ln=has_ln, with_mod=with_mod):
+                return lambda x, dt: fn(
+                    x, mod.to(dt) if with_mod else None, prm[dt]["ln1_s"],
+                    prm[dt]["ln1_b"], *(prm[dt][k] for k in (
+                        "wq", "bq", "wkv", "bkv", "wo", "bo", "bias")),
+                    win=blk.win_size, shift=blk.shift_size, H=H, W=W,
+                    scale=blk.attn.scale, num_heads=blk.num_heads,
+                    has_ln=has_ln)
+
+            compare(checks, "attention_block",
+                    f"{what} ln={int(has_ln)} mod={int(with_mod)}",
+                    run(K.fused_attention_block),
+                    run(K.attention_block_reference), wnd)
+
+
+def core_checks(checks: Checks, model, names, device, gen) -> None:
+    """The window-attention core at the (resolution, heads) of each named
+    stage of `model` at 256^2, batch BATCH_CHECK, with the bias of the
+    stage's first block, at each shift the stage runs."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    for name in names:
+        layer = getattr(model, name)
+        res, nH = layer.resolution, layer.num_heads
+        D = layer.dim // nH
+        bias = layer.blocks[0].kernel_params(torch.float32)["bias"]
+        Bw = BATCH_CHECK * (res // 8) ** 2
+        q, k, v = (torch.randn((nH, Bw, 64, D), generator=gen).bfloat16()
+                   .float().to(device) for _ in range(3))
+        for shift in ((0, 4) if layer.use_shift else (0,)):
+            kw = dict(win=8, shift=shift, H=res, W=res, scale=D ** -0.5)
+
+            def run(fn, kw=kw, k=k, v=v, bias=bias):
+                return lambda x, dt: fn(x, k.to(dt), v.to(dt), bias, **kw)
+
+            compare(checks, "window_attention",
+                    f"{name} (nH, Bw, 64, D)=({nH}, {Bw}, 64, {D}) "
+                    f"shift={shift}", run(K.fused_window_attention),
+                    run(K.window_attention_reference), q)
+
+
+@torch.no_grad()
+def kernel_phase_t(model_t, model_b, device) -> Checks:
+    """Uformer_T's main-path shapes at 256^2 (head dim 16 throughout), the
+    core at every stage, and kernels 4 and 5 at Uformer_B's enc1 (C 64,
+    two heads of 32, shift 4)."""
+    checks = kernel_phase(model_t, device)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    core_checks(checks, model_t, LAYERS, device, gen)
+    core_checks(checks, model_b, ["encoderlayer_1"], device, gen)
+    layer = model_b.encoderlayer_1
+    blk = layer.blocks[1]
+    prm = {dt: blk.kernel_params(dt) for dt in (torch.float32, torch.bfloat16)}
+    block_checks(checks, blk, prm, (BATCH_CHECK, layer.resolution,
+                                    layer.resolution, layer.dim), gen,
+                 device, f"Uformer_B encoderlayer_1.1 shift={blk.shift_size}")
     torch.cuda.synchronize()
     return checks
 
@@ -271,15 +460,15 @@ def golden_phase(data, sd, device) -> Checks:
     return checks
 
 
-def serve_phase(sd, device):
-    """A bf16 Restorer at 256^2 answers N_REQUESTS requests of batch
-    BATCH_SERVE; returns the summary, the per-kernel launch totals and the
+def serve_phase(make_model, device, expected: dict, label: str):
+    """A bf16 Restorer of make_model() (a float32 model at 256^2 on the
+    card) answers N_REQUESTS requests of batch BATCH_SERVE, each launching
+    `expected`; returns the summary, the per-kernel launch totals and the
     checks of kernel path against plain path."""
     from uformer_tpu_torch.ops import kernels as K
     from uformer_tpu_torch.restore import Restorer
 
-    restorer = Restorer(build_model(sd, RES_SERVE, device), torch.bfloat16,
-                        device)
+    restorer = Restorer(make_model(), torch.bfloat16, device)
     gen = torch.Generator(device="cpu").manual_seed(1)
     shape = (BATCH_SERVE, RES_SERVE, RES_SERVE, 3)
     requests = [torch.rand(shape, generator=gen)
@@ -300,14 +489,14 @@ def serve_phase(sd, device):
         per_request.append({k: after[k] - before[k] for k in after})
         if tuple(y.shape) != shape or not bool(torch.isfinite(y).all()) \
                 or float(y.min()) < 0.0 or float(y.max()) > 1.0:
-            raise RuntimeError(f"serve: bad output {tuple(y.shape)}")
+            raise RuntimeError(f"{label}: bad output {tuple(y.shape)}")
     launches = K.launch_counts()
     peak = torch.cuda.max_memory_allocated(device)
     for i, c in enumerate(per_request):
         print(f"  request {i}: launches {c}  {ms[i]:.3f} ms", flush=True)
-        if c != EXPECTED_LAUNCHES:
-            raise RuntimeError(f"serve: request {i} launched {c}, "
-                               f"expected {EXPECTED_LAUNCHES}")
+        if c != expected:
+            raise RuntimeError(f"{label}: request {i} launched {c}, "
+                               f"expected {expected}")
     med = float(np.median(ms))
     mps = BATCH_SERVE * RES_SERVE * RES_SERVE / 1e6 / (med / 1e3)
     print(f"  median {med:.3f} ms/request  {mps:.2f} MP/s  peak "
@@ -316,14 +505,14 @@ def serve_phase(sd, device):
     # kernel path against the plain path on the same weights (unclamped)
     x = requests[1].to(device)
     model16 = restorer.model
-    model32 = build_model(sd, RES_SERVE, device)
+    model32 = make_model()
     from uformer_tpu_torch.utils.params import prepare_serving
     prepare_serving(model32, torch.float32)
     checks = Checks()
     with torch.no_grad():
         ref32 = model32(x, plain=True)
         e_plain = max_err(model16(x, plain=True), ref32)
-        checks.add("model", f"serve forward {shape}",
+        checks.add("model", f"{label} forward {shape}",
                    max_err(model16(x), ref32), 1.5 * e_plain + 1e-3, "bf16")
     del model32, ref32
     summary = {"ms_per_request": ms, "median_ms": med, "mp_per_s": mps,
@@ -334,9 +523,13 @@ def serve_phase(sd, device):
 
 def timing_phase(restorer, x):
     """Device time of each kernel and of its plain version on the inputs
-    the bs8 256^2 bf16 forward gives it, stage by stage, and of the whole
-    forward on each path."""
+    the bs8 256^2 bf16 forward gives it, stage by stage, with each call's
+    bound, and of the whole forward on each path. Returns the rows, the
+    per-kernel totals over one forward (ms, plain ms, launches, bound) and
+    the forward's times."""
     from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.ops.norm import layer_norm
+    from uformer_tpu_torch.ops.window import cyclic_shift, window_partition
 
     model = restorer.model
     inputs = {}
@@ -347,20 +540,21 @@ def timing_phase(restorer, x):
         model(x)
     for h in hooks:
         h.remove()
-    rows = []
-    totals = {k: [0.0, 0.0] for k in ("stage", "attention_image", "leff")}
+    rows, totals = [], {}
     with torch.no_grad():
         for name in LAYERS:
             layer, xin = getattr(model, name), inputs[name]
+            B, H, W, C = xin.shape
+            tokens, nH = B * H * W, layer.num_heads
             if layer.uses_stage(xin):
                 pair = [("stage", lambda: layer(xin),
-                         lambda: layer(xin, plain=True))]
+                         lambda: layer(xin, plain=True),
+                         stage_cost(tokens, C, nH, 4 * C, len(layer.blocks),
+                                    mod=layer.has_mod))]
             else:
                 pair = []
                 for blk in layer.blocks:
                     p = blk.params_for(xin.dtype, xin.device)
-                    kw = dict(win=blk.win_size, shift=blk.shift_size,
-                              scale=blk.attn.scale, num_heads=blk.num_heads)
                     args = (p["mod"], p["ln1_s"], p["ln1_b"], p["wq"],
                             p["bq"], p["wkv"], p["bkv"], p["wo"], p["bo"],
                             p["bias"])
@@ -368,42 +562,119 @@ def timing_phase(restorer, x):
                              p["b2"])
                     lkw = dict(ln_s=p["ln2_s"], ln_b=p["ln2_b"],
                                residual=True)
-                    xa = K.fused_attention_image(xin, *args, **kw)
-                    pair.append(("attention_image",
-                                 lambda xin=xin, args=args, kw=kw:
-                                 K.fused_attention_image(xin, *args, **kw),
-                                 lambda xin=xin, args=args, kw=kw:
-                                 K.attention_image_reference(xin, *args,
-                                                             **kw)))
+                    has_mod = p["mod"] is not None
+                    if blk.image_route:
+                        kw = dict(win=blk.win_size, shift=blk.shift_size,
+                                  scale=blk.attn.scale, num_heads=nH)
+                        xa = K.fused_attention_image(xin, *args, **kw)
+                        pair.append((
+                            "attention_image",
+                            lambda xin=xin, args=args, kw=kw:
+                            K.fused_attention_image(xin, *args, **kw),
+                            lambda xin=xin, args=args, kw=kw:
+                            K.attention_image_reference(xin, *args, **kw),
+                            attn_cost(tokens, C, nH, mod=has_mod)))
+                    else:
+                        # the windowed branch's kernel input: LN1, shift,
+                        # partition (the model's own glue)
+                        wnd = window_partition(cyclic_shift(
+                            layer_norm(xin, p["ln1_s"], p["ln1_b"]),
+                            blk.shift_size), blk.win_size)
+                        bargs = (p["mod"], None, None) + args[3:]
+                        kw = dict(win=blk.win_size, shift=blk.shift_size,
+                                  H=H, W=W, scale=blk.attn.scale,
+                                  num_heads=nH, has_ln=False)
+                        xa = xin + blk.windowed_attention(xin, p)
+                        pair.append((
+                            "attention_block",
+                            lambda wnd=wnd, bargs=bargs, kw=kw:
+                            K.fused_attention_block(wnd, *bargs, **kw),
+                            lambda wnd=wnd, bargs=bargs, kw=kw:
+                            K.attention_block_reference(wnd, *bargs, **kw),
+                            attn_cost(tokens, C, nH, mod=has_mod, ln=False)))
                     pair.append(("leff",
                                  lambda xa=xa, largs=largs, lkw=lkw:
                                  K.fused_leff(xa, *largs, **lkw),
                                  lambda xa=xa, largs=largs, lkw=lkw:
-                                 K.leff_reference(xa, *largs, **lkw)))
+                                 K.leff_reference(xa, *largs, **lkw),
+                                 leff_cost(tokens, C, 4 * C)))
                     xin = K.fused_leff(xa, *largs, **lkw)
-            for kernel, fused, plain in pair:
+            for kernel, fused, plain, cost in pair:
                 # plain, kernel, kernel, plain: alternate the order
                 p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(fused),
                                   cuda_ms(fused), cuda_ms(plain))
                 k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-                totals[kernel][0] += k_ms
-                totals[kernel][1] += p_ms
+                b_ms = tally(totals, kernel, k_ms, p_ms, cost)
                 rows.append({"layer": name, "kernel": kernel,
                              "shape": list(inputs[name].shape),
-                             "ms": k_ms, "plain_ms": p_ms})
+                             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms})
                 print(f"  {name:16s} {kernel:16s} "
                       f"{str(tuple(inputs[name].shape)):22s} kernel "
-                      f"{k_ms:8.3f} ms  plain {p_ms:8.3f} ms", flush=True)
+                      f"{k_ms:8.3f} ms  plain {p_ms:8.3f} ms  bound "
+                      f"{b_ms:7.4f} ms", flush=True)
         p1 = cuda_ms(lambda: model(x, plain=True), reps=5)
         k1 = cuda_ms(lambda: model(x), reps=5)
         k2 = cuda_ms(lambda: model(x), reps=5)
         p2 = cuda_ms(lambda: model(x, plain=True), reps=5)
     fwd = {"kernel_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
            "runs_ms": {"plain": [p1, p2], "kernel": [k1, k2]}}
+    for kernel, t in totals.items():
+        print(f"  {kernel:16s} per forward: {t['launches']} launches, "
+              f"kernel {t['ms']:8.3f} ms, plain {t['plain_ms']:8.3f} ms, "
+              f"bound {t['bound_ms']:7.4f} ms ({bound_by(t)})", flush=True)
     print(f"  forward bs{x.shape[0]} {x.shape[1]}^2 bf16: kernel path "
           f"{fwd['kernel_ms']:.3f} ms, plain path {fwd['plain_ms']:.3f} ms",
           flush=True)
     return rows, totals, fwd
+
+
+@torch.no_grad()
+def core_timing(model_t, device) -> dict:
+    """The window-attention core alone at Uformer_T's enc0 shape of the
+    bs8 256^2 forward (one head, head dim 16, shift 4), bf16: the kernel,
+    its plain version and F.scaled_dot_product_attention with the bias and
+    shift mask as one additive mask (a yardstick; the port never calls
+    it), in the order plain, kernel, library, library, kernel, plain."""
+    from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.ops.kernels.window_attention import window_mask
+
+    layer = model_t.encoderlayer_0
+    res, nH = RES_SERVE, layer.num_heads
+    D, shift = layer.dim // nH, 4
+    Bw = BATCH_SERVE * (res // 8) ** 2
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    q, k, v = (torch.randn((nH, Bw, 64, D), generator=gen)
+               .to(device, torch.bfloat16) for _ in range(3))
+    bias = layer.blocks[1].kernel_params(torch.float32)["bias"]
+    kw = dict(win=8, shift=shift, H=res, W=res, scale=D ** -0.5)
+    mask = window_mask(res, res, 8, shift, Bw, 0, device)  # (nW, 64, 64)
+    full = (bias[:, None, None] + mask[None, None]) \
+        .expand(nH, BATCH_SERVE, *mask.shape).reshape(nH, Bw, 64, 64) \
+        .to(torch.bfloat16).contiguous()
+
+    def fused():
+        return K.fused_window_attention(q, k, v, bias, **kw)
+
+    def plain():
+        return K.window_attention_reference(q, k, v, bias, **kw)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=full,
+                                              scale=D ** -0.5)
+
+    p1, k1, l1 = cuda_ms(plain), cuda_ms(fused), cuda_ms(library)
+    l2, k2, p2 = cuda_ms(library), cuda_ms(fused), cuda_ms(plain)
+    t = {}
+    tally(t, "window_attention", (k1 + k2) / 2, (p1 + p2) / 2,
+          core_cost(nH, Bw, D))
+    out = dict(t["window_attention"], library_ms=(l1 + l2) / 2,
+               shape=[nH, Bw, 64, D], shift=shift,
+               library_max_abs_err_vs_plain=max_err(library(), plain()))
+    print(f"  window_attention {tuple(out['shape'])} shift {shift}: kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA "
+          f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+          f"({bound_by(out)})", flush=True)
+    return out
 
 
 def grad_bound(checks: Checks, kernel: str, what: str, got, ref, low,
@@ -645,11 +916,10 @@ def train_kernel_timing(model, device):
     """Device time of each kernel against its plain version at the bs
     BATCH_TRAIN bf16 shapes of one train step. One block per (stage,
     shift) is timed on random inputs and counted once per block of the
-    stage with that shift; totals are per step."""
+    stage with that shift; totals (ms, plain ms, launches, bound) are per
+    step."""
     gen = torch.Generator(device="cpu").manual_seed(6)
-    rows, totals = [], {k: [0.0, 0.0] for k in
-                        ("attention_image", "leff", "attention_bwd",
-                         "leff_bwd")}
+    rows, totals = [], {}
     with torch.no_grad():
         for name, blk, shift, residual in train_configs(model):
             layer = getattr(model, name)
@@ -658,6 +928,13 @@ def train_kernel_timing(model, device):
                 continue
             shape = (BATCH_TRAIN, layer.resolution, layer.resolution,
                      layer.dim)
+            tokens, C = BATCH_TRAIN * layer.resolution ** 2, layer.dim
+            attn = attn_cost(tokens, C, blk.num_heads,
+                             mod=blk.modulator is not None)
+            leff = leff_cost(tokens, C, 4 * C)
+            costs = {"attention_image": attn, "leff": leff,
+                     "attention_bwd": bwd_cost(attn, tokens, C),
+                     "leff_bwd": bwd_cost(leff, tokens, C)}
             prm = {torch.bfloat16: blk.kernel_params(torch.bfloat16)}
             calls = block_calls(blk, prm, residual)
             x = torch.randn(shape, generator=gen).to(device, torch.bfloat16)
@@ -669,11 +946,11 @@ def train_kernel_timing(model, device):
                 p1, k1, k2, p2 = (cuda_ms(p_fn, reps=5), cuda_ms(k_fn, reps=5),
                                   cuda_ms(k_fn, reps=5), cuda_ms(p_fn, reps=5))
                 k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-                totals[kernel][0] += n * k_ms
-                totals[kernel][1] += n * p_ms
+                b_ms = tally(totals, kernel, k_ms, p_ms, costs[kernel], n)
                 rows.append({"layer": name, "shift": shift, "blocks": n,
                              "kernel": kernel, "shape": list(shape),
-                             "ms": k_ms, "plain_ms": p_ms})
+                             "ms": k_ms, "plain_ms": p_ms,
+                             "bound_ms": b_ms / n})
                 print(f"  {name:16s} s{shift} x{n} {kernel:16s} "
                       f"{str(shape):22s} kernel {k_ms:8.3f} ms  plain "
                       f"{p_ms:8.3f} ms", flush=True)
@@ -727,7 +1004,18 @@ def main() -> int:
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from uformer_tpu_torch.ops import kernels as K
+    kernels = run(device, card, args.json)
+    print(card_line())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run(device, card: str, json_path) -> list:
+    """Every phase after `device`, on `device`; writes the full report to
+    json_path (if given) and returns the kernels line's entries."""
     from uformer_tpu_torch.ops.kernels import _build
 
     phase("build")
@@ -743,64 +1031,99 @@ def main() -> int:
 
     phase("kernels vs plain")
     data, sd = seeded_weights()
+    sd_t = t_weights()
     model256 = build_model(sd, RES_SERVE, device)
     kchecks = kernel_phase(model256, device)
     kchecks.raise_if_failed("kernels")
-    del model256
+    model_t = build_model(sd_t, RES_SERVE, device, "Uformer_T")
+    t_kchecks = kernel_phase_t(model_t, model256, device)
+    t_kchecks.raise_if_failed("kernels Uformer_T")
+    del model256, model_t
 
     phase("golden")
     gchecks = golden_phase(data, sd, device)
     gchecks.raise_if_failed("golden")
 
     phase("serve")
-    restorer, x, serve, launches, schecks = serve_phase(sd, device)
+    restorer, x, serve, launches, schecks = serve_phase(
+        lambda: build_model(sd, RES_SERVE, device), device,
+        EXPECTED_LAUNCHES, "serve")
     schecks.raise_if_failed("serve")
 
     phase("timing")
     rows, totals, fwd = timing_phase(restorer, x)
+    del restorer, x
+
+    phase("serve Uformer_T")
+    restorer, x, serve_t, t_launches, t_schecks = serve_phase(
+        lambda: build_model(sd_t, RES_SERVE, device, "Uformer_T"), device,
+        T_LAUNCHES, "serve Uformer_T")
+    t_schecks.raise_if_failed("serve Uformer_T")
+
+    phase("timing Uformer_T")
+    t_rows, t_totals, t_fwd = timing_phase(restorer, x)
+    core = core_timing(restorer.model, device)
+    del restorer, x
+    torch.cuda.empty_cache()
 
     phase("train")
     tkchecks, tschecks, train, trows, ttotals = train_phase(sd, device)
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "kernel_checks": kchecks.rows, "golden_checks": gchecks.rows,
-              "serve_checks": schecks.rows, "serve": serve,
-              "timing": rows, "forward": fwd,
+              "kernel_checks": kchecks.rows + t_kchecks.rows,
+              "golden_checks": gchecks.rows,
+              "serve_checks": schecks.rows + t_schecks.rows, "serve": serve,
+              "timing": rows, "forward": fwd, "timing_totals": totals,
+              "serve_t": serve_t, "timing_t": t_rows, "forward_t": t_fwd,
+              "timing_totals_t": t_totals, "core_timing": core,
               "train_kernel_checks": tkchecks.rows,
               "train_step_checks": tschecks.rows, "train": train,
               "train_timing": trows, "train_totals": ttotals}
-    if args.json is not None:
-        args.json.parent.mkdir(parents=True, exist_ok=True)
-        args.json.write_text(json.dumps(report, indent=1))
+    if json_path is not None:
+        json_path.parent.mkdir(parents=True, exist_ok=True)
+        json_path.write_text(json.dumps(report, indent=1))
 
     kernels = []
     train_launches = {k: sum(c[k] for c in train["launches"])
                       for k in KERNELS}
+    timed = [("serve Uformer_B bs8 256^2 forward", totals),
+             ("serve Uformer_T bs8 256^2 forward", t_totals),
+             ("train Uformer_B bs32 128^2 step", ttotals),
+             ("alone at Uformer_T enc0 bs8 256^2",
+              {"window_attention": core})]
     for name, (source, replaces) in KERNELS.items():
-        rows_of = [r for r in kchecks.rows + tkchecks.rows
+        rows_of = [r for r in kchecks.rows + t_kchecks.rows + tkchecks.rows
                    if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
-        # serve timings for the forward kernels, train ones for the rest
-        ms, plain_ms = totals.get(name, ttotals.get(name))
+        # the first timing that has the kernel gives ms and its bound
+        where, t = next((w, tt[name]) for w, tt in timed if name in tt)
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
-                 "launches": launches[name] + train_launches[name],
+                 "launches": (launches[name] + t_launches[name]
+                              + train_launches[name]),
                  "launches_serve": launches[name],
+                 "launches_serve_t": t_launches[name],
                  "launches_train": train_launches[name],
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
-                 "ms": ms, "plain_ms": plain_ms}
-        if name in ttotals and name in totals:
-            entry["train_ms"], entry["train_plain_ms"] = ttotals[name]
+                 "ms": t["ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": bound_by(t),
+                 "library_ms": t.get("library_ms"), "timed": where}
+        if name == "window_attention":
+            entry["on_path"] = ("no model path calls it (nor in the JAX "
+                                "package); its core runs inside "
+                                "attention_image, stage and "
+                                "attention_block")
+        for label, key, tt in (("serve Uformer_T", "serve_t", t_totals),
+                               ("train", "train", ttotals)):
+            if name in tt and label not in where:
+                entry.update({f"ms_{key}": tt[name]["ms"],
+                              f"plain_ms_{key}": tt[name]["plain_ms"],
+                              f"bound_ms_{key}": tt[name]["bound_ms"]})
         kernels.append(entry)
-    print(card_line())
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""The port's three kernel modules (`uformer_tpu_torch.ops.kernels`).
+"""The port's image-layout kernel modules (`uformer_tpu_torch.ops.kernels`).
 
 On the CPU the plain PyTorch versions (`attention_image_reference`,
 `leff_reference`, `stage_reference`) are held against the JAX package's jnp
@@ -85,10 +85,12 @@ def _close(got, *wants):
 
 
 # (B, H, W, C, nH, shift, with_mod): the narrow stages as they run (C 32
-# and 64, shift 4) and C 128 with and without the modulator
+# and 64, shift 4), C 128 with and without the modulator, and head dim 16
+# (Uformer_T's C 32 and 64 stages)
 ATTN_GEOMS = [(1, 16, 16, 32, 1, 4, True), (2, 16, 16, 64, 2, 4, False),
               (1, 16, 24, 128, 4, 0, True), (1, 16, 16, 128, 4, 4, False),
-              (1, 16, 16, 128, 4, 4, True)]
+              (1, 16, 16, 128, 4, 4, True), (1, 16, 24, 32, 2, 4, True),
+              (1, 16, 16, 64, 4, 0, False)]
 
 
 @pytest.mark.parametrize("geom", ATTN_GEOMS)
@@ -118,9 +120,12 @@ def test_leff_reference_matches_jax(jx, shape, Ch):
            jx.leff.fused_leff(*jargs, interpret=True, **jkw))
 
 
-@pytest.mark.parametrize("use_shift,has_mod", [(True, True), (True, False)])
-def test_stage_reference_matches_jax(jx, use_shift, has_mod):
-    B, H, W, C, nH, n = 1, 16, 16, 128, 4, 2
+@pytest.mark.parametrize("use_shift,has_mod,nH", [
+    pytest.param(True, True, 4, id="True-True"),
+    pytest.param(True, False, 4, id="True-False"),
+    pytest.param(True, True, 8, id="True-True-head_dim16")])
+def test_stage_reference_matches_jax(jx, use_shift, has_mod, nH):
+    B, H, W, C, n = 1, 16, 16, 128, 2
     p = _stage_inputs(2, n, C, nH, 4 * C)
     x = (np.random.default_rng(3).standard_normal((B, H, W, C)) * 0.3) \
         .astype(np.float32)
@@ -186,7 +191,7 @@ def test_attention_image_kernel_on_card(geom):
     x = _t(inp.pop("x"), dev).bfloat16().float()
     prm = {dt: _cast(inp, dev, dt, ("mod", "wq", "wkv", "wo"))
            for dt in (torch.float32, torch.bfloat16)}
-    kw = dict(win=8, shift=shift, scale=32 ** -0.5, num_heads=nH)
+    kw = dict(win=8, shift=shift, scale=(C // nH) ** -0.5, num_heads=nH)
 
     def run(fn):
         return lambda x, dt: fn(x, *prm[dt].values(), **kw)
@@ -200,7 +205,7 @@ def test_attention_image_kernel_on_card(geom):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 16, 16, 32), (2, 16, 16, 64),
                                    (2, 16, 16, 128), (2, 16, 16, 256),
-                                   (2, 16, 16, 512)])
+                                   (2, 16, 16, 512), (2, 16, 16, 16)])
 def test_leff_kernel_on_card(shape):
     dev = _cuda()
     inp = _leff_inputs(6, *shape, 4 * shape[-1])
@@ -221,7 +226,8 @@ def test_leff_kernel_on_card(shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("C,nH,res,n,use_shift,has_mod", [
     (128, 4, 32, 2, True, True), (256, 8, 16, 3, True, False),
-    (512, 16, 8, 2, False, True)])
+    (512, 16, 8, 2, False, True), (128, 8, 32, 2, True, True),
+    (256, 16, 16, 2, False, True)])
 def test_stage_kernel_on_card(C, nH, res, n, use_shift, has_mod):
     dev = _cuda()
     p = _stage_inputs(7, n, C, nH, 4 * C)
@@ -230,7 +236,7 @@ def test_stage_kernel_on_card(C, nH, res, n, use_shift, has_mod):
     prm = {dt: _cast(p, dev, dt, ("wq", "wk", "wv", "wo", "mod", "w1", "wd",
                                   "w2"))
            for dt in (torch.float32, torch.bfloat16)}
-    kw = dict(scale=32 ** -0.5, num_heads=nH, use_shift=use_shift,
+    kw = dict(scale=(C // nH) ** -0.5, num_heads=nH, use_shift=use_shift,
               has_mod=has_mod)
     K.reset_counts()
     _check_kernel(lambda x, dt: K.fused_stage(x, prm[dt], **kw),
@@ -349,6 +355,9 @@ def test_backward_wrappers_refuse_bad_input_on_card():
     with pytest.raises(ValueError):  # head dim 64, the kernel takes 32
         K.fused_attention_image_bwd(ax, ax, *aprm, win=8, shift=0,
                                     scale=0.125, num_heads=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # head dim 16
+        K.fused_attention_image_bwd(ax, ax, *aprm, win=8, shift=0,
+                                    scale=0.25, num_heads=4)
     with pytest.raises(ValueError):  # not contiguous
         K.fused_attention_image_bwd(ax.transpose(1, 2), ax, *aprm, win=8,
                                     shift=0, scale=0.125, num_heads=2)

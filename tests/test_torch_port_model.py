@@ -97,13 +97,15 @@ def test_restorer_clips_and_keeps_shape(small):
             y.numpy(), port(torch.from_numpy(x)).clamp(0, 1).numpy())
 
 
-def test_registry_ports_uformer_b_only():
+def test_registry_ports_the_uformer_family():
     assert get_arch({"arch": "Uformer_B", "train_ps": 256}) \
         .conv.use_shift is True
     assert get_arch({"arch": "Uformer_B", "train_ps": 128}) \
         .conv.use_shift is False
+    t = get_arch({"arch": "Uformer_T", "train_ps": 256})
+    assert t.encoderlayer_0.dim == 16 and t.decoderlayer_0.num_heads == 16
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch({"arch": "Uformer_T"})
+        get_arch({"arch": "UNet"})
     with pytest.raises(ValueError):
         get_arch({"arch": "nope"})
 
@@ -153,7 +155,8 @@ def test_uformer_b_routing(golden_run):
     routing of the 256^2 main path; on the CPU all are plain versions."""
     *_, plain, launched = golden_run
     assert plain == {"stage": 6, "attention_image": 4, "leff": 4,
-                     "attention_bwd": 0, "leff_bwd": 0}
+                     "attention_bwd": 0, "leff_bwd": 0,
+                     "window_attention": 0, "attention_block": 0}
     assert set(launched.values()) == {0}
     model = get_arch({"arch": "Uformer_B", "train_ps": 256}).eval()
     stage_layers = [name for name, m in model.named_children()

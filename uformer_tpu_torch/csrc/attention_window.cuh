@@ -1,13 +1,21 @@
-// One 8x8 window of the image-layout LeWin attention sub-block, computed by
-// one thread block. Shared by attention_image.cu (one window per block) and
-// stage.cu (a persistent block walks many windows).
+// One 8x8 window of the LeWin attention sub-block, computed by one thread
+// block, for head dim D in {16, 32} (WMMA fragments are 16 wide, so 16 is
+// the smallest). Shared by attention_image.cu (one window per block),
+// stage.cu (a persistent block walks many windows) and attention_block.cu
+// (one window per block, windows already partitioned).
 //
-//   y = x + unshift(reverse(proj(W-MSA(partition(shift(LN1(x))) + mod))))
+//   y = [x +] tokens^-1(proj(W-MSA(LN1(tokens(x)) + mod)))
 //
-// The block gathers its 64 tokens straight from the NHWC image at the
-// shifted coordinates ((r + s) mod H, (c + s) mod W) and writes its 64
-// results back to the same pixels. Shifted windows partition the image, so
-// there is no halo and no write race. Head dim is 32.
+// The body has three parts:
+//   (a) the token map (`window_tokens`): either the NHWC image read at the
+//       shifted coordinates ((r + s) mod H, (c + s) mod W), so that shift,
+//       partition, reverse and unshift cost nothing and shifted windows
+//       partition the image (no halo, no write race); or identity windows,
+//       token t of item i being row i*64 + t of a (Bw, 64, C) tensor. Both
+//       give the SW-MSA region ids of the window's place in the image;
+//   (b) LN1 + modulator and, per head, the q/k/v projections, the softmax
+//       scale folded into q before it is rounded;
+//   (c) the window core (window_core.cuh), then the output projection.
 //
 // In bf16 at C % 128 == 0 the weights go through shared memory: per head,
 // 128-row chunks of the q, k and v columns (then 128 x 64 chunks of wo)
@@ -16,14 +24,14 @@
 // round trip, which bounded the projections at C >= 128.
 #pragma once
 
-#include "common.cuh"
+#include "window_core.cuh"
 
 namespace uf {
 
 template <typename T>
 struct AttnParams {
-  const T* x;        // (B, H, W, C) block input
-  T* y;              // (B, H, W, C) output (never aliases x)
+  const T* x;        // (B, H, W, C) block input, or (Bw, 64, C) windows
+  T* y;              // same shape as x, never aliases it
   const T* mod;      // (64, C) modulator, or null
   const float* ln_s; // (C,)
   const float* ln_b; // (C,)
@@ -41,35 +49,39 @@ struct AttnParams {
   int B, H, W, C, nH, shift;
   float scale;
   int has_ln, residual;
+  int windows;       // token map: 0 the image, 1 identity windows
+  int w_off;         // identity windows: image index of window 0
 };
 
 // Shared-memory layout of one window's working set.
+template <int D>
 struct AttnLayout {
-  static constexpr int ldq = 40, ldp = 72, ldacc = 100;
-  static constexpr int kWChunk = 128, ldw = 104;  // staged weight rows, ld
+  static constexpr int kQKV = 3 * D > 64 ? 3 * D : 64;  // widest acc use
+  static constexpr int ldq = D + 8, ldp = 72, ldacc = kQKV + 4;
+  static constexpr int kWChunk = 128, ldw = kQKV + 8;  // staged weights
   int ldx, ldo;
   size_t xm, q, k, v, p, acc, pix, rid, w, o, total;
   bool w_smem, o_smem;
 };
 
-__host__ __device__ inline AttnLayout attn_layout(int tsize, int C) {
-  AttnLayout L;
+template <int D>
+__host__ __device__ inline AttnLayout<D> attn_layout(int tsize, int C) {
+  using L_ = AttnLayout<D>;
+  L_ L;
   Carver cv;
   L.ldx = C + 8;
   L.xm = cv.take((size_t)64 * L.ldx * tsize);
-  L.q = cv.take(64 * AttnLayout::ldq * tsize);
-  L.k = cv.take(64 * AttnLayout::ldq * tsize);
-  L.v = cv.take(64 * AttnLayout::ldq * tsize);
-  L.p = cv.take(64 * AttnLayout::ldp * tsize);
-  L.acc = cv.take(64 * AttnLayout::ldacc * sizeof(float));
+  L.q = cv.take(64 * L_::ldq * tsize);
+  L.k = cv.take(64 * L_::ldq * tsize);
+  L.v = cv.take(64 * L_::ldq * tsize);
+  L.p = cv.take(64 * L_::ldp * tsize);
+  L.acc = cv.take(64 * L_::ldacc * sizeof(float));
   L.pix = cv.take(64 * sizeof(int));
   L.rid = cv.take(64 * sizeof(int));
-  // staged weights: [q | k | v] head columns (kWChunk x 96) or a wo chunk
+  // staged weights: [q | k | v] head columns (kWChunk x 3D) or a wo chunk
   // (kWChunk x 64); bf16 with C a multiple of the chunk only
-  L.w_smem = tsize == 2 && C % AttnLayout::kWChunk == 0;
-  L.w = L.w_smem ? cv.take((size_t)AttnLayout::kWChunk * AttnLayout::ldw *
-                           tsize)
-                 : 0;
+  L.w_smem = tsize == 2 && C % L_::kWChunk == 0;
+  L.w = L.w_smem ? cv.take((size_t)L_::kWChunk * L_::ldw * tsize) : 0;
   // the concatenated head outputs stay in shared memory when they fit
   // (always for bf16 up to C = 512); otherwise in a global slot
   const size_t o_bytes = (size_t)64 * L.ldx * tsize;
@@ -85,20 +97,35 @@ __host__ __device__ inline AttnLayout attn_layout(int tsize, int C) {
   return L;
 }
 
-// SW-MSA region id (0..2) of a shifted coordinate along one axis: slices
-// [0, size-8), [size-8, size-s), [size-s, size) of the reference mask.
-__device__ __forceinline__ int region_id(int g, int size, int s) {
-  return (g >= size - 8) + (g >= size - s);
+// (a) The token map: pix[t], the row of token t in x and y, and rid[t],
+// its region id. The caller synchronises.
+template <typename T>
+__device__ __forceinline__ void window_tokens(const AttnParams<T>& p,
+                                              int item, int* pix, int* rid) {
+  const int t = threadIdx.x;
+  if (t >= 64) return;
+  const int H = p.H, W = p.W, s = p.shift;
+  const int nWw = W / 8, nW = (H / 8) * nWw;
+  if (p.windows) {
+    pix[t] = item * 64 + t;
+    rid[t] = window_region((p.w_off + item) % nW, t, H, W, s);
+  } else {
+    const int b = item / nW, wl = item % nW;
+    const int gr = (wl / nWw) * 8 + t / 8, gc = (wl % nWw) * 8 + t % 8;
+    pix[t] = (b * H + (gr + s) % H) * W + (gc + s) % W;
+    rid[t] = window_region(wl, t, H, W, s);
+  }
 }
 
-template <typename T>
+// NW: the block's warps, as block_gemm takes it (0: read from blockDim).
+template <typename T, int D, int NW = kWarps>
 __device__ void attention_window(const AttnParams<T>& p, int item,
                                  unsigned char* smem, int slot) {
-  const AttnLayout L = attn_layout(sizeof(T), p.C);
-  const int C = p.C, H = p.H, W = p.W, s = p.shift;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nWw = W / 8, nW = (H / 8) * nWw;
-  const int b = item / nW, wi = (item % nW) / nWw, wj = item % nWw;
+  using L_ = AttnLayout<D>;
+  const L_ L = attn_layout<D>(sizeof(T), p.C);
+  const int C = p.C;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int nw = NW > 0 ? NW : (int)(blockDim.x >> 5);
 
   T* xm = reinterpret_cast<T*>(smem + L.xm);
   T* q = reinterpret_cast<T*>(smem + L.q);
@@ -113,91 +140,72 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
   T* wbuf = reinterpret_cast<T*>(smem + L.w);
   const bool stage_w = sizeof(T) == 2 && L.w_smem;
   const int ldx = L.ldx, ldo = L.ldo;
-  constexpr int ldq = AttnLayout::ldq, ldp = AttnLayout::ldp,
-                lda = AttnLayout::ldacc, KW = AttnLayout::kWChunk,
-                ldw = AttnLayout::ldw;
+  constexpr int ldq = L_::ldq, ldp = L_::ldp, lda = L_::ldacc,
+                KW = L_::kWChunk, ldw = L_::ldw;
+  constexpr int kHeadTiles = 4 * (D / 16);  // 16x16 tiles of a 64 x D tile
 
-  if (tid < 64) {
-    const int gr = wi * 8 + tid / 8, gc = wj * 8 + tid % 8;
-    const int r = (gr + s) % H, c = (gc + s) % W;
-    pix[tid] = (b * H + r) * W + c;
-    rid[tid] = s ? 3 * region_id(gr, H, s) + region_id(gc, W, s) : 0;
-  }
+  // (a) token map, then the gather
+  window_tokens<T>(p, item, pix, rid);
   __syncthreads();
   for (int idx = tid; idx < 64 * C; idx += blockDim.x) {
     const int t = idx / C, c = idx % C;
     xm[t * ldx + c] = p.x[(size_t)pix[t] * C + c];
   }
   __syncthreads();
-  for (int t = warp; t < 64; t += kWarps)
+  // (b) LN1 + modulator, then per head the projections and (c) the core
+  for (int t = warp; t < 64; t += nw)
     ln_row<T>(xm + t * ldx, C, p.ln_s, p.ln_b, p.has_ln,
               p.mod ? p.mod + t * C : nullptr);
   __syncthreads();
 
   for (int h = 0; h < p.nH; ++h) {
-    const int c0 = h * 32;
+    const int c0 = h * D;
     if (stage_w) {
-      // [q | k | v] = xm @ wbuf, 24 tiles, accumulated over the chunks
+      // [q | k | v] = xm @ wbuf, accumulated over the chunks
       for (int kc = 0; kc < C; kc += KW) {
-        stage_tile<T>(wbuf, ldw, p.wq + (size_t)kc * C + c0, C, KW, 32);
-        stage_tile<T>(wbuf + 32, ldw, p.wk + (size_t)kc * p.ldkv + c0,
-                      p.ldkv, KW, 32);
-        stage_tile<T>(wbuf + 64, ldw, p.wv + (size_t)kc * p.ldkv + c0,
-                      p.ldkv, KW, 32);
+        stage_tile<T>(wbuf, ldw, p.wq + (size_t)kc * C + c0, C, KW, D);
+        stage_tile<T>(wbuf + D, ldw, p.wk + (size_t)kc * p.ldkv + c0,
+                      p.ldkv, KW, D);
+        stage_tile<T>(wbuf + 2 * D, ldw, p.wv + (size_t)kc * p.ldkv + c0,
+                      p.ldkv, KW, D);
         __syncthreads();
         if (kc == 0)
-          block_gemm<T, false, false>(xm, ldx, wbuf, ldw, acc, lda, 64, 96,
-                                      KW);
+          block_gemm<T, false, false, false, NW>(xm, ldx, wbuf, ldw, acc,
+                                                 lda, 64, 3 * D, KW);
         else
-          block_gemm<T, false, true>(xm + kc, ldx, wbuf, ldw, acc, lda, 64,
-                                     96, KW);
+          block_gemm<T, false, true, false, NW>(xm + kc, ldx, wbuf, ldw,
+                                                acc, lda, 64, 3 * D, KW);
         __syncthreads();
       }
     } else {
-      // 8 tiles each: q and v start on warp 0, k on warp 8
-      block_gemm<T, false, false>(xm, ldx, p.wq + c0, C, acc, lda, 64, 32,
-                                  C);
-      block_gemm<T, false, false>(xm, ldx, p.wk + c0, p.ldkv, acc + 32, lda,
-                                  64, 32, C, 8);
-      block_gemm<T, false, false>(xm, ldx, p.wv + c0, p.ldkv, acc + 64, lda,
-                                  64, 32, C);
+      // q, k and v each start on their own warps
+      block_gemm<T, false, false, false, NW>(xm, ldx, p.wq + c0, C, acc,
+                                             lda, 64, D, C);
+      block_gemm<T, false, false, false, NW>(xm, ldx, p.wk + c0, p.ldkv,
+                                             acc + D, lda, 64, D, C,
+                                             kHeadTiles);
+      block_gemm<T, false, false, false, NW>(xm, ldx, p.wv + c0, p.ldkv,
+                                             acc + 2 * D, lda, 64, D, C,
+                                             2 * kHeadTiles);
       __syncthreads();
     }
-    for (int idx = tid; idx < 64 * 32; idx += blockDim.x) {
-      const int t = idx / 32, d = idx % 32;
+    for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
+      const int t = idx / D, d = idx % D;
       q[t * ldq + d] = from_f<T>((acc[t * lda + d] + p.bq[c0 + d]) * p.scale);
-      k[t * ldq + d] = from_f<T>(acc[t * lda + 32 + d] + p.bk[c0 + d]);
-      v[t * ldq + d] = from_f<T>(acc[t * lda + 64 + d] + p.bv[c0 + d]);
+      k[t * ldq + d] = from_f<T>(acc[t * lda + D + d] + p.bk[c0 + d]);
+      v[t * ldq + d] = from_f<T>(acc[t * lda + 2 * D + d] + p.bv[c0 + d]);
     }
     __syncthreads();
-    // logits = q k^T (fp32), + bias + shift mask, softmax in fp32
-    block_gemm<T, true, false>(q, ldq, k, ldq, acc, lda, 64, 64, 32);
-    __syncthreads();
-    const float* bias_h = p.bias + (size_t)h * 4096;
-    for (int t = warp; t < 64; t += kWarps) {
-      float l0 = acc[t * lda + lane] + bias_h[t * 64 + lane];
-      float l1 = acc[t * lda + lane + 32] + bias_h[t * 64 + lane + 32];
-      if (s) {
-        if (rid[t] != rid[lane]) l0 -= 100.0f;
-        if (rid[t] != rid[lane + 32]) l1 -= 100.0f;
-      }
-      const float m = warp_max(fmaxf(l0, l1));
-      const float e0 = expf(l0 - m), e1 = expf(l1 - m);
-      const float inv = 1.0f / warp_sum(e0 + e1);
-      P[t * ldp + lane] = from_f<T>(e0 * inv);
-      P[t * ldp + lane + 32] = from_f<T>(e1 * inv);
-    }
-    __syncthreads();
-    block_gemm<T, false, false>(P, ldp, v, ldq, acc, lda, 64, 32, 64);
-    __syncthreads();
-    for (int idx = tid; idx < 64 * 32; idx += blockDim.x) {
-      const int t = idx / 32, d = idx % 32;
+    window_core<T, D, NW>(q, k, v, ldq, p.bias + (size_t)h * 4096,
+                      p.shift ? rid : nullptr, 1.0f, P, ldp, acc, lda);
+    for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
+      const int t = idx / D, d = idx % D;
       O[t * ldo + c0 + d] = from_f<T>(acc[t * lda + d]);
     }
     __syncthreads();
   }
 
-  // output projection in 64-column chunks, + bias, + residual, scatter back
+  // output projection in 64-column chunks, + bias [+ residual], scatter
   for (int n0 = 0; n0 < C; n0 += 64) {
     const int nn = min(64, C - n0);
     if (stage_w) {
@@ -205,15 +213,16 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
         stage_tile<T>(wbuf, ldw, p.wo + (size_t)kc * C + n0, C, KW, 64);
         __syncthreads();
         if (kc == 0)
-          block_gemm<T, false, false>(O, ldo, wbuf, ldw, acc, lda, 64, 64,
-                                      KW);
+          block_gemm<T, false, false, false, NW>(O, ldo, wbuf, ldw, acc, lda,
+                                                 64, 64, KW);
         else
-          block_gemm<T, false, true>(O + kc, ldo, wbuf, ldw, acc, lda, 64,
-                                     64, KW);
+          block_gemm<T, false, true, false, NW>(O + kc, ldo, wbuf, ldw, acc,
+                                                lda, 64, 64, KW);
         __syncthreads();
       }
     } else {
-      block_gemm<T, false, false>(O, ldo, p.wo + n0, C, acc, lda, 64, nn, C);
+      block_gemm<T, false, false, false, NW>(O, ldo, p.wo + n0, C, acc, lda,
+                                             64, nn, C);
       __syncthreads();
     }
     for (int idx = tid; idx < 64 * nn; idx += blockDim.x) {
@@ -225,6 +234,16 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
     }
     __syncthreads();
   }
+}
+
+// Calls f(std::integral_constant<int, D>{}) for the head dim C / nH and
+// returns its result; cudaErrorInvalidValue for a head dim without a
+// kernel (the wrappers check first).
+template <typename F>
+int with_head_dim(int C, int nH, F f) {
+  if (nH > 0 && C == 16 * nH) return f(std::integral_constant<int, 16>{});
+  if (nH > 0 && C == 32 * nH) return f(std::integral_constant<int, 32>{});
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace uf

@@ -129,11 +129,13 @@ __device__ void stage_tile(T* dst, int dst_ld, const T* src, int src_ld,
 //   A: M x K row-major (lda), or with AT the K x M row-major matrix whose
 //   transpose is A;  B: K x N row-major (ldb), or with BT the N x K
 //   row-major matrix whose transpose is B.
-// All threads of the block call it; M, N, K are multiples of 16. The
-// caller synchronises before reading Cc. Tiles go to the warps in turn
-// from warp `first`, so products with few tiles issued back to back
-// (q, k, v) can start on different warps.
-template <typename T, bool BT, bool ACCUM, bool AT = false>
+// All threads of the block call it; M, N, K are multiples of 16. NW is
+// the block's number of warps, fixed at compile time (kWarps by default)
+// or, with NW = 0, read from blockDim. The caller synchronises before
+// reading Cc. Tiles go to the warps in turn from warp `first`, so
+// products with few tiles issued back to back (q, k, v) can start on
+// different warps.
+template <typename T, bool BT, bool ACCUM, bool AT = false, int NW = kWarps>
 __device__ void block_gemm(const T* A, int lda, const T* B, int ldb, float* Cc,
                            int ldc, int M, int N, int K, int first = 0) {
   if constexpr (std::is_same<T, bf16>::value) {
@@ -142,10 +144,11 @@ __device__ void block_gemm(const T* A, int lda, const T* B, int ldb, float* Cc,
         typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
     using BLayout =
         typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
-    const int warp = ((threadIdx.x >> 5) + kWarps - first) % kWarps;
+    const int nw = NW > 0 ? NW : (int)(blockDim.x >> 5);
+    const int warp = ((threadIdx.x >> 5) + nw - first % nw) % nw;
     const int tn = N / 16;
     const int tiles = (M / 16) * tn;
-    for (int tt = warp; tt < tiles; tt += kWarps) {
+    for (int tt = warp; tt < tiles; tt += nw) {
       const int m0 = (tt / tn) * 16, n0 = (tt % tn) * 16;
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       if (ACCUM) {

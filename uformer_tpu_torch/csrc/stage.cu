@@ -5,7 +5,7 @@
 // the attention sub-block over all windows (attention_window.cuh), a grid
 // barrier, the LeFF sub-block over all tiles (leff_tile.cuh), a grid
 // barrier. Weights come from the depth-stacked arrays at index j; the
-// shift is on for odd j when use_shift.
+// shift is on for odd j when use_shift. Head dim 16 or 32.
 //
 // What bounds it on the H100: at the 16^2..64^2 stages each sub-block is
 // tens of microseconds of work, so per-kernel launches, tails and weight
@@ -43,7 +43,7 @@ struct StageParams {
   float scale;
 };
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) stage_kernel(StageParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
@@ -78,8 +78,10 @@ __global__ void __launch_bounds__(kThreads) stage_kernel(StageParams<T> p) {
     a.scale = p.scale;
     a.has_ln = 1;
     a.residual = 1;
+    a.windows = 0;
+    a.w_off = 0;
     for (int it = blockIdx.x; it < n_win; it += gridDim.x)
-      attention_window<T>(a, it, smem, blockIdx.x);
+      attention_window<T, D>(a, it, smem, blockIdx.x);
     grid.sync();
 
     LeffParams<T> l;
@@ -107,27 +109,27 @@ __global__ void __launch_bounds__(kThreads) stage_kernel(StageParams<T> p) {
   }
 }
 
-template <typename T>
+template <typename T, int D>
 static size_t stage_smem(int C, int TH) {
-  const size_t a = attn_layout(sizeof(T), C).total;
+  const size_t a = attn_layout<D>(sizeof(T), C).total;
   const size_t l = leff_layout(sizeof(T), C, TH).total;
   return a > l ? a : l;
 }
 
-template <typename T>
+template <typename T, int D>
 static int launch(StageParams<T> p, cudaStream_t stream) {
   p.TH = leff_tile_rows(sizeof(T), p.C);
-  const size_t smem = stage_smem<T>(p.C, p.TH);
+  const size_t smem = stage_smem<T, D>(p.C, p.TH);
   cudaError_t e = cudaFuncSetAttribute(
-      stage_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stage_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stage_kernel<T>,
-                                                    kThreads, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, stage_kernel<T, D>, kThreads, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int n_win = p.B * (p.H / 8) * (p.W / 8);
@@ -136,7 +138,7 @@ static int launch(StageParams<T> p, cudaStream_t stream) {
   int grid = per_sm * sms;
   if (grid > work) grid = work;
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((void*)stage_kernel<T>, dim3(grid),
+  e = cudaLaunchCooperativeKernel((void*)stage_kernel<T, D>, dim3(grid),
                                   dim3(kThreads), args, smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -187,7 +189,10 @@ static int run(const void* x, void* buf, void* out, void* scratch,
   p.Ch = Ch;
   p.use_shift = use_shift;
   p.scale = scale;
-  return launch<T>(p, static_cast<cudaStream_t>(stream));
+  return with_head_dim(C, nH, [&](auto d) {
+    return launch<T, decltype(d)::value>(p,
+                                         static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // namespace uf

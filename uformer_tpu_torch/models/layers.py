@@ -18,9 +18,16 @@ otherwise.
 Routing (`BasicLayer`): in eval, the whole-stage kernel for win 8 stages
 whose configured resolution is at least the window, with C % 128 == 0 and
 H, W multiples of 8; otherwise, and always in training
-(`uformer_tpu` layers.py:979), per block, one attention-image and one
-LeFF kernel, differentiated by their backward kernels. In training a
-block with a drop-path rate above 0 runs both kernels without the
+(`uformer_tpu` layers.py:979), per block. A block's attention takes the
+attention-image kernel where the JAX package takes its image kernel
+(`layers.py:757-775`: win 8 and C % 128 == 0, or 128 % C == 0, C >= 32
+and a shift the pixel packing takes), else the windowed branch
+(`layers.py:796-848`): LN1, shift and partition in PyTorch, the
+attention-block kernel, reverse and unshift, the residual outside. Then
+one LeFF kernel. The attention-image and LeFF kernels are differentiated
+by their backward kernels; the windowed branch has no backward kernel yet
+(`train.train_step` refuses such a model on the card). In training a
+block with a drop-path rate above 0 runs its kernels without the
 residual and adds x + DropPath(y) outside (`layers.py:780-794`,
 `:860-871`). The convs around the stages stay cuDNN (`F.conv2d`).
 """
@@ -37,6 +44,8 @@ from torch import nn
 from uformer_tpu_torch.device import to_device_async
 from uformer_tpu_torch.ops.kernels import (
     STAGE_KEYS,
+    attention_block_ad,
+    attention_block_reference,
     attention_image_ad,
     attention_image_reference,
     fused_stage,
@@ -44,7 +53,14 @@ from uformer_tpu_torch.ops.kernels import (
     leff_reference,
     stage_reference,
 )
+from uformer_tpu_torch.ops.norm import layer_norm
 from uformer_tpu_torch.ops.relpos import relative_position_index
+from uformer_tpu_torch.ops.window import (
+    cyclic_shift,
+    cyclic_unshift,
+    window_partition,
+    window_reverse,
+)
 
 Params = Dict[str, torch.Tensor]
 
@@ -186,8 +202,9 @@ class WindowAttention(nn.Module):
 class LeWinBlock(_Prepared, nn.Module):
     """LeWin block (reference model.py:850-1008), NHWC in and out:
     x + Attn(LN1(x)) [shifted windows, + modulator] through the
-    attention-image kernel, then x + LeFF(LN2(x)) through the LeFF
-    kernel; in training each branch under DropPath(drop_path)."""
+    attention-image kernel or the windowed branch (`image_route`), then
+    x + LeFF(LN2(x)) through the LeFF kernel; in training each branch
+    under DropPath(drop_path)."""
 
     def __init__(self, dim: int, num_heads: int, win_size: int = 8,
                  shift_size: int = 0, mlp_ratio: float = 4.0,
@@ -207,6 +224,16 @@ class LeWinBlock(_Prepared, nn.Module):
         self.mlp = LeFF(dim, int(dim * mlp_ratio))
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
+        # the JAX package's image-kernel condition (layers.py:757-775)
+        self.image_route = win_size == 8 and (
+            dim % 128 == 0 or (128 % dim == 0 and dim >= 32
+                               and shift_size % (128 // dim) == 0))
+
+    @property
+    def backward_kernels_cover(self) -> bool:
+        """Whether the attention backward kernel covers this block: the
+        image route at head dim 32."""
+        return self.image_route and self.dim == 32 * self.num_heads
 
     def kernel_params(self, dtype: torch.dtype) -> Params:
         p = {"ln1_s": self.norm1.weight.float(),
@@ -224,21 +251,44 @@ class LeWinBlock(_Prepared, nn.Module):
         """plain=True runs the kernels' plain versions under torch autograd
         (the comparison path); otherwise the kernels, whose backward is a
         kernel too. `generator` feeds DropPath in training."""
-        attention = attention_image_reference if plain else \
-            attention_image_ad
         leff = leff_reference if plain else leff_ad
         # active DropPath scales the branch: the residual stays outside
         res = not (self.training and self.drop_path1.rate > 0.0)
         p = self.params_for(x.dtype, x.device)
-        y = attention(
-            x, p["mod"], p["ln1_s"], p["ln1_b"], p["wq"], p["bq"], p["wkv"],
-            p["bkv"], p["wo"], p["bo"], p["bias"], win=self.win_size,
-            shift=self.shift_size, scale=self.attn.scale,
-            num_heads=self.num_heads, residual=res)
-        x = y if res else x + self.drop_path1(y, generator)
+        if self.image_route:
+            attention = attention_image_reference if plain else \
+                attention_image_ad
+            y = attention(
+                x, p["mod"], p["ln1_s"], p["ln1_b"], p["wq"], p["bq"],
+                p["wkv"], p["bkv"], p["wo"], p["bo"], p["bias"],
+                win=self.win_size, shift=self.shift_size,
+                scale=self.attn.scale, num_heads=self.num_heads,
+                residual=res)
+            x = y if res else x + self.drop_path1(y, generator)
+        else:
+            x = x + self.drop_path1(self.windowed_attention(x, p, plain),
+                                    generator)
         y = leff(x, p["w1"], p["b1"], p["wd"], p["bd"], p["w2"], p["b2"],
                  ln_s=p["ln2_s"], ln_b=p["ln2_b"], residual=res)
         return y if res else x + self.drop_path2(y, generator)
+
+    def windowed_attention(self, x: torch.Tensor, p: Params,
+                           plain: bool = False) -> torch.Tensor:
+        """The attention branch off the image route, in the JAX package's
+        order and rounding points (`layers.py:796-848`): LN1 in the
+        working dtype, cyclic shift, partition, the attention-block kernel
+        without LN, reverse, unshift."""
+        _, H, W, _ = x.shape
+        win, shift = self.win_size, self.shift_size
+        wnd = window_partition(
+            cyclic_shift(layer_norm(x, p["ln1_s"], p["ln1_b"]), shift), win)
+        attention = attention_block_reference if plain else \
+            attention_block_ad
+        y = attention(wnd, p["mod"], None, None, p["wq"], p["bq"], p["wkv"],
+                      p["bkv"], p["wo"], p["bo"], p["bias"], win=win,
+                      shift=shift, H=H, W=W, scale=self.attn.scale,
+                      num_heads=self.num_heads, has_ln=False)
+        return cyclic_unshift(window_reverse(y, win, H, W), shift)
 
 
 class BasicLayer(_Prepared, nn.Module):

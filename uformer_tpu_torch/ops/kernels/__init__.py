@@ -9,6 +9,12 @@ The `*_ad` functions are the differentiable forms: their backward is the
 backward kernel (`*_bwd`).
 """
 
+from uformer_tpu_torch.ops.kernels.attention_block import (  # noqa: F401
+    BACKWARD_NOT_PORTED,
+    attention_block_ad,
+    attention_block_reference,
+    fused_attention_block,
+)
 from uformer_tpu_torch.ops.kernels.attention_image import (  # noqa: F401
     attention_image_ad,
     attention_image_reference,
@@ -28,10 +34,16 @@ from uformer_tpu_torch.ops.kernels.stage import (  # noqa: F401
     fused_stage,
     stage_reference,
 )
+from uformer_tpu_torch.ops.kernels.window_attention import (  # noqa: F401
+    fused_window_attention,
+    window_attention_reference,
+)
 
 WRAPPERS = {"stage": fused_stage, "attention_image": fused_attention_image,
             "leff": fused_leff, "attention_bwd": fused_attention_image_bwd,
-            "leff_bwd": fused_leff_bwd}
+            "leff_bwd": fused_leff_bwd,
+            "window_attention": fused_window_attention,
+            "attention_block": fused_attention_block}
 
 
 def reset_counts() -> None:

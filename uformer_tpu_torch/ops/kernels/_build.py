@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of `uformer_tpu_torch/csrc/`.
 
-`nvcc` compiles every `csrc/*.cu` for `sm_90a` into one shared library
-with a plain C interface, which `ctypes` loads; no PyTorch header is
-compiled, so a build takes seconds. The library lands in
+`nvcc` compiles every `csrc/*.cu` for `sm_90a`, one process per source,
+all started together, and links the objects into one shared library with
+a plain C interface, which `ctypes` loads; no PyTorch header is compiled,
+so a build takes seconds to a minute. The library lands in
 `uformer_tpu_torch/_build/` under a name that carries the hash of the
 sources and flags, so an edited source rebuilds on next use. Nothing is
 built when this module is imported: `load()` builds at first use.
@@ -23,15 +24,18 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "uf_attention_needs_scratch": [_I, _I],
+    "uf_attention_needs_scratch": [_I, _I, _I],
     "uf_attention_image": [_I] + [_P] * 13 + [_I] * 6 + [_F, _I, _I, _P],
+    "uf_attention_block": [_I] + [_P] * 13 + [_I] * 7 + [_F, _I, _P],
+    "uf_window_attention": [_I] + [_P] * 5 + [_I] * 6 + [_F, _P],
     "uf_leff_tile_rows": [_I, _I],
     "uf_leff": [_I] + [_P] * 10 + [_I] * 7 + [_P],
     "uf_stage": [_I] + [_P] * 24 + [_I] * 8 + [_F, _P],
@@ -73,20 +77,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc per source in parallel, then one link. build.log keeps every
+    command and its output (the -Xptxas -v register report)."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(exist_ok=True)
     cu, _ = _sources()
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-6000:]}")
+    stem = f"{so.name}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{f.stem}.o" for f in cu]
+    jobs = [[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
+            for f, o in zip(cu, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in jobs]
+    tmp = BUILD_DIR / f"{stem}.tmp"
+    link = [nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    log, failed = [], []
+    for cmd, proc in zip(jobs, procs):
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stderr)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-6000:])
     os.replace(tmp, so)
     return so
 

@@ -30,13 +30,15 @@ def expect(t: Optional[torch.Tensor], name: str, shape: Sequence[int],
         raise ValueError(f"{name} must be 32-byte aligned")
 
 
-def check_input(x: torch.Tensor) -> None:
+def check_input(x: torch.Tensor, layout: str = "(B, H, W, C)") -> None:
+    """Raise unless x is a contiguous float32 or bfloat16 CUDA tensor with
+    one dimension per name of `layout`."""
     if x.device.type != "cuda":
         raise ValueError(f"kernels run on CUDA tensors, got {x.device}")
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"kernels take float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous (B, H, W, C) tensor")
+    if x.dim() != layout.count(",") + 1 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous {layout} tensor")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -1,0 +1,187 @@
+"""Windowed LeWin attention block: Hopper kernel and plain version.
+
+Port of `uformer_tpu/ops/pallas/attention_block.py:fused_attention_block`
+(kernel source `csrc/attention_block.cu`, body in
+`csrc/attention_window.cuh` with the identity token map). It takes
+(Bw, 64, C) windows already shifted and partitioned and returns the
+attention branch only: [LN1] + modulator, q/kv projection, the window
+core, output projection. The model runs it for the blocks that the
+image kernel does not take (C = 16 in Uformer_T's outer stages). On the
+H100 it is memory-bound at C = 16; the kernel runs one window per thread
+block, sized to C. `attention_block_reference` is the plain PyTorch
+version with the JAX reference's signature (`attention_block.py:345`),
+plus the spatial path's `w_off`.
+
+Its backward is a kernel only in the image layout at head dim 32
+(`attention_image.fused_attention_image_bwd`); the windowed backward
+raises on the card (`BACKWARD_NOT_PORTED`), and on the CPU it is the
+plain VJP.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from uformer_tpu_torch.ops.attention import window_attention
+from uformer_tpu_torch.ops.kernels import _launch
+from uformer_tpu_torch.ops.kernels._build import load
+from uformer_tpu_torch.ops.kernels.window_attention import (
+    check_head_dim,
+    check_window,
+    window_mask,
+)
+from uformer_tpu_torch.ops.norm import layer_norm
+
+BACKWARD_NOT_PORTED = (
+    "the attention backward kernel covers the image layout at head dim 32 "
+    "only; the windowed and head-dim-16 backward is not ported yet: "
+    "ROADMAP.md, port queue 2, next slice 1 (the Uformer_T train step)")
+
+
+def attention_block_reference(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo,
+                              bias, *, win, shift, H, W, scale, num_heads,
+                              has_ln=True, w_off=0):
+    """Plain windowed block on (Bw, N, C) windows after shift and
+    partition; window i lies at place (w_off + i) mod nW of its H x W
+    image. mod (N, C) or None."""
+    Bw, N, C = x.shape
+    D = C // num_heads
+    dt = x.dtype
+    if has_ln:
+        x = layer_norm(x, ln_s, ln_b)
+    xm = x + mod[None].to(dt) if mod is not None else x
+    q = xm @ wq.to(dt) + bq.to(dt)
+    kv = xm @ wkv.to(dt) + bkv.to(dt)
+    q = q.reshape(Bw, N, num_heads, D).transpose(1, 2)
+    k = kv[..., :C].reshape(Bw, N, num_heads, D).transpose(1, 2)
+    v = kv[..., C:].reshape(Bw, N, num_heads, D).transpose(1, 2)
+    mask = (window_mask(H, W, win, shift, Bw, w_off, x.device)
+            if shift > 0 else None)
+    out = window_attention(q, k, v, bias, mask, scale=scale)
+    return out @ wo.to(dt) + bo.to(dt)
+
+
+def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
+                          ln_s: Optional[torch.Tensor],
+                          ln_b: Optional[torch.Tensor], wq, bq, wkv, bkv, wo,
+                          bo, bias, *, win: int, shift: int, H: int, W: int,
+                          scale: float, num_heads: int, has_ln: bool = True,
+                          w_off: int = 0) -> torch.Tensor:
+    """x: (Bw, 64, C) windows -> (Bw, 64, C), the attention branch.
+
+    Weight layouts are the kernels' (in, out), as `fused_attention_image`
+    takes them; mod (64, C) in x's dtype or None; ln_s, ln_b read only
+    with has_ln. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (win 8, head dim 16 or 32) or raises."""
+    kw = dict(win=win, shift=shift, H=H, W=W, scale=scale,
+              num_heads=num_heads, has_ln=has_ln, w_off=w_off)
+    if x.device.type == "cpu":
+        fused_attention_block.plain_calls += 1
+        return attention_block_reference(x, mod, ln_s, ln_b, wq, bq, wkv,
+                                          bkv, wo, bo, bias, **kw)
+    _launch.check_input(x, "(Bw, N, C)")
+    Bw, N, C = x.shape
+    check_window(win, shift, H, W)
+    check_head_dim(C, num_heads)
+    if N != 64 or w_off < 0:
+        raise ValueError(f"kernel needs N = 64 and w_off >= 0: N={N} "
+                         f"w_off={w_off}")
+    dt, dev, f32 = x.dtype, x.device, torch.float32
+    if has_ln:
+        _launch.expect(ln_s, "ln_s", (C,), f32, dev)
+        _launch.expect(ln_b, "ln_b", (C,), f32, dev)
+    if mod is not None:
+        _launch.expect(mod, "mod", (64, C), dt, dev)
+    for name, t, shape, tdt in (
+            ("x", x, (Bw, 64, C), dt),
+            ("wq", wq, (C, C), dt), ("bq", bq, (C,), f32),
+            ("wkv", wkv, (C, 2 * C), dt), ("bkv", bkv, (2 * C,), f32),
+            ("wo", wo, (C, C), dt), ("bo", bo, (C,), f32),
+            ("bias", bias, (num_heads, 64, 64), f32)):
+        _launch.expect(t, name, shape, tdt, dev)
+    lib = load()
+    is_bf16 = int(dt == torch.bfloat16)
+    y = torch.empty_like(x)
+    scratch = (torch.empty_like(x) if lib.uf_attention_needs_scratch(
+        is_bf16, C, C // num_heads) else None)
+    with torch.cuda.device(dev):
+        err = lib.uf_attention_block(
+            is_bf16, x.data_ptr(), y.data_ptr(), _launch.ptr(mod),
+            _launch.ptr(ln_s) if has_ln else None,
+            _launch.ptr(ln_b) if has_ln else None, wq.data_ptr(),
+            bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(), wo.data_ptr(),
+            bo.data_ptr(), bias.data_ptr(), _launch.ptr(scratch), Bw, H, W,
+            C, num_heads, shift, w_off, float(scale), int(has_ln),
+            _launch.stream(x))
+    _launch.check(err, "attention_block kernel")
+    fused_attention_block.launches += 1
+    return y
+
+
+fused_attention_block.launches = 0
+fused_attention_block.plain_calls = 0
+
+
+def vjp_reference(fn, x, g, args, has_ln, **kw):
+    """The VJP at g of fn(x, *args, has_ln=has_ln, **kw) by torch autograd,
+    args = (mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias), as the tuple
+    of `uformer_tpu` `attention_block.py:fused_attention_block_bwd`:
+    (dx, dmod, dln_s, dln_b, dwq, dbq, dwkv, dbkv, dwo, dbo, dbias), dx in
+    x's dtype and the rest float32 (None for an absent mod or LN)."""
+    args = [x, *args]
+    if not has_ln:
+        args[2] = args[3] = None
+    with torch.enable_grad():
+        args = [None if t is None else t.detach().requires_grad_(True)
+                for t in args]
+        y = fn(*args, has_ln=has_ln, **kw)
+        live = [t for t in args if t is not None]
+        grads = iter(torch.autograd.grad(y, live, g.to(y.dtype)))
+    out = [None if t is None else next(grads) for t in args]
+    return (out[0],) + tuple(None if d is None else d.float()
+                             for d in out[1:])
+
+
+def attention_block_vjp_reference(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv,
+                                  wo, bo, bias, *, has_ln=True, **kw):
+    """The VJP of `attention_block_reference` by torch autograd."""
+    return vjp_reference(attention_block_reference, x, g,
+                         (mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias),
+                         has_ln, **kw)
+
+
+class _AttentionBlock(torch.autograd.Function):
+    """fused_attention_block forward; the plain VJP on the CPU, and on the
+    card NotImplementedError (no plain version runs in its place)."""
+
+    @staticmethod
+    def forward(ctx, x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias, kw):
+        ctx.kw = kw
+        ctx.save_for_backward(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo,
+                              bias)
+        return fused_attention_block(x, mod, ln_s, ln_b, wq, bq, wkv, bkv,
+                                     wo, bo, bias, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        if g.device.type != "cpu":
+            raise NotImplementedError(BACKWARD_NOT_PORTED)
+        grads = attention_block_vjp_reference(saved[0], g, *saved[1:],
+                                              **ctx.kw)
+        return tuple(None if d is None or t is None else d.to(t.dtype)
+                     for d, t in zip(grads, saved)) + (None,)
+
+
+def attention_block_ad(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias,
+                       *, win: int, shift: int, H: int, W: int, scale: float,
+                       num_heads: int, has_ln: bool = True,
+                       w_off: int = 0) -> torch.Tensor:
+    """Differentiable `fused_attention_block` (backward: see the module
+    note)."""
+    kw = dict(win=win, shift=shift, H=H, W=W, scale=scale,
+              num_heads=num_heads, has_ln=has_ln, w_off=w_off)
+    return _AttentionBlock.apply(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
+                                 bo, bias, kw)

@@ -2,12 +2,13 @@
 
 Port of `uformer_tpu/ops/pallas/attention_image.py:fused_attention_image`
 (kernel source `csrc/attention_image.cu`, body in
-`csrc/attention_window.cuh`). On the H100 the projections are tensor-core
-work fed from L2 at C >= 128, and the fp32 softmax and token gathers
-dominate at C = 32/64; the kernel runs one 8x8 window per thread block
-with the whole working set in shared memory, reading and writing the NHWC
-image once. `attention_image_reference` is the plain PyTorch version with
-the JAX reference's signature (`attention_image.py:432`).
+`csrc/attention_window.cuh`), head dim 16 or 32. On the H100 the
+projections are tensor-core work fed from L2 at C >= 128, and the fp32
+softmax and token gathers dominate at C = 32/64; the kernel runs one 8x8
+window per thread block with the whole working set in shared memory,
+reading and writing the NHWC image once. `attention_image_reference` is
+the plain PyTorch version with the JAX reference's signature
+(`attention_image.py:432`). The backward kernel takes head dim 32 only.
 """
 
 from __future__ import annotations
@@ -16,11 +17,18 @@ from typing import Optional
 
 import torch
 
-from uformer_tpu_torch.ops.attention import window_attention
 from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
+from uformer_tpu_torch.ops.kernels.attention_block import (
+    BACKWARD_NOT_PORTED,
+    attention_block_reference,
+    vjp_reference,
+)
 from uformer_tpu_torch.ops.kernels.wgrad import colsum, wgrad
-from uformer_tpu_torch.ops.masks import shift_window_mask
+from uformer_tpu_torch.ops.kernels.window_attention import (
+    check_head_dim,
+    check_window,
+)
 from uformer_tpu_torch.ops.norm import layer_norm
 from uformer_tpu_torch.ops.window import (
     cyclic_shift,
@@ -29,26 +37,7 @@ from uformer_tpu_torch.ops.window import (
     window_reverse,
 )
 
-HEAD_DIM = 32  # the kernel's head width (every Uformer_B stage)
-
-
-def attention_block_reference(x, mod, wq, bq, wkv, bkv, wo, bo, bias, *,
-                              win, shift, H, W, scale, num_heads):
-    """Plain windowed block on (Bw, N, C) windows after LN, shift and
-    partition (`attention_block.py:345`, has_ln=False)."""
-    Bw, N, C = x.shape
-    D = C // num_heads
-    dt = x.dtype
-    xm = x + mod[None].to(dt)
-    q = xm @ wq.to(dt) + bq.to(dt)
-    kv = xm @ wkv.to(dt) + bkv.to(dt)
-    q = q.reshape(Bw, N, num_heads, D).transpose(1, 2)
-    k = kv[..., :C].reshape(Bw, N, num_heads, D).transpose(1, 2)
-    v = kv[..., C:].reshape(Bw, N, num_heads, D).transpose(1, 2)
-    mask = (torch.from_numpy(shift_window_mask(H, W, win, shift)).to(x.device)
-            if shift > 0 else None)
-    out = window_attention(q, k, v, bias, mask, scale=scale)
-    return out @ wo.to(dt) + bo.to(dt)
+BWD_HEAD_DIM = 32  # the backward kernel's head width
 
 
 def attention_image_reference(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo,
@@ -56,27 +45,21 @@ def attention_image_reference(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo,
                               has_ln=True, residual=True):
     """LN -> shift -> partition -> attention block -> reverse -> unshift
     [-> + x], on the (B, H, W, C) image."""
-    B, H, W, C = x.shape
+    _, H, W, _ = x.shape
     y = layer_norm(x, ln_s, ln_b) if has_ln else x
     wnd = window_partition(cyclic_shift(y, shift), win)
-    if mod is None:
-        mod = torch.zeros(win * win, C, dtype=x.dtype, device=x.device)
     out = attention_block_reference(
-        wnd, mod, wq, bq, wkv, bkv, wo, bo, bias, win=win, shift=shift, H=H,
-        W=W, scale=scale, num_heads=num_heads)
+        wnd, mod, None, None, wq, bq, wkv, bkv, wo, bo, bias, win=win,
+        shift=shift, H=H, W=W, scale=scale, num_heads=num_heads,
+        has_ln=False)
     out = cyclic_unshift(window_reverse(out, win, H, W), shift)
     return x + out if residual else out
 
 
 def _check_geometry(x, win, shift, num_heads):
     _, H, W, C = x.shape
-    if win != 8 or H % 8 or W % 8 or not 0 <= shift < 8:
-        raise ValueError(f"kernel needs win 8, H, W multiples of 8 and "
-                         f"0 <= shift < 8: win={win} H={H} W={W} "
-                         f"shift={shift}")
-    if C != num_heads * HEAD_DIM:
-        raise ValueError(f"kernel needs head dim {HEAD_DIM}: C={C}, "
-                         f"num_heads={num_heads}")
+    check_window(win, shift, H, W)
+    check_head_dim(C, num_heads)
 
 
 def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
@@ -91,7 +74,7 @@ def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
     wkv (C, 2C) = [k | v] in x's dtype; mod (64, C) in x's dtype or None;
     bq, bkv, bo, ln_s, ln_b float32; bias (nH, 64, 64) float32.
     A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel (win 8, head dim 32) or raises."""
+    the kernel (win 8, head dim 16 or 32) or raises."""
     if x.device.type == "cpu":
         fused_attention_image.plain_calls += 1
         return attention_image_reference(
@@ -116,8 +99,8 @@ def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
     lib = load()
     is_bf16 = int(dt == torch.bfloat16)
     y = torch.empty_like(x)
-    scratch = (torch.empty_like(x)
-               if lib.uf_attention_needs_scratch(is_bf16, C) else None)
+    scratch = (torch.empty_like(x) if lib.uf_attention_needs_scratch(
+        is_bf16, C, C // num_heads) else None)
     with torch.cuda.device(dev):
         err = lib.uf_attention_image(
             is_bf16, x.data_ptr(), y.data_ptr(), _launch.ptr(mod),
@@ -143,20 +126,10 @@ def attention_image_vjp_reference(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv,
     tuple of `uformer_tpu` `attention_block.py:fused_attention_block_bwd`:
     (dx, dmod, dln_s, dln_b, dwq, dbq, dwkv, dbkv, dwo, dbo, dbias), dx in
     x's dtype and the rest float32 (None for an absent mod or LN)."""
-    args = [x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias]
-    if not has_ln:
-        args[2] = args[3] = None
-    with torch.enable_grad():
-        args = [None if t is None else t.detach().requires_grad_(True)
-                for t in args]
-        y = attention_image_reference(
-            *args, win=win, shift=shift, scale=scale, num_heads=num_heads,
-            has_ln=has_ln, residual=residual)
-        live = [t for t in args if t is not None]
-        grads = iter(torch.autograd.grad(y, live, g.to(y.dtype)))
-    out = [None if t is None else next(grads) for t in args]
-    return (out[0],) + tuple(None if d is None else d.float()
-                             for d in out[1:])
+    return vjp_reference(attention_image_reference, x, g,
+                         (mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias),
+                         has_ln, win=win, shift=shift, scale=scale,
+                         num_heads=num_heads, residual=residual)
 
 
 def fused_attention_image_bwd(x: torch.Tensor, g: torch.Tensor,
@@ -175,8 +148,8 @@ def fused_attention_image_bwd(x: torch.Tensor, g: torch.Tensor,
     gathers x and g from the image, recomputes the forward and walks the
     VJP; the weight gradients are then reduced over every token by
     `csrc/wgrad.cu`. Inputs as `fused_attention_image` takes them. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernels or
-    raises."""
+    tensor takes the plain version; a CUDA tensor launches the kernels
+    (head dim 32) or raises: NotImplementedError at head dim 16."""
     kw = dict(win=win, shift=shift, scale=scale, num_heads=num_heads,
               has_ln=has_ln, residual=residual)
     if x.device.type == "cpu":
@@ -190,6 +163,8 @@ def fused_attention_image_bwd(x: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
                          f"{tuple(x.shape)} {x.dtype}")
     _check_geometry(x, win, shift, num_heads)
+    if C != BWD_HEAD_DIM * num_heads:
+        raise NotImplementedError(BACKWARD_NOT_PORTED)
     dt, dev, f32 = x.dtype, x.device, torch.float32
     if has_ln:
         _launch.expect(ln_s, "ln_s", (C,), f32, dev)

@@ -19,13 +19,13 @@ import torch
 from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.kernels.attention_image import (
-    HEAD_DIM,
     attention_image_reference,
 )
 from uformer_tpu_torch.ops.kernels.leff import (
     HIDDEN_CHUNK,
     leff_reference,
 )
+from uformer_tpu_torch.ops.kernels.window_attention import check_head_dim
 
 # keys of the depth-stacked parameter dict (uformer_tpu stage.py:421-425)
 STAGE_KEYS = ("ln1_s", "ln1_b", "wq", "bq", "wk", "bk", "wv", "bv", "wo",
@@ -72,12 +72,11 @@ def fused_stage(x: torch.Tensor, p: Dict[str, torch.Tensor], *, scale: float,
     lib = load()
     is_bf16 = int(x.dtype == torch.bfloat16)
     th = lib.uf_leff_tile_rows(is_bf16, C)
-    if C != num_heads * HEAD_DIM or H % 8 or W % 8 or H % th \
-            or Ch % HIDDEN_CHUNK:
-        raise ValueError(f"kernel needs head dim {HEAD_DIM}, H and W "
-                         f"multiples of 8 and of the tile rows {th}, and "
-                         f"Ch % {HIDDEN_CHUNK} == 0: C={C} "
-                         f"num_heads={num_heads} H={H} W={W} Ch={Ch}")
+    check_head_dim(C, num_heads)
+    if H % 8 or W % 8 or H % th or Ch % HIDDEN_CHUNK:
+        raise ValueError(f"kernel needs H and W multiples of 8 and of the "
+                         f"tile rows {th}, and Ch % {HIDDEN_CHUNK} == 0: "
+                         f"C={C} H={H} W={W} Ch={Ch}")
     dt, dev, f32 = x.dtype, x.device, torch.float32
     shapes = {
         "ln1_s": ((n, C), f32), "ln1_b": ((n, C), f32),
@@ -98,8 +97,8 @@ def fused_stage(x: torch.Tensor, p: Dict[str, torch.Tensor], *, scale: float,
         _launch.expect(p.get(name), name, shape, tdt, dev)
     out = torch.empty_like(x)
     buf = torch.empty_like(x)
-    scratch = (torch.empty_like(x)
-               if lib.uf_attention_needs_scratch(is_bf16, C) else None)
+    scratch = (torch.empty_like(x) if lib.uf_attention_needs_scratch(
+        is_bf16, C, C // num_heads) else None)
     ptrs = [p[k].data_ptr() if (k != "mod" or has_mod) else None
             for k in STAGE_KEYS]
     with torch.cuda.device(dev):

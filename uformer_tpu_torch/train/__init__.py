@@ -10,6 +10,7 @@ from uformer_tpu_torch.train.schedules import (  # noqa: F401
 )
 from uformer_tpu_torch.train.train_step import (  # noqa: F401
     TrainState,
+    blocks_without_backward_kernel,
     make_eval_step,
     make_optimizer,
     make_train_step,

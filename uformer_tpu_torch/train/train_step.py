@@ -6,18 +6,22 @@ the reference recipe) over float32 master parameters, with no loss scaler;
 Charbonnier loss; backward (through the backward kernels on the card);
 AdamW with weight decay on every parameter (the reference trainers never
 use the model's no-decay sets); optional global-norm clipping. MixUp runs
-once the epoch passes `mixup_after_epoch`.
+once the epoch passes `mixup_after_epoch`. On the card the kernel path
+trains only models whose blocks the backward kernels cover; the step
+refuses any other before it runs.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 from torch import nn
 
 from uformer_tpu_torch.data.augment import mixup_batch
+from uformer_tpu_torch.models.layers import LeWinBlock
+from uformer_tpu_torch.ops.kernels import BACKWARD_NOT_PORTED
 from uformer_tpu_torch.train.losses import charbonnier_loss
 from uformer_tpu_torch.train.schedules import Schedule
 
@@ -60,6 +64,13 @@ def make_optimizer(params: Iterable[torch.Tensor], lr_schedule: Schedule,
     return AdamW(params, lr_schedule, weight_decay, betas, eps, grad_clip)
 
 
+def blocks_without_backward_kernel(model: nn.Module) -> List[str]:
+    """Names of the blocks whose attention backward has no kernel yet
+    (the windowed branch, or head dim 16)."""
+    return [name for name, m in model.named_modules()
+            if isinstance(m, LeWinBlock) and not m.backward_kernels_cover]
+
+
 @dataclass
 class TrainState:
     model: nn.Module
@@ -75,11 +86,19 @@ def make_train_step(model: nn.Module, loss_fn: Callable = charbonnier_loss,
     batch: {"input": (B, H, W, C), "target": (B, H, W, 3)} on the model's
     device. `generator` draws the MixUp and DropPath randomness. plain=True
     runs the kernels' plain versions under torch autograd (the comparison
-    path). After the step each parameter's `.grad` holds its gradient."""
+    path). After the step each parameter's `.grad` holds its gradient.
+    On the card the kernel path raises NotImplementedError before the
+    step for a model with blocks in `blocks_without_backward_kernel`."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> torch.Tensor:
         inp, tgt = batch["input"], batch["target"]
+        if not plain and inp.device.type == "cuda":
+            uncovered = blocks_without_backward_kernel(model)
+            if uncovered:
+                raise NotImplementedError(
+                    f"{BACKWARD_NOT_PORTED}: {len(uncovered)} blocks, "
+                    f"{uncovered[0]} first")
         if inp.shape[0] != tgt.shape[0]:
             raise ValueError(f"input/target batch mismatch: "
                              f"{tuple(inp.shape)} vs {tuple(tgt.shape)}")
