@@ -15,10 +15,15 @@ Phases, each raising on failure (no phase is caught):
                attention-block kernel at enc0 (LN and modulator each way),
                LeFF at C 16-64, and the window-attention core at every
                stage's heads and shifts; kernels 4 and 5 also at one
-               Uformer_B (head dim 32) geometry.
+               Uformer_B (head dim 32) geometry; the depthwise kernel at
+               every serve B-conv stage's (Bw, 8, 8, C) windows, 4 x 4
+               windows, a whole image, an odd C without bias and C = 8.
   4. golden  - Uformer_B at 128^2, fp32, through the kernels, stage by stage
                against the recorded torch activations of
-               tests/golden/uformer_b_128.npz.
+               tests/golden/uformer_b_128.npz; then the conv-projection,
+               Mlp, cross-modulator Uformer of
+               tests/golden/uformer_convproj_crossmod.npz (64^2) through
+               the depthwise kernel (27 launches), output within 1e-4.
   5. serve   - a bf16 Restorer for Uformer_B at 256^2 answers 4 requests of
                batch 8; launch counts per request, ms per request, MP/s,
                peak memory; the kernel path against the plain path.
@@ -30,7 +35,17 @@ Phases, each raising on failure (no phase is caught):
                its enc0 shape against its plain version and against
                F.scaled_dot_product_attention (a yardstick the port never
                calls).
-  9. train   - Uformer_B at 128^2 in training (drop path 0.1, mixup on):
+  9. serve B-conv - Uformer_B's widths and depths with the conv token
+               projection (seeded numpy weights over the port's parameter
+               names): 4 bf16 requests of batch 8 at 256^2, 120 depthwise
+               and 40 LeFF launches each; host enqueue and device time.
+ 10. timing B-conv - per stage the depthwise kernel against its plain
+               version, its bound and cuDNN's depthwise F.conv2d (a
+               yardstick the port never calls), eagerly and from CUDA
+               graphs (device time alone), and how the forward splits
+               between the depthwise kernel, the pointwise products, the
+               plain attention, LeFF and the glue.
+ 11. train   - Uformer_B at 128^2 in training (drop path 0.1, mixup on):
                the forward kernels with residual=False and the backward
                kernels against their plain versions at every stage shape
                (shift 0 and 4, fp32 and bf16, every gradient) and one
@@ -48,8 +63,9 @@ weight gradients are sums over every token; golden as
 tests/test_golden_parity.py. --json PATH writes every check and timing
 there. Each kernel's bound is the larger of its operations at the bf16
 tensor-core peak and its bytes (inputs read once, outputs written once) at
-the HBM rate of an H100 SXM. The line before the last lists every kernel;
-the last line is {"ok": true, "device": {...}}.
+the HBM rate of an H100 SXM (the depthwise kernel's operations at the
+float32 rate outside the tensor cores). The line before the last lists
+every kernel; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -72,17 +88,31 @@ BATCH_CHECK, BATCH_SERVE, RES_SERVE, RES_GOLDEN = 2, 8, 256, 128
 BATCH_TRAIN, RES_TRAIN, N_TRAIN_STEPS = 32, 128, 3
 N_REQUESTS = 4
 SEED_T = 1235  # Uformer_T's seeded weights
+SEED_BCONV = 1236  # serve B-conv's seeded weights
 EXPECTED_LAUNCHES = {"stage": 6, "attention_image": 4, "leff": 4,
                      "attention_bwd": 0, "leff_bwd": 0,
-                     "window_attention": 0, "attention_block": 0}
+                     "window_attention": 0, "attention_block": 0,
+                     "dwconv3x3": 0}
 T_LAUNCHES = {"stage": 4, "attention_image": 8, "leff": 10,
               "attention_bwd": 0, "leff_bwd": 0, "window_attention": 0,
-              "attention_block": 2}
+              "attention_block": 2, "dwconv3x3": 0}
 TRAIN_LAUNCHES = {"stage": 0, "attention_image": 40, "leff": 40,
                   "attention_bwd": 40, "leff_bwd": 40,
-                  "window_attention": 0, "attention_block": 0}
-# H100 SXM (NVIDIA data sheet): dense bf16 tensor-core FLOP/s, HBM bytes/s
-PEAK_BF16, PEAK_HBM = 989e12, 3.35e12
+                  "window_attention": 0, "attention_block": 0,
+                  "dwconv3x3": 0}
+# serve B-conv: Uformer_B's widths and depths with the conv token
+# projection (three SepConv2d per block: 3 x 40 depthwise launches)
+BCONV = dict(img_size=RES_SERVE, embed_dim=32, depths=(1, 2, 8, 8, 2, 8, 8,
+                                                       2, 1),
+             num_heads=(1, 2, 4, 8, 16, 16, 8, 4, 2), win_size=8,
+             mlp_ratio=4.0, token_projection="conv", token_mlp="leff",
+             modulator=True, shift_flag=True)
+BCONV_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0), leff=40,
+                      dwconv3x3=120)
+GOLDEN_CONV_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0), dwconv3x3=27)
+# H100 SXM (NVIDIA data sheet): dense bf16 tensor-core FLOP/s, float32
+# FLOP/s outside the tensor cores, HBM bytes/s
+PEAK_BF16, PEAK_FP32, PEAK_HBM = 989e12, 67e12, 3.35e12
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "stage": ("uformer_tpu_torch/csrc/stage.cu",
               "uformer_tpu/ops/pallas/stage.py:418"),
@@ -98,6 +128,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                          "uformer_tpu/ops/pallas/window_attention.py:97"),
     "attention_block": ("uformer_tpu_torch/csrc/attention_block.cu",
                         "uformer_tpu/ops/pallas/attention_block.py:1152"),
+    "dwconv3x3": ("uformer_tpu_torch/csrc/dwconv.cu",
+                  "uformer_tpu/ops/pallas/dwconv.py:52"),
 }
 STAGES = (["input_proj"] + [f"encoderlayer_{k}" for k in range(4)]
           + [f"dowsample_{k}" for k in range(4)] + ["conv"]
@@ -138,6 +170,17 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, n: int = 20) -> float:
+    """Device time of one fn() from a CUDA graph of n calls, replayed 10
+    times: the kernels alone, without the host's cost of launching them."""
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay) / n
+
+
 def attn_cost(tokens, C, nH, s=2, mod=True, ln=True):
     """(operations, bytes) of an attention sub-block (kernels 1 and 5) over
     `tokens` tokens of width C: the q, kv and output projections and two
@@ -171,6 +214,13 @@ def core_cost(nH, Bw, D, s=2):
             4 * nH * Bw * 64 * D * s + nH * 4096 * 4)
 
 
+def dwconv_cost(pixels, C, s=2, ws=2):
+    """The depthwise 3x3 conv: nine multiply-adds and the bias per value;
+    x read and y written once, the weights (ws bytes) and the float32
+    bias once."""
+    return 19 * pixels * C, 2 * pixels * C * s + 9 * C * ws + 4 * C
+
+
 def bwd_cost(fwd, tokens, C, s=2):
     """A backward kernel of a sub-block of cost `fwd`: twice its products
     (input and weight gradients); x and the output gradient read, dx
@@ -181,14 +231,14 @@ def bwd_cost(fwd, tokens, C, s=2):
 
 
 def tally(totals: dict, kernel: str, k_ms: float, p_ms: float, cost,
-          n: int = 1) -> float:
+          n: int = 1, peak: float = PEAK_BF16) -> float:
     """Add n calls of `kernel` (its time, its plain version's, and the
-    bound of `cost` = (operations, bytes)) to totals; returns the bound
-    of the n calls in ms."""
+    bound of `cost` = (operations, bytes), the operations at `peak`) to
+    totals; returns the bound of the n calls in ms."""
     t = totals.setdefault(kernel, {"ms": 0.0, "plain_ms": 0.0,
                                    "launches": 0, "bound_ms": 0.0,
                                    "op_ms": 0.0, "byte_ms": 0.0})
-    op, byte = cost[0] / PEAK_BF16 * 1e3, cost[1] / PEAK_HBM * 1e3
+    op, byte = cost[0] / peak * 1e3, cost[1] / PEAK_HBM * 1e3
     t["ms"] += n * k_ms
     t["plain_ms"] += n * p_ms
     t["launches"] += n
@@ -218,6 +268,23 @@ def seeded_weights():
     keys_shapes = json.loads(str(data["sd_manifest"]))
     return data, golden_module().seeded_state_dict(keys_shapes,
                                                    int(data["seed"]))
+
+
+def bconv_weights():
+    """serve B-conv's weights drawn with numpy from SEED_BCONV over the
+    port's own parameter names, by the golden weights' rule."""
+    from uformer_tpu_torch.models import Uformer
+
+    model = Uformer(**BCONV)
+    keys_shapes = [[k, list(v.shape)] for k, v in model.named_parameters()]
+    return golden_module().seeded_state_dict(keys_shapes, SEED_BCONV)
+
+
+def build_bconv(sd, device):
+    from uformer_tpu_torch.convert import load_numpy_state_dict
+    from uformer_tpu_torch.models import Uformer
+
+    return load_numpy_state_dict(Uformer(**BCONV), sd).to(device).eval()
 
 
 def build_model(sd, train_ps: int, device, arch: str = "Uformer_B"):
@@ -416,6 +483,48 @@ def kernel_phase_t(model_t, model_b, device) -> Checks:
     return checks
 
 
+@torch.no_grad()
+def dwconv_phase(model, device) -> Checks:
+    """The depthwise kernel against its plain version in fp32 and bf16 (bf16
+    weights, fp32 bias): at every serve B-conv stage's (Bw, 8, 8, C)
+    windows at 256^2, batch BATCH_CHECK, with the stage's first to_q
+    weights and bias; then on random weights at the 64^2 golden's 4 x 4
+    bottleneck windows, a whole image, an odd C without bias (the scalar
+    path) and C = 8."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    checks = Checks()
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    cases = []
+    for name in LAYERS:
+        layer = getattr(model, name)
+        conv = layer.blocks[0].attn.qkv.to_q
+        w, b = conv.depthwise.weight[:, 0].permute(1, 2, 0), \
+            conv.depthwise.bias
+        cases.append((f"{name} windows", (BATCH_CHECK * (layer.resolution
+                                                         // 8) ** 2, 8, 8,
+                                          layer.dim), w, b))
+    for what, shape, with_bias in (("4x4 windows", (2, 4, 4, 128), True),
+                                   ("image", (2, 64, 64, 128), True),
+                                   ("odd C, no bias", (2, 24, 40, 12), False),
+                                   ("C 8", (128, 8, 8, 8), True)):
+        C = shape[-1]
+        w = torch.randn((3, 3, C), generator=gen) / 3
+        b = torch.randn(C, generator=gen) * 0.1 if with_bias else None
+        cases.append((what, shape, w, b))
+    for what, shape, w, b in cases:
+        w = w.float().bfloat16().float().to(device).contiguous()
+        b = None if b is None else b.float().to(device)
+        ws = {torch.float32: w, torch.bfloat16: w.bfloat16()}
+        x32 = torch.randn(shape, generator=gen).bfloat16().float().to(device)
+        compare(checks, "dwconv3x3", f"{what} {shape}",
+                lambda x, dt, ws=ws, b=b: K.dwconv3x3(x, ws[dt], b),
+                lambda x, dt, ws=ws, b=b: K.dwconv3x3_reference(x, ws[dt],
+                                                                b), x32)
+    torch.cuda.synchronize()
+    return checks
+
+
 def to_nhwc(a: np.ndarray) -> np.ndarray:
     """Torch activation -> NHWC: (B, L, C) tokens via sqrt(L), (B, C, H, W)
     maps by transpose (as tests/test_golden_parity.py)."""
@@ -460,6 +569,37 @@ def golden_phase(data, sd, device) -> Checks:
     return checks
 
 
+def golden_conv_phase(device) -> Checks:
+    """The recorded torch golden of the conv-projection Uformer (64^2,
+    embed 8, depths 1, Mlp, modulator, cross-modulator, shift) in fp32 on
+    the card through the depthwise kernel: the output within 1e-4
+    (tests/test_golden_parity.py:25)."""
+    from uformer_tpu_torch.convert import load_numpy_state_dict
+    from uformer_tpu_torch.models import Uformer
+    from uformer_tpu_torch.ops import kernels as K
+
+    kw = golden_module().CONVPROJ
+    kw = dict(kw, depths=tuple(kw["depths"]), num_heads=tuple(kw["num_heads"]))
+    data = np.load(REPO / "tests" / "golden" / "uformer_convproj_crossmod.npz")
+    sd = {k[len("sd/"):]: data[k] for k in data.files if k.startswith("sd/")}
+    model = load_numpy_state_dict(Uformer(**kw), sd).to(device).eval()
+    x = torch.from_numpy(data["input"].transpose(0, 2, 3, 1).copy())
+    K.reset_counts()
+    with torch.no_grad():
+        y = model(x.to(device)).cpu()
+    torch.cuda.synchronize()
+    launched = K.launch_counts()
+    print(f"  launches {launched}", flush=True)
+    if launched != GOLDEN_CONV_LAUNCHES:
+        raise RuntimeError(f"golden conv: launches {launched}, expected "
+                           f"{GOLDEN_CONV_LAUNCHES}")
+    checks = Checks()
+    want = data["output"].transpose(0, 2, 3, 1)
+    checks.add("model", "golden conv output",
+               float(np.abs(y.numpy() - want).max()), 1e-4, "fp32")
+    return checks
+
+
 def serve_phase(make_model, device, expected: dict, label: str):
     """A bf16 Restorer of make_model() (a float32 model at 256^2 on the
     card) answers N_REQUESTS requests of batch BATCH_SERVE, each launching
@@ -478,13 +618,19 @@ def serve_phase(make_model, device, expected: dict, label: str):
     torch.cuda.reset_peak_memory_stats(device)
 
     K.reset_counts()
-    per_request, ms = [], []
+    per_request, ms, enqueue_ms, device_ms = [], [], [], []
     for x in requests[1:]:
         before = K.launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        start.record()
         y = restorer(x)
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
         after = K.launch_counts()
         per_request.append({k: after[k] - before[k] for k in after})
         if tuple(y.shape) != shape or not bool(torch.isfinite(y).all()) \
@@ -493,7 +639,8 @@ def serve_phase(make_model, device, expected: dict, label: str):
     launches = K.launch_counts()
     peak = torch.cuda.max_memory_allocated(device)
     for i, c in enumerate(per_request):
-        print(f"  request {i}: launches {c}  {ms[i]:.3f} ms", flush=True)
+        print(f"  request {i}: launches {c}  {ms[i]:.3f} ms (host enqueue "
+              f"{enqueue_ms[i]:.3f}, device {device_ms[i]:.3f})", flush=True)
         if c != expected:
             raise RuntimeError(f"{label}: request {i} launched {c}, "
                                f"expected {expected}")
@@ -516,6 +663,7 @@ def serve_phase(make_model, device, expected: dict, label: str):
                    max_err(model16(x), ref32), 1.5 * e_plain + 1e-3, "bf16")
     del model32, ref32
     summary = {"ms_per_request": ms, "median_ms": med, "mp_per_s": mps,
+               "host_enqueue_ms": enqueue_ms, "device_ms": device_ms,
                "max_memory_allocated_bytes": peak,
                "launches_per_request": per_request}
     return restorer, requests[1].to(device), summary, launches, checks
@@ -625,6 +773,152 @@ def timing_phase(restorer, x):
     print(f"  forward bs{x.shape[0]} {x.shape[1]}^2 bf16: kernel path "
           f"{fwd['kernel_ms']:.3f} ms, plain path {fwd['plain_ms']:.3f} ms",
           flush=True)
+    return rows, totals, fwd
+
+
+@torch.no_grad()
+def bconv_timing(restorer, x):
+    """serve B-conv's bs8 256^2 bf16 forward, block by block: for each
+    stage and each shift it runs, one block timed on the stage's input and
+    counted once per block of that shift. The depthwise kernel against its
+    plain version and against cuDNN's depthwise F.conv2d on the same
+    channels-last bf16 windows with bf16 weights (a yardstick the port
+    never calls), in the order plain, kernel, library, library, kernel,
+    plain, and the kernel and cuDNN again from CUDA graphs (device time
+    without the host's launch cost); the pointwise products (ReLU, the three 1x1 products and the
+    output projection), the plain window attention, LeFF kernel and plain,
+    and the whole block, whose remainder is the glue (LN1, roll,
+    partition, modulator, reverse, residual). Then the whole forward on
+    each path. Returns rows, per-kernel totals and the forward's split."""
+    from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.ops.attention import window_attention
+    from uformer_tpu_torch.ops.norm import layer_norm
+    from uformer_tpu_torch.ops.window import cyclic_shift, window_partition
+
+    model = restorer.model
+    inputs = {}
+    hooks = [getattr(model, n).register_forward_pre_hook(
+        lambda _m, args, n=n: inputs.__setitem__(n, args[0]))
+        for n in LAYERS]
+    model(x)
+    for h in hooks:
+        h.remove()
+    rows, totals = [], {}
+    split = dict.fromkeys(("dwconv3x3", "pointwise", "attention", "leff",
+                           "glue"), 0.0)
+    for name in LAYERS:
+        layer, xin = getattr(model, name), inputs[name]
+        B, H, W, C = xin.shape
+        for shift in sorted({b.shift_size for b in layer.blocks}):
+            blk = next(b for b in layer.blocks if b.shift_size == shift)
+            n = sum(b.shift_size == shift for b in layer.blocks)
+            p = blk.params_for(xin.dtype, xin.device)
+            wnd = window_partition(cyclic_shift(
+                layer_norm(xin, p["ln1_s"], p["ln1_b"]), shift), 8)
+            if p["mod"] is not None:
+                wnd = wnd + p["mod"]
+            Bw = wnd.shape[0]
+            xs = wnd.reshape(Bw, 8, 8, C)
+            q = p["to_q"]
+            wlib = q["wd"].permute(2, 0, 1).unsqueeze(1).contiguous()
+            blib = q["bd"].to(xs.dtype)
+            xs_nchw = xs.permute(0, 3, 1, 2)  # a channels-last view
+
+            def kern(q=q, xs=xs):
+                return K.dwconv3x3(xs, q["wd"], q["bd"])
+
+            def plain(q=q, xs=xs):
+                return K.dwconv3x3_reference(xs, q["wd"], q["bd"])
+
+            def library(xs_nchw=xs_nchw, wlib=wlib, blib=blib, C=C):
+                return F.conv2d(xs_nchw, wlib, blib, padding=1, groups=C)
+
+            p1, k1, l1 = cuda_ms(plain), cuda_ms(kern), cuda_ms(library)
+            l2, k2, p2 = cuda_ms(library), cuda_ms(kern), cuda_ms(plain)
+            dw = [(k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2]
+            dev = [graph_ms(kern), graph_ms(library)]
+            tally(totals, "dwconv3x3", dw[0], dw[1],
+                  dwconv_cost(Bw * 64, C), 3 * n, PEAK_FP32)
+            t = totals["dwconv3x3"]
+            for key, v in (("library_ms", dw[2]), ("device_ms", dev[0]),
+                           ("library_device_ms", dev[1])):
+                t[key] = t.get(key, 0.0) + 3 * n * v
+            ys = [kern() for _ in range(3)]
+
+            def pointwise(p=p, ys=ys, nm=("to_q", "to_k", "to_v")):
+                outs = [F.relu(y) @ p[k]["wp"] + p[k]["bp"].to(y.dtype)
+                        for k, y in zip(nm, ys)]
+                return outs[0].reshape(Bw, 64, C) @ p["wo"] + p["bo"].to(
+                    outs[0].dtype)
+
+            qkv = blk.attn.qkv(wnd, p, blk.num_heads)
+            mask = blk.attention_mask(B, H, W, xin.device)
+
+            def attention(qkv=qkv, mask=mask, p=p, blk=blk):
+                return window_attention(*qkv, p["bias"], mask,
+                                        scale=blk.attn.scale)
+
+            xa = xin + blk.unfused_attention(xin, p)
+            largs = (xa, p["w1"], p["b1"], p["wd"], p["bd"], p["w2"],
+                     p["b2"])
+            lkw = dict(ln_s=p["ln2_s"], ln_b=p["ln2_b"], residual=True)
+            lp1, lk1 = (cuda_ms(lambda: K.leff_reference(*largs, **lkw)),
+                        cuda_ms(lambda: K.fused_leff(*largs, **lkw)))
+            lk2, lp2 = (cuda_ms(lambda: K.fused_leff(*largs, **lkw)),
+                        cuda_ms(lambda: K.leff_reference(*largs, **lkw)))
+            tally(totals, "leff", (lk1 + lk2) / 2, (lp1 + lp2) / 2,
+                  leff_cost(B * H * W, C, 4 * C), n)
+            pw_ms, at_ms = cuda_ms(pointwise), cuda_ms(attention)
+            blk_ms = cuda_ms(lambda: blk(xin))
+            leff_ms = (lk1 + lk2) / 2
+            parts = {"dwconv3x3": 3 * dw[0], "pointwise": pw_ms,
+                     "attention": at_ms, "leff": leff_ms,
+                     "glue": blk_ms - 3 * dw[0] - pw_ms - at_ms - leff_ms}
+            for k, v in parts.items():
+                split[k] += n * v
+            rows.append({"layer": name, "shift": shift, "blocks": n,
+                         "windows": [Bw, 8, 8, C], "dwconv_ms": dw[0],
+                         "dwconv_plain_ms": dw[1], "dwconv_library_ms": dw[2],
+                         "dwconv_device_ms": dev[0],
+                         "dwconv_library_device_ms": dev[1],
+                         "dwconv_bound_ms": max(
+                             dwconv_cost(Bw * 64, C)[0] / PEAK_FP32,
+                             dwconv_cost(Bw * 64, C)[1] / PEAK_HBM) * 1e3,
+                         "leff_ms": leff_ms, "leff_plain_ms": (lp1 + lp2) / 2,
+                         "pointwise_ms": pw_ms, "attention_ms": at_ms,
+                         "block_ms": blk_ms})
+            r = rows[-1]
+            print(f"  {name:16s} s{shift} x{n} ({Bw}, 8, 8, {C}) dwconv "
+                  f"{dw[0]:.4f} ms (plain {dw[1]:.4f}, cuDNN {dw[2]:.4f}; "
+                  f"graphed {dev[0]:.4f}, cuDNN {dev[1]:.4f}; bound "
+                  f"{r['dwconv_bound_ms']:.4f}); pointwise "
+                  f"{pw_ms:.3f}, attention {at_ms:.3f}, leff {leff_ms:.3f}, "
+                  f"block {blk_ms:.3f} ms", flush=True)
+    p1 = cuda_ms(lambda: model(x, plain=True), reps=5)
+    k1 = cuda_ms(lambda: model(x), reps=5)
+    k2 = cuda_ms(lambda: model(x), reps=5)
+    p2 = cuda_ms(lambda: model(x, plain=True), reps=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model(x)
+    enqueue = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    fwd = {"kernel_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+           "runs_ms": {"plain": [p1, p2], "kernel": [k1, k2]},
+           "host_enqueue_ms": enqueue, "split_ms": split}
+    split["outside blocks"] = fwd["kernel_ms"] - sum(split.values())
+    for kernel, t in totals.items():
+        print(f"  {kernel:16s} per forward: {t['launches']} launches, "
+              f"kernel {t['ms']:8.3f} ms, plain {t['plain_ms']:8.3f} ms, "
+              f"bound {t['bound_ms']:7.4f} ms ({bound_by(t)})"
+              + (f", cuDNN {t['library_ms']:.3f} ms; graphed: kernel "
+                 f"{t['device_ms']:.3f} ms, cuDNN "
+                 f"{t['library_device_ms']:.3f} ms" if "library_ms" in t
+                 else ""), flush=True)
+    print(f"  forward bs{x.shape[0]} {x.shape[1]}^2 bf16: kernel path "
+          f"{fwd['kernel_ms']:.3f} ms, plain path {fwd['plain_ms']:.3f} ms, "
+          f"host enqueue {enqueue:.3f} ms; split "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
     return rows, totals, fwd
 
 
@@ -1039,10 +1333,19 @@ def run(device, card: str, json_path) -> list:
     t_kchecks = kernel_phase_t(model_t, model256, device)
     t_kchecks.raise_if_failed("kernels Uformer_T")
     del model256, model_t
+    sd_bc = bconv_weights()
+    model_bc = build_bconv(sd_bc, device)
+    dw_checks = dwconv_phase(model_bc, device)
+    dw_checks.raise_if_failed("kernels dwconv3x3")
+    del model_bc
 
     phase("golden")
     gchecks = golden_phase(data, sd, device)
     gchecks.raise_if_failed("golden")
+
+    phase("golden conv")
+    gcchecks = golden_conv_phase(device)
+    gcchecks.raise_if_failed("golden conv")
 
     phase("serve")
     restorer, x, serve, launches, schecks = serve_phase(
@@ -1066,17 +1369,31 @@ def run(device, card: str, json_path) -> list:
     del restorer, x
     torch.cuda.empty_cache()
 
+    phase("serve B-conv")
+    restorer, x, serve_bc, bc_launches, bc_schecks = serve_phase(
+        lambda: build_bconv(sd_bc, device), device, BCONV_LAUNCHES,
+        "serve B-conv")
+    bc_schecks.raise_if_failed("serve B-conv")
+
+    phase("timing B-conv")
+    bc_rows, bc_totals, bc_fwd = bconv_timing(restorer, x)
+    del restorer, x
+    torch.cuda.empty_cache()
+
     phase("train")
     tkchecks, tschecks, train, trows, ttotals = train_phase(sd, device)
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "kernel_checks": kchecks.rows + t_kchecks.rows,
-              "golden_checks": gchecks.rows,
-              "serve_checks": schecks.rows + t_schecks.rows, "serve": serve,
+              "kernel_checks": kchecks.rows + t_kchecks.rows + dw_checks.rows,
+              "golden_checks": gchecks.rows + gcchecks.rows,
+              "serve_checks": schecks.rows + t_schecks.rows + bc_schecks.rows,
+              "serve": serve,
               "timing": rows, "forward": fwd, "timing_totals": totals,
               "serve_t": serve_t, "timing_t": t_rows, "forward_t": t_fwd,
               "timing_totals_t": t_totals, "core_timing": core,
+              "serve_bconv": serve_bc, "timing_bconv": bc_rows,
+              "forward_bconv": bc_fwd, "timing_totals_bconv": bc_totals,
               "train_kernel_checks": tkchecks.rows,
               "train_step_checks": tschecks.rows, "train": train,
               "train_timing": trows, "train_totals": ttotals}
@@ -1090,11 +1407,12 @@ def run(device, card: str, json_path) -> list:
     timed = [("serve Uformer_B bs8 256^2 forward", totals),
              ("serve Uformer_T bs8 256^2 forward", t_totals),
              ("train Uformer_B bs32 128^2 step", ttotals),
+             ("serve B-conv bs8 256^2 forward", bc_totals),
              ("alone at Uformer_T enc0 bs8 256^2",
               {"window_attention": core})]
     for name, (source, replaces) in KERNELS.items():
         rows_of = [r for r in kchecks.rows + t_kchecks.rows + tkchecks.rows
-                   if r["kernel"] == name]
+                   + dw_checks.rows if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
         # the first timing that has the kernel gives ms and its bound
@@ -1102,22 +1420,28 @@ def run(device, card: str, json_path) -> list:
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
                  "launches": (launches[name] + t_launches[name]
-                              + train_launches[name]),
+                              + train_launches[name] + bc_launches[name]),
                  "launches_serve": launches[name],
                  "launches_serve_t": t_launches[name],
                  "launches_train": train_launches[name],
+                 "launches_serve_bconv":
+                     serve_bc["launches_per_request"][0][name],
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound_ms"], "bound_by": bound_by(t),
                  "library_ms": t.get("library_ms"), "timed": where}
+        if "device_ms" in t:
+            entry.update(device_ms=t["device_ms"],
+                         library_device_ms=t["library_device_ms"])
         if name == "window_attention":
             entry["on_path"] = ("no model path calls it (nor in the JAX "
                                 "package); its core runs inside "
                                 "attention_image, stage and "
                                 "attention_block")
         for label, key, tt in (("serve Uformer_T", "serve_t", t_totals),
-                               ("train", "train", ttotals)):
+                               ("train", "train", ttotals),
+                               ("serve B-conv", "serve_bconv", bc_totals)):
             if name in tt and label not in where:
                 entry.update({f"ms_{key}": tt[name]["ms"],
                               f"plain_ms_{key}": tt[name]["plain_ms"],

@@ -217,7 +217,8 @@ def test_uformer_t_matches_jax_and_routes(jx, uformer_t):
     _close(got, want)
     assert K.plain_counts() == {
         "stage": 4, "attention_image": 8, "leff": 10, "attention_bwd": 0,
-        "leff_bwd": 0, "window_attention": 0, "attention_block": 2}
+        "leff_bwd": 0, "window_attention": 0, "attention_block": 2,
+        "dwconv3x3": 0}
     assert set(K.launch_counts().values()) == {0}
 
 

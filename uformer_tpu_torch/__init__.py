@@ -3,8 +3,9 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of `uformer_tpu` (JAX/Pallas on TPU), which stays the reference:
 the same NHWC activations, the reference state_dict key names, and one
-Hopper kernel for each Pallas kernel on the paths (whole-stage, image
-attention and LeFF forward; attention and LeFF backward). Imports torch
+Hopper kernel for each of its eight Pallas kernels (whole-stage, image
+and windowed attention, the window-attention core, LeFF and the
+depthwise 3x3 conv forward; attention and LeFF backward). Imports torch
 only, never jax.
 """
 

@@ -1,12 +1,13 @@
 """JAX (flax) Uformer params -> the port's state_dict, in numpy.
 
 A mirror of `uformer_tpu/convert/torch_exporter.py:export_uformer` for the
-blocks this port has (linear projection, LeFF, modulator), written again
-because importing the JAX package imports jax. Layouts: flax Dense
-(in, out) -> Linear (out, in); flax Conv (kh, kw, in, out) -> Conv2d
-(out, in, kh, kw); flax ConvTranspose with transpose_kernel
-(kh, kw, out, in) -> ConvTranspose2d (in, out, kh, kw); depthwise
-(3, 3, C) -> (C, 1, 3, 3).
+blocks this port has (linear or conv projection, LeFF or Mlp, modulator,
+cross-modulator; not Eca1d), written again because importing the JAX
+package imports jax. Layouts: flax Dense (in, out) -> Linear (out, in);
+flax Conv (kh, kw, in, out) -> Conv2d (out, in, kh, kw), so a 1x1
+pointwise (1, 1, C, inner) -> (inner, C, 1, 1); flax ConvTranspose with
+transpose_kernel (kh, kw, out, in) -> ConvTranspose2d (in, out, kh, kw);
+depthwise (3, 3, C) -> (C, 1, 3, 3).
 """
 
 from __future__ import annotations
@@ -41,13 +42,27 @@ def _layernorm(sd: StateDict, prefix: str, p) -> None:
     sd[f"{prefix}.bias"] = np.asarray(p["bias"])
 
 
+def _depthwise(sd: StateDict, prefix: str, kernel, bias) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(kernel).transpose(2, 0, 1)[:, None]
+    sd[f"{prefix}.bias"] = np.asarray(bias)
+
+
+def _qkv(sd: StateDict, prefix: str, p) -> None:
+    if "to_kv" in p:
+        _linear(sd, f"{prefix}.to_q", p["to_q"])
+        _linear(sd, f"{prefix}.to_kv", p["to_kv"])
+        return
+    for name in ("to_q", "to_k", "to_v"):  # SepConv2d
+        _depthwise(sd, f"{prefix}.{name}.depthwise",
+                   p[name]["depthwise_kernel"], p[name]["depthwise_bias"])
+        _conv(sd, f"{prefix}.{name}.pointwise", p[name]["pointwise"])
+
+
 def _block(sd: StateDict, prefix: str, p) -> None:
-    unsupported = {"cross_modulator", "norm_cross"} & set(p)
-    if "to_kv" not in p["attn"]["qkv"] or "fc1" in p["mlp"] \
-            or "eca" in p["mlp"] or unsupported:
+    if "eca" in p["mlp"]:
         raise NotImplementedError(
-            f"{prefix}: only linear projection + LeFF blocks are ported "
-            f"(ROADMAP.md, port queue 1 item 8)")
+            f"{prefix}: Eca1d is not ported yet (ROADMAP.md, port queue 1 "
+            f"item 8)")
     _layernorm(sd, f"{prefix}.norm1", p["norm1"])
     _layernorm(sd, f"{prefix}.norm2", p["norm2"])
     table = np.asarray(p["attn"]["relative_position_bias_table"])
@@ -55,19 +70,27 @@ def _block(sd: StateDict, prefix: str, p) -> None:
     win = int(round((table.shape[0] ** 0.5 + 1) / 2))
     sd[f"{prefix}.attn.relative_position_index"] = \
         relative_position_index(win, win).astype(np.int64)
-    _linear(sd, f"{prefix}.attn.qkv.to_q", p["attn"]["qkv"]["to_q"])
-    _linear(sd, f"{prefix}.attn.qkv.to_kv", p["attn"]["qkv"]["to_kv"])
+    _qkv(sd, f"{prefix}.attn.qkv", p["attn"]["qkv"])
     _linear(sd, f"{prefix}.attn.proj", p["attn"]["proj"])
     if "modulator" in p:
         sd[f"{prefix}.modulator.weight"] = np.asarray(p["modulator"])
+    if "cross_modulator" in p:
+        sd[f"{prefix}.cross_modulator.weight"] = \
+            np.asarray(p["cross_modulator"])
+        _layernorm(sd, f"{prefix}.norm_cross", p["norm_cross"])
+        _qkv(sd, f"{prefix}.cross_attn.qkv", p["cross_attn"]["qkv"])
+        _linear(sd, f"{prefix}.cross_attn.proj", p["cross_attn"]["proj"])
     m = p["mlp"]
+    if "fc1" in m:
+        _linear(sd, f"{prefix}.mlp.fc1", m["fc1"])
+        _linear(sd, f"{prefix}.mlp.fc2", m["fc2"])
+        return
     sd[f"{prefix}.mlp.linear1.0.weight"] = np.asarray(m["linear1_kernel"]).T
     sd[f"{prefix}.mlp.linear1.0.bias"] = np.asarray(m["linear1_bias"])
     sd[f"{prefix}.mlp.linear2.0.weight"] = np.asarray(m["linear2_kernel"]).T
     sd[f"{prefix}.mlp.linear2.0.bias"] = np.asarray(m["linear2_bias"])
-    sd[f"{prefix}.mlp.dwconv.0.weight"] = \
-        np.asarray(m["dwconv_kernel"]).transpose(2, 0, 1)[:, None]
-    sd[f"{prefix}.mlp.dwconv.0.bias"] = np.asarray(m["dwconv_bias"])
+    _depthwise(sd, f"{prefix}.mlp.dwconv.0", m["dwconv_kernel"],
+               m["dwconv_bias"])
 
 
 def state_dict_from_jax(params: Dict[str, Any]) -> StateDict:

@@ -2,7 +2,8 @@
 counterparts of `uformer_tpu/models/layers.py`.
 
 Modules keep the reference state_dict key names (`attn.qkv.to_q.weight`,
-`mlp.linear1.0.weight`, `modulator.weight`, ...), so released `.pth`
+`attn.qkv.to_q.depthwise.weight`, `mlp.linear1.0.weight`, `mlp.fc1.weight`,
+`modulator.weight`, `cross_attn.proj.weight`, ...), so released `.pth`
 files and the recorded goldens load with `load_state_dict(strict=True)`.
 Torch stores Linear weights as (out, in); the kernels take (in, out).
 `kernel_params(dtype)` builds that layout (>= 2-D weights cast to the
@@ -16,20 +17,28 @@ that copy out only while grad is disabled, and builds the weights afresh
 otherwise.
 
 Routing (`BasicLayer`): in eval, the whole-stage kernel for win 8 stages
-whose configured resolution is at least the window, with C % 128 == 0 and
-H, W multiples of 8; otherwise, and always in training
-(`uformer_tpu` layers.py:979), per block. A block's attention takes the
-attention-image kernel where the JAX package takes its image kernel
-(`layers.py:757-775`: win 8 and C % 128 == 0, or 128 % C == 0, C >= 32
-and a shift the pixel packing takes), else the windowed branch
+of linear-projection LeFF blocks without a cross-modulator whose
+configured resolution is at least the window, with C % 128 == 0, H, W
+multiples of 8 and no input mask; otherwise, and always in training
+(`uformer_tpu` layers.py:979-986), per block. A block's attention takes
+the attention-image kernel where the JAX package takes its image kernel
+(`layers.py:757-775`: linear projection, no input mask, win 8 and
+C % 128 == 0, or 128 % C == 0, C >= 32 and a shift the pixel packing
+takes); else, with linear projection and no mask, the windowed branch
 (`layers.py:796-848`): LN1, shift and partition in PyTorch, the
-attention-block kernel, reverse and unshift, the residual outside. Then
-one LeFF kernel. The attention-image and LeFF kernels are differentiated
-by their backward kernels; the windowed branch has no backward kernel yet
-(`train.train_step` refuses such a model on the card). In training a
-block with a drop-path rate above 0 runs its kernels without the
-residual and adds x + DropPath(y) outside (`layers.py:780-794`,
-`:860-871`). The convs around the stages stay cuDNN (`F.conv2d`).
+attention-block kernel, reverse and unshift, the residual outside; else
+(conv projection, or an input mask) the unfused route of the same lines
+with `fused=False`: the q/k/v projection (three `SepConv2d` through the
+depthwise kernel, or the linear one) and the plain window attention with
+the shift mask and the input-mask bias. A cross-modulator block first
+adds its cross-attention over all H*W tokens (`layers.py:722-738`). Then
+one LeFF kernel, or the plain `Mlp`. The attention-image and LeFF kernels
+are differentiated by their backward kernels; the windowed branch and the
+depthwise kernel have none (`train.train_step` refuses such a model on
+the card). In training a block with a drop-path rate above 0 runs its
+kernels without the residual and adds x + DropPath(y) outside
+(`layers.py:780-794`, `:860-871`). The convs around the stages stay
+cuDNN (`F.conv2d`).
 """
 
 from __future__ import annotations
@@ -42,17 +51,23 @@ import torch.nn.functional as F
 from torch import nn
 
 from uformer_tpu_torch.device import to_device_async
+from uformer_tpu_torch.ops.attention import window_attention
 from uformer_tpu_torch.ops.kernels import (
+    BACKWARD_NOT_PORTED,
+    DWCONV_BACKWARD_NOT_PORTED,
     STAGE_KEYS,
     attention_block_ad,
     attention_block_reference,
     attention_image_ad,
     attention_image_reference,
+    dwconv3x3,
+    dwconv3x3_reference,
     fused_stage,
     leff_ad,
     leff_reference,
     stage_reference,
 )
+from uformer_tpu_torch.ops.masks import input_mask_bias, shift_mask_on
 from uformer_tpu_torch.ops.norm import layer_norm
 from uformer_tpu_torch.ops.relpos import relative_position_index
 from uformer_tpu_torch.ops.window import (
@@ -63,6 +78,11 @@ from uformer_tpu_torch.ops.window import (
 )
 
 Params = Dict[str, torch.Tensor]
+LEFF_MLPS = ("leff", "fastleff")  # fastleff: the same function and keys
+UNFUSED_NOT_ON_KERNEL_PATH = (
+    "the train step's kernel path covers linear-projection LeFF blocks "
+    "without a cross-modulator; Mlp and cross-modulator blocks train on the "
+    "plain path only (ROADMAP.md, port queue 1 item 8)")
 
 
 class _Prepared:
@@ -152,6 +172,75 @@ class LeFF(nn.Module):
         }
 
 
+class Mlp(nn.Module):
+    """Plain FFN, fc1 - erf GELU - fc2 (reference model.py:623-651; JAX
+    layers.py:87-105), for token_mlp "mlp" or "ffn". Its products are plain
+    matmuls in the working dtype, as in JAX."""
+
+    def __init__(self, dim: int, hidden_dim: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, dim)
+
+    def kernel_params(self, dtype: torch.dtype) -> Params:
+        return {"w1": self.fc1.weight.t().to(dtype),
+                "b1": self.fc1.bias.float(),
+                "w2": self.fc2.weight.t().to(dtype),
+                "b2": self.fc2.bias.float()}
+
+    def forward(self, x: torch.Tensor, p: Params) -> torch.Tensor:
+        dt = x.dtype
+        y = F.gelu(x @ p["w1"] + p["b1"].to(dt))
+        return y @ p["w2"] + p["b2"].to(dt)
+
+
+class SepConv2d(nn.Module):
+    """Depthwise k x k conv, ReLU, pointwise 1x1 conv (reference
+    model.py:344-378; JAX layers.py:220-251), NHWC; the conv biases are
+    always on. The 3x3 stride-1 depthwise conv runs the depthwise kernel
+    (`dwconv3x3`); any other size or stride a grouped `F.conv2d` with the
+    weights in the working dtype, as the JAX package's jnp path does. The
+    pointwise conv is a matmul in the working dtype (JAX's `nn.Conv`)."""
+
+    def __init__(self, dim: int, out_dim: int, kernel_size: int = 3,
+                 stride: int = 1):
+        super().__init__()
+        self.kernel_size, self.stride = kernel_size, stride
+        self.depthwise = nn.Conv2d(dim, dim, kernel_size, stride,
+                                   (kernel_size - stride) // 2, groups=dim)
+        self.pointwise = nn.Conv2d(dim, out_dim, 1)
+
+    def kernel_params(self, dtype: torch.dtype) -> Params:
+        return {
+            # (C, 1, k, k) -> (k, k, C); (out, C, 1, 1) -> (C, out)
+            "wd": self.depthwise.weight[:, 0].permute(1, 2, 0).to(dtype)
+            .contiguous(),
+            "bd": self.depthwise.bias.float(),
+            "wp": self.pointwise.weight[:, :, 0, 0].t().to(dtype),
+            "bp": self.pointwise.bias.float(),
+        }
+
+    def forward(self, x: torch.Tensor, p: Params,
+                plain: bool = False) -> torch.Tensor:
+        dt = x.dtype
+        k, s = self.kernel_size, self.stride
+        if k == 3 and s == 1:
+            y = (dwconv3x3_reference if plain else dwconv3x3)(
+                x, p["wd"], p["bd"])
+        else:
+            y = _nhwc(F.conv2d(
+                _nchw(x), p["wd"].permute(2, 0, 1).unsqueeze(1).to(dt),
+                p["bd"].to(dt), stride=s, padding=(k - s) // 2,
+                groups=x.shape[-1]))
+        return F.relu(y) @ p["wp"] + p["bp"].to(dt)
+
+
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(Bw, N, nH * D) -> (Bw, nH, N, D)."""
+    Bw, N, C = t.shape
+    return t.reshape(Bw, N, num_heads, C // num_heads).transpose(1, 2)
+
+
 class LinearProjection(nn.Module):
     """q from Linear(dim, inner), [k | v] from Linear(dim, 2 * inner)."""
 
@@ -160,80 +249,182 @@ class LinearProjection(nn.Module):
         self.to_q = nn.Linear(dim, inner, bias=bias)
         self.to_kv = nn.Linear(dim, 2 * inner, bias=bias)
 
+    def kernel_params(self, dtype: torch.dtype) -> Params:
+        def bias_of(lin):
+            return (lin.bias.float() if lin.bias is not None
+                    else torch.zeros(lin.out_features,
+                                     device=lin.weight.device))
+
+        return {"wq": self.to_q.weight.t().to(dtype).contiguous(),
+                "bq": bias_of(self.to_q),
+                "wkv": self.to_kv.weight.t().to(dtype).contiguous(),
+                "bkv": bias_of(self.to_kv)}
+
+    def forward(self, x: torch.Tensor, p: Params, num_heads: int,
+                plain: bool = False, kv: Optional[torch.Tensor] = None):
+        """x (Bw, N, C) -> q, k, v (Bw, nH, N, D); k and v from kv (Bk,
+        M, C) when given, else from x."""
+        dt, C = x.dtype, x.shape[-1]
+        q = x @ p["wq"] + p["bq"].to(dt)
+        kv = (x if kv is None else kv) @ p["wkv"] + p["bkv"].to(dt)
+        return (_heads(q, num_heads), _heads(kv[..., :C], num_heads),
+                _heads(kv[..., C:], num_heads))
+
+
+class ConvProjection(nn.Module):
+    """q, k and v from three SepConv2d on the 2-D window layout (reference
+    model.py:381-418; JAX layers.py:284-310): token_projection "conv".
+    Each window is a zero-padded side x side image."""
+
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.to_q = SepConv2d(dim, inner)
+        self.to_k = SepConv2d(dim, inner)
+        self.to_v = SepConv2d(dim, inner)
+
+    def kernel_params(self, dtype: torch.dtype) -> Params:
+        return {name: getattr(self, name).kernel_params(dtype)
+                for name in ("to_q", "to_k", "to_v")}
+
+    def forward(self, x: torch.Tensor, p: Params, num_heads: int,
+                plain: bool = False):
+        """x (Bw, N, C) windows -> q, k, v (Bw, nH, N, D)."""
+        Bw, N, C = x.shape
+        side = int(round(N ** 0.5))
+        xs = x.reshape(Bw, side, side, C)
+        return tuple(
+            _heads(getattr(self, name)(xs, p[name], plain)
+                   .reshape(Bw, N, -1), num_heads)
+            for name in ("to_q", "to_k", "to_v"))
+
 
 class WindowAttention(nn.Module):
-    """Window MHSA parameters with relative position bias and linear
-    projection (reference model.py:452-546). `relative_position_index` is
-    a persistent buffer, as in the reference state_dict."""
+    """Window MHSA parameters with relative position bias and a linear or
+    conv q/k/v projection (reference model.py:452-546).
+    `relative_position_index` is a persistent buffer, as in the reference
+    state_dict."""
 
     def __init__(self, dim: int, win_size: int, num_heads: int,
-                 qkv_bias: bool = True, qk_scale: Optional[float] = None):
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 token_projection: str = "linear"):
         super().__init__()
         self.dim, self.win_size, self.num_heads = dim, win_size, num_heads
+        self.token_projection = token_projection
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * win_size - 1) ** 2, num_heads))
         self.register_buffer("relative_position_index", torch.from_numpy(
             relative_position_index(win_size, win_size).astype(np.int64)))
+        if token_projection == "linear":
+            self.qkv = LinearProjection(dim, dim, qkv_bias)
+        elif token_projection == "conv":  # conv biases always on
+            self.qkv = ConvProjection(dim, dim)
+        else:
+            raise ValueError(f"unknown token_projection {token_projection}")
+        self.proj = nn.Linear(dim, dim)
+
+    def kernel_params(self, dtype: torch.dtype) -> Params:
+        N = self.win_size ** 2
+        table = self.relative_position_bias_table.float()
+        bias = table[self.relative_position_index.reshape(-1)]
+        p = self.qkv.kernel_params(dtype)
+        p.update({
+            "wo": self.proj.weight.t().to(dtype).contiguous(),
+            "bo": self.proj.bias.float(),
+            "bias": bias.reshape(N, N, -1).permute(2, 0, 1).contiguous(),
+        })
+        return p
+
+
+class Attention(nn.Module):
+    """Plain MHSA without relative bias, the cross-modulator's attention
+    (reference model.py:549-618; JAX layers.py:628-658): queries from the
+    tokens, keys and values from a shared (M, C) table; float32 logits and
+    softmax."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.qkv = LinearProjection(dim, dim, qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
     def kernel_params(self, dtype: torch.dtype) -> Params:
-        C, N = self.dim, self.win_size ** 2
-        q, kv = self.qkv.to_q, self.qkv.to_kv
+        p = self.qkv.kernel_params(dtype)
+        p.update({"wo": self.proj.weight.t().to(dtype),
+                  "bo": self.proj.bias.float()})
+        return p
 
-        def bias_of(lin, n):
-            return (lin.bias.float() if lin.bias is not None
-                    else torch.zeros(n, device=lin.weight.device))
-
-        table = self.relative_position_bias_table.float()
-        bias = table[self.relative_position_index.reshape(-1)]
-        return {
-            "wq": q.weight.t().to(dtype).contiguous(),
-            "bq": bias_of(q, C),
-            "wkv": kv.weight.t().to(dtype).contiguous(),
-            "bkv": bias_of(kv, 2 * C),
-            "wo": self.proj.weight.t().to(dtype).contiguous(),
-            "bo": self.proj.bias.float(),
-            "bias": bias.reshape(N, N, -1).permute(2, 0, 1).contiguous(),
-        }
+    def forward(self, x: torch.Tensor, kv: torch.Tensor,
+                p: Params) -> torch.Tensor:
+        """x (B, N, C), kv (M, C) -> (B, N, C) in x's dtype."""
+        q, k, v = self.qkv(x, p, self.num_heads, kv=kv[None])
+        attn = torch.softmax((q.float() * self.scale)
+                             @ k.float().transpose(-1, -2), dim=-1)
+        out = (attn @ v.float()).transpose(1, 2).reshape(x.shape).to(x.dtype)
+        return out @ p["wo"] + p["bo"].to(x.dtype)
 
 
 class LeWinBlock(_Prepared, nn.Module):
     """LeWin block (reference model.py:850-1008), NHWC in and out:
-    x + Attn(LN1(x)) [shifted windows, + modulator] through the
-    attention-image kernel or the windowed branch (`image_route`), then
-    x + LeFF(LN2(x)) through the LeFF kernel; in training each branch
+    [x + CrossAttn(x, cross-modulator)], x + Attn(LN1(x)) [shifted
+    windows, + modulator] through the attention-image kernel, the windowed
+    branch or the unfused route (module note), then x + LeFF(LN2(x))
+    through the LeFF kernel or x + Mlp(LN2(x)); in training each branch
     under DropPath(drop_path)."""
 
     def __init__(self, dim: int, num_heads: int, win_size: int = 8,
                  shift_size: int = 0, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
-                 modulator: bool = False, drop_path: float = 0.0):
+                 modulator: bool = False, drop_path: float = 0.0,
+                 token_projection: str = "linear", token_mlp: str = "leff",
+                 cross_modulator: bool = False):
         super().__init__()
         if not 0 <= shift_size < win_size:
             raise ValueError(f"shift {shift_size} outside [0, {win_size})")
         self.dim, self.num_heads = dim, num_heads
         self.win_size, self.shift_size = win_size, shift_size
+        self.token_mlp = token_mlp
+        self.cross_modulator = self.cross_attn = self.norm_cross = None
+        if cross_modulator:
+            self.cross_modulator = nn.Embedding(win_size * win_size, dim)
+            self.cross_attn = Attention(dim, num_heads, qkv_bias, qk_scale)
+            # reference quirk (JAX layers.py:729-732): built, never applied
+            self.norm_cross = nn.LayerNorm(dim)
         self.modulator = (nn.Embedding(win_size * win_size, dim)
                           if modulator else None)
         self.norm1 = nn.LayerNorm(dim)
         self.attn = WindowAttention(dim, win_size, num_heads, qkv_bias,
-                                    qk_scale)
+                                    qk_scale, token_projection)
         self.norm2 = nn.LayerNorm(dim)
-        self.mlp = LeFF(dim, int(dim * mlp_ratio))
+        hidden = int(dim * mlp_ratio)
+        if token_mlp in LEFF_MLPS:
+            self.mlp = LeFF(dim, hidden)
+        elif token_mlp in ("mlp", "ffn"):  # "mlp" is the reference's alias
+            self.mlp = Mlp(dim, hidden)
+        else:
+            raise ValueError(f"unknown token_mlp {token_mlp}")
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
-        # the JAX package's image-kernel condition (layers.py:757-775)
-        self.image_route = win_size == 8 and (
-            dim % 128 == 0 or (128 % dim == 0 and dim >= 32
-                               and shift_size % (128 // dim) == 0))
+        # the JAX package's image-kernel condition (layers.py:699-702,
+        # :757-775); an input mask also declines it, at run time
+        self.image_route = token_projection == "linear" and win_size == 8 \
+            and (dim % 128 == 0 or (128 % dim == 0 and dim >= 32
+                                    and shift_size % (128 // dim) == 0))
 
     @property
-    def backward_kernels_cover(self) -> bool:
-        """Whether the attention backward kernel covers this block: the
-        image route at head dim 32."""
-        return self.image_route and self.dim == 32 * self.num_heads
+    def backward_gap(self) -> Optional[str]:
+        """Why the train step's kernel path cannot differentiate this
+        block, or None: the attention backward kernel covers the image
+        route at head dim 32, with LeFF and no cross-modulator."""
+        if self.attn.token_projection == "conv":
+            return DWCONV_BACKWARD_NOT_PORTED
+        if self.token_mlp not in LEFF_MLPS or self.cross_attn is not None:
+            return UNFUSED_NOT_ON_KERNEL_PATH
+        if not (self.image_route and self.dim == 32 * self.num_heads):
+            return BACKWARD_NOT_PORTED
+        return None
 
     def kernel_params(self, dtype: torch.dtype) -> Params:
         p = {"ln1_s": self.norm1.weight.float(),
@@ -244,18 +435,30 @@ class LeWinBlock(_Prepared, nn.Module):
                      if self.modulator is not None else None)}
         p.update(self.attn.kernel_params(dtype))
         p.update(self.mlp.kernel_params(dtype))
+        if self.cross_attn is not None:
+            p["cross"] = dict(self.cross_attn.kernel_params(dtype),
+                              table=self.cross_modulator.weight.to(dtype))
         return p
 
     def forward(self, x: torch.Tensor, plain: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """plain=True runs the kernels' plain versions under torch autograd
         (the comparison path); otherwise the kernels, whose backward is a
-        kernel too. `generator` feeds DropPath in training."""
+        kernel too. `generator` feeds DropPath in training. `mask`: the
+        input mask, (B, 1, Hm, Wm) or (B, Hm, Wm, 1), on x's device."""
         leff = leff_reference if plain else leff_ad
         # active DropPath scales the branch: the residual stays outside
         res = not (self.training and self.drop_path1.rate > 0.0)
         p = self.params_for(x.dtype, x.device)
-        if self.image_route:
+        if self.cross_attn is not None:
+            # x feeds the cross-attention un-normalised (JAX
+            # layers.py:729-732); no DropPath on this branch
+            B, H, W, C = x.shape
+            c = p["cross"]
+            x = x + self.cross_attn(x.reshape(B, H * W, C), c["table"],
+                                    c).reshape(x.shape)
+        if mask is None and self.image_route:
             attention = attention_image_reference if plain else \
                 attention_image_ad
             y = attention(
@@ -265,9 +468,15 @@ class LeWinBlock(_Prepared, nn.Module):
                 scale=self.attn.scale, num_heads=self.num_heads,
                 residual=res)
             x = y if res else x + self.drop_path1(y, generator)
-        else:
+        elif mask is None and self.attn.token_projection == "linear":
             x = x + self.drop_path1(self.windowed_attention(x, p, plain),
                                     generator)
+        else:
+            x = x + self.drop_path1(
+                self.unfused_attention(x, p, plain, mask), generator)
+        if self.token_mlp not in LEFF_MLPS:
+            y = self.mlp(layer_norm(x, p["ln2_s"], p["ln2_b"]), p)
+            return x + self.drop_path2(y, generator)
         y = leff(x, p["w1"], p["b1"], p["wd"], p["bd"], p["w2"], p["b2"],
                  ln_s=p["ln2_s"], ln_b=p["ln2_b"], residual=res)
         return y if res else x + self.drop_path2(y, generator)
@@ -290,6 +499,46 @@ class LeWinBlock(_Prepared, nn.Module):
                       num_heads=self.num_heads, has_ln=False)
         return cyclic_unshift(window_reverse(y, win, H, W), shift)
 
+    def unfused_attention(self, x: torch.Tensor, p: Params,
+                          plain: bool = False,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """The attention branch of the JAX package's route with
+        `fused=False` (`layers.py:796-848`, `:576-607`), for conv
+        projection or an input mask: LN1 in the working dtype, cyclic
+        shift, partition, + modulator, the q/k/v projection (the conv one
+        runs the depthwise kernel three times), the plain window attention
+        with the relative-position bias, the shift mask and the input-mask
+        bias, proj, reverse, unshift."""
+        B, H, W, _ = x.shape
+        win, shift = self.win_size, self.shift_size
+        wnd = window_partition(
+            cyclic_shift(layer_norm(x, p["ln1_s"], p["ln1_b"]), shift), win)
+        if p["mod"] is not None:
+            wnd = wnd + p["mod"]
+        q, k, v = self.attn.qkv(wnd, p, self.num_heads, plain)
+        out = window_attention(q, k, v, p["bias"],
+                               self.attention_mask(B, H, W, x.device, mask),
+                               scale=self.attn.scale)
+        out = out @ p["wo"] + p["bo"].to(x.dtype)
+        return cyclic_unshift(window_reverse(out, win, H, W), shift)
+
+    def attention_mask(self, B: int, H: int, W: int, device,
+                       mask: Optional[torch.Tensor] = None
+                       ) -> Optional[torch.Tensor]:
+        """The unfused route's additive mask (JAX layers.py:708-720): the
+        shift mask (nW, N, N), kept on the device, the input-mask bias
+        (B * nW, N, N), their sum, or None."""
+        win, shift = self.win_size, self.shift_size
+        smask = shift_mask_on(H, W, win, shift, device) if shift else None
+        if mask is None:
+            return smask
+        bias = input_mask_bias(mask, H, W, win)
+        if smask is None:
+            return bias
+        N = win * win
+        return (bias.reshape(B, -1, N, N) + smask).reshape(-1, N, N)
+
 
 class BasicLayer(_Prepared, nn.Module):
     """Stage of `depth` LeWin blocks with alternating shift (reference
@@ -301,7 +550,9 @@ class BasicLayer(_Prepared, nn.Module):
                  resolution: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  shift_flag: bool = True, modulator: bool = False,
-                 drop_path: Sequence[float] = ()):
+                 drop_path: Sequence[float] = (),
+                 token_projection: str = "linear", token_mlp: str = "leff",
+                 cross_modulator: bool = False):
         super().__init__()
         self.dim, self.num_heads, self.win_size = dim, num_heads, win_size
         self.resolution = resolution
@@ -312,16 +563,20 @@ class BasicLayer(_Prepared, nn.Module):
             LeWinBlock(dim, num_heads, win,
                        win // 2 if (self.use_shift and i % 2) else 0,
                        mlp_ratio, qkv_bias, qk_scale, modulator,
-                       drop_path[i] if len(drop_path) else 0.0)
+                       drop_path[i] if len(drop_path) else 0.0,
+                       token_projection, token_mlp, cross_modulator)
             for i in range(depth)])
         # the stage kernel's static conditions (uformer_tpu layers.py:979)
         self.stage_ok = (win_size == 8 and resolution >= win_size
-                         and dim % 128 == 0)
+                         and dim % 128 == 0 and token_projection == "linear"
+                         and token_mlp in LEFF_MLPS and not cross_modulator)
 
-    def uses_stage(self, x: torch.Tensor) -> bool:
-        """The stage kernel runs in eval only: it has no backward kernel."""
-        return (not self.training and self.stage_ok and x.shape[1] % 8 == 0
-                and x.shape[2] % 8 == 0)
+    def uses_stage(self, x: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> bool:
+        """The stage kernel runs in eval only (it has no backward kernel)
+        and without an input mask."""
+        return (mask is None and not self.training and self.stage_ok
+                and x.shape[1] % 8 == 0 and x.shape[2] % 8 == 0)
 
     def kernel_params(self, dtype: torch.dtype) -> Params:
         C = self.dim
@@ -344,15 +599,16 @@ class BasicLayer(_Prepared, nn.Module):
                 b.prepare(dtype)
 
     def forward(self, x: torch.Tensor, plain: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.uses_stage(x):
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.uses_stage(x, mask):
             stage = stage_reference if plain else fused_stage
             p = self.params_for(x.dtype, x.device)
             return stage(x, p, scale=self.blocks[0].attn.scale,
                          num_heads=self.num_heads, use_shift=self.use_shift,
                          has_mod=self.has_mod)
         for blk in self.blocks:
-            x = blk(x, plain, generator)
+            x = blk(x, plain, generator, mask)
         return x
 
 

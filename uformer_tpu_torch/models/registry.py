@@ -4,7 +4,9 @@ This port has the Uformer family with linear projection and LeFF whose
 head dim is 16 or 32 (the forward kernels' widths): Uformer_T, Uformer_S,
 Uformer_S_noshift, Uformer_B, Uformer_B_fastleff, and Uformer at embed
 dim 16 or 32 with window 8. `img_size` is the reference's `--train_ps`:
-it fixes the construction-time window and shift choices only.
+it fixes the construction-time window and shift choices only. No arch
+sets the conv token projection, Mlp or the cross-modulator, in the JAX
+registry either: build those through `Uformer` directly.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ def arch_config(opt: Dict[str, Any]) -> Dict[str, Any]:
             raise NotImplementedError(
                 f"Uformer at embed_dim {embed}, win_size {win} is not ported "
                 f"yet (embed_dim 16 or 32 and win_size 8 are): ROADMAP.md, "
-                f"port queue 2, next slice 3 (win != 8)")
+                f"port queue 2, next slice 2 (win != 8)")
     elif arch == "Uformer_T":
         embed = 16
     elif arch == "Uformer_S_noshift":

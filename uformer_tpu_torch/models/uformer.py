@@ -2,10 +2,13 @@
 
 Channel plan (embed dim E): encoder E, 2E, 4E, 8E; bottleneck 16E;
 decoder stages at 16E/8E/4E/2E after concatenating the upsampled path
-with the encoder skip, upsampled first. The modulator sits in the decoder
-stages only. Global residual `x + y` in float32 when dd_in == 3. The
-stochastic-depth schedule is the reference's (`uformer.py:54-66`); the
-rates take effect in training only (`model.train()`).
+with the encoder skip, upsampled first. The modulator and the
+cross-modulator sit in the decoder stages only. Global residual `x + y`
+in float32 when dd_in == 3. The stochastic-depth schedule is the
+reference's (`uformer.py:54-66`); the rates take effect in training only
+(`model.train()`). `token_projection` ("linear" or "conv"), `token_mlp`
+("leff", "fastleff", "mlp" or "ffn") and `cross_modulator` are the
+reference's options (`uformer_tpu` uformer.py:45-49).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ class Uformer(nn.Module):
                  win_size: int = 8, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  shift_flag: bool = True, modulator: bool = False,
+                 token_projection: str = "linear", token_mlp: str = "leff",
+                 cross_modulator: bool = False,
                  drop_path_rate: float = 0.1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -46,10 +51,10 @@ class Uformer(nn.Module):
         rates = ([enc[cum[k]:cum[k + 1]] for k in range(4)] + [conv]
                  + [dec[dcum[k]:dcum[k + 1]] for k in range(4)])
 
-        def stage(k, dim, reso, mod=False):
+        def stage(k, dim, reso, mod=False, cross=False):
             return BasicLayer(dim, depths[k], num_heads[k], win_size, reso,
                               mlp_ratio, qkv_bias, qk_scale, shift_flag, mod,
-                              rates[k])
+                              rates[k], token_projection, token_mlp, cross)
 
         self.input_proj = InputProj(dd_in, E)
         self.output_proj = OutputProj(2 * E, in_chans)
@@ -64,7 +69,7 @@ class Uformer(nn.Module):
                     Upsample(E * 2 ** min(4, 5 - k), E * 2 ** (3 - k)))
             setattr(self, f"decoderlayer_{k}",
                     stage(5 + k, E * 2 ** (4 - k), img_size // 2 ** (3 - k),
-                          modulator))
+                          modulator, cross_modulator))
 
     def drop_path_schedule(self) -> Tuple[List[float], List[float],
                                           List[float]]:
@@ -77,22 +82,29 @@ class Uformer(nn.Module):
         conv = [float(self.drop_path_rate)] * self.depths[4]
         return enc, conv, enc[::-1]
 
-    def forward(self, x: torch.Tensor, plain: bool = False,
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                plain: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, H, W, dd_in) NHWC, H and W multiples of 16 * win_size.
-        plain=True runs every kernel's plain version (for comparisons).
-        In training, `generator` draws every DropPath mask."""
+        mask: an input mask, (B, 1, Hm, Wm) or (B, Hm, Wm, 1), resized to
+        each stage (`ops.masks.input_mask_bias`); every block then takes
+        the unfused route. plain=True runs every kernel's plain version
+        (for comparisons). In training, `generator` draws every DropPath
+        mask."""
+        if mask is not None:
+            mask = mask.to(x.device)
         y = self.input_proj(x.to(self.dtype))
         skips = []
         for k in range(4):
-            y = getattr(self, f"encoderlayer_{k}")(y, plain, generator)
+            y = getattr(self, f"encoderlayer_{k}")(y, plain, generator, mask)
             skips.append(y)
             y = getattr(self, f"dowsample_{k}")(y)
-        y = self.conv(y, plain, generator)
+        y = self.conv(y, plain, generator, mask)
         for k in range(4):
             up = getattr(self, f"upsample_{k}")(y)
             y = torch.cat([up, skips[3 - k]], dim=-1)
-            y = getattr(self, f"decoderlayer_{k}")(y, plain, generator)
+            y = getattr(self, f"decoderlayer_{k}")(y, plain, generator,
+                                                   mask)
         y = self.output_proj(y).float()
         return x.float() + y if self.dd_in == 3 else y
 

@@ -15,6 +15,11 @@ from uformer_tpu_torch.ops.kernels.attention_block import (  # noqa: F401
     attention_block_reference,
     fused_attention_block,
 )
+from uformer_tpu_torch.ops.kernels.dwconv import (  # noqa: F401
+    DWCONV_BACKWARD_NOT_PORTED,
+    dwconv3x3,
+    dwconv3x3_reference,
+)
 from uformer_tpu_torch.ops.kernels.attention_image import (  # noqa: F401
     attention_image_ad,
     attention_image_reference,
@@ -43,7 +48,8 @@ WRAPPERS = {"stage": fused_stage, "attention_image": fused_attention_image,
             "leff": fused_leff, "attention_bwd": fused_attention_image_bwd,
             "leff_bwd": fused_leff_bwd,
             "window_attention": fused_window_attention,
-            "attention_block": fused_attention_block}
+            "attention_block": fused_attention_block,
+            "dwconv3x3": dwconv3x3}
 
 
 def reset_counts() -> None:

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "uf_leff_bwd": [_I, _I] + [_P] * 16 + [_I] * 7 + [_P],
     "uf_wgrad": [_I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "uf_colsum": [_I, _P, _I, _P, _P, _I, _I, _I, _P],
+    "uf_dwconv3x3": [_I, _I] + [_P] * 4 + [_I] * 5 + [_P],
     "uf_error_string": [_I],
 }
 

@@ -21,7 +21,6 @@ from torch import nn
 
 from uformer_tpu_torch.data.augment import mixup_batch
 from uformer_tpu_torch.models.layers import LeWinBlock
-from uformer_tpu_torch.ops.kernels import BACKWARD_NOT_PORTED
 from uformer_tpu_torch.train.losses import charbonnier_loss
 from uformer_tpu_torch.train.schedules import Schedule
 
@@ -65,10 +64,11 @@ def make_optimizer(params: Iterable[torch.Tensor], lr_schedule: Schedule,
 
 
 def blocks_without_backward_kernel(model: nn.Module) -> List[str]:
-    """Names of the blocks whose attention backward has no kernel yet
-    (the windowed branch, or head dim 16)."""
+    """Names of the blocks the backward kernels do not cover (the windowed
+    branch, head dim 16, conv projection, Mlp or a cross-modulator; the
+    block's `backward_gap` says why)."""
     return [name for name, m in model.named_modules()
-            if isinstance(m, LeWinBlock) and not m.backward_kernels_cover]
+            if isinstance(m, LeWinBlock) and m.backward_gap is not None]
 
 
 @dataclass
@@ -96,8 +96,9 @@ def make_train_step(model: nn.Module, loss_fn: Callable = charbonnier_loss,
         if not plain and inp.device.type == "cuda":
             uncovered = blocks_without_backward_kernel(model)
             if uncovered:
+                first = model.get_submodule(uncovered[0])
                 raise NotImplementedError(
-                    f"{BACKWARD_NOT_PORTED}: {len(uncovered)} blocks, "
+                    f"{first.backward_gap}: {len(uncovered)} blocks, "
                     f"{uncovered[0]} first")
         if inp.shape[0] != tgt.shape[0]:
             raise ValueError(f"input/target batch mismatch: "
