@@ -55,6 +55,18 @@ Phases, each raising on failure (no phase is caught):
                step, loss, ms per step on both paths, peak memory; each
                kernel's time against its plain version at the bs 32
                shapes, forward and backward.
+ 12. train T - the same for Uformer_T (its seeded weights): enc0's two
+               blocks take the windowed branch, whose forward and backward
+               kernels (attention_block, attention_block_bwd) are checked
+               on its (Bw, 64, 16) windows, the other 16 blocks the image
+               route at head dim 16; 16/2/18 forward and 16/2/18 backward
+               launches (attention_image/attention_block/leff and
+               attention_bwd/attention_block_bwd/leff_bwd) per step.
+ 13. train Mlp + cross-modulator - one bs 2 step of a linear-projection
+               model with Mlp blocks and the cross-modulator (embed 16,
+               Uformer_T's heads, depth 1), kernel path against plain
+               path: its attention through kernels 1, 5 and 6, the Mlp and
+               the cross-attention plain.
 
 Tolerances: fp32 max-abs <= 1e-4 * (1 + max|ref|); bf16 error against the
 fp32 plain result <= 1.5 x the bf16 plain version's error + 1e-3; for
@@ -90,16 +102,29 @@ N_REQUESTS = 4
 SEED_T = 1235  # Uformer_T's seeded weights
 SEED_BCONV = 1236  # serve B-conv's seeded weights
 EXPECTED_LAUNCHES = {"stage": 6, "attention_image": 4, "leff": 4,
-                     "attention_bwd": 0, "leff_bwd": 0,
-                     "window_attention": 0, "attention_block": 0,
-                     "dwconv3x3": 0}
-T_LAUNCHES = {"stage": 4, "attention_image": 8, "leff": 10,
-              "attention_bwd": 0, "leff_bwd": 0, "window_attention": 0,
-              "attention_block": 2, "dwconv3x3": 0}
-TRAIN_LAUNCHES = {"stage": 0, "attention_image": 40, "leff": 40,
-                  "attention_bwd": 40, "leff_bwd": 40,
-                  "window_attention": 0, "attention_block": 0,
-                  "dwconv3x3": 0}
+                     "attention_bwd": 0, "attention_block_bwd": 0,
+                     "leff_bwd": 0, "window_attention": 0,
+                     "attention_block": 0, "dwconv3x3": 0}
+T_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0), stage=4,
+                  attention_image=8, leff=10, attention_block=2)
+TRAIN_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0), attention_image=40,
+                      leff=40, attention_bwd=40, leff_bwd=40)
+# a Uformer_T train step at 128^2: enc0's two blocks take the windowed
+# branch (kernels 5 and 6 on windows), the other 16 the image route
+T_TRAIN_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0),
+                        attention_image=16, attention_block=2, leff=18,
+                        attention_bwd=16, attention_block_bwd=2,
+                        leff_bwd=18)
+# the Mlp and cross-modulator model (embed 16, Uformer_T's heads, depth 1
+# per stage, 128^2): attention through the kernels, Mlp and the
+# cross-attention plain
+MLP_CROSS = dict(img_size=RES_TRAIN, embed_dim=16, depths=(1,) * 9,
+                 num_heads=(1, 2, 4, 8, 16, 16, 8, 4, 2), win_size=8,
+                 token_mlp="mlp", cross_modulator=True, modulator=True)
+MLP_CROSS_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0),
+                          attention_image=8, attention_bwd=8,
+                          attention_block=1, attention_block_bwd=1)
+SEED_MLP_CROSS = 1237
 # serve B-conv: Uformer_B's widths and depths with the conv token
 # projection (three SepConv2d per block: 3 x 40 depthwise launches)
 BCONV = dict(img_size=RES_SERVE, embed_dim=32, depths=(1, 2, 8, 8, 2, 8, 8,
@@ -122,6 +147,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
              "uformer_tpu/ops/pallas/leff.py:1132"),
     "attention_bwd": ("uformer_tpu_torch/csrc/attention_bwd.cu",
                       "uformer_tpu/ops/pallas/attention_block.py:877"),
+    "attention_block_bwd": ("uformer_tpu_torch/csrc/attention_block_bwd.cu",
+                            "uformer_tpu/ops/pallas/attention_block.py:877"),
     "leff_bwd": ("uformer_tpu_torch/csrc/leff_bwd.cu",
                  "uformer_tpu/ops/pallas/leff.py:880"),
     "window_attention": ("uformer_tpu_torch/csrc/window_attention.cu",
@@ -996,23 +1023,45 @@ LEFF_GRADS = ("dx", "dw1", "db1", "dwd", "dbd", "dw2", "db2", "dln_s",
               "dln_b")
 
 
-def block_calls(blk, prm, residual):
-    """The four kernel calls of one block and their plain versions, on the
-    block's kernel weights `prm` (dtype -> kernel_params)."""
+def block_calls(layer, blk, residual, dtypes):
+    """The four kernel calls of blk (a block of `layer`) and their plain
+    versions, on its kernel weights in each of `dtypes`, each taking an
+    image x (and g) of the block's input shape: attention_image and
+    attention_bwd on the image route; off it the windowed branch's
+    attention_block and attention_block_bwd on x's (Bw, 64, C) windows,
+    LN outside (has_ln False) and the block's modulator, as the model runs
+    them. Then leff and leff_bwd."""
     from uformer_tpu_torch.ops import kernels as K
 
+    prm = {dt: blk.kernel_params(dt) for dt in dtypes}
     akw = dict(win=blk.win_size, shift=blk.shift_size, scale=blk.attn.scale,
-               num_heads=blk.num_heads, residual=residual)
+               num_heads=blk.num_heads)
+    keys = ("mod", "ln1_s", "ln1_b", "wq", "bq", "wkv", "bkv", "wo", "bo",
+            "bias")
+    if blk.image_route:
+        akw["residual"] = residual
+
+        def args(dt):
+            return tuple(prm[dt][k] for k in keys)
+
+        def tok(t):
+            return t
+    else:
+        akw.update(H=layer.resolution, W=layer.resolution, has_ln=False)
+
+        def args(dt):
+            return (prm[dt]["mod"], None, None) + tuple(
+                prm[dt][k] for k in keys[3:])
+
+        def tok(t):
+            return t.reshape(-1, 64, t.shape[-1])
 
     def attn(fn):
-        return lambda x, dt: fn(x, *(prm[dt][k] for k in (
-            "mod", "ln1_s", "ln1_b", "wq", "bq", "wkv", "bkv", "wo", "bo",
-            "bias")), **akw)
+        return lambda x, dt: fn(tok(x), *args(dt), **akw)
 
     def attn_bwd(fn):
-        return lambda x, g, dt: dict(zip(ATTN_GRADS, fn(x, g, *(
-            prm[dt][k] for k in ("mod", "ln1_s", "ln1_b", "wq", "bq", "wkv",
-                                 "bkv", "wo", "bo", "bias")), **akw)))
+        return lambda x, g, dt: dict(zip(ATTN_GRADS, fn(
+            tok(x), tok(g), *args(dt), **akw)))
 
     def leff(fn):
         return lambda x, dt: fn(x, *(prm[dt][k] for k in (
@@ -1024,13 +1073,22 @@ def block_calls(blk, prm, residual):
             prm[dt][k] for k in ("w1", "b1", "wd", "bd", "w2", "ln2_s",
                                  "ln2_b")), residual=residual)))
 
-    return {"attention_image": (attn(K.fused_attention_image),
-                                attn(K.attention_image_reference)),
-            "leff": (leff(K.fused_leff), leff(K.leff_reference)),
-            "attention_bwd": (attn_bwd(K.fused_attention_image_bwd),
-                              attn_bwd(K.attention_image_vjp_reference)),
-            "leff_bwd": (leff_bwd(K.fused_leff_bwd),
-                         leff_bwd(K.leff_vjp_reference))}
+    if blk.image_route:
+        calls = {"attention_image": (attn(K.fused_attention_image),
+                                     attn(K.attention_image_reference)),
+                 "attention_bwd": (attn_bwd(K.fused_attention_image_bwd),
+                                   attn_bwd(
+                                       K.attention_image_vjp_reference))}
+    else:
+        calls = {"attention_block": (attn(K.fused_attention_block),
+                                     attn(K.attention_block_reference)),
+                 "attention_block_bwd": (
+                     attn_bwd(K.fused_attention_block_bwd),
+                     attn_bwd(K.attention_block_vjp_reference))}
+    calls.update({"leff": (leff(K.fused_leff), leff(K.leff_reference)),
+                  "leff_bwd": (leff_bwd(K.fused_leff_bwd),
+                               leff_bwd(K.leff_vjp_reference))})
+    return calls
 
 
 def train_configs(model):
@@ -1060,41 +1118,41 @@ def with_shift(blk, shift):
 def train_kernel_checks(model, device, batch: int) -> Checks:
     """Forward kernels with residual=False on every block, and backward
     kernels against their plain VJPs at every training-path geometry of
-    Uformer_B at 128^2, at this batch, fp32 and bf16."""
+    `model` at RES_TRAIN^2, at this batch, fp32 and bf16."""
     checks = Checks()
+    dtypes = (torch.float32, torch.bfloat16)
     gen = torch.Generator(device="cpu").manual_seed(2)
     with torch.no_grad():
         for name in LAYERS:
             layer = getattr(model, name)
             shape = (batch, layer.resolution, layer.resolution, layer.dim)
             for i, blk in enumerate(layer.blocks):
-                prm = {dt: blk.kernel_params(dt)
-                       for dt in (torch.float32, torch.bfloat16)}
-                calls = block_calls(blk, prm, residual=False)
+                calls = block_calls(layer, blk, False, dtypes)
                 x32 = torch.randn(shape, generator=gen).bfloat16().float() \
                     .to(device)
                 what = f"{name}.{i} {shape} shift={blk.shift_size} res=0"
-                for kernel in ("attention_image", "leff"):
-                    compare(checks, kernel, what, *calls[kernel], x32)
+                for kernel, pair in calls.items():
+                    if not kernel.endswith("bwd"):
+                        compare(checks, kernel, what, *pair, x32)
         for name, blk, shift, residual in train_configs(model):
             layer = getattr(model, name)
             shape = (batch, layer.resolution, layer.resolution, layer.dim)
-            blk = with_shift(blk, shift)
-            prm = {dt: blk.kernel_params(dt)
-                   for dt in (torch.float32, torch.bfloat16)}
-            calls = block_calls(blk, prm, residual)
+            calls = block_calls(layer, with_shift(blk, shift), residual,
+                                dtypes)
             x = torch.randn(shape, generator=gen).bfloat16().float() \
                 .to(device)
             g = torch.randn(shape, generator=gen).bfloat16().float() \
                 .to(device)
             what = f"{name} {shape} shift={shift} res={int(residual)}"
-            for kernel in ("attention_bwd", "leff_bwd"):
-                fused, plain = calls[kernel]
-                grad_bound(checks, kernel, what,
-                           fused(x, g, torch.float32),
-                           plain(x, g, torch.float32),
-                           plain(x.bfloat16(), g.bfloat16(), torch.bfloat16),
-                           fused(x.bfloat16(), g.bfloat16(), torch.bfloat16))
+            for kernel, (fused, plain) in calls.items():
+                if kernel.endswith("bwd"):
+                    grad_bound(checks, kernel, what,
+                               fused(x, g, torch.float32),
+                               plain(x, g, torch.float32),
+                               plain(x.bfloat16(), g.bfloat16(),
+                                     torch.bfloat16),
+                               fused(x.bfloat16(), g.bfloat16(),
+                                     torch.bfloat16))
     torch.cuda.synchronize()
     return checks
 
@@ -1122,17 +1180,29 @@ def run_step(model, plain: bool, dtype, batch, seed: int, lr_schedule):
     return loss, state, step
 
 
-def whole_step_checks(sd, device, batch_size: int) -> Checks:
+def whole_step_checks(make_model, device, batch_size: int, label: str,
+                      expected: dict) -> Checks:
     """One train step of batch_size, kernel path against plain path: same
-    weights, batch and generator; loss and every parameter's gradient, in
-    fp32 and bf16. lr 0 keeps the weights for the next step."""
-    model = build_model(sd, RES_TRAIN, device)
+    weights, batch and generator; loss and every parameter's gradient
+    (norm_cross, built and never applied, has none), in fp32 and bf16. lr
+    0 keeps the weights for the next step. Each kernel path step must
+    launch exactly `expected`."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    model = make_model()
     batch = train_batch(batch_size, 3, device)
 
     def grads(plain, dtype):
+        K.reset_counts()
         loss, _, _ = run_step(model, plain, dtype, batch, 4, lambda s: 0.0)
+        torch.cuda.synchronize()
+        launched = K.launch_counts()
+        if not plain and launched != expected:
+            raise RuntimeError(f"{label}: launched {launched}, expected "
+                               f"{expected}")
         out = {"loss": loss.reshape(1)}
-        out.update({n: p.grad.clone() for n, p in model.named_parameters()})
+        out.update({n: p.grad.clone() for n, p in model.named_parameters()
+                    if p.grad is not None})
         return out
 
     ref = grads(True, torch.float32)
@@ -1141,22 +1211,23 @@ def whole_step_checks(sd, device, batch_size: int) -> Checks:
     got16 = grads(False, torch.bfloat16)
     torch.cuda.synchronize()
     checks = Checks()
-    grad_bound(checks, "model", f"train step bs{batch_size}", got, ref, low,
+    grad_bound(checks, "model", f"{label} bs{batch_size}", got, ref, low,
                got16)
     for n, v in got16.items():
         if not bool(torch.isfinite(v).all()):
-            raise RuntimeError(f"train step: non-finite {n}")
+            raise RuntimeError(f"{label}: non-finite {n}")
     return checks
 
 
-def train_timing(sd, device):
-    """BATCH_TRAIN x RES_TRAIN^2 bf16 train steps: launches per step and
-    loss on the kernel path; ms per step (CUDA events) and peak memory on
-    both paths, in the order plain, kernel, kernel..., plain."""
+def train_timing(make_model, device, expected: dict, label: str):
+    """BATCH_TRAIN x RES_TRAIN^2 bf16 train steps: launches per step
+    (`expected` on every kernel path step) and loss on the kernel path;
+    ms per step (CUDA events) and peak memory on both paths, in the order
+    plain, kernel, kernel..., plain."""
     from uformer_tpu_torch.ops import kernels as K
     from uformer_tpu_torch.train import warmup_cosine_schedule
 
-    model = build_model(sd, RES_TRAIN, device)
+    model = make_model()
     batch = train_batch(BATCH_TRAIN, 5, device)
     sched = warmup_cosine_schedule(2e-4, 250, 100)
     out = {"kernel_ms": [], "plain_ms": [], "loss": [], "launches": []}
@@ -1185,11 +1256,12 @@ def train_timing(sd, device):
                 print(f"  step {i}: loss {float(loss):.6f}  "
                       f"{out['kernel_ms'][-1]:.3f} ms  launches {counts}",
                       flush=True)
-                if counts != TRAIN_LAUNCHES:
-                    raise RuntimeError(f"train: step {i} launched {counts}, "
-                                       f"expected {TRAIN_LAUNCHES}")
+                if counts != expected:
+                    raise RuntimeError(f"{label}: step {i} launched "
+                                       f"{counts}, expected {expected}")
                 if not np.isfinite(float(loss)):
-                    raise RuntimeError(f"train: step {i} loss {float(loss)}")
+                    raise RuntimeError(f"{label}: step {i} loss "
+                                       f"{float(loss)}")
         return torch.cuda.max_memory_allocated(device)
 
     steps(True, 1, 100)
@@ -1198,7 +1270,7 @@ def train_timing(sd, device):
     out["plain_peak_bytes"] = plain_peak
     out["kernel_ms_median"] = float(np.median(out["kernel_ms"]))
     out["plain_ms_median"] = float(np.median(out["plain_ms"]))
-    print(f"  bs{BATCH_TRAIN} {RES_TRAIN}^2 bf16 step: kernel path "
+    print(f"  {label} bs{BATCH_TRAIN} {RES_TRAIN}^2 bf16 step: kernel path "
           f"{out['kernel_ms_median']:.3f} ms (peak "
           f"{out['peak_bytes'] / 2**20:.1f} MiB), plain path "
           f"{out['plain_ms_median']:.3f} ms (peak "
@@ -1224,13 +1296,15 @@ def train_kernel_timing(model, device):
                      layer.dim)
             tokens, C = BATCH_TRAIN * layer.resolution ** 2, layer.dim
             attn = attn_cost(tokens, C, blk.num_heads,
-                             mod=blk.modulator is not None)
+                             mod=blk.modulator is not None,
+                             ln=blk.image_route)
             leff = leff_cost(tokens, C, 4 * C)
-            costs = {"attention_image": attn, "leff": leff,
+            costs = {"attention_image": attn, "attention_block": attn,
+                     "leff": leff,
                      "attention_bwd": bwd_cost(attn, tokens, C),
+                     "attention_block_bwd": bwd_cost(attn, tokens, C),
                      "leff_bwd": bwd_cost(leff, tokens, C)}
-            prm = {torch.bfloat16: blk.kernel_params(torch.bfloat16)}
-            calls = block_calls(blk, prm, residual)
+            calls = block_calls(layer, blk, residual, (torch.bfloat16,))
             x = torch.randn(shape, generator=gen).to(device, torch.bfloat16)
             g = torch.randn(shape, generator=gen).to(device, torch.bfloat16)
             for kernel, (fused, plain) in calls.items():
@@ -1245,42 +1319,64 @@ def train_kernel_timing(model, device):
                              "kernel": kernel, "shape": list(shape),
                              "ms": k_ms, "plain_ms": p_ms,
                              "bound_ms": b_ms / n})
-                print(f"  {name:16s} s{shift} x{n} {kernel:16s} "
+                print(f"  {name:16s} s{shift} x{n} {kernel:19s} "
                       f"{str(shape):22s} kernel {k_ms:8.3f} ms  plain "
-                      f"{p_ms:8.3f} ms", flush=True)
+                      f"{p_ms:8.3f} ms  bound {b_ms / n:7.4f} ms",
+                      flush=True)
+    for kernel, t in totals.items():
+        print(f"  {kernel:19s} per step: {t['launches']} launches, kernel "
+              f"{t['ms']:8.3f} ms, plain {t['plain_ms']:8.3f} ms, bound "
+              f"{t['bound_ms']:7.4f} ms ({bound_by(t)})", flush=True)
     return rows, totals
 
 
-def train_checks(sd, device, batch: int):
+def train_checks(make_model, device, batch: int, label: str,
+                 expected: dict):
     """Kernel checks and one whole step against the plain path at this
     batch, with cuDNN's deterministic algorithms, so that the plain
     references repeat bit for bit."""
     torch.backends.cudnn.deterministic = True
-    model = build_model(sd, RES_TRAIN, device)
+    model = make_model()
     kchecks = train_kernel_checks(model, device, batch)
-    kchecks.raise_if_failed(f"train kernels bs{batch}")
+    kchecks.raise_if_failed(f"{label} kernels bs{batch}")
     del model
-    schecks = whole_step_checks(sd, device, batch)
-    schecks.raise_if_failed(f"train step bs{batch}")
+    schecks = whole_step_checks(make_model, device, batch, label, expected)
+    schecks.raise_if_failed(f"{label} step bs{batch}")
     torch.backends.cudnn.deterministic = False
     return kchecks, schecks
 
 
-def train_phase(sd, device):
-    """The train path: the checks at bs BATCH_CHECK; timed bs BATCH_TRAIN
-    steps and per-kernel times (cuDNN's defaults); then the checks again
-    at bs BATCH_TRAIN, the shapes the timed steps run. Those come last:
-    their fp32 plain references take tens of GB, which the timings then
-    need not share the allocator with."""
-    kchecks, schecks = train_checks(sd, device, BATCH_CHECK)
-    model, timing = train_timing(sd, device)
+def train_phase(make_model, device, expected: dict, label: str):
+    """The train path of make_model() (a float32 model at RES_TRAIN^2 on
+    the card): the checks at bs BATCH_CHECK; timed bs BATCH_TRAIN steps
+    launching `expected` and per-kernel times (cuDNN's defaults); then the
+    checks again at bs BATCH_TRAIN, the shapes the timed steps run. Those
+    come last: their fp32 plain references take tens of GB, which the
+    timings then need not share the allocator with."""
+    kchecks, schecks = train_checks(make_model, device, BATCH_CHECK, label,
+                                    expected)
+    model, timing = train_timing(make_model, device, expected, label)
     rows, totals = train_kernel_timing(model, device)
     del model
     torch.cuda.empty_cache()
-    kbig, sbig = train_checks(sd, device, BATCH_TRAIN)
+    kbig, sbig = train_checks(make_model, device, BATCH_TRAIN, label,
+                              expected)
     kchecks.rows += kbig.rows
     schecks.rows += sbig.rows
+    torch.cuda.empty_cache()
     return kchecks, schecks, timing, rows, totals
+
+
+def mlp_cross_model(device):
+    """The MLP_CROSS model on weights drawn with numpy from SEED_MLP_CROSS
+    over the port's own parameter names, by the golden weights' rule."""
+    from uformer_tpu_torch.convert import load_numpy_state_dict
+    from uformer_tpu_torch.models import Uformer
+
+    model = Uformer(**MLP_CROSS)
+    keys_shapes = [[k, list(v.shape)] for k, v in model.named_parameters()]
+    sd = golden_module().seeded_state_dict(keys_shapes, SEED_MLP_CROSS)
+    return load_numpy_state_dict(model, sd).to(device)
 
 
 def main() -> int:
@@ -1381,7 +1477,22 @@ def run(device, card: str, json_path) -> list:
     torch.cuda.empty_cache()
 
     phase("train")
-    tkchecks, tschecks, train, trows, ttotals = train_phase(sd, device)
+    tkchecks, tschecks, train, trows, ttotals = train_phase(
+        lambda: build_model(sd, RES_TRAIN, device), device, TRAIN_LAUNCHES,
+        "train")
+
+    phase("train Uformer_T")
+    ttkchecks, ttschecks, train_t, ttrows, tttotals = train_phase(
+        lambda: build_model(sd_t, RES_TRAIN, device, "Uformer_T"), device,
+        T_TRAIN_LAUNCHES, "train Uformer_T")
+
+    phase("train Mlp + cross-modulator")
+    torch.backends.cudnn.deterministic = True
+    mcchecks = whole_step_checks(lambda: mlp_cross_model(device), device,
+                                 BATCH_CHECK, "train Mlp + cross",
+                                 MLP_CROSS_LAUNCHES)
+    torch.backends.cudnn.deterministic = False
+    mcchecks.raise_if_failed("train Mlp + cross")
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
@@ -1396,7 +1507,11 @@ def run(device, card: str, json_path) -> list:
               "forward_bconv": bc_fwd, "timing_totals_bconv": bc_totals,
               "train_kernel_checks": tkchecks.rows,
               "train_step_checks": tschecks.rows, "train": train,
-              "train_timing": trows, "train_totals": ttotals}
+              "train_timing": trows, "train_totals": ttotals,
+              "train_t_kernel_checks": ttkchecks.rows,
+              "train_t_step_checks": ttschecks.rows, "train_t": train_t,
+              "train_t_timing": ttrows, "train_t_totals": tttotals,
+              "train_mlp_cross_checks": mcchecks.rows}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -1404,15 +1519,18 @@ def run(device, card: str, json_path) -> list:
     kernels = []
     train_launches = {k: sum(c[k] for c in train["launches"])
                       for k in KERNELS}
+    train_t_launches = {k: sum(c[k] for c in train_t["launches"])
+                        for k in KERNELS}
     timed = [("serve Uformer_B bs8 256^2 forward", totals),
              ("serve Uformer_T bs8 256^2 forward", t_totals),
              ("train Uformer_B bs32 128^2 step", ttotals),
+             ("train Uformer_T bs32 128^2 step", tttotals),
              ("serve B-conv bs8 256^2 forward", bc_totals),
              ("alone at Uformer_T enc0 bs8 256^2",
               {"window_attention": core})]
     for name, (source, replaces) in KERNELS.items():
         rows_of = [r for r in kchecks.rows + t_kchecks.rows + tkchecks.rows
-                   + dw_checks.rows if r["kernel"] == name]
+                   + ttkchecks.rows + dw_checks.rows if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
         # the first timing that has the kernel gives ms and its bound
@@ -1420,10 +1538,12 @@ def run(device, card: str, json_path) -> list:
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
                  "launches": (launches[name] + t_launches[name]
-                              + train_launches[name] + bc_launches[name]),
+                              + train_launches[name] + bc_launches[name]
+                              + train_t_launches[name]),
                  "launches_serve": launches[name],
                  "launches_serve_t": t_launches[name],
                  "launches_train": train_launches[name],
+                 "launches_train_t": train_t_launches[name],
                  "launches_serve_bconv":
                      serve_bc["launches_per_request"][0][name],
                  "max_abs_err": max(errs),
@@ -1440,7 +1560,8 @@ def run(device, card: str, json_path) -> list:
                                 "attention_image, stage and "
                                 "attention_block")
         for label, key, tt in (("serve Uformer_T", "serve_t", t_totals),
-                               ("train", "train", ttotals),
+                               ("train Uformer_B", "train", ttotals),
+                               ("train Uformer_T", "train_t", tttotals),
                                ("serve B-conv", "serve_bconv", bc_totals)):
             if name in tt and label not in where:
                 entry.update({f"ms_{key}": tt[name]["ms"],

@@ -29,7 +29,7 @@ from uformer_tpu_torch.convert import (
 )
 from uformer_tpu_torch.models import Uformer
 from uformer_tpu_torch.models.layers import (
-    UNFUSED_NOT_ON_KERNEL_PATH,
+    GEOMETRY_NOT_ON_KERNEL_PATH,
     ConvProjection,
     LeWinBlock,
     SepConv2d,
@@ -368,8 +368,8 @@ def test_convproj_golden_through_the_port():
                                data["output"], atol=TOL, rtol=0)
     assert K.plain_counts() == {
         "stage": 0, "attention_image": 0, "leff": 0, "attention_bwd": 0,
-        "leff_bwd": 0, "window_attention": 0, "attention_block": 0,
-        "dwconv3x3": 27}
+        "attention_block_bwd": 0, "leff_bwd": 0, "window_attention": 0,
+        "attention_block": 0, "dwconv3x3": 27}
 
 
 def test_golden_config_matches_jax(jx):
@@ -420,25 +420,33 @@ def test_serve_bconv_shape_routes_to_the_depthwise_kernel():
     assert bool(torch.isfinite(y).all())
     assert K.plain_counts() == {
         "stage": 0, "attention_image": 0, "leff": 9, "attention_bwd": 0,
-        "leff_bwd": 0, "window_attention": 0, "attention_block": 0,
-        "dwconv3x3": 27}
+        "attention_block_bwd": 0, "leff_bwd": 0, "window_attention": 0,
+        "attention_block": 0, "dwconv3x3": 27}
     assert set(K.launch_counts().values()) == {0}
 
 
 def test_train_guard_names_conv_mlp_and_cross_blocks():
+    """Conv projection has no backward kernel: its blocks are named. Mlp
+    and cross-modulator blocks train on the kernel path (their attention
+    through the attention kernels, the Mlp and the cross-attention as
+    plain PyTorch, as in JAX), at head dim 32 and 16 alike."""
     conv = Uformer(img_size=128, embed_dim=32, depths=(1,) * 9,
                    num_heads=B_HEADS, token_projection="conv")
     uncovered = blocks_without_backward_kernel(conv)
     assert len(uncovered) == 9 and uncovered[0] == "encoderlayer_0.blocks.0"
     assert conv.encoderlayer_0.blocks[0].backward_gap == \
         K.DWCONV_BACKWARD_NOT_PORTED
-    for opts in (dict(token_mlp="mlp"), dict(cross_modulator=True)):
-        m = Uformer(img_size=128, embed_dim=32, depths=(1,) * 9,
-                    num_heads=B_HEADS, **opts)
-        names = blocks_without_backward_kernel(m)
-        gaps = {m.get_submodule(n).backward_gap for n in names}
-        assert gaps == {UNFUSED_NOT_ON_KERNEL_PATH}
-        assert len(names) == (9 if "token_mlp" in opts else 4)
+    for embed in (32, 16):
+        for opts in (dict(token_mlp="mlp"), dict(cross_modulator=True),
+                     dict(token_mlp="mlp", cross_modulator=True)):
+            m = Uformer(img_size=128, embed_dim=embed, depths=(1,) * 9,
+                        num_heads=B_HEADS, **opts)
+            assert blocks_without_backward_kernel(m) == [], (embed, opts)
+    # a window other than 8 (the 64^2 model's 4 x 4 bottleneck) is not
+    narrow = Uformer(img_size=64, embed_dim=16, depths=(1,) * 9,
+                     num_heads=B_HEADS)
+    assert blocks_without_backward_kernel(narrow) == ["conv.blocks.0"]
+    assert narrow.conv.blocks[0].backward_gap == GEOMETRY_NOT_ON_KERNEL_PATH
 
 
 def test_conv_train_step_runs_on_cpu():
@@ -527,3 +535,42 @@ def test_conv_model_refuses_to_train_on_card():
         make_train_step(model)(state, {"input": img, "target": img},
                                torch.Generator())
     assert set(K.launch_counts().values()) == {0}
+
+
+@pytest.mark.gpu
+def test_mlp_cross_modulator_train_step_on_card():
+    """A linear-projection Uformer with Mlp blocks and the cross-modulator
+    trains on the card: its attention forward and backward through the
+    kernels (image route and windowed branch, head dim 16), the Mlp and
+    the cross-attention as plain PyTorch. One fp32 step, kernel path
+    against plain path: loss and every gradient within 1e-4 (1 +
+    max|ref|)."""
+    dev = _cuda()
+    torch.manual_seed(0)
+    model = Uformer(img_size=128, embed_dim=16, depths=(1,) * 9,
+                    num_heads=B_HEADS, token_mlp="mlp",
+                    cross_modulator=True, modulator=True).to(dev)
+    rng = np.random.default_rng(20)
+    x = _t(rng.uniform(0, 1, (2, 128, 128, 3)), dev)
+    batch = {"input": x, "target": x.clamp(0.1, 0.9)}
+    out = {}
+    for plain in (True, False):
+        state = TrainState(model, make_optimizer(model.parameters(),
+                                                 lambda s: 0.0))
+        K.reset_counts()
+        loss = make_train_step(model, plain=plain)(
+            state, batch, torch.Generator().manual_seed(1))
+        # norm_cross is built and never applied (the reference quirk)
+        out[plain] = (loss, {n: p.grad.clone()
+                             for n, p in model.named_parameters()
+                             if "norm_cross" not in n})
+    launched = K.launch_counts()
+    assert launched["attention_image"] == launched["attention_bwd"] == 8
+    assert launched["attention_block"] == launched["attention_block_bwd"] == 1
+    assert launched["leff"] == launched["leff_bwd"] == 0
+    assert set(K.plain_counts().values()) == {0}
+    (l0, ref), (l1, got) = out[True], out[False]
+    assert abs(float(l1) - float(l0)) <= TOL * (1 + abs(float(l0)))
+    for n, r in ref.items():
+        err = float((got[n] - r).abs().max())
+        assert err <= TOL * (1 + float(r.abs().max())), (n, err)

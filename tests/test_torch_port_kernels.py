@@ -4,8 +4,10 @@ On the CPU the plain PyTorch versions (`attention_image_reference`,
 `leff_reference`, `stage_reference`) are held against the JAX package's jnp
 references and against its Pallas kernels run with interpret=True, on the
 same numpy inputs (fp32, tolerance 1e-4). The tests marked `gpu` hold each
-CUDA kernel against its plain version on the card; they decide inside the
-test whether a card is present and skip without one. Run them on the card
+CUDA kernel against its plain version on the card (the backward kernels,
+the windowed attention backward among them, against their plain VJPs);
+they decide inside the test whether a card is present and skip without
+one. Run them on the card
 with `python -m pytest -m gpu tests/test_torch_port_kernels.py`.
 """
 
@@ -284,9 +286,12 @@ def _check_grads(fused, plain, x, g, what):
             (what, i, "bf16", e16, e_plain, scale)
 
 
+# head dim 32 (Uformer_B's stages), then 16 (Uformer_T's C 32-256)
 ATTN_BWD_GEOMS = [(2, 16, 16, 32, 1, 4), (2, 16, 16, 64, 2, 0),
                   (2, 16, 16, 128, 4, 4), (2, 16, 16, 256, 8, 4),
-                  (2, 8, 8, 512, 16, 0), (2, 16, 16, 512, 16, 4)]
+                  (2, 8, 8, 512, 16, 0), (2, 16, 16, 512, 16, 4),
+                  (2, 16, 16, 32, 2, 4), (2, 16, 16, 64, 4, 0),
+                  (2, 16, 16, 128, 8, 4), (2, 8, 8, 256, 16, 0)]
 
 
 @pytest.mark.gpu
@@ -314,7 +319,37 @@ def test_attention_bwd_kernel_on_card(geom, residual):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("with_mod", [True, False])
+@pytest.mark.parametrize("has_ln", [True, False])
+@pytest.mark.parametrize("shift", [0, 4])
+@pytest.mark.parametrize("C,nH", [(16, 1), (32, 2), (128, 8), (64, 2)])
+def test_attention_block_bwd_kernel_on_card(C, nH, shift, has_ln, with_mod):
+    """The windowed backward (kernel 6 on (Bw, 64, C) windows) against the
+    plain VJP: two 32^2 images of windows, head dim 16 (Uformer_T's enc0
+    and others) and 32."""
+    dev = _cuda()
+    inp = _attn_inputs(16, 2, 32, 32, C, nH, with_mod)
+    x = _t(inp.pop("x").reshape(-1, 64, C), dev).bfloat16().float()
+    g = _t(np.random.default_rng(17).standard_normal(tuple(x.shape))
+           .astype(np.float32), dev).bfloat16().float()
+    prm = {dt: _cast(inp, dev, dt, ("mod", "wq", "wkv", "wo"))
+           for dt in (torch.float32, torch.bfloat16)}
+    kw = dict(win=8, shift=shift, H=32, W=32, scale=(C // nH) ** -0.5,
+              num_heads=nH, has_ln=has_ln)
+
+    def run(fn):
+        return lambda x, g, dt: fn(x, g, *prm[dt].values(), **kw)
+
+    K.reset_counts()
+    _check_grads(run(K.fused_attention_block_bwd),
+                 run(K.attention_block_vjp_reference), x, g,
+                 (C, nH, shift, has_ln, with_mod))
+    assert K.launch_counts()["attention_block_bwd"] == 2
+    assert K.plain_counts()["attention_block_bwd"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [16, 32, 64, 128, 256, 512])
 @pytest.mark.parametrize("residual,has_ln", [(True, True), (False, True),
                                              (False, False)])
 def test_leff_bwd_kernel_on_card(C, residual, has_ln):
@@ -352,13 +387,20 @@ def test_backward_wrappers_refuse_bad_input_on_card():
     ainp = _attn_inputs(15, 1, 16, 16, 64, 2)
     ax = _t(ainp.pop("x"), dev)
     aprm = [_t(v, dev) for v in ainp.values()]
-    with pytest.raises(ValueError):  # head dim 64, the kernel takes 32
+    with pytest.raises(ValueError):  # head dim 64: the kernels take 16, 32
         K.fused_attention_image_bwd(ax, ax, *aprm, win=8, shift=0,
                                     scale=0.125, num_heads=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # head dim 16
-        K.fused_attention_image_bwd(ax, ax, *aprm, win=8, shift=0,
-                                    scale=0.25, num_heads=4)
     with pytest.raises(ValueError):  # not contiguous
         K.fused_attention_image_bwd(ax.transpose(1, 2), ax, *aprm, win=8,
                                     shift=0, scale=0.125, num_heads=2)
+    wnd = ax.reshape(-1, 64, 64)
+    bkw = dict(win=8, shift=0, H=16, W=16, scale=0.125, num_heads=2)
+    with pytest.raises(ValueError, match="w_off"):  # the JAX kernel has none
+        K.fused_attention_block_bwd(wnd, wnd, *aprm, **bkw, w_off=1)
+    with pytest.raises(ValueError):  # head dim 8
+        K.fused_attention_block_bwd(wnd, wnd, *aprm, **dict(bkw,
+                                                            num_heads=8))
+    with pytest.raises(ValueError):  # g of another dtype
+        K.fused_attention_block_bwd(wnd, wnd.bfloat16(), *aprm, **bkw)
     assert K.plain_counts()["attention_bwd"] == 0
+    assert K.plain_counts()["attention_block_bwd"] == 0

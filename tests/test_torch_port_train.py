@@ -77,12 +77,14 @@ def _leff_case(shape, hidden):
 
 
 # shapes of tests/test_pallas_leff.py:122-148 that run outside the slow
-# tier (packed p=4 with LN and residual; packed p=2 without either), and
-# C = 128 with LN and no residual
+# tier (packed p=4 with LN and residual; packed p=2 without either),
+# C = 128 with LN and no residual, and Uformer_T's enc0 (C 16, hidden 64;
+# packed p=8) as it trains
 @pytest.mark.parametrize("shape,hidden,has_ln,residual", [
     ((2, 16, 16, 32), 128, True, True),
     ((1, 24, 16, 64), 256, False, False),
-    ((1, 8, 16, 128), 256, True, False)])
+    ((1, 8, 16, 128), 256, True, False),
+    ((2, 16, 16, 16), 64, True, False)])
 def test_leff_vjp_reference_matches_jax(jx, shape, hidden, has_ln, residual):
     p = _leff_case(shape, hidden)
     order = ("x", "w1", "b1", "wd", "bd", "w2", "b2", "ln_s", "ln_b")
@@ -159,11 +161,15 @@ def _jax_block_bwd(jx, J, g, *, shift, scale, nH, residual):
     return (dx + g if residual else dx,) + tuple(out[1:])
 
 
-# C 32 and 64 take JAX's packed backward; C 128 the plain windowed one
+# C 32 and 64 take JAX's packed backward; C 128 the plain windowed one;
+# head dim 32, then 16 (Uformer_T's C 32, 64 and 128 stages)
 @pytest.mark.parametrize("geom", [(1, 16, 16, 32, 1, 4, True),
                                   (1, 16, 16, 64, 2, 0, False),
                                   (1, 16, 16, 128, 4, 0, True),
-                                  (1, 16, 16, 128, 4, 4, False)])
+                                  (1, 16, 16, 128, 4, 4, False),
+                                  (1, 16, 16, 32, 2, 4, False),
+                                  (1, 16, 16, 64, 4, 0, True),
+                                  (1, 16, 16, 128, 8, 4, False)])
 def test_attention_vjp_reference_matches_jax(jx, geom):
     B, H, W, C, nH, shift, residual = geom
     p = _attn_case(3, B, H, W, C, nH)
@@ -219,9 +225,9 @@ def test_autograd_wrappers_match_plain_autograd_on_cpu(residual):
     for name, a, b in zip(lorder, got, want):
         _close(a, b.numpy(), what=name)
     assert K.plain_counts() == {"stage": 0, "attention_image": 1, "leff": 1,
-                                "attention_bwd": 1, "leff_bwd": 1,
-                                "window_attention": 0, "attention_block": 0,
-                                "dwconv3x3": 0}
+                                "attention_bwd": 1, "attention_block_bwd": 0,
+                                "leff_bwd": 1, "window_attention": 0,
+                                "attention_block": 0, "dwconv3x3": 0}
     assert set(K.launch_counts().values()) == {0}
 
 
@@ -333,10 +339,11 @@ def test_train_step_matches_jax(small_run, run, n_steps):
         np.testing.assert_allclose(float(loss), s.loss, rtol=1e-5)
         assert state.step == k + 1
         # each block's attention backward: the image route's, or the
-        # windowed branch's plain VJP (C 8 and 16 take the windowed one)
+        # windowed branch's (C 8 and 16 take the windowed one)
         counts = K.plain_counts()
         assert counts["attention_bwd"] + counts["attention_block"] == \
             sum(SMALL["depths"]) and counts["attention_block"] == 4
+        assert counts["attention_block_bwd"] == 4
         factor = 1.0 if r.clip is None else min(1.0, r.clip / s.norm)
         if r.clip is not None:
             assert factor < 0.5  # the clip is active
@@ -503,8 +510,9 @@ def test_uformer_b_train_routing_counts():
     loss.backward()
     assert K.plain_counts() == {"stage": 0, "attention_image": 40,
                                 "leff": 40, "attention_bwd": 40,
-                                "leff_bwd": 40, "window_attention": 0,
-                                "attention_block": 0, "dwconv3x3": 0}
+                                "attention_block_bwd": 0, "leff_bwd": 40,
+                                "window_attention": 0, "attention_block": 0,
+                                "dwconv3x3": 0}
     assert set(K.launch_counts().values()) == {0}
     assert all(p.grad is not None for p in model.parameters())
 

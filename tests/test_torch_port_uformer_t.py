@@ -79,6 +79,7 @@ def _block_inputs(seed, Bw, C, nH, with_mod=True):
                 bo=mk(C), bias=mk(nH, 64, 64))
 
 
+T_HEADS = (1, 2, 4, 8, 16, 16, 8, 4, 2)  # Uformer_T's, head dim 16
 # an H != W image of 2 x 3 windows, batch 2: 12 windows
 H_IMG, W_IMG, BW = 16, 24, 12
 
@@ -141,9 +142,57 @@ def test_attention_block_window_offset_matches_jax(jx):
     assert float((got - at0).abs().max()) > 1e-3
 
 
+BLOCK_GRADS = ("dx", "dmod", "dln_s", "dln_b", "dwq", "dbq", "dwkv", "dbkv",
+               "dwo", "dbo", "dbias")
+
+
+# Uformer_T's enc0 (C 16, one head) at both shifts, LN and the modulator
+# each way; and head dim 16 at four heads
+@pytest.mark.parametrize("C,nH,shift,has_ln,with_mod", [
+    (16, 1, s, ln, m) for s in (0, 4) for ln in (True, False)
+    for m in (True, False)] + [(64, 4, 4, True, True)])
+def test_attention_block_vjp_reference_matches_jax(jx, C, nH, shift, has_ln,
+                                                   with_mod):
+    """The windowed block's plain VJP (the CPU answer of
+    `fused_attention_block_bwd`) against `jax.vjp` of the JAX reference
+    (1e-4) and JAX's unpacked Pallas kernel 6 in interpret mode (2e-4,
+    test_pallas_attention_block.py's budget), gradient by gradient."""
+    inp = _block_inputs(10, BW, C, nH, with_mod)
+    kw = dict(win=8, shift=shift, H=H_IMG, W=W_IMG, scale=(C // nH) ** -0.5,
+              num_heads=nH, has_ln=has_ln)
+    g = (np.random.default_rng(11).standard_normal((BW, 64, C))
+         .astype(np.float32))
+    K.reset_counts()
+    got = K.fused_attention_block_bwd(_t(inp["x"]), _t(g),
+                                      *map(_t, list(inp.values())[1:]), **kw)
+    assert K.plain_counts()["attention_block_bwd"] == 1
+    j = {k: None if v is None else jx.jnp.asarray(v) for k, v in inp.items()}
+    kern = jx.ab.fused_attention_block_bwd(
+        j["x"], jx.jnp.asarray(g), *list(j.values())[1:], has_mod=with_mod,
+        interpret=True, packed=False, **kw)
+    if j["mod"] is None:  # the jnp reference adds a modulator always
+        j["mod"] = jx.jnp.zeros((64, C), jx.jnp.float32)
+    _, vjp = jx.jax.vjp(
+        lambda *a: jx.ab.attention_block_reference(*a, **kw), *j.values())
+    want = vjp(jx.jnp.asarray(g))
+    for i, name in enumerate(BLOCK_GRADS):
+        if (name == "dmod" and not with_mod) or (
+                name in ("dln_s", "dln_b") and not has_ln):
+            assert got[i] is None, name
+            continue
+        np.testing.assert_allclose(
+            got[i].numpy(), np.asarray(want[i]), rtol=0,
+            atol=TOL * (1 + np.abs(np.asarray(want[i])).max()), err_msg=name)
+        np.testing.assert_allclose(
+            got[i].numpy(), np.asarray(kern[i]), rtol=0,
+            atol=2 * TOL * (1 + np.abs(np.asarray(kern[i])).max()),
+            err_msg=f"{name} vs kernel")
+
+
 def test_attention_block_ad_gives_the_plain_vjp_on_cpu(jx):
-    """The backward of attention_block_ad on the CPU is the plain VJP: torch
-    autograd of the plain version, and JAX's VJP of its reference."""
+    """The backward of attention_block_ad on the CPU is the plain VJP
+    (`fused_attention_block_bwd`'s plain call): torch autograd of the plain
+    version, and JAX's VJP of its reference."""
     inp = _block_inputs(3, BW, 16, 1)
     kw = dict(win=8, shift=4, H=H_IMG, W=W_IMG, scale=0.25, num_heads=1,
               has_ln=True)
@@ -155,6 +204,7 @@ def test_attention_block_ad_gives_the_plain_vjp_on_cpu(jx):
     (y * _t(g)).sum().backward()
     got = [a.grad for a in args]
     assert K.plain_counts()["attention_block"] == 1
+    assert K.plain_counts()["attention_block_bwd"] == 1
     ref = [_t(v).requires_grad_(True) for v in inp.values()]
     (K.attention_block_reference(*ref, **kw) * _t(g)).sum().backward()
     j = [jx.jnp.asarray(v) for v in inp.values()]
@@ -217,8 +267,8 @@ def test_uformer_t_matches_jax_and_routes(jx, uformer_t):
     _close(got, want)
     assert K.plain_counts() == {
         "stage": 4, "attention_image": 8, "leff": 10, "attention_bwd": 0,
-        "leff_bwd": 0, "window_attention": 0, "attention_block": 2,
-        "dwconv3x3": 0}
+        "attention_block_bwd": 0, "leff_bwd": 0, "window_attention": 0,
+        "attention_block": 2, "dwconv3x3": 0}
     assert set(K.launch_counts().values()) == {0}
 
 
@@ -255,14 +305,120 @@ def test_registry_refuses_what_the_kernels_do_not_take():
 
 
 def test_train_guard_names_the_uncovered_blocks():
-    """The kernel path trains only blocks the backward kernels cover: the
-    image route at head dim 32. Uformer_T has none, Uformer_B all."""
-    t = get_arch({"arch": "Uformer_T", "train_ps": 128})
-    uncovered = blocks_without_backward_kernel(t)
-    assert len(uncovered) == 18
-    assert uncovered[0] == "encoderlayer_0.blocks.0"
-    assert blocks_without_backward_kernel(
-        get_arch({"arch": "Uformer_B", "train_ps": 128})) == []
+    """The kernel path trains every block the backward kernels cover: the
+    image route and the windowed branch at head dim 16 or 32. Every
+    registry arch is covered; a conv-projection model and other head dims
+    are not."""
+    from uformer_tpu_torch.models import Uformer
+    from uformer_tpu_torch.models.registry import ARCHS
+
+    for arch in ARCHS:
+        assert blocks_without_backward_kernel(
+            get_arch({"arch": arch, "train_ps": 128})) == [], arch
+    conv = Uformer(img_size=128, embed_dim=16, depths=(1,) * 9,
+                   num_heads=T_HEADS, token_projection="conv")
+    assert len(blocks_without_backward_kernel(conv)) == 9
+    narrow = Uformer(img_size=128, embed_dim=8, depths=(1,) * 9,
+                     num_heads=T_HEADS)
+    assert blocks_without_backward_kernel(narrow)[0] == \
+        "encoderlayer_0.blocks.0"
+
+
+# one Uformer_T train step at 128^2: per kernel, its forward and backward
+T_STEP = {"stage": 0, "attention_image": 16, "attention_block": 2,
+          "leff": 18, "attention_bwd": 16, "attention_block_bwd": 2,
+          "leff_bwd": 18, "window_attention": 0, "dwconv3x3": 0}
+
+
+def test_uformer_t_train_routing_counts():
+    """Uformer_T (train_ps 128) in training: 16 attention-image, 2
+    attention-block (enc0) and 18 LeFF forwards, and as many backwards, no
+    stage kernel (plain versions on the CPU, counted apart from
+    launches)."""
+    model = get_arch({"arch": "Uformer_T", "train_ps": 128}).train()
+    x = torch.rand(1, 128, 128, 3, generator=torch.Generator().manual_seed(0))
+    K.reset_counts()
+    y = model(x, generator=torch.Generator().manual_seed(1))
+    (y - x).abs().mean().backward()
+    assert K.plain_counts() == T_STEP
+    assert set(K.launch_counts().values()) == {0}
+    assert all(p.grad is not None for p in model.parameters())
+
+
+# a Uformer_T-width model (embed 16, Uformer_T's heads: head dim 16
+# everywhere) with depths cut: enc0 runs the windowed branch and dec3 the
+# image route, each at shift 0 and 4
+T_SMALL = dict(img_size=128, embed_dim=16, depths=(2, 1, 1, 1, 1, 1, 1, 1, 2),
+               num_heads=T_HEADS, win_size=8, modulator=True)
+
+
+def test_uformer_t_width_train_step_matches_jax(jx):
+    """One train step of the T_SMALL model against JAX make_train_step
+    (drop path 0, no mixup) from seeded params on one batch: loss, every
+    gradient and every parameter's update (AdamW, lr 1e-3, weight decay on
+    every parameter); the windowed branch's backward is
+    `fused_attention_block_bwd`'s plain call, the image route's
+    `fused_attention_image_bwd`'s."""
+    from uformer_tpu.models import Uformer as JaxUformer
+    from uformer_tpu.train.losses import charbonnier_loss as jloss
+    from uformer_tpu.train.train_step import TrainState as JState
+    from uformer_tpu.train.train_step import make_optimizer as jopt
+    from uformer_tpu.train.train_step import make_train_step as jstep
+    from uformer_tpu_torch.convert import load_numpy_state_dict, \
+        state_dict_from_jax
+    from uformer_tpu_torch.models import Uformer
+
+    jax, jnp = jx.jax, jx.jnp
+    rng = np.random.default_rng(12)
+    batch = {k: rng.uniform(0, 1, (1, 128, 128, 3)).astype(np.float32)
+             for k in ("input", "target")}
+    model = JaxUformer(attn_backend="jnp", drop_path_rate=0.0, **T_SMALL)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                            jnp.asarray(batch["input"]))
+    prng = np.random.default_rng(13)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, a: (0.05 * prng.standard_normal(a.shape)
+                         + (jax.tree_util.keystr(path).endswith("['scale']")))
+        .astype(np.float32), shapes)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    key = jax.random.PRNGKey(0)
+
+    def loss_fn(p):
+        pred = model.apply(p, jb["input"], deterministic=False,
+                           rngs={"dropout": jax.random.split(key)[1]})
+        return jloss(pred, jb["target"])
+
+    grads = state_dict_from_jax(jax.jit(jax.grad(loss_fn))(params))
+    state = JState.create(params, jopt(lambda s: 1e-3))
+    new, jloss_val = jax.jit(jstep(model))(state, jb, key)
+    before = state_dict_from_jax(params)
+    after = state_dict_from_jax(new.params)
+
+    port = load_numpy_state_dict(Uformer(drop_path_rate=0.0, **T_SMALL),
+                                 before)
+    pstate = TrainState(port, make_optimizer(port.parameters(),
+                                             lambda s: 1e-3))
+    K.reset_counts()
+    loss = make_train_step(port)(
+        pstate, {k: torch.from_numpy(v) for k, v in batch.items()},
+        torch.Generator().manual_seed(0))
+    np.testing.assert_allclose(float(loss), float(jloss_val), rtol=1e-5)
+    counts = K.plain_counts()
+    assert (counts["attention_block"], counts["attention_block_bwd"],
+            counts["attention_bwd"], counts["leff_bwd"]) == (2, 2, 9, 11)
+    for name, prm in port.named_parameters():
+        _close(prm.grad, grads[name])
+        # the update within 2e-3 lr plus four float32 spacings of the
+        # parameter (test_torch_port_train.py:_close_update), plus what the
+        # gradients' difference moves Adam's first update lr g / (|g| +
+        # eps): at most lr |dg| / (|g| + eps), which counts where |g| is
+        # near eps (1e-8; some conv weights here)
+        b, g = np.asarray(before[name]), np.asarray(grads[name])
+        err = np.abs((prm.detach().numpy() - b) - (np.asarray(after[name])
+                                                   - b))
+        tol = 1e-3 * (2e-3 + np.abs(prm.grad.numpy() - g)
+                      / (np.abs(g) + 1e-8)) + 4 * np.spacing(np.abs(b))
+        assert np.all(err <= tol), (name, float((err - tol).max()))
 
 
 # ---- on the card -------------------------------------------------------
@@ -332,23 +488,23 @@ def test_attention_block_kernel_on_card(C, nH, shift, has_ln, with_mod):
 
 
 @pytest.mark.gpu
-def test_uformer_t_backward_raises_on_card():
-    """No plain version stands in for a missing backward kernel: the
-    windowed block's backward and the train step both refuse."""
+def test_uformer_t_train_step_launches_on_card():
+    """A Uformer_T train step on the card runs every attention and LeFF
+    sub-block forward and backward through the kernels (the windowed
+    block's backward included), with no plain call, and gives finite
+    gradients."""
     dev = _cuda()
-    inp = _block_inputs(9, 4, 16, 1)
-    args = [_t(v, dev).requires_grad_(True) for v in inp.values()]
-    y = K.attention_block_ad(*args, win=8, shift=0, H=16, W=16, scale=0.25,
-                             num_heads=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        y.sum().backward()
+    torch.manual_seed(0)
     model = get_arch({"arch": "Uformer_T", "train_ps": 128}).to(dev)
     state = TrainState(model, make_optimizer(model.parameters(),
                                              lambda s: 1e-4))
     step = make_train_step(model)
-    x = torch.rand(1, 128, 128, 3, device=dev)
+    x = torch.rand(2, 128, 128, 3, device=dev)
     K.reset_counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step(state, {"input": x, "target": x}, torch.Generator())
-    assert set(K.launch_counts().values()) == {0}
+    loss = step(state, {"input": x, "target": x}, torch.Generator())
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss))
+    assert K.launch_counts() == T_STEP
     assert set(K.plain_counts().values()) == {0}
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())

@@ -1,5 +1,5 @@
 // Backward of the image-layout LeWin attention sub-block for Hopper
-// (sm_90a).
+// (sm_90a), head dim 16 or 32.
 //
 // Replaces uformer_tpu/ops/pallas/attention_block.py:
 // fused_attention_block_bwd (and its pixel-packed narrow-C variant) as the
@@ -17,18 +17,18 @@
 // q/k/v recompute, dxm) against 4 x 64 x C values of per-token traffic,
 // so at C >= 128 it is tensor-core work with the weights read from L2 by
 // every window; at C = 32/64 the fp32 softmax VJP and the eight 64 x 64 x
-// 32 products per head dominate. Products on the tensor cores (WMMA, fp32
-// accumulation) in bf16, the fp32 dS as two bf16 halves; fp32 FMA loops
-// in fp32 (the exact-check path).
+// D products per head dominate (at D = 16 one WMMA k-step each). Products
+// on the tensor cores (WMMA, fp32 accumulation) in bf16, the fp32 dS as
+// two bf16 halves; fp32 FMA loops in fp32 (the exact-check path).
 #include "attention_window_bwd.cuh"
 
 namespace uf {
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_kernel(AttnBwdParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const AttnBwdLayout L = attn_bwd_layout(sizeof(T), p.C);
+  const auto L = attn_bwd_layout<D>(sizeof(T), p.C);
   const int H = p.H, W = p.W, s = p.shift, tid = threadIdx.x;
   const int nWw = W / 8, nW = (H / 8) * nWw, w = blockIdx.x;
   const int b = w / nW, wi = (w % nW) / nWw, wj = w % nWw;
@@ -41,19 +41,15 @@ __global__ void __launch_bounds__(kThreads)
     rid[tid] = s ? 3 * region_id(gr, H, s) + region_id(gc, W, s) : 0;
   }
   __syncthreads();
-  attention_window_bwd<T>(p, w, smem);
+  attention_window_bwd<T, D>(p, w, smem);
 }
 
 template <typename T>
-static int run(AttnBwdParams<T>& p, cudaStream_t stream) {
-  const AttnBwdLayout L = attn_bwd_layout(sizeof(T), p.C);
-  cudaError_t e = cudaFuncSetAttribute(
-      attention_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = p.B * (p.H / 8) * (p.W / 8);
-  attention_bwd_kernel<T><<<blocks, kThreads, L.total, stream>>>(p);
-  return (int)cudaGetLastError();
+static int run(const AttnBwdParams<T>& p, cudaStream_t stream) {
+  return launch_attn_bwd(p, p.B * (p.H / 8) * (p.W / 8), stream,
+                         [](auto d) {
+                           return attention_bwd_kernel<T, decltype(d)::value>;
+                         });
 }
 
 }  // namespace uf
@@ -62,9 +58,9 @@ extern "C" {
 
 // Bit 0: the window's xm tile, bit 1: its dO tile, misses shared memory;
 // the caller then passes a (windows, 64, C) scratch of the input's dtype.
-int uf_attention_bwd_scratch(int is_bf16, int C) {
-  const uf::AttnBwdLayout L = uf::attn_bwd_layout(is_bf16 ? 2 : 4, C);
-  return (L.x_smem ? 0 : 1) | (L.do_smem ? 0 : 2);
+// C / nH is 16 or 32 (checked by the caller).
+int uf_attention_bwd_scratch(int is_bf16, int C, int nH) {
+  return uf::attn_bwd_scratch(is_bf16 ? 2 : 4, C, nH);
 }
 
 // Returns a cudaError_t. is_bf16 selects bf16 (else fp32) for x, g, mod,
@@ -80,47 +76,20 @@ int uf_attention_bwd(int is_bf16, const void* x, const void* g,
                      void* x_scratch, void* do_scratch, int B, int H, int W,
                      int C, int nH, int shift, float scale, int has_ln,
                      int residual, void* stream) {
-  auto fill = [&](auto& p, auto* tag) {
-    using T = std::remove_pointer_t<decltype(tag)>;
-    p.x = static_cast<const T*>(x);
-    p.g = static_cast<const T*>(g);
-    p.mod = static_cast<const T*>(mod);
-    p.ln_s = ln_s;
-    p.ln_b = ln_b;
-    p.wq = static_cast<const T*>(wq);
-    p.bq = bq;
-    p.wkv = static_cast<const T*>(wkv);
-    p.bkv = bkv;
-    p.wo = static_cast<const T*>(wo);
-    p.bias = bias;
-    p.dx = static_cast<T*>(dx);
-    p.xm_w = static_cast<T*>(xm_w);
-    p.dqkv_w = static_cast<T*>(dqkv_w);
-    p.o_img = static_cast<T*>(o_img);
-    p.dbias_part = dbias_part;
-    p.dmod_part = dmod_part;
-    p.dln_part = dln_part;
-    p.x_scratch = static_cast<T*>(x_scratch);
-    p.do_scratch = static_cast<T*>(do_scratch);
-    p.B = B;
-    p.H = H;
-    p.W = W;
-    p.C = C;
-    p.nH = nH;
-    p.shift = shift;
-    p.scale = scale;
-    p.has_ln = has_ln;
-    p.residual = residual;
-  };
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    uf::AttnBwdParams<uf::bf16> p;
-    fill(p, static_cast<uf::bf16*>(nullptr));
-    return uf::run<uf::bf16>(p, s);
-  }
-  uf::AttnBwdParams<float> p;
-  fill(p, static_cast<float*>(nullptr));
-  return uf::run<float>(p, s);
+  if (is_bf16)
+    return uf::run(uf::attn_bwd_params<uf::bf16>(
+                       x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx,
+                       xm_w, dqkv_w, o_img, dbias_part, dmod_part, dln_part,
+                       x_scratch, do_scratch, B, H, W, C, nH, shift, scale,
+                       has_ln, residual),
+                   s);
+  return uf::run(uf::attn_bwd_params<float>(
+                     x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx,
+                     xm_w, dqkv_w, o_img, dbias_part, dmod_part, dln_part,
+                     x_scratch, do_scratch, B, H, W, C, nH, shift, scale,
+                     has_ln, residual),
+                 s);
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 // Backward of one 8x8 window of the LeWin attention sub-block, computed by
-// one thread block from its 64 gathered tokens. attention_bwd.cu runs it
-// on the image layout (tokens gathered at the shifted coordinates); a
-// windowed caller passes the identity token map.
+// one thread block from its 64 gathered tokens, for head dim D in {16, 32}
+// (as the forward, attention_window.cuh). attention_bwd.cu runs it on the
+// image layout (tokens gathered at the shifted coordinates);
+// attention_block_bwd.cu on (Bw, 64, C) windows with the identity token
+// map.
 //
 // Forward (recomputed here from x, as the TPU kernel does):
 //   xm = LN1(x) + mod; q = (xm Wq + bq) * scale; k, v = xm Wkv + bkv;
@@ -11,7 +13,7 @@
 //   dv = P^T dO, dq = dS k * scale, dk = dS^T q; dxm = dq Wq^T + dkv Wkv^T;
 //   dx = LN1 VJP(dxm) [+ g].
 // Per token the window writes what the weight gradients need (xm and
-// [dq | dk | dv] in window order, O at its image pixel); per window its
+// [dq | dk | dv] in window order, O at its token's row); per window its
 // share of dbias (dS), dmod (dxm) and dln_s / dln_b. wgrad.cuh sums them.
 #pragma once
 
@@ -21,8 +23,8 @@ namespace uf {
 
 template <typename T>
 struct AttnBwdParams {
-  const T* x;          // (B, H, W, C) block input
-  const T* g;          // (B, H, W, C) gradient of the output
+  const T* x;          // (B, H, W, C) block input, or (Bw, 64, C) windows
+  const T* g;          // gradient of the output, x's shape
   const T* mod;        // (64, C) or null
   const float* ln_s;   // (C,)
   const float* ln_b;   // (C,)
@@ -32,10 +34,10 @@ struct AttnBwdParams {
   const float* bkv;    // (2C,)
   const T* wo;         // (C, C)
   const float* bias;   // (nH, 64, 64)
-  T* dx;               // (B, H, W, C)
+  T* dx;               // x's shape
   T* xm_w;             // (windows * 64, C) xm, window order
   T* dqkv_w;           // (windows * 64, 3C) [dq | dk | dv], window order
-  T* o_img;            // (B, H, W, C) head outputs at their pixels
+  T* o_img;            // x's shape: head outputs at their tokens' rows
   float* dbias_part;   // (windows, nH * 4096)
   float* dmod_part;    // (windows, 64 * C), or null without mod
   float* dln_part;     // (windows, 2C): dln_s then dln_b, or null
@@ -46,28 +48,32 @@ struct AttnBwdParams {
   int has_ln, residual;
 };
 
+template <int D>
 struct AttnBwdLayout {
-  static constexpr int ldq = 40, ldp = 72, ldsp = 68, ldacc = 100;
+  static constexpr int kQKV = 3 * D > 64 ? 3 * D : 64;  // widest acc use
+  static constexpr int ldq = D + 8, ldp = 72, ldsp = 68, ldacc = kQKV + 4;
   int ldx, ldd;
   size_t q, k, v, pt, sp, acc, pix, rid, stats, dsh, dsl, x, dO, total;
   bool x_smem, do_smem;
 };
 
-__host__ __device__ inline AttnBwdLayout attn_bwd_layout(int ts, int C) {
-  AttnBwdLayout L;
+template <int D>
+__host__ __device__ inline AttnBwdLayout<D> attn_bwd_layout(int ts, int C) {
+  using L_ = AttnBwdLayout<D>;
+  L_ L;
   Carver cv;
-  L.q = cv.take(64 * AttnBwdLayout::ldq * ts);
-  L.k = cv.take(64 * AttnBwdLayout::ldq * ts);
-  L.v = cv.take(64 * AttnBwdLayout::ldq * ts);
-  L.pt = cv.take(64 * AttnBwdLayout::ldp * ts);
-  L.sp = cv.take(64 * AttnBwdLayout::ldsp * sizeof(float));
-  L.acc = cv.take(64 * AttnBwdLayout::ldacc * sizeof(float));
+  L.q = cv.take(64 * L_::ldq * ts);
+  L.k = cv.take(64 * L_::ldq * ts);
+  L.v = cv.take(64 * L_::ldq * ts);
+  L.pt = cv.take(64 * L_::ldp * ts);
+  L.sp = cv.take(64 * L_::ldsp * sizeof(float));
+  L.acc = cv.take(64 * L_::ldacc * sizeof(float));
   L.pix = cv.take(64 * sizeof(int));
   L.rid = cv.take(64 * sizeof(int));
   L.stats = cv.take(128 * sizeof(float));
   // dS as the sum of two values of T (in fp32 the second is 0)
-  L.dsh = cv.take(64 * AttnBwdLayout::ldp * ts);
-  L.dsl = cv.take(64 * AttnBwdLayout::ldp * ts);
+  L.dsh = cv.take(64 * L_::ldp * ts);
+  L.dsl = cv.take(64 * L_::ldp * ts);
   // the token tile (xm, later dxm) and dO: in shared memory when they
   // fit, else in a global slot per window (row stride C)
   const size_t tile = (size_t)64 * (C + 8) * ts;
@@ -81,17 +87,93 @@ __host__ __device__ inline AttnBwdLayout attn_bwd_layout(int ts, int C) {
   return L;
 }
 
+// The parameters of one backward launch, from a C entry's arguments (the
+// order of uf_attention_bwd and uf_attention_block_bwd).
+template <typename T>
+AttnBwdParams<T> attn_bwd_params(
+    const void* x, const void* g, const void* mod, const float* ln_s,
+    const float* ln_b, const void* wq, const float* bq, const void* wkv,
+    const float* bkv, const void* wo, const float* bias, void* dx,
+    void* xm_w, void* dqkv_w, void* o_img, float* dbias_part,
+    float* dmod_part, float* dln_part, void* x_scratch, void* do_scratch,
+    int B, int H, int W, int C, int nH, int shift, float scale, int has_ln,
+    int residual) {
+  AttnBwdParams<T> p;
+  p.x = static_cast<const T*>(x);
+  p.g = static_cast<const T*>(g);
+  p.mod = static_cast<const T*>(mod);
+  p.ln_s = ln_s;
+  p.ln_b = ln_b;
+  p.wq = static_cast<const T*>(wq);
+  p.bq = bq;
+  p.wkv = static_cast<const T*>(wkv);
+  p.bkv = bkv;
+  p.wo = static_cast<const T*>(wo);
+  p.bias = bias;
+  p.dx = static_cast<T*>(dx);
+  p.xm_w = static_cast<T*>(xm_w);
+  p.dqkv_w = static_cast<T*>(dqkv_w);
+  p.o_img = static_cast<T*>(o_img);
+  p.dbias_part = dbias_part;
+  p.dmod_part = dmod_part;
+  p.dln_part = dln_part;
+  p.x_scratch = static_cast<T*>(x_scratch);
+  p.do_scratch = static_cast<T*>(do_scratch);
+  p.B = B;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.nH = nH;
+  p.shift = shift;
+  p.scale = scale;
+  p.has_ln = has_ln;
+  p.residual = residual;
+  return p;
+}
+
+// Bit 0: a window's xm tile, bit 1: its dO tile, misses shared memory at
+// head dim C / nH (16 or 32; the wrappers check first); the caller then
+// passes a (windows, 64, C) scratch of the input's dtype for it.
+inline int attn_bwd_scratch(int ts, int C, int nH) {
+  return with_head_dim(C, nH, [&](auto d) {
+    const auto L = attn_bwd_layout<decltype(d)::value>(ts, C);
+    return (L.x_smem ? 0 : 1) | (L.do_smem ? 0 : 2);
+  });
+}
+
+// Launches kernel_of(d) (d an integral_constant of the head dim C / nH),
+// a __global__ function of AttnBwdParams<T>, with one block of kThreads
+// threads per window and the layout's shared memory. Returns a cudaError_t.
+template <typename T, typename KernelOf>
+int launch_attn_bwd(const AttnBwdParams<T>& p, int windows,
+                    cudaStream_t stream, KernelOf kernel_of) {
+  return with_head_dim(p.C, p.nH, [&](auto d) {
+    const auto L = attn_bwd_layout<decltype(d)::value>(sizeof(T), p.C);
+    const auto kernel = kernel_of(d);
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<windows, kThreads, L.total, stream>>>(p);
+    return (int)cudaGetLastError();
+  });
+}
+
 // Backward of window `w`. pix[t] is the row of token t in x, g, dx and
 // o_img; rid[t] its SW-MSA region id (all 0 when unshifted). Both live in
 // the layout's pix / rid slots, filled and synchronised by the caller.
-template <typename T>
+// The block has kThreads threads.
+template <typename T, int D>
 __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
                                      unsigned char* smem) {
-  const AttnBwdLayout L = attn_bwd_layout(sizeof(T), p.C);
+  using L_ = AttnBwdLayout<D>;
+  const L_ L = attn_bwd_layout<D>(sizeof(T), p.C);
   const int C = p.C, C3 = 3 * p.C;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  constexpr int ldq = AttnBwdLayout::ldq, ldp = AttnBwdLayout::ldp,
-                ldsp = AttnBwdLayout::ldsp, lda = AttnBwdLayout::ldacc;
+  constexpr int ldq = L_::ldq, ldp = L_::ldp, ldsp = L_::ldsp,
+                lda = L_::ldacc;
+  // 16x16 tiles of a 64 x D head tile: products issued back to back start
+  // on different warps
+  constexpr int kHeadTiles = 4 * (D / 16);
   T* q = reinterpret_cast<T*>(smem + L.q);
   T* k = reinterpret_cast<T*>(smem + L.k);
   T* v = reinterpret_cast<T*>(smem + L.v);
@@ -144,21 +226,21 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
 
   T* dqkv = p.dqkv_w + (size_t)w * 64 * C3;
   for (int h = 0; h < p.nH; ++h) {
-    const int c0 = h * 32;
-    block_gemm<T, false, false>(X, ldx, p.wq + c0, C, acc, lda, 64, 32, C);
-    block_gemm<T, false, false>(X, ldx, p.wkv + c0, 2 * C, acc + 32, lda, 64,
-                                32, C, 8);
-    block_gemm<T, false, false>(X, ldx, p.wkv + C + c0, 2 * C, acc + 64, lda,
-                                64, 32, C);
+    const int c0 = h * D;
+    block_gemm<T, false, false>(X, ldx, p.wq + c0, C, acc, lda, 64, D, C);
+    block_gemm<T, false, false>(X, ldx, p.wkv + c0, 2 * C, acc + D, lda, 64,
+                                D, C, kHeadTiles);
+    block_gemm<T, false, false>(X, ldx, p.wkv + C + c0, 2 * C, acc + 2 * D,
+                                lda, 64, D, C, 2 * kHeadTiles);
     __syncthreads();
-    for (int idx = tid; idx < 64 * 32; idx += blockDim.x) {
-      const int t = idx / 32, d = idx % 32;
+    for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
+      const int t = idx / D, d = idx % D;
       q[t * ldq + d] = from_f<T>((acc[t * lda + d] + p.bq[c0 + d]) * p.scale);
-      k[t * ldq + d] = from_f<T>(acc[t * lda + 32 + d] + p.bkv[c0 + d]);
-      v[t * ldq + d] = from_f<T>(acc[t * lda + 64 + d] + p.bkv[C + c0 + d]);
+      k[t * ldq + d] = from_f<T>(acc[t * lda + D + d] + p.bkv[c0 + d]);
+      v[t * ldq + d] = from_f<T>(acc[t * lda + 2 * D + d] + p.bkv[C + c0 + d]);
     }
     __syncthreads();
-    block_gemm<T, true, false>(q, ldq, k, ldq, acc, lda, 64, 64, 32);
+    block_gemm<T, true, false>(q, ldq, k, ldq, acc, lda, 64, 64, D);
     __syncthreads();
     const float* bias_h = p.bias + (size_t)h * 4096;
     for (int t = warp; t < 64; t += kWarps) {
@@ -178,15 +260,15 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
     }
     __syncthreads();
     // this head's output, for dWo
-    block_gemm<T, false, false>(PT, ldp, v, ldq, acc, lda, 64, 32, 64);
+    block_gemm<T, false, false>(PT, ldp, v, ldq, acc, lda, 64, D, 64);
     __syncthreads();
-    for (int idx = tid; idx < 64 * 32; idx += blockDim.x) {
-      const int t = idx / 32, d = idx % 32;
+    for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
+      const int t = idx / D, d = idx % D;
       p.o_img[(size_t)pix[t] * C + c0 + d] = from_f<T>(acc[t * lda + d]);
     }
     __syncthreads();
     // dP = dO_h v^T; dS = P (dP - rowsum(dP P)), fp32
-    block_gemm<T, true, false>(DO + c0, ldd, v, ldq, acc, lda, 64, 64, 32);
+    block_gemm<T, true, false>(DO + c0, ldd, v, ldq, acc, lda, 64, 64, D);
     __syncthreads();
     float* dbias = p.dbias_part + ((size_t)w * p.nH + h) * 4096;
     for (int t = warp; t < 64; t += kWarps) {
@@ -206,27 +288,32 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
     __syncthreads();
     // d(q * scale) = dS k, dk = dS^T (q * scale), dv = P^T dO_h. dS goes
     // in as the sum of its two bf16 halves (hi + lo), so the products keep
-    // about 17 bits of the fp32 dS on the tensor cores.
-    block_gemm<T, false, false>(DSh, ldp, k, ldq, acc, lda, 64, 32, 64);
-    block_gemm<T, false, false, true>(DSh, ldp, q, ldq, acc + 32, lda, 64,
-                                      32, 64, 8);
-    block_gemm<T, false, false, true>(PT, ldp, DO + c0, ldd, acc + 64, lda,
-                                      64, 32, 64);
-    block_gemm<T, false, true>(DSl, ldp, k, ldq, acc, lda, 64, 32, 64);
-    block_gemm<T, false, true, true>(DSl, ldp, q, ldq, acc + 32, lda, 64, 32,
-                                     64, 8);
+    // about 17 bits of the fp32 dS on the tensor cores. Each lo product
+    // starts on the warps of its hi product, whose tiles it accumulates.
+    block_gemm<T, false, false>(DSh, ldp, k, ldq, acc, lda, 64, D, 64);
+    block_gemm<T, false, false, true>(DSh, ldp, q, ldq, acc + D, lda, 64, D,
+                                      64, kHeadTiles);
+    block_gemm<T, false, false, true>(PT, ldp, DO + c0, ldd, acc + 2 * D, lda,
+                                      64, D, 64, 2 * kHeadTiles);
+    block_gemm<T, false, true>(DSl, ldp, k, ldq, acc, lda, 64, D, 64);
+    block_gemm<T, false, true, true>(DSl, ldp, q, ldq, acc + D, lda, 64, D,
+                                     64, kHeadTiles);
     __syncthreads();
-    for (int idx = tid; idx < 64 * 32; idx += blockDim.x) {
-      const int t = idx / 32, d = idx % 32;
+    for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
+      const int t = idx / D, d = idx % D;
       T* row = dqkv + (size_t)t * C3 + c0 + d;
       row[0] = from_f<T>(rnd<T>(acc[t * lda + d]) * p.scale);
-      row[C] = from_f<T>(acc[t * lda + 32 + d]);
-      row[2 * C] = from_f<T>(acc[t * lda + 64 + d]);
+      row[C] = from_f<T>(acc[t * lda + D + d]);
+      row[2 * C] = from_f<T>(acc[t * lda + 2 * D + d]);
     }
     __syncthreads();
   }
 
-  // dxm = dq Wq^T + [dk | dv] Wkv^T, in 64-column chunks, into X
+  // dxm = dq Wq^T + [dk | dv] Wkv^T, in 64-column chunks: rounded to T
+  // into X for the LayerNorm VJP, as the plain path rounds it; the window's
+  // shares of dmod and dln_s / dln_b from the fp32 dxm, as the TPU kernel
+  // sums its fp32 product (attention_block.py:746-750)
+  float* dln = p.dln_part ? p.dln_part + (size_t)w * 2 * C : nullptr;
   for (int n0 = 0; n0 < C; n0 += 64) {
     const int nn = min(64, C - n0);
     block_gemm<T, true, false>(dqkv, C3, p.wq + (size_t)n0 * C, C, acc, lda,
@@ -236,10 +323,22 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
     __syncthreads();
     for (int idx = tid; idx < 64 * nn; idx += blockDim.x) {
       const int t = idx / nn, j = idx % nn;
-      const float d = rnd<T>(acc[t * lda + j]);
-      X[t * ldx + n0 + j] = from_f<T>(d);
+      X[t * ldx + n0 + j] = from_f<T>(acc[t * lda + j]);
       if (p.dmod_part)
-        p.dmod_part[(size_t)w * 64 * C + t * C + n0 + j] = d;
+        p.dmod_part[(size_t)w * 64 * C + t * C + n0 + j] = acc[t * lda + j];
+    }
+    for (int j = tid; dln && j < nn; j += blockDim.x) {
+      float ss = 0.f, sb = 0.f;
+      for (int t = 0; t < 64; ++t) {
+        const float dn = acc[t * lda + j];
+        const float xh =
+            (to_f<T>(p.x[(size_t)pix[t] * C + n0 + j]) - stats[2 * t]) *
+            stats[2 * t + 1];
+        ss = fmaf(dn, xh, ss);
+        sb += dn;
+      }
+      dln[n0 + j] = ss;
+      dln[C + n0 + j] = sb;
     }
     __syncthreads();
   }
@@ -269,21 +368,6 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
       if (p.residual) d = rnd<T>(d) + to_f<T>(p.g[at + c]);
       p.dx[at + c] = from_f<T>(d);
     }
-  }
-  if (!p.has_ln) return;
-  __syncthreads();
-  for (int c = tid; c < C; c += blockDim.x) {
-    float ss = 0.f, sb = 0.f;
-    for (int t = 0; t < 64; ++t) {
-      const float dn = to_f<T>(X[t * ldx + c]);
-      const float xh =
-          (to_f<T>(p.x[(size_t)pix[t] * C + c]) - stats[2 * t]) *
-          stats[2 * t + 1];
-      ss = fmaf(dn, xh, ss);
-      sb += dn;
-    }
-    p.dln_part[(size_t)w * 2 * C + c] = ss;
-    p.dln_part[(size_t)w * 2 * C + C + c] = sb;
   }
 }
 

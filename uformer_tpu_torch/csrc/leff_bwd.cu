@@ -309,17 +309,19 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  // LayerNorm VJP, one warp per pixel; acc keeps the rounded dLN
+  // LayerNorm VJP, one warp per pixel, on dLN rounded to T as the plain
+  // path rounds it; acc keeps the fp32 dLN, which dln_s and dln_b sum, as
+  // the TPU kernel sums its fp32 product (leff.py:683-688): summed over
+  // every pixel, per-pixel rounding would add a random walk of roundings
   for (int o = warp; o < Mo; o += kWarps) {
     const size_t at = pix(o) * C;
-    float* row = acc + o * lda;
+    const float* row = acc + o * lda;
     float mean = 0.f, rstd = 1.f, s1 = 0.f, s2 = 0.f;
     if (p.has_ln) {
       mean = stats[2 * o];
       rstd = stats[2 * o + 1];
       for (int c = lane; c < C; c += 32) {
         const float dn = rnd<T>(row[c]);
-        row[c] = dn;
         const float xh = (to_f<T>(p.x[at + c]) - mean) * rstd;
         const float dxh = dn * p.ln_s[c];
         s1 += dxh;
@@ -332,7 +334,7 @@ __global__ void __launch_bounds__(kThreads)
       float d;
       if (p.has_ln) {
         const float xh = (to_f<T>(p.x[at + c]) - mean) * rstd;
-        d = rstd * (row[c] * p.ln_s[c] - s1 - xh * s2);
+        d = rstd * (rnd<T>(row[c]) * p.ln_s[c] - s1 - xh * s2);
       } else {
         d = rnd<T>(row[c]);
       }

@@ -32,10 +32,12 @@ with `fused=False`: the q/k/v projection (three `SepConv2d` through the
 depthwise kernel, or the linear one) and the plain window attention with
 the shift mask and the input-mask bias. A cross-modulator block first
 adds its cross-attention over all H*W tokens (`layers.py:722-738`). Then
-one LeFF kernel, or the plain `Mlp`. The attention-image and LeFF kernels
-are differentiated by their backward kernels; the windowed branch and the
-depthwise kernel have none (`train.train_step` refuses such a model on
-the card). In training a block with a drop-path rate above 0 runs its
+one LeFF kernel, or the plain `Mlp`. The attention-image, attention-block
+and LeFF kernels are differentiated by their backward kernels (window 8,
+head dim 16 or 32); `Mlp` and the cross-modulator's attention are plain
+PyTorch under autograd, as in JAX. The depthwise kernel has no backward,
+in JAX either (`train.train_step` refuses a conv-projection model on the
+card). In training a block with a drop-path rate above 0 runs its
 kernels without the residual and adds x + DropPath(y) outside
 (`layers.py:780-794`, `:860-871`). The convs around the stages stay
 cuDNN (`F.conv2d`).
@@ -53,7 +55,6 @@ from torch import nn
 from uformer_tpu_torch.device import to_device_async
 from uformer_tpu_torch.ops.attention import window_attention
 from uformer_tpu_torch.ops.kernels import (
-    BACKWARD_NOT_PORTED,
     DWCONV_BACKWARD_NOT_PORTED,
     STAGE_KEYS,
     attention_block_ad,
@@ -67,6 +68,7 @@ from uformer_tpu_torch.ops.kernels import (
     leff_reference,
     stage_reference,
 )
+from uformer_tpu_torch.ops.kernels.window_attention import HEAD_DIMS
 from uformer_tpu_torch.ops.masks import input_mask_bias, shift_mask_on
 from uformer_tpu_torch.ops.norm import layer_norm
 from uformer_tpu_torch.ops.relpos import relative_position_index
@@ -79,10 +81,10 @@ from uformer_tpu_torch.ops.window import (
 
 Params = Dict[str, torch.Tensor]
 LEFF_MLPS = ("leff", "fastleff")  # fastleff: the same function and keys
-UNFUSED_NOT_ON_KERNEL_PATH = (
-    "the train step's kernel path covers linear-projection LeFF blocks "
-    "without a cross-modulator; Mlp and cross-modulator blocks train on the "
-    "plain path only (ROADMAP.md, port queue 1 item 8)")
+GEOMETRY_NOT_ON_KERNEL_PATH = (
+    f"the attention kernels take window 8 and head dim in {HEAD_DIMS}; "
+    f"other windows and head dims train on the plain path only (ROADMAP.md, "
+    f"port queue 2, next slice 1: win != 8)")
 
 
 class _Prepared:
@@ -416,14 +418,15 @@ class LeWinBlock(_Prepared, nn.Module):
     @property
     def backward_gap(self) -> Optional[str]:
         """Why the train step's kernel path cannot differentiate this
-        block, or None: the attention backward kernel covers the image
-        route at head dim 32, with LeFF and no cross-modulator."""
+        block, or None. The attention backward kernels cover the image
+        route and the windowed branch at window 8 and head dim 16 or 32;
+        Mlp and the cross-modulator's attention are plain PyTorch. Conv
+        projection runs the depthwise kernel, which has no backward."""
         if self.attn.token_projection == "conv":
             return DWCONV_BACKWARD_NOT_PORTED
-        if self.token_mlp not in LEFF_MLPS or self.cross_attn is not None:
-            return UNFUSED_NOT_ON_KERNEL_PATH
-        if not (self.image_route and self.dim == 32 * self.num_heads):
-            return BACKWARD_NOT_PORTED
+        if self.win_size != 8 or self.dim % self.num_heads \
+                or self.dim // self.num_heads not in HEAD_DIMS:
+            return GEOMETRY_NOT_ON_KERNEL_PATH
         return None
 
     def kernel_params(self, dtype: torch.dtype) -> Params:

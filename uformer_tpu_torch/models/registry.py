@@ -37,7 +37,7 @@ def arch_config(opt: Dict[str, Any]) -> Dict[str, Any]:
             raise NotImplementedError(
                 f"Uformer at embed_dim {embed}, win_size {win} is not ported "
                 f"yet (embed_dim 16 or 32 and win_size 8 are): ROADMAP.md, "
-                f"port queue 2, next slice 2 (win != 8)")
+                f"port queue 2, next slice 1 (win != 8)")
     elif arch == "Uformer_T":
         embed = 16
     elif arch == "Uformer_S_noshift":

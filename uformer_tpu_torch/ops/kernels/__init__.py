@@ -10,10 +10,11 @@ backward kernel (`*_bwd`).
 """
 
 from uformer_tpu_torch.ops.kernels.attention_block import (  # noqa: F401
-    BACKWARD_NOT_PORTED,
     attention_block_ad,
     attention_block_reference,
+    attention_block_vjp_reference,
     fused_attention_block,
+    fused_attention_block_bwd,
 )
 from uformer_tpu_torch.ops.kernels.dwconv import (  # noqa: F401
     DWCONV_BACKWARD_NOT_PORTED,
@@ -46,6 +47,7 @@ from uformer_tpu_torch.ops.kernels.window_attention import (  # noqa: F401
 
 WRAPPERS = {"stage": fused_stage, "attention_image": fused_attention_image,
             "leff": fused_leff, "attention_bwd": fused_attention_image_bwd,
+            "attention_block_bwd": fused_attention_block_bwd,
             "leff_bwd": fused_leff_bwd,
             "window_attention": fused_window_attention,
             "attention_block": fused_attention_block,

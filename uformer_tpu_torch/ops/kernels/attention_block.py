@@ -12,10 +12,12 @@ block, sized to C. `attention_block_reference` is the plain PyTorch
 version with the JAX reference's signature (`attention_block.py:345`),
 plus the spatial path's `w_off`.
 
-Its backward is a kernel only in the image layout at head dim 32
-(`attention_image.fused_attention_image_bwd`); the windowed backward
-raises on the card (`BACKWARD_NOT_PORTED`), and on the CPU it is the
-plain VJP.
+Its backward, `fused_attention_block_bwd`, is the port of
+`attention_block.py:fused_attention_block_bwd` in its own layout (kernel
+source `csrc/attention_block_bwd.cu`, body in
+`csrc/attention_window_bwd.cuh` with the identity token map), head dim 16
+or 32; `run_attention_bwd` allocates, launches and reduces for it and for
+the image layout's backward (`attention_image.fused_attention_image_bwd`).
 """
 
 from __future__ import annotations
@@ -27,17 +29,13 @@ import torch
 from uformer_tpu_torch.ops.attention import window_attention
 from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
+from uformer_tpu_torch.ops.kernels.wgrad import colsum, wgrad
 from uformer_tpu_torch.ops.kernels.window_attention import (
     check_head_dim,
     check_window,
     window_mask,
 )
 from uformer_tpu_torch.ops.norm import layer_norm
-
-BACKWARD_NOT_PORTED = (
-    "the attention backward kernel covers the image layout at head dim 32 "
-    "only; the windowed and head-dim-16 backward is not ported yet: "
-    "ROADMAP.md, port queue 2, next slice 1 (the Uformer_T train step)")
 
 
 def attention_block_reference(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo,
@@ -152,9 +150,126 @@ def attention_block_vjp_reference(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv,
                          has_ln, **kw)
 
 
+def run_attention_bwd(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
+                      *, num_heads, has_ln, windows, launch, what):
+    """The attention backward on the card: checks the weights, allocates
+    the per-token and per-window buffers of `windows` 8x8 windows, calls
+    launch(lib, is_bf16, *pointers) (a C entry taking x, g, mod, ln_s,
+    ln_b, wq, bq, wkv, bkv, wo, bias, dx, xm_w, dqkv_w, o_img, dbias_part,
+    dmod_part, dln_part, x_scratch, do_scratch in that order, then its own
+    geometry), then reduces the weight gradients over every token
+    (`csrc/wgrad.cu`). Returns the tuple of
+    `fused_attention_block_bwd`, weight grads float32."""
+    C = x.shape[-1]
+    dt, dev, f32 = x.dtype, x.device, torch.float32
+    if has_ln:
+        _launch.expect(ln_s, "ln_s", (C,), f32, dev)
+        _launch.expect(ln_b, "ln_b", (C,), f32, dev)
+    if mod is not None:
+        _launch.expect(mod, "mod", (64, C), dt, dev)
+    for name, t, shape, tdt in (
+            ("wq", wq, (C, C), dt), ("bq", bq, (C,), f32),
+            ("wkv", wkv, (C, 2 * C), dt), ("bkv", bkv, (2 * C,), f32),
+            ("wo", wo, (C, C), dt), ("bias", bias, (num_heads, 64, 64), f32)):
+        _launch.expect(t, name, shape, tdt, dev)
+    lib = load()
+    is_bf16 = int(dt == torch.bfloat16)
+    M = windows * 64
+
+    def empty(*shape, dtype=dt):
+        return torch.empty(*shape, dtype=dtype, device=dev)
+
+    need = lib.uf_attention_bwd_scratch(is_bf16, C, num_heads)
+    x_scr = empty(M, C) if need & 1 else None
+    do_scr = empty(M, C) if need & 2 else None
+    dx, o_tok = torch.empty_like(x), torch.empty_like(x)
+    xm_w, dqkv_w = empty(M, C), empty(M, 3 * C)
+    dbias_p = empty(windows, num_heads * 4096, dtype=f32)
+    dmod_p = empty(windows, 64 * C, dtype=f32) if mod is not None else None
+    dln_p = empty(windows, 2 * C, dtype=f32) if has_ln else None
+    with torch.cuda.device(dev):
+        err = launch(
+            lib, is_bf16, x.data_ptr(), g.data_ptr(), _launch.ptr(mod),
+            _launch.ptr(ln_s) if has_ln else None,
+            _launch.ptr(ln_b) if has_ln else None, wq.data_ptr(),
+            bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(), wo.data_ptr(),
+            bias.data_ptr(), dx.data_ptr(), xm_w.data_ptr(),
+            dqkv_w.data_ptr(), o_tok.data_ptr(), dbias_p.data_ptr(),
+            _launch.ptr(dmod_p), _launch.ptr(dln_p), _launch.ptr(x_scr),
+            _launch.ptr(do_scr))
+        _launch.check(err, what)
+        del x_scr, do_scr
+        dw = wgrad(xm_w, dqkv_w)           # (C, 3C) = [dwq | dwk | dwv]
+        db = colsum(dqkv_w)
+        del xm_w, dqkv_w
+        dwo = wgrad(o_tok.view(M, C), g.view(M, C))
+        dbo = colsum(g.view(M, C))
+        dbias = colsum(dbias_p).view(num_heads, 64, 64)
+        dmod = colsum(dmod_p).view(64, C) if mod is not None else None
+        dln = colsum(dln_p) if has_ln else None
+    return (dx, dmod, dln[:C] if has_ln else None,
+            dln[C:] if has_ln else None, dw[:, :C].contiguous(), db[:C],
+            dw[:, C:].contiguous(), db[C:], dwo, dbo, dbias)
+
+
+def fused_attention_block_bwd(x: torch.Tensor, g: torch.Tensor,
+                              mod: Optional[torch.Tensor],
+                              ln_s: Optional[torch.Tensor],
+                              ln_b: Optional[torch.Tensor], wq, bq, wkv, bkv,
+                              wo, bo, bias, *, win: int, shift: int, H: int,
+                              W: int, scale: float, num_heads: int,
+                              has_ln: bool = True, w_off: int = 0):
+    """VJP of the windowed attention block at g: (dx, dmod, dln_s, dln_b,
+    dwq, dbq, dwkv, dbkv, dwo, dbo, dbias), dx (Bw, 64, C) in x's dtype,
+    weight grads float32, None for an absent mod or LN (`uformer_tpu`
+    `attention_block.py:877`).
+
+    Kernel source `csrc/attention_block_bwd.cu`: one block per window
+    recomputes the forward and walks the VJP; the weight gradients are
+    then reduced over every token by `csrc/wgrad.cu`. Inputs as
+    `fused_attention_block` takes them. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernels (win 8, head dim 16 or 32,
+    w_off 0: the JAX kernel has no offset) or raises."""
+    kw = dict(win=win, shift=shift, H=H, W=W, scale=scale,
+              num_heads=num_heads, has_ln=has_ln, w_off=w_off)
+    if x.device.type == "cpu":
+        fused_attention_block_bwd.plain_calls += 1
+        return attention_block_vjp_reference(x, g, mod, ln_s, ln_b, wq, bq,
+                                             wkv, bkv, wo, bo, bias, **kw)
+    _launch.check_input(x, "(Bw, N, C)")
+    _launch.check_input(g, "(Bw, N, C)")
+    Bw, N, C = x.shape
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    check_window(win, shift, H, W)
+    check_head_dim(C, num_heads)
+    if N != 64 or w_off != 0:
+        raise ValueError(f"backward kernel needs N = 64 and w_off = 0: "
+                         f"N={N} w_off={w_off}")
+
+    def launch(lib, is_bf16, *ptrs):
+        return lib.uf_attention_block_bwd(
+            is_bf16, *ptrs, Bw, H, W, C, num_heads, shift, float(scale),
+            int(has_ln), _launch.stream(x))
+
+    out = run_attention_bwd(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
+                            bias, num_heads=num_heads, has_ln=has_ln,
+                            windows=Bw, launch=launch,
+                            what="attention_block_bwd kernel")
+    fused_attention_block_bwd.launches += 1
+    return out
+
+
+fused_attention_block_bwd.launches = 0
+fused_attention_block_bwd.plain_calls = 0
+
+
 class _AttentionBlock(torch.autograd.Function):
-    """fused_attention_block forward; the plain VJP on the CPU, and on the
-    card NotImplementedError (no plain version runs in its place)."""
+    """fused_attention_block forward; fused_attention_block_bwd backward.
+    Saves only the inputs and weights (`uformer_tpu`
+    `attention_block.py:1014-1015`); grads are cast to each input's dtype
+    (`attention_block.py:1024-1028`)."""
 
     @staticmethod
     def forward(ctx, x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias, kw):
@@ -167,10 +282,8 @@ class _AttentionBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
-        if g.device.type != "cpu":
-            raise NotImplementedError(BACKWARD_NOT_PORTED)
-        grads = attention_block_vjp_reference(saved[0], g, *saved[1:],
-                                              **ctx.kw)
+        grads = fused_attention_block_bwd(saved[0], g.contiguous(),
+                                          *saved[1:], **ctx.kw)
         return tuple(None if d is None or t is None else d.to(t.dtype)
                      for d, t in zip(grads, saved)) + (None,)
 
@@ -179,8 +292,8 @@ def attention_block_ad(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias,
                        *, win: int, shift: int, H: int, W: int, scale: float,
                        num_heads: int, has_ln: bool = True,
                        w_off: int = 0) -> torch.Tensor:
-    """Differentiable `fused_attention_block` (backward: see the module
-    note)."""
+    """Differentiable `fused_attention_block`: its backward is
+    `fused_attention_block_bwd`."""
     kw = dict(win=win, shift=shift, H=H, W=W, scale=scale,
               num_heads=num_heads, has_ln=has_ln, w_off=w_off)
     return _AttentionBlock.apply(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,

@@ -8,7 +8,8 @@ softmax and token gathers dominate at C = 32/64; the kernel runs one 8x8
 window per thread block with the whole working set in shared memory,
 reading and writing the NHWC image once. `attention_image_reference` is
 the plain PyTorch version with the JAX reference's signature
-(`attention_image.py:432`). The backward kernel takes head dim 32 only.
+(`attention_image.py:432`). Its backward, `fused_attention_image_bwd`
+(kernel source `csrc/attention_bwd.cu`), takes head dim 16 or 32 too.
 """
 
 from __future__ import annotations
@@ -20,11 +21,10 @@ import torch
 from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.kernels.attention_block import (
-    BACKWARD_NOT_PORTED,
     attention_block_reference,
+    run_attention_bwd,
     vjp_reference,
 )
-from uformer_tpu_torch.ops.kernels.wgrad import colsum, wgrad
 from uformer_tpu_torch.ops.kernels.window_attention import (
     check_head_dim,
     check_window,
@@ -36,8 +36,6 @@ from uformer_tpu_torch.ops.window import (
     window_partition,
     window_reverse,
 )
-
-BWD_HEAD_DIM = 32  # the backward kernel's head width
 
 
 def attention_image_reference(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo,
@@ -147,9 +145,10 @@ def fused_attention_image_bwd(x: torch.Tensor, g: torch.Tensor,
     Kernel source `csrc/attention_bwd.cu`: one block per shifted window
     gathers x and g from the image, recomputes the forward and walks the
     VJP; the weight gradients are then reduced over every token by
-    `csrc/wgrad.cu`. Inputs as `fused_attention_image` takes them. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernels
-    (head dim 32) or raises: NotImplementedError at head dim 16."""
+    `csrc/wgrad.cu` (`attention_block.run_attention_bwd`). Inputs as
+    `fused_attention_image` takes them. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernels (win 8, head dim 16 or 32)
+    or raises."""
     kw = dict(win=win, shift=shift, scale=scale, num_heads=num_heads,
               has_ln=has_ln, residual=residual)
     if x.device.type == "cpu":
@@ -163,60 +162,18 @@ def fused_attention_image_bwd(x: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
                          f"{tuple(x.shape)} {x.dtype}")
     _check_geometry(x, win, shift, num_heads)
-    if C != BWD_HEAD_DIM * num_heads:
-        raise NotImplementedError(BACKWARD_NOT_PORTED)
-    dt, dev, f32 = x.dtype, x.device, torch.float32
-    if has_ln:
-        _launch.expect(ln_s, "ln_s", (C,), f32, dev)
-        _launch.expect(ln_b, "ln_b", (C,), f32, dev)
-    if mod is not None:
-        _launch.expect(mod, "mod", (64, C), dt, dev)
-    for name, t, shape, tdt in (
-            ("wq", wq, (C, C), dt), ("bq", bq, (C,), f32),
-            ("wkv", wkv, (C, 2 * C), dt), ("bkv", bkv, (2 * C,), f32),
-            ("wo", wo, (C, C), dt), ("bias", bias, (num_heads, 64, 64), f32)):
-        _launch.expect(t, name, shape, tdt, dev)
-    lib = load()
-    is_bf16 = int(dt == torch.bfloat16)
-    nwin = B * (H // 8) * (W // 8)
-    M = nwin * 64
 
-    def empty(*shape, dtype=dt):
-        return torch.empty(*shape, dtype=dtype, device=dev)
-
-    need = lib.uf_attention_bwd_scratch(is_bf16, C)
-    x_scr = empty(M, C) if need & 1 else None
-    do_scr = empty(M, C) if need & 2 else None
-    dx, o_img = torch.empty_like(x), torch.empty_like(x)
-    xm_w, dqkv_w = empty(M, C), empty(M, 3 * C)
-    dbias_p = empty(nwin, num_heads * 4096, dtype=f32)
-    dmod_p = empty(nwin, 64 * C, dtype=f32) if mod is not None else None
-    dln_p = empty(nwin, 2 * C, dtype=f32) if has_ln else None
-    with torch.cuda.device(dev):
-        err = lib.uf_attention_bwd(
-            is_bf16, x.data_ptr(), g.data_ptr(), _launch.ptr(mod),
-            _launch.ptr(ln_s) if has_ln else None,
-            _launch.ptr(ln_b) if has_ln else None, wq.data_ptr(),
-            bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(), wo.data_ptr(),
-            bias.data_ptr(), dx.data_ptr(), xm_w.data_ptr(),
-            dqkv_w.data_ptr(), o_img.data_ptr(), dbias_p.data_ptr(),
-            _launch.ptr(dmod_p), _launch.ptr(dln_p), _launch.ptr(x_scr),
-            _launch.ptr(do_scr), B, H, W, C, num_heads, shift, float(scale),
+    def launch(lib, is_bf16, *ptrs):
+        return lib.uf_attention_bwd(
+            is_bf16, *ptrs, B, H, W, C, num_heads, shift, float(scale),
             int(has_ln), int(residual), _launch.stream(x))
-        _launch.check(err, "attention_bwd kernel")
-        del x_scr, do_scr
-        dw = wgrad(xm_w, dqkv_w)           # (C, 3C) = [dwq | dwk | dwv]
-        db = colsum(dqkv_w)
-        del xm_w, dqkv_w
-        dwo = wgrad(o_img.view(M, C), g.view(M, C))
-        dbo = colsum(g.view(M, C))
-        dbias = colsum(dbias_p).view(num_heads, 64, 64)
-        dmod = colsum(dmod_p).view(64, C) if mod is not None else None
-        dln = colsum(dln_p) if has_ln else None
+
+    out = run_attention_bwd(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
+                            bias, num_heads=num_heads, has_ln=has_ln,
+                            windows=B * (H // 8) * (W // 8), launch=launch,
+                            what="attention_bwd kernel")
     fused_attention_image_bwd.launches += 1
-    return (dx, dmod, dln[:C] if has_ln else None,
-            dln[C:] if has_ln else None, dw[:, :C].contiguous(), db[:C],
-            dw[:, C:].contiguous(), db[C:], dwo, dbo, dbias)
+    return out
 
 
 fused_attention_image_bwd.launches = 0

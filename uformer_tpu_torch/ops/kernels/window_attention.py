@@ -24,7 +24,7 @@ from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.masks import shift_window_mask
 
-HEAD_DIMS = (16, 32)  # the forward kernels' head widths (WMMA is 16 wide)
+HEAD_DIMS = (16, 32)  # the kernels' head widths (WMMA is 16 wide)
 
 
 def check_window(win: int, shift: int, H: int, W: int) -> None:

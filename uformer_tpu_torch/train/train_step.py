@@ -7,8 +7,12 @@ Charbonnier loss; backward (through the backward kernels on the card);
 AdamW with weight decay on every parameter (the reference trainers never
 use the model's no-decay sets); optional global-norm clipping. MixUp runs
 once the epoch passes `mixup_after_epoch`. On the card the kernel path
-trains only models whose blocks the backward kernels cover; the step
-refuses any other before it runs.
+trains every linear-projection model at window 8 and head dim 16 or 32
+(Uformer_B, Uformer_T and the rest of the registry; LeFF or Mlp, with or
+without a cross-modulator): the attention-image, attention-block and
+LeFF kernels and their backward kernels. It refuses any other model
+(conv projection, other windows or head dims) before the step runs; no
+plain version stands in on the card.
 """
 
 from __future__ import annotations
@@ -64,9 +68,9 @@ def make_optimizer(params: Iterable[torch.Tensor], lr_schedule: Schedule,
 
 
 def blocks_without_backward_kernel(model: nn.Module) -> List[str]:
-    """Names of the blocks the backward kernels do not cover (the windowed
-    branch, head dim 16, conv projection, Mlp or a cross-modulator; the
-    block's `backward_gap` says why)."""
+    """Names of the blocks the backward kernels do not cover (conv
+    projection, a window other than 8 or a head dim other than 16 or 32;
+    the block's `backward_gap` says why)."""
     return [name for name, m in model.named_modules()
             if isinstance(m, LeWinBlock) and m.backward_gap is not None]
 
@@ -87,8 +91,10 @@ def make_train_step(model: nn.Module, loss_fn: Callable = charbonnier_loss,
     device. `generator` draws the MixUp and DropPath randomness. plain=True
     runs the kernels' plain versions under torch autograd (the comparison
     path). After the step each parameter's `.grad` holds its gradient.
-    On the card the kernel path raises NotImplementedError before the
-    step for a model with blocks in `blocks_without_backward_kernel`."""
+    On the card the kernel path runs every attention and LeFF sub-block
+    forward and backward through the kernels, and raises
+    NotImplementedError before the step for a model with blocks in
+    `blocks_without_backward_kernel`."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> torch.Tensor:
