@@ -17,7 +17,13 @@ Phases, each raising on failure (no phase is caught):
                stage's heads and shifts; kernels 4 and 5 also at one
                Uformer_B (head dim 32) geometry; the depthwise kernel at
                every serve B-conv stage's (Bw, 8, 8, C) windows, 4 x 4
-               windows, a whole image, an odd C without bias and C = 8.
+               windows, a whole image, an odd C without bias and C = 8;
+               then the tensor-core tiles' own shapes: the building block
+               (mma.sync, cp.async ring) against torch.matmul, LeFF at
+               every C 16-512 on an 8 x 8 image, non-square and
+               partial-tile images and 64 x 64 at C = 32, the stage at
+               C = 512 with 16 heads on 8 x 8 and at C = 256 with shift
+               on 16 x 16.
   4. golden  - Uformer_B at 128^2, fp32, through the kernels, stage by stage
                against the recorded torch activations of
                tests/golden/uformer_b_128.npz; then the conv-projection,
@@ -28,7 +34,8 @@ Phases, each raising on failure (no phase is caught):
                batch 8; launch counts per request, ms per request, MP/s,
                peak memory; the kernel path against the plain path.
   6. timing  - each kernel against its plain version at the bs8 256^2
-               shapes, stage by stage, and the whole forward.
+               shapes, stage by stage (ms, plain ms, bound, TFLOP/s and
+               share of the bound), and the whole forward.
   7. serve T - the same for Uformer_T (seeded numpy weights over the port's
                own parameter names): 4 requests of batch 8 at 256^2.
   8. timing T - as 6 for Uformer_T, and the window-attention core alone at
@@ -86,6 +93,7 @@ import argparse
 import copy
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
@@ -158,6 +166,22 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "dwconv3x3": ("uformer_tpu_torch/csrc/dwconv.cu",
                   "uformer_tpu/ops/pallas/dwconv.py:52"),
 }
+# the tensor-core tiles' own shapes (csrc/leff_mma.cuh): (M, N, K, n8
+# tiles a warp takes) of the building block; LeFF images (B, H, W, C);
+# stages (B, C, nH, res, n, use_shift, has_mod): the conv stage's 8 x 8
+# at C = 512, shift at C = 256, then batches at which the host picks
+# 16-row LeFF tiles and 2 or 4 windows per attention item
+TILE_BLOCK_SHAPES = [(112, 64, 512, 4), (64, 512, 64, 4), (192, 64, 64, 4),
+                     (128, 32, 64, 2), (128, 16, 64, 1), (100, 32, 128, 2)]
+TILE_LEFF_SHAPES = ([(2, 8, 8, C) for C in (16, 32, 64, 128, 256, 512)]
+                    + [(1, 16, 24, C) for C in (16, 32, 64, 128, 256, 512)]
+                    + [(1, 24, 40, C) for C in (16, 32, 64, 128, 256, 512)]
+                    + [(2, 64, 64, 32), (4, 64, 64, 128), (4, 64, 64, 256)])
+TILE_STAGE_SHAPES = [(BATCH_CHECK, 512, 16, 8, 2, False, True),
+                     (BATCH_CHECK, 256, 8, 16, 2, True, True),
+                     (4, 256, 8, 64, 2, True, True),
+                     (4, 128, 4, 64, 2, True, False),
+                     (8, 128, 8, 64, 2, True, True)]
 STAGES = (["input_proj"] + [f"encoderlayer_{k}" for k in range(4)]
           + [f"dowsample_{k}" for k in range(4)] + ["conv"]
           + [f"upsample_{k}" for k in range(4)]
@@ -255,6 +279,34 @@ def bwd_cost(fwd, tokens, C, s=2):
     flops, nbytes = fwd
     weights = nbytes - 2 * tokens * C * s
     return 2 * flops, 3 * tokens * C * s + 3 * weights
+
+
+def ptxas_report(text: str) -> list:
+    """[name, registers (None for a device function), spill store bytes,
+    spill load bytes] of each function in `nvcc -Xptxas -v` output."""
+    rows, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            rows.append([name, None, int(m[1]), int(m[2])])
+            name = None
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and rows[-1][1] is None:
+            rows[-1][1] = int(m[1])
+    return rows
+
+
+def rate(cost, k_ms: float, b_ms: float) -> str:
+    """TFLOP/s of a call of `cost` = (operations, bytes) taking k_ms, and
+    its bound b_ms as a share of k_ms."""
+    return (f"{cost[0] / (k_ms * 1e-3) / 1e12:7.2f} TFLOP/s, "
+            f"{100.0 * b_ms / k_ms:5.1f}% of bound")
 
 
 def tally(totals: dict, kernel: str, k_ms: float, p_ms: float, cost,
@@ -552,6 +604,77 @@ def dwconv_phase(model, device) -> Checks:
     return checks
 
 
+@torch.no_grad()
+def tile_phase(device) -> Checks:
+    """The tensor-core tiles at their own shapes (TILE_*_SHAPES) on random
+    weights (matrices N(0, 1 / fan-in)): the building block against
+    torch.matmul on the same bf16 values (fp32, TF32 off: the products are
+    exact, only the order of the sums differs); LeFF and the stage kernel
+    against their plain versions in fp32 and bf16."""
+    from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.ops.kernels.mma import block_product
+
+    checks = Checks()
+    gen = torch.Generator(device="cpu").manual_seed(11)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen) * scale).to(device, dtype)
+
+    for M, N, Kd, nt in TILE_BLOCK_SHAPES:
+        a = rnd(M, Kd, dtype=torch.bfloat16)
+        b = rnd(Kd, N, dtype=torch.bfloat16)
+        ref = torch.matmul(a.float(), b.float())
+        checks.add("block_product", f"({M}, {Kd}) @ ({Kd}, {N}) nt={nt}",
+                   max_err(block_product(a, b, nt), ref),
+                   1e-4 * (1.0 + float(ref.abs().max())), "fp32")
+    for shape in TILE_LEFF_SHAPES:
+        C = shape[-1]
+        Ch = 4 * C
+        w = dict(w1=rnd(C, Ch, scale=C ** -0.5), b1=rnd(Ch, scale=0.1),
+                 wd=rnd(3, 3, Ch, scale=1 / 3), bd=rnd(Ch, scale=0.1),
+                 w2=rnd(Ch, C, scale=Ch ** -0.5), b2=rnd(C, scale=0.1))
+        w = {k: v.bfloat16().float() for k, v in w.items()}
+        ln = dict(ln_s=1.0 + rnd(C, scale=0.1), ln_b=rnd(C, scale=0.1))
+        ws = {dt: {k: v.to(dt) if k in ("w1", "wd", "w2") else v
+                   for k, v in w.items()}
+              for dt in (torch.float32, torch.bfloat16)}
+        x32 = rnd(*shape).bfloat16().float()
+
+        def leff(fn, ws=ws, ln=ln):
+            return lambda x, dt: fn(x, *(ws[dt][k] for k in (
+                "w1", "b1", "wd", "bd", "w2", "b2")), residual=True, **ln)
+
+        compare(checks, "leff", f"tile {shape}", leff(K.fused_leff),
+                leff(K.leff_reference), x32)
+    for B, C, nH, res, n, use_shift, has_mod in TILE_STAGE_SHAPES:
+        Ch = 4 * C
+        p = dict(ln1_s=1.0 + rnd(n, C, scale=0.1), ln1_b=rnd(n, C, scale=0.1),
+                 wq=rnd(n, C, C, scale=C ** -0.5), bq=rnd(n, C, scale=0.1),
+                 wk=rnd(n, C, C, scale=C ** -0.5), bk=rnd(n, C, scale=0.1),
+                 wv=rnd(n, C, C, scale=C ** -0.5), bv=rnd(n, C, scale=0.1),
+                 wo=rnd(n, C, C, scale=C ** -0.5), bo=rnd(n, C, scale=0.1),
+                 bias=rnd(n, nH, 64, 64, scale=0.5),
+                 mod=rnd(n, 64, C, scale=0.1),
+                 ln2_s=1.0 + rnd(n, C, scale=0.1), ln2_b=rnd(n, C, scale=0.1),
+                 w1=rnd(n, C, Ch, scale=C ** -0.5), b1=rnd(n, Ch, scale=0.1),
+                 wd=rnd(n, 3, 3, Ch, scale=1 / 3), bd=rnd(n, Ch, scale=0.1),
+                 w2=rnd(n, Ch, C, scale=Ch ** -0.5), b2=rnd(n, C, scale=0.1))
+        low = ("wq", "wk", "wv", "wo", "mod", "w1", "wd", "w2")
+        p = {k: v.bfloat16().float() if k in low else v for k, v in p.items()}
+        prm = {dt: {k: v.to(dt) if k in low else v for k, v in p.items()}
+               for dt in (torch.float32, torch.bfloat16)}
+        kw = dict(scale=(C // nH) ** -0.5, num_heads=nH, use_shift=use_shift,
+                  has_mod=has_mod)
+        x32 = rnd(B, res, res, C).bfloat16().float()
+        compare(checks, "stage", f"tile B={B} C={C} nH={nH} {res}^2 n={n} "
+                f"shift={int(use_shift)}",
+                lambda x, dt, prm=prm, kw=kw: K.fused_stage(x, prm[dt], **kw),
+                lambda x, dt, prm=prm, kw=kw: K.stage_reference(x, prm[dt],
+                                                                **kw), x32)
+    torch.cuda.synchronize()
+    return checks
+
+
 def to_nhwc(a: np.ndarray) -> np.ndarray:
     """Torch activation -> NHWC: (B, L, C) tokens via sqrt(L), (B, C, H, W)
     maps by transpose (as tests/test_golden_parity.py)."""
@@ -782,11 +905,13 @@ def timing_phase(restorer, x):
                 b_ms = tally(totals, kernel, k_ms, p_ms, cost)
                 rows.append({"layer": name, "kernel": kernel,
                              "shape": list(inputs[name].shape),
-                             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms})
+                             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                             "tflops": cost[0] / (k_ms * 1e-3) / 1e12})
                 print(f"  {name:16s} {kernel:16s} "
                       f"{str(tuple(inputs[name].shape)):22s} kernel "
                       f"{k_ms:8.3f} ms  plain {p_ms:8.3f} ms  bound "
-                      f"{b_ms:7.4f} ms", flush=True)
+                      f"{b_ms:7.4f} ms  {rate(cost, k_ms, b_ms)}",
+                      flush=True)
         p1 = cuda_ms(lambda: model(x, plain=True), reps=5)
         k1 = cuda_ms(lambda: model(x), reps=5)
         k2 = cuda_ms(lambda: model(x), reps=5)
@@ -1318,11 +1443,13 @@ def train_kernel_timing(model, device):
                 rows.append({"layer": name, "shift": shift, "blocks": n,
                              "kernel": kernel, "shape": list(shape),
                              "ms": k_ms, "plain_ms": p_ms,
-                             "bound_ms": b_ms / n})
+                             "bound_ms": b_ms / n,
+                             "tflops": (costs[kernel][0] / (k_ms * 1e-3)
+                                        / 1e12)})
                 print(f"  {name:16s} s{shift} x{n} {kernel:19s} "
                       f"{str(shape):22s} kernel {k_ms:8.3f} ms  plain "
-                      f"{p_ms:8.3f} ms  bound {b_ms / n:7.4f} ms",
-                      flush=True)
+                      f"{p_ms:8.3f} ms  bound {b_ms / n:7.4f} ms  "
+                      f"{rate(costs[kernel], k_ms, b_ms / n)}", flush=True)
     for kernel, t in totals.items():
         print(f"  {kernel:19s} per step: {t['launches']} launches, kernel "
               f"{t['ms']:8.3f} ms, plain {t['plain_ms']:8.3f} ms, bound "
@@ -1413,9 +1540,11 @@ def run(device, card: str, json_path) -> list:
     _build.load()
     build_s = time.perf_counter() - t0
     log = (_build.BUILD_DIR / "build.log")
-    for line in log.read_text().splitlines() if log.exists() else []:
-        if "registers" in line or "spill" in line.lower():
-            print(f"  {line.strip()}")
+    ptxas = ptxas_report(log.read_text() if log.exists() else "")
+    for name, regs, stores, loads in ptxas:
+        print(f"  {regs if regs is not None else '-':>3} registers, "
+              f"{stores:4d} B spill stores, {loads:4d} B spill loads  "
+              f"{name[:90]}")
     print(f"  built {_build.library_path().name} in {build_s:.1f} s",
           flush=True)
 
@@ -1434,6 +1563,8 @@ def run(device, card: str, json_path) -> list:
     dw_checks = dwconv_phase(model_bc, device)
     dw_checks.raise_if_failed("kernels dwconv3x3")
     del model_bc
+    tile_checks = tile_phase(device)
+    tile_checks.raise_if_failed("kernels tensor-core tiles")
 
     phase("golden")
     gchecks = golden_phase(data, sd, device)
@@ -1496,7 +1627,9 @@ def run(device, card: str, json_path) -> list:
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "kernel_checks": kchecks.rows + t_kchecks.rows + dw_checks.rows,
+              "ptxas": ptxas,
+              "kernel_checks": (kchecks.rows + t_kchecks.rows + dw_checks.rows
+                                + tile_checks.rows),
               "golden_checks": gchecks.rows + gcchecks.rows,
               "serve_checks": schecks.rows + t_schecks.rows + bc_schecks.rows,
               "serve": serve,
@@ -1530,7 +1663,8 @@ def run(device, card: str, json_path) -> list:
               {"window_attention": core})]
     for name, (source, replaces) in KERNELS.items():
         rows_of = [r for r in kchecks.rows + t_kchecks.rows + tkchecks.rows
-                   + ttkchecks.rows + dw_checks.rows if r["kernel"] == name]
+                   + ttkchecks.rows + dw_checks.rows + tile_checks.rows
+                   if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
         # the first timing that has the kernel gives ms and its bound

@@ -1,0 +1,249 @@
+// The LeWin attention sub-block in bf16 on the tensor-core building block
+// (mma_tile.cuh), for the stage kernel at C 128, 256 and 512:
+//
+//   y = x + tokens^-1(proj(W-MSA(LN1(tokens(x)) + mod)))
+//
+// One work item is WN windows (M = 64 WN tokens, WN C <= 512), so that
+// each weight tile copied into shared memory serves WN windows; the host
+// picks WN from the number of windows and SMs. Per head h:
+//   q, k, v (M x D each) = xm . W[:, hD:hD+D], three passes with register
+//     accumulators, + bias (q times the scale), bf16 into shared memory;
+//   the window core (window_core.cuh) per window, rounded to bf16 into
+//     O_h (M x D);
+//   acc += O_h . wo[hD:hD+D, :]: the output projection's M x C fp32
+//     accumulator (M C / 512 registers a thread) stays in registers over
+//     all heads.
+// The weights stream as one sequence of tiles (KQ x D of wq, wk, wv, then
+// D x C of wo, per head) through a ring of cp.async slots, the next tiles
+// in flight while the current one is multiplied. The token map is
+// attention_window's (shift, partition, reverse and unshift cost nothing);
+// the roundings are its: LN output, + mod, q (after the scale), k, v, P,
+// O, then rnd(acc + bo) + x. Only the order of the fp32 sums differs.
+#pragma once
+
+#include "attention_window.cuh"
+#include "mma_tile.cuh"
+
+namespace uf {
+
+// Whether attn_wide_item has a layout for (C, D).
+__host__ __device__ constexpr bool attn_wide_fits(int C, int D) {
+  return (C == 128 || C == 256 || C == 512) && (D == 16 || D == 32);
+}
+
+template <int C, int D, int WN>
+struct AttnWide {
+  static_assert(attn_wide_fits(C, D) && WN * C <= 512 && 512 % (WN * C) == 0,
+                "no wide attention layout");
+  static constexpr int M = 64 * WN;
+  static constexpr int KQ = C < 8192 / D ? C : 8192 / D;  // rows of a tile
+  static constexpr int NQ = C / KQ;         // tiles of one of q, k, v
+  static constexpr int TPH = 3 * NQ + 1;    // tiles per head
+  static constexpr int ldx = C + 8, ldq = D + 8, ldp = 72, lda = 68;
+  static constexpr int ldwq = D + 8, ldwo = C + 8;
+  // q/k/v pass: warp w < NPW takes m16 tile w / NG and NT n8 tiles of the
+  // head, in groups of NTG when one tile holds all of K
+  static constexpr int NT = M * D >= 2048 ? M * D / 2048 : 1;
+  static constexpr int NG = D / 8 / NT, NPW = M / 16 * NG;
+  static constexpr int NTG = NQ == 1 && NT > 2 ? 2 : NT;
+  // output projection: warp w takes MT2 m16 tiles x 32 columns
+  static constexpr int NCG = C / 32, MT2 = M * C / 8192;
+  static constexpr int kStages = 3;
+  static constexpr size_t kSlot = align128(
+      2 * (KQ * ldwq > D * ldwo ? KQ * ldwq : D * ldwo));
+  static constexpr size_t xm = 0;
+  static constexpr size_t qkv = xm + align128(2 * M * ldx);  // q, k, v
+  static constexpr size_t kQKV = align128(2 * M * ldq);
+  static constexpr size_t o = qkv + 3 * kQKV;
+  static constexpr size_t p = o + kQKV;
+  static constexpr size_t acc = p + align128(2 * 64 * ldp);
+  static constexpr size_t pix = acc + align128(4 * 64 * lda);
+  static constexpr size_t rid = pix + align128(4 * M);
+  static constexpr size_t ring = rid + align128(4 * M);
+  static constexpr size_t total = ring + kStages * kSlot;
+  static_assert(total <= kSmemLimit, "wide attention exceeds shared memory");
+};
+
+// Work item `item`: windows item WN .. item WN + WN - 1 of the image's
+// (B, H / 8, W / 8) windows (those past the last are skipped). All
+// kThreads threads call it; p.windows == 0, p.residual == 1.
+template <int C, int D, int WN>
+__device__ void attn_wide_item(const AttnParams<bf16>& p, int item,
+                               unsigned char* smem) {
+  using L = AttnWide<C, D, WN>;
+  constexpr int S = L::kStages, M = L::M, KQ = L::KQ, NQ = L::NQ,
+                TPH = L::TPH, ldx = L::ldx, ldq = L::ldq;
+  const int H = p.H, W = p.W, nH = p.nH, sh = p.shift;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int nWw = W / 8, nW = (H / 8) * nWw, n_win = p.B * nW;
+  const int w0 = item * WN;
+  const int nvalid = min(WN, n_win - w0);
+  bf16* xm = reinterpret_cast<bf16*>(smem + L::xm);
+  bf16* qkv = reinterpret_cast<bf16*>(smem + L::qkv);
+  bf16* O = reinterpret_cast<bf16*>(smem + L::o);
+  bf16* P = reinterpret_cast<bf16*>(smem + L::p);
+  float* accs = reinterpret_cast<float*>(smem + L::acc);
+  int* pix = reinterpret_cast<int*>(smem + L::pix);
+  int* rid = reinterpret_cast<int*>(smem + L::rid);
+  unsigned char* ring = smem + L::ring;
+  const int T = nH * TPH;
+
+  // tile q: head q / TPH; s < 3 NQ: rows [KQ (s % NQ), +KQ) x the head's D
+  // columns of wq, wk, wv (s / NQ); else rows [hD, +D) x C of wo
+  auto load_tile = [&](int q) {
+    bf16* dst = reinterpret_cast<bf16*>(ring + (q % S) * L::kSlot);
+    const int h = q / TPH, s = q % TPH;
+    if (s < 3 * NQ) {
+      const int pass = s / NQ, r0 = (s % NQ) * KQ;
+      const bf16* src = pass == 0 ? p.wq : pass == 1 ? p.wk : p.wv;
+      const int ld = pass == 0 ? C : p.ldkv;
+      constexpr int vpr = D / 8;
+      for (int i = tid; i < KQ * vpr; i += kThreads) {
+        const int r = i / vpr, v = i % vpr;
+        cp_async16(dst + r * L::ldwq + v * 8,
+                   src + (size_t)(r0 + r) * ld + h * D + v * 8);
+      }
+    } else {
+      constexpr int vpr = C / 8;
+      for (int i = tid; i < D * vpr; i += kThreads) {
+        const int r = i / vpr, v = i % vpr;
+        cp_async16(dst + r * L::ldwo + v * 8,
+                   p.wo + (size_t)(h * D + r) * C + v * 8);
+      }
+    }
+  };
+  for (int q = 0; q < S - 1; ++q) {
+    if (q < T) load_tile(q);
+    cp_async_commit();
+  }
+
+  // the token map of WN windows, then the gather and LN1 + mod
+  for (int i = tid; i < M; i += kThreads) {
+    const int wi = w0 + i / 64, t = i % 64;
+    int at = -1, r = 0;
+    if (wi < n_win) {
+      const int b = wi / nW, wl = wi % nW;
+      const int gr = (wl / nWw) * 8 + t / 8, gc = (wl % nWw) * 8 + t % 8;
+      at = (b * H + (gr + sh) % H) * W + (gc + sh) % W;
+      r = window_region(wl, t, H, W, sh);
+    }
+    pix[i] = at;
+    rid[i] = r;
+  }
+  __syncthreads();
+  constexpr int vpr = C / 8;
+  for (int idx = tid; idx < M * vpr; idx += kThreads) {
+    const int i = idx / vpr, v = idx % vpr;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (pix[i] >= 0)
+      val = *reinterpret_cast<const uint4*>(p.x + (size_t)pix[i] * C + v * 8);
+    *reinterpret_cast<uint4*>(xm + i * ldx + v * 8) = val;
+  }
+  __syncthreads();
+  for (int i = warp; i < M; i += kWarps)
+    if (pix[i] >= 0)
+      ln_row<bf16>(xm + i * ldx, C, p.ln_s, p.ln_b, p.has_ln,
+                   p.mod ? p.mod + (i % 64) * C : nullptr);
+  // (the first iteration's barrier orders xm before the products)
+
+  float acco[L::MT2][4][4];
+  zero_acc(acco);
+  float accp[1][L::NTG][4];
+  const bool pw = warp < L::NPW;
+  const int mt = warp / L::NG, nq = (warp % L::NG) * L::NT * 8;
+  const int row0 = (warp / L::NCG) * 16 * L::MT2, col0 = (warp % L::NCG) * 32;
+  // + bias (q: times the scale), bf16 into q, k or v: accp's n8 tiles
+  // from column nq + 8 n0
+  auto pass_out = [&](int pass, int h, int n0) {
+    const float* bias = (pass == 0 ? p.bq : pass == 1 ? p.bk : p.bv) + h * D;
+    const float scale = pass == 0 ? p.scale : 1.0f;
+    bf16* dst = qkv + pass * (L::kQKV / 2);
+#pragma unroll
+    for (int n = 0; n < L::NTG; ++n) {
+      const int col = nq + (n0 + n) * 8 + 2 * t4;
+      const float bb0 = bias[col], bb1 = bias[col + 1];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = mt * 16 + gq + 8 * hh;
+        *reinterpret_cast<uint32_t*>(dst + row * ldq + col) =
+            pack_bf16((accp[0][n][2 * hh] + bb0) * scale,
+                      (accp[0][n][2 * hh + 1] + bb1) * scale);
+      }
+    }
+  };
+  for (int q = 0; q < T; ++q) {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    // the slot of tile q - 1, which every thread has finished with
+    if (q + S - 1 < T) load_tile(q + S - 1);
+    cp_async_commit();
+    const bf16* wt = reinterpret_cast<const bf16*>(ring + (q % S) * L::kSlot);
+    const int h = q / TPH, s = q % TPH;
+    if (s == 3 * NQ) {
+      warp_mma<L::MT2, 4, D / 16>(acco, O + row0 * ldq, ldq, wt + col0,
+                                  L::ldwo);
+      continue;
+    }
+    const int pass = s / NQ, kt = s % NQ;
+    if (pw) {
+      if constexpr (NQ == 1) {
+#pragma unroll
+        for (int n0 = 0; n0 < L::NT; n0 += L::NTG) {
+          zero_acc(accp);
+          warp_mma<1, L::NTG, KQ / 16>(accp, xm + mt * 16 * ldx, ldx,
+                                       wt + nq + n0 * 8, L::ldwq);
+          pass_out(pass, h, n0);
+        }
+      } else {
+        if (kt == 0) zero_acc(accp);
+        warp_mma<1, L::NT, KQ / 16>(accp, xm + mt * 16 * ldx + kt * KQ, ldx,
+                                    wt + nq, L::ldwq);
+        if (kt == NQ - 1) pass_out(pass, h, 0);
+      }
+    }
+    if (pass < 2 || kt < NQ - 1) continue;
+    __syncthreads();
+    // the window core of each window into O_h
+    const bf16* qs = qkv;
+    const bf16* ks = qkv + L::kQKV / 2;
+    const bf16* vs = qkv + L::kQKV;
+    for (int w = 0; w < nvalid; ++w) {
+      window_core<bf16, D, kWarps>(qs + w * 64 * ldq, ks + w * 64 * ldq,
+                                   vs + w * 64 * ldq, ldq,
+                                   p.bias + (size_t)h * 4096,
+                                   sh ? rid + w * 64 : nullptr, 1.0f, P,
+                                   L::ldp, accs, L::lda);
+      for (int idx = tid; idx < 64 * D; idx += kThreads) {
+        const int t = idx / D, d = idx % D;
+        O[(w * 64 + t) * ldq + d] = from_f<bf16>(accs[t * L::lda + d]);
+      }
+      __syncthreads();
+    }
+  }
+
+  // + bo, rounded, + x, scattered back through the token map
+#pragma unroll
+  for (int mi = 0; mi < L::MT2; ++mi)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = row0 + mi * 16 + gq + 8 * hh;
+        const int col = col0 + n * 8 + 2 * t4;
+        if (pix[row] >= 0) {
+          const size_t at = (size_t)pix[row] * C + col;
+          const __nv_bfloat162 xv =
+              *reinterpret_cast<const __nv_bfloat162*>(p.x + at);
+          const float v0 = rnd<bf16>(acco[mi][n][2 * hh] + p.bo[col]) +
+                           __low2float(xv);
+          const float v1 = rnd<bf16>(acco[mi][n][2 * hh + 1] + p.bo[col + 1]) +
+                           __high2float(xv);
+          *reinterpret_cast<uint32_t*>(p.y + at) = pack_bf16(v0, v1);
+        }
+      }
+  cp_async_wait<0>();
+  __syncthreads();  // the caller's next item reuses every buffer
+}
+
+}  // namespace uf

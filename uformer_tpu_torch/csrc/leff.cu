@@ -4,17 +4,16 @@
 // small-image variants, with the pixel packing they need on the TPU):
 // [x +] W2 . GELU(dw3x3(GELU(W1 . LN2(x) + b1)) + bd) + b2, erf GELU.
 //
-// What bounds it on the H100: the 4C-wide hidden. Written to device memory
-// it would be four times the activation traffic of the sub-block; the
-// products themselves are 8*C*C MACs per pixel. Design: one block per
-// TH x 8 output tile with a 1-pixel halo; the hidden is produced and
-// consumed in 64-channel chunks in shared memory (the depthwise conv is
-// per channel, so a chunk needs nothing from the others) and never touches
-// device memory. Products on the tensor cores (WMMA, fp32 accumulation).
-// In bf16 each chunk's weights are staged through shared memory. The halo
-// recomputes (TH+2)*10 / (TH*8) of the first product: 1.56x at TH = 8;
-// larger tiles, wgmma and TMA are later work.
-#include "leff_tile.cuh"
+// What bounds it on the H100: at C >= 128 the products (4 C Ch MACs per
+// pixel, the first on a 1-pixel halo too); at C <= 64 the bytes of x and
+// y. The 4C-wide hidden never touches device memory. bf16 runs the tiles
+// of leff_mma.cuh on mma.sync with register accumulators: the wide tile
+// (C 128-512, one 8 x 8 or 16 x 8 output tile per block, weights streamed
+// through a cp.async ring) and the narrow one (C 16-64, weights resident, one
+// persistent block per SM walking 8 x 16 tiles, the next halo prefetched).
+// fp32 (the exact-check path), and bf16 at other widths, run the WMMA/FMA
+// tile of leff_tile.cuh, one TH x 8 tile per block.
+#include "leff_mma.cuh"
 
 namespace uf {
 
@@ -22,6 +21,82 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) leff_kernel(LeffParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   leff_tile<T>(p, blockIdx.x, smem);
+}
+
+template <int C, int TH>
+__global__ void __launch_bounds__(kThreads, 1)
+    leff_wide_kernel(LeffParams<bf16> p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  leff_wide_tile<C, TH>(p, blockIdx.x, smem);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+    leff_narrow_kernel(LeffParams<bf16> p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  leff_narrow<C>(p, smem);
+}
+
+// Which body takes (dtype, C, Ch): the wide or narrow mma tile (bf16), or
+// leff_tile.
+__host__ inline bool wide_tile(int tsize, int C, int Ch) {
+  return tsize == 2 && (C == 128 || C == 256 || C == 512) && Ch % 64 == 0;
+}
+__host__ inline bool narrow_tile(int tsize, int C, int Ch) {
+  return tsize == 2 && (C == 16 || C == 32 || C == 64) && Ch == 4 * C;
+}
+
+// The blocks of `kernel` (kThreads threads, smem bytes) resident on the
+// card at once, in *slots.
+template <typename K>
+static cudaError_t resident(K kernel, size_t smem, int* slots) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  *slots = (per_sm > 0 ? per_sm : 1) * sms;
+  return e;
+}
+
+template <int C, int TH>
+static int launch_wide_rows(const LeffParams<bf16>& p, cudaStream_t stream) {
+  constexpr size_t smem = LeffWide<C, TH>::total;
+  cudaError_t e = cudaFuncSetAttribute(
+      leff_wide_kernel<C, TH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = p.B * ((p.H + TH - 1) / TH) * ((p.W + 7) / 8);
+  leff_wide_kernel<C, TH><<<blocks, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+static int launch_wide(const LeffParams<bf16>& p, cudaStream_t stream) {
+  int slots = 0;
+  cudaError_t e = resident(leff_wide_kernel<C, 8>, LeffWide<C, 8>::total,
+                           &slots);
+  if (e != cudaSuccess) return (int)e;
+  if constexpr (C <= 256)
+    if (leff_wide_rows(p.B, p.H, p.W, C, slots) == 16)
+      return launch_wide_rows<C, 16>(p, stream);
+  return launch_wide_rows<C, 8>(p, stream);
+}
+
+template <int C>
+static int launch_narrow(const LeffParams<bf16>& p, cudaStream_t stream) {
+  constexpr size_t smem = LeffNarrow<C>::total;
+  int slots = 0;
+  cudaError_t e = resident(leff_narrow_kernel<C>, smem, &slots);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = p.B * ((p.H + 7) / 8) * ((p.W + 15) / 16);
+  leff_narrow_kernel<C><<<slots < tiles ? slots : tiles, kThreads, smem,
+                          stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -48,14 +123,26 @@ static int run(const void* x, void* y, const float* ln_s, const float* ln_b,
   p.TH = leff_tile_rows(sizeof(T), C);
   p.has_ln = has_ln;
   p.residual = residual;
+  auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (wide_tile(2, C, Ch)) {
+      if (C == 128) return launch_wide<128>(p, s);
+      if (C == 256) return launch_wide<256>(p, s);
+      return launch_wide<512>(p, s);
+    }
+    if (narrow_tile(2, C, Ch)) {
+      if (C == 16) return launch_narrow<16>(p, s);
+      if (C == 32) return launch_narrow<32>(p, s);
+      return launch_narrow<64>(p, s);
+    }
+  }
   const LeffLayout L = leff_layout(sizeof(T), C, p.TH);
   cudaError_t e = cudaFuncSetAttribute(
       leff_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L.total);
   if (e != cudaSuccess) return (int)e;
   const int blocks = B * (H / p.TH) * (W / 8);
-  leff_kernel<T><<<blocks, kThreads, L.total,
-                   static_cast<cudaStream_t>(stream)>>>(p);
+  leff_kernel<T><<<blocks, kThreads, L.total, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -63,10 +150,13 @@ static int run(const void* x, void* y, const float* ln_s, const float* ln_b,
 
 extern "C" {
 
-// Tile height the kernel uses for this dtype and width (H must be a
-// multiple of it; it is 8, 4 or 2).
-int uf_leff_tile_rows(int is_bf16, int C) {
-  return uf::leff_tile_rows(is_bf16 ? 2 : 4, C);
+// The rows H must be a multiple of for this dtype and width: 1 where the
+// mma tiles run (any H and W), else leff_tile's tile height (8, 4 or 2;
+// W a multiple of 8).
+int uf_leff_tile_rows(int is_bf16, int C, int Ch) {
+  const int ts = is_bf16 ? 2 : 4;
+  if (uf::wide_tile(ts, C, Ch) || uf::narrow_tile(ts, C, Ch)) return 1;
+  return uf::leff_tile_rows(ts, C);
 }
 
 // Returns a cudaError_t (0 on success). is_bf16 selects bf16 (else fp32)

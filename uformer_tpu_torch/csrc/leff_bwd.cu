@@ -17,7 +17,8 @@
 //   B: x -> LN -> pre1 = W1 . LN(x) + b1; dh = dw3x3^T(dpre2 (+halo));
 //      dpre1 = dh * GELU'(pre1); dLN = dpre1 . W1^T over the chunks; the
 //      LayerNorm VJP gives dx [+ dy]. Writes LN(x) and dpre1 per pixel,
-//      and per tile the partial sums of dln_s and dln_b.
+//      and per tile the partial sums of dln_s, dln_b and db1 (db1 from the
+//      fp32 dpre1 before its bf16 rounding, as the TPU kernel sums it).
 // dW1 = LN(x)^T dpre1, dW2 = g^T dy and the bias and tile sums are then
 // reduced over all pixels in a fixed order (wgrad.cuh).
 //
@@ -48,7 +49,7 @@ struct LeffBwdParams {
   T* dx;              // (B, H, W, C)                              [B]
   T* ln;              // (B, H, W, C) LN(x)                        [B]
   T* dpre1;           // (B, H, W, Ch)                             [B]
-  float* part_b;      // (tiles, 2 * C): dln_s, then dln_b          [B]
+  float* part_b;      // (tiles, 2 * C + Ch): dln_s, dln_b, then db1 [B]
   int B, H, W, C, Ch, TH;
   int has_ln, residual;
 };
@@ -286,6 +287,7 @@ __global__ void __launch_bounds__(kThreads)
     float wdj[9];
 #pragma unroll
     for (int t = 0; t < 9; ++t) wdj[t] = to_f<T>(p.wd[t * Ch + k0 + j]);
+    float db1 = 0.f;  // this thread's rows of db1[k0 + j], fp32
     for (int o = grp; o < Mo; o += kRowStep) {
       // dh[q] = sum over taps (dy, dx) of dpre2[q - (dy - 1, dx - 1)] wd
       const float* d0 = dp2 + ((o / 8 + 2) * 10 + o % 8 + 2) * ldh + j;
@@ -293,12 +295,21 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int t = 0; t < 9; ++t)
         dh = fmaf(d0[-((t / 3) * 10 + t % 3) * ldh], wdj[t], dh);
-      const float dp =
-          rnd<T>(rnd<T>(dh) * gelu_grad(hid[o * ldh + j] + b1j));
+      const float d32 = rnd<T>(dh) * gelu_grad(hid[o * ldh + j] + b1j);
+      db1 += d32;
+      const float dp = rnd<T>(d32);
       dp1[o * ldg + j] = from_f<T>(dp);
       p.dpre1[pix(o) * Ch + k0 + j] = from_f<T>(dp);
     }
+    // row grp of hid is read by this thread's group only, and only for
+    // column j by this thread: it takes the partial until the next chunk
+    hid[grp * ldh + j] = db1;
     __syncthreads();
+    if (tid < kLeffChunk) {
+      float s = 0.f;
+      for (int gi = 0; gi < kRowStep; ++gi) s += hid[gi * ldh + tid];
+      p.part_b[(size_t)blockIdx.x * (2 * C + Ch) + 2 * C + k0 + tid] = s;
+    }
     // dLN += dpre1 . W1[:, k0:k0+64]^T
     if constexpr (kStage)
       block_gemm<T, true, true>(dp1, ldg, wbuf, L.ldw1, acc, lda, Mo, C,
@@ -352,8 +363,8 @@ __global__ void __launch_bounds__(kThreads)
       ss = fmaf(acc[o * lda + c], xh, ss);
       sb += acc[o * lda + c];
     }
-    p.part_b[(size_t)blockIdx.x * 2 * C + c] = ss;
-    p.part_b[(size_t)blockIdx.x * 2 * C + C + c] = sb;
+    p.part_b[(size_t)blockIdx.x * (2 * C + Ch) + c] = ss;
+    p.part_b[(size_t)blockIdx.x * (2 * C + Ch) + C + c] = sb;
   }
 }
 

@@ -2,10 +2,16 @@
 // one cooperative persistent launch.
 //
 // Replaces uformer_tpu/ops/pallas/stage.py:fused_stage. For each block j:
-// the attention sub-block over all windows (attention_window.cuh), a grid
-// barrier, the LeFF sub-block over all tiles (leff_tile.cuh), a grid
-// barrier. Weights come from the depth-stacked arrays at index j; the
-// shift is on for odd j when use_shift. Head dim 16 or 32.
+// the attention sub-block over all windows, a grid barrier, the LeFF
+// sub-block over all tiles, a grid barrier. Weights come from the
+// depth-stacked arrays at index j; the shift is on for odd j when
+// use_shift. Head dim 16 or 32. In bf16 at C 128, 256 and 512 both halves
+// run on mma.sync with register accumulators and weights streamed through
+// cp.async rings: the attention of attention_mma.cuh (1-4 windows per work
+// item) and the wide LeFF tile of leff_mma.cuh (8 or 16 x 8 outputs), the
+// host picking windows per item and tile rows from the work and the SMs.
+// fp32 (the exact-check path) and other widths run attention_window.cuh
+// and leff_tile.cuh.
 //
 // What bounds it on the H100: at the 16^2..64^2 stages each sub-block is
 // tens of microseconds of work, so per-kernel launches, tails and weight
@@ -17,8 +23,10 @@
 // per sub-block.
 #include <cooperative_groups.h>
 
-#include "attention_window.cuh"
-#include "leff_tile.cuh"
+#include <algorithm>
+
+#include "attention_mma.cuh"
+#include "leff_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -43,14 +51,37 @@ struct StageParams {
   float scale;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) stage_kernel(StageParams<T> p) {
+// Every work item of a sub-block, from blockIdx.x in steps of gridDim.x.
+// Not inlined: each body then gets the whole register budget, and the
+// stage loop's own state stays out of its way. A kernel calls one variant
+// of each (two variants of a body in one kernel spilled where either alone
+// did not).
+template <int C, int D, int WN>
+__device__ __noinline__ void attn_wide_all(const AttnParams<bf16>& a,
+                                           int n_win, unsigned char* smem) {
+  for (int it = blockIdx.x; it < (n_win + WN - 1) / WN; it += gridDim.x)
+    attn_wide_item<C, D, WN>(a, it, smem);
+}
+
+template <int C, int TH>
+__device__ __noinline__ void leff_wide_all(const LeffParams<bf16>& l,
+                                           int n_tile, unsigned char* smem) {
+  for (int it = blockIdx.x; it < n_tile; it += gridDim.x)
+    leff_wide_tile<C, TH>(l, it, smem);
+}
+
+// CW: the width of the tensor-core sub-blocks (bf16), with WN windows per
+// attention item and TH rows per LeFF tile; or 0 for attention_window and
+// leff_tile
+template <typename T, int D, int CW, int WN, int TH>
+__global__ void __launch_bounds__(kThreads, 1)
+    stage_kernel(StageParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const int C = p.C, Ch = p.Ch;
   const size_t CC = (size_t)C * C, CH = (size_t)C * Ch;
   const int n_win = p.B * (p.H / 8) * (p.W / 8);
-  const int n_tile = p.B * (p.H / p.TH) * (p.W / 8);
+  const int n_tile = p.B * ((p.H + p.TH - 1) / p.TH) * (p.W / 8);
   for (int j = 0; j < p.n; ++j) {
     AttnParams<T> a;
     a.x = j ? p.out : p.x;
@@ -80,8 +111,17 @@ __global__ void __launch_bounds__(kThreads) stage_kernel(StageParams<T> p) {
     a.residual = 1;
     a.windows = 0;
     a.w_off = 0;
-    for (int it = blockIdx.x; it < n_win; it += gridDim.x)
-      attention_window<T, D>(a, it, smem, blockIdx.x);
+    if constexpr (CW > 0) {
+      // the callee takes its parameters by reference: from shared memory,
+      // not from the stack
+      __shared__ AttnParams<bf16> as;
+      if (threadIdx.x == 0) as = a;
+      __syncthreads();
+      attn_wide_all<CW, D, WN>(as, n_win, smem);
+    } else {
+      for (int it = blockIdx.x; it < n_win; it += gridDim.x)
+        attention_window<T, D>(a, it, smem, blockIdx.x);
+    }
     grid.sync();
 
     LeffParams<T> l;
@@ -103,45 +143,96 @@ __global__ void __launch_bounds__(kThreads) stage_kernel(StageParams<T> p) {
     l.TH = p.TH;
     l.has_ln = 1;
     l.residual = 1;
-    for (int it = blockIdx.x; it < n_tile; it += gridDim.x)
-      leff_tile<T>(l, it, smem);
+    if constexpr (CW > 0) {
+      __shared__ LeffParams<bf16> ls;  // as `as` above
+      if (threadIdx.x == 0) ls = l;
+      __syncthreads();
+      leff_wide_all<CW, TH>(ls, n_tile, smem);
+    } else {
+      for (int it = blockIdx.x; it < n_tile; it += gridDim.x)
+        leff_tile<T>(l, it, smem);
+    }
     grid.sync();
   }
 }
 
-template <typename T, int D>
-static size_t stage_smem(int C, int TH) {
-  const size_t a = attn_layout<D>(sizeof(T), C).total;
-  const size_t l = leff_layout(sizeof(T), C, TH).total;
-  return a > l ? a : l;
+// Windows per work item of the wide attention: the most (up to 512 / C)
+// that do not add a round of items over the `slots` resident blocks.
+static int wide_windows(int n_win, int slots, int C) {
+  int best = 1;
+  long best_cost = -1;
+  for (int wn = 1; wn * C <= 512; wn *= 2) {
+    const int items = (n_win + wn - 1) / wn;
+    const long cost = (long)((items + slots - 1) / slots) * wn;
+    if (best_cost < 0 || cost <= best_cost) {
+      best = wn;
+      best_cost = cost;
+    }
+  }
+  return best;
 }
 
-template <typename T, int D>
+template <typename T, int D, int CW, int WN, int TH>
 static int launch(StageParams<T> p, cudaStream_t stream) {
-  p.TH = leff_tile_rows(sizeof(T), p.C);
-  const size_t smem = stage_smem<T, D>(p.C, p.TH);
+  size_t smem;
+  if constexpr (CW > 0) {
+    p.TH = TH;
+    smem = std::max(AttnWide<CW, D, WN>::total, LeffWide<CW, TH>::total);
+  } else {
+    p.TH = leff_tile_rows(sizeof(T), p.C);
+    smem = std::max(attn_layout<D>(sizeof(T), p.C).total,
+                    leff_layout(sizeof(T), p.C, p.TH).total);
+  }
+  auto kernel = stage_kernel<T, D, CW, WN, TH>;
   cudaError_t e = cudaFuncSetAttribute(
-      stage_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, stage_kernel<T, D>, kThreads, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int n_win = p.B * (p.H / 8) * (p.W / 8);
-  const int n_tile = p.B * (p.H / p.TH) * (p.W / 8);
-  const int work = n_win > n_tile ? n_win : n_tile;
+  const int n_item = (n_win + WN - 1) / WN;
+  const int n_tile = p.B * ((p.H + p.TH - 1) / p.TH) * (p.W / 8);
+  const int work = n_item > n_tile ? n_item : n_tile;
   int grid = per_sm * sms;
   if (grid > work) grid = work;
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((void*)stage_kernel<T, D>, dim3(grid),
-                                  dim3(kThreads), args, smem, stream);
+  e = cudaLaunchCooperativeKernel((void*)kernel, dim3(grid), dim3(kThreads),
+                                  args, smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <int D, int CW, int WN>
+static int launch_rows(const StageParams<bf16>& p, int th,
+                       cudaStream_t stream) {
+  if constexpr (CW <= 256)
+    if (th == 16) return launch<bf16, D, CW, WN, 16>(p, stream);
+  return launch<bf16, D, CW, WN, 8>(p, stream);
+}
+
+// The tensor-core stage at width CW: windows per attention item and rows
+// per LeFF tile from the work and the SMs (one block each: 512 threads at
+// up to 128 registers fill an SM's register file).
+template <int D, int CW>
+static int launch_wide(const StageParams<bf16>& p, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int wn = wide_windows(p.B * (p.H / 8) * (p.W / 8), sms, CW);
+  const int th = leff_wide_rows(p.B, p.H, p.W, CW, sms);
+  if constexpr (CW == 128)
+    if (wn == 4) return launch_rows<D, CW, 4>(p, th, stream);
+  if constexpr (CW <= 256)
+    if (wn == 2) return launch_rows<D, CW, 2>(p, th, stream);
+  return launch_rows<D, CW, 1>(p, th, stream);
 }
 
 template <typename T>
@@ -189,9 +280,15 @@ static int run(const void* x, void* buf, void* out, void* scratch,
   p.Ch = Ch;
   p.use_shift = use_shift;
   p.scale = scale;
+  auto s = static_cast<cudaStream_t>(stream);
   return with_head_dim(C, nH, [&](auto d) {
-    return launch<T, decltype(d)::value>(p,
-                                         static_cast<cudaStream_t>(stream));
+    constexpr int D = decltype(d)::value;
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (C == 128) return launch_wide<D, 128>(p, s);
+      if (C == 256) return launch_wide<D, 256>(p, s);
+      if (C == 512) return launch_wide<D, 512>(p, s);
+    }
+    return launch<T, D, 0, 1, 0>(p, s);
   });
 }
 

@@ -1,9 +1,12 @@
-"""Time the Uformer_B bf16 serving forward (batch 8, 256^2), or the
-depthwise kernel, of two or more checkouts of this repo on one CUDA card,
-in turns, to compare them within one run:
+"""Time the Uformer_B bf16 serving forward (batch 8, 256^2), or one
+kernel, of two or more checkouts of this repo on one CUDA card, in turns,
+to compare them within one run:
 
     python -m uformer_tpu_torch.forward_ab --roots OLD NEW NEW OLD
     python -m uformer_tpu_torch.forward_ab --what dwconv3x3 --roots ...
+    python -m uformer_tpu_torch.forward_ab --what leff --roots ...
+    python -m uformer_tpu_torch.forward_ab --what stage --roots ...
+    python -m uformer_tpu_torch.forward_ab --what train --roots ...
 
 Each root runs in its own process (its own `uformer_tpu_torch`, its own
 kernel build, made during the warm-up and not timed). `forward`: a bf16
@@ -14,8 +17,15 @@ weights, fp32 bias) at the (Bw, 8, 8, C) windows of the serve B-conv
 stages at bs8 256^2 and one (8, 256, 256, 64) image, each timed as 20
 launches in a CUDA graph (device time, without the host's launch cost)
 and as 20 eager calls, with its largest difference from the plain
-version. Prints one JSON line per root (ms), then the card's name and
-power limit.
+version. `leff`: `fused_leff` in bf16 (bf16 matrices N(0, 1 / fan-in),
+Ch = 4C, LN, residual) at every (B, H, W, C) it runs at in serve B, serve
+T, serve B-conv (bs8 256^2) and the train and train T steps (bs32 128^2);
+`stage`: `fused_stage` at every stage of serve B and serve T (bs8 256^2,
+shift, the decoder's modulator); each timed as launches in a CUDA graph
+(device time), with its largest difference from the plain version;
+`train`: the Uformer_B bf16 train step (bs32 128^2, mixup on, AdamW),
+the median of 10 steps after 3 warm-up ones (CUDA events). Prints one
+JSON line per root (ms), then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -88,14 +98,152 @@ for shape in shapes:
 print(json.dumps({"rows": rows}))
 """
 
+_KERNEL_COMMON = """
+import json, torch
+from uformer_tpu_torch.ops import kernels as K
+gen = torch.Generator().manual_seed(0)
+
+def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+    return (torch.randn(shape, generator=gen) * scale).to("cuda", dtype)
+
+def ms(fn, reps):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+def graph_ms(fn, n=10):
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    return ms(graph.replay, 5) / n
+"""
+
+_LEFF = _KERNEL_COMMON + """
+f32 = torch.float32
+cells = {
+    "serve B": [(8, 256, 256, 32), (8, 128, 128, 64), (8, 256, 256, 64)],
+    "serve T": [(8, 256, 256, 16), (8, 128, 128, 32), (8, 64, 64, 64),
+                (8, 128, 128, 64), (8, 256, 256, 32)],
+    "serve B-conv": [(8, 256 >> k, 256 >> k, 32 << k) for k in range(5)]
+                    + [(8, 32, 32, 512), (8, 64, 64, 256), (8, 128, 128, 128),
+                       (8, 256, 256, 64)],
+    "train": [(32, 128 >> k, 128 >> k, 32 << k) for k in range(5)]
+             + [(32, 16, 16, 512), (32, 32, 32, 256), (32, 64, 64, 128),
+                (32, 128, 128, 64)],
+    "train T": [(32, 128 >> k, 128 >> k, 16 << k) for k in range(5)]
+               + [(32, 16, 16, 256), (32, 32, 32, 128), (32, 64, 64, 64),
+                  (32, 128, 128, 32)],
+}
+shapes = {}
+for cell, lst in cells.items():
+    for shape in lst:
+        shapes.setdefault(shape, []).append(cell)
+rows = []
+for shape, where in shapes.items():
+    C = shape[-1]
+    Ch = 4 * C
+    w = (rnd(C, Ch, scale=C ** -0.5), rnd(Ch, scale=0.1, dtype=f32),
+         rnd(3, 3, Ch, scale=1 / 3), rnd(Ch, scale=0.1, dtype=f32),
+         rnd(Ch, C, scale=Ch ** -0.5), rnd(C, scale=0.1, dtype=f32))
+    kw = dict(ln_s=1.0 + rnd(C, scale=0.1, dtype=f32),
+              ln_b=rnd(C, scale=0.1, dtype=f32), residual=True)
+    x = rnd(*shape)
+    run = lambda: K.fused_leff(x, *w, **kw)
+    err = float((run().float() - K.leff_reference(x, *w, **kw).float())
+                .abs().max())
+    rows.append({"shape": shape, "cells": where, "graph_ms": graph_ms(run),
+                 "max_abs_err": err})
+print(json.dumps({"rows": rows}))
+"""
+
+_STAGE = _KERNEL_COMMON + """
+f32 = torch.float32
+# (cell, stage, B, res, C, heads, blocks, modulator)
+stages = [("serve B", "enc2", 8, 64, 128, 4, 8, False),
+          ("serve B", "enc3", 8, 32, 256, 8, 8, False),
+          ("serve B", "conv", 8, 16, 512, 16, 2, False),
+          ("serve B", "dec0", 8, 32, 512, 16, 8, True),
+          ("serve B", "dec1", 8, 64, 256, 8, 8, True),
+          ("serve B", "dec2", 8, 128, 128, 4, 2, True),
+          ("serve T", "enc3", 8, 32, 128, 8, 2, False),
+          ("serve T", "conv", 8, 16, 256, 16, 2, False),
+          ("serve T", "dec0", 8, 32, 256, 16, 2, True),
+          ("serve T", "dec1", 8, 64, 128, 8, 2, True)]
+rows = []
+for cell, name, B, res, C, nH, n, mod in stages:
+    Ch = 4 * C
+    s = C ** -0.5
+    p = dict(ln1_s=1.0 + rnd(n, C, scale=0.1, dtype=f32),
+             ln1_b=rnd(n, C, scale=0.1, dtype=f32), wq=rnd(n, C, C, scale=s),
+             bq=rnd(n, C, scale=0.1, dtype=f32), wk=rnd(n, C, C, scale=s),
+             bk=rnd(n, C, scale=0.1, dtype=f32), wv=rnd(n, C, C, scale=s),
+             bv=rnd(n, C, scale=0.1, dtype=f32), wo=rnd(n, C, C, scale=s),
+             bo=rnd(n, C, scale=0.1, dtype=f32),
+             bias=rnd(n, nH, 64, 64, scale=0.5, dtype=f32),
+             mod=rnd(n, 64, C, scale=0.1),
+             ln2_s=1.0 + rnd(n, C, scale=0.1, dtype=f32),
+             ln2_b=rnd(n, C, scale=0.1, dtype=f32), w1=rnd(n, C, Ch, scale=s),
+             b1=rnd(n, Ch, scale=0.1, dtype=f32),
+             wd=rnd(n, 3, 3, Ch, scale=1 / 3),
+             bd=rnd(n, Ch, scale=0.1, dtype=f32),
+             w2=rnd(n, Ch, C, scale=Ch ** -0.5),
+             b2=rnd(n, C, scale=0.1, dtype=f32))
+    kw = dict(scale=(C // nH) ** -0.5, num_heads=nH, use_shift=True,
+              has_mod=mod)
+    x = rnd(B, res, res, C)
+    run = lambda: K.fused_stage(x, p, **kw)
+    err = float((run().float() - K.stage_reference(x, p, **kw).float())
+                .abs().max())
+    rows.append({"cell": cell, "stage": name, "shape": [B, res, res, C],
+                 "blocks": n, "graph_ms": graph_ms(run), "max_abs_err": err})
+print(json.dumps({"rows": rows}))
+"""
+_TRAIN = """
+import json, statistics, torch
+from uformer_tpu_torch import get_arch
+from uformer_tpu_torch.train import TrainState, make_optimizer, make_train_step
+torch.manual_seed(0)
+model = get_arch({"arch": "Uformer_B", "train_ps": 128,
+                  "dtype": torch.bfloat16}).cuda()
+gen = torch.Generator().manual_seed(5)
+target = torch.rand(32, 128, 128, 3, generator=gen)
+noise = torch.randn(32, 128, 128, 3, generator=gen)
+noisy = (target + 0.1 * noise).clamp(0, 1)
+batch = {"input": noisy.cuda(), "target": target.cuda()}
+state = TrainState(model, make_optimizer(model.parameters(), lambda s: 2e-4),
+                   step=5)
+step = make_train_step(model, mixup_after_epoch=5, steps_per_epoch=1)
+runs = []
+for i in range(13):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    step(state, batch, torch.Generator().manual_seed(i))
+    end.record()
+    torch.cuda.synchronize()
+    if i >= 3:
+        runs.append(start.elapsed_time(end))
+print(json.dumps({"median_ms": statistics.median(runs), "runs_ms": runs}))
+"""
+_CHILDREN = {"forward": _CHILD, "dwconv3x3": _DWCONV, "leff": _LEFF,
+             "stage": _STAGE, "train": _TRAIN}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--roots", nargs="+", required=True)
-    ap.add_argument("--what", choices=("forward", "dwconv3x3"),
-                    default="forward")
+    ap.add_argument("--what", choices=tuple(_CHILDREN), default="forward")
     args = ap.parse_args()
-    child = _CHILD if args.what == "forward" else _DWCONV
+    child = _CHILDREN[args.what]
     for root in args.roots:
         out = subprocess.run([sys.executable, "-c", child], cwd=root,
                              capture_output=True, text=True, check=True)

@@ -36,7 +36,7 @@ _SIGNATURES = {
     "uf_attention_image": [_I] + [_P] * 13 + [_I] * 6 + [_F, _I, _I, _P],
     "uf_attention_block": [_I] + [_P] * 13 + [_I] * 7 + [_F, _I, _P],
     "uf_window_attention": [_I] + [_P] * 5 + [_I] * 6 + [_F, _P],
-    "uf_leff_tile_rows": [_I, _I],
+    "uf_leff_tile_rows": [_I, _I, _I],
     "uf_leff": [_I] + [_P] * 10 + [_I] * 7 + [_P],
     "uf_stage": [_I] + [_P] * 24 + [_I] * 8 + [_F, _P],
     "uf_attention_bwd_scratch": [_I, _I, _I],
@@ -47,6 +47,7 @@ _SIGNATURES = {
     "uf_wgrad": [_I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "uf_colsum": [_I, _P, _I, _P, _P, _I, _I, _I, _P],
     "uf_dwconv3x3": [_I, _I] + [_P] * 4 + [_I] * 5 + [_P],
+    "uf_mma_check": [_P, _P, _P, _I, _I, _I, _I, _P],
     "uf_error_string": [_I],
 }
 

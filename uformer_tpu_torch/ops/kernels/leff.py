@@ -1,11 +1,17 @@
 """LeFF sub-block: Hopper kernel and plain version.
 
 Port of `uformer_tpu/ops/pallas/leff.py:fused_leff` (kernel source
-`csrc/leff.cu`, body in `csrc/leff_tile.cuh`). On the H100 the bound is
-the 4C-wide hidden: the kernel produces and consumes it in 64-channel
-chunks in shared memory, one TH x 8 output tile (plus halo) per thread
-block, so it never touches device memory. `leff_reference` is the plain
-PyTorch version with the JAX reference's signature (`leff.py:504`).
+`csrc/leff.cu`, tiles in `csrc/leff_mma.cuh` and `csrc/leff_tile.cuh`).
+On the H100 the bound is the products at C >= 128 and the bytes of x and
+y below; the 4C-wide hidden never touches device memory. In bf16 the
+tensor-core tiles keep the second product's accumulator in registers:
+8 x 8 or 16 x 8 output tiles with the weights streamed through a
+cp.async ring at C 128-512, and persistent blocks over 8 x 16 tiles with
+the weights resident at C 16-64; they mask partial tiles, so any H and W
+run. fp32 (the exact-check path) keeps TH x 8 tiles, H a multiple of TH
+and W of 8.
+`leff_reference` is the plain PyTorch version with the JAX reference's
+signature (`leff.py:504`).
 """
 
 from __future__ import annotations
@@ -52,10 +58,11 @@ def fused_leff(x: torch.Tensor, w1, b1, wd, bd, w2, b2, ln_s=None, ln_b=None,
     Ch = w1.shape[-1]
     lib = load()
     is_bf16 = int(x.dtype == torch.bfloat16)
-    th = lib.uf_leff_tile_rows(is_bf16, C)
-    if C % 16 or Ch % HIDDEN_CHUNK or H % th or W % 8:
+    th = lib.uf_leff_tile_rows(is_bf16, C, Ch)
+    tw = 8 if th > 1 else 1
+    if C % 16 or Ch % HIDDEN_CHUNK or H % th or W % tw:
         raise ValueError(f"kernel needs C % 16 == 0, Ch % {HIDDEN_CHUNK} "
-                         f"== 0, H % {th} == 0 and W % 8 == 0: "
+                         f"== 0, H % {th} == 0 and W % {tw} == 0: "
                          f"C={C} Ch={Ch} H={H} W={W}")
     dt, dev, f32 = x.dtype, x.device, torch.float32
     has_ln = ln_s is not None
@@ -163,8 +170,10 @@ def fused_leff_bwd(x: torch.Tensor, dy: torch.Tensor, w1, b1, wd, bd, w2,
         dx = torch.empty_like(x)
         ln = torch.empty_like(x)
         dpre1 = torch.empty(B, H, W, Ch, dtype=dt, device=dev)
-        part_b = torch.empty(B * (H // thb) * (W // 8), 2 * C, dtype=f32,
-                             device=dev)
+        # per tile: dln_s, dln_b (with LN only), then db1, summed from the
+        # fp32 hidden gradient before its rounding (`leff.py:682`)
+        part_b = torch.empty(B * (H // thb) * (W // 8), 2 * C + Ch,
+                             dtype=f32, device=dev)
         err = lib.uf_leff_bwd(
             1, is_bf16, x.data_ptr(), dy.data_ptr(), *ln_p, w1.data_ptr(),
             b1.data_ptr(), wd.data_ptr(), bd.data_ptr(), None, None,
@@ -173,10 +182,10 @@ def fused_leff_bwd(x: torch.Tensor, dy: torch.Tensor, w1, b1, wd, bd, w2,
         _launch.check(err, "leff_bwd kernel B")
         del dpre2
         dw1 = wgrad(ln.view(M, C), dpre1.view(M, Ch))
-        db1 = colsum(dpre1.view(M, Ch))
+        db1 = colsum(part_b[:, 2 * C:])
         db2 = colsum(dy.view(M, C))
         pa = colsum(part_a)
-        dln = colsum(part_b) if has_ln else None
+        dln = colsum(part_b[:, :2 * C]) if has_ln else None
     fused_leff_bwd.launches += 1
     return (dx, dw1, db1, pa[:9 * Ch].view(3, 3, Ch), pa[9 * Ch:], dw2, db2,
             dln[:C] if has_ln else None, dln[C:] if has_ln else None)

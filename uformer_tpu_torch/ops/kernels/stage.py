@@ -6,6 +6,9 @@ launches and tails weigh as much as the products; the kernel is one
 cooperative persistent launch per stage that runs every block's
 attention and LeFF sub-blocks with a grid barrier between them, the
 stage image ping-ponging between two buffers that largely stay in L2.
+In bf16 at C 128-512 both halves run on tensor-core tiles with register
+accumulators: the attention of `csrc/attention_mma.cuh` (1-4 windows per
+work item) and the wide LeFF tile of `csrc/leff_mma.cuh` (as `fused_leff`).
 `stage_reference` is the plain PyTorch version with the JAX reference's
 signature (`stage.py:389`).
 """
@@ -71,12 +74,11 @@ def fused_stage(x: torch.Tensor, p: Dict[str, torch.Tensor], *, scale: float,
     n, Ch = p["w1"].shape[0], p["w1"].shape[-1]
     lib = load()
     is_bf16 = int(x.dtype == torch.bfloat16)
-    th = lib.uf_leff_tile_rows(is_bf16, C)
     check_head_dim(C, num_heads)
-    if H % 8 or W % 8 or H % th or Ch % HIDDEN_CHUNK:
-        raise ValueError(f"kernel needs H and W multiples of 8 and of the "
-                         f"tile rows {th}, and Ch % {HIDDEN_CHUNK} == 0: "
-                         f"C={C} H={H} W={W} Ch={Ch}")
+    if H % 8 or W % 8 or Ch % HIDDEN_CHUNK:
+        raise ValueError(f"kernel needs H and W multiples of 8 and "
+                         f"Ch % {HIDDEN_CHUNK} == 0: C={C} H={H} W={W} "
+                         f"Ch={Ch}")
     dt, dev, f32 = x.dtype, x.device, torch.float32
     shapes = {
         "ln1_s": ((n, C), f32), "ln1_b": ((n, C), f32),
