@@ -61,7 +61,12 @@ Phases, each raising on failure (no phase is caught):
                again at batch 32; bs 32 bf16 train steps: launches per
                step, loss, ms per step on both paths, peak memory; each
                kernel's time against its plain version at the bs 32
-               shapes, forward and backward.
+               shapes, forward and backward, and each backward's parts
+               timed alone on the same buffers (kernel 7's A and B,
+               kernel 6's body, the weight-gradient reductions beside
+               torch.matmul(a.T, b), a yardstick the port never calls,
+               and colsum); each backward kernel run twice on the same
+               inputs must give equal bits.
  12. train T - the same for Uformer_T (its seeded weights): enc0's two
                blocks take the windowed branch, whose forward and backward
                kernels (attention_block, attention_block_bwd) are checked
@@ -1155,7 +1160,9 @@ def block_calls(layer, blk, residual, dtypes):
     attention_bwd on the image route; off it the windowed branch's
     attention_block and attention_block_bwd on x's (Bw, 64, C) windows,
     LN outside (has_ln False) and the block's modulator, as the model runs
-    them. Then leff and leff_bwd."""
+    them. Then leff and leff_bwd. Returns ({kernel: (fused, plain)},
+    {backward kernel: parts(x, g, dt)}), parts giving the backward's
+    launches unrun (`leff_bwd_parts` and its attention counterparts)."""
     from uformer_tpu_torch.ops import kernels as K
 
     prm = {dt: blk.kernel_params(dt) for dt in dtypes}
@@ -1198,6 +1205,23 @@ def block_calls(layer, blk, residual, dtypes):
             prm[dt][k] for k in ("w1", "b1", "wd", "bd", "w2", "ln2_s",
                                  "ln2_b")), residual=residual)))
 
+    def parts_of(fn):
+        return lambda x, g, dt: fn(tok(x), tok(g), *args(dt), **akw)
+
+    from uformer_tpu_torch.ops.kernels.attention_block import \
+        attention_block_bwd_parts
+    from uformer_tpu_torch.ops.kernels.attention_image import \
+        attention_image_bwd_parts
+    from uformer_tpu_torch.ops.kernels.leff import leff_bwd_parts
+
+    parts = {"leff_bwd": lambda x, g, dt: leff_bwd_parts(x, g, *(
+        prm[dt][k] for k in ("w1", "b1", "wd", "bd", "w2", "ln2_s",
+                             "ln2_b")), residual=residual)}
+    if blk.image_route:
+        parts["attention_bwd"] = parts_of(attention_image_bwd_parts)
+    else:
+        parts["attention_block_bwd"] = parts_of(attention_block_bwd_parts)
+
     if blk.image_route:
         calls = {"attention_image": (attn(K.fused_attention_image),
                                      attn(K.attention_image_reference)),
@@ -1213,7 +1237,7 @@ def block_calls(layer, blk, residual, dtypes):
     calls.update({"leff": (leff(K.fused_leff), leff(K.leff_reference)),
                   "leff_bwd": (leff_bwd(K.fused_leff_bwd),
                                leff_bwd(K.leff_vjp_reference))})
-    return calls
+    return calls, parts
 
 
 def train_configs(model):
@@ -1252,7 +1276,7 @@ def train_kernel_checks(model, device, batch: int) -> Checks:
             layer = getattr(model, name)
             shape = (batch, layer.resolution, layer.resolution, layer.dim)
             for i, blk in enumerate(layer.blocks):
-                calls = block_calls(layer, blk, False, dtypes)
+                calls, _ = block_calls(layer, blk, False, dtypes)
                 x32 = torch.randn(shape, generator=gen).bfloat16().float() \
                     .to(device)
                 what = f"{name}.{i} {shape} shift={blk.shift_size} res=0"
@@ -1262,8 +1286,8 @@ def train_kernel_checks(model, device, batch: int) -> Checks:
         for name, blk, shift, residual in train_configs(model):
             layer = getattr(model, name)
             shape = (batch, layer.resolution, layer.resolution, layer.dim)
-            calls = block_calls(layer, with_shift(blk, shift), residual,
-                                dtypes)
+            calls, _ = block_calls(layer, with_shift(blk, shift), residual,
+                                   dtypes)
             x = torch.randn(shape, generator=gen).bfloat16().float() \
                 .to(device)
             g = torch.randn(shape, generator=gen).bfloat16().float() \
@@ -1271,13 +1295,19 @@ def train_kernel_checks(model, device, batch: int) -> Checks:
             what = f"{name} {shape} shift={shift} res={int(residual)}"
             for kernel, (fused, plain) in calls.items():
                 if kernel.endswith("bwd"):
+                    got16 = fused(x.bfloat16(), g.bfloat16(), torch.bfloat16)
                     grad_bound(checks, kernel, what,
                                fused(x, g, torch.float32),
                                plain(x, g, torch.float32),
                                plain(x.bfloat16(), g.bfloat16(),
-                                     torch.bfloat16),
-                               fused(x.bfloat16(), g.bfloat16(),
-                                     torch.bfloat16))
+                                     torch.bfloat16), got16)
+                    # a second run on the same inputs: equal bits (fixed
+                    # summation orders, no atomics)
+                    again = fused(x.bfloat16(), g.bfloat16(), torch.bfloat16)
+                    differ = sum(a is not None and not torch.equal(a, again[n])
+                                 for n, a in got16.items())
+                    checks.add(kernel, f"{what} repeat", float(differ), 0.0,
+                               "bits")
     torch.cuda.synchronize()
     return checks
 
@@ -1403,11 +1433,47 @@ def train_timing(make_model, device, expected: dict, label: str):
     return model, out
 
 
+def wgrad_cost(a, b):
+    """(operations, bytes) of a^T b over the rows of a and b and the
+    column sums of b: a and b read once, the fp32 product written once."""
+    M, K1 = a.shape
+    N = b.shape[1]
+    return 2 * M * K1 * N, (M * (K1 + N)) * a.element_size() + 4 * K1 * N
+
+
+def part_times(parts_fn, x, g, n: int, totals: dict, kernel: str) -> dict:
+    """Each launch of one backward call (its parts, `*_bwd_parts`) timed
+    alone on the same buffers after one run of all of them, and each
+    weight-gradient part's yardstick, torch.matmul(a.T, b) on its operands
+    (the port never calls it). Adds n calls to totals[kernel]["parts"]."""
+    parts, _ = parts_fn(x, g, torch.bfloat16)
+    for _, run in parts:
+        run()
+    out = {}
+    for name, run in parts:
+        out[name] = cuda_ms(run, reps=5)
+        ops = getattr(run, "operands", ())
+        if name.startswith("wgrad"):
+            a, b = ops
+            out[f"{name} matmul"] = cuda_ms(lambda: torch.matmul(a.T, b),
+                                            reps=5)
+            cost = wgrad_cost(a, b)
+            out[f"{name} bound"] = max(cost[0] / PEAK_BF16,
+                                       cost[1] / PEAK_HBM) * 1e3
+    acc = totals[kernel].setdefault("parts", {})
+    for name, ms in out.items():
+        acc[name] = acc.get(name, 0.0) + n * ms
+    del parts
+    return out
+
+
 def train_kernel_timing(model, device):
     """Device time of each kernel against its plain version at the bs
-    BATCH_TRAIN bf16 shapes of one train step. One block per (stage,
-    shift) is timed on random inputs and counted once per block of the
-    stage with that shift; totals (ms, plain ms, launches, bound) are per
+    BATCH_TRAIN bf16 shapes of one train step, and of each backward's
+    parts (kernel 7's A and B, kernel 6's body, the weight-gradient
+    reductions beside torch.matmul, colsum). One block per (stage, shift)
+    is timed on random inputs and counted once per block of the stage
+    with that shift; totals (ms, plain ms, launches, bound, parts) are per
     step."""
     gen = torch.Generator(device="cpu").manual_seed(6)
     rows, totals = [], {}
@@ -1429,7 +1495,8 @@ def train_kernel_timing(model, device):
                      "attention_bwd": bwd_cost(attn, tokens, C),
                      "attention_block_bwd": bwd_cost(attn, tokens, C),
                      "leff_bwd": bwd_cost(leff, tokens, C)}
-            calls = block_calls(layer, blk, residual, (torch.bfloat16,))
+            calls, parts = block_calls(layer, blk, residual,
+                                       (torch.bfloat16,))
             x = torch.randn(shape, generator=gen).to(device, torch.bfloat16)
             g = torch.randn(shape, generator=gen).to(device, torch.bfloat16)
             for kernel, (fused, plain) in calls.items():
@@ -1440,20 +1507,28 @@ def train_kernel_timing(model, device):
                                   cuda_ms(k_fn, reps=5), cuda_ms(p_fn, reps=5))
                 k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
                 b_ms = tally(totals, kernel, k_ms, p_ms, costs[kernel], n)
-                rows.append({"layer": name, "shift": shift, "blocks": n,
-                             "kernel": kernel, "shape": list(shape),
-                             "ms": k_ms, "plain_ms": p_ms,
-                             "bound_ms": b_ms / n,
-                             "tflops": (costs[kernel][0] / (k_ms * 1e-3)
-                                        / 1e12)})
+                row = {"layer": name, "shift": shift, "blocks": n,
+                       "kernel": kernel, "shape": list(shape), "ms": k_ms,
+                       "plain_ms": p_ms, "bound_ms": b_ms / n,
+                       "tflops": costs[kernel][0] / (k_ms * 1e-3) / 1e12}
                 print(f"  {name:16s} s{shift} x{n} {kernel:19s} "
                       f"{str(shape):22s} kernel {k_ms:8.3f} ms  plain "
                       f"{p_ms:8.3f} ms  bound {b_ms / n:7.4f} ms  "
                       f"{rate(costs[kernel], k_ms, b_ms / n)}", flush=True)
+                if kernel in parts:
+                    row["parts"] = part_times(parts[kernel], x, g, n, totals,
+                                              kernel)
+                    print("      parts: " + ", ".join(
+                        f"{k} {v:.3f}" for k, v in row["parts"].items()),
+                        flush=True)
+                rows.append(row)
     for kernel, t in totals.items():
         print(f"  {kernel:19s} per step: {t['launches']} launches, kernel "
               f"{t['ms']:8.3f} ms, plain {t['plain_ms']:8.3f} ms, bound "
               f"{t['bound_ms']:7.4f} ms ({bound_by(t)})", flush=True)
+        if "parts" in t:
+            print("      parts per step: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in t["parts"].items()), flush=True)
     return rows, totals
 
 

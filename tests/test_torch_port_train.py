@@ -78,13 +78,16 @@ def _leff_case(shape, hidden):
 
 # shapes of tests/test_pallas_leff.py:122-148 that run outside the slow
 # tier (packed p=4 with LN and residual; packed p=2 without either),
-# C = 128 with LN and no residual, and Uformer_T's enc0 (C 16, hidden 64;
-# packed p=8) as it trains
+# C = 128 with LN and no residual, Uformer_T's enc0 (C 16, hidden 64;
+# packed p=8) as it trains, and H and W that are no multiple of 8 (the
+# card's backward masks partial tiles; the JAX kernel pads H)
 @pytest.mark.parametrize("shape,hidden,has_ln,residual", [
     ((2, 16, 16, 32), 128, True, True),
     ((1, 24, 16, 64), 256, False, False),
     ((1, 8, 16, 128), 256, True, False),
-    ((2, 16, 16, 16), 64, True, False)])
+    ((2, 16, 16, 16), 64, True, False),
+    ((1, 12, 20, 32), 128, True, True),
+    ((2, 9, 14, 16), 64, True, False)])
 def test_leff_vjp_reference_matches_jax(jx, shape, hidden, has_ln, residual):
     p = _leff_case(shape, hidden)
     order = ("x", "w1", "b1", "wd", "bd", "w2", "b2", "ln_s", "ln_b")

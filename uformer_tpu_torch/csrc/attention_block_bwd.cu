@@ -19,11 +19,13 @@
 //
 // What bounds it on the H100: at Uformer_T's enc0 (C = 16, one head) the
 // per-window work is the fp32 softmax VJP and six 64 x 64 x 16 products,
-// one WMMA k-step each, between barriers; the bytes (x, g and dx, the
-// per-token buffers, the per-window dbias share of 16 KB) bound it, not
-// the operations. The design keeps the image layout's body unchanged; a
-// block of several windows would fill its warps (not done here).
-#include "attention_window_bwd.cuh"
+// one k-step each, between barriers; the bytes (x, g and dx, the
+// per-token buffers, the dbias share of 16 KB) bound it, not the
+// operations. bf16 runs the image layout's tile (attention_bwd_mma.cuh)
+// with this token map, a block taking 1-4 windows (their dbias, dmod and
+// dln shares summed before they are written); fp32 the FMA body of
+// attention_window_bwd.cuh, one window per block.
+#include "attention_bwd_mma.cuh"
 
 namespace uf {
 
@@ -44,11 +46,42 @@ __global__ void __launch_bounds__(kThreads)
   attention_window_bwd<T, D>(p, w, smem);
 }
 
+// (two blocks per SM at C <= 64, whose latency-bound windows fill each
+// other's gaps between barriers; 64 registers, 24-128 B of spills)
+template <int C, int D>
+__global__ void __launch_bounds__(kThreads, C <= 64 ? 2 : 1)
+    attention_block_bwd_mma_kernel(AttnBwdParams<bf16> p, int wn,
+                                   int n_win, int hpb, int finish) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nW = (p.H / 8) * (p.W / 8);
+  auto map = [&](int w, int t, int* pix, int* rid) {
+    *pix = w * 64 + t;
+    *rid = window_region(w % nW, t, p.H, p.W, p.shift);
+  };
+  if (finish) {
+    attention_bwd_finish<C, D>(p, blockIdx.x, n_win, p.nH / hpb, smem, map);
+    return;
+  }
+  const int w0 = blockIdx.x * wn;
+  attention_bwd_item<C, D>(p, blockIdx.x, w0, min(wn, n_win - w0),
+                           blockIdx.y * hpb, hpb, smem, map);
+}
+
 template <typename T>
-static int run(const AttnBwdParams<T>& p, int Bw, cudaStream_t stream) {
-  return launch_attn_bwd(p, Bw, stream, [](auto d) {
-    return attention_block_bwd_kernel<T, decltype(d)::value>;
-  });
+static int run(const AttnBwdParams<T>& p, int Bw, int wn, int hpb,
+               cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return with_bwd_tile(p.C, p.nH, [&](auto c, auto d) {
+      constexpr int C = decltype(c)::value, D = decltype(d)::value;
+      return launch_attn_bwd_mma(attention_block_bwd_mma_kernel<C, D>,
+                                 AttnBwdMma<C, D>::total, p, wn, Bw, hpb,
+                                 stream);
+    });
+  } else {
+    return launch_attn_bwd(p, Bw, stream, [](auto d) {
+      return attention_block_bwd_kernel<T, decltype(d)::value>;
+    });
+  }
 }
 
 }  // namespace uf
@@ -57,8 +90,9 @@ extern "C" {
 
 // Returns a cudaError_t. x, g and dx are (Bw, 64, C) windows of H x W
 // images; the other arguments as uf_attention_bwd takes them (xm_w,
-// dqkv_w and o_img per token in window order), with no residual. The
-// scratch needs are uf_attention_bwd_scratch's.
+// dqkv_w and o_img per token in window order), with no residual, wn
+// windows or hpb heads per block in bf16 as there. The scratch needs are
+// uf_attention_bwd_scratch's.
 int uf_attention_block_bwd(int is_bf16, const void* x, const void* g,
                            const void* mod, const float* ln_s,
                            const float* ln_b, const void* wq,
@@ -67,23 +101,24 @@ int uf_attention_block_bwd(int is_bf16, const void* x, const void* g,
                            const float* bias, void* dx, void* xm_w,
                            void* dqkv_w, void* o_img, float* dbias_part,
                            float* dmod_part, float* dln_part,
-                           void* x_scratch, void* do_scratch, int Bw, int H,
-                           int W, int C, int nH, int shift, float scale,
-                           int has_ln, void* stream) {
+                           void* x_scratch, void* do_scratch,
+                           float* part_dxm, int Bw, int H, int W, int C,
+                           int nH, int shift, float scale, int has_ln, int wn,
+                           int hpb, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return uf::run(uf::attn_bwd_params<uf::bf16>(
                        x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx,
                        xm_w, dqkv_w, o_img, dbias_part, dmod_part, dln_part,
-                       x_scratch, do_scratch, 1, H, W, C, nH, shift, scale,
-                       has_ln, 0),
-                   Bw, s);
+                       x_scratch, do_scratch, part_dxm, 1, H, W, C, nH,
+                       shift, scale, has_ln, 0),
+                   Bw, wn, hpb, s);
   return uf::run(uf::attn_bwd_params<float>(
                      x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx,
                      xm_w, dqkv_w, o_img, dbias_part, dmod_part, dln_part,
-                     x_scratch, do_scratch, 1, H, W, C, nH, shift, scale,
-                     has_ln, 0),
-                 Bw, s);
+                     x_scratch, do_scratch, part_dxm, 1, H, W, C, nH, shift,
+                     scale, has_ln, 0),
+                 Bw, wn, hpb, s);
 }
 
 }  // extern "C"

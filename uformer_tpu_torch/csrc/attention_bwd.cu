@@ -20,7 +20,7 @@
 // D products per head dominate (at D = 16 one WMMA k-step each). Products
 // on the tensor cores (WMMA, fp32 accumulation) in bf16, the fp32 dS as
 // two bf16 halves; fp32 FMA loops in fp32 (the exact-check path).
-#include "attention_window_bwd.cuh"
+#include "attention_bwd_mma.cuh"
 
 namespace uf {
 
@@ -44,12 +44,49 @@ __global__ void __launch_bounds__(kThreads)
   attention_window_bwd<T, D>(p, w, smem);
 }
 
+// bf16: work item blockIdx.x, windows wn blockIdx.x .. of n_win, heads
+// hpb blockIdx.y ..; with `finish`, the end of window blockIdx.x after a
+// head split
+// (two blocks per SM at C <= 64, whose latency-bound windows fill each
+// other's gaps between barriers; 64 registers, 24-128 B of spills)
+template <int C, int D>
+__global__ void __launch_bounds__(kThreads, C <= 64 ? 2 : 1)
+    attention_bwd_mma_kernel(AttnBwdParams<bf16> p, int wn, int n_win,
+                             int hpb, int finish) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int H = p.H, W = p.W, s = p.shift;
+  const int nWw = W / 8, nW = (H / 8) * nWw;
+  auto map = [&](int w, int t, int* pix, int* rid) {
+    const int b = w / nW, wl = w % nW;
+    const int gr = (wl / nWw) * 8 + t / 8, gc = (wl % nWw) * 8 + t % 8;
+    *pix = (b * H + (gr + s) % H) * W + (gc + s) % W;
+    *rid = s ? window_region(wl, t, H, W, s) : 0;
+  };
+  if (finish) {
+    attention_bwd_finish<C, D>(p, blockIdx.x, n_win, p.nH / hpb, smem, map);
+    return;
+  }
+  const int w0 = blockIdx.x * wn;
+  attention_bwd_item<C, D>(p, blockIdx.x, w0, min(wn, n_win - w0),
+                           blockIdx.y * hpb, hpb, smem, map);
+}
+
 template <typename T>
-static int run(const AttnBwdParams<T>& p, cudaStream_t stream) {
-  return launch_attn_bwd(p, p.B * (p.H / 8) * (p.W / 8), stream,
-                         [](auto d) {
-                           return attention_bwd_kernel<T, decltype(d)::value>;
-                         });
+static int run(const AttnBwdParams<T>& p, int wn, int hpb,
+               cudaStream_t stream) {
+  const int n_win = p.B * (p.H / 8) * (p.W / 8);
+  if constexpr (std::is_same<T, bf16>::value) {
+    return with_bwd_tile(p.C, p.nH, [&](auto c, auto d) {
+      constexpr int C = decltype(c)::value, D = decltype(d)::value;
+      return launch_attn_bwd_mma(attention_bwd_mma_kernel<C, D>,
+                                 AttnBwdMma<C, D>::total, p, wn, n_win, hpb,
+                                 stream);
+    });
+  } else {
+    return launch_attn_bwd(p, n_win, stream, [](auto d) {
+      return attention_bwd_kernel<T, decltype(d)::value>;
+    });
+  }
 }
 
 }  // namespace uf
@@ -64,32 +101,38 @@ int uf_attention_bwd_scratch(int is_bf16, int C, int nH) {
 }
 
 // Returns a cudaError_t. is_bf16 selects bf16 (else fp32) for x, g, mod,
-// the weight matrices and every per-token output; biases, LayerNorm
-// parameters, the bias table and the partial sums are fp32. mod, ln_s /
-// ln_b (has_ln = 0), dmod_part and dln_part may be null.
+// the weight matrices and every per-token output; in bf16 (C 16-512 in
+// powers of 2, at most 16 heads) a block takes wn windows and the partial
+// sums are per block (ceil(windows / wn) rows), or, with hpb < nH (wn 1),
+// hpb heads of one window, whose fp32 dxm shares go through part_dxm
+// (nH / hpb x windows x 64 x C floats); fp32 takes one window a block.
+// Biases, LayerNorm parameters, the bias table and the partial sums are
+// fp32. mod, ln_s / ln_b (has_ln = 0), dmod_part, dln_part, the scratches
+// and part_dxm may be null where not needed.
 int uf_attention_bwd(int is_bf16, const void* x, const void* g,
                      const void* mod, const float* ln_s, const float* ln_b,
                      const void* wq, const float* bq, const void* wkv,
                      const float* bkv, const void* wo, const float* bias,
                      void* dx, void* xm_w, void* dqkv_w, void* o_img,
                      float* dbias_part, float* dmod_part, float* dln_part,
-                     void* x_scratch, void* do_scratch, int B, int H, int W,
-                     int C, int nH, int shift, float scale, int has_ln,
-                     int residual, void* stream) {
+                     void* x_scratch, void* do_scratch, float* part_dxm,
+                     int B, int H, int W, int C, int nH, int shift,
+                     float scale, int has_ln, int residual, int wn, int hpb,
+                     void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return uf::run(uf::attn_bwd_params<uf::bf16>(
                        x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx,
                        xm_w, dqkv_w, o_img, dbias_part, dmod_part, dln_part,
-                       x_scratch, do_scratch, B, H, W, C, nH, shift, scale,
-                       has_ln, residual),
-                   s);
+                       x_scratch, do_scratch, part_dxm, B, H, W, C, nH,
+                       shift, scale, has_ln, residual),
+                   wn, hpb, s);
   return uf::run(uf::attn_bwd_params<float>(
                      x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx,
                      xm_w, dqkv_w, o_img, dbias_part, dmod_part, dln_part,
-                     x_scratch, do_scratch, B, H, W, C, nH, shift, scale,
-                     has_ln, residual),
-                 s);
+                     x_scratch, do_scratch, part_dxm, B, H, W, C, nH, shift,
+                     scale, has_ln, residual),
+                 wn, hpb, s);
 }
 
 }  // extern "C"

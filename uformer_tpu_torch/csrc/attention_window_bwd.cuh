@@ -1,9 +1,10 @@
 // Backward of one 8x8 window of the LeWin attention sub-block, computed by
 // one thread block from its 64 gathered tokens, for head dim D in {16, 32}
-// (as the forward, attention_window.cuh). attention_bwd.cu runs it on the
-// image layout (tokens gathered at the shifted coordinates);
-// attention_block_bwd.cu on (Bw, 64, C) windows with the identity token
-// map.
+// (as the forward, attention_window.cuh), in fp32: the exact-check path
+// (bf16 runs attention_bwd_mma.cuh, the same function on mma.sync tiles).
+// attention_bwd.cu runs it on the image layout (tokens gathered at the
+// shifted coordinates); attention_block_bwd.cu on (Bw, 64, C) windows with
+// the identity token map.
 //
 // Forward (recomputed here from x, as the TPU kernel does):
 //   xm = LN1(x) + mod; q = (xm Wq + bq) * scale; k, v = xm Wkv + bkv;
@@ -43,6 +44,8 @@ struct AttnBwdParams {
   float* dln_part;     // (windows, 2C): dln_s then dln_b, or null
   T* x_scratch;        // (windows, 64, C) when xm misses shared memory
   T* do_scratch;       // (windows, 64, C) when dO misses shared memory
+  float* part_dxm;     // (groups, windows, 64, C) fp32 dxm shares, bf16
+                       // with a window's heads split over blocks
   int B, H, W, C, nH, shift;
   float scale;
   int has_ln, residual;
@@ -96,8 +99,8 @@ AttnBwdParams<T> attn_bwd_params(
     const float* bkv, const void* wo, const float* bias, void* dx,
     void* xm_w, void* dqkv_w, void* o_img, float* dbias_part,
     float* dmod_part, float* dln_part, void* x_scratch, void* do_scratch,
-    int B, int H, int W, int C, int nH, int shift, float scale, int has_ln,
-    int residual) {
+    float* part_dxm, int B, int H, int W, int C, int nH, int shift,
+    float scale, int has_ln, int residual) {
   AttnBwdParams<T> p;
   p.x = static_cast<const T*>(x);
   p.g = static_cast<const T*>(g);
@@ -119,6 +122,7 @@ AttnBwdParams<T> attn_bwd_params(
   p.dln_part = dln_part;
   p.x_scratch = static_cast<T*>(x_scratch);
   p.do_scratch = static_cast<T*>(do_scratch);
+  p.part_dxm = part_dxm;
   p.B = B;
   p.H = H;
   p.W = W;
@@ -165,6 +169,7 @@ int launch_attn_bwd(const AttnBwdParams<T>& p, int windows,
 template <typename T, int D>
 __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
                                      unsigned char* smem) {
+  static_assert(std::is_same<T, float>::value, "bf16: attention_bwd_mma");
   using L_ = AttnBwdLayout<D>;
   const L_ L = attn_bwd_layout<D>(sizeof(T), p.C);
   const int C = p.C, C3 = 3 * p.C;

@@ -8,9 +8,9 @@
 //
 // The depthwise conv couples neighbouring pixels twice on the way back
 // (pre2 needs h on a 1-pixel halo, dh needs dpre2 on a 1-pixel halo), so
-// the VJP runs as two tile kernels with the forward's tiling (TH x 8
-// output tiles, the 4C hidden in 64-channel chunks in shared memory, the
-// hidden zeroed outside the image for SAME padding):
+// the VJP runs as two tile kernels (TH x 8 output tiles, the 4C hidden in
+// 64-channel chunks, the hidden zeroed outside the image for SAME
+// padding):
 //   A: x (+halo) -> LN -> h -> pre2 -> g = GELU(pre2); dg = dy . W2^T;
 //      dpre2 = dg * GELU'(pre2). Writes g and dpre2 per pixel, and per
 //      tile the partial sums of dwd (dpre2 against the shifted h) and dbd.
@@ -19,67 +19,49 @@
 //      LayerNorm VJP gives dx [+ dy]. Writes LN(x) and dpre1 per pixel,
 //      and per tile the partial sums of dln_s, dln_b and db1 (db1 from the
 //      fp32 dpre1 before its bf16 rounding, as the TPU kernel sums it).
-// dW1 = LN(x)^T dpre1, dW2 = g^T dy and the bias and tile sums are then
-// reduced over all pixels in a fixed order (wgrad.cuh).
+// dW1 = LN(x)^T dpre1, dW2 = g^T dy (with db2, the column sum of dy) are
+// then reduced over all pixels in a fixed order (wgrad.cuh), and the tile
+// sums by colsum.
 //
 // What bounds it on the H100: the products are 3 x 2*C*Ch MACs per pixel
 // (GEMM1 twice, dy.W2^T, dpre1.W1^T) plus the weight-gradient products;
 // the per-pixel g, dpre2 and dpre1 are 3 x Ch values written once and read
-// once or twice, which at C = 32 (Ch = 128) is the larger cost. Products
-// on the tensor cores (WMMA, fp32 accumulation) in bf16; fp32 FMA loops in
-// fp32 (the exact-check path).
-#include "leff_tile.cuh"
+// once or twice, which at C = 32 (Ch = 128) is the larger cost. bf16 runs
+// the tiles of leff_bwd_mma.cuh: mma.sync products with register
+// accumulators, weight tiles through a cp.async ring, partial tiles
+// masked, and the hidden chunks of a tile split over blocks where tiles
+// are few (host's choice). fp32 (the exact-check path) runs the FMA loops
+// below, one tile per block, partial tiles masked too.
+#include "leff_bwd_mma.cuh"
 
 namespace uf {
 
-template <typename T>
-struct LeffBwdParams {
-  const T* x;         // (B, H, W, C)
-  const T* dy;        // (B, H, W, C)
-  const float* ln_s;  // (C,)
-  const float* ln_b;  // (C,)
-  const T* w1;        // (C, Ch)
-  const float* b1;    // (Ch,)
-  const T* wd;        // (3, 3, Ch)
-  const float* bd;    // (Ch,)
-  const T* w2;        // (Ch, C)
-  T* g;               // (B, H, W, Ch) GELU(dw3x3(h) + bd)         [A]
-  T* dpre2;           // (B, H, W, Ch)                             [A -> B]
-  float* part_a;      // (tiles, 10 * Ch): dwd (3, 3, Ch), then dbd [A]
-  T* dx;              // (B, H, W, C)                              [B]
-  T* ln;              // (B, H, W, C) LN(x)                        [B]
-  T* dpre1;           // (B, H, W, Ch)                             [B]
-  float* part_b;      // (tiles, 2 * C + Ch): dln_s, dln_b, then db1 [B]
-  int B, H, W, C, Ch, TH;
-  int has_ln, residual;
-};
-
-constexpr int kRowStep = kThreads / kLeffChunk;  // 8 row groups
+// ---- fp32 (the exact-check path) -------------------------------------
 
 struct LeffBwdLayout {
   static constexpr int ldh = kLeffChunk + 4, ldg = kLeffChunk + 8;
-  int TH, Mo, nh, Mh, ldx, lda, ldw1, ldw2;
-  size_t xn, dyt, hid, dg, hpix, red, w;        // kernel A
+  int TH, Mo, nh, Mh, ldx, lda;
+  size_t xn, dyt, hid, dg, hpix, red;           // kernel A
   size_t acc, dp2, dp1, stats;                  // kernel B (and xn, hid)
-  size_t total;
+  size_t opix, total;
 };
 
-// which = 0: kernel A, 1: kernel B
-__host__ __device__ inline LeffBwdLayout leff_bwd_layout(int which, int ts,
-                                                         int C, int TH) {
+// which = 0: kernel A, 1: kernel B; fp32 tiles
+__host__ __device__ inline LeffBwdLayout leff_bwd_layout(int which, int C,
+                                                         int TH) {
   LeffBwdLayout L;
   Carver cv;
+  constexpr int ts = sizeof(float);
   L.TH = TH;
   L.Mo = TH * 8;
   L.nh = (TH + 2) * 10;
   L.Mh = (L.nh + 15) / 16 * 16;
   L.ldx = C + 8;
   L.lda = C + 4;
-  L.ldw1 = kLeffChunk + 8;
-  L.ldw2 = C + 8;
   constexpr int ldh = LeffBwdLayout::ldh, ldg = LeffBwdLayout::ldg;
   L.dyt = L.dg = L.red = L.acc = L.dp2 = L.dp1 = L.stats = 0;
   L.hpix = cv.take((size_t)L.Mh * sizeof(int));
+  L.opix = cv.take((size_t)L.Mo * sizeof(int));
   if (which == 0) {
     L.xn = cv.take((size_t)L.Mh * L.ldx * ts);
     L.dyt = cv.take((size_t)L.Mo * L.ldx * ts);
@@ -94,45 +76,31 @@ __host__ __device__ inline LeffBwdLayout leff_bwd_layout(int which, int ts,
     L.dp1 = cv.take((size_t)L.Mo * ldg * ts);
     L.stats = cv.take((size_t)2 * L.Mo * sizeof(float));
   }
-  L.w = 0;
-  if (ts == 2) {  // staged weight chunks, bf16 only
-    const size_t w1 = (size_t)C * L.ldw1, w2 = (size_t)kLeffChunk * L.ldw2;
-    L.w = cv.take(((which == 0 && w2 > w1) ? w2 : w1) * ts);
-  }
   L.total = cv.off;
   return L;
 }
 
-__host__ __device__ inline int leff_bwd_tile_rows(int which, int ts, int C) {
+__host__ __device__ inline int leff_bwd_tile_rows_f32(int which, int C) {
   for (int th = 8; th > 2; th >>= 1)
-    if (leff_bwd_layout(which, ts, C, th).total <= kSmemLimit) return th;
+    if (leff_bwd_layout(which, C, th).total <= kSmemLimit) return th;
   return 2;
 }
 
-// halo pixel indices of tile `item` (-1 outside the image or padding rows)
-template <typename T>
-__device__ void tile_geometry(const LeffBwdParams<T>& p, int item, int Mh,
-                              int nh, int* hpix, int& b, int& r0, int& c0) {
-  const int nTw = p.W / 8, nT = (p.H / p.TH) * nTw;
-  b = item / nT;
-  r0 = ((item % nT) / nTw) * p.TH;
-  c0 = (item % nTw) * 8;
-  for (int i = threadIdx.x; i < Mh; i += blockDim.x) {
-    int at = -1;
-    if (i < nh) {
-      const int r = r0 - 1 + i / 10, c = c0 - 1 + i % 10;
-      if (r >= 0 && r < p.H && c >= 0 && c < p.W) at = (b * p.H + r) * p.W + c;
-    }
-    hpix[i] = at;
-  }
+// halo pixel indices of tile `item` (-1 outside the image or padding
+// rows) and output pixel indices (-1 past the image)
+__device__ void tile_geometry(const LeffBwdParams<float>& p, int item,
+                              int Mh, int nh, int Mo, int* hpix, int* opix) {
+  const TileGeom geo(item, p.TH, p.H, p.W);
+  for (int i = threadIdx.x; i < Mh; i += blockDim.x) hpix[i] = geo.halo(i, nh);
+  for (int o = threadIdx.x; o < Mo; o += blockDim.x) opix[o] = geo.out(o);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    leff_bwd_a_kernel(LeffBwdParams<T> p) {
+    leff_bwd_a_kernel(LeffBwdParams<float> p) {
+  using T = float;
   extern __shared__ __align__(128) unsigned char smem[];
-  const LeffBwdLayout L = leff_bwd_layout(0, sizeof(T), p.C, p.TH);
-  const int C = p.C, Ch = p.Ch, W = p.W, H = p.H;
+  const LeffBwdLayout L = leff_bwd_layout(0, p.C, p.TH);
+  const int C = p.C, Ch = p.Ch;
   const int tid = threadIdx.x, warp = tid >> 5;
   T* xn = reinterpret_cast<T*>(smem + L.xn);
   T* dyt = reinterpret_cast<T*>(smem + L.dyt);
@@ -140,22 +108,18 @@ __global__ void __launch_bounds__(kThreads)
   float* dg = reinterpret_cast<float*>(smem + L.dg);
   float* red = reinterpret_cast<float*>(smem + L.red);
   int* hpix = reinterpret_cast<int*>(smem + L.hpix);
-  T* wbuf = reinterpret_cast<T*>(smem + L.w);
-  constexpr bool kStage = sizeof(T) == 2;
+  int* opix = reinterpret_cast<int*>(smem + L.opix);
   constexpr int ldh = LeffBwdLayout::ldh;
   const int ldx = L.ldx, Mh = L.Mh, Mo = L.Mo;
-  int b, r0, c0;
-  tile_geometry<T>(p, blockIdx.x, Mh, L.nh, hpix, b, r0, c0);
+  tile_geometry(p, blockIdx.x, Mh, L.nh, Mo, hpix, opix);
   __syncthreads();
   for (int idx = tid; idx < Mh * C; idx += blockDim.x) {
     const int i = idx / C, c = idx % C;
-    xn[i * ldx + c] = hpix[i] >= 0 ? p.x[(size_t)hpix[i] * C + c]
-                                   : from_f<T>(0.f);
+    xn[i * ldx + c] = hpix[i] >= 0 ? p.x[(size_t)hpix[i] * C + c] : 0.f;
   }
   for (int idx = tid; idx < Mo * C; idx += blockDim.x) {
     const int o = idx / C, c = idx % C;
-    const size_t at = (size_t)(b * H + r0 + o / 8) * W + c0 + o % 8;
-    dyt[o * ldx + c] = p.dy[at * C + c];
+    dyt[o * ldx + c] = opix[o] >= 0 ? p.dy[(size_t)opix[o] * C + c] : 0.f;
   }
   __syncthreads();
   if (p.has_ln) {
@@ -167,48 +131,34 @@ __global__ void __launch_bounds__(kThreads)
 
   const int j = tid % kLeffChunk, grp = tid / kLeffChunk;
   for (int k0 = 0; k0 < Ch; k0 += kLeffChunk) {
-    if constexpr (kStage) {
-      stage_tile<T>(wbuf, L.ldw1, p.w1 + k0, Ch, C, kLeffChunk);
-      __syncthreads();
-      block_gemm<T, false, false>(xn, ldx, wbuf, L.ldw1, hid, ldh, Mh,
-                                  kLeffChunk, C);
-    } else {
-      block_gemm<T, false, false>(xn, ldx, p.w1 + k0, Ch, hid, ldh, Mh,
-                                  kLeffChunk, C);
-    }
+    block_gemm<T, false, false>(xn, ldx, p.w1 + k0, Ch, hid, ldh, Mh,
+                                kLeffChunk, C);
     __syncthreads();
-    if constexpr (kStage)
-      stage_tile<T>(wbuf, L.ldw2, p.w2 + (size_t)k0 * C, C, kLeffChunk, C);
     const float b1j = p.b1[k0 + j], bdj = p.bd[k0 + j];
     float wdj[9];
 #pragma unroll
-    for (int t = 0; t < 9; ++t) wdj[t] = to_f<T>(p.wd[t * Ch + k0 + j]);
+    for (int t = 0; t < 9; ++t) wdj[t] = p.wd[t * Ch + k0 + j];
     for (int i = grp; i < Mh; i += kRowStep)
-      hid[i * ldh + j] =
-          hpix[i] >= 0 ? rnd<T>(gelu(hid[i * ldh + j] + b1j)) : 0.f;
+      hid[i * ldh + j] = hpix[i] >= 0 ? gelu(hid[i * ldh + j] + b1j) : 0.f;
     __syncthreads();
     // dg = dy . W2[k0:k0+64, :]^T
-    if constexpr (kStage)
-      block_gemm<T, true, false>(dyt, ldx, wbuf, L.ldw2, dg, ldh, Mo,
-                                 kLeffChunk, C);
-    else
-      block_gemm<T, true, false>(dyt, ldx, p.w2 + (size_t)k0 * C, C, dg, ldh,
-                                 Mo, kLeffChunk, C);
+    block_gemm<T, true, false>(dyt, ldx, p.w2 + (size_t)k0 * C, C, dg, ldh,
+                               Mo, kLeffChunk, C);
     __syncthreads();
     float dwd[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     float dbd = 0.f;
     for (int o = grp; o < Mo; o += kRowStep) {
+      if (opix[o] < 0) continue;
       const float* h0 = hid + ((o / 8) * 10 + o % 8) * ldh + j;
       float pre = 0.f;
 #pragma unroll
       for (int t = 0; t < 9; ++t)
         pre = fmaf(h0[((t / 3) * 10 + t % 3) * ldh], wdj[t], pre);
       pre += bdj;
-      const size_t at =
-          ((size_t)(b * H + r0 + o / 8) * W + c0 + o % 8) * Ch + k0 + j;
-      p.g[at] = from_f<T>(gelu(pre));
-      const float dp = rnd<T>(rnd<T>(dg[o * ldh + j]) * gelu_grad(pre));
-      p.dpre2[at] = from_f<T>(dp);
+      const size_t at = (size_t)opix[o] * Ch + k0 + j;
+      p.g[at] = gelu(pre);
+      const float dp = dg[o * ldh + j] * gelu_grad(pre);
+      p.dpre2[at] = dp;
       dbd += dp;
 #pragma unroll
       for (int t = 0; t < 9; ++t)
@@ -230,12 +180,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    leff_bwd_b_kernel(LeffBwdParams<T> p) {
+    leff_bwd_b_kernel(LeffBwdParams<float> p) {
+  using T = float;
   extern __shared__ __align__(128) unsigned char smem[];
-  const LeffBwdLayout L = leff_bwd_layout(1, sizeof(T), p.C, p.TH);
-  const int C = p.C, Ch = p.Ch, W = p.W, H = p.H;
+  const LeffBwdLayout L = leff_bwd_layout(1, p.C, p.TH);
+  const int C = p.C, Ch = p.Ch;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   T* xn = reinterpret_cast<T*>(smem + L.xn);
   float* acc = reinterpret_cast<float*>(smem + L.acc);
@@ -244,62 +194,54 @@ __global__ void __launch_bounds__(kThreads)
   T* dp1 = reinterpret_cast<T*>(smem + L.dp1);
   float* stats = reinterpret_cast<float*>(smem + L.stats);
   int* hpix = reinterpret_cast<int*>(smem + L.hpix);
-  T* wbuf = reinterpret_cast<T*>(smem + L.w);
-  constexpr bool kStage = sizeof(T) == 2;
+  int* opix = reinterpret_cast<int*>(smem + L.opix);
   constexpr int ldh = LeffBwdLayout::ldh, ldg = LeffBwdLayout::ldg;
   const int ldx = L.ldx, lda = L.lda, Mh = L.Mh, Mo = L.Mo;
-  int b, r0, c0;
-  tile_geometry<T>(p, blockIdx.x, Mh, L.nh, hpix, b, r0, c0);
-  auto pix = [&](int o) {
-    return (size_t)(b * H + r0 + o / 8) * W + c0 + o % 8;
-  };
+  tile_geometry(p, blockIdx.x, Mh, L.nh, Mo, hpix, opix);
+  __syncthreads();
   for (int idx = tid; idx < Mo * C; idx += blockDim.x) {
     const int o = idx / C, c = idx % C;
-    xn[o * ldx + c] = p.x[pix(o) * C + c];
+    xn[o * ldx + c] = opix[o] >= 0 ? p.x[(size_t)opix[o] * C + c] : 0.f;
     acc[o * lda + c] = 0.f;
   }
   __syncthreads();
   for (int o = warp; o < Mo; o += kWarps) {
+    if (opix[o] < 0) continue;
     if (p.has_ln)
       ln_row<T>(xn + o * ldx, C, p.ln_s, p.ln_b, true, nullptr,
                 stats + 2 * o);
-    for (int c = lane; c < C; c += 32) p.ln[pix(o) * C + c] = xn[o * ldx + c];
+    for (int c = lane; c < C; c += 32)
+      p.ln[(size_t)opix[o] * C + c] = xn[o * ldx + c];
   }
   __syncthreads();
 
   const int j = tid % kLeffChunk, grp = tid / kLeffChunk;
   for (int k0 = 0; k0 < Ch; k0 += kLeffChunk) {
-    if constexpr (kStage) {
-      stage_tile<T>(wbuf, L.ldw1, p.w1 + k0, Ch, C, kLeffChunk);
-      __syncthreads();
-      block_gemm<T, false, false>(xn, ldx, wbuf, L.ldw1, hid, ldh, Mo,
-                                  kLeffChunk, C);
-    } else {
-      block_gemm<T, false, false>(xn, ldx, p.w1 + k0, Ch, hid, ldh, Mo,
-                                  kLeffChunk, C);
-    }
+    block_gemm<T, false, false>(xn, ldx, p.w1 + k0, Ch, hid, ldh, Mo,
+                                kLeffChunk, C);
     for (int i = grp; i < Mh; i += kRowStep)
-      dp2[i * ldh + j] = hpix[i] >= 0
-                             ? to_f<T>(p.dpre2[(size_t)hpix[i] * Ch + k0 + j])
-                             : 0.f;
+      dp2[i * ldh + j] =
+          hpix[i] >= 0 ? p.dpre2[(size_t)hpix[i] * Ch + k0 + j] : 0.f;
     __syncthreads();
     const float b1j = p.b1[k0 + j];
     float wdj[9];
 #pragma unroll
-    for (int t = 0; t < 9; ++t) wdj[t] = to_f<T>(p.wd[t * Ch + k0 + j]);
-    float db1 = 0.f;  // this thread's rows of db1[k0 + j], fp32
+    for (int t = 0; t < 9; ++t) wdj[t] = p.wd[t * Ch + k0 + j];
+    float db1 = 0.f;  // this thread's rows of db1[k0 + j]
     for (int o = grp; o < Mo; o += kRowStep) {
-      // dh[q] = sum over taps (dy, dx) of dpre2[q - (dy - 1, dx - 1)] wd
-      const float* d0 = dp2 + ((o / 8 + 2) * 10 + o % 8 + 2) * ldh + j;
-      float dh = 0.f;
+      float dp = 0.f;
+      if (opix[o] >= 0) {
+        // dh[q] = sum over taps (dy, dx) of dpre2[q - (dy - 1, dx - 1)] wd
+        const float* d0 = dp2 + ((o / 8 + 2) * 10 + o % 8 + 2) * ldh + j;
+        float dh = 0.f;
 #pragma unroll
-      for (int t = 0; t < 9; ++t)
-        dh = fmaf(d0[-((t / 3) * 10 + t % 3) * ldh], wdj[t], dh);
-      const float d32 = rnd<T>(dh) * gelu_grad(hid[o * ldh + j] + b1j);
-      db1 += d32;
-      const float dp = rnd<T>(d32);
-      dp1[o * ldg + j] = from_f<T>(dp);
-      p.dpre1[pix(o) * Ch + k0 + j] = from_f<T>(dp);
+        for (int t = 0; t < 9; ++t)
+          dh = fmaf(d0[-((t / 3) * 10 + t % 3) * ldh], wdj[t], dh);
+        dp = dh * gelu_grad(hid[o * ldh + j] + b1j);
+        db1 += dp;
+        p.dpre1[(size_t)opix[o] * Ch + k0 + j] = dp;
+      }
+      dp1[o * ldg + j] = dp;
     }
     // row grp of hid is read by this thread's group only, and only for
     // column j by this thread: it takes the partial until the next chunk
@@ -311,30 +253,24 @@ __global__ void __launch_bounds__(kThreads)
       p.part_b[(size_t)blockIdx.x * (2 * C + Ch) + 2 * C + k0 + tid] = s;
     }
     // dLN += dpre1 . W1[:, k0:k0+64]^T
-    if constexpr (kStage)
-      block_gemm<T, true, true>(dp1, ldg, wbuf, L.ldw1, acc, lda, Mo, C,
-                                kLeffChunk);
-    else
-      block_gemm<T, true, true>(dp1, ldg, p.w1 + k0, Ch, acc, lda, Mo, C,
-                                kLeffChunk);
+    block_gemm<T, true, true>(dp1, ldg, p.w1 + k0, Ch, acc, lda, Mo, C,
+                              kLeffChunk);
     __syncthreads();
   }
 
-  // LayerNorm VJP, one warp per pixel, on dLN rounded to T as the plain
-  // path rounds it; acc keeps the fp32 dLN, which dln_s and dln_b sum, as
-  // the TPU kernel sums its fp32 product (leff.py:683-688): summed over
-  // every pixel, per-pixel rounding would add a random walk of roundings
+  // LayerNorm VJP, one warp per pixel; dln_s and dln_b sum the fp32 dLN
+  // (leff.py:683-688)
   for (int o = warp; o < Mo; o += kWarps) {
-    const size_t at = pix(o) * C;
+    if (opix[o] < 0) continue;
+    const size_t at = (size_t)opix[o] * C;
     const float* row = acc + o * lda;
     float mean = 0.f, rstd = 1.f, s1 = 0.f, s2 = 0.f;
     if (p.has_ln) {
       mean = stats[2 * o];
       rstd = stats[2 * o + 1];
       for (int c = lane; c < C; c += 32) {
-        const float dn = rnd<T>(row[c]);
-        const float xh = (to_f<T>(p.x[at + c]) - mean) * rstd;
-        const float dxh = dn * p.ln_s[c];
+        const float xh = (p.x[at + c] - mean) * rstd;
+        const float dxh = row[c] * p.ln_s[c];
         s1 += dxh;
         s2 += dxh * xh;
       }
@@ -342,15 +278,13 @@ __global__ void __launch_bounds__(kThreads)
       s2 = warp_sum(s2) / C;
     }
     for (int c = lane; c < C; c += 32) {
-      float d;
+      float d = row[c];
       if (p.has_ln) {
-        const float xh = (to_f<T>(p.x[at + c]) - mean) * rstd;
-        d = rstd * (rnd<T>(row[c]) * p.ln_s[c] - s1 - xh * s2);
-      } else {
-        d = rnd<T>(row[c]);
+        const float xh = (p.x[at + c] - mean) * rstd;
+        d = rstd * (row[c] * p.ln_s[c] - s1 - xh * s2);
       }
-      if (p.residual) d = rnd<T>(d) + to_f<T>(p.dy[at + c]);
-      p.dx[at + c] = from_f<T>(d);
+      if (p.residual) d += p.dy[at + c];
+      p.dx[at + c] = d;
     }
   }
   if (!p.has_ln) return;
@@ -358,8 +292,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = tid; c < C; c += blockDim.x) {
     float ss = 0.f, sb = 0.f;
     for (int o = 0; o < Mo; ++o) {
-      const float xh = (to_f<T>(p.x[pix(o) * C + c]) - stats[2 * o]) *
-                       stats[2 * o + 1];
+      if (opix[o] < 0) continue;
+      const float xh =
+          (p.x[(size_t)opix[o] * C + c] - stats[2 * o]) * stats[2 * o + 1];
       ss = fmaf(acc[o * lda + c], xh, ss);
       sb += acc[o * lda + c];
     }
@@ -368,15 +303,91 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-static int run(int which, LeffBwdParams<T>& p, cudaStream_t stream) {
-  p.TH = leff_bwd_tile_rows(which, sizeof(T), p.C);
-  const LeffBwdLayout L = leff_bwd_layout(which, sizeof(T), p.C, p.TH);
-  auto kernel = which == 0 ? leff_bwd_a_kernel<T> : leff_bwd_b_kernel<T>;
+// ---- bf16 ------------------------------------------------------------
+
+// (two blocks per SM at C <= 32, where both fit shared memory)
+template <int C>
+__global__ void __launch_bounds__(kThreads, C <= 32 ? 2 : 1)
+    leff_bwd_a_mma_kernel(LeffBwdParams<bf16> p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  leff_bwd_a_tile<C>(p, smem);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+    leff_bwd_b_mma_kernel(LeffBwdParams<bf16> p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  leff_bwd_b_tile<C>(p, smem);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+    leff_bwd_finish_kernel(LeffBwdParams<bf16> p, int groups) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  leff_bwd_finish_tile<C>(p, groups, smem);
+}
+
+template <int C>
+__host__ inline int mma_rows(int which) {
+  return which == 0 ? LeffBwdA<C>::TH : LeffBwdB<C>::TH;
+}
+
+// Output rows of a tile of kernel `which` (0: A, 1: B and its finish); 0
+// where bf16 has no tile for C
+__host__ inline int leff_bwd_tile_rows(int which, int ts, int C) {
+  if (ts == 4) return leff_bwd_tile_rows_f32(which, C);
+  switch (C) {
+    case 16: return mma_rows<16>(which);
+    case 32: return mma_rows<32>(which);
+    case 64: return mma_rows<64>(which);
+    case 128: return mma_rows<128>(which);
+    case 256: return mma_rows<256>(which);
+    case 512: return mma_rows<512>(which);
+  }
+  return 0;
+}
+
+template <typename K>
+static int launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
+                  const LeffBwdParams<bf16>& p) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// which: 0 A, 1 B, 2 the finish of a split B over `groups` groups
+template <int C>
+static int run_mma(int which, LeffBwdParams<bf16>& p, int groups,
+                   cudaStream_t stream) {
+  p.TH = leff_bwd_tile_rows(which == 0 ? 0 : 1, 2, C);
+  const int tiles = p.B * ((p.H + p.TH - 1) / p.TH) * ((p.W + 7) / 8);
+  const int chunks = p.Ch / kLeffChunk;
+  const dim3 grid(tiles, (chunks + p.cpg - 1) / p.cpg);
+  if (which == 0)
+    return launch(leff_bwd_a_mma_kernel<C>, grid, LeffBwdA<C>::total, stream,
+                  p);
+  if (which == 1)
+    return launch(leff_bwd_b_mma_kernel<C>, grid, LeffBwdB<C>::total, stream,
+                  p);
+  constexpr size_t smem = LeffBwdB<C>::total;
+  cudaError_t e = cudaFuncSetAttribute(
+      leff_bwd_finish_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  leff_bwd_finish_kernel<C><<<tiles, kThreads, smem, stream>>>(p, groups);
+  return (int)cudaGetLastError();
+}
+
+static int run_f32(int which, LeffBwdParams<float>& p, cudaStream_t stream) {
+  p.TH = leff_bwd_tile_rows_f32(which, p.C);
+  const LeffBwdLayout L = leff_bwd_layout(which, p.C, p.TH);
+  auto kernel = which == 0 ? leff_bwd_a_kernel : leff_bwd_b_kernel;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = p.B * (p.H / p.TH) * (p.W / 8);
+  const int blocks = p.B * ((p.H + p.TH - 1) / p.TH) * ((p.W + 7) / 8);
   kernel<<<blocks, kThreads, L.total, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -386,9 +397,9 @@ static int run_bwd(int which, const void* x, const void* dy,
                    const float* ln_s, const float* ln_b, const void* w1,
                    const float* b1, const void* wd, const float* bd,
                    const void* w2, void* g, void* dpre2, float* part_a,
-                   void* dx, void* ln, void* dpre1, float* part_b, int B,
-                   int H, int W, int C, int Ch, int has_ln, int residual,
-                   void* stream) {
+                   void* dx, void* ln, void* dpre1, float* part_b,
+                   float* part_dln, int cpg, int B, int H, int W, int C,
+                   int Ch, int has_ln, int residual, void* stream) {
   LeffBwdParams<T> p;
   p.x = static_cast<const T*>(x);
   p.dy = static_cast<const T*>(dy);
@@ -406,6 +417,7 @@ static int run_bwd(int which, const void* x, const void* dy,
   p.ln = static_cast<T*>(ln);
   p.dpre1 = static_cast<T*>(dpre1);
   p.part_b = part_b;
+  p.part_dln = part_dln;
   p.B = B;
   p.H = H;
   p.W = W;
@@ -413,36 +425,61 @@ static int run_bwd(int which, const void* x, const void* dy,
   p.Ch = Ch;
   p.has_ln = has_ln;
   p.residual = residual;
-  return run<T>(which, p, static_cast<cudaStream_t>(stream));
+  const int chunks = Ch / kLeffChunk;
+  p.cpg = cpg > 0 && cpg < chunks ? cpg : chunks;
+  auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same<T, float>::value) {
+    return which == 2 ? (int)cudaErrorInvalidValue : run_f32(which, p, s);
+  } else {
+    // the finish pass's groups: those of the split B launch
+    const int groups = (chunks + p.cpg - 1) / p.cpg;
+    switch (C) {
+      case 16: return run_mma<16>(which, p, groups, s);
+      case 32: return run_mma<32>(which, p, groups, s);
+      case 64: return run_mma<64>(which, p, groups, s);
+      case 128: return run_mma<128>(which, p, groups, s);
+      case 256: return run_mma<256>(which, p, groups, s);
+      case 512: return run_mma<512>(which, p, groups, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace uf
 
 extern "C" {
 
-// Tile height of backward kernel `which` (0: A, 1: B) for this dtype and
-// width; H must be a multiple of it (8, 4 or 2).
+// Output rows of a tile of backward kernel `which` (0: A, 1: B) for this
+// dtype and width: the tiles are TH x 8 outputs over a (B, ceil(H / TH),
+// ceil(W / 8)) grid, partial tiles masked. 0 where bf16 has no tile for
+// C (C other than 16-512 in powers of 2).
 int uf_leff_bwd_tile_rows(int which, int is_bf16, int C) {
   return uf::leff_bwd_tile_rows(which, is_bf16 ? 2 : 4, C);
 }
 
-// One of the two backward tile kernels (which = 0: A, 1: B). A reads x, dy,
-// LN, w1, b1, wd, bd, w2 and writes g, dpre2, part_a; B reads x, dy, LN,
-// w1, b1, wd, dpre2 and writes dx, ln, dpre1, part_b. Pointers a kernel
-// does not use may be null. Returns a cudaError_t.
+// One of the backward kernels: which = 0: A, 1: B, 2: (bf16) the finish
+// of a B split into groups of cpg hidden chunks (cpg >= Ch / 64: no
+// split; fp32 never splits). A reads x, dy, LN, w1, b1, wd, bd, w2 and
+// writes g, dpre2, part_a; B reads x, dy, LN, w1, b1, wd, dpre2 and writes
+// dx, ln, dpre1, part_b, or, split, ln, dpre1, db1's part of part_b and
+// part_dln (groups x tiles x TH 8 x C fp32); the finish reads part_dln, x,
+// dy, LN and writes dx and the rest of part_b. Pointers a kernel does not
+// use may be null. Returns a cudaError_t.
 int uf_leff_bwd(int which, int is_bf16, const void* x, const void* dy,
                 const float* ln_s, const float* ln_b, const void* w1,
                 const float* b1, const void* wd, const float* bd,
                 const void* w2, void* g, void* dpre2, float* part_a, void* dx,
-                void* ln, void* dpre1, float* part_b, int B, int H, int W,
-                int C, int Ch, int has_ln, int residual, void* stream) {
+                void* ln, void* dpre1, float* part_b, float* part_dln,
+                int cpg, int B, int H, int W, int C, int Ch, int has_ln,
+                int residual, void* stream) {
   if (is_bf16)
     return uf::run_bwd<uf::bf16>(which, x, dy, ln_s, ln_b, w1, b1, wd, bd, w2,
-                                 g, dpre2, part_a, dx, ln, dpre1, part_b, B, H,
-                                 W, C, Ch, has_ln, residual, stream);
+                                 g, dpre2, part_a, dx, ln, dpre1, part_b,
+                                 part_dln, cpg, B, H, W, C, Ch, has_ln,
+                                 residual, stream);
   return uf::run_bwd<float>(which, x, dy, ln_s, ln_b, w1, b1, wd, bd, w2, g,
-                            dpre2, part_a, dx, ln, dpre1, part_b, B, H, W, C,
-                            Ch, has_ln, residual, stream);
+                            dpre2, part_a, dx, ln, dpre1, part_b, part_dln,
+                            cpg, B, H, W, C, Ch, has_ln, residual, stream);
 }
 
 }  // extern "C"

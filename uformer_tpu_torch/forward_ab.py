@@ -7,6 +7,9 @@ to compare them within one run:
     python -m uformer_tpu_torch.forward_ab --what leff --roots ...
     python -m uformer_tpu_torch.forward_ab --what stage --roots ...
     python -m uformer_tpu_torch.forward_ab --what train --roots ...
+    python -m uformer_tpu_torch.forward_ab --what train_t --roots ...
+    python -m uformer_tpu_torch.forward_ab --what leff_bwd --roots ...
+    python -m uformer_tpu_torch.forward_ab --what attention_bwd --roots ...
 
 Each root runs in its own process (its own `uformer_tpu_torch`, its own
 kernel build, made during the warm-up and not timed). `forward`: a bf16
@@ -24,8 +27,19 @@ T, serve B-conv (bs8 256^2) and the train and train T steps (bs32 128^2);
 shift, the decoder's modulator); each timed as launches in a CUDA graph
 (device time), with its largest difference from the plain version;
 `train`: the Uformer_B bf16 train step (bs32 128^2, mixup on, AdamW),
-the median of 10 steps after 3 warm-up ones (CUDA events). Prints one
-JSON line per root (ms), then the card's name and power limit.
+the median of 10 steps after 3 warm-up ones (CUDA events), `train_t` the
+same for Uformer_T; `leff_bwd`:
+`fused_leff_bwd` in bf16 (as `leff`, LN, residual at C = 512) at every
+(B, H, W, C) of the train and train T steps (bs32 128^2);
+`attention_bwd`: `fused_attention_image_bwd` in bf16 at every image-route
+stage of those steps (shift 4 where the image is wider than a window, the
+decoder's modulator) and `fused_attention_block_bwd` at train T's
+windowed enc0; both timed as launches in a CUDA graph (device time), with
+their largest difference from the plain VJP; `bwd_split`: both backward
+kernels at the train and train T stages where the host splits a tile's
+hidden chunks or a window's heads over blocks, the host's plan against
+no split, in turns (CUDA graphs). Prints one JSON line per root (ms), then
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -212,7 +226,7 @@ import json, statistics, torch
 from uformer_tpu_torch import get_arch
 from uformer_tpu_torch.train import TrainState, make_optimizer, make_train_step
 torch.manual_seed(0)
-model = get_arch({"arch": "Uformer_B", "train_ps": 128,
+model = get_arch({"arch": ARCH, "train_ps": 128,
                   "dtype": torch.bfloat16}).cuda()
 gen = torch.Generator().manual_seed(5)
 target = torch.rand(32, 128, 128, 3, generator=gen)
@@ -234,8 +248,123 @@ for i in range(13):
         runs.append(start.elapsed_time(end))
 print(json.dumps({"median_ms": statistics.median(runs), "runs_ms": runs}))
 """
+_TRAIN_SHAPES = """
+train = ([(32, 128 >> k, 128 >> k, 32 << k) for k in range(5)]
+         + [(32, 16, 16, 512), (32, 32, 32, 256), (32, 64, 64, 128),
+            (32, 128, 128, 64)])
+train_t = ([(32, 128 >> k, 128 >> k, 16 << k) for k in range(5)]
+           + [(32, 16, 16, 256), (32, 32, 32, 128), (32, 64, 64, 64),
+              (32, 128, 128, 32)])
+cells = {}
+for cell, lst in (("train", train), ("train T", train_t)):
+    for i, shape in enumerate(lst):
+        cells.setdefault(shape, []).append((cell, i))
+
+def worst(got, ref):
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, ref) if a is not None)
+"""
+
+_LEFF_BWD = _KERNEL_COMMON + _TRAIN_SHAPES + """
+f32 = torch.float32
+rows = []
+for shape, where in cells.items():
+    C = shape[-1]
+    Ch = 4 * C
+    w = (rnd(C, Ch, scale=C ** -0.5), rnd(Ch, scale=0.1, dtype=f32),
+         rnd(3, 3, Ch, scale=1 / 3), rnd(Ch, scale=0.1, dtype=f32),
+         rnd(Ch, C, scale=Ch ** -0.5))
+    ln = (1.0 + rnd(C, scale=0.1, dtype=f32), rnd(C, scale=0.1, dtype=f32))
+    x, g = rnd(*shape), rnd(*shape)
+    kw = dict(residual=C == 512)
+    run = lambda: K.fused_leff_bwd(x, g, *w, *ln, **kw)
+    err = worst(run(), K.leff_vjp_reference(x, g, *w, *ln, **kw))
+    rows.append({"shape": shape, "cells": [c for c, _ in where],
+                 "graph_ms": graph_ms(run), "max_abs_err": err})
+print(json.dumps({"rows": rows}))
+"""
+
+_ATTN_BWD = _KERNEL_COMMON + _TRAIN_SHAPES + """
+f32 = torch.float32
+rows = []
+for cell, i, shape in ([("train", i, t) for i, t in enumerate(train)]
+                       + [("train T", i, t) for i, t in enumerate(train_t)]):
+    B, R, _, C = shape
+    D = 32 if cell == "train" else 16  # Uformer_B's head dim, Uformer_T's
+    nH = C // D
+    decoder = i >= 5
+    s = C ** -0.5
+    w = dict(mod=rnd(64, C, scale=0.1) if decoder else None,
+             ln_s=1.0 + rnd(C, scale=0.1, dtype=f32),
+             ln_b=rnd(C, scale=0.1, dtype=f32), wq=rnd(C, C, scale=s),
+             bq=rnd(C, scale=0.1, dtype=f32), wkv=rnd(C, 2 * C, scale=s),
+             bkv=rnd(2 * C, scale=0.1, dtype=f32), wo=rnd(C, C, scale=s),
+             bo=rnd(C, scale=0.1, dtype=f32),
+             bias=rnd(nH, 64, 64, scale=0.5, dtype=f32))
+    shift = 4 if R > 8 else 0
+    x, g = rnd(*shape), rnd(*shape)
+    if C == 16:  # train T's enc0: the windowed branch, LN outside
+        x, g = x.reshape(-1, 64, C), g.reshape(-1, 64, C)
+        args = (w["mod"], None, None) + tuple(w.values())[3:]
+        kw = dict(win=8, shift=shift, H=R, W=R, scale=D ** -0.5,
+                  num_heads=nH, has_ln=False)
+        fn, ref = K.fused_attention_block_bwd, K.attention_block_vjp_reference
+    else:
+        args = tuple(w.values())
+        kw = dict(win=8, shift=shift, scale=D ** -0.5, num_heads=nH,
+                  residual=False)
+        fn, ref = K.fused_attention_image_bwd, K.attention_image_vjp_reference
+    run = lambda: fn(x, g, *args, **kw)
+    err = worst(run(), ref(x, g, *args, **kw))
+    rows.append({"cell": cell, "stage": i, "shape": shape, "head_dim": D,
+                 "graph_ms": graph_ms(run), "max_abs_err": err})
+print(json.dumps({"rows": rows}))
+"""
+
+_BWD_SPLIT = _KERNEL_COMMON + """
+from uformer_tpu_torch.ops.kernels import attention_block as A, leff as L
+f32 = torch.float32
+plans = {"leff": L.chunks_per_block, "attention": A.heads_per_block}
+rows = []
+# (cell, stage, B, res, C, heads): where the host splits a tile's hidden
+# chunks (C >= 256) or a window's heads over blocks
+for cell, stage, B, R, C, nH in (("train", "enc3", 32, 16, 256, 8),
+                                 ("train", "conv", 32, 8, 512, 16),
+                                 ("train", "dec0", 32, 16, 512, 16),
+                                 ("train T", "conv", 32, 8, 256, 16),
+                                 ("train T", "dec0", 32, 16, 256, 16)):
+    x, g = rnd(B, R, R, C), rnd(B, R, R, C)
+    Ch, s = 4 * C, C ** -0.5
+    lw = (rnd(C, Ch, scale=s), rnd(Ch, scale=0.1, dtype=f32),
+          rnd(3, 3, Ch, scale=1 / 3), rnd(Ch, scale=0.1, dtype=f32),
+          rnd(Ch, C, scale=Ch ** -0.5), 1.0 + rnd(C, scale=0.1, dtype=f32),
+          rnd(C, scale=0.1, dtype=f32))
+    aw = (rnd(64, C, scale=0.1), 1.0 + rnd(C, scale=0.1, dtype=f32),
+          rnd(C, scale=0.1, dtype=f32), rnd(C, C, scale=s),
+          rnd(C, scale=0.1, dtype=f32), rnd(C, 2 * C, scale=s),
+          rnd(2 * C, scale=0.1, dtype=f32), rnd(C, C, scale=s),
+          rnd(C, scale=0.1, dtype=f32), rnd(nH, 64, 64, scale=0.5, dtype=f32))
+    akw = dict(win=8, shift=4 if R > 8 else 0, scale=(C // nH) ** -0.5,
+               num_heads=nH, residual=False)
+    row = {"cell": cell, "stage": stage, "shape": [B, R, R, C]}
+    for split in (True, False, True, False):
+        L.chunks_per_block = (plans["leff"] if split
+                              else lambda tiles, chunks, C, sms: chunks)
+        A.heads_per_block = (plans["attention"] if split
+                             else lambda windows, C, nH, sms: nH)
+        key = "split" if split else "unsplit"
+        row.setdefault("leff_bwd_" + key, []).append(
+            graph_ms(lambda: K.fused_leff_bwd(x, g, *lw, residual=C == 512)))
+        row.setdefault("attention_bwd_" + key, []).append(
+            graph_ms(lambda: K.fused_attention_image_bwd(x, g, *aw, **akw)))
+    rows.append(row)
+print(json.dumps({"rows": rows}))
+"""
+
 _CHILDREN = {"forward": _CHILD, "dwconv3x3": _DWCONV, "leff": _LEFF,
-             "stage": _STAGE, "train": _TRAIN}
+             "stage": _STAGE, "train": 'ARCH = "Uformer_B"' + _TRAIN,
+             "train_t": 'ARCH = "Uformer_T"' + _TRAIN, "leff_bwd": _LEFF_BWD,
+             "attention_bwd": _ATTN_BWD, "bwd_split": _BWD_SPLIT}
 
 
 def main() -> int:

@@ -40,11 +40,13 @@ _SIGNATURES = {
     "uf_leff": [_I] + [_P] * 10 + [_I] * 7 + [_P],
     "uf_stage": [_I] + [_P] * 24 + [_I] * 8 + [_F, _P],
     "uf_attention_bwd_scratch": [_I, _I, _I],
-    "uf_attention_bwd": [_I] + [_P] * 20 + [_I] * 6 + [_F, _I, _I, _P],
-    "uf_attention_block_bwd": [_I] + [_P] * 20 + [_I] * 6 + [_F, _I, _P],
+    "uf_attention_bwd": [_I] + [_P] * 21 + [_I] * 6 + [_F] + [_I] * 4
+                        + [_P],
+    "uf_attention_block_bwd": [_I] + [_P] * 21 + [_I] * 6 + [_F] + [_I] * 3
+                              + [_P],
     "uf_leff_bwd_tile_rows": [_I, _I, _I],
-    "uf_leff_bwd": [_I, _I] + [_P] * 16 + [_I] * 7 + [_P],
-    "uf_wgrad": [_I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    "uf_leff_bwd": [_I, _I] + [_P] * 17 + [_I] * 8 + [_P],
+    "uf_wgrad": [_I, _P, _I, _P, _I] + [_P] * 4 + [_I] * 4 + [_P],
     "uf_colsum": [_I, _P, _I, _P, _P, _I, _I, _I, _P],
     "uf_dwconv3x3": [_I, _I] + [_P] * 4 + [_I] * 5 + [_P],
     "uf_mma_check": [_P, _P, _P, _I, _I, _I, _I, _P],

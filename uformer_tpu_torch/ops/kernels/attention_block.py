@@ -14,10 +14,11 @@ plus the spatial path's `w_off`.
 
 Its backward, `fused_attention_block_bwd`, is the port of
 `attention_block.py:fused_attention_block_bwd` in its own layout (kernel
-source `csrc/attention_block_bwd.cu`, body in
-`csrc/attention_window_bwd.cuh` with the identity token map), head dim 16
-or 32; `run_attention_bwd` allocates, launches and reduces for it and for
-the image layout's backward (`attention_image.fused_attention_image_bwd`).
+source `csrc/attention_block_bwd.cu`: in bf16 the tensor-core body
+`csrc/attention_bwd_mma.cuh`, in fp32 `csrc/attention_window_bwd.cuh`,
+with the identity token map), head dim 16 or 32; `attention_bwd_parts`
+allocates, launches and reduces for it and for the image layout's
+backward (`attention_image.fused_attention_image_bwd`).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from uformer_tpu_torch.ops.attention import window_attention
 from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
-from uformer_tpu_torch.ops.kernels.wgrad import colsum, wgrad
+from uformer_tpu_torch.ops.kernels.wgrad import colsum, sm_count, wgrad
 from uformer_tpu_torch.ops.kernels.window_attention import (
     check_head_dim,
     check_window,
@@ -150,15 +151,37 @@ def attention_block_vjp_reference(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv,
                          has_ln, **kw)
 
 
-def run_attention_bwd(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
-                      *, num_heads, has_ln, windows, launch, what):
-    """The attention backward on the card: checks the weights, allocates
-    the per-token and per-window buffers of `windows` 8x8 windows, calls
-    launch(lib, is_bf16, *pointers) (a C entry taking x, g, mod, ln_s,
-    ln_b, wq, bq, wkv, bkv, wo, bias, dx, xm_w, dqkv_w, o_img, dbias_part,
-    dmod_part, dln_part, x_scratch, do_scratch in that order, then its own
-    geometry), then reduces the weight gradients over every token
-    (`csrc/wgrad.cu`). Returns the tuple of
+MMA_WIDTHS = (16, 32, 64, 128, 256, 512)  # C of the bf16 backward tiles
+
+
+def windows_per_item(windows: int, C: int, sms: int) -> int:
+    """Windows one block of the bf16 attention backward takes, one after
+    another, summing their dbias, dmod and dln shares before writing them:
+    at C <= 128 the most of 4, 2 and 1 that still leaves two work items
+    per SM; 1 at wider C, where the windows are few."""
+    if C > 128:
+        return 1
+    for wn in (4, 2):
+        if -(-windows // wn) >= 2 * sms:
+            return wn
+    return 1
+
+
+def attention_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
+                        *, num_heads, has_ln, windows, launch, what):
+    """The attention backward on the card, unrun: checks the weights,
+    allocates the per-token buffers of `windows` 8x8 windows and the
+    partial sums of their work items (bf16: `windows_per_item` windows
+    each, or `heads_per_block` heads of one window, C 16-512 in powers of
+    2, at most 16 heads; fp32: one window), and returns ([(name, run)],
+    result): the body, launch(lib, is_bf16, wn, hpb, *pointers) (a C
+    entry taking x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx,
+    xm_w, dqkv_w, o_img, dbias_part, dmod_part, dln_part, x_scratch,
+    do_scratch, part_dxm in that order, then its own geometry, wn and
+    hpb), then the
+    weight gradients reduced over every token (`csrc/wgrad.cu`, the bias
+    gradients of dqkv and g from the same passes), each run() one of them
+    in order on these buffers; result() gives the tuple of
     `fused_attention_block_bwd`, weight grads float32."""
     C = x.shape[-1]
     dt, dev, f32 = x.dtype, x.device, torch.float32
@@ -174,42 +197,101 @@ def run_attention_bwd(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
         _launch.expect(t, name, shape, tdt, dev)
     lib = load()
     is_bf16 = int(dt == torch.bfloat16)
+    if is_bf16 and (C not in MMA_WIDTHS or num_heads > 16):
+        raise ValueError(f"bf16 backward kernel needs C in {MMA_WIDTHS} "
+                         f"and at most 16 heads: C={C} heads={num_heads}")
     M = windows * 64
+    hpb = (heads_per_block(windows, C, num_heads, sm_count(dev))
+           if is_bf16 else num_heads)
+    wn = (windows_per_item(windows, C, sm_count(dev))
+          if is_bf16 and hpb == num_heads else 1)
+    items = -(-windows // wn)
 
     def empty(*shape, dtype=dt):
         return torch.empty(*shape, dtype=dtype, device=dev)
 
-    need = lib.uf_attention_bwd_scratch(is_bf16, C, num_heads)
+    need = 0 if is_bf16 else lib.uf_attention_bwd_scratch(0, C, num_heads)
     x_scr = empty(M, C) if need & 1 else None
     do_scr = empty(M, C) if need & 2 else None
     dx, o_tok = torch.empty_like(x), torch.empty_like(x)
     xm_w, dqkv_w = empty(M, C), empty(M, 3 * C)
-    dbias_p = empty(windows, num_heads * 4096, dtype=f32)
-    dmod_p = empty(windows, 64 * C, dtype=f32) if mod is not None else None
-    dln_p = empty(windows, 2 * C, dtype=f32) if has_ln else None
-    with torch.cuda.device(dev):
-        err = launch(
-            lib, is_bf16, x.data_ptr(), g.data_ptr(), _launch.ptr(mod),
+    dbias_p = empty(items, num_heads * 4096, dtype=f32)
+    dmod_p = empty(items, 64 * C, dtype=f32) if mod is not None else None
+    dln_p = empty(items, 2 * C, dtype=f32) if has_ln else None
+    # a window's heads split over blocks: their fp32 shares of dxm
+    part_dxm = (empty(num_heads // hpb, windows, 64, C, dtype=f32)
+                if hpb < num_heads else None)
+    ptrs = (x.data_ptr(), g.data_ptr(), _launch.ptr(mod),
             _launch.ptr(ln_s) if has_ln else None,
             _launch.ptr(ln_b) if has_ln else None, wq.data_ptr(),
             bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(), wo.data_ptr(),
             bias.data_ptr(), dx.data_ptr(), xm_w.data_ptr(),
             dqkv_w.data_ptr(), o_tok.data_ptr(), dbias_p.data_ptr(),
             _launch.ptr(dmod_p), _launch.ptr(dln_p), _launch.ptr(x_scr),
-            _launch.ptr(do_scr))
-        _launch.check(err, what)
-        del x_scr, do_scr
-        dw = wgrad(xm_w, dqkv_w)           # (C, 3C) = [dwq | dwk | dwv]
-        db = colsum(dqkv_w)
-        del xm_w, dqkv_w
-        dwo = wgrad(o_tok.view(M, C), g.view(M, C))
-        dbo = colsum(g.view(M, C))
-        dbias = colsum(dbias_p).view(num_heads, 64, 64)
-        dmod = colsum(dmod_p).view(64, C) if mod is not None else None
-        dln = colsum(dln_p) if has_ln else None
-    return (dx, dmod, dln[:C] if has_ln else None,
-            dln[C:] if has_ln else None, dw[:, :C].contiguous(), db[:C],
-            dw[:, C:].contiguous(), db[C:], dwo, dbo, dbias)
+            _launch.ptr(do_scr), _launch.ptr(part_dxm))
+    out = {}
+    # the launch holds raw pointers: keep every buffer alive with it
+    buffers = (x_scr, do_scr, dx, o_tok, xm_w, dqkv_w, dbias_p, dmod_p,
+               dln_p, part_dxm)
+
+    def body():
+        _launch.check(launch(lib, is_bf16, wn, hpb, *ptrs), what)
+
+    body.buffers = buffers
+
+    def reduce(key, fn, *args, **kw):
+        def run():
+            out[key] = fn(*args, **kw)
+        run.operands = args  # a wgrad's (a, b), for its yardstick
+        return run
+
+    parts = [("body", body),
+             # (C, 3C) = [dwq | dwk | dwv], and [dbq | dbk | dbv]
+             ("wgrad dWqkv", reduce("dw", wgrad, xm_w, dqkv_w,
+                                    colsum_b=True)),
+             ("wgrad dWo", reduce("dwo", wgrad, o_tok.view(M, C),
+                                  g.view(M, C), colsum_b=True)),
+             ("colsum", reduce("sums", lambda: (
+                 colsum(dbias_p).view(num_heads, 64, 64),
+                 colsum(dmod_p).view(64, C) if mod is not None else None,
+                 colsum(dln_p) if has_ln else None)))]
+
+    def result():
+        dw, db = out["dw"]
+        dwo, dbo = out["dwo"]
+        dbias, dmod, dln = out["sums"]
+        return (dx, dmod, dln[:C] if has_ln else None,
+                dln[C:] if has_ln else None, dw[:, :C].contiguous(), db[:C],
+                dw[:, C:].contiguous(), db[C:], dwo, dbo, dbias)
+
+    return parts, result
+
+
+def heads_per_block(windows: int, C: int, num_heads: int, sms: int) -> int:
+    """Heads of one window that a block of the bf16 attention backward
+    takes: all of them, unless C >= 256 and the windows are no more than
+    half the SMs; then the fewest groups (2, 4, 8) that give two blocks
+    per SM, each group's dq, dk and dv columns a whole number of the dxm
+    product's K tiles (16 at C = 512, 32 at C = 256). (On an H100 the split
+    paid at 32 windows and lost at 128: PERF.md, PR 7.)"""
+    if C < 256 or 2 * windows > sms:
+        return num_heads
+    D, kx = C // num_heads, 16 if C == 512 else 32
+    best = num_heads
+    for groups in (2, 4, 8):
+        hpb = num_heads // groups
+        if num_heads % groups or hpb * D % kx:
+            break
+        best = hpb
+        if windows * groups >= 2 * sms:
+            break
+    return best
+
+
+def run_parts(parts, device):
+    with torch.cuda.device(device):
+        for _, run in parts:
+            run()
 
 
 def fused_attention_block_bwd(x: torch.Tensor, g: torch.Tensor,
@@ -236,6 +318,18 @@ def fused_attention_block_bwd(x: torch.Tensor, g: torch.Tensor,
         fused_attention_block_bwd.plain_calls += 1
         return attention_block_vjp_reference(x, g, mod, ln_s, ln_b, wq, bq,
                                              wkv, bkv, wo, bo, bias, **kw)
+    parts, result = attention_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq,
+                                              wkv, bkv, wo, bo, bias, **kw)
+    run_parts(parts, x.device)
+    fused_attention_block_bwd.launches += 1
+    return result()
+
+
+def attention_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
+                              bo, bias, *, win, shift, H, W, scale,
+                              num_heads, has_ln=True, w_off=0):
+    """`fused_attention_block_bwd`'s launches on CUDA tensors, unrun, as
+    `attention_bwd_parts` returns them."""
     _launch.check_input(x, "(Bw, N, C)")
     _launch.check_input(g, "(Bw, N, C)")
     Bw, N, C = x.shape
@@ -248,17 +342,15 @@ def fused_attention_block_bwd(x: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"backward kernel needs N = 64 and w_off = 0: "
                          f"N={N} w_off={w_off}")
 
-    def launch(lib, is_bf16, *ptrs):
+    def launch(lib, is_bf16, wn, hpb, *ptrs):
         return lib.uf_attention_block_bwd(
             is_bf16, *ptrs, Bw, H, W, C, num_heads, shift, float(scale),
-            int(has_ln), _launch.stream(x))
+            int(has_ln), wn, hpb, _launch.stream(x))
 
-    out = run_attention_bwd(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
-                            bias, num_heads=num_heads, has_ln=has_ln,
-                            windows=Bw, launch=launch,
-                            what="attention_block_bwd kernel")
-    fused_attention_block_bwd.launches += 1
-    return out
+    return attention_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
+                               bias, num_heads=num_heads, has_ln=has_ln,
+                               windows=Bw, launch=launch,
+                               what="attention_block_bwd kernel")
 
 
 fused_attention_block_bwd.launches = 0

@@ -22,7 +22,8 @@ from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.kernels.attention_block import (
     attention_block_reference,
-    run_attention_bwd,
+    attention_bwd_parts,
+    run_parts,
     vjp_reference,
 )
 from uformer_tpu_torch.ops.kernels.window_attention import (
@@ -145,7 +146,7 @@ def fused_attention_image_bwd(x: torch.Tensor, g: torch.Tensor,
     Kernel source `csrc/attention_bwd.cu`: one block per shifted window
     gathers x and g from the image, recomputes the forward and walks the
     VJP; the weight gradients are then reduced over every token by
-    `csrc/wgrad.cu` (`attention_block.run_attention_bwd`). Inputs as
+    `csrc/wgrad.cu` (`attention_image_bwd_parts` lists the launches). Inputs as
     `fused_attention_image` takes them. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernels (win 8, head dim 16 or 32)
     or raises."""
@@ -155,6 +156,18 @@ def fused_attention_image_bwd(x: torch.Tensor, g: torch.Tensor,
         fused_attention_image_bwd.plain_calls += 1
         return attention_image_vjp_reference(x, g, mod, ln_s, ln_b, wq, bq,
                                              wkv, bkv, wo, bo, bias, **kw)
+    parts, result = attention_image_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq,
+                                              wkv, bkv, wo, bo, bias, **kw)
+    run_parts(parts, x.device)
+    fused_attention_image_bwd.launches += 1
+    return result()
+
+
+def attention_image_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
+                              bo, bias, *, win, shift, scale, num_heads,
+                              has_ln=True, residual=True):
+    """`fused_attention_image_bwd`'s launches on CUDA tensors, unrun, as
+    `attention_block.attention_bwd_parts` returns them."""
     _launch.check_input(x)
     _launch.check_input(g)
     B, H, W, C = x.shape
@@ -163,17 +176,15 @@ def fused_attention_image_bwd(x: torch.Tensor, g: torch.Tensor,
                          f"{tuple(x.shape)} {x.dtype}")
     _check_geometry(x, win, shift, num_heads)
 
-    def launch(lib, is_bf16, *ptrs):
+    def launch(lib, is_bf16, wn, hpb, *ptrs):
         return lib.uf_attention_bwd(
             is_bf16, *ptrs, B, H, W, C, num_heads, shift, float(scale),
-            int(has_ln), int(residual), _launch.stream(x))
+            int(has_ln), int(residual), wn, hpb, _launch.stream(x))
 
-    out = run_attention_bwd(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
-                            bias, num_heads=num_heads, has_ln=has_ln,
-                            windows=B * (H // 8) * (W // 8), launch=launch,
-                            what="attention_bwd kernel")
-    fused_attention_image_bwd.launches += 1
-    return out
+    return attention_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
+                               bias, num_heads=num_heads, has_ln=has_ln,
+                               windows=B * (H // 8) * (W // 8), launch=launch,
+                               what="attention_bwd kernel")
 
 
 fused_attention_image_bwd.launches = 0

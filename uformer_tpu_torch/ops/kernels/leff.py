@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from uformer_tpu_torch.ops.dwconv import depthwise_conv2d
 from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
-from uformer_tpu_torch.ops.kernels.wgrad import colsum, wgrad
+from uformer_tpu_torch.ops.kernels.wgrad import colsum, sm_count, wgrad
 from uformer_tpu_torch.ops.norm import layer_norm
 
 HIDDEN_CHUNK = 64  # the kernel walks the hidden in chunks of this width
@@ -113,6 +113,19 @@ def leff_vjp_reference(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
     return (grads[0],) + tuple(_f32(d) for d in grads[1:])
 
 
+def chunks_per_block(tiles: int, chunks: int, C: int, sms: int) -> int:
+    """Hidden chunks (of HIDDEN_CHUNK channels) that one block of a LeFF
+    backward kernel takes from a tile: all of them, unless C >= 256 and
+    the image has no more tiles than half the SMs; then the tile's chunks
+    are split into groups of at least two, enough groups that the blocks
+    make about two waves of the SMs. (On an H100 the split paid at 32
+    tiles and lost at 128: PERF.md, PR 7.)"""
+    if C < 256 or 2 * tiles > sms:
+        return chunks
+    groups = -(-2 * sms // tiles)
+    return max(2, -(-chunks // groups))
+
+
 def fused_leff_bwd(x: torch.Tensor, dy: torch.Tensor, w1, b1, wd, bd, w2,
                    ln_s=None, ln_b=None, *, has_ln: bool = True,
                    residual: bool = False):
@@ -120,13 +133,31 @@ def fused_leff_bwd(x: torch.Tensor, dy: torch.Tensor, w1, b1, wd, bd, w2,
     dln_b), weight grads float32 (`uformer_tpu` `leff.py:880`).
 
     Kernel source `csrc/leff_bwd.cu` (two tile kernels that recompute the
-    hidden from x), then the weight gradients reduced over every pixel by
-    `csrc/wgrad.cu`. Weights as `fused_leff` takes them. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernels or raises."""
+    hidden from x; in bf16 the tensor-core tiles of `csrc/leff_bwd_mma.cuh`,
+    at C 16-512, their hidden chunks split over blocks where tiles are few,
+    `chunks_per_block`), then the weight gradients reduced over every pixel
+    by `csrc/wgrad.cu` (`leff_bwd_parts` lists the launches). Any H and W.
+    Weights as `fused_leff` takes them. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernels or raises."""
     if x.device.type == "cpu":
         fused_leff_bwd.plain_calls += 1
         return leff_vjp_reference(x, dy, w1, b1, wd, bd, w2, ln_s, ln_b,
                                   has_ln=has_ln, residual=residual)
+    parts, result = leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s, ln_b,
+                                   has_ln=has_ln, residual=residual)
+    with torch.cuda.device(x.device):
+        for _, run in parts:
+            run()
+    fused_leff_bwd.launches += 1
+    return result()
+
+
+def leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
+                   has_ln=True, residual=False):
+    """The launches of `fused_leff_bwd` on CUDA tensors, unrun: ([(name,
+    run)], result), each run() one launch (or a weight-gradient reduction)
+    on buffers allocated here, in order; result() gives the VJP tuple once
+    all have run. Run alone, each can be timed on the same buffers."""
     _launch.check_input(x)
     _launch.check_input(dy)
     B, H, W, C = x.shape
@@ -139,10 +170,9 @@ def fused_leff_bwd(x: torch.Tensor, dy: torch.Tensor, w1, b1, wd, bd, w2,
     is_bf16 = int(dt == torch.bfloat16)
     tha = lib.uf_leff_bwd_tile_rows(0, is_bf16, C)
     thb = lib.uf_leff_bwd_tile_rows(1, is_bf16, C)
-    if C % 16 or Ch % HIDDEN_CHUNK or H % max(tha, thb) or W % 8:
-        raise ValueError(f"kernel needs C % 16 == 0, Ch % {HIDDEN_CHUNK} "
-                         f"== 0, H % {max(tha, thb)} == 0 and W % 8 == 0: "
-                         f"C={C} Ch={Ch} H={H} W={W}")
+    if C % 16 or Ch % HIDDEN_CHUNK or not tha:
+        raise ValueError(f"kernel needs C % 16 == 0 (bf16: C 16, 32, ..., "
+                         f"512) and Ch % {HIDDEN_CHUNK} == 0: C={C} Ch={Ch}")
     if has_ln:
         _launch.expect(ln_s, "ln_s", (C,), f32, dev)
         _launch.expect(ln_b, "ln_b", (C,), f32, dev)
@@ -153,42 +183,71 @@ def fused_leff_bwd(x: torch.Tensor, dy: torch.Tensor, w1, b1, wd, bd, w2,
         _launch.expect(t, name, shape, tdt, dev)
     ln_p = (_launch.ptr(ln_s), _launch.ptr(ln_b)) if has_ln else (None, None)
     tail = (B, H, W, C, Ch, int(has_ln), int(residual), _launch.stream(x))
-    M = B * H * W
-    g = torch.empty(B, H, W, Ch, dtype=dt, device=dev)
-    dpre2 = torch.empty_like(g)
-    part_a = torch.empty(B * (H // tha) * (W // 8), 10 * Ch, dtype=f32,
-                         device=dev)
-    with torch.cuda.device(dev):
-        err = lib.uf_leff_bwd(
-            0, is_bf16, x.data_ptr(), dy.data_ptr(), *ln_p, w1.data_ptr(),
-            b1.data_ptr(), wd.data_ptr(), bd.data_ptr(), w2.data_ptr(),
-            g.data_ptr(), dpre2.data_ptr(), part_a.data_ptr(), None, None,
-            None, None, *tail)
-        _launch.check(err, "leff_bwd kernel A")
-        dw2 = wgrad(g.view(M, Ch), dy.view(M, C))
-        del g
-        dx = torch.empty_like(x)
-        ln = torch.empty_like(x)
-        dpre1 = torch.empty(B, H, W, Ch, dtype=dt, device=dev)
-        # per tile: dln_s, dln_b (with LN only), then db1, summed from the
-        # fp32 hidden gradient before its rounding (`leff.py:682`)
-        part_b = torch.empty(B * (H // thb) * (W // 8), 2 * C + Ch,
-                             dtype=f32, device=dev)
-        err = lib.uf_leff_bwd(
-            1, is_bf16, x.data_ptr(), dy.data_ptr(), *ln_p, w1.data_ptr(),
-            b1.data_ptr(), wd.data_ptr(), bd.data_ptr(), None, None,
-            dpre2.data_ptr(), None, dx.data_ptr(), ln.data_ptr(),
-            dpre1.data_ptr(), part_b.data_ptr(), *tail)
-        _launch.check(err, "leff_bwd kernel B")
-        del dpre2
-        dw1 = wgrad(ln.view(M, C), dpre1.view(M, Ch))
-        db1 = colsum(part_b[:, 2 * C:])
-        db2 = colsum(dy.view(M, C))
-        pa = colsum(part_a)
-        dln = colsum(part_b[:, :2 * C]) if has_ln else None
-    fused_leff_bwd.launches += 1
-    return (dx, dw1, db1, pa[:9 * Ch].view(3, 3, Ch), pa[9 * Ch:], dw2, db2,
-            dln[:C] if has_ln else None, dln[C:] if has_ln else None)
+    M, chunks = B * H * W, Ch // HIDDEN_CHUNK
+
+    def tiles(th):
+        return B * -(-H // th) * -(-W // 8)
+
+    def split(th):
+        return (chunks_per_block(tiles(th), chunks, C, sm_count(dev))
+                if is_bf16 else chunks)
+
+    def empty(*shape, dtype=dt):
+        return torch.empty(*shape, dtype=dtype, device=dev)
+
+    cpg_a, cpg_b = split(tha), split(thb)
+    groups = -(-chunks // cpg_b)
+    g, dpre2, dpre1 = empty(M, Ch), empty(M, Ch), empty(M, Ch)
+    dx, ln = torch.empty_like(x), empty(M, C)
+    part_a = empty(tiles(tha), 10 * Ch, dtype=f32)
+    # per tile: dln_s, dln_b (with LN only), then db1, summed from the fp32
+    # hidden gradient before its rounding (`leff.py:682`)
+    part_b = empty(tiles(thb), 2 * C + Ch, dtype=f32)
+    part_dln = (empty(groups, tiles(thb), thb * 8, C, dtype=f32)
+                if groups > 1 else None)
+    common = (x.data_ptr(), dy.data_ptr(), *ln_p, w1.data_ptr(),
+              b1.data_ptr(), wd.data_ptr(), bd.data_ptr())
+    a_ptrs = (*common, w2.data_ptr(), g.data_ptr(), dpre2.data_ptr(),
+              part_a.data_ptr(), None, None, None, None, None, cpg_a)
+    b_ptrs = (*common, None, None, dpre2.data_ptr(), None, dx.data_ptr(),
+              ln.data_ptr(), dpre1.data_ptr(), part_b.data_ptr(),
+              _launch.ptr(part_dln), cpg_b)
+    out = {}
+    # the launches hold raw pointers: keep every buffer alive with them
+    buffers = (g, dpre2, dpre1, dx, ln, part_a, part_b, part_dln)
+
+    def kernel(which, ptrs, what):
+        def run():
+            _launch.check(lib.uf_leff_bwd(which, is_bf16, *ptrs, *tail), what)
+        run.buffers = buffers
+        return run
+
+    def reduce(key, fn, *args, **kw):
+        def run():
+            out[key] = fn(*args, **kw)
+        run.operands = args  # a wgrad's (a, b), for its yardstick
+        return run
+
+    parts = [("A", kernel(0, a_ptrs, "leff_bwd kernel A")),
+             ("wgrad dW2", reduce("dw2", wgrad, g, dy.view(M, C),
+                                  colsum_b=True)),
+             ("B", kernel(1, b_ptrs, "leff_bwd kernel B"))]
+    if groups > 1:
+        parts.append(("B finish", kernel(2, b_ptrs, "leff_bwd finish")))
+    parts += [("wgrad dW1", reduce("dw1", wgrad, ln, dpre1)),
+              ("colsum", reduce("sums", lambda: (
+                  colsum(part_b if has_ln else part_b[:, 2 * C:]),
+                  colsum(part_a))))]
+
+    def result():
+        dw2, db2 = out["dw2"]
+        pb, pa = out["sums"]
+        dln, db1 = (pb[:2 * C], pb[2 * C:]) if has_ln else (None, pb)
+        return (dx, out["dw1"], db1, pa[:9 * Ch].view(3, 3, Ch),
+                pa[9 * Ch:], dw2, db2, dln[:C] if has_ln else None,
+                dln[C:] if has_ln else None)
+
+    return parts, result
 
 
 fused_leff_bwd.launches = 0
