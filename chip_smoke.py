@@ -15,8 +15,12 @@ Phases, each raising on failure (no phase is caught):
                attention-block kernel at enc0 (LN and modulator each way),
                LeFF at C 16-64, and the window-attention core at every
                stage's heads and shifts; kernels 4 and 5 also at one
-               Uformer_B (head dim 32) geometry; the depthwise kernel at
-               every serve B-conv stage's (Bw, 8, 8, C) windows, 4 x 4
+               Uformer_B (head dim 32) geometry; the attention-image
+               kernel (its narrow and wide bf16 bodies) at every shape it
+               runs at in serve B, serve T, train and train T, residual on
+               and off; the depthwise kernel, per call and in its fused
+               q/k/v form (also equal bits to three launches and a ReLU),
+               at every serve B-conv stage's (Bw, 8, 8, C) windows, 4 x 4
                windows, a whole image, an odd C without bias and C = 8;
                then the tensor-core tiles' own shapes: the building block
                (mma.sync, cp.async ring) against torch.matmul, LeFF at
@@ -29,7 +33,8 @@ Phases, each raising on failure (no phase is caught):
                tests/golden/uformer_b_128.npz; then the conv-projection,
                Mlp, cross-modulator Uformer of
                tests/golden/uformer_convproj_crossmod.npz (64^2) through
-               the depthwise kernel (27 launches), output within 1e-4.
+               the depthwise kernel (9 fused q/k/v launches), output within
+               1e-4.
   5. serve   - a bf16 Restorer for Uformer_B at 256^2 answers 4 requests of
                batch 8; launch counts per request, ms per request, MP/s,
                peak memory; the kernel path against the plain path.
@@ -44,12 +49,16 @@ Phases, each raising on failure (no phase is caught):
                calls).
   9. serve B-conv - Uformer_B's widths and depths with the conv token
                projection (seeded numpy weights over the port's parameter
-               names): 4 bf16 requests of batch 8 at 256^2, 120 depthwise
-               and 40 LeFF launches each; host enqueue and device time.
- 10. timing B-conv - per stage the depthwise kernel against its plain
-               version, its bound and cuDNN's depthwise F.conv2d (a
-               yardstick the port never calls), eagerly and from CUDA
-               graphs (device time alone), and how the forward splits
+               names): 4 bf16 requests of batch 8 at 256^2, 40 fused q/k/v
+               depthwise and 40 LeFF launches each; host enqueue and
+               device time.
+ 10. timing B-conv - per stage the depthwise kernel in both forms (the
+               fused q/k/v launch the model runs, and three per-call
+               launches) against its plain version, its bound and cuDNN
+               (one grouped F.conv2d for the three convs; the depthwise
+               F.conv2d per call: yardsticks the port never calls),
+               eagerly and from CUDA graphs (device time alone), and how
+               the forward splits
                between the depthwise kernel, the pointwise products, the
                plain attention, LeFF and the glue.
  11. train   - Uformer_B at 128^2 in training (drop path 0.1, mixup on):
@@ -117,7 +126,8 @@ SEED_BCONV = 1236  # serve B-conv's seeded weights
 EXPECTED_LAUNCHES = {"stage": 6, "attention_image": 4, "leff": 4,
                      "attention_bwd": 0, "attention_block_bwd": 0,
                      "leff_bwd": 0, "window_attention": 0,
-                     "attention_block": 0, "dwconv3x3": 0}
+                     "attention_block": 0, "dwconv3x3": 0,
+                     "dwconv3x3_qkv": 0}
 T_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0), stage=4,
                   attention_image=8, leff=10, attention_block=2)
 TRAIN_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0), attention_image=40,
@@ -139,15 +149,17 @@ MLP_CROSS_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0),
                           attention_block=1, attention_block_bwd=1)
 SEED_MLP_CROSS = 1237
 # serve B-conv: Uformer_B's widths and depths with the conv token
-# projection (three SepConv2d per block: 3 x 40 depthwise launches)
+# projection (per block one launch of kernel 8 for the q, k and v
+# depthwise convs: 40 launches)
 BCONV = dict(img_size=RES_SERVE, embed_dim=32, depths=(1, 2, 8, 8, 2, 8, 8,
                                                        2, 1),
              num_heads=(1, 2, 4, 8, 16, 16, 8, 4, 2), win_size=8,
              mlp_ratio=4.0, token_projection="conv", token_mlp="leff",
              modulator=True, shift_flag=True)
 BCONV_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0), leff=40,
-                      dwconv3x3=120)
-GOLDEN_CONV_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0), dwconv3x3=27)
+                      dwconv3x3_qkv=40)
+GOLDEN_CONV_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0),
+                            dwconv3x3_qkv=9)
 # H100 SXM (NVIDIA data sheet): dense bf16 tensor-core FLOP/s, float32
 # FLOP/s outside the tensor cores, HBM bytes/s
 PEAK_BF16, PEAK_FP32, PEAK_HBM = 989e12, 67e12, 3.35e12
@@ -187,6 +199,31 @@ TILE_STAGE_SHAPES = [(BATCH_CHECK, 512, 16, 8, 2, False, True),
                      (4, 256, 8, 64, 2, True, True),
                      (4, 128, 4, 64, 2, True, False),
                      (8, 128, 8, 64, 2, True, True)]
+# kernel 1 on the main paths (cell, stage, B, res, C, heads, modulator):
+# serve B and serve T at bs8 256^2, the train and train T steps at bs32
+# 128^2 (train T's enc0 takes the windowed branch, kernel 5)
+ATTN_IMAGE_SHAPES = (
+    [("serve B", "enc0", 8, 256, 32, 1, False),
+     ("serve B", "enc1", 8, 128, 64, 2, False),
+     ("serve B", "dec3", 8, 256, 64, 2, True),
+     ("serve T", "enc1", 8, 128, 32, 2, False),
+     ("serve T", "enc2", 8, 64, 64, 4, False),
+     ("serve T", "dec2", 8, 128, 64, 4, True),
+     ("serve T", "dec3", 8, 256, 32, 2, True)]
+    + [("train", f"enc{k}", 32, 128 >> k, 32 << k, 1 << k, False)
+       for k in range(4)]
+    + [("train", "conv", 32, 8, 512, 16, False),
+       ("train", "dec0", 32, 16, 512, 16, True),
+       ("train", "dec1", 32, 32, 256, 8, True),
+       ("train", "dec2", 32, 64, 128, 4, True),
+       ("train", "dec3", 32, 128, 64, 2, True)]
+    + [("train T", f"enc{k + 1}", 32, 64 >> k, 32 << k, 2 << k, False)
+       for k in range(3)]
+    + [("train T", "conv", 32, 8, 256, 16, False),
+       ("train T", "dec0", 32, 16, 256, 16, True),
+       ("train T", "dec1", 32, 32, 128, 8, True),
+       ("train T", "dec2", 32, 64, 64, 4, True),
+       ("train T", "dec3", 32, 128, 32, 2, True)])
 STAGES = (["input_proj"] + [f"encoderlayer_{k}" for k in range(4)]
           + [f"dowsample_{k}" for k in range(4)] + ["conv"]
           + [f"upsample_{k}" for k in range(4)]
@@ -270,11 +307,13 @@ def core_cost(nH, Bw, D, s=2):
             4 * nH * Bw * 64 * D * s + nH * 4096 * 4)
 
 
-def dwconv_cost(pixels, C, s=2, ws=2):
-    """The depthwise 3x3 conv: nine multiply-adds and the bias per value;
-    x read and y written once, the weights (ws bytes) and the float32
-    bias once."""
-    return 19 * pixels * C, 2 * pixels * C * s + 9 * C * ws + 4 * C
+def dwconv_cost(pixels, C, s=2, ws=2, nq=1):
+    """nq depthwise 3x3 convs of one input (nq = 3: the fused q/k/v form):
+    nine multiply-adds and the bias per output value; x read once and each
+    output written once, each weight set (ws bytes) and float32 bias
+    once."""
+    return (19 * nq * pixels * C,
+            (1 + nq) * pixels * C * s + nq * (9 * C * ws + 4 * C))
 
 
 def bwd_cost(fwd, tokens, C, s=2):
@@ -334,6 +373,13 @@ def tally(totals: dict, kernel: str, k_ms: float, p_ms: float, cost,
 
 def bound_by(t: dict) -> str:
     return "operations" if t["op_ms"] >= t["byte_ms"] else "bytes"
+
+
+def kernel_count(counts: dict, name: str) -> int:
+    """Launches of the TPU kernel `name` in a launch_counts() dict: kernel
+    8 in either of its forms (dwconv3x3, dwconv3x3_qkv)."""
+    return counts[name] + (counts["dwconv3x3_qkv"] if name == "dwconv3x3"
+                           else 0)
 
 
 def golden_module():
@@ -568,13 +614,63 @@ def kernel_phase_t(model_t, model_b, device) -> Checks:
 
 
 @torch.no_grad()
+def attention_image_phase(device) -> Checks:
+    """Kernel 1 against its plain version at every ATTN_IMAGE_SHAPES shape
+    (bf16: the narrow body at C 16-64, the wide one at C 128-512, windows
+    per work item as the host plans them; fp32: a window per block),
+    residual on and off (training runs both), shift 4 where the image is
+    wider than a window, on random weights (matrices N(0, 1 / C))."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    checks = Checks()
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    low = ("mod", "wq", "wkv", "wo")
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(device)
+
+    for cell, stage, B, R, C, nH, with_mod in ATTN_IMAGE_SHAPES:
+        s = C ** -0.5
+        w = dict(mod=rnd(64, C, scale=0.1) if with_mod else None,
+                 ln_s=1.0 + rnd(C, scale=0.1), ln_b=rnd(C, scale=0.1),
+                 wq=rnd(C, C, scale=s), bq=rnd(C, scale=0.1),
+                 wkv=rnd(C, 2 * C, scale=s), bkv=rnd(2 * C, scale=0.1),
+                 wo=rnd(C, C, scale=s), bo=rnd(C, scale=0.1),
+                 bias=rnd(nH, 64, 64, scale=0.5))
+        w = {k: v.bfloat16().float() if v is not None and k in low else v
+             for k, v in w.items()}
+        prm = {dt: [v.to(dt) if v is not None and k in low else v
+                    for k, v in w.items()]
+               for dt in (torch.float32, torch.bfloat16)}
+        x32 = rnd(B, R, R, C).bfloat16().float()
+        for residual in (True, False):
+            kw = dict(win=8, shift=4 if R > 8 else 0, scale=(C // nH) ** -0.5,
+                      num_heads=nH, residual=residual)
+
+            def run(fn, kw=kw, prm=prm):
+                return lambda x, dt: fn(x, *prm[dt], **kw)
+
+            compare(checks, "attention_image",
+                    f"{cell} {stage} ({B}, {R}, {R}, {C}) nH={nH} "
+                    f"res={int(residual)}", run(K.fused_attention_image),
+                    run(K.attention_image_reference), x32)
+        del x32, prm, w
+    torch.cuda.synchronize()
+    return checks
+
+
+@torch.no_grad()
 def dwconv_phase(model, device) -> Checks:
     """The depthwise kernel against its plain version in fp32 and bf16 (bf16
     weights, fp32 bias): at every serve B-conv stage's (Bw, 8, 8, C)
     windows at 256^2, batch BATCH_CHECK, with the stage's first to_q
     weights and bias; then on random weights at the 64^2 golden's 4 x 4
     bottleneck windows, a whole image, an odd C without bias (the scalar
-    path) and C = 8."""
+    path) and C = 8. The fused q/k/v form (dwconv3x3_qkv, ReLU on) at
+    every stage's windows with the block's three weight sets, and at the
+    other shapes on three random ones: against its plain version, and
+    equal bits to three dwconv3x3 launches and F.relu (a check with bound
+    0)."""
     from uformer_tpu_torch.ops import kernels as K
 
     checks = Checks()
@@ -582,29 +678,47 @@ def dwconv_phase(model, device) -> Checks:
     cases = []
     for name in LAYERS:
         layer = getattr(model, name)
-        conv = layer.blocks[0].attn.qkv.to_q
-        w, b = conv.depthwise.weight[:, 0].permute(1, 2, 0), \
-            conv.depthwise.bias
+        qkv = layer.blocks[0].attn.qkv
+        w3 = torch.stack([getattr(qkv, n).depthwise.weight[:, 0]
+                          .permute(1, 2, 0) for n in ("to_q", "to_k",
+                                                      "to_v")])
+        b3 = torch.stack([getattr(qkv, n).depthwise.bias
+                          for n in ("to_q", "to_k", "to_v")])
         cases.append((f"{name} windows", (BATCH_CHECK * (layer.resolution
                                                          // 8) ** 2, 8, 8,
-                                          layer.dim), w, b))
+                                          layer.dim), w3, b3))
     for what, shape, with_bias in (("4x4 windows", (2, 4, 4, 128), True),
                                    ("image", (2, 64, 64, 128), True),
                                    ("odd C, no bias", (2, 24, 40, 12), False),
                                    ("C 8", (128, 8, 8, 8), True)):
         C = shape[-1]
-        w = torch.randn((3, 3, C), generator=gen) / 3
-        b = torch.randn(C, generator=gen) * 0.1 if with_bias else None
-        cases.append((what, shape, w, b))
-    for what, shape, w, b in cases:
-        w = w.float().bfloat16().float().to(device).contiguous()
-        b = None if b is None else b.float().to(device)
-        ws = {torch.float32: w, torch.bfloat16: w.bfloat16()}
+        w3 = torch.randn((3, 3, 3, C), generator=gen) / 3
+        b3 = torch.randn(3, C, generator=gen) * 0.1 if with_bias else None
+        cases.append((what, shape, w3, b3))
+    for what, shape, w3, b3 in cases:
+        w3 = w3.detach().float().bfloat16().float().to(device).contiguous()
+        b3 = None if b3 is None else b3.detach().float().to(device)
+        ws = {torch.float32: w3, torch.bfloat16: w3.bfloat16()}
+        b = None if b3 is None else b3[0]
         x32 = torch.randn(shape, generator=gen).bfloat16().float().to(device)
         compare(checks, "dwconv3x3", f"{what} {shape}",
-                lambda x, dt, ws=ws, b=b: K.dwconv3x3(x, ws[dt], b),
-                lambda x, dt, ws=ws, b=b: K.dwconv3x3_reference(x, ws[dt],
-                                                                b), x32)
+                lambda x, dt, ws=ws, b=b: K.dwconv3x3(x, ws[dt][0], b),
+                lambda x, dt, ws=ws, b=b: K.dwconv3x3_reference(
+                    x, ws[dt][0], b), x32)
+        compare(checks, "dwconv3x3", f"qkv {what} {shape}",
+                lambda x, dt, ws=ws, b3=b3: torch.stack(K.dwconv3x3_qkv(
+                    x, ws[dt], b3)),
+                lambda x, dt, ws=ws, b3=b3: torch.stack(
+                    K.dwconv3x3_qkv_reference(x, ws[dt], b3)), x32)
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            fused = K.dwconv3x3_qkv(x, ws[dt], b3)
+            # clones: a slice of the stacked weights need not be aligned
+            differ = sum(not torch.equal(y, F.relu(K.dwconv3x3(
+                x, ws[dt][i].clone(), None if b3 is None else b3[i].clone())))
+                for i, y in enumerate(fused))
+            checks.add("dwconv3x3", f"qkv = 3 launches + ReLU {what} {shape} "
+                       f"{str(dt)[6:]}", float(differ), 0.0, "bits")
     torch.cuda.synchronize()
     return checks
 
@@ -937,16 +1051,21 @@ def timing_phase(restorer, x):
 def bconv_timing(restorer, x):
     """serve B-conv's bs8 256^2 bf16 forward, block by block: for each
     stage and each shift it runs, one block timed on the stage's input and
-    counted once per block of that shift. The depthwise kernel against its
-    plain version and against cuDNN's depthwise F.conv2d on the same
-    channels-last bf16 windows with bf16 weights (a yardstick the port
-    never calls), in the order plain, kernel, library, library, kernel,
-    plain, and the kernel and cuDNN again from CUDA graphs (device time
-    without the host's launch cost); the pointwise products (ReLU, the three 1x1 products and the
-    output projection), the plain window attention, LeFF kernel and plain,
-    and the whole block, whose remainder is the glue (LN1, roll,
-    partition, modulator, reverse, residual). Then the whole forward on
-    each path. Returns rows, per-kernel totals and the forward's split."""
+    counted once per block of that shift. Kernel 8 in both forms on the
+    same channels-last bf16 windows with bf16 weights: the fused q/k/v form
+    (one launch a block, the model's; totals "dwconv3x3") against its
+    plain version and against one grouped cuDNN F.conv2d computing the
+    three convs (3C outputs, no ReLU), and the per-call form (three
+    launches a block; totals "dwconv3x3 per call") against its plain
+    version and cuDNN's depthwise F.conv2d (yardsticks the port never
+    calls), each in the order plain, kernel, library, library, kernel,
+    plain, and the kernels and cuDNN again from CUDA graphs (device time
+    without the host's launch cost); the pointwise products (the three 1x1
+    products and the output projection), the plain window attention, LeFF
+    kernel and plain, and the whole block, whose remainder is the glue
+    (LN1, roll, partition, modulator, reverse, residual). Then the whole
+    forward on each path. Returns rows, per-kernel totals and the
+    forward's split."""
     from uformer_tpu_torch.ops import kernels as K
     from uformer_tpu_torch.ops.attention import window_attention
     from uformer_tpu_torch.ops.norm import layer_norm
@@ -979,6 +1098,11 @@ def bconv_timing(restorer, x):
             q = p["to_q"]
             wlib = q["wd"].permute(2, 0, 1).unsqueeze(1).contiguous()
             blib = q["bd"].to(xs.dtype)
+            # the three weight sets as one grouped conv: output 3 c + i is
+            # conv i of channel c
+            wlib3 = p["wd3"].permute(3, 0, 1, 2).reshape(3 * C, 1, 3, 3) \
+                .contiguous()
+            blib3 = p["bd3"].t().reshape(3 * C).to(xs.dtype)
             xs_nchw = xs.permute(0, 3, 1, 2)  # a channels-last view
 
             def kern(q=q, xs=xs):
@@ -990,20 +1114,41 @@ def bconv_timing(restorer, x):
             def library(xs_nchw=xs_nchw, wlib=wlib, blib=blib, C=C):
                 return F.conv2d(xs_nchw, wlib, blib, padding=1, groups=C)
 
-            p1, k1, l1 = cuda_ms(plain), cuda_ms(kern), cuda_ms(library)
-            l2, k2, p2 = cuda_ms(library), cuda_ms(kern), cuda_ms(plain)
-            dw = [(k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2]
-            dev = [graph_ms(kern), graph_ms(library)]
-            tally(totals, "dwconv3x3", dw[0], dw[1],
-                  dwconv_cost(Bw * 64, C), 3 * n, PEAK_FP32)
-            t = totals["dwconv3x3"]
-            for key, v in (("library_ms", dw[2]), ("device_ms", dev[0]),
-                           ("library_device_ms", dev[1])):
-                t[key] = t.get(key, 0.0) + 3 * n * v
-            ys = [kern() for _ in range(3)]
+            def fused(p=p, xs=xs):
+                return K.dwconv3x3_qkv(xs, p["wd3"], p["bd3"])
+
+            def fused_plain(p=p, xs=xs):
+                return K.dwconv3x3_qkv_reference(xs, p["wd3"], p["bd3"])
+
+            def library3(xs_nchw=xs_nchw, wlib3=wlib3, blib3=blib3, C=C):
+                return F.conv2d(xs_nchw, wlib3, blib3, padding=1, groups=C)
+
+            times = {}
+            for key, fn in (("plain", fused_plain), ("kernel", fused),
+                            ("library", library3), ("library", library3),
+                            ("kernel", fused), ("plain", fused_plain),
+                            ("plain1", plain), ("kernel1", kern),
+                            ("library1", library), ("library1", library),
+                            ("kernel1", kern), ("plain1", plain)):
+                times[key] = times.get(key, 0.0) + cuda_ms(fn) / 2
+            dev = {"kernel": graph_ms(fused), "library": graph_ms(library3),
+                   "kernel1": graph_ms(kern), "library1": graph_ms(library)}
+            for kernel, sfx, nq, calls in (("dwconv3x3", "", 3, n),
+                                           ("dwconv3x3 per call", "1", 1,
+                                            3 * n)):
+                tally(totals, kernel, times["kernel" + sfx],
+                      times["plain" + sfx], dwconv_cost(Bw * 64, C, nq=nq),
+                      calls, PEAK_FP32)
+                t = totals[kernel]
+                for key, v in (("library_ms", times["library" + sfx]),
+                               ("device_ms", dev["kernel" + sfx]),
+                               ("library_device_ms", dev["library" + sfx])):
+                    t[key] = t.get(key, 0.0) + calls * v
+            dw = [times["kernel"], times["plain"], times["library"]]
+            ys = fused()
 
             def pointwise(p=p, ys=ys, nm=("to_q", "to_k", "to_v")):
-                outs = [F.relu(y) @ p[k]["wp"] + p[k]["bp"].to(y.dtype)
+                outs = [y @ p[k]["wp"] + p[k]["bp"].to(y.dtype)
                         for k, y in zip(nm, ys)]
                 return outs[0].reshape(Bw, 64, C) @ p["wo"] + p["bo"].to(
                     outs[0].dtype)
@@ -1028,16 +1173,26 @@ def bconv_timing(restorer, x):
             pw_ms, at_ms = cuda_ms(pointwise), cuda_ms(attention)
             blk_ms = cuda_ms(lambda: blk(xin))
             leff_ms = (lk1 + lk2) / 2
-            parts = {"dwconv3x3": 3 * dw[0], "pointwise": pw_ms,
+            parts = {"dwconv3x3": dw[0], "pointwise": pw_ms,
                      "attention": at_ms, "leff": leff_ms,
-                     "glue": blk_ms - 3 * dw[0] - pw_ms - at_ms - leff_ms}
+                     "glue": blk_ms - dw[0] - pw_ms - at_ms - leff_ms}
             for k, v in parts.items():
                 split[k] += n * v
             rows.append({"layer": name, "shift": shift, "blocks": n,
-                         "windows": [Bw, 8, 8, C], "dwconv_ms": dw[0],
-                         "dwconv_plain_ms": dw[1], "dwconv_library_ms": dw[2],
-                         "dwconv_device_ms": dev[0],
-                         "dwconv_library_device_ms": dev[1],
+                         "windows": [Bw, 8, 8, C], "dwconv_qkv_ms": dw[0],
+                         "dwconv_qkv_plain_ms": dw[1],
+                         "dwconv_qkv_library_ms": dw[2],
+                         "dwconv_qkv_device_ms": dev["kernel"],
+                         "dwconv_qkv_library_device_ms": dev["library"],
+                         "dwconv_qkv_bound_ms": max(
+                             dwconv_cost(Bw * 64, C, nq=3)[0] / PEAK_FP32,
+                             dwconv_cost(Bw * 64, C, nq=3)[1] / PEAK_HBM)
+                         * 1e3,
+                         "dwconv_ms": times["kernel1"],
+                         "dwconv_plain_ms": times["plain1"],
+                         "dwconv_library_ms": times["library1"],
+                         "dwconv_device_ms": dev["kernel1"],
+                         "dwconv_library_device_ms": dev["library1"],
                          "dwconv_bound_ms": max(
                              dwconv_cost(Bw * 64, C)[0] / PEAK_FP32,
                              dwconv_cost(Bw * 64, C)[1] / PEAK_HBM) * 1e3,
@@ -1046,8 +1201,13 @@ def bconv_timing(restorer, x):
                          "block_ms": blk_ms})
             r = rows[-1]
             print(f"  {name:16s} s{shift} x{n} ({Bw}, 8, 8, {C}) dwconv "
-                  f"{dw[0]:.4f} ms (plain {dw[1]:.4f}, cuDNN {dw[2]:.4f}; "
-                  f"graphed {dev[0]:.4f}, cuDNN {dev[1]:.4f}; bound "
+                  f"q/k/v {dw[0]:.4f} ms (plain {dw[1]:.4f}, cuDNN "
+                  f"{dw[2]:.4f}; graphed {dev['kernel']:.4f}, cuDNN "
+                  f"{dev['library']:.4f}; bound "
+                  f"{r['dwconv_qkv_bound_ms']:.4f}); per call "
+                  f"{times['kernel1']:.4f} (cuDNN {times['library1']:.4f}; "
+                  f"graphed {dev['kernel1']:.4f}, cuDNN "
+                  f"{dev['library1']:.4f}; bound "
                   f"{r['dwconv_bound_ms']:.4f}); pointwise "
                   f"{pw_ms:.3f}, attention {at_ms:.3f}, leff {leff_ms:.3f}, "
                   f"block {blk_ms:.3f} ms", flush=True)
@@ -1633,6 +1793,9 @@ def run(device, card: str, json_path) -> list:
     t_kchecks = kernel_phase_t(model_t, model256, device)
     t_kchecks.raise_if_failed("kernels Uformer_T")
     del model256, model_t
+    ai_checks = attention_image_phase(device)
+    ai_checks.raise_if_failed("kernels attention_image")
+    torch.cuda.empty_cache()
     sd_bc = bconv_weights()
     model_bc = build_bconv(sd_bc, device)
     dw_checks = dwconv_phase(model_bc, device)
@@ -1703,7 +1866,8 @@ def run(device, card: str, json_path) -> list:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas,
-              "kernel_checks": (kchecks.rows + t_kchecks.rows + dw_checks.rows
+              "kernel_checks": (kchecks.rows + t_kchecks.rows
+                                + ai_checks.rows + dw_checks.rows
                                 + tile_checks.rows),
               "golden_checks": gchecks.rows + gcchecks.rows,
               "serve_checks": schecks.rows + t_schecks.rows + bc_schecks.rows,
@@ -1725,9 +1889,10 @@ def run(device, card: str, json_path) -> list:
         json_path.write_text(json.dumps(report, indent=1))
 
     kernels = []
-    train_launches = {k: sum(c[k] for c in train["launches"])
+    train_launches = {k: sum(kernel_count(c, k) for c in train["launches"])
                       for k in KERNELS}
-    train_t_launches = {k: sum(c[k] for c in train_t["launches"])
+    train_t_launches = {k: sum(kernel_count(c, k)
+                               for c in train_t["launches"])
                         for k in KERNELS}
     timed = [("serve Uformer_B bs8 256^2 forward", totals),
              ("serve Uformer_T bs8 256^2 forward", t_totals),
@@ -1737,24 +1902,26 @@ def run(device, card: str, json_path) -> list:
              ("alone at Uformer_T enc0 bs8 256^2",
               {"window_attention": core})]
     for name, (source, replaces) in KERNELS.items():
-        rows_of = [r for r in kchecks.rows + t_kchecks.rows + tkchecks.rows
-                   + ttkchecks.rows + dw_checks.rows + tile_checks.rows
-                   if r["kernel"] == name]
+        rows_of = [r for r in kchecks.rows + t_kchecks.rows + ai_checks.rows
+                   + tkchecks.rows + ttkchecks.rows + dw_checks.rows
+                   + tile_checks.rows if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
         # the first timing that has the kernel gives ms and its bound
         where, t = next((w, tt[name]) for w, tt in timed if name in tt)
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
-                 "launches": (launches[name] + t_launches[name]
-                              + train_launches[name] + bc_launches[name]
+                 "launches": (kernel_count(launches, name)
+                              + kernel_count(t_launches, name)
+                              + train_launches[name]
+                              + kernel_count(bc_launches, name)
                               + train_t_launches[name]),
-                 "launches_serve": launches[name],
-                 "launches_serve_t": t_launches[name],
+                 "launches_serve": kernel_count(launches, name),
+                 "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
                  "launches_train_t": train_t_launches[name],
-                 "launches_serve_bconv":
-                     serve_bc["launches_per_request"][0][name],
+                 "launches_serve_bconv": kernel_count(
+                     serve_bc["launches_per_request"][0], name),
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -1763,6 +1930,17 @@ def run(device, card: str, json_path) -> list:
         if "device_ms" in t:
             entry.update(device_ms=t["device_ms"],
                          library_device_ms=t["library_device_ms"])
+        if name == "dwconv3x3":
+            # the main path runs the fused q/k/v form (a launch a block);
+            # the per-call form (three a block) beside it
+            one = bc_totals["dwconv3x3 per call"]
+            entry.update(form="fused q/k/v (dwconv3x3_qkv)",
+                         library="one grouped cuDNN F.conv2d, 3C outputs, "
+                                 "no ReLU",
+                         per_call={k: one[k] for k in (
+                             "ms", "plain_ms", "bound_ms", "launches",
+                             "library_ms", "device_ms",
+                             "library_device_ms")})
         if name == "window_attention":
             entry["on_path"] = ("no model path calls it (nor in the JAX "
                                 "package); its core runs inside "

@@ -243,7 +243,9 @@ def test_conv_block_matches_jax(jx, shift, modulator):
     with torch.no_grad():
         got = port(_t(x))
     _close(got, want)
-    assert K.plain_counts()["dwconv3x3"] == 3
+    # the q, k and v depthwise convs in one call of the fused form
+    assert K.plain_counts()["dwconv3x3_qkv"] == 1
+    assert K.plain_counts()["dwconv3x3"] == 0
     assert K.plain_counts()["leff"] == 1
 
 
@@ -338,7 +340,7 @@ def test_small_conv_uformer_matches_jax(jx, small_conv, with_mask):
     with torch.no_grad():
         got = port(_t(x), mask=_t(mask))
     _close(got, want)
-    assert K.plain_counts()["dwconv3x3"] == 27
+    assert K.plain_counts()["dwconv3x3_qkv"] == 9
 
 
 def _golden():
@@ -369,7 +371,7 @@ def test_convproj_golden_through_the_port():
     assert K.plain_counts() == {
         "stage": 0, "attention_image": 0, "leff": 0, "attention_bwd": 0,
         "attention_block_bwd": 0, "leff_bwd": 0, "window_attention": 0,
-        "attention_block": 0, "dwconv3x3": 27}
+        "attention_block": 0, "dwconv3x3": 0, "dwconv3x3_qkv": 9}
 
 
 def test_golden_config_matches_jax(jx):
@@ -394,9 +396,9 @@ def test_golden_config_matches_jax(jx):
 
 def test_serve_bconv_shape_routes_to_the_depthwise_kernel():
     """Uformer_B's widths with conv projection (the served B-conv model)
-    at depth 1: 3 depthwise and 1 LeFF dispatch per block, and no stage,
-    attention-image or attention-block dispatch; conv weights prepared
-    once, in the working dtype, biases float32."""
+    at depth 1: 1 fused q/k/v depthwise and 1 LeFF dispatch per block, and
+    no stage, attention-image or attention-block dispatch; conv weights
+    prepared once, in the working dtype, biases float32."""
     model = Uformer(img_size=256, embed_dim=32, depths=(1,) * 9,
                     num_heads=B_HEADS, token_projection="conv",
                     modulator=True).eval()
@@ -412,6 +414,9 @@ def test_serve_bconv_shape_routes_to_the_depthwise_kernel():
         assert (q["wd"].dtype, q["wp"].dtype) == (torch.bfloat16,) * 2
         assert (q["bd"].dtype, q["bp"].dtype) == (torch.float32,) * 2
         assert q["wd"].shape == (3, 3, 512)
+    assert p["wd3"].shape == (3, 3, 3, 512) and p["bd3"].shape == (3, 512)
+    assert (p["wd3"].dtype, p["bd3"].dtype) == (torch.bfloat16,
+                                                torch.float32)
     x = torch.rand(1, 128, 128, 3)
     K.reset_counts()
     with torch.no_grad():
@@ -421,7 +426,7 @@ def test_serve_bconv_shape_routes_to_the_depthwise_kernel():
     assert K.plain_counts() == {
         "stage": 0, "attention_image": 0, "leff": 9, "attention_bwd": 0,
         "attention_block_bwd": 0, "leff_bwd": 0, "window_attention": 0,
-        "attention_block": 0, "dwconv3x3": 27}
+        "attention_block": 0, "dwconv3x3": 0, "dwconv3x3_qkv": 9}
     assert set(K.launch_counts().values()) == {0}
 
 
@@ -467,7 +472,7 @@ def test_conv_train_step_runs_on_cpu():
     loss = step(state, {"input": x, "target": x.clamp(0.1, 0.9)},
                 torch.Generator().manual_seed(1))
     assert np.isfinite(float(loss))
-    assert K.plain_counts()["dwconv3x3"] == 27
+    assert K.plain_counts()["dwconv3x3_qkv"] == 9
     dw = "encoderlayer_0.blocks.0.attn.qkv.to_q.depthwise.weight"
     assert float(dict(model.named_parameters())[dw].grad.abs().max()) > 0
     assert not torch.equal(before[dw], dict(model.named_parameters())[dw])

@@ -157,7 +157,8 @@ def test_uformer_b_routing(golden_run):
     assert plain == {"stage": 6, "attention_image": 4, "leff": 4,
                      "attention_bwd": 0, "attention_block_bwd": 0,
                      "leff_bwd": 0, "window_attention": 0,
-                     "attention_block": 0, "dwconv3x3": 0}
+                     "attention_block": 0, "dwconv3x3": 0,
+                     "dwconv3x3_qkv": 0}
     assert set(launched.values()) == {0}
     model = get_arch({"arch": "Uformer_B", "train_ps": 256}).eval()
     stage_layers = [name for name, m in model.named_children()

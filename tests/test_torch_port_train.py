@@ -230,7 +230,8 @@ def test_autograd_wrappers_match_plain_autograd_on_cpu(residual):
     assert K.plain_counts() == {"stage": 0, "attention_image": 1, "leff": 1,
                                 "attention_bwd": 1, "attention_block_bwd": 0,
                                 "leff_bwd": 1, "window_attention": 0,
-                                "attention_block": 0, "dwconv3x3": 0}
+                                "attention_block": 0, "dwconv3x3": 0,
+                                "dwconv3x3_qkv": 0}
     assert set(K.launch_counts().values()) == {0}
 
 
@@ -515,7 +516,7 @@ def test_uformer_b_train_routing_counts():
                                 "leff": 40, "attention_bwd": 40,
                                 "attention_block_bwd": 0, "leff_bwd": 40,
                                 "window_attention": 0, "attention_block": 0,
-                                "dwconv3x3": 0}
+                                "dwconv3x3": 0, "dwconv3x3_qkv": 0}
     assert set(K.launch_counts().values()) == {0}
     assert all(p.grad is not None for p in model.parameters())
 

@@ -268,7 +268,7 @@ def test_uformer_t_matches_jax_and_routes(jx, uformer_t):
     assert K.plain_counts() == {
         "stage": 4, "attention_image": 8, "leff": 10, "attention_bwd": 0,
         "attention_block_bwd": 0, "leff_bwd": 0, "window_attention": 0,
-        "attention_block": 2, "dwconv3x3": 0}
+        "attention_block": 2, "dwconv3x3": 0, "dwconv3x3_qkv": 0}
     assert set(K.launch_counts().values()) == {0}
 
 
@@ -327,7 +327,8 @@ def test_train_guard_names_the_uncovered_blocks():
 # one Uformer_T train step at 128^2: per kernel, its forward and backward
 T_STEP = {"stage": 0, "attention_image": 16, "attention_block": 2,
           "leff": 18, "attention_bwd": 16, "attention_block_bwd": 2,
-          "leff_bwd": 18, "window_attention": 0, "dwconv3x3": 0}
+          "leff_bwd": 18, "window_attention": 0, "dwconv3x3": 0,
+          "dwconv3x3_qkv": 0}
 
 
 def test_uformer_t_train_routing_counts():

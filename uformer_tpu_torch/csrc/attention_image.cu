@@ -4,20 +4,28 @@
 // (and its pixel-packed narrow-C variant): LN1, cyclic shift, window
 // partition, modulator, q/kv projection, fp32-softmax window attention
 // with relative-position bias and the inline SW-MSA mask, output
-// projection, reverse, unshift and residual, reading and writing the NHWC
-// image once. Head dim 16 or 32.
+// projection, reverse, unshift and [residual], reading and writing the
+// NHWC image once. Head dim 16 or 32.
 //
 // What bounds it on the H100: per window the projections are 4*64*C*C
-// MACs against 2*64*C bytes of activations, so at C >= 128 it is
-// tensor-core work fed from L2 (the weights are re-read by every window),
-// and at C = 32/64 the fp32 softmax and the gathers dominate. Design: one
-// block per window (the image token map of attention_window.cuh); the
-// token tile, the per-head q/k/v, the probabilities and the concatenated
-// head outputs live in shared memory; products run on the tensor cores
-// (WMMA, fp32 accumulation). In bf16 at C % 128 == 0 each window copies
-// its weights into shared memory chunk by chunk; wgmma and TMA are later
-// work.
-#include "attention_window.cuh"
+// MACs against 2*64*C bytes of activations; at every width the card
+// could do a window's work in far less time than a block-wide sequence of
+// small products and barriers takes, so latency, not bytes or tensor-core
+// rate, sets the pace. bf16 runs two persistent bodies on mma.sync with
+// register accumulators, chosen by C:
+//   - C 16, 32, 64 (attention_image_narrow.cu, attention_narrow_mma.cuh):
+//     weights resident in shared memory, four warps a window with the
+//     window core in registers, the next window's gather in flight;
+//   - C 128, 256, 512 (attention_image_wide.cu): the stage kernel's
+//     attention half (attention_mma.cuh), 1-4 windows per work item, the
+//     weights streamed through a cp.async ring.
+// The host (ops/kernels/attention_image.py:attention_image_plan) picks the
+// windows per work item and the grid. fp32 (the exact-check path) and
+// bf16 at other widths run one window per block of attention_window.cuh
+// (WMMA products through shared memory).
+#include "attention_image.cuh"
+#include "attention_mma.cuh"
+#include "attention_narrow_mma.cuh"
 
 namespace uf {
 
@@ -50,7 +58,7 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
                const void* wkv, const float* bkv, const void* wo,
                const float* bo, const float* bias, void* scratch, int B,
                int H, int W, int C, int nH, int shift, float scale,
-               int has_ln, int residual, void* stream) {
+               int has_ln, int residual, int wn, int grid, void* stream) {
   AttnParams<T> p;
   p.x = static_cast<const T*>(x);
   p.y = static_cast<T*>(y);
@@ -79,9 +87,16 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
   p.residual = residual;
   p.windows = 0;
   p.w_off = 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int D = nH > 0 ? C / nH : 0;
+    if (nH > 0 && C % nH == 0 && attn_narrow_fits(C, D))
+      return attention_image_narrow(p, D, wn, grid, s);
+    if (nH > 0 && C % nH == 0 && attn_wide_fits(C, D))
+      return attention_image_wide(p, D, wn, grid, s);
+  }
   return with_head_dim(C, nH, [&](auto d) {
-    return launch<T, decltype(d)::value>(p,
-                                         static_cast<cudaStream_t>(stream));
+    return launch<T, decltype(d)::value>(p, s);
   });
 }
 
@@ -95,30 +110,45 @@ const char* uf_error_string(int err) {
 
 // 1 when the head outputs of one window (head dim D) do not fit in shared
 // memory and the caller must pass a scratch tensor of the input's shape
-// and dtype (attention_image, stage, attention_block).
+// and dtype (attention_window.cuh: attention_image in fp32 or at widths
+// without a bf16 body, stage, attention_block).
 int uf_attention_needs_scratch(int is_bf16, int C, int D) {
   const int ts = is_bf16 ? 2 : 4;
   return (D == 16 ? uf::attn_layout<16>(ts, C).o_smem
                   : uf::attn_layout<32>(ts, C).o_smem) ? 0 : 1;
 }
 
+// The blocks of kernel 1's persistent bf16 body for (C, D) at wn windows
+// per work item that are resident on the card at once; 0 where (dtype, C,
+// D) runs one window per block; a negated cudaError_t on failure.
+int uf_attention_image_slots(int is_bf16, int C, int D, int wn) {
+  int slots = 0, e = 0;
+  if (is_bf16 && uf::attn_narrow_fits(C, D))
+    e = uf::attention_image_narrow_slots(C, D, wn, &slots);
+  else if (is_bf16 && uf::attn_wide_fits(C, D))
+    e = uf::attention_image_wide_slots(C, D, wn, &slots);
+  return e ? -e : slots;
+}
+
 // Returns a cudaError_t (0 on success). is_bf16 selects bf16 (else fp32)
 // for x, y, mod and the weight matrices; biases, LayerNorm parameters and
-// the (nH, 64, 64) bias are fp32.
+// the (nH, 64, 64) bias are fp32. wn and grid: windows per work item and
+// blocks of the persistent bf16 bodies (attention_image_plan); the
+// one-window-per-block body ignores them.
 int uf_attention_image(int is_bf16, const void* x, void* y, const void* mod,
                        const float* ln_s, const float* ln_b, const void* wq,
                        const float* bq, const void* wkv, const float* bkv,
                        const void* wo, const float* bo, const float* bias,
                        void* scratch, int B, int H, int W, int C, int nH,
                        int shift, float scale, int has_ln, int residual,
-                       void* stream) {
+                       int wn, int grid, void* stream) {
   if (is_bf16)
     return uf::run<uf::bf16>(x, y, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo,
                              bias, scratch, B, H, W, C, nH, shift, scale,
-                             has_ln, residual, stream);
+                             has_ln, residual, wn, grid, stream);
   return uf::run<float>(x, y, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias,
                         scratch, B, H, W, C, nH, shift, scale, has_ln,
-                        residual, stream);
+                        residual, wn, grid, stream);
 }
 
 }  // extern "C"

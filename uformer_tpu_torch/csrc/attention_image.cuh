@@ -1,0 +1,45 @@
+// Kernel 1's two bf16 bodies, each built in its own translation unit so
+// that nvcc compiles them in parallel: the narrow body at C 16-64
+// (attention_image_narrow.cu, attention_narrow_mma.cuh) and the wide one
+// at C 128-512 (attention_image_wide.cu, the stage kernel's
+// attn_wide_item). Both are persistent: `grid` blocks walk the image's
+// windows in work items of `wn` windows.
+#pragma once
+
+#include "attention_window.cuh"
+
+namespace uf {
+
+// 0 or a cudaError_t (cudaErrorInvalidValue for (C, D, wn) without a
+// kernel).
+int attention_image_narrow(const AttnParams<bf16>& p, int D, int wn,
+                           int grid, cudaStream_t stream);
+int attention_image_wide(const AttnParams<bf16>& p, int D, int wn, int grid,
+                         cudaStream_t stream);
+// The blocks of that body resident on the card at once, in *slots.
+int attention_image_narrow_slots(int C, int D, int wn, int* slots);
+int attention_image_wide_slots(int C, int D, int wn, int* slots);
+
+// The blocks of `kernel` (threads a block, smem bytes of dynamic shared
+// memory) resident on the card at once, in *slots; sets the kernel's
+// shared-memory limit.
+template <typename K>
+cudaError_t resident_slots(K kernel, int threads, size_t smem, int* slots) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  *slots = per_sm * sms;
+  if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
+  return e;
+}
+
+template <int N>
+using IntC = std::integral_constant<int, N>;
+
+}  // namespace uf

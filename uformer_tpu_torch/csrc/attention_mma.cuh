@@ -1,7 +1,7 @@
 // The LeWin attention sub-block in bf16 on the tensor-core building block
 // (mma_tile.cuh), for the stage kernel at C 128, 256 and 512:
 //
-//   y = x + tokens^-1(proj(W-MSA(LN1(tokens(x)) + mod)))
+//   y = [x +] tokens^-1(proj(W-MSA(LN1(tokens(x)) + mod)))
 //
 // One work item is WN windows (M = 64 WN tokens, WN C <= 512), so that
 // each weight tile copied into shared memory serves WN windows; the host
@@ -18,7 +18,9 @@
 // in flight while the current one is multiplied. The token map is
 // attention_window's (shift, partition, reverse and unshift cost nothing);
 // the roundings are its: LN output, + mod, q (after the scale), k, v, P,
-// O, then rnd(acc + bo) + x. Only the order of the fp32 sums differs.
+// O, then rnd(acc + bo) [+ x]. Only the order of the fp32 sums differs.
+// The stage kernel runs it with residual on; kernel 1 (attention_image.cu)
+// runs it at C 128-512 as its own persistent kernel, residual either way.
 #pragma once
 
 #include "attention_window.cuh"
@@ -66,7 +68,7 @@ struct AttnWide {
 
 // Work item `item`: windows item WN .. item WN + WN - 1 of the image's
 // (B, H / 8, W / 8) windows (those past the last are skipped). All
-// kThreads threads call it; p.windows == 0, p.residual == 1.
+// kThreads threads call it; p.windows == 0.
 template <int C, int D, int WN>
 __device__ void attn_wide_item(const AttnParams<bf16>& p, int item,
                                unsigned char* smem) {
@@ -222,7 +224,7 @@ __device__ void attn_wide_item(const AttnParams<bf16>& p, int item,
     }
   }
 
-  // + bo, rounded, + x, scattered back through the token map
+  // + bo, rounded, [+ x,] scattered back through the token map
 #pragma unroll
   for (int mi = 0; mi < L::MT2; ++mi)
 #pragma unroll
@@ -233,12 +235,14 @@ __device__ void attn_wide_item(const AttnParams<bf16>& p, int item,
         const int col = col0 + n * 8 + 2 * t4;
         if (pix[row] >= 0) {
           const size_t at = (size_t)pix[row] * C + col;
-          const __nv_bfloat162 xv =
-              *reinterpret_cast<const __nv_bfloat162*>(p.x + at);
-          const float v0 = rnd<bf16>(acco[mi][n][2 * hh] + p.bo[col]) +
-                           __low2float(xv);
-          const float v1 = rnd<bf16>(acco[mi][n][2 * hh + 1] + p.bo[col + 1]) +
-                           __high2float(xv);
+          float v0 = rnd<bf16>(acco[mi][n][2 * hh] + p.bo[col]);
+          float v1 = rnd<bf16>(acco[mi][n][2 * hh + 1] + p.bo[col + 1]);
+          if (p.residual) {
+            const __nv_bfloat162 xv =
+                *reinterpret_cast<const __nv_bfloat162*>(p.x + at);
+            v0 += __low2float(xv);
+            v1 += __high2float(xv);
+          }
           *reinterpret_cast<uint32_t*>(p.y + at) = pack_bf16(v0, v1);
         }
       }

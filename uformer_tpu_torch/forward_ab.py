@@ -3,6 +3,9 @@ kernel, of two or more checkouts of this repo on one CUDA card, in turns,
 to compare them within one run:
 
     python -m uformer_tpu_torch.forward_ab --roots OLD NEW NEW OLD
+    python -m uformer_tpu_torch.forward_ab --what forward_t --roots ...
+    python -m uformer_tpu_torch.forward_ab --what forward_bconv --roots ...
+    python -m uformer_tpu_torch.forward_ab --what attention_image --roots ...
     python -m uformer_tpu_torch.forward_ab --what dwconv3x3 --roots ...
     python -m uformer_tpu_torch.forward_ab --what leff --roots ...
     python -m uformer_tpu_torch.forward_ab --what stage --roots ...
@@ -15,16 +18,25 @@ Each root runs in its own process (its own `uformer_tpu_torch`, its own
 kernel build, made during the warm-up and not timed). `forward`: a bf16
 `Restorer` over `get_arch({"arch": "Uformer_B", "train_ps": 256})` with
 torch's default weights, then 20 forwards of a (8, 256, 256, 3) input,
-each timed with CUDA events. `dwconv3x3`: `dwconv3x3` in bf16 (bf16
-weights, fp32 bias) at the (Bw, 8, 8, C) windows of the serve B-conv
-stages at bs8 256^2 and one (8, 256, 256, 64) image, each timed as 20
-launches in a CUDA graph (device time, without the host's launch cost)
+each timed with CUDA events; `forward_t` the same for Uformer_T,
+`forward_bconv` for serve B-conv (Uformer_B's widths with the conv token
+projection). `attention_image`: `fused_attention_image` in bf16
+(matrices N(0, 1 / C)) at every call of the serve B and serve T forwards
+(bs8 256^2) and the train and train T steps (bs32 128^2), per stage and
+(shift, residual) as the model's blocks run it, counted once per such
+block; each timed as launches in a CUDA graph, with its largest
+difference from the plain version. `dwconv3x3`: `dwconv3x3` in bf16
+(bf16 weights, fp32 bias) at the (Bw, 8, 8, C) windows of the serve
+B-conv stages at bs8 256^2 and one (8, 256, 256, 64) image, each timed as
+20 launches in a CUDA graph (device time, without the host's launch cost)
 and as 20 eager calls, with its largest difference from the plain
-version. `leff`: `fused_leff` in bf16 (bf16 matrices N(0, 1 / fan-in),
+version; where the root has it, the fused q/k/v form (`dwconv3x3_qkv`,
+ReLU on) the same way. `leff`: `fused_leff` in bf16 (bf16 matrices N(0, 1 / fan-in),
 Ch = 4C, LN, residual) at every (B, H, W, C) it runs at in serve B, serve
 T, serve B-conv (bs8 256^2) and the train and train T steps (bs32 128^2);
 `stage`: `fused_stage` at every stage of serve B and serve T (bs8 256^2,
-shift, the decoder's modulator); each timed as launches in a CUDA graph
+shift, the decoder's modulator), with a digest of its output bits (equal
+digests in two roots: equal outputs); each timed as launches in a CUDA graph
 (device time), with its largest difference from the plain version;
 `train`: the Uformer_B bf16 train step (bs32 128^2, mixup on, AdamW),
 the median of 10 steps after 3 warm-up ones (CUDA events), `train_t` the
@@ -52,10 +64,10 @@ import sys
 _CHILD = """
 import json, statistics, torch
 from uformer_tpu_torch import get_arch
+from uformer_tpu_torch.models import Uformer
 from uformer_tpu_torch.restore import Restorer
 torch.manual_seed(0)
-restorer = Restorer(get_arch({"arch": "Uformer_B", "train_ps": 256}),
-                    torch.bfloat16, "cuda")
+restorer = Restorer(MODEL, torch.bfloat16, "cuda")
 x = torch.rand(8, 256, 256, 3, device="cuda")
 runs = []
 with torch.no_grad():
@@ -72,6 +84,11 @@ with torch.no_grad():
         runs.append(start.elapsed_time(end))
 print(json.dumps({"median_ms": statistics.median(runs), "runs_ms": runs}))
 """
+
+# serve B-conv: Uformer_B's widths and depths, conv token projection
+_BCONV = ('Uformer(img_size=256, embed_dim=32, depths=(1, 2, 8, 8, 2, 8, '
+          '8, 2, 1), num_heads=(1, 2, 4, 8, 16, 16, 8, 4, 2), win_size=8, '
+          'token_projection="conv", modulator=True)')
 
 _DWCONV = """
 import json, torch
@@ -99,16 +116,26 @@ for shape in shapes:
     x = torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
     w = (torch.randn(3, 3, C, generator=gen) / 3).to("cuda", torch.bfloat16)
     b = (0.1 * torch.randn(C, generator=gen)).to("cuda")
-    run = lambda: K.dwconv3x3(x, w, b)
-    err = float((run().float() - K.dwconv3x3_reference(x, w, b).float())
-                .abs().max())
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(20):
-            run()
-    graph.replay()
-    rows.append({"shape": shape, "graph_ms": ms(graph.replay, 10) / 20,
-                 "eager_ms": ms(run), "max_abs_err": err})
+    w3 = (torch.randn(3, 3, 3, C, generator=gen) / 3).to("cuda",
+                                                        torch.bfloat16)
+    b3 = (0.1 * torch.randn(3, C, generator=gen)).to("cuda")
+    row = {"shape": shape}
+    runs = {"": (lambda: (K.dwconv3x3(x, w, b),),
+                 lambda: (K.dwconv3x3_reference(x, w, b),))}
+    if hasattr(K, "dwconv3x3_qkv"):
+        runs["qkv_"] = (lambda: K.dwconv3x3_qkv(x, w3, b3),
+                        lambda: K.dwconv3x3_qkv_reference(x, w3, b3))
+    for key, (run, plain) in runs.items():
+        err = max(float((got.float() - want.float()).abs().max())
+                  for got, want in zip(run(), plain()))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(20):
+                run()
+        graph.replay()
+        row.update({key + "graph_ms": ms(graph.replay, 10) / 20,
+                    key + "eager_ms": ms(run), key + "max_abs_err": err})
+    rows.append(row)
 print(json.dumps({"rows": rows}))
 """
 
@@ -180,6 +207,7 @@ print(json.dumps({"rows": rows}))
 """
 
 _STAGE = _KERNEL_COMMON + """
+import hashlib
 f32 = torch.float32
 # (cell, stage, B, res, C, heads, blocks, modulator)
 stages = [("serve B", "enc2", 8, 64, 128, 4, 8, False),
@@ -215,10 +243,13 @@ for cell, name, B, res, C, nH, n, mod in stages:
               has_mod=mod)
     x = rnd(B, res, res, C)
     run = lambda: K.fused_stage(x, p, **kw)
-    err = float((run().float() - K.stage_reference(x, p, **kw).float())
+    y = run()
+    err = float((y.float() - K.stage_reference(x, p, **kw).float())
                 .abs().max())
+    digest = hashlib.sha256(y.view(torch.int16).cpu().numpy().tobytes())
     rows.append({"cell": cell, "stage": name, "shape": [B, res, res, C],
-                 "blocks": n, "graph_ms": graph_ms(run), "max_abs_err": err})
+                 "blocks": n, "graph_ms": graph_ms(run), "max_abs_err": err,
+                 "sha256": digest.hexdigest()[:16]})
 print(json.dumps({"rows": rows}))
 """
 _TRAIN = """
@@ -361,7 +392,71 @@ for cell, stage, B, R, C, nH in (("train", "enc3", 32, 16, 256, 8),
 print(json.dumps({"rows": rows}))
 """
 
-_CHILDREN = {"forward": _CHILD, "dwconv3x3": _DWCONV, "leff": _LEFF,
+_ATTN_IMAGE = _KERNEL_COMMON + """
+from uformer_tpu_torch import get_arch
+f32 = torch.float32
+LAYERS = (["encoderlayer_%d" % k for k in range(4)] + ["conv"]
+          + ["decoderlayer_%d" % k for k in range(4)])
+
+def calls(cell, arch, train):
+    # (stage, B, res, C, heads, modulator, shift, residual, blocks) of
+    # every kernel-1 call of the cell's forward or step
+    model = get_arch({"arch": arch, "train_ps": 128 if train else 256})
+    model.train(train)
+    B = 32 if train else 8
+    out = []
+    for name in LAYERS:
+        layer = getattr(model, name)
+        if not train and layer.stage_ok:
+            continue
+        count = {}
+        for b in layer.blocks:
+            if b.image_route:
+                key = (b.shift_size, not (train and b.drop_path1.rate > 0))
+                count[key] = count.get(key, 0) + 1
+        for (shift, res), n in count.items():
+            out.append((cell, name, B, layer.resolution, layer.dim,
+                        layer.num_heads, layer.has_mod, shift, res, n))
+    return out
+
+rows = []
+for cell, arch, train in (("serve B", "Uformer_B", False),
+                          ("serve T", "Uformer_T", False),
+                          ("train", "Uformer_B", True),
+                          ("train T", "Uformer_T", True)):
+    for cell, name, B, R, C, nH, mod, shift, res, n in calls(cell, arch,
+                                                             train):
+        s = C ** -0.5
+        args = (rnd(64, C, scale=0.1) if mod else None,
+                1.0 + rnd(C, scale=0.1, dtype=f32), rnd(C, scale=0.1, dtype=f32),
+                rnd(C, C, scale=s), rnd(C, scale=0.1, dtype=f32),
+                rnd(C, 2 * C, scale=s), rnd(2 * C, scale=0.1, dtype=f32),
+                rnd(C, C, scale=s), rnd(C, scale=0.1, dtype=f32),
+                rnd(nH, 64, 64, scale=0.5, dtype=f32))
+        kw = dict(win=8, shift=shift, scale=(C // nH) ** -0.5, num_heads=nH,
+                  residual=res)
+        x = rnd(B, R, R, C)
+        run = lambda: K.fused_attention_image(x, *args, **kw)
+        err = float((run().float()
+                     - K.attention_image_reference(x, *args, **kw).float())
+                    .abs().max())
+        rows.append({"cell": cell, "stage": name, "shape": [B, R, R, C],
+                     "heads": nH, "shift": shift, "residual": res,
+                     "blocks": n, "graph_ms": graph_ms(run),
+                     "max_abs_err": err})
+totals = {}
+for r in rows:
+    totals[r["cell"]] = totals.get(r["cell"], 0.0) + r["blocks"] * r["graph_ms"]
+print(json.dumps({"rows": rows, "per_cell_ms": totals}))
+"""
+
+_CHILDREN = {"forward": _CHILD.replace(
+                 "MODEL", 'get_arch({"arch": "Uformer_B", "train_ps": 256})'),
+             "forward_t": _CHILD.replace(
+                 "MODEL", 'get_arch({"arch": "Uformer_T", "train_ps": 256})'),
+             "forward_bconv": _CHILD.replace("MODEL", _BCONV),
+             "attention_image": _ATTN_IMAGE, "dwconv3x3": _DWCONV,
+             "leff": _LEFF,
              "stage": _STAGE, "train": 'ARCH = "Uformer_B"' + _TRAIN,
              "train_t": 'ARCH = "Uformer_T"' + _TRAIN, "leff_bwd": _LEFF_BWD,
              "attention_bwd": _ATTN_BWD, "bwd_split": _BWD_SPLIT}

@@ -28,8 +28,9 @@ takes); else, with linear projection and no mask, the windowed branch
 (`layers.py:796-848`): LN1, shift and partition in PyTorch, the
 attention-block kernel, reverse and unshift, the residual outside; else
 (conv projection, or an input mask) the unfused route of the same lines
-with `fused=False`: the q/k/v projection (three `SepConv2d` through the
-depthwise kernel, or the linear one) and the plain window attention with
+with `fused=False`: the q/k/v projection (the conv one's three depthwise
+convs in one launch of the depthwise kernel, `dwconv3x3_qkv`, then the
+pointwise products; or the linear one) and the plain window attention with
 the shift mask and the input-mask bias. A cross-modulator block first
 adds its cross-attention over all H*W tokens (`layers.py:722-738`). Then
 one LeFF kernel, or the plain `Mlp`. The attention-image, attention-block
@@ -62,6 +63,7 @@ from uformer_tpu_torch.ops.kernels import (
     attention_image_ad,
     attention_image_reference,
     dwconv3x3,
+    dwconv3x3_qkv,
     dwconv3x3_reference,
     fused_stage,
     leff_ad,
@@ -285,19 +287,31 @@ class ConvProjection(nn.Module):
         self.to_v = SepConv2d(dim, inner)
 
     def kernel_params(self, dtype: torch.dtype) -> Params:
-        return {name: getattr(self, name).kernel_params(dtype)
-                for name in ("to_q", "to_k", "to_v")}
+        p = {name: getattr(self, name).kernel_params(dtype)
+             for name in ("to_q", "to_k", "to_v")}
+        # the three depthwise weight sets and biases, stacked for one launch
+        p["wd3"] = torch.stack([p[n]["wd"] for n in ("to_q", "to_k",
+                                                     "to_v")])
+        p["bd3"] = torch.stack([p[n]["bd"] for n in ("to_q", "to_k",
+                                                     "to_v")])
+        return p
 
     def forward(self, x: torch.Tensor, p: Params, num_heads: int,
                 plain: bool = False):
-        """x (Bw, N, C) windows -> q, k, v (Bw, nH, N, D)."""
+        """x (Bw, N, C) windows -> q, k, v (Bw, nH, N, D): the three
+        depthwise convs and their ReLUs in one `dwconv3x3_qkv` call, then
+        each pointwise product; with plain, three `SepConv2d` on their
+        plain versions."""
         Bw, N, C = x.shape
         side = int(round(N ** 0.5))
         xs = x.reshape(Bw, side, side, C)
-        return tuple(
-            _heads(getattr(self, name)(xs, p[name], plain)
-                   .reshape(Bw, N, -1), num_heads)
-            for name in ("to_q", "to_k", "to_v"))
+        names = ("to_q", "to_k", "to_v")
+        if plain:
+            ys = (getattr(self, n)(xs, p[n], plain) for n in names)
+        else:
+            ys = (y @ p[n]["wp"] + p[n]["bp"].to(x.dtype) for n, y in zip(
+                names, dwconv3x3_qkv(xs, p["wd3"], p["bd3"], relu=True)))
+        return tuple(_heads(y.reshape(Bw, N, -1), num_heads) for y in ys)
 
 
 class WindowAttention(nn.Module):
@@ -510,9 +524,9 @@ class LeWinBlock(_Prepared, nn.Module):
         `fused=False` (`layers.py:796-848`, `:576-607`), for conv
         projection or an input mask: LN1 in the working dtype, cyclic
         shift, partition, + modulator, the q/k/v projection (the conv one
-        runs the depthwise kernel three times), the plain window attention
-        with the relative-position bias, the shift mask and the input-mask
-        bias, proj, reverse, unshift."""
+        runs the depthwise kernel once for q, k and v), the plain window
+        attention with the relative-position bias, the shift mask and the
+        input-mask bias, proj, reverse, unshift."""
         B, H, W, _ = x.shape
         win, shift = self.win_size, self.shift_size
         wnd = window_partition(

@@ -19,6 +19,8 @@ from uformer_tpu_torch.ops.kernels.attention_block import (  # noqa: F401
 from uformer_tpu_torch.ops.kernels.dwconv import (  # noqa: F401
     DWCONV_BACKWARD_NOT_PORTED,
     dwconv3x3,
+    dwconv3x3_qkv,
+    dwconv3x3_qkv_reference,
     dwconv3x3_reference,
 )
 from uformer_tpu_torch.ops.kernels.attention_image import (  # noqa: F401
@@ -51,7 +53,7 @@ WRAPPERS = {"stage": fused_stage, "attention_image": fused_attention_image,
             "leff_bwd": fused_leff_bwd,
             "window_attention": fused_window_attention,
             "attention_block": fused_attention_block,
-            "dwconv3x3": dwconv3x3}
+            "dwconv3x3": dwconv3x3, "dwconv3x3_qkv": dwconv3x3_qkv}
 
 
 def reset_counts() -> None:

@@ -33,7 +33,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "uf_attention_needs_scratch": [_I, _I, _I],
-    "uf_attention_image": [_I] + [_P] * 13 + [_I] * 6 + [_F, _I, _I, _P],
+    "uf_attention_image": [_I] + [_P] * 13 + [_I] * 6 + [_F] + [_I] * 4
+                          + [_P],
+    "uf_attention_image_slots": [_I] * 4,
     "uf_attention_block": [_I] + [_P] * 13 + [_I] * 7 + [_F, _I, _P],
     "uf_window_attention": [_I] + [_P] * 5 + [_I] * 6 + [_F, _P],
     "uf_leff_tile_rows": [_I, _I, _I],
@@ -48,7 +50,8 @@ _SIGNATURES = {
     "uf_leff_bwd": [_I, _I] + [_P] * 17 + [_I] * 8 + [_P],
     "uf_wgrad": [_I, _P, _I, _P, _I] + [_P] * 4 + [_I] * 4 + [_P],
     "uf_colsum": [_I, _P, _I, _P, _P, _I, _I, _I, _P],
-    "uf_dwconv3x3": [_I, _I] + [_P] * 4 + [_I] * 5 + [_P],
+    "uf_dwconv3x3": [_I, _I] + [_P] * 4 + [_I] * 12 + [_P],
+    "uf_dwconv3x3_slots": [_I] * 5,
     "uf_mma_check": [_P, _P, _P, _I, _I, _I, _I, _P],
     "uf_error_string": [_I],
 }

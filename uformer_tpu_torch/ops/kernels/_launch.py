@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -54,3 +55,23 @@ def check(err: int, what: str) -> None:
     if err != 0:
         name = load().uf_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({name})")
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(entry: str, device_index: int, *args: int) -> int:
+    """Blocks of a persistent kernel resident on the card at once
+    (occupancy x SMs), as the C entry `entry(*args)` reports it: 0 where
+    those arguments take no persistent kernel. Asked once per device and
+    arguments; it also sets the kernel's shared-memory limit."""
+    with torch.cuda.device(device_index):
+        n = getattr(load(), entry)(*args)
+    if n < 0:
+        check(-n, entry)
+    return n
+
+
+def persistent_grid(items: int, slots: int) -> int:
+    """Blocks of a persistent launch: one per work item, at most as many
+    as are resident at once (`slots`), each then walking items
+    blockIdx.x + i * gridDim.x."""
+    return max(1, min(items, slots))

@@ -1,15 +1,20 @@
 """Image-layout LeWin attention sub-block: Hopper kernel and plain version.
 
 Port of `uformer_tpu/ops/pallas/attention_image.py:fused_attention_image`
-(kernel source `csrc/attention_image.cu`, body in
-`csrc/attention_window.cuh`), head dim 16 or 32. On the H100 the
-projections are tensor-core work fed from L2 at C >= 128, and the fp32
-softmax and token gathers dominate at C = 32/64; the kernel runs one 8x8
-window per thread block with the whole working set in shared memory,
-reading and writing the NHWC image once. `attention_image_reference` is
-the plain PyTorch version with the JAX reference's signature
-(`attention_image.py:432`). Its backward, `fused_attention_image_bwd`
-(kernel source `csrc/attention_bwd.cu`), takes head dim 16 or 32 too.
+(kernel source `csrc/attention_image.cu`), head dim 16 or 32. On the
+H100 a window is little work at every width, so latency between small
+products sets the pace. In bf16 two persistent bodies on `mma.sync` read
+and write the NHWC image once: at C 16-64 (`csrc/attention_narrow_mma.cuh`)
+the weights stay in shared memory, four warps take a window with its
+softmax core in registers and the next window's gather in flight; at C
+128-512 the stage kernel's attention half (`csrc/attention_mma.cuh`)
+takes 1-4 windows per work item with the weights streamed through a
+`cp.async` ring. `attention_image_plan` picks the body and the windows per
+work item. fp32 runs one window per block (`csrc/attention_window.cuh`).
+`attention_image_reference` is the plain PyTorch version with the JAX
+reference's signature (`attention_image.py:432`). Its backward,
+`fused_attention_image_bwd` (kernel source `csrc/attention_bwd.cu`), takes
+head dim 16 or 32 too.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from uformer_tpu_torch.ops.kernels.attention_block import (
     run_parts,
     vjp_reference,
 )
+from uformer_tpu_torch.ops.kernels.wgrad import sm_count
 from uformer_tpu_torch.ops.kernels.window_attention import (
     check_head_dim,
     check_window,
@@ -55,6 +61,41 @@ def attention_image_reference(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo,
     return x + out if residual else out
 
 
+NARROW_WIDTHS = (16, 32, 64)
+WIDE_WIDTHS = (128, 256, 512)
+
+
+def wide_windows(windows: int, sms: int, C: int) -> int:
+    """Windows per work item of the wide body (`csrc/stage.cu:wide_windows`):
+    the most, up to 512 / C, that do not add a round of items over one
+    block per SM."""
+    best, best_cost, wn = 1, None, 1
+    while wn * C <= 512:
+        items = -(-windows // wn)
+        cost = -(-items // sms) * wn  # rounds of items, each WN windows
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = wn, cost
+        wn *= 2
+    return best
+
+
+def attention_image_plan(windows: int, C: int, D: int, bf16: bool,
+                         sms: int):
+    """(body, windows per work item) of kernel 1 on `windows` 8x8 windows
+    of width C, head dim D: in bf16 the narrow body at C 16-64 with the
+    most of 4, 2, 1 windows (one per group of four warps) that still
+    leaves a work item per SM, the wide body at C 128-512 with
+    `wide_windows`; else ("window", 1), one window per block."""
+    if bf16 and C in NARROW_WIDTHS and C >= D:
+        for wn in (4, 2):
+            if -(-windows // wn) >= sms:
+                return "narrow", wn
+        return "narrow", 1
+    if bf16 and C in WIDE_WIDTHS:
+        return "wide", wide_windows(windows, sms, C)
+    return "window", 1
+
+
 def _check_geometry(x, win, shift, num_heads):
     _, H, W, C = x.shape
     check_window(win, shift, H, W)
@@ -73,7 +114,8 @@ def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
     wkv (C, 2C) = [k | v] in x's dtype; mod (64, C) in x's dtype or None;
     bq, bkv, bo, ln_s, ln_b float32; bias (nH, 64, 64) float32.
     A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel (win 8, head dim 16 or 32) or raises."""
+    the kernel (win 8, head dim 16 or 32; its body and windows per work
+    item from `attention_image_plan`) or raises."""
     if x.device.type == "cpu":
         fused_attention_image.plain_calls += 1
         return attention_image_reference(
@@ -97,9 +139,17 @@ def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
         _launch.expect(t, name, shape, tdt, dev)
     lib = load()
     is_bf16 = int(dt == torch.bfloat16)
+    D, windows = C // num_heads, B * (H // 8) * (W // 8)
+    body, wn = attention_image_plan(windows, C, D, bool(is_bf16),
+                                    sm_count(dev))
+    grid, scratch = windows, None
+    if body != "window":
+        slots = _launch.resident_blocks("uf_attention_image_slots",
+                                        dev.index, is_bf16, C, D, wn)
+        grid = _launch.persistent_grid(-(-windows // wn), slots)
+    elif lib.uf_attention_needs_scratch(is_bf16, C, D):
+        scratch = torch.empty_like(x)
     y = torch.empty_like(x)
-    scratch = (torch.empty_like(x) if lib.uf_attention_needs_scratch(
-        is_bf16, C, C // num_heads) else None)
     with torch.cuda.device(dev):
         err = lib.uf_attention_image(
             is_bf16, x.data_ptr(), y.data_ptr(), _launch.ptr(mod),
@@ -107,8 +157,8 @@ def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
             _launch.ptr(ln_b) if has_ln else None, wq.data_ptr(),
             bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(), wo.data_ptr(),
             bo.data_ptr(), bias.data_ptr(), _launch.ptr(scratch), B, H, W, C,
-            num_heads, shift, float(scale), int(has_ln), int(residual),
-            _launch.stream(x))
+            num_heads, shift, float(scale), int(has_ln), int(residual), wn,
+            grid, _launch.stream(x))
     _launch.check(err, "attention_image kernel")
     fused_attention_image.launches += 1
     return y
