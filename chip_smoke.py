@@ -12,10 +12,12 @@ Phases, each raising on failure (no phase is caught):
                main-path shape of Uformer_B and of Uformer_T at 256^2
                (batch 2), in fp32 (TF32 off) and bf16: for Uformer_T the
                stage and attention-image kernels at head dim 16, the
-               attention-block kernel at enc0 (LN and modulator each way),
-               LeFF at C 16-64, and the window-attention core at every
-               stage's heads and shifts; kernels 4 and 5 also at one
-               Uformer_B (head dim 32) geometry; the attention-image
+               attention-block kernel at enc0 (LN and modulator each way,
+               the windows at place 0 and 37, batch 1, 2 and 3), LeFF at
+               C 16-64, and the window-attention core at every stage's
+               heads and shifts, also on 37 windows more; kernels 4 and 5
+               also at one Uformer_B (head dim 32) geometry; the
+               attention-image
                kernel (its narrow and wide bf16 bodies) at every shape it
                runs at in serve B, serve T, train and train T, residual on
                and off; the depthwise kernel, per call and in its fused
@@ -44,7 +46,8 @@ Phases, each raising on failure (no phase is caught):
   7. serve T - the same for Uformer_T (seeded numpy weights over the port's
                own parameter names): 4 requests of batch 8 at 256^2.
   8. timing T - as 6 for Uformer_T, and the window-attention core alone at
-               its enc0 shape against its plain version and against
+               its enc0 shape, at head dim 32 there and at four heads of
+               512 windows, against its plain version and against
                F.scaled_dot_product_attention (a yardstick the port never
                calls).
   9. serve B-conv - Uformer_B's widths and depths with the conv token
@@ -106,6 +109,7 @@ from __future__ import annotations
 import argparse
 import copy
 import importlib.util
+import itertools
 import json
 import re
 import subprocess
@@ -542,35 +546,40 @@ def kernel_phase(model, device) -> Checks:
 
 def block_checks(checks: Checks, blk, prm, shape, gen, device,
                  what: str) -> None:
-    """The attention-block kernel at blk's geometry on random windows of a
-    `shape` image, with LN and a modulator each on and off (the model
-    runs it with LN outside, and with the block's own modulator)."""
+    """The attention-block kernel at blk's geometry on random windows of
+    `shape` images at batch 1, B and 3 (tails of the persistent grid),
+    with LN and a modulator each on and off (the model runs it with LN
+    outside, and with the block's own modulator), the windows at place 0
+    and at place 37 of the image's (wrapping past the last)."""
     from uformer_tpu_torch.ops import kernels as K
 
     B, H, W, C = shape
-    wnd = torch.randn((B * H * W // 64, 64, C), generator=gen) \
-        .bfloat16().float().to(device)
     mod = torch.randn((64, C), generator=gen).bfloat16().float().to(device)
-    for has_ln in (False, True):
-        for with_mod in (False, True):
-            def run(fn, has_ln=has_ln, with_mod=with_mod):
+    for batch in (1, B, 3):
+        wnd = torch.randn((batch * H * W // 64, 64, C), generator=gen) \
+            .bfloat16().float().to(device)
+        for w_off, has_ln, with_mod in itertools.product(
+                (0, 37), (False, True), (False, True)):
+            def run(fn, has_ln=has_ln, with_mod=with_mod, w_off=w_off):
                 return lambda x, dt: fn(
                     x, mod.to(dt) if with_mod else None, prm[dt]["ln1_s"],
                     prm[dt]["ln1_b"], *(prm[dt][k] for k in (
                         "wq", "bq", "wkv", "bkv", "wo", "bo", "bias")),
                     win=blk.win_size, shift=blk.shift_size, H=H, W=W,
                     scale=blk.attn.scale, num_heads=blk.num_heads,
-                    has_ln=has_ln)
+                    has_ln=has_ln, w_off=w_off)
 
             compare(checks, "attention_block",
-                    f"{what} ln={int(has_ln)} mod={int(with_mod)}",
+                    f"{what} Bw={wnd.shape[0]} w_off={w_off} "
+                    f"ln={int(has_ln)} mod={int(with_mod)}",
                     run(K.fused_attention_block),
                     run(K.attention_block_reference), wnd)
 
 
 def core_checks(checks: Checks, model, names, device, gen) -> None:
     """The window-attention core at the (resolution, heads) of each named
-    stage of `model` at 256^2, batch BATCH_CHECK, with the bias of the
+    stage of `model` at 256^2, batch BATCH_CHECK, and on 37 windows more
+    (a range of work items that no grid divides), with the bias of the
     stage's first block, at each shift the stage runs."""
     from uformer_tpu_torch.ops import kernels as K
 
@@ -579,19 +588,21 @@ def core_checks(checks: Checks, model, names, device, gen) -> None:
         res, nH = layer.resolution, layer.num_heads
         D = layer.dim // nH
         bias = layer.blocks[0].kernel_params(torch.float32)["bias"]
-        Bw = BATCH_CHECK * (res // 8) ** 2
-        q, k, v = (torch.randn((nH, Bw, 64, D), generator=gen).bfloat16()
-                   .float().to(device) for _ in range(3))
-        for shift in ((0, 4) if layer.use_shift else (0,)):
-            kw = dict(win=8, shift=shift, H=res, W=res, scale=D ** -0.5)
+        for Bw in (BATCH_CHECK * (res // 8) ** 2,
+                   BATCH_CHECK * (res // 8) ** 2 + 37):
+            q, k, v = (torch.randn((nH, Bw, 64, D), generator=gen)
+                       .bfloat16().float().to(device) for _ in range(3))
+            for shift in ((0, 4) if layer.use_shift else (0,)):
+                kw = dict(win=8, shift=shift, H=res, W=res, scale=D ** -0.5)
 
-            def run(fn, kw=kw, k=k, v=v, bias=bias):
-                return lambda x, dt: fn(x, k.to(dt), v.to(dt), bias, **kw)
+                def run(fn, kw=kw, k=k, v=v, bias=bias):
+                    return lambda x, dt: fn(x, k.to(dt), v.to(dt), bias,
+                                            **kw)
 
-            compare(checks, "window_attention",
-                    f"{name} (nH, Bw, 64, D)=({nH}, {Bw}, 64, {D}) "
-                    f"shift={shift}", run(K.fused_window_attention),
-                    run(K.window_attention_reference), q)
+                compare(checks, "window_attention",
+                        f"{name} (nH, Bw, 64, D)=({nH}, {Bw}, 64, {D}) "
+                        f"shift={shift}", run(K.fused_window_attention),
+                        run(K.window_attention_reference), q)
 
 
 @torch.no_grad()
@@ -1239,53 +1250,65 @@ def bconv_timing(restorer, x):
     return rows, totals, fwd
 
 
+# kernel 4 timed alone (nH, Bw, D, image side): Uformer_T's enc0 at bs8
+# 256^2 (with its bias), head dim 32 there, four heads of 512 windows
+CORE_TIMING_SHAPES = [(1, 8192, 16, 256), (1, 8192, 32, 256),
+                      (4, 512, 16, 64)]
+
+
 @torch.no_grad()
 def core_timing(model_t, device) -> dict:
-    """The window-attention core alone at Uformer_T's enc0 shape of the
-    bs8 256^2 forward (one head, head dim 16, shift 4), bf16: the kernel,
-    its plain version and F.scaled_dot_product_attention with the bias and
-    shift mask as one additive mask (a yardstick; the port never calls
-    it), in the order plain, kernel, library, library, kernel, plain."""
+    """The window-attention core alone, bf16, shift 4, at each
+    CORE_TIMING_SHAPES shape (the first with the bias of Uformer_T's enc0,
+    the others random): the kernel, its plain version and
+    F.scaled_dot_product_attention with the bias and shift mask as one
+    additive mask (a yardstick; the port never calls it), in the order
+    plain, kernel, library, library, kernel, plain. Returns the first
+    shape's timing, the others under "more"."""
     from uformer_tpu_torch.ops import kernels as K
     from uformer_tpu_torch.ops.kernels.window_attention import window_mask
 
-    layer = model_t.encoderlayer_0
-    res, nH = RES_SERVE, layer.num_heads
-    D, shift = layer.dim // nH, 4
-    Bw = BATCH_SERVE * (res // 8) ** 2
     gen = torch.Generator(device="cpu").manual_seed(8)
-    q, k, v = (torch.randn((nH, Bw, 64, D), generator=gen)
-               .to(device, torch.bfloat16) for _ in range(3))
-    bias = layer.blocks[1].kernel_params(torch.float32)["bias"]
-    kw = dict(win=8, shift=shift, H=res, W=res, scale=D ** -0.5)
-    mask = window_mask(res, res, 8, shift, Bw, 0, device)  # (nW, 64, 64)
-    full = (bias[:, None, None] + mask[None, None]) \
-        .expand(nH, BATCH_SERVE, *mask.shape).reshape(nH, Bw, 64, 64) \
-        .to(torch.bfloat16).contiguous()
+    shift, outs = 4, []
+    for nH, Bw, D, res in CORE_TIMING_SHAPES:
+        q, k, v = (torch.randn((nH, Bw, 64, D), generator=gen)
+                   .to(device, torch.bfloat16) for _ in range(3))
+        bias = (model_t.encoderlayer_0.blocks[1].kernel_params(
+            torch.float32)["bias"] if not outs else
+            (0.5 * torch.randn((nH, 64, 64), generator=gen)).to(device))
+        kw = dict(win=8, shift=shift, H=res, W=res, scale=D ** -0.5)
+        mask = window_mask(res, res, 8, shift, Bw, 0, device)  # (nW, 64, 64)
+        full = (bias[:, None, None] + mask[None, None]) \
+            .expand(nH, Bw // mask.shape[0], *mask.shape) \
+            .reshape(nH, Bw, 64, 64).to(torch.bfloat16).contiguous()
 
-    def fused():
-        return K.fused_window_attention(q, k, v, bias, **kw)
+        def fused():
+            return K.fused_window_attention(q, k, v, bias, **kw)
 
-    def plain():
-        return K.window_attention_reference(q, k, v, bias, **kw)
+        def plain():
+            return K.window_attention_reference(q, k, v, bias, **kw)
 
-    def library():
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=full,
-                                              scale=D ** -0.5)
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=full,
+                                                  scale=D ** -0.5)
 
-    p1, k1, l1 = cuda_ms(plain), cuda_ms(fused), cuda_ms(library)
-    l2, k2, p2 = cuda_ms(library), cuda_ms(fused), cuda_ms(plain)
-    t = {}
-    tally(t, "window_attention", (k1 + k2) / 2, (p1 + p2) / 2,
-          core_cost(nH, Bw, D))
-    out = dict(t["window_attention"], library_ms=(l1 + l2) / 2,
-               shape=[nH, Bw, 64, D], shift=shift,
-               library_max_abs_err_vs_plain=max_err(library(), plain()))
-    print(f"  window_attention {tuple(out['shape'])} shift {shift}: kernel "
-          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA "
-          f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
-          f"({bound_by(out)})", flush=True)
-    return out
+        p1, k1, l1 = cuda_ms(plain), cuda_ms(fused), cuda_ms(library)
+        l2, k2, p2 = cuda_ms(library), cuda_ms(fused), cuda_ms(plain)
+        t = {}
+        tally(t, "window_attention", (k1 + k2) / 2, (p1 + p2) / 2,
+              core_cost(nH, Bw, D))
+        out = dict(t["window_attention"], library_ms=(l1 + l2) / 2,
+                   graph_ms=graph_ms(fused), shape=[nH, Bw, 64, D],
+                   shift=shift,
+                   library_max_abs_err_vs_plain=max_err(library(), plain()))
+        print(f"  window_attention {tuple(out['shape'])} shift {shift}: "
+              f"kernel {out['ms']:.4f} ms ({out['graph_ms']:.4f} graphed), "
+              f"plain {out['plain_ms']:.4f} ms, SDPA "
+              f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+              f"({bound_by(out)})", flush=True)
+        outs.append(out)
+        del q, k, v, full
+    return dict(outs[0], more=outs[1:])
 
 
 def grad_bound(checks: Checks, kernel: str, what: str, got, ref, low,
@@ -1943,9 +1966,14 @@ def run(device, card: str, json_path) -> list:
                              "library_device_ms")})
         if name == "window_attention":
             entry["on_path"] = ("no model path calls it (nor in the JAX "
-                                "package); its core runs inside "
-                                "attention_image, stage and "
-                                "attention_block")
+                                "package); its bf16 register core "
+                                "(window_core_mma.cuh) runs inside "
+                                "attention_image's and attention_block's "
+                                "narrow bodies")
+            entry["more_shapes"] = [
+                {k: c[k] for k in ("shape", "ms", "graph_ms", "plain_ms",
+                                   "bound_ms", "library_ms")}
+                for c in core["more"]]
         for label, key, tt in (("serve Uformer_T", "serve_t", t_totals),
                                ("train Uformer_B", "train", ttotals),
                                ("train Uformer_T", "train_t", tttotals),

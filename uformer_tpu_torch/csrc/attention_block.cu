@@ -12,11 +12,22 @@
 // What bounds it on the H100: at Uformer_T's enc0 (C = 16, one head,
 // 8192 windows of a 256^2 batch-8 stage) memory: 34 MB read and written
 // in bf16 (10 us at 3.35 TB/s) against 3.2 GFLOP (3 us on the tensor
-// cores). Design: the body of attention_window.cuh with the identity
-// token map, one block per window, its working set in shared memory; the
-// block is sized to C (128 threads at C <= 32, 256 at C <= 64), since a
-// 64 x 16 head tile is only 4 WMMA fragments and 16 warps would idle.
-#include "attention_window.cuh"
+// cores); a window is so little work that latency between its steps, not
+// either rate, sets the pace of a body that runs one window per block.
+// Design:
+//   - bf16 at C 16, 32 and 64 (attention_block_narrow.cu): kernel 1's
+//     narrow body (attention_narrow_mma.cuh) on identity windows:
+//     persistent blocks with the weights resident, four warps a window,
+//     the window core in registers (window_core_mma.cuh), the next
+//     window's rows in flight. The host plans windows per work item and
+//     the grid as for kernel 1 (attention_image_plan, persistent_grid);
+//   - fp32 (the exact-check path) and bf16 at other widths: one window per
+//     block of attention_window.cuh, sized to C (128 threads at C <= 32,
+//     256 at C <= 64), WMMA products through shared memory. C >= 128 runs
+//     here on no model path: the model's image route takes every
+//     C % 128 == 0 (models/layers.py:LeWinBlock.image_route).
+#include "attention_image.cuh"
+#include "attention_narrow_mma.cuh"
 
 namespace uf {
 
@@ -49,7 +60,7 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
                const void* wkv, const float* bkv, const void* wo,
                const float* bo, const float* bias, void* scratch, int Bw,
                int H, int W, int C, int nH, int shift, int w_off,
-               float scale, int has_ln, void* stream) {
+               float scale, int has_ln, int wn, int grid, void* stream) {
   AttnParams<T> p;
   p.x = static_cast<const T*>(x);
   p.y = static_cast<T*>(y);
@@ -78,9 +89,14 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
   p.residual = 0;
   p.windows = 1;
   p.w_off = w_off;
+  auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int D = nH > 0 ? C / nH : 0;
+    if (nH > 0 && C % nH == 0 && attn_narrow_fits(C, D))
+      return attention_block_narrow(p, D, Bw, wn, grid, s);
+  }
   return with_head_dim(C, nH, [&](auto d) {
-    return launch<T, decltype(d)::value>(p, Bw,
-                                         static_cast<cudaStream_t>(stream));
+    return launch<T, decltype(d)::value>(p, Bw, s);
   });
 }
 
@@ -88,24 +104,36 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
 
 extern "C" {
 
+// The blocks of kernel 5's persistent bf16 body for (C, D) at wn windows
+// per work item that are resident on the card at once; 0 where (dtype, C,
+// D) runs one window per block; a negated cudaError_t on failure.
+int uf_attention_block_slots(int is_bf16, int C, int D, int wn) {
+  int slots = 0, e = 0;
+  if (is_bf16 && uf::attn_narrow_fits(C, D))
+    e = uf::attention_block_narrow_slots(C, D, wn, &slots);
+  return e ? -e : slots;
+}
+
 // Returns a cudaError_t. is_bf16 selects bf16 (else fp32) for x, y, mod
 // and the weight matrices; biases, LayerNorm parameters and the
 // (nH, 64, 64) bias are fp32. mod may be null; ln_s / ln_b are read only
-// with has_ln. scratch: see uf_attention_needs_scratch.
+// with has_ln. scratch: see uf_attention_needs_scratch. wn and grid:
+// windows per work item and blocks of the persistent bf16 body
+// (attention_image_plan); the one-window-per-block body ignores them.
 int uf_attention_block(int is_bf16, const void* x, void* y, const void* mod,
                        const float* ln_s, const float* ln_b, const void* wq,
                        const float* bq, const void* wkv, const float* bkv,
                        const void* wo, const float* bo, const float* bias,
                        void* scratch, int Bw, int H, int W, int C, int nH,
                        int shift, int w_off, float scale, int has_ln,
-                       void* stream) {
+                       int wn, int grid, void* stream) {
   if (is_bf16)
     return uf::run<uf::bf16>(x, y, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo,
                              bias, scratch, Bw, H, W, C, nH, shift, w_off,
-                             scale, has_ln, stream);
+                             scale, has_ln, wn, grid, stream);
   return uf::run<float>(x, y, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias,
                         scratch, Bw, H, W, C, nH, shift, w_off, scale, has_ln,
-                        stream);
+                        wn, grid, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
-// Kernel 1's two bf16 bodies, each built in its own translation unit so
-// that nvcc compiles them in parallel: the narrow body at C 16-64
-// (attention_image_narrow.cu, attention_narrow_mma.cuh) and the wide one
-// at C 128-512 (attention_image_wide.cu, the stage kernel's
-// attn_wide_item). Both are persistent: `grid` blocks walk the image's
-// windows in work items of `wn` windows.
+// The persistent bf16 bodies of kernels 1 and 5, each built in its own
+// translation unit so that nvcc compiles them in parallel: kernel 1's
+// narrow body at C 16-64 (attention_image_narrow.cu,
+// attention_narrow_mma.cuh) and its wide one at C 128-512
+// (attention_image_wide.cu, the stage kernel's attn_wide_item); kernel
+// 5's on the narrow body (attention_block_narrow.cu). `grid` blocks walk
+// the windows in work items of `wn` windows.
 #pragma once
 
 #include "attention_window.cuh"
@@ -19,6 +20,10 @@ int attention_image_wide(const AttnParams<bf16>& p, int D, int wn, int grid,
 // The blocks of that body resident on the card at once, in *slots.
 int attention_image_narrow_slots(int C, int D, int wn, int* slots);
 int attention_image_wide_slots(int C, int D, int wn, int* slots);
+// kernel 5 on the Bw windows of p.x (AttnParams::w_off their offset)
+int attention_block_narrow(const AttnParams<bf16>& p, int D, int Bw, int wn,
+                           int grid, cudaStream_t stream);
+int attention_block_narrow_slots(int C, int D, int wn, int* slots);
 
 // The blocks of `kernel` (threads a block, smem bytes of dynamic shared
 // memory) resident on the card at once, in *slots; sets the kernel's
@@ -41,5 +46,22 @@ cudaError_t resident_slots(K kernel, int threads, size_t smem, int* slots) {
 
 template <int N>
 using IntC = std::integral_constant<int, N>;
+
+// f(IntC<C>, IntC<D>, IntC<WN>) for the narrow body of (C, D, wn)
+template <typename F>
+int with_narrow(int C, int D, int wn, F f) {
+  auto by_wn = [&](auto c, auto d) {
+    if (wn == 4) return f(c, d, IntC<4>{});
+    if (wn == 2) return f(c, d, IntC<2>{});
+    if (wn == 1) return f(c, d, IntC<1>{});
+    return (int)cudaErrorInvalidValue;
+  };
+  if (C == 16 && D == 16) return by_wn(IntC<16>{}, IntC<16>{});
+  if (C == 32 && D == 16) return by_wn(IntC<32>{}, IntC<16>{});
+  if (C == 32 && D == 32) return by_wn(IntC<32>{}, IntC<32>{});
+  if (C == 64 && D == 16) return by_wn(IntC<64>{}, IntC<16>{});
+  if (C == 64 && D == 32) return by_wn(IntC<64>{}, IntC<32>{});
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace uf

@@ -5,7 +5,8 @@
 //   y = [x +] tokens^-1(proj(W-MSA(LN1(tokens(x)) + mod)))
 //
 // Kernel 1's body at the stages of Uformer_B and Uformer_T that the stage
-// kernel does not take (enc0, enc1, dec3; Uformer_T's C 32/64 stages).
+// kernel does not take (enc0, enc1, dec3; Uformer_T's C 32/64 stages),
+// and kernel 5's on (Bw, 64, C) windows (Uformer_T's enc0).
 // At these widths a window is little work (2 . 64 C (4 C + 128) operations
 // against 2 . 64 C . 2 bytes), so what bounds the old block-per-window
 // body is latency: block-wide barriers between WMMA products staged
@@ -27,27 +28,26 @@
 //     mma.sync (q times the scale, rounded, kept in registers as an A
 //     operand; k and v rounded into shared memory), then waits on the
 //     group's named barrier (bar.sync 1 + g, 128), never on the block's;
-//   - the window core in registers: S = q k^T (16 x 64, eight n8 tiles),
-//     + bias, - 100 where the region ids differ (one 32-bit mask per lane
-//     per window), row max and sum by quad shuffles, P rounded to bf16 and
-//     repacked from the accumulator layout into A fragments for O = P v;
-//     O rounded and repacked again as the A operand of acc += O wo[hD:, :].
+//   - the window core in registers (window_core_mma.cuh): S = q k^T
+//     (16 x 64, eight n8 tiles), + bias, - 100 where the region ids differ
+//     (one 32-bit mask per lane per window), row max and sum by quad
+//     shuffles, P rounded to bf16 and repacked into A fragments for
+//     O = P v; O rounded and repacked as the A operand of
+//     acc += O wo[hD:, :].
 //     The 16 x C output accumulator stays in registers over all heads;
 //     S, P and O never touch shared memory;
 //   - the epilogue rnd(acc + bo) [+ x] is staged in the window's own x
 //     buffer and stored with 16-byte vectors through the token map.
 //
-// The token map is a parameter of the body (ImageTokens: shift,
-// partition, reverse and unshift at no cost; WindowTokens: identity
-// windows). The roundings are attention_window's: LN output, + mod, q
-// (after the scale), k, v, P, O, then rnd(acc + bo) [+ x]. Only the order
-// of the fp32 sums differs.
+// The token map is a parameter of the body (window_core_mma.cuh's
+// ImageTokens: shift, partition, reverse and unshift at no cost;
+// WindowTokens: identity windows at an offset). The roundings are
+// attention_window's: LN output, + mod, q (after the scale), k, v, P, O,
+// then rnd(acc + bo) [+ x]. Only the order of the fp32 sums differs.
 #pragma once
 
-#include <cfloat>
-
 #include "attention_window.cuh"
-#include "mma_tile.cuh"
+#include "window_core_mma.cuh"
 
 namespace uf {
 
@@ -77,93 +77,6 @@ struct AttnNarrow {
   static constexpr size_t total = group + WN * kGroup;
   static_assert(total <= kSmemLimit, "narrow attention exceeds shared memory");
 };
-
-// The image token map (attention_window's): token t of window w is pixel
-// ((r + s) mod H, (c + s) mod W) of image w / nW.
-struct ImageTokens {
-  int H, W, s, nWw, nW;
-  __device__ ImageTokens(int H_, int W_, int s_)
-      : H(H_), W(W_), s(s_), nWw(W_ / 8), nW((H_ / 8) * (W_ / 8)) {}
-  __device__ __forceinline__ int pix(int w, int t) const {
-    const int b = w / nW, wl = w % nW;
-    const int gr = (wl / nWw) * 8 + t / 8, gc = (wl % nWw) * 8 + t % 8;
-    return (b * H + (gr + s) % H) * W + (gc + s) % W;
-  }
-  __device__ __forceinline__ int region(int w, int t) const {
-    return window_region(w % nW, t, H, W, s);
-  }
-};
-
-// Identity windows: token t of window w is row 64 w + t of (Bw, 64, C),
-// window w sitting at w_off + w among the image's windows.
-struct WindowTokens {
-  int H, W, s, w_off, nW;
-  __device__ WindowTokens(int H_, int W_, int s_, int w_off_)
-      : H(H_), W(W_), s(s_), w_off(w_off_), nW((H_ / 8) * (W_ / 8)) {}
-  __device__ __forceinline__ int pix(int w, int t) const {
-    return w * 64 + t;
-  }
-  __device__ __forceinline__ int region(int w, int t) const {
-    return window_region((w_off + w) % nW, t, H, W, s);
-  }
-};
-
-// acc[16 x 8 NT] += A[16 x 16 KS] . B[16 KS x 8 NT], warp_mma's product
-// with A already in registers as KS k16 fragments (a[k][0..3] in the PTX
-// ISA's m16k16 A layout); B in shared memory as warp_mma takes it (BT: B
-// stored N x K row-major).
-template <int NT, int KS, bool BT = false>
-__device__ __forceinline__ void warp_mma_ra(float (&acc)[NT][4],
-                                            const uint32_t (&a)[KS][4],
-                                            const bf16* B, int ldb) {
-  const int lane = threadIdx.x & 31;
-  const int tr = (lane & 7) + ((lane >> 4) << 3), tc = ((lane >> 3) & 1) * 8;
-  const int rr = lane & 15, rc = (lane >> 4) * 8;
-  const bf16* b = BT ? B + tr * ldb + tc : B + rr * ldb + rc;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      if (n + 1 < NT) {
-        uint32_t r[4];
-        if (BT)
-          ldsm_x4(r, b + n * 8 * ldb + ks * 16);
-        else
-          ldsm_x4_t(r, b + ks * 16 * ldb + n * 8);
-        mma16816(acc[n], a[ks], r[0], r[1]);
-        mma16816(acc[n + 1], a[ks], r[2], r[3]);
-      } else {
-        uint32_t r[2];
-        if (BT)
-          ldsm_x2(r, b + n * 8 * ldb + ks * 16);
-        else
-          ldsm_x2_t(r, b + ks * 16 * ldb + n * 8);
-        mma16816(acc[n], a[ks], r[0], r[1]);
-      }
-    }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-}
-
-// The NT n8 accumulator tiles of a 16-row product, rounded to bf16 and
-// repacked as the A operand (NT / 2 k16 steps) of the next product.
-template <int NT>
-__device__ __forceinline__ void acc_to_a(const float (&acc)[NT][4],
-                                         uint32_t (&a)[NT / 2][4]) {
-#pragma unroll
-  for (int k = 0; k < NT / 2; ++k) {
-    a[k][0] = pack_bf16(acc[2 * k][0], acc[2 * k][1]);
-    a[k][1] = pack_bf16(acc[2 * k][2], acc[2 * k][3]);
-    a[k][2] = pack_bf16(acc[2 * k + 1][0], acc[2 * k + 1][1]);
-    a[k][3] = pack_bf16(acc[2 * k + 1][2], acc[2 * k + 1][3]);
-  }
-}
 
 __device__ __forceinline__ void group_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
@@ -254,20 +167,8 @@ __device__ void attn_narrow(const AttnParams<bf16>& p, const Tokens& tok,
     cp_async_commit();
     const bf16* X = xb[buf];
 
-    // the SW-MSA mask: bit 4 j + 2 hh + e for row (ta, tb)[hh] and key
-    // 8 j + 2 t4 + e
-    uint32_t mask = 0u;
-    if (tok.s) {
-      const int ra = tok.region(w, ta), rb = tok.region(w, tb);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int rk = tok.region(w, 8 * j + 2 * t4 + e);
-          mask |= (uint32_t)(rk != ra) << (4 * j + e);
-          mask |= (uint32_t)(rk != rb) << (4 * j + 2 + e);
-        }
-    }
+    // the SW-MSA mask of this lane's rows
+    const uint32_t mask = window_mask_bits(tok, w, ta, tb, t4);
 
     // LN1 + mod of this warp's 16 rows, as A fragments: xa[k][0, 2] hold
     // row ta, columns 16 k + 2 t4 + {0, 1} and + 8; xa[k][1, 3] row tb
@@ -370,63 +271,16 @@ __device__ void attn_narrow(const AttnParams<bf16>& p, const Tokens& tok,
       }
       group_sync(bar);  // the window's 64 rows of k and v are in place
 
-      // S = q k^T + bias [- 100], softmax over the 64 keys, in registers
-      uint32_t pa[4][4];
-      {
-        float s[8][4];
-        zero_acc(s);
-        warp_mma_ra<8, KD, true>(s, qa, ks, ldk);
-        const float* bh = L::kBiasSmem ? bias_s + h * 64 * ldb
-                                       : p.bias + (size_t)h * 4096;
-        const int lb = L::kBiasSmem ? ldb : 64;
-        float m[2] = {-FLT_MAX, -FLT_MAX};
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int col = 8 * j + 2 * t4;
-            const float* src = bh + (hh ? tb : ta) * lb + col;
-            const float2 bb =
-                L::kBiasSmem ? *reinterpret_cast<const float2*>(src)
-                             : __ldg(reinterpret_cast<const float2*>(src));
-            float l0 = s[j][2 * hh] + bb.x, l1 = s[j][2 * hh + 1] + bb.y;
-            if (mask >> (4 * j + 2 * hh) & 1u) l0 -= 100.0f;
-            if (mask >> (4 * j + 2 * hh + 1) & 1u) l1 -= 100.0f;
-            s[j][2 * hh] = l0;
-            s[j][2 * hh + 1] = l1;
-            m[hh] = fmaxf(m[hh], fmaxf(l0, l1));
-          }
-        float sum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
-          m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 2));
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[j][e] = expf(s[j][e] - m[e >> 1]);
-            sum[e >> 1] += s[j][e];
-          }
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
-          sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
-          sum[hh] = 1.0f / sum[hh];
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] *= sum[e >> 1];
-        acc_to_a(s, pa);
-      }
-      // O_h = P v (rounded), then acc += O_h wo[hD:hD+D, :]
+      // O_h = softmax(q k^T + bias [- 100]) v in registers (the scale is
+      // in q), rounded, then acc += O_h wo[hD:hD+D, :]
       uint32_t oa[KD][4];
       {
         float o[D / 8][4];
-        zero_acc(o);
-        warp_mma_ra<D / 8, 4>(o, pa, vs, ldk);
+        const float* bh = L::kBiasSmem ? bias_s + h * 64 * ldb
+                                       : p.bias + (size_t)h * 4096;
+        const int lb = L::kBiasSmem ? ldb : 64;
+        window_core_mma<D, !L::kBiasSmem>(o, qa, ks, vs, ldk, bh + r0 * lb,
+                                          lb, mask, 1.0f);
         acc_to_a(o, oa);
       }
       warp_mma_ra<C / 8, KD>(acco, oa, wo + c0 * ldw, ldw);

@@ -13,6 +13,8 @@ to compare them within one run:
     python -m uformer_tpu_torch.forward_ab --what train_t --roots ...
     python -m uformer_tpu_torch.forward_ab --what leff_bwd --roots ...
     python -m uformer_tpu_torch.forward_ab --what attention_bwd --roots ...
+    python -m uformer_tpu_torch.forward_ab --what attention_block --roots ...
+    python -m uformer_tpu_torch.forward_ab --what window_attention --roots ...
 
 Each root runs in its own process (its own `uformer_tpu_torch`, its own
 kernel build, made during the warm-up and not timed). `forward`: a bf16
@@ -25,7 +27,15 @@ projection). `attention_image`: `fused_attention_image` in bf16
 (bs8 256^2) and the train and train T steps (bs32 128^2), per stage and
 (shift, residual) as the model's blocks run it, counted once per such
 block; each timed as launches in a CUDA graph, with its largest
-difference from the plain version. `dwconv3x3`: `dwconv3x3` in bf16
+difference from the plain version and a digest of its output bits.
+`attention_block`: `fused_attention_block` in bf16 at every call of the
+serve T forward and the train T step (Uformer_T's windowed enc0 blocks,
+LN outside, as the model runs them), graphed and eager.
+`window_attention`: `fused_window_attention` in bf16 at (1, 8192, 64,
+16), (1, 8192, 64, 32) and (4, 512, 64, 16), shift 0 and 4, graphed and
+as chip_smoke.py's mean of 10 eager calls, beside
+F.scaled_dot_product_attention with the bias and mask as one bf16 mask
+(graphed; a yardstick the port never calls). `dwconv3x3`: `dwconv3x3` in bf16
 (bf16 weights, fp32 bias) at the (Bw, 8, 8, C) windows of the serve
 B-conv stages at bs8 256^2 and one (8, 256, 256, 64) image, each timed as
 20 launches in a CUDA graph (device time, without the host's launch cost)
@@ -393,6 +403,7 @@ print(json.dumps({"rows": rows}))
 """
 
 _ATTN_IMAGE = _KERNEL_COMMON + """
+import hashlib
 from uformer_tpu_torch import get_arch
 f32 = torch.float32
 LAYERS = (["encoderlayer_%d" % k for k in range(4)] + ["conv"]
@@ -437,17 +448,94 @@ for cell, arch, train in (("serve B", "Uformer_B", False),
                   residual=res)
         x = rnd(B, R, R, C)
         run = lambda: K.fused_attention_image(x, *args, **kw)
-        err = float((run().float()
+        y = run()
+        err = float((y.float()
                      - K.attention_image_reference(x, *args, **kw).float())
                     .abs().max())
+        digest = hashlib.sha256(y.view(torch.int16).cpu().numpy().tobytes())
         rows.append({"cell": cell, "stage": name, "shape": [B, R, R, C],
                      "heads": nH, "shift": shift, "residual": res,
                      "blocks": n, "graph_ms": graph_ms(run),
-                     "max_abs_err": err})
+                     "max_abs_err": err, "sha256": digest.hexdigest()[:16]})
 totals = {}
 for r in rows:
     totals[r["cell"]] = totals.get(r["cell"], 0.0) + r["blocks"] * r["graph_ms"]
 print(json.dumps({"rows": rows, "per_cell_ms": totals}))
+"""
+
+_ATTN_BLOCK = _KERNEL_COMMON + """
+from uformer_tpu_torch import get_arch
+f32 = torch.float32
+LAYERS = (["encoderlayer_%d" % k for k in range(4)] + ["conv"]
+          + ["decoderlayer_%d" % k for k in range(4)])
+rows = []
+# every kernel-5 call of the serve T forward (bs8 256^2) and the train T
+# step (bs32 128^2): the windowed blocks, LN1 outside, as the model runs
+for cell, B, train in (("serve T", 8, False), ("train T", 32, True)):
+    model = get_arch({"arch": "Uformer_T", "train_ps": 128 if train else 256})
+    for lname in LAYERS:
+        layer = getattr(model, lname)
+        if not train and layer.stage_ok:
+            continue
+        R, C, nH = layer.resolution, layer.dim, layer.num_heads
+        for b in layer.blocks:
+            if b.image_route:
+                continue
+            s = C ** -0.5
+            args = (rnd(64, C, scale=0.1) if layer.has_mod else None, None,
+                    None, rnd(C, C, scale=s), rnd(C, scale=0.1, dtype=f32),
+                    rnd(C, 2 * C, scale=s), rnd(2 * C, scale=0.1, dtype=f32),
+                    rnd(C, C, scale=s), rnd(C, scale=0.1, dtype=f32),
+                    rnd(nH, 64, 64, scale=0.5, dtype=f32))
+            kw = dict(win=8, shift=b.shift_size, H=R, W=R,
+                      scale=(C // nH) ** -0.5, num_heads=nH, has_ln=False)
+            x = rnd(B * (R // 8) ** 2, 64, C)
+            run = lambda: K.fused_attention_block(x, *args, **kw)
+            err = float((run().float() - K.attention_block_reference(
+                x, *args, **kw).float()).abs().max())
+            rows.append({"cell": cell, "stage": lname, "windows": x.shape[0],
+                         "C": C, "heads": nH, "shift": b.shift_size,
+                         "graph_ms": graph_ms(run), "eager_ms": ms(run, 20),
+                         "max_abs_err": err})
+totals = {}
+for r in rows:
+    totals[r["cell"]] = totals.get(r["cell"], 0.0) + r["graph_ms"]
+print(json.dumps({"rows": rows, "per_cell_ms": totals}))
+"""
+
+_WINDOW_ATTN = _KERNEL_COMMON + """
+import torch.nn.functional as F
+from uformer_tpu_torch.ops.kernels import window_attention as WA
+f32 = torch.float32
+rows = []
+# (nH, Bw, D, res): Uformer_T's enc0 at bs8 256^2, head dim 32 there, and
+# four heads of 512 windows (bs8 64^2)
+for nH, Bw, D, R in ((1, 8192, 16, 256), (1, 8192, 32, 256),
+                     (4, 512, 16, 64)):
+    q, k, v = (rnd(nH, Bw, 64, D) for _ in range(3))
+    bias = rnd(nH, 64, 64, scale=0.5, dtype=f32)
+    for shift in (0, 4):
+        kw = dict(win=8, shift=shift, H=R, W=R, scale=D ** -0.5)
+        ref = K.window_attention_reference(q, k, v, bias, **kw).float()
+        run = lambda: K.fused_window_attention(q, k, v, bias, **kw)
+        row = {"shape": [nH, Bw, 64, D], "shift": shift,
+               "max_abs_err": float((run().float() - ref).abs().max()),
+               "graph_ms": graph_ms(run)}
+        # as chip_smoke.py's core timing: the mean of 10 eager calls after
+        # 2 warm-up ones
+        run(), run()
+        row["eager_ms"] = ms(run, 10)
+        # the bias [and the shift mask] as one additive bf16 mask
+        add = bias[:, None, None]
+        if shift:
+            add = add + WA.window_mask(R, R, 8, shift, Bw, 0, q.device)
+        full = (add.expand(nH, Bw // (R // 8) ** 2, (R // 8) ** 2, 64, 64)
+                .reshape(nH, Bw, 64, 64).to(torch.bfloat16).contiguous())
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=full, scale=D ** -0.5)
+        row["sdpa_graph_ms"] = graph_ms(sdpa)
+        rows.append(row)
+print(json.dumps({"rows": rows}))
 """
 
 _CHILDREN = {"forward": _CHILD.replace(
@@ -459,7 +547,9 @@ _CHILDREN = {"forward": _CHILD.replace(
              "leff": _LEFF,
              "stage": _STAGE, "train": 'ARCH = "Uformer_B"' + _TRAIN,
              "train_t": 'ARCH = "Uformer_T"' + _TRAIN, "leff_bwd": _LEFF_BWD,
-             "attention_bwd": _ATTN_BWD, "bwd_split": _BWD_SPLIT}
+             "attention_bwd": _ATTN_BWD, "bwd_split": _BWD_SPLIT,
+             "attention_block": _ATTN_BLOCK,
+             "window_attention": _WINDOW_ATTN}
 
 
 def main() -> int:

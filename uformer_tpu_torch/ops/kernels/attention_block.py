@@ -1,16 +1,20 @@
 """Windowed LeWin attention block: Hopper kernel and plain version.
 
 Port of `uformer_tpu/ops/pallas/attention_block.py:fused_attention_block`
-(kernel source `csrc/attention_block.cu`, body in
-`csrc/attention_window.cuh` with the identity token map). It takes
-(Bw, 64, C) windows already shifted and partitioned and returns the
-attention branch only: [LN1] + modulator, q/kv projection, the window
-core, output projection. The model runs it for the blocks that the
-image kernel does not take (C = 16 in Uformer_T's outer stages). On the
-H100 it is memory-bound at C = 16; the kernel runs one window per thread
-block, sized to C. `attention_block_reference` is the plain PyTorch
-version with the JAX reference's signature (`attention_block.py:345`),
-plus the spatial path's `w_off`.
+(kernel source `csrc/attention_block.cu`). It takes (Bw, 64, C) windows
+already shifted and partitioned and returns the attention branch only:
+[LN1] + modulator, q/kv projection, the window core, output projection.
+The model runs it for the blocks that the image kernel does not take
+(C = 16 in Uformer_T's outer stages). On the H100 a window is little
+work, so latency between its steps sets the pace: in bf16 at C 16-64 the
+kernel runs kernel 1's narrow body (`csrc/attention_block_narrow.cu` on
+`csrc/attention_narrow_mma.cuh` with the identity token map): persistent
+blocks, weights resident, the window core in registers, windows per work
+item and grid planned as kernel 1's (`attention_image_plan`). fp32 and
+bf16 at other widths run one window per block (`csrc/attention_window.cuh`).
+`attention_block_reference` is the plain PyTorch version with the JAX
+reference's signature (`attention_block.py:345`), plus the spatial
+path's `w_off`.
 
 Its backward, `fused_attention_block_bwd`, is the port of
 `attention_block.py:fused_attention_block_bwd` in its own layout (kernel
@@ -102,9 +106,10 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
         _launch.expect(t, name, shape, tdt, dev)
     lib = load()
     is_bf16 = int(dt == torch.bfloat16)
+    wn, grid, needs_scratch = block_plan(lib, Bw, C, C // num_heads, is_bf16,
+                                         dev)
+    scratch = torch.empty_like(x) if needs_scratch else None
     y = torch.empty_like(x)
-    scratch = (torch.empty_like(x) if lib.uf_attention_needs_scratch(
-        is_bf16, C, C // num_heads) else None)
     with torch.cuda.device(dev):
         err = lib.uf_attention_block(
             is_bf16, x.data_ptr(), y.data_ptr(), _launch.ptr(mod),
@@ -112,7 +117,7 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
             _launch.ptr(ln_b) if has_ln else None, wq.data_ptr(),
             bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(), wo.data_ptr(),
             bo.data_ptr(), bias.data_ptr(), _launch.ptr(scratch), Bw, H, W,
-            C, num_heads, shift, w_off, float(scale), int(has_ln),
+            C, num_heads, shift, w_off, float(scale), int(has_ln), wn, grid,
             _launch.stream(x))
     _launch.check(err, "attention_block kernel")
     fused_attention_block.launches += 1
@@ -121,6 +126,22 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
 
 fused_attention_block.launches = 0
 fused_attention_block.plain_calls = 0
+
+
+def block_plan(lib, Bw: int, C: int, D: int, is_bf16: int, dev):
+    """(windows per work item, grid, needs scratch) of kernel 5 on Bw
+    windows: kernel 1's plan (`attention_image_plan`); its narrow body
+    persistent over `persistent_grid` blocks, else a block per window."""
+    from uformer_tpu_torch.ops.kernels.attention_image import (
+        attention_image_plan,
+    )
+
+    body, wn = attention_image_plan(Bw, C, D, bool(is_bf16), sm_count(dev))
+    if body == "narrow":
+        slots = _launch.resident_blocks("uf_attention_block_slots",
+                                        dev.index, is_bf16, C, D, wn)
+        return wn, _launch.persistent_grid(-(-Bw // wn), slots), False
+    return 1, Bw, bool(lib.uf_attention_needs_scratch(is_bf16, C, D))
 
 
 def vjp_reference(fn, x, g, args, has_ln, **kw):

@@ -1,14 +1,17 @@
 """Window-attention core: Hopper kernel and plain version.
 
 Port of `uformer_tpu/ops/pallas/window_attention.py:fused_window_attention`
-(kernel source `csrc/window_attention.cu`, body in `csrc/window_core.cuh`,
-which the attention-image, stage and attention-block kernels share). On
-the H100 the core is memory-bound (q, k, v read and the output written
-once against 64 multiply-adds per value); the kernel runs one thread
-block per head and group of windows, with the head's bias in shared
-memory for the whole group. No model path calls it, in the JAX package
-either: it is the standalone form of the core the other kernels run.
-`window_attention_reference` is the plain PyTorch version.
+(kernel source `csrc/window_attention.cu`). On the H100 the core is
+memory-bound (q, k, v read and the output written once against 64
+multiply-adds per value). In bf16 persistent blocks of four warps walk
+contiguous ranges of the (head, window) pairs head-major
+(`window_attention_plan`), the head's bias in shared memory, the next
+window's q, k and v in flight by `cp.async` while each warp runs the core
+on its 16 rows in registers (`csrc/window_core_mma.cuh`, the core of
+kernels 1 and 5's narrow body); fp32 runs one block per head and group of
+windows on `csrc/window_core.cuh`. No model path calls it, in the JAX
+package either: it is the standalone form of the core the other kernels
+run. `window_attention_reference` is the plain PyTorch version.
 
 Unlike the block kernels, which fold the softmax scale into q before
 rounding it, this kernel scales the float32 logits (the TPU kernel's
@@ -25,6 +28,15 @@ from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.masks import shift_window_mask
 
 HEAD_DIMS = (16, 32)  # the kernels' head widths (WMMA is 16 wide)
+
+
+def window_attention_plan(nH: int, Bw: int, slots: int):
+    """(chunk, grid) of the bf16 body: the nH * Bw (head, window) pairs,
+    head-major, in contiguous ranges of `chunk` windows, one per block,
+    over at most `slots` blocks."""
+    items = nH * Bw
+    chunk = -(-items // _launch.persistent_grid(items, slots))
+    return chunk, -(-items // chunk)
 
 
 def check_window(win: int, shift: int, H: int, W: int) -> None:
@@ -94,12 +106,18 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _launch.expect(t, name, q.shape, q.dtype, q.device)
     _launch.expect(bias, "bias", (nH, 64, 64), torch.float32, q.device)
     lib = load()
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    chunk = grid = 0
+    if is_bf16:
+        slots = _launch.resident_blocks("uf_window_attention_slots",
+                                        q.device.index, is_bf16, D)
+        chunk, grid = window_attention_plan(nH, Bw, slots)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.uf_window_attention(
-            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), bias.data_ptr(), out.data_ptr(), nH, Bw, D, H, W,
-            shift, float(scale), _launch.stream(q))
+            is_bf16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), nH, Bw, D, H, W, shift,
+            float(scale), chunk, grid, _launch.stream(q))
     _launch.check(err, "window_attention kernel")
     fused_window_attention.launches += 1
     return out
