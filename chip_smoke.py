@@ -91,6 +91,24 @@ Phases, each raising on failure (no phase is caught):
                Uformer_T's heads, depth 1), kernel path against plain
                path: its attention through kernels 1, 5 and 6, the Mlp and
                the cross-attention plain.
+ 14. eval    - the evaluation path: serve B's golden Uformer_B weights
+               written as a reference-format .pth; the SIDD CLI
+               (uformer_tpu_torch.eval.cli, in-process) restores a
+               synthetic 2 x 32 x 256^2 validation set from it in bf16 and
+               fp32 at batch 32, train_ps 128 (the bottleneck unshifted):
+               6/4/4 launches per request and no plain call, Idenoised.mat
+               and the model's outputs before the clamp against the plain
+               path (the share of outputs outside [0, 1] printed);
+               bf16_psnr_delta_db (bench.py's protocol, and on the SIDD
+               score) within 0.05 dB; a 1280x720 GoPro frame padded per
+               side (768 x 1280, bf16 and fp32), square-padded (1280^2,
+               bf16) and tiled (256 tiles, overlap 32, 8 a call; bf16 and
+               fp32), each against the plain path, clamped and before the
+               clamp; the restore loop's MP/s on host arrays against the
+               restorer's own at bs32 (and the plain path's), each kernel's
+               fp32 time at bs32 256^2 against its plain version and its
+               bound (4 bytes a value, operations at the float32 rate), the
+               scoring's seconds, the frame's ms and peak memory.
 
 Tolerances: fp32 max-abs <= 1e-4 * (1 + max|ref|); bf16 error against the
 fp32 plain result <= 1.5 x the bf16 plain version's error + 1e-3; for
@@ -99,9 +117,10 @@ weight gradients are sums over every token; golden as
 tests/test_golden_parity.py. --json PATH writes every check and timing
 there. Each kernel's bound is the larger of its operations at the bf16
 tensor-core peak and its bytes (inputs read once, outputs written once) at
-the HBM rate of an H100 SXM (the depthwise kernel's operations at the
-float32 rate outside the tensor cores). The line before the last lists
-every kernel; the last line is {"ok": true, "device": {...}}.
+the HBM rate of an H100 SXM (the depthwise kernel's operations, and the
+eval phase's fp32 ones, at the float32 rate outside the tensor cores).
+The line before the last lists every kernel; the last line is {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -114,6 +133,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -164,6 +184,13 @@ BCONV_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0), leff=40,
                       dwconv3x3_qkv=40)
 GOLDEN_CONV_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0),
                             dwconv3x3_qkv=9)
+# the eval phase: Uformer_B at the eval CLI's train_ps of 128 (its
+# bottleneck unshifted), a synthetic SIDD validation set (images, blocks,
+# side; SIDD's own is 40 x 32 x 256^2) restored at the reference's batch
+# of 32 blocks, a GoPro frame (H, W) whole and in tiles
+EVAL_TRAIN_PS, SIDD_SET, SIDD_BATCH = 128, (2, 32, 256), 32
+GOPRO_HW, EVAL_TILE = (720, 1280), dict(tile=256, overlap=32, tile_batch=8)
+BF16_PSNR_BUDGET_DB = 0.05  # BASELINE.json, ROADMAP.md
 # H100 SXM (NVIDIA data sheet): dense bf16 tensor-core FLOP/s, float32
 # FLOP/s outside the tensor cores, HBM bytes/s
 PEAK_BF16, PEAK_FP32, PEAK_HBM = 989e12, 67e12, 3.35e12
@@ -949,10 +976,11 @@ def serve_phase(make_model, device, expected: dict, label: str):
     return restorer, requests[1].to(device), summary, launches, checks
 
 
-def timing_phase(restorer, x):
+def timing_phase(restorer, x, s: int = 2, peak: float = PEAK_BF16):
     """Device time of each kernel and of its plain version on the inputs
-    the bs8 256^2 bf16 forward gives it, stage by stage, with each call's
-    bound, and of the whole forward on each path. Returns the rows, the
+    the forward of x (bs8 256^2 bf16 in the serve phases) gives it, stage
+    by stage, with each call's bound (s bytes a value, operations at
+    `peak`), and of the whole forward on each path. Returns the rows, the
     per-kernel totals over one forward (ms, plain ms, launches, bound) and
     the forward's times."""
     from uformer_tpu_torch.ops import kernels as K
@@ -978,7 +1006,7 @@ def timing_phase(restorer, x):
                 pair = [("stage", lambda: layer(xin),
                          lambda: layer(xin, plain=True),
                          stage_cost(tokens, C, nH, 4 * C, len(layer.blocks),
-                                    mod=layer.has_mod))]
+                                    s=s, mod=layer.has_mod))]
             else:
                 pair = []
                 for blk in layer.blocks:
@@ -1001,7 +1029,7 @@ def timing_phase(restorer, x):
                             K.fused_attention_image(xin, *args, **kw),
                             lambda xin=xin, args=args, kw=kw:
                             K.attention_image_reference(xin, *args, **kw),
-                            attn_cost(tokens, C, nH, mod=has_mod)))
+                            attn_cost(tokens, C, nH, s=s, mod=has_mod)))
                     else:
                         # the windowed branch's kernel input: LN1, shift,
                         # partition (the model's own glue)
@@ -1019,20 +1047,21 @@ def timing_phase(restorer, x):
                             K.fused_attention_block(wnd, *bargs, **kw),
                             lambda wnd=wnd, bargs=bargs, kw=kw:
                             K.attention_block_reference(wnd, *bargs, **kw),
-                            attn_cost(tokens, C, nH, mod=has_mod, ln=False)))
+                            attn_cost(tokens, C, nH, s=s, mod=has_mod,
+                                      ln=False)))
                     pair.append(("leff",
                                  lambda xa=xa, largs=largs, lkw=lkw:
                                  K.fused_leff(xa, *largs, **lkw),
                                  lambda xa=xa, largs=largs, lkw=lkw:
                                  K.leff_reference(xa, *largs, **lkw),
-                                 leff_cost(tokens, C, 4 * C)))
+                                 leff_cost(tokens, C, 4 * C, s=s)))
                     xin = K.fused_leff(xa, *largs, **lkw)
             for kernel, fused, plain, cost in pair:
                 # plain, kernel, kernel, plain: alternate the order
                 p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(fused),
                                   cuda_ms(fused), cuda_ms(plain))
                 k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-                b_ms = tally(totals, kernel, k_ms, p_ms, cost)
+                b_ms = tally(totals, kernel, k_ms, p_ms, cost, peak=peak)
                 rows.append({"layer": name, "kernel": kernel,
                              "shape": list(inputs[name].shape),
                              "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
@@ -1052,7 +1081,8 @@ def timing_phase(restorer, x):
         print(f"  {kernel:16s} per forward: {t['launches']} launches, "
               f"kernel {t['ms']:8.3f} ms, plain {t['plain_ms']:8.3f} ms, "
               f"bound {t['bound_ms']:7.4f} ms ({bound_by(t)})", flush=True)
-    print(f"  forward bs{x.shape[0]} {x.shape[1]}^2 bf16: kernel path "
+    dt = "bf16" if model.dtype == torch.bfloat16 else "fp32"
+    print(f"  forward bs{x.shape[0]} {x.shape[1]}^2 {dt}: kernel path "
           f"{fwd['kernel_ms']:.3f} ms, plain path {fwd['plain_ms']:.3f} ms",
           flush=True)
     return rows, totals, fwd
@@ -1764,6 +1794,325 @@ def mlp_cross_model(device):
     return load_numpy_state_dict(model, sd).to(device)
 
 
+def write_eval_inputs(root: Path, sd) -> tuple:
+    """serve B's golden seeded Uformer_B weights as a reference-format
+    .pth ({'epoch', 'state_dict' with the DataParallel `module.` prefix,
+    'optimizer'}), and a synthetic SIDD validation pair in sidd.py's
+    layout: uint8 clean blocks (uniform, seed 7) and noisy = clean +
+    N(0, 0.08^2), clipped."""
+    import scipy.io as sio
+
+    pth = root / "uformer_b_seeded.pth"
+    torch.save({"epoch": 1, "optimizer": {},
+                "state_dict": {"module." + k: torch.from_numpy(v)
+                               for k, v in sd.items()}}, pth)
+    rng = np.random.default_rng(7)
+    n, b, side = SIDD_SET
+    clean = rng.uniform(0, 1, (n, b, side, side, 3))
+    noisy = np.clip(clean + rng.normal(0, 0.08, clean.shape), 0, 1)
+    sidd = root / "sidd"
+    sidd.mkdir()
+    sio.savemat(sidd / "ValidationGtBlocksSrgb.mat",
+                {"ValidationGtBlocksSrgb": np.uint8(np.round(clean * 255))})
+    sio.savemat(sidd / "ValidationNoisyBlocksSrgb.mat",
+                {"ValidationNoisyBlocksSrgb":
+                 np.uint8(np.round(noisy * 255))})
+    return pth, sidd
+
+
+def eval_restorers(pth, device, train_ps: int = EVAL_TRAIN_PS) -> dict:
+    """Uformer_B loaded from the .pth as the eval CLI builds it, one
+    Restorer per dtype: {dtype: Restorer}."""
+    from uformer_tpu_torch import get_arch
+    from uformer_tpu_torch.convert import load_checkpoint
+    from uformer_tpu_torch.restore import Restorer
+
+    return {dt: Restorer(load_checkpoint(get_arch({
+        "arch": "Uformer_B", "train_ps": train_ps}), str(pth)), dt, device)
+        for dt in (torch.float32, torch.bfloat16)}
+
+
+def model_numpy(restorer, plain: bool, raws: list):
+    """restorer's model on host arrays, the input copied to the card as
+    Restorer.numpy copies it: the kernel path, or with plain=True every
+    kernel's plain version. Each output before the clamp is appended to
+    raws; the clamped output is returned."""
+    from uformer_tpu_torch.device import to_device_async
+
+    @torch.no_grad()
+    def fn(x):
+        y = restorer.model(to_device_async(torch.from_numpy(
+            np.ascontiguousarray(x, np.float32)), restorer.device),
+            plain=plain).float().cpu().numpy()
+        raws.append(y)
+        return np.clip(y, 0, 1)
+
+    return fn
+
+
+def outside_share(raws: list) -> float:
+    """The share of the values in raws that the clamp to [0, 1] moves."""
+    y = np.concatenate([r.reshape(-1) for r in raws])
+    return float(np.mean((y < 0) | (y > 1)))
+
+
+def eval_compare(checks: Checks, what: str, got: dict, ref32, ref16):
+    """got: {dtype: the kernel path's host output}. fp32 within 1e-4 (1 +
+    max|ref|) of the fp32 plain output; bf16's error against that within
+    1.5x the bf16 plain output's + 1e-3 (the serve phases' rule). Used on
+    the clamped outputs and on the outputs before the clamp."""
+    if torch.float32 in got:
+        checks.add("model", what,
+                   float(np.abs(got[torch.float32] - ref32).max()),
+                   1e-4 * (1.0 + float(np.abs(ref32).max())), "fp32")
+    if torch.bfloat16 in got:
+        e_plain = float(np.abs(ref16 - ref32).max())
+        checks.add("model", what,
+                   float(np.abs(got[torch.bfloat16] - ref32).max()),
+                   1.5 * e_plain + 1e-3, "bf16")
+
+
+def host_run(fn, device) -> tuple:
+    """(fn(), seconds on the host clock to its end on the card, peak
+    device memory allocated meanwhile)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated(device))
+
+
+def check_launches(what: str, calls: int) -> None:
+    """Every forward of the last `calls` took the main path's kernels
+    (EXPECTED_LAUNCHES each) and no plain version ran."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    got, plain = K.launch_counts(), K.plain_counts()
+    want = {k: calls * v for k, v in EXPECTED_LAUNCHES.items()}
+    if got != want or any(plain.values()):
+        raise RuntimeError(f"{what}: launches {got}, plain calls {plain}; "
+                           f"expected {want} and no plain call")
+
+
+def gopro_run(restore, frame: np.ndarray, kind: str) -> tuple:
+    """The frame through restore (host arrays in and out): whole ('whole':
+    padded per side, 'square': the reference's square) by
+    gopro_hide.restore_image, or by tiled_inference ('tiled'). Returns
+    (output, the shapes fed)."""
+    from uformer_tpu_torch.eval.gopro_hide import restore_image
+    from uformer_tpu_torch.eval.padding import tiled_inference
+
+    fed = []
+
+    def fn(x):
+        fed.append(tuple(x.shape))
+        return restore(x)
+
+    if kind == "tiled":
+        return tiled_inference(fn, frame[None], **EVAL_TILE)[0], fed
+    return restore_image(fn, frame, 128, square_pad=kind == "square"), fed
+
+
+def eval_phase(tmp: Path, sd, device, card: str):
+    """The evaluation path, its files under tmp: the SIDD CLI from a
+    reference-format .pth in bf16 and fp32 (the phase's main path), the
+    same blocks on the plain path, bf16_psnr_delta_db (bench.py's protocol
+    and the SIDD score), a GoPro frame whole, square-padded and tiled;
+    times and peak memory. Returns the checks, the summary and the CLI
+    runs' launches."""
+    import scipy.io as sio
+
+    from uformer_tpu_torch.eval import cli
+    from uformer_tpu_torch.eval.metrics import psnr_clamped
+    from uformer_tpu_torch.eval.sidd import (load_sidd_val_gt,
+                                             load_sidd_val_noisy,
+                                             restore_sidd, score_sidd)
+    from uformer_tpu_torch.ops import kernels as K
+
+    checks, summary = Checks(), {"card": card}
+    n_img, n_blk, side = SIDD_SET
+    requests = n_img * -(-n_blk // SIDD_BATCH)
+    launches = dict.fromkeys(EXPECTED_LAUNCHES, 0)
+    dtypes = (torch.float32, torch.bfloat16)
+    pth, sidd = write_eval_inputs(tmp, sd)
+    scores, restored = {}, {}
+    for name in ("bfloat16", "float32"):
+        K.reset_counts()
+        t0 = time.perf_counter()
+        scores[name] = cli.main([
+            "sidd", "--input_dir", str(sidd), "--result_dir",
+            str(tmp / name), "--weights", str(pth), "--dtype", name,
+            "--device", "cuda"])
+        secs = time.perf_counter() - t0
+        check_launches(f"SIDD CLI {name}", requests)
+        for k, v in K.launch_counts().items():
+            launches[k] += v
+        out = sio.loadmat(tmp / name / "Idenoised.mat")["Idenoised"]
+        if out.shape != (n_img, n_blk, side, side, 3) \
+                or not np.isfinite(out).all():
+            raise RuntimeError(f"SIDD CLI {name}: Idenoised {out.shape}")
+        restored[getattr(torch, name)] = out
+        summary[f"sidd_cli_{name}"] = {
+            "psnr": scores[name][0], "ssim": scores[name][1], "s": secs}
+        print(f"  SIDD CLI {name}: {requests} requests of {SIDD_BATCH} x "
+              f"{side}^2, PSNR {scores[name][0]:.4f} SSIM "
+              f"{scores[name][1]:.4f}, {secs:.2f} s with load and "
+              f"scoring; launches {requests} x 6/4/4, no plain call",
+              flush=True)
+    noisy = load_sidd_val_noisy(str(sidd))
+    gt = load_sidd_val_gt(str(sidd))
+
+    rs = eval_restorers(pth, device)
+    if rs[torch.float32].model.conv.use_shift:
+        raise RuntimeError("eval: the bottleneck at train_ps 128 must run "
+                           "unshifted")
+    for dt in dtypes:
+        K.reset_counts()
+        rs[dt].numpy(noisy[0, :SIDD_BATCH])
+        check_launches(f"SIDD request {dt}", 1)
+    # the plain path's outputs, and both paths' before the clamp: most of
+    # the seeded model's output lies outside [0, 1]
+    ref, raw, ref_raw = {}, {}, {}
+    for dt in dtypes:
+        raw[dt], ref_raw[dt] = [], []
+        ref[dt] = restore_sidd(model_numpy(rs[dt], True, ref_raw[dt]),
+                               noisy, SIDD_BATCH)
+        restore_sidd(model_numpy(rs[dt], False, raw[dt]), noisy, SIDD_BATCH)
+    what = f"SIDD CLI {n_img}x{n_blk} {side}^2"
+    eval_compare(checks, what, restored, ref[torch.float32],
+                 ref[torch.bfloat16])
+    cat = {dt: np.concatenate(v) for dt, v in raw.items()}
+    eval_compare(checks, f"{what} before the clamp", cat,
+                 np.concatenate(ref_raw[torch.float32]),
+                 np.concatenate(ref_raw[torch.bfloat16]))
+    summary["sidd_outside_share"] = outside_share(ref_raw[torch.float32])
+    print(f"  SIDD fp32 plain path: {100 * summary['sidd_outside_share']:.1f}"
+          f"% of the output values lie outside [0, 1] before the clamp; "
+          f"both paths compared before and after it", flush=True)
+    del raw, ref_raw, cat
+
+    # the restore loop on host arrays against the restorer alone at bs32
+    mpix = n_img * n_blk * side * side / 1e6
+    x_dev = torch.from_numpy(noisy[0, :SIDD_BATCH]).to(device)
+    timing = {}
+    for dt in dtypes:
+        r = rs[dt]
+        _, secs, peak = host_run(
+            lambda r=r: restore_sidd(r.numpy, noisy, SIDD_BATCH), device)
+        torch.cuda.reset_peak_memory_stats(device)
+        ms = cuda_ms(lambda r=r: r(x_dev), reps=5)
+        own = SIDD_BATCH * side * side / 1e6 / (ms / 1e3)
+        timing[str(dt)] = {
+            "loop_s": secs, "loop_mp_per_s": mpix / secs,
+            "loop_peak_bytes": peak, "restorer_ms": ms,
+            "restorer_mp_per_s": own,
+            "restorer_peak_bytes": torch.cuda.max_memory_allocated(device),
+            "host_share": 1.0 - requests * ms / 1e3 / secs,
+            "plain_ms": cuda_ms(torch.no_grad()(
+                lambda r=r: r.model(x_dev, plain=True).clamp_(0.0, 1.0)),
+                reps=3, warmup=1)}
+        t = timing[str(dt)]
+        print(f"  SIDD restore loop {dt}: {t['loop_mp_per_s']:.2f} MP/s "
+              f"(host arrays in and out; {secs:.3f} s, peak "
+              f"{peak / 2**20:.1f} MiB) against the restorer's own "
+              f"{own:.2f} MP/s at bs{SIDD_BATCH} ({ms:.3f} ms, peak "
+              f"{t['restorer_peak_bytes'] / 2**20:.1f} MiB; plain path "
+              f"{t['plain_ms']:.3f} ms): host share "
+              f"{100 * t['host_share']:.1f}%  [{card}]", flush=True)
+    # where an fp32 request's time goes: each kernel against its plain
+    # version at bs32 256^2, 4 bytes a value, operations at the float32
+    # rate (TF32 is off)
+    rows, totals, fwd = timing_phase(rs[torch.float32], x_dev, s=4,
+                                     peak=PEAK_FP32)
+    summary.update(fp32_timing=rows, fp32_totals=totals, fp32_forward=fwd)
+    del x_dev
+    t0 = time.perf_counter()
+    score_sidd(restored[torch.bfloat16], gt)
+    summary["sidd_score_s"] = time.perf_counter() - t0
+    summary["sidd_timing"] = timing
+    print(f"  SIDD scoring ({n_img} x {n_blk} blocks, MATLAB protocol): "
+          f"{summary['sidd_score_s']:.2f} s on the host", flush=True)
+
+    # a GoPro frame: whole (per side and square) and tiled
+    frame = np.random.default_rng(8).uniform(0, 1, GOPRO_HW + (3,)) \
+        .astype(np.float32)
+    gopro = {}
+    for kind, kdtypes in (("whole", dtypes), ("square", (torch.bfloat16,)),
+                          ("tiled", dtypes)):
+        ref, raw, ref_raw = {}, {}, {}
+        for dt in dtypes:
+            ref_raw[dt] = []
+            ref[dt] = gopro_run(model_numpy(rs[dt], True, ref_raw[dt]),
+                                frame, kind)[0]
+        got = {}
+        for dt in kdtypes:
+            r = rs[dt]
+            gopro_run(r.numpy, frame, kind)  # warm-up: cuDNN plans here
+            raw[dt] = []
+            gopro_run(model_numpy(r, False, raw[dt]), frame, kind)
+            runs = []
+            for _ in range(3):
+                K.reset_counts()
+                (out, fed), secs, peak = host_run(
+                    lambda r=r: gopro_run(r.numpy, frame, kind), device)
+                check_launches(f"GoPro {kind} {dt}", len(fed))
+                runs.append(secs * 1e3)
+            if out.shape != GOPRO_HW + (3,) or not np.isfinite(out).all():
+                raise RuntimeError(f"GoPro {kind} {dt}: output {out.shape}")
+            got[dt] = out
+            gopro[f"{kind} {dt}"] = {"ms": float(np.median(runs)),
+                                     "runs_ms": runs, "peak_bytes": peak,
+                                     "fed": fed[0], "calls": len(fed)}
+            print(f"  GoPro {GOPRO_HW[1]}x{GOPRO_HW[0]} {kind:6s} {dt}: "
+                  f"{len(fed)} x {fed[0]}, {np.median(runs):.2f} ms "
+                  f"(host arrays in and out), peak {peak / 2**20:.1f} MiB"
+                  f"  [{card}]", flush=True)
+        what = f"GoPro {kind} {len(fed)} x {fed[0]}"
+        eval_compare(checks, what, got, ref[torch.float32],
+                     ref[torch.bfloat16])
+        eval_compare(checks, f"{what} before the clamp",
+                     {dt: np.concatenate(v) for dt, v in raw.items()},
+                     np.concatenate(ref_raw[torch.float32]),
+                     np.concatenate(ref_raw[torch.bfloat16]))
+        share = outside_share(ref_raw[torch.float32])
+        gopro[f"{kind} outside_share"] = share
+        print(f"  GoPro {kind}: {100 * share:.1f}% of the fp32 plain "
+              f"path's output values lie outside [0, 1] before the clamp; "
+              f"both paths compared before and after it", flush=True)
+    summary["gopro"] = gopro
+    del rs, ref, raw, ref_raw
+    torch.cuda.empty_cache()
+
+    # bf16_psnr_delta_db: bench.py's protocol (4 blocks, seed 7, noise
+    # 0.1, train_ps 256, golden weights for init_params_fast's) and the
+    # SIDD score's delta
+    rs = eval_restorers(pth, device, train_ps=side)
+    rng = np.random.default_rng(7)
+    clean = rng.uniform(0, 1, (4, side, side, 3)).astype(np.float32)
+    noisy4 = np.clip(clean + rng.normal(0, 0.1, clean.shape), 0, 1) \
+        .astype(np.float32)
+    psnr = {dt: float(np.mean([psnr_clamped(y, c) for y, c in
+                               zip(rs[dt].numpy(noisy4), clean)]))
+            for dt in dtypes}
+    del rs
+    torch.cuda.empty_cache()
+    summary["bf16_psnr_delta_db"] = abs(psnr[torch.float32]
+                                        - psnr[torch.bfloat16])
+    summary["bf16_psnr_delta_db_sidd"] = abs(scores["float32"][0]
+                                             - scores["bfloat16"][0])
+    print(f"  bf16_psnr_delta_db {summary['bf16_psnr_delta_db']:.5f} "
+          f"(bench protocol, PSNR fp32 {psnr[torch.float32]:.4f}), "
+          f"{summary['bf16_psnr_delta_db_sidd']:.5f} (SIDD score); budget "
+          f"{BF16_PSNR_BUDGET_DB}  [{card}]", flush=True)
+    for key in ("bf16_psnr_delta_db", "bf16_psnr_delta_db_sidd"):
+        if not summary[key] <= BF16_PSNR_BUDGET_DB:
+            raise RuntimeError(f"eval: {key} {summary[key]:.5f} dB over "
+                               f"the {BF16_PSNR_BUDGET_DB} dB budget")
+    return checks, summary, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", type=Path, help="write the full report here")
@@ -1886,6 +2235,12 @@ def run(device, card: str, json_path) -> list:
     torch.backends.cudnn.deterministic = False
     mcchecks.raise_if_failed("train Mlp + cross")
 
+    phase("eval")
+    with tempfile.TemporaryDirectory() as tmp:
+        echecks, evals, eval_launches = eval_phase(Path(tmp), sd, device,
+                                                   card)
+    echecks.raise_if_failed("eval")
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas,
@@ -1906,7 +2261,8 @@ def run(device, card: str, json_path) -> list:
               "train_t_kernel_checks": ttkchecks.rows,
               "train_t_step_checks": ttschecks.rows, "train_t": train_t,
               "train_t_timing": ttrows, "train_t_totals": tttotals,
-              "train_mlp_cross_checks": mcchecks.rows}
+              "train_mlp_cross_checks": mcchecks.rows,
+              "eval_checks": echecks.rows, "eval": evals}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -1938,13 +2294,15 @@ def run(device, card: str, json_path) -> list:
                               + kernel_count(t_launches, name)
                               + train_launches[name]
                               + kernel_count(bc_launches, name)
-                              + train_t_launches[name]),
+                              + train_t_launches[name]
+                              + kernel_count(eval_launches, name)),
                  "launches_serve": kernel_count(launches, name),
                  "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
                  "launches_train_t": train_t_launches[name],
                  "launches_serve_bconv": kernel_count(
                      serve_bc["launches_per_request"][0], name),
+                 "launches_eval": kernel_count(eval_launches, name),
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -1977,7 +2335,9 @@ def run(device, card: str, json_path) -> list:
         for label, key, tt in (("serve Uformer_T", "serve_t", t_totals),
                                ("train Uformer_B", "train", ttotals),
                                ("train Uformer_T", "train_t", tttotals),
-                               ("serve B-conv", "serve_bconv", bc_totals)):
+                               ("serve B-conv", "serve_bconv", bc_totals),
+                               ("eval fp32", "eval_fp32",
+                                evals["fp32_totals"])):
             if name in tt and label not in where:
                 entry.update({f"ms_{key}": tt[name]["ms"],
                               f"plain_ms_{key}": tt[name]["plain_ms"],

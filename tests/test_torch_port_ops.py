@@ -96,10 +96,14 @@ def test_depthwise_conv():
 
 
 def test_import_leaves_jax_out():
-    """The port imports torch and never jax (fresh interpreter)."""
+    """The port imports torch and never jax (fresh interpreter), the eval
+    layer and its CLI included."""
     code = ("import sys, uformer_tpu_torch, uformer_tpu_torch.restore, "
-            "uformer_tpu_torch.convert; "
-            "print(sorted(m for m in sys.modules "
+            "uformer_tpu_torch.convert, uformer_tpu_torch.eval, "
+            + ", ".join(f"uformer_tpu_torch.eval.{m}" for m in (
+                "bundle", "cli", "dnd", "gopro_hide", "image_io", "metrics",
+                "padding", "realblur", "sidd"))
+            + "; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'uformer_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

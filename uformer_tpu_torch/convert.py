@@ -1,4 +1,8 @@
-"""JAX (flax) Uformer params -> the port's state_dict, in numpy.
+"""Checkpoints into the port: reference `.pth` files (`load_pth`,
+`load_checkpoint`) and JAX (flax) Uformer params (`state_dict_from_jax`),
+each as a numpy state_dict with the reference key names.
+
+`state_dict_from_jax`:
 
 A mirror of `uformer_tpu/convert/torch_exporter.py:export_uformer` for the
 blocks this port has (linear or conv projection, LeFF or Mlp, modulator,
@@ -124,3 +128,27 @@ def load_numpy_state_dict(model: nn.Module, sd: StateDict) -> nn.Module:
         raise KeyError(f"state_dict mismatch: missing {missing[:5]}, "
                        f"unexpected {unexpected[:5]}")
     return model
+
+
+def load_pth(path: str) -> StateDict:
+    """A reference `.pth` checkpoint, `{'epoch', 'state_dict', 'optimizer'}`
+    (reference train_denoise.py:207-210) or a bare state_dict, as numpy
+    arrays under the reference key names, the DataParallel `module.`
+    prefix stripped (a copy of
+    `uformer_tpu/convert/torch_converter.py:load_state_dict`, which
+    unpickles any object; this loads tensors and plain containers only)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("state_dict", ckpt)
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if hasattr(v, "numpy"):
+            out[k] = v.detach().cpu().numpy()
+    return out
+
+
+def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
+    """Load the reference `.pth` at `path` into `model`: the port keeps the
+    reference's key names, so nothing is remapped."""
+    return load_numpy_state_dict(model, load_pth(path))

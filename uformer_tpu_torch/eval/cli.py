@@ -1,0 +1,182 @@
+"""The eval harnesses from the command line, on the port's restorer:
+
+    python -m uformer_tpu_torch.eval.cli sidd --input_dir DIR --weights W.pth
+    python -m uformer_tpu_torch.eval.cli dnd --input_dir DIR --weights W.pth
+    python -m uformer_tpu_torch.eval.cli gopro --input_dir DIR --weights W.pth
+    python -m uformer_tpu_torch.eval.cli realblur --input_dir ROOT \\
+        --list_file LIST --weights W.pth
+
+The counterpart of `scripts/_common.py` and the four
+`scripts/test_{sidd,dnd,gopro_hide,realblur}.py`: the same flags, plus
+`--device` (default cuda; with no card it fails, it never falls back to the
+CPU). `--dtype float32` (the default, for checkpoint parity) runs each
+restorer call with TF32 off for matmuls and cuDNN, as the JAX scripts ask
+for "highest" matmul precision; the process's own TF32 flags are put back
+after each call. `--token_projection` and `--token_mlp` take only the
+named archs' linear / leff (the reference's `get_arch` fixes them; the
+JAX scripts accept the flags and ignore them): any other value raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import os
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from uformer_tpu_torch import get_arch
+from uformer_tpu_torch.convert import load_checkpoint
+from uformer_tpu_torch.eval.padding import tiled_inference
+from uformer_tpu_torch.restore import Restorer
+
+
+def eval_argparser() -> argparse.ArgumentParser:
+    """The flags of `scripts/_common.py:eval_argparser`, each harness a
+    subcommand with its own flags."""
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("--input_dir", required=True)
+    common.add_argument("--result_dir", default="./results")
+    common.add_argument("--weights", required=True,
+                        help="a reference .pth checkpoint")
+    common.add_argument("--arch", default="Uformer_B")
+    common.add_argument("--embed_dim", type=int, default=32)
+    common.add_argument("--dd_in", type=int, default=3)
+    common.add_argument("--train_ps", type=int, default=128)
+    common.add_argument("--win_size", type=int, default=8)
+    common.add_argument("--token_projection", default="linear")
+    common.add_argument("--token_mlp", default="leff")
+    common.add_argument("--dtype", default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="float32 for exact checkpoint-parity eval; "
+                             "bfloat16 for the fastest inference")
+    common.add_argument("--device", default="cuda")
+    common.add_argument("--save_images", action="store_true")
+    common.add_argument("--tile", type=int, default=0,
+                        help="if >0, use overlapping-crop tiled inference "
+                             "with this tile size")
+    common.add_argument("--tile_overlap", type=int, default=32)
+    common.add_argument("--tile_batch", type=int, default=8,
+                        help="tile positions batched per call in tiled "
+                             "inference")
+    common.add_argument("--mesh_data", type=int, default=0,
+                        help="shard eval over this many devices (not "
+                             "ported yet)")
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    sub = p.add_subparsers(dest="harness", required=True)
+    sub.add_parser("sidd", parents=[common], help="SIDD denoising eval")
+    sub.add_parser("dnd", parents=[common], help="DND denoising eval")
+    gopro = sub.add_parser("gopro", parents=[common],
+                           help="GoPro/HIDE deblurring eval")
+    gopro.add_argument("--square_pad", action="store_true",
+                       help="reproduce the reference expand2square padding "
+                            "exactly (slower; default pads per-side only)")
+    realblur = sub.add_parser("realblur", parents=[common],
+                              help="RealBlur deblurring eval")
+    realblur.add_argument("--list_file", required=True,
+                          help="RealBlur list file: lines of "
+                               "'<gt_rel> <blur_rel>'")
+    realblur.add_argument("--workers", type=int, default=10)
+    return p
+
+
+def build_restorer(args) -> Callable:
+    """The NHWC [0,1]-clipped restorer of the CLI args: numpy in and out,
+    tiled when --tile is given (`scripts/_common.py:build_restorer`)."""
+    if args.mesh_data:
+        raise NotImplementedError(
+            "--mesh_data: sharded eval is not ported yet (ROADMAP.md, port "
+            "queue 1 item 9, parallel)")
+    if not args.weights.endswith((".pth", ".pt")):
+        raise NotImplementedError(
+            f"--weights {args.weights}: only reference .pth checkpoints "
+            f"load into the port; orbax checkpoint directories wait for "
+            f"ROADMAP.md, port queue 1 item 10 (utils: JAX/orbax "
+            f"checkpoints)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {args.device}: torch.cuda.is_available() is false "
+            f"(the eval path never falls back to the CPU; --device cpu "
+            f"runs the kernels' plain versions)")
+    if (args.token_projection, args.token_mlp) != ("linear", "leff"):
+        raise ValueError(
+            f"--token_projection {args.token_projection} --token_mlp "
+            f"{args.token_mlp}: every named arch fixes linear / leff, as "
+            f"the reference's get_arch does; build other variants through "
+            f"uformer_tpu_torch.Uformer")
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    model = get_arch({"arch": args.arch, "embed_dim": args.embed_dim,
+                      "train_ps": args.train_ps, "dd_in": args.dd_in,
+                      "win_size": args.win_size})
+    fn = Restorer(load_checkpoint(model, args.weights), dtype, device).numpy
+    if dtype == torch.float32:
+        fn = _without_tf32(fn)
+    if not args.tile:
+        return fn
+
+    def tiled_fn(x):
+        return tiled_inference(fn, x, tile=args.tile,
+                               overlap=args.tile_overlap,
+                               tile_batch=args.tile_batch)
+
+    return tiled_fn
+
+
+def _without_tf32(fn: Callable) -> Callable:
+    """fn with TF32 off for matmuls and cuDNN while it runs (checkpoint-
+    parity eval needs true fp32 products; cuDNN's TF32 default is on), the
+    caller's flags put back after."""
+    @functools.wraps(fn)
+    def wrapped(x):
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return fn(x)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+
+    return wrapped
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Run one harness; returns its result: (PSNR, SSIM) for sidd (None
+    without ground truth), gopro and realblur, the crop count for dnd."""
+    args = eval_argparser().parse_args(argv)
+    fn = build_restorer(args)
+    if args.harness == "sidd":
+        from uformer_tpu_torch.eval.sidd import run_sidd_eval
+
+        return run_sidd_eval(fn, args.input_dir, args.result_dir)
+    if args.harness == "dnd":
+        from uformer_tpu_torch.eval.dnd import run_dnd_eval
+
+        n = run_dnd_eval(fn, args.input_dir, args.result_dir,
+                         save_images=args.save_images)
+        print(f"restored {n} crops; bundled under "
+              f"{args.result_dir}/matfile/bundled")
+        return n
+    if args.harness == "gopro":
+        from uformer_tpu_torch.eval.gopro_hide import run_gopro_eval
+
+        return run_gopro_eval(fn, args.input_dir, args.result_dir,
+                              save_images=args.save_images,
+                              square_pad=args.square_pad)
+    from uformer_tpu_torch.eval.realblur import restore_realblur, \
+        score_realblur
+
+    pairs = restore_realblur(fn, args.list_file, args.input_dir,
+                             args.result_dir)
+    psnr, ssim = score_realblur(pairs, workers=args.workers)
+    print(f"RealBlur PSNR: {psnr:.4f} SSIM: {ssim:.4f}")
+    with open(os.path.join(args.result_dir, "psnr_ssim.txt"), "a") as f:
+        f.write(f"PSNR: {psnr:.4f} SSIM: {ssim:.4f}\n")
+    return psnr, ssim
+
+
+if __name__ == "__main__":
+    main()
