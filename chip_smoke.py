@@ -109,6 +109,30 @@ Phases, each raising on failure (no phase is caught):
                fp32 time at bs32 256^2 against its plain version and its
                bound (4 bytes a value, operations at the float32 rate), the
                scoring's seconds, the frame's ms and peak memory.
+ 15. train loop - the train CLI (uformer_tpu_torch.train.cli, in-process)
+               with the reference denoise recipe: Uformer_B, bs32, 128^2,
+               bf16, --warmup --warmup_epochs 1, on 256 seeded synthetic
+               PNG pairs of 256^2 (8 steps an epoch, a validation every 2
+               on 8 pairs of 256^2), two epochs with --checkpoint 2, then
+               --resume --nepoch 3. Checks: 40/40/40/40 launches
+               (attention_image, leff, attention_bwd, leff_bwd) every
+               step, 6/4/4 every validation forward, no plain call; the
+               first step (loss and every parameter after it) against
+               make_train_step by hand (same weights, batch and generator
+               state, cuDNN deterministic) within the bf16 whole-step
+               rule; model_best, model_latest and model_epoch_2 load with
+               weights_only, and model_best through a bf16 Restorer gives
+               the logged best PSNR within 1e-3 dB; resume at epoch 3,
+               step 16, weights and AdamW moments equal bits to the file,
+               the logged LRs the schedule's; the native data plane built
+               and equal bits to crop, dihedral and uint8 x float32(1/255)
+               (within one ulp of the numpy plane, which divides); Uformer
+               at embed 8, window 2 refused on the card before any launch.
+               Numbers: the trainer's ms a step against the train phase's
+               bare step, the device idle share between steps, the
+               loader's MP/s (native and numpy, decoding and cached), the
+               seconds per validation, save and resume, the checkpoint's
+               MiB, peak memory.
 
 Tolerances: fp32 max-abs <= 1e-4 * (1 + max|ref|); bf16 error against the
 fp32 plain result <= 1.5 x the bf16 plain version's error + 1e-3; for
@@ -2113,6 +2137,522 @@ def eval_phase(tmp: Path, sd, device, card: str):
     return checks, summary, launches
 
 
+# the train loop phase: the train CLI's denoise recipe at Uformer_B's full
+# width on seeded synthetic PNG pairs (training pairs, validation pairs,
+# side), 8 steps an epoch at bs32 and a validation every 2
+LOOP_SET, LOOP_SEED = (256, 8, 256), 11
+LOOP_EPOCHS, LOOP_RESUME_EPOCHS = 2, 3
+LOOP_VAL_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0), stage=6,
+                         attention_image=4, leff=4)
+
+
+def write_pairs(root: Path, n: int, side: int, seed: int) -> Path:
+    """n PNG pairs of side^2 in the reference's layout (groundtruth/,
+    input/): uint8 clean images (uniform) and clean + N(0, 0.08^2),
+    clipped."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    for sub in ("groundtruth", "input"):
+        (root / sub).mkdir(parents=True)
+    for i in range(n):
+        clean = rng.uniform(0, 1, (side, side, 3))
+        noisy = np.clip(clean + rng.normal(0, 0.08, clean.shape), 0, 1)
+        for sub, img in (("groundtruth", clean), ("input", noisy)):
+            cv2.imwrite(str(root / sub / f"{i:04d}.png"),
+                        np.uint8(np.round(img * 255)))
+    return root
+
+
+def data_plane_checks(train_dir: Path, card: str) -> tuple:
+    """The native plane (native/augment.cpp, built by the port) against the
+    numpy plane on the same draws, and both planes' MP/s at bs32 128^2 on
+    this machine's host: the first epoch decodes the PNGs, the next two
+    read the decode cache (bench.py's loader_mps)."""
+    import cv2
+
+    from uformer_tpu_torch.data import native
+    from uformer_tpu_torch.data.datasets import (PairedTrainDataset,
+                                                 _apply_dihedral,
+                                                 batch_iterator)
+
+    if not native.native_available():
+        raise RuntimeError(f"train loop: the native data plane did not "
+                           f"build ({native.SOURCE})")
+    checks, summary = Checks(), {}
+    nat = PairedTrainDataset(str(train_dir), RES_TRAIN, seed=3, native=True)
+    num = PairedTrainDataset(str(train_dir), RES_TRAIN, seed=3, native=False)
+    idx = list(range(BATCH_TRAIN))
+    (g1, n1), (g2, n2) = nat.get_batch(idx), num.get_batch(idx)
+    # the draws, again: the C++ plane's values are equal bits to
+    # crop -> dihedral -> uint8 * float32(1/255); the numpy plane divides
+    # by 255, within one float32 ulp of that
+    rng = np.random.default_rng(3)
+    inv = np.float32(1) / np.float32(255)
+    differ = 0
+    for j, i in enumerate(idx):
+        H = W = LOOP_SET[2]
+        r = int(rng.integers(0, H - RES_TRAIN + 1))
+        c = int(rng.integers(0, W - RES_TRAIN + 1))
+        k = int(rng.integers(0, 8))
+        for sub, got in (("groundtruth", g1), ("input", n1)):
+            u8 = cv2.cvtColor(cv2.imread(nat.gt_files[i] if sub ==
+                                         "groundtruth" else nat.in_files[i]),
+                              cv2.COLOR_BGR2RGB)
+            want = _apply_dihedral(u8[r:r + RES_TRAIN, c:c + RES_TRAIN], k) \
+                .astype(np.float32) * inv
+            differ += int(not np.array_equal(got[j], want))
+    ulps = max(int(np.abs(a.view(np.int32) - b.view(np.int32)).max())
+               for a, b in ((g1, g2), (n1, n2)))
+    checks.add("data plane", f"native bs{BATCH_TRAIN} batches differing "
+               f"from crop, dihedral, uint8 x 1/255", float(differ), 0.0,
+               "bits")
+    checks.add("data plane", "native against numpy plane, float32 ulps",
+               float(ulps), 1.0, "ulps")
+    for ds in (nat, num):
+        ds.close()
+    for name, flag in (("native", True), ("numpy", False)):
+        ds = PairedTrainDataset(str(train_dir), RES_TRAIN, seed=4,
+                                native=flag)
+        times = []
+        for epoch in range(3):
+            t0 = time.perf_counter()
+            nb = sum(1 for _ in batch_iterator(ds, BATCH_TRAIN, seed=epoch))
+            times.append(time.perf_counter() - t0)
+        ds.close()
+        mp = nb * BATCH_TRAIN * RES_TRAIN * RES_TRAIN / 1e6
+        summary[f"loader_mps_{name}"] = {
+            "decode_epoch": mp / times[0],
+            "cached": 2 * mp / (times[1] + times[2]), "epoch_s": times}
+        s = summary[f"loader_mps_{name}"]
+        print(f"  loader {name}: {s['decode_epoch']:.2f} MP/s in the "
+              f"epoch that decodes, {s['cached']:.2f} MP/s from the decode "
+              f"cache (bs{BATCH_TRAIN} {RES_TRAIN}^2, {nb} batches an "
+              f"epoch; host of this machine)  [{card}]", flush=True)
+    return checks, summary
+
+
+def loop_trainer_class():
+    """The port's Trainer with probes around its step, validation, saves
+    and resume: CUDA events at each step's start and end, the launches of
+    each step and validation, the first step's inputs and result, and on
+    resume the loaded state against the file. The loop itself runs as it
+    is."""
+    from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.train import checkpoints
+    from uformer_tpu_torch.train.trainer import Trainer
+
+    def diff(before):
+        after = K.launch_counts()
+        return {k: after[k] - before[k] for k in after}
+
+    class LoopTrainer(Trainer):
+        def __init__(self, opt):
+            super().__init__(opt)
+            self.steps, self.vals, self.saves = [], [], []
+            self.first = self.resumed = None
+
+        def build(self, steps_per_epoch):
+            super().build(steps_per_epoch)
+            step = self.train_step
+
+            def probed(state, batch, gen):
+                first = not self.steps and state.step == 0
+                if first:
+                    torch.backends.cudnn.deterministic = True
+                    self.first = {
+                        "weights": {k: v.clone() for k, v in
+                                    self.model.state_dict().items()},
+                        "batch": {k: v.clone() for k, v in batch.items()},
+                        "gen": gen.get_state()}
+                before = K.launch_counts()
+                pending = checkpoints._PENDING
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                loss = step(state, batch, gen)
+                end.record()
+                self.steps.append({
+                    "events": (start, end), "launches": diff(before),
+                    "enqueue_ms": (time.perf_counter() - t0) * 1e3,
+                    "save_writing": pending is not None
+                    and not pending.done(), "after_val": False})
+                if first:
+                    torch.backends.cudnn.deterministic = False
+                    self.first["loss"] = loss.clone()
+                    self.first["after"] = {n: p.detach().clone() for n, p in
+                                           self.model.named_parameters()}
+                return loss
+
+            self.train_step = probed
+
+        def validate(self, state, val_batches):
+            images = []
+
+            def counted():
+                for b in val_batches:
+                    images.append(b["input"].shape[0])
+                    yield b
+
+            torch.cuda.synchronize()
+            before = K.launch_counts()
+            t0 = time.perf_counter()
+            psnr = super().validate(state, counted())
+            self.vals.append({"s": time.perf_counter() - t0,
+                              "launches": diff(before),
+                              "images": sum(images), "psnr": psnr})
+            if self.steps:
+                self.steps[-1]["after_val"] = True
+            return psnr
+
+        def _save(self, name, epoch, state, async_save=False):
+            t0 = time.perf_counter()
+            super()._save(name, epoch, state, async_save=async_save)
+            self.saves.append({"name": name, "async": async_save,
+                               "s": time.perf_counter() - t0})
+            if self.steps:
+                self.steps[-1]["after_val"] = True
+
+        def init_state(self, resume=False):
+            t0 = time.perf_counter()
+            state = super().init_state(resume)
+            torch.cuda.synchronize()
+            if resume:
+                secs = time.perf_counter() - t0
+                ckpt = torch.load(checkpoints.checkpoint_path(
+                    self.model_dir, "model_latest"), map_location="cpu",
+                    weights_only=True)
+                sd = self.model.state_dict()
+                differ = [k for k, v in ckpt["state_dict"].items()
+                          if not torch.equal(v, sd[k].cpu())]
+                saved = ckpt["optimizer"]["state"]
+                for i, s in state.optimizer.state_dict()["state"].items():
+                    differ += [f"moment {i} {k}" for k, v in s.items()
+                               if not torch.equal(v.cpu(), saved[i][k])]
+                self.resumed = {"s": secs, "differ": differ,
+                                "step": state.step,
+                                "start_epoch": self.start_epoch,
+                                "moments": len(saved)}
+            return state
+
+    return LoopTrainer
+
+
+def run_train_cli(trainer_cls, argv):
+    """uformer_tpu_torch.train.cli.main(argv), in-process, with its
+    Trainer replaced by trainer_cls; returns main's result."""
+    from uformer_tpu_torch.train import cli
+
+    plain = cli.Trainer
+    cli.Trainer = trainer_cls
+    try:
+        return cli.main(argv)
+    finally:
+        cli.Trainer = plain
+
+
+def hand_step(first: dict, sched, steps_per_epoch: int, device,
+              plain: bool, dtype) -> dict:
+    """The trainer's first step again through make_train_step by hand:
+    the same weights, batch and generator state, the trainer's schedule,
+    cuDNN's deterministic algorithms. Returns the loss and every
+    parameter after the step."""
+    from uformer_tpu_torch import get_arch
+    from uformer_tpu_torch.train import TrainState, make_optimizer, \
+        make_train_step
+
+    torch.backends.cudnn.deterministic = True
+    model = get_arch({"arch": "Uformer_B", "train_ps": RES_TRAIN,
+                      "dtype": dtype}).to(device)
+    model.load_state_dict(first["weights"])
+    state = TrainState(model, make_optimizer(model.parameters(), sched))
+    step = make_train_step(model, mixup_after_epoch=5,
+                           steps_per_epoch=steps_per_epoch, plain=plain)
+    gen = torch.Generator(device="cpu")
+    gen.set_state(first["gen"])
+    loss = step(state, first["batch"], gen)
+    out = {"loss": loss.reshape(1).clone()}
+    out.update({n: p.detach().clone() for n, p in model.named_parameters()})
+    torch.backends.cudnn.deterministic = False
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def first_step_checks(trainer, device) -> tuple:
+    """The loop adds nothing to the step: the trainer's first step (loss
+    and every parameter after it) against make_train_step by hand on the
+    kernel path (bf16), held to the train phase's bf16 whole-step rule
+    against the plain path in fp32 and bf16; equal bits to the hand
+    kernel step are reported."""
+    first = trainer.first
+    got = {"loss": first["loss"].reshape(1)}
+    got.update(first["after"])
+    spe = trainer.steps_per_epoch
+    hand = hand_step(first, trainer.sched, spe, device, False,
+                     torch.bfloat16)
+    ref = hand_step(first, trainer.sched, spe, device, True, torch.float32)
+    low = hand_step(first, trainer.sched, spe, device, True, torch.bfloat16)
+    checks = Checks()
+    for name, r in ref.items():
+        scale = float(r.abs().max())
+        checks.add("model", f"train loop first step {name}",
+                   max_err(got[name], r),
+                   1.5 * max_err(low[name], r) + 1e-3 * max(1.0, scale),
+                   "bf16")
+    unequal = [n for n in got if not torch.equal(got[n], hand[n])]
+    print(f"  first step: loss {float(got['loss']):.6f} (hand kernel step "
+          f"{float(hand['loss']):.6f}, plain fp32 {float(ref['loss']):.6f});"
+          f" {len(got) - len(unequal)} of {len(got)} tensors equal bits to "
+          f"the hand kernel step", flush=True)
+    return checks, {"loss": float(got["loss"]),
+                    "hand_kernel_loss": float(hand["loss"]),
+                    "plain_fp32_loss": float(ref["loss"]),
+                    "unequal_to_hand_kernel_step": unequal}
+
+
+def loop_timing(trainers) -> dict:
+    """Step times (CUDA events; the first step of each run, which picks
+    cuDNN's algorithms, apart) and the device's idle share between steps
+    that nothing but the loop separates (no validation or save): the gap
+    from one step's end event to the next step's start event, over the
+    time from one start to the next."""
+    ms, gaps, spans, enqueue, writing = [], [], [], [], []
+    for tr in trainers:
+        steps = tr.steps
+        ms += [s["events"][0].elapsed_time(s["events"][1])
+               for s in steps[1:]]
+        enqueue += [s["enqueue_ms"] for s in steps[1:]]
+        writing += [s["save_writing"] for s in steps[1:]]
+        for a, b in zip(steps, steps[1:]):
+            if a["after_val"]:
+                continue
+            step_ms = a["events"][0].elapsed_time(a["events"][1])
+            gap = a["events"][1].elapsed_time(b["events"][0])
+            gaps.append(gap)
+            spans.append(step_ms + gap)
+    if not gaps:
+        raise RuntimeError("train loop: no two steps in a row without a "
+                           "validation or save between them")
+    def median(flag):
+        sel = [m for m, w in zip(ms, writing) if w == flag]
+        return float(np.median(sel)) if sel else None
+
+    return {"step_ms": ms, "step_ms_median": float(np.median(ms)),
+            "enqueue_ms": enqueue, "save_writing": writing,
+            "step_ms_median_save_writing": median(True),
+            "step_ms_median_no_save_writing": median(False),
+            "gaps_ms": gaps, "idle_share": sum(gaps) / sum(spans)}
+
+
+def loop_log_lr(trainer) -> list:
+    """The LRs the run's epoch lines logged (6 decimals, as written)."""
+    with open(trainer.logname) as f:
+        return [line.rsplit(" ", 1)[1] for line in f.read().splitlines()
+                if line.startswith("Epoch: ")]
+
+
+def refusal_checks(device) -> None:
+    """At a geometry the kernels do not take (embed 8, window 2) the card
+    refuses before any launch: the forward's wrapper raises, the train
+    step names the uncovered blocks, and no plain version stands in."""
+    from uformer_tpu_torch import get_arch
+    from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.train import TrainState, make_optimizer, \
+        make_train_step
+
+    model = get_arch({"arch": "Uformer", "embed_dim": 8, "win_size": 2,
+                      "train_ps": 32}).to(device)
+    x = torch.rand(2, 32, 32, 3, device=device)
+    K.reset_counts()
+    refused = []
+    try:
+        with torch.no_grad():
+            model.eval()(x)
+    except ValueError as exc:
+        refused.append(f"forward: {exc}")
+    state = TrainState(model, make_optimizer(model.parameters(),
+                                             lambda s: 2e-4))
+    step = make_train_step(model)
+    try:
+        step(state, {"input": x, "target": x}, torch.Generator())
+    except NotImplementedError as exc:
+        refused.append(f"train step: {exc}")
+    launched = {k: v for k, v in K.launch_counts().items() if v}
+    plain = {k: v for k, v in K.plain_counts().items() if v}
+    if len(refused) != 2 or launched or plain:
+        raise RuntimeError(f"embed 8 window 2 on the card: refused "
+                           f"{refused}, launches {launched}, plain calls "
+                           f"{plain}; expected both refused before any "
+                           f"launch")
+    print("  embed 8, window 2 on the card: " + "; ".join(
+        r[:100] for r in refused), flush=True)
+
+
+def train_loop_phase(tmp: Path, device, card: str, bare_ms: float):
+    """The train CLI's denoise recipe (Uformer_B, bs32, 128^2, bf16,
+    --warmup --warmup_epochs 1) in-process on seeded PNG pairs: two
+    epochs with --checkpoint 2, then --resume --nepoch 3. Returns the
+    checks, the summary and the loop's kernel launches."""
+    from uformer_tpu_torch import get_arch
+    from uformer_tpu_torch.convert import load_checkpoint, load_pth
+    from uformer_tpu_torch.eval.metrics import psnr_clamped
+    from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.restore import Restorer
+
+    n_train, n_val, side = LOOP_SET
+    t0 = time.perf_counter()
+    train_dir = write_pairs(tmp / "train", n_train, side, LOOP_SEED)
+    val_dir = write_pairs(tmp / "val", n_val, side, LOOP_SEED + 1)
+    summary = {"card": card, "write_s": time.perf_counter() - t0}
+    checks, loader = data_plane_checks(train_dir, card)
+    summary.update(loader)
+
+    argv = ["--arch", "Uformer_B", "--batch_size", str(BATCH_TRAIN),
+            "--train_ps", str(RES_TRAIN), "--mode", "denoising", "--warmup",
+            "--warmup_epochs", "1", "--nepoch", str(LOOP_EPOCHS),
+            "--checkpoint", "2", "--train_dir", str(train_dir), "--val_dir",
+            str(val_dir), "--save_dir", str(tmp / "logs"),
+            "--pretrain_weights", "", "--device", str(device)]
+    cls = loop_trainer_class()
+    benchmark = torch.backends.cudnn.benchmark
+    K.reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    trainer, state, best = run_train_cli(cls, argv)
+    summary["run_s"] = time.perf_counter() - t0
+    summary["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    launches = K.launch_counts()
+    plain = K.plain_counts()
+    spe = trainer.steps_per_epoch
+    if spe != n_train // BATCH_TRAIN or state.step != LOOP_EPOCHS * spe:
+        raise RuntimeError(f"train loop: {state.step} steps of {spe}")
+
+    # 1. launches: every step and every validation forward, no plain call
+    for i, s in enumerate(trainer.steps):
+        if s["launches"] != TRAIN_LAUNCHES:
+            raise RuntimeError(f"train loop: step {i} launched "
+                               f"{s['launches']}, expected {TRAIN_LAUNCHES}")
+    for i, v in enumerate(trainer.vals):
+        want = {k: v["images"] * n for k, n in LOOP_VAL_LAUNCHES.items()}
+        if v["launches"] != want or v["images"] != n_val:
+            raise RuntimeError(f"train loop: validation {i} of "
+                               f"{v['images']} images launched "
+                               f"{v['launches']}, expected {want}")
+    if len(trainer.vals) != LOOP_EPOCHS * (spe // max(spe // 4, 1)) \
+            or any(plain.values()):
+        raise RuntimeError(f"train loop: {len(trainer.vals)} validations, "
+                           f"plain calls {plain}")
+
+    # 3. checkpoints: each loads with weights_only; model_best gives the
+    # logged best PSNR through a bf16 Restorer
+    files = {name: Path(trainer.model_dir) / f"{name}.pth" for name in
+             ("model_best", "model_latest", f"model_epoch_{LOOP_EPOCHS}")}
+    for name, path in files.items():
+        if len(load_pth(str(path))) != len(trainer.model.state_dict()):
+            raise RuntimeError(f"train loop: {path} holds too few tensors")
+    summary["checkpoint_mb"] = {n: p.stat().st_size / 2**20
+                                for n, p in files.items()}
+    restorer = Restorer(load_checkpoint(get_arch(
+        {"arch": "Uformer_B", "train_ps": RES_TRAIN}),
+        str(files["model_best"])), torch.bfloat16, device)
+    from uformer_tpu_torch.data.datasets import PairedValDataset
+
+    val = PairedValDataset(str(val_dir))
+    K.reset_counts()
+    psnr = sum(float(psnr_clamped(restorer(torch.from_numpy(
+        np.ascontiguousarray(val[i][1][None]))), torch.from_numpy(
+        np.ascontiguousarray(val[i][0][None])))) for i in range(len(val)))
+    psnr /= len(val)
+    del restorer
+    checks.add("model", "model_best.pth bf16 Restorer PSNR against the "
+               "logged best (dB)", abs(psnr - best), 1e-3, "dB")
+    summary.update(best_psnr=best, restorer_psnr=psnr)
+
+    # 2. the loop adds nothing to the step
+    fchecks, summary["first_step"] = first_step_checks(trainer, device)
+    checks.rows += fchecks.rows
+    checks.failed += fchecks.failed
+    trainer.first = None
+
+    # 4. resume from model_latest: epoch, step, weights and moments
+    K.reset_counts()
+    t0 = time.perf_counter()
+    trainer2, state2, _ = run_train_cli(cls, argv + [
+        "--resume", "--nepoch", str(LOOP_RESUME_EPOCHS)])
+    summary["resume_run_s"] = time.perf_counter() - t0
+    for k, v in K.launch_counts().items():
+        launches[k] += v
+    if any(K.plain_counts().values()):
+        raise RuntimeError(f"train loop resume: plain calls "
+                           f"{K.plain_counts()}")
+    for i, s in enumerate(trainer2.steps):
+        if s["launches"] != TRAIN_LAUNCHES:
+            raise RuntimeError(f"train loop resume: step {i} launched "
+                               f"{s['launches']}")
+    r = trainer2.resumed
+    if r is None or r["start_epoch"] != LOOP_EPOCHS + 1 \
+            or r["step"] != LOOP_EPOCHS * spe or r["differ"] \
+            or r["moments"] != len(list(trainer2.model.parameters())):
+        raise RuntimeError(f"train loop resume: {r}")
+    if state2.step != LOOP_RESUME_EPOCHS * spe:
+        raise RuntimeError(f"train loop resume: ended at step {state2.step}")
+    lrs = loop_log_lr(trainer) + loop_log_lr(trainer2)
+    # each run's own schedule (its nepoch): the LR after each epoch's
+    # last step
+    want = [f"{trainer.sched(e * spe):.6f}"
+            for e in range(1, LOOP_EPOCHS + 1)] + [
+        f"{trainer2.sched(e * spe):.6f}"
+        for e in range(LOOP_EPOCHS + 1, LOOP_RESUME_EPOCHS + 1)]
+    if lrs != want:
+        raise RuntimeError(f"train loop: logged LRs {lrs}, expected {want}")
+    summary["resume"] = {k: r[k] for k in ("s", "step", "start_epoch")}
+    summary["logged_lr"] = lrs
+    torch.backends.cudnn.benchmark = benchmark
+
+    timing = loop_timing([trainer, trainer2])
+    summary.update(timing)
+    summary["bare_step_ms"] = bare_ms
+    vals = trainer.vals + trainer2.vals
+    saves = trainer.saves + trainer2.saves
+    summary["validation_s"] = [v["s"] for v in vals]
+    summary["saves"] = saves
+    asyncs = [s["s"] for s in saves if s["async"]]
+    syncs = [s["s"] for s in saves if not s["async"]]
+    print(f"  train loop ({n_train} pairs, {spe} steps an epoch, "
+          f"{len(timing['step_ms']) + 2} steps, {len(vals)} validations of "
+          f"{n_val} x {side}^2, {len(saves)} saves): trainer "
+          f"{timing['step_ms_median']:.3f} ms/step (median, CUDA events) "
+          f"against the train phase's bare step {bare_ms:.3f} ms "
+          f"({100 * (timing['step_ms_median'] / bare_ms - 1):+.1f}%)  "
+          f"[{card}]", flush=True)
+    print(f"  device idle share between steps {100 * timing['idle_share']:.2f}"
+          f"% ({len(timing['gaps_ms'])} gaps, max "
+          f"{max(timing['gaps_ms']):.3f} ms); host enqueue "
+          f"{np.median(timing['enqueue_ms']):.3f} ms a step (median); step "
+          f"{timing['step_ms_median_save_writing']} ms while a save is "
+          f"written behind the loop, "
+          f"{timing['step_ms_median_no_save_writing']} ms otherwise "
+          f"(medians of {sum(timing['save_writing'])} and "
+          f"{len(timing['save_writing']) - sum(timing['save_writing'])} "
+          f"steps)  [{card}]", flush=True)
+    print(f"  validation {np.mean(summary['validation_s']):.3f} s each "
+          f"(mean of {len(vals)}); save: {np.mean(asyncs):.3f} s on the "
+          f"loop's thread (best/latest, written behind it), "
+          f"{np.mean(syncs):.3f} s in line (epoch-N), checkpoint "
+          f"{summary['checkpoint_mb']['model_latest']:.1f} MiB; resume "
+          f"{r['s']:.3f} s; peak {summary['peak_bytes'] / 2**20:.1f} MiB  "
+          f"[{card}]", flush=True)
+    print(f"  best PSNR {best:.4f} dB (logged), {psnr:.4f} dB from "
+          f"model_best.pth through a bf16 Restorer; resume at epoch "
+          f"{r['start_epoch']}, step {r['step']}, weights and "
+          f"{r['moments']} AdamW states equal bits to the file; logged LRs "
+          f"{lrs}", flush=True)
+    refusal_checks(device)
+    return checks, summary, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", type=Path, help="write the full report here")
@@ -2241,6 +2781,12 @@ def run(device, card: str, json_path) -> list:
                                                    card)
     echecks.raise_if_failed("eval")
 
+    phase("train loop")
+    with tempfile.TemporaryDirectory() as tmp:
+        lchecks, loop, loop_launches = train_loop_phase(
+            Path(tmp), device, card, train["kernel_ms_median"])
+    lchecks.raise_if_failed("train loop")
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas,
@@ -2262,7 +2808,8 @@ def run(device, card: str, json_path) -> list:
               "train_t_step_checks": ttschecks.rows, "train_t": train_t,
               "train_t_timing": ttrows, "train_t_totals": tttotals,
               "train_mlp_cross_checks": mcchecks.rows,
-              "eval_checks": echecks.rows, "eval": evals}
+              "eval_checks": echecks.rows, "eval": evals,
+              "train_loop_checks": lchecks.rows, "train_loop": loop}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -2295,7 +2842,8 @@ def run(device, card: str, json_path) -> list:
                               + train_launches[name]
                               + kernel_count(bc_launches, name)
                               + train_t_launches[name]
-                              + kernel_count(eval_launches, name)),
+                              + kernel_count(eval_launches, name)
+                              + kernel_count(loop_launches, name)),
                  "launches_serve": kernel_count(launches, name),
                  "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
@@ -2303,6 +2851,7 @@ def run(device, card: str, json_path) -> list:
                  "launches_serve_bconv": kernel_count(
                      serve_bc["launches_per_request"][0], name),
                  "launches_eval": kernel_count(eval_launches, name),
+                 "launches_train_loop": kernel_count(loop_launches, name),
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],

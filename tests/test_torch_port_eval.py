@@ -480,8 +480,8 @@ def _cli_args(tmp_path, *extra):
 
 @pytest.mark.parametrize("extra, item", [
     (["--weights", "w.pth", "--mesh_data", "2", "--tile", "256"],
-     "queue 1 item 9"),
-    (["--weights", "checkpoints/model_best"], "queue 1 item 10")])
+     "queue 1 item 4"),
+    (["--weights", "checkpoints/model_best"], "queue 1 item 5")])
 def test_cli_refuses_what_waits(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(_cli_args(tmp_path, "--device", "cpu", *extra))

@@ -97,12 +97,16 @@ def test_depthwise_conv():
 
 def test_import_leaves_jax_out():
     """The port imports torch and never jax (fresh interpreter), the eval
-    layer and its CLI included."""
+    layer, the training entry point and their CLIs included."""
     code = ("import sys, uformer_tpu_torch, uformer_tpu_torch.restore, "
             "uformer_tpu_torch.convert, uformer_tpu_torch.eval, "
+            "uformer_tpu_torch.config, "
             + ", ".join(f"uformer_tpu_torch.eval.{m}" for m in (
                 "bundle", "cli", "dnd", "gopro_hide", "image_io", "metrics",
                 "padding", "realblur", "sidd"))
+            + ", " + ", ".join(f"uformer_tpu_torch.{m}" for m in (
+                "data.datasets", "data.native", "data.patches",
+                "train.checkpoints", "train.trainer", "train.cli"))
             + "; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'uformer_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -296,12 +296,25 @@ def test_uformer_t_routes_the_same_at_256():
 
 
 def test_registry_refuses_what_the_kernels_do_not_take():
+    """The registry refuses what is not ported (UNet, gradient
+    checkpointing). It builds Uformer at any geometry for the CPU; the
+    card's kernel path refuses a head dim or window its kernels do not
+    take (`blocks_without_backward_kernel`, naming the ROADMAP item)."""
     assert get_arch({"arch": "Uformer_T"}).encoderlayer_0.dim == 16
     for opt in ({"arch": "UNet"},
-                {"arch": "Uformer", "embed_dim": 64},
-                {"arch": "Uformer", "embed_dim": 16, "win_size": 4}):
+                {"arch": "Uformer_B", "use_checkpoint": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_arch(opt)
+    for opt in ({"arch": "Uformer", "embed_dim": 64},
+                {"arch": "Uformer", "embed_dim": 16, "win_size": 4}):
+        model = get_arch(opt)
+        assert model.encoderlayer_0.dim == opt["embed_dim"]
+        assert model.encoderlayer_0.blocks[0].win_size == \
+            opt.get("win_size", 8)
+        uncovered = blocks_without_backward_kernel(model)
+        assert len(uncovered) == 18
+        gap = model.get_submodule(uncovered[0]).backward_gap
+        assert "ROADMAP.md, port queue 2 items 2-3" in gap
 
 
 def test_train_guard_names_the_uncovered_blocks():

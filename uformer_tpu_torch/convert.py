@@ -66,7 +66,7 @@ def _block(sd: StateDict, prefix: str, p) -> None:
     if "eca" in p["mlp"]:
         raise NotImplementedError(
             f"{prefix}: Eca1d is not ported yet (ROADMAP.md, port queue 1 "
-            f"item 8)")
+            f"item 3)")
     _layernorm(sd, f"{prefix}.norm1", p["norm1"])
     _layernorm(sd, f"{prefix}.norm2", p["norm2"])
     table = np.asarray(p["attn"]["relative_position_bias_table"])

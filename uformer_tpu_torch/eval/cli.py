@@ -87,12 +87,12 @@ def build_restorer(args) -> Callable:
     if args.mesh_data:
         raise NotImplementedError(
             "--mesh_data: sharded eval is not ported yet (ROADMAP.md, port "
-            "queue 1 item 9, parallel)")
+            "queue 1 item 4, parallel)")
     if not args.weights.endswith((".pth", ".pt")):
         raise NotImplementedError(
             f"--weights {args.weights}: only reference .pth checkpoints "
             f"load into the port; orbax checkpoint directories wait for "
-            f"ROADMAP.md, port queue 1 item 10 (utils: JAX/orbax "
+            f"ROADMAP.md, port queue 1 item 5 (utils: JAX/orbax "
             f"checkpoints)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():

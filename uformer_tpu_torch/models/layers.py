@@ -86,7 +86,7 @@ LEFF_MLPS = ("leff", "fastleff")  # fastleff: the same function and keys
 GEOMETRY_NOT_ON_KERNEL_PATH = (
     f"the attention kernels take window 8 and head dim in {HEAD_DIMS}; "
     f"other windows and head dims train on the plain path only (ROADMAP.md, "
-    f"port queue 2, next slice 1: win != 8)")
+    f"port queue 2 items 2-3: win != 8, head dims other than 16 and 32)")
 
 
 class _Prepared:

@@ -123,13 +123,14 @@ def make_train_step(model: nn.Module, loss_fn: Callable = charbonnier_loss,
     return train_step
 
 
-def make_eval_step(model: nn.Module):
-    """Forward in eval mode, clamped to [0, 1] (reference
-    train_denoise.py:196-199)."""
+def make_eval_step(model: nn.Module, plain: bool = False):
+    """Forward in eval mode at the model's dtype, clamped to [0, 1]
+    (reference train_denoise.py:196-199); plain=True runs the kernels'
+    plain versions."""
 
     @torch.no_grad()
     def eval_step(inp: torch.Tensor) -> torch.Tensor:
         model.eval()
-        return model(inp).clamp(0.0, 1.0)
+        return model(inp, plain=plain).clamp(0.0, 1.0)
 
     return eval_step
