@@ -133,6 +133,34 @@ Phases, each raising on failure (no phase is caught):
                loader's MP/s (native and numpy, decoding and cached), the
                seconds per validation, save and resume, the checkpoint's
                MiB, peak memory.
+ 16. models  - UNet (the registry's dim 32, seeded numpy weights): 4 bf16
+               requests of batch 8 at 256^2 through a Restorer (no kernel;
+               against the fp32 result within the bf16 rule), ms a request,
+               MP/s, peak memory; its weights as a reference-format .pth
+               restored through the SIDD CLI with --arch UNet (equal bits
+               to the restorer's output); one bs32 128^2 bf16 step against
+               the fp32 step (the bf16 whole-step rule) and timed steps.
+               Uformer_B and Uformer_T at bs32 128^2 bf16 (drop path 0.1,
+               mixup on) with use_checkpoint and without, on the same
+               weights, batch and generator state: loss, every gradient
+               and the generator's state after the step in equal bits (a
+               gradient that differs held within 1e-6 max(1, max|g|), and
+               run twice unchecked to tell nondeterminism apart); launches
+               80/80/40/40 and 32/4/36 + 16/2/18 a checkpointed step, no
+               plain call; ms a step and peak memory both ways beside the
+               reckoning (-0.4 to -0.5 GiB, +15-25%). LeFF with Eca1d at
+               C 32, 128 and 512 (bs32 train shapes), fp32 and bf16: the
+               forward through kernel 2 and every gradient through kernel
+               7 against the plain version. Freeze: two bf16 steps of
+               Uformer_B at bs2 with encoderlayer_* frozen: frozen tensors
+               keep their bits, the others move with the unfrozen step's
+               gradients, bit for bit. model_complexity of Uformer_B at
+               256^2 over serve B's forward time (TFLOP/s and its share of
+               989); serve B's forward under utils.debug.profile: the
+               stage, LeFF and attention-image kernels named in
+               summarize_trace and summed within 10% of phase 6's
+               CUDA-event times; a NaN input under enable_nan_checks
+               raises FloatingPointError naming input_proj.
 
 Tolerances: fp32 max-abs <= 1e-4 * (1 + max|ref|); bf16 error against the
 fp32 plain result <= 1.5 x the bf16 plain version's error + 1e-3; for
@@ -151,6 +179,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import importlib.util
 import itertools
 import json
@@ -1818,15 +1847,17 @@ def mlp_cross_model(device):
     return load_numpy_state_dict(model, sd).to(device)
 
 
-def write_eval_inputs(root: Path, sd) -> tuple:
-    """serve B's golden seeded Uformer_B weights as a reference-format
-    .pth ({'epoch', 'state_dict' with the DataParallel `module.` prefix,
-    'optimizer'}), and a synthetic SIDD validation pair in sidd.py's
-    layout: uint8 clean blocks (uniform, seed 7) and noisy = clean +
-    N(0, 0.08^2), clipped."""
+def write_eval_inputs(root: Path, sd, name: str = "uformer_b_seeded"
+                      ) -> tuple:
+    """The weights sd (serve B's golden seeded Uformer_B weights by
+    default) as a reference-format .pth ({'epoch', 'state_dict' with the
+    DataParallel `module.` prefix, 'optimizer'}), and a synthetic SIDD
+    validation pair in sidd.py's layout: uint8 clean blocks (uniform, seed
+    7) and noisy = clean + N(0, 0.08^2), clipped."""
     import scipy.io as sio
 
-    pth = root / "uformer_b_seeded.pth"
+    root.mkdir(parents=True, exist_ok=True)
+    pth = root / f"{name}.pth"
     torch.save({"epoch": 1, "optimizer": {},
                 "state_dict": {"module." + k: torch.from_numpy(v)
                                for k, v in sd.items()}}, pth)
@@ -2653,6 +2684,496 @@ def train_loop_phase(tmp: Path, device, card: str, bare_ms: float):
     return checks, summary, launches
 
 
+# the models phase (16): UNet served and trained, checkpointed training,
+# LeFF with Eca1d, freezing, the operation count, the profile and the NaN
+# guard
+SEED_UNET, SEED_ECA = 1238, 1239
+NO_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0)
+# a checkpointed step recomputes each block's forward in the backward
+CKPT_LAUNCHES = dict(TRAIN_LAUNCHES, attention_image=80, leff=80)
+T_CKPT_LAUNCHES = dict(T_TRAIN_LAUNCHES, attention_image=32,
+                       attention_block=4, leff=36)
+# LeFF with Eca1d at the bs32 128^2 train shapes of C 32, 128 and 512
+ECA_SHAPES = [(BATCH_TRAIN, 128, 128, 32), (BATCH_TRAIN, 32, 32, 128),
+              (BATCH_TRAIN, 8, 8, 512)]
+FREEZE_PATTERN = "encoderlayer_"
+N_CKPT_STEPS = 5
+# the checkpointed bs32 128^2 step against the unchecked one, reckoned
+# before the first run: one copy of every block's activation, ~484 MiB a
+# batch, saved; one forward of the blocks added
+CKPT_RECKONING = {"peak_mib": (-512.0, -409.6), "step_pct": (15.0, 25.0)}
+# the CUDA functions of the kernels named in a profile of serve B
+KERNEL_FAMILIES = {
+    "stage": ("stage_kernel",),
+    "leff": ("leff_kernel", "leff_narrow_kernel", "leff_wide_kernel"),
+    "attention_image": ("attention_image_kernel", "attention_narrow_kernel",
+                        "attention_wide_kernel")}
+
+
+def unet_weights():
+    """UNet's weights (the registry's dim 32) drawn with numpy from
+    SEED_UNET over the port's own parameter names, by the golden weights'
+    rule."""
+    from uformer_tpu_torch import get_arch
+
+    model = get_arch({"arch": "UNet"})
+    keys_shapes = [[k, list(v.shape)] for k, v in model.named_parameters()]
+    return golden_module().seeded_state_dict(keys_shapes, SEED_UNET)
+
+
+def build_unet(sd, device):
+    from uformer_tpu_torch import get_arch
+    from uformer_tpu_torch.convert import load_numpy_state_dict
+
+    return load_numpy_state_dict(get_arch({"arch": "UNet"}), sd) \
+        .to(device).eval()
+
+
+def unet_eval_cli(tmp: Path, sd, restorer, card: str) -> dict:
+    """serve UNet's weights as a reference-format .pth restored through
+    the SIDD CLI with --arch UNet (bf16): Idenoised equal to the served
+    restorer's own output on the same blocks, no kernel launched."""
+    import scipy.io as sio
+
+    from uformer_tpu_torch.eval import cli
+    from uformer_tpu_torch.eval.sidd import load_sidd_val_noisy, \
+        restore_sidd
+    from uformer_tpu_torch.ops import kernels as K
+
+    pth, sidd = write_eval_inputs(tmp, sd, "unet_seeded")
+    K.reset_counts()
+    t0 = time.perf_counter()
+    psnr, ssim = cli.main(["sidd", "--input_dir", str(sidd), "--result_dir",
+                           str(tmp / "out"), "--weights", str(pth),
+                           "--arch", "UNet", "--dtype", "bfloat16",
+                           "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    if any(K.launch_counts().values()) or any(K.plain_counts().values()):
+        raise RuntimeError("UNet SIDD CLI: a kernel wrapper was called")
+    got = sio.loadmat(tmp / "out" / "Idenoised.mat")["Idenoised"]
+    want = restore_sidd(restorer.numpy, load_sidd_val_noisy(str(sidd)),
+                        SIDD_BATCH)
+    err = float(np.abs(got - want).max())
+    if got.shape != want.shape or err > 0.0:
+        raise RuntimeError(f"UNet SIDD CLI: Idenoised {got.shape} differs "
+                           f"from the restorer's by {err}")
+    print(f"  UNet SIDD CLI (--arch UNet, bf16, {SIDD_SET[0]} x "
+          f"{SIDD_SET[1]} blocks of {SIDD_SET[2]}^2): PSNR {psnr:.4f} SSIM "
+          f"{ssim:.4f}, {secs:.2f} s with load and scoring; Idenoised equal "
+          f"bits to the served restorer's  [{card}]", flush=True)
+    return {"psnr": psnr, "ssim": ssim, "s": secs}
+
+
+def train_step_state(model, seed: int, lr: float = 0.0):
+    """model's train step (bf16, mixup on: step 5 of 1-step epochs) with a
+    fresh AdamW at lr, and a generator seeded with seed."""
+    from uformer_tpu_torch.train import TrainState, make_optimizer, \
+        make_train_step
+
+    model.dtype = torch.bfloat16
+    state = TrainState(model, make_optimizer(model.parameters(),
+                                             lambda s: lr), step=5)
+    step = make_train_step(model, mixup_after_epoch=5, steps_per_epoch=1)
+    return state, step, torch.Generator(device="cpu").manual_seed(seed)
+
+
+def counted_step(model, batch, seed: int, expected: dict, label: str,
+                 lr: float = 0.0) -> dict:
+    """One bf16 train step of model: its loss, every gradient, the
+    generator's state after it and its launches, which must be `expected`
+    with no plain call."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    state, step, gen = train_step_state(model, seed, lr)
+    K.reset_counts()
+    loss = step(state, batch, gen)
+    torch.cuda.synchronize()
+    counts, plain = K.launch_counts(), K.plain_counts()
+    if counts != expected or any(plain.values()):
+        raise RuntimeError(f"{label}: launched {counts}, plain calls "
+                           f"{plain}; expected {expected}, no plain call")
+    return {"loss": loss.clone(), "gen": gen.get_state(), "counts": counts,
+            "grads": {n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None}}
+
+
+def same_step(a: dict, b: dict, label: str) -> dict:
+    """a and b (counted_step) in equal bits: the loss, the generator's
+    state and every gradient. A gradient that differs must lie within
+    1e-6 max(1, max|g|); returns {name: (err, bound)} of those."""
+    if not torch.equal(a["loss"], b["loss"]) \
+            or not torch.equal(a["gen"], b["gen"]) \
+            or a["grads"].keys() != b["grads"].keys():
+        raise RuntimeError(f"{label}: loss {float(a['loss'])} vs "
+                           f"{float(b['loss'])}, or the generators or the "
+                           f"gradient sets differ")
+    differ = {}
+    for n, g in a["grads"].items():
+        if not torch.equal(g, b["grads"][n]):
+            err = max_err(g, b["grads"][n])
+            bound = 1e-6 * max(1.0, float(g.abs().max()))
+            differ[n] = (err, bound)
+            if err > bound:
+                raise RuntimeError(f"{label}: {n} differs by {err:.3e} > "
+                                   f"{bound:.3e}")
+    return differ
+
+
+def timed_steps(model, batch, n: int) -> tuple:
+    """n bf16 steps of model after one warm-up, lr 0: ms per step (CUDA
+    events), the host's ms to enqueue each, and the peak memory allocated
+    over them."""
+    state, step, gen = train_step_state(model, 21)
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, host_ms = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        step(state, batch, gen)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms, host_ms, torch.cuda.max_memory_allocated()
+
+
+def ckpt_phase(sd, arch: str, device, expected: dict, expected_ck: dict,
+               card: str) -> dict:
+    """arch at bs32 128^2 bf16 (drop path 0.1, mixup on), with
+    use_checkpoint and without, on the same weights, batch and generator
+    state: the checkpointed step equals the unchecked one (`same_step`),
+    which also runs twice to tell nondeterminism from checkpointing; then
+    ms a step and peak memory both ways, in the order unchecked, checked,
+    checked, unchecked."""
+    from uformer_tpu_torch import get_arch
+    from uformer_tpu_torch.convert import load_numpy_state_dict
+
+    models = {ck: load_numpy_state_dict(get_arch({
+        "arch": arch, "train_ps": RES_TRAIN, "use_checkpoint": ck}), sd)
+        .to(device) for ck in (False, True)}
+    batch = train_batch(BATCH_TRAIN, 6, device)
+    torch.backends.cudnn.deterministic = True
+    plain_run = counted_step(models[False], batch, 11, expected, arch)
+    ck_run = counted_step(models[True], batch, 11, expected_ck,
+                          f"{arch} checkpointed")
+    again = counted_step(models[False], batch, 11, expected, arch)
+    torch.backends.cudnn.deterministic = False
+    differ = same_step(plain_run, ck_run, f"{arch} checkpointed")
+    unsteady = sorted(n for n in differ
+                      if not torch.equal(plain_run["grads"][n],
+                                         again["grads"][n]))
+    n_grads = len(plain_run["grads"])
+    print(f"  {arch} bs{BATCH_TRAIN} {RES_TRAIN}^2 bf16, drop path 0.1, "
+          f"mixup: checkpointed step against unchecked: loss "
+          f"{float(ck_run['loss']):.6f} and the generator's state equal "
+          f"bits, {n_grads - len(differ)} of {n_grads} gradients equal "
+          f"bits; launches {ck_run['counts']} against "
+          f"{plain_run['counts']}", flush=True)
+    if differ:
+        print(f"  {len(differ)} gradients within 1e-6 max(1, max|g|), "
+              f"{len(unsteady)} of them differ between two unchecked runs "
+              f"too: {sorted(differ)[:8]}", flush=True)
+    del plain_run["grads"], ck_run["grads"], again
+    times = {False: [], True: []}
+    host, peaks = copy.deepcopy(times), copy.deepcopy(times)
+    for ck in (False, True, True, False):
+        # the model timed alone on the card: its peak is the step's own
+        models[not ck].zero_grad(set_to_none=True)
+        models[not ck].cpu()
+        models[ck].to(device)
+        torch.cuda.empty_cache()
+        ms, host_ms, peak = timed_steps(models[ck], batch, N_CKPT_STEPS)
+        times[ck] += ms
+        host[ck] += host_ms
+        peaks[ck].append(peak)
+    med = {ck: float(np.median(v)) for ck, v in times.items()}
+    host_med = {ck: float(np.median(v)) for ck, v in host.items()}
+    peak = {ck: max(v) for ck, v in peaks.items()}
+    d_mib = (peak[True] - peak[False]) / 2**20
+    d_pct = 100.0 * (med[True] / med[False] - 1.0)
+    print(f"  {arch} step: unchecked {med[False]:.3f} ms (host enqueue "
+          f"{host_med[False]:.3f}), peak {peak[False] / 2**20:.1f} MiB; "
+          f"checkpointed {med[True]:.3f} ms (host enqueue "
+          f"{host_med[True]:.3f}), peak {peak[True] / 2**20:.1f} MiB: "
+          f"{d_pct:+.1f}% a step, {d_mib:+.1f} MiB (reckoned "
+          f"{CKPT_RECKONING['step_pct']} % and {CKPT_RECKONING['peak_mib']}"
+          f" MiB for Uformer_B)  [{card}]", flush=True)
+    del models
+    torch.cuda.empty_cache()
+    return {"launches": ck_run["counts"], "launches_unchecked":
+            plain_run["counts"], "grads": n_grads,
+            "grads_differ": {n: list(v) for n, v in differ.items()},
+            "grads_differ_unchecked_twice": unsteady,
+            "ms": {str(k): v for k, v in times.items()},
+            "host_ms": {str(k): v for k, v in host.items()},
+            "median_ms": {str(k): v for k, v in med.items()},
+            "host_median_ms": {str(k): v for k, v in host_med.items()},
+            "peak_bytes": {str(k): v for k, v in peak.items()},
+            "step_pct": d_pct, "peak_mib": d_mib}
+
+
+def eca_checks(device) -> tuple:
+    """LeFF with Eca1d (seeded weights, LN2 on, residual after the gate)
+    at ECA_SHAPES in fp32 and bf16: the forward through kernel 2 and the
+    gradients of x, every weight, the gate's conv and LN through kernel 7,
+    against the plain version under the phase's rules; one launch of each
+    kernel per kernel-path call, no plain call."""
+    from uformer_tpu_torch.convert import load_numpy_state_dict
+    from uformer_tpu_torch.models.layers import LeFF
+    from uformer_tpu_torch.ops import kernels as K
+
+    checks = Checks()
+    launches = dict.fromkeys(EXPECTED_LAUNCHES, 0)
+    gen = torch.Generator(device="cpu").manual_seed(SEED_ECA)
+    f32, b16 = torch.float32, torch.bfloat16
+    for shape in ECA_SHAPES:
+        C = shape[-1]
+        mod = LeFF(C, 4 * C, use_eca=True)
+        keys = [[k, list(v.shape)] for k, v in mod.named_parameters()]
+        load_numpy_state_dict(mod, golden_module().seeded_state_dict(
+            keys, SEED_ECA + C))
+        mod.to(device)
+        ln = [(1.0 + 0.05 * torch.randn(C, generator=gen)).to(device),
+              (0.02 * torch.randn(C, generator=gen)).to(device)]
+        what = f"eca {shape}"
+
+        def fwd(x, dt, plain):
+            with torch.no_grad():
+                return mod(x.to(dt), ln_s=ln[0], ln_b=ln[1], residual=True,
+                           plain=plain)
+
+        def grads(x, g, dt, plain):
+            xx = x.to(dt).requires_grad_(True)
+            lns = [t.clone().requires_grad_(True) for t in ln]
+            y = mod(xx, ln_s=lns[0], ln_b=lns[1], residual=True,
+                    plain=plain)
+            names = (["dx"] + [n for n, _ in mod.named_parameters()]
+                     + ["dln_s", "dln_b"])
+            return dict(zip(names, torch.autograd.grad(
+                y, [xx] + list(mod.parameters()) + lns, g.to(dt))))
+
+        x = torch.randn(shape, generator=gen).bfloat16().float().to(device)
+        g = torch.randn(shape, generator=gen).bfloat16().float().to(device)
+        K.reset_counts()
+        compare(checks, "leff", what, lambda x, dt: fwd(x, dt, False),
+                lambda x, dt: fwd(x, dt, True), x)
+        got, got16 = grads(x, g, f32, False), grads(x, g, b16, False)
+        torch.cuda.synchronize()
+        counts, plain = K.launch_counts(), K.plain_counts()
+        if counts["leff"] != 4 or counts["leff_bwd"] != 2 \
+                or any(plain.values()):
+            raise RuntimeError(f"{what}: launched {counts}, plain {plain}")
+        for k, v in counts.items():
+            launches[k] += v
+        grad_bound(checks, "leff_bwd", what, got, grads(x, g, f32, True),
+                   grads(x, g, b16, True), got16)
+        del mod, x, g, got, got16
+    torch.cuda.empty_cache()
+    return checks, launches
+
+
+def freeze_phase(sd, device, card: str) -> tuple:
+    """Uformer_B at bs2 128^2, bf16, with every `encoderlayer_` tensor
+    frozen: two steps at lr 2e-4 (cuDNN deterministic). The first step's
+    gradients equal, bit for bit, those of the same step of the unfrozen
+    model; after both the frozen tensors keep their bits and every other
+    tensor has moved; 40/40/40/40 launches a step."""
+    from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.utils.freeze import freeze, path_matches, \
+        trainable_parameters
+
+    batch = train_batch(BATCH_CHECK, 7, device)
+    frozen = freeze(build_model(sd, RES_TRAIN, device),
+                    lambda n: path_matches(n, FREEZE_PATTERN))
+    whole = build_model(sd, RES_TRAIN, device)
+    before = {n: p.detach().clone() for n, p in frozen.named_parameters()}
+    torch.backends.cudnn.deterministic = True
+    state, step, gen = train_step_state(frozen, 13, lr=2e-4)
+    runs = []
+    for i in range(2):
+        K.reset_counts()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        if K.launch_counts() != TRAIN_LAUNCHES or any(
+                K.plain_counts().values()):
+            raise RuntimeError(f"freeze: step {i} launched "
+                               f"{K.launch_counts()}")
+        runs.append({n: p.grad.clone() for n, p in frozen.named_parameters()
+                     if p.grad is not None})
+    ref = counted_step(whole, batch, 13, TRAIN_LAUNCHES, "freeze unfrozen",
+                       lr=2e-4)
+    torch.backends.cudnn.deterministic = False
+    n_frozen = n_moved = 0
+    for n, p in frozen.named_parameters():
+        if not p.requires_grad:
+            if n in runs[0] or not torch.equal(p.detach(), before[n]):
+                raise RuntimeError(f"freeze: frozen {n} moved")
+            n_frozen += 1
+            continue
+        if not torch.equal(runs[0][n], ref["grads"][n]):
+            raise RuntimeError(f"freeze: {n}'s gradient differs from the "
+                               f"unfrozen step's by "
+                               f"{max_err(runs[0][n], ref['grads'][n])}")
+        if torch.equal(p.detach(), before[n]):
+            raise RuntimeError(f"freeze: trainable {n} did not move")
+        n_moved += 1
+    if n_moved != len(trainable_parameters(frozen)) or not n_frozen:
+        raise RuntimeError("freeze: no tensor frozen")
+    print(f"  freeze {FREEZE_PATTERN}*: {n_frozen} tensors frozen (equal "
+          f"bits after 2 bf16 steps at bs{BATCH_CHECK}), {n_moved} moved, "
+          f"their first-step gradients equal bits to the unfrozen step's; "
+          f"{TRAIN_LAUNCHES['attention_image']}/{TRAIN_LAUNCHES['leff']}/"
+          f"{TRAIN_LAUNCHES['attention_bwd']}/{TRAIN_LAUNCHES['leff_bwd']} "
+          f"launches a step  [{card}]", flush=True)
+    del frozen, whole
+    torch.cuda.empty_cache()
+    return {"frozen": n_frozen, "moved": n_moved}, \
+        {k: 2 * v for k, v in TRAIN_LAUNCHES.items()}
+
+
+def family_ms(summary: dict, kernel: str) -> float:
+    """A profile summary's ms of the CUDA functions of `kernel`."""
+    names = KERNEL_FAMILIES[kernel]
+    return sum(ms for fam, ms in summary.items()
+               if fam.split("::")[-1] in names)
+
+
+def flops_profile_phase(tmp: Path, sd, device, totals: dict, fwd: dict,
+                        serve: dict, card: str) -> dict:
+    """Serve B again: model_complexity at 256^2 (batch 1) over phase 6's
+    forward time, as TFLOP/s and a share of the bf16 peak (the MFU the
+    first benchmark will report); one forward under utils.debug.profile,
+    whose summary must name the stage, LeFF and attention-image kernels
+    and sum them within 10% of phase 6's CUDA-event times; a NaN fed to a
+    card forward under enable_nan_checks raises FloatingPointError naming
+    a module."""
+    from uformer_tpu_torch.restore import Restorer
+    from uformer_tpu_torch.utils import debug
+    from uformer_tpu_torch.utils.flops import model_complexity
+
+    restorer = Restorer(build_model(sd, RES_SERVE, device), torch.bfloat16,
+                        device)
+    t0 = time.perf_counter()
+    info = model_complexity(restorer.model, (1, RES_SERVE, RES_SERVE, 3))
+    count_s = time.perf_counter() - t0
+    flop = BATCH_SERVE * info["gflops"] * 1e9
+    tflops = flop / (fwd["kernel_ms"] * 1e-3) / 1e12
+    tflops_req = flop / (serve["median_ms"] * 1e-3) / 1e12
+    mfu = 100.0 * tflops * 1e12 / PEAK_BF16
+    print(f"  Uformer_B at {RES_SERVE}^2: {info['params_m']:.3f} M "
+          f"parameters, {info['gflops']:.3f} GFLOP and {info['bytes_gb']:.3f}"
+          f" GB (unfused) a forward of one image (counted in {count_s:.1f} "
+          f"s); serve B bs{BATCH_SERVE}: {fwd['kernel_ms']:.3f} ms a forward "
+          f"(phase 6) = {tflops:.2f} TFLOP/s, {mfu:.2f}% of "
+          f"{PEAK_BF16 / 1e12:.0f} TFLOP/s; per request "
+          f"({serve['median_ms']:.3f} ms) {tflops_req:.2f} TFLOP/s  "
+          f"[{card}]", flush=True)
+
+    x = torch.rand(BATCH_SERVE, RES_SERVE, RES_SERVE, 3,
+                   generator=torch.Generator().manual_seed(3))
+    restorer(x)
+    torch.cuda.synchronize()
+    trace_dir = tmp / "trace"
+    with debug.profile(str(trace_dir)):
+        restorer(x)
+        torch.cuda.synchronize()
+    summary = debug.summarize_trace(str(trace_dir), top=50)
+    for fam, ms in list(summary.items())[:10]:
+        print(f"    {ms:9.3f} ms  {fam}")
+    prof = {k: family_ms(summary, k) for k in KERNEL_FAMILIES}
+    events = {k: totals[k]["ms"] for k in KERNEL_FAMILIES}
+    missing = [k for k, v in prof.items() if v <= 0.0]
+    p_sum, e_sum = sum(prof.values()), sum(events.values())
+    print(f"  profile: stage {prof['stage']:.3f}, leff {prof['leff']:.3f}, "
+          f"attention_image {prof['attention_image']:.3f} ms (sum "
+          f"{p_sum:.3f}) against phase 6's CUDA events {e_sum:.3f} ms "
+          f"({100 * (p_sum / e_sum - 1):+.1f}%)  [{card}]", flush=True)
+    if missing or abs(p_sum - e_sum) > 0.1 * e_sum:
+        raise RuntimeError(f"profile: missing {missing}, or {p_sum:.3f} ms "
+                           f"not within 10% of {e_sum:.3f}")
+
+    bad = x.clone()
+    bad[0, 17, 33, 1] = float("nan")
+    try:
+        debug.enable_nan_checks()
+        restorer(bad)
+    except FloatingPointError as exc:
+        named = str(exc)
+    else:
+        raise RuntimeError("enable_nan_checks: a NaN input did not raise")
+    finally:
+        debug.enable_nan_checks(False)
+    if "input_proj" not in named:
+        raise RuntimeError(f"enable_nan_checks named {named!r}")
+    print(f"  NaN guard on the card: {named}", flush=True)
+    del restorer
+    torch.cuda.empty_cache()
+    return {"complexity": info, "tflops": tflops, "mfu_pct": mfu,
+            "tflops_per_request": tflops_req, "profile_top": summary,
+            "profile_ms": prof, "event_ms": events, "nan_error": named}
+
+
+def models_phase(tmp: Path, sd, sd_t, device, totals: dict, fwd: dict,
+                 serve: dict, card: str) -> tuple:
+    """Phase 16. Returns the checks, the summary and each path's
+    launches. Its peaks are torch.cuda.max_memory_allocated, which counts
+    what earlier phases still hold: that base is printed first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = Checks()
+    summary = {"base_bytes": torch.cuda.memory_allocated(device)}
+    launches = {}
+    print(f"  {summary['base_bytes'] / 2**20:.1f} MiB allocated at the "
+          f"phase's start (every peak below includes it)", flush=True)
+    sd_u = unet_weights()
+    restorer, _, summary["serve_unet"], launches["serve_unet"], uchecks = \
+        serve_phase(lambda: build_unet(sd_u, device), device, NO_LAUNCHES,
+                    "serve UNet")
+    uchecks.raise_if_failed("serve UNet")
+    checks.rows += uchecks.rows
+    su = summary["serve_unet"]
+    print(f"  serve UNet bs{BATCH_SERVE} {RES_SERVE}^2 bf16: "
+          f"{su['median_ms']:.3f} ms a request, {su['mp_per_s']:.2f} MP/s, "
+          f"peak {su['max_memory_allocated_bytes'] / 2**20:.1f} MiB  "
+          f"[{card}]", flush=True)
+    summary["unet_cli"] = unet_eval_cli(tmp / "unet", sd_u, restorer, card)
+    del restorer
+    torch.backends.cudnn.deterministic = True
+    tchecks = whole_step_checks(lambda: build_unet(sd_u, device).train(),
+                                device, BATCH_TRAIN, "train UNet",
+                                NO_LAUNCHES)
+    torch.backends.cudnn.deterministic = False
+    tchecks.raise_if_failed("train UNet")
+    checks.rows += tchecks.rows
+    model, summary["train_unet"] = train_timing(
+        lambda: build_unet(sd_u, device), device, NO_LAUNCHES, "train UNet")
+    del model
+    torch.cuda.empty_cache()
+    tu = summary["train_unet"]
+    print(f"  train UNet bs{BATCH_TRAIN} {RES_TRAIN}^2 bf16: "
+          f"{tu['kernel_ms_median']:.3f} ms a step, peak "
+          f"{tu['peak_bytes'] / 2**20:.1f} MiB  [{card}]", flush=True)
+
+    summary["ckpt"] = ckpt_phase(sd, "Uformer_B", device, TRAIN_LAUNCHES,
+                                 CKPT_LAUNCHES, card)
+    launches["train_ckpt"] = summary["ckpt"]["launches"]
+    summary["ckpt_t"] = ckpt_phase(sd_t, "Uformer_T", device,
+                                   T_TRAIN_LAUNCHES, T_CKPT_LAUNCHES, card)
+    launches["train_t_ckpt"] = summary["ckpt_t"]["launches"]
+
+    echecks, launches["eca"] = eca_checks(device)
+    echecks.raise_if_failed("LeFF with Eca1d")
+    checks.rows += echecks.rows
+    summary["freeze"], launches["freeze"] = freeze_phase(sd, device, card)
+    summary["flops_profile"] = flops_profile_phase(tmp, sd, device, totals,
+                                                   fwd, serve, card)
+    return checks, summary, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", type=Path, help="write the full report here")
@@ -2787,6 +3308,12 @@ def run(device, card: str, json_path) -> list:
             Path(tmp), device, card, train["kernel_ms_median"])
     lchecks.raise_if_failed("train loop")
 
+    phase("models")
+    with tempfile.TemporaryDirectory() as tmp:
+        mchecks, models, model_launches = models_phase(
+            Path(tmp), sd, sd_t, device, totals, fwd, serve, card)
+    mchecks.raise_if_failed("models")
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas,
@@ -2809,7 +3336,8 @@ def run(device, card: str, json_path) -> list:
               "train_t_timing": ttrows, "train_t_totals": tttotals,
               "train_mlp_cross_checks": mcchecks.rows,
               "eval_checks": echecks.rows, "eval": evals,
-              "train_loop_checks": lchecks.rows, "train_loop": loop}
+              "train_loop_checks": lchecks.rows, "train_loop": loop,
+              "models_checks": mchecks.rows, "models": models}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -2830,7 +3358,7 @@ def run(device, card: str, json_path) -> list:
     for name, (source, replaces) in KERNELS.items():
         rows_of = [r for r in kchecks.rows + t_kchecks.rows + ai_checks.rows
                    + tkchecks.rows + ttkchecks.rows + dw_checks.rows
-                   + tile_checks.rows if r["kernel"] == name]
+                   + tile_checks.rows + mchecks.rows if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
         # the first timing that has the kernel gives ms and its bound
@@ -2843,7 +3371,9 @@ def run(device, card: str, json_path) -> list:
                               + kernel_count(bc_launches, name)
                               + train_t_launches[name]
                               + kernel_count(eval_launches, name)
-                              + kernel_count(loop_launches, name)),
+                              + kernel_count(loop_launches, name)
+                              + sum(kernel_count(c, name)
+                                    for c in model_launches.values())),
                  "launches_serve": kernel_count(launches, name),
                  "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
@@ -2852,6 +3382,8 @@ def run(device, card: str, json_path) -> list:
                      serve_bc["launches_per_request"][0], name),
                  "launches_eval": kernel_count(eval_launches, name),
                  "launches_train_loop": kernel_count(loop_launches, name),
+                 **{f"launches_{path}": kernel_count(c, name)
+                    for path, c in model_launches.items()},
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],

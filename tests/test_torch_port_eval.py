@@ -478,12 +478,14 @@ def _cli_args(tmp_path, *extra):
             str(tmp_path / "out"), *extra]
 
 
-@pytest.mark.parametrize("extra, item", [
+@pytest.mark.parametrize("extra, error, item", [
     (["--weights", "w.pth", "--mesh_data", "2", "--tile", "256"],
-     "queue 1 item 4"),
-    (["--weights", "checkpoints/model_best"], "queue 1 item 5")])
-def test_cli_refuses_what_waits(tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
+     NotImplementedError, "queue 1 item 4"),
+    # an orbax directory: the message names the route to a .pth
+    (["--weights", "checkpoints/model_best"], ValueError,
+     "torch_exporter.py:save_torch_checkpoint")])
+def test_cli_refuses_what_waits(tmp_path, extra, error, item):
+    with pytest.raises(error, match=item):
         cli.main(_cli_args(tmp_path, "--device", "cpu", *extra))
 
 

@@ -104,8 +104,13 @@ def test_registry_ports_the_uformer_family():
         .conv.use_shift is False
     t = get_arch({"arch": "Uformer_T", "train_ps": 256})
     assert t.encoderlayer_0.dim == 16 and t.decoderlayer_0.num_heads == 16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch({"arch": "UNet"})
+    # the rest of the JAX registry: UNet at embed_dim, and checkpointing
+    unet = get_arch({"arch": "UNet", "embed_dim": 16})
+    assert type(unet).__name__ == "UNet" and unet.ConvBlock5.conv11 \
+        .out_channels == 16 * 16
+    ck = get_arch({"arch": "Uformer_B", "use_checkpoint": True})
+    assert all(layer.use_checkpoint for layer in (
+        ck.encoderlayer_0, ck.conv, ck.decoderlayer_3))
     with pytest.raises(ValueError):
         get_arch({"arch": "nope"})
 

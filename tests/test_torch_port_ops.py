@@ -97,7 +97,8 @@ def test_depthwise_conv():
 
 def test_import_leaves_jax_out():
     """The port imports torch and never jax (fresh interpreter), the eval
-    layer, the training entry point and their CLIs included."""
+    layer, the training entry point and their CLIs, UNet, the auxiliary
+    blocks and the utilities included."""
     code = ("import sys, uformer_tpu_torch, uformer_tpu_torch.restore, "
             "uformer_tpu_torch.convert, uformer_tpu_torch.eval, "
             "uformer_tpu_torch.config, "
@@ -106,7 +107,9 @@ def test_import_leaves_jax_out():
                 "padding", "realblur", "sidd"))
             + ", " + ", ".join(f"uformer_tpu_torch.{m}" for m in (
                 "data.datasets", "data.native", "data.patches",
-                "train.checkpoints", "train.trainer", "train.cli"))
+                "train.checkpoints", "train.trainer", "train.cli",
+                "models.unet", "models.extras", "utils.freeze",
+                "utils.flops", "utils.debug", "model_info"))
             + "; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'uformer_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -296,15 +296,16 @@ def test_uformer_t_routes_the_same_at_256():
 
 
 def test_registry_refuses_what_the_kernels_do_not_take():
-    """The registry refuses what is not ported (UNet, gradient
-    checkpointing). It builds Uformer at any geometry for the CPU; the
-    card's kernel path refuses a head dim or window its kernels do not
-    take (`blocks_without_backward_kernel`, naming the ROADMAP item)."""
+    """The registry builds every arch of the JAX registry: UNet (no LeWin
+    block, so nothing for the kernels to refuse) and checkpointed models
+    too. It builds Uformer at any geometry for the CPU; the card's kernel
+    path refuses a head dim or window its kernels do not take
+    (`blocks_without_backward_kernel`, naming the ROADMAP item)."""
     assert get_arch({"arch": "Uformer_T"}).encoderlayer_0.dim == 16
-    for opt in ({"arch": "UNet"},
-                {"arch": "Uformer_B", "use_checkpoint": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_arch(opt)
+    assert blocks_without_backward_kernel(get_arch({"arch": "UNet"})) == []
+    ck = get_arch({"arch": "Uformer_T", "use_checkpoint": True})
+    assert ck.encoderlayer_0.use_checkpoint and \
+        blocks_without_backward_kernel(ck) == []
     for opt in ({"arch": "Uformer", "embed_dim": 64},
                 {"arch": "Uformer", "embed_dim": 16, "win_size": 4}):
         model = get_arch(opt)

@@ -10,8 +10,8 @@ group, `gpu`) are accepted and unused. `add_options_to_parser` and
 
 `check_supported` says what the port runs of the JAX-only options:
 `attn_backend` "auto" or "pallas" runs the kernels on a card tensor,
-"jnp" the kernels' plain versions; mesh sharding and gradient
-checkpointing are not ported and raise.
+"jnp" the kernels' plain versions; `use_checkpoint` recomputes each
+block in the backward; mesh sharding is not ported and raises.
 """
 
 from __future__ import annotations
@@ -120,10 +120,6 @@ def check_supported(opt: Options) -> None:
             f"mesh_data {opt.mesh_data}, mesh_model {opt.mesh_model}: "
             f"sharded training is not ported yet (ROADMAP.md, port queue 1 "
             f"item 4, parallel)")
-    if opt.use_checkpoint:
-        raise NotImplementedError(
-            "use_checkpoint: gradient checkpointing is not ported yet "
-            "(ROADMAP.md, port queue 1 item 3)")
     torch_dtype(opt)
     runs_plain(opt)
 

@@ -27,7 +27,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from uformer_tpu_torch import get_arch
-from uformer_tpu_torch.convert import load_checkpoint
+from uformer_tpu_torch.convert import ORBAX_ROUTE, load_checkpoint
 from uformer_tpu_torch.eval.padding import tiled_inference
 from uformer_tpu_torch.restore import Restorer
 
@@ -89,11 +89,7 @@ def build_restorer(args) -> Callable:
             "--mesh_data: sharded eval is not ported yet (ROADMAP.md, port "
             "queue 1 item 4, parallel)")
     if not args.weights.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"--weights {args.weights}: only reference .pth checkpoints "
-            f"load into the port; orbax checkpoint directories wait for "
-            f"ROADMAP.md, port queue 1 item 5 (utils: JAX/orbax "
-            f"checkpoints)")
+        raise ValueError(f"--weights {args.weights}: {ORBAX_ROUTE}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

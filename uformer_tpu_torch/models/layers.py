@@ -40,8 +40,11 @@ PyTorch under autograd, as in JAX. The depthwise kernel has no backward,
 in JAX either (`train.train_step` refuses a conv-projection model on the
 card). In training a block with a drop-path rate above 0 runs its
 kernels without the residual and adds x + DropPath(y) outside
-(`layers.py:780-794`, `:860-871`). The convs around the stages stay
-cuDNN (`F.conv2d`).
+(`layers.py:780-794`, `:860-871`). With `use_checkpoint`, in training,
+each block runs under `torch.utils.checkpoint` and its forward kernels
+run again in the backward (`BasicLayer`). `LeFF` takes the optional
+`Eca1d` gate after its kernel (no shipped arch sets it). The convs around
+the stages stay cuDNN (`F.conv2d`).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from uformer_tpu_torch.device import to_device_async
 from uformer_tpu_torch.ops.attention import window_attention
@@ -121,24 +125,33 @@ class DropPath(nn.Module):
     then divided by it. The mask is drawn from the generator passed in,
     never from the global RNG; a generator on the CPU serves tensors on any
     device, its masks copied without a stream sync. Identity in eval and
-    at rate 0."""
+    at rate 0. `draw` draws a mask alone, for a caller that hands it in
+    later (`keep`): a checkpointed block's recompute must see the masks of
+    its first forward (`BasicLayer`)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def draw(self, batch: int, device: torch.device,
+             generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+        """The (batch,) keep mask on `device`, or None where inactive."""
         if not self.training or self.rate == 0.0:
-            return x
+            return None
         if generator is None:
             raise ValueError("DropPath in training needs a torch.Generator")
-        keep = 1.0 - self.rate
-        u = torch.rand(x.shape[0], generator=generator,
-                       device=generator.device)
-        mask = to_device_async(u < keep, x.device) \
-            .reshape((-1,) + (1,) * (x.dim() - 1))
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        u = torch.rand(batch, generator=generator, device=generator.device)
+        return to_device_async(u < 1.0 - self.rate, device)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if keep is None:
+            keep = self.draw(x.shape[0], x.device, generator)
+        mask = keep.reshape((-1,) + (1,) * (x.dim() - 1))
+        return torch.where(mask, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -149,18 +162,45 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-class LeFF(nn.Module):
-    """Locally-enhanced FFN parameters (reference model.py:654-699):
-    Linear-GELU -> 3x3 depthwise conv-GELU -> Linear. Runs inside
-    LeWinBlock through the LeFF or stage kernel."""
+class Eca1d(nn.Module):
+    """Efficient channel attention over NHWC maps (reference eca_layer_1d,
+    model.py:306-342; JAX layers.py:108-127): the mean over the spatial
+    axes, a k-tap 1-D conv across channels in float32 without bias, a
+    sigmoid gate cast to x's dtype. `conv.weight` is the reference's
+    Conv1d weight, (1, 1, k)."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, k_size: int = 3):
+        super().__init__()
+        self.conv = nn.Conv1d(1, 1, k_size, padding=(k_size - 1) // 2,
+                              bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        C = x.shape[-1]
+        y = x.mean(dim=tuple(range(1, x.dim() - 1)))  # (B, C), x's dtype
+        y = F.conv1d(y.float()[:, None], self.conv.weight.float(),
+                     padding=self.conv.padding)[:, 0]
+        gate = torch.sigmoid(y).to(x.dtype)
+        return x * gate.reshape((-1,) + (1,) * (x.dim() - 2) + (C,))
+
+
+class LeFF(nn.Module):
+    """Locally-enhanced FFN (reference model.py:654-699; JAX
+    layers.py:130-217): Linear-GELU -> 3x3 depthwise conv-GELU -> Linear
+    through the LeFF kernel (`leff_ad`, differentiated by the LeFF
+    backward kernel) or its plain version, then the optional `Eca1d`
+    gate. With the gate the kernel runs without its residual and the
+    residual is added after the gate (JAX's `k_res`, layers.py:175); the
+    gate is differentiated by autograd. LeWinBlock builds it without the
+    gate, as JAX's does."""
+
+    def __init__(self, dim: int, hidden_dim: int, use_eca: bool = False):
         super().__init__()
         self.linear1 = nn.Sequential(nn.Linear(dim, hidden_dim), nn.GELU())
         self.dwconv = nn.Sequential(
             nn.Conv2d(hidden_dim, hidden_dim, 3, 1, 1, groups=hidden_dim),
             nn.GELU())
         self.linear2 = nn.Sequential(nn.Linear(hidden_dim, dim))
+        self.eca = Eca1d() if use_eca else None
 
     def kernel_params(self, dtype: torch.dtype) -> Params:
         l1, dw, l2 = self.linear1[0], self.dwconv[0], self.linear2[0]
@@ -174,6 +214,23 @@ class LeFF(nn.Module):
             "w2": l2.weight.t().to(dtype).contiguous(),
             "b2": l2.bias.float(),
         }
+
+    def forward(self, x: torch.Tensor, p: Optional[Params] = None,
+                ln_s: Optional[torch.Tensor] = None,
+                ln_b: Optional[torch.Tensor] = None, residual: bool = False,
+                plain: bool = False) -> torch.Tensor:
+        """x (B, H, W, C) -> [x +] LeFF(LN?(x)) [gated], in x's dtype; `p`
+        the kernel weights (`kernel_params(x.dtype)` when None)."""
+        if p is None:
+            p = self.kernel_params(x.dtype)
+        leff = leff_reference if plain else leff_ad
+        k_res = residual and self.eca is None
+        y = leff(x, p["w1"], p["b1"], p["wd"], p["bd"], p["w2"], p["b2"],
+                 ln_s=ln_s, ln_b=ln_b, residual=k_res)
+        if self.eca is None:
+            return y
+        y = self.eca(y)
+        return x + y if residual else y
 
 
 class Mlp(nn.Module):
@@ -457,14 +514,23 @@ class LeWinBlock(_Prepared, nn.Module):
                               table=self.cross_modulator.weight.to(dtype))
         return p
 
+    def draw_drop_path(self, x: torch.Tensor,
+                       generator: Optional[torch.Generator]) -> tuple:
+        """The keep masks of both DropPaths for input x, drawn in the order
+        the forward draws them (None where inactive)."""
+        return tuple(dp.draw(x.shape[0], x.device, generator)
+                     for dp in (self.drop_path1, self.drop_path2))
+
     def forward(self, x: torch.Tensor, plain: bool = False,
                 generator: Optional[torch.Generator] = None,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                keep: Optional[tuple] = None) -> torch.Tensor:
         """plain=True runs the kernels' plain versions under torch autograd
         (the comparison path); otherwise the kernels, whose backward is a
-        kernel too. `generator` feeds DropPath in training. `mask`: the
-        input mask, (B, 1, Hm, Wm) or (B, Hm, Wm, 1), on x's device."""
-        leff = leff_reference if plain else leff_ad
+        kernel too. `generator` feeds DropPath in training, or `keep` hands
+        in both DropPath masks (`draw_drop_path`). `mask`: the input mask,
+        (B, 1, Hm, Wm) or (B, Hm, Wm, 1), on x's device."""
+        keep1, keep2 = keep if keep is not None else (None, None)
         # active DropPath scales the branch: the residual stays outside
         res = not (self.training and self.drop_path1.rate > 0.0)
         p = self.params_for(x.dtype, x.device)
@@ -484,19 +550,18 @@ class LeWinBlock(_Prepared, nn.Module):
                 win=self.win_size, shift=self.shift_size,
                 scale=self.attn.scale, num_heads=self.num_heads,
                 residual=res)
-            x = y if res else x + self.drop_path1(y, generator)
+            x = y if res else x + self.drop_path1(y, generator, keep1)
         elif mask is None and self.attn.token_projection == "linear":
             x = x + self.drop_path1(self.windowed_attention(x, p, plain),
-                                    generator)
+                                    generator, keep1)
         else:
             x = x + self.drop_path1(
-                self.unfused_attention(x, p, plain, mask), generator)
+                self.unfused_attention(x, p, plain, mask), generator, keep1)
         if self.token_mlp not in LEFF_MLPS:
             y = self.mlp(layer_norm(x, p["ln2_s"], p["ln2_b"]), p)
-            return x + self.drop_path2(y, generator)
-        y = leff(x, p["w1"], p["b1"], p["wd"], p["bd"], p["w2"], p["b2"],
-                 ln_s=p["ln2_s"], ln_b=p["ln2_b"], residual=res)
-        return y if res else x + self.drop_path2(y, generator)
+            return x + self.drop_path2(y, generator, keep2)
+        y = self.mlp(x, p, p["ln2_s"], p["ln2_b"], residual=res, plain=plain)
+        return y if res else x + self.drop_path2(y, generator, keep2)
 
     def windowed_attention(self, x: torch.Tensor, p: Params,
                            plain: bool = False) -> torch.Tensor:
@@ -561,7 +626,19 @@ class BasicLayer(_Prepared, nn.Module):
     """Stage of `depth` LeWin blocks with alternating shift (reference
     BasicUformerLayer, model.py:1013-1066). Window and shift come from the
     configured resolution (`uformer_tpu` layers.py:1019-1024): at or below
-    the window the stage runs one window, unshifted."""
+    the window the stage runs one window, unshifted.
+
+    use_checkpoint (`uformer_tpu` layers.py:1014-1017, policy
+    nothing_saveable, per block): in training with grad enabled each block
+    runs under `torch.utils.checkpoint.checkpoint(use_reentrant=False)`,
+    keeping only its input; the backward recomputes the block's forward,
+    kernels included (their autograd Functions save through
+    save_for_backward, which the checkpoint frees and recomputes). The
+    checkpoint restores only the global RNGs, not a torch.Generator, so
+    each block's DropPath masks are drawn before its checkpoint, in the
+    order an unchecked block draws them, and handed in: the recompute
+    sees the first forward's masks, and the generator ends the step where
+    an unchecked step leaves it. Eval runs as without it."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, win_size: int,
                  resolution: int, mlp_ratio: float = 4.0,
@@ -569,10 +646,10 @@ class BasicLayer(_Prepared, nn.Module):
                  shift_flag: bool = True, modulator: bool = False,
                  drop_path: Sequence[float] = (),
                  token_projection: str = "linear", token_mlp: str = "leff",
-                 cross_modulator: bool = False):
+                 cross_modulator: bool = False, use_checkpoint: bool = False):
         super().__init__()
         self.dim, self.num_heads, self.win_size = dim, num_heads, win_size
-        self.resolution = resolution
+        self.resolution, self.use_checkpoint = resolution, use_checkpoint
         self.has_mod = modulator
         self.use_shift = shift_flag and resolution > win_size
         win = min(resolution, win_size)
@@ -624,8 +701,16 @@ class BasicLayer(_Prepared, nn.Module):
             return stage(x, p, scale=self.blocks[0].attn.scale,
                          num_heads=self.num_heads, use_shift=self.use_shift,
                          has_mod=self.has_mod)
+        checkpointed = (self.use_checkpoint and self.training
+                        and torch.is_grad_enabled())
         for blk in self.blocks:
-            x = blk(x, plain, generator, mask)
+            if checkpointed:
+                keep = blk.draw_drop_path(x, generator)
+                # no generator inside: the recompute cannot draw
+                x = checkpoint(blk, x, plain, None, mask, keep,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = blk(x, plain, generator, mask)
         return x
 
 

@@ -1,11 +1,14 @@
 """Named architectures, counterpart of `uformer_tpu/models/registry.py`.
 
-This port has the Uformer family with linear projection and LeFF:
-Uformer_T, Uformer_S, Uformer_S_noshift, Uformer_B, Uformer_B_fastleff,
-and Uformer at any embed dim and window. Every one builds and runs on the
-CPU (the kernels' plain versions); on the card the kernels take window 8
-and head dim 16 or 32 (head dim is the embed dim in this family), and
-their wrappers raise before any launch at other geometries. `img_size` is
+Every arch of the JAX registry: UNet (the pure-conv baseline, at
+`embed_dim`, default 32) and the Uformer family with linear projection
+and LeFF: Uformer_T, Uformer_S, Uformer_S_noshift, Uformer_B,
+Uformer_B_fastleff, and Uformer at any embed dim and window. Every one
+builds and runs on the CPU (the kernels' plain versions); on the card the
+kernels take window 8 and head dim 16 or 32 (head dim is the embed dim in
+this family), and their wrappers raise before any launch at other
+geometries. `use_checkpoint` recomputes each Uformer block in the
+backward (UNet ignores it, as in JAX). `img_size` is
 the reference's `--train_ps`: it fixes the construction-time window and
 shift choices only. No arch sets the conv token projection, Mlp or the
 cross-modulator, in the JAX registry either: build those through
@@ -17,15 +20,13 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch import nn
 
 from uformer_tpu_torch.models.uformer import Uformer
+from uformer_tpu_torch.models.unet import UNet
 
 _B_DEPTHS = (1, 2, 8, 8, 2, 8, 8, 2, 1)
 _HEADS = (1, 2, 4, 8, 16, 16, 8, 4, 2)  # head dim = embed dim in every stage
-
-# the other reference archs, ported with ROADMAP.md port queue 1 item 3
-# ("Remaining architectures and blocks")
-NOT_PORTED = ("UNet",)
 
 
 def arch_config(opt: Dict[str, Any]) -> Dict[str, Any]:
@@ -51,30 +52,24 @@ def arch_config(opt: Dict[str, Any]) -> Dict[str, Any]:
                 depths=depths, num_heads=_HEADS, win_size=win, mlp_ratio=4.0,
                 modulator=True, shift_flag=shift, dd_in=opt.get("dd_in", 3),
                 drop_path_rate=opt.get("drop_path_rate", 0.1),
-                dtype=opt.get("dtype", torch.float32))
+                dtype=opt.get("dtype", torch.float32),
+                use_checkpoint=bool(opt.get("use_checkpoint", False)))
 
 
-ARCHS = ("Uformer", "Uformer_T", "Uformer_S", "Uformer_S_noshift",
+ARCHS = ("UNet", "Uformer", "Uformer_T", "Uformer_S", "Uformer_S_noshift",
          "Uformer_B", "Uformer_B_fastleff")
 
 
-def get_arch(opt) -> Uformer:
+def get_arch(opt) -> nn.Module:
     """Build a model from an options mapping or object with `.arch`,
     `.train_ps`, `.embed_dim`, `.win_size`, `.dd_in`, `.drop_path_rate`,
-    `.dtype` (and `.use_checkpoint`, which raises: gradient checkpointing
-    is not ported yet). Its weights are torch's defaults: load trained or
-    seeded ones (`convert.load_numpy_state_dict`)."""
+    `.dtype` and `.use_checkpoint`. Its weights are torch's defaults: load
+    trained or seeded ones (`convert.load_numpy_state_dict`)."""
     if not isinstance(opt, dict):
         opt = {k: getattr(opt, k) for k in (
             "arch", "train_ps", "embed_dim", "win_size", "dd_in",
             "drop_path_rate", "dtype", "use_checkpoint") if hasattr(opt, k)}
-    arch = opt.get("arch", "Uformer_B")
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet: ROADMAP.md, port queue 1 item 3 "
-            f"(remaining architectures and blocks)")
-    if opt.get("use_checkpoint"):
-        raise NotImplementedError(
-            "use_checkpoint: gradient checkpointing is not ported yet "
-            "(ROADMAP.md, port queue 1 item 3)")
+    if opt.get("arch") == "UNet":  # reference model_utils.py:62-63
+        return UNet(dim=opt.get("embed_dim", 32),
+                    dtype=opt.get("dtype", torch.float32))
     return Uformer(**arch_config(opt))

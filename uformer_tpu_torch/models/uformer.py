@@ -8,7 +8,8 @@ in float32 when dd_in == 3. The stochastic-depth schedule is the
 reference's (`uformer.py:54-66`); the rates take effect in training only
 (`model.train()`). `token_projection` ("linear" or "conv"), `token_mlp`
 ("leff", "fastleff", "mlp" or "ffn") and `cross_modulator` are the
-reference's options (`uformer_tpu` uformer.py:45-49).
+reference's options (`uformer_tpu` uformer.py:45-49). `use_checkpoint`
+recomputes each block's forward in the backward (`BasicLayer`).
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ class Uformer(nn.Module):
                  token_projection: str = "linear", token_mlp: str = "leff",
                  cross_modulator: bool = False,
                  drop_path_rate: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 use_checkpoint: bool = False):
         super().__init__()
         E = embed_dim
         self.dd_in = dd_in
@@ -54,7 +56,8 @@ class Uformer(nn.Module):
         def stage(k, dim, reso, mod=False, cross=False):
             return BasicLayer(dim, depths[k], num_heads[k], win_size, reso,
                               mlp_ratio, qkv_bias, qk_scale, shift_flag, mod,
-                              rates[k], token_projection, token_mlp, cross)
+                              rates[k], token_projection, token_mlp, cross,
+                              use_checkpoint)
 
         self.input_proj = InputProj(dd_in, E)
         self.output_proj = OutputProj(2 * E, in_chans)

@@ -10,8 +10,9 @@ JAX package saves it, so that resume continues the MixUp gate and the LR
 from the true position. Loads use `torch.load(weights_only=True)`: tensors
 and plain containers only (the AdamW state_dict is such).
 
-Divergence: the JAX package saves orbax directories; orbax checkpoints
-into the port wait for ROADMAP.md port queue 1 item 5.
+Divergence: the JAX package saves orbax directories, which do not load
+here; `convert.ORBAX_ROUTE` says how to turn one into a `.pth` in the JAX
+environment.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from uformer_tpu_torch.convert import StateDict, load_pth
+from uformer_tpu_torch.convert import ORBAX_ROUTE, StateDict, load_pth
 
 _PENDING: Optional[Future] = None
 _PENDING_LOCK = threading.Lock()
@@ -149,12 +150,10 @@ def load_params(path: str, arch: str = "Uformer_B") -> StateDict:
     """The weights of a reference `.pth` (the port's, or a released one,
     the DataParallel `module.` prefix stripped) as a numpy state_dict
     under the reference names (`convert.load_pth`); `arch` is accepted
-    for the JAX package's signature. Orbax directories raise."""
+    for the JAX package's signature. An orbax directory raises ValueError
+    naming the route to a `.pth` (`convert.ORBAX_ROUTE`)."""
     if not path.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"{path}: only reference .pth checkpoints load into the port; "
-            f"orbax checkpoint directories wait for ROADMAP.md, port queue "
-            f"1 item 5")
+        raise ValueError(f"{path}: {ORBAX_ROUTE}")
     wait_for_saves()
     return load_pth(path)
 

@@ -9,10 +9,11 @@ use the model's no-decay sets); optional global-norm clipping. MixUp runs
 once the epoch passes `mixup_after_epoch`. On the card the kernel path
 trains every linear-projection model at window 8 and head dim 16 or 32
 (Uformer_B, Uformer_T and the rest of the registry; LeFF or Mlp, with or
-without a cross-modulator): the attention-image, attention-block and
-LeFF kernels and their backward kernels. It refuses any other model
-(conv projection, other windows or head dims) before the step runs; no
-plain version stands in on the card.
+without a cross-modulator, with or without `use_checkpoint`): the
+attention-image, attention-block and LeFF kernels and their backward
+kernels; UNet trains on cuDNN alone. It refuses any other model (conv
+projection, other windows or head dims) before the step runs; no plain
+version stands in on the card.
 """
 
 from __future__ import annotations
@@ -63,8 +64,11 @@ def make_optimizer(params: Iterable[torch.Tensor], lr_schedule: Schedule,
                    eps: float = 1e-8,
                    grad_clip: Optional[float] = None) -> AdamW:
     """AdamW of the reference recipe (lr from the schedule, betas
-    (0.9, 0.999), eps 1e-8, weight decay 0.02 on all parameters)."""
-    return AdamW(params, lr_schedule, weight_decay, betas, eps, grad_clip)
+    (0.9, 0.999), eps 1e-8, weight decay 0.02 on all parameters) over the
+    trainable ones: a parameter frozen by `utils.freeze.freeze`
+    (requires_grad False) gets no update and no weight decay."""
+    return AdamW([p for p in params if p.requires_grad], lr_schedule,
+                 weight_decay, betas, eps, grad_clip)
 
 
 def blocks_without_backward_kernel(model: nn.Module) -> List[str]:
