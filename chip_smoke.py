@@ -161,6 +161,35 @@ Phases, each raising on failure (no phase is caught):
                summarize_trace and summed within 10% of phase 6's
                CUDA-event times; a NaN input under enable_nan_checks
                raises FloatingPointError naming input_proj.
+ 17. parallel - torch.distributed on the one card. NCCL at world size 1
+               in this process: an all_reduce, and the DDP Uformer_B bs32
+               128^2 bf16 step in equal bits to the bare step (same
+               weights, batch and generator; 40/40/40/40 launches each),
+               both timed in turns. Ranks spawned on cuda:0 over gloo
+               (NCCL refuses two ranks on one GPU; their halos, rolls and
+               gathers go through pinned host memory; a compute mode that
+               keeps two processes off one card fails the phase): 2 ranks
+               run the DDP step (bs32 global, 16 a rank, mixup on, drop
+               path 0.1) against the one-process step (the bf16 whole-step
+               rule; the generator's state in equal bits; 40/40/40/40
+               launches a rank); serve B's Uformer_B forward of the
+               1280x720 frame (padded to 768x1280) split along H, bf16 and
+               fp32, against the unsharded model (fp32 within 1e-4 (1 +
+               max|ref|), bf16 the serve rule; 40 kernel-5 and 40 kernel-2
+               launches a rank, no plain call; ms a forward per rank and
+               the exchanges' share of it); the eval CLI with --mesh_data
+               2 --tile 256 on the frame against the one-process tiled
+               output, and its GoPro harness (rank 0 writes). 4 ranks: the
+               fp32 forward of 2 images of 256^2 (the bottleneck gathered
+               and split again; kernel 5 once per image in a split stage,
+               78 launches a rank). Kernel 5 alone at every (stage, rank)
+               shape of both forwards, each rank's w_off, against its
+               plain version, and timed at C 32-512 against its plain
+               version and its bound. Then `torchrun --nproc_per_node 2 -m
+               uformer_tpu_torch.train.cli --mesh_data 2` (gloo, cuda:0)
+               for an epoch of 2 steps: the weights' crc32 equal on both
+               ranks, one log, rank 0's .pth files. The ranks time-slice
+               one card: their ms are no scaling figure.
 
 Tolerances: fp32 max-abs <= 1e-4 * (1 + max|ref|); bf16 error against the
 fp32 plain result <= 1.5 x the bf16 plain version's error + 1e-3; for
@@ -171,8 +200,9 @@ there. Each kernel's bound is the larger of its operations at the bf16
 tensor-core peak and its bytes (inputs read once, outputs written once) at
 the HBM rate of an H100 SXM (the depthwise kernel's operations, and the
 eval phase's fp32 ones, at the float32 rate outside the tensor cores).
-The line before the last lists every kernel; the last line is {"ok":
-true, "device": {...}}.
+The line before the last lists every kernel (`launches_spatial` and
+`launches_ddp`: rank 0's launches in phase 17's 2-rank bf16 spatial
+forward and DDP step); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2764,27 +2794,29 @@ def unet_eval_cli(tmp: Path, sd, restorer, card: str) -> dict:
     return {"psnr": psnr, "ssim": ssim, "s": secs}
 
 
-def train_step_state(model, seed: int, lr: float = 0.0):
+def train_step_state(model, seed: int, lr: float = 0.0, mesh=None):
     """model's train step (bf16, mixup on: step 5 of 1-step epochs) with a
-    fresh AdamW at lr, and a generator seeded with seed."""
+    fresh AdamW at lr, and a generator seeded with seed; over `mesh`'s
+    data ranks where given."""
     from uformer_tpu_torch.train import TrainState, make_optimizer, \
         make_train_step
 
     model.dtype = torch.bfloat16
     state = TrainState(model, make_optimizer(model.parameters(),
                                              lambda s: lr), step=5)
-    step = make_train_step(model, mixup_after_epoch=5, steps_per_epoch=1)
+    step = make_train_step(model, mixup_after_epoch=5, steps_per_epoch=1,
+                           mesh=mesh)
     return state, step, torch.Generator(device="cpu").manual_seed(seed)
 
 
 def counted_step(model, batch, seed: int, expected: dict, label: str,
-                 lr: float = 0.0) -> dict:
+                 lr: float = 0.0, mesh=None) -> dict:
     """One bf16 train step of model: its loss, every gradient, the
     generator's state after it and its launches, which must be `expected`
     with no plain call."""
     from uformer_tpu_torch.ops import kernels as K
 
-    state, step, gen = train_step_state(model, seed, lr)
+    state, step, gen = train_step_state(model, seed, lr, mesh)
     K.reset_counts()
     loss = step(state, batch, gen)
     torch.cuda.synchronize()
@@ -2819,11 +2851,11 @@ def same_step(a: dict, b: dict, label: str) -> dict:
     return differ
 
 
-def timed_steps(model, batch, n: int) -> tuple:
+def timed_steps(model, batch, n: int, mesh=None) -> tuple:
     """n bf16 steps of model after one warm-up, lr 0: ms per step (CUDA
     events), the host's ms to enqueue each, and the peak memory allocated
     over them."""
-    state, step, gen = train_step_state(model, 21)
+    state, step, gen = train_step_state(model, 21, mesh=mesh)
     step(state, batch, gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3174,6 +3206,585 @@ def models_phase(tmp: Path, sd, sd_t, device, totals: dict, fwd: dict,
     return checks, summary, launches
 
 
+# the parallel phase: NCCL at world size 1 in this process; 2 and 4 ranks
+# spawned on the one card over gloo (NCCL refuses two ranks on one GPU:
+# their halos, rolls and gathers go through pinned host memory)
+PAR_SEED = 31
+PAR_TIMEOUT_S = 600
+PAR_SPATIAL4 = (2, RES_SERVE)  # batch, side of the 4-rank fp32 forward
+PAR_CLI_SET = (64, 2, 256)  # train pairs (2 steps of 32), val pairs, side
+SPATIAL_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0),
+                        attention_block=40, leff=40)
+# 4 ranks at 256^2: levels 0-3 split (38 blocks, kernel 5 once per image
+# of the batch of 2), the bottleneck (2 blocks) gathered, one launch each
+SPATIAL4_LAUNCHES = dict(SPATIAL_LAUNCHES, attention_block=38 * 2 + 2)
+
+
+def compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def bits_crc(a: np.ndarray) -> int:
+    import zlib
+
+    return zlib.crc32(np.ascontiguousarray(a).tobytes())
+
+
+def launches_of(fn) -> tuple:
+    """(fn(), kernel launches, plain calls) of one call on the card."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    K.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, K.launch_counts(), K.plain_counts()
+
+
+def expect_counts(what: str, counts: dict, plain: dict,
+                  expected: dict) -> None:
+    if counts != expected or any(plain.values()):
+        raise RuntimeError(f"{what}: launched {counts}, plain calls {plain};"
+                           f" expected {expected}, no plain call")
+
+
+def rank_step(sd, device, world: int) -> dict:
+    """This rank's DDP step of the bs32 batch (its 32 / world rows, bf16,
+    mixup on, drop path 0.1): loss, generator state, launches, the
+    gradients (rank 0; the others their crc32), then 3 timed steps."""
+    from uformer_tpu_torch.parallel import make_mesh, shard_batch
+
+    mesh = make_mesh(world, device=device)
+    model = build_model(sd, RES_TRAIN, device)
+    batch = shard_batch(mesh, train_batch(BATCH_TRAIN, PAR_SEED, device))
+    torch.backends.cudnn.deterministic = True
+    res = counted_step(model, batch, PAR_SEED + 1, TRAIN_LAUNCHES,
+                       f"rank {mesh.rank} DDP step", mesh=mesh)
+    torch.backends.cudnn.deterministic = False
+    grads = {n: g.float().cpu().numpy() for n, g in res["grads"].items()}
+    ms, host_ms, peak = timed_steps(model, batch, 3, mesh=mesh)
+    return {"loss": float(res["loss"]), "gen": res["gen"].numpy(),
+            "counts": res["counts"],
+            "grads": grads if mesh.rank == 0 else None,
+            "grads_crc": bits_crc(np.concatenate(
+                [g.reshape(-1) for g in grads.values()])),
+            "ms": ms, "host_ms": host_ms, "peak_bytes": peak}
+
+
+def rank_spatial(sd, device, x: np.ndarray, dtypes: tuple,
+                 reps: int = 3) -> dict:
+    """Serve B's Uformer_B forward of x (the whole batch, on every rank)
+    split along H over the ranks, bf16 and fp32: the result (rank 0; the
+    others its crc32), launches and plain calls, ms a forward on the host
+    clock and the exchanges' share of it."""
+    import torch.distributed as dist
+
+    from uformer_tpu_torch.parallel import spatial as S
+    from uformer_tpu_torch.restore import Restorer
+
+    model = build_model(sd, RES_SERVE, device)
+    xt = torch.from_numpy(x).to(device)
+    out = {}
+    for dt in dtypes:
+        r = Restorer(model, dt, device)
+
+        def fwd(r=r):
+            return S.run_uformer_spatially_sharded(r.model, xt,
+                                                   dist.group.WORLD)
+
+        y, counts, plain = launches_of(fwd)
+        y = y.cpu().numpy()
+        S.reset_exchange_stats()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fwd()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        ex = S.exchange_stats()
+        out[str(dt)] = {
+            "y": y if dist.get_rank() == 0 else None, "crc": bits_crc(y),
+            "counts": counts, "plain": plain, "ms": ms,
+            "exchange_ms": ex["seconds"] * 1e3 / reps,
+            "exchange_calls": ex["calls"] / reps,
+            "exchange_mib": ex["bytes"] / reps / 2**20}
+    return out
+
+
+def eval_cli_args(gopro_dir: Path, pth, dtype: str, world: int) -> list:
+    args = ["gopro", "--input_dir", str(gopro_dir), "--weights", str(pth),
+            "--tile", str(EVAL_TILE["tile"]), "--tile_overlap",
+            str(EVAL_TILE["overlap"]), "--tile_batch",
+            str(EVAL_TILE["tile_batch"]), "--dtype", dtype]
+    if world > 1:
+        args += ["--mesh_data", str(world), "--device", "cuda:0",
+                 "--dist_backend", "gloo"]
+    return args
+
+
+def rank_eval(gopro_dir: Path, pth, frame: np.ndarray, result_dir: Path,
+              world: int) -> dict:
+    """The eval CLI with --mesh_data: its restorer on the frame (this
+    rank's tiles, the blend on every rank), bf16 and fp32, and its GoPro
+    harness (rank 0 writes)."""
+    import torch.distributed as dist
+
+    from uformer_tpu_torch.eval import cli as ecli
+
+    out = {}
+    for name in ("bfloat16", "float32"):
+        fn = ecli.build_restorer(ecli.eval_argparser().parse_args(
+            eval_cli_args(gopro_dir, pth, name, world)))
+        fn(frame[None])  # warm-up: cuDNN plans
+        t0 = time.perf_counter()
+        y, counts, plain = launches_of(lambda fn=fn: fn(frame[None])[0])
+        out[name] = {"y": y if dist.get_rank() == 0 else None,
+                     "crc": bits_crc(y), "counts": counts, "plain": plain,
+                     "ms": (time.perf_counter() - t0) * 1e3}
+    out["gopro"] = ecli.main(eval_cli_args(gopro_dir, pth, "bfloat16", world)
+                             + ["--result_dir", str(result_dir),
+                                "--save_images"])
+    return out
+
+
+def par_rank(rank: int, world: int, tasks: tuple, inputs: dict) -> dict:
+    """One rank of phase 17 on cuda:0 (gloo): the tasks named."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    _, sd = seeded_weights()
+    out = {}
+    if "step" in tasks:
+        out["step"] = rank_step(sd, device, world)
+    if "spatial" in tasks:
+        out["spatial"] = rank_spatial(sd, device, inputs["spatial"],
+                                      inputs["dtypes"])
+    if "eval" in tasks:
+        out["eval"] = rank_eval(inputs["gopro_dir"], inputs["pth"],
+                                inputs["frame"], inputs["result_dir"], world)
+    return out
+
+
+def nccl_world_one(sd, device, card: str) -> dict:
+    """NCCL at world size 1 in this process: an all_reduce, and the DDP
+    bs32 step in equal bits to the bare step (same weights, batch and
+    generator; 40/40/40/40 launches each), then both timed in turns."""
+    import torch.distributed as dist
+
+    from uformer_tpu_torch.parallel import make_mesh
+    from uformer_tpu_torch.parallel.multihost import init_multihost
+
+    init_multihost("nccl", str(device), store=dist.HashStore(), rank=0,
+                   world_size=1, timeout_s=300)
+    try:
+        t = torch.arange(4.0, device=device)
+        dist.all_reduce(t)
+        if not torch.equal(t, torch.arange(4.0, device=device)):
+            raise RuntimeError(f"NCCL all_reduce at world 1: {t}")
+        mesh = make_mesh(1, device=device)
+        bare_m = build_model(sd, RES_TRAIN, device)
+        ddp_m = build_model(sd, RES_TRAIN, device)
+        batch = train_batch(BATCH_TRAIN, PAR_SEED, device)
+        torch.backends.cudnn.deterministic = True
+        bare = counted_step(bare_m, batch, PAR_SEED + 1, TRAIN_LAUNCHES,
+                            "bare step")
+        ddp = counted_step(ddp_m, batch, PAR_SEED + 1, TRAIN_LAUNCHES,
+                           "DDP step, NCCL world 1", mesh=mesh)
+        torch.backends.cudnn.deterministic = False
+        differ = [n for n, g in bare["grads"].items()
+                  if not torch.equal(g, ddp["grads"][n])]
+        if not torch.equal(bare["loss"], ddp["loss"]) \
+                or not torch.equal(bare["gen"], ddp["gen"]) or differ \
+                or bare["grads"].keys() != ddp["grads"].keys():
+            raise RuntimeError(f"DDP at NCCL world 1 against the bare step: "
+                               f"loss {float(ddp['loss'])} vs "
+                               f"{float(bare['loss'])}; gradients that "
+                               f"differ: {differ[:5]}")
+        del bare, ddp
+        times = {"bare": [], "ddp": []}
+        for name in ("bare", "ddp", "ddp", "bare"):
+            ms, _, _ = timed_steps(bare_m if name == "bare" else ddp_m,
+                                   batch, 5, mesh if name == "ddp" else None)
+            times[name] += ms
+    finally:
+        dist.destroy_process_group()
+    out = {k: float(np.median(v)) for k, v in times.items()}
+    out["runs_ms"] = times
+    print(f"  NCCL world 1: all_reduce; DDP bs{BATCH_TRAIN} "
+          f"{RES_TRAIN}^2 bf16 step equal bits to the bare step (loss, "
+          f"every gradient, generator; 40/40/40/40 launches each); median "
+          f"{out['ddp']:.2f} ms a DDP step against {out['bare']:.2f} bare "
+          f"(5 + 5 steps each, in turns)  [{card}]", flush=True)
+    return out
+
+
+@torch.no_grad()
+def kernel5_spatial(checks: Checks, model, device, H: int, W: int,
+                    world: int, card: str) -> dict:
+    """Kernel 5 alone at every (stage, rank) shape of model's forward over
+    an H x W image split over `world` ranks (each rank's windows at its
+    w_off, every shift the stage has), against attention_block_reference,
+    fp32 and bf16; then timed at rank 0's shapes of each width C 32-512
+    (the encoder and the bottleneck), against its plain version and its
+    bound."""
+    from uformer_tpu_torch.ops.kernels import (attention_block_reference,
+                                               fused_attention_block)
+    from uformer_tpu_torch.parallel.spatial import stage_at
+
+    gen = torch.Generator(device="cpu").manual_seed(PAR_SEED)
+    timed = {}
+    for k in range(9):
+        layer = stage_at(model, k)
+        lvl = k if k < 5 else 8 - k
+        Hk, Wk = H >> lvl, W >> lvl
+        split = (Hk // world) % 8 == 0
+        per = (Hk // world if split else Hk) // 8 * (Wk // 8)
+        for blk in {b.shift_size: b for b in layer.blocks}.values():
+            for r in (range(world) if split else (0,)):
+                w_off = r * per if split else 0
+                x32 = torch.randn((per, 64, blk.dim), generator=gen) \
+                    .to(device)
+                outs = {}
+                for dt in (torch.float32, torch.bfloat16):
+                    p = blk.kernel_params(dt)
+                    kw = dict(win=8, shift=blk.shift_size, H=Hk, W=Wk,
+                              scale=blk.attn.scale, num_heads=blk.num_heads,
+                              has_ln=True, w_off=w_off)
+                    args = (x32.to(dt), p["mod"], p["ln1_s"], p["ln1_b"],
+                            p["wq"], p["bq"], p["wkv"], p["bkv"], p["wo"],
+                            p["bo"], p["bias"])
+                    outs[dt] = (
+                        fused_attention_block(*args, **kw).float(),
+                        attention_block_reference(*args, **kw).float(),
+                        lambda args=args, kw=kw:
+                        fused_attention_block(*args, **kw),
+                        lambda args=args, kw=kw:
+                        attention_block_reference(*args, **kw))
+                what = (f"spatial {world} ranks {layer_name(k)} C{blk.dim} "
+                        f"shift {blk.shift_size} w_off {w_off}")
+                ref = outs[torch.float32][1]
+                checks.add("attention_block", what,
+                           max_err(outs[torch.float32][0], ref),
+                           1e-4 * (1.0 + float(ref.abs().max())), "fp32")
+                checks.add("attention_block", what,
+                           max_err(outs[torch.bfloat16][0], ref),
+                           1.5 * max_err(outs[torch.bfloat16][1], ref)
+                           + 1e-3, "bf16")
+                if k <= 4 and r == 0 and (blk.dim not in timed
+                                          or blk.shift_size):
+                    timed[blk.dim] = (per, blk, outs)
+    rows = []
+    for C, (per, blk, outs) in sorted(timed.items()):
+        row = {"C": C, "windows": per, "heads": blk.num_heads,
+               "shift": blk.shift_size}
+        for dt, s, peak in ((torch.bfloat16, 2, PEAK_BF16),
+                            (torch.float32, 4, PEAK_FP32)):
+            _, _, kern, plain = outs[dt]
+            t = {}
+            tally(t, "attention_block", cuda_ms(kern), cuda_ms(plain),
+                  attn_cost(per * 64, C, blk.num_heads, s,
+                            mod=blk.modulator is not None),
+                  peak=peak)
+            row[str(dt)] = dict(t["attention_block"],
+                                bound_by=bound_by(t["attention_block"]))
+        rows.append(row)
+        b = row[str(torch.bfloat16)]
+        f = row[str(torch.float32)]
+        print(f"  kernel 5 on the spatial path, C {C:3d} ({per} windows "
+              f"a rank, {blk.num_heads} heads): bf16 {b['ms']:.3f} ms "
+              f"(plain {b['plain_ms']:.3f}, bound {b['bound_ms']:.4f} "
+              f"{b['bound_by']}); fp32 {f['ms']:.3f} (plain "
+              f"{f['plain_ms']:.3f}, bound {f['bound_ms']:.4f})  "
+              f"[{card}]", flush=True)
+    return {"rows": rows}
+
+
+def layer_name(k: int) -> str:
+    return (f"enc{k}" if k < 4 else "conv" if k == 4 else f"dec{k - 5}")
+
+
+def run_group(cmd: list, timeout_s: float) -> tuple:
+    """cmd in a session of its own, killed with every process it started
+    where it passes timeout_s: (return code, stdout + stderr)."""
+    import os
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise RuntimeError(f"{cmd[:8]} passed {timeout_s} s:\n{out[-4000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    return proc.returncode, out
+
+
+def train_cli_two_ranks(tmp: Path, card: str) -> dict:
+    """`torchrun --nproc_per_node 2 -m uformer_tpu_torch.train.cli
+    --mesh_data 2` on the card (gloo, both ranks on cuda:0): one epoch of
+    the denoise recipe (2 steps of 32 at 128^2): exit 0, the weights'
+    crc32 equal on both ranks (the trainer's check at the end of fit),
+    one log and rank 0's .pth files."""
+    n_train, n_val, side = PAR_CLI_SET
+    train = write_pairs(tmp / "train", n_train, side, PAR_SEED)
+    val = write_pairs(tmp / "val", n_val, side, PAR_SEED + 1)
+    save = tmp / "logs"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "uformer_tpu_torch.train.cli",
+           "--mesh_data", "2", "--device", "cuda:0", "--dist_backend",
+           "gloo", "--arch", "Uformer_B", "--batch_size", str(BATCH_TRAIN),
+           "--train_ps", str(RES_TRAIN), "--mode", "denoising", "--warmup",
+           "--warmup_epochs", "1", "--nepoch", "1", "--pretrain_weights", "",
+           "--train_dir", str(train), "--val_dir", str(val), "--save_dir",
+           str(save)]
+    t0 = time.perf_counter()
+    rc, out = run_group(cmd, 400)
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"train CLI on 2 ranks: exit {rc}\n{out[-4000:]}")
+    log_dir = save / "denoising" / "Uformer_B_"
+    logs = sorted(log_dir.glob("*.txt"))
+    models = sorted(p.name for p in (log_dir / "models").iterdir())
+    text = logs[0].read_text() if len(logs) == 1 else ""
+    m = re.search(r"weights crc32 (\w+), equal on 2 ranks", text)
+    if len(logs) != 1 or not m or text.count("Epoch: 1\t") != 1 \
+            or models != ["model_best.pth", "model_latest.pth"]:
+        raise RuntimeError(f"train CLI on 2 ranks: logs {logs}, models "
+                           f"{models}, crc line {bool(m)}\n{out[-4000:]}")
+    print(f"  train CLI under torchrun, --mesh_data 2 (gloo, cuda:0): 1 "
+          f"epoch of {n_train // BATCH_TRAIN} steps of {BATCH_TRAIN} at "
+          f"{RES_TRAIN}^2, weights crc32 {m[1]} on both ranks, one log and "
+          f"rank 0's {models}; {secs:.1f} s with start-up  [{card}]",
+          flush=True)
+    return {"s": secs, "crc32": m[1], "models": models}
+
+
+def parallel_phase(tmp: Path, sd, device, card: str) -> tuple:
+    """Phase 17. Returns the checks, the summary and the launches of the
+    spatial path and the DDP step on rank 0."""
+    import cv2
+
+    from uformer_tpu_torch.parallel.multihost import spawn_ranks
+    from uformer_tpu_torch.restore import Restorer
+
+    mode = compute_mode()
+    if "Exclusive_Process" in mode:
+        raise RuntimeError(f"compute mode {mode}: two processes cannot "
+                           f"share the card, and the phase needs them")
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks, summary = Checks(), {"compute_mode": mode}
+    summary["nccl_world1"] = nccl_world_one(sd, device, card)
+
+    # inputs: the GoPro frame (also as a PNG pair for the harness), a
+    # reference-format .pth of serve B's weights for the eval CLI
+    frame = np.random.default_rng(8).uniform(0, 1, GOPRO_HW + (3,)) \
+        .astype(np.float32)
+    gopro_dir = tmp / "gopro"
+    for sub in ("groundtruth", "input"):
+        (gopro_dir / sub).mkdir(parents=True)
+        cv2.imwrite(str(gopro_dir / sub / "frame.png"),
+                    np.uint8(np.round(frame * 255)))
+    frame = np.round(frame * 255) / np.float32(255)  # the PNG's levels
+    pth, _ = write_eval_inputs(tmp / "pth", sd)
+    x4 = np.random.default_rng(PAR_SEED).uniform(
+        0, 1, (PAR_SPATIAL4[0], PAR_SPATIAL4[1], PAR_SPATIAL4[1], 3)) \
+        .astype(np.float32)
+    inputs = {"spatial": frame[None], "gopro_dir": gopro_dir, "pth": pth,
+              "frame": frame, "result_dir": tmp / "gopro_out",
+              "dtypes": (torch.bfloat16, torch.float32)}
+    t0 = time.perf_counter()
+    two = spawn_ranks(par_rank, 2, ("step", "spatial", "eval"), inputs,
+                      backend="gloo", device="cuda:0",
+                      timeout_s=PAR_TIMEOUT_S, num_threads=None)
+    four = spawn_ranks(par_rank, 4, ("spatial",),
+                       {"spatial": x4, "dtypes": (torch.float32,)},
+                       backend="gloo", device="cuda:0",
+                       timeout_s=PAR_TIMEOUT_S, num_threads=None)
+    summary["ranks_s"] = time.perf_counter() - t0
+
+    # the 2-rank DDP step against the one-process bs32 step
+    batch = train_batch(BATCH_TRAIN, PAR_SEED, device)
+    model = build_model(sd, RES_TRAIN, device)
+    torch.backends.cudnn.deterministic = True
+    one = {}
+    for plain, dt in ((True, torch.float32), (True, torch.bfloat16)):
+        loss, _, _ = run_step(model, plain, dt, batch, PAR_SEED + 1,
+                              lambda s: 0.0)
+        one[dt] = {"loss": loss.reshape(1).float().cpu()}
+        one[dt].update({n: p.grad.float().cpu()
+                        for n, p in model.named_parameters()
+                        if p.grad is not None})
+    one_k = counted_step(model, batch, PAR_SEED + 1, TRAIN_LAUNCHES,
+                         "one-process step")
+    torch.backends.cudnn.deterministic = False
+    del model
+    steps = [r["step"] for r in two]
+    for r, st in enumerate(steps):
+        expect_counts(f"rank {r} DDP step", st["counts"], {},
+                      TRAIN_LAUNCHES)
+        if not np.array_equal(st["gen"], one_k["gen"].numpy()):
+            raise RuntimeError(f"rank {r}: the generator's state after the "
+                               f"DDP step differs from the one-process "
+                               f"step's")
+    if steps[0]["grads_crc"] != steps[1]["grads_crc"]:
+        raise RuntimeError("the 2 ranks' averaged gradients differ")
+    got = {"loss": torch.tensor([np.mean([st["loss"] for st in steps])])}
+    got.update({n: torch.from_numpy(g)
+                for n, g in steps[0]["grads"].items()})
+    ref, low = one[torch.float32], one[torch.bfloat16]
+    for n, r_ in ref.items():
+        scale = float(r_.abs().max())
+        checks.add("model", f"DDP 2 ranks bs{BATCH_TRAIN} {n}",
+                   max_err(got[n], r_),
+                   1.5 * max_err(low[n], r_) + 1e-3 * max(1.0, scale),
+                   "bf16")
+    summary["ddp2"] = {"ms_per_rank": [float(np.median(st["ms"]))
+                                       for st in steps],
+                       "max_diff_vs_one_process_kernels": max(
+                           max_err(got[n], one_k["grads"][n].float().cpu())
+                           for n in one_k["grads"]),
+                       "runs_ms": [st["ms"] for st in steps],
+                       "peak_bytes": [st["peak_bytes"] for st in steps]}
+    del one, got, ref, low, one_k
+    print(f"  DDP 2 ranks on cuda:0 (gloo): bs{BATCH_TRAIN} global, "
+          f"{BATCH_TRAIN // 2} a rank, 40/40/40/40 launches a rank, "
+          f"generator equal bits to the one-process step's, gradients "
+          f"equal on both ranks; median "
+          f"{summary['ddp2']['ms_per_rank']} ms a step per rank (the ranks "
+          f"time-slice one card: not a scaling figure)  [{card}]",
+          flush=True)
+
+    # the spatial forward against the unsharded model on the padded frame
+    model = build_model(sd, RES_SERVE, device)
+    Hp = -(-GOPRO_HW[0] // 128) * 128
+    xp = torch.from_numpy(np.pad(frame[None], (
+        (0, 0), (0, Hp - GOPRO_HW[0]), (0, 0), (0, 0)))).to(device)
+    x4d = torch.from_numpy(x4).to(device)
+    refs = {}
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            r = Restorer(model, dt, device)
+            refs[dt] = {
+                "plain": r.model(xp, plain=True)[:, :GOPRO_HW[0]]
+                .float().cpu().numpy(),
+                "kernel": r.model(xp)[:, :GOPRO_HW[0]].float().cpu().numpy()}
+            if dt == torch.float32:
+                refs["x4"] = r.model(x4d, plain=True).float().cpu().numpy()
+    spatial = {}
+    for world, results, label, expected in (
+            (2, two, f"{GOPRO_HW[1]}x{GOPRO_HW[0]} bs1", SPATIAL_LAUNCHES),
+            (4, four, f"{PAR_SPATIAL4[1]}^2 bs{PAR_SPATIAL4[0]}",
+             SPATIAL4_LAUNCHES)):
+        for dt in ((torch.bfloat16, torch.float32) if world == 2
+                   else (torch.float32,)):
+            rows = [res["spatial"][str(dt)] for res in results]
+            for r, row in enumerate(rows):
+                expect_counts(f"spatial {world} ranks {dt} rank {r}",
+                              row["counts"], row["plain"], expected)
+            if len({row["crc"] for row in rows}) != 1:
+                raise RuntimeError(f"spatial {world} ranks {dt}: the ranks' "
+                                   f"results differ")
+            y = rows[0]["y"]
+            ref32 = refs["x4"] if world == 4 else refs[torch.float32]["plain"]
+            what = f"spatial {world} ranks {label} against unsharded"
+            if dt == torch.float32:
+                checks.add("model", what, float(np.abs(y - ref32).max()),
+                           1e-4 * (1.0 + float(np.abs(ref32).max())), "fp32")
+            else:
+                e_plain = float(np.abs(refs[torch.bfloat16]["plain"]
+                                       - ref32).max())
+                checks.add("model", what, float(np.abs(y - ref32).max()),
+                           1.5 * e_plain + 1e-3, "bf16")
+            vs_kernel = (float(np.abs(y - refs[dt]["kernel"]).max())
+                         if world == 2 else None)
+            spatial[f"{world} ranks {dt}"] = {
+                "ms_per_rank": [row["ms"] for row in rows],
+                "exchange_ms_per_rank": [row["exchange_ms"] for row in rows],
+                "exchange_share": [row["exchange_ms"] / row["ms"]
+                                   for row in rows],
+                "exchange_calls": rows[0]["exchange_calls"],
+                "exchange_mib": [row["exchange_mib"] for row in rows],
+                "max_diff_vs_unsharded_kernels": vs_kernel,
+                "launches": rows[0]["counts"]}
+            sp = spatial[f"{world} ranks {dt}"]
+            print(f"  spatial {world} ranks {label} {dt}: "
+                  f"{[round(v, 2) for v in sp['ms_per_rank']]} ms a forward "
+                  f"per rank, exchanges "
+                  f"{[round(v, 2) for v in sp['exchange_ms_per_rank']]} ms "
+                  f"({[round(100 * v, 1) for v in sp['exchange_share']]}%; "
+                  f"{sp['exchange_calls']:.0f} calls, "
+                  f"{sp['exchange_mib'][0]:.1f} MiB sent by rank 0, through "
+                  f"host memory); launches a rank "
+                  f"{rows[0]['counts']['attention_block']} kernel 5, "
+                  f"{rows[0]['counts']['leff']} kernel 2, no plain call; "
+                  f"unsharded kernel path within {vs_kernel}  [{card}]",
+                  flush=True)
+    summary["spatial"] = spatial
+    summary["kernel5"] = kernel5_spatial(checks, model, device, Hp,
+                                         GOPRO_HW[1], 2, card)
+    summary["kernel5_4ranks"] = kernel5_spatial(
+        checks, model, device, PAR_SPATIAL4[1], PAR_SPATIAL4[1], 4, card)
+    del model, refs
+    torch.cuda.empty_cache()
+
+    # the eval CLI's sharded tiles against the one-process tiled output
+    rs = eval_restorers(pth, device)
+    ref = {dt: gopro_run(model_numpy(rs[dt], True, []), frame, "tiled")[0]
+           for dt in (torch.float32, torch.bfloat16)}
+    one_tiled = {dt: gopro_run(rs[dt].numpy, frame, "tiled")[0]
+                 for dt in (torch.float32, torch.bfloat16)}
+    del rs
+    evals = [res["eval"] for res in two]
+    got = {}
+    for name in ("bfloat16", "float32"):
+        dt = getattr(torch, name)
+        for r, ev in enumerate(evals):
+            calls = -(-12 // EVAL_TILE["tile_batch"])  # 24 tiles, 12 a rank
+            expect_counts(f"eval CLI --mesh_data 2 {name} rank {r}",
+                          ev[name]["counts"], ev[name]["plain"],
+                          {k: calls * v for k, v in
+                           EXPECTED_LAUNCHES.items()})
+        if evals[0][name]["crc"] != evals[1][name]["crc"]:
+            raise RuntimeError(f"eval CLI --mesh_data 2 {name}: the ranks' "
+                               f"blends differ")
+        got[dt] = evals[0][name]["y"]
+    eval_compare(checks, "eval CLI --mesh_data 2 --tile 256 frame", got,
+                 ref[torch.float32], ref[torch.bfloat16])
+    if evals[0]["gopro"] != evals[1]["gopro"]:
+        raise RuntimeError(f"GoPro harness on 2 ranks: {evals[0]['gopro']} "
+                           f"vs {evals[1]['gopro']}")
+    written = sorted(p.name for p in (tmp / "gopro_out").iterdir())
+    if written != ["frame.png", "psnr_ssim.txt"]:
+        raise RuntimeError(f"GoPro harness on 2 ranks wrote {written}")
+    summary["eval_cli"] = {
+        name: {"ms_per_rank": [ev[name]["ms"] for ev in evals],
+               "max_diff_vs_one_process_kernels": float(np.abs(
+                   got[getattr(torch, name)]
+                   - one_tiled[getattr(torch, name)]).max())}
+        for name in ("bfloat16", "float32")}
+    summary["eval_cli"]["gopro"] = evals[0]["gopro"]
+    diffs = [summary["eval_cli"][n]["max_diff_vs_one_process_kernels"]
+             for n in ("bfloat16", "float32")]
+    print(f"  eval CLI --mesh_data 2 --tile 256 on the frame: 12 tiles a "
+          f"rank, the blend equal on both ranks; against the one-process "
+          f"tiled kernel path within {diffs[0]:.2e} (bf16), {diffs[1]:.2e} "
+          f"(fp32); GoPro harness PSNR/SSIM {evals[0]['gopro']} on both, "
+          f"rank 0 wrote {written}  [{card}]", flush=True)
+
+    summary["train_cli"] = train_cli_two_ranks(tmp / "cli", card)
+    launches = {"spatial": two[0]["spatial"][str(torch.bfloat16)]["counts"],
+                "ddp": steps[0]["counts"]}
+    return checks, summary, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", type=Path, help="write the full report here")
@@ -3314,6 +3925,12 @@ def run(device, card: str, json_path) -> list:
             Path(tmp), sd, sd_t, device, totals, fwd, serve, card)
     mchecks.raise_if_failed("models")
 
+    phase("parallel")
+    with tempfile.TemporaryDirectory() as tmp:
+        pchecks, parallel, par_launches = parallel_phase(Path(tmp), sd,
+                                                         device, card)
+    pchecks.raise_if_failed("parallel")
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas,
@@ -3337,7 +3954,8 @@ def run(device, card: str, json_path) -> list:
               "train_mlp_cross_checks": mcchecks.rows,
               "eval_checks": echecks.rows, "eval": evals,
               "train_loop_checks": lchecks.rows, "train_loop": loop,
-              "models_checks": mchecks.rows, "models": models}
+              "models_checks": mchecks.rows, "models": models,
+              "parallel_checks": pchecks.rows, "parallel": parallel}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -3358,7 +3976,8 @@ def run(device, card: str, json_path) -> list:
     for name, (source, replaces) in KERNELS.items():
         rows_of = [r for r in kchecks.rows + t_kchecks.rows + ai_checks.rows
                    + tkchecks.rows + ttkchecks.rows + dw_checks.rows
-                   + tile_checks.rows + mchecks.rows if r["kernel"] == name]
+                   + tile_checks.rows + mchecks.rows + pchecks.rows
+                   if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
         # the first timing that has the kernel gives ms and its bound
@@ -3373,7 +3992,9 @@ def run(device, card: str, json_path) -> list:
                               + kernel_count(eval_launches, name)
                               + kernel_count(loop_launches, name)
                               + sum(kernel_count(c, name)
-                                    for c in model_launches.values())),
+                                    for c in model_launches.values())
+                              + kernel_count(par_launches["spatial"], name)
+                              + kernel_count(par_launches["ddp"], name)),
                  "launches_serve": kernel_count(launches, name),
                  "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
@@ -3384,6 +4005,9 @@ def run(device, card: str, json_path) -> list:
                  "launches_train_loop": kernel_count(loop_launches, name),
                  **{f"launches_{path}": kernel_count(c, name)
                     for path, c in model_launches.items()},
+                 "launches_spatial": kernel_count(par_launches["spatial"],
+                                                  name),
+                 "launches_ddp": kernel_count(par_launches["ddp"], name),
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -3403,6 +4027,8 @@ def run(device, card: str, json_path) -> list:
                              "ms", "plain_ms", "bound_ms", "launches",
                              "library_ms", "device_ms",
                              "library_device_ms")})
+        if name == "attention_block":
+            entry["spatial"] = parallel["kernel5"]["rows"]
         if name == "window_attention":
             entry["on_path"] = ("no model path calls it (nor in the JAX "
                                 "package); its bf16 register core "

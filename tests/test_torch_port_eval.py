@@ -17,7 +17,9 @@ the same seeded numpy inputs.
   crops), RealBlur's scorer: port against JAX.
 - Uformer_B at train_ps 128 on a 256^2 input dispatches 6 stage, 4
   attention-image and 4 LeFF calls, its bottleneck unshifted.
-- The CLI's refusals: --mesh_data, an orbax directory, a token
+- The CLI's refusals: --mesh_data without its process group of ranks
+  (the sharded CLI itself: tests/test_torch_port_parallel.py), an orbax
+  directory, a token
   projection or MLP the named archs do not have, --device cuda without a
   card; an fp32 restorer runs with TF32 off and puts the caller's flags
   back.
@@ -479,8 +481,11 @@ def _cli_args(tmp_path, *extra):
 
 
 @pytest.mark.parametrize("extra, error, item", [
-    (["--weights", "w.pth", "--mesh_data", "2", "--tile", "256"],
-     NotImplementedError, "queue 1 item 4"),
+    # --mesh_data runs since the data mesh was ported; without its process
+    # group of ranks it raises (the case keeps its id)
+    pytest.param(["--weights", "w.pth", "--mesh_data", "2", "--tile",
+                  "256"], ValueError, "process group of 2 ranks",
+                 id="extra0-NotImplementedError-queue 1 item 4"),
     # an orbax directory: the message names the route to a .pth
     (["--weights", "checkpoints/model_best"], ValueError,
      "torch_exporter.py:save_torch_checkpoint")])

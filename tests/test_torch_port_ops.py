@@ -98,7 +98,7 @@ def test_depthwise_conv():
 def test_import_leaves_jax_out():
     """The port imports torch and never jax (fresh interpreter), the eval
     layer, the training entry point and their CLIs, UNet, the auxiliary
-    blocks and the utilities included."""
+    blocks, the utilities and the parallel package included."""
     code = ("import sys, uformer_tpu_torch, uformer_tpu_torch.restore, "
             "uformer_tpu_torch.convert, uformer_tpu_torch.eval, "
             "uformer_tpu_torch.config, "
@@ -109,7 +109,9 @@ def test_import_leaves_jax_out():
                 "data.datasets", "data.native", "data.patches",
                 "train.checkpoints", "train.trainer", "train.cli",
                 "models.unet", "models.extras", "utils.freeze",
-                "utils.flops", "utils.debug", "model_info"))
+                "utils.flops", "utils.debug", "model_info", "parallel",
+                "parallel.mesh", "parallel.multihost",
+                "parallel.sharding_rules", "parallel.spatial"))
             + "; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'uformer_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

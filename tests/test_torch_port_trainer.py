@@ -539,14 +539,21 @@ def test_registry_builds_uformer_at_embed_8_window_2():
                if "norm_cross" not in n)
 
 
-@pytest.mark.parametrize("field, value, item", [
-    ("mesh_data", 2, "queue 1 item 4"), ("mesh_model", 2, "queue 1 item 4"),
-    ("use_checkpoint", True, None)])
+@pytest.mark.parametrize("field, value, error, item", [
+    # the ids of the cases before the data mesh was ported
+    pytest.param("mesh_data", 2, ValueError, "process group of 2 ranks",
+                 id="mesh_data-2-queue 1 item 4"),
+    pytest.param("mesh_model", 2, NotImplementedError, "queue 1 item 4",
+                 id="mesh_model-2-queue 1 item 4"),
+    pytest.param("use_checkpoint", True, None, None,
+                 id="use_checkpoint-True-None")])
 def test_trainer_cli_and_registry_refuse_what_is_not_ported(
-        tmp_path, paired_dir, field, value, item):
-    """The mesh waits for queue 1 item 4 and is refused before anything is
-    built. `--use_checkpoint` is ported: an epoch of the train CLI on the
-    CPU with it ends with the same weights, bit for bit, as without it."""
+        tmp_path, paired_dir, field, value, error, item):
+    """A 'model' axis waits for queue 1 item 4 and is refused before
+    anything is built; `mesh_data` 2 runs data-parallel, and without its
+    process group of 2 ranks it is refused before anything is built.
+    `--use_checkpoint` is ported: an epoch of the train CLI on the CPU
+    with it ends with the same weights, bit for bit, as without it."""
     flag = [f"--{field}"] + ([] if value is True else [str(value)])
     if item is None:
         args = ["--arch", "Uformer", "--embed_dim", "8", "--win_size", "2",
@@ -567,9 +574,9 @@ def test_trainer_cli_and_registry_refuse_what_is_not_ported(
         return
     opt = pconfig.Options(**TINY, save_dir=str(tmp_path), device="cpu",
                           **{field: value})
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         Trainer(opt)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         cli.main(["--device", "cpu", "--save_dir", str(tmp_path)] + flag)
     assert not os.listdir(tmp_path)  # raised before anything was built
 

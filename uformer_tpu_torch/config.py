@@ -11,7 +11,8 @@ group, `gpu`) are accepted and unused. `add_options_to_parser` and
 `check_supported` says what the port runs of the JAX-only options:
 `attn_backend` "auto" or "pallas" runs the kernels on a card tensor,
 "jnp" the kernels' plain versions; `use_checkpoint` recomputes each
-block in the backward; mesh sharding is not ported and raises.
+block in the backward; `mesh_data` N > 1 runs data-parallel over a
+process group of N ranks, which must be up; `mesh_model` > 1 raises.
 """
 
 from __future__ import annotations
@@ -75,7 +76,8 @@ class Options:
     warmup: bool = False  # options.py:56; the recipes pass --warmup
     warmup_epochs: int = 3
 
-    # distributed (the JAX package's mesh; not ported: check_supported)
+    # distributed (the JAX package's mesh): data ranks, one process each;
+    # a 'model' axis is not ported (check_supported)
     mesh_data: Optional[int] = None
     mesh_model: int = 1
 
@@ -115,11 +117,22 @@ def check_supported(opt: Options) -> None:
     """Raise NotImplementedError for the options the port does not run
     yet, before anything is built; ValueError for an unknown dtype or
     attn_backend."""
-    if (opt.mesh_data or 1) > 1 or opt.mesh_model > 1:
+    if opt.mesh_model > 1:
         raise NotImplementedError(
-            f"mesh_data {opt.mesh_data}, mesh_model {opt.mesh_model}: "
-            f"sharded training is not ported yet (ROADMAP.md, port queue 1 "
-            f"item 4, parallel)")
+            f"mesh_model {opt.mesh_model}: tensor-parallel training is not "
+            f"ported (ROADMAP.md, port queue 1 item 4; JAX's trainer never "
+            f"shards over 'model' either)")
+    if (opt.mesh_data or 1) > 1:
+        from uformer_tpu_torch.parallel.multihost import group_size
+
+        if group_size() != opt.mesh_data:
+            raise ValueError(
+                f"mesh_data {opt.mesh_data} needs a process group of "
+                f"{opt.mesh_data} ranks; {group_size()} are up (launch "
+                f"with torchrun --nproc_per_node {opt.mesh_data})")
+        if opt.batch_size % opt.mesh_data:
+            raise ValueError(f"batch_size {opt.batch_size} does not split "
+                             f"over mesh_data {opt.mesh_data} ranks")
     torch_dtype(opt)
     runs_plain(opt)
 

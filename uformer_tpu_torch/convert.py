@@ -172,6 +172,7 @@ def _selayer(sd: StateDict, p) -> None:
 
 
 BLOCKS = {
+    "LeWinBlock": lambda sd, p: _block(sd, "", p),
     "LeFF": lambda sd, p: _leff(sd, "", p),
     "Eca1d": lambda sd, p: _eca(sd, "", p),
     "EcaLayer": lambda sd, p: _eca(sd, "", p["eca"]),
@@ -183,8 +184,8 @@ BLOCKS = {
 def block_state_dict_from_jax(block: str, params: Dict[str, Any]
                               ) -> StateDict:
     """The flax params of one JAX block (`uformer_tpu.models.layers.LeFF`,
-    `Eca1d`, or a block of `uformer_tpu.models.extras`, named by its class)
-    -> the state_dict of the port's block of that name."""
+    `LeWinBlock`, `Eca1d`, or a block of `uformer_tpu.models.extras`, named
+    by its class) -> the state_dict of the port's block of that name."""
     sd: StateDict = {}
     BLOCKS[block](sd, params.get("params", params))
     return {k.lstrip("."): v for k, v in sd.items()}

@@ -1,7 +1,8 @@
 """Batch augmentations, counterparts of `uformer_tpu/data/augment.py`:
 
   * the 8 dihedral ops (reference Augment_RGB_torch), per sample;
-  * MixUp with lam ~ Beta(1.2, 1.2) and a random pairing.
+  * MixUp with lam ~ Beta(1.2, 1.2) and a random pairing, over the
+    global batch of the data ranks.
 
 Every draw comes from the `torch.Generator` passed in, never from a global
 RNG. `torch.distributions.Beta` takes no generator, so lam comes from a
@@ -49,12 +50,32 @@ def mixup_apply(target: torch.Tensor, inp: torch.Tensor, lam: torch.Tensor,
 
 
 def mixup_batch(generator: torch.Generator, target: torch.Tensor,
-                inp: torch.Tensor, alpha: float = 1.2):
+                inp: torch.Tensor, alpha: float = 1.2, group=None):
     """Pairwise MixUp of (target, input) with lam ~ Beta(alpha, alpha)
-    (reference MixUp_AUG.aug). Returns the mixed (target, input)."""
-    B = target.shape[0]
+    (reference MixUp_AUG.aug). Returns the mixed (target, input).
+
+    With a process group of n > 1 data ranks, target and inp are this
+    rank's rows of the global batch: lam and the pairing are drawn for the
+    global batch (every rank's generator in one state), the rows come from
+    every rank (`parallel.multihost.all_gather_rows`) and this rank keeps
+    its mixed rows, as JAX's one program permutes its global batch
+    (`uformer_tpu/data/augment.py:48-60`)."""
+    from uformer_tpu_torch.parallel.multihost import (
+        all_gather_rows,
+        group_rank,
+        group_size,
+    )
+
+    n = group_size(group) if group is not None else 1
+    local = target.shape[0]
+    B = local * n
     seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
                              device=generator.device))
     lam = torch.from_numpy(np.random.default_rng(seed).beta(alpha, alpha, B))
     perm = torch.randperm(B, generator=generator, device=generator.device)
-    return mixup_apply(target, inp, lam, perm)
+    if n == 1:
+        return mixup_apply(target, inp, lam, perm)
+    rows = slice(group_rank(group) * local, (group_rank(group) + 1) * local)
+    t, i = mixup_apply(all_gather_rows(target, group),
+                       all_gather_rows(inp, group), lam, perm)
+    return t[rows], i[rows]

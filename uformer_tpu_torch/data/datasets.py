@@ -5,14 +5,17 @@
 Paired loaders with the reference's directory contract (`<dir>/groundtruth`
 and `<dir>/input` image pairs), random aligned crops and the 8 dihedral
 ops drawn on the host in index order, on the native (C++) plane or in
-numpy; `batch_iterator` yields numpy batches in a seeded order per epoch,
-and `prefetch_to_device` moves them to the card on a side stream while
-the current step computes.
+numpy; `batch_iterator` yields numpy batches in a seeded order per epoch
+(with `local_range`, a data rank's rows of each global batch), and
+`prefetch_to_device` moves them to the card on a side stream while the
+current step computes.
 
-Left out: `batch_iterator`'s `local_range` (the multi-host data plane),
-until ROADMAP.md port queue 1 item 4. One divergence from the JAX
-package: an exception in the prefetch's producer is raised again in the
-consumer, where the JAX prefetch ends the epoch early without a word.
+Two divergences from the JAX package: an exception in the prefetch's
+producer is raised again in the consumer, where the JAX prefetch ends the
+epoch early without a word; and with `local_range` a rank's crops and
+dihedral ops are the global batch's draws for its rows (JAX draws them
+for the local rows only), so a data-parallel epoch sees the batches of
+the one-process epoch.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import glob
 import os
 import queue as queue_mod
+import struct
 import threading
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
@@ -60,6 +64,17 @@ def _apply_dihedral(img: np.ndarray, k: int) -> np.ndarray:
     if k == 4:
         return img[::-1]
     return np.rot90(img, k - 4, (0, 1))[::-1]
+
+
+def _image_hw(path: str) -> Tuple[int, int]:
+    """(H, W) of an image file: a PNG's from its header, any other
+    decoded."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR":
+        W, H = struct.unpack(">II", head[16:24])
+        return H, W
+    return load_img(path).shape[:2]
 
 
 def _pad_to_patch(img: np.ndarray, ps: int) -> np.ndarray:
@@ -160,20 +175,30 @@ class PairedTrainDataset:
             ks.append(int(self.rng.integers(0, 8)))
         return rows, cols, ks
 
-    def get_batch(self, indices) -> Tuple[np.ndarray, np.ndarray]:
+    def get_batch(self, indices, rows: Optional[slice] = None
+                  ) -> Tuple[np.ndarray, np.ndarray]:
         """Threaded decode, then crop/aug/normalise on the C++ plane or in
         numpy: float32 (B, ps, ps, 3) ground truth and input.
 
         The crop and aug draws happen serially in index order after the
         decode, on both planes: drawn inside the pool's workers they would
-        depend on thread interleaving (and race on the Generator)."""
+        depend on thread interleaving (and race on the Generator). With
+        `rows`, the draws are made for all of `indices` (from the images'
+        sizes: a PNG's header, any other decoded) and only indices[rows]
+        are loaded: a data rank's share of a global batch."""
         ps = self.ps
-        paths = [self.gt_files[i] for i in indices] + \
-            [self.in_files[i] for i in indices]
+        keep = list(indices) if rows is None else list(indices)[rows]
+        paths = [self.gt_files[i] for i in keep] + \
+            [self.in_files[i] for i in keep]
         imgs = [_pad_to_patch(im, ps)
                 for im in self._pool().map(self._load_cached, paths)]
-        gts, nys = imgs[:len(indices)], imgs[len(indices):]
-        rows, cols, ks = self.draws([g.shape[:2] for g in gts])
+        gts, nys = imgs[:len(keep)], imgs[len(keep):]
+        if rows is None:
+            rows, cols, ks = self.draws([g.shape[:2] for g in gts])
+        else:
+            share = rows
+            rows, cols, ks = (d[share] for d in self.draws(
+                [self._patch_hw(i) for i in indices]))
         if self.use_native:
             return native_plane.augment_pair_batch(
                 gts, nys, ps, np.asarray(rows), np.asarray(cols),
@@ -185,6 +210,11 @@ class PairedTrainDataset:
             np.ascontiguousarray(_apply_dihedral(n[r:r + ps, c:c + ps], k))
             for n, r, c, k in zip(nys, rows, cols, ks)])
         return gt_out, ny_out
+
+    def _patch_hw(self, idx: int) -> Tuple[int, int]:
+        """(H, W) of ground truth idx after `_pad_to_patch`."""
+        H, W = _image_hw(self.gt_files[idx])
+        return max(H, self.ps), max(W, self.ps)
 
     def __len__(self):
         return len(self.gt_files)
@@ -262,22 +292,35 @@ def get_test_data(data_dir: str):
 
 def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
                    drop_last: bool = True, seed: int = 0,
-                   num_threads: int = 4) -> Iterator[dict]:
+                   num_threads: int = 4,
+                   local_range: Optional[Tuple[int, int]] = None
+                   ) -> Iterator[dict]:
     """Yield {'target', 'input'} NHWC float32 numpy batches in an order
     shuffled by `seed`. A dataset with `get_batch` decodes in its own
     threads and draws its crops serially; any other is loaded sample by
     sample on a pool of num_threads (reference: 4 torch workers,
-    train_denoise.py:128)."""
+    train_denoise.py:128).
+
+    local_range=(start, size): a data rank's share. Every rank walks the
+    same seeded order, and loads only rows [start, start + size) of each
+    global batch of `batch_size` (`parallel.multihost.local_batch_range`);
+    drop_last must hold. A `get_batch` dataset draws the global batch's
+    crops and keeps this rank's (`rows`)."""
     n = len(dataset)
     order = np.arange(n)
     if shuffle:
         np.random.default_rng(seed).shuffle(order)
+    if local_range is not None and not drop_last:
+        raise ValueError("local_range needs drop_last: a short last batch "
+                         "does not split into the ranks' rows")
+    r0, rsz = local_range if local_range is not None else (0, batch_size)
     if hasattr(dataset, "get_batch"):
         for i0 in range(0, n, batch_size):
             idx = order[i0:i0 + batch_size]
             if len(idx) < batch_size and drop_last:
                 return
-            gt, noisy = dataset.get_batch(idx)
+            gt, noisy = (dataset.get_batch(idx) if local_range is None else
+                         dataset.get_batch(idx, rows=slice(r0, r0 + rsz)))
             yield {"target": gt, "input": noisy}
         return
     with ThreadPoolExecutor(max_workers=max(num_threads, 1)) as pool:
@@ -285,7 +328,7 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
             idx = order[i0:i0 + batch_size]
             if len(idx) < batch_size and drop_last:
                 return
-            samples = list(pool.map(dataset.__getitem__, idx))
+            samples = list(pool.map(dataset.__getitem__, idx[r0:r0 + rsz]))
             gt = np.stack([s[0] for s in samples])
             noisy = np.stack([s[1] for s in samples])
             yield {"target": gt, "input": noisy}

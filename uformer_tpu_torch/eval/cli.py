@@ -15,20 +15,39 @@ for "highest" matmul precision; the process's own TF32 flags are put back
 after each call. `--token_projection` and `--token_mlp` take only the
 named archs' linear / leff (the reference's `get_arch` fixes them; the
 JAX scripts accept the flags and ignore them): any other value raises.
+
+Sharded over N cards, one process each (`scripts/_common.py:74-90`):
+
+    torchrun --nproc_per_node N -m uformer_tpu_torch.eval.cli gopro \
+        --input_dir DIR --weights W.pth --tile 256 --mesh_data N
+
+`--mesh_data N` needs `--tile` and a process group of N ranks (started
+from torchrun's environment, NCCL, each rank on cuda:LOCAL_RANK; ranks
+that share one card name it and gloo: `--device cuda:0 --dist_backend
+gloo`). Each image's tiles are split over the ranks
+(`parallel.spatial.tiled_inference_sharded`); every rank runs the
+harness, rank 0 alone writes results and prints scores.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import io
 import os
+import tempfile
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from uformer_tpu_torch import get_arch
 from uformer_tpu_torch.convert import ORBAX_ROUTE, load_checkpoint
 from uformer_tpu_torch.eval.padding import tiled_inference
+from uformer_tpu_torch.parallel.multihost import init_multihost, rank_device
+from uformer_tpu_torch.parallel.spatial import tiled_inference_sharded
 from uformer_tpu_torch.restore import Restorer
 
 
@@ -61,8 +80,11 @@ def eval_argparser() -> argparse.ArgumentParser:
                         help="tile positions batched per call in tiled "
                              "inference")
     common.add_argument("--mesh_data", type=int, default=0,
-                        help="shard eval over this many devices (not "
-                             "ported yet)")
+                        help="split each image's tiles over this many "
+                             "ranks (needs --tile and torchrun)")
+    common.add_argument("--dist_backend", default=None,
+                        help="the process group's backend with --mesh_data "
+                             "(default nccl on cards, gloo on the CPU)")
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="harness", required=True)
     sub.add_parser("sidd", parents=[common], help="SIDD denoising eval")
@@ -83,14 +105,13 @@ def eval_argparser() -> argparse.ArgumentParser:
 
 def build_restorer(args) -> Callable:
     """The NHWC [0,1]-clipped restorer of the CLI args: numpy in and out,
-    tiled when --tile is given (`scripts/_common.py:build_restorer`)."""
-    if args.mesh_data:
-        raise NotImplementedError(
-            "--mesh_data: sharded eval is not ported yet (ROADMAP.md, port "
-            "queue 1 item 4, parallel)")
+    tiled when --tile is given, its tiles split over the ranks with
+    --mesh_data (`scripts/_common.py:build_restorer`)."""
+    group = _mesh_group(args) if args.mesh_data else None
     if not args.weights.endswith((".pth", ".pt")):
         raise ValueError(f"--weights {args.weights}: {ORBAX_ROUTE}")
-    device = torch.device(args.device)
+    device = (rank_device(args.device) if group is not None
+              else torch.device(args.device))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"--device {args.device}: torch.cuda.is_available() is false "
@@ -109,6 +130,14 @@ def build_restorer(args) -> Callable:
     fn = Restorer(load_checkpoint(model, args.weights), dtype, device).numpy
     if dtype == torch.float32:
         fn = _without_tf32(fn)
+    if group is not None:
+        def sharded_fn(x):
+            return np.concatenate([tiled_inference_sharded(
+                fn, np.asarray(x[i:i + 1]), group, tile=args.tile,
+                overlap=args.tile_overlap, tile_batch=args.tile_batch)
+                for i in range(len(x))])
+
+        return sharded_fn
     if not args.tile:
         return fn
 
@@ -118,6 +147,23 @@ def build_restorer(args) -> Callable:
                                tile_batch=args.tile_batch)
 
     return tiled_fn
+
+
+def _mesh_group(args):
+    """The process group of --mesh_data ranks, started where it is not up
+    (SystemExit in JAX's scripts; ValueError here)."""
+    if not args.tile:
+        raise ValueError("--mesh_data splits an image's tiles over the "
+                         "ranks: it needs --tile")
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world != args.mesh_data:
+        raise ValueError(
+            f"--mesh_data {args.mesh_data} needs a process group of "
+            f"{args.mesh_data} ranks; {world} are up (launch with torchrun "
+            f"--nproc_per_node {args.mesh_data})")
+    init_multihost(args.dist_backend, args.device, world_size=world)
+    return dist.group.WORLD
 
 
 def _without_tf32(fn: Callable) -> Callable:
@@ -144,6 +190,16 @@ def main(argv: Optional[Sequence[str]] = None):
     without ground truth), gopro and realblur, the crop count for dnd."""
     args = eval_argparser().parse_args(argv)
     fn = build_restorer(args)
+    if args.mesh_data and dist.is_initialized() and dist.get_rank() != 0:
+        # every rank restores its share of each image; rank 0 writes
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(io.StringIO()):
+            args.result_dir = tmp
+            return _run_harness(args, fn)
+    return _run_harness(args, fn)
+
+
+def _run_harness(args, fn: Callable):
     if args.harness == "sidd":
         from uformer_tpu_torch.eval.sidd import run_sidd_eval
 

@@ -88,6 +88,20 @@ def _blend_window(length: int, ramp: int, lo_interior: bool,
     return w
 
 
+def tile_weights(y: int, x: int, th: int, tw: int, H: int, W: int,
+                 margin: int, ramp: int):
+    """The part of a th x tw tile at (y, x) of an H x W image that counts,
+    `margin` cropped on interior edges only, and its blend weights:
+    (y0, y1, x0, x1, (y1 - y0, x1 - x0) weights)."""
+    y0 = margin if y > 0 else 0
+    y1 = th - margin if y + th < H else th
+    x0 = margin if x > 0 else 0
+    x1 = tw - margin if x + tw < W else tw
+    wy = _blend_window(y1 - y0, ramp, y > 0, y + th < H)
+    wx = _blend_window(x1 - x0, ramp, x > 0, x + tw < W)
+    return y0, y1, x0, x1, wy[:, None] * wx[None, :]
+
+
 def tiled_inference(fn: Callable, img: np.ndarray, tile: int = 256,
                     overlap: int = 32, factor: int = 128,
                     margin: int | None = None,
@@ -146,14 +160,8 @@ def tiled_inference(fn: Callable, img: np.ndarray, tile: int = 256,
                 [chunk, np.repeat(chunk[-1:], cb - len(chunk), axis=0)])
         outs = np.asarray(fn(chunk))[:len(sel), :th, :tw]
         for ((y, x), b), out in zip(sel, outs):
-            # crop `margin` on interior edges only
-            y0 = margin if y > 0 else 0
-            y1 = th - margin if y + th < H else th
-            x0 = margin if x > 0 else 0
-            x1 = tw - margin if x + tw < W else tw
-            wy = _blend_window(y1 - y0, ramp, y > 0, y + th < H)
-            wx = _blend_window(x1 - x0, ramp, x > 0, x + tw < W)
-            w = wy[:, None] * wx[None, :]
+            y0, y1, x0, x1, w = tile_weights(y, x, th, tw, H, W, margin,
+                                             ramp)
             acc[b, y + y0:y + y1, x + x0:x + x1] += \
                 out[y0:y1, x0:x1] * w[:, :, None]
             if b == 0:

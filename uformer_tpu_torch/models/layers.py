@@ -49,6 +49,7 @@ the stages stay cuDNN (`F.conv2d`).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -119,13 +120,26 @@ def _conv_params(conv: nn.Module, dtype: torch.dtype) -> Params:
     return {"w": conv.weight.to(dtype), "b": conv.bias.to(dtype)}
 
 
+@dataclass(frozen=True)
+class BatchRows:
+    """A rank's rows [start, start + size) of a global batch of `total`,
+    with the generator every rank holds in the same state: a draw is made
+    for the global batch and each rank keeps its rows, so the generator
+    ends a data-parallel step where the one-process step leaves it."""
+    generator: torch.Generator
+    start: int
+    total: int
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth (`uformer_tpu` layers.py:60-77): in
     training, each sample's branch is kept with probability 1 - rate and
     then divided by it. The mask is drawn from the generator passed in,
     never from the global RNG; a generator on the CPU serves tensors on any
-    device, its masks copied without a stream sync. Identity in eval and
-    at rate 0. `draw` draws a mask alone, for a caller that hands it in
+    device, its masks copied without a stream sync. Given `BatchRows`, the
+    mask is drawn for the global batch and this rank keeps its rows (JAX
+    draws it for the global batch of its one program). Identity in eval
+    and at rate 0. `draw` draws a mask alone, for a caller that hands it in
     later (`keep`): a checkpointed block's recompute must see the masks of
     its first forward (`BasicLayer`)."""
 
@@ -134,14 +148,23 @@ class DropPath(nn.Module):
         self.rate = float(rate)
 
     def draw(self, batch: int, device: torch.device,
-             generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
-        """The (batch,) keep mask on `device`, or None where inactive."""
+             generator) -> Optional[torch.Tensor]:
+        """The (batch,) keep mask on `device`, or None where inactive.
+        generator: a torch.Generator, or `BatchRows` of a global batch."""
         if not self.training or self.rate == 0.0:
             return None
         if generator is None:
             raise ValueError("DropPath in training needs a torch.Generator")
-        u = torch.rand(batch, generator=generator, device=generator.device)
-        return to_device_async(u < 1.0 - self.rate, device)
+        start, total = 0, batch
+        if isinstance(generator, BatchRows):
+            start, total = generator.start, generator.total
+            generator = generator.generator
+            if start + batch > total:
+                raise ValueError(f"rows [{start}, {start + batch}) outside "
+                                 f"a global batch of {total}")
+        u = torch.rand(total, generator=generator, device=generator.device)
+        return to_device_async(u[start:start + batch] < 1.0 - self.rate,
+                               device)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,

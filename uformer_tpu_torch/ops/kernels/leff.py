@@ -58,7 +58,7 @@ def fused_leff(x: torch.Tensor, w1, b1, wd, bd, w2, b2, ln_s=None, ln_b=None,
     Ch = w1.shape[-1]
     lib = load()
     is_bf16 = int(x.dtype == torch.bfloat16)
-    th = lib.uf_leff_tile_rows(is_bf16, C, Ch)
+    th = tile_rows(x, Ch)
     tw = 8 if th > 1 else 1
     if C % 16 or Ch % HIDDEN_CHUNK or H % th or W % tw:
         raise ValueError(f"kernel needs C % 16 == 0, Ch % {HIDDEN_CHUNK} "
@@ -88,6 +88,16 @@ def fused_leff(x: torch.Tensor, w1, b1, wd, bd, w2, b2, ln_s=None, ln_b=None,
 
 fused_leff.launches = 0
 fused_leff.plain_calls = 0
+
+
+def tile_rows(x: torch.Tensor, Ch: int) -> int:
+    """The multiple of rows `fused_leff` takes for x's dtype and width at
+    hidden width Ch: its fp32 tile's height on a card tensor (the bf16
+    tiles mask partial tiles: 1), and 1 for the plain version."""
+    if x.device.type == "cpu":
+        return 1
+    return load().uf_leff_tile_rows(int(x.dtype == torch.bfloat16),
+                                    x.shape[-1], Ch)
 
 
 def _f32(t):

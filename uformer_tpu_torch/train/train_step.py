@@ -13,7 +13,8 @@ without a cross-modulator, with or without `use_checkpoint`): the
 attention-image, attention-block and LeFF kernels and their backward
 kernels; UNet trains on cuDNN alone. It refuses any other model (conv
 projection, other windows or head dims) before the step runs; no plain
-version stands in on the card.
+version stands in on the card. Over a data mesh the step runs under
+DistributedDataParallel (`make_train_step(mesh=...)`).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from torch import nn
 
 from uformer_tpu_torch.data.augment import mixup_batch
-from uformer_tpu_torch.models.layers import LeWinBlock
+from uformer_tpu_torch.models.layers import BatchRows, LeWinBlock
 from uformer_tpu_torch.train.losses import charbonnier_loss
 from uformer_tpu_torch.train.schedules import Schedule
 
@@ -86,9 +87,26 @@ class TrainState:
     step: int = 0
 
 
+def data_parallel(model: nn.Module, mesh) -> nn.Module:
+    """`model` wrapped in DistributedDataParallel over the mesh's group:
+    its constructor broadcasts rank 0's weights (JAX's `replicate`), its
+    backward averages the gradients. Frozen parameters (requires_grad
+    False) stay out of its buckets. A cross-modulator block's
+    `norm_cross`, built and never applied (JAX layers.py:729-732), gets no
+    gradient: such a model is wrapped with find_unused_parameters."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    unused = any(isinstance(m, LeWinBlock) and m.norm_cross is not None
+                 for m in model.modules())
+    return DistributedDataParallel(
+        model, process_group=mesh.group, broadcast_buffers=False,
+        gradient_as_bucket_view=True, find_unused_parameters=unused)
+
+
 def make_train_step(model: nn.Module, loss_fn: Callable = charbonnier_loss,
                     mixup_after_epoch: Optional[int] = None,
-                    steps_per_epoch: int = 1, plain: bool = False):
+                    steps_per_epoch: int = 1, plain: bool = False,
+                    mesh=None):
     """Build train_step(state, batch, generator) -> loss (float32 scalar).
 
     batch: {"input": (B, H, W, C), "target": (B, H, W, 3)} on the model's
@@ -98,7 +116,19 @@ def make_train_step(model: nn.Module, loss_fn: Callable = charbonnier_loss,
     On the card the kernel path runs every attention and LeFF sub-block
     forward and backward through the kernels, and raises
     NotImplementedError before the step for a model with blocks in
-    `blocks_without_backward_kernel`."""
+    `blocks_without_backward_kernel`.
+
+    With a `parallel.Mesh` that has a process group, the batch is this
+    rank's rows of the global batch (an even share), the model runs under
+    `data_parallel`, and MixUp and DropPath draw for the global batch
+    from a generator that every rank holds in one state (`BatchRows`):
+    loss, gradients, parameters and the generator's state follow the
+    one-process step on the global batch. The loss returned is this
+    rank's; gradients are averaged over the ranks."""
+    net = model
+    group = None
+    if mesh is not None and mesh.group is not None:
+        net, group = data_parallel(model, mesh), mesh.group
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> torch.Tensor:
@@ -115,10 +145,14 @@ def make_train_step(model: nn.Module, loss_fn: Callable = charbonnier_loss,
                              f"{tuple(inp.shape)} vs {tuple(tgt.shape)}")
         if mixup_after_epoch is not None \
                 and state.step // steps_per_epoch + 1 > mixup_after_epoch:
-            tgt, inp = mixup_batch(generator, tgt, inp)
+            tgt, inp = mixup_batch(generator, tgt, inp, group=group)
+        rows = generator
+        if group is not None:
+            local = inp.shape[0]
+            rows = BatchRows(generator, mesh.rank * local, mesh.size * local)
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model(inp, plain=plain, generator=generator), tgt)
+        loss = loss_fn(net(inp, plain=plain, generator=rows), tgt)
         loss.backward()
         state.optimizer.step_at(state.step)
         state.step += 1

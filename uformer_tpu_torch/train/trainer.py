@@ -13,10 +13,16 @@ epoch. One generator, seeded with `opt.seed`, draws MixUp and DropPath,
 and restarts from the seed on resume, as the JAX package's PRNGKey does;
 fresh weights are drawn from the same seed.
 
-Left out: the JAX package's mesh and multi-host branches (sharded batches,
-one writer, gathered saves), with ROADMAP.md port queue 1 item 4;
-`check_supported` refuses a mesh. Kept from the JAX package as they are
-(ROADMAP.md port queue 1 item 2): no validation sweep before training.
+Data-parallel (`opt.mesh_data` N > 1, over the process group of N ranks
+that the CLI starts; `uformer_tpu/train/trainer.py:64-300`): every rank
+loads only its rows of each global batch (the same seeded order), the
+step runs under DistributedDataParallel (`make_train_step(mesh=...)`),
+the epoch's loss sum is all-reduced once an epoch, validation runs
+replicated on every rank over the whole set, as JAX's does, rank 0 alone
+logs and writes `.pth` files, resume reads the file on every rank, and
+`fit` ends with the weights' crc32 compared across ranks and a barrier.
+Kept from the JAX package as they are (ROADMAP.md port queue 1 item 2):
+no validation sweep before training.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import time
 from typing import Dict, Iterable
 
 import torch
+import torch.distributed as dist
 
 from uformer_tpu_torch.config import (
     Options,
@@ -45,6 +52,11 @@ from uformer_tpu_torch.data.datasets import (
 from uformer_tpu_torch.eval.metrics import batch_psnr
 from uformer_tpu_torch.eval.padding import pad_to_multiple, unpad
 from uformer_tpu_torch.models.registry import get_arch
+from uformer_tpu_torch.parallel.mesh import make_mesh, verify_replicated
+from uformer_tpu_torch.parallel.multihost import (
+    local_batch_range,
+    rank_device,
+)
 from uformer_tpu_torch.train.checkpoints import (
     checkpoint_path,
     load_checkpoint,
@@ -73,13 +85,21 @@ class Trainer:
                 f"device {opt.device}: torch.cuda.is_available() is false "
                 f"(the trainer never falls back to the CPU; device 'cpu' "
                 f"runs the kernels' plain versions)")
+        self.mesh = None
+        if (opt.mesh_data or 1) > 1:
+            self.device = rank_device(opt.device)
+            self.mesh = make_mesh(opt.mesh_data, opt.mesh_model,
+                                  self.device)
+        # one writer of logs and checkpoints, as in JAX and the reference
+        self.is_main = self.mesh is None or self.mesh.rank == 0
         self.dtype = torch_dtype(opt)
         self.plain = runs_plain(opt)
         self.model = self._seeded_model().to(self.device)
         self.log_dir = os.path.join(opt.save_dir, opt.mode,
                                     opt.arch + opt.env)
         self.model_dir = os.path.join(self.log_dir, "models")
-        os.makedirs(self.model_dir, exist_ok=True)
+        if self.is_main:
+            os.makedirs(self.model_dir, exist_ok=True)
         ts = datetime.datetime.now().isoformat()
         self.logname = os.path.join(self.log_dir, ts + ".txt")
         self.log(str(opt))
@@ -88,6 +108,8 @@ class Trainer:
                      "PyTorch version")
 
     def log(self, msg: str):
+        if not self.is_main:
+            return
         print(msg)
         with open(self.logname, "a") as f:
             f.write(msg + "\n")
@@ -118,7 +140,8 @@ class Trainer:
         mixup_after = 5 if opt.mode == "denoising" else None
         self.train_step = make_train_step(
             self.model, mixup_after_epoch=mixup_after,
-            steps_per_epoch=steps_per_epoch, plain=self.plain)
+            steps_per_epoch=steps_per_epoch, plain=self.plain,
+            mesh=self.mesh)
         self.eval_step = make_eval_step(self.model, plain=self.plain)
         self.sched = sched
         self.steps_per_epoch = steps_per_epoch
@@ -186,6 +209,12 @@ class Trainer:
         steps_per_epoch = max(len(train_dataset) // opt.batch_size, 1)
         self.build(steps_per_epoch)
         state = self.init_state(resume=opt.resume)
+        local_range = None
+        if self.mesh is not None:
+            local_range = local_batch_range(opt.batch_size, self.mesh.group)
+            self.log(f"data-parallel: {self.mesh.size} ranks, local batch "
+                     f"rows [{local_range[0]}, "
+                     f"{local_range[0] + local_range[1]})")
         eval_now = max(steps_per_epoch // 4, 1)
         best_psnr, best_epoch, best_iter = 0.0, 0, 0
         generator = torch.Generator(device="cpu").manual_seed(opt.seed)
@@ -207,7 +236,8 @@ class Trainer:
                                      device=self.device)
             it = batch_iterator(train_dataset, opt.batch_size, shuffle=True,
                                 seed=opt.seed + epoch,
-                                num_threads=opt.workers)
+                                num_threads=opt.workers,
+                                local_range=local_range)
             for i, batch in enumerate(prefetch_to_device(it, self.device)):
                 epoch_loss += self.train_step(state, batch, generator)
 
@@ -226,6 +256,11 @@ class Trainer:
             # reference logs get_lr() AFTER scheduler.step(), i.e. the LR
             # the next epoch will run at (train_denoise.py:218-221)
             lr = float(self.sched(state.step))
+            if self.mesh is not None:
+                # each rank summed its rows' mean losses: their mean is the
+                # global batch's
+                dist.all_reduce(epoch_loss, group=self.mesh.group)
+                epoch_loss /= self.mesh.size
             self.log("Epoch: {}\tTime: {:.4f}\tLoss: {:.4f}\t"
                      "LearningRate {:.6f}".format(
                          epoch, time.time() - t0, float(epoch_loss), lr))
@@ -233,13 +268,21 @@ class Trainer:
             if epoch % opt.checkpoint == 0:
                 self._save(f"model_epoch_{epoch}", epoch, state)
         wait_for_saves()
+        if self.mesh is not None:
+            crc = verify_replicated(self.model, self.mesh)
+            self.log(f"weights crc32 {crc:08x}, equal on {self.mesh.size} "
+                     f"ranks")
+            dist.barrier(group=self.mesh.group)
         self.log("Now time is : " + datetime.datetime.now().isoformat())
         return state, best_psnr
 
     def _save(self, name: str, epoch: int, state: TrainState,
               async_save: bool = False):
         """best and latest are written on a thread (the step loop goes on
-        once the weights are on the host); epoch-N in line."""
+        once the weights are on the host); epoch-N in line. Rank 0 alone
+        writes (every rank holds the same weights)."""
+        if not self.is_main:
+            return
         save_checkpoint(self.model_dir, name, epoch, self.model.state_dict(),
                         state.optimizer.state_dict(), step=state.step,
                         async_save=async_save)
