@@ -126,8 +126,7 @@ Phases, each raising on failure (no phase is caught):
                step 16, weights and AdamW moments equal bits to the file,
                the logged LRs the schedule's; the native data plane built
                and equal bits to crop, dihedral and uint8 x float32(1/255)
-               (within one ulp of the numpy plane, which divides); Uformer
-               at embed 8, window 2 refused on the card before any launch.
+               (within one ulp of the numpy plane, which divides).
                Numbers: the trainer's ms a step against the train phase's
                bare step, the device idle share between steps, the
                loader's MP/s (native and numpy, decoding and cached), the
@@ -190,6 +189,36 @@ Phases, each raising on failure (no phase is caught):
                for an epoch of 2 steps: the weights' crc32 equal on both
                ranks, one log, rank 0's .pth files. The ranks time-slice
                one card: their ms are no scaling figure.
+ 18. geometries - windows 1-8 and head dim 8 in the forward kernels.
+               Each extended kernel against its plain version, fp32 and
+               bf16: kernel 5 at windows 1, 2, 3, 4, 6, 7 (shift 0, and
+               win // 2 at w_off 37 with LN1) at head dim 8 (C 8, 16), at
+               C 128-512 on 4- and 16-token windows (head dim 16, 32 and
+               8) and at window 8, head dim 8; kernel 4 at every window
+               1-8, head dim 8, 16, 32, shift 0 and win // 2; kernel 1 at
+               head dim 8, C 32 and 64, shift 0 and 4, residual on and
+               off; the stage at head dim 8, C 128, on 8^2 and 16^2; LeFF
+               at C 8 with and without LN and residual on 8^2 and 64^2.
+               The flagship golden (tests/golden/uformer_flagship.npz:
+               embed 8, 64^2, the bottleneck at window 4) in fp32 through
+               the kernels, stage by stage within 1e-4, 1/8/8/16 launches
+               (stage/attention_image/attention_block/leff), no plain
+               call. Serving (seeded numpy weights over each model's
+               parameter names, as phase 5: 4 bf16 requests of batch 8 at
+               256^2, launches each, no plain call, against the fp32
+               plain path by the serve rule): Uformer_B at train_ps 64
+               (5/4/2/6) and 32 (3/4/18/22), Uformer at embed 8
+               (2/8/6/14), then Uformer at win_size 4 at batch 2
+               (0/0/18/18); kernel 5 at the train_ps 64 and 32 stages and
+               the stage and kernel 1 at head dim 8 timed against their
+               plain versions and bounds, kernel 4 alone at those cells'
+               cores beside SDPA; serve B's forward at train_ps
+               64 against 128 in turns. The SIDD CLI at --train_ps 64 in
+               bf16 from a .pth of seeded weights at that geometry (its
+               launches, no plain call, Idenoised.mat against the plain
+               path). Uformer at embed 8, window 2: the forward through
+               the kernels (18 attention-block and 18 LeFF launches), the
+               train step refused before any launch.
 
 Tolerances: fp32 max-abs <= 1e-4 * (1 + max|ref|); bf16 error against the
 fp32 plain result <= 1.5 x the bf16 plain version's error + 1e-3; for
@@ -202,7 +231,9 @@ the HBM rate of an H100 SXM (the depthwise kernel's operations, and the
 eval phase's fp32 ones, at the float32 rate outside the tensor cores).
 The line before the last lists every kernel (`launches_spatial` and
 `launches_ddp`: rank 0's launches in phase 17's 2-rank bf16 spatial
-forward and DDP step); the last line is {"ok": true, "device": {...}}.
+forward and DDP step; `launches_ps64`, `_ps32`, `_e8`, `_win4`: a
+request's in phase 18's serving, `launches_flagship` the golden's
+forward); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -388,14 +419,15 @@ def graph_ms(fn, n: int = 20) -> float:
     return cuda_ms(graph.replay) / n
 
 
-def attn_cost(tokens, C, nH, s=2, mod=True, ln=True):
+def attn_cost(tokens, C, nH, s=2, mod=True, ln=True, N=64):
     """(operations, bytes) of an attention sub-block (kernels 1 and 5) over
-    `tokens` tokens of width C: the q, kv and output projections and two
-    64 x 64 x D products per head and window; x read and y written once,
-    the weights, biases, bias table [, modulator, LN] read once."""
-    weights = (4 * C * C * s + 4 * C * 4 + nH * 4096 * 4
-               + (64 * C * s if mod else 0) + (2 * C * 4 if ln else 0))
-    return 2 * tokens * C * (4 * C + 128), 2 * tokens * C * s + weights
+    `tokens` tokens of width C in windows of N tokens: the q, kv and output
+    projections and two N x N x D products per head and window; x read and
+    y written once, the weights, biases, bias table [, modulator, LN] read
+    once."""
+    weights = (4 * C * C * s + 4 * C * 4 + nH * N * N * 4
+               + (N * C * s if mod else 0) + (2 * C * 4 if ln else 0))
+    return 2 * tokens * C * (4 * C + 2 * N), 2 * tokens * C * s + weights
 
 
 def leff_cost(tokens, C, Ch, s=2):
@@ -415,10 +447,11 @@ def stage_cost(tokens, C, nH, Ch, n, s=2, mod=True):
     return n * (fa + fl), act + n * (ba + bl - 2 * act)
 
 
-def core_cost(nH, Bw, D, s=2):
-    """The window-attention core: q, k, v read and the output written."""
-    return (4 * nH * Bw * 64 * 64 * D,
-            4 * nH * Bw * 64 * D * s + nH * 4096 * 4)
+def core_cost(nH, Bw, D, s=2, N=64):
+    """The window-attention core on windows of N tokens: q, k, v read and
+    the output written."""
+    return (4 * nH * Bw * N * N * D,
+            4 * nH * Bw * N * D * s + nH * N * N * 4)
 
 
 def dwconv_cost(pixels, C, s=2, ws=2, nq=1):
@@ -990,9 +1023,10 @@ def golden_conv_phase(device) -> Checks:
     return checks
 
 
-def serve_phase(make_model, device, expected: dict, label: str):
+def serve_phase(make_model, device, expected: dict, label: str,
+                batch: int = BATCH_SERVE):
     """A bf16 Restorer of make_model() (a float32 model at 256^2 on the
-    card) answers N_REQUESTS requests of batch BATCH_SERVE, each launching
+    card) answers N_REQUESTS requests of `batch`, each launching
     `expected`; returns the summary, the per-kernel launch totals and the
     checks of kernel path against plain path."""
     from uformer_tpu_torch.ops import kernels as K
@@ -1000,7 +1034,7 @@ def serve_phase(make_model, device, expected: dict, label: str):
 
     restorer = Restorer(make_model(), torch.bfloat16, device)
     gen = torch.Generator(device="cpu").manual_seed(1)
-    shape = (BATCH_SERVE, RES_SERVE, RES_SERVE, 3)
+    shape = (batch, RES_SERVE, RES_SERVE, 3)
     requests = [torch.rand(shape, generator=gen)
                 for _ in range(N_REQUESTS + 1)]
     restorer(requests[0])  # warm-up: cuDNN plans, kernel attributes
@@ -1035,7 +1069,7 @@ def serve_phase(make_model, device, expected: dict, label: str):
             raise RuntimeError(f"{label}: request {i} launched {c}, "
                                f"expected {expected}")
     med = float(np.median(ms))
-    mps = BATCH_SERVE * RES_SERVE * RES_SERVE / 1e6 / (med / 1e3)
+    mps = batch * RES_SERVE * RES_SERVE / 1e6 / (med / 1e3)
     print(f"  median {med:.3f} ms/request  {mps:.2f} MP/s  peak "
           f"{peak / 2**20:.1f} MiB", flush=True)
 
@@ -1059,13 +1093,15 @@ def serve_phase(make_model, device, expected: dict, label: str):
     return restorer, requests[1].to(device), summary, launches, checks
 
 
-def timing_phase(restorer, x, s: int = 2, peak: float = PEAK_BF16):
+def timing_phase(restorer, x, s: int = 2, peak: float = PEAK_BF16,
+                 layers=LAYERS, forward: bool = True):
     """Device time of each kernel and of its plain version on the inputs
     the forward of x (bs8 256^2 bf16 in the serve phases) gives it, stage
-    by stage, with each call's bound (s bytes a value, operations at
-    `peak`), and of the whole forward on each path. Returns the rows, the
-    per-kernel totals over one forward (ms, plain ms, launches, bound) and
-    the forward's times."""
+    by stage (the stages in `layers`), with each call's bound (s bytes a
+    value, operations at `peak`), and (with `forward`) of the whole
+    forward on each path. Returns the rows, the per-kernel totals over
+    those stages (ms, plain ms, launches, bound) and the forward's times
+    (None without `forward`)."""
     from uformer_tpu_torch.ops import kernels as K
     from uformer_tpu_torch.ops.norm import layer_norm
     from uformer_tpu_torch.ops.window import cyclic_shift, window_partition
@@ -1074,14 +1110,14 @@ def timing_phase(restorer, x, s: int = 2, peak: float = PEAK_BF16):
     inputs = {}
     hooks = [getattr(model, n).register_forward_pre_hook(
         lambda _m, args, n=n: inputs.__setitem__(n, args[0]))
-        for n in LAYERS]
+        for n in layers]
     with torch.no_grad():
         model(x)
     for h in hooks:
         h.remove()
     rows, totals = [], {}
     with torch.no_grad():
-        for name in LAYERS:
+        for name in layers:
             layer, xin = getattr(model, name), inputs[name]
             B, H, W, C = xin.shape
             tokens, nH = B * H * W, layer.num_heads
@@ -1131,7 +1167,7 @@ def timing_phase(restorer, x, s: int = 2, peak: float = PEAK_BF16):
                             lambda wnd=wnd, bargs=bargs, kw=kw:
                             K.attention_block_reference(wnd, *bargs, **kw),
                             attn_cost(tokens, C, nH, s=s, mod=has_mod,
-                                      ln=False)))
+                                      ln=False, N=blk.win_size ** 2)))
                     pair.append(("leff",
                                  lambda xa=xa, largs=largs, lkw=lkw:
                                  K.fused_leff(xa, *largs, **lkw),
@@ -1154,6 +1190,8 @@ def timing_phase(restorer, x, s: int = 2, peak: float = PEAK_BF16):
                       f"{k_ms:8.3f} ms  plain {p_ms:8.3f} ms  bound "
                       f"{b_ms:7.4f} ms  {rate(cost, k_ms, b_ms)}",
                       flush=True)
+        if not forward:
+            return rows, totals, None
         p1 = cuda_ms(lambda: model(x, plain=True), reps=5)
         k1 = cuda_ms(lambda: model(x), reps=5)
         k2 = cuda_ms(lambda: model(x), reps=5)
@@ -1369,58 +1407,67 @@ CORE_TIMING_SHAPES = [(1, 8192, 16, 256), (1, 8192, 32, 256),
                       (4, 512, 16, 64)]
 
 
+def time_core(q, k, v, bias, *, win: int, shift: int, res: int) -> dict:
+    """Kernel 4 on (nH, Bw, N, D) q, k, v of windows of N = win² tokens
+    (res x res images): the kernel, its plain version and
+    F.scaled_dot_product_attention with the bias and shift mask as one
+    additive bf16 mask (a yardstick; the port never calls it), in the
+    order plain, kernel, library, library, kernel, plain; its bound."""
+    from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.ops.kernels.window_attention import window_mask
+
+    nH, Bw, N, D = q.shape
+    kw = dict(win=win, shift=shift, H=res, W=res, scale=D ** -0.5)
+    full = bias[:, None, None].expand(nH, 1, 1, N, N)
+    if shift:
+        mask = window_mask(res, res, win, shift, Bw, 0, q.device)
+        full = full + mask[None, None]
+    nW = full.shape[2]
+    full = full.expand(nH, Bw // nW, nW, N, N).reshape(nH, Bw, N, N) \
+        .to(torch.bfloat16).contiguous()
+
+    def fused():
+        return K.fused_window_attention(q, k, v, bias, **kw)
+
+    def plain():
+        return K.window_attention_reference(q, k, v, bias, **kw)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=full,
+                                              scale=D ** -0.5)
+
+    p1, k1, l1 = cuda_ms(plain), cuda_ms(fused), cuda_ms(library)
+    l2, k2, p2 = cuda_ms(library), cuda_ms(fused), cuda_ms(plain)
+    t = {}
+    tally(t, "window_attention", (k1 + k2) / 2, (p1 + p2) / 2,
+          core_cost(nH, Bw, D, N=N))
+    out = dict(t["window_attention"], library_ms=(l1 + l2) / 2,
+               graph_ms=graph_ms(fused), shape=[nH, Bw, N, D], shift=shift,
+               library_max_abs_err_vs_plain=max_err(library(), plain()))
+    print(f"  window_attention {tuple(out['shape'])} shift {shift}: "
+          f"kernel {out['ms']:.4f} ms ({out['graph_ms']:.4f} graphed), "
+          f"plain {out['plain_ms']:.4f} ms, SDPA "
+          f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+          f"({bound_by(out)})", flush=True)
+    return out
+
+
 @torch.no_grad()
 def core_timing(model_t, device) -> dict:
     """The window-attention core alone, bf16, shift 4, at each
     CORE_TIMING_SHAPES shape (the first with the bias of Uformer_T's enc0,
-    the others random): the kernel, its plain version and
-    F.scaled_dot_product_attention with the bias and shift mask as one
-    additive mask (a yardstick; the port never calls it), in the order
-    plain, kernel, library, library, kernel, plain. Returns the first
-    shape's timing, the others under "more"."""
-    from uformer_tpu_torch.ops import kernels as K
-    from uformer_tpu_torch.ops.kernels.window_attention import window_mask
-
+    the others random), by `time_core`. Returns the first shape's timing,
+    the others under "more"."""
     gen = torch.Generator(device="cpu").manual_seed(8)
-    shift, outs = 4, []
+    outs = []
     for nH, Bw, D, res in CORE_TIMING_SHAPES:
         q, k, v = (torch.randn((nH, Bw, 64, D), generator=gen)
                    .to(device, torch.bfloat16) for _ in range(3))
         bias = (model_t.encoderlayer_0.blocks[1].kernel_params(
             torch.float32)["bias"] if not outs else
             (0.5 * torch.randn((nH, 64, 64), generator=gen)).to(device))
-        kw = dict(win=8, shift=shift, H=res, W=res, scale=D ** -0.5)
-        mask = window_mask(res, res, 8, shift, Bw, 0, device)  # (nW, 64, 64)
-        full = (bias[:, None, None] + mask[None, None]) \
-            .expand(nH, Bw // mask.shape[0], *mask.shape) \
-            .reshape(nH, Bw, 64, 64).to(torch.bfloat16).contiguous()
-
-        def fused():
-            return K.fused_window_attention(q, k, v, bias, **kw)
-
-        def plain():
-            return K.window_attention_reference(q, k, v, bias, **kw)
-
-        def library():
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=full,
-                                                  scale=D ** -0.5)
-
-        p1, k1, l1 = cuda_ms(plain), cuda_ms(fused), cuda_ms(library)
-        l2, k2, p2 = cuda_ms(library), cuda_ms(fused), cuda_ms(plain)
-        t = {}
-        tally(t, "window_attention", (k1 + k2) / 2, (p1 + p2) / 2,
-              core_cost(nH, Bw, D))
-        out = dict(t["window_attention"], library_ms=(l1 + l2) / 2,
-                   graph_ms=graph_ms(fused), shape=[nH, Bw, 64, D],
-                   shift=shift,
-                   library_max_abs_err_vs_plain=max_err(library(), plain()))
-        print(f"  window_attention {tuple(out['shape'])} shift {shift}: "
-              f"kernel {out['ms']:.4f} ms ({out['graph_ms']:.4f} graphed), "
-              f"plain {out['plain_ms']:.4f} ms, SDPA "
-              f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
-              f"({bound_by(out)})", flush=True)
-        outs.append(out)
-        del q, k, v, full
+        outs.append(time_core(q, k, v, bias, win=8, shift=4, res=res))
+        del q, k, v
     return dict(outs[0], more=outs[1:])
 
 
@@ -2514,10 +2561,12 @@ def loop_log_lr(trainer) -> list:
                 if line.startswith("Epoch: ")]
 
 
-def refusal_checks(device) -> None:
-    """At a geometry the kernels do not take (embed 8, window 2) the card
-    refuses before any launch: the forward's wrapper raises, the train
-    step names the uncovered blocks, and no plain version stands in."""
+def refusal_checks(device) -> dict:
+    """Uformer at embed 8, window 2 (every block at head dim 8 on 4-token
+    windows) on the card: its forward runs through the kernels (18
+    attention-block and 18 LeFF launches, no plain call, finite output);
+    its train step is refused before any launch, naming the blocks the
+    backward kernels do not take. Returns the forward's launches."""
     from uformer_tpu_torch import get_arch
     from uformer_tpu_torch.ops import kernels as K
     from uformer_tpu_torch.train import TrainState, make_optimizer, \
@@ -2527,28 +2576,36 @@ def refusal_checks(device) -> None:
                       "train_ps": 32}).to(device)
     x = torch.rand(2, 32, 32, 3, device=device)
     K.reset_counts()
-    refused = []
-    try:
-        with torch.no_grad():
-            model.eval()(x)
-    except ValueError as exc:
-        refused.append(f"forward: {exc}")
+    with torch.no_grad():
+        y = model.eval()(x)
+    torch.cuda.synchronize()
+    fwd = K.launch_counts()
+    want = dict(NO_LAUNCHES, attention_block=18, leff=18)
+    if fwd != want or any(K.plain_counts().values()) \
+            or not bool(torch.isfinite(y).all()):
+        raise RuntimeError(f"embed 8 window 2 forward on the card: launches "
+                           f"{fwd}, plain calls {K.plain_counts()}; expected "
+                           f"{want} and none")
     state = TrainState(model, make_optimizer(model.parameters(),
                                              lambda s: 2e-4))
     step = make_train_step(model)
+    K.reset_counts()
+    refused = None
     try:
         step(state, {"input": x, "target": x}, torch.Generator())
     except NotImplementedError as exc:
-        refused.append(f"train step: {exc}")
+        refused = str(exc)
     launched = {k: v for k, v in K.launch_counts().items() if v}
     plain = {k: v for k, v in K.plain_counts().items() if v}
-    if len(refused) != 2 or launched or plain:
-        raise RuntimeError(f"embed 8 window 2 on the card: refused "
-                           f"{refused}, launches {launched}, plain calls "
-                           f"{plain}; expected both refused before any "
+    if refused is None or launched or plain:
+        raise RuntimeError(f"embed 8 window 2 train step on the card: "
+                           f"refused {refused}, launches {launched}, plain "
+                           f"calls {plain}; expected refused before any "
                            f"launch")
-    print("  embed 8, window 2 on the card: " + "; ".join(
-        r[:100] for r in refused), flush=True)
+    print(f"  embed 8, window 2 on the card: forward 18 attention-block "
+          f"and 18 LeFF launches, no plain call; train step: "
+          f"{refused[:160]}", flush=True)
+    return fwd
 
 
 def train_loop_phase(tmp: Path, device, card: str, bare_ms: float):
@@ -2710,7 +2767,6 @@ def train_loop_phase(tmp: Path, device, card: str, bare_ms: float):
           f"{r['start_epoch']}, step {r['step']}, weights and "
           f"{r['moments']} AdamW states equal bits to the file; logged LRs "
           f"{lrs}", flush=True)
-    refusal_checks(device)
     return checks, summary, launches
 
 
@@ -3785,6 +3841,341 @@ def parallel_phase(tmp: Path, sd, device, card: str) -> tuple:
     return checks, summary, launches
 
 
+# phase 18, geometries: windows 1-8 and head dim 8 through the forward
+# kernels. Models: label -> (get_arch options, weight seed, launches a
+# forward by JAX's route, layers.py:773-775 and 979-985)
+GEOM_MODELS = {
+    "ps64": ({"arch": "Uformer_B", "train_ps": 64}, 1240,
+             dict(NO_LAUNCHES, stage=5, attention_image=4,
+                  attention_block=2, leff=6)),
+    "ps32": ({"arch": "Uformer_B", "train_ps": 32}, 1241,
+             dict(NO_LAUNCHES, stage=3, attention_image=4,
+                  attention_block=18, leff=22)),
+    "e8": ({"arch": "Uformer", "embed_dim": 8, "train_ps": 128}, 1242,
+           dict(NO_LAUNCHES, stage=2, attention_image=8,
+                attention_block=6, leff=14)),
+    "win4": ({"arch": "Uformer", "embed_dim": 32, "win_size": 4,
+              "train_ps": 128}, 1243,
+             dict(NO_LAUNCHES, attention_block=18, leff=18)),
+}
+BATCH_WIN4 = 2
+FLAGSHIP_LAUNCHES = dict(NO_LAUNCHES, stage=1, attention_image=8,
+                         attention_block=8, leff=16)
+# kernel 5 at the new shapes, (win, shift, w_off, C, heads, has_ln): head
+# dim 8 at C 8 and 16 on every window 1-7 (packed tiles) and at window 8;
+# head dim 16 and 32 at C 32-512 on 4- and 16-token windows; head dim 8 at
+# C 128 (an embed-8 model's bottleneck below window 8)
+GEOM_BLOCK_SHAPES = (
+    [(w, s, o, C, nH, ln) for w in (1, 2, 3, 4, 6, 7)
+     for s, o, ln in ((0, 0, False), (w // 2, 37, True))
+     for C, nH in ((8, 1), (16, 2))]
+    + [(w, s, o, C, nH, ln) for w in (2, 4)
+       for s, o, ln in ((0, 0, True), (w // 2, 37, False))
+       for C, nH in ((128, 8), (256, 8), (512, 16), (128, 16))]
+    + [(4, 2, 37, 32, 1, True), (4, 0, 0, 64, 2, False),
+       (8, 0, 0, 8, 1, False), (8, 4, 37, 16, 2, True)])
+# kernel 4: (win, head dim, heads), each at shift 0 and win // 2
+GEOM_CORE_SHAPES = [(w, D, nH) for w in (1, 2, 3, 4, 6, 7, 8)
+                    for D, nH in ((8, 2), (16, 1), (32, 2))]
+# kernel 4 alone at the cores of phase 18's cells, bs8 256^2: (heads,
+# windows, win, head dim, res, shift): ps64's bottleneck, ps32's enc3 and
+# bottleneck, e8's enc0 (shifted), win4's enc0 (shifted)
+GEOM_CORE_TIMING = [(16, 128, 4, 32, 16, 0), (8, 512, 4, 32, 32, 0),
+                    (16, 512, 2, 32, 16, 0), (1, 8192, 8, 8, 256, 4),
+                    (1, 32768, 4, 32, 256, 2)]
+# the stages of each model whose calls phase 18 times (bs8 256^2 bf16)
+GEOM_TIMED = {"ps64": ["conv"],
+              "ps32": ["encoderlayer_3", "conv", "decoderlayer_0"],
+              "e8": ["encoderlayer_0", "encoderlayer_2", "encoderlayer_3",
+                     "conv", "decoderlayer_0"]}
+
+
+def seeded_for(opt: dict, seed: int):
+    """Weights drawn with numpy from `seed` over the parameter names of
+    get_arch(opt), by the golden weights' rule."""
+    from uformer_tpu_torch import get_arch
+
+    model = get_arch(opt)
+    keys_shapes = [[k, list(v.shape)] for k, v in model.named_parameters()]
+    return golden_module().seeded_state_dict(keys_shapes, seed)
+
+
+def build_arch(opt: dict, sd, device):
+    from uformer_tpu_torch import get_arch
+    from uformer_tpu_torch.convert import load_numpy_state_dict
+
+    return load_numpy_state_dict(get_arch(opt), sd).to(device).eval()
+
+
+def _prm(inp: dict, device, low: tuple) -> dict:
+    """numpy operands -> {dtype: tensors}: the keys in `low` in that
+    dtype, the rest float32, as the kernels take them."""
+    return {dt: {k: None if v is None else torch.from_numpy(v).to(
+        device, dt if k in low else torch.float32) for k, v in inp.items()}
+        for dt in (torch.float32, torch.bfloat16)}
+
+
+def geometry_kernel_checks(checks: Checks, device) -> None:
+    """Each extended kernel against its plain version at every new shape,
+    fp32 (TF32 off) and bf16, by `compare`."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(18)
+
+    def mk(*shape, scale=0.3):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def xin(*shape, scale=0.3):
+        return torch.from_numpy(mk(*shape, scale=scale)).to(
+            device).bfloat16().float()
+
+    for win, shift, w_off, C, nH, has_ln in GEOM_BLOCK_SHAPES:
+        N, H, W = win * win, 4 * win, 4 * win
+        Bw = 2 * (H // win) * (W // win) + 3
+        prm = _prm(dict(mod=mk(N, C), ln_s=1.0 + mk(C), ln_b=mk(C),
+                        wq=mk(C, C), bq=mk(C), wkv=mk(C, 2 * C),
+                        bkv=mk(2 * C), wo=mk(C, C), bo=mk(C),
+                        bias=mk(nH, N, N)), device,
+                   ("mod", "wq", "wkv", "wo"))
+        kw = dict(win=win, shift=shift, H=H, W=W, scale=(C // nH) ** -0.5,
+                  num_heads=nH, has_ln=has_ln, w_off=w_off)
+        compare(checks, "attention_block",
+                f"win {win} shift {shift} off {w_off} C {C} D {C // nH} "
+                f"ln {int(has_ln)}",
+                lambda x, dt: K.fused_attention_block(
+                    x, *prm[dt].values(), **kw),
+                lambda x, dt: K.attention_block_reference(
+                    x, *prm[dt].values(), **kw), xin(Bw, N, C))
+    for win, D, nH in GEOM_CORE_SHAPES:
+        N, H, W = win * win, 2 * win, 4 * win
+        Bw = 5 * (H // win) * (W // win)
+        k, v = xin(nH, Bw, N, D, scale=0.5), xin(nH, Bw, N, D, scale=0.5)
+        bias = torch.from_numpy(mk(nH, N, N)).to(device)
+        for shift in sorted({0, win // 2}):
+            kw = dict(win=win, shift=shift, H=H, W=W, scale=D ** -0.5)
+            compare(checks, "window_attention",
+                    f"win {win} shift {shift} D {D} heads {nH}",
+                    lambda q, dt: K.fused_window_attention(
+                        q.to(dt), k.to(dt), v.to(dt), bias, **kw),
+                    lambda q, dt: K.window_attention_reference(
+                        q.to(dt), k.to(dt), v.to(dt), bias, **kw),
+                    xin(nH, Bw, N, D, scale=0.5))
+    for C in (32, 64):
+        nH = C // 8
+        prm = _prm(dict(mod=mk(64, C), ln_s=1.0 + mk(C), ln_b=mk(C),
+                        wq=mk(C, C), bq=mk(C), wkv=mk(C, 2 * C),
+                        bkv=mk(2 * C), wo=mk(C, C), bo=mk(C),
+                        bias=mk(nH, 64, 64)), device,
+                   ("mod", "wq", "wkv", "wo"))
+        for shift, residual in itertools.product((0, 4), (True, False)):
+            kw = dict(win=8, shift=shift, scale=8 ** -0.5, num_heads=nH,
+                      residual=residual)
+            compare(checks, "attention_image",
+                    f"D 8 C {C} shift {shift} res {int(residual)}",
+                    lambda x, dt: K.fused_attention_image(
+                        x, *prm[dt].values(), **kw),
+                    lambda x, dt: K.attention_image_reference(
+                        x, *prm[dt].values(), **kw), xin(2, 32, 32, C))
+    n, C, nH = 2, 128, 16
+    sp = dict(ln1_s=1.0 + mk(n, C, scale=0.1), ln1_b=mk(n, C, scale=0.1),
+              wq=mk(n, C, C, scale=0.1), bq=mk(n, C, scale=0.1),
+              wk=mk(n, C, C, scale=0.1), bk=mk(n, C, scale=0.1),
+              wv=mk(n, C, C, scale=0.1), bv=mk(n, C, scale=0.1),
+              wo=mk(n, C, C, scale=0.1), bo=mk(n, C, scale=0.1),
+              bias=mk(n, nH, 64, 64, scale=0.1), mod=mk(n, 64, C, scale=0.1),
+              ln2_s=1.0 + mk(n, C, scale=0.1), ln2_b=mk(n, C, scale=0.1),
+              w1=mk(n, C, 4 * C, scale=0.1), b1=mk(n, 4 * C, scale=0.1),
+              wd=mk(n, 3, 3, 4 * C, scale=0.1), bd=mk(n, 4 * C, scale=0.1),
+              w2=mk(n, 4 * C, C, scale=0.1), b2=mk(n, C, scale=0.1))
+    sprm = _prm(sp, device, ("wq", "wk", "wv", "wo", "mod", "w1", "wd",
+                             "w2"))
+    for res in (8, 16):
+        kw = dict(scale=8 ** -0.5, num_heads=nH, use_shift=res > 8,
+                  has_mod=True)
+        compare(checks, "stage", f"D 8 C 128 {res}^2",
+                lambda x, dt: K.fused_stage(x, sprm[dt], **kw),
+                lambda x, dt: K.stage_reference(x, sprm[dt], **kw),
+                xin(2, res, res, C))
+    C = 8
+    lprm = _prm(dict(w1=mk(C, 4 * C), b1=mk(4 * C), wd=mk(3, 3, 4 * C),
+                     bd=mk(4 * C), w2=mk(4 * C, C), b2=mk(C),
+                     ln_s=1.0 + mk(C), ln_b=mk(C)), device,
+                ("w1", "wd", "w2"))
+    for side, has_ln, residual in itertools.product(
+            (8, 64), (True, False), (True, False)):
+        def run(fn, has_ln=has_ln, residual=residual):
+            def call(x, dt):
+                p = lprm[dt]
+                ln = dict(ln_s=p["ln_s"], ln_b=p["ln_b"]) if has_ln else {}
+                return fn(x, *(p[k] for k in ("w1", "b1", "wd", "bd", "w2",
+                                              "b2")), **ln,
+                          residual=residual)
+            return call
+        compare(checks, "leff", f"C 8 {side}^2 ln {int(has_ln)} res "
+                f"{int(residual)}", run(K.fused_leff), run(K.leff_reference),
+                xin(2, side, side, C))
+
+
+def flagship_phase(device) -> tuple:
+    """tests/golden/uformer_flagship.npz (embed 8, 64^2, heads 1-8: head
+    dim 8 in the encoder, the bottleneck at window 4) in fp32 through the
+    kernels, stage by stage against the recorded torch activations within
+    tests/test_golden_parity.py's 1e-4; FLAGSHIP_LAUNCHES and no plain
+    call. Returns the checks and the launches."""
+    from uformer_tpu_torch.convert import load_numpy_state_dict
+    from uformer_tpu_torch.models import Uformer
+    from uformer_tpu_torch.ops import kernels as K
+
+    kw = {k: v for k, v in golden_module().FLAGSHIP.items()
+          if k != "token_mlp"}
+    kw = dict(kw, depths=tuple(kw["depths"]), num_heads=tuple(kw["num_heads"]))
+    data = np.load(REPO / "tests" / "golden" / "uformer_flagship.npz")
+    sd = {k[len("sd/"):]: data[k] for k in data.files if k.startswith("sd/")}
+    model = load_numpy_state_dict(Uformer(**kw), sd).to(device).eval()
+    acts = {}
+    hooks = [getattr(model, s).register_forward_hook(
+        lambda _m, _i, out, s=s: acts.__setitem__(s, out.float().cpu()))
+        for s in STAGES]
+    x = torch.from_numpy(data["input"].transpose(0, 2, 3, 1).copy())
+    K.reset_counts()
+    with torch.no_grad():
+        y = model(x.to(device)).cpu()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    launched = K.launch_counts()
+    print(f"  flagship launches {launched}", flush=True)
+    if launched != FLAGSHIP_LAUNCHES or any(K.plain_counts().values()):
+        raise RuntimeError(f"flagship: launches {launched}, plain calls "
+                           f"{K.plain_counts()}; expected "
+                           f"{FLAGSHIP_LAUNCHES} and none")
+    checks = Checks()
+    for s in STAGES:
+        want = to_nhwc(data[f"act/{s}"].astype(np.float32))
+        checks.add("model", f"flagship {s}",
+                   float(np.abs(acts[s].numpy() - want).max()), 1e-4, "fp32")
+    checks.add("model", "flagship output", float(np.abs(
+        y.numpy() - data["output"].transpose(0, 2, 3, 1)).max()), 1e-4,
+        "fp32")
+    return checks, launched
+
+
+def geometry_eval(tmp: Path, sd, device, checks: Checks) -> dict:
+    """The SIDD CLI at --train_ps 64 (Uformer_B's bottleneck at window 4)
+    in bf16 from a reference-format .pth of seeded weights at that
+    geometry: its launches (ps64's per request, no plain call) and
+    Idenoised.mat against the plain path by the serve rule."""
+    import scipy.io as sio
+
+    from uformer_tpu_torch.eval import cli
+    from uformer_tpu_torch.eval.sidd import load_sidd_val_noisy, restore_sidd
+    from uformer_tpu_torch.ops import kernels as K
+
+    n_img, n_blk, side = SIDD_SET
+    requests = n_img * -(-n_blk // SIDD_BATCH)
+    pth, sidd = write_eval_inputs(tmp, sd, "uformer_b_ps64_seeded")
+    K.reset_counts()
+    t0 = time.perf_counter()
+    score = cli.main(["sidd", "--input_dir", str(sidd), "--result_dir",
+                      str(tmp / "out"), "--weights", str(pth), "--dtype",
+                      "bfloat16", "--device", "cuda", "--train_ps", "64"])
+    secs = time.perf_counter() - t0
+    want = {k: requests * v for k, v in GEOM_MODELS["ps64"][2].items()}
+    got = K.launch_counts()
+    if got != want or any(K.plain_counts().values()):
+        raise RuntimeError(f"SIDD CLI --train_ps 64: launches {got}, plain "
+                           f"calls {K.plain_counts()}; expected {want}")
+    out = sio.loadmat(tmp / "out" / "Idenoised.mat")["Idenoised"]
+    noisy = load_sidd_val_noisy(str(sidd))
+    rs = eval_restorers(pth, device, train_ps=64)
+    ref = {dt: restore_sidd(model_numpy(rs[dt], True, []), noisy,
+                            SIDD_BATCH) for dt in rs}
+    eval_compare(checks, f"SIDD CLI --train_ps 64 {n_img}x{n_blk} {side}^2",
+                 {torch.bfloat16: out}, ref[torch.float32],
+                 ref[torch.bfloat16])
+    print(f"  SIDD CLI --train_ps 64 bf16: {requests} requests, PSNR "
+          f"{score[0]:.4f}, {secs:.2f} s with load and scoring; launches "
+          f"{requests} x 5/4/2/6, no plain call", flush=True)
+    return {"psnr": score[0], "ssim": score[1], "s": secs,
+            "launches": got}
+
+
+def geometry_phase(tmp: Path, sd_golden, device, card: str) -> tuple:
+    """Phase 18: the extended kernels at every new shape, the flagship
+    golden through the kernels, bf16 serving of Uformer_B at train_ps 64
+    and 32 and of Uformer at embed 8 (then at win_size 4, batch 2), the
+    SIDD CLI at --train_ps 64, the new calls timed against their plain
+    versions and bounds, serve B's forward at train_ps 64 against 128 in
+    turns, and embed 8 at window 2 (forward through the kernels, train
+    step refused). Returns the checks, the summary and the launches per
+    path."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    checks, summary, launches = Checks(), {"card": card}, {}
+    t0 = time.perf_counter()
+    geometry_kernel_checks(checks, device)
+    summary["kernel_checks_s"] = time.perf_counter() - t0
+    fchecks, launches["flagship"] = flagship_phase(device)
+    checks.rows += fchecks.rows
+    checks.failed += fchecks.failed
+    sds = {}
+    for label in ("ps64", "ps32", "e8", "win4"):
+        opt, seed, expected = GEOM_MODELS[label]
+        sds[label] = sd = seeded_for(opt, seed)
+        batch = BATCH_WIN4 if label == "win4" else BATCH_SERVE
+        restorer, x, serve, _, schecks = serve_phase(
+            lambda opt=opt, sd=sd: build_arch(opt, sd, device), device,
+            expected, f"serve {label}", batch=batch)
+        if any(K.plain_counts().values()):
+            raise RuntimeError(f"serve {label}: plain calls "
+                               f"{K.plain_counts()}")
+        checks.rows += schecks.rows
+        checks.failed += schecks.failed
+        launches[label] = serve["launches_per_request"][0]
+        summary[f"serve_{label}"] = serve
+        if label in GEOM_TIMED:
+            rows, totals, _ = timing_phase(restorer, x,
+                                           layers=GEOM_TIMED[label],
+                                           forward=False)
+            summary[f"timing_{label}"] = rows
+            summary[f"timing_totals_{label}"] = totals
+        if label == "ps64":
+            # serve B's forward at train_ps 64 against 128, in turns
+            from uformer_tpu_torch.restore import Restorer
+
+            r128 = Restorer(build_model(sd_golden, 128, device),
+                            torch.bfloat16, device)
+            with torch.no_grad():
+                runs = {"128": [], "64": []}
+                for which in ("128", "64", "64", "128"):
+                    m = r128.model if which == "128" else restorer.model
+                    runs[which].append(cuda_ms(lambda m=m: m(x), reps=5))
+            summary["forward_ps64_vs_ps128_ms"] = runs
+            print(f"  serve B forward bs8 256^2 bf16: train_ps 128 "
+                  f"{np.mean(runs['128']):.3f} ms, train_ps 64 "
+                  f"{np.mean(runs['64']):.3f} ms (in turns 128, 64, 64, "
+                  f"128: {runs})  [{card}]", flush=True)
+            del r128
+        del restorer, x
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    cores = []
+    with torch.no_grad():
+        for nH, Bw, win, D, res, shift in GEOM_CORE_TIMING:
+            q, k, v = (torch.randn((nH, Bw, win * win, D), generator=gen)
+                       .to(device, torch.bfloat16) for _ in range(3))
+            bias = (0.5 * torch.randn((nH, win * win, win * win),
+                                      generator=gen)).to(device)
+            cores.append(time_core(q, k, v, bias, win=win, shift=shift,
+                                   res=res))
+    summary["core_timing"] = cores
+    summary["eval_ps64"] = geometry_eval(tmp, sds["ps64"], device, checks)
+    launches["eval_ps64"] = summary["eval_ps64"]["launches"]
+    launches["refusal"] = refusal_checks(device)
+    summary["launches"] = launches
+    return checks, summary, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", type=Path, help="write the full report here")
@@ -3931,6 +4322,15 @@ def run(device, card: str, json_path) -> list:
                                                          device, card)
     pchecks.raise_if_failed("parallel")
 
+    phase("geometries")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gchecks18, geometries, geom_launches = geometry_phase(
+            Path(tmp), sd, device, card)
+    geometries["s"] = time.perf_counter() - t0
+    print(f"  phase 18 took {geometries['s']:.1f} s", flush=True)
+    gchecks18.raise_if_failed("geometries")
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas,
@@ -3955,7 +4355,8 @@ def run(device, card: str, json_path) -> list:
               "eval_checks": echecks.rows, "eval": evals,
               "train_loop_checks": lchecks.rows, "train_loop": loop,
               "models_checks": mchecks.rows, "models": models,
-              "parallel_checks": pchecks.rows, "parallel": parallel}
+              "parallel_checks": pchecks.rows, "parallel": parallel,
+              "geometry_checks": gchecks18.rows, "geometries": geometries}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -3977,6 +4378,7 @@ def run(device, card: str, json_path) -> list:
         rows_of = [r for r in kchecks.rows + t_kchecks.rows + ai_checks.rows
                    + tkchecks.rows + ttkchecks.rows + dw_checks.rows
                    + tile_checks.rows + mchecks.rows + pchecks.rows
+                   + gchecks18.rows
                    if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
@@ -3994,7 +4396,9 @@ def run(device, card: str, json_path) -> list:
                               + sum(kernel_count(c, name)
                                     for c in model_launches.values())
                               + kernel_count(par_launches["spatial"], name)
-                              + kernel_count(par_launches["ddp"], name)),
+                              + kernel_count(par_launches["ddp"], name)
+                              + sum(kernel_count(c, name)
+                                    for c in geom_launches.values())),
                  "launches_serve": kernel_count(launches, name),
                  "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
@@ -4008,6 +4412,12 @@ def run(device, card: str, json_path) -> list:
                  "launches_spatial": kernel_count(par_launches["spatial"],
                                                   name),
                  "launches_ddp": kernel_count(par_launches["ddp"], name),
+                 "launches_ps64": kernel_count(geom_launches["ps64"], name),
+                 "launches_ps32": kernel_count(geom_launches["ps32"], name),
+                 "launches_e8": kernel_count(geom_launches["e8"], name),
+                 "launches_win4": kernel_count(geom_launches["win4"], name),
+                 "launches_flagship": kernel_count(
+                     geom_launches["flagship"], name),
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -4044,7 +4454,13 @@ def run(device, card: str, json_path) -> list:
                                ("train Uformer_T", "train_t", tttotals),
                                ("serve B-conv", "serve_bconv", bc_totals),
                                ("eval fp32", "eval_fp32",
-                                evals["fp32_totals"])):
+                                evals["fp32_totals"]),
+                               ("serve ps64", "ps64",
+                                geometries["timing_totals_ps64"]),
+                               ("serve ps32", "ps32",
+                                geometries["timing_totals_ps32"]),
+                               ("serve e8", "e8",
+                                geometries["timing_totals_e8"])):
             if name in tt and label not in where:
                 entry.update({f"ms_{key}": tt[name]["ms"],
                               f"plain_ms_{key}": tt[name]["plain_ms"],

@@ -6,7 +6,10 @@ hyperparameter, the JAX param tree (from eval_shape) carries into the
 port's state_dict with `load_state_dict(strict=True)`, and at one block
 per stage (the registry's depths cut to 1, the one override these archs
 allow through `clone`) the two forwards agree at 128^2, batch 1, on
-seeded weights (fp32, 1e-4 (1 + max|ref|)).
+seeded weights (fp32, 1e-4 (1 + max|ref|)). The geometries below window 8
+and at head dim 8 are among them: Uformer_B at train_ps 64 (its
+bottleneck at window 4) and 32 (enc3 and dec0 at window 4, the bottleneck
+at 2), Uformer at embed 8 (head dim 8 throughout) and at win_size 4.
 """
 
 import numpy as np
@@ -23,7 +26,11 @@ SHALLOW = (1,) * 9
 OPTS = [{"arch": "Uformer", "embed_dim": 16},
         {"arch": "Uformer", "embed_dim": 32},
         {"arch": "Uformer_S"}, {"arch": "Uformer_S_noshift"},
-        {"arch": "Uformer_B_fastleff"}]
+        {"arch": "Uformer_B_fastleff"},
+        {"arch": "Uformer_B", "train_ps": 64},
+        {"arch": "Uformer_B", "train_ps": 32},
+        {"arch": "Uformer", "embed_dim": 8},
+        {"arch": "Uformer", "embed_dim": 32, "win_size": 4}]
 
 
 def _seeded(jax, tree, seed):
@@ -41,7 +48,7 @@ def test_arch_matches_jax(opt):
     import jax.numpy as jnp
     from uformer_tpu import get_arch as jax_get_arch
 
-    opt = dict(opt, train_ps=128)
+    opt = dict({"train_ps": 128}, **opt)
     jmodel = jax_get_arch(dict(opt, attn_backend="jnp"))
     cfg = arch_config(opt)
     for k in ("img_size", "embed_dim", "depths", "num_heads", "win_size",

@@ -7,8 +7,10 @@ depths 2, 64^2, window 8, heads (1, 2, 4, 8, 8, 8, 4, 2, 1). The
 registry's `get_arch("Uformer", embed_dim=8)` fixes the reference's heads
 (1, 2, 4, 8, 16, 16, 8, 4, 2), which differ in the bottleneck and the
 decoder, so the model is built from
-FLAGSHIP through `Uformer` directly; its head dim 8 has no kernel on the
-card (ROADMAP.md port queue 2 item 3), and the CPU runs the plain path.
+FLAGSHIP through `Uformer` directly. Its encoder runs at head dim 8 and
+its bottleneck at window 4; on the card both run through the kernels
+(`chip_smoke.py` phase 18 holds the golden there, 1 / 8 / 8 / 16
+launches), and the CPU runs the plain path.
 """
 
 from pathlib import Path

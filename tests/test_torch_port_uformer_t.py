@@ -315,7 +315,7 @@ def test_registry_refuses_what_the_kernels_do_not_take():
         uncovered = blocks_without_backward_kernel(model)
         assert len(uncovered) == 18
         gap = model.get_submodule(uncovered[0]).backward_gap
-        assert "ROADMAP.md, port queue 2 items 2-3" in gap
+        assert "ROADMAP.md, port queue 2 item 1" in gap
 
 
 def test_train_guard_names_the_uncovered_blocks():

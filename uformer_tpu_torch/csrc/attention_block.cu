@@ -6,8 +6,10 @@
 // and partitioned, [LN1] + modulator, q/kv projection, fp32-softmax
 // window attention with relative-position bias and the inline SW-MSA
 // mask, output projection. The attention branch only, no residual. Head
-// dim 16 or 32. Window i lies at place (w_off + i) mod nW of its H x W
-// image, which sets its region ids.
+// dim 8, 16 or 32; window win 1-8 (N = win^2 tokens). Window i lies at
+// place (w_off + i) mod nW of its H x W image (nW = (H / win)(W / win)),
+// which sets its region ids (from size - win, as the TPU kernel's
+// _region_ids).
 //
 // What bounds it on the H100: at Uformer_T's enc0 (C = 16, one head,
 // 8192 windows of a 256^2 batch-8 stage) memory: 34 MB read and written
@@ -24,8 +26,18 @@
 //   - fp32 (the exact-check path) and bf16 at other widths: one window per
 //     block of attention_window.cuh, sized to C (128 threads at C <= 32,
 //     256 at C <= 64), WMMA products through shared memory. C >= 128 runs
-//     here on no model path: the model's image route takes every
-//     C % 128 == 0 (models/layers.py:LeWinBlock.image_route).
+//     here at window 8 on no model path: the model's image route takes
+//     every C % 128 == 0 (models/layers.py:LeWinBlock.image_route);
+//   - windows of N = win^2 < 64 tokens (a stage below the window, or
+//     --win_size below 8) in packed tiles: a block (or, in bf16 at C
+//     8-64, a group of four warps of attention_block_packed.cu) takes 64
+//     rows holding 64 / N whole windows, with the host's tiles of the
+//     modulator and of the bias, which is -inf between two windows
+//     (ops/kernels/attention_block.py:packed_operands). The window core
+//     and the projections then run as on an 8x8 window; the core does up
+//     to 64 / N times the work a window needs, which at C 128-512 is a
+//     small share of the projections. Padding rows (a tile's last 64 mod
+//     N, and windows past Bw) read as zeros and are never written.
 #include "attention_image.cuh"
 #include "attention_narrow_mma.cuh"
 
@@ -35,21 +47,23 @@ static int block_threads(int C) {
   return C <= 32 ? 128 : (C <= 64 ? 256 : kThreads);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPacked = false>
 __global__ void __launch_bounds__(kThreads)
     attention_block_kernel(AttnParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  attention_window<T, D, 0>(p, blockIdx.x, smem, blockIdx.x);
+  attention_window<T, D, 0, kPacked>(p, blockIdx.x, smem, blockIdx.x);
 }
 
-template <typename T, int D>
+// Bw blocks (windows, or packed tiles)
+template <typename T, int D, bool kPacked = false>
 static int launch(const AttnParams<T>& p, int Bw, cudaStream_t stream) {
+  if (!attn_window_fits(sizeof(T), p.C, D)) return (int)cudaErrorInvalidValue;
   const size_t smem = attn_layout<D>(sizeof(T), p.C).total;
   cudaError_t e = cudaFuncSetAttribute(
-      attention_block_kernel<T, D>,
+      attention_block_kernel<T, D, kPacked>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  attention_block_kernel<T, D>
+  attention_block_kernel<T, D, kPacked>
       <<<Bw, block_threads(p.C), smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -59,7 +73,7 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
                const float* ln_b, const void* wq, const float* bq,
                const void* wkv, const float* bkv, const void* wo,
                const float* bo, const float* bias, void* scratch, int Bw,
-               int H, int W, int C, int nH, int shift, int w_off,
+               int H, int W, int C, int nH, int win, int shift, int w_off,
                float scale, int has_ln, int wn, int grid, void* stream) {
   AttnParams<T> p;
   p.x = static_cast<const T*>(x);
@@ -89,14 +103,22 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
   p.residual = 0;
   p.windows = 1;
   p.w_off = w_off;
+  p.win = win;
+  p.n_win = Bw;
   auto s = static_cast<cudaStream_t>(stream);
+  const bool packed = win != 8;
+  if (win < 1 || win > 8) return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<T, bf16>::value) {
     const int D = nH > 0 ? C / nH : 0;
     if (nH > 0 && C % nH == 0 && attn_narrow_fits(C, D))
-      return attention_block_narrow(p, D, Bw, wn, grid, s);
+      return packed ? attention_block_packed(p, D, wn, grid, s)
+                    : attention_block_narrow(p, D, Bw, wn, grid, s);
   }
-  return with_head_dim(C, nH, [&](auto d) {
-    return launch<T, decltype(d)::value>(p, Bw, s);
+  const int G = 64 / (win * win), tiles = (Bw + G - 1) / G;
+  return with_head_dim<true>(C, nH, [&](auto d) {
+    constexpr int Dd = decltype(d)::value;
+    return packed ? launch<T, Dd, true>(p, tiles, s)
+                  : launch<T, Dd>(p, Bw, s);
   });
 }
 
@@ -105,35 +127,41 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
 extern "C" {
 
 // The blocks of kernel 5's persistent bf16 body for (C, D) at wn windows
-// per work item that are resident on the card at once; 0 where (dtype, C,
-// D) runs one window per block; a negated cudaError_t on failure.
-int uf_attention_block_slots(int is_bf16, int C, int D, int wn) {
+// (packed: tiles) per work item that are resident on the card at once; 0
+// where (dtype, C, D) runs one window (tile) per block; a negated
+// cudaError_t on failure.
+int uf_attention_block_slots(int is_bf16, int C, int D, int wn,
+                             int packed) {
   int slots = 0, e = 0;
   if (is_bf16 && uf::attn_narrow_fits(C, D))
-    e = uf::attention_block_narrow_slots(C, D, wn, &slots);
+    e = packed ? uf::attention_block_packed_slots(C, D, wn, &slots)
+               : uf::attention_block_narrow_slots(C, D, wn, &slots);
   return e ? -e : slots;
 }
 
 // Returns a cudaError_t. is_bf16 selects bf16 (else fp32) for x, y, mod
 // and the weight matrices; biases, LayerNorm parameters and the
-// (nH, 64, 64) bias are fp32. mod may be null; ln_s / ln_b are read only
-// with has_ln. scratch: see uf_attention_needs_scratch. wn and grid:
-// windows per work item and blocks of the persistent bf16 body
-// (attention_image_plan); the one-window-per-block body ignores them.
+// (nH, 64, 64) bias are fp32. x, y: (Bw, win^2, C); at win < 8, mod
+// (64, C) and bias (nH, 64, 64) are the host's tiles of them
+// (packed_operands). mod may be null; ln_s / ln_b are read only with
+// has_ln. scratch: see uf_attention_needs_scratch (at win < 8, 64 rows a
+// tile). wn and grid: windows (tiles) per work item and blocks of the
+// persistent bf16 body (attention_image_plan); the one-window-per-block
+// body ignores them.
 int uf_attention_block(int is_bf16, const void* x, void* y, const void* mod,
                        const float* ln_s, const float* ln_b, const void* wq,
                        const float* bq, const void* wkv, const float* bkv,
                        const void* wo, const float* bo, const float* bias,
                        void* scratch, int Bw, int H, int W, int C, int nH,
-                       int shift, int w_off, float scale, int has_ln,
-                       int wn, int grid, void* stream) {
+                       int win, int shift, int w_off, float scale,
+                       int has_ln, int wn, int grid, void* stream) {
   if (is_bf16)
     return uf::run<uf::bf16>(x, y, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo,
-                             bias, scratch, Bw, H, W, C, nH, shift, w_off,
-                             scale, has_ln, wn, grid, stream);
+                             bias, scratch, Bw, H, W, C, nH, win, shift,
+                             w_off, scale, has_ln, wn, grid, stream);
   return uf::run<float>(x, y, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias,
-                        scratch, Bw, H, W, C, nH, shift, w_off, scale, has_ln,
-                        wn, grid, stream);
+                        scratch, Bw, H, W, C, nH, win, shift, w_off, scale,
+                        has_ln, wn, grid, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-// Kernel 5's bf16 body at C 16, 32 and 64 (attention_narrow_mma.cuh, the
-// body of kernel 1's narrow kernel): persistent blocks of WN groups of
-// four warps, one window per group at a time, on identity windows
+// Kernel 5's bf16 body at C 16, 32 and 64, and C 8-64 at head dim 8
+// (attention_narrow_mma.cuh, the body of kernel 1's narrow kernel):
+// persistent blocks of WN groups of four warps, one window per group at a
+// time, on identity windows
 // (WindowTokens): window i of the Bw is row block i of (Bw, 64, C) and
 // lies at place (w_off + i) mod nW of its image. No residual.
 #include "attention_image.cuh"

@@ -5,7 +5,7 @@
 // partition, modulator, q/kv projection, fp32-softmax window attention
 // with relative-position bias and the inline SW-MSA mask, output
 // projection, reverse, unshift and [residual], reading and writing the
-// NHWC image once. Head dim 16 or 32.
+// NHWC image once. Head dim 8, 16 or 32.
 //
 // What bounds it on the H100: per window the projections are 4*64*C*C
 // MACs against 2*64*C bytes of activations; at every width the card
@@ -20,9 +20,11 @@
 //     attention half (attention_mma.cuh), 1-4 windows per work item, the
 //     weights streamed through a cp.async ring.
 // The host (ops/kernels/attention_image.py:attention_image_plan) picks the
-// windows per work item and the grid. fp32 (the exact-check path) and
-// bf16 at other widths run one window per block of attention_window.cuh
-// (WMMA products through shared memory).
+// windows per work item and the grid. Head dim 8 runs the narrow body at
+// C 32 and 64. fp32 (the exact-check path) and bf16 at other widths and
+// head dims (head dim 8 at C 128-512, in training only) run one window
+// per block of attention_window.cuh (WMMA products through shared
+// memory).
 #include "attention_image.cuh"
 #include "attention_mma.cuh"
 #include "attention_narrow_mma.cuh"
@@ -42,6 +44,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 template <typename T, int D>
 static int launch(const AttnParams<T>& p, cudaStream_t stream) {
+  if (!attn_window_fits(sizeof(T), p.C, D)) return (int)cudaErrorInvalidValue;
   const size_t smem = attn_layout<D>(sizeof(T), p.C).total;
   cudaError_t e = cudaFuncSetAttribute(
       attention_image_kernel<T, D>,
@@ -90,12 +93,13 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
   auto s = static_cast<cudaStream_t>(stream);
   if constexpr (std::is_same<T, bf16>::value) {
     const int D = nH > 0 ? C / nH : 0;
-    if (nH > 0 && C % nH == 0 && attn_narrow_fits(C, D))
+    if (nH > 0 && C % nH == 0 && attn_narrow_fits(C, D) &&
+        (D != 8 || C >= 32))
       return attention_image_narrow(p, D, wn, grid, s);
-    if (nH > 0 && C % nH == 0 && attn_wide_fits(C, D))
+    if (nH > 0 && C % nH == 0 && attn_wide_fits(C, D) && D != 8)
       return attention_image_wide(p, D, wn, grid, s);
   }
-  return with_head_dim(C, nH, [&](auto d) {
+  return with_head_dim<true>(C, nH, [&](auto d) {
     return launch<T, decltype(d)::value>(p, s);
   });
 }
@@ -114,8 +118,9 @@ const char* uf_error_string(int err) {
 // without a bf16 body, stage, attention_block).
 int uf_attention_needs_scratch(int is_bf16, int C, int D) {
   const int ts = is_bf16 ? 2 : 4;
-  return (D == 16 ? uf::attn_layout<16>(ts, C).o_smem
-                  : uf::attn_layout<32>(ts, C).o_smem) ? 0 : 1;
+  return (D == 8    ? uf::attn_layout<8>(ts, C).o_smem
+          : D == 16 ? uf::attn_layout<16>(ts, C).o_smem
+                    : uf::attn_layout<32>(ts, C).o_smem) ? 0 : 1;
 }
 
 // The blocks of kernel 1's persistent bf16 body for (C, D) at wn windows
@@ -123,9 +128,9 @@ int uf_attention_needs_scratch(int is_bf16, int C, int D) {
 // D) runs one window per block; a negated cudaError_t on failure.
 int uf_attention_image_slots(int is_bf16, int C, int D, int wn) {
   int slots = 0, e = 0;
-  if (is_bf16 && uf::attn_narrow_fits(C, D))
+  if (is_bf16 && uf::attn_narrow_fits(C, D) && (D != 8 || C >= 32))
     e = uf::attention_image_narrow_slots(C, D, wn, &slots);
-  else if (is_bf16 && uf::attn_wide_fits(C, D))
+  else if (is_bf16 && uf::attn_wide_fits(C, D) && D != 8)
     e = uf::attention_image_wide_slots(C, D, wn, &slots);
   return e ? -e : slots;
 }

@@ -28,9 +28,13 @@
 
 namespace uf {
 
-// Whether attn_wide_item has a layout for (C, D).
+// Whether attn_wide_item has a layout for (C, D): head dim 16 or 32, and
+// 8 at C = 128 (the stage of an embed-8 model's bottleneck and dec0),
+// whose 16-wide products (the window core's, O wo) take columns 8..15 of
+// q, k, v and O zero and rows 8..15 of the wo tile zero: exact.
 __host__ __device__ constexpr bool attn_wide_fits(int C, int D) {
-  return (C == 128 || C == 256 || C == 512) && (D == 16 || D == 32);
+  return ((C == 128 || C == 256 || C == 512) && (D == 16 || D == 32)) ||
+         (C == 128 && D == 8);
 }
 
 template <int C, int D, int WN>
@@ -38,6 +42,7 @@ struct AttnWide {
   static_assert(attn_wide_fits(C, D) && WN * C <= 512 && 512 % (WN * C) == 0,
                 "no wide attention layout");
   static constexpr int M = 64 * WN;
+  static constexpr int DP = D < 16 ? 16 : D;  // the wo tile's rows
   static constexpr int KQ = C < 8192 / D ? C : 8192 / D;  // rows of a tile
   static constexpr int NQ = C / KQ;         // tiles of one of q, k, v
   static constexpr int TPH = 3 * NQ + 1;    // tiles per head
@@ -52,7 +57,7 @@ struct AttnWide {
   static constexpr int NCG = C / 32, MT2 = M * C / 8192;
   static constexpr int kStages = 3;
   static constexpr size_t kSlot = align128(
-      2 * (KQ * ldwq > D * ldwo ? KQ * ldwq : D * ldwo));
+      2 * (KQ * ldwq > DP * ldwo ? KQ * ldwq : DP * ldwo));
   static constexpr size_t xm = 0;
   static constexpr size_t qkv = xm + align128(2 * M * ldx);  // q, k, v
   static constexpr size_t kQKV = align128(2 * M * ldq);
@@ -74,7 +79,7 @@ __device__ void attn_wide_item(const AttnParams<bf16>& p, int item,
                                unsigned char* smem) {
   using L = AttnWide<C, D, WN>;
   constexpr int S = L::kStages, M = L::M, KQ = L::KQ, NQ = L::NQ,
-                TPH = L::TPH, ldx = L::ldx, ldq = L::ldq;
+                TPH = L::TPH, ldx = L::ldx, ldq = L::ldq, DP = L::DP;
   const int H = p.H, W = p.W, nH = p.nH, sh = p.shift;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t4 = lane & 3;
@@ -106,12 +111,20 @@ __device__ void attn_wide_item(const AttnParams<bf16>& p, int item,
         cp_async16(dst + r * L::ldwq + v * 8,
                    src + (size_t)(r0 + r) * ld + h * D + v * 8);
       }
-    } else {
+    } else if constexpr (DP == D) {
       constexpr int vpr = C / 8;
       for (int i = tid; i < D * vpr; i += kThreads) {
         const int r = i / vpr, v = i % vpr;
         cp_async16(dst + r * L::ldwo + v * 8,
                    p.wo + (size_t)(h * D + r) * C + v * 8);
+      }
+    } else {  // rows D..DP-1 of the tile zero-filled
+      constexpr int vpr = C / 8;
+      for (int i = tid; i < DP * vpr; i += kThreads) {
+        const int r = i / vpr, v = i % vpr;
+        cp_async16(dst + r * L::ldwo + v * 8,
+                   p.wo + (size_t)(h * D + (r < D ? r : 0)) * C + v * 8,
+                   r < D);
       }
     }
   };
@@ -133,6 +146,12 @@ __device__ void attn_wide_item(const AttnParams<bf16>& p, int item,
     pix[i] = at;
     rid[i] = r;
   }
+  if constexpr (DP != D)  // pad columns of q, k, v and O zero
+    for (int i = tid; i < 4 * M; i += kThreads) {
+      bf16* row = (i < 3 * M ? qkv + (i / M) * (L::kQKV / 2) : O) +
+                  (i % M) * ldq + D;
+      *reinterpret_cast<uint4*>(row) = make_uint4(0u, 0u, 0u, 0u);
+    }
   __syncthreads();
   constexpr int vpr = C / 8;
   for (int idx = tid; idx < M * vpr; idx += kThreads) {
@@ -183,8 +202,8 @@ __device__ void attn_wide_item(const AttnParams<bf16>& p, int item,
     const bf16* wt = reinterpret_cast<const bf16*>(ring + (q % S) * L::kSlot);
     const int h = q / TPH, s = q % TPH;
     if (s == 3 * NQ) {
-      warp_mma<L::MT2, 4, D / 16>(acco, O + row0 * ldq, ldq, wt + col0,
-                                  L::ldwo);
+      warp_mma<L::MT2, 4, DP / 16>(acco, O + row0 * ldq, ldq, wt + col0,
+                                   L::ldwo);
       continue;
     }
     const int pass = s / NQ, kt = s % NQ;

@@ -1,6 +1,6 @@
-// The LeWin attention sub-block in bf16 at narrow widths (C 16, 32, 64;
-// head dim D 16 or 32, C >= D) on the tensor-core building block
-// (mma_tile.cuh):
+// The LeWin attention sub-block in bf16 at narrow widths (C 16, 32, 64
+// at head dim D 16 or 32; C 8-64 at D 8; C >= D) on the tensor-core
+// building block (mma_tile.cuh):
 //
 //   y = [x +] tokens^-1(proj(W-MSA(LN1(tokens(x)) + mod)))
 //
@@ -41,7 +41,12 @@
 //
 // The token map is a parameter of the body (window_core_mma.cuh's
 // ImageTokens: shift, partition, reverse and unshift at no cost;
-// WindowTokens: identity windows at an offset). The roundings are
+// WindowTokens: identity windows at an offset; PackedTokens: 64-row tiles
+// of whole windows of N = win^2 < 64 tokens, padding rows read as zeros
+// and never written, the modulator and bias the host's tiles of them).
+// Products of depth 8 (a head of 8, or C = 8) run on m16n8k8
+// (warp_mma_ra8); at C = 8 LN1 takes the two registers of the m16k8
+// fragment, its statistics over the 8 channels. The roundings are
 // attention_window's: LN output, + mod, q (after the scale), k, v, P, O,
 // then rnd(acc + bo) [+ x]. Only the order of the fp32 sums differs.
 #pragma once
@@ -51,9 +56,12 @@
 
 namespace uf {
 
-// Whether attn_narrow has a layout for (C, D).
+// Whether attn_narrow has a layout for (C, D): C 16-64 at head dim 16 or
+// 32, and C 8-64 at head dim 8 (the products of depth 8, a head's QK^T
+// and O wo and at C = 8 the projections, on mma.sync.m16n8k8).
 __host__ __device__ constexpr bool attn_narrow_fits(int C, int D) {
-  return (C == 16 || C == 32 || C == 64) && (D == 16 || D == 32) && C >= D;
+  return (C == 8 || C == 16 || C == 32 || C == 64) &&
+         (D == 8 || D == 16 || D == 32) && C >= D;
 }
 
 template <int C, int D, int WN>
@@ -95,7 +103,10 @@ __device__ void attn_narrow(const AttnParams<bf16>& p, const Tokens& tok,
                             int n_win, unsigned char* smem) {
   using L = AttnNarrow<C, D, WN>;
   constexpr int nH = L::nH, ldx = L::ldx, ldw = L::ldw, ldk = L::ldk,
-                ldb = L::ldb, KC = C / 16, KD = D / 16, vpr = C / 8;
+                ldb = L::ldb, KC = frags_k(C), KD = frags_k(D),
+                vpr = C / 8;
+  // the m16k8 fragments of C = 8 hold two registers of four
+  constexpr int RX = C == 8 ? 2 : 4;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t4 = lane & 3;
   const int g = warp >> 2, gt = tid & 127, r0 = (warp & 3) * 16;
@@ -143,10 +154,12 @@ __device__ void attn_narrow(const AttnParams<bf16>& p, const Tokens& tok,
     vec[5 * C + i] = p.bo[i];
   }
   // the group's 64 pixel rows of window w into dst
+  // (rows the token map marks as padding read as zeros)
   auto load_x = [&](int w, bf16* dst) {
     for (int i = gt; i < 64 * vpr; i += 128) {
       const int t = i / vpr, c = (i % vpr) * 8;
-      cp_async16(dst + t * ldx + c, p.x + (size_t)tok.pix(w, t) * C + c);
+      cp_async16(dst + t * ldx + c, p.x + (size_t)tok.pix(w, t) * C + c,
+                 tok.valid(w, t));
     }
   };
   const int stride = gridDim.x * WN;
@@ -173,9 +186,18 @@ __device__ void attn_narrow(const AttnParams<bf16>& p, const Tokens& tok,
     // LN1 + mod of this warp's 16 rows, as A fragments: xa[k][0, 2] hold
     // row ta, columns 16 k + 2 t4 + {0, 1} and + 8; xa[k][1, 3] row tb
     uint32_t xa[KC][4];
+    if constexpr (C == 8) {
+      uint32_t r[2];
+      ldsm_x2(r, X + (r0 + (lane & 15)) * ldx);
+      xa[0][0] = r[0];
+      xa[0][1] = r[1];
+      xa[0][2] = xa[0][3] = 0u;
+    } else {
 #pragma unroll
-    for (int k = 0; k < KC; ++k)
-      ldsm_x4(xa[k], X + (r0 + (lane & 15)) * ldx + k * 16 + (lane >> 4) * 8);
+      for (int k = 0; k < KC; ++k)
+        ldsm_x4(xa[k],
+                X + (r0 + (lane & 15)) * ldx + k * 16 + (lane >> 4) * 8);
+    }
     {
       float mean[2] = {0.f, 0.f}, rstd[2] = {0.f, 0.f};
       if (p.has_ln) {
@@ -183,7 +205,7 @@ __device__ void attn_narrow(const AttnParams<bf16>& p, const Tokens& tok,
 #pragma unroll
         for (int k = 0; k < KC; ++k)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
+          for (int r = 0; r < RX; ++r) {
             const float2 v = bf2_to_f2(xa[k][r]);
             s[r & 1] += v.x + v.y;
           }
@@ -197,7 +219,7 @@ __device__ void attn_narrow(const AttnParams<bf16>& p, const Tokens& tok,
 #pragma unroll
         for (int k = 0; k < KC; ++k)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
+          for (int r = 0; r < RX; ++r) {
             const float2 v = bf2_to_f2(xa[k][r]);
             const float d0 = v.x - mean[r & 1], d1 = v.y - mean[r & 1];
             q[r & 1] += d0 * d0 + d1 * d1;
@@ -212,7 +234,7 @@ __device__ void attn_narrow(const AttnParams<bf16>& p, const Tokens& tok,
 #pragma unroll
       for (int k = 0; k < KC; ++k)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
+        for (int r = 0; r < RX; ++r) {
           const int hh = r & 1, c = 16 * k + 8 * (r >> 1) + 2 * t4;
           float2 v = bf2_to_f2(xa[k][r]);
           if (p.has_ln) {
@@ -244,7 +266,11 @@ __device__ void attn_narrow(const AttnParams<bf16>& p, const Tokens& tok,
 #pragma unroll
         for (int pass = 1; pass < 3; ++pass) {
           zero_acc(acc);
-          warp_mma_ra<D / 8, KC>(acc, xa, (pass == 1 ? wk : wv) + c0, ldw);
+          if constexpr (C == 8)
+            warp_mma_ra8<D / 8>(acc, xa[0], (pass == 1 ? wk : wv) + c0, ldw);
+          else
+            warp_mma_ra<D / 8, KC>(acc, xa, (pass == 1 ? wk : wv) + c0,
+                                   ldw);
           const float* bb = (pass == 1 ? bk : bv) + c0;
           bf16* dst = pass == 1 ? ks : vs;
 #pragma unroll
@@ -258,7 +284,10 @@ __device__ void attn_narrow(const AttnParams<bf16>& p, const Tokens& tok,
         }
         // q (+ bias, times the scale) stays in registers
         zero_acc(acc);
-        warp_mma_ra<D / 8, KC>(acc, xa, wq + c0, ldw);
+        if constexpr (C == 8)
+          warp_mma_ra8<D / 8>(acc, xa[0], wq + c0, ldw);
+        else
+          warp_mma_ra<D / 8, KC>(acc, xa, wq + c0, ldw);
 #pragma unroll
         for (int n = 0; n < D / 8; ++n) {
           const int col = c0 + 8 * n + 2 * t4;
@@ -283,7 +312,10 @@ __device__ void attn_narrow(const AttnParams<bf16>& p, const Tokens& tok,
                                           lb, mask, 1.0f);
         acc_to_a(o, oa);
       }
-      warp_mma_ra<C / 8, KD>(acco, oa, wo + c0 * ldw, ldw);
+      if constexpr (D == 8)
+        warp_mma_ra8<C / 8>(acco, oa[0], wo + c0 * ldw, ldw);
+      else
+        warp_mma_ra<C / 8, KD>(acco, oa, wo + c0 * ldw, ldw);
     }
 
     // rnd(acc + bo) [+ x] into this warp's rows of the x buffer (its own:
@@ -309,8 +341,9 @@ __device__ void attn_narrow(const AttnParams<bf16>& p, const Tokens& tok,
     __syncwarp();
     for (int i = lane; i < 16 * vpr; i += 32) {
       const int t = r0 + i / vpr, c = (i % vpr) * 8;
-      *reinterpret_cast<uint4*>(p.y + (size_t)tok.pix(w, t) * C + c) =
-          *reinterpret_cast<const uint4*>(Y + t * ldx + c);
+      if (tok.valid(w, t))
+        *reinterpret_cast<uint4*>(p.y + (size_t)tok.pix(w, t) * C + c) =
+            *reinterpret_cast<const uint4*>(Y + t * ldx + c);
     }
   }
   cp_async_wait<0>();

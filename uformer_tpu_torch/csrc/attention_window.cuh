@@ -1,8 +1,11 @@
 // One 8x8 window of the LeWin attention sub-block, computed by one thread
-// block, for head dim D in {16, 32} (WMMA fragments are 16 wide, so 16 is
-// the smallest). Shared by attention_image.cu (one window per block),
-// stage.cu (a persistent block walks many windows) and attention_block.cu
-// (one window per block, windows already partitioned).
+// block, for head dim D in {8, 16, 32}. Shared by attention_image.cu (one
+// window per block), stage.cu (a persistent block walks many windows) and
+// attention_block.cu (one window, or one packed tile of windows of N =
+// win^2 < 64 tokens, per block, windows already partitioned). WMMA
+// fragments are 16 wide: a bf16 head of 8 takes its products 16 wide,
+// columns 8..15 of q, k, v and of the staged weights zero (exact), and
+// needs staged weights (C % 128 == 0); fp32's FMA products take any D.
 //
 //   y = [x +] tokens^-1(proj(W-MSA(LN1(tokens(x)) + mod)))
 //
@@ -51,6 +54,7 @@ struct AttnParams {
   int has_ln, residual;
   int windows;       // token map: 0 the image, 1 identity windows
   int w_off;         // identity windows: image index of window 0
+  int win, n_win;    // packed tiles: the window, and the Bw windows
 };
 
 // Shared-memory layout of one window's working set.
@@ -117,8 +121,31 @@ __device__ __forceinline__ void window_tokens(const AttnParams<T>& p,
   }
 }
 
+// The token map of packed tile `item` (window_core_mma.cuh:PackedTokens):
+// pix[t] its row of the (Bw N, C) windows, -1 for padding; rid[t] its
+// region id in its own window. The caller synchronises.
+template <typename T>
+__device__ __forceinline__ void packed_tokens(const AttnParams<T>& p,
+                                              int item, int* pix, int* rid) {
+  const int t = threadIdx.x;
+  if (t >= 64) return;
+  const int win = p.win, N = win * win, G = 64 / N, H = p.H, W = p.W;
+  const int nWw = W / win, nW = (H / win) * nWw;
+  const int i = item * G + t / N, tt = t % N;
+  const bool ok = t < G * N && i < p.n_win;
+  pix[t] = ok ? item * G * N + t : -1;
+  const int wl = (p.w_off + i) % nW;
+  rid[t] = p.shift ? 3 * region_id_w((wl / nWw) * win + tt / win, H,
+                                     p.shift, win) +
+                         region_id_w((wl % nWw) * win + tt % win, W,
+                                     p.shift, win)
+                   : 0;
+}
+
 // NW: the block's warps, as block_gemm takes it (0: read from blockDim).
-template <typename T, int D, int NW = kWarps>
+// kPacked: item is a packed tile of whole windows of N = p.win^2 < 64
+// tokens (mod and bias the host's (64, C) and (nH, 64, 64) tiles).
+template <typename T, int D, int NW = kWarps, bool kPacked = false>
 __device__ void attention_window(const AttnParams<T>& p, int item,
                                  unsigned char* smem, int slot) {
   using L_ = AttnLayout<D>;
@@ -143,13 +170,21 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
   constexpr int ldq = L_::ldq, ldp = L_::ldp, lda = L_::ldacc,
                 KW = L_::kWChunk, ldw = L_::ldw;
   constexpr int kHeadTiles = 4 * (D / 16);  // 16x16 tiles of a 64 x D tile
+  constexpr int DP = padded_head<T, D>();    // the products' head width
 
   // (a) token map, then the gather
-  window_tokens<T>(p, item, pix, rid);
+  if constexpr (kPacked)
+    packed_tokens<T>(p, item, pix, rid);
+  else
+    window_tokens<T>(p, item, pix, rid);
   __syncthreads();
   for (int idx = tid; idx < 64 * C; idx += blockDim.x) {
     const int t = idx / C, c = idx % C;
-    xm[t * ldx + c] = p.x[(size_t)pix[t] * C + c];
+    if constexpr (kPacked)
+      xm[t * ldx + c] = pix[t] >= 0 ? p.x[(size_t)pix[t] * C + c]
+                                    : from_f<T>(0.f);
+    else
+      xm[t * ldx + c] = p.x[(size_t)pix[t] * C + c];
   }
   __syncthreads();
   // (b) LN1 + modulator, then per head the projections and (c) the core
@@ -164,17 +199,21 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
       // [q | k | v] = xm @ wbuf, accumulated over the chunks
       for (int kc = 0; kc < C; kc += KW) {
         stage_tile<T>(wbuf, ldw, p.wq + (size_t)kc * C + c0, C, KW, D);
-        stage_tile<T>(wbuf + D, ldw, p.wk + (size_t)kc * p.ldkv + c0,
+        stage_tile<T>(wbuf + DP, ldw, p.wk + (size_t)kc * p.ldkv + c0,
                       p.ldkv, KW, D);
-        stage_tile<T>(wbuf + 2 * D, ldw, p.wv + (size_t)kc * p.ldkv + c0,
+        stage_tile<T>(wbuf + 2 * DP, ldw, p.wv + (size_t)kc * p.ldkv + c0,
                       p.ldkv, KW, D);
+        if constexpr (DP != D)  // the pad columns of q, k and v
+          for (int i = tid; i < KW * 3; i += blockDim.x)
+            *reinterpret_cast<uint4*>(wbuf + (i / 3) * ldw + (i % 3) * DP +
+                                      D) = make_uint4(0u, 0u, 0u, 0u);
         __syncthreads();
         if (kc == 0)
           block_gemm<T, false, false, false, NW>(xm, ldx, wbuf, ldw, acc,
-                                                 lda, 64, 3 * D, KW);
+                                                 lda, 64, 3 * DP, KW);
         else
           block_gemm<T, false, true, false, NW>(xm + kc, ldx, wbuf, ldw,
-                                                acc, lda, 64, 3 * D, KW);
+                                                acc, lda, 64, 3 * DP, KW);
         __syncthreads();
       }
     } else {
@@ -182,19 +221,25 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
       block_gemm<T, false, false, false, NW>(xm, ldx, p.wq + c0, C, acc,
                                              lda, 64, D, C);
       block_gemm<T, false, false, false, NW>(xm, ldx, p.wk + c0, p.ldkv,
-                                             acc + D, lda, 64, D, C,
+                                             acc + DP, lda, 64, D, C,
                                              kHeadTiles);
       block_gemm<T, false, false, false, NW>(xm, ldx, p.wv + c0, p.ldkv,
-                                             acc + 2 * D, lda, 64, D, C,
+                                             acc + 2 * DP, lda, 64, D, C,
                                              2 * kHeadTiles);
       __syncthreads();
     }
     for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
       const int t = idx / D, d = idx % D;
       q[t * ldq + d] = from_f<T>((acc[t * lda + d] + p.bq[c0 + d]) * p.scale);
-      k[t * ldq + d] = from_f<T>(acc[t * lda + D + d] + p.bk[c0 + d]);
-      v[t * ldq + d] = from_f<T>(acc[t * lda + 2 * D + d] + p.bv[c0 + d]);
+      k[t * ldq + d] = from_f<T>(acc[t * lda + DP + d] + p.bk[c0 + d]);
+      v[t * ldq + d] = from_f<T>(acc[t * lda + 2 * DP + d] + p.bv[c0 + d]);
     }
+    if constexpr (DP != D)  // zero pad columns: exact 16-wide products
+      for (int t = tid; t < 64; t += blockDim.x) {
+        *reinterpret_cast<uint4*>(q + t * ldq + D) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(k + t * ldq + D) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(v + t * ldq + D) = make_uint4(0, 0, 0, 0);
+      }
     __syncthreads();
     window_core<T, D, NW>(q, k, v, ldq, p.bias + (size_t)h * 4096,
                       p.shift ? rid : nullptr, 1.0f, P, ldp, acc, lda);
@@ -227,6 +272,7 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
     }
     for (int idx = tid; idx < 64 * nn; idx += blockDim.x) {
       const int t = idx / nn, j = idx % nn, n = n0 + j;
+      if (kPacked && pix[t] < 0) continue;
       const size_t at = (size_t)pix[t] * C + n;
       float o = rnd<T>(acc[t * lda + j] + p.bo[n]);
       if (p.residual) o = o + to_f<T>(p.x[at]);
@@ -238,12 +284,21 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
 
 // Calls f(std::integral_constant<int, D>{}) for the head dim C / nH and
 // returns its result; cudaErrorInvalidValue for a head dim without a
-// kernel (the wrappers check first).
-template <typename F>
+// kernel (the wrappers check first). Head dim 8 with kHead8 (the forward
+// bodies; the backward ones take 16 and 32).
+template <bool kHead8 = false, typename F>
 int with_head_dim(int C, int nH, F f) {
   if (nH > 0 && C == 16 * nH) return f(std::integral_constant<int, 16>{});
   if (nH > 0 && C == 32 * nH) return f(std::integral_constant<int, 32>{});
+  if constexpr (kHead8)
+    if (nH > 0 && C == 8 * nH) return f(std::integral_constant<int, 8>{});
   return (int)cudaErrorInvalidValue;
+}
+
+// Whether attention_window takes (dtype, C, D): a bf16 head of 8 only
+// with staged weights.
+__host__ inline bool attn_window_fits(int tsize, int C, int D) {
+  return D != 8 || tsize == 4 || C % AttnLayout<8>::kWChunk == 0;
 }
 
 }  // namespace uf

@@ -10,9 +10,10 @@
 // of leff_mma.cuh on mma.sync with register accumulators: the wide tile
 // (C 128-512, one 8 x 8 or 16 x 8 output tile per block, weights streamed
 // through a cp.async ring) and the narrow one (C 16-64, weights resident, one
-// persistent block per SM walking 8 x 16 tiles, the next halo prefetched).
+// persistent block per SM walking 8 x 16 tiles, the next halo prefetched;
+// also C = 8, its 32-wide hidden zero-padded to 64 by the host).
 // fp32 (the exact-check path), and bf16 at other widths, run the WMMA/FMA
-// tile of leff_tile.cuh, one TH x 8 tile per block.
+// tile of leff_tile.cuh, one TH x 8 tile per block, partial tiles masked.
 #include "leff_mma.cuh"
 
 namespace uf {
@@ -43,7 +44,8 @@ __host__ inline bool wide_tile(int tsize, int C, int Ch) {
   return tsize == 2 && (C == 128 || C == 256 || C == 512) && Ch % 64 == 0;
 }
 __host__ inline bool narrow_tile(int tsize, int C, int Ch) {
-  return tsize == 2 && (C == 16 || C == 32 || C == 64) && Ch == 4 * C;
+  return tsize == 2 && (((C == 16 || C == 32 || C == 64) && Ch == 4 * C) ||
+                        (C == 8 && Ch == kLeffChunk));
 }
 
 // The blocks of `kernel` (kThreads threads, smem bytes) resident on the
@@ -131,6 +133,7 @@ static int run(const void* x, void* y, const float* ln_s, const float* ln_b,
       return launch_wide<512>(p, s);
     }
     if (narrow_tile(2, C, Ch)) {
+      if (C == 8) return launch_narrow<8>(p, s);
       if (C == 16) return launch_narrow<16>(p, s);
       if (C == 32) return launch_narrow<32>(p, s);
       return launch_narrow<64>(p, s);
@@ -141,7 +144,7 @@ static int run(const void* x, void* y, const float* ln_s, const float* ln_b,
       leff_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L.total);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = B * (H / p.TH) * (W / 8);
+  const int blocks = B * ((H + p.TH - 1) / p.TH) * ((W + 7) / 8);
   leff_kernel<T><<<blocks, kThreads, L.total, s>>>(p);
   return (int)cudaGetLastError();
 }
@@ -150,9 +153,10 @@ static int run(const void* x, void* y, const float* ln_s, const float* ln_b,
 
 extern "C" {
 
-// The rows H must be a multiple of for this dtype and width: 1 where the
-// mma tiles run (any H and W), else leff_tile's tile height (8, 4 or 2;
-// W a multiple of 8).
+// The tile's rows for this dtype and width: 1 where the mma tiles run,
+// else leff_tile's tile height (8, 4 or 2). Every tile masks partial
+// tiles, so any H and W run; the spatial path sizes its slabs' halo by
+// it.
 int uf_leff_tile_rows(int is_bf16, int C, int Ch) {
   const int ts = is_bf16 ? 2 : 4;
   if (uf::wide_tile(ts, C, Ch) || uf::narrow_tile(ts, C, Ch)) return 1;

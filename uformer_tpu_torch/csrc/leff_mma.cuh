@@ -16,8 +16,13 @@
 //     chunk into the accumulator. The
 //     weights stream as one sequence of 16 KB tiles (128 x 64 of W1, then
 //     8192 / C x C of W2, per chunk) through a ring of cp.async slots.
-//   narrow (C 16, 32, 64 with Ch = 4C; leff.cu): W1, W2, wd and the
-//     biases stay in shared memory for the whole launch; a persistent
+//   narrow (C 16, 32, 64 with Ch = 4C, and C 8 with its 32-wide hidden
+//     zero-padded to 64 by the host, exact as GELU(0) = 0; leff.cu): at
+//     C = 8 the first product takes x 16 wide, columns 8..15 and rows
+//     8..15 of W1 zero, LN2's statistics over the 8 channels, and the
+//     second product's one n8 tile goes to every other warp. W1, W2, wd
+//     and the biases stay in shared memory for the whole launch; a
+//     persistent
 //     block walks 8 x 16 output tiles (halo 10 x 18 = 1.41 x the outputs,
 //     against 1.56 at 8 x 8), loading the next tile's halo by cp.async
 //     while it computes this one.
@@ -264,14 +269,18 @@ __device__ void leff_wide_tile(const LeffParams<bf16>& p, int item,
 
 template <int C>
 struct LeffNarrow {
-  static_assert(C == 16 || C == 32 || C == 64, "narrow tile: C 16-64");
-  static constexpr int Ch = 4 * C;
+  static_assert(C == 8 || C == 16 || C == 32 || C == 64,
+                "narrow tile: C 8-64");
+  // the hidden (4C, padded to a chunk) and the first product's depth
+  static constexpr int Ch = 4 * C < kLeffChunk ? kLeffChunk : 4 * C;
+  static constexpr int KP = C < 16 ? 16 : C;
+  static constexpr int NT2 = C < 16 ? 1 : C / 16;  // n8 tiles a warp
   static constexpr int TW = 16, HW = TW + 2;  // 8 x 16 outputs, 10 x 18 halo
   static constexpr int kHalo = 10 * HW, kRows = 192, kOut = 8 * TW;
   static constexpr int ldx = C + 8, ldh = kLeffChunk + 8, ldr = C + 8;
   static constexpr int ldw1 = Ch + 8, ldw2 = C + 8;
   static constexpr size_t w1 = 0;
-  static constexpr size_t w2 = w1 + align128(2 * C * ldw1);
+  static constexpr size_t w2 = w1 + align128(2 * KP * ldw1);
   static constexpr size_t wd = w2 + align128(2 * Ch * ldw2);  // fp32 9 x Ch
   static constexpr size_t b1 = wd + align128(4 * 9 * Ch);
   static constexpr size_t bd = b1 + align128(4 * Ch);
@@ -288,7 +297,8 @@ struct LeffNarrow {
 };
 
 // Every tile of the (B, ceil(H / 8), ceil(W / 16)) grid from blockIdx.x
-// in steps of gridDim.x. All kThreads threads call it; p.Ch == 4 C.
+// in steps of gridDim.x. All kThreads threads call it; p.Ch == 4 C (64 at
+// C = 8).
 template <int C>
 __device__ void leff_narrow(const LeffParams<bf16>& p, unsigned char* smem) {
   using L = LeffNarrow<C>;
@@ -357,8 +367,18 @@ __device__ void leff_narrow(const LeffParams<bf16>& p, unsigned char* smem) {
   }
   for (int i = tid; i < (L::kRows - L::kHalo) * L::ldx; i += kThreads)
     xn[L::kHalo * L::ldx + i] = from_f<bf16>(0.f);
+  if constexpr (L::KP != C) {  // the first product's zero pad: exact
+    for (int i = tid; i < (L::KP - C) * L::ldw1; i += kThreads)
+      w1s[C * L::ldw1 + i] = from_f<bf16>(0.f);
+    for (int i = tid; i < L::kHalo * (L::KP - C); i += kThreads)
+      xn[(i / (L::KP - C)) * L::ldx + C + i % (L::KP - C)] =
+          from_f<bf16>(0.f);
+  }
 
-  const int mt2 = warp >> 1, n2 = (warp & 1) * (C / 2);
+  // second product: warp w takes m16 tile w / 2 and half the columns; at
+  // C = 8 the even warps take the one n8 tile
+  const int mt2 = warp >> 1, n2 = C < 16 ? 0 : (warp & 1) * (C / 2);
+  const bool w2_warp = C >= 16 || !(warp & 1);
   for (int buf = 0; item < items; item += gridDim.x, buf ^= 1) {
     cp_async_wait<0>();
     __syncthreads();
@@ -425,7 +445,7 @@ __device__ void leff_narrow(const LeffParams<bf16>& p, unsigned char* smem) {
     }
     __syncthreads();
 
-    float acc2[1][C / 16][4];
+    float acc2[1][L::NT2][4];
     zero_acc(acc2);
     for (int k0 = 0; k0 < Ch; k0 += kc) {
       {
@@ -435,8 +455,8 @@ __device__ void leff_narrow(const LeffParams<bf16>& p, unsigned char* smem) {
         const int mt = (warp >> 2) * 3, n1 = (warp & 3) * 16;
         float a1[3][2][4];
         zero_acc(a1);
-        warp_mma<3, 2, C / 16>(a1, xn + mt * 16 * L::ldx, L::ldx,
-                               w1s + k0 + n1, L::ldw1);
+        warp_mma<3, 2, L::KP / 16>(a1, xn + mt * 16 * L::ldx, L::ldx,
+                                   w1s + k0 + n1, L::ldw1);
 #pragma unroll
         for (int mi = 0; mi < 3; ++mi)
 #pragma unroll
@@ -465,12 +485,14 @@ __device__ void leff_narrow(const LeffParams<bf16>& p, unsigned char* smem) {
                           bds[k0 + j]);
       }
       __syncthreads();
-      warp_mma<1, C / 16, 4>(acc2, gs + mt2 * 16 * L::ldh, L::ldh,
-                             w2s + k0 * L::ldw2 + n2, L::ldw2);
+      if (w2_warp)
+        warp_mma<1, L::NT2, 4>(acc2, gs + mt2 * 16 * L::ldh, L::ldh,
+                               w2s + k0 * L::ldw2 + n2, L::ldw2);
     }
 
+    if (!w2_warp) continue;
 #pragma unroll
-    for (int n = 0; n < C / 16; ++n)
+    for (int n = 0; n < L::NT2; ++n)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int o = mt2 * 16 + gq + 8 * hh, col = n2 + n * 8 + 2 * t4;

@@ -1,5 +1,6 @@
 // One TH x 8 output tile of the LeFF sub-block, computed by one thread
-// block. Shared by leff.cu (one tile per block) and stage.cu.
+// block (a partial tile at the image's edge masked). Shared by leff.cu
+// (one tile per block) and stage.cu.
 //
 //   y = [x +] W2 . GELU(dw3x3(GELU(W1 . LN2(x) + b1)) + bd) + b2
 //
@@ -86,7 +87,9 @@ __device__ void leff_tile(const LeffParams<T>& p, int item,
   const LeffLayout L = leff_layout(sizeof(T), p.C, p.TH);
   const int C = p.C, Ch = p.Ch, H = p.H, W = p.W, TH = p.TH;
   const int tid = threadIdx.x, warp = tid >> 5;
-  const int nTw = W / 8, nT = (H / TH) * nTw;
+  // partial tiles at the bottom and right edges: their halo outside the
+  // image holds a zero hidden, their outputs there are not written
+  const int nTw = (W + 7) / 8, nT = ((H + TH - 1) / TH) * nTw;
   const int b = item / nT, r0 = ((item % nT) / nTw) * TH,
             c0 = (item % nTw) * 8;
 
@@ -171,6 +174,7 @@ __device__ void leff_tile(const LeffParams<T>& p, int item,
 
   for (int idx = tid; idx < Mo * C; idx += blockDim.x) {
     const int o = idx / C, n = idx % C;
+    if (r0 + o / 8 >= H || c0 + o % 8 >= W) continue;
     const size_t at = ((size_t)(b * H + r0 + o / 8) * W + c0 + o % 8) * C + n;
     float out = rnd<T>(acc[o * lda + n] + p.b2[n]);
     if (p.residual) out = out + to_f<T>(p.x[at]);

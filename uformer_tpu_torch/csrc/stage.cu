@@ -5,7 +5,9 @@
 // the attention sub-block over all windows, a grid barrier, the LeFF
 // sub-block over all tiles, a grid barrier. Weights come from the
 // depth-stacked arrays at index j; the shift is on for odd j when
-// use_shift. Head dim 16 or 32. In bf16 at C 128, 256 and 512 both halves
+// use_shift. Head dim 8 (at C = 128 in bf16's tensor-core body: an
+// embed-8 model's bottleneck and dec0), 16 or 32. In bf16 at C 128, 256
+// and 512 both halves
 // run on mma.sync with register accumulators and weights streamed through
 // cp.async rings: the attention of attention_mma.cuh (1-4 windows per work
 // item) and the wide LeFF tile of leff_mma.cuh (8 or 16 x 8 outputs), the
@@ -281,12 +283,14 @@ static int run(const void* x, void* buf, void* out, void* scratch,
   p.use_shift = use_shift;
   p.scale = scale;
   auto s = static_cast<cudaStream_t>(stream);
-  return with_head_dim(C, nH, [&](auto d) {
+  return with_head_dim<true>(C, nH, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if constexpr (std::is_same<T, bf16>::value) {
       if (C == 128) return launch_wide<D, 128>(p, s);
-      if (C == 256) return launch_wide<D, 256>(p, s);
-      if (C == 512) return launch_wide<D, 512>(p, s);
+      if constexpr (D != 8) {
+        if (C == 256) return launch_wide<D, 256>(p, s);
+        if (C == 512) return launch_wide<D, 512>(p, s);
+      }
     }
     return launch<T, D, 0, 1, 0>(p, s);
   });

@@ -5,10 +5,16 @@
 //   out[h, w] = softmax(q[h, w] k[h, w]^T * scale + bias[h]
 //                       [- 100 where the SW-MSA region ids differ]) v[h, w]
 //
-// on q, k, v, out of shape (nH, Bw, 64, D), D in {16, 32}, fp32 or bf16,
-// with the logits and the softmax in fp32 and the mask built inline from
-// the window's place in the image (window w is window w mod nW of its
-// image), as the TPU kernel does.
+// on q, k, v, out of shape (nH, Bw, N, D), N = win^2 (win 1-8), D in
+// {8, 16, 32}, fp32 or bf16, with the logits and the softmax in fp32 and
+// the mask built inline from the window's place in the image (window w is
+// window w mod nW of its image, nW = (H / win)(W / win)), as the TPU
+// kernel does. Windows of N < 64 run in packed 64-row tiles of 64 / N
+// whole windows of a head (window_core_mma.cuh:PackedTokens), with the
+// host's tile of the bias, -inf between two windows
+// (ops/kernels/window_attention.py:tile_bias); padding rows read as zeros
+// and are never written. In bf16 head dim 8 takes QK^T on m16n8k8;
+// fp32's core takes FMA products at any D.
 //
 // What bounds it on the H100: memory. Per window and head it reads
 // 3*64*D and writes 64*D values against 4*64*64*D multiply-adds, so at
@@ -41,11 +47,30 @@ constexpr int kGroup = 8;  // windows per block
 
 template <typename T>
 struct WinAttnParams {
-  const T *q, *k, *v;  // (nH, Bw, 64, D)
-  const float* bias;   // (nH, 64, 64)
-  T* out;              // (nH, Bw, 64, D)
-  int Bw, H, W, shift;
+  const T *q, *k, *v;  // (nH, Bw, N, D)
+  const float* bias;   // (nH, 64, 64): the bias, or its tile at N < 64
+  T* out;              // (nH, Bw, N, D)
+  int Bw, H, W, shift, win;
   float scale;
+};
+
+// Work item j of kernel 4: head j / per_head and its window (or packed
+// tile) w = j % per_head, whose 64 rows start at row `base` of the
+// (nH Bw N, D) rows; row t is real where valid(t).
+template <bool kPacked>
+struct CoreItems {
+  int Bw, N, G, per_head;
+  __device__ CoreItems(int Bw_, int win)
+      : Bw(Bw_), N(win * win), G(64 / (win * win)),
+        per_head(kPacked ? (Bw_ + G - 1) / G : Bw_) {}
+  __device__ __forceinline__ size_t base(int j) const {
+    if (!kPacked) return (size_t)j * 64;
+    return ((size_t)(j / per_head) * Bw + (size_t)(j % per_head) * G) * N;
+  }
+  __device__ __forceinline__ bool valid(int j, int t) const {
+    return !kPacked ||
+           (t < G * N && (j % per_head) * G * N + t < Bw * N);
+  }
 };
 
 template <int D>
@@ -70,7 +95,7 @@ __host__ __device__ inline CoreLayout<D> core_layout(int tsize) {
   return L;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPacked = false>
 __global__ void __launch_bounds__(kCoreThreads)
     window_attention_kernel(WinAttnParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -86,43 +111,64 @@ __global__ void __launch_bounds__(kCoreThreads)
   int* rid = reinterpret_cast<int*>(smem + L.rid);
   const int tid = threadIdx.x, h = blockIdx.y;
   const int nW = (p.H / 8) * (p.W / 8);
+  const CoreItems<kPacked> items(p.Bw, p.win);
+  const PackedTokens tok(p.H, p.W, p.shift, 0, p.win, p.Bw);
 
   stage_tile<float>(bias, 64, p.bias + (size_t)h * 4096, 64, 64, 64);
   const int w0 = blockIdx.x * kGroup;
-  const int w1 = min(w0 + kGroup, p.Bw);
+  const int w1 = min(w0 + kGroup, items.per_head);
   for (int w = w0; w < w1; ++w) {
-    const size_t base = ((size_t)h * p.Bw + w) * 64 * D;
+    const int j = h * items.per_head + w;
+    const size_t base = items.base(j) * D;
     for (int i = tid; i < 64 * vpr; i += blockDim.x) {
       const int t = i / vpr, c = (i % vpr) * V;
       const size_t at = base + (size_t)t * D + c;
+      const bool ok = items.valid(j, t);
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
       *reinterpret_cast<uint4*>(q + t * ldq + c) =
-          *reinterpret_cast<const uint4*>(p.q + at);
+          ok ? *reinterpret_cast<const uint4*>(p.q + at) : z;
       *reinterpret_cast<uint4*>(k + t * ldq + c) =
-          *reinterpret_cast<const uint4*>(p.k + at);
+          ok ? *reinterpret_cast<const uint4*>(p.k + at) : z;
       *reinterpret_cast<uint4*>(v + t * ldq + c) =
-          *reinterpret_cast<const uint4*>(p.v + at);
+          ok ? *reinterpret_cast<const uint4*>(p.v + at) : z;
     }
-    if (tid < 64) rid[tid] = window_region(w % nW, tid, p.H, p.W, p.shift);
+    if (tid < 64)
+      rid[tid] = kPacked ? (p.shift ? tok.region(w, tid) : 0)
+                         : window_region(w % nW, tid, p.H, p.W, p.shift);
     __syncthreads();
     window_core<T, D, kCoreThreads / 32>(q, k, v, ldq, bias,
                                          p.shift ? rid : nullptr, p.scale, P,
                                          L_::ldp, acc, L_::lda);
     for (int idx = tid; idx < 64 * D; idx += blockDim.x)
-      p.out[base + idx] = from_f<T>(acc[(idx / D) * L_::lda + idx % D]);
+      if (items.valid(j, idx / D))
+        p.out[base + idx] = from_f<T>(acc[(idx / D) * L_::lda + idx % D]);
     __syncthreads();
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPacked>
 static int launch(const WinAttnParams<T>& p, int nH, cudaStream_t stream) {
   const size_t smem = core_layout<D>(sizeof(T)).total;
+  auto kernel = window_attention_kernel<T, D, kPacked>;
   cudaError_t e = cudaFuncSetAttribute(
-      window_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((p.Bw + kGroup - 1) / kGroup, nH);
-  window_attention_kernel<T, D><<<grid, kCoreThreads, smem, stream>>>(p);
+  const int G = 64 / (p.win * p.win);
+  const int per_head = kPacked ? (p.Bw + G - 1) / G : p.Bw;
+  const dim3 grid((per_head + kGroup - 1) / kGroup, nH);
+  kernel<<<grid, kCoreThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The token map of kernel 4's mask bits: identity windows at place
+// w mod nW, or packed tiles.
+template <bool kPacked>
+__device__ __forceinline__ auto make_core_tokens(
+    const WinAttnParams<bf16>& p) {
+  if constexpr (kPacked)
+    return PackedTokens(p.H, p.W, p.shift, 0, p.win, p.Bw);
+  else
+    return WindowTokens(p.H, p.W, p.shift, 0);
 }
 
 // The bf16 body's shared memory: the head's bias and two buffers of one
@@ -138,8 +184,9 @@ struct WinMma {
 
 // Four warps a window, one 16-row slice each; block b takes windows
 // [b chunk, (b + 1) chunk) of the nH * Bw, head-major (window j: head
-// j / Bw, at offset 64 D j). 128 registers a thread at most.
-template <int D>
+// j / Bw, at offset 64 D j), or with kPacked the packed tiles of each
+// head's windows (CoreItems). 128 registers a thread at most.
+template <int D, bool kPacked = false>
 __global__ void __launch_bounds__(128, 4)
     window_attention_mma_kernel(WinAttnParams<bf16> p, int nH, int chunk) {
   using L = WinMma<D>;
@@ -149,25 +196,30 @@ __global__ void __launch_bounds__(128, 4)
   const int gq = lane >> 2, t4 = lane & 3, r0 = warp * 16;
   const int ta = r0 + gq, tb = ta + 8;  // this lane's rows of the window
   float* bias_s = reinterpret_cast<float*>(smem + L::bias);
-  const WindowTokens tok(p.H, p.W, p.shift, 0);
-  const int j0 = blockIdx.x * chunk, j1 = min(j0 + chunk, nH * p.Bw);
+  using Tokens =
+      typename std::conditional<kPacked, PackedTokens, WindowTokens>::type;
+  const Tokens tok = make_core_tokens<kPacked>(p);
+  const CoreItems<kPacked> items(p.Bw, p.win);
+  const int j0 = blockIdx.x * chunk,
+            j1 = min(j0 + chunk, nH * items.per_head);
   auto tile = [&](int buf, int m) {
     return reinterpret_cast<bf16*>(smem + L::buf + buf * L::kBuf +
                                    m * L::kTile);
   };
   auto load = [&](int j, int buf) {
-    const size_t base = (size_t)j * 64 * D;
+    const size_t base = items.base(j) * D;
     for (int i = tid; i < 3 * 64 * vpr; i += 128) {
       const int m = i / (64 * vpr), t = (i / vpr) % 64, c = (i % vpr) * 8;
       const bf16* src = m == 0 ? p.q : (m == 1 ? p.k : p.v);
-      cp_async16(tile(buf, m) + t * ldk + c, src + base + t * D + c);
+      cp_async16(tile(buf, m) + t * ldk + c, src + base + t * D + c,
+                 items.valid(j, t));
     }
   };
   if (j0 < j1) load(j0, 0);
   cp_async_commit();
 
   for (int j = j0, buf = 0; j < j1; ++j, buf ^= 1) {
-    const int h = j / p.Bw, w = j % p.Bw;
+    const int h = j / items.per_head, w = j % items.per_head;
     if (j == j0 || w == 0) {  // the head's bias, behind block barriers
       __syncthreads();
       for (int i = tid; i < 64 * 16; i += 128) {
@@ -183,10 +235,19 @@ __global__ void __launch_bounds__(128, 4)
     if (j + 1 < j1) load(j + 1, buf ^ 1);
     cp_async_commit();
     bf16* Q = tile(buf, 0);
-    uint32_t qa[D / 16][4];
+    uint32_t qa[frags_k(D)][4];
+    if constexpr (D == 8) {  // the m16k8 fragment, its high half zero
+      uint32_t r[2];
+      ldsm_x2(r, Q + (r0 + (lane & 15)) * ldk);
+      qa[0][0] = r[0];
+      qa[0][1] = r[1];
+      qa[0][2] = qa[0][3] = 0u;
+    } else {
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k)
-      ldsm_x4(qa[k], Q + (r0 + (lane & 15)) * ldk + k * 16 + (lane >> 4) * 8);
+      for (int k = 0; k < D / 16; ++k)
+        ldsm_x4(qa[k],
+                Q + (r0 + (lane & 15)) * ldk + k * 16 + (lane >> 4) * 8);
+    }
     float o[D / 8][4];
     window_core_mma<D, false>(o, qa, tile(buf, 1), tile(buf, 2), ldk,
                               bias_s + r0 * ldb, ldb,
@@ -202,33 +263,46 @@ __global__ void __launch_bounds__(128, 4)
           pack_bf16(o[n][2], o[n][3]);
     }
     __syncwarp();
-    const size_t base = (size_t)j * 64 * D;
+    const size_t base = items.base(j) * D;
 #pragma unroll
     for (int i = lane; i < 16 * vpr; i += 32) {
       const int t = r0 + i / vpr, c = (i % vpr) * 8;
-      *reinterpret_cast<uint4*>(p.out + base + t * D + c) =
-          *reinterpret_cast<const uint4*>(Q + t * ldk + c);
+      if (items.valid(j, t))
+        *reinterpret_cast<uint4*>(p.out + base + t * D + c) =
+            *reinterpret_cast<const uint4*>(Q + t * ldk + c);
     }
   }
   cp_async_wait<0>();
 }
 
-template <int D>
+template <int D, bool kPacked>
 static int launch_mma(const WinAttnParams<bf16>& p, int nH, int chunk,
                       int grid, cudaStream_t stream) {
+  auto kernel = window_attention_mma_kernel<D, kPacked>;
   cudaError_t e = cudaFuncSetAttribute(
-      window_attention_mma_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WinMma<D>::total);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)WinMma<D>::total);
   if (e != cudaSuccess) return (int)e;
-  window_attention_mma_kernel<D>
-      <<<grid, 128, WinMma<D>::total, stream>>>(p, nH, chunk);
+  kernel<<<grid, 128, WinMma<D>::total, stream>>>(p, nH, chunk);
   return (int)cudaGetLastError();
+}
+
+// f(IntC<D>, IntC<packed>) for head dim D, packed tiles or not
+template <typename F>
+static int with_core(int D, int packed, F f) {
+  auto by_d = [&](auto pk) {
+    if (D == 16) return f(IntC<16>{}, pk);
+    if (D == 32) return f(IntC<32>{}, pk);
+    if (D == 8) return f(IntC<8>{}, pk);
+    return (int)cudaErrorInvalidValue;
+  };
+  return packed ? by_d(IntC<1>{}) : by_d(IntC<0>{});
 }
 
 template <typename T>
 static int run(const void* q, const void* k, const void* v,
                const float* bias, void* out, int nH, int Bw, int D, int H,
-               int W, int shift, float scale, int chunk, int grid,
+               int W, int win, int shift, float scale, int chunk, int grid,
                void* stream) {
   WinAttnParams<T> p;
   p.q = static_cast<const T*>(q);
@@ -240,52 +314,55 @@ static int run(const void* q, const void* k, const void* v,
   p.H = H;
   p.W = W;
   p.shift = shift;
+  p.win = win;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (D == 16) return launch_mma<16>(p, nH, chunk, grid, s);
-    if (D == 32) return launch_mma<32>(p, nH, chunk, grid, s);
-  } else {
-    if (D == 16) return launch<T, 16>(p, nH, s);
-    if (D == 32) return launch<T, 32>(p, nH, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (win < 1 || win > 8) return (int)cudaErrorInvalidValue;
+  return with_core(D, win != 8, [&](auto d, auto pk) {
+    constexpr int Dd = decltype(d)::value;
+    constexpr bool kPacked = decltype(pk)::value;
+    if constexpr (std::is_same<T, bf16>::value)
+      return launch_mma<Dd, kPacked>(p, nH, chunk, grid, s);
+    else
+      return launch<T, Dd, kPacked>(p, nH, s);
+  });
 }
 
 }  // namespace uf
 
 extern "C" {
 
-// The blocks of the bf16 body at head dim D resident on the card at once;
-// 0 for fp32, which runs a block per (head, group of windows); a negated
-// cudaError_t on failure.
-int uf_window_attention_slots(int is_bf16, int D) {
+// The blocks of the bf16 body at head dim D (on packed tiles or not)
+// resident on the card at once; 0 for fp32, which runs a block per (head,
+// group of windows); a negated cudaError_t on failure.
+int uf_window_attention_slots(int is_bf16, int D, int packed) {
   if (!is_bf16) return 0;
   int slots = 0;
-  cudaError_t e = cudaErrorInvalidValue;
-  if (D == 16)
-    e = uf::resident_slots(uf::window_attention_mma_kernel<16>, 128,
-                           uf::WinMma<16>::total, &slots);
-  if (D == 32)
-    e = uf::resident_slots(uf::window_attention_mma_kernel<32>, 128,
-                           uf::WinMma<32>::total, &slots);
-  return e ? -(int)e : slots;
+  const int e = uf::with_core(D, packed, [&](auto d, auto pk) {
+    constexpr int Dd = decltype(d)::value;
+    constexpr bool kPacked = decltype(pk)::value;
+    return (int)uf::resident_slots(
+        uf::window_attention_mma_kernel<Dd, kPacked>, 128,
+        uf::WinMma<Dd>::total, &slots);
+  });
+  return e ? -e : slots;
 }
 
 // Returns a cudaError_t. is_bf16 selects bf16 (else fp32) for q, k, v and
-// out; the (nH, 64, 64) bias is fp32. Window w of the Bw lies at place
-// w mod nW of an H x W image (region ids of the shift mask). bf16:
-// `chunk` windows a block, `grid` blocks (window_attention_plan); fp32
+// out, (nH, Bw, win^2, D); the (nH, 64, 64) bias (at win < 8 its tile,
+// tile_bias) is fp32. Window w of the Bw lies at place w mod nW of an
+// H x W image (region ids of the shift mask). bf16: `chunk` windows (or
+// packed tiles) a block, `grid` blocks (window_attention_plan); fp32
 // ignores them.
 int uf_window_attention(int is_bf16, const void* q, const void* k,
                         const void* v, const float* bias, void* out, int nH,
-                        int Bw, int D, int H, int W, int shift, float scale,
-                        int chunk, int grid, void* stream) {
+                        int Bw, int D, int H, int W, int win, int shift,
+                        float scale, int chunk, int grid, void* stream) {
   if (is_bf16)
-    return uf::run<uf::bf16>(q, k, v, bias, out, nH, Bw, D, H, W, shift,
-                             scale, chunk, grid, stream);
-  return uf::run<float>(q, k, v, bias, out, nH, Bw, D, H, W, shift, scale,
-                        chunk, grid, stream);
+    return uf::run<uf::bf16>(q, k, v, bias, out, nH, Bw, D, H, W, win,
+                             shift, scale, chunk, grid, stream);
+  return uf::run<float>(q, k, v, bias, out, nH, Bw, D, H, W, win, shift,
+                        scale, chunk, grid, stream);
 }
 
 }  // extern "C"

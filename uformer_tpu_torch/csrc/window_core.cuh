@@ -25,6 +25,14 @@ __device__ __forceinline__ int region_id(int g, int size, int s) {
   return (g >= size - 8) + (g >= size - s);
 }
 
+// The same along one axis of a win-wide window (win 1-8, shift s < win):
+// slices [0, size-win), [size-win, size-s), [size-s, size), as
+// uformer_tpu/ops/pallas/window_attention.py:_region_ids builds them.
+__device__ __forceinline__ int region_id_w(int g, int size, int s,
+                                           int win) {
+  return (g >= size - win) + (g >= size - s);
+}
+
 // Region id (0..8) of token t of window `wl` (row-major among the image's
 // windows) at shift s, 0 when unshifted.
 __device__ __forceinline__ int window_region(int wl, int t, int H, int W,
@@ -35,12 +43,21 @@ __device__ __forceinline__ int window_region(int wl, int t, int H, int W,
   return 3 * region_id(gr, H, s) + region_id(gc, W, s);
 }
 
-// q, k, v: 64 x D tiles (leading dim ldq) in shared memory; bias_h the
-// head's (64, 64) fp32 bias (shared or device memory); rid the window's 64
-// region ids, or null when unshifted; P a 64 x ldp tile of T; acc a 64 x
-// lda fp32 tile (lda >= 64), which holds the logits and on return O
-// (64 x D). All threads of the block call it; it ends synchronised. NW:
-// the block's warps, as block_gemm takes it.
+// The width the block products of a head take: D, or 16 for a bf16 head
+// of 8 (WMMA fragments are 16 wide), its columns D..15 zero in shared
+// memory, which leaves the products exact.
+template <typename T, int D>
+__host__ __device__ constexpr int padded_head() {
+  return std::is_same<T, bf16>::value && D < 16 ? 16 : D;
+}
+
+// q, k, v: 64 x D tiles (leading dim ldq) in shared memory, for a bf16
+// head of 8 zero in columns 8..15; bias_h the head's (64, 64) fp32 bias
+// (shared or device memory; -inf between the windows of a packed tile);
+// rid the 64 region ids, or null when unshifted; P a 64 x ldp tile of T;
+// acc a 64 x lda fp32 tile (lda >= 64), which holds the logits and on
+// return O (64 x D). All threads of the block call it; it ends
+// synchronised. NW: the block's warps, as block_gemm takes it.
 template <typename T, int D, int NW>
 __device__ __forceinline__ void window_core(const T* q, const T* k,
                                             const T* v, int ldq,
@@ -48,9 +65,10 @@ __device__ __forceinline__ void window_core(const T* q, const T* k,
                                             const int* rid, float scale,
                                             T* P, int ldp, float* acc,
                                             int lda) {
+  constexpr int DP = padded_head<T, D>();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = NW > 0 ? NW : (int)(blockDim.x >> 5);
-  block_gemm<T, true, false, false, NW>(q, ldq, k, ldq, acc, lda, 64, 64, D);
+  block_gemm<T, true, false, false, NW>(q, ldq, k, ldq, acc, lda, 64, 64, DP);
   __syncthreads();
   // one warp per row: lanes hold columns lane and lane + 32
   for (int t = warp; t < 64; t += nw) {
@@ -68,7 +86,7 @@ __device__ __forceinline__ void window_core(const T* q, const T* k,
     P[t * ldp + lane + 32] = from_f<T>(e1 * inv);
   }
   __syncthreads();
-  block_gemm<T, false, false, false, NW>(P, ldp, v, ldq, acc, lda, 64, D,
+  block_gemm<T, false, false, false, NW>(P, ldp, v, ldq, acc, lda, 64, DP,
                                          64);
   __syncthreads();
 }

@@ -62,6 +62,80 @@ __device__ __forceinline__ void warp_mma_ra(float (&acc)[NT][4],
     }
 }
 
+__device__ __forceinline__ void ldsm_x1(uint32_t& r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n"
+               : "=r"(r)
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x1_t(uint32_t& r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.trans.shared.b16 {%0}, [%1];\n"
+               : "=r"(r)
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a . b for one m16n8k8 tile: a0, a1 the m16k8 A fragment (rows
+// lane / 4 and + 8, columns 2 (lane % 4) + {0, 1}), b its k8n8 B fragment
+__device__ __forceinline__ void mma1688(float (&d)[4], uint32_t a0,
+                                        uint32_t a1, uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// acc[16 x 8 NT] += A[16 x 8] . B[8 x 8 NT], the product of depth 8 (a
+// head or a width of 8): A in registers as a[0], a[1] (the m16k8
+// fragment, the low half of an m16k16 one); B in shared memory, K x N
+// row-major, or with BT N x K row-major. ldmatrix lane l addresses row
+// l % 8 of the 8 x 8 matrix l / 8, matrix i being n8 tile n + i.
+template <int NT, bool BT = false>
+__device__ __forceinline__ void warp_mma_ra8(float (&acc)[NT][4],
+                                             const uint32_t (&a)[4],
+                                             const bf16* B, int ldb) {
+  const int lane = threadIdx.x & 31;
+  auto at = [&](int n) {
+    return BT ? B + (n * 8 + lane) * ldb
+              : B + (lane & 7) * ldb + (n + (lane >> 3)) * 8;
+  };
+  int n = 0;
+#pragma unroll
+  for (; n + 4 <= NT; n += 4) {
+    uint32_t r[4];
+    if (BT)
+      ldsm_x4(r, at(n));
+    else
+      ldsm_x4_t(r, at(n));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mma1688(acc[n + i], a[0], a[1], r[i]);
+  }
+  if constexpr (NT % 4 >= 2) {
+    uint32_t r[2];
+    if (BT)
+      ldsm_x2(r, at(NT / 4 * 4));
+    else
+      ldsm_x2_t(r, at(NT / 4 * 4));
+    mma1688(acc[NT / 4 * 4], a[0], a[1], r[0]);
+    mma1688(acc[NT / 4 * 4 + 1], a[0], a[1], r[1]);
+  }
+  if constexpr (NT % 2) {
+    uint32_t r;
+    if (BT)
+      ldsm_x1(r, at(NT - 1));
+    else
+      ldsm_x1_t(r, at(NT - 1));
+    mma1688(acc[NT - 1], a[0], a[1], r);
+  }
+}
+
+// A fragments of a product over K: K / 16 of them, or one (its high half
+// zero) for K = 8.
+__host__ __device__ constexpr int frags_k(int K) {
+  return K >= 16 ? K / 16 : 1;
+}
+
 template <int NT>
 __device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
 #pragma unroll
@@ -71,10 +145,17 @@ __device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
 }
 
 // The NT n8 accumulator tiles of a 16-row product, rounded to bf16 and
-// repacked as the A operand (NT / 2 k16 steps) of the next product.
+// repacked as the A operand (NT / 2 k16 steps) of the next product; one
+// tile (NT = 1) as an m16k8 fragment, its high half zero.
 template <int NT>
 __device__ __forceinline__ void acc_to_a(const float (&acc)[NT][4],
-                                         uint32_t (&a)[NT / 2][4]) {
+                                         uint32_t (&a)[frags_k(8 * NT)][4]) {
+  if constexpr (NT == 1) {
+    a[0][0] = pack_bf16(acc[0][0], acc[0][1]);
+    a[0][1] = pack_bf16(acc[0][2], acc[0][3]);
+    a[0][2] = a[0][3] = 0u;
+    return;
+  }
 #pragma unroll
   for (int k = 0; k < NT / 2; ++k) {
     a[k][0] = pack_bf16(acc[2 * k][0], acc[2 * k][1]);
@@ -97,6 +178,7 @@ struct ImageTokens {
   }
   // the window's place (row-major) among its image's nW windows
   __device__ __forceinline__ int place(int w) const { return w % nW; }
+  __device__ __forceinline__ bool valid(int, int) const { return true; }
 };
 
 // Identity windows: token t of window w is row 64 w + t of (Bw, 64, C),
@@ -111,7 +193,57 @@ struct WindowTokens {
   __device__ __forceinline__ int place(int w) const {
     return (w_off + w) % nW;
   }
+  __device__ __forceinline__ bool valid(int, int) const { return true; }
 };
+
+// Packed windows of N = win^2 < 64 tokens (win 1-7): work item w is a
+// 64-row tile of G = 64 / N whole windows, rows w G N + t (t < G N) of the
+// (Bw N, C) rows; window i lies at place (w_off + i) mod nW of its image
+// (nW = (H / win) (W / win)). Rows G N .. 63 of a tile, and windows past
+// Bw, are padding: read as zeros, never written. The bias of the tile
+// (the host's tile bias) is -inf between two windows, so a window's rows
+// weigh only its own keys.
+struct PackedTokens {
+  int H, W, s, w_off, nW, win, N, G, rows;
+  __device__ PackedTokens(int H_, int W_, int s_, int w_off_, int win_,
+                          int Bw)
+      : H(H_), W(W_), s(s_), w_off(w_off_),
+        nW((H_ / win_) * (W_ / win_)), win(win_), N(win_ * win_),
+        G(64 / (win_ * win_)), rows(Bw * win_ * win_) {}
+  __device__ __forceinline__ int pix(int w, int t) const {
+    return w * G * N + t;
+  }
+  __device__ __forceinline__ bool valid(int w, int t) const {
+    return t < G * N && w * G * N + t < rows;
+  }
+  // the region id (0..8) of row t of tile w in its own window
+  __device__ __forceinline__ int region(int w, int t) const {
+    const int i = w * G + t / N, tt = t % N;
+    const int wl = (w_off + i) % nW, nWw = W / win;
+    return 3 * region_id_w((wl / nWw) * win + tt / win, H, s, win) +
+           region_id_w((wl % nWw) * win + tt % win, W, s, win);
+  }
+};
+
+// The SW-MSA mask bits of window_mask_bits for a packed tile: every row
+// and key by its own window's region ids (pairs of two windows carry -inf
+// in the tile bias already).
+__device__ __forceinline__ uint32_t window_mask_bits(const PackedTokens& tok,
+                                                     int w, int ta, int tb,
+                                                     int t4) {
+  if (!tok.s) return 0u;
+  const int ra = tok.region(w, ta), rb = tok.region(w, tb);
+  uint32_t mask = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int rk = tok.region(w, 8 * j + 2 * t4 + e);
+      mask |= (uint32_t)(rk != ra) << (4 * j + e);
+      mask |= (uint32_t)(rk != rb) << (4 * j + 2 + e);
+    }
+  return mask;
+}
 
 // The SW-MSA mask of this lane's rows (ta, tb) of window w under the
 // token map tok: bit 4 j + 2 hh + e is set where key 8 j + 2 (lane % 4) + e
@@ -143,7 +275,8 @@ __device__ __forceinline__ uint32_t window_mask_bits(const Tokens& tok, int w,
 }
 
 // The core for the calling warp's rows r0 .. r0 + 15 of one window and
-// head. qa: those rows of q as D / 16 A fragments; ks, vs: the window's
+// head. qa: those rows of q as D / 16 A fragments (D = 8: one m16k8
+// fragment, QK^T then on m16n8k8); ks, vs: the window's
 // 64 x D k and v (bf16, leading dim ldk) in shared memory; bias: row r0
 // of the head's fp32 (64, 64) bias (leading dim ldb), in shared memory,
 // or with kLdg in device memory, read through the read-only cache; mask:
@@ -152,15 +285,18 @@ __device__ __forceinline__ uint32_t window_mask_bits(const Tokens& tok, int w,
 // 8 n + 2 (lane % 4) + {0, 1}, o[n][2..3] eight rows on.
 template <int D, bool kLdg>
 __device__ __forceinline__ void window_core_mma(
-    float (&o)[D / 8][4], const uint32_t (&qa)[D / 16][4], const bf16* ks,
-    const bf16* vs, int ldk, const float* bias, int ldb, uint32_t mask,
-    float scale) {
+    float (&o)[D / 8][4], const uint32_t (&qa)[frags_k(D)][4],
+    const bf16* ks, const bf16* vs, int ldk, const float* bias, int ldb,
+    uint32_t mask, float scale) {
   const int lane = threadIdx.x & 31, gq = lane >> 2, t4 = lane & 3;
   uint32_t pa[4][4];
   {
     float s[8][4];
     zero_acc(s);
-    warp_mma_ra<8, D / 16, true>(s, qa, ks, ldk);
+    if constexpr (D == 8)
+      warp_mma_ra8<8, true>(s, qa[0], ks, ldk);
+    else
+      warp_mma_ra<8, D / 16, true>(s, qa, ks, ldk);
     float m[2] = {-FLT_MAX, -FLT_MAX};
 #pragma unroll
     for (int j = 0; j < 8; ++j)

@@ -30,10 +30,12 @@ block; each timed as launches in a CUDA graph, with its largest
 difference from the plain version and a digest of its output bits.
 `attention_block`: `fused_attention_block` in bf16 at every call of the
 serve T forward and the train T step (Uformer_T's windowed enc0 blocks,
-LN outside, as the model runs them), graphed and eager.
+LN outside, as the model runs them), graphed and eager, with a digest
+of each output's bits.
 `window_attention`: `fused_window_attention` in bf16 at (1, 8192, 64,
 16), (1, 8192, 64, 32) and (4, 512, 64, 16), shift 0 and 4, graphed and
-as chip_smoke.py's mean of 10 eager calls, beside
+as chip_smoke.py's mean of 10 eager calls, with a digest of each
+output's bits, beside
 F.scaled_dot_product_attention with the bias and mask as one bf16 mask
 (graphed; a yardstick the port never calls). `dwconv3x3`: `dwconv3x3` in bf16
 (bf16 weights, fp32 bias) at the (Bw, 8, 8, C) windows of the serve
@@ -150,9 +152,14 @@ print(json.dumps({"rows": rows}))
 """
 
 _KERNEL_COMMON = """
-import json, torch
+import hashlib, json, torch
 from uformer_tpu_torch.ops import kernels as K
 gen = torch.Generator().manual_seed(0)
+
+def digest(y):
+    # a digest of a bf16 output's bits: equal in two roots, equal outputs
+    return hashlib.sha256(y.view(torch.int16).cpu().numpy().tobytes()) \\
+        .hexdigest()[:16]
 
 def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
     return (torch.randn(shape, generator=gen) * scale).to("cuda", dtype)
@@ -491,12 +498,13 @@ for cell, B, train in (("serve T", 8, False), ("train T", 32, True)):
                       scale=(C // nH) ** -0.5, num_heads=nH, has_ln=False)
             x = rnd(B * (R // 8) ** 2, 64, C)
             run = lambda: K.fused_attention_block(x, *args, **kw)
-            err = float((run().float() - K.attention_block_reference(
+            y = run()
+            err = float((y.float() - K.attention_block_reference(
                 x, *args, **kw).float()).abs().max())
             rows.append({"cell": cell, "stage": lname, "windows": x.shape[0],
                          "C": C, "heads": nH, "shift": b.shift_size,
                          "graph_ms": graph_ms(run), "eager_ms": ms(run, 20),
-                         "max_abs_err": err})
+                         "max_abs_err": err, "sha256": digest(y)})
 totals = {}
 for r in rows:
     totals[r["cell"]] = totals.get(r["cell"], 0.0) + r["graph_ms"]
@@ -518,9 +526,10 @@ for nH, Bw, D, R in ((1, 8192, 16, 256), (1, 8192, 32, 256),
         kw = dict(win=8, shift=shift, H=R, W=R, scale=D ** -0.5)
         ref = K.window_attention_reference(q, k, v, bias, **kw).float()
         run = lambda: K.fused_window_attention(q, k, v, bias, **kw)
+        y = run()
         row = {"shape": [nH, Bw, 64, D], "shift": shift,
-               "max_abs_err": float((run().float() - ref).abs().max()),
-               "graph_ms": graph_ms(run)}
+               "max_abs_err": float((y.float() - ref).abs().max()),
+               "graph_ms": graph_ms(run), "sha256": digest(y)}
         # as chip_smoke.py's core timing: the mean of 10 eager calls after
         # 2 warm-up ones
         run(), run()

@@ -75,7 +75,8 @@ from uformer_tpu_torch.ops.kernels import (
     leff_reference,
     stage_reference,
 )
-from uformer_tpu_torch.ops.kernels.window_attention import HEAD_DIMS
+from uformer_tpu_torch.ops.kernels.leff import pad_hidden
+from uformer_tpu_torch.ops.kernels.window_attention import BWD_HEAD_DIMS
 from uformer_tpu_torch.ops.masks import input_mask_bias, shift_mask_on
 from uformer_tpu_torch.ops.norm import layer_norm
 from uformer_tpu_torch.ops.relpos import relative_position_index
@@ -89,9 +90,11 @@ from uformer_tpu_torch.ops.window import (
 Params = Dict[str, torch.Tensor]
 LEFF_MLPS = ("leff", "fastleff")  # fastleff: the same function and keys
 GEOMETRY_NOT_ON_KERNEL_PATH = (
-    f"the attention kernels take window 8 and head dim in {HEAD_DIMS}; "
-    f"other windows and head dims train on the plain path only (ROADMAP.md, "
-    f"port queue 2 items 2-3: win != 8, head dims other than 16 and 32)")
+    f"the forward kernels take windows 1-8, head dim 8 and LeFF at C = 8, "
+    f"but the backward kernels take window 8, head dim in {BWD_HEAD_DIMS} "
+    f"and LeFF from C = 16 only; other windows and head dims train on the "
+    f"plain path only (ROADMAP.md, port queue 2 item 1: the backward at "
+    f"these geometries)")
 
 
 class _Prepared:
@@ -226,17 +229,16 @@ class LeFF(nn.Module):
         self.eca = Eca1d() if use_eca else None
 
     def kernel_params(self, dtype: torch.dtype) -> Params:
+        """The kernel's weights; a hidden narrower than the kernel's chunk
+        (C = 8: 32) zero-padded to it once here (`pad_hidden`, exact)."""
         l1, dw, l2 = self.linear1[0], self.dwconv[0], self.linear2[0]
-        return {
-            "w1": l1.weight.t().to(dtype).contiguous(),
-            "b1": l1.bias.float(),
+        w1, b1, wd, bd, w2 = pad_hidden(
+            l1.weight.t().to(dtype).contiguous(), l1.bias.float(),
             # (Ch, 1, 3, 3) -> (3, 3, Ch)
-            "wd": dw.weight[:, 0].permute(1, 2, 0).to(dtype)
-            .contiguous(),
-            "bd": dw.bias.float(),
-            "w2": l2.weight.t().to(dtype).contiguous(),
-            "b2": l2.bias.float(),
-        }
+            dw.weight[:, 0].permute(1, 2, 0).to(dtype).contiguous(),
+            dw.bias.float(), l2.weight.t().to(dtype).contiguous())
+        return {"w1": w1, "b1": b1, "wd": wd, "bd": bd, "w2": w2,
+                "b2": l2.bias.float()}
 
     def forward(self, x: torch.Tensor, p: Optional[Params] = None,
                 ln_s: Optional[torch.Tensor] = None,
@@ -513,13 +515,15 @@ class LeWinBlock(_Prepared, nn.Module):
     def backward_gap(self) -> Optional[str]:
         """Why the train step's kernel path cannot differentiate this
         block, or None. The attention backward kernels cover the image
-        route and the windowed branch at window 8 and head dim 16 or 32;
-        Mlp and the cross-modulator's attention are plain PyTorch. Conv
-        projection runs the depthwise kernel, which has no backward."""
+        route and the windowed branch at window 8 and head dim 16 or 32
+        (the forward kernels also take windows 1-7 and head dim 8; their
+        backward is ROADMAP.md's port queue 2 item 1); Mlp and the
+        cross-modulator's attention are plain PyTorch. Conv projection
+        runs the depthwise kernel, which has no backward."""
         if self.attn.token_projection == "conv":
             return DWCONV_BACKWARD_NOT_PORTED
         if self.win_size != 8 or self.dim % self.num_heads \
-                or self.dim // self.num_heads not in HEAD_DIMS:
+                or self.dim // self.num_heads not in BWD_HEAD_DIMS:
             return GEOMETRY_NOT_ON_KERNEL_PATH
         return None
 

@@ -4,10 +4,17 @@ Every arch of the JAX registry: UNet (the pure-conv baseline, at
 `embed_dim`, default 32) and the Uformer family with linear projection
 and LeFF: Uformer_T, Uformer_S, Uformer_S_noshift, Uformer_B,
 Uformer_B_fastleff, and Uformer at any embed dim and window. Every one
-builds and runs on the CPU (the kernels' plain versions); on the card the
-kernels take window 8 and head dim 16 or 32 (head dim is the embed dim in
-this family), and their wrappers raise before any launch at other
-geometries. `use_checkpoint` recomputes each Uformer block in the
+builds and runs on the CPU (the kernels' plain versions). On the card the
+forward (eval, serving, the CLIs) runs through the kernels at every window
+1-8 and head dim 8, 16 and 32 (head dim is the embed dim in this family):
+every arch here at embed 8-32, `--win_size` 1-8 and any `--train_ps`
+(a stage built below the window runs at window min(reso, win), 64 // N
+whole windows of N = win² tokens to a kernel tile). Training on the card
+takes window 8 and head dim 16 or 32: the train step refuses other blocks
+before any launch (`LeWinBlock.backward_gap`; their backward is
+ROADMAP.md's port queue 2 item 1). Windows above 8 and head dim 64 (embed 64) have no kernel:
+the wrappers raise before any launch. `use_checkpoint` recomputes each
+Uformer block in the
 backward (UNet ignores it, as in JAX). `img_size` is
 the reference's `--train_ps`: it fixes the construction-time window and
 shift choices only. No arch sets the conv token projection, Mlp or the

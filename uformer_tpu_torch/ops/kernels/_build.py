@@ -36,11 +36,11 @@ _SIGNATURES = {
     "uf_attention_image": [_I] + [_P] * 13 + [_I] * 6 + [_F] + [_I] * 4
                           + [_P],
     "uf_attention_image_slots": [_I] * 4,
-    "uf_attention_block": [_I] + [_P] * 13 + [_I] * 7 + [_F] + [_I] * 3
+    "uf_attention_block": [_I] + [_P] * 13 + [_I] * 8 + [_F] + [_I] * 3
                           + [_P],
-    "uf_attention_block_slots": [_I] * 4,
-    "uf_window_attention": [_I] + [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
-    "uf_window_attention_slots": [_I] * 2,
+    "uf_attention_block_slots": [_I] * 5,
+    "uf_window_attention": [_I] + [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
+    "uf_window_attention_slots": [_I] * 3,
     "uf_leff_tile_rows": [_I, _I, _I],
     "uf_leff": [_I] + [_P] * 10 + [_I] * 7 + [_P],
     "uf_stage": [_I] + [_P] * 24 + [_I] * 8 + [_F, _P],

@@ -16,6 +16,15 @@ bf16 at other widths run one window per block (`csrc/attention_window.cuh`).
 reference's signature (`attention_block.py:345`), plus the spatial
 path's `w_off`.
 
+Windows of N = win² < 64 tokens (a stage built below the window, or
+`--win_size` below 8: JAX sends every block whose window is not 8 here,
+`layers.py:773-775`) run in 64-row tiles of 64 // N whole windows
+(`packed_operands`: the modulator's and the bias's tiles, the bias -inf
+between two windows), on the same bodies: bf16 at C 8-64 the narrow body
+on packed tiles (`csrc/attention_block_packed.cu`), else a tile per block.
+Head dim 8 runs at every C (bf16: the narrow body at C 8-64, a tile per
+block at C % 128 == 0).
+
 Its backward, `fused_attention_block_bwd`, is the port of
 `attention_block.py:fused_attention_block_bwd` in its own layout (kernel
 source `csrc/attention_block_bwd.cu`: in bf16 the tensor-core body
@@ -36,8 +45,13 @@ from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.kernels.wgrad import colsum, sm_count, wgrad
 from uformer_tpu_torch.ops.kernels.window_attention import (
+    BWD_HEAD_DIMS,
+    TILE,
     check_head_dim,
     check_window,
+    packed_tiles,
+    tile_bias,
+    tile_tokens,
     window_mask,
 )
 from uformer_tpu_torch.ops.norm import layer_norm
@@ -72,12 +86,13 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
                           bo, bias, *, win: int, shift: int, H: int, W: int,
                           scale: float, num_heads: int, has_ln: bool = True,
                           w_off: int = 0) -> torch.Tensor:
-    """x: (Bw, 64, C) windows -> (Bw, 64, C), the attention branch.
+    """x: (Bw, N, C) windows, N = win² (win 1-8) -> (Bw, N, C), the
+    attention branch.
 
     Weight layouts are the kernels' (in, out), as `fused_attention_image`
-    takes them; mod (64, C) in x's dtype or None; ln_s, ln_b read only
-    with has_ln. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (win 8, head dim 16 or 32) or raises."""
+    takes them; mod (N, C) in x's dtype or None; bias (nH, N, N); ln_s,
+    ln_b read only with has_ln. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel (head dim 8, 16 or 32) or raises."""
     kw = dict(win=win, shift=shift, H=H, W=W, scale=scale,
               num_heads=num_heads, has_ln=has_ln, w_off=w_off)
     if x.device.type == "cpu":
@@ -88,27 +103,32 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
     Bw, N, C = x.shape
     check_window(win, shift, H, W)
     check_head_dim(C, num_heads)
-    if N != 64 or w_off < 0:
-        raise ValueError(f"kernel needs N = 64 and w_off >= 0: N={N} "
-                         f"w_off={w_off}")
+    if N != win * win or w_off < 0:
+        raise ValueError(f"kernel needs N = win² and w_off >= 0: N={N} "
+                         f"win={win} w_off={w_off}")
     dt, dev, f32 = x.dtype, x.device, torch.float32
+    D = C // num_heads
     if has_ln:
         _launch.expect(ln_s, "ln_s", (C,), f32, dev)
         _launch.expect(ln_b, "ln_b", (C,), f32, dev)
     if mod is not None:
-        _launch.expect(mod, "mod", (64, C), dt, dev)
+        _launch.expect(mod, "mod", (N, C), dt, dev)
     for name, t, shape, tdt in (
-            ("x", x, (Bw, 64, C), dt),
+            ("x", x, (Bw, N, C), dt),
             ("wq", wq, (C, C), dt), ("bq", bq, (C,), f32),
             ("wkv", wkv, (C, 2 * C), dt), ("bkv", bkv, (2 * C,), f32),
             ("wo", wo, (C, C), dt), ("bo", bo, (C,), f32),
-            ("bias", bias, (num_heads, 64, 64), f32)):
+            ("bias", bias, (num_heads, N, N), f32)):
         _launch.expect(t, name, shape, tdt, dev)
-    lib = load()
     is_bf16 = int(dt == torch.bfloat16)
-    wn, grid, needs_scratch = block_plan(lib, Bw, C, C // num_heads, is_bf16,
-                                         dev)
-    scratch = torch.empty_like(x) if needs_scratch else None
+    if is_bf16 and D == 8 and C > 64 and C % 128:
+        raise ValueError(f"bf16 kernel takes head dim 8 at C 8-64 or "
+                         f"C % 128 == 0: C={C}")
+    mod, bias = packed_operands(mod, bias, N)
+    lib = load()
+    wn, grid, needs_scratch = block_plan(lib, Bw, C, D, is_bf16, dev, N)
+    scratch = (torch.empty(packed_tiles(Bw, N) * TILE, C, dtype=dt,
+                           device=dev) if needs_scratch else None)
     y = torch.empty_like(x)
     with torch.cuda.device(dev):
         err = lib.uf_attention_block(
@@ -117,8 +137,8 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
             _launch.ptr(ln_b) if has_ln else None, wq.data_ptr(),
             bq.data_ptr(), wkv.data_ptr(), bkv.data_ptr(), wo.data_ptr(),
             bo.data_ptr(), bias.data_ptr(), _launch.ptr(scratch), Bw, H, W,
-            C, num_heads, shift, w_off, float(scale), int(has_ln), wn, grid,
-            _launch.stream(x))
+            C, num_heads, win, shift, w_off, float(scale), int(has_ln), wn,
+            grid, _launch.stream(x))
     _launch.check(err, "attention_block kernel")
     fused_attention_block.launches += 1
     return y
@@ -128,20 +148,33 @@ fused_attention_block.launches = 0
 fused_attention_block.plain_calls = 0
 
 
-def block_plan(lib, Bw: int, C: int, D: int, is_bf16: int, dev):
+def packed_operands(mod: Optional[torch.Tensor], bias: torch.Tensor,
+                    N: int):
+    """The kernel's (64, C) modulator and (nH, 64, 64) bias for windows of
+    N tokens: themselves at N = 64, else their tiles (`tile_tokens`,
+    `tile_bias`) for 64-row tiles of 64 // N whole windows."""
+    return (None if mod is None else tile_tokens(mod, N)), tile_bias(bias, N)
+
+
+def block_plan(lib, Bw: int, C: int, D: int, is_bf16: int, dev,
+               N: int = TILE):
     """(windows per work item, grid, needs scratch) of kernel 5 on Bw
-    windows: kernel 1's plan (`attention_image_plan`); its narrow body
-    persistent over `persistent_grid` blocks, else a block per window."""
+    windows of N tokens (at N < 64, its packed tiles stand for windows):
+    kernel 1's plan (`attention_image_plan`); its narrow body persistent
+    over `persistent_grid` blocks, else a block per window (tile)."""
     from uformer_tpu_torch.ops.kernels.attention_image import (
         attention_image_plan,
     )
 
-    body, wn = attention_image_plan(Bw, C, D, bool(is_bf16), sm_count(dev))
+    items = packed_tiles(Bw, N)
+    body, wn = attention_image_plan(items, C, D, bool(is_bf16),
+                                    sm_count(dev))
     if body == "narrow":
         slots = _launch.resident_blocks("uf_attention_block_slots",
-                                        dev.index, is_bf16, C, D, wn)
-        return wn, _launch.persistent_grid(-(-Bw // wn), slots), False
-    return 1, Bw, bool(lib.uf_attention_needs_scratch(is_bf16, C, D))
+                                        dev.index, is_bf16, C, D, wn,
+                                        int(N < TILE))
+        return wn, _launch.persistent_grid(-(-items // wn), slots), False
+    return 1, items, bool(lib.uf_attention_needs_scratch(is_bf16, C, D))
 
 
 def vjp_reference(fn, x, g, args, has_ln, **kw):
@@ -357,8 +390,8 @@ def attention_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
                          f"{tuple(x.shape)} {x.dtype}")
-    check_window(win, shift, H, W)
-    check_head_dim(C, num_heads)
+    check_window(win, shift, H, W, windows=(8,))
+    check_head_dim(C, num_heads, BWD_HEAD_DIMS)
     if N != 64 or w_off != 0:
         raise ValueError(f"backward kernel needs N = 64 and w_off = 0: "
                          f"N={N} w_off={w_off}")

@@ -1,7 +1,8 @@
 """Image-layout LeWin attention sub-block: Hopper kernel and plain version.
 
 Port of `uformer_tpu/ops/pallas/attention_image.py:fused_attention_image`
-(kernel source `csrc/attention_image.cu`), head dim 16 or 32. On the
+(kernel source `csrc/attention_image.cu`), window 8 (as the JAX
+kernel, `attention_image.py:665`), head dim 8, 16 or 32. On the
 H100 a window is little work at every width, so latency between small
 products sets the pace. In bf16 two persistent bodies on `mma.sync` read
 and write the NHWC image once: at C 16-64 (`csrc/attention_narrow_mma.cuh`)
@@ -10,11 +11,14 @@ softmax core in registers and the next window's gather in flight; at C
 128-512 the stage kernel's attention half (`csrc/attention_mma.cuh`)
 takes 1-4 windows per work item with the weights streamed through a
 `cp.async` ring. `attention_image_plan` picks the body and the windows per
-work item. fp32 runs one window per block (`csrc/attention_window.cuh`).
+work item. Head dim 8 runs the narrow body at C 32 and 64 (its QKᵀ and
+O wo of depth 8 on mma.sync.m16n8k8); the wide body has no head dim 8
+(training alone reaches it there: a window per block instead). fp32 runs
+one window per block (`csrc/attention_window.cuh`).
 `attention_image_reference` is the plain PyTorch version with the JAX
 reference's signature (`attention_image.py:432`). Its backward,
 `fused_attention_image_bwd` (kernel source `csrc/attention_bwd.cu`), takes
-head dim 16 or 32 too.
+head dim 16 or 32 only (`BWD_HEAD_DIMS`).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from uformer_tpu_torch.ops.kernels.attention_block import (
 )
 from uformer_tpu_torch.ops.kernels.wgrad import sm_count
 from uformer_tpu_torch.ops.kernels.window_attention import (
+    BWD_HEAD_DIMS,
     check_head_dim,
     check_window,
 )
@@ -61,7 +66,7 @@ def attention_image_reference(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo,
     return x + out if residual else out
 
 
-NARROW_WIDTHS = (16, 32, 64)
+NARROW_WIDTHS = (8, 16, 32, 64)  # C 8: head dim 8, kernel 5 only
 WIDE_WIDTHS = (128, 256, 512)
 
 
@@ -91,15 +96,23 @@ def attention_image_plan(windows: int, C: int, D: int, bf16: bool,
             if -(-windows // wn) >= sms:
                 return "narrow", wn
         return "narrow", 1
-    if bf16 and C in WIDE_WIDTHS:
+    if bf16 and C in WIDE_WIDTHS and D != 8:
         return "wide", wide_windows(windows, sms, C)
     return "window", 1
 
 
-def _check_geometry(x, win, shift, num_heads):
+def _check_geometry(x, win, shift, num_heads, dims=None):
+    """Kernel 1's geometry: window 8; head dim in `dims` (HEAD_DIMS by
+    default; in bf16 head dim 8 from C = 32, where JAX's image route
+    starts)."""
     _, H, W, C = x.shape
-    check_window(win, shift, H, W)
+    check_window(win, shift, H, W, windows=(8,))
+    if dims is not None:
+        check_head_dim(C, num_heads, dims)
+        return
     check_head_dim(C, num_heads)
+    if x.dtype == torch.bfloat16 and C // num_heads == 8 and C < 32:
+        raise ValueError(f"bf16 kernel takes head dim 8 from C = 32: C={C}")
 
 
 def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
@@ -114,8 +127,8 @@ def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
     wkv (C, 2C) = [k | v] in x's dtype; mod (64, C) in x's dtype or None;
     bq, bkv, bo, ln_s, ln_b float32; bias (nH, 64, 64) float32.
     A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel (win 8, head dim 16 or 32; its body and windows per work
-    item from `attention_image_plan`) or raises."""
+    the kernel (win 8, head dim 8, 16 or 32; its body and windows per
+    work item from `attention_image_plan`) or raises."""
     if x.device.type == "cpu":
         fused_attention_image.plain_calls += 1
         return attention_image_reference(
@@ -224,7 +237,7 @@ def attention_image_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
                          f"{tuple(x.shape)} {x.dtype}")
-    _check_geometry(x, win, shift, num_heads)
+    _check_geometry(x, win, shift, num_heads, BWD_HEAD_DIMS)
 
     def launch(lib, is_bf16, wn, hpb, *ptrs):
         return lib.uf_attention_bwd(

@@ -8,8 +8,10 @@ tensor-core tiles keep the second product's accumulator in registers:
 8 x 8 or 16 x 8 output tiles with the weights streamed through a
 cp.async ring at C 128-512, and persistent blocks over 8 x 16 tiles with
 the weights resident at C 16-64; they mask partial tiles, so any H and W
-run. fp32 (the exact-check path) keeps TH x 8 tiles, H a multiple of TH
-and W of 8.
+run. fp32 (the exact-check path) keeps TH x 8 tiles, also masking
+partial ones (an embed-8 model's 4 x 4 bottleneck). C = 8 (an embed-8 model's outer stages) runs the narrow tile
+too, on its 32-wide hidden zero-padded to one 64-wide chunk (`pad_hidden`:
+exact, as GELU(0) = 0; the model pads once, in `LeFF.kernel_params`).
 `leff_reference` is the plain PyTorch version with the JAX reference's
 signature (`leff.py:504`).
 """
@@ -42,28 +44,42 @@ def leff_reference(x, w1, b1, wd, bd, w2, b2, ln_s=None, ln_b=None,
     return x0 + y if residual else y
 
 
+def pad_hidden(w1, b1, wd, bd, w2):
+    """The hidden zero-padded to a whole number of HIDDEN_CHUNK channels:
+    w1 (C, Ch') and w2 (Ch', C) with zero columns and rows, b1, bd and the
+    depthwise taps with zeros. Exact: a padded channel's hidden is GELU(0)
+    = 0 before and after the depthwise conv, and its w2 row is zero.
+    Unchanged when Ch is already a multiple."""
+    pad = -w1.shape[-1] % HIDDEN_CHUNK
+    if not pad:
+        return w1, b1, wd, bd, w2
+    return (F.pad(w1, (0, pad)).contiguous(), F.pad(b1, (0, pad)),
+            F.pad(wd, (0, pad)).contiguous(), F.pad(bd, (0, pad)),
+            F.pad(w2, (0, 0, 0, pad)).contiguous())
+
+
 def fused_leff(x: torch.Tensor, w1, b1, wd, bd, w2, b2, ln_s=None, ln_b=None,
                *, residual: bool = False) -> torch.Tensor:
     """x: (B, H, W, C) -> (B, H, W, C).
 
     w1 (C, Ch), wd (3, 3, Ch), w2 (Ch, C) in x's dtype; b1, bd, b2, ln_s,
     ln_b float32. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    launches the kernel or raises (a hidden below HIDDEN_CHUNK is padded
+    here, `pad_hidden`, unless the caller padded it)."""
     if x.device.type == "cpu":
         fused_leff.plain_calls += 1
         return leff_reference(x, w1, b1, wd, bd, w2, b2, ln_s=ln_s,
                               ln_b=ln_b, residual=residual)
     _launch.check_input(x)
     B, H, W, C = x.shape
+    if w1.shape[-1] < HIDDEN_CHUNK:
+        w1, b1, wd, bd, w2 = pad_hidden(w1, b1, wd, bd, w2)
     Ch = w1.shape[-1]
     lib = load()
     is_bf16 = int(x.dtype == torch.bfloat16)
-    th = tile_rows(x, Ch)
-    tw = 8 if th > 1 else 1
-    if C % 16 or Ch % HIDDEN_CHUNK or H % th or W % tw:
-        raise ValueError(f"kernel needs C % 16 == 0, Ch % {HIDDEN_CHUNK} "
-                         f"== 0, H % {th} == 0 and W % {tw} == 0: "
-                         f"C={C} Ch={Ch} H={H} W={W}")
+    if (C % 16 and C != 8) or Ch % HIDDEN_CHUNK:
+        raise ValueError(f"kernel needs C = 8 or C % 16 == 0 and "
+                         f"Ch % {HIDDEN_CHUNK} == 0: C={C} Ch={Ch}")
     dt, dev, f32 = x.dtype, x.device, torch.float32
     has_ln = ln_s is not None
     if has_ln:
@@ -91,9 +107,10 @@ fused_leff.plain_calls = 0
 
 
 def tile_rows(x: torch.Tensor, Ch: int) -> int:
-    """The multiple of rows `fused_leff` takes for x's dtype and width at
-    hidden width Ch: its fp32 tile's height on a card tensor (the bf16
-    tiles mask partial tiles: 1), and 1 for the plain version."""
+    """The rows of `fused_leff`'s tile for x's dtype and width at hidden
+    width Ch: its fp32 tile's height on a card tensor (the bf16 tiles: 1),
+    and 1 for the plain version. Every tile masks partial tiles; the
+    spatial path keeps its slabs a multiple of it."""
     if x.device.type == "cpu":
         return 1
     return load().uf_leff_tile_rows(int(x.dtype == torch.bfloat16),

@@ -13,12 +13,21 @@ windows on `csrc/window_core.cuh`. No model path calls it, in the JAX
 package either: it is the standalone form of the core the other kernels
 run. `window_attention_reference` is the plain PyTorch version.
 
+Windows of N = win² < 64 tokens (win 1-7) and head dim 8 run on the same
+bodies: the kernels take 64-row tiles of 64 // N whole windows
+(`packed_tiles`), with the bias as its tile (`tile_bias`: -inf between two
+windows of a tile, so each row weighs only its own window's keys); padding
+rows read as zeros and are never written. In bf16 a head of 8 takes its
+QKᵀ on mma.sync.m16n8k8.
+
 Unlike the block kernels, which fold the softmax scale into q before
 rounding it, this kernel scales the float32 logits (the TPU kernel's
 `window_attention.py:55`): in bf16 the two round differently.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -27,31 +36,76 @@ from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.masks import shift_window_mask
 
-HEAD_DIMS = (16, 32)  # the kernels' head widths (WMMA is 16 wide)
+HEAD_DIMS = (8, 16, 32)  # the forward kernels' head widths
+BWD_HEAD_DIMS = (16, 32)  # the backward kernels' (kernels 6 and 7)
+WINDOWS = tuple(range(1, 9))  # kernels 4 and 5: N = win² <= 64 tokens
+TILE = 64  # rows of a kernel's window tile
 
 
-def window_attention_plan(nH: int, Bw: int, slots: int):
-    """(chunk, grid) of the bf16 body: the nH * Bw (head, window) pairs,
-    head-major, in contiguous ranges of `chunk` windows, one per block,
-    over at most `slots` blocks."""
-    items = nH * Bw
+def window_attention_plan(nH: int, Bw: int, slots: int, N: int = TILE):
+    """(chunk, grid) of the bf16 body: the nH * packed_tiles(Bw, N) (head,
+    tile) pairs, head-major, in contiguous ranges of `chunk` tiles, one per
+    block, over at most `slots` blocks (a tile is a window at N = 64)."""
+    items = nH * packed_tiles(Bw, N)
     chunk = -(-items // _launch.persistent_grid(items, slots))
     return chunk, -(-items // chunk)
 
 
-def check_window(win: int, shift: int, H: int, W: int) -> None:
-    """Raise unless the kernels take this window geometry: win 8 (their
-    region ids are those of an 8-wide window), H and W multiples of 8."""
-    if win != 8 or H % 8 or W % 8 or not 0 <= shift < 8:
-        raise ValueError(f"kernel needs win 8, H, W multiples of 8 and "
-                         f"0 <= shift < 8: win={win} H={H} W={W} "
-                         f"shift={shift}")
+def packed_tiles(Bw: int, N: int) -> int:
+    """64-row tiles of Bw windows of N tokens, 64 // N whole windows each."""
+    return -(-Bw // (TILE // N))
 
 
-def check_head_dim(C: int, num_heads: int) -> None:
-    if C % num_heads or C // num_heads not in HEAD_DIMS:
-        raise ValueError(f"kernel needs head dim in {HEAD_DIMS}: C={C}, "
+def check_window(win: int, shift: int, H: int, W: int,
+                 windows=WINDOWS) -> None:
+    """Raise unless the kernels take this window geometry: win in
+    `windows` (1-8 for kernels 4 and 5; 8 for kernels 1 and 3 and the
+    backward kernels, as in the JAX package), H and W multiples of win and
+    0 <= shift < win."""
+    if win not in windows or H % win or W % win or not 0 <= shift < win:
+        raise ValueError(f"kernel needs win in {tuple(windows)}, H, W "
+                         f"multiples of win and 0 <= shift < win: win={win} "
+                         f"H={H} W={W} shift={shift}")
+
+
+def check_head_dim(C: int, num_heads: int, dims=HEAD_DIMS) -> None:
+    if C % num_heads or C // num_heads not in dims:
+        raise ValueError(f"kernel needs head dim in {tuple(dims)}: C={C}, "
                          f"num_heads={num_heads}")
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_index(N: int, device: torch.device):
+    """Token of each tile row (t mod N) and whether rows i, j of a tile lie
+    in two windows (pad rows, t >= 64 // N * N, form one group of their
+    own), on `device`."""
+    t = torch.arange(TILE, device=device)
+    group = t // N
+    return t % N, group[:, None] != group[None, :]
+
+
+def tile_tokens(mod: torch.Tensor, N: int) -> torch.Tensor:
+    """The (64, C) tile of a (N, C) per-token operand (the modulator):
+    row t is token t mod N (pad rows too, whose outputs are dropped)."""
+    if N == TILE:
+        return mod
+    tok, _ = _tile_index(N, mod.device)
+    return mod[tok].contiguous()
+
+
+def tile_bias(bias: torch.Tensor, N: int) -> torch.Tensor:
+    """The (nH, 64, 64) tile of a (nH, N, N) relative-position bias: entry
+    (i, j) is bias[:, i mod N, j mod N] where rows i and j lie in one
+    window of the tile, else -inf (softmax weight exactly 0, unlike the
+    SW-MSA mask's -100); the pad rows weigh each other, so every row's max
+    is finite."""
+    if N == TILE:
+        return bias
+    tok, apart = _tile_index(N, bias.device)
+    # a scalar fill: no host tensor, so a CUDA graph can capture it
+    return bias[:, tok[:, None], tok[None, :]].masked_fill(apart,
+                                                           float("-inf"))
+
 
 
 def window_mask(H: int, W: int, win: int, shift: int, n: int, w_off: int,
@@ -88,10 +142,10 @@ def window_attention_reference(q, k, v, bias, *, win, shift, H, W, scale):
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, *, win: int, shift: int,
                            H: int, W: int, scale: float) -> torch.Tensor:
-    """q, k, v: (nH, Bw, 64, D), D in HEAD_DIMS, float32 or bfloat16;
-    bias (nH, 64, 64) float32. Returns (nH, Bw, 64, D). A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel (win 8)
-    or raises."""
+    """q, k, v: (nH, Bw, N, D), N = win² (win 1-8), D in HEAD_DIMS,
+    float32 or bfloat16; bias (nH, N, N) float32. Returns (nH, Bw, N, D).
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises."""
     if q.device.type == "cpu":
         fused_window_attention.plain_calls += 1
         return window_attention_reference(q, k, v, bias, win=win,
@@ -99,24 +153,26 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch.check_input(q, "(nH, Bw, N, D)")
     nH, Bw, N, D = q.shape
     check_window(win, shift, H, W)
-    if N != 64 or D not in HEAD_DIMS:
-        raise ValueError(f"kernel needs N = 64 and D in {HEAD_DIMS}: "
-                         f"N={N} D={D}")
+    if N != win * win or D not in HEAD_DIMS:
+        raise ValueError(f"kernel needs N = win² and D in {HEAD_DIMS}: "
+                         f"N={N} win={win} D={D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _launch.expect(t, name, q.shape, q.dtype, q.device)
-    _launch.expect(bias, "bias", (nH, 64, 64), torch.float32, q.device)
+    _launch.expect(bias, "bias", (nH, N, N), torch.float32, q.device)
+    bias = tile_bias(bias, N)
     lib = load()
     is_bf16 = int(q.dtype == torch.bfloat16)
     chunk = grid = 0
     if is_bf16:
         slots = _launch.resident_blocks("uf_window_attention_slots",
-                                        q.device.index, is_bf16, D)
-        chunk, grid = window_attention_plan(nH, Bw, slots)
+                                        q.device.index, is_bf16, D,
+                                        int(N < TILE))
+        chunk, grid = window_attention_plan(nH, Bw, slots, N)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.uf_window_attention(
             is_bf16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), nH, Bw, D, H, W, shift,
+            bias.data_ptr(), out.data_ptr(), nH, Bw, D, H, W, win, shift,
             float(scale), chunk, grid, _launch.stream(q))
     _launch.check(err, "window_attention kernel")
     fused_window_attention.launches += 1

@@ -275,6 +275,18 @@ def check_spatial(model: nn.Module) -> None:
                 f"without Eca1d and no cross-modulator, as JAX's does")
 
 
+def check_spatial_card(model: nn.Module) -> None:
+    """Raise NotImplementedError for a model with a block at a window other
+    than 8 on the card: the kernels take it, but the sharded path there is
+    unchecked (ROADMAP.md port queue 2: the spatial path at windows other
+    than 8). The CPU runs it on the plain versions."""
+    for name, blk in model.named_modules():
+        if isinstance(blk, LeWinBlock) and blk.win_size != 8:
+            raise NotImplementedError(
+                f"{name}: window {blk.win_size}: the spatial path runs "
+                f"window 8 on the card (ROADMAP.md port queue 2)")
+
+
 def _leff_slab_halo(x: torch.Tensor, Ch: int, group: Group) -> int:
     """Rows of halo LeFF's slab takes on an interior side: 1, or the fp32
     tile's height (the slab's rows must be a multiple of it)."""
@@ -388,6 +400,8 @@ def uformer_forward_sharded(model: nn.Module, x: torch.Tensor,
     exchanges). Level k is split where (H >> k) splits into n ranks of
     whole window rows."""
     check_spatial(model)
+    if x.is_cuda:
+        check_spatial_card(model)
     n = _size(group)
     H, W = x.shape[1] * n, x.shape[2]
     dt = model.dtype
