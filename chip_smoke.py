@@ -217,13 +217,37 @@ Phases, each raising on failure (no phase is caught):
                bf16 from a .pth of seeded weights at that geometry (its
                launches, no plain call, Idenoised.mat against the plain
                path). Uformer at embed 8, window 2: the forward through
-               the kernels (18 attention-block and 18 LeFF launches), the
-               train step refused before any launch.
+               the kernels (18 attention-block and 18 LeFF launches) and
+               its train step (18 launches of each of kernels 5, 6, 2 and
+               7, no plain call); an embed-64 step refused before any
+               launch.
+ 19. train geometries - the backward at windows 1-8 and head dim 8:
+               kernel 6 on packed tiles at windows 1-7 (shift 0 and win //
+               2, pad rows, partial last tiles) and at head dim 8 in both
+               layouts (C 8-128), kernel 7 at C = 8 (LN and residual each
+               way, its hidden unpadded and as the model pads it), kernel
+               1's wide body at head dim 8, each against its plain version
+               in fp32 and bf16; Uformer_B at train_ps 64, Uformer at embed
+               8 and at win_size 4 (seeded 1244-1246): their kernels at
+               every training geometry at bs2, one whole step kernel path
+               against plain path (bs32 64², bs32 128², bs8 128²;
+               38/2/40, 12/6/18 and 0/18/18 image-route / windowed / LeFF
+               launches forward and backward; ps64's bf16 rows held and
+               printed, its gate the step from the fp32 step's loss
+               gradient at the output: `HELD_OWN_LOSS`), bf16 steps timed
+               in turns
+               and each backward call against its plain VJP and bound
+               (kernel 6's: JAX's CostEstimate, 6 tokens C (4C + 2N)
+               operations); the train CLI at the flagship golden's
+               geometry (`--arch Uformer --embed_dim 8 --train_ps 64`, 16
+               steps on seeded 64² pairs: 10/8/18 launches a step, no plain
+               call, a loss that falls).
 
 Tolerances: fp32 max-abs <= 1e-4 * (1 + max|ref|); bf16 error against the
 fp32 plain result <= 1.5 x the bf16 plain version's error + 1e-3; for
 gradients, per tensor, the bf16 term is 1e-3 * max(1, max|ref|), since
-weight gradients are sums over every token; golden as
+weight gradients are sums over every token, and phase 19 holds a gradient
+of at most FEW_ENTRIES entries by its rms error instead; golden as
 tests/test_golden_parity.py. --json PATH writes every check and timing
 there. Each kernel's bound is the larger of its operations at the bf16
 tensor-core peak and its bytes (inputs read once, outputs written once) at
@@ -233,7 +257,9 @@ The line before the last lists every kernel (`launches_spatial` and
 `launches_ddp`: rank 0's launches in phase 17's 2-rank bf16 spatial
 forward and DDP step; `launches_ps64`, `_ps32`, `_e8`, `_win4`: a
 request's in phase 18's serving, `launches_flagship` the golden's
-forward); the last line is {"ok": true, "device": {...}}.
+forward, `launches_e8_win2_step` the embed-8 window-2 step's,
+`launches_train_ps64`, `_e8`, `_win4` and `_cli` a step's in phase 19);
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -391,6 +417,10 @@ def card_line() -> str:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def rms_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).pow(2).mean().sqrt())
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -602,7 +632,7 @@ class Checks:
             self.failed.append(f"{kernel} {dtype} {what}")
 
     def raise_if_failed(self, phase_name: str) -> None:
-        for dt in ("fp32", "bf16"):
+        for dt in ("fp32", "bf16", "bf16 rms"):
             rows = [r for r in self.rows if r["dtype"] == dt]
             if not rows:
                 continue
@@ -1471,6 +1501,50 @@ def core_timing(model_t, device) -> dict:
     return dict(outs[0], more=outs[1:])
 
 
+# a gradient with at most this many entries a draw (the bias and LayerNorm
+# gradients at C 8-32) is held in bf16 by its rms error: its max error
+# over 8-64 entries flips about its bound with the draw (PERF.md §6)
+FEW_ENTRIES = 64
+
+
+def pooled_grad_bound(checks: Checks, kernel: str, what: str,
+                      runs: list) -> None:
+    """`grad_bound` over several independent draws of one call, runs =
+    [(got, ref, low, got16)] as grad_bound takes them: fp32 per draw, bf16
+    on each gradient of every draw taken as one tensor (its max errors and
+    max|ref| over all of them); a gradient of at most FEW_ENTRIES entries
+    a draw by its rms errors there instead ("bf16 rms": the kernel's
+    within 1.5x the plain bf16 VJP's + 1e-3 max(1, max|ref|))."""
+    for i, (got, ref, _, _) in enumerate(runs):
+        for name, r in ref.items():
+            if r is not None:
+                checks.add(kernel, f"{what} draw {i} {name}",
+                           max_err(got[name], r),
+                           1e-4 * (1.0 + float(r.abs().max())), "fp32")
+
+    def pool(j):
+        return {n: None if runs[0][j][n] is None else torch.cat(
+            [run[j][n].float().reshape(-1) for run in runs])
+            for n in runs[0][j]}
+
+    got, ref, low, got16 = (pool(j) for j in range(4))
+    for name, r in ref.items():
+        if r is None:
+            if got[name] is not None or got16[name] is not None:
+                raise RuntimeError(f"{kernel} {what} {name}: unexpected "
+                                   f"gradient")
+            continue
+        floor = 1e-3 * max(1.0, float(r.abs().max()))
+        if runs[0][1][name].numel() <= FEW_ENTRIES:
+            checks.add(kernel, f"{what} x{len(runs)} {name}",
+                       rms_err(got16[name], r),
+                       1.5 * rms_err(low[name], r) + floor, "bf16 rms")
+        else:
+            checks.add(kernel, f"{what} x{len(runs)} {name}",
+                       max_err(got16[name], r),
+                       1.5 * max_err(low[name], r) + floor, "bf16")
+
+
 def grad_bound(checks: Checks, kernel: str, what: str, got, ref, low,
                got16) -> None:
     """Per-gradient checks: fp32 kernel against fp32 plain within
@@ -1501,9 +1575,9 @@ def block_calls(layer, blk, residual, dtypes):
     versions, on its kernel weights in each of `dtypes`, each taking an
     image x (and g) of the block's input shape: attention_image and
     attention_bwd on the image route; off it the windowed branch's
-    attention_block and attention_block_bwd on x's (Bw, 64, C) windows,
-    LN outside (has_ln False) and the block's modulator, as the model runs
-    them. Then leff and leff_bwd. Returns ({kernel: (fused, plain)},
+    attention_block and attention_block_bwd on x's (Bw, N, C) windows (N =
+    win²), LN outside (has_ln False) and the block's modulator, as the
+    model runs them. Then leff and leff_bwd. Returns ({kernel: (fused, plain)},
     {backward kernel: parts(x, g, dt)}), parts giving the backward's
     launches unrun (`leff_bwd_parts` and its attention counterparts)."""
     from uformer_tpu_torch.ops import kernels as K
@@ -1529,7 +1603,7 @@ def block_calls(layer, blk, residual, dtypes):
                 prm[dt][k] for k in keys[3:])
 
         def tok(t):
-            return t.reshape(-1, 64, t.shape[-1])
+            return t.reshape(-1, blk.win_size ** 2, t.shape[-1])
 
     def attn(fn):
         return lambda x, dt: fn(tok(x), *args(dt), **akw)
@@ -1610,7 +1684,8 @@ def with_shift(blk, shift):
 def train_kernel_checks(model, device, batch: int) -> Checks:
     """Forward kernels with residual=False on every block, and backward
     kernels against their plain VJPs at every training-path geometry of
-    `model` at RES_TRAIN^2, at this batch, fp32 and bf16."""
+    `model` (each stage at its resolution for the model's train_ps), at
+    this batch, fp32 and bf16."""
     checks = Checks()
     dtypes = (torch.float32, torch.bfloat16)
     gen = torch.Generator(device="cpu").manual_seed(2)
@@ -1655,9 +1730,9 @@ def train_kernel_checks(model, device, batch: int) -> Checks:
     return checks
 
 
-def train_batch(batch: int, seed: int, device):
+def train_batch(batch: int, seed: int, device, res: int = RES_TRAIN):
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    shape = (batch, RES_TRAIN, RES_TRAIN, 3)
+    shape = (batch, res, res, 3)
     target = torch.rand(shape, generator=gen)
     noisy = (target + 0.1 * torch.randn(shape, generator=gen)).clamp(0, 1)
     return {"input": noisy.to(device), "target": target.to(device)}
@@ -1679,25 +1754,52 @@ def run_step(model, plain: bool, dtype, batch, seed: int, lr_schedule):
 
 
 def whole_step_checks(make_model, device, batch_size: int, label: str,
-                      expected: dict) -> Checks:
-    """One train step of batch_size, kernel path against plain path: same
-    weights, batch and generator; loss and every parameter's gradient
-    (norm_cross, built and never applied, has none), in fp32 and bf16. lr
-    0 keeps the weights for the next step. Each kernel path step must
-    launch exactly `expected`."""
+                      expected: dict, res: int = RES_TRAIN,
+                      fp32_cotangent: bool = False) -> tuple:
+    """One train step of batch_size at res^2, kernel path against plain
+    path: same weights, batch and generator; loss and every parameter's
+    gradient (norm_cross, built and never applied, has none), in fp32 and
+    bf16. lr 0 keeps the weights for the next step. Each kernel path step
+    must launch exactly `expected` and call no plain version. With
+    fp32_cotangent both bf16 steps backpropagate the fp32 plain step's
+    gradient of the loss at the model's output in place of their own (see
+    `HELD_OWN_LOSS`). Returns the checks and {"launches": counted in the
+    bf16 kernel path step, "cotangent": each bf16 step's own gradient at
+    the output against the fp32 plain step's (its rms error over the
+    latter's rms, the share of entries whose sign differs) and the share
+    of the plain path's sign changes that the kernel path shares}."""
     from uformer_tpu_torch.ops import kernels as K
 
     model = make_model()
-    batch = train_batch(batch_size, 3, device)
+    batch = train_batch(batch_size, 3, device, res)
+    # the gradient at the output of each step, by (plain, bf16)
+    counted, cot, step = {}, {}, []
+
+    def at_output(module, inputs, out):
+        def swap(g):
+            cot[step[-1]] = g.detach().clone()
+            return cot[True, False] if fp32_cotangent and step[-1][1] \
+                else None
+        out.register_hook(swap)
 
     def grads(plain, dtype):
         K.reset_counts()
-        loss, _, _ = run_step(model, plain, dtype, batch, 4, lambda s: 0.0)
+        step.append((plain, dtype == torch.bfloat16))
+        hook = model.register_forward_hook(at_output)
+        try:
+            loss, _, _ = run_step(model, plain, dtype, batch, 4,
+                                  lambda s: 0.0)
+        finally:
+            hook.remove()
         torch.cuda.synchronize()
         launched = K.launch_counts()
-        if not plain and launched != expected:
-            raise RuntimeError(f"{label}: launched {launched}, expected "
-                               f"{expected}")
+        if not plain and (launched != expected
+                          or any(K.plain_counts().values())):
+            raise RuntimeError(f"{label}: launched {launched}, plain calls "
+                               f"{K.plain_counts()}, expected {expected} "
+                               f"and none")
+        if not plain:
+            counted.update(launched)
         out = {"loss": loss.reshape(1)}
         out.update({n: p.grad.clone() for n, p in model.named_parameters()
                     if p.grad is not None})
@@ -1714,7 +1816,18 @@ def whole_step_checks(make_model, device, batch_size: int, label: str,
     for n, v in got16.items():
         if not bool(torch.isfinite(v).all()):
             raise RuntimeError(f"{label}: non-finite {n}")
-    return checks
+    ref_g = cot[True, False]
+    flips = {plain: torch.sign(cot[plain, True]) != torch.sign(ref_g)
+             for plain in (True, False)}
+    cotangent = {
+        path: {"rms_rel": rms_err(cot[plain, True], ref_g)
+               / float(ref_g.pow(2).mean().sqrt()),
+               "sign_changed": float(flips[plain].float().mean())}
+        for path, plain in (("plain", True), ("kernel", False))}
+    cotangent["shared_sign_changes"] = float(
+        (flips[True] & flips[False]).sum()
+        / flips[True].sum().clamp(min=1))
+    return checks, {"launches": counted, "cotangent": cotangent}
 
 
 def train_timing(make_model, device, expected: dict, label: str):
@@ -1885,7 +1998,8 @@ def train_checks(make_model, device, batch: int, label: str,
     kchecks = train_kernel_checks(model, device, batch)
     kchecks.raise_if_failed(f"{label} kernels bs{batch}")
     del model
-    schecks = whole_step_checks(make_model, device, batch, label, expected)
+    schecks, _ = whole_step_checks(make_model, device, batch, label,
+                                   expected)
     schecks.raise_if_failed(f"{label} step bs{batch}")
     torch.backends.cudnn.deterministic = False
     return kchecks, schecks
@@ -2563,10 +2677,13 @@ def loop_log_lr(trainer) -> list:
 
 def refusal_checks(device) -> dict:
     """Uformer at embed 8, window 2 (every block at head dim 8 on 4-token
-    windows) on the card: its forward runs through the kernels (18
-    attention-block and 18 LeFF launches, no plain call, finite output);
-    its train step is refused before any launch, naming the blocks the
-    backward kernels do not take. Returns the forward's launches."""
+    windows, 16 windows a packed tile) on the card: its forward runs
+    through the kernels (18 attention-block and 18 LeFF launches, no plain
+    call, finite output), and so does its train step (18 attention-block,
+    18 attention-block-backward, 18 LeFF and 18 LeFF-backward launches, no
+    plain call, finite loss). An embed-64 model's step (head dim 64) is
+    still refused before any launch, naming the blocks. Returns the
+    forward's and the step's launches."""
     from uformer_tpu_torch import get_arch
     from uformer_tpu_torch.ops import kernels as K
     from uformer_tpu_torch.train import TrainState, make_optimizer, \
@@ -2586,26 +2703,44 @@ def refusal_checks(device) -> dict:
         raise RuntimeError(f"embed 8 window 2 forward on the card: launches "
                            f"{fwd}, plain calls {K.plain_counts()}; expected "
                            f"{want} and none")
+    model.train()
     state = TrainState(model, make_optimizer(model.parameters(),
                                              lambda s: 2e-4))
-    step = make_train_step(model)
+    K.reset_counts()
+    loss = make_train_step(model)(state, {"input": x, "target": x},
+                                  torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    step = K.launch_counts()
+    want = dict(NO_LAUNCHES, attention_block=18, attention_block_bwd=18,
+                leff=18, leff_bwd=18)
+    if step != want or any(K.plain_counts().values()) \
+            or not np.isfinite(float(loss)):
+        raise RuntimeError(f"embed 8 window 2 train step on the card: "
+                           f"launches {step}, plain calls "
+                           f"{K.plain_counts()}, loss {float(loss)}; "
+                           f"expected {want}, none and a finite loss")
+    wide = get_arch({"arch": "Uformer", "embed_dim": 64,
+                     "train_ps": 32}).to(device)
+    state = TrainState(wide, make_optimizer(wide.parameters(),
+                                            lambda s: 2e-4))
     K.reset_counts()
     refused = None
     try:
-        step(state, {"input": x, "target": x}, torch.Generator())
+        make_train_step(wide)(state, {"input": x, "target": x},
+                              torch.Generator())
     except NotImplementedError as exc:
         refused = str(exc)
     launched = {k: v for k, v in K.launch_counts().items() if v}
     plain = {k: v for k, v in K.plain_counts().items() if v}
     if refused is None or launched or plain:
-        raise RuntimeError(f"embed 8 window 2 train step on the card: "
-                           f"refused {refused}, launches {launched}, plain "
-                           f"calls {plain}; expected refused before any "
-                           f"launch")
+        raise RuntimeError(f"embed 64 train step on the card: refused "
+                           f"{refused}, launches {launched}, plain calls "
+                           f"{plain}; expected refused before any launch")
     print(f"  embed 8, window 2 on the card: forward 18 attention-block "
-          f"and 18 LeFF launches, no plain call; train step: "
-          f"{refused[:160]}", flush=True)
-    return fwd
+          f"and 18 LeFF launches; train step 18/18/18/18 forward and "
+          f"backward launches, loss {float(loss):.6f}, no plain call; "
+          f"embed 64 train step: {refused[:160]}", flush=True)
+    return fwd, step
 
 
 def train_loop_phase(tmp: Path, device, card: str, bare_ms: float):
@@ -3231,9 +3366,9 @@ def models_phase(tmp: Path, sd, sd_t, device, totals: dict, fwd: dict,
     summary["unet_cli"] = unet_eval_cli(tmp / "unet", sd_u, restorer, card)
     del restorer
     torch.backends.cudnn.deterministic = True
-    tchecks = whole_step_checks(lambda: build_unet(sd_u, device).train(),
-                                device, BATCH_TRAIN, "train UNet",
-                                NO_LAUNCHES)
+    tchecks, _ = whole_step_checks(
+        lambda: build_unet(sd_u, device).train(), device, BATCH_TRAIN,
+        "train UNet", NO_LAUNCHES)
     torch.backends.cudnn.deterministic = False
     tchecks.raise_if_failed("train UNet")
     checks.rows += tchecks.rows
@@ -4171,8 +4306,423 @@ def geometry_phase(tmp: Path, sd_golden, device, card: str) -> tuple:
     summary["core_timing"] = cores
     summary["eval_ps64"] = geometry_eval(tmp, sds["ps64"], device, checks)
     launches["eval_ps64"] = summary["eval_ps64"]["launches"]
-    launches["refusal"] = refusal_checks(device)
+    launches["refusal"], launches["refusal_step"] = refusal_checks(device)
     summary["launches"] = launches
+    return checks, summary, launches
+
+
+# phase 19, train geometries: the backward at windows 1-8 and head dim 8.
+# Whole steps: label -> (get_arch options, weight seed, batch, side,
+# launches a step by JAX's route, layers.py:773-775: forward and backward
+# per kernel); each model's weights drawn from its seed.
+TRAIN_GEOM = {
+    "ps64": ({"arch": "Uformer_B", "train_ps": 64}, 1244, 32, 64,
+             dict(NO_LAUNCHES, attention_image=38, attention_bwd=38,
+                  attention_block=2, attention_block_bwd=2, leff=40,
+                  leff_bwd=40)),
+    "e8": ({"arch": "Uformer", "embed_dim": 8, "train_ps": 128}, 1245, 32,
+           128, dict(NO_LAUNCHES, attention_image=12, attention_bwd=12,
+                     attention_block=6, attention_block_bwd=6, leff=18,
+                     leff_bwd=18)),
+    "win4": ({"arch": "Uformer", "embed_dim": 32, "win_size": 4,
+              "train_ps": 128}, 1246, 8, 128,
+             dict(NO_LAUNCHES, attention_block=18, attention_block_bwd=18,
+                  leff=18, leff_bwd=18)),
+}
+# The cells whose whole step's bf16 rows are held, not gated, with the
+# same loss: the Charbonnier gradient at the output (eps 1e-3) changes sign
+# wherever |output - target| is under the bf16 output's rounding error
+# (0.64-0.68% of ps64's pixels on its seed-1244 weights), on other pixels
+# in each bf16 path, so each path's gradients carry a different 16% (rms)
+# error from the loss alone. On ps64 that error alone takes enc0's
+# gradients past the bound on 3 of 4 batches (PERF.md §6). Their bf16 rows
+# are printed and kept in the report; the gate is the step whose bf16
+# paths both backpropagate the fp32 step's gradient at the output
+# (`whole_step_checks(fp32_cotangent=True)`), and the fp32 rows.
+HELD_OWN_LOSS = ("ps64",)
+# the train CLI at the flagship golden's geometry (embed 8, 64^2: its
+# bottleneck packs 16-token windows at head dim 8, C 128): train pairs,
+# val pairs, batch, epochs; launches a step
+GEOM_CLI_SET = (64, 4, 8, 2)
+GEOM_CLI_LAUNCHES = dict(NO_LAUNCHES, attention_image=10, attention_bwd=10,
+                         attention_block=8, attention_block_bwd=8, leff=18,
+                         leff_bwd=18)
+# kernel 6 in its windowed layout at the new shapes: (win, shift, C,
+# heads, has_ln, with_mod, windows) at a training batch's token count
+# (GEOM_TOKENS, a bs2 128^2 stage's, each draw; the windows 3 more than a
+# whole number of
+# them: a partial last tile wherever 64 // N > 1, tiles with pad rows at
+# N 9, 25, 36, 49); head dim 8 at C 8 and 16 on every window 1-7 and at
+# window 8; head dim 32 on 16-token windows at C 32-512 (win_size 4);
+# ps64's bottleneck at bs32 as it runs (32 windows at C 512, its heads
+# split over blocks); head dim 8 at C 32-128 on 16-token windows (the
+# flagship's bottleneck)
+GEOM_TOKENS = 1 << 15
+# independent input draws a coverage shape's bf16 gradients are pooled
+# over before their max errors are taken: a C = 8 bias or LayerNorm
+# gradient has 8 entries, and the ratio of its max error to the plain
+# path's is heavy-tailed at head dim 16 and 32 too (PERF.md §6); fp32 is
+# checked per draw
+GEOM_DRAWS = 4
+GEOM_BWD_SHAPES = (
+    [(w, s, C, nH, ln, mod, None) for w in (1, 2, 3, 4, 5, 6, 7)
+     for s in sorted({0, w // 2})
+     for (C, nH), ln, mod in (((8, 1), s == 0, True),
+                              ((16, 2), s != 0, s == 0))]
+    + [(8, s, C, nH, True, True, None) for s in (0, 4)
+       for C, nH in ((8, 1), (16, 2))]
+    + [(4, s, C, C // 32, False, True, None) for s in (0, 2)
+       for C in (32, 64, 128, 256, 512)]
+    + [(4, 0, 512, 16, False, True, 32), (4, 2, 512, 16, True, False, 32)]
+    + [(4, s, C, C // 8, False, True, None) for s in (0, 2)
+       for C in (32, 64, 128)])
+# kernel 6 in the image layout and kernel 1 at head dim 8: (C, shift,
+# residual) on a 2 x 128 x 128 image
+GEOM_IMAGE_BWD_SHAPES = [(C, s, r) for C in (32, 64, 128) for s in (0, 4)
+                         for r in (True, False)]
+# kernel 7 at C = 8: images (B, H, W), the second no multiple of a tile
+GEOM_LEFF_BWD_SHAPES = [(2, 128, 128), (2, 100, 164)]
+
+
+def attn_bwd_cost(tokens, C, N, s=2):
+    """(operations, bytes) of kernel 6 as JAX's CostEstimate states it
+    (`attention_block.py:979-983`): 6 tokens C (4C + 2N) operations, x,
+    g and dx of tokens x C values."""
+    return 6 * tokens * C * (4 * C + 2 * N), 3 * tokens * C * s
+
+
+def geometry_bwd_checks(checks: Checks, device, seed: int = 19) -> None:
+    """Each extended backward kernel (and kernel 1's wide body at head dim
+    8) against its plain version at every new shape, fp32 (TF32 off) and
+    bf16: `grad_bound` per gradient (fp32 per draw, bf16 on each
+    gradient of GEOM_DRAWS draws taken as one tensor), `compare` for the
+    forward. Operands by the golden weights' rule (`tests/golden/generate.py:_seeded_value`,
+    as every seeded model here draws them: matrices N(0, 1 / fan-in),
+    LayerNorm scales 1 + N(0, 0.05²), biases N(0, 0.02²)), x and g N(0, 1),
+    as `train_kernel_checks` draws them; all drawn from `seed`."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(seed)
+
+    def mat(*shape, fan_in):
+        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
+            np.float32)
+
+    def scale(n):
+        return (1.0 + 0.05 * rng.standard_normal(n)).astype(np.float32)
+
+    def bias(n):
+        return (0.02 * rng.standard_normal(n)).astype(np.float32)
+
+    def xin(*shape):
+        return torch.from_numpy(mat(*shape, fan_in=1)).to(device) \
+            .bfloat16().float()
+
+    def attn_prm(C, nH, N, with_mod):
+        # the model's tensors: the modulator (N, C), the bias table
+        # ((2 win - 1)^2, nH) gathered to (nH, N, N), Linear weights (out,
+        # in) taken as (in, out)
+        return _prm(dict(mod=mat(N, C, fan_in=C) if with_mod else None,
+                         ln_s=scale(C), ln_b=bias(C),
+                         wq=mat(C, C, fan_in=C), bq=bias(C),
+                         wkv=mat(C, 2 * C, fan_in=C), bkv=bias(2 * C),
+                         wo=mat(C, C, fan_in=C), bo=bias(C),
+                         bias=mat(nH, N, N, fan_in=nH)), device,
+                    ("mod", "wq", "wkv", "wo"))
+
+    def bwd_check(kernel, what, fused, plain, shape):
+        names = LEFF_GRADS if kernel == "leff_bwd" else ATTN_GRADS
+        runs = []
+        for _ in range(GEOM_DRAWS):
+            x, g = xin(*shape), xin(*shape)
+            runs.append([dict(zip(names, f(*a))) for f, a in (
+                (fused, (x, g, torch.float32)),
+                (plain, (x, g, torch.float32)),
+                (plain, (x.bfloat16(), g.bfloat16(), torch.bfloat16)),
+                (fused, (x.bfloat16(), g.bfloat16(), torch.bfloat16)))])
+        pooled_grad_bound(checks, kernel, what, runs)
+
+    for win, shift, C, nH, has_ln, with_mod, Bw in GEOM_BWD_SHAPES:
+        N, H, W = win * win, 16 * win, 16 * win
+        Bw = Bw or GEOM_TOKENS // N + 3
+        prm = attn_prm(C, nH, N, with_mod)
+        kw = dict(win=win, shift=shift, H=H, W=W, scale=(C // nH) ** -0.5,
+                  num_heads=nH, has_ln=has_ln)
+        bwd_check("attention_block_bwd",
+                  f"win {win} shift {shift} C {C} D {C // nH} Bw {Bw} "
+                  f"ln {int(has_ln)} mod {int(with_mod)}",
+                  lambda x, g, dt, p=prm, kw=kw: K.fused_attention_block_bwd(
+                      x, g, *p[dt].values(), **kw),
+                  lambda x, g, dt, p=prm, kw=kw:
+                  K.attention_block_vjp_reference(x, g, *p[dt].values(),
+                                                  **kw), (Bw, N, C))
+    for C, shift, residual in GEOM_IMAGE_BWD_SHAPES:
+        nH = C // 8
+        prm = attn_prm(C, nH, 64, True)
+        kw = dict(win=8, shift=shift, scale=8 ** -0.5, num_heads=nH,
+                  residual=residual)
+        what = f"D 8 C {C} shift {shift} res {int(residual)}"
+        bwd_check("attention_bwd", what,
+                  lambda x, g, dt, p=prm, kw=kw: K.fused_attention_image_bwd(
+                      x, g, *p[dt].values(), **kw),
+                  lambda x, g, dt, p=prm, kw=kw:
+                  K.attention_image_vjp_reference(x, g, *p[dt].values(),
+                                                  **kw), (2, 128, 128, C))
+        if C == 128:  # kernel 1's wide body at head dim 8
+            compare(checks, "attention_image", f"wide {what}",
+                    lambda x, dt, p=prm, kw=kw: K.fused_attention_image(
+                        x, *p[dt].values(), **kw),
+                    lambda x, dt, p=prm, kw=kw: K.attention_image_reference(
+                        x, *p[dt].values(), **kw), xin(4, 32, 32, C))
+    C = 8
+    lp = _prm(dict(w1=mat(C, 4 * C, fan_in=C), b1=bias(4 * C),
+                   wd=mat(3, 3, 4 * C, fan_in=9), bd=bias(4 * C),
+                   w2=mat(4 * C, C, fan_in=4 * C), ln_s=scale(C),
+                   ln_b=bias(C)), device, ("w1", "wd", "w2"))
+    for (B, H, W), has_ln, residual in itertools.product(
+            GEOM_LEFF_BWD_SHAPES, (True, False), (True, False)):
+        def run(fn, has_ln=has_ln, residual=residual):
+            def call(x, g, dt):
+                p = lp[dt]
+                ln = (p["ln_s"], p["ln_b"]) if has_ln else (None, None)
+                return fn(x, g, *(p[k] for k in ("w1", "b1", "wd", "bd",
+                                                  "w2")), *ln,
+                          has_ln=has_ln, residual=residual)
+            return call
+        bwd_check("leff_bwd", f"C 8 {B}x{H}x{W} ln {int(has_ln)} res "
+                  f"{int(residual)}", run(K.fused_leff_bwd),
+                  run(K.leff_vjp_reference), (B, H, W, C))
+
+
+def geometry_step_timing(model, batch, expected: dict, label: str) -> dict:
+    """bf16 train steps of `model` on `batch`: ms a step (CUDA events) in
+    the order plain, kernel x3, plain, `expected` launches on each kernel
+    path step, its loss finite."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    out = {"kernel_ms": [], "plain_ms": [], "loss": []}
+    for plain in (True, False, False, False, True):
+        _, state, step = run_step(model, plain, torch.bfloat16, batch, 50,
+                                  lambda s: 0.0)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        K.reset_counts()
+        start.record()
+        loss = step(state, batch, torch.Generator(device="cpu")
+                    .manual_seed(51))
+        end.record()
+        torch.cuda.synchronize()
+        out["plain_ms" if plain else "kernel_ms"].append(
+            start.elapsed_time(end))
+        if not plain:
+            out["loss"].append(float(loss))
+            if K.launch_counts() != expected or \
+                    not np.isfinite(float(loss)):
+                raise RuntimeError(f"{label}: step launched "
+                                   f"{K.launch_counts()}, loss "
+                                   f"{float(loss)}")
+    out["kernel_ms_median"] = float(np.median(out["kernel_ms"]))
+    out["plain_ms_median"] = float(np.median(out["plain_ms"]))
+    return out
+
+
+def geometry_kernel_timing(model, batch: int, label: str) -> tuple:
+    """Device time of each backward kernel call of one bf16 step of
+    `model` (and kernel 1's forward at head dim 8) against its plain VJP
+    and its bound, one block per (stage, shift) counted once per block of
+    the stage with that shift; kernel 6's parts (body, wgrad beside
+    torch.matmul, colsum) where its windows are below 8. Kernel 6's bound
+    is `attn_bwd_cost`'s, kernel 7's `bwd_cost` of LeFF's."""
+    gen = torch.Generator(device="cpu").manual_seed(20)
+    rows, totals = [], {}
+    with torch.no_grad():
+        for name, blk, shift, residual in train_configs(model):
+            layer = getattr(model, name)
+            n = sum(b.shift_size == shift for b in layer.blocks)
+            if n == 0:
+                continue
+            res, C, N = layer.resolution, layer.dim, blk.win_size ** 2
+            shape, tokens = (batch, res, res, C), batch * res * res
+            head8 = C // blk.num_heads == 8
+            calls, parts = block_calls(layer, blk, residual,
+                                       (torch.bfloat16,))
+            costs = {"attention_bwd": attn_bwd_cost(tokens, C, N),
+                     "attention_block_bwd": attn_bwd_cost(tokens, C, N),
+                     "leff_bwd": bwd_cost(leff_cost(tokens, C, 4 * C),
+                                          tokens, C),
+                     "attention_image": attn_cost(tokens, C, blk.num_heads)}
+            x = torch.randn(shape, generator=gen).to(
+                next(model.parameters()).device, torch.bfloat16)
+            g = torch.randn(shape, generator=gen).to(x.device, x.dtype)
+            for kernel, (fused, plain) in calls.items():
+                if kernel == "attention_image" and not (head8 and C >= 128):
+                    continue
+                if kernel in ("attention_block", "leff"):
+                    continue
+                args = (x, g) if kernel.endswith("bwd") else (x,)
+                k_fn = (lambda f=fused, a=args: f(*a, torch.bfloat16))
+                p_fn = (lambda f=plain, a=args: f(*a, torch.bfloat16))
+                p1, k1, k2, p2 = (cuda_ms(p_fn, reps=3), cuda_ms(k_fn, reps=3),
+                                  cuda_ms(k_fn, reps=3), cuda_ms(p_fn, reps=3))
+                k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                b_ms = tally(totals, kernel, k_ms, p_ms, costs[kernel], n)
+                row = {"model": label, "layer": name, "shift": shift,
+                       "blocks": n, "kernel": kernel, "shape": list(shape),
+                       "N": N, "heads": blk.num_heads, "ms": k_ms,
+                       "plain_ms": p_ms, "bound_ms": b_ms / n}
+                if kernel == "attention_block_bwd" and N < 64:
+                    row["parts"] = part_times(parts[kernel], x, g, n,
+                                              totals, kernel)
+                print(f"  {label:5s} {name:16s} s{shift} x{n} {kernel:19s} "
+                      f"{str(shape):20s} N {N:2d} kernel {k_ms:8.3f} ms  "
+                      f"plain {p_ms:8.3f} ms  bound {b_ms / n:7.4f} ms"
+                      + ("  parts: " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in row["parts"].items())
+                         if "parts" in row else ""), flush=True)
+                rows.append(row)
+    for kernel, t in totals.items():
+        print(f"  {label:5s} {kernel:19s} per step: {t['launches']} "
+              f"launches, kernel {t['ms']:8.3f} ms, plain "
+              f"{t['plain_ms']:8.3f} ms, bound {t['bound_ms']:7.4f} ms "
+              f"({bound_by(t)})", flush=True)
+    return rows, totals
+
+
+def geometry_cli(tmp: Path, device) -> dict:
+    """`python -m uformer_tpu_torch.train.cli --arch Uformer --embed_dim 8
+    --train_ps 64` in-process on seeded 64^2 PNG pairs (GEOM_CLI_SET):
+    every step launches GEOM_CLI_LAUNCHES, no plain call, a finite loss
+    that falls (the mean of the last 4 steps below the first 4's)."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    n_train, n_val, bs, epochs = GEOM_CLI_SET
+    train_dir = write_pairs(tmp / "train", n_train, 64, 61)
+    val_dir = write_pairs(tmp / "val", n_val, 64, 62)
+    base = loop_trainer_class()
+
+    class GeomTrainer(base):
+        def build(self, steps_per_epoch):
+            super().build(steps_per_epoch)
+            step, self.losses = self.train_step, []
+
+            def logged(state, batch, gen):
+                loss = step(state, batch, gen)
+                self.losses.append(float(loss))
+                return loss
+
+            self.train_step = logged
+
+    argv = ["--arch", "Uformer", "--embed_dim", "8", "--train_ps", "64",
+            "--batch_size", str(bs), "--nepoch", str(epochs),
+            "--mode", "denoising", "--train_dir", str(train_dir),
+            "--val_dir", str(val_dir), "--save_dir", str(tmp / "logs"),
+            "--pretrain_weights", "", "--device", str(device)]
+    benchmark = torch.backends.cudnn.benchmark
+    K.reset_counts()
+    t0 = time.perf_counter()
+    trainer, state, best = run_train_cli(GeomTrainer, argv)
+    secs = time.perf_counter() - t0
+    torch.backends.cudnn.benchmark = benchmark
+    losses = trainer.losses
+    steps = epochs * (n_train // bs)
+    for i, s in enumerate(trainer.steps):
+        if s["launches"] != GEOM_CLI_LAUNCHES:
+            raise RuntimeError(f"train CLI e8 ps64: step {i} launched "
+                               f"{s['launches']}, expected "
+                               f"{GEOM_CLI_LAUNCHES}")
+    if len(losses) != steps or state.step != steps \
+            or any(K.plain_counts().values()) \
+            or not np.isfinite(losses).all() \
+            or np.mean(losses[-4:]) >= np.mean(losses[:4]):
+        raise RuntimeError(f"train CLI e8 ps64: {state.step} steps, losses "
+                           f"{losses}, plain calls {K.plain_counts()}")
+    ms = [s["events"][0].elapsed_time(s["events"][1])
+          for s in trainer.steps]
+    print(f"  train CLI --arch Uformer --embed_dim 8 --train_ps 64: "
+          f"{steps} steps of bs{bs}, loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}, median {float(np.median(ms)):.3f} ms a step, "
+          f"best PSNR {best:.4f}, {secs:.2f} s; launches a step "
+          f"{GEOM_CLI_LAUNCHES}, no plain call", flush=True)
+    return {"losses": losses, "step_ms": ms, "best_psnr": best, "s": secs,
+            "launches": trainer.steps[-1]["launches"]}
+
+
+def train_geometry_phase(tmp: Path, device, card: str) -> tuple:
+    """Phase 19: the backward kernels at every new shape (windows 1-7 on
+    packed tiles, head dim 8 in both layouts, LeFF at C 8; kernel 1's wide
+    body at head dim 8); each model's kernels at its every training
+    geometry at its training batch (`train_kernel_checks`) and one whole
+    step kernel path against plain path, fp32 and bf16, of Uformer_B at
+    train_ps 64 (bs32, 64^2), Uformer at embed 8 (bs32, 128^2) and at
+    win_size 4 (bs8, 128^2) (HELD_OWN_LOSS: bf16 rows held, and the step
+    from the fp32 loss gradient gated), each then timed in bf16 steps and
+    per backward call against plain and bound; the train CLI at the
+    flagship's geometry. Returns the checks, the summary and the launches
+    counted per path (a step each)."""
+    checks, summary, launches = Checks(), {"card": card}, {}
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    geometry_bwd_checks(checks, device)
+    summary["kernel_checks_s"] = time.perf_counter() - t0
+    for label, (opt, seed, bs, side, expected) in TRAIN_GEOM.items():
+        t1 = time.perf_counter()
+        sd = seeded_for(opt, seed)
+
+        def make(opt=opt, sd=sd):
+            return build_arch(opt, sd, device)
+
+        torch.backends.cudnn.deterministic = True
+        kchecks = train_kernel_checks(make(), device, bs)
+        schecks, info = whole_step_checks(
+            make, device, bs, f"train {label}", expected, res=side)
+        launches[label] = info["launches"]
+        summary[f"cotangent_{label}"] = cot = info["cotangent"]
+        subs = [kchecks, schecks]
+        if label in HELD_OWN_LOSS:
+            held = [r for r in schecks.rows if r["dtype"] == "bf16"]
+            schecks.rows = [r for r in schecks.rows if r["dtype"] != "bf16"]
+            schecks.failed = [f for f in schecks.failed if " bf16 " not in f]
+            worst = max(held, key=lambda r: r["err"] / r["bound"])
+            over = [r["what"] for r in held if not r["ok"]]
+            summary[f"held_{label}"] = {
+                "rows": held, "over_bound": over,
+                "worst": worst["err"] / worst["bound"],
+                "worst_what": worst["what"]}
+            print(f"  held, not gated: {label}'s bf16 step with its own "
+                  f"loss, worst err/bound {worst['err'] / worst['bound']:.3f}"
+                  f" ({worst['what']}), {len(over)} of {len(held)} "
+                  f"gradients over their bound; the bf16 "
+                  f"output gradient's rms error {cot['plain']['rms_rel']:.4f}"
+                  f" (plain) {cot['kernel']['rms_rel']:.4f} (kernels), "
+                  f"signs changed at {cot['plain']['sign_changed']:.5f} / "
+                  f"{cot['kernel']['sign_changed']:.5f} of it, "
+                  f"{cot['shared_sign_changes']:.3f} of them shared",
+                  flush=True)
+            subs.append(whole_step_checks(
+                make, device, bs, f"train {label} fp32 cotangent", expected,
+                res=side, fp32_cotangent=True)[0])
+        for sub in subs:
+            checks.rows += sub.rows
+            checks.failed += sub.failed
+        torch.backends.cudnn.deterministic = False
+        model = make()
+        batch = train_batch(bs, 7, device, side)
+        steps = geometry_step_timing(model, batch, expected, label)
+        rows, totals = geometry_kernel_timing(model, bs, label)
+        summary[f"steps_{label}"] = steps
+        summary[f"timing_{label}"] = rows
+        summary[f"timing_totals_{label}"] = totals
+        summary[f"{label}_s"] = time.perf_counter() - t1
+        print(f"  {label} bs{bs} {side}^2 bf16 step: kernel path "
+              f"{steps['kernel_ms_median']:.3f} ms, plain path "
+              f"{steps['plain_ms_median']:.3f} ms, loss "
+              f"{steps['loss'][0]:.6f}; {time.perf_counter() - t1:.1f} s  "
+              f"[{card}]", flush=True)
+        del model, batch
+        torch.cuda.empty_cache()
+    summary["cli"] = geometry_cli(tmp, device)
+    launches["cli"] = summary["cli"]["launches"]
     return checks, summary, launches
 
 
@@ -4292,9 +4842,9 @@ def run(device, card: str, json_path) -> list:
 
     phase("train Mlp + cross-modulator")
     torch.backends.cudnn.deterministic = True
-    mcchecks = whole_step_checks(lambda: mlp_cross_model(device), device,
-                                 BATCH_CHECK, "train Mlp + cross",
-                                 MLP_CROSS_LAUNCHES)
+    mcchecks, _ = whole_step_checks(lambda: mlp_cross_model(device),
+                                    device, BATCH_CHECK, "train Mlp + cross",
+                                    MLP_CROSS_LAUNCHES)
     torch.backends.cudnn.deterministic = False
     mcchecks.raise_if_failed("train Mlp + cross")
 
@@ -4331,6 +4881,15 @@ def run(device, card: str, json_path) -> list:
     print(f"  phase 18 took {geometries['s']:.1f} s", flush=True)
     gchecks18.raise_if_failed("geometries")
 
+    phase("train geometries")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gchecks19, train_geoms, tgeom_launches = train_geometry_phase(
+            Path(tmp), device, card)
+    train_geoms["s"] = time.perf_counter() - t0
+    print(f"  phase 19 took {train_geoms['s']:.1f} s", flush=True)
+    gchecks19.raise_if_failed("train geometries")
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas,
@@ -4356,7 +4915,9 @@ def run(device, card: str, json_path) -> list:
               "train_loop_checks": lchecks.rows, "train_loop": loop,
               "models_checks": mchecks.rows, "models": models,
               "parallel_checks": pchecks.rows, "parallel": parallel,
-              "geometry_checks": gchecks18.rows, "geometries": geometries}
+              "geometry_checks": gchecks18.rows, "geometries": geometries,
+              "train_geometry_checks": gchecks19.rows,
+              "train_geometries": train_geoms}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -4378,7 +4939,7 @@ def run(device, card: str, json_path) -> list:
         rows_of = [r for r in kchecks.rows + t_kchecks.rows + ai_checks.rows
                    + tkchecks.rows + ttkchecks.rows + dw_checks.rows
                    + tile_checks.rows + mchecks.rows + pchecks.rows
-                   + gchecks18.rows
+                   + gchecks18.rows + gchecks19.rows
                    if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
@@ -4398,7 +4959,9 @@ def run(device, card: str, json_path) -> list:
                               + kernel_count(par_launches["spatial"], name)
                               + kernel_count(par_launches["ddp"], name)
                               + sum(kernel_count(c, name)
-                                    for c in geom_launches.values())),
+                                    for c in geom_launches.values())
+                              + sum(kernel_count(c, name)
+                                    for c in tgeom_launches.values())),
                  "launches_serve": kernel_count(launches, name),
                  "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
@@ -4418,6 +4981,10 @@ def run(device, card: str, json_path) -> list:
                  "launches_win4": kernel_count(geom_launches["win4"], name),
                  "launches_flagship": kernel_count(
                      geom_launches["flagship"], name),
+                 **{f"launches_train_{path}": kernel_count(c, name)
+                    for path, c in tgeom_launches.items()},
+                 "launches_e8_win2_step": kernel_count(
+                     geom_launches["refusal_step"], name),
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -4460,7 +5027,13 @@ def run(device, card: str, json_path) -> list:
                                ("serve ps32", "ps32",
                                 geometries["timing_totals_ps32"]),
                                ("serve e8", "e8",
-                                geometries["timing_totals_e8"])):
+                                geometries["timing_totals_e8"]),
+                               ("train ps64", "train_ps64",
+                                train_geoms["timing_totals_ps64"]),
+                               ("train e8", "train_e8",
+                                train_geoms["timing_totals_e8"]),
+                               ("train win4", "train_win4",
+                                train_geoms["timing_totals_win4"])):
             if name in tt and label not in where:
                 entry.update({f"ms_{key}": tt[name]["ms"],
                               f"plain_ms_{key}": tt[name]["plain_ms"],

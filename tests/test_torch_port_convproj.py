@@ -447,11 +447,18 @@ def test_train_guard_names_conv_mlp_and_cross_blocks():
             m = Uformer(img_size=128, embed_dim=embed, depths=(1,) * 9,
                         num_heads=B_HEADS, **opts)
             assert blocks_without_backward_kernel(m) == [], (embed, opts)
-    # a window other than 8 (the 64^2 model's 4 x 4 bottleneck) is not
+    # a window below 8 (the 64^2 model's 4 x 4 bottleneck) is covered too
+    # (packed tiles); head dim 64 (embed 64) is not
     narrow = Uformer(img_size=64, embed_dim=16, depths=(1,) * 9,
                      num_heads=B_HEADS)
-    assert blocks_without_backward_kernel(narrow) == ["conv.blocks.0"]
-    assert narrow.conv.blocks[0].backward_gap == GEOMETRY_NOT_ON_KERNEL_PATH
+    assert narrow.conv.blocks[0].win_size == 4
+    assert blocks_without_backward_kernel(narrow) == []
+    wide = Uformer(img_size=64, embed_dim=64, depths=(1,) * 9,
+                   num_heads=B_HEADS)
+    assert blocks_without_backward_kernel(wide)[0] == \
+        "encoderlayer_0.blocks.0"
+    assert wide.encoderlayer_0.blocks[0].backward_gap == \
+        GEOMETRY_NOT_ON_KERNEL_PATH
 
 
 def test_conv_train_step_runs_on_cpu():

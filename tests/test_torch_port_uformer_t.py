@@ -299,42 +299,50 @@ def test_registry_refuses_what_the_kernels_do_not_take():
     """The registry builds every arch of the JAX registry: UNet (no LeWin
     block, so nothing for the kernels to refuse) and checkpointed models
     too. It builds Uformer at any geometry for the CPU; the card's kernel
-    path refuses a head dim or window its kernels do not take
-    (`blocks_without_backward_kernel`, naming the ROADMAP item)."""
+    path takes embed 16 at window 4 (packed tiles) and refuses head dim 64
+    (embed 64), which no kernel takes (`blocks_without_backward_kernel`,
+    naming the ROADMAP items)."""
     assert get_arch({"arch": "Uformer_T"}).encoderlayer_0.dim == 16
     assert blocks_without_backward_kernel(get_arch({"arch": "UNet"})) == []
     ck = get_arch({"arch": "Uformer_T", "use_checkpoint": True})
     assert ck.encoderlayer_0.use_checkpoint and \
         blocks_without_backward_kernel(ck) == []
-    for opt in ({"arch": "Uformer", "embed_dim": 64},
-                {"arch": "Uformer", "embed_dim": 16, "win_size": 4}):
+    for opt, n in (({"arch": "Uformer", "embed_dim": 64}, 18),
+                   ({"arch": "Uformer", "embed_dim": 16, "win_size": 4}, 0)):
         model = get_arch(opt)
         assert model.encoderlayer_0.dim == opt["embed_dim"]
         assert model.encoderlayer_0.blocks[0].win_size == \
             opt.get("win_size", 8)
         uncovered = blocks_without_backward_kernel(model)
-        assert len(uncovered) == 18
-        gap = model.get_submodule(uncovered[0]).backward_gap
-        assert "ROADMAP.md, port queue 2 item 1" in gap
+        assert len(uncovered) == n
+        if n:
+            gap = model.get_submodule(uncovered[0]).backward_gap
+            assert "ROADMAP.md, port queue 2 items 2 and 3" in gap
 
 
 def test_train_guard_names_the_uncovered_blocks():
     """The kernel path trains every block the backward kernels cover: the
-    image route and the windowed branch at head dim 16 or 32. Every
-    registry arch is covered; a conv-projection model and other head dims
+    image route and the windowed branch at windows 1-8 and head dim 8, 16
+    or 32. Every registry arch at train_ps 32, 64 and 128 is covered, and
+    embed 8 at window 8 and 2; a conv-projection model and head dim 64
     are not."""
     from uformer_tpu_torch.models import Uformer
     from uformer_tpu_torch.models.registry import ARCHS
 
     for arch in ARCHS:
-        assert blocks_without_backward_kernel(
-            get_arch({"arch": arch, "train_ps": 128})) == [], arch
+        for ps in (32, 64, 128):
+            assert blocks_without_backward_kernel(
+                get_arch({"arch": arch, "train_ps": ps})) == [], (arch, ps)
     conv = Uformer(img_size=128, embed_dim=16, depths=(1,) * 9,
                    num_heads=T_HEADS, token_projection="conv")
     assert len(blocks_without_backward_kernel(conv)) == 9
-    narrow = Uformer(img_size=128, embed_dim=8, depths=(1,) * 9,
-                     num_heads=T_HEADS)
-    assert blocks_without_backward_kernel(narrow)[0] == \
+    for win in (8, 2):
+        narrow = Uformer(img_size=128, embed_dim=8, depths=(1,) * 9,
+                         num_heads=T_HEADS, win_size=win)
+        assert blocks_without_backward_kernel(narrow) == [], win
+    wide = Uformer(img_size=128, embed_dim=64, depths=(1,) * 9,
+                   num_heads=T_HEADS)
+    assert blocks_without_backward_kernel(wide)[0] == \
         "encoderlayer_0.blocks.0"
 
 

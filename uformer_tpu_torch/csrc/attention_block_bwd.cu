@@ -1,5 +1,5 @@
 // Backward of the windowed LeWin attention block for Hopper (sm_90a), head
-// dim 16 or 32.
+// dim 8, 16 or 32.
 //
 // Replaces uformer_tpu/ops/pallas/attention_block.py:
 // fused_attention_block_bwd in its own layout (its unpacked form; the
@@ -24,7 +24,8 @@
 // operations. bf16 runs the image layout's tile (attention_bwd_mma.cuh)
 // with this token map, a block taking 1-4 windows (their dbias, dmod and
 // dln shares summed before they are written); fp32 the FMA body of
-// attention_window_bwd.cuh, one window per block.
+// attention_window_bwd.cuh, one window per block. Windows of N = win^2 <
+// 64 tokens run in packed tiles (attention_block_bwd_packed.cu).
 #include "attention_bwd_mma.cuh"
 
 namespace uf {
@@ -88,11 +89,14 @@ static int run(const AttnBwdParams<T>& p, int Bw, int wn, int hpb,
 
 extern "C" {
 
-// Returns a cudaError_t. x, g and dx are (Bw, 64, C) windows of H x W
-// images; the other arguments as uf_attention_bwd takes them (xm_w,
-// dqkv_w and o_img per token in window order), with no residual, wn
-// windows or hpb heads per block in bf16 as there. The scratch needs are
-// uf_attention_bwd_scratch's.
+// Returns a cudaError_t. x, g and dx are (Bw, N, C) windows of win x win
+// tokens (win 1-8, N = win^2) of H x W images; the other arguments as
+// uf_attention_bwd takes them (xm_w, dqkv_w and o_img per token in window
+// order), with no residual, wn windows or hpb heads per block in bf16 as
+// there. At win < 8 the work items are the ceil(Bw / (64 / N)) packed
+// tiles: mod (64, C) and bias (nH, 64, 64) the host's tiles, xm_w, dqkv_w,
+// the partial sums and the scratches per tile (64 rows each). The scratch
+// needs are uf_attention_bwd_scratch's.
 int uf_attention_block_bwd(int is_bf16, const void* x, const void* g,
                            const void* mod, const float* ln_s,
                            const float* ln_b, const void* wq,
@@ -103,22 +107,29 @@ int uf_attention_block_bwd(int is_bf16, const void* x, const void* g,
                            float* dmod_part, float* dln_part,
                            void* x_scratch, void* do_scratch,
                            float* part_dxm, int Bw, int H, int W, int C,
-                           int nH, int shift, float scale, int has_ln, int wn,
-                           int hpb, void* stream) {
+                           int nH, int win, int shift, float scale,
+                           int has_ln, int wn, int hpb, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return uf::run(uf::attn_bwd_params<uf::bf16>(
-                       x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx,
-                       xm_w, dqkv_w, o_img, dbias_part, dmod_part, dln_part,
-                       x_scratch, do_scratch, part_dxm, 1, H, W, C, nH,
-                       shift, scale, has_ln, 0),
-                   Bw, wn, hpb, s);
-  return uf::run(uf::attn_bwd_params<float>(
-                     x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx,
-                     xm_w, dqkv_w, o_img, dbias_part, dmod_part, dln_part,
-                     x_scratch, do_scratch, part_dxm, 1, H, W, C, nH, shift,
-                     scale, has_ln, 0),
-                 Bw, wn, hpb, s);
+  const int tiles = win < 8 ? (Bw + 64 / (win * win) - 1) / (64 / (win * win))
+                            : Bw;
+  if (is_bf16) {
+    auto p = uf::attn_bwd_params<uf::bf16>(
+        x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx, xm_w, dqkv_w,
+        o_img, dbias_part, dmod_part, dln_part, x_scratch, do_scratch,
+        part_dxm, 1, H, W, C, nH, shift, scale, has_ln, 0);
+    if (win == 8) return uf::run(p, Bw, wn, hpb, s);
+    p.win = win;
+    p.n_win = Bw;
+    return uf::attention_block_bwd_packed(p, tiles, wn, hpb, s);
+  }
+  auto p = uf::attn_bwd_params<float>(
+      x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx, xm_w, dqkv_w,
+      o_img, dbias_part, dmod_part, dln_part, x_scratch, do_scratch,
+      part_dxm, 1, H, W, C, nH, shift, scale, has_ln, 0);
+  if (win == 8) return uf::run(p, Bw, wn, hpb, s);
+  p.win = win;
+  p.n_win = Bw;
+  return uf::attention_block_bwd_packed(p, tiles, s);
 }
 
 }  // extern "C"

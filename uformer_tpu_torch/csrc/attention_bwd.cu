@@ -1,5 +1,6 @@
 // Backward of the image-layout LeWin attention sub-block for Hopper
-// (sm_90a), head dim 16 or 32.
+// (sm_90a), head dim 16 or 32, and 8 (bf16: from C = 32, where the JAX
+// package's image route starts).
 //
 // Replaces uformer_tpu/ops/pallas/attention_block.py:
 // fused_attention_block_bwd (and its pixel-packed narrow-C variant) as the
@@ -76,7 +77,7 @@ static int run(const AttnBwdParams<T>& p, int wn, int hpb,
                cudaStream_t stream) {
   const int n_win = p.B * (p.H / 8) * (p.W / 8);
   if constexpr (std::is_same<T, bf16>::value) {
-    return with_bwd_tile(p.C, p.nH, [&](auto c, auto d) {
+    return with_bwd_tile<32>(p.C, p.nH, [&](auto c, auto d) {
       constexpr int C = decltype(c)::value, D = decltype(d)::value;
       return launch_attn_bwd_mma(attention_bwd_mma_kernel<C, D>,
                                  AttnBwdMma<C, D>::total, p, wn, n_win, hpb,
@@ -95,15 +96,16 @@ extern "C" {
 
 // Bit 0: the window's xm tile, bit 1: its dO tile, misses shared memory;
 // the caller then passes a (windows, 64, C) scratch of the input's dtype.
-// C / nH is 16 or 32 (checked by the caller).
+// C / nH is 8, 16 or 32 (checked by the caller).
 int uf_attention_bwd_scratch(int is_bf16, int C, int nH) {
   return uf::attn_bwd_scratch(is_bf16 ? 2 : 4, C, nH);
 }
 
 // Returns a cudaError_t. is_bf16 selects bf16 (else fp32) for x, g, mod,
 // the weight matrices and every per-token output; in bf16 (C 16-512 in
-// powers of 2, at most 16 heads) a block takes wn windows and the partial
-// sums are per block (ceil(windows / wn) rows), or, with hpb < nH (wn 1),
+// powers of 2, head dim 8 from C = 32, at most 16 heads) a block takes wn
+// windows and the partial sums are per block (ceil(windows / wn) rows),
+// or, with hpb < nH (wn 1),
 // hpb heads of one window, whose fp32 dxm shares go through part_dxm
 // (nH / hpb x windows x 64 x C floats); fp32 takes one window a block.
 // Biases, LayerNorm parameters, the bias table and the partial sums are

@@ -2,7 +2,10 @@
 // building block (mma_tile.cuh): the function, roundings and outputs of
 // attention_window_bwd.cuh, with every product in mma.sync register
 // accumulators and the weights brought into shared memory by cp.async
-// rings. C = nH D in 16..512 (powers of 2), D 16 or 32.
+// rings. C = nH D in 8..512 (powers of 2), D 8, 16 or 32, at most 16
+// heads. Head dim 8 takes QK^T and dO v^T (depth D) on mma.sync.m16n8k8,
+// as C = 8 takes its projections and dxm (depth C), through warp_mma_k;
+// every other product keeps its depth of 16 or more.
 //
 // A block takes a work item of WN consecutive windows (the host picks WN
 // from the windows and the SMs: 1-4 at C <= 128, 1 above), one after
@@ -28,10 +31,15 @@
 // dbias, dmod and dln_s / dln_b are summed over the item's windows in the
 // item's own partial rows (the first window writes, the next add, in
 // window order), so the colsum after it reads WN times fewer rows.
+// With kPad a token map may mark a padding row of a packed tile (pix -1):
+// it reads x = g = 0 and is never written (attention_window_bwd.cuh says
+// why it adds nothing to any gradient); without, the 8x8 window's code
+// carries no guard.
 #pragma once
 
 #include "attention_window_bwd.cuh"
 #include "mma_tile.cuh"
+#include "window_core_mma.cuh"
 
 namespace uf {
 
@@ -39,7 +47,7 @@ namespace uf {
 // to 512 with at most 16 heads (the fp32 dxm of 64 x C, over the buffers
 // of the per-head loop, then fits shared memory)
 __host__ __device__ constexpr bool attn_bwd_mma_fits(int C, int D) {
-  return (D == 16 || D == 32) && C >= D && C <= 16 * D &&
+  return (D == 8 || D == 16 || D == 32) && C >= D && C <= 16 * D &&
          (C & (C - 1)) == 0;
 }
 
@@ -49,12 +57,12 @@ struct AttnBwdMma {
   static constexpr int nH = C / D, NPN = D / 8;  // n8 tiles of a head
   static constexpr int KQ = C < 128 ? C : 128;   // K of a weight tile
   static constexpr int NQ = C / KQ, TPH = 4 * NQ;
-  // K of a dxm tile: a divisor of 3C
+  // K of a dxm tile: a divisor of 3C (8 at C = 8: an m16n8k8 product)
   static constexpr int KX = C == 512 ? 16 : C >= 128 ? 32 : C;
   static constexpr int ldx = C + 8, ldq = D + 8, ldp = 72, lda = C + 4;
   static constexpr int ldwq = D + 8, ldwo = KQ + 8, ldxa = KX + 8;
   // dxm: warp w takes MT2 m16 tiles from 16 MT2 (w / NW2) x NT2 n8 tiles
-  // from 8 NT2 (w % NW2); at C = 16 half the warps
+  // from 8 NT2 (w % NW2); at C = 16 half the warps, at C = 8 a quarter
   static constexpr int PP = C / 32;
   static constexpr int NT2 = PP < 1 ? 1 : PP > 4 ? 4 : PP;
   static constexpr int MT2 = PP / NT2 < 1 ? 1 : PP / NT2;
@@ -88,8 +96,9 @@ struct AttnBwdMma {
 // the next add), the dln_s / dln_b shares from the fp32 dxm, as the TPU
 // kernel sums its fp32 product (attention_block.py:746-750), and the
 // LayerNorm VJP, one warp per token, dx [+ g] back to its pixel. All
-// threads call it; the caller synchronises before and after.
-template <int C, int D>
+// threads call it; the caller synchronises before and after. kPad: skip
+// padding rows (pix -1).
+template <int C, int D, bool kPad>
 __device__ void attention_bwd_epilogue(const AttnBwdParams<bf16>& p,
                                        int item, bool first,
                                        unsigned char* smem) {
@@ -112,6 +121,8 @@ __device__ void attention_bwd_epilogue(const AttnBwdParams<bf16>& p,
     for (int c = tid; c < C; c += kThreads) {
       float ss = 0.f, sb = 0.f;
       for (int t = 0; t < 64; ++t) {
+        if constexpr (kPad)
+          if (pix[t] < 0) continue;
         const float dn = dxm[t * lda + c];
         const float xh = (to_f<bf16>(p.x[(size_t)pix[t] * C + c]) -
                           stats[2 * t]) * stats[2 * t + 1];
@@ -123,6 +134,8 @@ __device__ void attention_bwd_epilogue(const AttnBwdParams<bf16>& p,
     }
   }
   for (int t = warp; t < 64; t += kWarps) {
+    if constexpr (kPad)
+      if (pix[t] < 0) continue;
     const size_t at = (size_t)pix[t] * C;
     const bf16* row = X + t * ldx;
     const float mean = stats[2 * t], rstd = stats[2 * t + 1];
@@ -153,8 +166,9 @@ __device__ void attention_bwd_epilogue(const AttnBwdParams<bf16>& p,
 // heads h0 .. h0 + hn - 1 of them; token_map(w, t, &pix, &rid) gives each
 // token's row and region id. With hn < nH (a window's heads split over
 // blockIdx.y, nw 1) the block writes its share of the window's fp32 dxm
-// to part_dxm, and attention_bwd_finish ends the window.
-template <int C, int D, typename TokenMap>
+// to part_dxm, and attention_bwd_finish ends the window. kPad: the map
+// may mark padding rows (pix -1).
+template <int C, int D, bool kPad = false, typename TokenMap>
 __device__ void attention_bwd_item(const AttnBwdParams<bf16>& p, int item,
                                    int w0, int nw, int h0, int hn,
                                    unsigned char* smem, TokenMap token_map) {
@@ -226,11 +240,22 @@ __device__ void attention_bwd_item(const AttnBwdParams<bf16>& p, int item,
     constexpr int vpr = C / 8;
     for (int idx = tid; idx < 64 * vpr; idx += kThreads) {
       const int t = idx / vpr, v = idx % vpr;
-      const size_t at = (size_t)pix[t] * C + v * 8;
-      *reinterpret_cast<uint4*>(X + t * ldx + v * 8) =
-          *reinterpret_cast<const uint4*>(p.x + at);
-      *reinterpret_cast<uint4*>(G + t * ldx + v * 8) =
-          *reinterpret_cast<const uint4*>(p.g + at);
+      if constexpr (kPad) {
+        uint4 xv = make_uint4(0u, 0u, 0u, 0u), gv = xv;
+        if (pix[t] >= 0) {
+          const size_t at = (size_t)pix[t] * C + v * 8;
+          xv = *reinterpret_cast<const uint4*>(p.x + at);
+          gv = *reinterpret_cast<const uint4*>(p.g + at);
+        }
+        *reinterpret_cast<uint4*>(X + t * ldx + v * 8) = xv;
+        *reinterpret_cast<uint4*>(G + t * ldx + v * 8) = gv;
+      } else {
+        const size_t at = (size_t)pix[t] * C + v * 8;
+        *reinterpret_cast<uint4*>(X + t * ldx + v * 8) =
+            *reinterpret_cast<const uint4*>(p.x + at);
+        *reinterpret_cast<uint4*>(G + t * ldx + v * 8) =
+            *reinterpret_cast<const uint4*>(p.g + at);
+      }
     }
     __syncthreads();
     for (int t = warp; t < 64; t += kWarps)
@@ -261,12 +286,11 @@ __device__ void attention_bwd_item(const AttnBwdParams<bf16>& p, int item,
       if (pjob) {
         if (kt == 0) zero_acc(acc);
         if (pass < 3)
-          warp_mma<1, 1, KQ / 16>(acc, X + pm * 16 * ldx + kt * KQ, ldx,
-                                  wt + pn, L::ldwq);
+          warp_mma_k<1, 1, KQ>(acc, X + pm * 16 * ldx + kt * KQ, ldx,
+                               wt + pn, L::ldwq);
         else
-          warp_mma<1, 1, KQ / 16, false, true>(
-              acc, G + pm * 16 * ldx + kt * KQ, ldx, wt + pn * L::ldwo,
-              L::ldwo);
+          warp_mma_k<1, 1, KQ, true>(acc, G + pm * 16 * ldx + kt * KQ, ldx,
+                                     wt + pn * L::ldwo, L::ldwo);
         if (kt == NQ - 1) {
           // + bias (q times the scale), bf16; dO_h rounded as it is
           const int col = pn + 2 * t4;
@@ -291,8 +315,8 @@ __device__ void attention_bwd_item(const AttnBwdParams<bf16>& p, int item,
       // the core of head h
       float sa[1][2][4], pa[1][2][4];
       zero_acc(sa);
-      warp_mma<1, 2, D / 16, false, true>(sa, qs + rb * 16 * ldq, ldq,
-                                          ks + cq * 16 * ldq, ldq);
+      warp_mma_k<1, 2, D, true>(sa, qs + rb * 16 * ldq, ldq,
+                                ks + cq * 16 * ldq, ldq);
       const float* bias_h = p.bias + (size_t)h * 4096;
       float mx[2] = {-3.0e38f, -3.0e38f};
 #pragma unroll
@@ -337,8 +361,8 @@ __device__ void attention_bwd_item(const AttnBwdParams<bf16>& p, int item,
       row_reduce(sum, red + 256, false);
       const float inv[2] = {1.0f / sum[0], 1.0f / sum[1]};
       zero_acc(pa);
-      warp_mma<1, 2, D / 16, false, true>(pa, dos + rb * 16 * ldq, ldq,
-                                          vs + cq * 16 * ldq, ldq);
+      warp_mma_k<1, 2, D, true>(pa, dos + rb * 16 * ldq, ldq,
+                                vs + cq * 16 * ldq, ldq);
       float rs[2] = {0.f, 0.f};
 #pragma unroll
       for (int n = 0; n < 2; ++n)
@@ -398,6 +422,8 @@ __device__ void attention_bwd_item(const AttnBwdParams<bf16>& p, int item,
           float v0 = o[0][0][2 * hh], v1 = o[0][0][2 * hh + 1];
           bf16* dst;
           if (prod == 0) {
+            if constexpr (kPad)
+              if (pix[t] < 0) continue;
             dst = p.o_img + (size_t)pix[t] * C + col;
           } else {
             if (prod == 1) {
@@ -454,8 +480,9 @@ __device__ void attention_bwd_item(const AttnBwdParams<bf16>& p, int item,
           reinterpret_cast<const bf16*>(ringx + (qi % S) * L::kSlotX);
       const bf16* xb = xa + 64 * L::ldxa;
       if (xjob)
-        warp_mma<L::MT2, L::NT2, KX / 16, false, true>(
-            accx, xa + m2 * L::ldxa, L::ldxa, xb + n2 * L::ldxa, L::ldxa);
+        warp_mma_k<L::MT2, L::NT2, KX, true>(accx, xa + m2 * L::ldxa,
+                                             L::ldxa, xb + n2 * L::ldxa,
+                                             L::ldxa);
     }
     cp_async_wait<0>();
     __syncthreads();  // the ring is free: X takes dxm rounded, G .. fp32
@@ -484,15 +511,15 @@ __device__ void attention_bwd_item(const AttnBwdParams<bf16>& p, int item,
                 make_float2(v0, v1);
           }
     __syncthreads();
-    if (!split) attention_bwd_epilogue<C, D>(p, item, first, smem);
+    if (!split) attention_bwd_epilogue<C, D, kPad>(p, item, first, smem);
     __syncthreads();  // the next window reuses every buffer
   }
 }
 
 // After a split: window w's dxm = its head groups' fp32 shares summed in
 // group order, its LN statistics recomputed from x (ln_row's), then the
-// epilogue. One block per window (its item).
-template <int C, int D, typename TokenMap>
+// epilogue. One block per window (its item). kPad as attention_bwd_item's.
+template <int C, int D, bool kPad = false, typename TokenMap>
 __device__ void attention_bwd_finish(const AttnBwdParams<bf16>& p, int w,
                                      int n_win, int groups,
                                      unsigned char* smem,
@@ -516,6 +543,8 @@ __device__ void attention_bwd_finish(const AttnBwdParams<bf16>& p, int w,
   __syncthreads();
   if (p.has_ln)
     for (int t = warp; t < 64; t += kWarps) {
+      if constexpr (kPad)
+        if (pix[t] < 0) continue;
       const bf16* row = p.x + (size_t)pix[t] * C;
       float s = 0.f;
       for (int c = lane; c < C; c += 32) s += to_f<bf16>(row[c]);
@@ -532,7 +561,7 @@ __device__ void attention_bwd_finish(const AttnBwdParams<bf16>& p, int w,
       }
     }
   __syncthreads();
-  attention_bwd_epilogue<C, D>(p, w, true, smem);
+  attention_bwd_epilogue<C, D, kPad>(p, w, true, smem);
 }
 
 // Launches kernel(p, wn, n_win, hpb, 0), one block of kThreads threads
@@ -560,16 +589,19 @@ int launch_attn_bwd_mma(K kernel, size_t smem, const AttnBwdParams<bf16>& p,
 
 // Calls f(std::integral_constant<int, C>{}, std::integral_constant<int,
 // D>{}) for a (C, D = C / nH) with a tile and returns its result, else
-// cudaErrorInvalidValue.
-template <typename F>
+// cudaErrorInvalidValue. Head dim 8 from C = kMinC8 (the image layout's
+// blocks take it from C = 32 only).
+template <int kMinC8 = 8, typename F>
 int with_bwd_tile(int C, int nH, F f) {
-  return with_head_dim(C, nH, [&](auto d) {
+  return with_head_dim<true>(C, nH, [&](auto d) {
     constexpr int D = decltype(d)::value;
     int r = (int)cudaErrorInvalidValue;
     auto width = [&](auto c) {
-      if constexpr (attn_bwd_mma_fits(decltype(c)::value, D))
-        if (C == decltype(c)::value) r = f(c, d);
+      constexpr int Cc = decltype(c)::value;
+      if constexpr (attn_bwd_mma_fits(Cc, D) && (D != 8 || Cc >= kMinC8))
+        if (C == Cc) r = f(c, d);
     };
+    width(std::integral_constant<int, 8>{});
     width(std::integral_constant<int, 16>{});
     width(std::integral_constant<int, 32>{});
     width(std::integral_constant<int, 64>{});
@@ -579,5 +611,14 @@ int with_bwd_tile(int C, int nH, F f) {
     return r;
   });
 }
+
+// Kernel 6 on the p.n_win windows of N = p.win^2 < 64 tokens of (Bw N, C)
+// rows, in `tiles` packed tiles of 64 rows (attention_block_bwd_packed.cu);
+// bf16 with wn tiles or hpb heads per block as launch_attn_bwd_mma takes
+// them, fp32 a tile per block. 0 or a cudaError_t.
+int attention_block_bwd_packed(const AttnBwdParams<bf16>& p, int tiles,
+                               int wn, int hpb, cudaStream_t stream);
+int attention_block_bwd_packed(const AttnBwdParams<float>& p, int tiles,
+                               cudaStream_t stream);
 
 }  // namespace uf

@@ -21,10 +21,9 @@
 //     weights streamed through a cp.async ring.
 // The host (ops/kernels/attention_image.py:attention_image_plan) picks the
 // windows per work item and the grid. Head dim 8 runs the narrow body at
-// C 32 and 64. fp32 (the exact-check path) and bf16 at other widths and
-// head dims (head dim 8 at C 128-512, in training only) run one window
-// per block of attention_window.cuh (WMMA products through shared
-// memory).
+// C 32 and 64 and the wide one at C 128. fp32 (the exact-check path) and
+// bf16 at other widths run one window per block of attention_window.cuh
+// (WMMA products through shared memory).
 #include "attention_image.cuh"
 #include "attention_mma.cuh"
 #include "attention_narrow_mma.cuh"
@@ -96,7 +95,7 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
     if (nH > 0 && C % nH == 0 && attn_narrow_fits(C, D) &&
         (D != 8 || C >= 32))
       return attention_image_narrow(p, D, wn, grid, s);
-    if (nH > 0 && C % nH == 0 && attn_wide_fits(C, D) && D != 8)
+    if (nH > 0 && C % nH == 0 && attn_wide_fits(C, D))
       return attention_image_wide(p, D, wn, grid, s);
   }
   return with_head_dim<true>(C, nH, [&](auto d) {
@@ -130,7 +129,7 @@ int uf_attention_image_slots(int is_bf16, int C, int D, int wn) {
   int slots = 0, e = 0;
   if (is_bf16 && uf::attn_narrow_fits(C, D) && (D != 8 || C >= 32))
     e = uf::attention_image_narrow_slots(C, D, wn, &slots);
-  else if (is_bf16 && uf::attn_wide_fits(C, D) && D != 8)
+  else if (is_bf16 && uf::attn_wide_fits(C, D))
     e = uf::attention_image_wide_slots(C, D, wn, &slots);
   return e ? -e : slots;
 }

@@ -1,7 +1,10 @@
 // Kernel 1's bf16 body at C 128, 256 and 512: the stage kernel's
 // attention half (attention_mma.cuh: projections on mma.sync with the
 // weights streamed through a cp.async ring, 1-4 windows per work item)
-// as a persistent kernel of its own, residual on or off.
+// as a persistent kernel of its own, residual on or off. Head dim 8 at
+// C = 128 (an embed-8 model's bottleneck and dec0 in training, where the
+// stage kernel does not run) on attn_wide_item's 16-wide products over
+// zeroed pad columns, as the stage kernel runs it.
 #include "attention_image.cuh"
 #include "attention_mma.cuh"
 
@@ -17,18 +20,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // f(IntC<C>, IntC<D>, IntC<WN>) for the wide kernel of (C, D, wn), WN C
-// at most 512
+// at most 512 (head dim 8 at C = 128 only: attn_wide_fits)
 template <typename F>
 static int with_wide(int C, int D, int wn, F f) {
   auto by_c = [&](auto d) {
+    constexpr int Dd = decltype(d)::value;
     if (C == 128 && wn == 4) return f(IntC<128>{}, d, IntC<4>{});
     if (C == 128 && wn == 2) return f(IntC<128>{}, d, IntC<2>{});
     if (C == 128 && wn == 1) return f(IntC<128>{}, d, IntC<1>{});
-    if (C == 256 && wn == 2) return f(IntC<256>{}, d, IntC<2>{});
-    if (C == 256 && wn == 1) return f(IntC<256>{}, d, IntC<1>{});
-    if (C == 512 && wn == 1) return f(IntC<512>{}, d, IntC<1>{});
+    if constexpr (attn_wide_fits(256, Dd)) {
+      if (C == 256 && wn == 2) return f(IntC<256>{}, d, IntC<2>{});
+      if (C == 256 && wn == 1) return f(IntC<256>{}, d, IntC<1>{});
+      if (C == 512 && wn == 1) return f(IntC<512>{}, d, IntC<1>{});
+    }
     return (int)cudaErrorInvalidValue;
   };
+  if (D == 8) return by_c(IntC<8>{});
   if (D == 16) return by_c(IntC<16>{});
   if (D == 32) return by_c(IntC<32>{});
   return (int)cudaErrorInvalidValue;

@@ -1,10 +1,15 @@
 // Backward of one 8x8 window of the LeWin attention sub-block, computed by
-// one thread block from its 64 gathered tokens, for head dim D in {16, 32}
-// (as the forward, attention_window.cuh), in fp32: the exact-check path
+// one thread block from its 64 gathered tokens, for head dim D in {8, 16,
+// 32} (as the forward, attention_window.cuh), in fp32: the exact-check path
 // (bf16 runs attention_bwd_mma.cuh, the same function on mma.sync tiles).
 // attention_bwd.cu runs it on the image layout (tokens gathered at the
 // shifted coordinates); attention_block_bwd.cu on (Bw, 64, C) windows with
-// the identity token map.
+// the identity token map, and attention_block_bwd_packed.cu on 64-row
+// tiles of 64 / N whole windows of N = win^2 < 64 tokens. A padding row of
+// a tile (pix -1) reads x = g = 0 and is never written: its dO, dS and so
+// its dq, dk, dv and dxm are exactly 0, and a real row's softmax weight on
+// it is exactly 0 (the tile bias is -inf between windows), so it adds
+// nothing to any gradient.
 //
 // Forward (recomputed here from x, as the TPU kernel does):
 //   xm = LN1(x) + mod; q = (xm Wq + bq) * scale; k, v = xm Wkv + bkv;
@@ -49,6 +54,7 @@ struct AttnBwdParams {
   int B, H, W, C, nH, shift;
   float scale;
   int has_ln, residual;
+  int win, n_win;      // packed tiles: the window, and the Bw windows
 };
 
 template <int D>
@@ -132,14 +138,16 @@ AttnBwdParams<T> attn_bwd_params(
   p.scale = scale;
   p.has_ln = has_ln;
   p.residual = residual;
+  p.win = 8;
+  p.n_win = 0;
   return p;
 }
 
 // Bit 0: a window's xm tile, bit 1: its dO tile, misses shared memory at
-// head dim C / nH (16 or 32; the wrappers check first); the caller then
+// head dim C / nH (8, 16 or 32; the wrappers check first); the caller then
 // passes a (windows, 64, C) scratch of the input's dtype for it.
 inline int attn_bwd_scratch(int ts, int C, int nH) {
-  return with_head_dim(C, nH, [&](auto d) {
+  return with_head_dim<true>(C, nH, [&](auto d) {
     const auto L = attn_bwd_layout<decltype(d)::value>(ts, C);
     return (L.x_smem ? 0 : 1) | (L.do_smem ? 0 : 2);
   });
@@ -151,7 +159,7 @@ inline int attn_bwd_scratch(int ts, int C, int nH) {
 template <typename T, typename KernelOf>
 int launch_attn_bwd(const AttnBwdParams<T>& p, int windows,
                     cudaStream_t stream, KernelOf kernel_of) {
-  return with_head_dim(p.C, p.nH, [&](auto d) {
+  return with_head_dim<true>(p.C, p.nH, [&](auto d) {
     const auto L = attn_bwd_layout<decltype(d)::value>(sizeof(T), p.C);
     const auto kernel = kernel_of(d);
     cudaError_t e = cudaFuncSetAttribute(
@@ -163,8 +171,9 @@ int launch_attn_bwd(const AttnBwdParams<T>& p, int windows,
 }
 
 // Backward of window `w`. pix[t] is the row of token t in x, g, dx and
-// o_img; rid[t] its SW-MSA region id (all 0 when unshifted). Both live in
-// the layout's pix / rid slots, filled and synchronised by the caller.
+// o_img, or -1 for a padding row; rid[t] its SW-MSA region id (all 0 when
+// unshifted). Both live in the layout's pix / rid slots, filled and
+// synchronised by the caller.
 // The block has kThreads threads.
 template <typename T, int D>
 __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
@@ -199,7 +208,8 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
   // dO = g Wo^T, in 64-column chunks; X holds the gathered g meanwhile
   for (int idx = tid; idx < 64 * C; idx += blockDim.x) {
     const int t = idx / C, c = idx % C;
-    X[t * ldx + c] = p.g[(size_t)pix[t] * C + c];
+    X[t * ldx + c] =
+        pix[t] >= 0 ? p.g[(size_t)pix[t] * C + c] : from_f<T>(0.f);
   }
   __syncthreads();
   for (int n0 = 0; n0 < C; n0 += 64) {
@@ -217,7 +227,8 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
   // xm = LN1(x) + mod, kept in X and written out for dWq, dWkv
   for (int idx = tid; idx < 64 * C; idx += blockDim.x) {
     const int t = idx / C, c = idx % C;
-    X[t * ldx + c] = p.x[(size_t)pix[t] * C + c];
+    X[t * ldx + c] =
+        pix[t] >= 0 ? p.x[(size_t)pix[t] * C + c] : from_f<T>(0.f);
   }
   __syncthreads();
   for (int t = warp; t < 64; t += kWarps)
@@ -269,7 +280,8 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
     __syncthreads();
     for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
       const int t = idx / D, d = idx % D;
-      p.o_img[(size_t)pix[t] * C + c0 + d] = from_f<T>(acc[t * lda + d]);
+      if (pix[t] >= 0)
+        p.o_img[(size_t)pix[t] * C + c0 + d] = from_f<T>(acc[t * lda + d]);
     }
     __syncthreads();
     // dP = dO_h v^T; dS = P (dP - rowsum(dP P)), fp32
@@ -335,6 +347,7 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
     for (int j = tid; dln && j < nn; j += blockDim.x) {
       float ss = 0.f, sb = 0.f;
       for (int t = 0; t < 64; ++t) {
+        if (pix[t] < 0) continue;
         const float dn = acc[t * lda + j];
         const float xh =
             (to_f<T>(p.x[(size_t)pix[t] * C + n0 + j]) - stats[2 * t]) *
@@ -350,6 +363,7 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
 
   // LayerNorm VJP, one warp per token; dx [+ g] back to its pixel
   for (int t = warp; t < 64; t += kWarps) {
+    if (pix[t] < 0) continue;
     const size_t at = (size_t)pix[t] * C;
     const T* row = X + t * ldx;
     const float mean = stats[2 * t], rstd = stats[2 * t + 1];

@@ -337,6 +337,7 @@ __host__ inline int mma_rows(int which) {
 __host__ inline int leff_bwd_tile_rows(int which, int ts, int C) {
   if (ts == 4) return leff_bwd_tile_rows_f32(which, C);
   switch (C) {
+    case 8: return mma_rows<8>(which);
     case 16: return mma_rows<16>(which);
     case 32: return mma_rows<32>(which);
     case 64: return mma_rows<64>(which);
@@ -434,6 +435,7 @@ static int run_bwd(int which, const void* x, const void* dy,
     // the finish pass's groups: those of the split B launch
     const int groups = (chunks + p.cpg - 1) / p.cpg;
     switch (C) {
+      case 8: return run_mma<8>(which, p, groups, s);
       case 16: return run_mma<16>(which, p, groups, s);
       case 32: return run_mma<32>(which, p, groups, s);
       case 64: return run_mma<64>(which, p, groups, s);
@@ -452,7 +454,7 @@ extern "C" {
 // Output rows of a tile of backward kernel `which` (0: A, 1: B) for this
 // dtype and width: the tiles are TH x 8 outputs over a (B, ceil(H / TH),
 // ceil(W / 8)) grid, partial tiles masked. 0 where bf16 has no tile for
-// C (C other than 16-512 in powers of 2).
+// C (C other than 8-512 in powers of 2).
 int uf_leff_bwd_tile_rows(int which, int is_bf16, int C) {
   return uf::leff_bwd_tile_rows(which, is_bf16 ? 2 : 4, C);
 }

@@ -1,9 +1,13 @@
 // The LeFF backward in bf16 on the tensor-core building block
 // (mma_tile.cuh): every product in mma.sync register accumulators, the
 // weights in 16-24 KB tiles through a ring of cp.async slots (the
-// forward's wide tile, leff_mma.cuh), C in 16..512 with Ch a multiple of
+// forward's wide tile, leff_mma.cuh), C in 8..512 with Ch a multiple of
 // 64. The functions, roundings and outputs are leff_bwd.cu's kernels A
-// and B; only the order of fp32 sums differs.
+// and B; only the order of fp32 sums differs. At C = 8 (an embed-8 model's
+// outer stages, its hidden of 32 zero-padded to one chunk by the host) the
+// products of depth C (h, dg, pre1) run on mma.sync.m16n8k8 (warp_mma_k),
+// LN2's statistics and their VJP over the 8 channels; dLN (depth 64) keeps
+// m16n8k16, on half the warps.
 //
 //   A (tile of TA x 8 outputs, halo (TA + 2) x 10): per 64-channel hidden
 //     chunk, h = GELU(LN(x) W1 + b1) on the halo and dg = dy W2^T on the
@@ -26,6 +30,7 @@
 
 #include "leff_tile.cuh"
 #include "mma_tile.cuh"
+#include "window_core_mma.cuh"
 
 namespace uf {
 
@@ -79,8 +84,8 @@ struct TileGeom {
 
 template <int C>
 struct LeffBwdMma {
-  static_assert(C == 16 || C == 32 || C == 64 || C == 128 || C == 256 ||
-                    C == 512, "LeFF backward tiles: C 16-512");
+  static_assert(C == 8 || C == 16 || C == 32 || C == 64 || C == 128 ||
+                    C == 256 || C == 512, "LeFF backward tiles: C 8-512");
   static constexpr int kc = kLeffChunk;
   static constexpr int KT = C < 128 ? C : 128;  // K rows of a weight tile
   static constexpr int P = C / KT;              // K tiles of one product
@@ -216,8 +221,8 @@ __device__ void leff_bwd_a_tile(const LeffBwdParams<bf16>& p,
     if (s < P) {
       if (!job1) continue;
       if (s == 0) zero_acc(acc1);
-      warp_mma<L::MJ, L::NJ, KT / 16>(acc1, xn + mt1 * 16 * ldx + s * KT,
-                                      ldx, wt + n1, ldh);
+      warp_mma_k<L::MJ, L::NJ, KT>(acc1, xn + mt1 * 16 * ldx + s * KT, ldx,
+                                   wt + n1, ldh);
       if (s < P - 1) continue;
       // + b1, GELU, bf16; zero outside the image and in the padding rows
 #pragma unroll
@@ -239,9 +244,8 @@ __device__ void leff_bwd_a_tile(const LeffBwdParams<bf16>& p,
     }
     // dg = dy . W2[k0:k0+64, :]^T, K along the tiles
     if (s == P) zero_acc(accg);
-    warp_mma<1, L::NJ2, KT / 16, false, true>(
-        accg, dyt + mg * 16 * ldx + (s - P) * KT, ldx, wt + ng * B_::ldt,
-        B_::ldt);
+    warp_mma_k<1, L::NJ2, KT, true>(accg, dyt + mg * 16 * ldx + (s - P) * KT,
+                                    ldx, wt + ng * B_::ldt, B_::ldt);
     if (s < 2 * P - 1) continue;
     // rnd(dg) into shared memory: the bf16 value the plain path rounds
 #pragma unroll
@@ -308,11 +312,12 @@ struct LeffBwdB {
   static constexpr int kRows = (kHalo + 15) / 16 * 16;
   // pre1: warp w takes m16 tile w / NG1 and NJ1 n8 tiles of the chunk
   static constexpr int NJ1 = kOut / 32, NG1 = 8 / NJ1;
-  // dLN: warp w takes MT2 m16 tiles from 16 MT2 (w / NW2) x NT2 n8 tiles
-  // from 8 NT2 (w % NW2)
+  // dLN: warp w < JOBS2 takes MT2 m16 tiles from 16 MT2 (w / NW2) x NT2
+  // n8 tiles from 8 NT2 (w % NW2); every warp but at C = 8 (half of them)
   static constexpr int PP = kOut * C / 2048;
-  static constexpr int NT2 = PP < 4 ? PP : 4, MT2 = PP / NT2;
-  static constexpr int NW2 = C / (8 * NT2);
+  static constexpr int NT2 = PP < 1 ? 1 : PP < 4 ? PP : 4;
+  static constexpr int MT2 = PP / NT2 < 1 ? 1 : PP / NT2;
+  static constexpr int NW2 = C / (8 * NT2), JOBS2 = NW2 * (kOut / 16 / MT2);
   static constexpr int lda = C + 4;  // the epilogue's fp32 dLN rows
   static constexpr size_t stats = 0;
   static constexpr size_t hpix = stats + align128(4 * 2 * kOut);
@@ -327,7 +332,8 @@ struct LeffBwdB {
   static constexpr size_t total = ring + Base::kStages * Base::kSlotB;
   // the epilogue's dLN (kOut x lda fp32) over xn .. ring
   static constexpr size_t acc = xn;
-  static_assert(NW2 * (kOut / 16 / MT2) == kWarps, "dLN: a job a warp");
+  static_assert(JOBS2 <= kWarps && (C == 8 || JOBS2 == kWarps),
+                "dLN: a job a warp");
   static_assert(acc + 4 * kOut * lda <= total, "dLN fits the loop's buffers");
   static_assert(total <= kSmemLimit, "LeFF backward B exceeds shared memory");
 };
@@ -483,6 +489,7 @@ __device__ void leff_bwd_b_tile(const LeffBwdParams<bf16>& p,
   float acc2[L::MT2][L::NT2][4];
   zero_acc(acc2);
   const int m1 = warp / L::NG1, n1 = (warp % L::NG1) * 8 * L::NJ1;
+  const bool xjob = warp < L::JOBS2;
   const int m2 = (warp / L::NW2) * 16 * L::MT2,
             n2 = (warp % L::NW2) * 8 * L::NT2;
   const int j = tid & (kc - 1), grp = tid / kc;
@@ -496,14 +503,15 @@ __device__ void leff_bwd_b_tile(const LeffBwdParams<bf16>& p,
     const int c = ch0 + q / (2 * P), k0 = c * kc, s = q % (2 * P);
     if (s >= P) {
       // dLN += dpre1 . W1[:, chunk]^T, K along the tiles
-      warp_mma<L::MT2, L::NT2, KW / 16, false, true>(
-          acc2, dp1s + m2 * ldh + (s - P) * KW, ldh, wt + n2 * B_::ldw,
-          B_::ldw);
+      if (xjob)
+        warp_mma<L::MT2, L::NT2, KW / 16, false, true>(
+            acc2, dp1s + m2 * ldh + (s - P) * KW, ldh, wt + n2 * B_::ldw,
+            B_::ldw);
       continue;
     }
     if (s == 0) zero_acc(acc1);
-    warp_mma<1, L::NJ1, KT / 16>(acc1, xn + m1 * 16 * ldx + s * KT, ldx,
-                                 wt + n1, ldh);
+    warp_mma_k<1, L::NJ1, KT>(acc1, xn + m1 * 16 * ldx + s * KT, ldx,
+                              wt + n1, ldh);
     if (s < P - 1) continue;
 #pragma unroll
     for (int n = 0; n < L::NJ1; ++n)
@@ -552,6 +560,7 @@ __device__ void leff_bwd_b_tile(const LeffBwdParams<bf16>& p,
   __syncthreads();  // every product done: acc may overlay the buffers
 
   auto put = [&](float* dst, int ld) {
+    if (!xjob) return;
 #pragma unroll
     for (int mi = 0; mi < L::MT2; ++mi)
 #pragma unroll

@@ -130,6 +130,30 @@ __device__ __forceinline__ void warp_mma_ra8(float (&acc)[NT][4],
   }
 }
 
+// warp_mma's product over a depth K that is a multiple of 16 or is 8:
+// acc[16 MT x 8 NT] += A[16 MT x K] . B[K x 8 NT], operands as warp_mma
+// takes them (A row-major; BT: B stored N x K). At K = 8 each m16 tile's
+// A comes in by ldmatrix.x2 as the m16k8 fragment and the product runs on
+// mma.sync.m16n8k8 (warp_mma_ra8).
+template <int MT, int NT, int K, bool BT = false>
+__device__ __forceinline__ void warp_mma_k(float (&acc)[MT][NT][4],
+                                           const bf16* A, int lda,
+                                           const bf16* B, int ldb) {
+  if constexpr (K % 16 == 0) {
+    warp_mma<MT, NT, K / 16, false, BT>(acc, A, lda, B, ldb);
+  } else {
+    static_assert(K == 8, "warp_mma_k: K a multiple of 16, or 8");
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      uint32_t a2[2];
+      ldsm_x2(a2, A + (m * 16 + (lane & 15)) * lda);
+      const uint32_t a[4] = {a2[0], a2[1], 0u, 0u};
+      warp_mma_ra8<NT, BT>(acc[m], a, B, ldb);
+    }
+  }
+}
+
 // A fragments of a product over K: K / 16 of them, or one (its high half
 // zero) for K = 8.
 __host__ __device__ constexpr int frags_k(int K) {

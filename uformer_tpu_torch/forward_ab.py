@@ -62,8 +62,11 @@ windowed enc0; both timed as launches in a CUDA graph (device time), with
 their largest difference from the plain VJP; `bwd_split`: both backward
 kernels at the train and train T stages where the host splits a tile's
 hidden chunks or a window's heads over blocks, the host's plan against
-no split, in turns (CUDA graphs). Prints one JSON line per root (ms), then
-the card's name and power limit.
+no split, in turns (CUDA graphs). `leff_bwd`, `attention_bwd` and
+`bwd_split` print a digest of the bits of every output of each call
+(`sha256`; `bwd_split` one for each plan): equal in two roots, equal
+gradients. Prints one JSON line per root (ms), then the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -160,6 +163,15 @@ def digest(y):
     # a digest of a bf16 output's bits: equal in two roots, equal outputs
     return hashlib.sha256(y.view(torch.int16).cpu().numpy().tobytes()) \\
         .hexdigest()[:16]
+
+def digests(outs):
+    # one digest of the bits of every tensor of a call's outputs (a
+    # backward's tuple): equal in two roots, equal outputs
+    h = hashlib.sha256()
+    for t in outs:
+        if t is not None:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
     return (torch.randn(shape, generator=gen) * scale).to("cuda", dtype)
@@ -326,9 +338,11 @@ for shape, where in cells.items():
     x, g = rnd(*shape), rnd(*shape)
     kw = dict(residual=C == 512)
     run = lambda: K.fused_leff_bwd(x, g, *w, *ln, **kw)
-    err = worst(run(), K.leff_vjp_reference(x, g, *w, *ln, **kw))
+    out = run()
+    err = worst(out, K.leff_vjp_reference(x, g, *w, *ln, **kw))
     rows.append({"shape": shape, "cells": [c for c, _ in where],
-                 "graph_ms": graph_ms(run), "max_abs_err": err})
+                 "graph_ms": graph_ms(run), "max_abs_err": err,
+                 "sha256": digests(out)})
 print(json.dumps({"rows": rows}))
 """
 
@@ -363,9 +377,11 @@ for cell, i, shape in ([("train", i, t) for i, t in enumerate(train)]
                   residual=False)
         fn, ref = K.fused_attention_image_bwd, K.attention_image_vjp_reference
     run = lambda: fn(x, g, *args, **kw)
-    err = worst(run(), ref(x, g, *args, **kw))
+    out = run()
+    err = worst(out, ref(x, g, *args, **kw))
     rows.append({"cell": cell, "stage": i, "shape": shape, "head_dim": D,
-                 "graph_ms": graph_ms(run), "max_abs_err": err})
+                 "graph_ms": graph_ms(run), "max_abs_err": err,
+                 "sha256": digests(out)})
 print(json.dumps({"rows": rows}))
 """
 
@@ -405,6 +421,9 @@ for cell, stage, B, R, C, nH in (("train", "enc3", 32, 16, 256, 8),
             graph_ms(lambda: K.fused_leff_bwd(x, g, *lw, residual=C == 512)))
         row.setdefault("attention_bwd_" + key, []).append(
             graph_ms(lambda: K.fused_attention_image_bwd(x, g, *aw, **akw)))
+        row["sha256_" + key] = digests(
+            K.fused_leff_bwd(x, g, *lw, residual=C == 512)
+            + K.fused_attention_image_bwd(x, g, *aw, **akw))
     rows.append(row)
 print(json.dumps({"rows": rows}))
 """

@@ -34,8 +34,9 @@ pointwise products; or the linear one) and the plain window attention with
 the shift mask and the input-mask bias. A cross-modulator block first
 adds its cross-attention over all H*W tokens (`layers.py:722-738`). Then
 one LeFF kernel, or the plain `Mlp`. The attention-image, attention-block
-and LeFF kernels are differentiated by their backward kernels (window 8,
-head dim 16 or 32); `Mlp` and the cross-modulator's attention are plain
+and LeFF kernels are differentiated by their backward kernels (windows
+1-8, head dim 8, 16 or 32, LeFF at C 8-512); `Mlp` and the
+cross-modulator's attention are plain
 PyTorch under autograd, as in JAX. The depthwise kernel has no backward,
 in JAX either (`train.train_step` refuses a conv-projection model on the
 card). In training a block with a drop-path rate above 0 runs its
@@ -76,7 +77,10 @@ from uformer_tpu_torch.ops.kernels import (
     stage_reference,
 )
 from uformer_tpu_torch.ops.kernels.leff import pad_hidden
-from uformer_tpu_torch.ops.kernels.window_attention import BWD_HEAD_DIMS
+from uformer_tpu_torch.ops.kernels.window_attention import (
+    HEAD_DIMS,
+    WINDOWS,
+)
 from uformer_tpu_torch.ops.masks import input_mask_bias, shift_mask_on
 from uformer_tpu_torch.ops.norm import layer_norm
 from uformer_tpu_torch.ops.relpos import relative_position_index
@@ -90,11 +94,10 @@ from uformer_tpu_torch.ops.window import (
 Params = Dict[str, torch.Tensor]
 LEFF_MLPS = ("leff", "fastleff")  # fastleff: the same function and keys
 GEOMETRY_NOT_ON_KERNEL_PATH = (
-    f"the forward kernels take windows 1-8, head dim 8 and LeFF at C = 8, "
-    f"but the backward kernels take window 8, head dim in {BWD_HEAD_DIMS} "
-    f"and LeFF from C = 16 only; other windows and head dims train on the "
-    f"plain path only (ROADMAP.md, port queue 2 item 1: the backward at "
-    f"these geometries)")
+    f"the kernels, forward and backward, take windows 1-8 and head dim in "
+    f"{HEAD_DIMS}; a window above 8 or another head dim (64: embed 64) "
+    f"runs on the plain path only (ROADMAP.md, port queue 2 items 2 and "
+    f"3: windows above 8, head dim 64)")
 
 
 class _Prepared:
@@ -515,15 +518,15 @@ class LeWinBlock(_Prepared, nn.Module):
     def backward_gap(self) -> Optional[str]:
         """Why the train step's kernel path cannot differentiate this
         block, or None. The attention backward kernels cover the image
-        route and the windowed branch at window 8 and head dim 16 or 32
-        (the forward kernels also take windows 1-7 and head dim 8; their
-        backward is ROADMAP.md's port queue 2 item 1); Mlp and the
-        cross-modulator's attention are plain PyTorch. Conv projection
-        runs the depthwise kernel, which has no backward."""
+        route and the windowed branch at windows 1-8 (below 8 on packed
+        tiles) and head dim 8, 16 or 32, and the LeFF backward kernel C
+        8-512, as the forward kernels do; Mlp and the cross-modulator's
+        attention are plain PyTorch. Conv projection runs the depthwise
+        kernel, which has no backward (in JAX either)."""
         if self.attn.token_projection == "conv":
             return DWCONV_BACKWARD_NOT_PORTED
-        if self.win_size != 8 or self.dim % self.num_heads \
-                or self.dim // self.num_heads not in BWD_HEAD_DIMS:
+        if self.win_size not in WINDOWS or self.dim % self.num_heads \
+                or self.dim // self.num_heads not in HEAD_DIMS:
             return GEOMETRY_NOT_ON_KERNEL_PATH
         return None
 

@@ -9,11 +9,12 @@ forward (eval, serving, the CLIs) runs through the kernels at every window
 1-8 and head dim 8, 16 and 32 (head dim is the embed dim in this family):
 every arch here at embed 8-32, `--win_size` 1-8 and any `--train_ps`
 (a stage built below the window runs at window min(reso, win), 64 // N
-whole windows of N = win² tokens to a kernel tile). Training on the card
-takes window 8 and head dim 16 or 32: the train step refuses other blocks
-before any launch (`LeWinBlock.backward_gap`; their backward is
-ROADMAP.md's port queue 2 item 1). Windows above 8 and head dim 64 (embed 64) have no kernel:
-the wrappers raise before any launch. `use_checkpoint` recomputes each
+whole windows of N = win² tokens to a kernel tile), and so does training:
+the backward kernels take the same windows and head dims, LeFF at C = 8
+too. Windows above 8 and head dim 64 (embed 64) have no kernel: the
+wrappers raise before any launch, and the train step refuses such a model
+before any launch (`LeWinBlock.backward_gap`, ROADMAP.md's port queue 2
+items 2-3). `use_checkpoint` recomputes each
 Uformer block in the
 backward (UNet ignores it, as in JAX). `img_size` is
 the reference's `--train_ps`: it fixes the construction-time window and

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "uf_attention_bwd_scratch": [_I, _I, _I],
     "uf_attention_bwd": [_I] + [_P] * 21 + [_I] * 6 + [_F] + [_I] * 4
                         + [_P],
-    "uf_attention_block_bwd": [_I] + [_P] * 21 + [_I] * 6 + [_F] + [_I] * 3
+    "uf_attention_block_bwd": [_I] + [_P] * 21 + [_I] * 7 + [_F] + [_I] * 3
                               + [_P],
     "uf_leff_bwd_tile_rows": [_I, _I, _I],
     "uf_leff_bwd": [_I, _I] + [_P] * 17 + [_I] * 8 + [_P],

@@ -29,9 +29,12 @@ Its backward, `fused_attention_block_bwd`, is the port of
 `attention_block.py:fused_attention_block_bwd` in its own layout (kernel
 source `csrc/attention_block_bwd.cu`: in bf16 the tensor-core body
 `csrc/attention_bwd_mma.cuh`, in fp32 `csrc/attention_window_bwd.cuh`,
-with the identity token map), head dim 16 or 32; `attention_bwd_parts`
-allocates, launches and reduces for it and for the image layout's
-backward (`attention_image.fused_attention_image_bwd`).
+with the identity token map), windows 1-8 and head dim 8, 16 or 32: at
+N < 64 on the forward's packed tiles (`csrc/attention_block_bwd_packed.cu`,
+the operands' tiles from `packed_operands`, the tile gradients of the bias
+and the modulator folded back by `fold_tile_bias`, `fold_tile_tokens`);
+`attention_bwd_parts` allocates, launches and reduces for it and for the
+image layout's backward (`attention_image.fused_attention_image_bwd`).
 """
 
 from __future__ import annotations
@@ -45,10 +48,11 @@ from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.kernels.wgrad import colsum, sm_count, wgrad
 from uformer_tpu_torch.ops.kernels.window_attention import (
-    BWD_HEAD_DIMS,
     TILE,
     check_head_dim,
     check_window,
+    fold_tile_bias,
+    fold_tile_tokens,
     packed_tiles,
     tile_bias,
     tile_tokens,
@@ -205,14 +209,15 @@ def attention_block_vjp_reference(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv,
                          has_ln, **kw)
 
 
-MMA_WIDTHS = (16, 32, 64, 128, 256, 512)  # C of the bf16 backward tiles
+MMA_WIDTHS = (8, 16, 32, 64, 128, 256, 512)  # C of the bf16 backward tiles
 
 
 def windows_per_item(windows: int, C: int, sms: int) -> int:
-    """Windows one block of the bf16 attention backward takes, one after
-    another, summing their dbias, dmod and dln shares before writing them:
-    at C <= 128 the most of 4, 2 and 1 that still leaves two work items
-    per SM; 1 at wider C, where the windows are few."""
+    """Windows (packed tiles at N < 64: `packed_tiles`) one block of the
+    bf16 attention backward takes, one after another, summing their dbias,
+    dmod and dln shares before writing them: at C <= 128 the most of 4, 2
+    and 1 that still leaves two work items per SM; 1 at wider C, where the
+    windows are few."""
     if C > 128:
         return 1
     for wn in (4, 2):
@@ -222,21 +227,26 @@ def windows_per_item(windows: int, C: int, sms: int) -> int:
 
 
 def attention_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
-                        *, num_heads, has_ln, windows, launch, what):
+                        *, num_heads, has_ln, windows, launch, what,
+                        N=TILE):
     """The attention backward on the card, unrun: checks the weights,
-    allocates the per-token buffers of `windows` 8x8 windows and the
-    partial sums of their work items (bf16: `windows_per_item` windows
-    each, or `heads_per_block` heads of one window, C 16-512 in powers of
-    2, at most 16 heads; fp32: one window), and returns ([(name, run)],
+    allocates the per-token buffers of `windows` 64-row tiles (8x8
+    windows, or at N < 64 packed tiles of 64 // N windows of N tokens,
+    whose mod and bias come as their (64, C) and (nH, 64, 64) tiles) and
+    the partial sums of their work items (bf16: `windows_per_item` tiles
+    each, or `heads_per_block` heads of one tile, C 8-512 in powers of 2,
+    at most 16 heads; fp32: one tile), and returns ([(name, run)],
     result): the body, launch(lib, is_bf16, wn, hpb, *pointers) (a C
     entry taking x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx,
     xm_w, dqkv_w, o_img, dbias_part, dmod_part, dln_part, x_scratch,
     do_scratch, part_dxm in that order, then its own geometry, wn and
-    hpb), then the
-    weight gradients reduced over every token (`csrc/wgrad.cu`, the bias
-    gradients of dqkv and g from the same passes), each run() one of them
-    in order on these buffers; result() gives the tuple of
-    `fused_attention_block_bwd`, weight grads float32."""
+    hpb), then the weight gradients reduced over every token
+    (`csrc/wgrad.cu`, the bias gradients of dqkv and g from the same
+    passes; dWo over x's rows, the tiles' over their 64 rows, pad rows
+    adding exact zeros), then the tile sums (colsum, dbias and dmod folded
+    back to N tokens), each run() one of them in order on these buffers;
+    result() gives the tuple of `fused_attention_block_bwd`, weight grads
+    float32."""
     C = x.shape[-1]
     dt, dev, f32 = x.dtype, x.device, torch.float32
     if has_ln:
@@ -303,11 +313,12 @@ def attention_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
              # (C, 3C) = [dwq | dwk | dwv], and [dbq | dbk | dbv]
              ("wgrad dWqkv", reduce("dw", wgrad, xm_w, dqkv_w,
                                     colsum_b=True)),
-             ("wgrad dWo", reduce("dwo", wgrad, o_tok.view(M, C),
-                                  g.view(M, C), colsum_b=True)),
+             ("wgrad dWo", reduce("dwo", wgrad, o_tok.view(-1, C),
+                                  g.view(-1, C), colsum_b=True)),
              ("colsum", reduce("sums", lambda: (
-                 colsum(dbias_p).view(num_heads, 64, 64),
-                 colsum(dmod_p).view(64, C) if mod is not None else None,
+                 fold_tile_bias(colsum(dbias_p).view(num_heads, 64, 64), N),
+                 fold_tile_tokens(colsum(dmod_p).view(64, C), N)
+                 if mod is not None else None,
                  colsum(dln_p) if has_ln else None)))]
 
     def result():
@@ -356,16 +367,18 @@ def fused_attention_block_bwd(x: torch.Tensor, g: torch.Tensor,
                               W: int, scale: float, num_heads: int,
                               has_ln: bool = True, w_off: int = 0):
     """VJP of the windowed attention block at g: (dx, dmod, dln_s, dln_b,
-    dwq, dbq, dwkv, dbkv, dwo, dbo, dbias), dx (Bw, 64, C) in x's dtype,
+    dwq, dbq, dwkv, dbkv, dwo, dbo, dbias), dx (Bw, N, C) in x's dtype,
     weight grads float32, None for an absent mod or LN (`uformer_tpu`
     `attention_block.py:877`).
 
-    Kernel source `csrc/attention_block_bwd.cu`: one block per window
-    recomputes the forward and walks the VJP; the weight gradients are
-    then reduced over every token by `csrc/wgrad.cu`. Inputs as
-    `fused_attention_block` takes them. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernels (win 8, head dim 16 or 32,
-    w_off 0: the JAX kernel has no offset) or raises."""
+    Kernel source `csrc/attention_block_bwd.cu` (and, at N < 64, on the
+    forward's packed tiles, `csrc/attention_block_bwd_packed.cu`): one
+    block per window (tile) recomputes the forward and walks the VJP; the
+    weight gradients are then reduced over every token by
+    `csrc/wgrad.cu`. Inputs as `fused_attention_block` takes them. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernels
+    (win 1-8, head dim 8, 16 or 32, w_off 0: the JAX kernel has no
+    offset) or raises."""
     kw = dict(win=win, shift=shift, H=H, W=W, scale=scale,
               num_heads=num_heads, has_ln=has_ln, w_off=w_off)
     if x.device.type == "cpu":
@@ -390,21 +403,25 @@ def attention_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
                          f"{tuple(x.shape)} {x.dtype}")
-    check_window(win, shift, H, W, windows=(8,))
-    check_head_dim(C, num_heads, BWD_HEAD_DIMS)
-    if N != 64 or w_off != 0:
-        raise ValueError(f"backward kernel needs N = 64 and w_off = 0: "
-                         f"N={N} w_off={w_off}")
+    check_window(win, shift, H, W)
+    check_head_dim(C, num_heads)
+    if N != win * win or w_off != 0:
+        raise ValueError(f"backward kernel needs N = win² and w_off = 0: "
+                         f"N={N} win={win} w_off={w_off}")
+    if mod is not None:
+        _launch.expect(mod, "mod", (N, C), x.dtype, x.device)
+    _launch.expect(bias, "bias", (num_heads, N, N), torch.float32, x.device)
+    mod, bias = packed_operands(mod, bias, N)
 
     def launch(lib, is_bf16, wn, hpb, *ptrs):
         return lib.uf_attention_block_bwd(
-            is_bf16, *ptrs, Bw, H, W, C, num_heads, shift, float(scale),
+            is_bf16, *ptrs, Bw, H, W, C, num_heads, win, shift, float(scale),
             int(has_ln), wn, hpb, _launch.stream(x))
 
     return attention_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
                                bias, num_heads=num_heads, has_ln=has_ln,
-                               windows=Bw, launch=launch,
-                               what="attention_block_bwd kernel")
+                               windows=packed_tiles(Bw, N), launch=launch,
+                               what="attention_block_bwd kernel", N=N)
 
 
 fused_attention_block_bwd.launches = 0

@@ -12,13 +12,14 @@ softmax core in registers and the next window's gather in flight; at C
 takes 1-4 windows per work item with the weights streamed through a
 `cp.async` ring. `attention_image_plan` picks the body and the windows per
 work item. Head dim 8 runs the narrow body at C 32 and 64 (its QKᵀ and
-O wo of depth 8 on mma.sync.m16n8k8); the wide body has no head dim 8
-(training alone reaches it there: a window per block instead). fp32 runs
-one window per block (`csrc/attention_window.cuh`).
-`attention_image_reference` is the plain PyTorch version with the JAX
-reference's signature (`attention_image.py:432`). Its backward,
-`fused_attention_image_bwd` (kernel source `csrc/attention_bwd.cu`), takes
-head dim 16 or 32 only (`BWD_HEAD_DIMS`).
+O wo of depth 8 on mma.sync.m16n8k8) and the wide body at C 128 (16-wide
+products over zeroed pad columns; training reaches it, as the stage
+kernel runs only in eval). fp32 runs one window per block
+(`csrc/attention_window.cuh`). `attention_image_reference` is the plain
+PyTorch version with the JAX reference's signature
+(`attention_image.py:432`). Its backward, `fused_attention_image_bwd`
+(kernel source `csrc/attention_bwd.cu`), takes head dim 8, 16 and 32, as
+the forward does.
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ from uformer_tpu_torch.ops.kernels.attention_block import (
 )
 from uformer_tpu_torch.ops.kernels.wgrad import sm_count
 from uformer_tpu_torch.ops.kernels.window_attention import (
-    BWD_HEAD_DIMS,
     check_head_dim,
     check_window,
 )
@@ -89,27 +89,25 @@ def attention_image_plan(windows: int, C: int, D: int, bf16: bool,
     """(body, windows per work item) of kernel 1 on `windows` 8x8 windows
     of width C, head dim D: in bf16 the narrow body at C 16-64 with the
     most of 4, 2, 1 windows (one per group of four warps) that still
-    leaves a work item per SM, the wide body at C 128-512 with
-    `wide_windows`; else ("window", 1), one window per block."""
+    leaves a work item per SM, the wide body at C 128-512 (head dim 8 at
+    C 128) with `wide_windows`; else ("window", 1), one window per
+    block."""
     if bf16 and C in NARROW_WIDTHS and C >= D:
         for wn in (4, 2):
             if -(-windows // wn) >= sms:
                 return "narrow", wn
         return "narrow", 1
-    if bf16 and C in WIDE_WIDTHS and D != 8:
+    if bf16 and C in WIDE_WIDTHS and (D != 8 or C == 128):
         return "wide", wide_windows(windows, sms, C)
     return "window", 1
 
 
-def _check_geometry(x, win, shift, num_heads, dims=None):
-    """Kernel 1's geometry: window 8; head dim in `dims` (HEAD_DIMS by
-    default; in bf16 head dim 8 from C = 32, where JAX's image route
+def _check_geometry(x, win, shift, num_heads):
+    """Kernels 1 and 6's image-layout geometry: window 8; head dim in
+    HEAD_DIMS (in bf16 head dim 8 from C = 32, where JAX's image route
     starts)."""
     _, H, W, C = x.shape
     check_window(win, shift, H, W, windows=(8,))
-    if dims is not None:
-        check_head_dim(C, num_heads, dims)
-        return
     check_head_dim(C, num_heads)
     if x.dtype == torch.bfloat16 and C // num_heads == 8 and C < 32:
         raise ValueError(f"bf16 kernel takes head dim 8 from C = 32: C={C}")
@@ -211,8 +209,8 @@ def fused_attention_image_bwd(x: torch.Tensor, g: torch.Tensor,
     VJP; the weight gradients are then reduced over every token by
     `csrc/wgrad.cu` (`attention_image_bwd_parts` lists the launches). Inputs as
     `fused_attention_image` takes them. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernels (win 8, head dim 16 or 32)
-    or raises."""
+    version; a CUDA tensor launches the kernels (win 8, head dim 8, 16 or
+    32; in bf16 head dim 8 from C = 32) or raises."""
     kw = dict(win=win, shift=shift, scale=scale, num_heads=num_heads,
               has_ln=has_ln, residual=residual)
     if x.device.type == "cpu":
@@ -237,7 +235,7 @@ def attention_image_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
                          f"{tuple(x.shape)} {x.dtype}")
-    _check_geometry(x, win, shift, num_heads, BWD_HEAD_DIMS)
+    _check_geometry(x, win, shift, num_heads)
 
     def launch(lib, is_bf16, wn, hpb, *ptrs):
         return lib.uf_attention_bwd(

@@ -11,9 +11,10 @@ the weights resident at C 16-64; they mask partial tiles, so any H and W
 run. fp32 (the exact-check path) keeps TH x 8 tiles, also masking
 partial ones (an embed-8 model's 4 x 4 bottleneck). C = 8 (an embed-8 model's outer stages) runs the narrow tile
 too, on its 32-wide hidden zero-padded to one 64-wide chunk (`pad_hidden`:
-exact, as GELU(0) = 0; the model pads once, in `LeFF.kernel_params`).
-`leff_reference` is the plain PyTorch version with the JAX reference's
-signature (`leff.py:504`).
+exact, as GELU(0) = 0; the model pads once, in `LeFF.kernel_params`), and
+so does its backward, `fused_leff_bwd` (its products of depth 8 on
+mma.sync.m16n8k8). `leff_reference` is the plain PyTorch version with
+the JAX reference's signature (`leff.py:504`).
 """
 
 from __future__ import annotations
@@ -161,22 +162,34 @@ def fused_leff_bwd(x: torch.Tensor, dy: torch.Tensor, w1, b1, wd, bd, w2,
 
     Kernel source `csrc/leff_bwd.cu` (two tile kernels that recompute the
     hidden from x; in bf16 the tensor-core tiles of `csrc/leff_bwd_mma.cuh`,
-    at C 16-512, their hidden chunks split over blocks where tiles are few,
+    at C 8-512, their hidden chunks split over blocks where tiles are few,
     `chunks_per_block`), then the weight gradients reduced over every pixel
     by `csrc/wgrad.cu` (`leff_bwd_parts` lists the launches). Any H and W.
-    Weights as `fused_leff` takes them. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernels or raises."""
+    Weights as `fused_leff` takes them: a hidden below HIDDEN_CHUNK (C = 8:
+    32) is padded here (`pad_hidden`) and dw1, db1, dwd, dbd and dw2 come
+    back sliced to it, unless the caller padded it (the model does, once,
+    in `LeFF.kernel_params`; autograd then slices). The padded channels'
+    gradients are exactly 0: their hidden is GELU(0) = 0 and their w2 rows
+    are 0, so dpre2, dh and dpre1 vanish there. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernels or raises."""
     if x.device.type == "cpu":
         fused_leff_bwd.plain_calls += 1
         return leff_vjp_reference(x, dy, w1, b1, wd, bd, w2, ln_s, ln_b,
                                   has_ln=has_ln, residual=residual)
+    Ch = w1.shape[-1]
+    if Ch < HIDDEN_CHUNK:
+        w1, b1, wd, bd, w2 = pad_hidden(w1, b1, wd, bd, w2)
     parts, result = leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s, ln_b,
                                    has_ln=has_ln, residual=residual)
     with torch.cuda.device(x.device):
         for _, run in parts:
             run()
     fused_leff_bwd.launches += 1
-    return result()
+    dx, dw1, db1, dwd, dbd, dw2, db2, dln_s, dln_b = result()
+    if w1.shape[-1] != Ch:
+        dw1, db1, dwd, dbd, dw2 = (dw1[:, :Ch], db1[:Ch], dwd[..., :Ch],
+                                   dbd[:Ch], dw2[:Ch])
+    return dx, dw1, db1, dwd, dbd, dw2, db2, dln_s, dln_b
 
 
 def leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
@@ -197,9 +210,10 @@ def leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
     is_bf16 = int(dt == torch.bfloat16)
     tha = lib.uf_leff_bwd_tile_rows(0, is_bf16, C)
     thb = lib.uf_leff_bwd_tile_rows(1, is_bf16, C)
-    if C % 16 or Ch % HIDDEN_CHUNK or not tha:
-        raise ValueError(f"kernel needs C % 16 == 0 (bf16: C 16, 32, ..., "
-                         f"512) and Ch % {HIDDEN_CHUNK} == 0: C={C} Ch={Ch}")
+    if (C % 16 and C != 8) or Ch % HIDDEN_CHUNK or not tha:
+        raise ValueError(f"kernel needs C = 8 or C % 16 == 0 (bf16: C 8, "
+                         f"16, ..., 512) and Ch % {HIDDEN_CHUNK} == 0: C={C} "
+                         f"Ch={Ch}")
     if has_ln:
         _launch.expect(ln_s, "ln_s", (C,), f32, dev)
         _launch.expect(ln_b, "ln_b", (C,), f32, dev)

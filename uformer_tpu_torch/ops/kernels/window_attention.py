@@ -36,9 +36,8 @@ from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.masks import shift_window_mask
 
-HEAD_DIMS = (8, 16, 32)  # the forward kernels' head widths
-BWD_HEAD_DIMS = (16, 32)  # the backward kernels' (kernels 6 and 7)
-WINDOWS = tuple(range(1, 9))  # kernels 4 and 5: N = win² <= 64 tokens
+HEAD_DIMS = (8, 16, 32)  # the attention kernels' head widths, both ways
+WINDOWS = tuple(range(1, 9))  # kernels 4, 5 and 6: N = win² <= 64 tokens
 TILE = 64  # rows of a kernel's window tile
 
 
@@ -59,9 +58,8 @@ def packed_tiles(Bw: int, N: int) -> int:
 def check_window(win: int, shift: int, H: int, W: int,
                  windows=WINDOWS) -> None:
     """Raise unless the kernels take this window geometry: win in
-    `windows` (1-8 for kernels 4 and 5; 8 for kernels 1 and 3 and the
-    backward kernels, as in the JAX package), H and W multiples of win and
-    0 <= shift < win."""
+    `windows` (1-8 for kernels 4, 5 and 6; 8 for kernels 1 and 3, as in
+    the JAX package), H and W multiples of win and 0 <= shift < win."""
     if win not in windows or H % win or W % win or not 0 <= shift < win:
         raise ValueError(f"kernel needs win in {tuple(windows)}, H, W "
                          f"multiples of win and 0 <= shift < win: win={win} "
@@ -105,6 +103,29 @@ def tile_bias(bias: torch.Tensor, N: int) -> torch.Tensor:
     # a scalar fill: no host tensor, so a CUDA graph can capture it
     return bias[:, tok[:, None], tok[None, :]].masked_fill(apart,
                                                            float("-inf"))
+
+
+def fold_tile_tokens(dmod: torch.Tensor, N: int) -> torch.Tensor:
+    """The gradient of `tile_tokens`: a (64, C) tile's gradient summed
+    back to (N, C), token i taking the rows t = i (mod N) of the tile's
+    64 // N whole windows (a pad row's gradient is 0 in the kernels)."""
+    if N == TILE:
+        return dmod
+    G = TILE // N
+    return dmod[:G * N].reshape(G, N, -1).sum(0)
+
+
+def fold_tile_bias(dbias: torch.Tensor, N: int) -> torch.Tensor:
+    """The gradient of `tile_bias` where the softmax never weighs two
+    windows together: the (nH, 64, 64) tile's gradient summed back to
+    (nH, N, N) over its 64 // N diagonal N x N blocks (JAX folds its lane
+    packing so, `attention_block.py:856-866`); the entries between two
+    windows and those of the pad rows are 0 in the kernels."""
+    if N == TILE:
+        return dbias
+    G = TILE // N
+    d = dbias[:, :G * N, :G * N].reshape(-1, G, N, G, N)
+    return d.diagonal(dim1=1, dim2=3).sum(-1)
 
 
 
