@@ -241,7 +241,28 @@ Phases, each raising on failure (no phase is caught):
                operations); the train CLI at the flagship golden's
                geometry (`--arch Uformer --embed_dim 8 --train_ps 64`, 16
                steps on seeded 64² pairs: 10/8/18 launches a step, no plain
-               call, a loss that falls).
+               call, a loss that falls). Kernels 6 and 7 at C = 8 with LN
+               (`c8_ln`) again at seeds 20-22 (DX_SEEDS), every gradient
+               gated.
+ 20. wide windows - kernels 4, 5 and 6 at windows 9, 12 and 16 (N 81,
+               144, 256), shift 0 and win // 2, head dim 8-32, LN and the
+               modulator each way, against their plain versions (fp32,
+               bf16 under phase 19's gates, each backward run twice: equal
+               bits); `--arch Uformer --embed_dim 32 --win_size 16`
+               (seeded 1247): 4 bf16 requests of batch 8 at 256^2 (18
+               kernel-5 and 18 LeFF launches each, against the plain path)
+               and each kernel's time per stage against its plain version
+               and bound; at --train_ps 128 its kernels at every training
+               geometry at bs2, one bs8 step kernel path against plain path
+               (16/2/18 windowed / image / LeFF launches each way), bf16
+               steps timed in turns with each backward call; a step with
+               drop_rate 0.1 (18 windowed launches each way, the image
+               route and the LeFF fold declined, as JAX routes it) and one
+               with drop_rate = attn_drop_rate = 0.1 (no attention or LeFF
+               kernel), each against the plain path on one generator and
+               timed (masks drawn on the card); the train CLI at
+               --win_size 16 (16 steps of bs4 on seeded 128^2 pairs);
+               kernel 4 alone at N = 256 beside SDPA.
 
 Tolerances: fp32 max-abs <= 1e-4 * (1 + max|ref|); bf16 error against the
 fp32 plain result <= 1.5 x the bf16 plain version's error + 1e-3; for
@@ -258,8 +279,9 @@ The line before the last lists every kernel (`launches_spatial` and
 forward and DDP step; `launches_ps64`, `_ps32`, `_e8`, `_win4`: a
 request's in phase 18's serving, `launches_flagship` the golden's
 forward, `launches_e8_win2_step` the embed-8 window-2 step's,
-`launches_train_ps64`, `_e8`, `_win4` and `_cli` a step's in phase 19);
-the last line is {"ok": true, "device": {...}}.
+`launches_train_ps64`, `_e8`, `_win4` and `_cli` a step's in phase 19;
+`launches_win16_serve` a request's in phase 20, `_train`, `_drop_*` and
+`_cli` a step's there); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1755,11 +1777,13 @@ def run_step(model, plain: bool, dtype, batch, seed: int, lr_schedule):
 
 def whole_step_checks(make_model, device, batch_size: int, label: str,
                       expected: dict, res: int = RES_TRAIN,
-                      fp32_cotangent: bool = False) -> tuple:
-    """One train step of batch_size at res^2, kernel path against plain
-    path: same weights, batch and generator; loss and every parameter's
-    gradient (norm_cross, built and never applied, has none), in fp32 and
-    bf16. lr 0 keeps the weights for the next step. Each kernel path step
+                      fp32_cotangent: bool = False,
+                      batch_seed: int = 3) -> tuple:
+    """One train step of batch_size at res^2 (its batch from batch_seed),
+    kernel path against plain path: same weights, batch and generator;
+    loss and every parameter's gradient (norm_cross, built and never
+    applied, has none), in fp32 and bf16. lr 0 keeps the weights for the
+    next step. Each kernel path step
     must launch exactly `expected` and call no plain version. With
     fp32_cotangent both bf16 steps backpropagate the fp32 plain step's
     gradient of the loss at the model's output in place of their own (see
@@ -1771,7 +1795,7 @@ def whole_step_checks(make_model, device, batch_size: int, label: str,
     from uformer_tpu_torch.ops import kernels as K
 
     model = make_model()
-    batch = train_batch(batch_size, 3, device, res)
+    batch = train_batch(batch_size, batch_seed, device, res)
     # the gradient at the output of each step, by (plain, bf16)
     counted, cot, step = {}, {}, []
 
@@ -4391,7 +4415,8 @@ def attn_bwd_cost(tokens, C, N, s=2):
     return 6 * tokens * C * (4 * C + 2 * N), 3 * tokens * C * s
 
 
-def geometry_bwd_checks(checks: Checks, device, seed: int = 19) -> None:
+def geometry_bwd_checks(checks: Checks, device, seed: int = 19,
+                        select=None) -> None:
     """Each extended backward kernel (and kernel 1's wide body at head dim
     8) against its plain version at every new shape, fp32 (TF32 off) and
     bf16: `grad_bound` per gradient (fp32 per draw, bf16 on each
@@ -4399,7 +4424,10 @@ def geometry_bwd_checks(checks: Checks, device, seed: int = 19) -> None:
     forward. Operands by the golden weights' rule (`tests/golden/generate.py:_seeded_value`,
     as every seeded model here draws them: matrices N(0, 1 / fan-in),
     LayerNorm scales 1 + N(0, 0.05²), biases N(0, 0.02²)), x and g N(0, 1),
-    as `train_kernel_checks` draws them; all drawn from `seed`."""
+    as `train_kernel_checks` draws them; all drawn from `seed`. With
+    `select`, only the cases (kernel, C, has_ln) it keeps are run, every
+    case's operands still drawn in order, so a case sees the operands of
+    the full run at that seed."""
     from uformer_tpu_torch.ops import kernels as K
 
     rng = np.random.default_rng(seed)
@@ -4430,17 +4458,22 @@ def geometry_bwd_checks(checks: Checks, device, seed: int = 19) -> None:
                          bias=mat(nH, N, N, fan_in=nH)), device,
                     ("mod", "wq", "wkv", "wo"))
 
-    def bwd_check(kernel, what, fused, plain, shape):
+    def bwd_check(kernel, what, fused, plain, shape, C, has_ln):
         names = LEFF_GRADS if kernel == "leff_bwd" else ATTN_GRADS
+        keep = select is None or select(kernel, C, has_ln)
         runs = []
         for _ in range(GEOM_DRAWS):
+            if not keep:  # the draws in order, without the card
+                mat(*shape, fan_in=1), mat(*shape, fan_in=1)
+                continue
             x, g = xin(*shape), xin(*shape)
             runs.append([dict(zip(names, f(*a))) for f, a in (
                 (fused, (x, g, torch.float32)),
                 (plain, (x, g, torch.float32)),
                 (plain, (x.bfloat16(), g.bfloat16(), torch.bfloat16)),
                 (fused, (x.bfloat16(), g.bfloat16(), torch.bfloat16)))])
-        pooled_grad_bound(checks, kernel, what, runs)
+        if keep:
+            pooled_grad_bound(checks, kernel, what, runs)
 
     for win, shift, C, nH, has_ln, with_mod, Bw in GEOM_BWD_SHAPES:
         N, H, W = win * win, 16 * win, 16 * win
@@ -4455,7 +4488,8 @@ def geometry_bwd_checks(checks: Checks, device, seed: int = 19) -> None:
                       x, g, *p[dt].values(), **kw),
                   lambda x, g, dt, p=prm, kw=kw:
                   K.attention_block_vjp_reference(x, g, *p[dt].values(),
-                                                  **kw), (Bw, N, C))
+                                                  **kw), (Bw, N, C), C,
+                  has_ln)
     for C, shift, residual in GEOM_IMAGE_BWD_SHAPES:
         nH = C // 8
         prm = attn_prm(C, nH, 64, True)
@@ -4467,13 +4501,18 @@ def geometry_bwd_checks(checks: Checks, device, seed: int = 19) -> None:
                       x, g, *p[dt].values(), **kw),
                   lambda x, g, dt, p=prm, kw=kw:
                   K.attention_image_vjp_reference(x, g, *p[dt].values(),
-                                                  **kw), (2, 128, 128, C))
+                                                  **kw), (2, 128, 128, C), C,
+                  True)
         if C == 128:  # kernel 1's wide body at head dim 8
-            compare(checks, "attention_image", f"wide {what}",
-                    lambda x, dt, p=prm, kw=kw: K.fused_attention_image(
-                        x, *p[dt].values(), **kw),
-                    lambda x, dt, p=prm, kw=kw: K.attention_image_reference(
-                        x, *p[dt].values(), **kw), xin(4, 32, 32, C))
+            x1 = xin(4, 32, 32, C) if select is None else \
+                mat(4, 32, 32, C, fan_in=1)
+            if select is None:
+                compare(checks, "attention_image", f"wide {what}",
+                        lambda x, dt, p=prm, kw=kw: K.fused_attention_image(
+                            x, *p[dt].values(), **kw),
+                        lambda x, dt, p=prm, kw=kw:
+                        K.attention_image_reference(x, *p[dt].values(),
+                                                    **kw), x1)
     C = 8
     lp = _prm(dict(w1=mat(C, 4 * C, fan_in=C), b1=bias(4 * C),
                    wd=mat(3, 3, 4 * C, fan_in=9), bd=bias(4 * C),
@@ -4491,7 +4530,7 @@ def geometry_bwd_checks(checks: Checks, device, seed: int = 19) -> None:
             return call
         bwd_check("leff_bwd", f"C 8 {B}x{H}x{W} ln {int(has_ln)} res "
                   f"{int(residual)}", run(K.fused_leff_bwd),
-                  run(K.leff_vjp_reference), (B, H, W, C))
+                  run(K.leff_vjp_reference), (B, H, W, C), C, has_ln)
 
 
 def geometry_step_timing(model, batch, expected: dict, label: str) -> dict:
@@ -4591,14 +4630,25 @@ def geometry_kernel_timing(model, batch: int, label: str) -> tuple:
 
 def geometry_cli(tmp: Path, device) -> dict:
     """`python -m uformer_tpu_torch.train.cli --arch Uformer --embed_dim 8
-    --train_ps 64` in-process on seeded 64^2 PNG pairs (GEOM_CLI_SET):
-    every step launches GEOM_CLI_LAUNCHES, no plain call, a finite loss
-    that falls (the mean of the last 4 steps below the first 4's)."""
+    --train_ps 64` in-process on seeded 64^2 PNG pairs (GEOM_CLI_SET), by
+    `train_cli_run`."""
+    return train_cli_run(tmp, device, "train CLI e8 ps64",
+                         ["--arch", "Uformer", "--embed_dim", "8",
+                          "--train_ps", "64"], 64, GEOM_CLI_SET,
+                         GEOM_CLI_LAUNCHES)
+
+
+def train_cli_run(tmp: Path, device, label: str, arch_args: list,
+                  side: int, cli_set: tuple, expected: dict) -> dict:
+    """The train CLI in-process with `arch_args` on seeded side^2 PNG
+    pairs (cli_set: train pairs, val pairs, batch, epochs): every step
+    launches `expected`, no plain call, a finite loss that falls (the mean
+    of the last 4 steps below the first 4's)."""
     from uformer_tpu_torch.ops import kernels as K
 
-    n_train, n_val, bs, epochs = GEOM_CLI_SET
-    train_dir = write_pairs(tmp / "train", n_train, 64, 61)
-    val_dir = write_pairs(tmp / "val", n_val, 64, 62)
+    n_train, n_val, bs, epochs = cli_set
+    train_dir = write_pairs(tmp / "train", n_train, side, 61)
+    val_dir = write_pairs(tmp / "val", n_val, side, 62)
     base = loop_trainer_class()
 
     class GeomTrainer(base):
@@ -4613,8 +4663,7 @@ def geometry_cli(tmp: Path, device) -> dict:
 
             self.train_step = logged
 
-    argv = ["--arch", "Uformer", "--embed_dim", "8", "--train_ps", "64",
-            "--batch_size", str(bs), "--nepoch", str(epochs),
+    argv = [*arch_args, "--batch_size", str(bs), "--nepoch", str(epochs),
             "--mode", "denoising", "--train_dir", str(train_dir),
             "--val_dir", str(val_dir), "--save_dir", str(tmp / "logs"),
             "--pretrain_weights", "", "--device", str(device)]
@@ -4627,23 +4676,22 @@ def geometry_cli(tmp: Path, device) -> dict:
     losses = trainer.losses
     steps = epochs * (n_train // bs)
     for i, s in enumerate(trainer.steps):
-        if s["launches"] != GEOM_CLI_LAUNCHES:
-            raise RuntimeError(f"train CLI e8 ps64: step {i} launched "
-                               f"{s['launches']}, expected "
-                               f"{GEOM_CLI_LAUNCHES}")
+        if s["launches"] != expected:
+            raise RuntimeError(f"{label}: step {i} launched "
+                               f"{s['launches']}, expected {expected}")
     if len(losses) != steps or state.step != steps \
             or any(K.plain_counts().values()) \
             or not np.isfinite(losses).all() \
             or np.mean(losses[-4:]) >= np.mean(losses[:4]):
-        raise RuntimeError(f"train CLI e8 ps64: {state.step} steps, losses "
-                           f"{losses}, plain calls {K.plain_counts()}")
+        raise RuntimeError(f"{label}: {state.step} steps, losses {losses}, "
+                           f"plain calls {K.plain_counts()}")
     ms = [s["events"][0].elapsed_time(s["events"][1])
           for s in trainer.steps]
-    print(f"  train CLI --arch Uformer --embed_dim 8 --train_ps 64: "
-          f"{steps} steps of bs{bs}, loss {losses[0]:.5f} -> "
-          f"{losses[-1]:.5f}, median {float(np.median(ms)):.3f} ms a step, "
-          f"best PSNR {best:.4f}, {secs:.2f} s; launches a step "
-          f"{GEOM_CLI_LAUNCHES}, no plain call", flush=True)
+    print(f"  {label} ({' '.join(arch_args)}): {steps} steps of bs{bs}, "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, median "
+          f"{float(np.median(ms)):.3f} ms a step, best PSNR {best:.4f}, "
+          f"{secs:.2f} s; launches a step {expected}, no plain call",
+          flush=True)
     return {"losses": losses, "step_ms": ms, "best_psnr": best, "s": secs,
             "launches": trainer.steps[-1]["launches"]}
 
@@ -4664,6 +4712,7 @@ def train_geometry_phase(tmp: Path, device, card: str) -> tuple:
     t0 = time.perf_counter()
     torch.backends.cudnn.deterministic = True
     geometry_bwd_checks(checks, device)
+    seeded_bwd_checks(checks, device, DX_SEEDS[1:], c8_ln)
     summary["kernel_checks_s"] = time.perf_counter() - t0
     for label, (opt, seed, bs, side, expected) in TRAIN_GEOM.items():
         t1 = time.perf_counter()
@@ -4723,6 +4772,247 @@ def train_geometry_phase(tmp: Path, device, card: str) -> tuple:
         torch.cuda.empty_cache()
     summary["cli"] = geometry_cli(tmp, device)
     launches["cli"] = summary["cli"]["launches"]
+    return checks, summary, launches
+
+
+# phase 19 runs these cases (kernels 6 and 7 at C = 8 with LN, whose dx
+# flipped about its max gate with the seed until both LN VJPs took the
+# fp32 dxm / dLN, as JAX's kernels do: PERF.md §6) at every seed
+# here, the other cases at the first
+DX_SEEDS = (19, 20, 21, 22)
+
+
+def c8_ln(kernel: str, C: int, has_ln: bool) -> bool:
+    return C == 8 and has_ln and kernel in ("attention_block_bwd",
+                                            "leff_bwd")
+
+
+def seeded_bwd_checks(checks: Checks, device, seeds, select=None) -> None:
+    """`geometry_bwd_checks` at each seed (its cases in `select` only, if
+    given), each row named with its seed."""
+    for seed in seeds:
+        sub = Checks()
+        geometry_bwd_checks(sub, device, seed=seed, select=select)
+        for r in sub.rows:
+            r["what"] = f"seed {seed} {r['what']}"
+        checks.rows += sub.rows
+        checks.failed += [f"seed {seed} {f}" for f in sub.failed]
+
+
+# phase 20, windows above 8: kernels 4, 5 and 6 at N = win² 81-256 tokens
+WIDE_CHECK_WINDOWS = (9, 12, 16)
+# kernels 5 and 6 (C, heads, has_ln, with_mod), each window at shift 0 and
+# win // 2: head dim 32 without LN (the win-16 model's blocks), 16 with LN,
+# 8 with LN and the modulator; on WIDE_IMAGES images of 4 x 4 windows
+WIDE_BLOCK_CASES = ((32, 1, False, True), (32, 2, True, False),
+                    (16, 2, True, True))
+WIDE_CORE_CASES = ((2, 32), (1, 8))  # kernel 4: (heads, head dim)
+WIDE_IMAGES = 2
+# the path: `--arch Uformer --embed_dim 32 --win_size 16` (depths 2 x 9,
+# heads 1-16, head dim 32), seeded weights; served bf16 batch 8 at 256^2
+# (built at 256: every block at window 16), trained bf16 batch 8 at
+# --train_ps 128 (the 8^2 bottleneck at window 8 on the image route)
+WIDE_ARCH = {"arch": "Uformer", "embed_dim": 32, "win_size": 16}
+SEED_WIDE = 1247
+WIDE_SERVE_LAUNCHES = dict(NO_LAUNCHES, attention_block=18, leff=18)
+WIDE_TRAIN_BATCH = 8
+WIDE_TRAIN_LAUNCHES = dict(NO_LAUNCHES, attention_block=16,
+                           attention_block_bwd=16, attention_image=2,
+                           attention_bwd=2, leff=18, leff_bwd=18)
+# dropout as JAX routes it in training: drop_rate alone keeps the
+# windowed kernels (dropout after their output) and declines the image
+# route and the LeFF fold; attn_drop_rate declines the attention kernels
+WIDE_DROP_LAUNCHES = {(0.1, 0.0): dict(NO_LAUNCHES, attention_block=18,
+                                       attention_block_bwd=18),
+                      (0.1, 0.1): dict(NO_LAUNCHES)}
+WIDE_CLI_SET = (32, 2, 4, 2)  # train pairs, val pairs, batch, epochs
+WIDE_CORE_TIMING = (1, 512, 32)  # kernel 4 alone: (heads, windows, D)
+
+
+def wide_kernel_checks(checks: Checks, device, seed: int = 23) -> None:
+    """Kernels 4, 5 and 6 at windows 9, 12 and 16 (N 81, 144, 256), shift
+    0 and win // 2, against their plain versions: fp32 (TF32 off) within
+    1e-4 (1 + max|ref|), bf16 under phase 19's gates (`compare`;
+    `pooled_grad_bound` over GEOM_DRAWS draws), operands by the golden
+    rule from `seed`; each backward run twice on one input, equal bits."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(seed)
+
+    def mat(*shape, fan_in):
+        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
+            np.float32)
+
+    def xin(*shape):
+        return torch.from_numpy(mat(*shape, fan_in=1)).to(device) \
+            .bfloat16().float()
+
+    for win in WIDE_CHECK_WINDOWS:
+        N, H = win * win, 4 * win
+        Bw = WIDE_IMAGES * 16
+        for shift in (0, win // 2):
+            for nH, D in WIDE_CORE_CASES:
+                k, v = xin(nH, Bw, N, D), xin(nH, Bw, N, D)
+                bias = torch.from_numpy(mat(nH, N, N, fan_in=nH)).to(device)
+                kw = dict(win=win, shift=shift, H=H, W=H, scale=D ** -0.5)
+
+                def run(fn, kw=kw, k=k, v=v, bias=bias):
+                    return lambda x, dt: fn(x, k.to(dt), v.to(dt), bias,
+                                            **kw)
+
+                compare(checks, "window_attention",
+                        f"win {win} shift {shift} (nH, Bw, N, D)=({nH}, "
+                        f"{Bw}, {N}, {D})", run(K.fused_window_attention),
+                        run(K.window_attention_reference), xin(nH, Bw, N, D))
+            for C, nH, has_ln, with_mod in WIDE_BLOCK_CASES:
+                prm = _prm(dict(
+                    mod=mat(N, C, fan_in=C) if with_mod else None,
+                    ln_s=(1.0 + 0.05 * rng.standard_normal(C)).astype(
+                        np.float32),
+                    ln_b=(0.02 * rng.standard_normal(C)).astype(np.float32),
+                    wq=mat(C, C, fan_in=C),
+                    bq=(0.02 * rng.standard_normal(C)).astype(np.float32),
+                    wkv=mat(C, 2 * C, fan_in=C),
+                    bkv=(0.02 * rng.standard_normal(2 * C)).astype(
+                        np.float32),
+                    wo=mat(C, C, fan_in=C),
+                    bo=(0.02 * rng.standard_normal(C)).astype(np.float32),
+                    bias=mat(nH, N, N, fan_in=nH)), device,
+                    ("mod", "wq", "wkv", "wo"))
+                kw = dict(win=win, shift=shift, H=H, W=H,
+                          scale=(C // nH) ** -0.5, num_heads=nH,
+                          has_ln=has_ln)
+                what = (f"win {win} shift {shift} C {C} D {C // nH} Bw {Bw} "
+                        f"ln {int(has_ln)} mod {int(with_mod)}")
+                compare(checks, "attention_block", what,
+                        lambda x, dt, p=prm, kw=kw: K.fused_attention_block(
+                            x, *p[dt].values(), **kw),
+                        lambda x, dt, p=prm, kw=kw:
+                        K.attention_block_reference(x, *p[dt].values(),
+                                                    **kw), xin(Bw, N, C))
+                fused = (lambda x, g, dt, p=prm, kw=kw: dict(zip(
+                    ATTN_GRADS, K.fused_attention_block_bwd(
+                        x, g, *p[dt].values(), **kw))))
+                plain = (lambda x, g, dt, p=prm, kw=kw: dict(zip(
+                    ATTN_GRADS, K.attention_block_vjp_reference(
+                        x, g, *p[dt].values(), **kw))))
+                runs = []
+                for _ in range(GEOM_DRAWS):
+                    x, g = xin(Bw, N, C), xin(Bw, N, C)
+                    runs.append([f(*a) for f, a in (
+                        (fused, (x, g, torch.float32)),
+                        (plain, (x, g, torch.float32)),
+                        (plain, (x.bfloat16(), g.bfloat16(),
+                                 torch.bfloat16)),
+                        (fused, (x.bfloat16(), g.bfloat16(),
+                                 torch.bfloat16)))])
+                pooled_grad_bound(checks, "attention_block_bwd", what, runs)
+                again = fused(x.bfloat16(), g.bfloat16(), torch.bfloat16)
+                differ = sum(a is not None and not torch.equal(a, again[n])
+                             for n, a in runs[-1][3].items())
+                checks.add("attention_block_bwd", f"{what} repeat",
+                           float(differ), 0.0, "bits")
+    torch.cuda.synchronize()
+
+
+def wide_window_phase(tmp: Path, device, card: str) -> tuple:
+    """Phase 20: kernels 4, 5 and 6 at windows 9-16 (`wide_kernel_checks`);
+    the win-16 Uformer (WIDE_ARCH) served bf16 at batch 8, 256^2 (18
+    kernel-5 and 18 LeFF launches a request, no plain attention; against
+    the plain path) and timed per kernel; its kernels at every training
+    geometry (`train_kernel_checks`, batch 2), one whole step kernel path
+    against plain path at --train_ps 128, bf16 steps timed with the
+    backward calls, a step with dropout at each WIDE_DROP_LAUNCHES rate
+    against the plain path on one generator, then timed as the step
+    without dropout (masks drawn on the card), the train CLI at --win_size
+    16; kernel 4 alone at N = 256 beside SDPA. Returns the checks, the
+    summary and the launches counted per path."""
+    from uformer_tpu_torch.convert import load_numpy_state_dict
+    from uformer_tpu_torch.models import Uformer
+    from uformer_tpu_torch.models.registry import arch_config
+
+    checks, summary, launches = Checks(), {"card": card}, {}
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    wide_kernel_checks(checks, device)
+    summary["kernel_checks_s"] = time.perf_counter() - t0
+    # the bias tables follow each stage's window: weights per train_ps
+    sds = {ps: seeded_for(dict(WIDE_ARCH, train_ps=ps), SEED_WIDE)
+           for ps in (RES_SERVE, RES_TRAIN)}
+
+    def make(ps, **drop):
+        model = Uformer(**arch_config(dict(WIDE_ARCH, train_ps=ps)), **drop)
+        return load_numpy_state_dict(model, sds[ps]).to(device).eval()
+
+    t1 = time.perf_counter()
+    restorer, x, serve, serve_launches, schecks = serve_phase(
+        lambda: make(RES_SERVE), device, WIDE_SERVE_LAUNCHES,
+        "serve win16")
+    launches["serve"] = serve_launches
+    rows, totals, fwd = timing_phase(restorer, x)
+    summary.update(serve=serve, timing=rows, timing_totals=totals,
+                   forward=fwd, serve_s=time.perf_counter() - t1)
+    del restorer, x
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    tchecks = train_kernel_checks(make(RES_TRAIN), device, BATCH_CHECK)
+    schecks2, info = whole_step_checks(
+        lambda: make(RES_TRAIN), device, WIDE_TRAIN_BATCH, "train win16",
+        WIDE_TRAIN_LAUNCHES)
+    launches["train"] = info["launches"]
+    for (drop, attn_drop), expected in WIDE_DROP_LAUNCHES.items():
+        dchecks, dinfo = whole_step_checks(
+            lambda d=drop, a=attn_drop: make(RES_TRAIN, drop_rate=d,
+                                             attn_drop_rate=a),
+            device, WIDE_TRAIN_BATCH,
+            f"train win16 drop {drop} attn_drop {attn_drop}", expected)
+        launches[f"drop_{drop}_{attn_drop}"] = dinfo["launches"]
+        schecks2.rows += dchecks.rows
+        schecks2.failed += dchecks.failed
+    for sub in (schecks, tchecks, schecks2):
+        checks.rows += sub.rows
+        checks.failed += sub.failed
+    torch.backends.cudnn.deterministic = False
+    model = make(RES_TRAIN)
+    batch = train_batch(WIDE_TRAIN_BATCH, 7, device, RES_TRAIN)
+    steps = geometry_step_timing(model, batch, WIDE_TRAIN_LAUNCHES,
+                                 "win16")
+    trows, ttotals = geometry_kernel_timing(model, WIDE_TRAIN_BATCH, "win16")
+    summary.update(steps=steps, train_timing=trows, train_totals=ttotals,
+                   train_s=time.perf_counter() - t1)
+    print(f"  win16 bs{WIDE_TRAIN_BATCH} {RES_TRAIN}^2 bf16 step: kernel "
+          f"path {steps['kernel_ms_median']:.3f} ms, plain path "
+          f"{steps['plain_ms_median']:.3f} ms, loss {steps['loss'][0]:.6f}"
+          f"  [{card}]", flush=True)
+    for (drop, attn_drop), expected in WIDE_DROP_LAUNCHES.items():
+        name = f"drop {drop} attn_drop {attn_drop}"
+        dsteps = geometry_step_timing(
+            make(RES_TRAIN, drop_rate=drop, attn_drop_rate=attn_drop),
+            batch, expected, f"win16 {name}")
+        summary[f"steps_drop_{drop}_{attn_drop}"] = dsteps
+        print(f"  win16 bs{WIDE_TRAIN_BATCH} {RES_TRAIN}^2 bf16 step, {name}"
+              f": kernel path {dsteps['kernel_ms_median']:.3f} ms, plain "
+              f"path {dsteps['plain_ms_median']:.3f} ms  [{card}]",
+              flush=True)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    summary["cli"] = train_cli_run(
+        tmp, device, "train CLI win16",
+        ["--arch", "Uformer", "--embed_dim", "32", "--win_size", "16",
+         "--train_ps", str(RES_TRAIN)], RES_TRAIN, WIDE_CLI_SET,
+        dict(WIDE_TRAIN_LAUNCHES))
+    launches["cli"] = summary["cli"]["launches"]
+
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    nH, Bw, D = WIDE_CORE_TIMING
+    q, k, v = (torch.randn((nH, Bw, 256, D), generator=gen)
+               .to(device, torch.bfloat16) for _ in range(3))
+    bias = (0.5 * torch.randn((nH, 256, 256), generator=gen)).to(device)
+    with torch.no_grad():
+        summary["core"] = time_core(q, k, v, bias, win=16, shift=8,
+                                    res=16 * int(round((Bw / 2) ** 0.5)))
     return checks, summary, launches
 
 
@@ -4890,6 +5180,15 @@ def run(device, card: str, json_path) -> list:
     print(f"  phase 19 took {train_geoms['s']:.1f} s", flush=True)
     gchecks19.raise_if_failed("train geometries")
 
+    phase("wide windows")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gchecks20, wide, wide_launches = wide_window_phase(Path(tmp), device,
+                                                           card)
+    wide["s"] = time.perf_counter() - t0
+    print(f"  phase 20 took {wide['s']:.1f} s", flush=True)
+    gchecks20.raise_if_failed("wide windows")
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas,
@@ -4917,7 +5216,8 @@ def run(device, card: str, json_path) -> list:
               "parallel_checks": pchecks.rows, "parallel": parallel,
               "geometry_checks": gchecks18.rows, "geometries": geometries,
               "train_geometry_checks": gchecks19.rows,
-              "train_geometries": train_geoms}
+              "train_geometries": train_geoms,
+              "wide_window_checks": gchecks20.rows, "wide_windows": wide}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -4939,7 +5239,7 @@ def run(device, card: str, json_path) -> list:
         rows_of = [r for r in kchecks.rows + t_kchecks.rows + ai_checks.rows
                    + tkchecks.rows + ttkchecks.rows + dw_checks.rows
                    + tile_checks.rows + mchecks.rows + pchecks.rows
-                   + gchecks18.rows + gchecks19.rows
+                   + gchecks18.rows + gchecks19.rows + gchecks20.rows
                    if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
@@ -4961,7 +5261,9 @@ def run(device, card: str, json_path) -> list:
                               + sum(kernel_count(c, name)
                                     for c in geom_launches.values())
                               + sum(kernel_count(c, name)
-                                    for c in tgeom_launches.values())),
+                                    for c in tgeom_launches.values())
+                              + sum(kernel_count(c, name)
+                                    for c in wide_launches.values())),
                  "launches_serve": kernel_count(launches, name),
                  "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
@@ -4985,6 +5287,8 @@ def run(device, card: str, json_path) -> list:
                     for path, c in tgeom_launches.items()},
                  "launches_e8_win2_step": kernel_count(
                      geom_launches["refusal_step"], name),
+                 **{f"launches_win16_{path}": kernel_count(c, name)
+                    for path, c in wide_launches.items()},
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -5004,6 +5308,10 @@ def run(device, card: str, json_path) -> list:
                              "ms", "plain_ms", "bound_ms", "launches",
                              "library_ms", "device_ms",
                              "library_device_ms")})
+        if name in ("window_attention", "attention_block",
+                    "attention_block_bwd"):
+            # windows 9-16 (phase 20)
+            entry["wide_source"] = "uformer_tpu_torch/csrc/attention_wide.cu"
         if name == "attention_block":
             entry["spatial"] = parallel["kernel5"]["rows"]
         if name == "window_attention":
@@ -5015,7 +5323,7 @@ def run(device, card: str, json_path) -> list:
             entry["more_shapes"] = [
                 {k: c[k] for k in ("shape", "ms", "graph_ms", "plain_ms",
                                    "bound_ms", "library_ms")}
-                for c in core["more"]]
+                for c in core["more"] + [wide["core"]]]
         for label, key, tt in (("serve Uformer_T", "serve_t", t_totals),
                                ("train Uformer_B", "train", ttotals),
                                ("train Uformer_T", "train_t", tttotals),
@@ -5033,7 +5341,11 @@ def run(device, card: str, json_path) -> list:
                                ("train e8", "train_e8",
                                 train_geoms["timing_totals_e8"]),
                                ("train win4", "train_win4",
-                                train_geoms["timing_totals_win4"])):
+                                train_geoms["timing_totals_win4"]),
+                               ("serve win16", "serve_win16",
+                                wide["timing_totals"]),
+                               ("train win16", "train_win16",
+                                wide["train_totals"])):
             if name in tt and label not in where:
                 entry.update({f"ms_{key}": tt[name]["ms"],
                               f"plain_ms_{key}": tt[name]["plain_ms"],

@@ -95,7 +95,10 @@ struct AttnBwdMma {
 // rounded to bf16 in X): the item's dmod share (the first window writes,
 // the next add), the dln_s / dln_b shares from the fp32 dxm, as the TPU
 // kernel sums its fp32 product (attention_block.py:746-750), and the
-// LayerNorm VJP, one warp per token, dx [+ g] back to its pixel. All
+// LayerNorm VJP, one warp per token, on the fp32 dxm too (the TPU kernel's
+// dtok, :751-755; a VJP of the bf16-rounded dxm carried that rounding,
+// amplified by 1/std, into dx), dx [+ g] back to its pixel; without LN
+// dx is the rounded dxm. All
 // threads call it; the caller synchronises before and after. kPad: skip
 // padding rows (pix -1).
 template <int C, int D, bool kPad>
@@ -143,7 +146,7 @@ __device__ void attention_bwd_epilogue(const AttnBwdParams<bf16>& p,
     if (p.has_ln) {
       for (int c = lane; c < C; c += 32) {
         const float xh = (to_f<bf16>(p.x[at + c]) - mean) * rstd;
-        const float dxh = to_f<bf16>(row[c]) * p.ln_s[c];
+        const float dxh = dxm[t * lda + c] * p.ln_s[c];
         s1 += dxh;
         s2 += dxh * xh;
       }
@@ -154,7 +157,7 @@ __device__ void attention_bwd_epilogue(const AttnBwdParams<bf16>& p,
       float d = to_f<bf16>(row[c]);
       if (p.has_ln) {
         const float xh = (to_f<bf16>(p.x[at + c]) - mean) * rstd;
-        d = rstd * (d * p.ln_s[c] - s1 - xh * s2);
+        d = rstd * (dxm[t * lda + c] * p.ln_s[c] - s1 - xh * s2);
       }
       if (p.residual) d = rnd<bf16>(d) + to_f<bf16>(p.g[at + c]);
       p.dx[at + c] = from_f<bf16>(d);

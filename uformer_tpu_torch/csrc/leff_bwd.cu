@@ -17,8 +17,11 @@
 //   B: x -> LN -> pre1 = W1 . LN(x) + b1; dh = dw3x3^T(dpre2 (+halo));
 //      dpre1 = dh * GELU'(pre1); dLN = dpre1 . W1^T over the chunks; the
 //      LayerNorm VJP gives dx [+ dy]. Writes LN(x) and dpre1 per pixel,
-//      and per tile the partial sums of dln_s, dln_b and db1 (db1 from the
-//      fp32 dpre1 before its bf16 rounding, as the TPU kernel sums it).
+//      and per tile the partial sums of dln_s and db1 (db1 from the fp32
+//      dpre1 before its bf16 rounding, as the TPU kernel sums it).
+// dln_b, the sum of dLN over pixels, is W1 db1 (uf_leff_dln_b): the sum
+// of the fp32 dpre1, not of its rounding through dLN (in bf16 the
+// dpre1 roundings, summed over every pixel, were dln_b's whole error).
 // dW1 = LN(x)^T dpre1, dW2 = g^T dy (with db2, the column sum of dy) are
 // then reduced over all pixels in a fixed order (wgrad.cuh), and the tile
 // sums by colsum.
@@ -250,7 +253,7 @@ __global__ void __launch_bounds__(kThreads)
     if (tid < kLeffChunk) {
       float s = 0.f;
       for (int gi = 0; gi < kRowStep; ++gi) s += hid[gi * ldh + tid];
-      p.part_b[(size_t)blockIdx.x * (2 * C + Ch) + 2 * C + k0 + tid] = s;
+      p.part_b[(size_t)blockIdx.x * (C + Ch) + C + k0 + tid] = s;
     }
     // dLN += dpre1 . W1[:, k0:k0+64]^T
     block_gemm<T, true, true>(dp1, ldg, p.w1 + k0, Ch, acc, lda, Mo, C,
@@ -258,7 +261,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  // LayerNorm VJP, one warp per pixel; dln_s and dln_b sum the fp32 dLN
+  // LayerNorm VJP, one warp per pixel; dln_s sums the fp32 dLN
   // (leff.py:683-688)
   for (int o = warp; o < Mo; o += kWarps) {
     if (opix[o] < 0) continue;
@@ -290,16 +293,14 @@ __global__ void __launch_bounds__(kThreads)
   if (!p.has_ln) return;
   __syncthreads();
   for (int c = tid; c < C; c += blockDim.x) {
-    float ss = 0.f, sb = 0.f;
+    float ss = 0.f;
     for (int o = 0; o < Mo; ++o) {
       if (opix[o] < 0) continue;
       const float xh =
           (p.x[(size_t)opix[o] * C + c] - stats[2 * o]) * stats[2 * o + 1];
       ss = fmaf(acc[o * lda + c], xh, ss);
-      sb += acc[o * lda + c];
     }
-    p.part_b[(size_t)blockIdx.x * (2 * C + Ch) + c] = ss;
-    p.part_b[(size_t)blockIdx.x * (2 * C + Ch) + C + c] = sb;
+    p.part_b[(size_t)blockIdx.x * (C + Ch) + c] = ss;
   }
 }
 
@@ -447,9 +448,39 @@ static int run_bwd(int which, const void* x, const void* dy,
   }
 }
 
+// dln_b (C,) = w1 (C x Ch) db1 (Ch,): a warp a channel, lanes over the
+// hidden in a fixed order, then warp_sum.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    leff_dln_b_kernel(const T* w1, const float* db1, float* out, int C,
+                      int Ch) {
+  const int c = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (c >= C) return;
+  float s = 0.f;
+  for (int j = lane; j < Ch; j += 32)
+    s = fmaf(to_f<T>(w1[(size_t)c * Ch + j]), db1[j], s);
+  s = warp_sum(s);
+  if (lane == 0) out[c] = s;
+}
+
 }  // namespace uf
 
 extern "C" {
+
+// dln_b (C, fp32) = w1 (C x Ch, bf16 or fp32) db1 (Ch, fp32), after the
+// colsum of part_b. Returns a cudaError_t.
+int uf_leff_dln_b(int is_bf16, const void* w1, const float* db1,
+                  float* dln_b, int C, int Ch, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const int blocks = (C + 7) / 8;
+  if (is_bf16)
+    uf::leff_dln_b_kernel<uf::bf16><<<blocks, 256, 0, s>>>(
+        static_cast<const uf::bf16*>(w1), db1, dln_b, C, Ch);
+  else
+    uf::leff_dln_b_kernel<float><<<blocks, 256, 0, s>>>(
+        static_cast<const float*>(w1), db1, dln_b, C, Ch);
+  return (int)cudaGetLastError();
+}
 
 // Output rows of a tile of backward kernel `which` (0: A, 1: B) for this
 // dtype and width: the tiles are TH x 8 outputs over a (B, ceil(H / TH),

@@ -13,12 +13,15 @@
 //     chunk, h = GELU(LN(x) W1 + b1) on the halo and dg = dy W2^T on the
 //     tile, each in registers over K = C, the weight tiles streamed along
 //     K (W1 rows x the chunk; W2's chunk rows x C columns, read as N x K);
-//     h and rnd(dg) into shared memory as bf16; then per output and
-//     channel the depthwise step, + bd, GELU, GELU', g and dpre2 written,
-//     dwd and dbd summed for the tile in fp32.
+//     h into shared memory as bf16, dg as fp32 (JAX's g2, leff.py:617-621:
+//     rounding dg before GELU' as well as dpre2 after it doubled the bf16
+//     error that every sum over pixels of dpre2, dh and dpre1 carries);
+//     then per output and channel the depthwise step, + bd, GELU, GELU',
+//     g and dpre2 = rnd(dg GELU'(pre2)) written, dbd summed from the fp32
+//     dpre2 (as JAX's dhc, :641) and dwd from the rounded one, in fp32.
 //   B (TB x 8 outputs): pre1 = LN(x) W1 in registers over K = C; dh =
 //     dw3x3^T(dpre2 on the halo, brought in by cp.async with the chunk's
-//     first weight tile); dpre1 = rnd(dh) GELU'(pre1 + b1); dLN += dpre1
+//     first weight tile); dpre1 = dh GELU'(pre1 + b1); dLN += dpre1
 //     W1^T, the Mo x C fp32 accumulator in registers for the whole hidden
 //     loop (W1 streamed a second time, as C x KW tiles along the chunk);
 //     then the LayerNorm VJP and the residual.
@@ -51,7 +54,7 @@ struct LeffBwdParams {
   T* dx;              // (B, H, W, C)                              [B]
   T* ln;              // (B, H, W, C) LN(x)                        [B]
   T* dpre1;           // (B, H, W, Ch)                             [B]
-  float* part_b;      // (tiles, 2 * C + Ch): dln_s, dln_b, then db1 [B]
+  float* part_b;      // (tiles, C + Ch): dln_s, then db1           [B]
   float* part_dln;    // (groups, tiles, TH * 8, C) fp32 dLN partials [B]
   int B, H, W, C, Ch, TH;
   int cpg;            // hidden chunks per blockIdx.y group
@@ -117,10 +120,14 @@ struct LeffBwdA {
   static constexpr size_t xn = 0;
   static constexpr size_t dyt = xn + align128(2 * kRows * Base::ldx);
   static constexpr size_t h = dyt + align128(2 * kOut * Base::ldx);
+  // fp32 dg, then (once the depthwise step has read it) the tile's dwd
+  // and dbd partials in the same bytes
   static constexpr size_t dg = h + align128(2 * kRows * Base::ldh);
-  static constexpr size_t red = dg + align128(2 * kOut * Base::ldh);
+  static constexpr size_t red = dg;
   static constexpr size_t hpix =
-      red + align128(4 * kRowStep * kLeffChunk * 10);
+      dg + align128(4 * (kOut * Base::ldh > kRowStep * kLeffChunk * 10
+                             ? kOut * Base::ldh
+                             : kRowStep * kLeffChunk * 10));
   static constexpr size_t opix = hpix + align128(4 * kRows);
   static constexpr size_t ring = opix + align128(4 * kOut);
   static constexpr size_t total = ring + Base::kStages * Base::kSlotA;
@@ -142,7 +149,7 @@ __device__ void leff_bwd_a_tile(const LeffBwdParams<bf16>& p,
   bf16* xn = reinterpret_cast<bf16*>(smem + L::xn);
   bf16* dyt = reinterpret_cast<bf16*>(smem + L::dyt);
   bf16* hs = reinterpret_cast<bf16*>(smem + L::h);
-  bf16* dgs = reinterpret_cast<bf16*>(smem + L::dg);
+  float* dgs = reinterpret_cast<float*>(smem + L::dg);
   float* red = reinterpret_cast<float*>(smem + L::red);
   int* hpix = reinterpret_cast<int*>(smem + L::hpix);
   int* opix = reinterpret_cast<int*>(smem + L::opix);
@@ -247,14 +254,14 @@ __device__ void leff_bwd_a_tile(const LeffBwdParams<bf16>& p,
     warp_mma_k<1, L::NJ2, KT, true>(accg, dyt + mg * 16 * ldx + (s - P) * KT,
                                     ldx, wt + ng * B_::ldt, B_::ldt);
     if (s < 2 * P - 1) continue;
-    // rnd(dg) into shared memory: the bf16 value the plain path rounds
+    // dg into shared memory, unrounded
 #pragma unroll
     for (int n = 0; n < L::NJ2; ++n)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int row = mg * 16 + gq + 8 * hh, col = ng + n * 8 + 2 * t4;
-        *reinterpret_cast<uint32_t*>(dgs + row * ldh + col) =
-            pack_bf16(accg[0][n][2 * hh], accg[0][n][2 * hh + 1]);
+        *reinterpret_cast<float2*>(dgs + row * ldh + col) =
+            make_float2(accg[0][n][2 * hh], accg[0][n][2 * hh + 1]);
       }
     __syncthreads();
     // per output and channel: thread t takes channel t % 64 of outputs
@@ -278,13 +285,14 @@ __device__ void leff_bwd_a_tile(const LeffBwdParams<bf16>& p,
       pre += bdj;
       const size_t at = (size_t)opix[o] * Ch + k0 + j;
       p.g[at] = __float2bfloat16(gelu(pre));
-      const float dp = rnd<bf16>(__bfloat162float(dgs[o * ldh + j]) *
-                                 gelu_grad(pre));
+      const float d32 = dgs[o * ldh + j] * gelu_grad(pre);
+      const float dp = rnd<bf16>(d32);
       p.dpre2[at] = __float2bfloat16(dp);
-      dbd += dp;
+      dbd += d32;
 #pragma unroll
       for (int t = 0; t < 9; ++t) dwd[t] = fmaf(dp, hv[t], dwd[t]);
     }
+    __syncthreads();  // every read of dg done: red takes its bytes
     float* mine = red + (grp * kc + j) * 10;
 #pragma unroll
     for (int t = 0; t < 9; ++t) mine[t] = dwd[t];
@@ -339,9 +347,10 @@ struct LeffBwdB {
 };
 
 // The LayerNorm VJP of a tile from its fp32 dLN (acc, kOut x lda in shared
-// memory, rows of pixels opix) and LN statistics: dx [+ dy] per pixel, and
-// the tile's dln_s, dln_b sums from the fp32 dLN (leff.py:683-688). All
-// threads call it.
+// memory, rows of pixels opix) and LN statistics: dx [+ dy] per pixel from
+// the fp32 dLN, unrounded as the TPU kernel's dt (leff.py:683-688), and
+// the tile's dln_s sum from it too (dln_b is W1 db1, uf_leff_dln_b);
+// without LN dx is the rounded dLN. All threads call it.
 template <int C>
 __device__ void leff_bwd_ln_vjp(const LeffBwdParams<bf16>& p, int tile,
                                 const float* acc, const float* stats,
@@ -359,7 +368,7 @@ __device__ void leff_bwd_ln_vjp(const LeffBwdParams<bf16>& p, int tile,
       rstd = stats[2 * o + 1];
       for (int c = lane; c < C; c += 32) {
         const float xh = (to_f<bf16>(p.x[at + c]) - mean) * rstd;
-        const float dxh = rnd<bf16>(row[c]) * p.ln_s[c];
+        const float dxh = row[c] * p.ln_s[c];
         s1 += dxh;
         s2 += dxh * xh;
       }
@@ -370,7 +379,7 @@ __device__ void leff_bwd_ln_vjp(const LeffBwdParams<bf16>& p, int tile,
       float d;
       if (p.has_ln) {
         const float xh = (to_f<bf16>(p.x[at + c]) - mean) * rstd;
-        d = rstd * (rnd<bf16>(row[c]) * p.ln_s[c] - s1 - xh * s2);
+        d = rstd * (row[c] * p.ln_s[c] - s1 - xh * s2);
       } else {
         d = rnd<bf16>(row[c]);
       }
@@ -380,17 +389,15 @@ __device__ void leff_bwd_ln_vjp(const LeffBwdParams<bf16>& p, int tile,
   }
   if (!p.has_ln) return;
   for (int c = tid; c < C; c += kThreads) {
-    float ss = 0.f, sb = 0.f;
+    float ss = 0.f;
     for (int o = 0; o < L::kOut; ++o) {
       if (opix[o] < 0) continue;
       const float xh =
           (to_f<bf16>(p.x[(size_t)opix[o] * C + c]) - stats[2 * o]) *
           stats[2 * o + 1];
       ss = fmaf(acc[o * lda + c], xh, ss);
-      sb += acc[o * lda + c];
     }
-    p.part_b[(size_t)tile * (2 * C + p.Ch) + c] = ss;
-    p.part_b[(size_t)tile * (2 * C + p.Ch) + C + c] = sb;
+    p.part_b[(size_t)tile * (C + p.Ch) + c] = ss;
   }
 }
 
@@ -522,8 +529,10 @@ __device__ void leff_bwd_b_tile(const LeffBwdParams<bf16>& p,
             make_float2(acc1[0][n][2 * hh], acc1[0][n][2 * hh + 1]);
       }
     __syncthreads();
-    // dh = dw3x3^T(dpre2) on the tile, dpre1 = rnd(dh) GELU'(pre1 + b1);
-    // db1 from the fp32 dpre1 before its rounding (leff.py:682)
+    // dh = dw3x3^T(dpre2) on the tile, dpre1 = dh GELU'(pre1 + b1) from the
+    // fp32 dh and rounded once, as the TPU kernel's dh1 (leff.py:675-679:
+    // its fp32 taps times dgelu, then dh1c); db1 from the fp32 dpre1
+    // before its rounding (leff.py:682)
     const bf16* d2 = dp2s(c);
     float wdj[9];
 #pragma unroll
@@ -540,7 +549,7 @@ __device__ void leff_bwd_b_tile(const LeffBwdParams<bf16>& p,
         for (int t = 0; t < 9; ++t)
           dh = fmaf(__bfloat162float(e0[-((t / 3) * 10 + t % 3) * ldh]),
                     wdj[t], dh);
-        const float d32 = rnd<bf16>(dh) * gelu_grad(pre[o * ldp + j] + b1j);
+        const float d32 = dh * gelu_grad(pre[o * ldp + j] + b1j);
         db1 += d32;
         dp = rnd<bf16>(d32);
         p.dpre1[(size_t)opix[o] * Ch + k0 + j] = __float2bfloat16(dp);
@@ -552,7 +561,7 @@ __device__ void leff_bwd_b_tile(const LeffBwdParams<bf16>& p,
     if (tid < kc) {
       float sum = 0.f;
       for (int gi = 0; gi < kRowStep; ++gi) sum += red[gi * kc + tid];
-      p.part_b[(size_t)blockIdx.x * (2 * C + Ch) + 2 * C + k0 + tid] = sum;
+      p.part_b[(size_t)blockIdx.x * (C + Ch) + C + k0 + tid] = sum;
     }
     // (the next iteration's barrier orders dp1s before the dLN product)
   }

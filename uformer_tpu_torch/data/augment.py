@@ -2,9 +2,10 @@
 
   * the 8 dihedral ops (reference Augment_RGB_torch), per sample;
   * MixUp with lam ~ Beta(1.2, 1.2) and a random pairing, over the
-    global batch of the data ranks.
+    global batch of the data ranks;
+  * an aligned random crop of a pair (`random_crop_pair`).
 
-Every draw comes from the `torch.Generator` passed in, never from a global
+Every draw comes from the generator passed in, never from a global
 RNG. `torch.distributions.Beta` takes no generator, so lam comes from a
 numpy Generator seeded by a draw from it.
 """
@@ -79,3 +80,15 @@ def mixup_batch(generator: torch.Generator, target: torch.Tensor,
     t, i = mixup_apply(all_gather_rows(target, group),
                        all_gather_rows(inp, group), lam, perm)
     return t[rows], i[rows]
+
+
+def random_crop_pair(rng: np.random.Generator, gt, noisy, ps: int):
+    """A random aligned ps x ps crop of an (H, W, C) pair (reference
+    dataset_denoise.py:59-66; `uformer_tpu` augment.py:62), numpy arrays
+    or tensors: the row offset and then the column offset drawn from the
+    numpy Generator `rng` as the datasets draw them
+    (`datasets.TrainDataset`), in [0, H - ps] and [0, W - ps]."""
+    H, W = gt.shape[:2]
+    r = int(rng.integers(0, H - ps + 1))
+    c = int(rng.integers(0, W - ps + 1))
+    return gt[r:r + ps, c:c + ps], noisy[r:r + ps, c:c + ps]

@@ -35,7 +35,7 @@ the shift mask and the input-mask bias. A cross-modulator block first
 adds its cross-attention over all H*W tokens (`layers.py:722-738`). Then
 one LeFF kernel, or the plain `Mlp`. The attention-image, attention-block
 and LeFF kernels are differentiated by their backward kernels (windows
-1-8, head dim 8, 16 or 32, LeFF at C 8-512); `Mlp` and the
+1-16, head dim 8, 16 or 32, LeFF at C 8-512); `Mlp` and the
 cross-modulator's attention are plain
 PyTorch under autograd, as in JAX. The depthwise kernel has no backward,
 in JAX either (`train.train_step` refuses a conv-projection model on the
@@ -46,6 +46,19 @@ each block runs under `torch.utils.checkpoint` and its forward kernels
 run again in the backward (`BasicLayer`). `LeFF` takes the optional
 `Eca1d` gate after its kernel (no shipped arch sets it). The convs around
 the stages stay cuDNN (`F.conv2d`).
+
+Dropout (`drop`, `attn_drop`: JAX's `drop_rate`, `attn_drop_rate`) sits
+where JAX places it (`layers.py:87-105`, `:195-210`, `:546-660`) and
+routes as JAX routes it in training (`:700-775`, `:851-853`): an active
+`drop` declines the image route and the LeFF fold (the windowed kernel
+keeps running, dropout on its output), an active `attn_drop` the attention
+kernels (the unfused route, dropout on the probabilities); JAX has no
+kernel for those branches, so they are plain PyTorch here too. Eval, and
+rate 0, keep the kernel routes and draw nothing. Each mask is drawn from
+the card from a seed drawn off the step's generator, in forward order
+(`dropout`, `draw_keep`), for the global batch under `BatchRows`; a
+checkpointed block records the seeds and hands them to its recompute
+(`DrawLog`).
 """
 
 from __future__ import annotations
@@ -61,6 +74,7 @@ from torch.utils.checkpoint import checkpoint
 
 from uformer_tpu_torch.device import to_device_async
 from uformer_tpu_torch.ops.attention import window_attention
+from uformer_tpu_torch.ops.dwconv import depthwise_conv2d
 from uformer_tpu_torch.ops.kernels import (
     DWCONV_BACKWARD_NOT_PORTED,
     STAGE_KEYS,
@@ -94,10 +108,10 @@ from uformer_tpu_torch.ops.window import (
 Params = Dict[str, torch.Tensor]
 LEFF_MLPS = ("leff", "fastleff")  # fastleff: the same function and keys
 GEOMETRY_NOT_ON_KERNEL_PATH = (
-    f"the kernels, forward and backward, take windows 1-8 and head dim in "
-    f"{HEAD_DIMS}; a window above 8 or another head dim (64: embed 64) "
+    f"the kernels, forward and backward, take windows 1-16 and head dim in "
+    f"{HEAD_DIMS}; a window above 16 or another head dim (64: embed 64) "
     f"runs on the plain path only (ROADMAP.md, port queue 2 items 2 and "
-    f"3: windows above 8, head dim 64)")
+    f"3: windows above 16, head dim 64)")
 
 
 class _Prepared:
@@ -183,6 +197,69 @@ class DropPath(nn.Module):
         return torch.where(mask, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
+class DrawLog:
+    """The dropout draws of one checkpointed block: its first forward
+    draws each mask's seed from `generator` (a torch.Generator or
+    `BatchRows`) and keeps it; the recompute, which the block starts by
+    `rewind`, draws the same masks from the same seeds, in the same
+    order. Nothing mask-sized waits for the recompute."""
+
+    def __init__(self, generator):
+        self.generator, self.seeds, self.at = generator, [], 0
+
+    def rewind(self) -> None:
+        self.at = 0
+
+    def seed(self) -> int:
+        if self.at == len(self.seeds):
+            self.seeds.append(mask_seed(self.generator))
+        self.at += 1
+        return self.seeds[self.at - 1]
+
+
+def mask_seed(generator) -> int:
+    """One draw from the step's generator (a torch.Generator or
+    `BatchRows`): the seed of one dropout mask."""
+    if isinstance(generator, BatchRows):
+        generator = generator.generator
+    return int(torch.randint(0, 2 ** 62, (), generator=generator,
+                             device=generator.device))
+
+
+def draw_keep(shape, rate: float, generator, device,
+              per_sample: int = 1) -> torch.Tensor:
+    """A keep mask of `shape` (entries kept with probability 1 - rate),
+    drawn on `device` itself from a generator there seeded by one draw of
+    the step's (`mask_seed`): an activation-sized mask is never made on
+    the host nor copied. shape[0] is per_sample rows a sample; under
+    `BatchRows` the draw covers the global batch and this rank keeps its
+    rows."""
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    log = generator if isinstance(generator, DrawLog) else None
+    rows = log.generator if log is not None else generator
+    start, total = 0, shape[0]
+    if isinstance(rows, BatchRows):
+        start = rows.start * per_sample
+        total = rows.total * per_sample
+    seed = log.seed() if log is not None else mask_seed(generator)
+    on_device = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand((total,) + tuple(shape[1:]), generator=on_device,
+                   device=device)
+    return u[start:start + shape[0]] < 1.0 - rate
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool, generator,
+            per_sample: int = 1) -> torch.Tensor:
+    """flax's `nn.Dropout` as the JAX package applies it: in training each
+    entry kept with probability 1 - rate and divided by it, else zero
+    (`draw_keep`); x itself in eval or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = draw_keep(x.shape, rate, generator, x.device, per_sample)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
@@ -222,8 +299,10 @@ class LeFF(nn.Module):
     gate is differentiated by autograd. LeWinBlock builds it without the
     gate, as JAX's does."""
 
-    def __init__(self, dim: int, hidden_dim: int, use_eca: bool = False):
+    def __init__(self, dim: int, hidden_dim: int, use_eca: bool = False,
+                 drop: float = 0.0):
         super().__init__()
+        self.drop = float(drop)
         self.linear1 = nn.Sequential(nn.Linear(dim, hidden_dim), nn.GELU())
         self.dwconv = nn.Sequential(
             nn.Conv2d(hidden_dim, hidden_dim, 3, 1, 1, groups=hidden_dim),
@@ -260,14 +339,29 @@ class LeFF(nn.Module):
         y = self.eca(y)
         return x + y if residual else y
 
+    def unfused(self, x: torch.Tensor, p: Params,
+                generator) -> torch.Tensor:
+        """JAX's unfused LeFF (`layers.py:195-210`), which training takes
+        with an active `drop`: on x (LN2 applied by the caller), in x's
+        dtype, dropout after the second GELU and after linear2, then the
+        gate; no residual."""
+        dt = x.dtype
+        y = F.gelu(x @ p["w1"] + p["b1"].to(dt))
+        y = F.gelu(depthwise_conv2d(y, p["wd"], p["bd"]))
+        y = dropout(y, self.drop, self.training, generator)
+        y = dropout(y @ p["w2"] + p["b2"].to(dt), self.drop, self.training,
+                    generator)
+        return y if self.eca is None else self.eca(y)
+
 
 class Mlp(nn.Module):
     """Plain FFN, fc1 - erf GELU - fc2 (reference model.py:623-651; JAX
     layers.py:87-105), for token_mlp "mlp" or "ffn". Its products are plain
     matmuls in the working dtype, as in JAX."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, drop: float = 0.0):
         super().__init__()
+        self.drop = float(drop)
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
 
@@ -277,10 +371,13 @@ class Mlp(nn.Module):
                 "w2": self.fc2.weight.t().to(dtype),
                 "b2": self.fc2.bias.float()}
 
-    def forward(self, x: torch.Tensor, p: Params) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, p: Params,
+                generator=None) -> torch.Tensor:
         dt = x.dtype
-        y = F.gelu(x @ p["w1"] + p["b1"].to(dt))
-        return y @ p["w2"] + p["b2"].to(dt)
+        y = dropout(F.gelu(x @ p["w1"] + p["b1"].to(dt)), self.drop,
+                    self.training, generator)
+        return dropout(y @ p["w2"] + p["b2"].to(dt), self.drop,
+                       self.training, generator)
 
 
 class SepConv2d(nn.Module):
@@ -407,9 +504,11 @@ class WindowAttention(nn.Module):
 
     def __init__(self, dim: int, win_size: int, num_heads: int,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
-                 token_projection: str = "linear"):
+                 token_projection: str = "linear", attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.dim, self.win_size, self.num_heads = dim, win_size, num_heads
+        self.attn_drop, self.proj_drop = float(attn_drop), float(proj_drop)
         self.token_projection = token_projection
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(
@@ -444,9 +543,11 @@ class Attention(nn.Module):
     softmax."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None):
+                 qk_scale: Optional[float] = None, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_drop, self.proj_drop = float(attn_drop), float(proj_drop)
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.qkv = LinearProjection(dim, dim, qkv_bias)
         self.proj = nn.Linear(dim, dim)
@@ -457,14 +558,17 @@ class Attention(nn.Module):
                   "bo": self.proj.bias.float()})
         return p
 
-    def forward(self, x: torch.Tensor, kv: torch.Tensor,
-                p: Params) -> torch.Tensor:
-        """x (B, N, C), kv (M, C) -> (B, N, C) in x's dtype."""
+    def forward(self, x: torch.Tensor, kv: torch.Tensor, p: Params,
+                generator=None) -> torch.Tensor:
+        """x (B, N, C), kv (M, C) -> (B, N, C) in x's dtype; in training
+        dropout on the probabilities and after proj (JAX layers.py:652-657)."""
         q, k, v = self.qkv(x, p, self.num_heads, kv=kv[None])
         attn = torch.softmax((q.float() * self.scale)
                              @ k.float().transpose(-1, -2), dim=-1)
+        attn = dropout(attn, self.attn_drop, self.training, generator)
         out = (attn @ v.float()).transpose(1, 2).reshape(x.shape).to(x.dtype)
-        return out @ p["wo"] + p["bo"].to(x.dtype)
+        return dropout(out @ p["wo"] + p["bo"].to(x.dtype), self.proj_drop,
+                       self.training, generator)
 
 
 class LeWinBlock(_Prepared, nn.Module):
@@ -480,30 +584,33 @@ class LeWinBlock(_Prepared, nn.Module):
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  modulator: bool = False, drop_path: float = 0.0,
                  token_projection: str = "linear", token_mlp: str = "leff",
-                 cross_modulator: bool = False):
+                 cross_modulator: bool = False, drop: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         if not 0 <= shift_size < win_size:
             raise ValueError(f"shift {shift_size} outside [0, {win_size})")
         self.dim, self.num_heads = dim, num_heads
         self.win_size, self.shift_size = win_size, shift_size
-        self.token_mlp = token_mlp
+        self.token_mlp, self.drop = token_mlp, float(drop)
         self.cross_modulator = self.cross_attn = self.norm_cross = None
         if cross_modulator:
             self.cross_modulator = nn.Embedding(win_size * win_size, dim)
-            self.cross_attn = Attention(dim, num_heads, qkv_bias, qk_scale)
+            self.cross_attn = Attention(dim, num_heads, qkv_bias, qk_scale,
+                                        attn_drop, drop)
             # reference quirk (JAX layers.py:729-732): built, never applied
             self.norm_cross = nn.LayerNorm(dim)
         self.modulator = (nn.Embedding(win_size * win_size, dim)
                           if modulator else None)
         self.norm1 = nn.LayerNorm(dim)
         self.attn = WindowAttention(dim, win_size, num_heads, qkv_bias,
-                                    qk_scale, token_projection)
+                                    qk_scale, token_projection, attn_drop,
+                                    drop)
         self.norm2 = nn.LayerNorm(dim)
         hidden = int(dim * mlp_ratio)
         if token_mlp in LEFF_MLPS:
-            self.mlp = LeFF(dim, hidden)
+            self.mlp = LeFF(dim, hidden, drop=drop)
         elif token_mlp in ("mlp", "ffn"):  # "mlp" is the reference's alias
-            self.mlp = Mlp(dim, hidden)
+            self.mlp = Mlp(dim, hidden, drop)
         else:
             raise ValueError(f"unknown token_mlp {token_mlp}")
         self.drop_path1 = DropPath(drop_path)
@@ -518,11 +625,12 @@ class LeWinBlock(_Prepared, nn.Module):
     def backward_gap(self) -> Optional[str]:
         """Why the train step's kernel path cannot differentiate this
         block, or None. The attention backward kernels cover the image
-        route and the windowed branch at windows 1-8 (below 8 on packed
-        tiles) and head dim 8, 16 or 32, and the LeFF backward kernel C
-        8-512, as the forward kernels do; Mlp and the cross-modulator's
-        attention are plain PyTorch. Conv projection runs the depthwise
-        kernel, which has no backward (in JAX either)."""
+        route and the windowed branch at windows 1-16 (below 8 on packed
+        tiles, above 8 `csrc/attention_wide.cu`) and head dim 8, 16 or 32,
+        and the LeFF backward kernel C 8-512, as the forward kernels do;
+        Mlp and the cross-modulator's attention are plain PyTorch. Conv
+        projection runs the depthwise kernel, which has no backward (in JAX
+        either)."""
         if self.attn.token_projection == "conv":
             return DWCONV_BACKWARD_NOT_PORTED
         if self.win_size not in WINDOWS or self.dim % self.num_heads \
@@ -557,12 +665,20 @@ class LeWinBlock(_Prepared, nn.Module):
                 keep: Optional[tuple] = None) -> torch.Tensor:
         """plain=True runs the kernels' plain versions under torch autograd
         (the comparison path); otherwise the kernels, whose backward is a
-        kernel too. `generator` feeds DropPath in training, or `keep` hands
-        in both DropPath masks (`draw_drop_path`). `mask`: the input mask,
+        kernel too. `generator` feeds DropPath and dropout in training
+        (both DropPath masks first, then the dropout masks in forward
+        order), or `keep` hands in both DropPath masks (`draw_drop_path`)
+        and a `DrawLog` the dropout masks' seeds. `mask`: the input mask,
         (B, 1, Hm, Wm) or (B, Hm, Wm, 1), on x's device."""
-        keep1, keep2 = keep if keep is not None else (None, None)
+        if isinstance(generator, DrawLog):
+            generator.rewind()
+        keep1, keep2 = keep if keep is not None else \
+            self.draw_drop_path(x, generator)
         # active DropPath scales the branch: the residual stays outside
         res = not (self.training and self.drop_path1.rate > 0.0)
+        # JAX's routes in training (layers.py:700-775, :851-853)
+        drop_on = self.training and self.drop > 0.0
+        attn_drop_on = self.training and self.attn.attn_drop > 0.0
         p = self.params_for(x.dtype, x.device)
         if self.cross_attn is not None:
             # x feeds the cross-attention un-normalised (JAX
@@ -570,8 +686,9 @@ class LeWinBlock(_Prepared, nn.Module):
             B, H, W, C = x.shape
             c = p["cross"]
             x = x + self.cross_attn(x.reshape(B, H * W, C), c["table"],
-                                    c).reshape(x.shape)
-        if mask is None and self.image_route:
+                                    c, generator).reshape(x.shape)
+        if mask is None and self.image_route and not (drop_on
+                                                      or attn_drop_on):
             attention = attention_image_reference if plain else \
                 attention_image_ad
             y = attention(
@@ -581,24 +698,31 @@ class LeWinBlock(_Prepared, nn.Module):
                 scale=self.attn.scale, num_heads=self.num_heads,
                 residual=res)
             x = y if res else x + self.drop_path1(y, generator, keep1)
-        elif mask is None and self.attn.token_projection == "linear":
-            x = x + self.drop_path1(self.windowed_attention(x, p, plain),
-                                    generator, keep1)
+        elif mask is None and self.attn.token_projection == "linear" \
+                and not attn_drop_on:
+            x = x + self.drop_path1(
+                self.windowed_attention(x, p, plain, generator), generator,
+                keep1)
         else:
             x = x + self.drop_path1(
-                self.unfused_attention(x, p, plain, mask), generator, keep1)
-        if self.token_mlp not in LEFF_MLPS:
-            y = self.mlp(layer_norm(x, p["ln2_s"], p["ln2_b"]), p)
+                self.unfused_attention(x, p, plain, mask, generator),
+                generator, keep1)
+        if self.token_mlp not in LEFF_MLPS or drop_on:
+            y = layer_norm(x, p["ln2_s"], p["ln2_b"])
+            y = self.mlp(y, p, generator) if self.token_mlp not in \
+                LEFF_MLPS else self.mlp.unfused(y, p, generator)
             return x + self.drop_path2(y, generator, keep2)
         y = self.mlp(x, p, p["ln2_s"], p["ln2_b"], residual=res, plain=plain)
         return y if res else x + self.drop_path2(y, generator, keep2)
 
     def windowed_attention(self, x: torch.Tensor, p: Params,
-                           plain: bool = False) -> torch.Tensor:
+                           plain: bool = False,
+                           generator=None) -> torch.Tensor:
         """The attention branch off the image route, in the JAX package's
         order and rounding points (`layers.py:796-848`): LN1 in the
         working dtype, cyclic shift, partition, the attention-block kernel
-        without LN, reverse, unshift."""
+        without LN, [dropout on its windows, in training], reverse,
+        unshift."""
         _, H, W, _ = x.shape
         win, shift = self.win_size, self.shift_size
         wnd = window_partition(
@@ -609,31 +733,63 @@ class LeWinBlock(_Prepared, nn.Module):
                       p["bkv"], p["wo"], p["bo"], p["bias"], win=win,
                       shift=shift, H=H, W=W, scale=self.attn.scale,
                       num_heads=self.num_heads, has_ln=False)
+        y = dropout(y, self.attn.proj_drop, self.training, generator,
+                    (H // win) * (W // win))
         return cyclic_unshift(window_reverse(y, win, H, W), shift)
 
     def unfused_attention(self, x: torch.Tensor, p: Params,
                           plain: bool = False,
-                          mask: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          mask: Optional[torch.Tensor] = None,
+                          generator=None) -> torch.Tensor:
         """The attention branch of the JAX package's route with
         `fused=False` (`layers.py:796-848`, `:576-607`), for conv
         projection or an input mask: LN1 in the working dtype, cyclic
         shift, partition, + modulator, the q/k/v projection (the conv one
         runs the depthwise kernel once for q, k and v), the plain window
         attention with the relative-position bias, the shift mask and the
-        input-mask bias, proj, reverse, unshift."""
+        input-mask bias (in training with an active attn_drop, JAX's
+        `_attn_with_dropout`, layers.py:610-626: fp32 logits of q times
+        the fp32 scale, dropout on the probabilities), proj [dropout],
+        reverse, unshift."""
         B, H, W, _ = x.shape
         win, shift = self.win_size, self.shift_size
+        nW = (H // win) * (W // win)
         wnd = window_partition(
             cyclic_shift(layer_norm(x, p["ln1_s"], p["ln1_b"]), shift), win)
         if p["mod"] is not None:
             wnd = wnd + p["mod"]
         q, k, v = self.attn.qkv(wnd, p, self.num_heads, plain)
-        out = window_attention(q, k, v, p["bias"],
-                               self.attention_mask(B, H, W, x.device, mask),
-                               scale=self.attn.scale)
-        out = out @ p["wo"] + p["bo"].to(x.dtype)
+        amask = self.attention_mask(B, H, W, x.device, mask)
+        if self.training and self.attn.attn_drop > 0.0:
+            out = self.attention_with_dropout(q, k, v, p["bias"], amask,
+                                              generator, nW)
+        else:
+            out = window_attention(q, k, v, p["bias"], amask,
+                                   scale=self.attn.scale)
+        out = dropout(out @ p["wo"] + p["bo"].to(x.dtype),
+                      self.attn.proj_drop, self.training, generator, nW)
         return cyclic_unshift(window_reverse(out, win, H, W), shift)
+
+    def attention_with_dropout(self, q, k, v, bias, amask, generator,
+                               nW: int) -> torch.Tensor:
+        """q, k, v (Bw, nH, N, D) -> (Bw, N, nH D) in q's dtype: softmax
+        of the fp32 logits (q times the fp32 scale) + bias [+ amask],
+        dropout on the probabilities (nW windows a sample), the fp32
+        product with v."""
+        Bw, nH, N, D = q.shape
+        attn = (q.float() * self.attn.scale) @ k.float().transpose(-1, -2) \
+            + bias.float()[None]
+        if amask is not None:
+            if amask.shape[0] == Bw:
+                attn = attn + amask[:, None]
+            else:
+                attn = (attn.reshape(Bw // amask.shape[0], amask.shape[0],
+                                     nH, N, N) + amask[None, :, None]) \
+                    .reshape(Bw, nH, N, N)
+        attn = dropout(torch.softmax(attn, dim=-1), self.attn.attn_drop,
+                       self.training, generator, nW)
+        out = attn @ v.float()
+        return out.transpose(1, 2).reshape(Bw, N, nH * D).to(q.dtype)
 
     def attention_mask(self, B: int, H: int, W: int, device,
                        mask: Optional[torch.Tensor] = None
@@ -666,9 +822,11 @@ class BasicLayer(_Prepared, nn.Module):
     save_for_backward, which the checkpoint frees and recomputes). The
     checkpoint restores only the global RNGs, not a torch.Generator, so
     each block's DropPath masks are drawn before its checkpoint, in the
-    order an unchecked block draws them, and handed in: the recompute
-    sees the first forward's masks, and the generator ends the step where
-    an unchecked step leaves it. Eval runs as without it."""
+    order an unchecked block draws them, and handed in, and its dropout
+    masks' seeds go through a `DrawLog` that the first forward fills from
+    the generator: the recompute draws the first forward's masks again,
+    and the generator ends the step where an unchecked step leaves it.
+    Eval runs as without it."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, win_size: int,
                  resolution: int, mlp_ratio: float = 4.0,
@@ -676,7 +834,8 @@ class BasicLayer(_Prepared, nn.Module):
                  shift_flag: bool = True, modulator: bool = False,
                  drop_path: Sequence[float] = (),
                  token_projection: str = "linear", token_mlp: str = "leff",
-                 cross_modulator: bool = False, use_checkpoint: bool = False):
+                 cross_modulator: bool = False, use_checkpoint: bool = False,
+                 drop: float = 0.0, attn_drop: float = 0.0):
         super().__init__()
         self.dim, self.num_heads, self.win_size = dim, num_heads, win_size
         self.resolution, self.use_checkpoint = resolution, use_checkpoint
@@ -688,7 +847,8 @@ class BasicLayer(_Prepared, nn.Module):
                        win // 2 if (self.use_shift and i % 2) else 0,
                        mlp_ratio, qkv_bias, qk_scale, modulator,
                        drop_path[i] if len(drop_path) else 0.0,
-                       token_projection, token_mlp, cross_modulator)
+                       token_projection, token_mlp, cross_modulator, drop,
+                       attn_drop)
             for i in range(depth)])
         # the stage kernel's static conditions (uformer_tpu layers.py:979)
         self.stage_ok = (win_size == 8 and resolution >= win_size
@@ -736,8 +896,9 @@ class BasicLayer(_Prepared, nn.Module):
         for blk in self.blocks:
             if checkpointed:
                 keep = blk.draw_drop_path(x, generator)
-                # no generator inside: the recompute cannot draw
-                x = checkpoint(blk, x, plain, None, mask, keep,
+                # the dropout seeds through a DrawLog: the recompute draws
+                # the first forward's masks
+                x = checkpoint(blk, x, plain, DrawLog(generator), mask, keep,
                                use_reentrant=False, preserve_rng_state=False)
             else:
                 x = blk(x, plain, generator, mask)

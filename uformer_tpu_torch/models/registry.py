@@ -6,12 +6,13 @@ and LeFF: Uformer_T, Uformer_S, Uformer_S_noshift, Uformer_B,
 Uformer_B_fastleff, and Uformer at any embed dim and window. Every one
 builds and runs on the CPU (the kernels' plain versions). On the card the
 forward (eval, serving, the CLIs) runs through the kernels at every window
-1-8 and head dim 8, 16 and 32 (head dim is the embed dim in this family):
-every arch here at embed 8-32, `--win_size` 1-8 and any `--train_ps`
-(a stage built below the window runs at window min(reso, win), 64 // N
-whole windows of N = win² tokens to a kernel tile), and so does training:
+1-16 and head dim 8, 16 and 32 (head dim is the embed dim in this family):
+every arch here at embed 8-32, `--win_size` 1-16 and any `--train_ps`
+(a stage built below the window runs at window min(reso, win); below 8,
+64 // N whole windows of N = win² tokens to a kernel tile; above 8, the
+key-chunked kernels of `csrc/attention_wide.cu`), and so does training:
 the backward kernels take the same windows and head dims, LeFF at C = 8
-too. Windows above 8 and head dim 64 (embed 64) have no kernel: the
+too. Windows above 16 and head dim 64 (embed 64) have no kernel: the
 wrappers raise before any launch, and the train step refuses such a model
 before any launch (`LeWinBlock.backward_gap`, ROADMAP.md's port queue 2
 items 2-3). `use_checkpoint` recomputes each

@@ -10,6 +10,9 @@ reference's (`uformer.py:54-66`); the rates take effect in training only
 ("leff", "fastleff", "mlp" or "ffn") and `cross_modulator` are the
 reference's options (`uformer_tpu` uformer.py:45-49). `use_checkpoint`
 recomputes each block's forward in the backward (`BasicLayer`).
+`drop_rate` and `attn_drop_rate` (`uformer.py:42-43`, default 0) are
+dropout after `input_proj` and in every block, in training only, routed as
+JAX routes them (`models/layers.py`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from uformer_tpu_torch.models.layers import (
     InputProj,
     OutputProj,
     Upsample,
+    dropout,
 )
 
 
@@ -41,10 +45,11 @@ class Uformer(nn.Module):
                  cross_modulator: bool = False,
                  drop_path_rate: float = 0.1,
                  dtype: torch.dtype = torch.float32,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0):
         super().__init__()
         E = embed_dim
-        self.dd_in = dd_in
+        self.dd_in, self.drop_rate = dd_in, float(drop_rate)
         self.dtype = dtype  # working dtype of the forward
         self.depths, self.drop_path_rate = list(depths), drop_path_rate
         enc, conv, dec = self.drop_path_schedule()
@@ -57,7 +62,7 @@ class Uformer(nn.Module):
             return BasicLayer(dim, depths[k], num_heads[k], win_size, reso,
                               mlp_ratio, qkv_bias, qk_scale, shift_flag, mod,
                               rates[k], token_projection, token_mlp, cross,
-                              use_checkpoint)
+                              use_checkpoint, drop_rate, attn_drop_rate)
 
         self.input_proj = InputProj(dd_in, E)
         self.output_proj = OutputProj(2 * E, in_chans)
@@ -93,10 +98,11 @@ class Uformer(nn.Module):
         each stage (`ops.masks.input_mask_bias`); every block then takes
         the unfused route. plain=True runs every kernel's plain version
         (for comparisons). In training, `generator` draws every DropPath
-        mask."""
+        and dropout mask (`input_proj`'s dropout first)."""
         if mask is not None:
             mask = mask.to(x.device)
-        y = self.input_proj(x.to(self.dtype))
+        y = dropout(self.input_proj(x.to(self.dtype)), self.drop_rate,
+                    self.training, generator)
         skips = []
         for k in range(4):
             y = getattr(self, f"encoderlayer_{k}")(y, plain, generator, mask)

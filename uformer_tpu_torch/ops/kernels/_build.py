@@ -51,11 +51,19 @@ _SIGNATURES = {
                               + [_P],
     "uf_leff_bwd_tile_rows": [_I, _I, _I],
     "uf_leff_bwd": [_I, _I] + [_P] * 17 + [_I] * 8 + [_P],
+    "uf_leff_dln_b": [_I] + [_P] * 3 + [_I] * 2 + [_P],
     "uf_wgrad": [_I, _P, _I, _P, _I] + [_P] * 4 + [_I] * 4 + [_P],
     "uf_colsum": [_I, _P, _I, _P, _P, _I, _I, _I, _P],
     "uf_dwconv3x3": [_I, _I] + [_P] * 4 + [_I] * 12 + [_P],
     "uf_dwconv3x3_slots": [_I] * 5,
     "uf_mma_check": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "uf_wide_xm": [_I] + [_P] * 5 + [_I] * 4 + [_P],
+    "uf_wide_gemm": [_I] * 3 + [_P] * 3 + [_I] + [_P] * 3 + [_I] * 3
+                    + [_P],
+    "uf_wide_core": [_I] + [_P] * 3 + [_I] * 3 + [_P] * 2 + [_I] * 12
+                    + [_F, _I, _P],
+    "uf_wide_core_bwd": [_I] + [_P] * 7 + [_I] * 9 + [_F, _P],
+    "uf_wide_ln_bwd": [_I] + [_P] * 5 + [_I] * 5 + [_P],
     "uf_error_string": [_I],
 }
 

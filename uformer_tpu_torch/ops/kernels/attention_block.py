@@ -23,7 +23,10 @@ Windows of N = win² < 64 tokens (a stage built below the window, or
 between two windows), on the same bodies: bf16 at C 8-64 the narrow body
 on packed tiles (`csrc/attention_block_packed.cu`), else a tile per block.
 Head dim 8 runs at every C (bf16: the narrow body at C 8-64, a tile per
-block at C % 128 == 0).
+block at C % 128 == 0). Windows of 9-16 (N = win² 81-256 tokens) run
+`csrc/attention_wide.cu` through `attention_wide`: the projections over
+64-row tiles of tokens, the core with a key-chunked online softmax, both
+ways, at any head dim 8, 16 or 32 (backward: C <= 512).
 
 Its backward, `fused_attention_block_bwd`, is the port of
 `attention_block.py:fused_attention_block_bwd` in its own layout (kernel
@@ -46,6 +49,10 @@ import torch
 from uformer_tpu_torch.ops.attention import window_attention
 from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
+from uformer_tpu_torch.ops.kernels.attention_wide import (
+    wide_attention_block,
+    wide_block_bwd_parts,
+)
 from uformer_tpu_torch.ops.kernels.wgrad import colsum, sm_count, wgrad
 from uformer_tpu_torch.ops.kernels.window_attention import (
     TILE,
@@ -90,7 +97,7 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
                           bo, bias, *, win: int, shift: int, H: int, W: int,
                           scale: float, num_heads: int, has_ln: bool = True,
                           w_off: int = 0) -> torch.Tensor:
-    """x: (Bw, N, C) windows, N = win² (win 1-8) -> (Bw, N, C), the
+    """x: (Bw, N, C) windows, N = win² (win 1-16) -> (Bw, N, C), the
     attention branch.
 
     Weight layouts are the kernels' (in, out), as `fused_attention_image`
@@ -124,6 +131,11 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
             ("wo", wo, (C, C), dt), ("bo", bo, (C,), f32),
             ("bias", bias, (num_heads, N, N), f32)):
         _launch.expect(t, name, shape, tdt, dev)
+    if N > TILE:
+        y = wide_attention_block(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
+                                 bo, bias, **kw)
+        fused_attention_block.launches += 1
+        return y
     is_bf16 = int(dt == torch.bfloat16)
     if is_bf16 and D == 8 and C > 64 and C % 128:
         raise ValueError(f"bf16 kernel takes head dim 8 at C 8-64 or "
@@ -377,8 +389,9 @@ def fused_attention_block_bwd(x: torch.Tensor, g: torch.Tensor,
     weight gradients are then reduced over every token by
     `csrc/wgrad.cu`. Inputs as `fused_attention_block` takes them. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernels
-    (win 1-8, head dim 8, 16 or 32, w_off 0: the JAX kernel has no
-    offset) or raises."""
+    (win 1-16, head dim 8, 16 or 32, w_off 0: the JAX kernel has no
+    offset; above window 8 `csrc/attention_wide.cu`, C <= 512) or
+    raises."""
     kw = dict(win=win, shift=shift, H=H, W=W, scale=scale,
               num_heads=num_heads, has_ln=has_ln, w_off=w_off)
     if x.device.type == "cpu":
@@ -411,6 +424,20 @@ def attention_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
     if mod is not None:
         _launch.expect(mod, "mod", (N, C), x.dtype, x.device)
     _launch.expect(bias, "bias", (num_heads, N, N), torch.float32, x.device)
+    if N > TILE:
+        for name, t, shape, tdt in (
+                ("wq", wq, (C, C), x.dtype), ("bq", bq, (C,), torch.float32),
+                ("wkv", wkv, (C, 2 * C), x.dtype),
+                ("bkv", bkv, (2 * C,), torch.float32),
+                ("wo", wo, (C, C), x.dtype)):
+            _launch.expect(t, name, shape, tdt, x.device)
+        if has_ln:
+            _launch.expect(ln_s, "ln_s", (C,), torch.float32, x.device)
+            _launch.expect(ln_b, "ln_b", (C,), torch.float32, x.device)
+        return wide_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv,
+                                    wo, bias, win=win, shift=shift, H=H, W=W,
+                                    scale=scale, num_heads=num_heads,
+                                    has_ln=has_ln)
     mod, bias = packed_operands(mod, bias, N)
 
     def launch(lib, is_bf16, wn, hpb, *ptrs):

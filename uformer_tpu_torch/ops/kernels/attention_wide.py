@@ -1,0 +1,195 @@
+"""Windows of 9-16 (N = win² = 81-256 tokens) in kernels 4, 5 and 6.
+
+Kernel source `csrc/attention_wide.cu`. A window of 256 tokens does not
+fit one 64-row tile, so these wrappers run a short chain of kernels where
+windows 1-8 run one: the q | k | v projection over 64-row tiles of tokens
+(`wide_gemm_mma` on the tensor cores in bf16, `[Wq | Wkv]` read in place
+as two parts; after LN1 and the modulator where they apply, `wide_xm`),
+the window core with a key-chunked online softmax (`wide_core_fwd`: 64
+query rows of one window and head a block, 64-key chunks, the bias read
+per chunk, the SW-MSA mask inline from region ids), the output
+projection; the backward recomputes q, k and v, runs the core's VJP
+without atomics (`wide_core_bwd_q`, `wide_core_bwd_kv`), dxm and the
+LayerNorm VJP on the fp32 dxm, and reduces the weight, bias, modulator
+and LayerNorm gradients by `csrc/wgrad.cu` (`wgrad`, `colsum`) in a fixed
+order. Each is called by its kernel's wrapper (`fused_window_attention`,
+`fused_attention_block`, `fused_attention_block_bwd`) on CUDA tensors
+only, after the wrapper's checks; the plain versions are the wrappers'.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from uformer_tpu_torch.ops.kernels import _launch
+from uformer_tpu_torch.ops.kernels._build import load
+from uformer_tpu_torch.ops.kernels.wgrad import colsum, wgrad
+
+MAX_C = 512  # the LayerNorm VJP's lanes hold at most 16 channels each
+LN_ROWS = 64  # tokens of one block of the LayerNorm VJP (its dln partial)
+
+
+def _bf16(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+def _gemm(lib, a, b, bias, out, *, b_trans: bool, stream, b2=None,
+          bias2=None):
+    """out (M, Nn) = a (M, K) b + bias; b (K, Nn), or (Nn, K) with b_trans.
+    With b2, b's rows continue in b2's ([b | b2], K x (Nn1 + Nn2), or
+    with b_trans its transpose) and the bias in bias2, unconcatenated."""
+    M, K = a.shape
+    Nn = out.shape[1]
+    err = lib.uf_wide_gemm(_bf16(a), int(b_trans),
+                           int(out.dtype == torch.float32), a.data_ptr(),
+                           b.data_ptr(), _launch.ptr(b2), b.shape[1],
+                           _launch.ptr(bias), _launch.ptr(bias2),
+                           out.data_ptr(), M, K, Nn, stream)
+    _launch.check(err, "attention_wide gemm kernel")
+
+
+def _xm(lib, x, mod, ln_s, ln_b, has_ln: bool, stream):
+    """xm = [LN](x) + mod: x itself where neither applies."""
+    Bw, N, C = x.shape
+    if not has_ln and mod is None:
+        return x
+    xm = torch.empty_like(x)
+    err = lib.uf_wide_xm(_bf16(x), x.data_ptr(), _launch.ptr(mod),
+                         _launch.ptr(ln_s) if has_ln else None,
+                         _launch.ptr(ln_b) if has_ln else None,
+                         xm.data_ptr(), Bw * N, N, C, int(has_ln), stream)
+    _launch.check(err, "attention_wide xm kernel")
+    return xm
+
+
+def _qkv(lib, xm, wq, bq, wkv, bkv, stream):
+    """The (Bw N, 3C) rows of q | k | v in xm's dtype."""
+    C = xm.shape[-1]
+    qkv = torch.empty(xm.numel() // C, 3 * C, dtype=xm.dtype,
+                      device=xm.device)
+    _gemm(lib, xm.view(-1, C), wq, bq, qkv, b_trans=False, stream=stream,
+          b2=wkv, bias2=bkv)
+    return qkv
+
+
+def wide_window_attention(q, k, v, bias, *, win, shift, H, W, scale):
+    """Kernel 4 at N > 64: q, k, v (nH, Bw, N, D) -> (nH, Bw, N, D), the
+    fp32 logits scaled (as `window_attention_reference`)."""
+    nH, Bw, N, D = q.shape
+    lib = load()
+    out = torch.empty_like(q)
+    view = (N * D, Bw * N * D, D)  # (window, head, token) strides
+    with torch.cuda.device(q.device):
+        err = lib.uf_wide_core(_bf16(q), q.data_ptr(), k.data_ptr(),
+                               v.data_ptr(), *view, bias.data_ptr(),
+                               out.data_ptr(), *view, Bw, nH, N, D, H, W,
+                               win, shift, 0, float(scale), 0,
+                               _launch.stream(q))
+    _launch.check(err, "attention_wide core kernel")
+    return out
+
+
+def wide_attention_block(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias,
+                         *, win, shift, H, W, scale, num_heads, has_ln,
+                         w_off):
+    """Kernel 5 at N > 64 on (Bw, N, C) windows: [LN] + mod, q | k | v,
+    the core (q rounded times the rounded scale, as the block's plain
+    version), the output projection."""
+    Bw, N, C = x.shape
+    D = C // num_heads
+    lib = load()
+    stream = _launch.stream(x)
+    with torch.cuda.device(x.device):
+        qkv = _qkv(lib, _xm(lib, x, mod, ln_s, ln_b, has_ln, stream), wq, bq,
+                   wkv, bkv, stream)
+        o = torch.empty(Bw * N, C, dtype=x.dtype, device=x.device)
+        err = lib.uf_wide_core(
+            _bf16(x), qkv.data_ptr(), qkv[:, C:].data_ptr(),
+            qkv[:, 2 * C:].data_ptr(), N * 3 * C, D, 3 * C, bias.data_ptr(),
+            o.data_ptr(), N * C, D, C, Bw, num_heads, N, D, H, W, win, shift,
+            w_off, float(scale), 1, stream)
+        _launch.check(err, "attention_wide core kernel")
+        y = torch.empty_like(x)
+        _gemm(lib, o, wo, bo, y.view(-1, C), b_trans=False, stream=stream)
+    return y
+
+
+def wide_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
+                         *, win, shift, H, W, scale, num_heads, has_ln):
+    """Kernel 6 at N > 64, unrun, as `attention_bwd_parts` returns it:
+    ([(name, run)], result). The parts: "recompute" (xm, q | k | v, dO =
+    g Wo^T in fp32), "core" (O, dS, dq | dk | dv), "dxm" (dxm = dqkv
+    [Wq | Wkv]^T in fp32, then dx by the LayerNorm VJP), the two weight
+    gradients by `wgrad`, and "colsum" (dbias over windows, dmod over
+    windows, dln over the VJP's blocks)."""
+    Bw, N, C = x.shape
+    D = C // num_heads
+    if C > MAX_C:
+        raise ValueError(f"backward kernel at windows above 8 needs C <= "
+                         f"{MAX_C}: C={C}")
+    lib = load()
+    dev, dt, f32 = x.device, x.dtype, torch.float32
+    M = Bw * N
+    stream = _launch.stream(x)
+    buf = {}
+    out = {}
+    ln_blocks = -(-M // LN_ROWS)
+
+    def recompute():
+        buf["xm"] = _xm(lib, x, mod, ln_s, ln_b, has_ln, stream)
+        buf["qkv"] = qkv = _qkv(lib, buf["xm"], wq, bq, wkv, bkv, stream)
+        buf["do"] = do = torch.empty(M, C, dtype=f32, device=dev)
+        _gemm(lib, g.view(-1, C), wo, None, do, b_trans=True, stream=stream)
+
+    def core():
+        buf["o"] = o = torch.empty(M, C, dtype=dt, device=dev)
+        buf["dqkv"] = dqkv = torch.empty(M, 3 * C, dtype=dt, device=dev)
+        buf["ds"] = ds = torch.empty(Bw, num_heads * N * N, dtype=f32,
+                                     device=dev)
+        buf["stats"] = stats = torch.empty(Bw, num_heads, N, 2, dtype=f32,
+                                           device=dev)
+        err = lib.uf_wide_core_bwd(
+            _bf16(x), buf["qkv"].data_ptr(), buf["do"].data_ptr(),
+            bias.data_ptr(), o.data_ptr(), dqkv.data_ptr(), ds.data_ptr(),
+            stats.data_ptr(), Bw, num_heads, N, D, H, W, win, shift, 0,
+            float(scale), stream)
+        _launch.check(err, "attention_wide backward core kernel")
+
+    def dxm():
+        buf["dxm"] = dxm_ = torch.empty(M, C, dtype=f32, device=dev)
+        _gemm(lib, buf["dqkv"], wq, None, dxm_, b_trans=True, stream=stream,
+              b2=wkv)
+        out["dx"] = dx = torch.empty_like(x)
+        buf["dln"] = dln = (torch.empty(ln_blocks, 2 * C, dtype=f32,
+                                        device=dev) if has_ln else None)
+        err = lib.uf_wide_ln_bwd(
+            _bf16(x), x.data_ptr(), dxm_.data_ptr(),
+            _launch.ptr(ln_s) if has_ln else None, dx.data_ptr(),
+            _launch.ptr(dln), M, C, int(has_ln), LN_ROWS, ln_blocks, stream)
+        _launch.check(err, "attention_wide LayerNorm VJP kernel")
+
+    def reduce(key, fn):
+        def run():
+            out[key] = fn()
+        return run
+
+    parts = [("recompute", recompute), ("core", core), ("dxm", dxm),
+             ("wgrad dWqkv", reduce("dw", lambda: wgrad(
+                 buf["xm"].view(-1, C), buf["dqkv"], colsum_b=True))),
+             ("wgrad dWo", reduce("dwo", lambda: wgrad(
+                 buf["o"], g.view(-1, C), colsum_b=True))),
+             ("colsum", reduce("sums", lambda: (
+                 colsum(buf["ds"]).view(num_heads, N, N),
+                 colsum(buf["dxm"].view(Bw, N * C)).view(N, C)
+                 if mod is not None else None,
+                 colsum(buf["dln"]) if has_ln else None)))]
+
+    def result():
+        dw, db = out["dw"]
+        dwo, dbo = out["dwo"]
+        dbias, dmod, dln = out["sums"]
+        return (out["dx"], dmod, dln[:C] if has_ln else None,
+                dln[C:] if has_ln else None, dw[:, :C].contiguous(), db[:C],
+                dw[:, C:].contiguous(), db[C:], dwo, dbo, dbias)
+
+    return parts, result

@@ -192,6 +192,21 @@ def fused_leff_bwd(x: torch.Tensor, dy: torch.Tensor, w1, b1, wd, bd, w2,
     return dx, dw1, db1, dwd, dbd, dw2, db2, dln_s, dln_b
 
 
+def dln_b_of(lib, w1, out) -> torch.Tensor:
+    """dln_b = W1 db1 (`csrc/leff_bwd.cu`: uf_leff_dln_b): the sum of the
+    LN output's gradient over pixels through the fp32 db1, which sums the
+    hidden gradient before its bf16 rounding, where a sum of dLN would
+    carry every pixel's rounding of it."""
+    db1 = out["sums"][0][w1.shape[0]:]
+    dln_b = torch.empty(w1.shape[0], dtype=torch.float32, device=w1.device)
+    _launch.check(lib.uf_leff_dln_b(int(w1.dtype == torch.bfloat16),
+                                    w1.data_ptr(), db1.data_ptr(),
+                                    dln_b.data_ptr(), w1.shape[0],
+                                    w1.shape[1], _launch.stream(w1)),
+                  "leff_bwd dln_b kernel")
+    return dln_b
+
+
 def leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
                    has_ln=True, residual=False):
     """The launches of `fused_leff_bwd` on CUDA tensors, unrun: ([(name,
@@ -241,9 +256,9 @@ def leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
     g, dpre2, dpre1 = empty(M, Ch), empty(M, Ch), empty(M, Ch)
     dx, ln = torch.empty_like(x), empty(M, C)
     part_a = empty(tiles(tha), 10 * Ch, dtype=f32)
-    # per tile: dln_s, dln_b (with LN only), then db1, summed from the fp32
-    # hidden gradient before its rounding (`leff.py:682`)
-    part_b = empty(tiles(thb), 2 * C + Ch, dtype=f32)
+    # per tile: dln_s (with LN only), then db1, summed from the fp32 hidden
+    # gradient before its rounding (`leff.py:682`); dln_b = W1 db1 after
+    part_b = empty(tiles(thb), C + Ch, dtype=f32)
     part_dln = (empty(groups, tiles(thb), thb * 8, C, dtype=f32)
                 if groups > 1 else None)
     common = (x.data_ptr(), dy.data_ptr(), *ln_p, w1.data_ptr(),
@@ -277,16 +292,17 @@ def leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
         parts.append(("B finish", kernel(2, b_ptrs, "leff_bwd finish")))
     parts += [("wgrad dW1", reduce("dw1", wgrad, ln, dpre1)),
               ("colsum", reduce("sums", lambda: (
-                  colsum(part_b if has_ln else part_b[:, 2 * C:]),
+                  colsum(part_b if has_ln else part_b[:, C:]),
                   colsum(part_a))))]
+    if has_ln:
+        parts.append(("dln_b", reduce("dln_b", dln_b_of, lib, w1, out)))
 
     def result():
         dw2, db2 = out["dw2"]
         pb, pa = out["sums"]
-        dln, db1 = (pb[:2 * C], pb[2 * C:]) if has_ln else (None, pb)
+        dln_s, db1 = (pb[:C], pb[C:]) if has_ln else (None, pb)
         return (dx, out["dw1"], db1, pa[:9 * Ch].view(3, 3, Ch),
-                pa[9 * Ch:], dw2, db2, dln[:C] if has_ln else None,
-                dln[C:] if has_ln else None)
+                pa[9 * Ch:], dw2, db2, dln_s, out.get("dln_b"))
 
     return parts, result
 

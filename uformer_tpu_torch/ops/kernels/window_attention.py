@@ -13,8 +13,10 @@ windows on `csrc/window_core.cuh`. No model path calls it, in the JAX
 package either: it is the standalone form of the core the other kernels
 run. `window_attention_reference` is the plain PyTorch version.
 
-Windows of N = win² < 64 tokens (win 1-7) and head dim 8 run on the same
-bodies: the kernels take 64-row tiles of 64 // N whole windows
+Windows of 9-16 (N = win² 81-256 tokens) run `csrc/attention_wide.cu`'s
+core with a key-chunked online softmax (`attention_wide`). Windows of N =
+win² < 64 tokens (win 1-7) and head dim 8 run on the same bodies as
+window 8: the kernels take 64-row tiles of 64 // N whole windows
 (`packed_tiles`), with the bias as its tile (`tile_bias`: -inf between two
 windows of a tile, so each row weighs only its own window's keys); padding
 rows read as zeros and are never written. In bf16 a head of 8 takes its
@@ -34,10 +36,11 @@ import torch
 
 from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
+from uformer_tpu_torch.ops.kernels.attention_wide import wide_window_attention
 from uformer_tpu_torch.ops.masks import shift_window_mask
 
 HEAD_DIMS = (8, 16, 32)  # the attention kernels' head widths, both ways
-WINDOWS = tuple(range(1, 9))  # kernels 4, 5 and 6: N = win² <= 64 tokens
+WINDOWS = tuple(range(1, 17))  # kernels 4, 5 and 6: N = win² <= 256 tokens
 TILE = 64  # rows of a kernel's window tile
 
 
@@ -58,18 +61,20 @@ def packed_tiles(Bw: int, N: int) -> int:
 def check_window(win: int, shift: int, H: int, W: int,
                  windows=WINDOWS) -> None:
     """Raise unless the kernels take this window geometry: win in
-    `windows` (1-8 for kernels 4, 5 and 6; 8 for kernels 1 and 3, as in
+    `windows` (1-16 for kernels 4, 5 and 6; 8 for kernels 1 and 3, as in
     the JAX package), H and W multiples of win and 0 <= shift < win."""
     if win not in windows or H % win or W % win or not 0 <= shift < win:
         raise ValueError(f"kernel needs win in {tuple(windows)}, H, W "
                          f"multiples of win and 0 <= shift < win: win={win} "
-                         f"H={H} W={W} shift={shift}")
+                         f"H={H} W={W} shift={shift} (windows above 16: "
+                         f"ROADMAP.md, port queue 2 item 2)")
 
 
 def check_head_dim(C: int, num_heads: int, dims=HEAD_DIMS) -> None:
     if C % num_heads or C // num_heads not in dims:
         raise ValueError(f"kernel needs head dim in {tuple(dims)}: C={C}, "
-                         f"num_heads={num_heads}")
+                         f"num_heads={num_heads} (head dim 64: ROADMAP.md, "
+                         f"port queue 2 item 3)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -163,7 +168,7 @@ def window_attention_reference(q, k, v, bias, *, win, shift, H, W, scale):
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, *, win: int, shift: int,
                            H: int, W: int, scale: float) -> torch.Tensor:
-    """q, k, v: (nH, Bw, N, D), N = win² (win 1-8), D in HEAD_DIMS,
+    """q, k, v: (nH, Bw, N, D), N = win² (win 1-16), D in HEAD_DIMS,
     float32 or bfloat16; bias (nH, N, N) float32. Returns (nH, Bw, N, D).
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises."""
@@ -180,6 +185,11 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         _launch.expect(t, name, q.shape, q.dtype, q.device)
     _launch.expect(bias, "bias", (nH, N, N), torch.float32, q.device)
+    if N > TILE:
+        out = wide_window_attention(q, k, v, bias, win=win, shift=shift, H=H,
+                                    W=W, scale=scale)
+        fused_window_attention.launches += 1
+        return out
     bias = tile_bias(bias, N)
     lib = load()
     is_bf16 = int(q.dtype == torch.bfloat16)

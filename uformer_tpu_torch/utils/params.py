@@ -1,5 +1,6 @@
 """Serving preparation, counterpart of `uformer_tpu/utils/params.py:81
-cast_weights`: what JAX redoes in every trace, done once."""
+cast_weights`: what JAX redoes in every trace, done once; and the
+parameter count (`count_params`, `params.py:77`)."""
 
 from __future__ import annotations
 
@@ -23,3 +24,14 @@ def prepare_serving(model: nn.Module, dtype: torch.dtype) -> nn.Module:
         if isinstance(m, (BasicLayer, _Conv)):
             m.prepare(dtype)
     return model
+
+
+def count_params(params) -> int:
+    """The number of parameter values of a module (its `parameters()`), a
+    mapping of tensors (a state_dict's parameters) or an iterable of
+    tensors (`uformer_tpu` params.py:77 over a parameter tree)."""
+    if isinstance(params, nn.Module):
+        params = params.parameters()
+    elif hasattr(params, "values"):
+        params = params.values()
+    return sum(int(p.numel()) for p in params)
