@@ -263,6 +263,27 @@ Phases, each raising on failure (no phase is caught):
                timed (masks drawn on the card); the train CLI at
                --win_size 16 (16 steps of bs4 on seeded 128^2 pairs);
                kernel 4 alone at N = 256 beside SDPA.
+ 21. head dim 64 - `--arch Uformer --embed_dim 64` (every block at head
+               dim 64, C 64-1024, hidden up to 4096) through the forward
+               kernels. Each kernel against its plain version at every
+               new shape, fp32 and bf16, each bf16 call timed beside its
+               plain version and its bound: kernel 1 at C 64 (narrow body,
+               one head, 2 x 256^2) and C 128-1024 (wide body, and one
+               window a block at C 1024), shift 0 and 4, residual on and
+               off; the stage at every stage of the model (C 128-1024,
+               2 x 16^2-256^2); LeFF at C 64 and at C 1024 (hidden 4096)
+               with LN and residual each way; kernel 5 at the train_ps-64
+               bottleneck (window 4, C 1024, 16 heads), on windows 1-8 at
+               C 64-1024, at w_off 0 and 37; kernel 4 at every window 1-8,
+               head dim 64, shift 0 and win // 2, and alone beside SDPA at
+               the cells' cores. Serving (seeded 1248, 1249): 4 bf16
+               requests of batch 8 at 256^2 at train_ps 128 (8/2/0/2
+               stage/attention-image/attention-block/LeFF launches) and 64
+               (7/2/2/4), no plain call, against the plain path, each
+               kernel per stage and the forward on both paths timed. The
+               SIDD CLI in its default fp32 on one 256^2 frame at
+               --embed_dim 64 (8/2/0/2, no plain call) against the plain
+               path.
 
 Tolerances: fp32 max-abs <= 1e-4 * (1 + max|ref|); bf16 error against the
 fp32 plain result <= 1.5 x the bf16 plain version's error + 1e-3; for
@@ -281,7 +302,9 @@ request's in phase 18's serving, `launches_flagship` the golden's
 forward, `launches_e8_win2_step` the embed-8 window-2 step's,
 `launches_train_ps64`, `_e8`, `_win4` and `_cli` a step's in phase 19;
 `launches_win16_serve` a request's in phase 20, `_train`, `_drop_*` and
-`_cli` a step's there); the last line is {"ok": true, "device": {...}}.
+`_cli` a step's there; `launches_head64_e64`, `_e64ps64` a request's in
+phase 21, `_eval` the fp32 CLI frame's); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -2062,13 +2085,14 @@ def mlp_cross_model(device):
     return load_numpy_state_dict(model, sd).to(device)
 
 
-def write_eval_inputs(root: Path, sd, name: str = "uformer_b_seeded"
-                      ) -> tuple:
+def write_eval_inputs(root: Path, sd, name: str = "uformer_b_seeded",
+                      sidd_set: tuple = SIDD_SET) -> tuple:
     """The weights sd (serve B's golden seeded Uformer_B weights by
     default) as a reference-format .pth ({'epoch', 'state_dict' with the
     DataParallel `module.` prefix, 'optimizer'}), and a synthetic SIDD
-    validation pair in sidd.py's layout: uint8 clean blocks (uniform, seed
-    7) and noisy = clean + N(0, 0.08^2), clipped."""
+    validation pair of sidd_set (images, blocks, side) in sidd.py's
+    layout: uint8 clean blocks (uniform, seed 7) and noisy = clean +
+    N(0, 0.08^2), clipped."""
     import scipy.io as sio
 
     root.mkdir(parents=True, exist_ok=True)
@@ -2077,7 +2101,7 @@ def write_eval_inputs(root: Path, sd, name: str = "uformer_b_seeded"
                 "state_dict": {"module." + k: torch.from_numpy(v)
                                for k, v in sd.items()}}, pth)
     rng = np.random.default_rng(7)
-    n, b, side = SIDD_SET
+    n, b, side = sidd_set
     clean = rng.uniform(0, 1, (n, b, side, side, 3))
     noisy = np.clip(clean + rng.normal(0, 0.08, clean.shape), 0, 1)
     sidd = root / "sidd"
@@ -3433,6 +3457,18 @@ SPATIAL_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0),
 # 4 ranks at 256^2: levels 0-3 split (38 blocks, kernel 5 once per image
 # of the batch of 2), the bottleneck (2 blocks) gathered, one launch each
 SPATIAL4_LAUNCHES = dict(SPATIAL_LAUNCHES, attention_block=38 * 2 + 2)
+# the spatial path at windows other than 8: `--arch Uformer --embed_dim 32
+# --win_size W` built at 256^2 (every stage at window W), seeded weights.
+# Kernel 5 alone at every (stage, rank) shape on 2 and 4 ranks at windows
+# 2 and 4 (packed tiles) and 16 (csrc/attention_wide.cu); the whole
+# sharded forward of one 256^2 image on 2 ranks at windows 4 and 16
+# against the unsharded kernel path, 18 kernel-5 and 18 kernel-2 launches
+# a rank
+SPATIAL_WIN = {win: ({"arch": "Uformer", "embed_dim": 32, "win_size": win,
+                      "train_ps": RES_SERVE}, 1250 + win)
+               for win in (2, 4, 16)}
+SPATIAL_WIN_FORWARD = (4, 16)
+SPATIAL_WIN_LAUNCHES = dict(SPATIAL_LAUNCHES, attention_block=18, leff=18)
 
 
 def compute_mode() -> str:
@@ -3527,6 +3563,32 @@ def rank_spatial(sd, device, x: np.ndarray, dtypes: tuple,
     return out
 
 
+def rank_spatial_win(device, x: np.ndarray) -> dict:
+    """The sharded forward of x over the ranks for each SPATIAL_WIN_FORWARD
+    window's model, bf16 and fp32: the result (rank 0; the others its
+    crc32), launches and plain calls."""
+    import torch.distributed as dist
+
+    from uformer_tpu_torch.parallel import spatial as S
+    from uformer_tpu_torch.restore import Restorer
+
+    xt = torch.from_numpy(x).to(device)
+    out = {}
+    for win in SPATIAL_WIN_FORWARD:
+        opt, seed = SPATIAL_WIN[win]
+        model = build_arch(opt, seeded_for(opt, seed), device)
+        for dt in (torch.bfloat16, torch.float32):
+            r = Restorer(model, dt, device)
+            y, counts, plain = launches_of(
+                lambda r=r: S.run_uformer_spatially_sharded(
+                    r.model, xt, dist.group.WORLD))
+            y = y.float().cpu().numpy()
+            out[(win, str(dt))] = {
+                "y": y if dist.get_rank() == 0 else None,
+                "crc": bits_crc(y), "counts": counts, "plain": plain}
+    return out
+
+
 def eval_cli_args(gopro_dir: Path, pth, dtype: str, world: int) -> list:
     args = ["gopro", "--input_dir", str(gopro_dir), "--weights", str(pth),
             "--tile", str(EVAL_TILE["tile"]), "--tile_overlap",
@@ -3575,6 +3637,8 @@ def par_rank(rank: int, world: int, tasks: tuple, inputs: dict) -> dict:
     if "spatial" in tasks:
         out["spatial"] = rank_spatial(sd, device, inputs["spatial"],
                                       inputs["dtypes"])
+    if "spatial_win" in tasks:
+        out["spatial_win"] = rank_spatial_win(device, inputs["x_win"])
     if "eval" in tasks:
         out["eval"] = rank_eval(inputs["gopro_dir"], inputs["pth"],
                                 inputs["frame"], inputs["result_dir"], world)
@@ -3636,13 +3700,15 @@ def nccl_world_one(sd, device, card: str) -> dict:
 
 @torch.no_grad()
 def kernel5_spatial(checks: Checks, model, device, H: int, W: int,
-                    world: int, card: str) -> dict:
+                    world: int, card: str, timed_widths: bool = True) -> dict:
     """Kernel 5 alone at every (stage, rank) shape of model's forward over
     an H x W image split over `world` ranks (each rank's windows at its
-    w_off, every shift the stage has), against attention_block_reference,
-    fp32 and bf16; then timed at rank 0's shapes of each width C 32-512
-    (the encoder and the bottleneck), against its plain version and its
-    bound."""
+    w_off, every shift the stage has, LN1 folded in as the spatial path
+    runs it), at each stage's own window (packed tiles below 8,
+    `csrc/attention_wide.cu` above), against attention_block_reference,
+    fp32 and bf16; then, with timed_widths, timed at rank 0's shapes of
+    each width C 32-512 (the encoder and the bottleneck), against its
+    plain version and its bound."""
     from uformer_tpu_torch.ops.kernels import (attention_block_reference,
                                                fused_attention_block)
     from uformer_tpu_torch.parallel.spatial import stage_at
@@ -3653,17 +3719,18 @@ def kernel5_spatial(checks: Checks, model, device, H: int, W: int,
         layer = stage_at(model, k)
         lvl = k if k < 5 else 8 - k
         Hk, Wk = H >> lvl, W >> lvl
-        split = (Hk // world) % 8 == 0
-        per = (Hk // world if split else Hk) // 8 * (Wk // 8)
+        win = layer.blocks[0].win_size
+        split = Hk % world == 0 and (Hk // world) % win == 0
+        per = (Hk // world if split else Hk) // win * (Wk // win)
         for blk in {b.shift_size: b for b in layer.blocks}.values():
             for r in (range(world) if split else (0,)):
                 w_off = r * per if split else 0
-                x32 = torch.randn((per, 64, blk.dim), generator=gen) \
-                    .to(device)
+                x32 = torch.randn((per, win * win, blk.dim),
+                                  generator=gen).to(device)
                 outs = {}
                 for dt in (torch.float32, torch.bfloat16):
                     p = blk.kernel_params(dt)
-                    kw = dict(win=8, shift=blk.shift_size, H=Hk, W=Wk,
+                    kw = dict(win=win, shift=blk.shift_size, H=Hk, W=Wk,
                               scale=blk.attn.scale, num_heads=blk.num_heads,
                               has_ln=True, w_off=w_off)
                     args = (x32.to(dt), p["mod"], p["ln1_s"], p["ln1_b"],
@@ -3677,7 +3744,7 @@ def kernel5_spatial(checks: Checks, model, device, H: int, W: int,
                         lambda args=args, kw=kw:
                         attention_block_reference(*args, **kw))
                 what = (f"spatial {world} ranks {layer_name(k)} C{blk.dim} "
-                        f"shift {blk.shift_size} w_off {w_off}")
+                        f"win {win} shift {blk.shift_size} w_off {w_off}")
                 ref = outs[torch.float32][1]
                 checks.add("attention_block", what,
                            max_err(outs[torch.float32][0], ref),
@@ -3686,8 +3753,8 @@ def kernel5_spatial(checks: Checks, model, device, H: int, W: int,
                            max_err(outs[torch.bfloat16][0], ref),
                            1.5 * max_err(outs[torch.bfloat16][1], ref)
                            + 1e-3, "bf16")
-                if k <= 4 and r == 0 and (blk.dim not in timed
-                                          or blk.shift_size):
+                if timed_widths and k <= 4 and r == 0 and (
+                        blk.dim not in timed or blk.shift_size):
                     timed[blk.dim] = (per, blk, outs)
     rows = []
     for C, (per, blk, outs) in sorted(timed.items()):
@@ -3713,6 +3780,77 @@ def kernel5_spatial(checks: Checks, model, device, H: int, W: int,
               f"{f['plain_ms']:.3f}, bound {f['bound_ms']:.4f})  "
               f"[{card}]", flush=True)
     return {"rows": rows}
+
+
+def spatial_window_checks(checks: Checks, two: list, x_win: np.ndarray,
+                          device, card: str) -> dict:
+    """The spatial path at windows 2, 4 and 16 (SPATIAL_WIN): kernel 5 at
+    every (stage, rank) shape on 2 and 4 ranks (`kernel5_spatial`), then
+    the 2 ranks' sharded forwards of x_win (`rank_spatial_win`) against
+    the unsharded kernel path (fp32 within 1e-4 (1 + max|ref|), and
+    whether the bits are equal) and the fp32 plain path (bf16 by the
+    serve rule), SPATIAL_WIN_LAUNCHES a rank, no plain call."""
+    from uformer_tpu_torch.restore import Restorer
+
+    out = {}
+    xt = torch.from_numpy(x_win).to(device)
+    for win, (opt, seed) in SPATIAL_WIN.items():
+        model = build_arch(opt, seeded_for(opt, seed), device)
+        n = len(checks.rows)
+        for world in (2, 4):
+            kernel5_spatial(checks, model, device, RES_SERVE, RES_SERVE,
+                            world, card, timed_widths=False)
+        worst = max(r["err"] / r["bound"] for r in checks.rows[n:])
+        print(f"  kernel 5 at window {win} on the spatial path: "
+              f"{len(checks.rows) - n} (stage, rank, dtype) checks on 2 "
+              f"and 4 ranks, worst err/bound {worst:.3f}", flush=True)
+        out[f"kernel5_win{win}_worst"] = worst
+        if win not in SPATIAL_WIN_FORWARD:
+            continue
+        with torch.no_grad():
+            ref = {dt: {"kernel": Restorer(model, dt, device).model(xt)
+                        .float().cpu().numpy(),
+                        "plain": Restorer(model, dt, device).model(
+                            xt, plain=True).float().cpu().numpy()}
+                   for dt in (torch.float32, torch.bfloat16)}
+        ref32 = ref[torch.float32]["plain"]
+        for dt in (torch.bfloat16, torch.float32):
+            rows = [res["spatial_win"][(win, str(dt))] for res in two]
+            for r, row in enumerate(rows):
+                expect_counts(f"spatial win {win} 2 ranks {dt} rank {r}",
+                              row["counts"], row["plain"],
+                              SPATIAL_WIN_LAUNCHES)
+            if rows[0]["crc"] != rows[1]["crc"]:
+                raise RuntimeError(f"spatial win {win} {dt}: the ranks' "
+                                   f"results differ")
+            y, kern = rows[0]["y"], ref[dt]["kernel"]
+            what = (f"spatial win {win} 2 ranks {RES_SERVE}^2 bs1 against "
+                    f"unsharded")
+            equal = bool(np.array_equal(y, kern))
+            if dt == torch.float32:
+                checks.add("model", f"{what} kernel path",
+                           float(np.abs(y - kern).max()),
+                           1e-4 * (1.0 + float(np.abs(kern).max())), "fp32")
+                checks.add("model", f"{what} plain path",
+                           float(np.abs(y - ref32).max()),
+                           1e-4 * (1.0 + float(np.abs(ref32).max())), "fp32")
+            else:
+                e_plain = float(np.abs(ref[dt]["plain"] - ref32).max())
+                checks.add("model", f"{what} plain path",
+                           float(np.abs(y - ref32).max()),
+                           1.5 * e_plain + 1e-3, "bf16")
+            diff = float(np.abs(y - kern).max())
+            out[f"forward_win{win}_{dt}"] = {
+                "equal_bits_vs_unsharded_kernels": equal,
+                "max_diff_vs_unsharded_kernels": diff,
+                "launches": rows[0]["counts"]}
+            print(f"  spatial win {win} 2 ranks {dt}: 18 kernel-5 and 18 "
+                  f"kernel-2 launches a rank, no plain call; against the "
+                  f"unsharded kernel path: equal bits {equal}, max diff "
+                  f"{diff:.3e}  [{card}]", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return out
 
 
 def layer_name(k: int) -> str:
@@ -3812,11 +3950,14 @@ def parallel_phase(tmp: Path, sd, device, card: str) -> tuple:
     x4 = np.random.default_rng(PAR_SEED).uniform(
         0, 1, (PAR_SPATIAL4[0], PAR_SPATIAL4[1], PAR_SPATIAL4[1], 3)) \
         .astype(np.float32)
+    x_win = np.random.default_rng(PAR_SEED + 2).uniform(
+        0, 1, (1, RES_SERVE, RES_SERVE, 3)).astype(np.float32)
     inputs = {"spatial": frame[None], "gopro_dir": gopro_dir, "pth": pth,
               "frame": frame, "result_dir": tmp / "gopro_out",
-              "dtypes": (torch.bfloat16, torch.float32)}
+              "dtypes": (torch.bfloat16, torch.float32), "x_win": x_win}
     t0 = time.perf_counter()
-    two = spawn_ranks(par_rank, 2, ("step", "spatial", "eval"), inputs,
+    two = spawn_ranks(par_rank, 2, ("step", "spatial", "eval",
+                                    "spatial_win"), inputs,
                       backend="gloo", device="cuda:0",
                       timeout_s=PAR_TIMEOUT_S, num_threads=None)
     four = spawn_ranks(par_rank, 4, ("spatial",),
@@ -3949,6 +4090,8 @@ def parallel_phase(tmp: Path, sd, device, card: str) -> tuple:
         checks, model, device, PAR_SPATIAL4[1], PAR_SPATIAL4[1], 4, card)
     del model, refs
     torch.cuda.empty_cache()
+    summary["spatial_windows"] = spatial_window_checks(
+        checks, two, x_win, device, card)
 
     # the eval CLI's sharded tiles against the one-process tiled output
     rs = eval_restorers(pth, device)
@@ -5016,6 +5159,295 @@ def wide_window_phase(tmp: Path, device, card: str) -> tuple:
     return checks, summary, launches
 
 
+# phase 21, head dim 64: `--arch Uformer --embed_dim 64` (every block at
+# head dim 64: heads 1-2-4-8-16-16-8-4-2 over C 64-1024, hidden up to
+# 4096) through the forward kernels. Cells: label -> (get_arch options,
+# weight seed, launches a request by JAX's route, layers.py:757-775 and
+# 979-985): the stage kernel at every stage but enc0 (C 64: kernel 1, two
+# blocks), and at --train_ps 64 the 4 x 4 bottleneck per block on kernels
+# 5 (window 4, C 1024, 16 heads) and 2 (C 1024, hidden 4096)
+E64_MODELS = {
+    "e64": ({"arch": "Uformer", "embed_dim": 64, "train_ps": 128}, 1248,
+            dict(NO_LAUNCHES, stage=8, attention_image=2, leff=2)),
+    "e64ps64": ({"arch": "Uformer", "embed_dim": 64, "train_ps": 64}, 1249,
+                dict(NO_LAUNCHES, stage=7, attention_image=2,
+                     attention_block=2, leff=4)),
+}
+# kernel 1: (C, heads, image side), batch 2: the narrow body at C 64 (one
+# head; enc0's shape), the wide body at C 128-512 and one window a block
+# at C 1024 (training's image route reaches these; eval takes the stage)
+E64_IMAGE_SHAPES = ((64, 1, 256), (128, 2, 32), (256, 4, 32),
+                    (512, 8, 16), (1024, 16, 16))
+# kernel 3: (C, heads, side, modulator) of every stage of e64, batch 2
+E64_STAGE_SHAPES = ((128, 2, 128, False), (256, 4, 64, False),
+                    (512, 8, 32, False), (1024, 16, 16, False),
+                    (1024, 16, 32, True), (512, 8, 64, True),
+                    (256, 4, 128, True), (128, 2, 256, True))
+# kernel 2: (C, side, has_ln, residual), batch 2: enc0's C 64 (the narrow
+# tile) and the ps64 bottleneck's C 1024, hidden 4096, each way
+E64_LEFF_SHAPES = ([(64, 256, True, True)]
+                   + [(1024, 16, ln, res) for ln in (True, False)
+                      for res in (True, False)] + [(1024, 12, True, True)])
+# kernel 5: (win, shift, w_off, C, heads, has_ln, images of 4 x 4
+# windows): e64ps64's bottleneck (window 4, C 1024, batch 2), then head dim
+# 64 at C 64 (narrow body) to 1024 on windows 1-8
+E64_BLOCK_SHAPES = ((4, 0, 0, 1024, 16, True, 2),
+                    (4, 2, 0, 1024, 16, True, 2),
+                    (4, 2, 37, 1024, 16, False, 2),
+                    (8, 4, 37, 1024, 16, True, 1),
+                    (3, 1, 0, 1024, 16, False, 1),
+                    (8, 0, 0, 64, 1, True, 2), (8, 4, 37, 64, 1, False, 2),
+                    (4, 2, 37, 64, 1, True, 2), (2, 1, 5, 64, 1, True, 2),
+                    (1, 0, 0, 128, 2, True, 2), (4, 2, 37, 128, 2, False, 2),
+                    (8, 4, 0, 256, 4, True, 2), (6, 3, 37, 512, 8, True, 2),
+                    (7, 0, 0, 512, 8, False, 2))
+# kernel 4 at head dim 64: (win, heads) at every window 1-8, shift 0 and
+# win // 2; timed alone beside SDPA at (heads, windows, win, res, shift):
+# e64's enc0 core (one head, 8192 windows of 256^2 bs8, shifted) and
+# e64ps64's bottleneck core (16 heads, 128 windows of 4 x 4)
+E64_CORE_SHAPES = [(w, nH) for w in range(1, 9) for nH in (1, 2)]
+E64_CORE_TIMING = [(1, 8192, 8, 256, 4), (16, 128, 4, 16, 0)]
+SIDD_ONE = (1, 1, 256)  # the fp32 eval CLI's one frame
+
+
+def timed_compare(checks: Checks, kernel: str, what: str, fused, plain,
+                  x32, cost, card: str) -> dict:
+    """`compare`, then the bf16 kernel and its plain version timed in
+    turns on the same input (CUDA events) beside the bound of `cost`;
+    prints the errors against their gates and the times."""
+    n = len(checks.rows)
+    compare(checks, kernel, what, fused, plain, x32)
+    x16 = x32.bfloat16()
+    p1, k1 = cuda_ms(lambda: plain(x16, torch.bfloat16), reps=3, warmup=1), \
+        cuda_ms(lambda: fused(x16, torch.bfloat16), reps=3, warmup=1)
+    k2, p2 = cuda_ms(lambda: fused(x16, torch.bfloat16), reps=3, warmup=1), \
+        cuda_ms(lambda: plain(x16, torch.bfloat16), reps=3, warmup=1)
+    t = {}
+    tally(t, kernel, (k1 + k2) / 2, (p1 + p2) / 2, cost)
+    row = dict(t[kernel], what=what, bound_by=bound_by(t[kernel]),
+               checks=checks.rows[n:])
+    f32, b16 = checks.rows[n], checks.rows[n + 1]
+    print(f"  {kernel:16s} {what:40s} fp32 {f32['err']:.2e}/"
+          f"{f32['bound']:.2e} bf16 {b16['err']:.2e}/{b16['bound']:.2e}; "
+          f"bf16 kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})  [{card}]",
+          flush=True)
+    return row
+
+
+def head64_kernel_checks(checks: Checks, device, card: str) -> list:
+    """Kernels 1-5 at head dim 64 and C up to 1024 against their plain
+    versions at every E64_* shape, fp32 (TF32 off) and bf16 by `compare`,
+    each timed in bf16 (`timed_compare`). Returns the timed rows."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(21)
+
+    def mk(*shape, fan_in=None, scale=0.3):
+        a = rng.standard_normal(shape)
+        return (a / np.sqrt(fan_in) if fan_in else a * scale).astype(
+            np.float32)
+
+    def xin(*shape, scale=1.0):
+        return torch.from_numpy(mk(*shape, scale=scale)).to(
+            device).bfloat16().float()
+
+    def attn_prm(C, nH, N):
+        return _prm(dict(mod=mk(N, C, scale=0.1), ln_s=1.0 + mk(C, scale=0.1),
+                         ln_b=mk(C, scale=0.1), wq=mk(C, C, fan_in=C),
+                         bq=mk(C, scale=0.02), wkv=mk(C, 2 * C, fan_in=C),
+                         bkv=mk(2 * C, scale=0.02), wo=mk(C, C, fan_in=C),
+                         bo=mk(C, scale=0.02), bias=mk(nH, N, N, scale=0.5)),
+                    device, ("mod", "wq", "wkv", "wo"))
+
+    rows = []
+    for C, nH, side in E64_IMAGE_SHAPES:
+        prm = attn_prm(C, nH, 64)
+        for shift, residual in ((0, True), (4, True), (4, False)):
+            kw = dict(win=8, shift=shift, scale=(C // nH) ** -0.5,
+                      num_heads=nH, residual=residual)
+            rows.append(timed_compare(
+                checks, "attention_image",
+                f"D 64 C {C} 2x{side}^2 shift {shift} res {int(residual)}",
+                lambda x, dt, p=prm, kw=kw: K.fused_attention_image(
+                    x, *p[dt].values(), **kw),
+                lambda x, dt, p=prm, kw=kw: K.attention_image_reference(
+                    x, *p[dt].values(), **kw), xin(2, side, side, C),
+                attn_cost(2 * side * side, C, nH), card))
+    for C, nH, side, has_mod in E64_STAGE_SHAPES:
+        n, Ch = 2, 4 * C
+        sp = dict(ln1_s=1.0 + mk(n, C, scale=0.1), ln1_b=mk(n, C, scale=0.1),
+                  wq=mk(n, C, C, fan_in=C), bq=mk(n, C, scale=0.02),
+                  wk=mk(n, C, C, fan_in=C), bk=mk(n, C, scale=0.02),
+                  wv=mk(n, C, C, fan_in=C), bv=mk(n, C, scale=0.02),
+                  wo=mk(n, C, C, fan_in=C), bo=mk(n, C, scale=0.02),
+                  bias=mk(n, nH, 64, 64, scale=0.5),
+                  mod=mk(n, 64, C, scale=0.1),
+                  ln2_s=1.0 + mk(n, C, scale=0.1),
+                  ln2_b=mk(n, C, scale=0.1), w1=mk(n, C, Ch, fan_in=C),
+                  b1=mk(n, Ch, scale=0.02), wd=mk(n, 3, 3, Ch, fan_in=9),
+                  bd=mk(n, Ch, scale=0.02), w2=mk(n, Ch, C, fan_in=Ch),
+                  b2=mk(n, C, scale=0.02))
+        sprm = _prm(sp, device, ("wq", "wk", "wv", "wo", "mod", "w1", "wd",
+                                 "w2"))
+        kw = dict(scale=64 ** -0.5, num_heads=nH, use_shift=True,
+                  has_mod=has_mod)
+        rows.append(timed_compare(
+            checks, "stage", f"D 64 C {C} 2x{side}^2 mod {int(has_mod)}",
+            lambda x, dt, p=sprm, kw=kw: K.fused_stage(x, p[dt], **kw),
+            lambda x, dt, p=sprm, kw=kw: K.stage_reference(x, p[dt], **kw),
+            xin(2, side, side, C),
+            stage_cost(2 * side * side, C, nH, Ch, n, mod=has_mod), card))
+    for C, side, has_ln, residual in E64_LEFF_SHAPES:
+        Ch = 4 * C
+        lprm = _prm(dict(w1=mk(C, Ch, fan_in=C), b1=mk(Ch, scale=0.02),
+                         wd=mk(3, 3, Ch, fan_in=9), bd=mk(Ch, scale=0.02),
+                         w2=mk(Ch, C, fan_in=Ch), b2=mk(C, scale=0.02),
+                         ln_s=1.0 + mk(C, scale=0.1), ln_b=mk(C, scale=0.1)),
+                    device, ("w1", "wd", "w2"))
+
+        def run(fn, p=lprm, has_ln=has_ln, residual=residual):
+            def call(x, dt):
+                q = p[dt]
+                ln = dict(ln_s=q["ln_s"], ln_b=q["ln_b"]) if has_ln else {}
+                return fn(x, *(q[k] for k in ("w1", "b1", "wd", "bd", "w2",
+                                              "b2")), **ln,
+                          residual=residual)
+            return call
+        rows.append(timed_compare(
+            checks, "leff", f"C {C} Ch {Ch} 2x{side}^2 ln {int(has_ln)} "
+            f"res {int(residual)}", run(K.fused_leff), run(K.leff_reference),
+            xin(2, side, side, C), leff_cost(2 * side * side, C, Ch), card))
+    for win, shift, w_off, C, nH, has_ln, images in E64_BLOCK_SHAPES:
+        N, H = win * win, 4 * win
+        Bw = images * 16
+        prm = attn_prm(C, nH, N)
+        kw = dict(win=win, shift=shift, H=H, W=H, scale=(C // nH) ** -0.5,
+                  num_heads=nH, has_ln=has_ln, w_off=w_off)
+        rows.append(timed_compare(
+            checks, "attention_block",
+            f"win {win} shift {shift} off {w_off} C {C} Bw {Bw} ln "
+            f"{int(has_ln)}",
+            lambda x, dt, p=prm, kw=kw: K.fused_attention_block(
+                x, *p[dt].values(), **kw),
+            lambda x, dt, p=prm, kw=kw: K.attention_block_reference(
+                x, *p[dt].values(), **kw), xin(Bw, N, C),
+            attn_cost(Bw * N, C, nH, ln=has_ln, N=N), card))
+    for win, nH in E64_CORE_SHAPES:
+        N, H, W = win * win, 2 * win, 4 * win
+        Bw = 5 * (H // win) * (W // win)
+        k, v = xin(nH, Bw, N, 64), xin(nH, Bw, N, 64)
+        bias = torch.from_numpy(mk(nH, N, N, scale=0.5)).to(device)
+        for shift in sorted({0, win // 2}):
+            kw = dict(win=win, shift=shift, H=H, W=W, scale=64 ** -0.5)
+            compare(checks, "window_attention",
+                    f"win {win} shift {shift} D 64 heads {nH}",
+                    lambda q, dt, k=k, v=v, bias=bias, kw=kw:
+                    K.fused_window_attention(q.to(dt), k.to(dt), v.to(dt),
+                                             bias, **kw),
+                    lambda q, dt, k=k, v=v, bias=bias, kw=kw:
+                    K.window_attention_reference(q.to(dt), k.to(dt),
+                                                 v.to(dt), bias, **kw),
+                    xin(nH, Bw, N, 64))
+    torch.cuda.synchronize()
+    return rows
+
+
+def head64_eval(tmp: Path, sd, device, checks: Checks) -> dict:
+    """The SIDD CLI at `--arch Uformer --embed_dim 64` in its default fp32
+    (TF32 off) on one 256^2 frame (SIDD_ONE) from a reference-format .pth
+    of e64's seeded weights: e64's launches, no plain call, Idenoised.mat
+    against the plain path within 1e-4 (1 + max|ref|)."""
+    import scipy.io as sio
+
+    from uformer_tpu_torch import get_arch
+    from uformer_tpu_torch.convert import load_checkpoint
+    from uformer_tpu_torch.eval import cli
+    from uformer_tpu_torch.eval.sidd import load_sidd_val_noisy, restore_sidd
+    from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.restore import Restorer
+
+    opt, _, expected = E64_MODELS["e64"]
+    pth, sidd = write_eval_inputs(tmp, sd, "uformer_e64_seeded", SIDD_ONE)
+    K.reset_counts()
+    t0 = time.perf_counter()
+    score = cli.main(["sidd", "--input_dir", str(sidd), "--result_dir",
+                      str(tmp / "out"), "--weights", str(pth), "--device",
+                      "cuda", "--arch", "Uformer", "--embed_dim", "64"])
+    secs = time.perf_counter() - t0
+    got = K.launch_counts()
+    if got != expected or any(K.plain_counts().values()):
+        raise RuntimeError(f"SIDD CLI --embed_dim 64 fp32: launches {got}, "
+                           f"plain calls {K.plain_counts()}; expected "
+                           f"{expected}")
+    out = sio.loadmat(tmp / "out" / "Idenoised.mat")["Idenoised"]
+    restorer = Restorer(load_checkpoint(get_arch(opt), str(pth)),
+                        torch.float32, device)
+    ref = restore_sidd(model_numpy(restorer, True, []),
+                       load_sidd_val_noisy(str(sidd)), 1)
+    eval_compare(checks, "SIDD CLI --embed_dim 64 fp32 1x1 256^2",
+                 {torch.float32: out}, ref, None)
+    print(f"  SIDD CLI --arch Uformer --embed_dim 64, fp32: one 256^2 "
+          f"frame, PSNR {score[0]:.4f}, {secs:.2f} s with load and "
+          f"scoring; launches {got}, no plain call", flush=True)
+    return {"psnr": score[0], "ssim": score[1], "s": secs, "launches": got}
+
+
+def head64_phase(tmp: Path, device, card: str) -> tuple:
+    """Phase 21: kernels 1-5 at head dim 64 and C up to 1024 against their
+    plain versions at every new shape, each timed (`head64_kernel_checks`);
+    kernel 4 alone beside SDPA (E64_CORE_TIMING); the two serve cells
+    (E64_MODELS: 4 bf16 requests of batch 8 at 256^2, their launches, no
+    plain call, against the plain path, each kernel's time per stage
+    and the forward on both paths); the fp32 eval CLI on one frame.
+    Returns the checks, the summary and the launches per path."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    checks, summary, launches = Checks(), {"card": card}, {}
+    t0 = time.perf_counter()
+    summary["kernel_rows"] = head64_kernel_checks(checks, device, card)
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    cores = []
+    with torch.no_grad():
+        for nH, Bw, win, res, shift in E64_CORE_TIMING:
+            q, k, v = (torch.randn((nH, Bw, win * win, 64), generator=gen)
+                       .to(device, torch.bfloat16) for _ in range(3))
+            bias = (0.5 * torch.randn((nH, win * win, win * win),
+                                      generator=gen)).to(device)
+            cores.append(time_core(q, k, v, bias, win=win, shift=shift,
+                                   res=res))
+    summary["core_timing"] = cores
+    summary["kernel_checks_s"] = time.perf_counter() - t0
+    sds = {}
+    for label, (opt, seed, expected) in E64_MODELS.items():
+        sds[label] = sd = seeded_for(opt, seed)
+        restorer, x, serve, _, schecks = serve_phase(
+            lambda opt=opt, sd=sd: build_arch(opt, sd, device), device,
+            expected, f"serve {label}")
+        if any(K.plain_counts().values()):
+            raise RuntimeError(f"serve {label}: plain calls "
+                               f"{K.plain_counts()}")
+        checks.rows += schecks.rows
+        checks.failed += schecks.failed
+        launches[label] = serve["launches_per_request"][0]
+        rows, totals, fwd = timing_phase(restorer, x)
+        summary.update({f"serve_{label}": serve, f"timing_{label}": rows,
+                        f"timing_totals_{label}": totals,
+                        f"forward_{label}": fwd})
+        print(f"  serve {label} bs{BATCH_SERVE} {RES_SERVE}^2 bf16: "
+              f"{serve['median_ms']:.3f} ms a request, "
+              f"{serve['mp_per_s']:.2f} MP/s, kernel path "
+              f"{fwd['kernel_ms']:.3f} ms against plain path "
+              f"{fwd['plain_ms']:.3f} ms a forward, peak "
+              f"{serve['max_memory_allocated_bytes'] / 2**20:.1f} MiB  "
+              f"[{card}]", flush=True)
+        del restorer, x
+        torch.cuda.empty_cache()
+    summary["eval"] = head64_eval(tmp, sds["e64"], device, checks)
+    launches["eval"] = summary["eval"]["launches"]
+    return checks, summary, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", type=Path, help="write the full report here")
@@ -5189,6 +5621,15 @@ def run(device, card: str, json_path) -> list:
     print(f"  phase 20 took {wide['s']:.1f} s", flush=True)
     gchecks20.raise_if_failed("wide windows")
 
+    phase("head dim 64")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gchecks21, head64, head64_launches = head64_phase(Path(tmp), device,
+                                                          card)
+    head64["s"] = time.perf_counter() - t0
+    print(f"  phase 21 took {head64['s']:.1f} s", flush=True)
+    gchecks21.raise_if_failed("head dim 64")
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas,
@@ -5217,7 +5658,8 @@ def run(device, card: str, json_path) -> list:
               "geometry_checks": gchecks18.rows, "geometries": geometries,
               "train_geometry_checks": gchecks19.rows,
               "train_geometries": train_geoms,
-              "wide_window_checks": gchecks20.rows, "wide_windows": wide}
+              "wide_window_checks": gchecks20.rows, "wide_windows": wide,
+              "head64_checks": gchecks21.rows, "head64": head64}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -5240,7 +5682,7 @@ def run(device, card: str, json_path) -> list:
                    + tkchecks.rows + ttkchecks.rows + dw_checks.rows
                    + tile_checks.rows + mchecks.rows + pchecks.rows
                    + gchecks18.rows + gchecks19.rows + gchecks20.rows
-                   if r["kernel"] == name]
+                   + gchecks21.rows if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
         # the first timing that has the kernel gives ms and its bound
@@ -5263,7 +5705,9 @@ def run(device, card: str, json_path) -> list:
                               + sum(kernel_count(c, name)
                                     for c in tgeom_launches.values())
                               + sum(kernel_count(c, name)
-                                    for c in wide_launches.values())),
+                                    for c in wide_launches.values())
+                              + sum(kernel_count(c, name)
+                                    for c in head64_launches.values())),
                  "launches_serve": kernel_count(launches, name),
                  "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
@@ -5289,6 +5733,8 @@ def run(device, card: str, json_path) -> list:
                      geom_launches["refusal_step"], name),
                  **{f"launches_win16_{path}": kernel_count(c, name)
                     for path, c in wide_launches.items()},
+                 **{f"launches_head64_{path}": kernel_count(c, name)
+                    for path, c in head64_launches.items()},
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -5323,7 +5769,8 @@ def run(device, card: str, json_path) -> list:
             entry["more_shapes"] = [
                 {k: c[k] for k in ("shape", "ms", "graph_ms", "plain_ms",
                                    "bound_ms", "library_ms")}
-                for c in core["more"] + [wide["core"]]]
+                for c in core["more"] + [wide["core"]]
+                + head64["core_timing"]]
         for label, key, tt in (("serve Uformer_T", "serve_t", t_totals),
                                ("train Uformer_B", "train", ttotals),
                                ("train Uformer_T", "train_t", tttotals),
@@ -5345,7 +5792,11 @@ def run(device, card: str, json_path) -> list:
                                ("serve win16", "serve_win16",
                                 wide["timing_totals"]),
                                ("train win16", "train_win16",
-                                wide["train_totals"])):
+                                wide["train_totals"]),
+                               ("serve e64", "e64",
+                                head64["timing_totals_e64"]),
+                               ("serve e64 train_ps 64", "e64ps64",
+                                head64["timing_totals_e64ps64"])):
             if name in tt and label not in where:
                 entry.update({f"ms_{key}": tt[name]["ms"],
                               f"plain_ms_{key}": tt[name]["plain_ms"],

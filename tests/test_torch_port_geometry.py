@@ -16,9 +16,10 @@ within 1e-4 (1 + max|ref|):
     bias -inf between windows, region ids from each window's place as the
     kernels compute them, padding dropped) equal the plain versions;
     LeFF's hidden padded to a chunk (`pad_hidden`) equals the unpadded;
-  - the kernel route of five geometries (Uformer_B at train_ps 64 and 32,
-    Uformer at embed 8, at win_size 4, the flagship golden's), counted on
-    the plain path, against JAX's route conditions.
+  - the kernel route of seven geometries (Uformer_B at train_ps 64 and
+    32, Uformer at embed 8, at win_size 4, the flagship golden's, and
+    Uformer at embed 64, head dim 64, at train_ps 128 and 64 on 256^2),
+    counted on the plain path, against JAX's route conditions.
 The tests marked `gpu` hold each extended kernel against its plain
 version on the card (`python -m pytest -m gpu
 tests/test_torch_port_geometry.py`), within the bounds of
@@ -402,7 +403,11 @@ ROUTES = [("Uformer_B ps64", dict(arch="Uformer_B", train_ps=64), 128,
            128, (2, 8, 6, 14)),
           ("Uformer win4", dict(arch="Uformer", embed_dim=32, win_size=4,
                                 train_ps=128), 128, (0, 0, 18, 18)),
-          ("flagship", None, 64, (1, 8, 8, 16))]
+          ("flagship", None, 64, (1, 8, 8, 16)),
+          ("Uformer e64", dict(arch="Uformer", embed_dim=64, train_ps=128),
+           256, (8, 2, 0, 2)),
+          ("Uformer e64 ps64", dict(arch="Uformer", embed_dim=64,
+                                    train_ps=64), 256, (7, 2, 2, 4))]
 
 
 def _flagship():

@@ -15,6 +15,13 @@ spawn per rank count shared by the tests that read it (120 s deadline).
   and the pad-and-batch case (24 x 28, batch 2: kernel 5 once per image
   in a sharded stage) against JAX `model.apply`, within 1e-5; every block
   through the wrappers of kernels 5 and 2 (their plain versions here).
+- The whole Uformer at windows 4 (64^2, levels 0-3 split) and 16 (256^2,
+  levels 0-3 split, the bottleneck replicated) on 2 ranks against JAX
+  `model.apply` and the one-process run, within 1e-5: kernel 5 at each
+  rank's w_off on packed tiles and on `csrc/attention_wide.cu`'s windows
+  (plain versions here);
+  `check_spatial_card` takes windows 1-16 and refuses 17, naming ROADMAP
+  queue 2 item 2.
 - `tiled_inference_sharded` as the identity on 2 ranks.
 """
 
@@ -39,6 +46,10 @@ torch.set_num_threads(1)
 SMALL = dict(img_size=32, embed_dim=8, depths=(2, 2, 1, 1, 1, 1, 1, 2, 2),
              num_heads=(1, 2, 4, 8, 8, 8, 4, 2, 1), win_size=2,
              modulator=True)
+# the spatial path at windows 4 and 16: (config, image side), the side
+# the path takes unpadded (a multiple of 16 win)
+WIN_MODELS = {"win4": (dict(SMALL, img_size=64, win_size=4), 64),
+              "win16": (dict(SMALL, img_size=256, win_size=16), 256)}
 BLOCKS = {"shift": dict(H=64, W=16, C=16, win=8, shift=4, heads=2,
                         modulator=True),
           "noshift": dict(H=64, W=16, C=8, win=8, shift=0, heads=1,
@@ -59,9 +70,9 @@ def _seeded_params(module, x, seed):
 
 @pytest.fixture(scope="module")
 def jax_cases():
-    """JAX's outputs and the weights in the port's names: the two blocks
-    and the small Uformer at 32^2 (batch 1) and 24 x 28 (batch 2, padded
-    to 32^2, the result cropped)."""
+    """JAX's outputs and the weights in the port's names: the two blocks,
+    the small Uformer at 32^2 (batch 1) and 24 x 28 (batch 2, padded to
+    32^2, the result cropped), and WIN_MODELS (batch 1)."""
     blocks, want = {}, {}
     for i, (name, c) in enumerate(BLOCKS.items()):
         blk = JaxLeWinBlock(dim=c["C"], num_heads=c["heads"],
@@ -83,6 +94,12 @@ def jax_cases():
     y = np.asarray(jax.jit(model.apply)(params, np.concatenate([x, padded])))
     want["model"], want["pad_batch"] = y[:1], y[1:, :24, :28]
     models = {"model": (SMALL, sd, x), "pad_batch": (SMALL, sd, xb)}
+    for i, (name, (cfg, side)) in enumerate(WIN_MODELS.items()):
+        jm = JaxUformer(attn_backend="jnp", shift_flag=True, **cfg)
+        xw = rng.uniform(0, 1, (1, side, side, 3)).astype(np.float32)
+        pw = _seeded_params(jm, xw, 30 + i)
+        want[name] = np.asarray(jax.jit(jm.apply)(pw, xw))
+        models[name] = (cfg, state_dict_from_jax(pw), xw)
     return blocks, models, want
 
 
@@ -100,11 +117,13 @@ def _primitive_inputs(n):
 @pytest.fixture(scope="module")
 def ranks(jax_cases):
     """{n: (primitive inputs, every rank's results)} for 4 and 2 ranks:
-    4 run every case, 2 the primitives and the batch-1 Uformer."""
+    both run the primitives and the batch-1 Uformer; 4 the blocks and the
+    pad-and-batch case, 2 WIN_MODELS."""
     blocks, models, _ = jax_cases
     out = {}
-    for n, b, m in ((4, blocks, models),
-                    (2, {}, {"model": models["model"]})):
+    two = {k: models[k] for k in ("model", *WIN_MODELS)}
+    four = {k: models[k] for k in ("model", "pad_batch")}
+    for n, b, m in ((4, blocks, four), (2, {}, two)):
         prims = _primitive_inputs(n)
         out[n] = (prims, spawn_ranks(cases.spatial, n, prims, b, m,
                                      timeout_s=120))
@@ -177,6 +196,43 @@ def test_sharded_uformer_pad_and_batch_matches_jax(jax_cases, ranks):
                                    rtol=1e-5)
         assert {k: v for k, v in plain.items() if v} == \
             {"attention_block": 23, "leff": 13}
+
+
+@pytest.mark.parametrize("name", list(WIN_MODELS))
+def test_sharded_uformer_at_windows_4_and_16_matches_jax(jax_cases, ranks,
+                                                        name):
+    """2 ranks: every rank gets the whole result, equal to JAX's and to
+    the one-process forward; each of the 13 blocks one call of the
+    attention-block and the LeFF wrappers (plain here)."""
+    _, models, want = jax_cases
+    cfg, sd, x = models[name]
+    model = cases._model(cfg, sd)
+    with torch.no_grad():
+        one = model(torch.from_numpy(x), plain=True).numpy()
+    np.testing.assert_allclose(one, want[name], atol=1e-5, rtol=1e-5)
+    assert {b.win_size for b in model.encoderlayer_0.blocks} == \
+        {cfg["win_size"]}
+    for res in ranks[2][1]:
+        got, plain, _ = res["models"][name]
+        np.testing.assert_allclose(got, want[name], atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(got, one, atol=1e-5, rtol=1e-5)
+        assert {k: v for k, v in plain.items() if v} == \
+            {"attention_block": 13, "leff": 13}
+
+
+def test_spatial_card_check_takes_windows_1_to_16():
+    """The card's check passes every window the kernels take (each rank's
+    windows at its w_off) and refuses 17, naming ROADMAP queue 2 item 2."""
+    from uformer_tpu_torch.models import Uformer
+
+    for win in range(1, 18):
+        model = Uformer(**dict(SMALL, img_size=16 * win, win_size=win))
+        if win <= 16:
+            S.check_spatial_card(model)
+            continue
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, port queue 2 item 2"):
+            S.check_spatial_card(model)
 
 
 @pytest.mark.parametrize("n", [2, 4])

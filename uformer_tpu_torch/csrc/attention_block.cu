@@ -6,7 +6,7 @@
 // and partitioned, [LN1] + modulator, q/kv projection, fp32-softmax
 // window attention with relative-position bias and the inline SW-MSA
 // mask, output projection. The attention branch only, no residual. Head
-// dim 8, 16 or 32; window win 1-8 (N = win^2 tokens). Window i lies at
+// dim 8, 16, 32 or 64; window win 1-8 (N = win^2 tokens). Window i lies at
 // place (w_off + i) mod nW of its H x W image (nW = (H / win)(W / win)),
 // which sets its region ids (from size - win, as the TPU kernel's
 // _region_ids).
@@ -25,9 +25,11 @@
 //     the grid as for kernel 1 (attention_image_plan, persistent_grid);
 //   - fp32 (the exact-check path) and bf16 at other widths: one window per
 //     block of attention_window.cuh, sized to C (128 threads at C <= 32,
-//     256 at C <= 64), WMMA products through shared memory. C >= 128 runs
-//     here at window 8 on no model path: the model's image route takes
-//     every C % 128 == 0 (models/layers.py:LeWinBlock.image_route);
+//     256 at C <= 64), WMMA products through shared memory (at C = 1024,
+//     an --embed_dim 64 model's bottleneck below window 8, xm and O in the
+//     block's scratch slot). C >= 128 runs here at window 8 on no model
+//     path: the model's image route takes every C % 128 == 0
+//     (models/layers.py:LeWinBlock.image_route);
 //   - windows of N = win^2 < 64 tokens (a stage below the window, or
 //     --win_size below 8) in packed tiles: a block (or, in bf16 at C
 //     8-64, a group of four warps of attention_block_packed.cu) takes 64
@@ -115,7 +117,7 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
                     : attention_block_narrow(p, D, Bw, wn, grid, s);
   }
   const int G = 64 / (win * win), tiles = (Bw + G - 1) / G;
-  return with_head_dim<true>(C, nH, [&](auto d) {
+  return with_fwd_head_dim(C, nH, [&](auto d) {
     constexpr int Dd = decltype(d)::value;
     return packed ? launch<T, Dd, true>(p, tiles, s)
                   : launch<T, Dd>(p, Bw, s);
@@ -144,8 +146,8 @@ int uf_attention_block_slots(int is_bf16, int C, int D, int wn,
 // (nH, 64, 64) bias are fp32. x, y: (Bw, win^2, C); at win < 8, mod
 // (64, C) and bias (nH, 64, 64) are the host's tiles of them
 // (packed_operands). mod may be null; ln_s / ln_b are read only with
-// has_ln. scratch: see uf_attention_needs_scratch (at win < 8, 64 rows a
-// tile). wn and grid: windows (tiles) per work item and blocks of the
+// has_ln. scratch: see uf_attention_needs_scratch (its tiles per window,
+// at win < 8 per packed tile). wn and grid: windows (tiles) per work item and blocks of the
 // persistent bf16 body (attention_image_plan); the one-window-per-block
 // body ignores them.
 int uf_attention_block(int is_bf16, const void* x, void* y, const void* mod,

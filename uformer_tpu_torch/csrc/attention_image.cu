@@ -5,7 +5,7 @@
 // partition, modulator, q/kv projection, fp32-softmax window attention
 // with relative-position bias and the inline SW-MSA mask, output
 // projection, reverse, unshift and [residual], reading and writing the
-// NHWC image once. Head dim 8, 16 or 32.
+// NHWC image once. Head dim 8, 16, 32 or 64.
 //
 // What bounds it on the H100: per window the projections are 4*64*C*C
 // MACs against 2*64*C bytes of activations; at every width the card
@@ -21,9 +21,10 @@
 //     weights streamed through a cp.async ring.
 // The host (ops/kernels/attention_image.py:attention_image_plan) picks the
 // windows per work item and the grid. Head dim 8 runs the narrow body at
-// C 32 and 64 and the wide one at C 128. fp32 (the exact-check path) and
-// bf16 at other widths run one window per block of attention_window.cuh
-// (WMMA products through shared memory).
+// C 32 and 64 and the wide one at C 128; head dim 64 (--embed_dim 64) the
+// narrow body at C 64 (one head) and the wide one at C 128-512. fp32 (the
+// exact-check path) and bf16 at other widths (C 1024) run one window per
+// block of attention_window.cuh (WMMA products through shared memory).
 #include "attention_image.cuh"
 #include "attention_mma.cuh"
 #include "attention_narrow_mma.cuh"
@@ -98,7 +99,7 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
     if (nH > 0 && C % nH == 0 && attn_wide_fits(C, D))
       return attention_image_wide(p, D, wn, grid, s);
   }
-  return with_head_dim<true>(C, nH, [&](auto d) {
+  return with_fwd_head_dim(C, nH, [&](auto d) {
     return launch<T, decltype(d)::value>(p, s);
   });
 }
@@ -111,15 +112,17 @@ const char* uf_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// 1 when the head outputs of one window (head dim D) do not fit in shared
-// memory and the caller must pass a scratch tensor of the input's shape
-// and dtype (attention_window.cuh: attention_image in fp32 or at widths
+// The 64 x C tiles of one window (head dim D) that do not fit in shared
+// memory, 0, 1 or 2 (attention_window.cuh: the head outputs, then the
+// LN1 output too): the caller passes a scratch tensor of that many times
+// the input's shape and dtype (attention_image in fp32 or at widths
 // without a bf16 body, stage, attention_block).
 int uf_attention_needs_scratch(int is_bf16, int C, int D) {
   const int ts = is_bf16 ? 2 : 4;
-  return (D == 8    ? uf::attn_layout<8>(ts, C).o_smem
-          : D == 16 ? uf::attn_layout<16>(ts, C).o_smem
-                    : uf::attn_layout<32>(ts, C).o_smem) ? 0 : 1;
+  return D == 8    ? uf::attn_layout<8>(ts, C).regions()
+         : D == 16 ? uf::attn_layout<16>(ts, C).regions()
+         : D == 32 ? uf::attn_layout<32>(ts, C).regions()
+                   : uf::attn_layout<64>(ts, C).regions();
 }
 
 // The blocks of kernel 1's persistent bf16 body for (C, D) at wn windows

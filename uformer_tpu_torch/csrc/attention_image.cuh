@@ -68,6 +68,7 @@ int with_narrow(int C, int D, int wn, F f) {
   if (C == 32 && D == 32) return by_wn(IntC<32>{}, IntC<32>{});
   if (C == 64 && D == 16) return by_wn(IntC<64>{}, IntC<16>{});
   if (C == 64 && D == 32) return by_wn(IntC<64>{}, IntC<32>{});
+  if (C == 64 && D == 64) return by_wn(IntC<64>{}, IntC<64>{});
   if constexpr (kMinC8 <= 8)
     if (C == 8 && D == 8) return by_wn(IntC<8>{}, IntC<8>{});
   if constexpr (kMinC8 <= 16)

@@ -4,7 +4,9 @@
 // as a persistent kernel of its own, residual on or off. Head dim 8 at
 // C = 128 (an embed-8 model's bottleneck and dec0 in training, where the
 // stage kernel does not run) on attn_wide_item's 16-wide products over
-// zeroed pad columns, as the stage kernel runs it.
+// zeroed pad columns, as the stage kernel runs it. Head dim 64 at C
+// 128-512 (an --embed_dim 64 model's enc1-enc3 and dec1-dec3), one or two
+// windows a work item.
 #include "attention_image.cuh"
 #include "attention_mma.cuh"
 
@@ -19,13 +21,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     attn_wide_item<C, D, WN>(p, it, smem);
 }
 
-// f(IntC<C>, IntC<D>, IntC<WN>) for the wide kernel of (C, D, wn), WN C
-// at most 512 (head dim 8 at C = 128 only: attn_wide_fits)
+// f(IntC<C>, IntC<D>, IntC<WN>) for the wide kernel of (C, D, wn), as
+// attn_wide_wn_fits takes them (head dim 8 at C = 128 only; at head dim
+// 64 two windows at most)
 template <typename F>
 static int with_wide(int C, int D, int wn, F f) {
   auto by_c = [&](auto d) {
     constexpr int Dd = decltype(d)::value;
-    if (C == 128 && wn == 4) return f(IntC<128>{}, d, IntC<4>{});
+    if constexpr (attn_wide_wn_fits(128, Dd, 4))
+      if (C == 128 && wn == 4) return f(IntC<128>{}, d, IntC<4>{});
     if (C == 128 && wn == 2) return f(IntC<128>{}, d, IntC<2>{});
     if (C == 128 && wn == 1) return f(IntC<128>{}, d, IntC<1>{});
     if constexpr (attn_wide_fits(256, Dd)) {
@@ -38,6 +42,7 @@ static int with_wide(int C, int D, int wn, F f) {
   if (D == 8) return by_c(IntC<8>{});
   if (D == 16) return by_c(IntC<16>{});
   if (D == 32) return by_c(IntC<32>{});
+  if (D == 64) return by_c(IntC<64>{});
   return (int)cudaErrorInvalidValue;
 }
 

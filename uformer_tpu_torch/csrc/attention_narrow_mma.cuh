@@ -1,6 +1,6 @@
 // The LeWin attention sub-block in bf16 at narrow widths (C 16, 32, 64
-// at head dim D 16 or 32; C 8-64 at D 8; C >= D) on the tensor-core
-// building block (mma_tile.cuh):
+// at head dim D 16 or 32; C 8-64 at D 8; C 64 at D 64; C >= D) on the
+// tensor-core building block (mma_tile.cuh):
 //
 //   y = [x +] tokens^-1(proj(W-MSA(LN1(tokens(x)) + mod)))
 //
@@ -57,11 +57,14 @@
 namespace uf {
 
 // Whether attn_narrow has a layout for (C, D): C 16-64 at head dim 16 or
-// 32, and C 8-64 at head dim 8 (the products of depth 8, a head's QK^T
-// and O wo and at C = 8 the projections, on mma.sync.m16n8k8).
+// 32, C 8-64 at head dim 8 (the products of depth 8, a head's QK^T and
+// O wo and at C = 8 the projections, on mma.sync.m16n8k8), and C 64 at
+// head dim 64 (one head: an --embed_dim 64 model's enc0 and dec3's
+// attention, whose o[8][4] and q fragments double against head dim 32).
 __host__ __device__ constexpr bool attn_narrow_fits(int C, int D) {
-  return (C == 8 || C == 16 || C == 32 || C == 64) &&
-         (D == 8 || D == 16 || D == 32) && C >= D;
+  return ((C == 8 || C == 16 || C == 32 || C == 64) &&
+          (D == 8 || D == 16 || D == 32) && C >= D) ||
+         (C == 64 && D == 64);
 }
 
 template <int C, int D, int WN>

@@ -1,8 +1,9 @@
 // One 8x8 window of the LeWin attention sub-block, computed by one thread
-// block, for head dim D in {8, 16, 32}. Shared by attention_image.cu (one
-// window per block), stage.cu (a persistent block walks many windows) and
-// attention_block.cu (one window, or one packed tile of windows of N =
-// win^2 < 64 tokens, per block, windows already partitioned). WMMA
+// block, for head dim D in {8, 16, 32, 64}. Shared by attention_image.cu
+// (one window per block), stage.cu (a persistent block walks many
+// windows) and attention_block.cu (one window, or one packed tile of
+// windows of N = win^2 < 64 tokens, per block, windows already
+// partitioned). WMMA
 // fragments are 16 wide: a bf16 head of 8 takes its products 16 wide,
 // columns 8..15 of q, k, v and of the staged weights zero (exact), and
 // needs staged weights (C % 128 == 0); fp32's FMA products take any D.
@@ -25,6 +26,14 @@
 // are copied with 16-byte loads and the products read them from there.
 // Read fragment by fragment from L2, each 16-deep k-step waited a full
 // round trip, which bounded the projections at C >= 128.
+//
+// The 64 x C tiles of the LN1 output (xm) and of the concatenated head
+// outputs (O) stay in shared memory where they fit beside the working
+// set, xm first (every head's three projections read it, O only the
+// output projection); otherwise each goes to the block's slot of the
+// scratch tensor in device memory (L2), read there by the same products:
+// at head dim 64, fp32 from C = 256 (O) and 512 (xm), bf16 from C = 512
+// (O) and 1024 (xm: an --embed_dim 64 model's bottleneck and dec0).
 #pragma once
 
 #include "window_core.cuh"
@@ -47,7 +56,8 @@ struct AttnParams {
   const T* wo;       // (C, C)
   const float* bo;   // (C,)
   const float* bias; // (nH, 64, 64) relative-position bias
-  T* o_scratch;      // (slots, 64, C) head outputs when they miss smem
+  T* o_scratch;      // (slots, 64 r, C): O and xm where they miss smem,
+                     // r = AttnLayout::regions() of them
   int ldkv;          // 2C for one (C, 2C) [k | v] matrix, C for split ones
   int B, H, W, C, nH, shift;
   float scale;
@@ -65,7 +75,9 @@ struct AttnLayout {
   static constexpr int kWChunk = 128, ldw = kQKV + 8;  // staged weights
   int ldx, ldo;
   size_t xm, q, k, v, p, acc, pix, rid, w, o, total;
-  bool w_smem, o_smem;
+  bool w_smem, x_smem, o_smem;
+  // 64 x C tiles a scratch slot holds: xm and O where they miss smem
+  __host__ __device__ int regions() const { return !x_smem + !o_smem; }
 };
 
 template <int D>
@@ -73,8 +85,6 @@ __host__ __device__ inline AttnLayout<D> attn_layout(int tsize, int C) {
   using L_ = AttnLayout<D>;
   L_ L;
   Carver cv;
-  L.ldx = C + 8;
-  L.xm = cv.take((size_t)64 * L.ldx * tsize);
   L.q = cv.take(64 * L_::ldq * tsize);
   L.k = cv.take(64 * L_::ldq * tsize);
   L.v = cv.take(64 * L_::ldq * tsize);
@@ -86,17 +96,15 @@ __host__ __device__ inline AttnLayout<D> attn_layout(int tsize, int C) {
   // (kWChunk x 64); bf16 with C a multiple of the chunk only
   L.w_smem = tsize == 2 && C % L_::kWChunk == 0;
   L.w = L.w_smem ? cv.take((size_t)L_::kWChunk * L_::ldw * tsize) : 0;
-  // the concatenated head outputs stay in shared memory when they fit
-  // (always for bf16 up to C = 512); otherwise in a global slot
-  const size_t o_bytes = (size_t)64 * L.ldx * tsize;
-  L.o_smem = cv.off + o_bytes <= kSmemLimit;
-  if (L.o_smem) {
-    L.o = cv.take(o_bytes);
-    L.ldo = L.ldx;
-  } else {
-    L.o = 0;
-    L.ldo = C;
-  }
+  // xm, then the concatenated head outputs, in shared memory where they
+  // fit (both for bf16 up to C = 512); otherwise in the scratch slot
+  const size_t t_bytes = (size_t)64 * (C + 8) * tsize;
+  L.x_smem = cv.off + t_bytes <= kSmemLimit;
+  L.xm = L.x_smem ? cv.take(t_bytes) : 0;
+  L.ldx = L.x_smem ? C + 8 : C;
+  L.o_smem = cv.off + t_bytes <= kSmemLimit;
+  L.o = L.o_smem ? cv.take(t_bytes) : 0;
+  L.ldo = L.o_smem ? C + 8 : C;
   L.total = cv.off;
   return L;
 }
@@ -154,7 +162,8 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
   const int tid = threadIdx.x, warp = tid >> 5;
   const int nw = NW > 0 ? NW : (int)(blockDim.x >> 5);
 
-  T* xm = reinterpret_cast<T*>(smem + L.xm);
+  T* slab = p.o_scratch + (size_t)slot * L.regions() * 64 * C;
+  T* xm = L.x_smem ? reinterpret_cast<T*>(smem + L.xm) : slab;
   T* q = reinterpret_cast<T*>(smem + L.q);
   T* k = reinterpret_cast<T*>(smem + L.k);
   T* v = reinterpret_cast<T*>(smem + L.v);
@@ -163,7 +172,7 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
   int* pix = reinterpret_cast<int*>(smem + L.pix);
   int* rid = reinterpret_cast<int*>(smem + L.rid);
   T* O = L.o_smem ? reinterpret_cast<T*>(smem + L.o)
-                  : p.o_scratch + (size_t)slot * 64 * C;
+                  : slab + (L.x_smem ? 0 : (size_t)64 * C);
   T* wbuf = reinterpret_cast<T*>(smem + L.w);
   const bool stage_w = sizeof(T) == 2 && L.w_smem;
   const int ldx = L.ldx, ldo = L.ldo;
@@ -284,8 +293,8 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
 
 // Calls f(std::integral_constant<int, D>{}) for the head dim C / nH and
 // returns its result; cudaErrorInvalidValue for a head dim without a
-// kernel (the wrappers check first). Head dim 8 with kHead8 (the forward
-// bodies; the backward ones take 16 and 32).
+// kernel (the wrappers check first). Head dim 8 with kHead8 (the bodies
+// of both ways take 8, 16 and 32).
 template <bool kHead8 = false, typename F>
 int with_head_dim(int C, int nH, F f) {
   if (nH > 0 && C == 16 * nH) return f(std::integral_constant<int, 16>{});
@@ -293,6 +302,14 @@ int with_head_dim(int C, int nH, F f) {
   if constexpr (kHead8)
     if (nH > 0 && C == 8 * nH) return f(std::integral_constant<int, 8>{});
   return (int)cudaErrorInvalidValue;
+}
+
+// with_head_dim for the forward bodies: head dim 8, 16, 32 and 64 (an
+// --embed_dim 64 model's every block; its backward is not ported).
+template <typename F>
+int with_fwd_head_dim(int C, int nH, F f) {
+  if (nH > 0 && C == 64 * nH) return f(std::integral_constant<int, 64>{});
+  return with_head_dim<true>(C, nH, f);
 }
 
 // Whether attention_window takes (dtype, C, D): a bf16 head of 8 only

@@ -8,12 +8,13 @@
 // pixel, the first on a 1-pixel halo too); at C <= 64 the bytes of x and
 // y. The 4C-wide hidden never touches device memory. bf16 runs the tiles
 // of leff_mma.cuh on mma.sync with register accumulators: the wide tile
-// (C 128-512, one 8 x 8 or 16 x 8 output tile per block, weights streamed
-// through a cp.async ring) and the narrow one (C 16-64, weights resident, one
-// persistent block per SM walking 8 x 16 tiles, the next halo prefetched;
-// also C = 8, its 32-wide hidden zero-padded to 64 by the host).
-// fp32 (the exact-check path), and bf16 at other widths, run the WMMA/FMA
-// tile of leff_tile.cuh, one TH x 8 tile per block, partial tiles masked.
+// (C 128-1024, one 8 x 8 or 16 x 8 output tile per block, 4 x 8 at C =
+// 1024, weights streamed through a cp.async ring) and the narrow one (C
+// 16-64, weights resident, one persistent block per SM walking 8 x 16
+// tiles, the next halo prefetched; also C = 8, its 32-wide hidden
+// zero-padded to 64 by the host). fp32 (the exact-check path), and bf16
+// at other widths, run the WMMA/FMA tile of leff_tile.cuh, one TH x 8
+// tile per block (1 x 8 in fp32 at C = 1024), partial tiles masked.
 #include "leff_mma.cuh"
 
 namespace uf {
@@ -41,7 +42,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // Which body takes (dtype, C, Ch): the wide or narrow mma tile (bf16), or
 // leff_tile.
 __host__ inline bool wide_tile(int tsize, int C, int Ch) {
-  return tsize == 2 && (C == 128 || C == 256 || C == 512) && Ch % 64 == 0;
+  return tsize == 2 && (C == 128 || C == 256 || C == 512 || C == 1024) &&
+         Ch % 64 == 0;
 }
 __host__ inline bool narrow_tile(int tsize, int C, int Ch) {
   return tsize == 2 && (((C == 16 || C == 32 || C == 64) && Ch == 4 * C) ||
@@ -79,14 +81,18 @@ static int launch_wide_rows(const LeffParams<bf16>& p, cudaStream_t stream) {
 
 template <int C>
 static int launch_wide(const LeffParams<bf16>& p, cudaStream_t stream) {
-  int slots = 0;
-  cudaError_t e = resident(leff_wide_kernel<C, 8>, LeffWide<C, 8>::total,
-                           &slots);
-  if (e != cudaSuccess) return (int)e;
-  if constexpr (C <= 256)
-    if (leff_wide_rows(p.B, p.H, p.W, C, slots) == 16)
-      return launch_wide_rows<C, 16>(p, stream);
-  return launch_wide_rows<C, 8>(p, stream);
+  if constexpr (C == 1024) {
+    return launch_wide_rows<C, 4>(p, stream);
+  } else {
+    int slots = 0;
+    cudaError_t e = resident(leff_wide_kernel<C, 8>, LeffWide<C, 8>::total,
+                             &slots);
+    if (e != cudaSuccess) return (int)e;
+    if constexpr (C <= 256)
+      if (leff_wide_rows(p.B, p.H, p.W, C, slots) == 16)
+        return launch_wide_rows<C, 16>(p, stream);
+    return launch_wide_rows<C, 8>(p, stream);
+  }
 }
 
 template <int C>
@@ -130,7 +136,8 @@ static int run(const void* x, void* y, const float* ln_s, const float* ln_b,
     if (wide_tile(2, C, Ch)) {
       if (C == 128) return launch_wide<128>(p, s);
       if (C == 256) return launch_wide<256>(p, s);
-      return launch_wide<512>(p, s);
+      if (C == 512) return launch_wide<512>(p, s);
+      return launch_wide<1024>(p, s);
     }
     if (narrow_tile(2, C, Ch)) {
       if (C == 8) return launch_narrow<8>(p, s);
@@ -154,7 +161,7 @@ static int run(const void* x, void* y, const float* ln_s, const float* ln_b,
 extern "C" {
 
 // The tile's rows for this dtype and width: 1 where the mma tiles run,
-// else leff_tile's tile height (8, 4 or 2). Every tile masks partial
+// else leff_tile's tile height (8, 4, 2 or 1). Every tile masks partial
 // tiles, so any H and W run; the spatial path sizes its slabs' halo by
 // it.
 int uf_leff_tile_rows(int is_bf16, int C, int Ch) {

@@ -5,17 +5,22 @@
 //   y = [x +] W2 . GELU(dw3x3(GELU(W1 . LN2(x) + b1)) + bd) + b2
 //
 // Two tiles, by width:
-//   wide (C 128, 256, 512; leff.cu and stage.cu): one TH x 8 output tile
-//     per call, TH = 8, or 16 at C <= 256 where the image has tiles
-//     enough. The TH 8 x C fp32 accumulator of the second product lives
-//     in registers for the whole hidden loop, split by columns over the
-//     16 warps (TH C / 64 registers a thread, at most 64). The hidden goes
-//     in 64-channel chunks: first product on the (TH + 2) x 10 halo
-//     (padded to 112 or 192 rows) in registers, + b1, GELU, bf16 into
-//     shared memory; depthwise + bd + GELU into the bf16 g chunk; g . W2
-//     chunk into the accumulator. The
-//     weights stream as one sequence of 16 KB tiles (128 x 64 of W1, then
-//     8192 / C x C of W2, per chunk) through a ring of cp.async slots.
+//   wide (C 128, 256, 512, 1024; leff.cu and stage.cu): one TH x 8 output
+//     tile per call, TH = 8, or 16 at C <= 256 where the image has tiles
+//     enough, 4 at C = 1024 (an --embed_dim 64 model's bottleneck and dec0,
+//     hidden 4096: its 8-row halo would need 231 KB). The TH 8 x C fp32
+//     accumulator of the second product lives in registers for the whole
+//     hidden loop, split by columns over the 16 warps (TH C / 64
+//     registers a thread, at most 64). The hidden goes in 64-channel
+//     chunks: first product on the (TH + 2) x 10 halo (padded to 64, 112
+//     or 192 rows) in registers, + b1, GELU, bf16 into shared memory;
+//     depthwise + bd + GELU into the bf16 g chunk; g . W2 chunk into the
+//     accumulator. The weights stream as one sequence of 16 KB tiles (128
+//     x 64 of W1, then 8192 / C x C of W2, per chunk; 16 x 1024 at C =
+//     1024, in two slots) through a ring of cp.async slots. The 4-row
+//     tile at C = 1024 costs a halo of 1.88x its outputs (1.25x at 8
+//     rows) in the first product, and streams the 16 MB of weights once
+//     per 32 outputs.
 //   narrow (C 16, 32, 64 with Ch = 4C, and C 8 with its 32-wide hidden
 //     zero-padded to 64 by the host, exact as GELU(0) = 0; leff.cu): at
 //     C = 8 the first product takes x 16 wide, columns 8..15 and rows
@@ -65,25 +70,37 @@ __device__ __forceinline__ void depthwise_row(const bf16* hs, int ldh,
 
 // ---- wide C -------------------------------------------------------------
 
+// Whether leff_wide_tile has a layout for (C, TH): 8 or 16 output rows at
+// C 128-256, 8 at 512, and 4 at 1024 (an --embed_dim 64 model's
+// bottleneck and dec0, hidden 4096), whose 8-row tile's halo (112 rows x
+// 2064 B) and 64 x 1024 fp32 accumulator would not fit.
+__host__ __device__ constexpr bool leff_wide_fits(int C, int TH) {
+  return ((C == 128 || C == 256) && (TH == 8 || TH == 16)) ||
+         (C == 512 && TH == 8) || (C == 1024 && TH == 4);
+}
+
 template <int C, int TH>
 struct LeffWide {
-  static_assert(C == 128 || C == 256 || C == 512, "wide tile: C 128-512");
-  static_assert(TH == 8 || (TH == 16 && C <= 256), "wide tile: 8 or 16 rows");
+  static_assert(leff_wide_fits(C, TH), "no wide LeFF tile");
   static_assert(kThreads == 8 * kLeffChunk, "depthwise: a thread a channel");
   static constexpr int kHalo = (TH + 2) * 10, kOut = TH * 8;
-  static constexpr int kRows = (kHalo + 15) / 16 * 16;  // 112 or 192
-  static constexpr int P = C / 128;        // W1 and W2 tiles per chunk
-  static constexpr int KW2 = 8192 / C;     // rows of a W2 tile
+  static constexpr int kRows = (kHalo + 15) / 16 * 16;  // 64, 112 or 192
+  static constexpr int P = C / 128;        // W1 tiles per chunk
+  static constexpr int KW2 = C < 512 ? 8192 / C : 16;  // rows of a W2 tile
+  static constexpr int P2 = kLeffChunk / KW2;  // W2 tiles per chunk
   static constexpr int ldx = C + 8, ldh = kLeffChunk + 8;
   static constexpr int ldw1 = kLeffChunk + 8, ldw2 = C + 8;
   // first product: warp w < NJ1 takes MJ m16 tiles from 16 MJ (w / NC1) x
-  // NJ n8 tiles from 8 NJ (w % NC1): 7 x 2 jobs of 1 x 4, or 4 x 4 of 3 x 2
-  static constexpr int MJ = TH == 8 ? 1 : 3, NJ = TH == 8 ? 4 : 2;
+  // NJ n8 tiles from 8 NJ (w % NC1): 7 x 2 jobs of 1 x 4, 4 x 4 of 3 x 2,
+  // or at 4 rows 4 x 4 of 1 x 2
+  static constexpr int MJ = TH == 16 ? 3 : 1, NJ = TH == 8 ? 4 : 2;
   static constexpr int NC1 = kLeffChunk / (8 * NJ);
   static constexpr int NJ1 = kRows / 16 / MJ * NC1;
-  // second product: warp w takes MT2 m16 tiles x 32 columns
-  static constexpr int NW2 = C / 32, MT2 = kOut * C / 8192;
-  static constexpr int kStages = C == 128 ? 3 : 4;
+  // second product: warp w takes MT2 m16 tiles x NT2 n8 tiles (32
+  // columns, or 64 at C 1024)
+  static constexpr int NT2 = C == 1024 ? 8 : 4;
+  static constexpr int NW2 = C / (8 * NT2), MT2 = kOut * NW2 / 256;
+  static constexpr int kStages = C == 128 ? 3 : C == 1024 ? 2 : 4;
   static constexpr size_t kSlot = align128(
       2 * (128 * ldw1 > KW2 * ldw2 ? 128 * ldw1 : KW2 * ldw2));
   static constexpr size_t xn = 0;
@@ -100,9 +117,11 @@ struct LeffWide {
 // pass over the weights) where C <= 256, unless the halved tile count
 // leaves the resident blocks so few tiles that the longer tile costs more
 // rounds than it saves. A 16-row tile takes kTallCost times an 8-row one
-// (1.38-1.62 on an H100 at C 128 and 256: forward_ab --what leff).
+// (1.38-1.62 on an H100 at C 128 and 256: forward_ab --what leff). 4 at
+// C 1024 (leff_wide_fits).
 constexpr double kTallCost = 1.6;
 __host__ inline int leff_wide_rows(int B, int H, int W, int C, int slots) {
+  if (C == 1024) return 4;
   if (C > 256) return 8;
   const long cols = (W + 7) / 8;
   const long r8 = ((long)B * ((H + 7) / 8) * cols + slots - 1) / slots;
@@ -128,13 +147,14 @@ __device__ void leff_wide_tile(const LeffParams<bf16>& p, int item,
   bf16* gs = reinterpret_cast<bf16*>(smem + L::g);
   int* hpix = reinterpret_cast<int*>(smem + L::hpix);
   unsigned char* ring = smem + L::ring;
-  const int T = (Ch / kc) * 2 * P;  // weight tiles in the sequence
+  constexpr int TPC = P + L::P2;     // weight tiles per chunk
+  const int T = (Ch / kc) * TPC;     // weight tiles in the sequence
 
-  // tile q: chunk q / 2P; s < P: W1 rows [128 s, +128) x the chunk's 64
+  // tile q: chunk q / TPC; s < P: W1 rows [128 s, +128) x the chunk's 64
   // columns; else W2 rows [chunk + KW2 (s - P), +KW2) x all C columns
   auto load_tile = [&](int q) {
     bf16* dst = reinterpret_cast<bf16*>(ring + (q % S) * L::kSlot);
-    const int k0 = (q / (2 * P)) * kc, s = q % (2 * P);
+    const int k0 = (q / TPC) * kc, s = q % TPC;
     if (s < P) {
       for (int i = tid; i < 128 * 8; i += kThreads) {
         const int r = i >> 3, v = i & 7;
@@ -179,12 +199,13 @@ __device__ void leff_wide_tile(const LeffParams<bf16>& p, int item,
         ln_row<bf16>(xn + i * L::ldx, C, p.ln_s, p.ln_b, true, nullptr);
   // (the first iteration's barrier orders xn before the products)
 
-  float acc2[L::MT2][4][4];
+  float acc2[L::MT2][L::NT2][4];
   zero_acc(acc2);
   float acc1[L::MJ][L::NJ][4];
   const bool job1 = warp < L::NJ1;
   const int mt1 = (warp / L::NC1) * L::MJ, n1 = (warp % L::NC1) * 8 * L::NJ;
-  const int m2 = (warp / L::NW2) * 16 * L::MT2, n2 = (warp % L::NW2) * 32;
+  const int m2 = (warp / L::NW2) * 16 * L::MT2,
+            n2 = (warp % L::NW2) * 8 * L::NT2;
   for (int q = 0; q < T; ++q) {
     cp_async_wait<S - 2>();
     __syncthreads();
@@ -192,7 +213,7 @@ __device__ void leff_wide_tile(const LeffParams<bf16>& p, int item,
     if (q + S - 1 < T) load_tile(q + S - 1);
     cp_async_commit();
     const bf16* wt = reinterpret_cast<const bf16*>(ring + (q % S) * L::kSlot);
-    const int k0 = (q / (2 * P)) * kc, s = q % (2 * P);
+    const int k0 = (q / TPC) * kc, s = q % TPC;
     if (s < P) {
       if (job1) {
         if (s == 0) zero_acc(acc1);
@@ -221,29 +242,33 @@ __device__ void leff_wide_tile(const LeffParams<bf16>& p, int item,
       if (s == P - 1) {
         __syncthreads();
         // depthwise: thread t takes channel t % 64 of output rows t / 64,
-        // t / 64 + 8
+        // t / 64 + 8 (at 4 rows, threads 0-255 one each)
         const int j = tid & (kc - 1);
         float w[9];
 #pragma unroll
         for (int t = 0; t < 9; ++t) w[t] = to_f<bf16>(p.wd[t * Ch + k0 + j]);
         const float bd = p.bd[k0 + j];
+        if constexpr (TH >= 8) {
 #pragma unroll
-        for (int k = 0; k < TH / 8; ++k)
-          depthwise_row<8>(hs, L::ldh, gs, L::ldh, tid / kc + 8 * k, j, w,
-                           bd);
+          for (int k = 0; k < TH / 8; ++k)
+            depthwise_row<8>(hs, L::ldh, gs, L::ldh, tid / kc + 8 * k, j, w,
+                             bd);
+        } else if (tid / kc < TH) {
+          depthwise_row<8>(hs, L::ldh, gs, L::ldh, tid / kc, j, w, bd);
+        }
         // (the next iteration's barrier orders g before the product)
       }
     } else {
-      warp_mma<L::MT2, 4, L::KW2 / 16>(acc2,
-                                       gs + m2 * L::ldh + (s - P) * L::KW2,
-                                       L::ldh, wt + n2, L::ldw2);
+      warp_mma<L::MT2, L::NT2, L::KW2 / 16>(
+          acc2, gs + m2 * L::ldh + (s - P) * L::KW2, L::ldh, wt + n2,
+          L::ldw2);
     }
   }
 
 #pragma unroll
   for (int mi = 0; mi < L::MT2; ++mi)
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < L::NT2; ++n)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int o = m2 + mi * 16 + gq + 8 * hh, col = n2 + n * 8 + 2 * t4;

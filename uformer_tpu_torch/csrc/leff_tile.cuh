@@ -15,7 +15,9 @@
 // first copied into shared memory with 16-byte loads, and the products
 // take their B fragments from there rather than one fragment at a time
 // from device memory. fp32 (the exact-check path) has no room for the
-// copy and reads them from device memory.
+// copy and reads them from device memory; at C = 1024 (an --embed_dim 64
+// model's bottleneck and dec0, hidden 4096) its tile is 1 x 8, a halo of
+// 32 rows of 4 KB.
 #pragma once
 
 #include "common.cuh"
@@ -74,11 +76,12 @@ __host__ __device__ inline LeffLayout leff_layout(int tsize, int C, int TH) {
   return L;
 }
 
-// Tile height: the tallest of 8, 4, 2 rows whose working set fits.
+// Tile height: the tallest of 8, 4, 2 rows whose working set fits; 1
+// where none does in fp32 (C = 1024; the bf16 products are 16 rows deep).
 __host__ __device__ inline int leff_tile_rows(int tsize, int C) {
-  for (int th = 8; th > 2; th >>= 1)
+  for (int th = 8; th > 1; th >>= 1)
     if (leff_layout(tsize, C, th).total <= kSmemLimit) return th;
-  return 2;
+  return tsize == 4 ? 1 : 2;
 }
 
 template <typename T>

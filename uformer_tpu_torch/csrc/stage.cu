@@ -6,14 +6,19 @@
 // sub-block over all tiles, a grid barrier. Weights come from the
 // depth-stacked arrays at index j; the shift is on for odd j when
 // use_shift. Head dim 8 (at C = 128 in bf16's tensor-core body: an
-// embed-8 model's bottleneck and dec0), 16 or 32. In bf16 at C 128, 256
-// and 512 both halves
+// embed-8 model's bottleneck and dec0), 16, 32 or 64 (an --embed_dim 64
+// model's stages, C 128-1024). In bf16 at C 128, 256 and 512 both halves
 // run on mma.sync with register accumulators and weights streamed through
 // cp.async rings: the attention of attention_mma.cuh (1-4 windows per work
 // item) and the wide LeFF tile of leff_mma.cuh (8 or 16 x 8 outputs), the
 // host picking windows per item and tile rows from the work and the SMs.
-// fp32 (the exact-check path) and other widths run attention_window.cuh
-// and leff_tile.cuh.
+// In bf16 at C 1024 (an --embed_dim 64 model's bottleneck and dec0, 16
+// heads of 64, hidden 4096: 24 MB of weights a block) the attention half
+// is attn_wide_item_l2 (one window an item, O through the block's scratch
+// slot in L2) and the LeFF tile 4 x 8; every work item streams the
+// block's weights through its cp.async ring, from L2 after the first
+// items read them from HBM. fp32 (the exact-check path) and other widths
+// run attention_window.cuh and leff_tile.cuh.
 //
 // What bounds it on the H100: at the 16^2..64^2 stages each sub-block is
 // tens of microseconds of work, so per-kernel launches, tails and weight
@@ -62,7 +67,19 @@ template <int C, int D, int WN>
 __device__ __noinline__ void attn_wide_all(const AttnParams<bf16>& a,
                                            int n_win, unsigned char* smem) {
   for (int it = blockIdx.x; it < (n_win + WN - 1) / WN; it += gridDim.x)
-    attn_wide_item<C, D, WN>(a, it, smem);
+    if constexpr (attn_wide_l2_fits(C, D))
+      attn_wide_item_l2<C, D>(a, it, smem);
+    else
+      attn_wide_item<C, D, WN>(a, it, smem);
+}
+
+// The wide attention half's shared memory at (C, D, WN).
+template <int C, int D, int WN>
+constexpr size_t attn_wide_smem() {
+  if constexpr (attn_wide_l2_fits(C, D))
+    return AttnWideL2<C, D>::total;
+  else
+    return AttnWide<C, D, WN>::total;
 }
 
 template <int C, int TH>
@@ -158,12 +175,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Windows per work item of the wide attention: the most (up to 512 / C)
-// that do not add a round of items over the `slots` resident blocks.
-static int wide_windows(int n_win, int slots, int C) {
+// Windows per work item of the wide attention: the most (up to 512 / C;
+// 2 at head dim 64: attn_wide_wn_fits) that do not add a round of items
+// over the `slots` resident blocks.
+static int wide_windows(int n_win, int slots, int C, int D) {
   int best = 1;
   long best_cost = -1;
-  for (int wn = 1; wn * C <= 512; wn *= 2) {
+  for (int wn = 1; wn * C <= 512 && (D < 64 || wn <= 2); wn *= 2) {
     const int items = (n_win + wn - 1) / wn;
     const long cost = (long)((items + slots - 1) / slots) * wn;
     if (best_cost < 0 || cost <= best_cost) {
@@ -179,7 +197,7 @@ static int launch(StageParams<T> p, cudaStream_t stream) {
   size_t smem;
   if constexpr (CW > 0) {
     p.TH = TH;
-    smem = std::max(AttnWide<CW, D, WN>::total, LeffWide<CW, TH>::total);
+    smem = std::max(attn_wide_smem<CW, D, WN>(), LeffWide<CW, TH>::total);
   } else {
     p.TH = leff_tile_rows(sizeof(T), p.C);
     smem = std::max(attn_layout<D>(sizeof(T), p.C).total,
@@ -213,9 +231,13 @@ static int launch(StageParams<T> p, cudaStream_t stream) {
 template <int D, int CW, int WN>
 static int launch_rows(const StageParams<bf16>& p, int th,
                        cudaStream_t stream) {
-  if constexpr (CW <= 256)
-    if (th == 16) return launch<bf16, D, CW, WN, 16>(p, stream);
-  return launch<bf16, D, CW, WN, 8>(p, stream);
+  if constexpr (CW == 1024) {
+    return launch<bf16, D, CW, WN, 4>(p, stream);
+  } else {
+    if constexpr (CW <= 256)
+      if (th == 16) return launch<bf16, D, CW, WN, 16>(p, stream);
+    return launch<bf16, D, CW, WN, 8>(p, stream);
+  }
 }
 
 // The tensor-core stage at width CW: windows per attention item and rows
@@ -228,9 +250,9 @@ static int launch_wide(const StageParams<bf16>& p, cudaStream_t stream) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  const int wn = wide_windows(p.B * (p.H / 8) * (p.W / 8), sms, CW);
+  const int wn = wide_windows(p.B * (p.H / 8) * (p.W / 8), sms, CW, D);
   const int th = leff_wide_rows(p.B, p.H, p.W, CW, sms);
-  if constexpr (CW == 128)
+  if constexpr (attn_wide_wn_fits(CW, D, 4))
     if (wn == 4) return launch_rows<D, CW, 4>(p, th, stream);
   if constexpr (CW <= 256)
     if (wn == 2) return launch_rows<D, CW, 2>(p, th, stream);
@@ -283,7 +305,7 @@ static int run(const void* x, void* buf, void* out, void* scratch,
   p.use_shift = use_shift;
   p.scale = scale;
   auto s = static_cast<cudaStream_t>(stream);
-  return with_head_dim<true>(C, nH, [&](auto d) {
+  return with_fwd_head_dim(C, nH, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if constexpr (std::is_same<T, bf16>::value) {
       if (C == 128) return launch_wide<D, 128>(p, s);
@@ -291,6 +313,8 @@ static int run(const void* x, void* buf, void* out, void* scratch,
         if (C == 256) return launch_wide<D, 256>(p, s);
         if (C == 512) return launch_wide<D, 512>(p, s);
       }
+      if constexpr (attn_wide_l2_fits(1024, D))
+        if (C == 1024) return launch_wide<D, 1024>(p, s);
     }
     return launch<T, D, 0, 1, 0>(p, s);
   });

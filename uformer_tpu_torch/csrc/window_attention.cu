@@ -6,7 +6,7 @@
 //                       [- 100 where the SW-MSA region ids differ]) v[h, w]
 //
 // on q, k, v, out of shape (nH, Bw, N, D), N = win^2 (win 1-8), D in
-// {8, 16, 32}, fp32 or bf16, with the logits and the softmax in fp32 and
+// {8, 16, 32, 64}, fp32 or bf16, with the logits and the softmax in fp32 and
 // the mask built inline from the window's place in the image (window w is
 // window w mod nW of its image, nW = (H / win)(W / win)), as the TPU
 // kernel does. Windows of N < 64 run in packed 64-row tiles of 64 / N
@@ -294,6 +294,7 @@ static int with_core(int D, int packed, F f) {
     if (D == 16) return f(IntC<16>{}, pk);
     if (D == 32) return f(IntC<32>{}, pk);
     if (D == 8) return f(IntC<8>{}, pk);
+    if (D == 64) return f(IntC<64>{}, pk);
     return (int)cudaErrorInvalidValue;
   };
   return packed ? by_d(IntC<1>{}) : by_d(IntC<0>{});

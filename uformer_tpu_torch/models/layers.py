@@ -92,7 +92,7 @@ from uformer_tpu_torch.ops.kernels import (
 )
 from uformer_tpu_torch.ops.kernels.leff import pad_hidden
 from uformer_tpu_torch.ops.kernels.window_attention import (
-    HEAD_DIMS,
+    BACKWARD_HEAD_DIMS,
     WINDOWS,
 )
 from uformer_tpu_torch.ops.masks import input_mask_bias, shift_mask_on
@@ -108,10 +108,12 @@ from uformer_tpu_torch.ops.window import (
 Params = Dict[str, torch.Tensor]
 LEFF_MLPS = ("leff", "fastleff")  # fastleff: the same function and keys
 GEOMETRY_NOT_ON_KERNEL_PATH = (
-    f"the kernels, forward and backward, take windows 1-16 and head dim in "
-    f"{HEAD_DIMS}; a window above 16 or another head dim (64: embed 64) "
-    f"runs on the plain path only (ROADMAP.md, port queue 2 items 2 and "
-    f"3: windows above 16, head dim 64)")
+    f"the kernels take windows 1-16 and head dim in {BACKWARD_HEAD_DIMS} "
+    f"forward and backward, and head dim 64 (embed 64) forward only at "
+    f"windows 1-8; a window above 16, head dim 64's backward (and its "
+    f"C 1024 LeFF) and head dim 64 at windows 9-16 run on the plain path "
+    f"only (ROADMAP.md, port queue 2 items 2 and 3: windows above 16, "
+    f"head dim 64's backward)")
 
 
 class _Prepared:
@@ -626,15 +628,16 @@ class LeWinBlock(_Prepared, nn.Module):
         """Why the train step's kernel path cannot differentiate this
         block, or None. The attention backward kernels cover the image
         route and the windowed branch at windows 1-16 (below 8 on packed
-        tiles, above 8 `csrc/attention_wide.cu`) and head dim 8, 16 or 32,
-        and the LeFF backward kernel C 8-512, as the forward kernels do;
+        tiles, above 8 `csrc/attention_wide.cu`) and head dim 8, 16 or 32
+        (the forward kernels take head dim 64 too), and the LeFF backward
+        kernel C 8-512;
         Mlp and the cross-modulator's attention are plain PyTorch. Conv
         projection runs the depthwise kernel, which has no backward (in JAX
         either)."""
         if self.attn.token_projection == "conv":
             return DWCONV_BACKWARD_NOT_PORTED
         if self.win_size not in WINDOWS or self.dim % self.num_heads \
-                or self.dim // self.num_heads not in HEAD_DIMS:
+                or self.dim // self.num_heads not in BACKWARD_HEAD_DIMS:
             return GEOMETRY_NOT_ON_KERNEL_PATH
         return None
 

@@ -12,7 +12,9 @@ every arch here at embed 8-32, `--win_size` 1-16 and any `--train_ps`
 64 // N whole windows of N = win² tokens to a kernel tile; above 8, the
 key-chunked kernels of `csrc/attention_wide.cu`), and so does training:
 the backward kernels take the same windows and head dims, LeFF at C = 8
-too. Windows above 16 and head dim 64 (embed 64) have no kernel: the
+too. Embed 64 (head dim 64, C up to 1024) serves through the forward
+kernels at windows 1-8, by the same routes. Windows above 16, head dim
+64 at windows 9-16 and head dim 64's backward have no kernel: the
 wrappers raise before any launch, and the train step refuses such a model
 before any launch (`LeWinBlock.backward_gap`, ROADMAP.md's port queue 2
 items 2-3). `use_checkpoint` recomputes each

@@ -55,6 +55,7 @@ from uformer_tpu_torch.ops.kernels.attention_wide import (
 )
 from uformer_tpu_torch.ops.kernels.wgrad import colsum, sm_count, wgrad
 from uformer_tpu_torch.ops.kernels.window_attention import (
+    BACKWARD_HEAD_DIMS,
     TILE,
     check_head_dim,
     check_window,
@@ -113,7 +114,7 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
     _launch.check_input(x, "(Bw, N, C)")
     Bw, N, C = x.shape
     check_window(win, shift, H, W)
-    check_head_dim(C, num_heads)
+    check_head_dim(C, num_heads, win=win)
     if N != win * win or w_off < 0:
         raise ValueError(f"kernel needs N = win² and w_off >= 0: N={N} "
                          f"win={win} w_off={w_off}")
@@ -142,9 +143,9 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
                          f"C % 128 == 0: C={C}")
     mod, bias = packed_operands(mod, bias, N)
     lib = load()
-    wn, grid, needs_scratch = block_plan(lib, Bw, C, D, is_bf16, dev, N)
-    scratch = (torch.empty(packed_tiles(Bw, N) * TILE, C, dtype=dt,
-                           device=dev) if needs_scratch else None)
+    wn, grid, regions = block_plan(lib, Bw, C, D, is_bf16, dev, N)
+    scratch = (torch.empty(regions * packed_tiles(Bw, N) * TILE, C,
+                           dtype=dt, device=dev) if regions else None)
     y = torch.empty_like(x)
     with torch.cuda.device(dev):
         err = lib.uf_attention_block(
@@ -174,10 +175,11 @@ def packed_operands(mod: Optional[torch.Tensor], bias: torch.Tensor,
 
 def block_plan(lib, Bw: int, C: int, D: int, is_bf16: int, dev,
                N: int = TILE):
-    """(windows per work item, grid, needs scratch) of kernel 5 on Bw
-    windows of N tokens (at N < 64, its packed tiles stand for windows):
-    kernel 1's plan (`attention_image_plan`); its narrow body persistent
-    over `persistent_grid` blocks, else a block per window (tile)."""
+    """(windows per work item, grid, scratch tiles a window) of kernel 5 on
+    Bw windows of N tokens (at N < 64, its packed tiles stand for
+    windows): kernel 1's plan (`attention_image_plan`); its narrow body
+    persistent over `persistent_grid` blocks, else a block per window
+    (tile), with `uf_attention_needs_scratch` 64 x C scratch tiles each."""
     from uformer_tpu_torch.ops.kernels.attention_image import (
         attention_image_plan,
     )
@@ -189,8 +191,8 @@ def block_plan(lib, Bw: int, C: int, D: int, is_bf16: int, dev,
         slots = _launch.resident_blocks("uf_attention_block_slots",
                                         dev.index, is_bf16, C, D, wn,
                                         int(N < TILE))
-        return wn, _launch.persistent_grid(-(-items // wn), slots), False
-    return 1, items, bool(lib.uf_attention_needs_scratch(is_bf16, C, D))
+        return wn, _launch.persistent_grid(-(-items // wn), slots), 0
+    return 1, items, lib.uf_attention_needs_scratch(is_bf16, C, D)
 
 
 def vjp_reference(fn, x, g, args, has_ln, **kw):
@@ -417,7 +419,7 @@ def attention_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
                          f"{tuple(x.shape)} {x.dtype}")
     check_window(win, shift, H, W)
-    check_head_dim(C, num_heads)
+    check_head_dim(C, num_heads, BACKWARD_HEAD_DIMS)
     if N != win * win or w_off != 0:
         raise ValueError(f"backward kernel needs N = win² and w_off = 0: "
                          f"N={N} win={win} w_off={w_off}")

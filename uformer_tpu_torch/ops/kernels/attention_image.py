@@ -2,7 +2,7 @@
 
 Port of `uformer_tpu/ops/pallas/attention_image.py:fused_attention_image`
 (kernel source `csrc/attention_image.cu`), window 8 (as the JAX
-kernel, `attention_image.py:665`), head dim 8, 16 or 32. On the
+kernel, `attention_image.py:665`), head dim 8, 16, 32 or 64. On the
 H100 a window is little work at every width, so latency between small
 products sets the pace. In bf16 two persistent bodies on `mma.sync` read
 and write the NHWC image once: at C 16-64 (`csrc/attention_narrow_mma.cuh`)
@@ -14,10 +14,12 @@ takes 1-4 windows per work item with the weights streamed through a
 work item. Head dim 8 runs the narrow body at C 32 and 64 (its QKᵀ and
 O wo of depth 8 on mma.sync.m16n8k8) and the wide body at C 128 (16-wide
 products over zeroed pad columns; training reaches it, as the stage
-kernel runs only in eval). fp32 runs one window per block
-(`csrc/attention_window.cuh`). `attention_image_reference` is the plain
-PyTorch version with the JAX reference's signature
-(`attention_image.py:432`). Its backward, `fused_attention_image_bwd`
+kernel runs only in eval). Head dim 64 (`--embed_dim 64`, forward only)
+runs the narrow body at C 64 (one head) and the wide one at C 128-512
+(two windows a work item at most). fp32, and bf16 at C 1024, run one
+window per block (`csrc/attention_window.cuh`).
+`attention_image_reference` is the plain PyTorch version with the JAX
+reference's signature (`attention_image.py:432`). Its backward, `fused_attention_image_bwd`
 (kernel source `csrc/attention_bwd.cu`), takes head dim 8, 16 and 32, as
 the forward does.
 """
@@ -38,6 +40,8 @@ from uformer_tpu_torch.ops.kernels.attention_block import (
 )
 from uformer_tpu_torch.ops.kernels.wgrad import sm_count
 from uformer_tpu_torch.ops.kernels.window_attention import (
+    BACKWARD_HEAD_DIMS,
+    FORWARD_HEAD_DIMS,
     check_head_dim,
     check_window,
 )
@@ -70,12 +74,14 @@ NARROW_WIDTHS = (8, 16, 32, 64)  # C 8: head dim 8, kernel 5 only
 WIDE_WIDTHS = (128, 256, 512)
 
 
-def wide_windows(windows: int, sms: int, C: int) -> int:
+def wide_windows(windows: int, sms: int, C: int, D: int = 32) -> int:
     """Windows per work item of the wide body (`csrc/stage.cu:wide_windows`):
-    the most, up to 512 / C, that do not add a round of items over one
-    block per SM."""
+    the most, up to 512 / C (and 2 at head dim 64: four windows' q, k, v
+    and O tiles, 64 rows each, would not fit beside the weight ring,
+    `csrc/attention_mma.cuh:attn_wide_wn_fits`), that do not add a round
+    of items over one block per SM."""
     best, best_cost, wn = 1, None, 1
-    while wn * C <= 512:
+    while wn * C <= 512 and (D < 64 or wn <= 2):
         items = -(-windows // wn)
         cost = -(-items // sms) * wn  # rounds of items, each WN windows
         if best_cost is None or cost <= best_cost:
@@ -91,24 +97,24 @@ def attention_image_plan(windows: int, C: int, D: int, bf16: bool,
     most of 4, 2, 1 windows (one per group of four warps) that still
     leaves a work item per SM, the wide body at C 128-512 (head dim 8 at
     C 128) with `wide_windows`; else ("window", 1), one window per
-    block."""
+    block (fp32, and bf16 at C 1024)."""
     if bf16 and C in NARROW_WIDTHS and C >= D:
         for wn in (4, 2):
             if -(-windows // wn) >= sms:
                 return "narrow", wn
         return "narrow", 1
     if bf16 and C in WIDE_WIDTHS and (D != 8 or C == 128):
-        return "wide", wide_windows(windows, sms, C)
+        return "wide", wide_windows(windows, sms, C, D)
     return "window", 1
 
 
-def _check_geometry(x, win, shift, num_heads):
+def _check_geometry(x, win, shift, num_heads, dims=FORWARD_HEAD_DIMS):
     """Kernels 1 and 6's image-layout geometry: window 8; head dim in
-    HEAD_DIMS (in bf16 head dim 8 from C = 32, where JAX's image route
-    starts)."""
+    `dims` (the forward's or the backward's; in bf16 head dim 8 from C =
+    32, where JAX's image route starts)."""
     _, H, W, C = x.shape
     check_window(win, shift, H, W, windows=(8,))
-    check_head_dim(C, num_heads)
+    check_head_dim(C, num_heads, dims)
     if x.dtype == torch.bfloat16 and C // num_heads == 8 and C < 32:
         raise ValueError(f"bf16 kernel takes head dim 8 from C = 32: C={C}")
 
@@ -158,8 +164,10 @@ def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
         slots = _launch.resident_blocks("uf_attention_image_slots",
                                         dev.index, is_bf16, C, D, wn)
         grid = _launch.persistent_grid(-(-windows // wn), slots)
-    elif lib.uf_attention_needs_scratch(is_bf16, C, D):
-        scratch = torch.empty_like(x)
+    else:
+        regions = lib.uf_attention_needs_scratch(is_bf16, C, D)
+        scratch = (torch.empty((regions,) + x.shape, dtype=dt, device=dev)
+                   if regions else None)
     y = torch.empty_like(x)
     with torch.cuda.device(dev):
         err = lib.uf_attention_image(
@@ -235,7 +243,7 @@ def attention_image_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
                          f"{tuple(x.shape)} {x.dtype}")
-    _check_geometry(x, win, shift, num_heads)
+    _check_geometry(x, win, shift, num_heads, BACKWARD_HEAD_DIMS)
 
     def launch(lib, is_bf16, wn, hpb, *ptrs):
         return lib.uf_attention_bwd(

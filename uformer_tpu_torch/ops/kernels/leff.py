@@ -6,13 +6,15 @@ On the H100 the bound is the products at C >= 128 and the bytes of x and
 y below; the 4C-wide hidden never touches device memory. In bf16 the
 tensor-core tiles keep the second product's accumulator in registers:
 8 x 8 or 16 x 8 output tiles with the weights streamed through a
-cp.async ring at C 128-512, and persistent blocks over 8 x 16 tiles with
-the weights resident at C 16-64; they mask partial tiles, so any H and W
-run. fp32 (the exact-check path) keeps TH x 8 tiles, also masking
-partial ones (an embed-8 model's 4 x 4 bottleneck). C = 8 (an embed-8 model's outer stages) runs the narrow tile
-too, on its 32-wide hidden zero-padded to one 64-wide chunk (`pad_hidden`:
-exact, as GELU(0) = 0; the model pads once, in `LeFF.kernel_params`), and
-so does its backward, `fused_leff_bwd` (its products of depth 8 on
+cp.async ring at C 128-512 (4 x 8 at C = 1024, an `--embed_dim 64`
+model's bottleneck and dec0, hidden 4096), and persistent blocks over
+8 x 16 tiles with the weights resident at C 16-64; they mask partial
+tiles, so any H and W run. fp32 (the exact-check path) keeps TH x 8
+tiles, also masking partial ones (an embed-8 model's 4 x 4 bottleneck;
+1 x 8 at C = 1024). C = 8 (an embed-8 model's outer stages) runs the
+narrow tile too, on its 32-wide hidden zero-padded to one 64-wide chunk
+(`pad_hidden`: exact, as GELU(0) = 0; the model pads once, in
+`LeFF.kernel_params`), and so does its backward, `fused_leff_bwd` (its products of depth 8 on
 mma.sync.m16n8k8). `leff_reference` is the plain PyTorch version with
 the JAX reference's signature (`leff.py:504`).
 """
@@ -221,6 +223,10 @@ def leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
     if dy.shape != x.shape or dy.dtype != dt:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must match x "
                          f"{tuple(x.shape)} {dt}")
+    if C > 512:
+        raise ValueError(f"backward kernel takes C up to 512: C={C} (C 1024, "
+                         f"an --embed_dim 64 model's bottleneck and dec0: "
+                         f"ROADMAP.md, port queue 2 item 3)")
     lib = load()
     is_bf16 = int(dt == torch.bfloat16)
     tha = lib.uf_leff_bwd_tile_rows(0, is_bf16, C)

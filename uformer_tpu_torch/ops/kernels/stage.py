@@ -99,8 +99,9 @@ def fused_stage(x: torch.Tensor, p: Dict[str, torch.Tensor], *, scale: float,
         _launch.expect(p.get(name), name, shape, tdt, dev)
     out = torch.empty_like(x)
     buf = torch.empty_like(x)
-    scratch = (torch.empty_like(x) if lib.uf_attention_needs_scratch(
-        is_bf16, C, C // num_heads) else None)
+    regions = lib.uf_attention_needs_scratch(is_bf16, C, C // num_heads)
+    scratch = (torch.empty((regions,) + x.shape, dtype=dt, device=dev)
+               if regions else None)
     ptrs = [p[k].data_ptr() if (k != "mod" or has_mod) else None
             for k in STAGE_KEYS]
     with torch.cuda.device(dev):
