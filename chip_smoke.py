@@ -219,7 +219,7 @@ Phases, each raising on failure (no phase is caught):
                path). Uformer at embed 8, window 2: the forward through
                the kernels (18 attention-block and 18 LeFF launches) and
                its train step (18 launches of each of kernels 5, 6, 2 and
-               7, no plain call); an embed-64 step refused before any
+               7, no plain call); a window-17 step refused before any
                launch.
  19. train geometries - the backward at windows 1-8 and head dim 8:
                kernel 6 on packed tiles at windows 1-7 (shift 0 and win //
@@ -284,6 +284,29 @@ Phases, each raising on failure (no phase is caught):
                SIDD CLI in its default fp32 on one 256^2 frame at
                --embed_dim 64 (8/2/0/2, no plain call) against the plain
                path.
+ 22. head dim 64 training - head dim 64's backward. Kernel 6 in its
+               three layouts (image, 8x8 windows, packed 4x4 windows) at
+               head dim 64, C 64, 128, 512 and 1024, LN and the modulator
+               each way, shift 0 and win // 2, windows split over heads and
+               not; kernel 7 at C 1024 (hidden 4096), LN and residual each
+               way, on 16^2 and 12^2 images; kernels 4, 5 and 6 at windows
+               9, 12 and 16 at head dim 64 (C 64, 128, 1024): each against
+               its plain version (fp32, bf16 under phase 19's gates), each
+               backward run twice (equal bits), each call timed beside its
+               plain version and bound; kernel 4 alone at N 256, head dim
+               64, beside SDPA. Training cells (seeded 1248, 1249,
+               1270): Uformer at --embed_dim 64, train_ps 128 (bs8; 18
+               image-route and 18 LeFF launches each way) and 64 (bs32
+               64^2; 16/2/18), and --win_size 16 (bs8 128^2; 16/2/18
+               windowed / image / LeFF): their kernels at every training
+               geometry, one whole step kernel path against plain path,
+               bf16 steps timed in turns and each backward call against
+               its plain VJP and bound; the win-16 model served (4 bf16
+               requests of batch 8 at 256^2: 18 kernel-5 and 18 LeFF
+               launches, no plain call, against the plain path, timed per
+               kernel); the train CLI at --embed_dim 64 (16 steps of bs8 on
+               seeded 128^2 pairs: 18/18/18/18 launches a step, no plain
+               call, a loss that falls).
 
 Tolerances: fp32 max-abs <= 1e-4 * (1 + max|ref|); bf16 error against the
 fp32 plain result <= 1.5 x the bf16 plain version's error + 1e-3; for
@@ -303,7 +326,9 @@ forward, `launches_e8_win2_step` the embed-8 window-2 step's,
 `launches_train_ps64`, `_e8`, `_win4` and `_cli` a step's in phase 19;
 `launches_win16_serve` a request's in phase 20, `_train`, `_drop_*` and
 `_cli` a step's there; `launches_head64_e64`, `_e64ps64` a request's in
-phase 21, `_eval` the fp32 CLI frame's); the last line is {"ok": true,
+phase 21, `_eval` the fp32 CLI frame's; `launches_e64train_e64`,
+`_e64ps64`, `_e64win16` and `_cli` a step's in phase 22,
+`_serve_win16` a request's); the last line is {"ok": true,
 "device": {...}}.
 """
 
@@ -2729,9 +2754,9 @@ def refusal_checks(device) -> dict:
     through the kernels (18 attention-block and 18 LeFF launches, no plain
     call, finite output), and so does its train step (18 attention-block,
     18 attention-block-backward, 18 LeFF and 18 LeFF-backward launches, no
-    plain call, finite loss). An embed-64 model's step (head dim 64) is
-    still refused before any launch, naming the blocks. Returns the
-    forward's and the step's launches."""
+    plain call, finite loss). A model at window 17 (no kernel takes a
+    window above 16) has its step refused before any launch, naming the
+    blocks. Returns the forward's and the step's launches."""
     from uformer_tpu_torch import get_arch
     from uformer_tpu_torch.ops import kernels as K
     from uformer_tpu_torch.train import TrainState, make_optimizer, \
@@ -2767,7 +2792,7 @@ def refusal_checks(device) -> dict:
                            f"launches {step}, plain calls "
                            f"{K.plain_counts()}, loss {float(loss)}; "
                            f"expected {want}, none and a finite loss")
-    wide = get_arch({"arch": "Uformer", "embed_dim": 64,
+    wide = get_arch({"arch": "Uformer", "embed_dim": 8, "win_size": 17,
                      "train_ps": 32}).to(device)
     state = TrainState(wide, make_optimizer(wide.parameters(),
                                             lambda s: 2e-4))
@@ -2781,13 +2806,13 @@ def refusal_checks(device) -> dict:
     launched = {k: v for k, v in K.launch_counts().items() if v}
     plain = {k: v for k, v in K.plain_counts().items() if v}
     if refused is None or launched or plain:
-        raise RuntimeError(f"embed 64 train step on the card: refused "
+        raise RuntimeError(f"window 17 train step on the card: refused "
                            f"{refused}, launches {launched}, plain calls "
                            f"{plain}; expected refused before any launch")
     print(f"  embed 8, window 2 on the card: forward 18 attention-block "
           f"and 18 LeFF launches; train step 18/18/18/18 forward and "
           f"backward launches, loss {float(loss):.6f}, no plain call; "
-          f"embed 64 train step: {refused[:160]}", flush=True)
+          f"window 17 train step: {refused[:160]}", flush=True)
     return fwd, step
 
 
@@ -4217,6 +4242,44 @@ def _prm(inp: dict, device, low: tuple) -> dict:
         for dt in (torch.float32, torch.bfloat16)}
 
 
+class GoldenDraws:
+    """Operands drawn in order from one numpy generator by the golden
+    weights' rule (`tests/golden/generate.py:_seeded_value`, as every
+    seeded model here draws them): matrices N(0, 1 / fan-in), LayerNorm
+    scales 1 + N(0, 0.05²), biases N(0, 0.02²); inputs N(0, 1) on the
+    card, rounded to bf16-representable fp32 (`xin`)."""
+
+    def __init__(self, seed: int, device):
+        self.rng, self.device = np.random.default_rng(seed), device
+
+    def mat(self, *shape, fan_in):
+        return (self.rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
+            np.float32)
+
+    def scale(self, n):
+        return (1.0 + 0.05 * self.rng.standard_normal(n)).astype(np.float32)
+
+    def bias(self, n):
+        return (0.02 * self.rng.standard_normal(n)).astype(np.float32)
+
+    def xin(self, *shape):
+        return torch.from_numpy(self.mat(*shape, fan_in=1)).to(
+            self.device).bfloat16().float()
+
+    def attn_prm(self, C, nH, N, with_mod):
+        """An attention sub-block's operands as the model holds them: the
+        modulator (N, C), the bias table gathered to (nH, N, N), Linear
+        weights (out, in) taken as (in, out); `_prm`'s dict."""
+        mat, scale, bias = self.mat, self.scale, self.bias
+        return _prm(dict(mod=mat(N, C, fan_in=C) if with_mod else None,
+                         ln_s=scale(C), ln_b=bias(C),
+                         wq=mat(C, C, fan_in=C), bq=bias(C),
+                         wkv=mat(C, 2 * C, fan_in=C), bkv=bias(2 * C),
+                         wo=mat(C, C, fan_in=C), bo=bias(C),
+                         bias=mat(nH, N, N, fan_in=nH)), self.device,
+                    ("mod", "wq", "wkv", "wo"))
+
+
 def geometry_kernel_checks(checks: Checks, device) -> None:
     """Each extended kernel against its plain version at every new shape,
     fp32 (TF32 off) and bf16, by `compare`."""
@@ -4408,9 +4471,9 @@ def geometry_phase(tmp: Path, sd_golden, device, card: str) -> tuple:
     and 32 and of Uformer at embed 8 (then at win_size 4, batch 2), the
     SIDD CLI at --train_ps 64, the new calls timed against their plain
     versions and bounds, serve B's forward at train_ps 64 against 128 in
-    turns, and embed 8 at window 2 (forward through the kernels, train
-    step refused). Returns the checks, the summary and the launches per
-    path."""
+    turns, and embed 8 at window 2 (forward and train step through the
+    kernels; a window-17 step refused). Returns the checks, the summary
+    and the launches per path."""
     from uformer_tpu_torch.ops import kernels as K
 
     checks, summary, launches = Checks(), {"card": card}, {}
@@ -4573,33 +4636,9 @@ def geometry_bwd_checks(checks: Checks, device, seed: int = 19,
     the full run at that seed."""
     from uformer_tpu_torch.ops import kernels as K
 
-    rng = np.random.default_rng(seed)
-
-    def mat(*shape, fan_in):
-        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
-            np.float32)
-
-    def scale(n):
-        return (1.0 + 0.05 * rng.standard_normal(n)).astype(np.float32)
-
-    def bias(n):
-        return (0.02 * rng.standard_normal(n)).astype(np.float32)
-
-    def xin(*shape):
-        return torch.from_numpy(mat(*shape, fan_in=1)).to(device) \
-            .bfloat16().float()
-
-    def attn_prm(C, nH, N, with_mod):
-        # the model's tensors: the modulator (N, C), the bias table
-        # ((2 win - 1)^2, nH) gathered to (nH, N, N), Linear weights (out,
-        # in) taken as (in, out)
-        return _prm(dict(mod=mat(N, C, fan_in=C) if with_mod else None,
-                         ln_s=scale(C), ln_b=bias(C),
-                         wq=mat(C, C, fan_in=C), bq=bias(C),
-                         wkv=mat(C, 2 * C, fan_in=C), bkv=bias(2 * C),
-                         wo=mat(C, C, fan_in=C), bo=bias(C),
-                         bias=mat(nH, N, N, fan_in=nH)), device,
-                    ("mod", "wq", "wkv", "wo"))
+    draw = GoldenDraws(seed, device)
+    mat, scale, bias, xin, attn_prm = (draw.mat, draw.scale, draw.bias,
+                                       draw.xin, draw.attn_prm)
 
     def bwd_check(kernel, what, fused, plain, shape, C, has_ln):
         names = LEFF_GRADS if kernel == "leff_bwd" else ATTN_GRADS
@@ -4839,6 +4878,74 @@ def train_cli_run(tmp: Path, device, label: str, arch_args: list,
             "launches": trainer.steps[-1]["launches"]}
 
 
+def train_cell(checks: Checks, summary: dict, launches: dict, label: str,
+               opt: dict, seed: int, bs: int, side: int, expected: dict,
+               device, card: str) -> None:
+    """One training cell of phases 19 and 22: get_arch(opt) on weights
+    seeded from `seed`, its kernels at every training geometry at batch bs
+    (`train_kernel_checks`), one whole step of bs at side^2 kernel path
+    against plain path, fp32 and bf16 (`expected` launches; HELD_OWN_LOSS:
+    bf16 rows held, and the step from the fp32 loss gradient gated), then
+    bf16 steps timed and each backward call against its plain VJP and
+    bound. Adds to checks, summary (keys named with the label) and
+    launches."""
+    t1 = time.perf_counter()
+    sd = seeded_for(opt, seed)
+
+    def make(opt=opt, sd=sd):
+        return build_arch(opt, sd, device)
+
+    torch.backends.cudnn.deterministic = True
+    kchecks = train_kernel_checks(make(), device, bs)
+    schecks, info = whole_step_checks(
+        make, device, bs, f"train {label}", expected, res=side)
+    launches[label] = info["launches"]
+    summary[f"cotangent_{label}"] = cot = info["cotangent"]
+    subs = [kchecks, schecks]
+    if label in HELD_OWN_LOSS:
+        held = [r for r in schecks.rows if r["dtype"] == "bf16"]
+        schecks.rows = [r for r in schecks.rows if r["dtype"] != "bf16"]
+        schecks.failed = [f for f in schecks.failed if " bf16 " not in f]
+        worst = max(held, key=lambda r: r["err"] / r["bound"])
+        over = [r["what"] for r in held if not r["ok"]]
+        summary[f"held_{label}"] = {
+            "rows": held, "over_bound": over,
+            "worst": worst["err"] / worst["bound"],
+            "worst_what": worst["what"]}
+        print(f"  held, not gated: {label}'s bf16 step with its own "
+              f"loss, worst err/bound {worst['err'] / worst['bound']:.3f}"
+              f" ({worst['what']}), {len(over)} of {len(held)} "
+              f"gradients over their bound; the bf16 "
+              f"output gradient's rms error {cot['plain']['rms_rel']:.4f}"
+              f" (plain) {cot['kernel']['rms_rel']:.4f} (kernels), "
+              f"signs changed at {cot['plain']['sign_changed']:.5f} / "
+              f"{cot['kernel']['sign_changed']:.5f} of it, "
+              f"{cot['shared_sign_changes']:.3f} of them shared",
+              flush=True)
+        subs.append(whole_step_checks(
+            make, device, bs, f"train {label} fp32 cotangent", expected,
+            res=side, fp32_cotangent=True)[0])
+    for sub in subs:
+        checks.rows += sub.rows
+        checks.failed += sub.failed
+    torch.backends.cudnn.deterministic = False
+    model = make()
+    batch = train_batch(bs, 7, device, side)
+    steps = geometry_step_timing(model, batch, expected, label)
+    rows, totals = geometry_kernel_timing(model, bs, label)
+    summary[f"steps_{label}"] = steps
+    summary[f"timing_{label}"] = rows
+    summary[f"timing_totals_{label}"] = totals
+    summary[f"{label}_s"] = time.perf_counter() - t1
+    print(f"  {label} bs{bs} {side}^2 bf16 step: kernel path "
+          f"{steps['kernel_ms_median']:.3f} ms, plain path "
+          f"{steps['plain_ms_median']:.3f} ms, loss "
+          f"{steps['loss'][0]:.6f}; {time.perf_counter() - t1:.1f} s  "
+          f"[{card}]", flush=True)
+    del model, batch
+    torch.cuda.empty_cache()
+
+
 def train_geometry_phase(tmp: Path, device, card: str) -> tuple:
     """Phase 19: the backward kernels at every new shape (windows 1-7 on
     packed tiles, head dim 8 in both layouts, LeFF at C 8; kernel 1's wide
@@ -4858,61 +4965,8 @@ def train_geometry_phase(tmp: Path, device, card: str) -> tuple:
     seeded_bwd_checks(checks, device, DX_SEEDS[1:], c8_ln)
     summary["kernel_checks_s"] = time.perf_counter() - t0
     for label, (opt, seed, bs, side, expected) in TRAIN_GEOM.items():
-        t1 = time.perf_counter()
-        sd = seeded_for(opt, seed)
-
-        def make(opt=opt, sd=sd):
-            return build_arch(opt, sd, device)
-
-        torch.backends.cudnn.deterministic = True
-        kchecks = train_kernel_checks(make(), device, bs)
-        schecks, info = whole_step_checks(
-            make, device, bs, f"train {label}", expected, res=side)
-        launches[label] = info["launches"]
-        summary[f"cotangent_{label}"] = cot = info["cotangent"]
-        subs = [kchecks, schecks]
-        if label in HELD_OWN_LOSS:
-            held = [r for r in schecks.rows if r["dtype"] == "bf16"]
-            schecks.rows = [r for r in schecks.rows if r["dtype"] != "bf16"]
-            schecks.failed = [f for f in schecks.failed if " bf16 " not in f]
-            worst = max(held, key=lambda r: r["err"] / r["bound"])
-            over = [r["what"] for r in held if not r["ok"]]
-            summary[f"held_{label}"] = {
-                "rows": held, "over_bound": over,
-                "worst": worst["err"] / worst["bound"],
-                "worst_what": worst["what"]}
-            print(f"  held, not gated: {label}'s bf16 step with its own "
-                  f"loss, worst err/bound {worst['err'] / worst['bound']:.3f}"
-                  f" ({worst['what']}), {len(over)} of {len(held)} "
-                  f"gradients over their bound; the bf16 "
-                  f"output gradient's rms error {cot['plain']['rms_rel']:.4f}"
-                  f" (plain) {cot['kernel']['rms_rel']:.4f} (kernels), "
-                  f"signs changed at {cot['plain']['sign_changed']:.5f} / "
-                  f"{cot['kernel']['sign_changed']:.5f} of it, "
-                  f"{cot['shared_sign_changes']:.3f} of them shared",
-                  flush=True)
-            subs.append(whole_step_checks(
-                make, device, bs, f"train {label} fp32 cotangent", expected,
-                res=side, fp32_cotangent=True)[0])
-        for sub in subs:
-            checks.rows += sub.rows
-            checks.failed += sub.failed
-        torch.backends.cudnn.deterministic = False
-        model = make()
-        batch = train_batch(bs, 7, device, side)
-        steps = geometry_step_timing(model, batch, expected, label)
-        rows, totals = geometry_kernel_timing(model, bs, label)
-        summary[f"steps_{label}"] = steps
-        summary[f"timing_{label}"] = rows
-        summary[f"timing_totals_{label}"] = totals
-        summary[f"{label}_s"] = time.perf_counter() - t1
-        print(f"  {label} bs{bs} {side}^2 bf16 step: kernel path "
-              f"{steps['kernel_ms_median']:.3f} ms, plain path "
-              f"{steps['plain_ms_median']:.3f} ms, loss "
-              f"{steps['loss'][0]:.6f}; {time.perf_counter() - t1:.1f} s  "
-              f"[{card}]", flush=True)
-        del model, batch
-        torch.cuda.empty_cache()
+        train_cell(checks, summary, launches, label, opt, seed, bs, side,
+                   expected, device, card)
     summary["cli"] = geometry_cli(tmp, device)
     launches["cli"] = summary["cli"]["launches"]
     return checks, summary, launches
@@ -4980,15 +5034,8 @@ def wide_kernel_checks(checks: Checks, device, seed: int = 23) -> None:
     rule from `seed`; each backward run twice on one input, equal bits."""
     from uformer_tpu_torch.ops import kernels as K
 
-    rng = np.random.default_rng(seed)
-
-    def mat(*shape, fan_in):
-        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
-            np.float32)
-
-    def xin(*shape):
-        return torch.from_numpy(mat(*shape, fan_in=1)).to(device) \
-            .bfloat16().float()
+    draw = GoldenDraws(seed, device)
+    mat, xin = draw.mat, draw.xin
 
     for win in WIDE_CHECK_WINDOWS:
         N, H = win * win, 4 * win
@@ -5008,20 +5055,7 @@ def wide_kernel_checks(checks: Checks, device, seed: int = 23) -> None:
                         f"{Bw}, {N}, {D})", run(K.fused_window_attention),
                         run(K.window_attention_reference), xin(nH, Bw, N, D))
             for C, nH, has_ln, with_mod in WIDE_BLOCK_CASES:
-                prm = _prm(dict(
-                    mod=mat(N, C, fan_in=C) if with_mod else None,
-                    ln_s=(1.0 + 0.05 * rng.standard_normal(C)).astype(
-                        np.float32),
-                    ln_b=(0.02 * rng.standard_normal(C)).astype(np.float32),
-                    wq=mat(C, C, fan_in=C),
-                    bq=(0.02 * rng.standard_normal(C)).astype(np.float32),
-                    wkv=mat(C, 2 * C, fan_in=C),
-                    bkv=(0.02 * rng.standard_normal(2 * C)).astype(
-                        np.float32),
-                    wo=mat(C, C, fan_in=C),
-                    bo=(0.02 * rng.standard_normal(C)).astype(np.float32),
-                    bias=mat(nH, N, N, fan_in=nH)), device,
-                    ("mod", "wq", "wkv", "wo"))
+                prm = draw.attn_prm(C, nH, N, with_mod)
                 kw = dict(win=win, shift=shift, H=H, W=H,
                           scale=(C // nH) ** -0.5, num_heads=nH,
                           has_ln=has_ln)
@@ -5448,6 +5482,284 @@ def head64_phase(tmp: Path, device, card: str) -> tuple:
     return checks, summary, launches
 
 
+# phase 22, head dim 64's backward: kernel 6 in its three layouts (image,
+# 8x8 windows, packed 4x4 windows) at head dim 64 and C 64-1024, kernel 7
+# at C 1024 (hidden 4096), and kernels 4, 5 and 6 at windows 9-16 at head
+# dim 64. Kernel 6's cases: (layout, C, shift, has_ln, with_mod, residual,
+# count): count is (images, side) for the image layout, else windows.
+# Windows or tiles no more than half the SMs split their heads over blocks
+# at C >= 256 (`heads_per_block`); at C 512 and 1024 head dim 64 ends
+# every window through part_dxm (its kBig tile); each case runs both
+# (2 x 64^2: 128 windows, and the packed 403: 101 tiles, unsplit)
+H64_BWD_CASES = (
+    [("image", 64, 0, True, True, True, (2, 32)),
+     ("image", 64, 4, False, False, False, (2, 32)),
+     ("image", 128, 4, True, False, True, (2, 32)),
+     ("image", 128, 0, False, True, False, (2, 32)),
+     ("image", 512, 0, True, True, True, (2, 64)),
+     ("image", 512, 4, False, True, False, (2, 16)),
+     ("image", 1024, 4, True, True, True, (2, 16)),
+     ("image", 1024, 0, True, False, False, (2, 8)),
+     ("image", 1024, 4, False, True, True, (2, 64))]
+    + [("window", C, s, ln, mod, True, n) for C, s, ln, mod, n in (
+        (64, 0, True, True, 40), (64, 4, False, False, 40),
+        (128, 4, True, False, 40), (512, 0, True, True, 100),
+        (512, 4, False, True, 8), (1024, 4, True, True, 8),
+        (1024, 0, False, False, 100))]
+    + [("packed", C, s, ln, mod, True, n) for C, s, ln, mod, n in (
+        (64, 0, True, True, 67), (64, 2, False, False, 67),
+        (128, 2, True, True, 67), (512, 0, True, False, 35),
+        (512, 2, False, True, 403), (1024, 2, True, True, 35),
+        (1024, 0, False, True, 403))])
+# kernel 7 at C 1024: (B, H, W) with LN and residual each way; 12 x 12 is
+# no multiple of a tile's 8 columns
+H64_LEFF_SHAPES = ((2, 16, 16), (2, 12, 12))
+# kernels 4, 5 and 6 at windows 9, 12 and 16 at head dim 64: kernel 5 and
+# 6's (C, heads, has_ln, with_mod) (C 1024: the win-16 model's dec0 and
+# bottleneck) and kernel 4's (heads, head dim), each window at shift 0 and
+# win // 2, on WIDE_IMAGES images of 4 x 4 windows
+H64_WIDE_BLOCK_CASES = ((64, 1, True, True), (128, 2, False, True),
+                        (1024, 16, True, False))
+H64_WIDE_CORE_CASES = ((1, 64), (2, 64))
+H64_CORE_TIMING = (1, 512, 64)  # kernel 4 alone at N 256: (heads, windows, D)
+# the training cells (as TRAIN_GEOM): Uformer at embed 64 at --train_ps
+# 128 (bs8) and 64 (bs32: the 4 x 4 bottleneck on packed tiles), and at
+# --win_size 16 (bs8 128^2: every block at window 16 but the 8^2
+# bottleneck, on the image route), each a step's launches by JAX's routes
+E64_TRAIN = {
+    "e64": ({"arch": "Uformer", "embed_dim": 64, "train_ps": 128}, 1248, 8,
+            128, dict(NO_LAUNCHES, attention_image=18, attention_bwd=18,
+                      leff=18, leff_bwd=18)),
+    "e64ps64": ({"arch": "Uformer", "embed_dim": 64, "train_ps": 64}, 1249,
+                32, 64, dict(NO_LAUNCHES, attention_image=16,
+                             attention_bwd=16, attention_block=2,
+                             attention_block_bwd=2, leff=18, leff_bwd=18)),
+    "e64win16": ({"arch": "Uformer", "embed_dim": 64, "win_size": 16,
+                  "train_ps": 128}, 1270, 8, 128, WIDE_TRAIN_LAUNCHES),
+}
+# the win-16 model served: built at 256 (every block at window 16)
+E64_WIN16_SERVE = {"arch": "Uformer", "embed_dim": 64, "win_size": 16,
+                   "train_ps": RES_SERVE}
+# the train CLI at --embed_dim 64: train pairs, val pairs, batch, epochs
+E64_CLI_SET = (64, 2, 8, 2)
+
+
+def bwd_case(checks: Checks, kernel: str, what: str, fused, plain, shape,
+             xin, cost, card: str) -> dict:
+    """A backward kernel against its plain VJP on GEOM_DRAWS draws of x
+    and g (`pooled_grad_bound`), run twice on the last draw (equal bits),
+    then its bf16 call timed in turns with the plain VJP beside the bound
+    of `cost`. fused and plain map (x, g, dtype) to the gradients' dict."""
+    runs = []
+    for _ in range(GEOM_DRAWS):
+        x, g = xin(*shape), xin(*shape)
+        runs.append([f(*a) for f, a in (
+            (fused, (x, g, torch.float32)), (plain, (x, g, torch.float32)),
+            (plain, (x.bfloat16(), g.bfloat16(), torch.bfloat16)),
+            (fused, (x.bfloat16(), g.bfloat16(), torch.bfloat16)))])
+    n = len(checks.rows)
+    pooled_grad_bound(checks, kernel, what, runs)
+    x16, g16 = x.bfloat16(), g.bfloat16()
+    again = fused(x16, g16, torch.bfloat16)
+    differ = sum(a is not None and not torch.equal(a, again[k])
+                 for k, a in runs[-1][3].items())
+    checks.add(kernel, f"{what} repeat", float(differ), 0.0, "bits")
+
+    def k_fn():
+        return fused(x16, g16, torch.bfloat16)
+
+    def p_fn():
+        return plain(x16, g16, torch.bfloat16)
+
+    p1, k1, k2, p2 = (cuda_ms(p_fn, reps=3, warmup=1),
+                      cuda_ms(k_fn, reps=3, warmup=1),
+                      cuda_ms(k_fn, reps=3, warmup=1),
+                      cuda_ms(p_fn, reps=3, warmup=1))
+    t = {}
+    tally(t, kernel, (k1 + k2) / 2, (p1 + p2) / 2, cost)
+    rows = checks.rows[n:]
+    worst = max(rows, key=lambda r: r["err"] / max(r["bound"], 1e-30))
+    row = dict(t[kernel], what=what, bound_by=bound_by(t[kernel]),
+               worst=worst["err"] / max(worst["bound"], 1e-30),
+               worst_what=f"{worst['dtype']} {worst['what']}")
+    print(f"  {kernel:19s} {what:44s} worst err/bound {row['worst']:.3f}; "
+          f"bf16 kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})  [{card}]",
+          flush=True)
+    return row
+
+
+def head64_bwd_kernel_checks(checks: Checks, device, card: str,
+                             seed: int = 24) -> list:
+    """Kernel 6 at every H64_BWD_CASES case, kernel 7 at C 1024 on
+    H64_LEFF_SHAPES (LN and residual each way) and kernels 4, 5 and 6 at
+    windows 9, 12 and 16 at head dim 64, each against its plain version:
+    fp32 (TF32 off) within 1e-4 (1 + max|ref|), bf16 under phase 19's
+    gates, each backward run twice (equal bits), every call timed beside
+    its plain version and its bound (`attn_bwd_cost`, `bwd_cost` of
+    `leff_cost`, `attn_cost`, `core_cost`). Operands by the golden rule
+    from `seed`. Returns the timed rows."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    draw = GoldenDraws(seed, device)
+    mat, scale, bias, xin, attn_prm = (draw.mat, draw.scale, draw.bias,
+                                       draw.xin, draw.attn_prm)
+
+    def grads(fn, names, p, kw):
+        return lambda x, g, dt: dict(zip(names, fn(x, g, *p[dt].values(),
+                                                   **kw)))
+
+    rows = []
+    for layout, C, shift, has_ln, with_mod, residual, n in H64_BWD_CASES:
+        nH = C // 64
+        win = 4 if layout == "packed" else 8
+        N = win * win
+        prm = attn_prm(C, nH, N, with_mod)
+        if layout == "image":
+            B, side = n
+            shape, tokens = (B, side, side, C), B * side * side
+            kw = dict(win=8, shift=shift, scale=0.125, num_heads=nH,
+                      has_ln=has_ln, residual=residual)
+            kernel = "attention_bwd"
+            fused, plain = (grads(K.fused_attention_image_bwd, ATTN_GRADS,
+                                  prm, kw),
+                            grads(K.attention_image_vjp_reference,
+                                  ATTN_GRADS, prm, kw))
+        else:
+            shape, tokens = (n, N, C), n * N
+            kw = dict(win=win, shift=shift, H=16 * win, W=16 * win,
+                      scale=0.125, num_heads=nH, has_ln=has_ln)
+            kernel = "attention_block_bwd"
+            fused, plain = (grads(K.fused_attention_block_bwd, ATTN_GRADS,
+                                  prm, kw),
+                            grads(K.attention_block_vjp_reference,
+                                  ATTN_GRADS, prm, kw))
+        what = (f"{layout} C {C} D 64 {tuple(shape)} shift {shift} ln "
+                f"{int(has_ln)} mod {int(with_mod)} res {int(residual)}")
+        rows.append(bwd_case(checks, kernel, what, fused, plain, shape, xin,
+                             attn_bwd_cost(tokens, C, N), card))
+    C, Ch = 1024, 4096
+    lp = _prm(dict(w1=mat(C, Ch, fan_in=C), b1=bias(Ch),
+                   wd=mat(3, 3, Ch, fan_in=9), bd=bias(Ch),
+                   w2=mat(Ch, C, fan_in=Ch), ln_s=scale(C), ln_b=bias(C)),
+              device, ("w1", "wd", "w2"))
+    for (B, H, W), has_ln, residual in itertools.product(
+            H64_LEFF_SHAPES, (True, False), (True, False)):
+        def run(fn, has_ln=has_ln, residual=residual):
+            def call(x, g, dt):
+                p = lp[dt]
+                ln = (p["ln_s"], p["ln_b"]) if has_ln else (None, None)
+                return dict(zip(LEFF_GRADS, fn(
+                    x, g, *(p[k] for k in ("w1", "b1", "wd", "bd", "w2")),
+                    *ln, has_ln=has_ln, residual=residual)))
+            return call
+        tokens = B * H * W
+        rows.append(bwd_case(
+            checks, "leff_bwd", f"C 1024 {B}x{H}x{W} ln {int(has_ln)} res "
+            f"{int(residual)}", run(K.fused_leff_bwd),
+            run(K.leff_vjp_reference), (B, H, W, C), xin,
+            bwd_cost(leff_cost(tokens, C, Ch), tokens, C), card))
+    for win in WIDE_CHECK_WINDOWS:
+        N, H = win * win, 4 * win
+        Bw = WIDE_IMAGES * 16
+        for shift in (0, win // 2):
+            for nH, D in H64_WIDE_CORE_CASES:
+                k, v = xin(nH, Bw, N, D), xin(nH, Bw, N, D)
+                bias_t = torch.from_numpy(mat(nH, N, N, fan_in=nH)).to(device)
+                kw = dict(win=win, shift=shift, H=H, W=H, scale=D ** -0.5)
+
+                def run4(fn, kw=kw, k=k, v=v, bias_t=bias_t):
+                    return lambda x, dt: fn(x, k.to(dt), v.to(dt), bias_t,
+                                            **kw)
+
+                rows.append(timed_compare(
+                    checks, "window_attention",
+                    f"win {win} shift {shift} (nH, Bw, N, D)=({nH}, {Bw}, "
+                    f"{N}, {D})", run4(K.fused_window_attention),
+                    run4(K.window_attention_reference), xin(nH, Bw, N, D),
+                    core_cost(nH, Bw, D, N=N), card))
+            for C, nH, has_ln, with_mod in H64_WIDE_BLOCK_CASES:
+                prm = attn_prm(C, nH, N, with_mod)
+                kw = dict(win=win, shift=shift, H=H, W=H, scale=0.125,
+                          num_heads=nH, has_ln=has_ln)
+                what = (f"win {win} shift {shift} C {C} D 64 Bw {Bw} ln "
+                        f"{int(has_ln)} mod {int(with_mod)}")
+                rows.append(timed_compare(
+                    checks, "attention_block", what,
+                    lambda x, dt, p=prm, kw=kw: K.fused_attention_block(
+                        x, *p[dt].values(), **kw),
+                    lambda x, dt, p=prm, kw=kw: K.attention_block_reference(
+                        x, *p[dt].values(), **kw), xin(Bw, N, C),
+                    attn_cost(Bw * N, C, nH, mod=with_mod, ln=has_ln, N=N),
+                    card))
+                rows.append(bwd_case(
+                    checks, "attention_block_bwd", what,
+                    grads(K.fused_attention_block_bwd, ATTN_GRADS, prm, kw),
+                    grads(K.attention_block_vjp_reference, ATTN_GRADS, prm,
+                          kw), (Bw, N, C), xin,
+                    attn_bwd_cost(Bw * N, C, N), card))
+    torch.cuda.synchronize()
+    return rows
+
+
+def head64_train_phase(tmp: Path, device, card: str) -> tuple:
+    """Phase 22: head dim 64's backward (`head64_bwd_kernel_checks`);
+    kernel 4 alone at N 256, head dim 64, beside SDPA (H64_CORE_TIMING); the
+    training cells of E64_TRAIN by `train_cell` (each model's kernels at
+    its training geometries, one whole step kernel path against plain
+    path, bf16 steps and each backward call timed); the win-16 embed-64
+    model served (4 bf16 requests of batch 8 at 256^2, every block on
+    kernels 5 and 2 at window 16, no plain call, against the plain path,
+    timed per kernel); the train CLI at --embed_dim 64. Returns the
+    checks, the summary and the launches per path."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    checks, summary, launches = Checks(), {"card": card}, {}
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    summary["kernel_rows"] = head64_bwd_kernel_checks(checks, device, card)
+    torch.backends.cudnn.deterministic = False
+    gen = torch.Generator(device="cpu").manual_seed(22)
+    nH, Bw, D = H64_CORE_TIMING
+    q, k, v = (torch.randn((nH, Bw, 256, D), generator=gen)
+               .to(device, torch.bfloat16) for _ in range(3))
+    bias = (0.5 * torch.randn((nH, 256, 256), generator=gen)).to(device)
+    with torch.no_grad():
+        summary["core"] = time_core(q, k, v, bias, win=16, shift=8,
+                                    res=16 * int(round((Bw / 2) ** 0.5)))
+    summary["kernel_checks_s"] = time.perf_counter() - t0
+    for label, (opt, seed, bs, side, expected) in E64_TRAIN.items():
+        train_cell(checks, summary, launches, label, opt, seed, bs, side,
+                   expected, device, card)
+    t1 = time.perf_counter()
+    sd = seeded_for(E64_WIN16_SERVE, E64_TRAIN["e64win16"][1])
+    restorer, x, serve, _, schecks = serve_phase(
+        lambda: build_arch(E64_WIN16_SERVE, sd, device), device,
+        WIDE_SERVE_LAUNCHES, "serve e64 win16")
+    if any(K.plain_counts().values()):
+        raise RuntimeError(f"serve e64 win16: plain calls "
+                           f"{K.plain_counts()}")
+    checks.rows += schecks.rows
+    checks.failed += schecks.failed
+    launches["serve_win16"] = serve["launches_per_request"][0]
+    rows, totals, fwd = timing_phase(restorer, x)
+    summary.update(serve_win16=serve, timing_serve_win16=rows,
+                   timing_totals_serve_win16=totals, forward_win16=fwd,
+                   serve_win16_s=time.perf_counter() - t1)
+    print(f"  serve e64 win16 bs{BATCH_SERVE} {RES_SERVE}^2 bf16: "
+          f"{serve['median_ms']:.3f} ms a request, kernel path "
+          f"{fwd['kernel_ms']:.3f} ms against plain path "
+          f"{fwd['plain_ms']:.3f} ms a forward  [{card}]", flush=True)
+    del restorer, x
+    torch.cuda.empty_cache()
+    summary["cli"] = train_cli_run(
+        tmp, device, "train CLI e64", ["--arch", "Uformer", "--embed_dim",
+                                       "64"], RES_TRAIN, E64_CLI_SET,
+        dict(E64_TRAIN["e64"][4]))
+    launches["cli"] = summary["cli"]["launches"]
+    return checks, summary, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", type=Path, help="write the full report here")
@@ -5630,6 +5942,15 @@ def run(device, card: str, json_path) -> list:
     print(f"  phase 21 took {head64['s']:.1f} s", flush=True)
     gchecks21.raise_if_failed("head dim 64")
 
+    phase("head dim 64 training")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gchecks22, head64t, head64t_launches = head64_train_phase(
+            Path(tmp), device, card)
+    head64t["s"] = time.perf_counter() - t0
+    print(f"  phase 22 took {head64t['s']:.1f} s", flush=True)
+    gchecks22.raise_if_failed("head dim 64 training")
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas,
@@ -5659,7 +5980,9 @@ def run(device, card: str, json_path) -> list:
               "train_geometry_checks": gchecks19.rows,
               "train_geometries": train_geoms,
               "wide_window_checks": gchecks20.rows, "wide_windows": wide,
-              "head64_checks": gchecks21.rows, "head64": head64}
+              "head64_checks": gchecks21.rows, "head64": head64,
+              "head64_train_checks": gchecks22.rows,
+              "head64_train": head64t}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -5682,7 +6005,8 @@ def run(device, card: str, json_path) -> list:
                    + tkchecks.rows + ttkchecks.rows + dw_checks.rows
                    + tile_checks.rows + mchecks.rows + pchecks.rows
                    + gchecks18.rows + gchecks19.rows + gchecks20.rows
-                   + gchecks21.rows if r["kernel"] == name]
+                   + gchecks21.rows + gchecks22.rows
+                   if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
         # the first timing that has the kernel gives ms and its bound
@@ -5707,7 +6031,9 @@ def run(device, card: str, json_path) -> list:
                               + sum(kernel_count(c, name)
                                     for c in wide_launches.values())
                               + sum(kernel_count(c, name)
-                                    for c in head64_launches.values())),
+                                    for c in head64_launches.values())
+                              + sum(kernel_count(c, name)
+                                    for c in head64t_launches.values())),
                  "launches_serve": kernel_count(launches, name),
                  "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
@@ -5735,6 +6061,8 @@ def run(device, card: str, json_path) -> list:
                     for path, c in wide_launches.items()},
                  **{f"launches_head64_{path}": kernel_count(c, name)
                     for path, c in head64_launches.items()},
+                 **{f"launches_e64train_{path}": kernel_count(c, name)
+                    for path, c in head64t_launches.items()},
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -5770,7 +6098,7 @@ def run(device, card: str, json_path) -> list:
                 {k: c[k] for k in ("shape", "ms", "graph_ms", "plain_ms",
                                    "bound_ms", "library_ms")}
                 for c in core["more"] + [wide["core"]]
-                + head64["core_timing"]]
+                + head64["core_timing"] + [head64t["core"]]]
         for label, key, tt in (("serve Uformer_T", "serve_t", t_totals),
                                ("train Uformer_B", "train", ttotals),
                                ("train Uformer_T", "train_t", tttotals),
@@ -5796,7 +6124,15 @@ def run(device, card: str, json_path) -> list:
                                ("serve e64", "e64",
                                 head64["timing_totals_e64"]),
                                ("serve e64 train_ps 64", "e64ps64",
-                                head64["timing_totals_e64ps64"])):
+                                head64["timing_totals_e64ps64"]),
+                               ("train e64", "train_e64",
+                                head64t["timing_totals_e64"]),
+                               ("train e64 train_ps 64", "train_e64ps64",
+                                head64t["timing_totals_e64ps64"]),
+                               ("train e64 win16", "train_e64win16",
+                                head64t["timing_totals_e64win16"]),
+                               ("serve e64 win16", "serve_e64win16",
+                                head64t["timing_totals_serve_win16"])):
             if name in tt and label not in where:
                 entry.update({f"ms_{key}": tt[name]["ms"],
                               f"plain_ms_{key}": tt[name]["plain_ms"],

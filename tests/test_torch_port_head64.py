@@ -19,11 +19,12 @@ On the CPU, with numpy inputs from a seed and fp32 throughout, each within
     tests/test_torch_port_family.py cuts them) at 128^2 against JAX
     `get_arch` with attn_backend="jnp" on the same weights, carried across
     by the state_dict converter;
-  - the refusals: the forward checks take head dim 64 at windows 1-8,
-    head dim 128 and head dim 64 at windows 9-16 raise, the backward
-    check at head dim 64 raises naming ROADMAP queue 2 item 3, and an
-    embed-64 model's blocks name the training half
-    (`LeWinBlock.backward_gap`).
+  - the limits: the checks take head dim 64 both ways at windows 1-16;
+    head dim 128 raises naming ROADMAP queue 2 item 9 and window 17 item
+    2; every block of the embed-64 models has a backward kernel, and a
+    window-17 model's blocks name what is left
+    (`LeWinBlock.backward_gap`). Head dim 64's backward itself is held
+    against JAX in tests/test_torch_port_head64_bwd.py.
 The launch routes of the embed-64 model (8/2/0/2 at --train_ps 128,
 7/2/2/4 at 64) are cases of tests/test_torch_port_geometry.py's ROUTES.
 The tests marked `gpu` hold each extended kernel against its plain
@@ -46,6 +47,7 @@ from uformer_tpu_torch.ops.kernels.window_attention import (
     BACKWARD_HEAD_DIMS,
     FORWARD_HEAD_DIMS,
     check_head_dim,
+    check_window,
 )
 from uformer_tpu_torch.train.train_step import blocks_without_backward_kernel
 
@@ -297,41 +299,60 @@ def test_embed64_uformer_matches_jax(jx):
 # ---- the refusals -------------------------------------------------------------
 
 def test_forward_checks_take_head_dim_64():
-    assert FORWARD_HEAD_DIMS == (8, 16, 32, 64)
-    assert BACKWARD_HEAD_DIMS == (8, 16, 32)
+    """Head dim 64 is one of the kernels' head dims both ways (the
+    backward's since head dim 64's backward was ported), at every window
+    1-16."""
+    assert FORWARD_HEAD_DIMS == BACKWARD_HEAD_DIMS == (8, 16, 32, 64)
     for C, nH in ((64, 1), (128, 2), (512, 8), (1024, 16)):
-        for win in range(1, 9):
-            check_head_dim(C, nH, win=win)
+        check_head_dim(C, nH)
+        for win in range(1, 17):
+            check_window(win, win // 2, 2 * win, 2 * win)
 
 
 @pytest.mark.parametrize("C,nH,win", [(128, 1, 8), (1024, 8, 4),
                                       (2048, 16, 8), (64, 1, 9),
                                       (1024, 16, 16)])
 def test_head_dim_128_and_wide_windows_at_64_raise(C, nH, win):
-    """Head dim 128 has no kernel either way; head dim 64 runs at windows
-    1-8 only (windows 9-16 at head dim 64: ROADMAP queue 2 item 3)."""
-    with pytest.raises(ValueError, match="ROADMAP.md, port queue 2 item 3"):
-        check_head_dim(C, nH, win=win)
+    """Head dim 128 has no kernel either way (ROADMAP queue 2 item 9);
+    head dim 64 runs at every window 1-16, and a window of 17 has no
+    kernel at any head dim (queue 2 item 2)."""
+    if C // nH == 128:
+        with pytest.raises(ValueError,
+                           match="ROADMAP.md, port queue 2 item 9"):
+            check_head_dim(C, nH)
+    else:
+        check_head_dim(C, nH)
+        check_window(win, win // 2, 2 * win, 2 * win)
+    with pytest.raises(ValueError, match="ROADMAP.md, port queue 2 item 2"):
+        check_window(17, 8, 34, 34)
 
 
 @pytest.mark.parametrize("C,nH", [(64, 1), (1024, 16)])
 def test_backward_check_refuses_head_dim_64(C, nH):
-    with pytest.raises(ValueError, match="ROADMAP.md, port queue 2 item 3"):
-        check_head_dim(C, nH, BACKWARD_HEAD_DIMS)
+    """The backward check takes head dim 64 (C 64 and 1024, the embed-64
+    model's narrowest and widest blocks) and refuses head dim 128 (twice
+    the width at the same heads), naming ROADMAP queue 2 item 9."""
+    assert C // nH in BACKWARD_HEAD_DIMS
+    check_head_dim(C, nH)
+    with pytest.raises(ValueError, match="ROADMAP.md, port queue 2 item 9"):
+        check_head_dim(2 * C, nH)
 
 
 def test_embed64_backward_gap_names_the_training_half():
-    """Every block of an embed-64 model is refused by the train step (its
-    backward is the next slice), naming head dim 64's backward; its
-    forward routes are those of JAX (no refusal there)."""
-    for ps in (128, 64):
-        model = get_arch(dict(E64, train_ps=ps))
-        uncovered = blocks_without_backward_kernel(model)
-        assert len(uncovered) == 18
-        gap = model.get_submodule(uncovered[0]).backward_gap
-        assert gap == GEOMETRY_NOT_ON_KERNEL_PATH
-        assert "head dim 64's backward" in gap
-        assert "ROADMAP.md, port queue 2 items 2 and 3" in gap
+    """Every block of an embed-64 model has a backward kernel now, at
+    --train_ps 128 and 64 and at --win_size 16 (its gap is None, and the
+    train step refuses nothing); a model at window 17 is refused, naming
+    what is left (ROADMAP queue 2 items 2 and 9)."""
+    for opt in (E64, dict(E64, train_ps=64), dict(E64, win_size=16)):
+        model = get_arch(opt)
+        assert blocks_without_backward_kernel(model) == []
+        assert model.conv.blocks[0].backward_gap is None
+    model = get_arch(dict(E64, win_size=17, train_ps=32))
+    uncovered = blocks_without_backward_kernel(model)
+    assert len(uncovered) == 4
+    gap = model.get_submodule(uncovered[0]).backward_gap
+    assert gap == GEOMETRY_NOT_ON_KERNEL_PATH
+    assert "ROADMAP.md, port queue 2 items 2 and 9" in gap
 
 
 # ---- the kernels on the card ----------------------------------------------

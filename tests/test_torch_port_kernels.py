@@ -387,9 +387,9 @@ def test_backward_wrappers_refuse_bad_input_on_card():
     ainp = _attn_inputs(15, 1, 16, 16, 64, 2)
     ax = _t(ainp.pop("x"), dev)
     aprm = [_t(v, dev) for v in ainp.values()]
-    with pytest.raises(ValueError):  # head dim 64: the kernels take 16, 32
+    with pytest.raises(ValueError):  # C 64 over 3 heads: no head dim
         K.fused_attention_image_bwd(ax, ax, *aprm, win=8, shift=0,
-                                    scale=0.125, num_heads=1)
+                                    scale=0.125, num_heads=3)
     with pytest.raises(ValueError):  # not contiguous
         K.fused_attention_image_bwd(ax.transpose(1, 2), ax, *aprm, win=8,
                                     shift=0, scale=0.125, num_heads=2)

@@ -117,7 +117,7 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
                     : attention_block_narrow(p, D, Bw, wn, grid, s);
   }
   const int G = 64 / (win * win), tiles = (Bw + G - 1) / G;
-  return with_fwd_head_dim(C, nH, [&](auto d) {
+  return with_head_dim(C, nH, [&](auto d) {
     constexpr int Dd = decltype(d)::value;
     return packed ? launch<T, Dd, true>(p, tiles, s)
                   : launch<T, Dd>(p, Bw, s);

@@ -1,5 +1,5 @@
 // Backward of the windowed LeWin attention block for Hopper (sm_90a), head
-// dim 8, 16 or 32.
+// dim 8, 16, 32 or 64.
 //
 // Replaces uformer_tpu/ops/pallas/attention_block.py:
 // fused_attention_block_bwd in its own layout (its unpacked form; the
@@ -74,9 +74,8 @@ static int run(const AttnBwdParams<T>& p, int Bw, int wn, int hpb,
   if constexpr (std::is_same<T, bf16>::value) {
     return with_bwd_tile(p.C, p.nH, [&](auto c, auto d) {
       constexpr int C = decltype(c)::value, D = decltype(d)::value;
-      return launch_attn_bwd_mma(attention_block_bwd_mma_kernel<C, D>,
-                                 AttnBwdMma<C, D>::total, p, wn, Bw, hpb,
-                                 stream);
+      return launch_attn_bwd_mma<C, D>(attention_block_bwd_mma_kernel<C, D>,
+                                       p, wn, Bw, hpb, stream);
     });
   } else {
     return launch_attn_bwd(p, Bw, stream, [](auto d) {

@@ -68,9 +68,9 @@ int attention_block_bwd_packed(const AttnBwdParams<bf16>& p, int tiles,
                                int wn, int hpb, cudaStream_t stream) {
   return with_bwd_tile(p.C, p.nH, [&](auto c, auto d) {
     constexpr int C = decltype(c)::value, D = decltype(d)::value;
-    return launch_attn_bwd_mma(attention_block_bwd_packed_mma_kernel<C, D>,
-                               AttnBwdMma<C, D>::total, p, wn, tiles, hpb,
-                               stream);
+    return launch_attn_bwd_mma<C, D>(
+        attention_block_bwd_packed_mma_kernel<C, D>, p, wn, tiles, hpb,
+        stream);
   });
 }
 

@@ -1,6 +1,6 @@
 // Backward of the image-layout LeWin attention sub-block for Hopper
-// (sm_90a), head dim 16 or 32, and 8 (bf16: from C = 32, where the JAX
-// package's image route starts).
+// (sm_90a), head dim 16, 32 or 64, and 8 (bf16: from C = 32, where the
+// JAX package's image route starts).
 //
 // Replaces uformer_tpu/ops/pallas/attention_block.py:
 // fused_attention_block_bwd (and its pixel-packed narrow-C variant) as the
@@ -79,9 +79,8 @@ static int run(const AttnBwdParams<T>& p, int wn, int hpb,
   if constexpr (std::is_same<T, bf16>::value) {
     return with_bwd_tile<32>(p.C, p.nH, [&](auto c, auto d) {
       constexpr int C = decltype(c)::value, D = decltype(d)::value;
-      return launch_attn_bwd_mma(attention_bwd_mma_kernel<C, D>,
-                                 AttnBwdMma<C, D>::total, p, wn, n_win, hpb,
-                                 stream);
+      return launch_attn_bwd_mma<C, D>(attention_bwd_mma_kernel<C, D>, p,
+                                       wn, n_win, hpb, stream);
     });
   } else {
     return launch_attn_bwd(p, n_win, stream, [](auto d) {
@@ -94,20 +93,29 @@ static int run(const AttnBwdParams<T>& p, int wn, int hpb,
 
 extern "C" {
 
-// Bit 0: the window's xm tile, bit 1: its dO tile, misses shared memory;
-// the caller then passes a (windows, 64, C) scratch of the input's dtype.
-// C / nH is 8, 16 or 32 (checked by the caller).
+// fp32: bit 0: the window's xm tile, bit 1: its dO tile, misses shared
+// memory; the caller then passes a (windows, 64, C) scratch of the input's
+// dtype. bf16: bit 2: the tile is kBig (attention_bwd_mma.cuh), whose
+// every window ends through part_dxm, which the caller then passes with
+// or without a head split. C / nH is 8, 16, 32 or 64 (checked by the
+// caller).
 int uf_attention_bwd_scratch(int is_bf16, int C, int nH) {
-  return uf::attn_bwd_scratch(is_bf16 ? 2 : 4, C, nH);
+  if (is_bf16)
+    return uf::with_bwd_tile(C, nH, [](auto c, auto d) {
+      return uf::attn_bwd_big(decltype(c)::value, decltype(d)::value) ? 4
+                                                                      : 0;
+    });
+  return uf::attn_bwd_scratch(4, C, nH);
 }
 
 // Returns a cudaError_t. is_bf16 selects bf16 (else fp32) for x, g, mod,
-// the weight matrices and every per-token output; in bf16 (C 16-512 in
+// the weight matrices and every per-token output; in bf16 (C 16-1024 in
 // powers of 2, head dim 8 from C = 32, at most 16 heads) a block takes wn
 // windows and the partial sums are per block (ceil(windows / wn) rows),
-// or, with hpb < nH (wn 1),
-// hpb heads of one window, whose fp32 dxm shares go through part_dxm
-// (nH / hpb x windows x 64 x C floats); fp32 takes one window a block.
+// or, with hpb < nH (wn 1), hpb heads of one window, whose fp32 dxm
+// shares go through part_dxm (nH / hpb x windows x 64 x C floats; also
+// with hpb = nH where uf_attention_bwd_scratch sets bit 2); fp32 takes
+// one window a block.
 // Biases, LayerNorm parameters, the bias table and the partial sums are
 // fp32. mod, ln_s / ln_b (has_ln = 0), dmod_part, dln_part, the scratches
 // and part_dxm may be null where not needed.

@@ -2,10 +2,17 @@
 // building block (mma_tile.cuh): the function, roundings and outputs of
 // attention_window_bwd.cuh, with every product in mma.sync register
 // accumulators and the weights brought into shared memory by cp.async
-// rings. C = nH D in 8..512 (powers of 2), D 8, 16 or 32, at most 16
-// heads. Head dim 8 takes QK^T and dO v^T (depth D) on mma.sync.m16n8k8,
-// as C = 8 takes its projections and dxm (depth C), through warp_mma_k;
-// every other product keeps its depth of 16 or more.
+// rings. C = nH D in 8..1024 (powers of 2), D 8, 16, 32 or 64, at most
+// 16 heads. Head dim 8 takes QK^T and dO v^T (depth D) on
+// mma.sync.m16n8k8, as C = 8 takes its projections and dxm (depth C),
+// through warp_mma_k; every other product keeps its depth of 16 or more.
+// Head dim 64 at C 512 and 1024 (an --embed_dim 64 model's deepest
+// stages: kBig) misses shared memory with both 64 x C token tiles beside
+// the per-head buffers, so there g stays in device memory and comes in
+// through the ring with the tile of Wo it meets (64 x KQ beside D x KQ),
+// and the fp32 dxm goes out to part_dxm in column halves of 512 (64 x
+// 1024 fp32 would need 128 accumulators a thread): every window then ends
+// in attention_bwd_finish, which reads it back from there (L2).
 //
 // A block takes a work item of WN consecutive windows (the host picks WN
 // from the windows and the SMs: 1-4 at C <= 128, 1 above), one after
@@ -44,55 +51,74 @@
 namespace uf {
 
 // Whether attention_bwd_item has a tile for (C, D): C a power of 2 from D
-// to 512 with at most 16 heads (the fp32 dxm of 64 x C, over the buffers
-// of the per-head loop, then fits shared memory)
+// with at most 16 heads
 __host__ __device__ constexpr bool attn_bwd_mma_fits(int C, int D) {
-  return (D == 8 || D == 16 || D == 32) && C >= D && C <= 16 * D &&
-         (C & (C - 1)) == 0;
+  return (D == 8 || D == 16 || D == 32 || D == 64) && C >= D &&
+         C <= 16 * D && (C & (C - 1)) == 0;
+}
+
+// Whether the (C, D) tile streams g with Wo and ends every window through
+// part_dxm (the header's kBig)
+__host__ __device__ constexpr bool attn_bwd_big(int C, int D) {
+  return D == 64 && C >= 512;
 }
 
 template <int C, int D>
 struct AttnBwdMma {
   static_assert(attn_bwd_mma_fits(C, D), "no attention backward tile");
+  static constexpr bool kBig = attn_bwd_big(C, D);
   static constexpr int nH = C / D, NPN = D / 8;  // n8 tiles of a head
-  static constexpr int KQ = C < 128 ? C : 128;   // K of a weight tile
+  // K of a weight tile (kBig: beside a 64 x KQ tile of g in each slot)
+  static constexpr int KQ = kBig ? 32768 / C : C < 128 ? C : 128;
   static constexpr int NQ = C / KQ, TPH = 4 * NQ;
+  // a head's projection: warp w < 4 NG takes m16 tile w / NG and PNW n8
+  // tiles from 8 PNW (w % NG) (D 64: two n8 tiles a warp)
+  static constexpr int PNW = 4 * NPN > kWarps ? 4 * NPN / kWarps : 1;
+  static constexpr int NG = NPN / PNW;
   // K of a dxm tile: a divisor of 3C (8 at C = 8: an m16n8k8 product)
-  static constexpr int KX = C == 512 ? 16 : C >= 128 ? 32 : C;
+  static constexpr int KX = C >= 512 ? 16 : C >= 128 ? 32 : C;
+  // columns of one dxm pass: all of C, or halves of 512 at C = 1024
+  static constexpr int CN = C < 512 ? C : 512;
   static constexpr int ldx = C + 8, ldq = D + 8, ldp = 72, lda = C + 4;
   static constexpr int ldwq = D + 8, ldwo = KQ + 8, ldxa = KX + 8;
+  static constexpr int ldg = KQ + 8;  // kBig: a slot's tile of g
   // dxm: warp w takes MT2 m16 tiles from 16 MT2 (w / NW2) x NT2 n8 tiles
-  // from 8 NT2 (w % NW2); at C = 16 half the warps, at C = 8 a quarter
-  static constexpr int PP = C / 32;
+  // from 8 NT2 (w % NW2) of a pass; at C = 16 half the warps, at C = 8 a
+  // quarter
+  static constexpr int PP = CN / 32;
   static constexpr int NT2 = PP < 1 ? 1 : PP > 4 ? 4 : PP;
   static constexpr int MT2 = PP / NT2 < 1 ? 1 : PP / NT2;
-  static constexpr int NW2 = C / (8 * NT2), JOBS2 = NW2 * (4 / MT2);
+  static constexpr int NW2 = CN / (8 * NT2), JOBS2 = NW2 * (4 / MT2);
   static constexpr int kStages = 3;
-  static constexpr size_t kSlot =
+  static constexpr size_t kSlotW =
       align128(2 * (KQ * ldwq > D * ldwo ? KQ * ldwq : D * ldwo));
-  static constexpr size_t kSlotX = align128(2 * (64 + C) * ldxa);
+  static constexpr size_t kSlot =
+      kSlotW + (kBig ? align128(2 * 64 * ldg) : 0);
+  static constexpr size_t kSlotX = align128(2 * (64 + CN) * ldxa);
   static constexpr size_t pix = 0;
   static constexpr size_t rid = pix + align128(4 * 64);
   static constexpr size_t stats = rid + align128(4 * 64);
   static constexpr size_t red = stats + align128(4 * 128);  // 3 x 64 x 4
   static constexpr size_t x = red + align128(4 * 3 * 256);
-  static constexpr size_t g = x + align128(2 * 64 * ldx);
+  static constexpr size_t g = x + align128(2 * 64 * ldx);  // none if kBig
   static constexpr size_t kQ = align128(2 * 64 * ldq);
-  static constexpr size_t q = g + align128(2 * 64 * ldx);  // q, k, v, dO
+  static constexpr size_t q =                                // q, k, v, dO
+      g + (kBig ? 0 : align128(2 * 64 * ldx));
   static constexpr size_t kP = align128(2 * 64 * ldp);
   static constexpr size_t pt = q + 4 * kQ;                  // P, dS hi, lo
   static constexpr size_t ring = pt + 3 * kP;
   static constexpr size_t total = ring + kStages * kSlot;
-  // the dxm phase: its ring over x .., its fp32 result over g ..
+  // the dxm phase: its ring over x .., its fp32 result over g .. (kBig:
+  // in part_dxm)
   static_assert(x + kStages * kSlotX <= total, "dxm ring fits");
-  static_assert(g + 4 * 64 * lda <= total, "fp32 dxm fits");
+  static_assert(kBig || g + 4 * 64 * lda <= total, "fp32 dxm fits");
   static_assert(total <= kSmemLimit, "attention backward exceeds smem");
-  static_assert(JOBS2 <= kWarps, "dxm: a job a warp");
+  static_assert(JOBS2 <= kWarps && 4 * NG <= kWarps, "a job a warp");
   static_assert(3 * C % KX == 0 && 3 * C / KX >= kStages - 1, "dxm tiles");
 };
 
-// The end of a window's backward from its dxm (fp32 in shared memory, and
-// rounded to bf16 in X): the item's dmod share (the first window writes,
+// The end of a window's backward from its fp32 dxm (rows of ldm floats,
+// in shared memory or, kBig, in part_dxm): the item's dmod share (the first window writes,
 // the next add), the dln_s / dln_b shares from the fp32 dxm, as the TPU
 // kernel sums its fp32 product (attention_block.py:746-750), and the
 // LayerNorm VJP, one warp per token, on the fp32 dxm too (the TPU kernel's
@@ -104,14 +130,12 @@ struct AttnBwdMma {
 template <int C, int D, bool kPad>
 __device__ void attention_bwd_epilogue(const AttnBwdParams<bf16>& p,
                                        int item, bool first,
-                                       unsigned char* smem) {
+                                       unsigned char* smem,
+                                       const float* dxm, int lda) {
   using L = AttnBwdMma<C, D>;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int* pix = reinterpret_cast<const int*>(smem + L::pix);
   const float* stats = reinterpret_cast<const float*>(smem + L::stats);
-  const bf16* X = reinterpret_cast<const bf16*>(smem + L::x);
-  const float* dxm = reinterpret_cast<const float*>(smem + L::g);
-  constexpr int ldx = L::ldx, lda = L::lda;
   if (p.dmod_part) {
     float* dmod = p.dmod_part + (size_t)item * 64 * C;
     for (int i = tid; i < 64 * C; i += kThreads) {
@@ -140,7 +164,7 @@ __device__ void attention_bwd_epilogue(const AttnBwdParams<bf16>& p,
     if constexpr (kPad)
       if (pix[t] < 0) continue;
     const size_t at = (size_t)pix[t] * C;
-    const bf16* row = X + t * ldx;
+    const float* row = dxm + t * lda;
     const float mean = stats[2 * t], rstd = stats[2 * t + 1];
     float s1 = 0.f, s2 = 0.f;
     if (p.has_ln) {
@@ -154,10 +178,10 @@ __device__ void attention_bwd_epilogue(const AttnBwdParams<bf16>& p,
       s2 = warp_sum(s2) / C;
     }
     for (int c = lane; c < C; c += 32) {
-      float d = to_f<bf16>(row[c]);
+      float d = rnd<bf16>(row[c]);
       if (p.has_ln) {
         const float xh = (to_f<bf16>(p.x[at + c]) - mean) * rstd;
-        d = rstd * (dxm[t * lda + c] * p.ln_s[c] - s1 - xh * s2);
+        d = rstd * (row[c] * p.ln_s[c] - s1 - xh * s2);
       }
       if (p.residual) d = rnd<bf16>(d) + to_f<bf16>(p.g[at + c]);
       p.dx[at + c] = from_f<bf16>(d);
@@ -168,17 +192,19 @@ __device__ void attention_bwd_epilogue(const AttnBwdParams<bf16>& p,
 // Windows w0 .. w0 + nw - 1 (nw <= the item's WN) of the item `item`,
 // heads h0 .. h0 + hn - 1 of them; token_map(w, t, &pix, &rid) gives each
 // token's row and region id. With hn < nH (a window's heads split over
-// blockIdx.y, nw 1) the block writes its share of the window's fp32 dxm
-// to part_dxm, and attention_bwd_finish ends the window. kPad: the map
-// may mark padding rows (pix -1).
+// blockIdx.y, nw 1), and always for kBig, the block writes its share of
+// the window's fp32 dxm to part_dxm, and attention_bwd_finish ends the
+// window. kPad: the map may mark padding rows (pix -1).
 template <int C, int D, bool kPad = false, typename TokenMap>
 __device__ void attention_bwd_item(const AttnBwdParams<bf16>& p, int item,
                                    int w0, int nw, int h0, int hn,
                                    unsigned char* smem, TokenMap token_map) {
   using L = AttnBwdMma<C, D>;
+  constexpr bool kBig = L::kBig;
   constexpr int S = L::kStages, nH = L::nH, NPN = L::NPN, KQ = L::KQ,
-                NQ = L::NQ, TPH = L::TPH, KX = L::KX;
-  constexpr int ldx = L::ldx, ldq = L::ldq, ldp = L::ldp;
+                NQ = L::NQ, TPH = L::TPH, KX = L::KX, PNW = L::PNW,
+                NG = L::NG, CN = L::CN;
+  constexpr int ldx = L::ldx, ldq = L::ldq, ldp = L::ldp, ldg = L::ldg;
   constexpr int C3 = 3 * C;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t4 = lane & 3;
@@ -206,7 +232,9 @@ __device__ void attention_bwd_item(const AttnBwdParams<bf16>& p, int item,
     const bool first = wi == 0;
     // per head tile q: head h0 + q / TPH; s < 3 NQ: rows [KQ (s % NQ),
     // +KQ) x the head's D columns of wq, wk or wv (s / NQ); else the head's D
-    // rows of wo x columns [KQ (s - 3 NQ), +KQ)
+    // rows of wo x columns [KQ (s - 3 NQ), +KQ) (kBig: with g's 64 rows x
+    // the same columns after it, which needs pix: not among the first
+    // S - 1 tiles, issued before the token map)
     auto load_tile = [&](int qi) {
       bf16* dst = reinterpret_cast<bf16*>(ring + (qi % S) * L::kSlot);
       const int h = h0 + qi / TPH, s = qi % TPH;
@@ -229,36 +257,39 @@ __device__ void attention_bwd_item(const AttnBwdParams<bf16>& p, int item,
           cp_async16(dst + r * L::ldwo + v * 8,
                      p.wo + (size_t)(h * D + r) * C + c0 + v * 8);
         }
+        if constexpr (kBig) {
+          bf16* gt = reinterpret_cast<bf16*>(
+              reinterpret_cast<unsigned char*>(dst) + L::kSlotW);
+          for (int i = tid; i < 64 * vpr; i += kThreads) {
+            const int t = i / vpr, v = i % vpr;
+            const bool ok = !kPad || pix[t] >= 0;
+            cp_async16(gt + t * ldg + v * 8,
+                       ok ? p.g + (size_t)pix[t] * C + c0 + v * 8 : p.g, ok);
+          }
+        }
       }
     };
     const int T = hn * TPH;
+    static_assert(3 * NQ >= S - 1, "the first tiles read no g");
     for (int qi = 0; qi < S - 1; ++qi) {
       if (qi < T) load_tile(qi);
       cp_async_commit();
     }
 
-    // (1) tokens, xm = LN1(x) + mod into X, g into G
+    // (1) tokens, xm = LN1(x) + mod into X, g into G (kBig: g stays out)
     if (tid < 64) token_map(w, tid, pix + tid, rid + tid);
     __syncthreads();
     constexpr int vpr = C / 8;
     for (int idx = tid; idx < 64 * vpr; idx += kThreads) {
       const int t = idx / vpr, v = idx % vpr;
-      if constexpr (kPad) {
-        uint4 xv = make_uint4(0u, 0u, 0u, 0u), gv = xv;
-        if (pix[t] >= 0) {
-          const size_t at = (size_t)pix[t] * C + v * 8;
-          xv = *reinterpret_cast<const uint4*>(p.x + at);
-          gv = *reinterpret_cast<const uint4*>(p.g + at);
-        }
-        *reinterpret_cast<uint4*>(X + t * ldx + v * 8) = xv;
-        *reinterpret_cast<uint4*>(G + t * ldx + v * 8) = gv;
-      } else {
+      uint4 xv = make_uint4(0u, 0u, 0u, 0u), gv = xv;
+      if (!kPad || pix[t] >= 0) {
         const size_t at = (size_t)pix[t] * C + v * 8;
-        *reinterpret_cast<uint4*>(X + t * ldx + v * 8) =
-            *reinterpret_cast<const uint4*>(p.x + at);
-        *reinterpret_cast<uint4*>(G + t * ldx + v * 8) =
-            *reinterpret_cast<const uint4*>(p.g + at);
+        xv = *reinterpret_cast<const uint4*>(p.x + at);
+        if constexpr (!kBig) gv = *reinterpret_cast<const uint4*>(p.g + at);
       }
+      *reinterpret_cast<uint4*>(X + t * ldx + v * 8) = xv;
+      if constexpr (!kBig) *reinterpret_cast<uint4*>(G + t * ldx + v * 8) = gv;
     }
     __syncthreads();
     for (int t = warp; t < 64; t += kWarps)
@@ -273,9 +304,9 @@ __device__ void attention_bwd_item(const AttnBwdParams<bf16>& p, int item,
     bf16* dqkv = p.dqkv_w + (size_t)w * 64 * C3;
 
     // (2) per head
-    float acc[1][1][4];
-    const bool pjob = warp < 4 * NPN;
-    const int pm = warp / NPN, pn = (warp % NPN) * 8;
+    float acc[1][PNW][4];
+    const bool pjob = warp < 4 * NG;
+    const int pm = warp / NG, pn = (warp % NG) * 8 * PNW;
     for (int qi = 0; qi < T; ++qi) {
       cp_async_wait<S - 2>();
       __syncthreads();
@@ -288,27 +319,36 @@ __device__ void attention_bwd_item(const AttnBwdParams<bf16>& p, int item,
       const int c0 = h * D;
       if (pjob) {
         if (kt == 0) zero_acc(acc);
-        if (pass < 3)
-          warp_mma_k<1, 1, KQ>(acc, X + pm * 16 * ldx + kt * KQ, ldx,
-                               wt + pn, L::ldwq);
-        else
-          warp_mma_k<1, 1, KQ, true>(acc, G + pm * 16 * ldx + kt * KQ, ldx,
-                                     wt + pn * L::ldwo, L::ldwo);
+        if (pass < 3) {
+          warp_mma_k<1, PNW, KQ>(acc, X + pm * 16 * ldx + kt * KQ, ldx,
+                                 wt + pn, L::ldwq);
+        } else if constexpr (kBig) {
+          const bf16* gt = reinterpret_cast<const bf16*>(
+              reinterpret_cast<const unsigned char*>(wt) + L::kSlotW);
+          warp_mma_k<1, PNW, KQ, true>(acc, gt + pm * 16 * ldg, ldg,
+                                       wt + pn * L::ldwo, L::ldwo);
+        } else {
+          warp_mma_k<1, PNW, KQ, true>(acc, G + pm * 16 * ldx + kt * KQ,
+                                       ldx, wt + pn * L::ldwo, L::ldwo);
+        }
         if (kt == NQ - 1) {
           // + bias (q times the scale), bf16; dO_h rounded as it is
-          const int col = pn + 2 * t4;
           const float* bias =
               pass == 0 ? p.bq + c0 : p.bkv + (pass - 1) * C + c0;
-          const float b0 = pass < 3 ? bias[col] : 0.f;
-          const float b1 = pass < 3 ? bias[col + 1] : 0.f;
           const float sc = pass == 0 ? p.scale : 1.0f;
           bf16* dst = pass == 0 ? qs : pass == 1 ? ks : pass == 2 ? vs : dos;
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int row = pm * 16 + gq + 8 * hh;
-            *reinterpret_cast<uint32_t*>(dst + row * ldq + col) =
-                pack_bf16((acc[0][0][2 * hh] + b0) * sc,
-                          (acc[0][0][2 * hh + 1] + b1) * sc);
+          for (int n = 0; n < PNW; ++n) {
+            const int col = pn + n * 8 + 2 * t4;
+            const float b0 = pass < 3 ? bias[col] : 0.f;
+            const float b1 = pass < 3 ? bias[col + 1] : 0.f;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int row = pm * 16 + gq + 8 * hh;
+              *reinterpret_cast<uint32_t*>(dst + row * ldq + col) =
+                  pack_bf16((acc[0][n][2 * hh] + b0) * sc,
+                            (acc[0][n][2 * hh + 1] + b1) * sc);
+            }
           }
         }
       }
@@ -445,83 +485,86 @@ __device__ void attention_bwd_item(const AttnBwdParams<bf16>& p, int item,
 
     // (3) dxm = [dq | dk | dv] W^T over the heads' columns of each (K =
     // 3 hn D, all of 3C unsplit) in tiles of KX: the window's rows of
-    // dqkv_w and the C x KX columns of wq or wkv (N x K)
+    // dqkv_w and the CN x KX columns of wq or wkv (N x K), one pass per CN
+    // output columns
     const int tps = hn * D / KX;  // tiles of each of dq, dk, dv
-    auto load_x = [&](int qi) {
-      bf16* xa = reinterpret_cast<bf16*>(ringx + (qi % S) * L::kSlotX);
-      bf16* xb = xa + 64 * L::ldxa;
-      const int k0 = (qi / tps) * C + h0 * D + (qi % tps) * KX;
-      constexpr int vk = KX / 8;
-      for (int i = tid; i < 64 * vk; i += kThreads) {
-        const int r = i / vk, v = i % vk;
-        cp_async16(xa + r * L::ldxa + v * 8,
-                   dqkv + (size_t)r * C3 + k0 + v * 8);
-      }
-      const bf16* wsrc = k0 < C ? p.wq + k0 : p.wkv + (k0 - C);
-      const int ld = k0 < C ? C : 2 * C;
-      for (int i = tid; i < C * vk; i += kThreads) {
-        const int r = i / vk, v = i % vk;
-        cp_async16(xb + r * L::ldxa + v * 8, wsrc + (size_t)r * ld + v * 8);
-      }
-    };
     const int TX = 3 * tps;
-    for (int qi = 0; qi < S - 1; ++qi) {
-      if (qi < TX) load_x(qi);
-      cp_async_commit();
-    }
-    float accx[L::MT2][L::NT2][4];
-    zero_acc(accx);
+    const bool split = kBig || hn < nH;
+    float* part =
+        p.part_dxm + ((size_t)blockIdx.y * gridDim.x + item) * 64 * C;
     const bool xjob = warp < L::JOBS2;
     const int m2 = (warp / L::NW2) * 16 * L::MT2,
               n2 = (warp % L::NW2) * 8 * L::NT2;
-    for (int qi = 0; qi < TX; ++qi) {
-      cp_async_wait<S - 2>();
-      __syncthreads();
-      if (qi + S - 1 < TX) load_x(qi + S - 1);
-      cp_async_commit();
-      const bf16* xa =
-          reinterpret_cast<const bf16*>(ringx + (qi % S) * L::kSlotX);
-      const bf16* xb = xa + 64 * L::ldxa;
+    for (int nc = 0; nc < C; nc += CN) {
+      auto load_x = [&](int qi) {
+        bf16* xa = reinterpret_cast<bf16*>(ringx + (qi % S) * L::kSlotX);
+        bf16* xb = xa + 64 * L::ldxa;
+        const int k0 = (qi / tps) * C + h0 * D + (qi % tps) * KX;
+        constexpr int vk = KX / 8;
+        for (int i = tid; i < 64 * vk; i += kThreads) {
+          const int r = i / vk, v = i % vk;
+          cp_async16(xa + r * L::ldxa + v * 8,
+                     dqkv + (size_t)r * C3 + k0 + v * 8);
+        }
+        const bf16* wsrc = k0 < C ? p.wq + k0 : p.wkv + (k0 - C);
+        const int ld = k0 < C ? C : 2 * C;
+        for (int i = tid; i < CN * vk; i += kThreads) {
+          const int r = i / vk, v = i % vk;
+          cp_async16(xb + r * L::ldxa + v * 8,
+                     wsrc + (size_t)(nc + r) * ld + v * 8);
+        }
+      };
+      for (int qi = 0; qi < S - 1; ++qi) {
+        if (qi < TX) load_x(qi);
+        cp_async_commit();
+      }
+      float accx[L::MT2][L::NT2][4];
+      zero_acc(accx);
+      for (int qi = 0; qi < TX; ++qi) {
+        cp_async_wait<S - 2>();
+        __syncthreads();
+        if (qi + S - 1 < TX) load_x(qi + S - 1);
+        cp_async_commit();
+        const bf16* xa =
+            reinterpret_cast<const bf16*>(ringx + (qi % S) * L::kSlotX);
+        const bf16* xb = xa + 64 * L::ldxa;
+        if (xjob)
+          warp_mma_k<L::MT2, L::NT2, KX, true>(accx, xa + m2 * L::ldxa,
+                                               L::ldxa, xb + n2 * L::ldxa,
+                                               L::ldxa);
+      }
+      cp_async_wait<0>();
+      __syncthreads();  // the ring is free: G .. takes the fp32 dxm
       if (xjob)
-        warp_mma_k<L::MT2, L::NT2, KX, true>(accx, xa + m2 * L::ldxa,
-                                             L::ldxa, xb + n2 * L::ldxa,
-                                             L::ldxa);
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // the ring is free: X takes dxm rounded, G .. fp32
-    const bool split = hn < nH;
-    float* part =
-        p.part_dxm + ((size_t)blockIdx.y * gridDim.x + item) * 64 * C;
-    if (xjob)
 #pragma unroll
-      for (int mi = 0; mi < L::MT2; ++mi)
+        for (int mi = 0; mi < L::MT2; ++mi)
 #pragma unroll
-        for (int n = 0; n < L::NT2; ++n)
+          for (int n = 0; n < L::NT2; ++n)
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int t = m2 + mi * 16 + gq + 8 * hh;
-            const int col = n2 + n * 8 + 2 * t4;
-            const float v0 = accx[mi][n][2 * hh];
-            const float v1 = accx[mi][n][2 * hh + 1];
-            if (split) {
-              *reinterpret_cast<float2*>(part + t * C + col) =
-                  make_float2(v0, v1);
-              continue;
+            for (int hh = 0; hh < 2; ++hh) {
+              const int t = m2 + mi * 16 + gq + 8 * hh;
+              const int col = nc + n2 + n * 8 + 2 * t4;
+              const float2 v =
+                  make_float2(accx[mi][n][2 * hh], accx[mi][n][2 * hh + 1]);
+              if (split)
+                *reinterpret_cast<float2*>(part + t * C + col) = v;
+              else
+                *reinterpret_cast<float2*>(dxm + t * L::lda + col) = v;
             }
-            *reinterpret_cast<uint32_t*>(X + t * ldx + col) =
-                pack_bf16(v0, v1);
-            *reinterpret_cast<float2*>(dxm + t * L::lda + col) =
-                make_float2(v0, v1);
-          }
+    }
     __syncthreads();
-    if (!split) attention_bwd_epilogue<C, D, kPad>(p, item, first, smem);
+    if (!split)
+      attention_bwd_epilogue<C, D, kPad>(p, item, first, smem, dxm, L::lda);
     __syncthreads();  // the next window reuses every buffer
   }
 }
 
-// After a split: window w's dxm = its head groups' fp32 shares summed in
-// group order, its LN statistics recomputed from x (ln_row's), then the
-// epilogue. One block per window (its item). kPad as attention_bwd_item's.
+// After a split (and for every kBig window): window w's dxm = its head
+// groups' fp32 shares summed in group order, its LN statistics recomputed
+// from x (ln_row's), then the epilogue. One block per window (its item).
+// The sum goes into shared memory, or, kBig, into group 0's share in place
+// (each value read and written by one thread), which the epilogue then
+// reads. kPad as attention_bwd_item's.
 template <int C, int D, bool kPad = false, typename TokenMap>
 __device__ void attention_bwd_finish(const AttnBwdParams<bf16>& p, int w,
                                      int n_win, int groups,
@@ -532,16 +575,15 @@ __device__ void attention_bwd_finish(const AttnBwdParams<bf16>& p, int w,
   int* pix = reinterpret_cast<int*>(smem + L::pix);
   int* rid = reinterpret_cast<int*>(smem + L::rid);
   float* stats = reinterpret_cast<float*>(smem + L::stats);
-  bf16* X = reinterpret_cast<bf16*>(smem + L::x);
-  float* dxm = reinterpret_cast<float*>(smem + L::g);
+  float* dxm = L::kBig ? p.part_dxm + (size_t)w * 64 * C
+                       : reinterpret_cast<float*>(smem + L::g);
+  const int lda = L::kBig ? C : L::lda;
   if (tid < 64) token_map(w, tid, pix + tid, rid + tid);
-  for (int i = tid; i < 64 * C; i += kThreads) {
+  for (int i = tid; (!L::kBig || groups > 1) && i < 64 * C; i += kThreads) {
     float s = 0.f;
     for (int gi = 0; gi < groups; ++gi)
       s += p.part_dxm[((size_t)gi * n_win + w) * 64 * C + i];
-    const int t = i / C, c = i % C;
-    dxm[t * L::lda + c] = s;
-    X[t * L::ldx + c] = __float2bfloat16(s);
+    dxm[(i / C) * lda + i % C] = s;
   }
   __syncthreads();
   if (p.has_ln)
@@ -564,28 +606,31 @@ __device__ void attention_bwd_finish(const AttnBwdParams<bf16>& p, int w,
       }
     }
   __syncthreads();
-  attention_bwd_epilogue<C, D, kPad>(p, w, true, smem);
+  attention_bwd_epilogue<C, D, kPad>(p, w, true, smem, dxm, lda);
 }
 
 // Launches kernel(p, wn, n_win, hpb, 0), one block of kThreads threads
-// per work item of wn windows and group of hpb heads, with `smem` bytes of
-// shared memory; with the heads split (hpb < nH, wn 1), then
-// kernel(..., 1), the finish, one block per window. Returns a cudaError_t.
-template <typename K>
-int launch_attn_bwd_mma(K kernel, size_t smem, const AttnBwdParams<bf16>& p,
-                        int wn, int n_win, int hpb, cudaStream_t stream) {
+// per work item of wn windows and group of hpb heads, with the (C, D)
+// tile's shared memory; with the heads split (hpb < nH, wn 1) or kBig (wn
+// 1), then kernel(..., 1), the finish, one block per window. Returns a
+// cudaError_t.
+template <int C, int D, typename K>
+int launch_attn_bwd_mma(K kernel, const AttnBwdParams<bf16>& p, int wn,
+                        int n_win, int hpb, cudaStream_t stream) {
+  using L = AttnBwdMma<C, D>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::total);
   if (e != cudaSuccess) return (int)e;
   hpb = hpb < 1 || hpb > p.nH || p.nH % hpb ? p.nH : hpb;
   const int groups = p.nH / hpb;
-  wn = wn < 1 || groups > 1 ? 1 : wn;
+  const bool finish = groups > 1 || L::kBig;
+  wn = wn < 1 || finish ? 1 : wn;
   const dim3 grid((n_win + wn - 1) / wn, groups);
-  kernel<<<grid, kThreads, smem, stream>>>(p, wn, n_win, hpb, 0);
-  if (groups > 1) {
+  kernel<<<grid, kThreads, L::total, stream>>>(p, wn, n_win, hpb, 0);
+  if (finish) {
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    kernel<<<n_win, kThreads, smem, stream>>>(p, wn, n_win, hpb, 1);
+    kernel<<<n_win, kThreads, L::total, stream>>>(p, wn, n_win, hpb, 1);
   }
   return (int)cudaGetLastError();
 }
@@ -596,7 +641,7 @@ int launch_attn_bwd_mma(K kernel, size_t smem, const AttnBwdParams<bf16>& p,
 // blocks take it from C = 32 only).
 template <int kMinC8 = 8, typename F>
 int with_bwd_tile(int C, int nH, F f) {
-  return with_head_dim<true>(C, nH, [&](auto d) {
+  return with_head_dim(C, nH, [&](auto d) {
     constexpr int D = decltype(d)::value;
     int r = (int)cudaErrorInvalidValue;
     auto width = [&](auto c) {
@@ -611,6 +656,7 @@ int with_bwd_tile(int C, int nH, F f) {
     width(std::integral_constant<int, 128>{});
     width(std::integral_constant<int, 256>{});
     width(std::integral_constant<int, 512>{});
+    width(std::integral_constant<int, 1024>{});
     return r;
   });
 }

@@ -99,7 +99,7 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
     if (nH > 0 && C % nH == 0 && attn_wide_fits(C, D))
       return attention_image_wide(p, D, wn, grid, s);
   }
-  return with_fwd_head_dim(C, nH, [&](auto d) {
+  return with_head_dim(C, nH, [&](auto d) {
     return launch<T, decltype(d)::value>(p, s);
   });
 }

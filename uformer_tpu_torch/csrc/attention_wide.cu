@@ -663,17 +663,18 @@ __global__ void __launch_bounds__(kT)
   }
 }
 
-constexpr int kMaxCPerLane = 16;  // C <= 512
+constexpr int kMaxCPerLane = 32;  // C <= 1024
 
 // dx from the fp32 dxm: the LayerNorm VJP (statistics from x, as wide_xm
 // computes them) or, without LN, dxm rounded; a warp a token, block b
 // taking rows [b rows, (b + 1) rows) and writing its dln_s | dln_b sums
-// (2C, fp32, the warps' shares added in warp order) to dln_part[b].
+// (2C, fp32, the warps' shares added in warp order) to dln_part[b], dln_s
+// first, then dln_b through the same shared rows.
 template <typename T>
 __global__ void __launch_bounds__(kT)
     wide_ln_bwd(const T* x, const float* dxm, const float* ln_s, T* dx,
                 float* dln_part, int M, int C, int has_ln, int rows) {
-  __shared__ float red[kT / 32][2 * 512];
+  __shared__ float red[kT / 32][32 * kMaxCPerLane];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float ss[kMaxCPerLane], sb[kMaxCPerLane];
 #pragma unroll
@@ -721,19 +722,19 @@ __global__ void __launch_bounds__(kT)
     }
   }
   if (!has_ln) return;
+  for (int half = 0; half < 2; ++half) {
 #pragma unroll
-  for (int e = 0; e < kMaxCPerLane; ++e) {
-    const int c = lane + 32 * e;
-    if (c < C) {
-      red[warp][c] = ss[e];
-      red[warp][C + c] = sb[e];
+    for (int e = 0; e < kMaxCPerLane; ++e) {
+      const int c = lane + 32 * e;
+      if (c < C) red[warp][c] = half ? sb[e] : ss[e];
     }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < 2 * C; c += kT) {
-    float t = 0.f;
-    for (int wv = 0; wv < kT / 32; ++wv) t += red[wv][c];
-    dln_part[(size_t)blockIdx.x * 2 * C + c] = t;
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += kT) {
+      float t = 0.f;
+      for (int wv = 0; wv < kT / 32; ++wv) t += red[wv][c];
+      dln_part[(size_t)blockIdx.x * 2 * C + half * C + c] = t;
+    }
+    __syncthreads();
   }
 }
 
@@ -782,6 +783,7 @@ static int core_fwd_d(int D, const void* q, const void* k, const void* v,
     case 8: return core_fwd<T, 8>(Q, K, V, O, a, s);
     case 16: return core_fwd<T, 16>(Q, K, V, O, a, s);
     case 32: return core_fwd<T, 32>(Q, K, V, O, a, s);
+    case 64: return core_fwd<T, 64>(Q, K, V, O, a, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -795,6 +797,7 @@ static int core_bwd_d(int D, const void* qkv, void* o_tok, const BwdArgs& b,
     case 8: return core_bwd<T, 8>(Q, O, b, s);
     case 16: return core_bwd<T, 16>(Q, O, b, s);
     case 32: return core_bwd<T, 32>(Q, O, b, s);
+    case 64: return core_bwd<T, 64>(Q, O, b, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -947,7 +950,7 @@ int uf_wide_core_bwd(int is_bf16, const void* qkv, const float* dO,
 
 // dx (M, C) from the fp32 dxm (M, C): the LayerNorm VJP with has_ln (its
 // dln_s | dln_b sums of each block's `rows` rows into dln_part (blocks,
-// 2C)), else dxm rounded. C <= 512.
+// 2C)), else dxm rounded. C <= 1024.
 int uf_wide_ln_bwd(int is_bf16, const void* x, const float* dxm,
                    const float* ln_s, void* dx, float* dln_part, int M,
                    int C, int has_ln, int rows, int blocks, void* stream) {

@@ -291,25 +291,17 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
   }
 }
 
-// Calls f(std::integral_constant<int, D>{}) for the head dim C / nH and
-// returns its result; cudaErrorInvalidValue for a head dim without a
-// kernel (the wrappers check first). Head dim 8 with kHead8 (the bodies
-// of both ways take 8, 16 and 32).
-template <bool kHead8 = false, typename F>
+// Calls f(std::integral_constant<int, D>{}) for the head dim C / nH (8,
+// 16, 32 or 64: the bodies of both ways take each) and returns its result;
+// cudaErrorInvalidValue for a head dim without a kernel (the wrappers
+// check first).
+template <typename F>
 int with_head_dim(int C, int nH, F f) {
   if (nH > 0 && C == 16 * nH) return f(std::integral_constant<int, 16>{});
   if (nH > 0 && C == 32 * nH) return f(std::integral_constant<int, 32>{});
-  if constexpr (kHead8)
-    if (nH > 0 && C == 8 * nH) return f(std::integral_constant<int, 8>{});
-  return (int)cudaErrorInvalidValue;
-}
-
-// with_head_dim for the forward bodies: head dim 8, 16, 32 and 64 (an
-// --embed_dim 64 model's every block; its backward is not ported).
-template <typename F>
-int with_fwd_head_dim(int C, int nH, F f) {
+  if (nH > 0 && C == 8 * nH) return f(std::integral_constant<int, 8>{});
   if (nH > 0 && C == 64 * nH) return f(std::integral_constant<int, 64>{});
-  return with_head_dim<true>(C, nH, f);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Whether attention_window takes (dtype, C, D): a bf16 head of 8 only

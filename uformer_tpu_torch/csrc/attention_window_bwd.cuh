@@ -1,6 +1,6 @@
 // Backward of one 8x8 window of the LeWin attention sub-block, computed by
 // one thread block from its 64 gathered tokens, for head dim D in {8, 16,
-// 32} (as the forward, attention_window.cuh), in fp32: the exact-check path
+// 32, 64} (as the forward, attention_window.cuh), in fp32: the exact-check path
 // (bf16 runs attention_bwd_mma.cuh, the same function on mma.sync tiles).
 // attention_bwd.cu runs it on the image layout (tokens gathered at the
 // shifted coordinates); attention_block_bwd.cu on (Bw, 64, C) windows with
@@ -144,10 +144,10 @@ AttnBwdParams<T> attn_bwd_params(
 }
 
 // Bit 0: a window's xm tile, bit 1: its dO tile, misses shared memory at
-// head dim C / nH (8, 16 or 32; the wrappers check first); the caller then
+// head dim C / nH (8, 16, 32 or 64; the wrappers check first); the caller then
 // passes a (windows, 64, C) scratch of the input's dtype for it.
 inline int attn_bwd_scratch(int ts, int C, int nH) {
-  return with_head_dim<true>(C, nH, [&](auto d) {
+  return with_head_dim(C, nH, [&](auto d) {
     const auto L = attn_bwd_layout<decltype(d)::value>(ts, C);
     return (L.x_smem ? 0 : 1) | (L.do_smem ? 0 : 2);
   });
@@ -159,7 +159,7 @@ inline int attn_bwd_scratch(int ts, int C, int nH) {
 template <typename T, typename KernelOf>
 int launch_attn_bwd(const AttnBwdParams<T>& p, int windows,
                     cudaStream_t stream, KernelOf kernel_of) {
-  return with_head_dim<true>(p.C, p.nH, [&](auto d) {
+  return with_head_dim(p.C, p.nH, [&](auto d) {
     const auto L = attn_bwd_layout<decltype(d)::value>(sizeof(T), p.C);
     const auto kernel = kernel_of(d);
     cudaError_t e = cudaFuncSetAttribute(

@@ -84,9 +84,9 @@ __host__ __device__ inline LeffBwdLayout leff_bwd_layout(int which, int C,
 }
 
 __host__ __device__ inline int leff_bwd_tile_rows_f32(int which, int C) {
-  for (int th = 8; th > 2; th >>= 1)
+  for (int th = 8; th > 1; th >>= 1)
     if (leff_bwd_layout(which, C, th).total <= kSmemLimit) return th;
-  return 2;
+  return 1;  // C = 1024's kernel A
 }
 
 // halo pixel indices of tile `item` (-1 outside the image or padding
@@ -345,6 +345,7 @@ __host__ inline int leff_bwd_tile_rows(int which, int ts, int C) {
     case 128: return mma_rows<128>(which);
     case 256: return mma_rows<256>(which);
     case 512: return mma_rows<512>(which);
+    case 1024: return mma_rows<1024>(which);
   }
   return 0;
 }
@@ -443,6 +444,7 @@ static int run_bwd(int which, const void* x, const void* dy,
       case 128: return run_mma<128>(which, p, groups, s);
       case 256: return run_mma<256>(which, p, groups, s);
       case 512: return run_mma<512>(which, p, groups, s);
+      case 1024: return run_mma<1024>(which, p, groups, s);
     }
     return (int)cudaErrorInvalidValue;
   }
@@ -485,7 +487,7 @@ int uf_leff_dln_b(int is_bf16, const void* w1, const float* db1,
 // Output rows of a tile of backward kernel `which` (0: A, 1: B) for this
 // dtype and width: the tiles are TH x 8 outputs over a (B, ceil(H / TH),
 // ceil(W / 8)) grid, partial tiles masked. 0 where bf16 has no tile for
-// C (C other than 8-512 in powers of 2).
+// C (C other than 8-1024 in powers of 2).
 int uf_leff_bwd_tile_rows(int which, int is_bf16, int C) {
   return uf::leff_bwd_tile_rows(which, is_bf16 ? 2 : 4, C);
 }

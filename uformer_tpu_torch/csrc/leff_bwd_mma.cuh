@@ -1,8 +1,11 @@
 // The LeFF backward in bf16 on the tensor-core building block
 // (mma_tile.cuh): every product in mma.sync register accumulators, the
 // weights in 16-24 KB tiles through a ring of cp.async slots (the
-// forward's wide tile, leff_mma.cuh), C in 8..512 with Ch a multiple of
-// 64. The functions, roundings and outputs are leff_bwd.cu's kernels A
+// forward's wide tile, leff_mma.cuh), C in 8..1024 with Ch a multiple of
+// 64. At C = 1024 (an --embed_dim 64 model's bottleneck and dec0, hidden
+// 4096) the tiles shrink until the token tiles fit beside the ring (A: 2
+// x 8 outputs, B: 4 x 8) and B's dLN products take depth 8 (a W1 tile of
+// C x 8) on mma.sync.m16n8k8. The functions, roundings and outputs are leff_bwd.cu's kernels A
 // and B; only the order of fp32 sums differs. At C = 8 (an embed-8 model's
 // outer stages, its hidden of 32 zero-padded to one chunk by the host) the
 // products of depth C (h, dg, pre1) run on mma.sync.m16n8k8 (warp_mma_k),
@@ -88,7 +91,8 @@ struct TileGeom {
 template <int C>
 struct LeffBwdMma {
   static_assert(C == 8 || C == 16 || C == 32 || C == 64 || C == 128 ||
-                    C == 256 || C == 512, "LeFF backward tiles: C 8-512");
+                    C == 256 || C == 512 || C == 1024,
+                "LeFF backward tiles: C 8-1024");
   static constexpr int kc = kLeffChunk;
   static constexpr int KT = C < 128 ? C : 128;  // K rows of a weight tile
   static constexpr int P = C / KT;              // K tiles of one product
@@ -107,16 +111,18 @@ struct LeffBwdMma {
 template <int C>
 struct LeffBwdA {
   using Base = LeffBwdMma<C>;
-  static constexpr int TH = C == 512 ? 4 : C <= 64 ? 16 : 8;
+  static constexpr int TH = C == 1024 ? 2 : C == 512 ? 4 : C <= 64 ? 16 : 8;
   static constexpr int kHalo = (TH + 2) * 10, kOut = TH * 8;
-  static constexpr int kRows = (kHalo + 15) / 16 * 16;  // 64, 112, 192
+  static constexpr int kRows = (kHalo + 15) / 16 * 16;  // 48 .. 192
   // h on the halo: warp w < NJ1 takes MJ m16 tiles from 16 MJ (w / NC1) x
   // NJ n8 tiles from 8 NJ (w % NC1)
   static constexpr int MJ = TH == 16 ? 3 : 1, NJ = TH == 8 ? 4 : 2;
   static constexpr int NC1 = kLeffChunk / (8 * NJ);
   static constexpr int NJ1 = kRows / 16 / MJ * NC1;
-  // dg on the tile: warp w takes m16 tile w / NG2 and NJ2 n8 tiles
-  static constexpr int NJ2 = kOut / 32, NG2 = 8 / NJ2;
+  // dg on the tile: warp w < JOBG takes m16 tile w / NG2 and NJ2 n8 tiles
+  // (at TH = 2 half the warps)
+  static constexpr int NJ2 = kOut < 32 ? 1 : kOut / 32, NG2 = 8 / NJ2;
+  static constexpr int JOBG = kOut / 16 * NG2;
   static constexpr size_t xn = 0;
   static constexpr size_t dyt = xn + align128(2 * kRows * Base::ldx);
   static constexpr size_t h = dyt + align128(2 * kOut * Base::ldx);
@@ -131,7 +137,7 @@ struct LeffBwdA {
   static constexpr size_t opix = hpix + align128(4 * kRows);
   static constexpr size_t ring = opix + align128(4 * kOut);
   static constexpr size_t total = ring + Base::kStages * Base::kSlotA;
-  static_assert(NJ1 <= kWarps, "h: a job a warp");
+  static_assert(NJ1 <= kWarps && JOBG <= kWarps, "a job a warp");
   static_assert(total <= kSmemLimit, "LeFF backward A exceeds shared memory");
 };
 
@@ -215,6 +221,7 @@ __device__ void leff_bwd_a_tile(const LeffBwdParams<bf16>& p,
   float accg[1][L::NJ2][4];
   const bool job1 = warp < L::NJ1;
   const int mt1 = (warp / L::NC1) * L::MJ, n1 = (warp % L::NC1) * 8 * L::NJ;
+  const bool jobg = warp < L::JOBG;
   const int mg = warp / L::NG2, ng = (warp % L::NG2) * 8 * L::NJ2;
   const int j = tid & (kc - 1), grp = tid / kc;
   for (int q = 0; q < T; ++q) {
@@ -250,13 +257,16 @@ __device__ void leff_bwd_a_tile(const LeffBwdParams<bf16>& p,
       continue;
     }
     // dg = dy . W2[k0:k0+64, :]^T, K along the tiles
-    if (s == P) zero_acc(accg);
-    warp_mma_k<1, L::NJ2, KT, true>(accg, dyt + mg * 16 * ldx + (s - P) * KT,
-                                    ldx, wt + ng * B_::ldt, B_::ldt);
+    if (jobg) {
+      if (s == P) zero_acc(accg);
+      warp_mma_k<1, L::NJ2, KT, true>(accg,
+                                      dyt + mg * 16 * ldx + (s - P) * KT,
+                                      ldx, wt + ng * B_::ldt, B_::ldt);
+    }
     if (s < 2 * P - 1) continue;
     // dg into shared memory, unrounded
 #pragma unroll
-    for (int n = 0; n < L::NJ2; ++n)
+    for (int n = 0; jobg && n < L::NJ2; ++n)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int row = mg * 16 + gq + 8 * hh, col = ng + n * 8 + 2 * t4;
@@ -315,16 +325,19 @@ __device__ void leff_bwd_a_tile(const LeffBwdParams<bf16>& p,
 template <int C>
 struct LeffBwdB {
   using Base = LeffBwdMma<C>;
-  static constexpr int TH = C <= 64 ? 16 : 8;
+  static constexpr int TH = C == 1024 ? 4 : C <= 64 ? 16 : 8;
   static constexpr int kHalo = (TH + 2) * 10, kOut = TH * 8;
   static constexpr int kRows = (kHalo + 15) / 16 * 16;
   // pre1: warp w takes m16 tile w / NG1 and NJ1 n8 tiles of the chunk
   static constexpr int NJ1 = kOut / 32, NG1 = 8 / NJ1;
   // dLN: warp w < JOBS2 takes MT2 m16 tiles from 16 MT2 (w / NW2) x NT2
-  // n8 tiles from 8 NT2 (w % NW2); every warp but at C = 8 (half of them)
+  // n8 tiles from 8 NT2 (w % NW2); every warp but at C = 8 (half of them);
+  // at most the tile's kOut / 16 m16 tiles (C = 1024: 2 x 8)
   static constexpr int PP = kOut * C / 2048;
-  static constexpr int NT2 = PP < 1 ? 1 : PP < 4 ? PP : 4;
-  static constexpr int MT2 = PP / NT2 < 1 ? 1 : PP / NT2;
+  static constexpr int NT2a = PP < 1 ? 1 : PP < 4 ? PP : 4;
+  static constexpr int MT2a = PP / NT2a < 1 ? 1 : PP / NT2a;
+  static constexpr int MT2 = MT2a < kOut / 16 ? MT2a : kOut / 16;
+  static constexpr int NT2 = MT2 < MT2a ? PP / MT2 : NT2a;
   static constexpr int NW2 = C / (8 * NT2), JOBS2 = NW2 * (kOut / 16 / MT2);
   static constexpr int lda = C + 4;  // the epilogue's fp32 dLN rows
   static constexpr size_t stats = 0;
@@ -511,7 +524,7 @@ __device__ void leff_bwd_b_tile(const LeffBwdParams<bf16>& p,
     if (s >= P) {
       // dLN += dpre1 . W1[:, chunk]^T, K along the tiles
       if (xjob)
-        warp_mma<L::MT2, L::NT2, KW / 16, false, true>(
+        warp_mma_k<L::MT2, L::NT2, KW, true>(
             acc2, dp1s + m2 * ldh + (s - P) * KW, ldh, wt + n2 * B_::ldw,
             B_::ldw);
       continue;

@@ -305,7 +305,7 @@ static int run(const void* x, void* buf, void* out, void* scratch,
   p.use_shift = use_shift;
   p.scale = scale;
   auto s = static_cast<cudaStream_t>(stream);
-  return with_fwd_head_dim(C, nH, [&](auto d) {
+  return with_head_dim(C, nH, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if constexpr (std::is_same<T, bf16>::value) {
       if (C == 128) return launch_wide<D, 128>(p, s);

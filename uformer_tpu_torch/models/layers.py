@@ -35,7 +35,7 @@ the shift mask and the input-mask bias. A cross-modulator block first
 adds its cross-attention over all H*W tokens (`layers.py:722-738`). Then
 one LeFF kernel, or the plain `Mlp`. The attention-image, attention-block
 and LeFF kernels are differentiated by their backward kernels (windows
-1-16, head dim 8, 16 or 32, LeFF at C 8-512); `Mlp` and the
+1-16, head dim 8, 16, 32 or 64, LeFF at C 8-1024); `Mlp` and the
 cross-modulator's attention are plain
 PyTorch under autograd, as in JAX. The depthwise kernel has no backward,
 in JAX either (`train.train_step` refuses a conv-projection model on the
@@ -92,7 +92,7 @@ from uformer_tpu_torch.ops.kernels import (
 )
 from uformer_tpu_torch.ops.kernels.leff import pad_hidden
 from uformer_tpu_torch.ops.kernels.window_attention import (
-    BACKWARD_HEAD_DIMS,
+    HEAD_DIMS,
     WINDOWS,
 )
 from uformer_tpu_torch.ops.masks import input_mask_bias, shift_mask_on
@@ -108,12 +108,10 @@ from uformer_tpu_torch.ops.window import (
 Params = Dict[str, torch.Tensor]
 LEFF_MLPS = ("leff", "fastleff")  # fastleff: the same function and keys
 GEOMETRY_NOT_ON_KERNEL_PATH = (
-    f"the kernels take windows 1-16 and head dim in {BACKWARD_HEAD_DIMS} "
-    f"forward and backward, and head dim 64 (embed 64) forward only at "
-    f"windows 1-8; a window above 16, head dim 64's backward (and its "
-    f"C 1024 LeFF) and head dim 64 at windows 9-16 run on the plain path "
-    f"only (ROADMAP.md, port queue 2 items 2 and 3: windows above 16, "
-    f"head dim 64's backward)")
+    f"the kernels take windows 1-16 and head dim in {HEAD_DIMS} forward "
+    f"and backward; a window above 16 and any other head dim run on the "
+    f"plain path only (ROADMAP.md, port queue 2 items 2 and 9: windows "
+    f"above 16, other head dims)")
 
 
 class _Prepared:
@@ -628,16 +626,15 @@ class LeWinBlock(_Prepared, nn.Module):
         """Why the train step's kernel path cannot differentiate this
         block, or None. The attention backward kernels cover the image
         route and the windowed branch at windows 1-16 (below 8 on packed
-        tiles, above 8 `csrc/attention_wide.cu`) and head dim 8, 16 or 32
-        (the forward kernels take head dim 64 too), and the LeFF backward
-        kernel C 8-512;
+        tiles, above 8 `csrc/attention_wide.cu`) and head dim 8, 16, 32 or
+        64, and the LeFF backward kernel C 8-1024;
         Mlp and the cross-modulator's attention are plain PyTorch. Conv
         projection runs the depthwise kernel, which has no backward (in JAX
         either)."""
         if self.attn.token_projection == "conv":
             return DWCONV_BACKWARD_NOT_PORTED
         if self.win_size not in WINDOWS or self.dim % self.num_heads \
-                or self.dim // self.num_heads not in BACKWARD_HEAD_DIMS:
+                or self.dim // self.num_heads not in HEAD_DIMS:
             return GEOMETRY_NOT_ON_KERNEL_PATH
         return None
 

@@ -26,13 +26,13 @@ Head dim 8 runs at every C (bf16: the narrow body at C 8-64, a tile per
 block at C % 128 == 0). Windows of 9-16 (N = win² 81-256 tokens) run
 `csrc/attention_wide.cu` through `attention_wide`: the projections over
 64-row tiles of tokens, the core with a key-chunked online softmax, both
-ways, at any head dim 8, 16 or 32 (backward: C <= 512).
+ways, at any head dim 8, 16, 32 or 64.
 
 Its backward, `fused_attention_block_bwd`, is the port of
 `attention_block.py:fused_attention_block_bwd` in its own layout (kernel
 source `csrc/attention_block_bwd.cu`: in bf16 the tensor-core body
 `csrc/attention_bwd_mma.cuh`, in fp32 `csrc/attention_window_bwd.cuh`,
-with the identity token map), windows 1-8 and head dim 8, 16 or 32: at
+with the identity token map), windows 1-8 and head dim 8, 16, 32 or 64: at
 N < 64 on the forward's packed tiles (`csrc/attention_block_bwd_packed.cu`,
 the operands' tiles from `packed_operands`, the tile gradients of the bias
 and the modulator folded back by `fold_tile_bias`, `fold_tile_tokens`);
@@ -55,7 +55,6 @@ from uformer_tpu_torch.ops.kernels.attention_wide import (
 )
 from uformer_tpu_torch.ops.kernels.wgrad import colsum, sm_count, wgrad
 from uformer_tpu_torch.ops.kernels.window_attention import (
-    BACKWARD_HEAD_DIMS,
     TILE,
     check_head_dim,
     check_window,
@@ -114,7 +113,7 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
     _launch.check_input(x, "(Bw, N, C)")
     Bw, N, C = x.shape
     check_window(win, shift, H, W)
-    check_head_dim(C, num_heads, win=win)
+    check_head_dim(C, num_heads)
     if N != win * win or w_off < 0:
         raise ValueError(f"kernel needs N = win² and w_off >= 0: N={N} "
                          f"win={win} w_off={w_off}")
@@ -223,7 +222,7 @@ def attention_block_vjp_reference(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv,
                          has_ln, **kw)
 
 
-MMA_WIDTHS = (8, 16, 32, 64, 128, 256, 512)  # C of the bf16 backward tiles
+MMA_WIDTHS = (8, 16, 32, 64, 128, 256, 512, 1024)  # C of the bf16 tiles
 
 
 def windows_per_item(windows: int, C: int, sms: int) -> int:
@@ -248,8 +247,10 @@ def attention_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
     windows, or at N < 64 packed tiles of 64 // N windows of N tokens,
     whose mod and bias come as their (64, C) and (nH, 64, 64) tiles) and
     the partial sums of their work items (bf16: `windows_per_item` tiles
-    each, or `heads_per_block` heads of one tile, C 8-512 in powers of 2,
-    at most 16 heads; fp32: one tile), and returns ([(name, run)],
+    each, or `heads_per_block` heads of one tile, C 8-1024 in powers of 2,
+    at most 16 heads; fp32: one tile; head dim 64 at C 512 and 1024
+    writes every tile's fp32 dxm to part_dxm and ends it in a second
+    launch), and returns ([(name, run)],
     result): the body, launch(lib, is_bf16, wn, hpb, *pointers) (a C
     entry taking x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx,
     xm_w, dqkv_w, o_img, dbias_part, dmod_part, dln_part, x_scratch,
@@ -288,7 +289,7 @@ def attention_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
     def empty(*shape, dtype=dt):
         return torch.empty(*shape, dtype=dtype, device=dev)
 
-    need = 0 if is_bf16 else lib.uf_attention_bwd_scratch(0, C, num_heads)
+    need = lib.uf_attention_bwd_scratch(is_bf16, C, num_heads)
     x_scr = empty(M, C) if need & 1 else None
     do_scr = empty(M, C) if need & 2 else None
     dx, o_tok = torch.empty_like(x), torch.empty_like(x)
@@ -296,9 +297,10 @@ def attention_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
     dbias_p = empty(items, num_heads * 4096, dtype=f32)
     dmod_p = empty(items, 64 * C, dtype=f32) if mod is not None else None
     dln_p = empty(items, 2 * C, dtype=f32) if has_ln else None
-    # a window's heads split over blocks: their fp32 shares of dxm
+    # a window's heads split over blocks, or every window of a tile whose
+    # fp32 dxm misses shared memory (need & 4): their fp32 shares of dxm
     part_dxm = (empty(num_heads // hpb, windows, 64, C, dtype=f32)
-                if hpb < num_heads else None)
+                if hpb < num_heads or need & 4 else None)
     ptrs = (x.data_ptr(), g.data_ptr(), _launch.ptr(mod),
             _launch.ptr(ln_s) if has_ln else None,
             _launch.ptr(ln_b) if has_ln else None, wq.data_ptr(),
@@ -351,11 +353,11 @@ def heads_per_block(windows: int, C: int, num_heads: int, sms: int) -> int:
     takes: all of them, unless C >= 256 and the windows are no more than
     half the SMs; then the fewest groups (2, 4, 8) that give two blocks
     per SM, each group's dq, dk and dv columns a whole number of the dxm
-    product's K tiles (16 at C = 512, 32 at C = 256). (On an H100 the split
+    product's K tiles (16 at C 512 and 1024, 32 at C = 256). (On an H100 the split
     paid at 32 windows and lost at 128: PERF.md, PR 7.)"""
     if C < 256 or 2 * windows > sms:
         return num_heads
-    D, kx = C // num_heads, 16 if C == 512 else 32
+    D, kx = C // num_heads, 16 if C >= 512 else 32
     best = num_heads
     for groups in (2, 4, 8):
         hpb = num_heads // groups
@@ -391,9 +393,8 @@ def fused_attention_block_bwd(x: torch.Tensor, g: torch.Tensor,
     weight gradients are then reduced over every token by
     `csrc/wgrad.cu`. Inputs as `fused_attention_block` takes them. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernels
-    (win 1-16, head dim 8, 16 or 32, w_off 0: the JAX kernel has no
-    offset; above window 8 `csrc/attention_wide.cu`, C <= 512) or
-    raises."""
+    (win 1-16, head dim 8, 16, 32 or 64, w_off 0: the JAX kernel has no
+    offset; above window 8 `csrc/attention_wide.cu`) or raises."""
     kw = dict(win=win, shift=shift, H=H, W=W, scale=scale,
               num_heads=num_heads, has_ln=has_ln, w_off=w_off)
     if x.device.type == "cpu":
@@ -419,7 +420,7 @@ def attention_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
                          f"{tuple(x.shape)} {x.dtype}")
     check_window(win, shift, H, W)
-    check_head_dim(C, num_heads, BACKWARD_HEAD_DIMS)
+    check_head_dim(C, num_heads)
     if N != win * win or w_off != 0:
         raise ValueError(f"backward kernel needs N = win² and w_off = 0: "
                          f"N={N} win={win} w_off={w_off}")

@@ -14,14 +14,16 @@ takes 1-4 windows per work item with the weights streamed through a
 work item. Head dim 8 runs the narrow body at C 32 and 64 (its QKᵀ and
 O wo of depth 8 on mma.sync.m16n8k8) and the wide body at C 128 (16-wide
 products over zeroed pad columns; training reaches it, as the stage
-kernel runs only in eval). Head dim 64 (`--embed_dim 64`, forward only)
-runs the narrow body at C 64 (one head) and the wide one at C 128-512
-(two windows a work item at most). fp32, and bf16 at C 1024, run one
-window per block (`csrc/attention_window.cuh`).
+kernel runs only in eval). Head dim 64 (`--embed_dim 64`) runs the
+narrow body at C 64 (one head) and the wide one at C 128-512 (two
+windows a work item at most). fp32, and bf16 at C 1024, run one window
+per block (`csrc/attention_window.cuh`).
 `attention_image_reference` is the plain PyTorch version with the JAX
-reference's signature (`attention_image.py:432`). Its backward, `fused_attention_image_bwd`
-(kernel source `csrc/attention_bwd.cu`), takes head dim 8, 16 and 32, as
-the forward does.
+reference's signature (`attention_image.py:432`). Its backward,
+`fused_attention_image_bwd` (kernel source `csrc/attention_bwd.cu`),
+takes head dim 8, 16, 32 and 64, as the forward does (head dim 64 at C
+512 and 1024 with g streamed and dxm through device memory,
+`csrc/attention_bwd_mma.cuh`'s kBig).
 """
 
 from __future__ import annotations
@@ -40,8 +42,6 @@ from uformer_tpu_torch.ops.kernels.attention_block import (
 )
 from uformer_tpu_torch.ops.kernels.wgrad import sm_count
 from uformer_tpu_torch.ops.kernels.window_attention import (
-    BACKWARD_HEAD_DIMS,
-    FORWARD_HEAD_DIMS,
     check_head_dim,
     check_window,
 )
@@ -108,13 +108,13 @@ def attention_image_plan(windows: int, C: int, D: int, bf16: bool,
     return "window", 1
 
 
-def _check_geometry(x, win, shift, num_heads, dims=FORWARD_HEAD_DIMS):
+def _check_geometry(x, win, shift, num_heads):
     """Kernels 1 and 6's image-layout geometry: window 8; head dim in
-    `dims` (the forward's or the backward's; in bf16 head dim 8 from C =
-    32, where JAX's image route starts)."""
+    HEAD_DIMS (in bf16 head dim 8 from C = 32, where JAX's image route
+    starts)."""
     _, H, W, C = x.shape
     check_window(win, shift, H, W, windows=(8,))
-    check_head_dim(C, num_heads, dims)
+    check_head_dim(C, num_heads)
     if x.dtype == torch.bfloat16 and C // num_heads == 8 and C < 32:
         raise ValueError(f"bf16 kernel takes head dim 8 from C = 32: C={C}")
 
@@ -217,8 +217,8 @@ def fused_attention_image_bwd(x: torch.Tensor, g: torch.Tensor,
     VJP; the weight gradients are then reduced over every token by
     `csrc/wgrad.cu` (`attention_image_bwd_parts` lists the launches). Inputs as
     `fused_attention_image` takes them. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernels (win 8, head dim 8, 16 or
-    32; in bf16 head dim 8 from C = 32) or raises."""
+    version; a CUDA tensor launches the kernels (win 8, head dim 8, 16,
+    32 or 64; in bf16 head dim 8 from C = 32) or raises."""
     kw = dict(win=win, shift=shift, scale=scale, num_heads=num_heads,
               has_ln=has_ln, residual=residual)
     if x.device.type == "cpu":
@@ -243,7 +243,7 @@ def attention_image_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
                          f"{tuple(x.shape)} {x.dtype}")
-    _check_geometry(x, win, shift, num_heads, BACKWARD_HEAD_DIMS)
+    _check_geometry(x, win, shift, num_heads)
 
     def launch(lib, is_bf16, wn, hpb, *ptrs):
         return lib.uf_attention_bwd(

@@ -25,7 +25,7 @@ from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.kernels.wgrad import colsum, wgrad
 
-MAX_C = 512  # the LayerNorm VJP's lanes hold at most 16 channels each
+MAX_C = 1024  # the LayerNorm VJP's lanes hold at most 32 channels each
 LN_ROWS = 64  # tokens of one block of the LayerNorm VJP (its dln partial)
 
 

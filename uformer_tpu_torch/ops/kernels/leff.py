@@ -11,7 +11,8 @@ model's bottleneck and dec0, hidden 4096), and persistent blocks over
 8 x 16 tiles with the weights resident at C 16-64; they mask partial
 tiles, so any H and W run. fp32 (the exact-check path) keeps TH x 8
 tiles, also masking partial ones (an embed-8 model's 4 x 4 bottleneck;
-1 x 8 at C = 1024). C = 8 (an embed-8 model's outer stages) runs the
+1 x 8 at C = 1024). The backward takes C 8-1024 too (at C = 1024 2 x 8
+and 4 x 8 tiles in bf16, 1 x 8 and 2 x 8 in fp32). C = 8 (an embed-8 model's outer stages) runs the
 narrow tile too, on its 32-wide hidden zero-padded to one 64-wide chunk
 (`pad_hidden`: exact, as GELU(0) = 0; the model pads once, in
 `LeFF.kernel_params`), and so does its backward, `fused_leff_bwd` (its products of depth 8 on
@@ -164,7 +165,7 @@ def fused_leff_bwd(x: torch.Tensor, dy: torch.Tensor, w1, b1, wd, bd, w2,
 
     Kernel source `csrc/leff_bwd.cu` (two tile kernels that recompute the
     hidden from x; in bf16 the tensor-core tiles of `csrc/leff_bwd_mma.cuh`,
-    at C 8-512, their hidden chunks split over blocks where tiles are few,
+    at C 8-1024, their hidden chunks split over blocks where tiles are few,
     `chunks_per_block`), then the weight gradients reduced over every pixel
     by `csrc/wgrad.cu` (`leff_bwd_parts` lists the launches). Any H and W.
     Weights as `fused_leff` takes them: a hidden below HIDDEN_CHUNK (C = 8:
@@ -223,18 +224,14 @@ def leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
     if dy.shape != x.shape or dy.dtype != dt:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must match x "
                          f"{tuple(x.shape)} {dt}")
-    if C > 512:
-        raise ValueError(f"backward kernel takes C up to 512: C={C} (C 1024, "
-                         f"an --embed_dim 64 model's bottleneck and dec0: "
-                         f"ROADMAP.md, port queue 2 item 3)")
     lib = load()
     is_bf16 = int(dt == torch.bfloat16)
     tha = lib.uf_leff_bwd_tile_rows(0, is_bf16, C)
     thb = lib.uf_leff_bwd_tile_rows(1, is_bf16, C)
     if (C % 16 and C != 8) or Ch % HIDDEN_CHUNK or not tha:
         raise ValueError(f"kernel needs C = 8 or C % 16 == 0 (bf16: C 8, "
-                         f"16, ..., 512) and Ch % {HIDDEN_CHUNK} == 0: C={C} "
-                         f"Ch={Ch}")
+                         f"16, ..., 1024) and Ch % {HIDDEN_CHUNK} == 0: "
+                         f"C={C} Ch={Ch}")
     if has_ln:
         _launch.expect(ln_s, "ln_s", (C,), f32, dev)
         _launch.expect(ln_b, "ln_b", (C,), f32, dev)

@@ -21,9 +21,8 @@ window 8: the kernels take 64-row tiles of 64 // N whole windows
 windows of a tile, so each row weighs only its own window's keys); padding
 rows read as zeros and are never written. In bf16 a head of 8 takes its
 QKᵀ on mma.sync.m16n8k8. Head dim 64 (every block of an `--embed_dim 64`
-model) runs at windows 1-8 on the same bodies, forward only
-(`FORWARD_HEAD_DIMS`; its backward and windows 9-16 at head dim 64:
-ROADMAP.md, port queue 2 item 3).
+model) runs at every window 1-16 on the same bodies, both ways
+(`HEAD_DIMS`; other head dims: ROADMAP.md, port queue 2 item 9).
 
 Unlike the block kernels, which fold the softmax scale into q before
 rounding it, this kernel scales the float32 logits (the TPU kernel's
@@ -42,8 +41,8 @@ from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.kernels.attention_wide import wide_window_attention
 from uformer_tpu_torch.ops.masks import shift_window_mask
 
-FORWARD_HEAD_DIMS = (8, 16, 32, 64)  # the forward attention kernels' heads
-BACKWARD_HEAD_DIMS = (8, 16, 32)  # the backward kernels' (6 and 1's VJP)
+HEAD_DIMS = (8, 16, 32, 64)  # the attention kernels' heads, both ways
+FORWARD_HEAD_DIMS = BACKWARD_HEAD_DIMS = HEAD_DIMS
 WINDOWS = tuple(range(1, 17))  # kernels 4, 5 and 6: N = win² <= 256 tokens
 TILE = 64  # rows of a kernel's window tile
 
@@ -74,18 +73,14 @@ def check_window(win: int, shift: int, H: int, W: int,
                          f"ROADMAP.md, port queue 2 item 2)")
 
 
-def check_head_dim(C: int, num_heads: int, dims=FORWARD_HEAD_DIMS,
-                   win: int = 8) -> None:
-    """Raise unless the kernels take head dim C / num_heads: one of `dims`
-    (FORWARD_HEAD_DIMS, or BACKWARD_HEAD_DIMS for the backward kernels),
-    and head dim 64 only at windows 1-8 (N = win² <= 64)."""
+def check_head_dim(C: int, num_heads: int) -> None:
+    """Raise unless the kernels take head dim C / num_heads: one of
+    HEAD_DIMS, at every window the kernels take, both ways."""
     D = C // num_heads if num_heads > 0 and C % num_heads == 0 else None
-    if D not in dims or (D == 64 and win * win > TILE):
-        raise ValueError(f"kernel needs head dim in {tuple(dims)} (64: "
-                         f"forward, windows 1-8): C={C}, num_heads="
-                         f"{num_heads}, win={win} (head dim 64's backward "
-                         f"and windows 9-16: ROADMAP.md, port queue 2 item "
-                         f"3)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"kernel needs head dim in {HEAD_DIMS}: C={C}, "
+                         f"num_heads={num_heads} (other head dims: "
+                         f"ROADMAP.md, port queue 2 item 9)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,8 +174,8 @@ def window_attention_reference(q, k, v, bias, *, win, shift, H, W, scale):
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, *, win: int, shift: int,
                            H: int, W: int, scale: float) -> torch.Tensor:
-    """q, k, v: (nH, Bw, N, D), N = win² (win 1-16), D in
-    FORWARD_HEAD_DIMS (64 at win 1-8 only), float32 or bfloat16; bias
+    """q, k, v: (nH, Bw, N, D), N = win² (win 1-16), D in HEAD_DIMS,
+    float32 or bfloat16; bias
     (nH, N, N) float32. Returns (nH, Bw, N, D). A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel or raises."""
     if q.device.type == "cpu":
@@ -190,7 +185,7 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch.check_input(q, "(nH, Bw, N, D)")
     nH, Bw, N, D = q.shape
     check_window(win, shift, H, W)
-    check_head_dim(D, 1, win=win)
+    check_head_dim(D, 1)
     if N != win * win:
         raise ValueError(f"kernel needs N = win²: N={N} win={win}")
     for name, t in (("q", q), ("k", k), ("v", v)):
