@@ -184,7 +184,12 @@ Phases, each raising on failure (no phase is caught):
                78 launches a rank). Kernel 5 alone at every (stage, rank)
                shape of both forwards, each rank's w_off, against its
                plain version, and timed at C 32-512 against its plain
-               version and its bound. Then `torchrun --nproc_per_node 2 -m
+               version and its bound. Windows 2, 4, 16 and 32
+               (`--win_size`, embed 32): kernel 5 at every (stage, rank)
+               shape, each rank's w_off, on 2 and 4 ranks (window 32: 2,
+               at 512^2), and the 2-rank sharded forwards at windows 4,
+               16 (256^2) and 32 (512^2, its side unpadded) against the
+               unsharded kernel path. Then `torchrun --nproc_per_node 2 -m
                uformer_tpu_torch.train.cli --mesh_data 2` (gloo, cuda:0)
                for an epoch of 2 steps: the weights' crc32 equal on both
                ranks, one log, rank 0's .pth files. The ranks time-slice
@@ -219,8 +224,8 @@ Phases, each raising on failure (no phase is caught):
                path). Uformer at embed 8, window 2: the forward through
                the kernels (18 attention-block and 18 LeFF launches) and
                its train step (18 launches of each of kernels 5, 6, 2 and
-               7, no plain call); a window-17 step refused before any
-               launch.
+               7, no plain call); an embed-24 step (head dim 24) refused
+               before any launch.
  19. train geometries - the backward at windows 1-8 and head dim 8:
                kernel 6 on packed tiles at windows 1-7 (shift 0 and win //
                2, pad rows, partial last tiles) and at head dim 8 in both
@@ -307,6 +312,26 @@ Phases, each raising on failure (no phase is caught):
                kernel); the train CLI at --embed_dim 64 (16 steps of bs8 on
                seeded 128^2 pairs: 18/18/18/18 launches a step, no plain
                call, a loss that falls).
+ 23. windows above 16 - kernels 4, 5 and 6 at windows 17, 24 and 32 (N
+               289, 576, 1024), shift 0 and win // 2, head dims 8, 32 and
+               64, LN and the modulator each way, C 1024 at window 32, and
+               kernels 5 and 6 at window 64 (N 4096): each against its
+               plain version (fp32, bf16 under phase 19's gates), each
+               backward run twice (equal bits) and at window 32 again with
+               its dS in groups of one head of one window (equal bits on
+               two runs, and to one group but dbias), each call timed
+               beside its plain version and bound; kernel 4 alone at N
+               1024 beside SDPA. The win-32 model (`--arch Uformer
+               --embed_dim 32 --win_size 32`, seeded 1271) served (4 bf16
+               requests of batch 8 at 256^2: 18 kernel-5 and 18 LeFF
+               launches, no plain call, against the plain path, timed per
+               kernel) and trained at --train_ps 128 (bs8: 16/2/18
+               windowed / image / LeFF each way; its kernels at every
+               training geometry, one whole step kernel path against
+               plain path, bf16 steps and each backward call timed; the
+               step's peak memory with dS in groups within the 256 MiB
+               budget, beside a single group's buffer); the train CLI at
+               --win_size 32 (16 steps of bs4 on seeded 128^2 pairs).
 
 Tolerances: fp32 max-abs <= 1e-4 * (1 + max|ref|); bf16 error against the
 fp32 plain result <= 1.5 x the bf16 plain version's error + 1e-3; for
@@ -328,7 +353,8 @@ forward, `launches_e8_win2_step` the embed-8 window-2 step's,
 `_cli` a step's there; `launches_head64_e64`, `_e64ps64` a request's in
 phase 21, `_eval` the fp32 CLI frame's; `launches_e64train_e64`,
 `_e64ps64`, `_e64win16` and `_cli` a step's in phase 22,
-`_serve_win16` a request's); the last line is {"ok": true,
+`_serve_win16` a request's; `launches_win32_serve` a request's in phase
+23, `_train` and `_cli` a step's there); the last line is {"ok": true,
 "device": {...}}.
 """
 
@@ -2754,9 +2780,10 @@ def refusal_checks(device) -> dict:
     through the kernels (18 attention-block and 18 LeFF launches, no plain
     call, finite output), and so does its train step (18 attention-block,
     18 attention-block-backward, 18 LeFF and 18 LeFF-backward launches, no
-    plain call, finite loss). A model at window 17 (no kernel takes a
-    window above 16) has its step refused before any launch, naming the
-    blocks. Returns the forward's and the step's launches."""
+    plain call, finite loss). A model at embed 24 (head dim 24 in every
+    block, which no kernel takes: ROADMAP queue 2 item 9) has its step
+    refused before any launch, naming the blocks. Returns the forward's
+    and the step's launches."""
     from uformer_tpu_torch import get_arch
     from uformer_tpu_torch.ops import kernels as K
     from uformer_tpu_torch.train import TrainState, make_optimizer, \
@@ -2792,27 +2819,27 @@ def refusal_checks(device) -> dict:
                            f"launches {step}, plain calls "
                            f"{K.plain_counts()}, loss {float(loss)}; "
                            f"expected {want}, none and a finite loss")
-    wide = get_arch({"arch": "Uformer", "embed_dim": 8, "win_size": 17,
-                     "train_ps": 32}).to(device)
-    state = TrainState(wide, make_optimizer(wide.parameters(),
-                                            lambda s: 2e-4))
+    odd = get_arch({"arch": "Uformer", "embed_dim": 24,
+                    "train_ps": 32}).to(device)
+    state = TrainState(odd, make_optimizer(odd.parameters(),
+                                           lambda s: 2e-4))
     K.reset_counts()
     refused = None
     try:
-        make_train_step(wide)(state, {"input": x, "target": x},
-                              torch.Generator())
+        make_train_step(odd)(state, {"input": x, "target": x},
+                             torch.Generator())
     except NotImplementedError as exc:
         refused = str(exc)
     launched = {k: v for k, v in K.launch_counts().items() if v}
     plain = {k: v for k, v in K.plain_counts().items() if v}
     if refused is None or launched or plain:
-        raise RuntimeError(f"window 17 train step on the card: refused "
+        raise RuntimeError(f"embed 24 train step on the card: refused "
                            f"{refused}, launches {launched}, plain calls "
                            f"{plain}; expected refused before any launch")
     print(f"  embed 8, window 2 on the card: forward 18 attention-block "
           f"and 18 LeFF launches; train step 18/18/18/18 forward and "
           f"backward launches, loss {float(loss):.6f}, no plain call; "
-          f"window 17 train step: {refused[:160]}", flush=True)
+          f"embed 24 train step: {refused[:160]}", flush=True)
     return fwd, step
 
 
@@ -3483,16 +3510,20 @@ SPATIAL_LAUNCHES = dict(dict.fromkeys(EXPECTED_LAUNCHES, 0),
 # of the batch of 2), the bottleneck (2 blocks) gathered, one launch each
 SPATIAL4_LAUNCHES = dict(SPATIAL_LAUNCHES, attention_block=38 * 2 + 2)
 # the spatial path at windows other than 8: `--arch Uformer --embed_dim 32
-# --win_size W` built at 256^2 (every stage at window W), seeded weights.
-# Kernel 5 alone at every (stage, rank) shape on 2 and 4 ranks at windows
-# 2 and 4 (packed tiles) and 16 (csrc/attention_wide.cu); the whole
-# sharded forward of one 256^2 image on 2 ranks at windows 4 and 16
+# --win_size W` built at 256^2 (every stage at window W but the 16^2
+# bottleneck at window 32, which runs at 16), seeded weights. Kernel 5
+# alone at every (stage, rank) shape on SPATIAL_WIN_WORLDS ranks at
+# windows 2 and 4 (packed tiles), 16 and 32 (csrc/attention_wide.cu); the
+# whole sharded forward of one image on 2 ranks at windows 4, 16 and 32
 # against the unsharded kernel path, 18 kernel-5 and 18 kernel-2 launches
-# a rank
+# a rank. The image's side (SPATIAL_WIN_SIDE) is one the path takes
+# unpadded, a multiple of 16 win: 512 at window 32
 SPATIAL_WIN = {win: ({"arch": "Uformer", "embed_dim": 32, "win_size": win,
                       "train_ps": RES_SERVE}, 1250 + win)
-               for win in (2, 4, 16)}
-SPATIAL_WIN_FORWARD = (4, 16)
+               for win in (2, 4, 16, 32)}
+SPATIAL_WIN_FORWARD = (4, 16, 32)
+SPATIAL_WIN_SIDE = {2: RES_SERVE, 4: RES_SERVE, 16: RES_SERVE, 32: 512}
+SPATIAL_WIN_WORLDS = {2: (2, 4), 4: (2, 4), 16: (2, 4), 32: (2,)}
 SPATIAL_WIN_LAUNCHES = dict(SPATIAL_LAUNCHES, attention_block=18, leff=18)
 
 
@@ -3588,18 +3619,18 @@ def rank_spatial(sd, device, x: np.ndarray, dtypes: tuple,
     return out
 
 
-def rank_spatial_win(device, x: np.ndarray) -> dict:
-    """The sharded forward of x over the ranks for each SPATIAL_WIN_FORWARD
-    window's model, bf16 and fp32: the result (rank 0; the others its
-    crc32), launches and plain calls."""
+def rank_spatial_win(device, x_win: dict) -> dict:
+    """The sharded forward of x_win[win] over the ranks for each
+    SPATIAL_WIN_FORWARD window's model, bf16 and fp32: the result (rank 0;
+    the others its crc32), launches and plain calls."""
     import torch.distributed as dist
 
     from uformer_tpu_torch.parallel import spatial as S
     from uformer_tpu_torch.restore import Restorer
 
-    xt = torch.from_numpy(x).to(device)
     out = {}
     for win in SPATIAL_WIN_FORWARD:
+        xt = torch.from_numpy(x_win[win]).to(device)
         opt, seed = SPATIAL_WIN[win]
         model = build_arch(opt, seeded_for(opt, seed), device)
         for dt in (torch.bfloat16, torch.float32):
@@ -3807,31 +3838,34 @@ def kernel5_spatial(checks: Checks, model, device, H: int, W: int,
     return {"rows": rows}
 
 
-def spatial_window_checks(checks: Checks, two: list, x_win: np.ndarray,
+def spatial_window_checks(checks: Checks, two: list, x_win: dict,
                           device, card: str) -> dict:
-    """The spatial path at windows 2, 4 and 16 (SPATIAL_WIN): kernel 5 at
-    every (stage, rank) shape on 2 and 4 ranks (`kernel5_spatial`), then
-    the 2 ranks' sharded forwards of x_win (`rank_spatial_win`) against
+    """The spatial path at windows 2, 4, 16 and 32 (SPATIAL_WIN): kernel 5
+    at every (stage, rank) shape on SPATIAL_WIN_WORLDS ranks
+    (`kernel5_spatial`), then the 2 ranks' sharded forwards of
+    x_win[win] (`rank_spatial_win`) against
     the unsharded kernel path (fp32 within 1e-4 (1 + max|ref|), and
     whether the bits are equal) and the fp32 plain path (bf16 by the
     serve rule), SPATIAL_WIN_LAUNCHES a rank, no plain call."""
     from uformer_tpu_torch.restore import Restorer
 
     out = {}
-    xt = torch.from_numpy(x_win).to(device)
     for win, (opt, seed) in SPATIAL_WIN.items():
         model = build_arch(opt, seeded_for(opt, seed), device)
         n = len(checks.rows)
-        for world in (2, 4):
-            kernel5_spatial(checks, model, device, RES_SERVE, RES_SERVE,
-                            world, card, timed_widths=False)
+        side = SPATIAL_WIN_SIDE[win]
+        for world in SPATIAL_WIN_WORLDS[win]:
+            kernel5_spatial(checks, model, device, side, side, world, card,
+                            timed_widths=False)
         worst = max(r["err"] / r["bound"] for r in checks.rows[n:])
         print(f"  kernel 5 at window {win} on the spatial path: "
-              f"{len(checks.rows) - n} (stage, rank, dtype) checks on 2 "
-              f"and 4 ranks, worst err/bound {worst:.3f}", flush=True)
+              f"{len(checks.rows) - n} (stage, rank, dtype) checks on "
+              f"{SPATIAL_WIN_WORLDS[win]} ranks at {side}^2, worst "
+              f"err/bound {worst:.3f}", flush=True)
         out[f"kernel5_win{win}_worst"] = worst
         if win not in SPATIAL_WIN_FORWARD:
             continue
+        xt = torch.from_numpy(x_win[win]).to(device)
         with torch.no_grad():
             ref = {dt: {"kernel": Restorer(model, dt, device).model(xt)
                         .float().cpu().numpy(),
@@ -3849,7 +3883,7 @@ def spatial_window_checks(checks: Checks, two: list, x_win: np.ndarray,
                 raise RuntimeError(f"spatial win {win} {dt}: the ranks' "
                                    f"results differ")
             y, kern = rows[0]["y"], ref[dt]["kernel"]
-            what = (f"spatial win {win} 2 ranks {RES_SERVE}^2 bs1 against "
+            what = (f"spatial win {win} 2 ranks {side}^2 bs1 against "
                     f"unsharded")
             equal = bool(np.array_equal(y, kern))
             if dt == torch.float32:
@@ -3975,8 +4009,12 @@ def parallel_phase(tmp: Path, sd, device, card: str) -> tuple:
     x4 = np.random.default_rng(PAR_SEED).uniform(
         0, 1, (PAR_SPATIAL4[0], PAR_SPATIAL4[1], PAR_SPATIAL4[1], 3)) \
         .astype(np.float32)
-    x_win = np.random.default_rng(PAR_SEED + 2).uniform(
-        0, 1, (1, RES_SERVE, RES_SERVE, 3)).astype(np.float32)
+    # one image per forward window, at its side (windows 4 and 16 share
+    # theirs)
+    x_win = {win: np.random.default_rng(PAR_SEED + 2 + (side > RES_SERVE))
+             .uniform(0, 1, (1, side, side, 3)).astype(np.float32)
+             for win, side in SPATIAL_WIN_SIDE.items()
+             if win in SPATIAL_WIN_FORWARD}
     inputs = {"spatial": frame[None], "gopro_dir": gopro_dir, "pth": pth,
               "frame": frame, "result_dir": tmp / "gopro_out",
               "dtypes": (torch.bfloat16, torch.float32), "x_win": x_win}
@@ -4472,7 +4510,7 @@ def geometry_phase(tmp: Path, sd_golden, device, card: str) -> tuple:
     SIDD CLI at --train_ps 64, the new calls timed against their plain
     versions and bounds, serve B's forward at train_ps 64 against 128 in
     turns, and embed 8 at window 2 (forward and train step through the
-    kernels; a window-17 step refused). Returns the checks, the summary
+    kernels; an embed-24 step refused). Returns the checks, the summary
     and the launches per path."""
     from uformer_tpu_torch.ops import kernels as K
 
@@ -5760,10 +5798,269 @@ def head64_train_phase(tmp: Path, device, card: str) -> tuple:
     return checks, summary, launches
 
 
+# phase 23, windows above 16: kernels 4, 5 and 6 at N = win² of 289, 576
+# and 1024 tokens (and 4096 at window 64), each window at shift 0 and
+# win // 2 on ABOVE16_IMAGES images of 2 x 2 windows. Kernels 5 and 6:
+# (C, heads, has_ln, with_mod), head dims 32 (no LN: the win-32 model's
+# blocks take LN1 outside), 8 and 64; C 1024 on 16 heads at window 32;
+# kernel 4: (heads, head dim)
+ABOVE16_WINDOWS = (17, 24, 32)
+ABOVE16_BLOCK_CASES = ((32, 1, False, True), (16, 2, True, False),
+                       (64, 1, True, True))
+ABOVE16_C1024 = (1024, 16, True, False)
+ABOVE16_CORE_CASES = ((1, 32), (2, 8), (1, 64))
+ABOVE16_IMAGES = 2
+ABOVE16_W64 = (32, 1, True, True)  # window 64: kernels 5 and 6, one image
+# the path: `--arch Uformer --embed_dim 32 --win_size 32` (depths 2 x 9,
+# heads 1-16, head dim 32), seeded weights; served bf16 batch 8 at 256^2
+# (built at 256: every stage at window 32 but the 16^2 bottleneck, which
+# JAX's clip puts at window 16), trained bf16 batch 8 at --train_ps 128
+# (windows 32, 16 at enc3 and dec0, and the 8^2 bottleneck at window 8 on
+# the image route)
+WIN32_ARCH = {"arch": "Uformer", "embed_dim": 32, "win_size": 32}
+SEED_WIN32 = 1271
+WIN32_CORE_TIMING = (1, 128, 32)  # kernel 4 alone at N 1024: (heads, Bw, D)
+
+
+def grouped_bits(checks: Checks, what: str, fused, x, g, nH: int) -> dict:
+    """Kernel 6 (fused(x, g, dtype) -> gradients' dict, nH heads) in bf16
+    with attention_wide.DS_BUDGET lowered to one head of one window, so
+    that its dS runs in at least three groups: two runs in equal bits,
+    and every gradient but dbias (whose fold order alone moves) in the
+    bits of the run at the module's budget (one group, two at C 1024);
+    dbias within 1e-4 (1 + max|ref|) of it."""
+    from uformer_tpu_torch.ops.kernels import attention_wide as AW
+
+    Bw, N, _ = x.shape
+    x16, g16 = x.bfloat16(), g.bfloat16()
+    one = fused(x16, g16, torch.bfloat16)
+    budget = AW.DS_BUDGET
+    AW.DS_BUDGET = N * N * 4
+    try:
+        groups = len(AW.ds_groups(Bw, nH, N))
+        a, b = (fused(x16, g16, torch.bfloat16) for _ in range(2))
+    finally:
+        AW.DS_BUDGET = budget
+    at_budget = len(AW.ds_groups(Bw, nH, N))
+    if groups < 3 or groups <= at_budget:
+        raise RuntimeError(f"{what}: {groups} dS groups at the lowered "
+                           f"budget, {at_budget} at the module's; expected "
+                           f"at least 3 and more than there")
+    differ = sum(v is not None and not torch.equal(v, b[k])
+                 for k, v in a.items())
+    moved = sum(v is not None and k != "dbias" and not torch.equal(v, one[k])
+                for k, v in a.items())
+    checks.add("attention_block_bwd", f"{what} grouped repeat",
+               float(differ), 0.0, "bits")
+    checks.add("attention_block_bwd", f"{what} grouped against one group",
+               float(moved), 0.0, "bits")
+    checks.add("attention_block_bwd", f"{what} grouped dbias",
+               max_err(a["dbias"], one["dbias"]),
+               1e-4 * (1.0 + float(one["dbias"].abs().max())), "fp32")
+    return {"what": what, "groups": groups, "groups_at_budget": at_budget,
+            "differ": differ, "moved": moved}
+
+
+def above16_kernel_checks(checks: Checks, device, card: str,
+                          seed: int = 25) -> list:
+    """Kernels 4, 5 and 6 at windows 17, 24 and 32 (N 289, 576, 1024),
+    shift 0 and win // 2, and kernels 5 and 6 at window 64 (N 4096), each
+    against its plain version: fp32 (TF32 off) within 1e-4 (1 +
+    max|ref|), bf16 under phase 19's gates (`compare`; `pooled_grad_bound`
+    over GEOM_DRAWS draws), each backward run twice (equal bits), each
+    call timed beside its plain version and bound; at window 32 every
+    backward again at three dS groups or more (`grouped_bits`). Operands
+    by the golden rule from `seed`. Returns the timed rows."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    draw = GoldenDraws(seed, device)
+    mat, xin, attn_prm = draw.mat, draw.xin, draw.attn_prm
+
+    def grads(fn, p, kw):
+        return lambda x, g, dt: dict(zip(ATTN_GRADS, fn(x, g, *p[dt].values(),
+                                                        **kw)))
+
+    rows, grouped = [], []
+    cases = [(win, shift, c) for win in ABOVE16_WINDOWS
+             for shift in (0, win // 2)
+             for c in ABOVE16_BLOCK_CASES
+             + ((ABOVE16_C1024,) if win == 32 and shift else ())]
+    cases.append((64, 32, ABOVE16_W64))
+    for win in ABOVE16_WINDOWS:
+        N, H = win * win, 2 * win
+        Bw = ABOVE16_IMAGES * 4
+        for shift in (0, win // 2):
+            for nH, D in ABOVE16_CORE_CASES:
+                k, v = xin(nH, Bw, N, D), xin(nH, Bw, N, D)
+                bias = torch.from_numpy(mat(nH, N, N, fan_in=nH)).to(device)
+                kw = dict(win=win, shift=shift, H=H, W=H, scale=D ** -0.5)
+
+                def run4(fn, kw=kw, k=k, v=v, bias=bias):
+                    return lambda x, dt: fn(x, k.to(dt), v.to(dt), bias,
+                                            **kw)
+
+                rows.append(timed_compare(
+                    checks, "window_attention",
+                    f"win {win} shift {shift} (nH, Bw, N, D)=({nH}, {Bw}, "
+                    f"{N}, {D})", run4(K.fused_window_attention),
+                    run4(K.window_attention_reference), xin(nH, Bw, N, D),
+                    core_cost(nH, Bw, D, N=N), card))
+    for win, shift, (C, nH, has_ln, with_mod) in cases:
+        N, H = win * win, 2 * win
+        Bw = 4 if win == 64 else ABOVE16_IMAGES * 4
+        prm = attn_prm(C, nH, N, with_mod)
+        kw = dict(win=win, shift=shift, H=H, W=H, scale=(C // nH) ** -0.5,
+                  num_heads=nH, has_ln=has_ln)
+        what = (f"win {win} shift {shift} C {C} D {C // nH} Bw {Bw} ln "
+                f"{int(has_ln)} mod {int(with_mod)}")
+        rows.append(timed_compare(
+            checks, "attention_block", what,
+            lambda x, dt, p=prm, kw=kw: K.fused_attention_block(
+                x, *p[dt].values(), **kw),
+            lambda x, dt, p=prm, kw=kw: K.attention_block_reference(
+                x, *p[dt].values(), **kw), xin(Bw, N, C),
+            attn_cost(Bw * N, C, nH, mod=with_mod, ln=has_ln, N=N), card))
+        fused = grads(K.fused_attention_block_bwd, prm, kw)
+        rows.append(bwd_case(
+            checks, "attention_block_bwd", what, fused,
+            grads(K.attention_block_vjp_reference, prm, kw), (Bw, N, C),
+            xin, attn_bwd_cost(Bw * N, C, N), card))
+        if win == 32 and shift:
+            grouped.append(grouped_bits(checks, what, fused, xin(Bw, N, C),
+                                        xin(Bw, N, C), nH))
+    torch.cuda.synchronize()
+    print(f"  kernel 6 at window 32 with dS in groups of one head of one "
+          f"window: {len(grouped)} cases, equal bits on two runs and to "
+          f"one group but dbias: "
+          f"{all(not g['differ'] and not g['moved'] for g in grouped)}",
+          flush=True)
+    return rows
+
+
+def wide_ds_bytes(model, batch: int, side: int) -> dict:
+    """The fp32 dS of every windowed block above window 8 in one train
+    step of `model` at batch x side^2: the grouped scratch the backward
+    allocates (`attention_wide.ds_groups`) against the (Bw, nH, N, N)
+    buffer of a single group, and the groups, at the largest."""
+    from uformer_tpu_torch.models.layers import LeWinBlock
+    from uformer_tpu_torch.ops.kernels import attention_wide as AW
+
+    out = {"scratch_bytes": 0, "single_group_bytes": 0, "groups": 0,
+           "budget_bytes": AW.DS_BUDGET}
+    res = {name: getattr(model, name).resolution for name in LAYERS}
+    for name, blk in model.named_modules():
+        if not isinstance(blk, LeWinBlock) or blk.image_route \
+                or blk.win_size ** 2 <= 64:
+            continue
+        r = side * res[name.split(".")[0]] // res["encoderlayer_0"]
+        N, nH = blk.win_size ** 2, blk.num_heads
+        Bw = batch * (r // blk.win_size) ** 2
+        groups = AW.ds_groups(Bw, nH, N)
+        _, n, _, nh = groups[0]
+        out["scratch_bytes"] = max(out["scratch_bytes"], n * nh * N * N * 4)
+        out["single_group_bytes"] = max(out["single_group_bytes"],
+                                        Bw * nH * N * N * 4)
+        out["groups"] = max(out["groups"], len(groups))
+    return out
+
+
+def above16_phase(tmp: Path, device, card: str) -> tuple:
+    """Phase 23: kernels 4, 5 and 6 above window 16
+    (`above16_kernel_checks`); kernel 4 alone at N 1024 beside SDPA
+    (WIN32_CORE_TIMING); the win-32 Uformer (WIN32_ARCH) served bf16 at
+    batch 8, 256^2 (18 kernel-5 and 18 LeFF launches a request, no plain
+    call; against the plain path) and timed per kernel; trained at
+    --train_ps 128 by `train_cell` (its kernels at every training
+    geometry, one whole step kernel path against plain path, bf16 steps
+    and each backward call timed), with the step's peak memory, its dS
+    scratch against the budget and against a single group's buffer; the
+    train CLI at --win_size 32. Returns the checks, the summary and the
+    launches per path."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    checks, summary, launches = Checks(), {"card": card}, {}
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    summary["kernel_rows"] = above16_kernel_checks(checks, device, card)
+    torch.backends.cudnn.deterministic = False
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    nH, Bw, D = WIN32_CORE_TIMING
+    q, k, v = (torch.randn((nH, Bw, 1024, D), generator=gen)
+               .to(device, torch.bfloat16) for _ in range(3))
+    bias = (0.5 * torch.randn((nH, 1024, 1024), generator=gen)).to(device)
+    with torch.no_grad():
+        summary["core"] = time_core(q, k, v, bias, win=32, shift=16,
+                                    res=32 * int(round(Bw ** 0.5)))
+    del q, k, v, bias
+    summary["kernel_checks_s"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    serve_opt = dict(WIN32_ARCH, train_ps=RES_SERVE)
+    sd = seeded_for(serve_opt, SEED_WIN32)
+    restorer, x, serve, _, schecks = serve_phase(
+        lambda: build_arch(serve_opt, sd, device), device,
+        WIDE_SERVE_LAUNCHES, "serve win32")
+    if any(K.plain_counts().values()):
+        raise RuntimeError(f"serve win32: plain calls {K.plain_counts()}")
+    checks.rows += schecks.rows
+    checks.failed += schecks.failed
+    launches["serve"] = serve["launches_per_request"][0]
+    rows, totals, fwd = timing_phase(restorer, x)
+    summary.update(serve=serve, timing=rows, timing_totals=totals,
+                   forward=fwd, serve_s=time.perf_counter() - t1)
+    print(f"  serve win32 bs{BATCH_SERVE} {RES_SERVE}^2 bf16: "
+          f"{serve['median_ms']:.3f} ms a request, kernel path "
+          f"{fwd['kernel_ms']:.3f} ms against plain path "
+          f"{fwd['plain_ms']:.3f} ms a forward  [{card}]", flush=True)
+    del restorer, x
+    torch.cuda.empty_cache()
+
+    train_opt = dict(WIN32_ARCH, train_ps=RES_TRAIN)
+    train_cell(checks, summary, launches, "win32", train_opt, SEED_WIN32,
+               WIDE_TRAIN_BATCH, RES_TRAIN, WIDE_TRAIN_LAUNCHES, device,
+               card)
+    launches["train"] = launches.pop("win32")
+    model = build_arch(train_opt, seeded_for(train_opt, SEED_WIN32), device)
+    batch = train_batch(WIDE_TRAIN_BATCH, 7, device, RES_TRAIN)
+    _, state, step = run_step(model, False, torch.bfloat16, batch, 50,
+                              lambda s: 0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    step(state, batch, torch.Generator(device="cpu").manual_seed(51))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    ds = wide_ds_bytes(model, WIDE_TRAIN_BATCH, RES_TRAIN)
+    memory = dict(ds, peak_bytes=peak, before_step_bytes=base,
+                  single_group_peak_bytes=(peak - ds["scratch_bytes"]
+                                           + ds["single_group_bytes"]))
+    summary["memory_win32"] = memory
+    if ds["scratch_bytes"] > ds["budget_bytes"] or ds["groups"] < 2:
+        raise RuntimeError(f"train win32: dS scratch {ds}: expected within "
+                           f"the budget and more than one group")
+    print(f"  train win32 bs{WIDE_TRAIN_BATCH} {RES_TRAIN}^2 bf16 step: "
+          f"peak {peak / 2**20:.1f} MiB with dS in up to {ds['groups']} "
+          f"groups of at most {ds['scratch_bytes'] / 2**20:.1f} MiB "
+          f"(budget {ds['budget_bytes'] / 2**20:.0f} MiB); one group's "
+          f"buffer {ds['single_group_bytes'] / 2**20:.1f} MiB, peak so "
+          f"{memory['single_group_peak_bytes'] / 2**20:.1f} MiB  [{card}]",
+          flush=True)
+    del model, batch, state, step
+    torch.cuda.empty_cache()
+    summary["cli"] = train_cli_run(
+        tmp, device, "train CLI win32",
+        ["--arch", "Uformer", "--embed_dim", "32", "--win_size", "32",
+         "--train_ps", str(RES_TRAIN)], RES_TRAIN, WIDE_CLI_SET,
+        dict(WIDE_TRAIN_LAUNCHES))
+    launches["cli"] = summary["cli"]["launches"]
+    return checks, summary, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", type=Path, help="write the full report here")
     args = ap.parse_args()
+    t0 = time.perf_counter()
     phase("device")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -5776,6 +6073,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = run(device, card, args.json)
+    print(f"  chip_smoke.py took {time.perf_counter() - t0:.1f} s", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5951,6 +6249,15 @@ def run(device, card: str, json_path) -> list:
     print(f"  phase 22 took {head64t['s']:.1f} s", flush=True)
     gchecks22.raise_if_failed("head dim 64 training")
 
+    phase("windows above 16")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gchecks23, above16, above16_launches = above16_phase(Path(tmp),
+                                                             device, card)
+    above16["s"] = time.perf_counter() - t0
+    print(f"  phase 23 took {above16['s']:.1f} s", flush=True)
+    gchecks23.raise_if_failed("windows above 16")
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas,
@@ -5982,7 +6289,8 @@ def run(device, card: str, json_path) -> list:
               "wide_window_checks": gchecks20.rows, "wide_windows": wide,
               "head64_checks": gchecks21.rows, "head64": head64,
               "head64_train_checks": gchecks22.rows,
-              "head64_train": head64t}
+              "head64_train": head64t,
+              "above16_checks": gchecks23.rows, "above16": above16}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -6005,7 +6313,7 @@ def run(device, card: str, json_path) -> list:
                    + tkchecks.rows + ttkchecks.rows + dw_checks.rows
                    + tile_checks.rows + mchecks.rows + pchecks.rows
                    + gchecks18.rows + gchecks19.rows + gchecks20.rows
-                   + gchecks21.rows + gchecks22.rows
+                   + gchecks21.rows + gchecks22.rows + gchecks23.rows
                    if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
@@ -6033,7 +6341,9 @@ def run(device, card: str, json_path) -> list:
                               + sum(kernel_count(c, name)
                                     for c in head64_launches.values())
                               + sum(kernel_count(c, name)
-                                    for c in head64t_launches.values())),
+                                    for c in head64t_launches.values())
+                              + sum(kernel_count(c, name)
+                                    for c in above16_launches.values())),
                  "launches_serve": kernel_count(launches, name),
                  "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
@@ -6063,6 +6373,8 @@ def run(device, card: str, json_path) -> list:
                     for path, c in head64_launches.items()},
                  **{f"launches_e64train_{path}": kernel_count(c, name)
                     for path, c in head64t_launches.items()},
+                 **{f"launches_win32_{path}": kernel_count(c, name)
+                    for path, c in above16_launches.items()},
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -6084,7 +6396,7 @@ def run(device, card: str, json_path) -> list:
                              "library_device_ms")})
         if name in ("window_attention", "attention_block",
                     "attention_block_bwd"):
-            # windows 9-16 (phase 20)
+            # windows above 8 (phases 20 and 23)
             entry["wide_source"] = "uformer_tpu_torch/csrc/attention_wide.cu"
         if name == "attention_block":
             entry["spatial"] = parallel["kernel5"]["rows"]
@@ -6098,7 +6410,7 @@ def run(device, card: str, json_path) -> list:
                 {k: c[k] for k in ("shape", "ms", "graph_ms", "plain_ms",
                                    "bound_ms", "library_ms")}
                 for c in core["more"] + [wide["core"]]
-                + head64["core_timing"] + [head64t["core"]]]
+                + head64["core_timing"] + [head64t["core"], above16["core"]]]
         for label, key, tt in (("serve Uformer_T", "serve_t", t_totals),
                                ("train Uformer_B", "train", ttotals),
                                ("train Uformer_T", "train_t", tttotals),
@@ -6132,7 +6444,11 @@ def run(device, card: str, json_path) -> list:
                                ("train e64 win16", "train_e64win16",
                                 head64t["timing_totals_e64win16"]),
                                ("serve e64 win16", "serve_e64win16",
-                                head64t["timing_totals_serve_win16"])):
+                                head64t["timing_totals_serve_win16"]),
+                               ("serve win32", "serve_win32",
+                                above16["timing_totals"]),
+                               ("train win32", "train_win32",
+                                above16["timing_totals_win32"])):
             if name in tt and label not in where:
                 entry.update({f"ms_{key}": tt[name]["ms"],
                               f"plain_ms_{key}": tt[name]["plain_ms"],

@@ -19,10 +19,10 @@ On the CPU, with numpy inputs from a seed and fp32 throughout, each within
     tests/test_torch_port_family.py cuts them) at 128^2 against JAX
     `get_arch` with attn_backend="jnp" on the same weights, carried across
     by the state_dict converter;
-  - the limits: the checks take head dim 64 both ways at windows 1-16;
-    head dim 128 raises naming ROADMAP queue 2 item 9 and window 17 item
-    2; every block of the embed-64 models has a backward kernel, and a
-    window-17 model's blocks name what is left
+  - the limits: the checks take head dim 64 both ways at every window
+    (17 and 32 too); head dims 128 and 24 raise naming ROADMAP queue 2
+    item 9; every block of the embed-64 models has a backward kernel, and
+    an embed-24 model's blocks (head dim 24) name what is left
     (`LeWinBlock.backward_gap`). Head dim 64's backward itself is held
     against JAX in tests/test_torch_port_head64_bwd.py.
 The launch routes of the embed-64 model (8/2/0/2 at --train_ps 128,
@@ -314,8 +314,8 @@ def test_forward_checks_take_head_dim_64():
                                       (1024, 16, 16)])
 def test_head_dim_128_and_wide_windows_at_64_raise(C, nH, win):
     """Head dim 128 has no kernel either way (ROADMAP queue 2 item 9);
-    head dim 64 runs at every window 1-16, and a window of 17 has no
-    kernel at any head dim (queue 2 item 2)."""
+    head dim 64 runs at every window, 17 and 32 too, and a head dim of 24
+    has no kernel at any window (item 9 again)."""
     if C // nH == 128:
         with pytest.raises(ValueError,
                            match="ROADMAP.md, port queue 2 item 9"):
@@ -323,8 +323,10 @@ def test_head_dim_128_and_wide_windows_at_64_raise(C, nH, win):
     else:
         check_head_dim(C, nH)
         check_window(win, win // 2, 2 * win, 2 * win)
-    with pytest.raises(ValueError, match="ROADMAP.md, port queue 2 item 2"):
-        check_window(17, 8, 34, 34)
+    for w in (17, 32):
+        check_window(w, w // 2, 2 * w, 2 * w)
+    with pytest.raises(ValueError, match="ROADMAP.md, port queue 2 item 9"):
+        check_head_dim(24 * nH, nH)
 
 
 @pytest.mark.parametrize("C,nH", [(64, 1), (1024, 16)])
@@ -340,19 +342,21 @@ def test_backward_check_refuses_head_dim_64(C, nH):
 
 def test_embed64_backward_gap_names_the_training_half():
     """Every block of an embed-64 model has a backward kernel now, at
-    --train_ps 128 and 64 and at --win_size 16 (its gap is None, and the
-    train step refuses nothing); a model at window 17 is refused, naming
-    what is left (ROADMAP queue 2 items 2 and 9)."""
-    for opt in (E64, dict(E64, train_ps=64), dict(E64, win_size=16)):
+    --train_ps 128 and 64 and at --win_size 16, 17 and 32 (its gap is
+    None, and the train step refuses nothing); a model at embed 24 (head
+    dim 24) is refused, naming what is left (ROADMAP queue 2 item 9)."""
+    for opt in (E64, dict(E64, train_ps=64), dict(E64, win_size=16),
+                dict(E64, win_size=17, train_ps=32),
+                dict(E64, win_size=32)):
         model = get_arch(opt)
         assert blocks_without_backward_kernel(model) == []
         assert model.conv.blocks[0].backward_gap is None
-    model = get_arch(dict(E64, win_size=17, train_ps=32))
+    model = get_arch(dict(E64, embed_dim=24, train_ps=32))
     uncovered = blocks_without_backward_kernel(model)
-    assert len(uncovered) == 4
+    assert len(uncovered) == 18
     gap = model.get_submodule(uncovered[0]).backward_gap
     assert gap == GEOMETRY_NOT_ON_KERNEL_PATH
-    assert "ROADMAP.md, port queue 2 items 2 and 9" in gap
+    assert "ROADMAP.md, port queue 2 item 9" in gap
 
 
 # ---- the kernels on the card ----------------------------------------------

@@ -20,8 +20,8 @@ spawn per rank count shared by the tests that read it (120 s deadline).
   `model.apply` and the one-process run, within 1e-5: kernel 5 at each
   rank's w_off on packed tiles and on `csrc/attention_wide.cu`'s windows
   (plain versions here);
-  `check_spatial_card` takes windows 1-16 and refuses 17, naming ROADMAP
-  queue 2 item 2.
+  `check_spatial_card` takes every window (1-17 and 32) and refuses a
+  head dim outside the kernels', naming ROADMAP queue 2 item 9.
 - `tiled_inference_sharded` as the identity on 2 ranks.
 """
 
@@ -221,18 +221,19 @@ def test_sharded_uformer_at_windows_4_and_16_matches_jax(jax_cases, ranks,
 
 
 def test_spatial_card_check_takes_windows_1_to_16():
-    """The card's check passes every window the kernels take (each rank's
-    windows at its w_off) and refuses 17, naming ROADMAP queue 2 item 2."""
+    """The card's check passes every window (each rank's windows at its
+    w_off, 17 and 32 too) and refuses a head dim the kernels do not take
+    (embed 24 on one head), naming ROADMAP queue 2 item 9."""
     from uformer_tpu_torch.models import Uformer
 
-    for win in range(1, 18):
+    for win in list(range(1, 18)) + [32]:
         model = Uformer(**dict(SMALL, img_size=16 * win, win_size=win))
-        if win <= 16:
-            S.check_spatial_card(model)
-            continue
+        S.check_spatial_card(model)
+        odd = Uformer(**dict(SMALL, img_size=16 * win, win_size=win,
+                             embed_dim=24))
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, port queue 2 item 2"):
-            S.check_spatial_card(model)
+                           match="ROADMAP.md, port queue 2 item 9"):
+            S.check_spatial_card(odd)
 
 
 @pytest.mark.parametrize("n", [2, 4])

@@ -16,11 +16,12 @@ On the CPU, with numpy inputs from a seed and fp32 throughout:
       each token's place) equals the plain version;
   (e) a tiny Uformer at win_size 16 (embed 8, img_size 64) against JAX:
       one forward, and one plain-path train step's loss and gradients;
-  (f) the limits: windows 1-16 pass `check_window`, 17 raises naming
-      ROADMAP queue 2 item 2; head dims 8-64 pass `check_head_dim` both
-      ways, head dim 128 raises naming item 9; the win-16 model trains
-      on the kernel path (`blocks_without_backward_kernel`), a window of
-      32 does not.
+  (f) the limits: every window passes `check_window` (17 and 32 too),
+      kernels 1 and 3 take window 8 alone; head dims 8-64 pass
+      `check_head_dim` both ways, head dim 128 raises naming ROADMAP
+      queue 2 item 9; the win-16 and win-32 models train on the kernel
+      path (`blocks_without_backward_kernel`), an embed-24 model (head
+      dim 24) does not.
 All within 1e-4 (1 + max|ref|). The tests marked `gpu` hold kernels 4, 5
 and 6 at windows 9-16 against their plain versions on the card (`python
 -m pytest -m gpu tests/test_torch_port_wide_windows.py`).
@@ -363,10 +364,14 @@ def test_win16_uformer_train_step_matches_jax(jax_win16):
 # ---- (f) the limits ---------------------------------------------------------
 
 def test_windows_up_to_16_pass_and_17_raises():
-    for win in range(1, 17):
+    """Windows 1-17, 24, 32 and 64 pass; what raises is a window the
+    image kernels do not take, a geometry that is no window's and a head
+    dim outside HEAD_DIMS."""
+    for win in list(range(1, 18)) + [24, 32, 64]:
         check_window(win, win // 2, 2 * win, 3 * win)
-    with pytest.raises(ValueError, match="ROADMAP.md, port queue 2 item 2"):
-        check_window(17, 0, 34, 34)
+    for bad in ((0, 0, 8, 8), (17, 0, 34, 33), (17, 17, 34, 34)):
+        with pytest.raises(ValueError, match="win >= 1"):
+            check_window(*bad)
     with pytest.raises(ValueError):  # kernels 1 and 3 keep window 8
         check_window(16, 0, 32, 32, windows=(8,))
     for D in BACKWARD_HEAD_DIMS:  # head dim 64 too, both ways
@@ -379,10 +384,14 @@ def test_win16_model_trains_on_the_kernel_path():
     wide = Uformer(img_size=128, embed_dim=32, depths=(1,) * 9,
                    win_size=16)
     assert blocks_without_backward_kernel(wide) == []
-    over = Uformer(img_size=128, embed_dim=8, depths=(1,) * 9, win_size=32)
+    win32 = Uformer(img_size=128, embed_dim=8, depths=(1,) * 9,
+                    win_size=32)
+    assert blocks_without_backward_kernel(win32) == []
+    over = Uformer(img_size=128, embed_dim=24, depths=(1,) * 9,
+                   win_size=32)
     uncovered = blocks_without_backward_kernel(over)
     assert uncovered[0] == "encoderlayer_0.blocks.0"
-    assert "windows above 16" in \
+    assert "other head dims" in \
         over.get_submodule(uncovered[0]).backward_gap
 
 

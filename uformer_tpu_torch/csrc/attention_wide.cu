@@ -1,5 +1,5 @@
-// Windows of 9-16 (N = win^2 = 81..256 tokens) in kernels 4, 5 and 6, for
-// Hopper (sm_90a).
+// Windows above 8 (N = win^2 > 64 tokens, any size: 81 at window 9, 1024
+// at window 32, 4096 at 64) in kernels 4, 5 and 6, for Hopper (sm_90a).
 //
 // Replaces, at those windows, uformer_tpu/ops/pallas/window_attention.py:
 // fused_window_attention (kernel 4), attention_block.py:
@@ -24,14 +24,20 @@
 //     SW-MSA shift mask is computed inline from each token's region id
 //     (JAX's _region_ids: slices from size - win and size - shift);
 //   - the backward recomputes from x as JAX's does: q, k, v by the same
-//     projection, then per (window, head, query tile) the forward's
-//     softmax statistics over all key chunks first (wide_core_bwd_q, which
-//     also writes the head's O for dWo), then per chunk dP = dO v^T and
+//     projection, the logits q k^T scaled in fp32 (JAX's kernel 6 takes
+//     the unscaled q there, where its forward folds the scale into q),
+//     then per (window, head, query tile) the softmax statistics over all
+//     key chunks first (wide_core_bwd_q, which also writes the head's O
+//     for dWo), then per chunk dP = dO v^T and
 //     dS = P (dP - rowsum(dO O)), dq = dS k; per (window, head, key chunk)
 //     dk = dS^T q and dv = P^T dO over the query tiles (wide_core_bwd_kv).
 //     Every sum has one owner and a fixed order: no atomics, bits repeat.
-//     dS leaves as fp32 (Bw, nH N N) rows that colsum folds over windows
-//     into dbias; dxm = [dq | dk | dv] [Wq | Wkv]^T out in fp32;
+//     dS leaves as fp32 (G, nH' N N) rows of a group of G windows and nH'
+//     heads (the caller's pointers offset to the group's first window and
+//     head, w_off its first window's place), which colsum folds into
+//     dbias group after group in a fixed order: the fp32 scratch is
+//     bounded by the caller's budget, not by Bw nH N^2;
+//     dxm = [dq | dk | dv] [Wq | Wkv]^T out in fp32;
 //     the LayerNorm VJP on that fp32 dxm (JAX's dtok) per token
 //     (wide_ln_bwd, with fixed per-block dln partials); dmod is colsum of
 //     dxm over windows; dWqkv, dWo by wgrad.cu.
@@ -66,7 +72,7 @@ __device__ __forceinline__ int region(int wl, int t, int H, int W, int win,
 }
 
 // A per-head operand of (window w, head h, token t, channel d) at
-// base + w sw + h sh + t st + d.
+// base + w sw + h sh + t st + d (the wrappers keep each stride below 2^31).
 struct View {
   int sw, sh, st;
   __device__ __forceinline__ size_t at(int w, int h, int t) const {
@@ -292,10 +298,13 @@ __global__ void __launch_bounds__(kT)
   }
 }
 
+// Window and token products such as w N + i and w nH + h are int: the
+// wrappers refuse Bw N, Bw nH ceil(N / 64) blocks and the View strides
+// past 2^31 - 1 (`attention_wide.check_int32`).
 struct BwdArgs {
   CoreArgs a;      // in: the (Bw N, 3C) q | k | v rows; out: o_tok (Bw N, C)
   const float* dO; // (Bw N, C) fp32
-  int C;
+  int C;           // the row width (nH may be a group of the heads)
   float* ds;       // (Bw, nH, N, N) fp32 dS
   float* stats;    // (Bw, nH, N, 2): row max, row sum
   void* dqkv;      // (Bw N, 3C)
@@ -405,7 +414,8 @@ __global__ void __launch_bounds__(kT) wide_core_bwd_q(const T* qkv, T* o_tok,
     }
   }
   if (i < a.N) {
-    // logits = (q times the rounded scale) k: dq = dS k times that scale
+    // logits = q k^T times the scale (or q rounded times the rounded
+    // scale): dq = dS k times that scale
     const float sc = a.scale_q ? rnd<T>(a.scale) : a.scale;
     T* dst = static_cast<T*>(b.dqkv) + (size_t)(w * a.N + i) * 3 * C + h * D;
 #pragma unroll
@@ -489,10 +499,12 @@ __global__ void __launch_bounds__(kT) wide_core_bwd_kv(const T* qkv,
   }
   const int j = j0 + jr;
   if (j < a.N) {
+    // logits = q k^T times the scale (or the scaled q's): dk takes it too
+    const float ks = a.scale_q ? 1.0f : a.scale;
     T* row = static_cast<T*>(b.dqkv) + (size_t)(w * a.N + j) * 3 * C + h * D;
 #pragma unroll
     for (int e = 0; e < D / 4; ++e) {
-      row[C + dc + 4 * e] = from_f<T>(dk[e]);
+      row[C + dc + 4 * e] = from_f<T>(dk[e] * ks);
       row[2 * C + dc + 4 * e] = from_f<T>(dv[e]);
     }
   }
@@ -910,7 +922,8 @@ int uf_wide_gemm(int is_bf16, int b_trans, int out_f32, const void* a,
 // The core: out = softmax(q k^T [scale] + bias [+ mask]) v per window and
 // head. q, k, v share the strides (sw, sh, st) (window, head, token); out
 // has its own. scale_q: q is rounded times the rounded scale (the block);
-// else the fp32 logits are scaled (kernel 4).
+// else the fp32 logits are scaled (kernel 4). The caller keeps the
+// strides and Bw nH ceil(N / 64) blocks below 2^31.
 int uf_wide_core(int is_bf16, const void* q, const void* k, const void* v,
                  int in_sw, int in_sh, int in_st, const float* bias,
                  void* out, int out_sw, int out_sh, int out_st, int Bw,
@@ -925,17 +938,21 @@ int uf_wide_core(int is_bf16, const void* q, const void* k, const void* v,
                  : wide::core_fwd_d<float>(D, q, k, v, out, a, s);
 }
 
-// The backward core of the block: qkv (Bw N, 3C) rows of q | k | v; dO
-// (Bw N, C) fp32. Writes o_tok (Bw N, C), dqkv (Bw N, 3C) = dq | dk | dv
-// (dq with the scale), ds (Bw, nH, N, N) fp32 and stats (Bw, nH, N, 2).
+// The backward core of the block on Bw windows and nH heads of rows C
+// wide: qkv (Bw N, 3C) rows of q | k | v; dO (Bw N, C) fp32; each pointer
+// (and bias, (nH, N, N) of its heads) at the group's first window and
+// head, w_off the first window's place in its image. Writes o_tok (Bw N,
+// C), dqkv (Bw N, 3C) = dq | dk | dv (dq and dk with the scale) in those
+// heads' columns, ds (Bw, nH, N, N) fp32 and stats (Bw, nH, N, 2).
 int uf_wide_core_bwd(int is_bf16, const void* qkv, const float* dO,
                      const float* bias, void* o_tok, void* dqkv, float* ds,
-                     float* stats, int Bw, int nH, int N, int D, int H,
-                     int W, int win, int shift, int w_off, float scale,
-                     void* stream) {
-  const int C = nH * D;
+                     float* stats, int Bw, int nH, int N, int D, int C,
+                     int H, int W, int win, int shift, int w_off,
+                     float scale, void* stream) {
   wide::BwdArgs b;
-  b.a = wide::core_args(Bw, nH, N, H, W, win, shift, w_off, scale, 1, bias);
+  // the fp32 logits scaled, from the unscaled q, as JAX's backward kernel
+  // takes them (attention_block.py:674-678)
+  b.a = wide::core_args(Bw, nH, N, H, W, win, shift, w_off, scale, 0, bias);
   b.a.in = {N * 3 * C, D, 3 * C};
   b.a.out = {N * C, D, C};
   b.dO = dO;

@@ -15,6 +15,7 @@ to compare them within one run:
     python -m uformer_tpu_torch.forward_ab --what attention_bwd --roots ...
     python -m uformer_tpu_torch.forward_ab --what attention_block --roots ...
     python -m uformer_tpu_torch.forward_ab --what window_attention --roots ...
+    python -m uformer_tpu_torch.forward_ab --what wide --roots ...
 
 Each root runs in its own process (its own `uformer_tpu_torch`, its own
 kernel build, made during the warm-up and not timed). `forward`: a bf16
@@ -65,8 +66,14 @@ hidden chunks or a window's heads over blocks, the host's plan against
 no split, in turns (CUDA graphs). `leff_bwd`, `attention_bwd` and
 `bwd_split` print a digest of the bits of every output of each call
 (`sha256`; `bwd_split` one for each plan): equal in two roots, equal
-gradients. Prints one JSON line per root (ms), then the card's name and
-power limit.
+gradients. `wide`: kernels 5 and 6 above window 8 in bf16 at every
+windowed (stage, shift) of the win-16 models' steps (`--arch Uformer
+--win_size 16` at embed 32 and 64, bs8 128^2, LN1 outside, the decoder's
+modulator) and at the 1024-token windows of the win-32 one, each timed
+eagerly (the mean of 3 calls after one), with a digest of the forward's output and of every gradient (at window 16
+one dS group: the parent's digests there mean the grouped backward left
+those bits as they were). Prints one JSON line per root (ms), then the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -566,6 +573,46 @@ for nH, Bw, D, R in ((1, 8192, 16, 256), (1, 8192, 32, 256),
 print(json.dumps({"rows": rows}))
 """
 
+_WIDE = _KERNEL_COMMON + """
+from uformer_tpu_torch import get_arch
+f32 = torch.float32
+rows = []
+for embed, win in ((32, 16), (64, 16), (32, 32)):
+    model = get_arch({"arch": "Uformer", "embed_dim": embed,
+                      "win_size": win, "train_ps": 128})
+    for lname in (["encoderlayer_%d" % k for k in range(4)] + ["conv"]
+                  + ["decoderlayer_%d" % k for k in range(4)]):
+        layer = getattr(model, lname)
+        R, C, nH = layer.resolution, layer.dim, layer.num_heads
+        for b in {b.shift_size: b for b in layer.blocks}.values():
+            w = b.win_size
+            if b.image_route or w <= 8:
+                continue
+            N, s = w * w, C ** -0.5
+            args = (rnd(N, C, scale=0.1) if layer.has_mod else None, None,
+                    None, rnd(C, C, scale=s), rnd(C, scale=0.1, dtype=f32),
+                    rnd(C, 2 * C, scale=s), rnd(2 * C, scale=0.1, dtype=f32),
+                    rnd(C, C, scale=s), rnd(C, scale=0.1, dtype=f32),
+                    rnd(nH, N, N, scale=0.5, dtype=f32))
+            kw = dict(win=w, shift=b.shift_size, H=R, W=R,
+                      scale=(C // nH) ** -0.5, num_heads=nH, has_ln=False)
+            x = rnd(8 * (R // w) ** 2, N, C)
+            g = rnd(*x.shape)
+            fwd = lambda: K.fused_attention_block(x, *args, **kw)
+            bwd = lambda: K.fused_attention_block_bwd(x, g, *args, **kw)
+            row = {"model": "e%d win%d" % (embed, win), "stage": lname,
+                   "windows": x.shape[0], "N": N, "C": C, "heads": nH,
+                   "shift": b.shift_size}
+            try:  # a root without windows above 16 refuses those
+                sha = digest(fwd()), digests(bwd())
+            except ValueError as exc:
+                rows.append(dict(row, refused=str(exc)))
+                continue
+            rows.append(dict(row, fwd_ms=ms(fwd, 3), bwd_ms=ms(bwd, 3),
+                             fwd_sha256=sha[0], bwd_sha256=sha[1]))
+print(json.dumps({"rows": rows}))
+"""
+
 _CHILDREN = {"forward": _CHILD.replace(
                  "MODEL", 'get_arch({"arch": "Uformer_B", "train_ps": 256})'),
              "forward_t": _CHILD.replace(
@@ -577,7 +624,7 @@ _CHILDREN = {"forward": _CHILD.replace(
              "train_t": 'ARCH = "Uformer_T"' + _TRAIN, "leff_bwd": _LEFF_BWD,
              "attention_bwd": _ATTN_BWD, "bwd_split": _BWD_SPLIT,
              "attention_block": _ATTN_BLOCK,
-             "window_attention": _WINDOW_ATTN}
+             "window_attention": _WINDOW_ATTN, "wide": _WIDE}
 
 
 def main() -> int:

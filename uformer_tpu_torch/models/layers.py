@@ -34,8 +34,8 @@ pointwise products; or the linear one) and the plain window attention with
 the shift mask and the input-mask bias. A cross-modulator block first
 adds its cross-attention over all H*W tokens (`layers.py:722-738`). Then
 one LeFF kernel, or the plain `Mlp`. The attention-image, attention-block
-and LeFF kernels are differentiated by their backward kernels (windows
-1-16, head dim 8, 16, 32 or 64, LeFF at C 8-1024); `Mlp` and the
+and LeFF kernels are differentiated by their backward kernels (every
+window, head dim 8, 16, 32 or 64, LeFF at C 8-1024); `Mlp` and the
 cross-modulator's attention are plain
 PyTorch under autograd, as in JAX. The depthwise kernel has no backward,
 in JAX either (`train.train_step` refuses a conv-projection model on the
@@ -91,10 +91,7 @@ from uformer_tpu_torch.ops.kernels import (
     stage_reference,
 )
 from uformer_tpu_torch.ops.kernels.leff import pad_hidden
-from uformer_tpu_torch.ops.kernels.window_attention import (
-    HEAD_DIMS,
-    WINDOWS,
-)
+from uformer_tpu_torch.ops.kernels.window_attention import HEAD_DIMS
 from uformer_tpu_torch.ops.masks import input_mask_bias, shift_mask_on
 from uformer_tpu_torch.ops.norm import layer_norm
 from uformer_tpu_torch.ops.relpos import relative_position_index
@@ -108,10 +105,9 @@ from uformer_tpu_torch.ops.window import (
 Params = Dict[str, torch.Tensor]
 LEFF_MLPS = ("leff", "fastleff")  # fastleff: the same function and keys
 GEOMETRY_NOT_ON_KERNEL_PATH = (
-    f"the kernels take windows 1-16 and head dim in {HEAD_DIMS} forward "
-    f"and backward; a window above 16 and any other head dim run on the "
-    f"plain path only (ROADMAP.md, port queue 2 items 2 and 9: windows "
-    f"above 16, other head dims)")
+    f"the kernels take every window and head dim in {HEAD_DIMS} forward "
+    f"and backward; any other head dim runs on the plain path only "
+    f"(ROADMAP.md, port queue 2 item 9: other head dims)")
 
 
 class _Prepared:
@@ -625,7 +621,7 @@ class LeWinBlock(_Prepared, nn.Module):
     def backward_gap(self) -> Optional[str]:
         """Why the train step's kernel path cannot differentiate this
         block, or None. The attention backward kernels cover the image
-        route and the windowed branch at windows 1-16 (below 8 on packed
+        route and the windowed branch at every window (below 8 on packed
         tiles, above 8 `csrc/attention_wide.cu`) and head dim 8, 16, 32 or
         64, and the LeFF backward kernel C 8-1024;
         Mlp and the cross-modulator's attention are plain PyTorch. Conv
@@ -633,7 +629,7 @@ class LeWinBlock(_Prepared, nn.Module):
         either)."""
         if self.attn.token_projection == "conv":
             return DWCONV_BACKWARD_NOT_PORTED
-        if self.win_size not in WINDOWS or self.dim % self.num_heads \
+        if self.dim % self.num_heads \
                 or self.dim // self.num_heads not in HEAD_DIMS:
             return GEOMETRY_NOT_ON_KERNEL_PATH
         return None

@@ -6,16 +6,17 @@ and LeFF: Uformer_T, Uformer_S, Uformer_S_noshift, Uformer_B,
 Uformer_B_fastleff, and Uformer at any embed dim and window. Every one
 builds and runs on the CPU (the kernels' plain versions). On the card the
 forward (eval, serving, the CLIs) runs through the kernels at every window
-1-16 and head dim 8, 16, 32 and 64 (head dim is the embed dim in this
-family): every arch here at embed 8-64, `--win_size` 1-16 and any `--train_ps`
-(a stage built below the window runs at window min(reso, win); below 8,
+and head dim 8, 16, 32 and 64 (head dim is the embed dim in this family):
+every arch here at embed 8-64, any `--win_size` and any `--train_ps` (a
+stage built below the window runs at window min(reso, win); below 8,
 64 // N whole windows of N = win² tokens to a kernel tile; above 8, the
-key-chunked kernels of `csrc/attention_wide.cu`), and so does training:
-the backward kernels take the same windows and head dims, LeFF at C 8 to
-1024 too. Windows above 16 and other head dims have no kernel: the
-wrappers raise before any launch, and the train step refuses such a model
-before any launch (`LeWinBlock.backward_gap`, ROADMAP.md's port queue 2
-items 2 and 9). `use_checkpoint` recomputes each
+key-chunked kernels of `csrc/attention_wide.cu`, whose backward holds dS
+for a bounded group of windows at a time), and so does training: the
+backward kernels take the same windows and head dims, LeFF at C 8 to
+1024 too. Other head dims have no kernel: the wrappers raise before any
+launch, and the train step refuses such a model before any launch
+(`LeWinBlock.backward_gap`, ROADMAP.md's port queue 2 item 9).
+`use_checkpoint` recomputes each
 Uformer block in the
 backward (UNet ignores it, as in JAX). `img_size` is
 the reference's `--train_ps`: it fixes the construction-time window and

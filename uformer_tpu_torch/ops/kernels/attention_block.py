@@ -23,10 +23,11 @@ Windows of N = win² < 64 tokens (a stage built below the window, or
 between two windows), on the same bodies: bf16 at C 8-64 the narrow body
 on packed tiles (`csrc/attention_block_packed.cu`), else a tile per block.
 Head dim 8 runs at every C (bf16: the narrow body at C 8-64, a tile per
-block at C % 128 == 0). Windows of 9-16 (N = win² 81-256 tokens) run
-`csrc/attention_wide.cu` through `attention_wide`: the projections over
-64-row tiles of tokens, the core with a key-chunked online softmax, both
-ways, at any head dim 8, 16, 32 or 64.
+block at C % 128 == 0). Windows above 8 (N = win² > 64 tokens, any
+size) run `csrc/attention_wide.cu` through `attention_wide`: the
+projections over 64-row tiles of tokens, the core with a key-chunked
+online softmax, both ways, at any head dim 8, 16, 32 or 64; the backward
+holds dS for a bounded group of windows at a time (`DS_BUDGET`).
 
 Its backward, `fused_attention_block_bwd`, is the port of
 `attention_block.py:fused_attention_block_bwd` in its own layout (kernel
@@ -97,7 +98,7 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
                           bo, bias, *, win: int, shift: int, H: int, W: int,
                           scale: float, num_heads: int, has_ln: bool = True,
                           w_off: int = 0) -> torch.Tensor:
-    """x: (Bw, N, C) windows, N = win² (win 1-16) -> (Bw, N, C), the
+    """x: (Bw, N, C) windows, N = win² (any win) -> (Bw, N, C), the
     attention branch.
 
     Weight layouts are the kernels' (in, out), as `fused_attention_image`
@@ -393,7 +394,7 @@ def fused_attention_block_bwd(x: torch.Tensor, g: torch.Tensor,
     weight gradients are then reduced over every token by
     `csrc/wgrad.cu`. Inputs as `fused_attention_block` takes them. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernels
-    (win 1-16, head dim 8, 16, 32 or 64, w_off 0: the JAX kernel has no
+    (any win, head dim 8, 16, 32 or 64, w_off 0: the JAX kernel has no
     offset; above window 8 `csrc/attention_wide.cu`) or raises."""
     kw = dict(win=win, shift=shift, H=H, W=W, scale=scale,
               num_heads=num_heads, has_ln=has_ln, w_off=w_off)

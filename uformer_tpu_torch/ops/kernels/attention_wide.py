@@ -1,15 +1,18 @@
-"""Windows of 9-16 (N = win² = 81-256 tokens) in kernels 4, 5 and 6.
+"""Windows above 8 (N = win² > 64 tokens, any size) in kernels 4, 5 and 6.
 
-Kernel source `csrc/attention_wide.cu`. A window of 256 tokens does not
-fit one 64-row tile, so these wrappers run a short chain of kernels where
-windows 1-8 run one: the q | k | v projection over 64-row tiles of tokens
-(`wide_gemm_mma` on the tensor cores in bf16, `[Wq | Wkv]` read in place
+Kernel source `csrc/attention_wide.cu`. A window of 81 tokens or more does
+not fit one 64-row tile, so these wrappers run a short chain of kernels
+where windows 1-8 run one: the q | k | v projection over 64-row tiles of
+tokens (`wide_gemm_mma` on the tensor cores in bf16, `[Wq | Wkv]` read in place
 as two parts; after LN1 and the modulator where they apply, `wide_xm`),
 the window core with a key-chunked online softmax (`wide_core_fwd`: 64
 query rows of one window and head a block, 64-key chunks, the bias read
 per chunk, the SW-MSA mask inline from region ids), the output
 projection; the backward recomputes q, k and v, runs the core's VJP
-without atomics (`wide_core_bwd_q`, `wide_core_bwd_kv`), dxm and the
+without atomics (`wide_core_bwd_q`, `wide_core_bwd_kv`) over groups of
+windows (and, where one window's heads pass the budget, of heads) whose
+fp32 dS fits `DS_BUDGET` (`ds_groups`), folding each group's dS into
+dbias in a fixed order (one group: the whole batch at once), dxm and the
 LayerNorm VJP on the fp32 dxm, and reduces the weight, bias, modulator
 and LayerNorm gradients by `csrc/wgrad.cu` (`wgrad`, `colsum`) in a fixed
 order. Each is called by its kernel's wrapper (`fused_window_attention`,
@@ -27,10 +30,44 @@ from uformer_tpu_torch.ops.kernels.wgrad import colsum, wgrad
 
 MAX_C = 1024  # the LayerNorm VJP's lanes hold at most 32 channels each
 LN_ROWS = 64  # tokens of one block of the LayerNorm VJP (its dln partial)
+# bytes of fp32 dS the backward holds at once: a module constant (a test
+# may lower it), not an option; one window's head takes N² 4 bytes
+DS_BUDGET = 256 << 20
+INT_MAX = 2 ** 31 - 1  # the kernels' token, block, stride and dS-row indices
+ROWS = 64  # query rows of a core block, keys of a chunk
+
+
+def check_int32(**sizes: int) -> None:
+    """Raise before any launch where a size passes the kernels' 32-bit
+    indices, naming it."""
+    for name, n in sizes.items():
+        if n > INT_MAX:
+            raise ValueError(f"attention_wide: {name} = {n} passes the "
+                             f"kernels' 32-bit index ({INT_MAX})")
+
+
+def ds_groups(Bw: int, nH: int, N: int):
+    """The backward core's groups, in the order their dS folds into
+    dbias: (first window, windows, first head, heads), each group's fp32
+    dS (windows x heads x N² floats) within DS_BUDGET where one head of
+    one window fits it. Every head of as many windows as fit; where one
+    window's heads do not, one window at a time in groups of heads."""
+    per_head = N * N * 4
+    heads = max(1, min(nH, DS_BUDGET // per_head))
+    if heads < nH:
+        return [(w0, 1, h0, min(heads, nH - h0)) for w0 in range(Bw)
+                for h0 in range(0, nH, heads)]
+    G = max(1, min(Bw, DS_BUDGET // (nH * per_head)))
+    return [(w0, min(G, Bw - w0), 0, nH) for w0 in range(0, Bw, G)]
 
 
 def _bf16(t: torch.Tensor) -> int:
     return int(t.dtype == torch.bfloat16)
+
+
+def _at(t: torch.Tensor, offset: int) -> int:
+    """The address of element `offset` of contiguous t."""
+    return t.data_ptr() + offset * t.element_size()
 
 
 def _gemm(lib, a, b, bias, out, *, b_trans: bool, stream, b2=None,
@@ -76,6 +113,7 @@ def wide_window_attention(q, k, v, bias, *, win, shift, H, W, scale):
     """Kernel 4 at N > 64: q, k, v (nH, Bw, N, D) -> (nH, Bw, N, D), the
     fp32 logits scaled (as `window_attention_reference`)."""
     nH, Bw, N, D = q.shape
+    check_int32(blocks=nH * Bw * -(-N // ROWS), head_stride=Bw * N * D)
     lib = load()
     out = torch.empty_like(q)
     view = (N * D, Bw * N * D, D)  # (window, head, token) strides
@@ -97,6 +135,8 @@ def wide_attention_block(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias,
     version), the output projection."""
     Bw, N, C = x.shape
     D = C // num_heads
+    check_int32(tokens=Bw * N, blocks=Bw * num_heads * -(-N // ROWS),
+                window_stride=N * 3 * C)
     lib = load()
     stream = _launch.stream(x)
     with torch.cuda.device(x.device):
@@ -118,15 +158,20 @@ def wide_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
                          *, win, shift, H, W, scale, num_heads, has_ln):
     """Kernel 6 at N > 64, unrun, as `attention_bwd_parts` returns it:
     ([(name, run)], result). The parts: "recompute" (xm, q | k | v, dO =
-    g Wo^T in fp32), "core" (O, dS, dq | dk | dv), "dxm" (dxm = dqkv
-    [Wq | Wkv]^T in fp32, then dx by the LayerNorm VJP), the two weight
-    gradients by `wgrad`, and "colsum" (dbias over windows, dmod over
-    windows, dln over the VJP's blocks)."""
+    g Wo^T in fp32), "core" (O, dq | dk | dv and dbias: per `ds_groups`
+    group its dS into a scratch of at most DS_BUDGET bytes, folded into
+    dbias by colsum), "dxm" (dxm = dqkv [Wq | Wkv]^T in fp32, then dx by
+    the LayerNorm VJP), the two weight gradients by `wgrad`, and "colsum"
+    (dmod over windows, dln over the VJP's blocks)."""
     Bw, N, C = x.shape
     D = C // num_heads
     if C > MAX_C:
         raise ValueError(f"backward kernel at windows above 8 needs C <= "
                          f"{MAX_C}: C={C}")
+    groups = ds_groups(Bw, num_heads, N)
+    check_int32(tokens=Bw * N, blocks=Bw * num_heads * -(-N // ROWS),
+                window_stride=N * 3 * C,
+                ds_row=groups[0][1] * groups[0][3] * N * N)
     lib = load()
     dev, dt, f32 = x.device, x.dtype, torch.float32
     M = Bw * N
@@ -141,19 +186,33 @@ def wide_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
         buf["do"] = do = torch.empty(M, C, dtype=f32, device=dev)
         _gemm(lib, g.view(-1, C), wo, None, do, b_trans=True, stream=stream)
 
+    _, G, _, hg = groups[0]  # the largest group
+
     def core():
         buf["o"] = o = torch.empty(M, C, dtype=dt, device=dev)
         buf["dqkv"] = dqkv = torch.empty(M, 3 * C, dtype=dt, device=dev)
-        buf["ds"] = ds = torch.empty(Bw, num_heads * N * N, dtype=f32,
-                                     device=dev)
-        buf["stats"] = stats = torch.empty(Bw, num_heads, N, 2, dtype=f32,
+        buf["ds"] = ds = torch.empty(G * hg * N * N, dtype=f32, device=dev)
+        buf["stats"] = stats = torch.empty(G * hg * N * 2, dtype=f32,
                                            device=dev)
-        err = lib.uf_wide_core_bwd(
-            _bf16(x), buf["qkv"].data_ptr(), buf["do"].data_ptr(),
-            bias.data_ptr(), o.data_ptr(), dqkv.data_ptr(), ds.data_ptr(),
-            stats.data_ptr(), Bw, num_heads, N, D, H, W, win, shift, 0,
-            float(scale), stream)
-        _launch.check(err, "attention_wide backward core kernel")
+        buf["dbias"] = dbias = (torch.empty(num_heads * N * N, dtype=f32,
+                                            device=dev)
+                                if len(groups) > 1 else None)
+        for w0, n, h0, nh in groups:
+            t0, c0 = w0 * N, h0 * D  # first token, first head's column
+            err = lib.uf_wide_core_bwd(
+                _bf16(x), _at(buf["qkv"], t0 * 3 * C + c0),
+                _at(buf["do"], t0 * C + c0), _at(bias, h0 * N * N),
+                _at(o, t0 * C + c0), _at(dqkv, t0 * 3 * C + c0),
+                ds.data_ptr(), stats.data_ptr(), n, nh, N, D, C, H, W, win,
+                shift, w0, float(scale), stream)
+            _launch.check(err, "attention_wide backward core kernel")
+            part = colsum(ds[:n * nh * N * N].view(n, nh * N * N))
+            if dbias is None:
+                buf["dbias"] = part
+            elif w0 == 0:
+                dbias[h0 * N * N:(h0 + nh) * N * N].copy_(part)
+            else:
+                dbias[h0 * N * N:(h0 + nh) * N * N].add_(part)
 
     def dxm():
         buf["dxm"] = dxm_ = torch.empty(M, C, dtype=f32, device=dev)
@@ -179,7 +238,7 @@ def wide_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
              ("wgrad dWo", reduce("dwo", lambda: wgrad(
                  buf["o"], g.view(-1, C), colsum_b=True))),
              ("colsum", reduce("sums", lambda: (
-                 colsum(buf["ds"]).view(num_heads, N, N),
+                 buf["dbias"].view(num_heads, N, N),
                  colsum(buf["dxm"].view(Bw, N * C)).view(N, C)
                  if mod is not None else None,
                  colsum(buf["dln"]) if has_ln else None)))]

@@ -13,15 +13,16 @@ windows on `csrc/window_core.cuh`. No model path calls it, in the JAX
 package either: it is the standalone form of the core the other kernels
 run. `window_attention_reference` is the plain PyTorch version.
 
-Windows of 9-16 (N = win² 81-256 tokens) run `csrc/attention_wide.cu`'s
-core with a key-chunked online softmax (`attention_wide`). Windows of N =
+Windows above 8 (N = win² > 64 tokens, of any size) run
+`csrc/attention_wide.cu`'s core with a key-chunked online softmax
+(`attention_wide`), which never holds a whole window. Windows of N =
 win² < 64 tokens (win 1-7) and head dim 8 run on the same bodies as
 window 8: the kernels take 64-row tiles of 64 // N whole windows
 (`packed_tiles`), with the bias as its tile (`tile_bias`: -inf between two
 windows of a tile, so each row weighs only its own window's keys); padding
 rows read as zeros and are never written. In bf16 a head of 8 takes its
 QKᵀ on mma.sync.m16n8k8. Head dim 64 (every block of an `--embed_dim 64`
-model) runs at every window 1-16 on the same bodies, both ways
+model) runs at every window on the same bodies, both ways
 (`HEAD_DIMS`; other head dims: ROADMAP.md, port queue 2 item 9).
 
 Unlike the block kernels, which fold the softmax scale into q before
@@ -43,7 +44,6 @@ from uformer_tpu_torch.ops.masks import shift_window_mask
 
 HEAD_DIMS = (8, 16, 32, 64)  # the attention kernels' heads, both ways
 FORWARD_HEAD_DIMS = BACKWARD_HEAD_DIMS = HEAD_DIMS
-WINDOWS = tuple(range(1, 17))  # kernels 4, 5 and 6: N = win² <= 256 tokens
 TILE = 64  # rows of a kernel's window tile
 
 
@@ -62,15 +62,18 @@ def packed_tiles(Bw: int, N: int) -> int:
 
 
 def check_window(win: int, shift: int, H: int, W: int,
-                 windows=WINDOWS) -> None:
-    """Raise unless the kernels take this window geometry: win in
-    `windows` (1-16 for kernels 4, 5 and 6; 8 for kernels 1 and 3, as in
-    the JAX package), H and W multiples of win and 0 <= shift < win."""
-    if win not in windows or H % win or W % win or not 0 <= shift < win:
-        raise ValueError(f"kernel needs win in {tuple(windows)}, H, W "
-                         f"multiples of win and 0 <= shift < win: win={win} "
-                         f"H={H} W={W} shift={shift} (windows above 16: "
-                         f"ROADMAP.md, port queue 2 item 2)")
+                 windows=None) -> None:
+    """Raise unless the kernels take this window geometry: win >= 1 (any
+    window for kernels 4, 5 and 6, as in the JAX package) or, where given,
+    win in `windows` (kernels 1 and 3 take (8,), as JAX's image route), H
+    and W multiples of win and 0 <= shift < win."""
+    if win < 1 or (windows is not None and win not in windows) \
+            or H % win or W % win or not 0 <= shift < win:
+        where = f"win in {tuple(windows)}" if windows is not None \
+            else "win >= 1"
+        raise ValueError(f"kernel needs {where}, H, W multiples of win and "
+                         f"0 <= shift < win: win={win} H={H} W={W} "
+                         f"shift={shift}")
 
 
 def check_head_dim(C: int, num_heads: int) -> None:
@@ -174,7 +177,7 @@ def window_attention_reference(q, k, v, bias, *, win, shift, H, W, scale):
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, *, win: int, shift: int,
                            H: int, W: int, scale: float) -> torch.Tensor:
-    """q, k, v: (nH, Bw, N, D), N = win² (win 1-16), D in HEAD_DIMS,
+    """q, k, v: (nH, Bw, N, D), N = win² (any win), D in HEAD_DIMS,
     float32 or bfloat16; bias
     (nH, N, N) float32. Returns (nH, Bw, N, D). A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel or raises."""

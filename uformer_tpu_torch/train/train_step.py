@@ -7,13 +7,13 @@ Charbonnier loss; backward (through the backward kernels on the card);
 AdamW with weight decay on every parameter (the reference trainers never
 use the model's no-decay sets); optional global-norm clipping. MixUp runs
 once the epoch passes `mixup_after_epoch`. On the card the kernel path
-trains every linear-projection model at windows 1-16 and head dim 8, 16,
+trains every linear-projection model at every window and head dim 8, 16,
 32 or 64 (Uformer_B, Uformer_T and the rest of the registry at any
-`--train_ps`, Uformer at embed 8-64 and win_size 1-16; LeFF or Mlp, with
+`--train_ps`, Uformer at embed 8-64 and any win_size; LeFF or Mlp, with
 or without a cross-modulator, with or without `use_checkpoint`): the
 attention-image, attention-block and LeFF kernels and their backward
 kernels; UNet trains on cuDNN alone. It refuses any other model (conv
-projection, windows above 16, other head dims) before the step runs; no
+projection, other head dims) before the step runs; no
 plain version stands in on the card. Over a data mesh the step runs under
 DistributedDataParallel (`make_train_step(mesh=...)`).
 """
@@ -75,9 +75,8 @@ def make_optimizer(params: Iterable[torch.Tensor], lr_schedule: Schedule,
 
 def blocks_without_backward_kernel(model: nn.Module) -> List[str]:
     """Names of the blocks the backward kernels do not cover (conv
-    projection, a window above 16 or a head dim other than 8, 16, 32 or
-    64;
-    the block's `backward_gap` says why)."""
+    projection or a head dim other than 8, 16, 32 or 64; the block's
+    `backward_gap` says why)."""
     return [name for name, m in model.named_modules()
             if isinstance(m, LeWinBlock) and m.backward_gap is not None]
 
@@ -116,12 +115,12 @@ def make_train_step(model: nn.Module, loss_fn: Callable = charbonnier_loss,
     runs the kernels' plain versions under torch autograd (the comparison
     path). After the step each parameter's `.grad` holds its gradient.
     On the card the kernel path runs every attention and LeFF sub-block
-    forward and backward through the kernels (windows 1-16, head dim 8,
+    forward and backward through the kernels (every window, head dim 8,
     16, 32 and 64, LeFF at C 8-1024: every registry arch at any
-    `--train_ps`, `--embed_dim` 8-64 and `--win_size` 1-16), and raises
+    `--train_ps`, `--embed_dim` 8-64 and any `--win_size`), and raises
     NotImplementedError before the step for a model with blocks in
-    `blocks_without_backward_kernel` (conv projection, windows above 16,
-    other head dims).
+    `blocks_without_backward_kernel` (conv projection, other head
+    dims).
 
     With a `parallel.Mesh` that has a process group, the batch is this
     rank's rows of the global batch (an even share), the model runs under
