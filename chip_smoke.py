@@ -189,7 +189,9 @@ Phases, each raising on failure (no phase is caught):
                shape, each rank's w_off, on 2 and 4 ranks (window 32: 2,
                at 512^2), and the 2-rank sharded forwards at windows 4,
                16 (256^2) and 32 (512^2, its side unpadded) against the
-               unsharded kernel path. Then `torchrun --nproc_per_node 2 -m
+               unsharded kernel path; the 2-rank fp32 sharded forward of
+               --embed_dim 48 at window 8 (256^2, head dim 48 in every
+               block) against it too. Then `torchrun --nproc_per_node 2 -m
                uformer_tpu_torch.train.cli --mesh_data 2` (gloo, cuda:0)
                for an epoch of 2 steps: the weights' crc32 equal on both
                ranks, one log, rank 0's .pth files. The ranks time-slice
@@ -332,6 +334,22 @@ Phases, each raising on failure (no phase is caught):
                step's peak memory with dS in groups within the 256 MiB
                budget, beside a single group's buffer); the train CLI at
                --win_size 32 (16 steps of bs4 on seeded 128^2 pairs).
+ 24. head dims 24-56 - kernels 5, 3 and 2 at head dims 24, 40, 48 and 56
+               (C = D nH for nH 1-16: 24-896, none a power of two):
+               kernel 5 at window 8 at every (D, nH), LN and the modulator
+               each way, w_off 0 and 37, and at window 4 (packed tiles)
+               and 16 (csrc/attention_wide.cu) at two (D, nH) each; kernel
+               3 at C 384 (head dims 24 and 48), 640, 768 and 896 on 16^2
+               and 8^2; kernel 2 at every C, LN and residual each way;
+               each against its plain version (fp32, bf16) and timed
+               beside it and its bound. Uformer at --embed_dim 48 (seeded
+               1283: 4 stage, 10 kernel-5 and 10 LeFF launches a request)
+               and 24 (seeded 1284: 2/14/14) served (4 bf16 requests of
+               batch 8 at 256^2, no plain call, against the plain path,
+               timed per kernel, peak memory); one fp32 request of e48
+               against the plain path. Phase 17 holds the 2-rank fp32
+               sharded forward of e48 (seeded 1285) against the unsharded
+               kernel path.
 
 Tolerances: fp32 max-abs <= 1e-4 * (1 + max|ref|); bf16 error against the
 fp32 plain result <= 1.5 x the bf16 plain version's error + 1e-3; for
@@ -354,7 +372,9 @@ forward, `launches_e8_win2_step` the embed-8 window-2 step's,
 phase 21, `_eval` the fp32 CLI frame's; `launches_e64train_e64`,
 `_e64ps64`, `_e64win16` and `_cli` a step's in phase 22,
 `_serve_win16` a request's; `launches_win32_serve` a request's in phase
-23, `_train` and `_cli` a step's there); the last line is {"ok": true,
+23, `_train` and `_cli` a step's there; `launches_heads_e48`, `_e24` a
+bf16 request's in phase 24, `_e48_fp32` the fp32 one's); the last line is
+{"ok": true,
 "device": {...}}.
 """
 
@@ -2781,9 +2801,9 @@ def refusal_checks(device) -> dict:
     call, finite output), and so does its train step (18 attention-block,
     18 attention-block-backward, 18 LeFF and 18 LeFF-backward launches, no
     plain call, finite loss). A model at embed 24 (head dim 24 in every
-    block, which no kernel takes: ROADMAP queue 2 item 9) has its step
-    refused before any launch, naming the blocks. Returns the forward's
-    and the step's launches."""
+    block, which the forward kernels take but no backward kernel yet:
+    ROADMAP queue 2 item 9) has its step refused before any launch, naming
+    the blocks. Returns the forward's and the step's launches."""
     from uformer_tpu_torch import get_arch
     from uformer_tpu_torch.ops import kernels as K
     from uformer_tpu_torch.train import TrainState, make_optimizer, \
@@ -3525,6 +3545,11 @@ SPATIAL_WIN_FORWARD = (4, 16, 32)
 SPATIAL_WIN_SIDE = {2: RES_SERVE, 4: RES_SERVE, 16: RES_SERVE, 32: 512}
 SPATIAL_WIN_WORLDS = {2: (2, 4), 4: (2, 4), 16: (2, 4), 32: (2,)}
 SPATIAL_WIN_LAUNCHES = dict(SPATIAL_LAUNCHES, attention_block=18, leff=18)
+# the spatial path at head dim 48: `--arch Uformer --embed_dim 48` built at
+# 256^2 (seeded 1285), one image on 2 ranks in fp32 against the unsharded
+# kernel path, 18 kernel-5 and 18 kernel-2 launches a rank
+SPATIAL_E48 = ({"arch": "Uformer", "embed_dim": 48, "train_ps": RES_SERVE},
+               1285)
 
 
 def compute_mode() -> str:
@@ -3645,6 +3670,27 @@ def rank_spatial_win(device, x_win: dict) -> dict:
     return out
 
 
+def rank_spatial_e48(device, x: np.ndarray) -> dict:
+    """The fp32 sharded forward of x over the ranks at --embed_dim 48
+    (SPATIAL_E48): the result (rank 0; the others its crc32), launches and
+    plain calls."""
+    import torch.distributed as dist
+
+    from uformer_tpu_torch.parallel import spatial as S
+    from uformer_tpu_torch.restore import Restorer
+
+    opt, seed = SPATIAL_E48
+    r = Restorer(build_arch(opt, seeded_for(opt, seed), device),
+                 torch.float32, device)
+    xt = torch.from_numpy(x).to(device)
+    y, counts, plain = launches_of(
+        lambda: S.run_uformer_spatially_sharded(r.model, xt,
+                                                dist.group.WORLD))
+    y = y.float().cpu().numpy()
+    return {"y": y if dist.get_rank() == 0 else None, "crc": bits_crc(y),
+            "counts": counts, "plain": plain}
+
+
 def eval_cli_args(gopro_dir: Path, pth, dtype: str, world: int) -> list:
     args = ["gopro", "--input_dir", str(gopro_dir), "--weights", str(pth),
             "--tile", str(EVAL_TILE["tile"]), "--tile_overlap",
@@ -3695,6 +3741,8 @@ def par_rank(rank: int, world: int, tasks: tuple, inputs: dict) -> dict:
                                       inputs["dtypes"])
     if "spatial_win" in tasks:
         out["spatial_win"] = rank_spatial_win(device, inputs["x_win"])
+    if "spatial_e48" in tasks:
+        out["spatial_e48"] = rank_spatial_e48(device, inputs["x_e48"])
     if "eval" in tasks:
         out["eval"] = rank_eval(inputs["gopro_dir"], inputs["pth"],
                                 inputs["frame"], inputs["result_dir"], world)
@@ -3912,6 +3960,39 @@ def spatial_window_checks(checks: Checks, two: list, x_win: dict,
     return out
 
 
+def spatial_e48_check(checks: Checks, two: list, x: np.ndarray, device,
+                      card: str) -> dict:
+    """The 2 ranks' fp32 sharded forward of x at --embed_dim 48
+    (`rank_spatial_e48`) against the unsharded kernel path within 1e-4
+    (1 + max|ref|), SPATIAL_WIN_LAUNCHES a rank, no plain call, equal
+    results on both ranks."""
+    from uformer_tpu_torch.restore import Restorer
+
+    opt, seed = SPATIAL_E48
+    model = build_arch(opt, seeded_for(opt, seed), device)
+    with torch.no_grad():
+        ref = Restorer(model, torch.float32, device).model(
+            torch.from_numpy(x).to(device)).float().cpu().numpy()
+    rows = [res["spatial_e48"] for res in two]
+    for r, row in enumerate(rows):
+        expect_counts(f"spatial e48 2 ranks fp32 rank {r}", row["counts"],
+                      row["plain"], SPATIAL_WIN_LAUNCHES)
+    if rows[0]["crc"] != rows[1]["crc"]:
+        raise RuntimeError("spatial e48 fp32: the ranks' results differ")
+    y = rows[0]["y"]
+    diff = float(np.abs(y - ref).max())
+    checks.add("model", f"spatial e48 2 ranks {x.shape[1]}^2 bs1 fp32 "
+               f"against unsharded kernel path", diff,
+               1e-4 * (1.0 + float(np.abs(ref).max())), "fp32")
+    print(f"  spatial e48 2 ranks fp32: 18 kernel-5 and 18 kernel-2 "
+          f"launches a rank, no plain call; against the unsharded kernel "
+          f"path max diff {diff:.3e}  [{card}]", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"max_diff_vs_unsharded_kernels": diff,
+            "launches": rows[0]["counts"]}
+
+
 def layer_name(k: int) -> str:
     return (f"enc{k}" if k < 4 else "conv" if k == 4 else f"dec{k - 5}")
 
@@ -4015,12 +4096,15 @@ def parallel_phase(tmp: Path, sd, device, card: str) -> tuple:
              .uniform(0, 1, (1, side, side, 3)).astype(np.float32)
              for win, side in SPATIAL_WIN_SIDE.items()
              if win in SPATIAL_WIN_FORWARD}
+    x_e48 = np.random.default_rng(PAR_SEED + 4).uniform(
+        0, 1, (1, RES_SERVE, RES_SERVE, 3)).astype(np.float32)
     inputs = {"spatial": frame[None], "gopro_dir": gopro_dir, "pth": pth,
               "frame": frame, "result_dir": tmp / "gopro_out",
-              "dtypes": (torch.bfloat16, torch.float32), "x_win": x_win}
+              "dtypes": (torch.bfloat16, torch.float32), "x_win": x_win,
+              "x_e48": x_e48}
     t0 = time.perf_counter()
     two = spawn_ranks(par_rank, 2, ("step", "spatial", "eval",
-                                    "spatial_win"), inputs,
+                                    "spatial_win", "spatial_e48"), inputs,
                       backend="gloo", device="cuda:0",
                       timeout_s=PAR_TIMEOUT_S, num_threads=None)
     four = spawn_ranks(par_rank, 4, ("spatial",),
@@ -4155,6 +4239,8 @@ def parallel_phase(tmp: Path, sd, device, card: str) -> tuple:
     torch.cuda.empty_cache()
     summary["spatial_windows"] = spatial_window_checks(
         checks, two, x_win, device, card)
+    summary["spatial_e48"] = spatial_e48_check(checks, two, x_e48, device,
+                                               card)
 
     # the eval CLI's sharded tiles against the one-process tiled output
     rs = eval_restorers(pth, device)
@@ -6056,6 +6142,222 @@ def above16_phase(tmp: Path, device, card: str) -> tuple:
     return checks, summary, launches
 
 
+# phase 24, head dims 24-56: `--arch Uformer --embed_dim 48` and `24`
+# (heads 1-2-4-8-16-16-8-4-2, every block at head dim 48 or 24, C 24-768,
+# none a power of two) served through kernels 5, 3 and 2. Cells: label ->
+# (get_arch options, weight seed, launches a request by JAX's route,
+# layers.py:757-775 and 979-985): the stage kernel where C % 128 == 0,
+# kernels 5 and 2 a block elsewhere (window 8), never kernel 1
+HEADS_MODELS = {
+    "e48": ({"arch": "Uformer", "embed_dim": 48, "train_ps": 128}, 1283,
+            dict(NO_LAUNCHES, stage=4, attention_block=10, leff=10)),
+    "e24": ({"arch": "Uformer", "embed_dim": 24, "train_ps": 128}, 1284,
+            dict(NO_LAUNCHES, stage=2, attention_block=14, leff=14)),
+}
+HEADS_NEW = (24, 40, 48, 56)  # the head dims this phase adds
+HEADS_NH = (1, 2, 4, 8, 16)  # the family's heads a stage
+# kernel 5 beyond window 8: (win, head dim, heads), packed window 4 and
+# wide window 16 at two (D, heads) each
+HEADS_BLOCK_OTHER = ((4, 24, 4), (4, 56, 1), (16, 48, 2), (16, 40, 1))
+# kernel 3: (C, heads) at every width the family runs it with these head
+# dims (C = 16 D), on 16^2 and 8^2, batch 2, shift on
+HEADS_STAGE = ((384, 16), (384, 8), (640, 16), (768, 16), (896, 16))
+# kernel 2: every C = D nH of the new head dims (hidden 4C; 96, 160 and
+# 224 padded to 128, 192 and 256 by the wrapper)
+HEADS_LEFF_C = sorted({D * nH for D in HEADS_NEW for nH in HEADS_NH})
+HEADS_IMAGES = 2  # batch of the kernel checks (images of 4 x 4 windows)
+
+
+def heads_kernel_checks(checks: Checks, device, card: str) -> list:
+    """Kernels 5, 3 and 2 at head dims 24-56 against their plain versions,
+    fp32 (TF32 off) and bf16 by `compare`: kernel 5 at window 8 at every
+    (D, heads) the family builds, with LN and modulator at w_off 0 (timed)
+    and without either at w_off 37, shift 4, and at HEADS_BLOCK_OTHER;
+    kernel 3 at HEADS_STAGE on 16^2 and 8^2; kernel 2 at every
+    HEADS_LEFF_C with LN and residual and without; every timed row beside
+    its plain version and bound (`timed_compare`). Returns the timed
+    rows."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(24)
+
+    def mk(*shape, fan_in=None, scale=0.3):
+        a = rng.standard_normal(shape)
+        return (a / np.sqrt(fan_in) if fan_in else a * scale).astype(
+            np.float32)
+
+    def xin(*shape):
+        return torch.from_numpy(mk(*shape, scale=1.0)).to(
+            device).bfloat16().float()
+
+    def attn_prm(C, nH, N, with_mod):
+        return _prm(dict(mod=mk(N, C, scale=0.1) if with_mod else None,
+                         ln_s=1.0 + mk(C, scale=0.1),
+                         ln_b=mk(C, scale=0.1), wq=mk(C, C, fan_in=C),
+                         bq=mk(C, scale=0.02), wkv=mk(C, 2 * C, fan_in=C),
+                         bkv=mk(2 * C, scale=0.02), wo=mk(C, C, fan_in=C),
+                         bo=mk(C, scale=0.02), bias=mk(nH, N, N, scale=0.5)),
+                    device, ("mod", "wq", "wkv", "wo"))
+
+    def block_case(win, D, nH, shift, w_off, on, timed):
+        C, N, H = D * nH, win * win, 4 * win
+        Bw = HEADS_IMAGES * 16
+        prm = attn_prm(C, nH, N, on)
+        kw = dict(win=win, shift=shift, H=H, W=H, scale=D ** -0.5,
+                  num_heads=nH, has_ln=on, w_off=w_off)
+        what = (f"D {D} C {C} win {win} shift {shift} off {w_off} ln/mod "
+                f"{int(on)}")
+        fused = (lambda x, dt, p=prm, kw=kw: K.fused_attention_block(
+            x, *p[dt].values(), **kw))
+        plain = (lambda x, dt, p=prm, kw=kw: K.attention_block_reference(
+            x, *p[dt].values(), **kw))
+        if timed:
+            return timed_compare(checks, "attention_block", what, fused,
+                                 plain, xin(Bw, N, C),
+                                 attn_cost(Bw * N, C, nH, mod=on, ln=on,
+                                           N=N), card)
+        compare(checks, "attention_block", what, fused, plain,
+                xin(Bw, N, C))
+        return None
+
+    rows = []
+    for D in HEADS_NEW:
+        for nH in HEADS_NH:
+            rows.append(block_case(8, D, nH, 4, 0, True, True))
+            block_case(8, D, nH, 4, 37, False, False)
+    for win, D, nH in HEADS_BLOCK_OTHER:
+        rows.append(block_case(win, D, nH, win // 2, 37, True, True))
+    for C, nH in HEADS_STAGE:
+        n, Ch = 2, 4 * C
+        sprm = _prm(dict(
+            ln1_s=1.0 + mk(n, C, scale=0.1), ln1_b=mk(n, C, scale=0.1),
+            wq=mk(n, C, C, fan_in=C), bq=mk(n, C, scale=0.02),
+            wk=mk(n, C, C, fan_in=C), bk=mk(n, C, scale=0.02),
+            wv=mk(n, C, C, fan_in=C), bv=mk(n, C, scale=0.02),
+            wo=mk(n, C, C, fan_in=C), bo=mk(n, C, scale=0.02),
+            bias=mk(n, nH, 64, 64, scale=0.5), mod=mk(n, 64, C, scale=0.1),
+            ln2_s=1.0 + mk(n, C, scale=0.1), ln2_b=mk(n, C, scale=0.1),
+            w1=mk(n, C, Ch, fan_in=C), b1=mk(n, Ch, scale=0.02),
+            wd=mk(n, 3, 3, Ch, fan_in=9), bd=mk(n, Ch, scale=0.02),
+            w2=mk(n, Ch, C, fan_in=Ch), b2=mk(n, C, scale=0.02)),
+            device, ("wq", "wk", "wv", "wo", "mod", "w1", "wd", "w2"))
+        kw = dict(scale=(C // nH) ** -0.5, num_heads=nH, use_shift=True,
+                  has_mod=True)
+        for side in (16, 8):
+            rows.append(timed_compare(
+                checks, "stage", f"D {C // nH} C {C} 2x{side}^2",
+                lambda x, dt, p=sprm, kw=kw: K.fused_stage(x, p[dt], **kw),
+                lambda x, dt, p=sprm, kw=kw: K.stage_reference(x, p[dt],
+                                                               **kw),
+                xin(2, side, side, C),
+                stage_cost(2 * side * side, C, nH, Ch, n), card))
+    for C in HEADS_LEFF_C:
+        Ch = 4 * C
+        lprm = _prm(dict(w1=mk(C, Ch, fan_in=C), b1=mk(Ch, scale=0.02),
+                         wd=mk(3, 3, Ch, fan_in=9), bd=mk(Ch, scale=0.02),
+                         w2=mk(Ch, C, fan_in=Ch), b2=mk(C, scale=0.02),
+                         ln_s=1.0 + mk(C, scale=0.1), ln_b=mk(C, scale=0.1)),
+                    device, ("w1", "wd", "w2"))
+        for on in (True, False):
+            def run(fn, p=lprm, on=on):
+                def call(x, dt):
+                    q = p[dt]
+                    ln = dict(ln_s=q["ln_s"], ln_b=q["ln_b"]) if on else {}
+                    return fn(x, *(q[k] for k in ("w1", "b1", "wd", "bd",
+                                                  "w2", "b2")), **ln,
+                              residual=on)
+                return call
+            rows.append(timed_compare(
+                checks, "leff", f"C {C} Ch {Ch} 2x16x24 ln/res {int(on)}",
+                run(K.fused_leff), run(K.leff_reference), xin(2, 16, 24, C),
+                leff_cost(2 * 16 * 24, C, Ch), card))
+    torch.cuda.synchronize()
+    return [r for r in rows if r is not None]
+
+
+def heads_fp32_request(sd, device, checks: Checks, card: str) -> dict:
+    """One fp32 bs8 256^2 request of e48 through a Restorer (TF32 off):
+    e48's launches, no plain call, the clamped output and the output
+    before the clamp against the plain path within 1e-4 (1 + max|ref|)."""
+    from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.restore import Restorer
+
+    opt, _, expected = HEADS_MODELS["e48"]
+    restorer = Restorer(build_arch(opt, sd, device), torch.float32, device)
+    x = torch.rand((BATCH_SERVE, RES_SERVE, RES_SERVE, 3),
+                   generator=torch.Generator(device="cpu").manual_seed(2))
+    restorer(x)  # warm-up
+    torch.cuda.synchronize()
+    K.reset_counts()
+    t0 = time.perf_counter()
+    y = restorer(x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = K.launch_counts()
+    if got != expected or any(K.plain_counts().values()):
+        raise RuntimeError(f"e48 fp32 request: launches {got}, plain calls "
+                           f"{K.plain_counts()}; expected {expected}")
+    xd = x.to(device)
+    with torch.no_grad():
+        raw = restorer.model(xd).float()
+        ref = restorer.model(xd, plain=True).float()
+    for what, a, b in (("clamped", y, ref.clamp(0.0, 1.0)),
+                       ("before the clamp", raw, ref)):
+        checks.add("model", f"serve e48 fp32 bs8 256^2 request {what}",
+                   max_err(a, b), 1e-4 * (1.0 + float(b.abs().max())),
+                   "fp32")
+    print(f"  serve e48 fp32 bs{BATCH_SERVE} {RES_SERVE}^2: one request "
+          f"{ms:.3f} ms, launches {got}, no plain call; against the plain "
+          f"path {checks.rows[-2]['err']:.2e} (clamped), "
+          f"{checks.rows[-1]['err']:.2e} (before)  [{card}]", flush=True)
+    return {"ms": ms, "launches": got}
+
+
+def heads_phase(tmp: Path, device, card: str) -> tuple:
+    """Phase 24: kernels 5, 3 and 2 at head dims 24-56 against their plain
+    versions at every new (D, heads) the family builds, each timed
+    (`heads_kernel_checks`); the serve cells e48 and e24 (HEADS_MODELS: 4
+    bf16 requests of batch 8 at 256^2, their launches, no plain call,
+    against the plain path, each kernel's time per stage and the forward on
+    both paths, peak memory); one fp32 request of e48 against the plain
+    path. Returns the checks, the summary and the launches per path."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    checks, summary, launches = Checks(), {"card": card}, {}
+    t0 = time.perf_counter()
+    summary["kernel_rows"] = heads_kernel_checks(checks, device, card)
+    summary["kernel_checks_s"] = time.perf_counter() - t0
+    sds = {}
+    for label, (opt, seed, expected) in HEADS_MODELS.items():
+        sds[label] = sd = seeded_for(opt, seed)
+        restorer, x, serve, _, schecks = serve_phase(
+            lambda opt=opt, sd=sd: build_arch(opt, sd, device), device,
+            expected, f"serve {label}")
+        if any(K.plain_counts().values()):
+            raise RuntimeError(f"serve {label}: plain calls "
+                               f"{K.plain_counts()}")
+        checks.rows += schecks.rows
+        checks.failed += schecks.failed
+        launches[label] = serve["launches_per_request"][0]
+        rows, totals, fwd = timing_phase(restorer, x)
+        summary.update({f"serve_{label}": serve, f"timing_{label}": rows,
+                        f"timing_totals_{label}": totals,
+                        f"forward_{label}": fwd})
+        print(f"  serve {label} bs{BATCH_SERVE} {RES_SERVE}^2 bf16: "
+              f"{serve['median_ms']:.3f} ms a request, "
+              f"{serve['mp_per_s']:.2f} MP/s, kernel path "
+              f"{fwd['kernel_ms']:.3f} ms against plain path "
+              f"{fwd['plain_ms']:.3f} ms a forward, peak "
+              f"{serve['max_memory_allocated_bytes'] / 2**20:.1f} MiB  "
+              f"[{card}]", flush=True)
+        del restorer, x
+        torch.cuda.empty_cache()
+    summary["fp32_e48"] = heads_fp32_request(sds["e48"], device, checks,
+                                             card)
+    launches["e48_fp32"] = summary["fp32_e48"]["launches"]
+    return checks, summary, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", type=Path, help="write the full report here")
@@ -6258,6 +6560,15 @@ def run(device, card: str, json_path) -> list:
     print(f"  phase 23 took {above16['s']:.1f} s", flush=True)
     gchecks23.raise_if_failed("windows above 16")
 
+    phase("head dims 24-56")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gchecks24, heads, heads_launches = heads_phase(Path(tmp), device,
+                                                       card)
+    heads["s"] = time.perf_counter() - t0
+    print(f"  phase 24 took {heads['s']:.1f} s", flush=True)
+    gchecks24.raise_if_failed("head dims 24-56")
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas,
@@ -6290,7 +6601,8 @@ def run(device, card: str, json_path) -> list:
               "head64_checks": gchecks21.rows, "head64": head64,
               "head64_train_checks": gchecks22.rows,
               "head64_train": head64t,
-              "above16_checks": gchecks23.rows, "above16": above16}
+              "above16_checks": gchecks23.rows, "above16": above16,
+              "heads_checks": gchecks24.rows, "heads": heads}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -6314,6 +6626,7 @@ def run(device, card: str, json_path) -> list:
                    + tile_checks.rows + mchecks.rows + pchecks.rows
                    + gchecks18.rows + gchecks19.rows + gchecks20.rows
                    + gchecks21.rows + gchecks22.rows + gchecks23.rows
+                   + gchecks24.rows
                    if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
@@ -6343,7 +6656,9 @@ def run(device, card: str, json_path) -> list:
                               + sum(kernel_count(c, name)
                                     for c in head64t_launches.values())
                               + sum(kernel_count(c, name)
-                                    for c in above16_launches.values())),
+                                    for c in above16_launches.values())
+                              + sum(kernel_count(c, name)
+                                    for c in heads_launches.values())),
                  "launches_serve": kernel_count(launches, name),
                  "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
@@ -6375,6 +6690,8 @@ def run(device, card: str, json_path) -> list:
                     for path, c in head64t_launches.items()},
                  **{f"launches_win32_{path}": kernel_count(c, name)
                     for path, c in above16_launches.items()},
+                 **{f"launches_heads_{path}": kernel_count(c, name)
+                    for path, c in heads_launches.items()},
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -6448,7 +6765,11 @@ def run(device, card: str, json_path) -> list:
                                ("serve win32", "serve_win32",
                                 above16["timing_totals"]),
                                ("train win32", "train_win32",
-                                above16["timing_totals_win32"])):
+                                above16["timing_totals_win32"]),
+                               ("serve e48", "e48",
+                                heads["timing_totals_e48"]),
+                               ("serve e24", "e24",
+                                heads["timing_totals_e24"])):
             if name in tt and label not in where:
                 entry.update({f"ms_{key}": tt[name]["ms"],
                               f"plain_ms_{key}": tt[name]["plain_ms"],

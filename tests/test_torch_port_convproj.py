@@ -449,7 +449,7 @@ def test_train_guard_names_conv_mlp_and_cross_blocks():
             assert blocks_without_backward_kernel(m) == [], (embed, opts)
     # a window below 8 (the 64^2 model's 4 x 4 bottleneck) is covered too
     # (packed tiles), and so are head dim 64 (embed 64) and a window of
-    # 17; head dim 24 is not (no kernel takes it)
+    # 17; head dim 24 is not (no backward kernel takes it)
     narrow = Uformer(img_size=64, embed_dim=16, depths=(1,) * 9,
                      num_heads=B_HEADS)
     assert narrow.conv.blocks[0].win_size == 4

@@ -16,10 +16,11 @@ within 1e-4 (1 + max|ref|):
     bias -inf between windows, region ids from each window's place as the
     kernels compute them, padding dropped) equal the plain versions;
     LeFF's hidden padded to a chunk (`pad_hidden`) equals the unpadded;
-  - the kernel route of seven geometries (Uformer_B at train_ps 64 and
-    32, Uformer at embed 8, at win_size 4, the flagship golden's, and
-    Uformer at embed 64, head dim 64, at train_ps 128 and 64 on 256^2),
-    counted on the plain path, against JAX's route conditions.
+  - the kernel route of nine geometries (Uformer_B at train_ps 64 and
+    32, Uformer at embed 8, at win_size 4, the flagship golden's,
+    Uformer at embed 64, head dim 64, at train_ps 128 and 64 on 256^2,
+    and at embed 48 and 24, head dims 48 and 24, on 256^2), counted on
+    the plain path, against JAX's route conditions.
 The tests marked `gpu` hold each extended kernel against its plain
 version on the card (`python -m pytest -m gpu
 tests/test_torch_port_geometry.py`), within the bounds of
@@ -407,7 +408,11 @@ ROUTES = [("Uformer_B ps64", dict(arch="Uformer_B", train_ps=64), 128,
           ("Uformer e64", dict(arch="Uformer", embed_dim=64, train_ps=128),
            256, (8, 2, 0, 2)),
           ("Uformer e64 ps64", dict(arch="Uformer", embed_dim=64,
-                                    train_ps=64), 256, (7, 2, 2, 4))]
+                                    train_ps=64), 256, (7, 2, 2, 4)),
+          ("Uformer e48", dict(arch="Uformer", embed_dim=48, train_ps=128),
+           256, (4, 0, 10, 10)),
+          ("Uformer e24", dict(arch="Uformer", embed_dim=24, train_ps=128),
+           256, (2, 0, 14, 14))]
 
 
 def _flagship():

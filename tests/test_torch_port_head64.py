@@ -20,9 +20,10 @@ On the CPU, with numpy inputs from a seed and fp32 throughout, each within
     `get_arch` with attn_backend="jnp" on the same weights, carried across
     by the state_dict converter;
   - the limits: the checks take head dim 64 both ways at every window
-    (17 and 32 too); head dims 128 and 24 raise naming ROADMAP queue 2
-    item 9; every block of the embed-64 models has a backward kernel, and
-    an embed-24 model's blocks (head dim 24) name what is left
+    (17 and 32 too); head dim 128 raises naming ROADMAP queue 2 item 9,
+    and so does head dim 20 in the forward kernels' check; every block of
+    the embed-64 models has a backward kernel, and an embed-24 model's
+    blocks (head dim 24, forward only) name what is left
     (`LeWinBlock.backward_gap`). Head dim 64's backward itself is held
     against JAX in tests/test_torch_port_head64_bwd.py.
 The launch routes of the embed-64 model (8/2/0/2 at --train_ps 128,
@@ -301,10 +302,12 @@ def test_embed64_uformer_matches_jax(jx):
 def test_forward_checks_take_head_dim_64():
     """Head dim 64 is one of the kernels' head dims both ways (the
     backward's since head dim 64's backward was ported), at every window
-    1-16."""
-    assert FORWARD_HEAD_DIMS == BACKWARD_HEAD_DIMS == (8, 16, 32, 64)
+    1-16; every head dim of the backward is one of the forward's."""
+    assert BACKWARD_HEAD_DIMS == (8, 16, 32, 64)
+    assert set(BACKWARD_HEAD_DIMS) <= set(FORWARD_HEAD_DIMS)
     for C, nH in ((64, 1), (128, 2), (512, 8), (1024, 16)):
         check_head_dim(C, nH)
+        check_head_dim(C, nH, FORWARD_HEAD_DIMS)
         for win in range(1, 17):
             check_window(win, win // 2, 2 * win, 2 * win)
 
@@ -314,8 +317,8 @@ def test_forward_checks_take_head_dim_64():
                                       (1024, 16, 16)])
 def test_head_dim_128_and_wide_windows_at_64_raise(C, nH, win):
     """Head dim 128 has no kernel either way (ROADMAP queue 2 item 9);
-    head dim 64 runs at every window, 17 and 32 too, and a head dim of 24
-    has no kernel at any window (item 9 again)."""
+    head dim 64 runs at every window, 17 and 32 too, and a head dim of 20
+    has no kernel at any window, forward either (item 9 again)."""
     if C // nH == 128:
         with pytest.raises(ValueError,
                            match="ROADMAP.md, port queue 2 item 9"):
@@ -326,7 +329,7 @@ def test_head_dim_128_and_wide_windows_at_64_raise(C, nH, win):
     for w in (17, 32):
         check_window(w, w // 2, 2 * w, 2 * w)
     with pytest.raises(ValueError, match="ROADMAP.md, port queue 2 item 9"):
-        check_head_dim(24 * nH, nH)
+        check_head_dim(20 * nH, nH, FORWARD_HEAD_DIMS)
 
 
 @pytest.mark.parametrize("C,nH", [(64, 1), (1024, 16)])
@@ -344,7 +347,8 @@ def test_embed64_backward_gap_names_the_training_half():
     """Every block of an embed-64 model has a backward kernel now, at
     --train_ps 128 and 64 and at --win_size 16, 17 and 32 (its gap is
     None, and the train step refuses nothing); a model at embed 24 (head
-    dim 24) is refused, naming what is left (ROADMAP queue 2 item 9)."""
+    dim 24, which only the forward kernels take) is refused, naming what
+    is left (ROADMAP queue 2 item 9)."""
     for opt in (E64, dict(E64, train_ps=64), dict(E64, win_size=16),
                 dict(E64, win_size=17, train_ps=32),
                 dict(E64, win_size=32)):

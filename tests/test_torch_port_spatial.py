@@ -222,15 +222,16 @@ def test_sharded_uformer_at_windows_4_and_16_matches_jax(jax_cases, ranks,
 
 def test_spatial_card_check_takes_windows_1_to_16():
     """The card's check passes every window (each rank's windows at its
-    w_off, 17 and 32 too) and refuses a head dim the kernels do not take
-    (embed 24 on one head), naming ROADMAP queue 2 item 9."""
+    w_off, 17 and 32 too) and refuses a head dim kernel 5 does not take
+    forward (embed 20 on one head: head dim 20, no multiple of 8), naming
+    ROADMAP queue 2 item 9."""
     from uformer_tpu_torch.models import Uformer
 
     for win in list(range(1, 18)) + [32]:
         model = Uformer(**dict(SMALL, img_size=16 * win, win_size=win))
         S.check_spatial_card(model)
         odd = Uformer(**dict(SMALL, img_size=16 * win, win_size=win,
-                             embed_dim=24))
+                             embed_dim=20))
         with pytest.raises(NotImplementedError,
                            match="ROADMAP.md, port queue 2 item 9"):
             S.check_spatial_card(odd)

@@ -301,7 +301,7 @@ def test_registry_refuses_what_the_kernels_do_not_take():
     too. It builds Uformer at any geometry for the CPU; the card's kernel
     path takes embed 16 at window 4 (packed tiles), head dim 64 (embed
     64) and a window of 17 (enc0 and dec3 of a 32^2 model), and refuses
-    embed 24 (head dim 24 in every block), which no kernel takes
+    embed 24 (head dim 24 in every block), which no backward kernel takes
     (`blocks_without_backward_kernel`, naming the ROADMAP item)."""
     assert get_arch({"arch": "Uformer_T"}).encoderlayer_0.dim == 16
     assert blocks_without_backward_kernel(get_arch({"arch": "UNet"})) == []

@@ -6,7 +6,8 @@
 // and partitioned, [LN1] + modulator, q/kv projection, fp32-softmax
 // window attention with relative-position bias and the inline SW-MSA
 // mask, output projection. The attention branch only, no residual. Head
-// dim 8, 16, 32 or 64; window win 1-8 (N = win^2 tokens). Window i lies at
+// dim 8, 16, 32 or 64, and 24, 40, 48 or 56 (attention_block_heads.cu);
+// window win 1-8 (N = win^2 tokens). Window i lies at
 // place (w_off + i) mod nW of its H x W image (nW = (H / win)(W / win)),
 // which sets its region ids (from size - win, as the TPU kernel's
 // _region_ids).
@@ -27,7 +28,9 @@
 //     block of attention_window.cuh, sized to C (128 threads at C <= 32,
 //     256 at C <= 64), WMMA products through shared memory (at C = 1024,
 //     an --embed_dim 64 model's bottleneck below window 8, xm and O in the
-//     block's scratch slot). C >= 128 runs here at window 8 on no model
+//     block's scratch slot). Head dims 24-56 (--embed_dim 24-56: C 24-896,
+//     none a power of two) run only here, in bf16 on weights staged in
+//     zero-padded chunks (attention_window.cuh: attn_stage_w); C >= 128 runs here at window 8 on no model
 //     path: the model's image route takes every C % 128 == 0
 //     (models/layers.py:LeWinBlock.image_route);
 //   - windows of N = win^2 < 64 tokens (a stage below the window, or
@@ -40,35 +43,10 @@
 //     to 64 / N times the work a window needs, which at C 128-512 is a
 //     small share of the projections. Padding rows (a tile's last 64 mod
 //     N, and windows past Bw) read as zeros and are never written.
-#include "attention_image.cuh"
+#include "attention_block.cuh"
 #include "attention_narrow_mma.cuh"
 
 namespace uf {
-
-static int block_threads(int C) {
-  return C <= 32 ? 128 : (C <= 64 ? 256 : kThreads);
-}
-
-template <typename T, int D, bool kPacked = false>
-__global__ void __launch_bounds__(kThreads)
-    attention_block_kernel(AttnParams<T> p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  attention_window<T, D, 0, kPacked>(p, blockIdx.x, smem, blockIdx.x);
-}
-
-// Bw blocks (windows, or packed tiles)
-template <typename T, int D, bool kPacked = false>
-static int launch(const AttnParams<T>& p, int Bw, cudaStream_t stream) {
-  if (!attn_window_fits(sizeof(T), p.C, D)) return (int)cudaErrorInvalidValue;
-  const size_t smem = attn_layout<D>(sizeof(T), p.C).total;
-  cudaError_t e = cudaFuncSetAttribute(
-      attention_block_kernel<T, D, kPacked>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  attention_block_kernel<T, D, kPacked>
-      <<<Bw, block_threads(p.C), smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
 
 template <typename T>
 static int run(const void* x, void* y, const void* mod, const float* ln_s,
@@ -117,10 +95,12 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
                     : attention_block_narrow(p, D, Bw, wn, grid, s);
   }
   const int G = 64 / (win * win), tiles = (Bw + G - 1) / G;
+  if (is_new_head_dim(C, nH))
+    return attention_block_heads<T>(p, packed ? tiles : Bw, packed, s);
   return with_head_dim(C, nH, [&](auto d) {
     constexpr int Dd = decltype(d)::value;
-    return packed ? launch<T, Dd, true>(p, tiles, s)
-                  : launch<T, Dd>(p, Bw, s);
+    return packed ? launch_block<T, Dd, true>(p, tiles, s)
+                  : launch_block<T, Dd>(p, Bw, s);
   });
 }
 

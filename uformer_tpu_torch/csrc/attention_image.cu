@@ -116,13 +116,19 @@ const char* uf_error_string(int err) {
 // memory, 0, 1 or 2 (attention_window.cuh: the head outputs, then the
 // LN1 output too): the caller passes a scratch tensor of that many times
 // the input's shape and dtype (attention_image in fp32 or at widths
-// without a bf16 body, stage, attention_block).
+// without a bf16 body, stage, attention_block). D 8-64, a multiple of 8.
 int uf_attention_needs_scratch(int is_bf16, int C, int D) {
   const int ts = is_bf16 ? 2 : 4;
-  return D == 8    ? uf::attn_layout<8>(ts, C).regions()
-         : D == 16 ? uf::attn_layout<16>(ts, C).regions()
-         : D == 32 ? uf::attn_layout<32>(ts, C).regions()
-                   : uf::attn_layout<64>(ts, C).regions();
+  switch (D) {
+    case 8: return uf::attn_layout<8>(ts, C).regions();
+    case 16: return uf::attn_layout<16>(ts, C).regions();
+    case 24: return uf::attn_layout<24>(ts, C).regions();
+    case 32: return uf::attn_layout<32>(ts, C).regions();
+    case 40: return uf::attn_layout<40>(ts, C).regions();
+    case 48: return uf::attn_layout<48>(ts, C).regions();
+    case 56: return uf::attn_layout<56>(ts, C).regions();
+  }
+  return uf::attn_layout<64>(ts, C).regions();
 }
 
 // The blocks of kernel 1's persistent bf16 body for (C, D) at wn windows

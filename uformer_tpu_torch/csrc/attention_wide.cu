@@ -791,10 +791,14 @@ static int core_fwd_d(int D, const void* q, const void* k, const void* v,
   auto K = static_cast<const T*>(k);
   auto V = static_cast<const T*>(v);
   auto O = static_cast<T*>(out);
-  switch (D) {
+  switch (D) {  // 24-56: kernel 5's forward only (--embed_dim 24-56)
     case 8: return core_fwd<T, 8>(Q, K, V, O, a, s);
     case 16: return core_fwd<T, 16>(Q, K, V, O, a, s);
+    case 24: return core_fwd<T, 24>(Q, K, V, O, a, s);
     case 32: return core_fwd<T, 32>(Q, K, V, O, a, s);
+    case 40: return core_fwd<T, 40>(Q, K, V, O, a, s);
+    case 48: return core_fwd<T, 48>(Q, K, V, O, a, s);
+    case 56: return core_fwd<T, 56>(Q, K, V, O, a, s);
     case 64: return core_fwd<T, 64>(Q, K, V, O, a, s);
   }
   return (int)cudaErrorInvalidValue;

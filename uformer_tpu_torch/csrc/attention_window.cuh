@@ -1,12 +1,17 @@
 // One 8x8 window of the LeWin attention sub-block, computed by one thread
-// block, for head dim D in {8, 16, 32, 64}. Shared by attention_image.cu
-// (one window per block), stage.cu (a persistent block walks many
-// windows) and attention_block.cu (one window, or one packed tile of
-// windows of N = win^2 < 64 tokens, per block, windows already
-// partitioned). WMMA
-// fragments are 16 wide: a bf16 head of 8 takes its products 16 wide,
-// columns 8..15 of q, k, v and of the staged weights zero (exact), and
-// needs staged weights (C % 128 == 0); fp32's FMA products take any D.
+// block, for head dim D in {8, 16, 32, 64} (both ways) and, forward only,
+// {24, 40, 48, 56} (stage.cu and attention_block.cu through
+// with_new_head_dim, each in its own translation unit). Shared by
+// attention_image.cu (one window per block), stage.cu (a persistent block
+// walks many windows) and attention_block.cu (one window, or one packed
+// tile of windows of N = win^2 < 64 tokens, per block, windows already
+// partitioned). WMMA fragments are 16 wide: a bf16 head of 8, 24, 40 or
+// 56 takes its products 16 wide rounded up, columns D..D+7 of q, k, v and
+// of the staged weights zero (exact), and needs staged weights; fp32's FMA
+// products take any D. WMMA has no bf16 k8 shape (m16n8k8 is mma.sync's,
+// which these block-wide products do not use), so a product whose depth
+// is 8 mod 16 (a head of 24-56, or C 24, 40, 56) takes a zero pad to the
+// next 16 rather than a k8 tail.
 //
 //   y = [x +] tokens^-1(proj(W-MSA(LN1(tokens(x)) + mod)))
 //
@@ -25,7 +30,10 @@
 // 128-row chunks of the q, k and v columns (then 128 x 64 chunks of wo)
 // are copied with 16-byte loads and the products read them from there.
 // Read fragment by fragment from L2, each 16-deep k-step waited a full
-// round trip, which bounded the projections at C >= 128.
+// round trip, which bounded the projections at C >= 128. Head dims 24,
+// 40 and 56 and C 8 mod 16 (no whole fragment in device memory) stage
+// them too, at any C: the last chunk's rows past C, up to the next 16,
+// and xm's and O's columns C..C+7 are zero.
 //
 // The 64 x C tiles of the LN1 output (xm) and of the concatenated head
 // outputs (O) stay in shared memory where they fit beside the working
@@ -67,10 +75,19 @@ struct AttnParams {
   int win, n_win;    // packed tiles: the window, and the Bw windows
 };
 
+// Whether bf16 stages the weights in shared memory: C a multiple of the
+// 128-row chunk, or a head of 24, 40 or 56 or a C of 8 mod 16, which no
+// whole 16-wide fragment of a device-memory weight covers (their chunks
+// then carry zero pads).
+__host__ __device__ constexpr bool attn_stage_w(int C, int D) {
+  return C % 128 == 0 || (D > 8 && D % 16) || C % 16;
+}
+
 // Shared-memory layout of one window's working set.
 template <int D>
 struct AttnLayout {
-  static constexpr int kQKV = 3 * D > 64 ? 3 * D : 64;  // widest acc use
+  static constexpr int kD16 = (D + 15) / 16 * 16;  // a bf16 head's products
+  static constexpr int kQKV = 3 * kD16 > 64 ? 3 * kD16 : 64;  // widest acc
   static constexpr int ldq = D + 8, ldp = 72, ldacc = kQKV + 4;
   static constexpr int kWChunk = 128, ldw = kQKV + 8;  // staged weights
   int ldx, ldo;
@@ -93,9 +110,11 @@ __host__ __device__ inline AttnLayout<D> attn_layout(int tsize, int C) {
   L.pix = cv.take(64 * sizeof(int));
   L.rid = cv.take(64 * sizeof(int));
   // staged weights: [q | k | v] head columns (kWChunk x 3D) or a wo chunk
-  // (kWChunk x 64); bf16 with C a multiple of the chunk only
-  L.w_smem = tsize == 2 && C % L_::kWChunk == 0;
-  L.w = L.w_smem ? cv.take((size_t)L_::kWChunk * L_::ldw * tsize) : 0;
+  // (kWChunk x 64), at most C rounded up to 16 rows; bf16 where
+  // attn_stage_w says so
+  L.w_smem = tsize == 2 && attn_stage_w(C, D);
+  const int w_rows = C < L_::kWChunk ? (C + 15) / 16 * 16 : L_::kWChunk;
+  L.w = L.w_smem ? cv.take((size_t)w_rows * L_::ldw * tsize) : 0;
   // xm, then the concatenated head outputs, in shared memory where they
   // fit (both for bf16 up to C = 512); otherwise in the scratch slot
   const size_t t_bytes = (size_t)64 * (C + 8) * tsize;
@@ -195,6 +214,10 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
     else
       xm[t * ldx + c] = p.x[(size_t)pix[t] * C + c];
   }
+  if (stage_w && C % 16) {  // columns C..C+7 of xm and O: the products' pad
+    zero_pad<T>(xm, ldx, 64, C + 8, 64, C);
+    zero_pad<T>(O, ldo, 64, C + 8, 64, C);
+  }
   __syncthreads();
   // (b) LN1 + modulator, then per head the projections and (c) the core
   for (int t = warp; t < 64; t += nw)
@@ -205,24 +228,27 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
   for (int h = 0; h < p.nH; ++h) {
     const int c0 = h * D;
     if (stage_w) {
-      // [q | k | v] = xm @ wbuf, accumulated over the chunks
+      // [q | k | v] = xm @ wbuf, accumulated over the chunks; a last chunk
+      // of kr rows (C 8 mod 16) is zero from row kr to kr16
       for (int kc = 0; kc < C; kc += KW) {
-        stage_tile<T>(wbuf, ldw, p.wq + (size_t)kc * C + c0, C, KW, D);
+        const int kr = min(KW, C - kc), kr16 = (kr + 15) & ~15;
+        stage_tile<T>(wbuf, ldw, p.wq + (size_t)kc * C + c0, C, kr, D);
         stage_tile<T>(wbuf + DP, ldw, p.wk + (size_t)kc * p.ldkv + c0,
-                      p.ldkv, KW, D);
+                      p.ldkv, kr, D);
         stage_tile<T>(wbuf + 2 * DP, ldw, p.wv + (size_t)kc * p.ldkv + c0,
-                      p.ldkv, KW, D);
+                      p.ldkv, kr, D);
         if constexpr (DP != D)  // the pad columns of q, k and v
-          for (int i = tid; i < KW * 3; i += blockDim.x)
+          for (int i = tid; i < kr16 * 3; i += blockDim.x)
             *reinterpret_cast<uint4*>(wbuf + (i / 3) * ldw + (i % 3) * DP +
                                       D) = make_uint4(0u, 0u, 0u, 0u);
+        zero_pad<T>(wbuf, ldw, kr16, 3 * DP, kr, 3 * DP);
         __syncthreads();
         if (kc == 0)
           block_gemm<T, false, false, false, NW>(xm, ldx, wbuf, ldw, acc,
-                                                 lda, 64, 3 * DP, KW);
+                                                 lda, 64, 3 * DP, kr16);
         else
           block_gemm<T, false, true, false, NW>(xm + kc, ldx, wbuf, ldw,
-                                                acc, lda, 64, 3 * DP, KW);
+                                                acc, lda, 64, 3 * DP, kr16);
         __syncthreads();
       }
     } else {
@@ -263,15 +289,19 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
   for (int n0 = 0; n0 < C; n0 += 64) {
     const int nn = min(64, C - n0);
     if (stage_w) {
+      // kr x nn chunks of wo, zero to kr16 rows and nn16 columns
+      const int nn16 = (nn + 15) & ~15;
       for (int kc = 0; kc < C; kc += KW) {
-        stage_tile<T>(wbuf, ldw, p.wo + (size_t)kc * C + n0, C, KW, 64);
+        const int kr = min(KW, C - kc), kr16 = (kr + 15) & ~15;
+        stage_tile<T>(wbuf, ldw, p.wo + (size_t)kc * C + n0, C, kr, nn);
+        zero_pad<T>(wbuf, ldw, kr16, nn16, kr, nn);
         __syncthreads();
         if (kc == 0)
           block_gemm<T, false, false, false, NW>(O, ldo, wbuf, ldw, acc, lda,
-                                                 64, 64, KW);
+                                                 64, nn16, kr16);
         else
           block_gemm<T, false, true, false, NW>(O + kc, ldo, wbuf, ldw, acc,
-                                                lda, 64, 64, KW);
+                                                lda, 64, nn16, kr16);
         __syncthreads();
       }
     } else {
@@ -301,6 +331,27 @@ int with_head_dim(int C, int nH, F f) {
   if (nH > 0 && C == 32 * nH) return f(std::integral_constant<int, 32>{});
   if (nH > 0 && C == 8 * nH) return f(std::integral_constant<int, 8>{});
   if (nH > 0 && C == 64 * nH) return f(std::integral_constant<int, 64>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// Whether C / nH is one of the head dims that only the forward's
+// one-window bodies take (24, 40, 48, 56: kernels 3 and 5, each
+// instantiated in a translation unit of its own, *_heads.cu).
+__host__ inline bool is_new_head_dim(int C, int nH) {
+  if (nH <= 0 || C % nH) return false;
+  const int D = C / nH;
+  return D == 24 || D == 40 || D == 48 || D == 56;
+}
+
+// with_head_dim for those head dims.
+template <typename F>
+int with_new_head_dim(int C, int nH, F f) {
+  switch (is_new_head_dim(C, nH) ? C / nH : 0) {
+    case 24: return f(std::integral_constant<int, 24>{});
+    case 40: return f(std::integral_constant<int, 40>{});
+    case 48: return f(std::integral_constant<int, 48>{});
+    case 56: return f(std::integral_constant<int, 56>{});
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -125,6 +125,19 @@ __device__ void stage_tile(T* dst, int dst_ld, const T* src, int src_ld,
   }
 }
 
+// Zero the entries of a rows x cols tile (leading dim ld) in rows >= r0 or
+// columns >= c0: the pad a WMMA product reads where its depth or width is
+// rounded up to 16. All threads of the block call it; nothing to do where
+// r0 >= rows and c0 >= cols.
+template <typename T>
+__device__ void zero_pad(T* t, int ld, int rows, int cols, int r0, int c0) {
+  if (r0 >= rows && c0 >= cols) return;
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+    const int r = i / cols, c = i % cols;
+    if (r >= r0 || c >= c0) t[(size_t)r * ld + c] = from_f<T>(0.f);
+  }
+}
+
 // Cc[M x N] (fp32, row-major, ldc)  =  (ACCUM ? Cc : 0) + A @ B
 //   A: M x K row-major (lda), or with AT the K x M row-major matrix whose
 //   transpose is A;  B: K x N row-major (ldb), or with BT the N x K

@@ -17,7 +17,13 @@
 // from device memory. fp32 (the exact-check path) has no room for the
 // copy and reads them from device memory; at C = 1024 (an --embed_dim 64
 // model's bottleneck and dec0, hidden 4096) its tile is 1 x 8, a halo of
-// 32 rows of 4 KB.
+// 32 rows of 4 KB. In bf16 at C 768 and 896 (an --embed_dim 48 or 56
+// model's bottleneck, in the stage kernel) no tile fits beside the whole
+// chunk: the 2 x 8 tile stages it in pieces of kw rows of W1 (columns of
+// W2), the products accumulating over them. At C 24, 40 and 56 (8 mod 16)
+// the bf16 products run 16 wider: the first over C + 8 (xn's columns and
+// W1's rows past C zero), the second into C + 8 columns (W2's past C
+// zero).
 #pragma once
 
 #include "common.cuh"
@@ -45,42 +51,62 @@ static_assert(kThreads % kLeffChunk == 0, "a thread keeps one channel");
 
 struct LeffLayout {
   static constexpr int ldh = kLeffChunk + 4, ldg = kLeffChunk + 8;
-  int TH, Mo, nh, Mh, ldx, lda, ldw1, ldw2;
+  int TH, Mo, nh, Mh, C16, kw, ldx, lda, ldw1, ldw2;
   size_t xn, acc, hid, g, hpix, w, total;
 };
 
-__host__ __device__ inline LeffLayout leff_layout(int tsize, int C, int TH) {
+// The layout with the weight chunk staged (bf16) in pieces of kw rows of
+// W1 / columns of W2: kw = C16 (C rounded up to 16) stages it whole.
+__host__ __device__ inline LeffLayout leff_layout_kw(int tsize, int C,
+                                                     int TH, int kw) {
   LeffLayout L;
   Carver cv;
   L.TH = TH;
   L.Mo = TH * 8;
   L.nh = (TH + 2) * 10;
   L.Mh = (L.nh + 15) / 16 * 16;
-  L.ldx = C + 8;
-  L.lda = C + 4;
+  L.C16 = (C + 15) / 16 * 16;
+  L.kw = kw;
+  L.ldx = C + 8;  // >= C16
+  L.lda = L.C16 + 4;
   L.xn = cv.take((size_t)L.Mh * L.ldx * tsize);
   L.acc = cv.take((size_t)L.Mo * L.lda * sizeof(float));
   L.hid = cv.take((size_t)L.Mh * LeffLayout::ldh * sizeof(float));
   L.g = cv.take((size_t)L.Mo * LeffLayout::ldg * tsize);
   L.hpix = cv.take((size_t)L.Mh * sizeof(int));
-  // the staged weight chunk: W1[:, k:k+64] (C x 64) or W2[k:k+64, :]
-  // (64 x C), padded rows; bf16 only
+  // the staged weight piece: W1[kc:kc+kw, k:k+64] (kw x 64) or
+  // W2[k:k+64, n0:n0+kw] (64 x kw), padded rows; bf16 only
   L.ldw1 = kLeffChunk + 8;
-  L.ldw2 = C + 8;
+  L.ldw2 = kw + 8;
   L.w = 0;
   if (tsize == 2) {
-    const size_t w1 = (size_t)C * L.ldw1, w2 = (size_t)kLeffChunk * L.ldw2;
+    const size_t w1 = (size_t)kw * L.ldw1, w2 = (size_t)kLeffChunk * L.ldw2;
     L.w = cv.take((w1 > w2 ? w1 : w2) * tsize);
   }
   L.total = cv.off;
   return L;
 }
 
-// Tile height: the tallest of 8, 4, 2 rows whose working set fits; 1
-// where none does in fp32 (C = 1024; the bf16 products are 16 rows deep).
+// The layout at tile height TH: the whole chunk staged where it fits, else
+// (bf16 at C 768 and 896) the largest pieces of a multiple of 64 that do.
+__host__ __device__ inline LeffLayout leff_layout(int tsize, int C, int TH) {
+  const int C16 = (C + 15) / 16 * 16;
+  LeffLayout L = leff_layout_kw(tsize, C, TH, C16);
+  for (int kw = (C16 - 1) / kLeffChunk * kLeffChunk;
+       tsize == 2 && L.total > kSmemLimit && kw >= kLeffChunk;
+       kw -= kLeffChunk)
+    L = leff_layout_kw(tsize, C, TH, kw);
+  return L;
+}
+
+// Tile height: the tallest of 8, 4, 2 rows whose working set fits with the
+// whole weight chunk staged; where none does, 1 in fp32 (C = 1024) and 2 in
+// bf16 (C 768-1024; the products are 16 rows deep), whose chunk is then
+// staged in pieces (leff_layout).
 __host__ __device__ inline int leff_tile_rows(int tsize, int C) {
+  const int C16 = (C + 15) / 16 * 16;
   for (int th = 8; th > 1; th >>= 1)
-    if (leff_layout(tsize, C, th).total <= kSmemLimit) return th;
+    if (leff_layout_kw(tsize, C, th, C16).total <= kSmemLimit) return th;
   return tsize == 4 ? 1 : 2;
 }
 
@@ -120,6 +146,8 @@ __device__ void leff_tile(const LeffParams<T>& p, int item,
     xn[i * ldx + c] = hpix[i] >= 0 ? p.x[(size_t)hpix[i] * C + c]
                                    : from_f<T>(0.f);
   }
+  if constexpr (kStage)  // the first product's pad columns (C 8 mod 16)
+    zero_pad<T>(xn, ldx, Mh, L.C16, Mh, C);
   for (int idx = tid; idx < Mo * C; idx += blockDim.x)
     acc[(idx / C) * lda + idx % C] = 0.f;
   __syncthreads();
@@ -130,19 +158,35 @@ __device__ void leff_tile(const LeffParams<T>& p, int item,
     __syncthreads();
   }
 
+  const int kw = L.kw, C16 = L.C16;
+  const bool whole = kw >= C;  // the weight chunk staged in one piece
   for (int k0 = 0; k0 < Ch; k0 += kLeffChunk) {
     if constexpr (kStage) {
-      stage_tile<T>(wbuf, L.ldw1, p.w1 + k0, Ch, C, kLeffChunk);
-      __syncthreads();
-      block_gemm<T, false, false>(xn, ldx, wbuf, L.ldw1, hid, ldh, Mh,
-                                  kLeffChunk, C);
+      // W1's rows in pieces of kw, zero past C up to the next 16
+      for (int kc = 0; kc < C; kc += kw) {
+        const int kr = min(kw, C - kc), kr16 = (kr + 15) & ~15;
+        stage_tile<T>(wbuf, L.ldw1, p.w1 + (size_t)kc * Ch + k0, Ch, kr,
+                      kLeffChunk);
+        zero_pad<T>(wbuf, L.ldw1, kr16, kLeffChunk, kr, kLeffChunk);
+        __syncthreads();
+        if (kc == 0)
+          block_gemm<T, false, false>(xn, ldx, wbuf, L.ldw1, hid, ldh, Mh,
+                                      kLeffChunk, kr16);
+        else
+          block_gemm<T, false, true>(xn + kc, ldx, wbuf, L.ldw1, hid, ldh,
+                                     Mh, kLeffChunk, kr16);
+        if (kc + kw < C) __syncthreads();
+      }
     } else {
       block_gemm<T, false, false>(xn, ldx, p.w1 + k0, Ch, hid, ldh, Mh,
                                   kLeffChunk, C);
     }
     __syncthreads();
-    if constexpr (kStage) stage_tile<T>(wbuf, L.ldw2, p.w2 + (size_t)k0 * C, C,
-                              kLeffChunk, C);
+    if constexpr (kStage)
+      if (whole) {
+        stage_tile<T>(wbuf, L.ldw2, p.w2 + (size_t)k0 * C, C, kLeffChunk, C);
+        zero_pad<T>(wbuf, L.ldw2, kLeffChunk, C16, kLeffChunk, C);
+      }
     // each thread keeps one hidden channel j of the chunk, with its biases
     // and 9 taps in registers, and walks the rows
     const int j = tid % kLeffChunk;
@@ -166,10 +210,23 @@ __device__ void leff_tile(const LeffParams<T>& p, int item,
       g[o * ldg + j] = from_f<T>(gelu(sum + bdj));
     }
     __syncthreads();
-    if constexpr (kStage)
-      block_gemm<T, false, true>(g, ldg, wbuf, L.ldw2, acc, lda, Mo, C,
-                                 kLeffChunk);
-    else
+    if constexpr (kStage) {
+      if (whole) {
+        block_gemm<T, false, true>(g, ldg, wbuf, L.ldw2, acc, lda, Mo, C16,
+                                   kLeffChunk);
+      } else {
+        // W2's columns in pieces of kw (C a multiple of 16 here)
+        for (int n0 = 0; n0 < C; n0 += kw) {
+          const int nn = min(kw, C - n0);
+          stage_tile<T>(wbuf, L.ldw2, p.w2 + (size_t)k0 * C + n0, C,
+                        kLeffChunk, nn);
+          __syncthreads();
+          block_gemm<T, false, true>(g, ldg, wbuf, L.ldw2, acc + n0, lda, Mo,
+                                     nn, kLeffChunk);
+          __syncthreads();
+        }
+      }
+    } else
       block_gemm<T, false, true>(g, ldg, p.w2 + (size_t)k0 * C, C, acc, lda,
                                  Mo, C, kLeffChunk);
     __syncthreads();

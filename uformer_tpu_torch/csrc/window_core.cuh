@@ -43,16 +43,17 @@ __device__ __forceinline__ int window_region(int wl, int t, int H, int W,
   return 3 * region_id(gr, H, s) + region_id(gc, W, s);
 }
 
-// The width the block products of a head take: D, or 16 for a bf16 head
-// of 8 (WMMA fragments are 16 wide), its columns D..15 zero in shared
-// memory, which leaves the products exact.
+// The width the block products of a head take: D, or for a bf16 head of
+// 8, 24, 40 or 56 the next multiple of 16 (WMMA fragments are 16 wide),
+// its columns D..D+7 zero in shared memory, which leaves the products
+// exact.
 template <typename T, int D>
 __host__ __device__ constexpr int padded_head() {
-  return std::is_same<T, bf16>::value && D < 16 ? 16 : D;
+  return std::is_same<T, bf16>::value ? (D + 15) / 16 * 16 : D;
 }
 
 // q, k, v: 64 x D tiles (leading dim ldq) in shared memory, for a bf16
-// head of 8 zero in columns 8..15; bias_h the head's (64, 64) fp32 bias
+// head of 8 mod 16 zero in columns D..D+7; bias_h the head's (64, 64) fp32 bias
 // (shared or device memory; -inf between the windows of a packed tile);
 // rid the 64 region ids, or null when unshifted; P a 64 x ldp tile of T;
 // acc a 64 x lda fp32 tile (lda >= 64), which holds the logits and on

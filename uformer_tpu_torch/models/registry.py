@@ -7,14 +7,18 @@ Uformer_B_fastleff, and Uformer at any embed dim and window. Every one
 builds and runs on the CPU (the kernels' plain versions). On the card the
 forward (eval, serving, the CLIs) runs through the kernels at every window
 and head dim 8, 16, 32 and 64 (head dim is the embed dim in this family):
-every arch here at embed 8-64, any `--win_size` and any `--train_ps` (a
+every arch here at embed 8, 16, 32 or 64, any `--win_size` and any
+`--train_ps` (head dims 24, 40, 48 and 56, so Uformer at embed 24-56,
+serve there too, through kernels 5, 3 and 2 at window 8 and kernel 5
+at any other, forward only; a
 stage built below the window runs at window min(reso, win); below 8,
 64 // N whole windows of N = win² tokens to a kernel tile; above 8, the
 key-chunked kernels of `csrc/attention_wide.cu`, whose backward holds dS
 for a bounded group of windows at a time), and so does training: the
-backward kernels take the same windows and head dims, LeFF at C 8 to
-1024 too. Other head dims have no kernel: the wrappers raise before any
-launch, and the train step refuses such a model before any launch
+backward kernels take the same windows and head dims 8, 16, 32 and 64,
+LeFF at C 8 to 1024 too. Other head dims have no kernel for what a path
+needs: the wrappers raise before any launch, and the train step refuses
+a model at such a head dim (24-56 too) before any launch
 (`LeWinBlock.backward_gap`, ROADMAP.md's port queue 2 item 9).
 `use_checkpoint` recomputes each
 Uformer block in the

@@ -23,11 +23,14 @@ Windows of N = win² < 64 tokens (a stage built below the window, or
 between two windows), on the same bodies: bf16 at C 8-64 the narrow body
 on packed tiles (`csrc/attention_block_packed.cu`), else a tile per block.
 Head dim 8 runs at every C (bf16: the narrow body at C 8-64, a tile per
-block at C % 128 == 0). Windows above 8 (N = win² > 64 tokens, any
-size) run `csrc/attention_wide.cu` through `attention_wide`: the
-projections over 64-row tiles of tokens, the core with a key-chunked
-online softmax, both ways, at any head dim 8, 16, 32 or 64; the backward
-holds dS for a bounded group of windows at a time (`DS_BUDGET`).
+block at C % 128 == 0). Head dims 24, 40, 48 and 56 (`--embed_dim`
+24-56: C 24-896, none a power of two) run forward only, a window (tile)
+per block at windows 1-8 and `attention_wide` above. Windows above 8 (N
+= win² > 64 tokens, any size) run `csrc/attention_wide.cu` through
+`attention_wide`: the projections over 64-row tiles of tokens, the core
+with a key-chunked online softmax, both ways, at any head dim 8, 16, 32
+or 64 (forward also 24, 40, 48 and 56); the backward holds dS for a
+bounded group of windows at a time (`DS_BUDGET`).
 
 Its backward, `fused_attention_block_bwd`, is the port of
 `attention_block.py:fused_attention_block_bwd` in its own layout (kernel
@@ -56,6 +59,7 @@ from uformer_tpu_torch.ops.kernels.attention_wide import (
 )
 from uformer_tpu_torch.ops.kernels.wgrad import colsum, sm_count, wgrad
 from uformer_tpu_torch.ops.kernels.window_attention import (
+    FORWARD_HEAD_DIMS,
     TILE,
     check_head_dim,
     check_window,
@@ -104,7 +108,8 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
     Weight layouts are the kernels' (in, out), as `fused_attention_image`
     takes them; mod (N, C) in x's dtype or None; bias (nH, N, N); ln_s,
     ln_b read only with has_ln. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel (head dim 8, 16 or 32) or raises."""
+    CUDA tensor launches the kernel (head dim in FORWARD_HEAD_DIMS) or
+    raises."""
     kw = dict(win=win, shift=shift, H=H, W=W, scale=scale,
               num_heads=num_heads, has_ln=has_ln, w_off=w_off)
     if x.device.type == "cpu":
@@ -114,7 +119,7 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
     _launch.check_input(x, "(Bw, N, C)")
     Bw, N, C = x.shape
     check_window(win, shift, H, W)
-    check_head_dim(C, num_heads)
+    check_head_dim(C, num_heads, FORWARD_HEAD_DIMS)
     if N != win * win or w_off < 0:
         raise ValueError(f"kernel needs N = win² and w_off >= 0: N={N} "
                          f"win={win} w_off={w_off}")

@@ -11,8 +11,12 @@ model's bottleneck and dec0, hidden 4096), and persistent blocks over
 8 x 16 tiles with the weights resident at C 16-64; they mask partial
 tiles, so any H and W run. fp32 (the exact-check path) keeps TH x 8
 tiles, also masking partial ones (an embed-8 model's 4 x 4 bottleneck;
-1 x 8 at C = 1024). The backward takes C 8-1024 too (at C = 1024 2 x 8
-and 4 x 8 tiles in bf16, 1 x 8 and 2 x 8 in fp32). C = 8 (an embed-8 model's outer stages) runs the
+1 x 8 at C = 1024). The widths of an `--embed_dim` 24-56 model that are
+no power of two (C 24-896; C 24, 40, 56 are 8 mod 16, hidden 96-3584)
+run `leff_tile` in both dtypes, its bf16 products 16 wider where C is 8
+mod 16 and, at C 768 and 896, its weight chunk staged in pieces. The
+backward takes C 8-1024 too (at C = 1024 2 x 8 and 4 x 8 tiles in bf16,
+1 x 8 and 2 x 8 in fp32). C = 8 (an embed-8 model's outer stages) runs the
 narrow tile too, on its 32-wide hidden zero-padded to one 64-wide chunk
 (`pad_hidden`: exact, as GELU(0) = 0; the model pads once, in
 `LeFF.kernel_params`), and so does its backward, `fused_leff_bwd` (its products of depth 8 on
@@ -62,28 +66,34 @@ def pad_hidden(w1, b1, wd, bd, w2):
             F.pad(w2, (0, 0, 0, pad)).contiguous())
 
 
+def check_width(C: int) -> None:
+    """Raise unless the kernel takes width C: a multiple of 8 (every C of
+    the family: 8-1024, the powers of two on the tensor-core tiles, the
+    rest on `leff_tile`)."""
+    if C <= 0 or C % 8:
+        raise ValueError(f"kernel needs C % 8 == 0: C={C}")
+
+
 def fused_leff(x: torch.Tensor, w1, b1, wd, bd, w2, b2, ln_s=None, ln_b=None,
                *, residual: bool = False) -> torch.Tensor:
     """x: (B, H, W, C) -> (B, H, W, C).
 
     w1 (C, Ch), wd (3, 3, Ch), w2 (Ch, C) in x's dtype; b1, bd, b2, ln_s,
-    ln_b float32. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises (a hidden below HIDDEN_CHUNK is padded
-    here, `pad_hidden`, unless the caller padded it)."""
+    ln_b float32; C a multiple of 8. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises (a hidden that is
+    no multiple of HIDDEN_CHUNK is padded here, `pad_hidden`, unless the
+    caller padded it)."""
     if x.device.type == "cpu":
         fused_leff.plain_calls += 1
         return leff_reference(x, w1, b1, wd, bd, w2, b2, ln_s=ln_s,
                               ln_b=ln_b, residual=residual)
     _launch.check_input(x)
     B, H, W, C = x.shape
-    if w1.shape[-1] < HIDDEN_CHUNK:
-        w1, b1, wd, bd, w2 = pad_hidden(w1, b1, wd, bd, w2)
+    check_width(C)
+    w1, b1, wd, bd, w2 = pad_hidden(w1, b1, wd, bd, w2)
     Ch = w1.shape[-1]
     lib = load()
     is_bf16 = int(x.dtype == torch.bfloat16)
-    if (C % 16 and C != 8) or Ch % HIDDEN_CHUNK:
-        raise ValueError(f"kernel needs C = 8 or C % 16 == 0 and "
-                         f"Ch % {HIDDEN_CHUNK} == 0: C={C} Ch={Ch}")
     dt, dev, f32 = x.dtype, x.device, torch.float32
     has_ln = ln_s is not None
     if has_ln:

@@ -9,8 +9,11 @@ stage image ping-ponging between two buffers that largely stay in L2.
 In bf16 at C 128-512 both halves run on tensor-core tiles with register
 accumulators: the attention of `csrc/attention_mma.cuh` (1-4 windows per
 work item) and the wide LeFF tile of `csrc/leff_mma.cuh` (as `fused_leff`).
-`stage_reference` is the plain PyTorch version with the JAX reference's
-signature (`stage.py:389`).
+Other widths and fp32 run the one-window attention body and LeFF's
+`leff_tile`: among them the stages of an `--embed_dim` 24-56 model (C
+384-896, head dims 24-56, `csrc/stage_heads.cu`). `stage_reference` is
+the plain PyTorch version with the JAX reference's signature
+(`stage.py:389`).
 """
 
 from __future__ import annotations
@@ -28,7 +31,10 @@ from uformer_tpu_torch.ops.kernels.leff import (
     HIDDEN_CHUNK,
     leff_reference,
 )
-from uformer_tpu_torch.ops.kernels.window_attention import check_head_dim
+from uformer_tpu_torch.ops.kernels.window_attention import (
+    FORWARD_HEAD_DIMS,
+    check_head_dim,
+)
 
 # keys of the depth-stacked parameter dict (uformer_tpu stage.py:421-425)
 STAGE_KEYS = ("ln1_s", "ln1_b", "wq", "bq", "wk", "bk", "wv", "bv", "wo",
@@ -74,7 +80,7 @@ def fused_stage(x: torch.Tensor, p: Dict[str, torch.Tensor], *, scale: float,
     n, Ch = p["w1"].shape[0], p["w1"].shape[-1]
     lib = load()
     is_bf16 = int(x.dtype == torch.bfloat16)
-    check_head_dim(C, num_heads)
+    check_head_dim(C, num_heads, FORWARD_HEAD_DIMS)
     if H % 8 or W % 8 or Ch % HIDDEN_CHUNK:
         raise ValueError(f"kernel needs H and W multiples of 8 and "
                          f"Ch % {HIDDEN_CHUNK} == 0: C={C} H={H} W={W} "

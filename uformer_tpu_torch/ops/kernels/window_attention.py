@@ -22,8 +22,10 @@ window 8: the kernels take 64-row tiles of 64 // N whole windows
 windows of a tile, so each row weighs only its own window's keys); padding
 rows read as zeros and are never written. In bf16 a head of 8 takes its
 QKᵀ on mma.sync.m16n8k8. Head dim 64 (every block of an `--embed_dim 64`
-model) runs at every window on the same bodies, both ways
-(`HEAD_DIMS`; other head dims: ROADMAP.md, port queue 2 item 9).
+model) runs at every window on the same bodies, both ways (`HEAD_DIMS`).
+Head dims 24, 40, 48 and 56 run forward only, in kernels 2, 3 and 5
+(`FORWARD_HEAD_DIMS`), not in this one; other head dims: ROADMAP.md,
+port queue 2 item 9.
 
 Unlike the block kernels, which fold the softmax scale into q before
 rounding it, this kernel scales the float32 logits (the TPU kernel's
@@ -42,8 +44,11 @@ from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.kernels.attention_wide import wide_window_attention
 from uformer_tpu_torch.ops.masks import shift_window_mask
 
-HEAD_DIMS = (8, 16, 32, 64)  # the attention kernels' heads, both ways
-FORWARD_HEAD_DIMS = BACKWARD_HEAD_DIMS = HEAD_DIMS
+HEAD_DIMS = (8, 16, 32, 64)  # every attention kernel's heads, both ways
+BACKWARD_HEAD_DIMS = HEAD_DIMS  # kernels 1, 4 and 6 and the train step
+# kernels 3 and 5 forward (and kernel 2 at their widths): every multiple
+# of 8 up to 64
+FORWARD_HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56, 64)
 TILE = 64  # rows of a kernel's window tile
 
 
@@ -76,13 +81,15 @@ def check_window(win: int, shift: int, H: int, W: int,
                          f"shift={shift}")
 
 
-def check_head_dim(C: int, num_heads: int) -> None:
-    """Raise unless the kernels take head dim C / num_heads: one of
-    HEAD_DIMS, at every window the kernels take, both ways."""
+def check_head_dim(C: int, num_heads: int,
+                   head_dims: tuple = HEAD_DIMS) -> None:
+    """Raise unless the kernel takes head dim C / num_heads: one of
+    `head_dims`, at every window it takes (HEAD_DIMS: kernels 1, 4 and
+    6; FORWARD_HEAD_DIMS: kernels 3 and 5)."""
     D = C // num_heads if num_heads > 0 and C % num_heads == 0 else None
-    if D not in HEAD_DIMS:
-        raise ValueError(f"kernel needs head dim in {HEAD_DIMS}: C={C}, "
-                         f"num_heads={num_heads} (other head dims: "
+    if D not in head_dims:
+        raise ValueError(f"kernel needs head dim in {tuple(head_dims)}: "
+                         f"C={C}, num_heads={num_heads} (other head dims: "
                          f"ROADMAP.md, port queue 2 item 9)")
 
 

@@ -52,7 +52,7 @@ from uformer_tpu_torch.eval.padding import tile_weights
 from uformer_tpu_torch.models.layers import LEFF_MLPS, LeWinBlock
 from uformer_tpu_torch.ops.kernels import fused_attention_block, fused_leff
 from uformer_tpu_torch.ops.kernels.leff import tile_rows
-from uformer_tpu_torch.ops.kernels.window_attention import HEAD_DIMS
+from uformer_tpu_torch.ops.kernels.window_attention import FORWARD_HEAD_DIMS
 from uformer_tpu_torch.ops.window import window_partition, window_reverse
 from uformer_tpu_torch.parallel.multihost import (
     all_gather_rows,
@@ -278,18 +278,19 @@ def check_spatial(model: nn.Module) -> None:
 
 def check_spatial_card(model: nn.Module) -> None:
     """Raise NotImplementedError for a model with a block at a head dim
-    the kernels do not take on the card (ROADMAP.md port queue 2 item 9).
-    Every window runs there: kernel 5 takes each rank's windows at its own
-    w_off (packed tiles below 8, `csrc/attention_wide.cu` above). The CPU
+    kernel 5 does not take forward on the card (ROADMAP.md port queue 2
+    item 9). Every window runs there: kernel 5 takes each rank's windows at
+    its own w_off (packed tiles below 8, `csrc/attention_wide.cu` above),
+    at every head dim of FORWARD_HEAD_DIMS (the path is a forward). The CPU
     runs every head dim on the plain versions."""
     for name, blk in model.named_modules():
         if isinstance(blk, LeWinBlock) and (
                 blk.dim % blk.num_heads
-                or blk.dim // blk.num_heads not in HEAD_DIMS):
+                or blk.dim // blk.num_heads not in FORWARD_HEAD_DIMS):
             raise NotImplementedError(
                 f"{name}: C {blk.dim} on {blk.num_heads} heads: the spatial "
-                f"path runs head dims {HEAD_DIMS} on the card (other head "
-                f"dims: ROADMAP.md, port queue 2 item 9)")
+                f"path runs head dims {FORWARD_HEAD_DIMS} on the card "
+                f"(other head dims: ROADMAP.md, port queue 2 item 9)")
 
 
 def _leff_slab_halo(x: torch.Tensor, Ch: int, group: Group) -> int:

@@ -9,13 +9,14 @@ use the model's no-decay sets); optional global-norm clipping. MixUp runs
 once the epoch passes `mixup_after_epoch`. On the card the kernel path
 trains every linear-projection model at every window and head dim 8, 16,
 32 or 64 (Uformer_B, Uformer_T and the rest of the registry at any
-`--train_ps`, Uformer at embed 8-64 and any win_size; LeFF or Mlp, with
-or without a cross-modulator, with or without `use_checkpoint`): the
-attention-image, attention-block and LeFF kernels and their backward
-kernels; UNet trains on cuDNN alone. It refuses any other model (conv
-projection, other head dims) before the step runs; no
-plain version stands in on the card. Over a data mesh the step runs under
-DistributedDataParallel (`make_train_step(mesh=...)`).
+`--train_ps`, Uformer at embed 8, 16, 32 or 64 and any win_size; LeFF or
+Mlp, with or without a cross-modulator, with or without
+`use_checkpoint`): the attention-image, attention-block and LeFF kernels
+and their backward kernels; UNet trains on cuDNN alone. It refuses any
+other model (conv projection, other head dims: 24-56 run forward only)
+before the step runs; no plain version stands in on the card. Over a
+data mesh the step runs under DistributedDataParallel
+(`make_train_step(mesh=...)`).
 """
 
 from __future__ import annotations
@@ -117,7 +118,8 @@ def make_train_step(model: nn.Module, loss_fn: Callable = charbonnier_loss,
     On the card the kernel path runs every attention and LeFF sub-block
     forward and backward through the kernels (every window, head dim 8,
     16, 32 and 64, LeFF at C 8-1024: every registry arch at any
-    `--train_ps`, `--embed_dim` 8-64 and any `--win_size`), and raises
+    `--train_ps`, `--embed_dim` 8, 16, 32 or 64 and any `--win_size`),
+    and raises
     NotImplementedError before the step for a model with blocks in
     `blocks_without_backward_kernel` (conv projection, other head
     dims).
