@@ -226,7 +226,7 @@ Phases, each raising on failure (no phase is caught):
                path). Uformer at embed 8, window 2: the forward through
                the kernels (18 attention-block and 18 LeFF launches) and
                its train step (18 launches of each of kernels 5, 6, 2 and
-               7, no plain call); an embed-24 step (head dim 24) refused
+               7, no plain call); an embed-20 step (head dim 20) refused
                before any launch.
  19. train geometries - the backward at windows 1-8 and head dim 8:
                kernel 6 on packed tiles at windows 1-7 (shift 0 and win //
@@ -350,6 +350,28 @@ Phases, each raising on failure (no phase is caught):
                against the plain path. Phase 17 holds the 2-rank fp32
                sharded forward of e48 (seeded 1285) against the unsharded
                kernel path.
+ 25. train head dims 24-56 - the backward at head dims 24, 40, 48 and 56:
+               kernel 1 and its VJP at C 384, 640, 768 and 896 (16
+               heads, 2 x 16^2, the image route's widths); kernel 6 at
+               window 8 at every (D, nH) of C 24-192 with LN and the
+               modulator, on packed window-4 tiles and at window 16 at two
+               (D, nH) each; kernel 7 at every new C, LN and residual each
+               way; each against its plain version (fp32, bf16 pooled over
+               4 draws), run twice (equal bits) and timed beside it and
+               its bound. Training cells: Uformer at --embed_dim 48
+               (seeded 1286: 8 image / 10 windowed / 18 LeFF launches
+               each way a step) and 24 (seeded 1287: 4/14/18) at bs8
+               128^2 by phase 19's rules (their kernels at every training
+               geometry, one whole step kernel path against plain path in
+               fp32 and bf16, bf16 steps timed with their peak memory,
+               each backward call timed); the train CLI at --embed_dim 48
+               (16 steps of bs8 on seeded 128^2 pairs, a save an epoch).
+
+    python3 chip_smoke.py --only 25[,24,...]
+
+runs the build and then only the named phases of 19-25 (by number or by
+function name), each printing its result, then a kernels line of what
+ran and the last line; it exits 1 without that line if a phase failed.
 
 Tolerances: fp32 max-abs <= 1e-4 * (1 + max|ref|); bf16 error against the
 fp32 plain result <= 1.5 x the bf16 plain version's error + 1e-3; for
@@ -373,9 +395,9 @@ phase 21, `_eval` the fp32 CLI frame's; `launches_e64train_e64`,
 `_e64ps64`, `_e64win16` and `_cli` a step's in phase 22,
 `_serve_win16` a request's; `launches_win32_serve` a request's in phase
 23, `_train` and `_cli` a step's there; `launches_heads_e48`, `_e24` a
-bf16 request's in phase 24, `_e48_fp32` the fp32 one's); the last line is
-{"ok": true,
-"device": {...}}.
+bf16 request's in phase 24, `_e48_fp32` the fp32 one's;
+`launches_train_heads_e48`, `_e24` and `_cli` a step's in phase 25);
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2800,10 +2822,10 @@ def refusal_checks(device) -> dict:
     through the kernels (18 attention-block and 18 LeFF launches, no plain
     call, finite output), and so does its train step (18 attention-block,
     18 attention-block-backward, 18 LeFF and 18 LeFF-backward launches, no
-    plain call, finite loss). A model at embed 24 (head dim 24 in every
-    block, which the forward kernels take but no backward kernel yet:
-    ROADMAP queue 2 item 9) has its step refused before any launch, naming
-    the blocks. Returns the forward's and the step's launches."""
+    plain call, finite loss). A model at embed 20 (head dim 20 in every
+    block, no multiple of 8: no kernel either way, ROADMAP queue 2 item
+    9) has its step refused before any launch, naming the blocks. Returns
+    the forward's and the step's launches."""
     from uformer_tpu_torch import get_arch
     from uformer_tpu_torch.ops import kernels as K
     from uformer_tpu_torch.train import TrainState, make_optimizer, \
@@ -2839,7 +2861,7 @@ def refusal_checks(device) -> dict:
                            f"launches {step}, plain calls "
                            f"{K.plain_counts()}, loss {float(loss)}; "
                            f"expected {want}, none and a finite loss")
-    odd = get_arch({"arch": "Uformer", "embed_dim": 24,
+    odd = get_arch({"arch": "Uformer", "embed_dim": 20,
                     "train_ps": 32}).to(device)
     state = TrainState(odd, make_optimizer(odd.parameters(),
                                            lambda s: 2e-4))
@@ -2853,13 +2875,13 @@ def refusal_checks(device) -> dict:
     launched = {k: v for k, v in K.launch_counts().items() if v}
     plain = {k: v for k, v in K.plain_counts().items() if v}
     if refused is None or launched or plain:
-        raise RuntimeError(f"embed 24 train step on the card: refused "
+        raise RuntimeError(f"embed 20 train step on the card: refused "
                            f"{refused}, launches {launched}, plain calls "
                            f"{plain}; expected refused before any launch")
     print(f"  embed 8, window 2 on the card: forward 18 attention-block "
           f"and 18 LeFF launches; train step 18/18/18/18 forward and "
           f"backward launches, loss {float(loss):.6f}, no plain call; "
-          f"embed 24 train step: {refused[:160]}", flush=True)
+          f"embed 20 train step: {refused[:160]}", flush=True)
     return fwd, step
 
 
@@ -4842,14 +4864,15 @@ def geometry_bwd_checks(checks: Checks, device, seed: int = 19,
 def geometry_step_timing(model, batch, expected: dict, label: str) -> dict:
     """bf16 train steps of `model` on `batch`: ms a step (CUDA events) in
     the order plain, kernel x3, plain, `expected` launches on each kernel
-    path step, its loss finite."""
+    path step, its loss finite; the kernel path steps' peak memory."""
     from uformer_tpu_torch.ops import kernels as K
 
-    out = {"kernel_ms": [], "plain_ms": [], "loss": []}
+    out = {"kernel_ms": [], "plain_ms": [], "loss": [], "peak_mib": 0.0}
     for plain in (True, False, False, False, True):
         _, state, step = run_step(model, plain, torch.bfloat16, batch, 50,
                                   lambda s: 0.0)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         K.reset_counts()
@@ -4861,6 +4884,8 @@ def geometry_step_timing(model, batch, expected: dict, label: str) -> dict:
         out["plain_ms" if plain else "kernel_ms"].append(
             start.elapsed_time(end))
         if not plain:
+            out["peak_mib"] = max(out["peak_mib"],
+                                  torch.cuda.max_memory_allocated() / 2**20)
             out["loss"].append(float(loss))
             if K.launch_counts() != expected or \
                     not np.isfinite(float(loss)):
@@ -4874,7 +4899,8 @@ def geometry_step_timing(model, batch, expected: dict, label: str) -> dict:
 
 def geometry_kernel_timing(model, batch: int, label: str) -> tuple:
     """Device time of each backward kernel call of one bf16 step of
-    `model` (and kernel 1's forward at head dim 8) against its plain VJP
+    `model` (and kernel 1's forward at head dims 8 and 24-56) against its
+    plain VJP
     and its bound, one block per (stage, shift) counted once per block of
     the stage with that shift; kernel 6's parts (body, wgrad beside
     torch.matmul, colsum) where its windows are below 8. Kernel 6's bound
@@ -4890,6 +4916,10 @@ def geometry_kernel_timing(model, batch: int, label: str) -> tuple:
             res, C, N = layer.resolution, layer.dim, blk.win_size ** 2
             shape, tokens = (batch, res, res, C), batch * res * res
             head8 = C // blk.num_heads == 8
+            # kernel 1's forward timed where its training path is new:
+            # head dim 8 at C >= 128, and head dims 24-56
+            new_fwd = (head8 and C >= 128) or \
+                C // blk.num_heads in HEADS_NEW
             calls, parts = block_calls(layer, blk, residual,
                                        (torch.bfloat16,))
             costs = {"attention_bwd": attn_bwd_cost(tokens, C, N),
@@ -4901,7 +4931,7 @@ def geometry_kernel_timing(model, batch: int, label: str) -> tuple:
                 next(model.parameters()).device, torch.bfloat16)
             g = torch.randn(shape, generator=gen).to(x.device, x.dtype)
             for kernel, (fused, plain) in calls.items():
-                if kernel == "attention_image" and not (head8 and C >= 128):
+                if kernel == "attention_image" and not new_fwd:
                     continue
                 if kernel in ("attention_block", "leff"):
                     continue
@@ -6358,10 +6388,222 @@ def heads_phase(tmp: Path, device, card: str) -> tuple:
     return checks, summary, launches
 
 
+# phase 25, the backward at head dims 24-56: `--arch Uformer --embed_dim
+# 48` and `24` trained at --train_ps 128 (bs8 128^2). Cells: label ->
+# (get_arch options, weight seed, batch, side, launches a step by JAX's
+# routes, layers.py:771-775: the image route where C % 128 == 0, the
+# windowed branch elsewhere, the same count each way)
+HEADS_TRAIN = {
+    "e48": (HEADS_MODELS["e48"][0], 1286, 8, RES_TRAIN,
+            dict(NO_LAUNCHES, attention_image=8, attention_bwd=8,
+                 attention_block=10, attention_block_bwd=10, leff=18,
+                 leff_bwd=18)),
+    "e24": (HEADS_MODELS["e24"][0], 1287, 8, RES_TRAIN,
+            dict(NO_LAUNCHES, attention_image=4, attention_bwd=4,
+                 attention_block=14, attention_block_bwd=14, leff=18,
+                 leff_bwd=18)),
+}
+# kernel 1 and its VJP at the image route's widths of these models: (C,
+# heads) on HEADS_IMAGES x 16^2, shift 4, residual on
+HEADS_IMAGE_C = ((384, 16), (640, 16), (768, 16), (896, 16))
+# kernel 6 windowed: (win, head dim, heads, has_ln, with_mod); window 8 at
+# every (D, heads) of C 24-192, packed window 4 and wide window 16 at two
+# (D, heads) each
+HEADS_BWD_BLOCK = (
+    [(8, D, nH, True, True) for D in HEADS_NEW for nH in HEADS_NH
+     if D * nH <= 192]
+    + [(4, 24, 4, True, False), (4, 56, 1, False, True),
+       (16, 48, 2, True, True), (16, 40, 1, False, True)])
+# the train CLI at --embed_dim 48: train pairs, val pairs, batch, epochs
+HEADS_CLI_SET = (64, 2, 8, 2)
+
+
+def heads_bwd_kernel_checks(checks: Checks, device, card: str,
+                            seed: int = 25) -> list:
+    """Kernel 1 and its VJP at HEADS_IMAGE_C, kernel 6 at HEADS_BWD_BLOCK
+    and kernel 7 at every HEADS_LEFF_C (LN and residual each way), each
+    against its plain version: fp32 (TF32 off) within 1e-4 (1 + max|ref|),
+    bf16 under phase 19's gates (`bwd_case`: pooled over GEOM_DRAWS draws,
+    run twice for equal bits), every call timed beside its plain version
+    and its bound. Operands by the golden rule from `seed`. Returns the
+    timed rows."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    draw = GoldenDraws(seed, device)
+    mat, scale, bias, xin, attn_prm = (draw.mat, draw.scale, draw.bias,
+                                       draw.xin, draw.attn_prm)
+
+    def grads(fn, names, p, kw):
+        return lambda x, g, dt: dict(zip(names, fn(x, g, *p[dt].values(),
+                                                   **kw)))
+
+    rows = []
+    for C, nH in HEADS_IMAGE_C:
+        D = C // nH
+        prm = attn_prm(C, nH, 64, True)
+        kw = dict(win=8, shift=4, scale=D ** -0.5, num_heads=nH,
+                  has_ln=True, residual=True)
+        shape = (HEADS_IMAGES, 16, 16, C)
+        tokens = HEADS_IMAGES * 256
+        what = f"image C {C} D {D} {shape} shift 4"
+        rows.append(timed_compare(
+            checks, "attention_image", what,
+            lambda x, dt, p=prm, kw=kw: K.fused_attention_image(
+                x, *p[dt].values(), **kw),
+            lambda x, dt, p=prm, kw=kw: K.attention_image_reference(
+                x, *p[dt].values(), **kw), xin(*shape),
+            attn_cost(tokens, C, nH), card))
+        rows.append(bwd_case(
+            checks, "attention_bwd", what,
+            grads(K.fused_attention_image_bwd, ATTN_GRADS, prm, kw),
+            grads(K.attention_image_vjp_reference, ATTN_GRADS, prm, kw),
+            shape, xin, attn_bwd_cost(tokens, C, 64), card))
+    for win, D, nH, has_ln, with_mod in HEADS_BWD_BLOCK:
+        C, N = D * nH, win * win
+        Bw = HEADS_IMAGES * 16
+        prm = attn_prm(C, nH, N, with_mod)
+        kw = dict(win=win, shift=win // 2, H=4 * win, W=4 * win,
+                  scale=D ** -0.5, num_heads=nH, has_ln=has_ln)
+        what = (f"win {win} C {C} D {D} Bw {Bw} ln {int(has_ln)} mod "
+                f"{int(with_mod)}")
+        rows.append(bwd_case(
+            checks, "attention_block_bwd", what,
+            grads(K.fused_attention_block_bwd, ATTN_GRADS, prm, kw),
+            grads(K.attention_block_vjp_reference, ATTN_GRADS, prm, kw),
+            (Bw, N, C), xin, attn_bwd_cost(Bw * N, C, N), card))
+    for C in HEADS_LEFF_C:
+        Ch = 4 * C
+        lp = _prm(dict(w1=mat(C, Ch, fan_in=C), b1=bias(Ch),
+                       wd=mat(3, 3, Ch, fan_in=9), bd=bias(Ch),
+                       w2=mat(Ch, C, fan_in=Ch), ln_s=scale(C),
+                       ln_b=bias(C)), device, ("w1", "wd", "w2"))
+        for on in (True, False):
+            def run(fn, on=on, lp=lp):
+                def call(x, g, dt):
+                    p = lp[dt]
+                    ln = (p["ln_s"], p["ln_b"]) if on else (None, None)
+                    return dict(zip(LEFF_GRADS, fn(
+                        x, g, *(p[k] for k in ("w1", "b1", "wd", "bd",
+                                               "w2")),
+                        *ln, has_ln=on, residual=on)))
+                return call
+            tokens = 2 * 16 * 24
+            rows.append(bwd_case(
+                checks, "leff_bwd", f"C {C} Ch {Ch} 2x16x24 ln/res {int(on)}",
+                run(K.fused_leff_bwd), run(K.leff_vjp_reference),
+                (2, 16, 24, C), xin,
+                bwd_cost(leff_cost(tokens, C, Ch), tokens, C), card))
+    torch.cuda.synchronize()
+    return rows
+
+
+def heads_train_phase(tmp: Path, device, card: str) -> tuple:
+    """Phase 25: the backward at head dims 24-56 (`heads_bwd_kernel_checks`);
+    the training cells of HEADS_TRAIN by `train_cell` (each model's kernels
+    at its training geometries, one whole step kernel path against plain
+    path in fp32 and bf16, bf16 steps timed with their peak memory and each
+    backward call timed); the train CLI at --embed_dim 48. Returns the
+    checks, the summary and the launches per path."""
+    checks, summary, launches = Checks(), {"card": card}, {}
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    summary["kernel_rows"] = heads_bwd_kernel_checks(checks, device, card)
+    torch.backends.cudnn.deterministic = False
+    summary["kernel_checks_s"] = time.perf_counter() - t0
+    for label, (opt, seed, bs, side, expected) in HEADS_TRAIN.items():
+        train_cell(checks, summary, launches, label, opt, seed, bs, side,
+                   expected, device, card)
+        print(f"  train {label}: peak "
+              f"{summary[f'steps_{label}']['peak_mib']:.1f} MiB a bf16 "
+              f"kernel path step  [{card}]", flush=True)
+    opt = HEADS_TRAIN["e48"][0]
+    summary["cli"] = train_cli_run(
+        tmp, device, "train CLI e48", ["--arch", "Uformer", "--embed_dim",
+                                       str(opt["embed_dim"])], RES_TRAIN,
+        HEADS_CLI_SET, dict(HEADS_TRAIN["e48"][4]))
+    launches["cli"] = summary["cli"]["launches"]
+    return checks, summary, launches
+
+
+# the phases that take (tmp, device, card) alone: number -> (name, function,
+# key of its report, key of its launches on the kernels line), in order;
+# `--only` picks among them
+SELF_CONTAINED = {
+    "19": ("train geometries", "train_geometry_phase", "train_geometries",
+           "train"),
+    "20": ("wide windows", "wide_window_phase", "wide_windows", "win16"),
+    "21": ("head dim 64", "head64_phase", "head64", "head64"),
+    "22": ("head dim 64 training", "head64_train_phase", "head64_train",
+           "e64train"),
+    "23": ("windows above 16", "above16_phase", "above16", "win32"),
+    "24": ("head dims 24-56", "heads_phase", "heads", "heads"),
+    "25": ("train head dims 24-56", "heads_train_phase", "heads_train",
+           "train_heads"),
+}
+
+
+def run_self_contained(num: str, device, card: str) -> tuple:
+    """Phase `num` of SELF_CONTAINED in a temporary directory, timed;
+    returns its checks (not yet raised), summary (with "s") and
+    launches."""
+    name, fn, _, _ = SELF_CONTAINED[num]
+    phase(name)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        checks, summary, launches = globals()[fn](Path(tmp), device, card)
+    summary["s"] = time.perf_counter() - t0
+    print(f"  phase {num} took {summary['s']:.1f} s", flush=True)
+    return checks, summary, launches
+
+
+def only_kernels(results: dict) -> list:
+    """The kernels line of an `--only` run: every kernel with a check in
+    the phases that ran, its launches summed over their paths, its worst
+    fp32 error, and the first per-step timing of it in those phases (None
+    where they time it per call only)."""
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        rows, launched, timed = [], 0, None
+        for checks, summary, launches in results.values():
+            rows += [r for r in checks.rows if r["kernel"] == name]
+            launched += sum(kernel_count(c, name) for c in launches.values())
+            for key, val in summary.items():
+                if timed is None and key.startswith("timing_totals") \
+                        and name in val:
+                    timed = val[name]
+        if not rows:
+            continue
+        errs = [r["err"] for r in rows if r["dtype"] == "fp32"]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launched,
+                 "max_abs_err": max(errs) if errs else None,
+                 "ms": None, "plain_ms": None, "bound_ms": None,
+                 "bound_by": None, "library_ms": None}
+        if timed is not None:
+            entry.update(ms=timed["ms"], plain_ms=timed["plain_ms"],
+                         bound_ms=timed["bound_ms"],
+                         bound_by=bound_by(timed),
+                         library_ms=timed.get("library_ms"))
+        kernels.append(entry)
+    return kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", type=Path, help="write the full report here")
+    ap.add_argument("--only", help="run the build, then only these of "
+                    "phases 19-25 (numbers or function names, comma "
+                    "separated)")
     args = ap.parse_args()
+    only = None
+    if args.only:
+        names = {fn: num for num, (_, fn, _, _) in SELF_CONTAINED.items()}
+        only = [names.get(a.strip(), a.strip())
+                for a in args.only.split(",")]
+        unknown = [a for a in only if a not in SELF_CONTAINED]
+        if unknown:
+            ap.error(f"--only takes {', '.join(SELF_CONTAINED)} or their "
+                     f"functions' names: not {', '.join(unknown)}")
     t0 = time.perf_counter()
     phase("device")
     if not torch.cuda.is_available():
@@ -6374,7 +6616,12 @@ def main() -> int:
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = run(device, card, args.json)
+    if only is not None:
+        kernels = run_only(only, device, card, args.json)
+        if kernels is None:
+            return 1
+    else:
+        kernels = run(device, card, args.json)
     print(f"  chip_smoke.py took {time.perf_counter() - t0:.1f} s", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
@@ -6384,9 +6631,9 @@ def main() -> int:
     return 0
 
 
-def run(device, card: str, json_path) -> list:
-    """Every phase after `device`, on `device`; writes the full report to
-    json_path (if given) and returns the kernels line's entries."""
+def build_phase() -> tuple:
+    """Phase 2: the kernels built (or loaded); prints each function's
+    registers and spills. Returns (seconds, the ptxas report)."""
     from uformer_tpu_torch.ops.kernels import _build
 
     phase("build")
@@ -6401,6 +6648,54 @@ def run(device, card: str, json_path) -> list:
               f"{name[:90]}")
     print(f"  built {_build.library_path().name} in {build_s:.1f} s",
           flush=True)
+    return build_s, ptxas
+
+
+def run_only(only: list, device, card: str, json_path):
+    """The build, then the phases `only` (numbers of SELF_CONTAINED), each
+    printing its result; writes their report to json_path (if given).
+    Returns the kernels line's entries, or None if a phase failed (every
+    chosen phase still runs)."""
+    build_s, ptxas = build_phase()
+    results, failed = {}, []
+    for num in only:
+        try:
+            results[num] = run_self_contained(num, device, card)
+        except Exception as exc:  # reported, and the run fails at its end
+            failed.append(f"phase {num}: {type(exc).__name__}: {exc}")
+            print(f"  phase {num} FAILED: {type(exc).__name__}: {exc}",
+                  flush=True)
+            continue
+        checks = results[num][0]
+        worst = max(checks.rows, key=lambda r: r["err"] / max(r["bound"],
+                                                              1e-30),
+                    default=None)
+        print(f"  phase {num}: {len(checks.rows)} checks, "
+              f"{len(checks.failed)} failed"
+              + (f", worst err/bound {worst['err'] / max(worst['bound'], 1e-30):.3f}"
+                 f" ({worst['kernel']} {worst['dtype']} {worst['what']})"
+                 if worst else ""), flush=True)
+        for f in checks.failed:
+            print(f"  FAILED {f}", flush=True)
+        if checks.failed:
+            failed.append(f"phase {num}: {len(checks.failed)} checks")
+    if json_path is not None:
+        json_path.parent.mkdir(parents=True, exist_ok=True)
+        json_path.write_text(json.dumps(
+            {"card": card, "build_s": build_s, "ptxas": ptxas,
+             **{f"phase_{num}": {"checks": c.rows, "summary": summ}
+                for num, (c, summ, _) in results.items()}},
+            indent=1, default=str))
+    if failed:
+        print("chip_smoke: " + "; ".join(failed), file=sys.stderr)
+        return None
+    return only_kernels(results)
+
+
+def run(device, card: str, json_path) -> list:
+    """Every phase after `device`, on `device`; writes the full report to
+    json_path (if given) and returns the kernels line's entries."""
+    build_s, ptxas = build_phase()
 
     phase("kernels vs plain")
     data, sd = seeded_weights()
@@ -6515,59 +6810,18 @@ def run(device, card: str, json_path) -> list:
     print(f"  phase 18 took {geometries['s']:.1f} s", flush=True)
     gchecks18.raise_if_failed("geometries")
 
-    phase("train geometries")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        gchecks19, train_geoms, tgeom_launches = train_geometry_phase(
-            Path(tmp), device, card)
-    train_geoms["s"] = time.perf_counter() - t0
-    print(f"  phase 19 took {train_geoms['s']:.1f} s", flush=True)
-    gchecks19.raise_if_failed("train geometries")
-
-    phase("wide windows")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        gchecks20, wide, wide_launches = wide_window_phase(Path(tmp), device,
-                                                           card)
-    wide["s"] = time.perf_counter() - t0
-    print(f"  phase 20 took {wide['s']:.1f} s", flush=True)
-    gchecks20.raise_if_failed("wide windows")
-
-    phase("head dim 64")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        gchecks21, head64, head64_launches = head64_phase(Path(tmp), device,
-                                                          card)
-    head64["s"] = time.perf_counter() - t0
-    print(f"  phase 21 took {head64['s']:.1f} s", flush=True)
-    gchecks21.raise_if_failed("head dim 64")
-
-    phase("head dim 64 training")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        gchecks22, head64t, head64t_launches = head64_train_phase(
-            Path(tmp), device, card)
-    head64t["s"] = time.perf_counter() - t0
-    print(f"  phase 22 took {head64t['s']:.1f} s", flush=True)
-    gchecks22.raise_if_failed("head dim 64 training")
-
-    phase("windows above 16")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        gchecks23, above16, above16_launches = above16_phase(Path(tmp),
-                                                             device, card)
-    above16["s"] = time.perf_counter() - t0
-    print(f"  phase 23 took {above16['s']:.1f} s", flush=True)
-    gchecks23.raise_if_failed("windows above 16")
-
-    phase("head dims 24-56")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        gchecks24, heads, heads_launches = heads_phase(Path(tmp), device,
-                                                       card)
-    heads["s"] = time.perf_counter() - t0
-    print(f"  phase 24 took {heads['s']:.1f} s", flush=True)
-    gchecks24.raise_if_failed("head dims 24-56")
+    # phases 19-25: each raises on a failed check before the next starts
+    later = {}
+    for num in SELF_CONTAINED:
+        later[num] = run_self_contained(num, device, card)
+        later[num][0].raise_if_failed(SELF_CONTAINED[num][0])
+    (gchecks19, train_geoms, tgeom_launches), \
+        (gchecks20, wide, wide_launches), \
+        (gchecks21, head64, head64_launches), \
+        (gchecks22, head64t, head64t_launches), \
+        (gchecks23, above16, above16_launches), \
+        (gchecks24, heads, heads_launches), \
+        (gchecks25, heads_t, heads_t_launches) = later.values()
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
@@ -6602,7 +6856,9 @@ def run(device, card: str, json_path) -> list:
               "head64_train_checks": gchecks22.rows,
               "head64_train": head64t,
               "above16_checks": gchecks23.rows, "above16": above16,
-              "heads_checks": gchecks24.rows, "heads": heads}
+              "heads_checks": gchecks24.rows, "heads": heads,
+              "heads_train_checks": gchecks25.rows,
+              "heads_train": heads_t}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -6626,7 +6882,7 @@ def run(device, card: str, json_path) -> list:
                    + tile_checks.rows + mchecks.rows + pchecks.rows
                    + gchecks18.rows + gchecks19.rows + gchecks20.rows
                    + gchecks21.rows + gchecks22.rows + gchecks23.rows
-                   + gchecks24.rows
+                   + gchecks24.rows + gchecks25.rows
                    if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
@@ -6658,7 +6914,9 @@ def run(device, card: str, json_path) -> list:
                               + sum(kernel_count(c, name)
                                     for c in above16_launches.values())
                               + sum(kernel_count(c, name)
-                                    for c in heads_launches.values())),
+                                    for c in heads_launches.values())
+                              + sum(kernel_count(c, name)
+                                    for c in heads_t_launches.values())),
                  "launches_serve": kernel_count(launches, name),
                  "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
@@ -6692,6 +6950,8 @@ def run(device, card: str, json_path) -> list:
                     for path, c in above16_launches.items()},
                  **{f"launches_heads_{path}": kernel_count(c, name)
                     for path, c in heads_launches.items()},
+                 **{f"launches_train_heads_{path}": kernel_count(c, name)
+                    for path, c in heads_t_launches.items()},
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -6769,7 +7029,11 @@ def run(device, card: str, json_path) -> list:
                                ("serve e48", "e48",
                                 heads["timing_totals_e48"]),
                                ("serve e24", "e24",
-                                heads["timing_totals_e24"])):
+                                heads["timing_totals_e24"]),
+                               ("train e48", "train_e48",
+                                heads_t["timing_totals_e48"]),
+                               ("train e24", "train_e24",
+                                heads_t["timing_totals_e24"])):
             if name in tt and label not in where:
                 entry.update({f"ms_{key}": tt[name]["ms"],
                               f"plain_ms_{key}": tt[name]["plain_ms"],

@@ -18,13 +18,14 @@ On the CPU, with numpy inputs from a seed and fp32 throughout, each within
     cut to 1, as tests/test_torch_port_family.py cuts them) at 128^2
     against JAX `get_arch` with attn_backend="jnp" on the same weights,
     carried across by the state_dict converter;
-  - the limits: kernels 3 and 5 take head dims 24-56 (FORWARD_HEAD_DIMS)
-    and kernel 2 every C of 8's multiples; kernels 1, 4 and 6 refuse them
-    (HEAD_DIMS, BACKWARD_HEAD_DIMS), and head dims 12, 20 and 128 are
-    refused everywhere, naming ROADMAP queue 2 item 9; the embed-48 and
-    embed-24 models' train steps are still refused
-    (`LeWinBlock.backward_gap`), and the spatial path's card check takes
-    them.
+  - the limits: kernels 1, 3, 5 and 6 take head dims 24-56 both ways
+    (FORWARD_HEAD_DIMS = BACKWARD_HEAD_DIMS = HEAD_DIMS, since their
+    backward was ported: tests/test_torch_port_head_dims_bwd.py) and
+    kernel 2 every C of 8's multiples; kernel 4 refuses them
+    (WINDOW_ATTENTION_HEAD_DIMS), and head dims 12, 20 and 128 are refused
+    everywhere, naming ROADMAP queue 2 item 9; a model at embed 20 has its
+    train step refused (`LeWinBlock.backward_gap`), and the spatial
+    path's card check takes the embed-48 and embed-24 models.
 The launch routes of the two models (4/0/10/10 and 2/0/14/14 at 256^2)
 are cases of tests/test_torch_port_geometry.py's ROUTES. The tests marked
 `gpu` hold each extended kernel against its plain version on the card
@@ -48,6 +49,7 @@ from uformer_tpu_torch.ops.kernels.window_attention import (
     BACKWARD_HEAD_DIMS,
     FORWARD_HEAD_DIMS,
     HEAD_DIMS,
+    WINDOW_ATTENTION_HEAD_DIMS,
     check_head_dim,
 )
 from uformer_tpu_torch.parallel.spatial import check_spatial_card
@@ -278,27 +280,27 @@ def test_uformer_matches_jax(jx, opt):
 # ---- the checks ------------------------------------------------------------
 
 def test_forward_and_backward_head_dims():
-    """The forward kernels 3 and 5 take every multiple of 8 up to 64; the
-    backward and kernels 1 and 4 the powers of two among them."""
+    """The kernels take every multiple of 8 up to 64 both ways; kernel 4
+    (no model path calls it) the powers of two among them."""
     assert FORWARD_HEAD_DIMS == (8, 16, 24, 32, 40, 48, 56, 64)
-    assert BACKWARD_HEAD_DIMS == HEAD_DIMS == (8, 16, 32, 64)
-    assert set(FORWARD_HEAD_DIMS) - set(BACKWARD_HEAD_DIMS) == set(NEW_DIMS)
+    assert BACKWARD_HEAD_DIMS == HEAD_DIMS == FORWARD_HEAD_DIMS
+    assert set(HEAD_DIMS) - set(WINDOW_ATTENTION_HEAD_DIMS) == \
+        set(NEW_DIMS)
 
 
 @pytest.mark.parametrize("D", NEW_DIMS)
 def test_new_head_dims_forward_only(D):
-    """Kernels 3 and 5 (FORWARD_HEAD_DIMS) and kernel 2 (every C the family
-    builds at D: D nH for nH 1-16) take head dim D; kernels 1 and 4 and the
-    backward (HEAD_DIMS) refuse it, naming ROADMAP queue 2 item 9."""
+    """Kernels 3 and 5 (FORWARD_HEAD_DIMS), kernel 2 (every C the family
+    builds at D: D nH for nH 1-16), kernel 1 and the backward (HEAD_DIMS)
+    take head dim D; kernel 4 (WINDOW_ATTENTION_HEAD_DIMS) refuses it,
+    naming ROADMAP queue 2 item 9."""
     for nH in (1, 2, 4, 8, 16):
         check_head_dim(D * nH, nH, FORWARD_HEAD_DIMS)
         check_width(D * nH)
-        with pytest.raises(ValueError, match=ITEM9):
-            check_head_dim(D * nH, nH)
-        with pytest.raises(ValueError, match=ITEM9):  # kernel 1
-            _check_geometry(torch.empty(1, 8, 8, D * nH), 8, 0, nH)
+        check_head_dim(D * nH, nH)
+        _check_geometry(torch.empty(1, 8, 8, D * nH), 8, 0, nH)  # kernel 1
     with pytest.raises(ValueError, match=ITEM9):  # kernel 4
-        check_head_dim(D, 1, HEAD_DIMS)
+        check_head_dim(D, 1, WINDOW_ATTENTION_HEAD_DIMS)
 
 
 @pytest.mark.parametrize("D", [12, 20, 128])
@@ -317,17 +319,20 @@ def test_other_head_dims_refused_everywhere(D):
 @pytest.mark.parametrize("opt", [E48, E24, dict(E48, train_ps=64)],
                          ids=["e48", "e24", "e48ps64"])
 def test_training_still_refused(opt):
-    """Every block of the embed-48 and embed-24 models has a forward
-    kernel but no backward kernel yet: the train step refuses all 18,
-    naming what is left; the spatial path's card check (a forward) takes
-    them."""
+    """Every block of the embed-48 and embed-24 models has a kernel both
+    ways now (tests/test_torch_port_head_dims_bwd.py), and the spatial
+    path's card check (a forward) takes them; what the train step still
+    refuses is a head dim no kernel takes: at embed 20 (head dim 20) all
+    18 blocks, naming what is left."""
     model = get_arch(opt)
-    uncovered = blocks_without_backward_kernel(model)
-    assert len(uncovered) == 18
-    gap = model.get_submodule(uncovered[0]).backward_gap
-    assert gap == GEOMETRY_NOT_ON_KERNEL_PATH and ITEM9 in gap
-    assert str(FORWARD_HEAD_DIMS) in gap and "forward only" in gap
+    assert blocks_without_backward_kernel(model) == []
     check_spatial_card(model)
+    odd = get_arch(dict(opt, embed_dim=20))
+    uncovered = blocks_without_backward_kernel(odd)
+    assert len(uncovered) == 18
+    gap = odd.get_submodule(uncovered[0]).backward_gap
+    assert gap == GEOMETRY_NOT_ON_KERNEL_PATH and ITEM9 in gap
+    assert str(HEAD_DIMS) in gap
 
 
 def test_spatial_card_check_refuses_head_dim_20():

@@ -301,7 +301,7 @@ def test_registry_refuses_what_the_kernels_do_not_take():
     too. It builds Uformer at any geometry for the CPU; the card's kernel
     path takes embed 16 at window 4 (packed tiles), head dim 64 (embed
     64) and a window of 17 (enc0 and dec3 of a 32^2 model), and refuses
-    embed 24 (head dim 24 in every block), which no backward kernel takes
+    embed 20 (head dim 20 in every block), which no backward kernel takes
     (`blocks_without_backward_kernel`, naming the ROADMAP item)."""
     assert get_arch({"arch": "Uformer_T"}).encoderlayer_0.dim == 16
     assert blocks_without_backward_kernel(get_arch({"arch": "UNet"})) == []
@@ -312,7 +312,7 @@ def test_registry_refuses_what_the_kernels_do_not_take():
                    ({"arch": "Uformer", "embed_dim": 16, "win_size": 4}, 0),
                    ({"arch": "Uformer", "embed_dim": 16, "win_size": 17,
                      "train_ps": 32}, 0),
-                   ({"arch": "Uformer", "embed_dim": 24, "train_ps": 32},
+                   ({"arch": "Uformer", "embed_dim": 20, "train_ps": 32},
                     18)):
         model = get_arch(opt)
         assert model.encoderlayer_0.dim == opt["embed_dim"]
@@ -328,9 +328,9 @@ def test_registry_refuses_what_the_kernels_do_not_take():
 def test_train_guard_names_the_uncovered_blocks():
     """The kernel path trains every block the backward kernels cover: the
     image route and the windowed branch at every window and head dim 8,
-    16, 32 or 64. Every registry arch at train_ps 32, 64 and 128 is
-    covered, and embed 8 at window 8 and 2, and embed 64 (head dim 64);
-    and a window of 17; a conv-projection model and head dim 24 are
+    16, 32 or 64, and 24-56. Every registry arch at train_ps 32, 64 and
+    128 is covered, and embed 8 at window 8 and 2, and embed 64 (head dim
+    64); and a window of 17; a conv-projection model and head dim 20 are
     not."""
     from uformer_tpu_torch.models import Uformer
     from uformer_tpu_torch.models.registry import ARCHS
@@ -352,9 +352,9 @@ def test_train_guard_names_the_uncovered_blocks():
     w17 = Uformer(img_size=128, embed_dim=16, depths=(1,) * 9,
                   num_heads=T_HEADS, win_size=17)
     assert blocks_without_backward_kernel(w17) == []
-    d24 = Uformer(img_size=128, embed_dim=24, depths=(1,) * 9,
+    d20 = Uformer(img_size=128, embed_dim=20, depths=(1,) * 9,
                   num_heads=T_HEADS, win_size=17)
-    assert blocks_without_backward_kernel(d24)[0] == \
+    assert blocks_without_backward_kernel(d20)[0] == \
         "encoderlayer_0.blocks.0"
 
 

@@ -20,8 +20,8 @@ On the CPU, with numpy inputs from a seed and fp32 throughout:
       kernels 1 and 3 take window 8 alone; head dims 8-64 pass
       `check_head_dim` both ways, head dim 128 raises naming ROADMAP
       queue 2 item 9; the win-16 and win-32 models train on the kernel
-      path (`blocks_without_backward_kernel`), an embed-24 model (head
-      dim 24) does not.
+      path (`blocks_without_backward_kernel`), an embed-20 model (head
+      dim 20) does not.
 All within 1e-4 (1 + max|ref|). The tests marked `gpu` hold kernels 4, 5
 and 6 at windows 9-16 against their plain versions on the card (`python
 -m pytest -m gpu tests/test_torch_port_wide_windows.py`).
@@ -387,7 +387,7 @@ def test_win16_model_trains_on_the_kernel_path():
     win32 = Uformer(img_size=128, embed_dim=8, depths=(1,) * 9,
                     win_size=32)
     assert blocks_without_backward_kernel(win32) == []
-    over = Uformer(img_size=128, embed_dim=24, depths=(1,) * 9,
+    over = Uformer(img_size=128, embed_dim=20, depths=(1,) * 9,
                    win_size=32)
     uncovered = blocks_without_backward_kernel(over)
     assert uncovered[0] == "encoderlayer_0.blocks.0"

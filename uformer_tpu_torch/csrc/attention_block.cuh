@@ -34,7 +34,8 @@ int launch_block(const AttnParams<T>& p, int Bw, cudaStream_t stream) {
 }
 
 // Kernel 5 at head dim C / nH in 24, 40, 48, 56 (is_new_head_dim) on
-// `blocks` windows, or packed tiles with `packed`.
+// `blocks` windows, or packed tiles with `packed`; kernel 1 at those head
+// dims too, on p.windows = 0 (the image token map), a block a window.
 template <typename T>
 int attention_block_heads(const AttnParams<T>& p, int blocks, bool packed,
                           cudaStream_t stream);

@@ -1,5 +1,6 @@
 // Backward of the windowed LeWin attention block for Hopper (sm_90a), head
-// dim 8, 16, 32 or 64.
+// dim 8, 16, 32 or 64; 24, 40, 48 and 56 on the one-window body of
+// attention_bwd_heads.cu (both dtypes, every window 1-8).
 //
 // Replaces uformer_tpu/ops/pallas/attention_block.py:
 // fused_attention_block_bwd in its own layout (its unpacked form; the
@@ -111,6 +112,22 @@ int uf_attention_block_bwd(int is_bf16, const void* x, const void* g,
   auto s = static_cast<cudaStream_t>(stream);
   const int tiles = win < 8 ? (Bw + 64 / (win * win) - 1) / (64 / (win * win))
                             : Bw;
+  if (uf::is_new_head_dim(C, nH)) {  // attention_bwd_heads.cu
+    auto run = [&](auto p) {
+      p.win = win;
+      p.n_win = Bw;
+      return uf::attention_bwd_heads(p, tiles, win == 8 ? 1 : 2, s);
+    };
+    if (is_bf16)
+      return run(uf::attn_bwd_params<uf::bf16>(
+          x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx, xm_w,
+          dqkv_w, o_img, dbias_part, dmod_part, dln_part, x_scratch,
+          do_scratch, part_dxm, 1, H, W, C, nH, shift, scale, has_ln, 0));
+    return run(uf::attn_bwd_params<float>(
+        x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx, xm_w, dqkv_w,
+        o_img, dbias_part, dmod_part, dln_part, x_scratch, do_scratch,
+        part_dxm, 1, H, W, C, nH, shift, scale, has_ln, 0));
+  }
   if (is_bf16) {
     auto p = uf::attn_bwd_params<uf::bf16>(
         x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx, xm_w, dqkv_w,

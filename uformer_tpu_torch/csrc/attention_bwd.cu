@@ -1,6 +1,7 @@
 // Backward of the image-layout LeWin attention sub-block for Hopper
 // (sm_90a), head dim 16, 32 or 64, and 8 (bf16: from C = 32, where the
-// JAX package's image route starts).
+// JAX package's image route starts); head dims 24, 40, 48 and 56 on the
+// one-window body of attention_bwd_heads.cu.
 //
 // Replaces uformer_tpu/ops/pallas/attention_block.py:
 // fused_attention_block_bwd (and its pixel-packed narrow-C variant) as the
@@ -76,6 +77,8 @@ template <typename T>
 static int run(const AttnBwdParams<T>& p, int wn, int hpb,
                cudaStream_t stream) {
   const int n_win = p.B * (p.H / 8) * (p.W / 8);
+  if (is_new_head_dim(p.C, p.nH))  // attention_bwd_heads.cu
+    return attention_bwd_heads(p, n_win, 0, stream);
   if constexpr (std::is_same<T, bf16>::value) {
     return with_bwd_tile<32>(p.C, p.nH, [&](auto c, auto d) {
       constexpr int C = decltype(c)::value, D = decltype(d)::value;
@@ -97,9 +100,13 @@ extern "C" {
 // memory; the caller then passes a (windows, 64, C) scratch of the input's
 // dtype. bf16: bit 2: the tile is kBig (attention_bwd_mma.cuh), whose
 // every window ends through part_dxm, which the caller then passes with
-// or without a head split. C / nH is 8, 16, 32 or 64 (checked by the
-// caller).
+// or without a head split. C / nH is 8-64, a multiple of 8 (checked by
+// the caller); at 24, 40, 48 and 56 the bits are attention_bwd_heads.cu's
+// (bf16: bits 0 and 1 too, and bit 2 where the fp32 dxm goes to
+// part_dxm, one window a block).
 int uf_attention_bwd_scratch(int is_bf16, int C, int nH) {
+  if (uf::is_new_head_dim(C, nH))
+    return uf::attention_bwd_heads_scratch(is_bf16 ? 2 : 4, C, nH);
   if (is_bf16)
     return uf::with_bwd_tile(C, nH, [](auto c, auto d) {
       return uf::attn_bwd_big(decltype(c)::value, decltype(d)::value) ? 4
@@ -109,8 +116,10 @@ int uf_attention_bwd_scratch(int is_bf16, int C, int nH) {
 }
 
 // Returns a cudaError_t. is_bf16 selects bf16 (else fp32) for x, g, mod,
-// the weight matrices and every per-token output; in bf16 (C 16-1024 in
-// powers of 2, head dim 8 from C = 32, at most 16 heads) a block takes wn
+// the weight matrices and every per-token output; head dims 24-56 take
+// one window a block in both dtypes (wn and hpb ignored); in bf16 (C
+// 16-1024 in powers of 2, head dim 8 from C = 32, at most 16 heads) a
+// block takes wn
 // windows and the partial sums are per block (ceil(windows / wn) rows),
 // or, with hpb < nH (wn 1), hpb heads of one window, whose fp32 dxm
 // shares go through part_dxm (nH / hpb x windows x 64 x C floats; also

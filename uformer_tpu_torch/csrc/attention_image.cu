@@ -20,11 +20,16 @@
 //     attention half (attention_mma.cuh), 1-4 windows per work item, the
 //     weights streamed through a cp.async ring.
 // The host (ops/kernels/attention_image.py:attention_image_plan) picks the
-// windows per work item and the grid. Head dim 8 runs the narrow body at
+// windows per work item and the grid. Head dims 24, 40, 48 and 56 (C
+// 384-896 where the image route takes an --embed_dim 24-56 model's
+// blocks, in training) run kernel 5's instantiation of the one-window
+// body (attention_block_heads.cu) with the image token map, in both
+// dtypes. Head dim 8 runs the narrow body at
 // C 32 and 64 and the wide one at C 128; head dim 64 (--embed_dim 64) the
 // narrow body at C 64 (one head) and the wide one at C 128-512. fp32 (the
 // exact-check path) and bf16 at other widths (C 1024) run one window per
 // block of attention_window.cuh (WMMA products through shared memory).
+#include "attention_block.cuh"
 #include "attention_image.cuh"
 #include "attention_mma.cuh"
 #include "attention_narrow_mma.cuh"
@@ -91,6 +96,8 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
   p.windows = 0;
   p.w_off = 0;
   auto s = static_cast<cudaStream_t>(stream);
+  if (is_new_head_dim(C, nH))
+    return attention_block_heads(p, B * (H / 8) * (W / 8), false, s);
   if constexpr (std::is_same<T, bf16>::value) {
     const int D = nH > 0 ? C / nH : 0;
     if (nH > 0 && C % nH == 0 && attn_narrow_fits(C, D) &&

@@ -791,7 +791,7 @@ static int core_fwd_d(int D, const void* q, const void* k, const void* v,
   auto K = static_cast<const T*>(k);
   auto V = static_cast<const T*>(v);
   auto O = static_cast<T*>(out);
-  switch (D) {  // 24-56: kernel 5's forward only (--embed_dim 24-56)
+  switch (D) {
     case 8: return core_fwd<T, 8>(Q, K, V, O, a, s);
     case 16: return core_fwd<T, 16>(Q, K, V, O, a, s);
     case 24: return core_fwd<T, 24>(Q, K, V, O, a, s);
@@ -812,7 +812,11 @@ static int core_bwd_d(int D, const void* qkv, void* o_tok, const BwdArgs& b,
   switch (D) {
     case 8: return core_bwd<T, 8>(Q, O, b, s);
     case 16: return core_bwd<T, 16>(Q, O, b, s);
+    case 24: return core_bwd<T, 24>(Q, O, b, s);
     case 32: return core_bwd<T, 32>(Q, O, b, s);
+    case 40: return core_bwd<T, 40>(Q, O, b, s);
+    case 48: return core_bwd<T, 48>(Q, O, b, s);
+    case 56: return core_bwd<T, 56>(Q, O, b, s);
     case 64: return core_bwd<T, 64>(Q, O, b, s);
   }
   return (int)cudaErrorInvalidValue;

@@ -1,15 +1,29 @@
 // Backward of one 8x8 window of the LeWin attention sub-block, computed by
 // one thread block from its 64 gathered tokens, for head dim D in {8, 16,
-// 32, 64} (as the forward, attention_window.cuh), in fp32: the exact-check path
-// (bf16 runs attention_bwd_mma.cuh, the same function on mma.sync tiles).
+// 32, 64} in fp32: the exact-check path (bf16 runs attention_bwd_mma.cuh,
+// the same function on mma.sync tiles); and for D in {24, 40, 48, 56} in
+// fp32 and bf16 (attention_bwd_heads.cu, a translation unit of its own).
 // attention_bwd.cu runs it on the image layout (tokens gathered at the
 // shifted coordinates); attention_block_bwd.cu on (Bw, 64, C) windows with
 // the identity token map, and attention_block_bwd_packed.cu on 64-row
-// tiles of 64 / N whole windows of N = win^2 < 64 tokens. A padding row of
-// a tile (pix -1) reads x = g = 0 and is never written: its dO, dS and so
-// its dq, dk, dv and dxm are exactly 0, and a real row's softmax weight on
-// it is exactly 0 (the tile bias is -inf between windows), so it adds
-// nothing to any gradient.
+// tiles of 64 / N whole windows of N = win^2 < 64 tokens.
+//
+// In bf16 the products run on WMMA fragments 16 wide: a head of 24, 40
+// or 56 takes them 16 wide rounded up over zero pad columns (its q, k, v
+// and dO tiles, dO copied per head into an aligned tile of its own), and
+// every weight (and the window's [dq | dk | dv] rows for dxm) goes
+// through shared memory in zero-padded chunks of kBwdChunk rows, so a C of
+// 8 mod 16 (24, 40, 56) needs no fragment past its end. The rounding
+// points are attention_bwd_mma.cuh's, which are JAX's: dO, q, k, v, P and
+// dP rounded to bf16, dS in fp32 (as two bf16 halves into its products),
+// and dxm kept in fp32 for dmod, dln_s / dln_b and the LayerNorm VJP: in
+// shared memory over the dead xm and dO tiles where both fit there, else
+// in the window's slot of part_dxm (uf_attention_bwd_scratch's bit 2).
+//
+// A padding row of a tile (pix -1) reads x = g = 0 and is never written:
+// its dO, dS and so its dq, dk, dv and dxm are exactly 0, and a real row's
+// softmax weight on it is exactly 0 (the tile bias is -inf between
+// windows), so it adds nothing to any gradient.
 //
 // Forward (recomputed here from x, as the TPU kernel does):
 //   xm = LN1(x) + mod; q = (xm Wq + bq) * scale; k, v = xm Wkv + bkv;
@@ -57,13 +71,26 @@ struct AttnBwdParams {
   int win, n_win;      // packed tiles: the window, and the Bw windows
 };
 
+constexpr int kBwdChunk = 64;  // bf16: K rows of a staged operand chunk
+
 template <int D>
 struct AttnBwdLayout {
-  static constexpr int kQKV = 3 * D > 64 ? 3 * D : 64;  // widest acc use
+  static constexpr int kD16 = (D + 15) / 16 * 16;  // a bf16 head's products
+  static constexpr int kQKV = 3 * kD16 > 64 ? 3 * kD16 : 64;  // widest acc
   static constexpr int ldq = D + 8, ldp = 72, ldsp = 68, ldacc = kQKV + 4;
+  // bf16 staging: [q | k | v] head columns (kBwdChunk x 3 kD16), or the two
+  // operands of a dO or dxm product (64 x kBwdChunk each)
+  static constexpr int ldw = 3 * kD16 + 8, lds = kBwdChunk + 8;
+  static constexpr size_t kStage =
+      kBwdChunk * ldw > 2 * 64 * lds ? kBwdChunk * ldw : 2 * 64 * lds;
   int ldx, ldd;
-  size_t q, k, v, pt, sp, acc, pix, rid, stats, dsh, dsl, x, dO, total;
+  size_t q, k, v, pt, sp, acc, pix, rid, stats, dsh, dsl, dh, w, x, dO,
+      total;
   bool x_smem, do_smem;
+  // bf16: the fp32 dxm over the xm and dO tiles (else in part_dxm)
+  __host__ __device__ bool dxm_smem(int ts) const {
+    return ts == 2 && x_smem && do_smem;
+  }
 };
 
 template <int D>
@@ -83,8 +110,12 @@ __host__ __device__ inline AttnBwdLayout<D> attn_bwd_layout(int ts, int C) {
   // dS as the sum of two values of T (in fp32 the second is 0)
   L.dsh = cv.take(64 * L_::ldp * ts);
   L.dsl = cv.take(64 * L_::ldp * ts);
+  // bf16: the head's dO tile and the staged operand chunks
+  L.dh = ts == 2 ? cv.take(64 * L_::ldq * ts) : 0;
+  L.w = ts == 2 ? cv.take(L_::kStage * ts) : 0;
   // the token tile (xm, later dxm) and dO: in shared memory when they
-  // fit, else in a global slot per window (row stride C)
+  // fit, else in a global slot per window (row stride C); X and dO
+  // adjacent, so that bf16's fp32 dxm (64 x (C + 4)) fits over both
   const size_t tile = (size_t)64 * (C + 8) * ts;
   L.x_smem = cv.off + tile <= kSmemLimit;
   L.x = L.x_smem ? cv.take(tile) : 0;
@@ -170,24 +201,58 @@ int launch_attn_bwd(const AttnBwdParams<T>& p, int windows,
   });
 }
 
+// bf16: acc[64 x N16] (+)= A[64 x K] B^T with B an N x K row-major block
+// (ldb) of a weight, A 64 rows (lda) in shared or device memory: both
+// staged in chunks of kBwdChunk columns into `stage` (64 x lds each),
+// zero to N16 rows of B and to the chunk's depth rounded up to 16, so
+// that no fragment reads past either (K, N and the pointers any multiple
+// of 8 entries). The first chunk overwrites acc unless `accum`. All
+// threads call it; it synchronises before returning.
+template <int lds>
+__device__ void staged_product_nt(const bf16* A, int lda, const bf16* B,
+                                  int ldb, int N, int K, float* acc, int ldc,
+                                  bf16* stage, bool accum) {
+  bf16* as = stage;
+  bf16* bs = stage + 64 * lds;
+  const int N16 = (N + 15) & ~15;
+  for (int kc = 0; kc < K; kc += kBwdChunk) {
+    const int kr = min(kBwdChunk, K - kc), kr16 = (kr + 15) & ~15;
+    stage_tile<bf16>(as, lds, A + kc, lda, 64, kr);
+    stage_tile<bf16>(bs, lds, B + kc, ldb, N, kr);
+    zero_pad<bf16>(as, lds, 64, kr16, 64, kr);
+    zero_pad<bf16>(bs, lds, N16, kr16, N, kr);
+    __syncthreads();
+    if (kc == 0 && !accum)
+      block_gemm<bf16, true, false>(as, lds, bs, lds, acc, ldc, 64, N16,
+                                    kr16);
+    else
+      block_gemm<bf16, true, true>(as, lds, bs, lds, acc, ldc, 64, N16,
+                                   kr16);
+    __syncthreads();
+  }
+}
+
 // Backward of window `w`. pix[t] is the row of token t in x, g, dx and
 // o_img, or -1 for a padding row; rid[t] its SW-MSA region id (all 0 when
 // unshifted). Both live in the layout's pix / rid slots, filled and
 // synchronised by the caller.
-// The block has kThreads threads.
+// The block has kThreads threads. fp32 at every D (FMA products); bf16 at
+// D 24-56 (WMMA products through staged operands, the header's rounding
+// points), where a C of 8 mod 16 keeps the xm tile in shared memory.
 template <typename T, int D>
 __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
                                      unsigned char* smem) {
-  static_assert(std::is_same<T, float>::value, "bf16: attention_bwd_mma");
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   using L_ = AttnBwdLayout<D>;
   const L_ L = attn_bwd_layout<D>(sizeof(T), p.C);
   const int C = p.C, C3 = 3 * p.C;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   constexpr int ldq = L_::ldq, ldp = L_::ldp, ldsp = L_::ldsp,
-                lda = L_::ldacc;
+                lda = L_::ldacc, ldw = L_::ldw, lds = L_::lds;
+  constexpr int DP = padded_head<T, D>();  // the products' head width
   // 16x16 tiles of a 64 x D head tile: products issued back to back start
   // on different warps
-  constexpr int kHeadTiles = 4 * (D / 16);
+  constexpr int kHeadTiles = 4 * (DP / 16);
   T* q = reinterpret_cast<T*>(smem + L.q);
   T* k = reinterpret_cast<T*>(smem + L.k);
   T* v = reinterpret_cast<T*>(smem + L.v);
@@ -199,6 +264,8 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
   float* stats = reinterpret_cast<float*>(smem + L.stats);
   T* DSh = reinterpret_cast<T*>(smem + L.dsh);
   T* DSl = reinterpret_cast<T*>(smem + L.dsl);
+  T* dh = reinterpret_cast<T*>(smem + L.dh);     // bf16: the head's dO
+  T* wst = reinterpret_cast<T*>(smem + L.w);     // bf16: staged chunks
   T* X = L.x_smem ? reinterpret_cast<T*>(smem + L.x)
                   : p.x_scratch + (size_t)w * 64 * C;
   T* DO = L.do_smem ? reinterpret_cast<T*>(smem + L.dO)
@@ -211,11 +278,17 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
     X[t * ldx + c] =
         pix[t] >= 0 ? p.g[(size_t)pix[t] * C + c] : from_f<T>(0.f);
   }
+  if (kBf16 && C % 16)  // columns C..C+7 of X: the products' zero pad
+    zero_pad<T>(X, ldx, 64, C + 8, 64, C);
   __syncthreads();
   for (int n0 = 0; n0 < C; n0 += 64) {
     const int nn = min(64, C - n0);
-    block_gemm<T, true, false>(X, ldx, p.wo + (size_t)n0 * C, C, acc, lda, 64,
-                               nn, C);
+    if constexpr (kBf16)
+      staged_product_nt<lds>(X, ldx, p.wo + (size_t)n0 * C, C, nn, C, acc,
+                             lda, wst, false);
+    else
+      block_gemm<T, true, false>(X, ldx, p.wo + (size_t)n0 * C, C, acc, lda,
+                                 64, nn, C);
     __syncthreads();
     for (int idx = tid; idx < 64 * nn; idx += blockDim.x) {
       const int t = idx / nn, j = idx % nn;
@@ -243,20 +316,57 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
   T* dqkv = p.dqkv_w + (size_t)w * 64 * C3;
   for (int h = 0; h < p.nH; ++h) {
     const int c0 = h * D;
-    block_gemm<T, false, false>(X, ldx, p.wq + c0, C, acc, lda, 64, D, C);
-    block_gemm<T, false, false>(X, ldx, p.wkv + c0, 2 * C, acc + D, lda, 64,
-                                D, C, kHeadTiles);
-    block_gemm<T, false, false>(X, ldx, p.wkv + C + c0, 2 * C, acc + 2 * D,
-                                lda, 64, D, C, 2 * kHeadTiles);
-    __syncthreads();
+    if constexpr (kBf16) {
+      // [q | k | v] = xm [Wq | Wk | Wv][:, head], the weights' head
+      // columns staged in chunks of kBwdChunk rows (the forward's
+      // attention_window.cuh), zero to DP columns and 16-row depths
+      for (int kc = 0; kc < C; kc += kBwdChunk) {
+        const int kr = min(kBwdChunk, C - kc), kr16 = (kr + 15) & ~15;
+        stage_tile<T>(wst, ldw, p.wq + (size_t)kc * C + c0, C, kr, D);
+        stage_tile<T>(wst + DP, ldw, p.wkv + (size_t)kc * 2 * C + c0,
+                      2 * C, kr, D);
+        stage_tile<T>(wst + 2 * DP, ldw,
+                      p.wkv + (size_t)kc * 2 * C + C + c0, 2 * C, kr, D);
+        if constexpr (DP != D)
+          for (int i = tid; i < kr16 * 3; i += blockDim.x)
+            *reinterpret_cast<uint4*>(wst + (i / 3) * ldw + (i % 3) * DP +
+                                      D) = make_uint4(0u, 0u, 0u, 0u);
+        zero_pad<T>(wst, ldw, kr16, 3 * DP, kr, 3 * DP);
+        __syncthreads();
+        if (kc == 0)
+          block_gemm<T, false, false>(X, ldx, wst, ldw, acc, lda, 64,
+                                      3 * DP, kr16);
+        else
+          block_gemm<T, false, true>(X + kc, ldx, wst, ldw, acc, lda, 64,
+                                     3 * DP, kr16);
+        __syncthreads();
+      }
+    } else {
+      block_gemm<T, false, false>(X, ldx, p.wq + c0, C, acc, lda, 64, D, C);
+      block_gemm<T, false, false>(X, ldx, p.wkv + c0, 2 * C, acc + D, lda,
+                                  64, D, C, kHeadTiles);
+      block_gemm<T, false, false>(X, ldx, p.wkv + C + c0, 2 * C,
+                                  acc + 2 * D, lda, 64, D, C,
+                                  2 * kHeadTiles);
+      __syncthreads();
+    }
     for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
       const int t = idx / D, d = idx % D;
       q[t * ldq + d] = from_f<T>((acc[t * lda + d] + p.bq[c0 + d]) * p.scale);
-      k[t * ldq + d] = from_f<T>(acc[t * lda + D + d] + p.bkv[c0 + d]);
-      v[t * ldq + d] = from_f<T>(acc[t * lda + 2 * D + d] + p.bkv[C + c0 + d]);
+      k[t * ldq + d] = from_f<T>(acc[t * lda + DP + d] + p.bkv[c0 + d]);
+      v[t * ldq + d] =
+          from_f<T>(acc[t * lda + 2 * DP + d] + p.bkv[C + c0 + d]);
+      if constexpr (kBf16) dh[t * ldq + d] = DO[t * ldd + c0 + d];
     }
+    if constexpr (DP != D)  // zero pad columns: exact 16-wide products
+      for (int t = tid; t < 64; t += blockDim.x) {
+        *reinterpret_cast<uint4*>(q + t * ldq + D) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(k + t * ldq + D) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(v + t * ldq + D) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(dh + t * ldq + D) = make_uint4(0, 0, 0, 0);
+      }
     __syncthreads();
-    block_gemm<T, true, false>(q, ldq, k, ldq, acc, lda, 64, 64, D);
+    block_gemm<T, true, false>(q, ldq, k, ldq, acc, lda, 64, 64, DP);
     __syncthreads();
     const float* bias_h = p.bias + (size_t)h * 4096;
     for (int t = warp; t < 64; t += kWarps) {
@@ -276,7 +386,7 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
     }
     __syncthreads();
     // this head's output, for dWo
-    block_gemm<T, false, false>(PT, ldp, v, ldq, acc, lda, 64, D, 64);
+    block_gemm<T, false, false>(PT, ldp, v, ldq, acc, lda, 64, DP, 64);
     __syncthreads();
     for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
       const int t = idx / D, d = idx % D;
@@ -285,7 +395,9 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
     }
     __syncthreads();
     // dP = dO_h v^T; dS = P (dP - rowsum(dP P)), fp32
-    block_gemm<T, true, false>(DO + c0, ldd, v, ldq, acc, lda, 64, 64, D);
+    const T* doh = kBf16 ? dh : DO + c0;
+    const int ldo = kBf16 ? ldq : ldd;
+    block_gemm<T, true, false>(doh, ldo, v, ldq, acc, lda, 64, 64, DP);
     __syncthreads();
     float* dbias = p.dbias_part + ((size_t)w * p.nH + h) * 4096;
     for (int t = warp; t < 64; t += kWarps) {
@@ -307,40 +419,56 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
     // in as the sum of its two bf16 halves (hi + lo), so the products keep
     // about 17 bits of the fp32 dS on the tensor cores. Each lo product
     // starts on the warps of its hi product, whose tiles it accumulates.
-    block_gemm<T, false, false>(DSh, ldp, k, ldq, acc, lda, 64, D, 64);
-    block_gemm<T, false, false, true>(DSh, ldp, q, ldq, acc + D, lda, 64, D,
-                                      64, kHeadTiles);
-    block_gemm<T, false, false, true>(PT, ldp, DO + c0, ldd, acc + 2 * D, lda,
-                                      64, D, 64, 2 * kHeadTiles);
-    block_gemm<T, false, true>(DSl, ldp, k, ldq, acc, lda, 64, D, 64);
-    block_gemm<T, false, true, true>(DSl, ldp, q, ldq, acc + D, lda, 64, D,
-                                     64, kHeadTiles);
+    block_gemm<T, false, false>(DSh, ldp, k, ldq, acc, lda, 64, DP, 64);
+    block_gemm<T, false, false, true>(DSh, ldp, q, ldq, acc + DP, lda, 64,
+                                      DP, 64, kHeadTiles);
+    block_gemm<T, false, false, true>(PT, ldp, doh, ldo, acc + 2 * DP, lda,
+                                      64, DP, 64, 2 * kHeadTiles);
+    block_gemm<T, false, true>(DSl, ldp, k, ldq, acc, lda, 64, DP, 64);
+    block_gemm<T, false, true, true>(DSl, ldp, q, ldq, acc + DP, lda, 64,
+                                     DP, 64, kHeadTiles);
     __syncthreads();
     for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
       const int t = idx / D, d = idx % D;
       T* row = dqkv + (size_t)t * C3 + c0 + d;
       row[0] = from_f<T>(rnd<T>(acc[t * lda + d]) * p.scale);
-      row[C] = from_f<T>(acc[t * lda + D + d]);
-      row[2 * C] = from_f<T>(acc[t * lda + 2 * D + d]);
+      row[C] = from_f<T>(acc[t * lda + DP + d]);
+      row[2 * C] = from_f<T>(acc[t * lda + 2 * DP + d]);
     }
     __syncthreads();
   }
 
-  // dxm = dq Wq^T + [dk | dv] Wkv^T, in 64-column chunks: rounded to T
-  // into X for the LayerNorm VJP, as the plain path rounds it; the window's
-  // shares of dmod and dln_s / dln_b from the fp32 dxm, as the TPU kernel
-  // sums its fp32 product (attention_block.py:746-750)
+  // dxm = dq Wq^T + [dk | dv] Wkv^T, in 64-column chunks. fp32: rounded to
+  // T into X for the LayerNorm VJP, as the plain path rounds it; bf16:
+  // kept in fp32 (dxm32, over the dead xm and dO tiles or in part_dxm),
+  // as attention_bwd_mma.cuh keeps it. The window's shares of dmod and
+  // dln_s / dln_b from the fp32 dxm, as the TPU kernel sums its fp32
+  // product (attention_block.py:746-750)
+  const bool in_smem = L.dxm_smem(sizeof(T));
+  float* dxm32 = in_smem ? reinterpret_cast<float*>(smem + L.x)
+                         : p.part_dxm + (size_t)w * 64 * C;
+  const int ldm = in_smem ? C + 4 : C;
   float* dln = p.dln_part ? p.dln_part + (size_t)w * 2 * C : nullptr;
   for (int n0 = 0; n0 < C; n0 += 64) {
     const int nn = min(64, C - n0);
-    block_gemm<T, true, false>(dqkv, C3, p.wq + (size_t)n0 * C, C, acc, lda,
-                               64, nn, C);
-    block_gemm<T, true, true>(dqkv + C, C3, p.wkv + (size_t)n0 * 2 * C,
-                              2 * C, acc, lda, 64, nn, 2 * C);
-    __syncthreads();
+    if constexpr (kBf16) {
+      staged_product_nt<lds>(dqkv, C3, p.wq + (size_t)n0 * C, C, nn, C, acc,
+                             lda, wst, false);
+      staged_product_nt<lds>(dqkv + C, C3, p.wkv + (size_t)n0 * 2 * C,
+                             2 * C, nn, 2 * C, acc, lda, wst, true);
+    } else {
+      block_gemm<T, true, false>(dqkv, C3, p.wq + (size_t)n0 * C, C, acc,
+                                 lda, 64, nn, C);
+      block_gemm<T, true, true>(dqkv + C, C3, p.wkv + (size_t)n0 * 2 * C,
+                                2 * C, acc, lda, 64, nn, 2 * C);
+      __syncthreads();
+    }
     for (int idx = tid; idx < 64 * nn; idx += blockDim.x) {
       const int t = idx / nn, j = idx % nn;
-      X[t * ldx + n0 + j] = from_f<T>(acc[t * lda + j]);
+      if constexpr (kBf16)
+        dxm32[t * ldm + n0 + j] = acc[t * lda + j];
+      else
+        X[t * ldx + n0 + j] = from_f<T>(acc[t * lda + j]);
       if (p.dmod_part)
         p.dmod_part[(size_t)w * 64 * C + t * C + n0 + j] = acc[t * lda + j];
     }
@@ -361,17 +489,21 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
     __syncthreads();
   }
 
-  // LayerNorm VJP, one warp per token; dx [+ g] back to its pixel
+  // LayerNorm VJP, one warp per token (bf16: on the fp32 dxm, the TPU
+  // kernel's dtok, attention_block.py:751-755; without LN dx is the
+  // rounded dxm); dx [+ g] back to its pixel
   for (int t = warp; t < 64; t += kWarps) {
     if (pix[t] < 0) continue;
     const size_t at = (size_t)pix[t] * C;
-    const T* row = X + t * ldx;
     const float mean = stats[2 * t], rstd = stats[2 * t + 1];
+    auto dxm_at = [&](int c) {
+      return kBf16 ? dxm32[t * ldm + c] : to_f<T>(X[t * ldx + c]);
+    };
     float s1 = 0.f, s2 = 0.f;
     if (p.has_ln) {
       for (int c = lane; c < C; c += 32) {
         const float xh = (to_f<T>(p.x[at + c]) - mean) * rstd;
-        const float dxh = to_f<T>(row[c]) * p.ln_s[c];
+        const float dxh = dxm_at(c) * p.ln_s[c];
         s1 += dxh;
         s2 += dxh * xh;
       }
@@ -379,15 +511,26 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
       s2 = warp_sum(s2) / C;
     }
     for (int c = lane; c < C; c += 32) {
-      float d = to_f<T>(row[c]);
+      float d = rnd<T>(dxm_at(c));
       if (p.has_ln) {
         const float xh = (to_f<T>(p.x[at + c]) - mean) * rstd;
-        d = rstd * (d * p.ln_s[c] - s1 - xh * s2);
+        d = rstd * (dxm_at(c) * p.ln_s[c] - s1 - xh * s2);
       }
       if (p.residual) d = rnd<T>(d) + to_f<T>(p.g[at + c]);
       p.dx[at + c] = from_f<T>(d);
     }
   }
 }
+
+// Kernel 6 at head dims 24, 40, 48 and 56 (is_new_head_dim), one window
+// (or packed tile) a block of attention_window_bwd: `map` 0 the image
+// layout (attention_bwd.cu's token map), 1 (Bw, 64, C) windows, 2 packed
+// tiles of p.win (attention_block_bwd_packed.cu's); 0 or a cudaError_t
+// (attention_bwd_heads.cu). Its scratch needs as uf_attention_bwd_scratch
+// returns them: bits 0 and 1 the xm and dO tiles, bit 2 (bf16) part_dxm.
+template <typename T>
+int attention_bwd_heads(const AttnBwdParams<T>& p, int windows, int map,
+                        cudaStream_t stream);
+int attention_bwd_heads_scratch(int ts, int C, int nH);
 
 }  // namespace uf

@@ -33,8 +33,10 @@
 // the tiles of leff_bwd_mma.cuh: mma.sync products with register
 // accumulators, weight tiles through a cp.async ring, partial tiles
 // masked, and the hidden chunks of a tile split over blocks where tiles
-// are few (host's choice). fp32 (the exact-check path) runs the FMA loops
-// below, one tile per block, partial tiles masked too.
+// are few (host's choice); at C that is no power of two (an --embed_dim
+// 24-56 model's 24-896) the WMMA tiles of leff_bwd_heads.cu, one tile a
+// block. fp32 (the exact-check path) runs the FMA loops below at every C,
+// one tile per block, partial tiles masked too.
 #include "leff_bwd_mma.cuh"
 
 namespace uf {
@@ -347,7 +349,7 @@ __host__ inline int leff_bwd_tile_rows(int which, int ts, int C) {
     case 512: return mma_rows<512>(which);
     case 1024: return mma_rows<1024>(which);
   }
-  return 0;
+  return leff_bwd_heads_rows(which, C);
 }
 
 template <typename K>
@@ -446,7 +448,7 @@ static int run_bwd(int which, const void* x, const void* dy,
       case 512: return run_mma<512>(which, p, groups, s);
       case 1024: return run_mma<1024>(which, p, groups, s);
     }
-    return (int)cudaErrorInvalidValue;
+    return leff_bwd_heads(which, p, s);  // leff_bwd_heads.cu
   }
 }
 
@@ -486,8 +488,8 @@ int uf_leff_dln_b(int is_bf16, const void* w1, const float* db1,
 
 // Output rows of a tile of backward kernel `which` (0: A, 1: B) for this
 // dtype and width: the tiles are TH x 8 outputs over a (B, ceil(H / TH),
-// ceil(W / 8)) grid, partial tiles masked. 0 where bf16 has no tile for
-// C (C other than 8-1024 in powers of 2).
+// ceil(W / 8)) grid, partial tiles masked. bf16 at C other than 8-1024
+// in powers of 2: leff_bwd_heads.cu's tile (0 where none fits).
 int uf_leff_bwd_tile_rows(int which, int is_bf16, int C) {
   return uf::leff_bwd_tile_rows(which, is_bf16 ? 2 : 4, C);
 }

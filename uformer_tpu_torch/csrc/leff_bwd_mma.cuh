@@ -66,6 +66,12 @@ struct LeffBwdParams {
 
 constexpr int kRowStep = kThreads / kLeffChunk;  // 8 row groups
 
+// bf16 at a C that is no power of two (leff_bwd_heads.cu, one tile a
+// block, every hidden chunk): the output rows of kernel `which`'s tile (0
+// A, 1 B), 0 where none fits; the launch of A or B, 0 or a cudaError_t.
+int leff_bwd_heads_rows(int which, int C);
+int leff_bwd_heads(int which, LeffBwdParams<bf16>& p, cudaStream_t stream);
+
 // Output pixel o of tile `item` (TH x 8 outputs of a (B, ceil(H / TH),
 // ceil(W / 8)) grid): its row in x, or -1 past the image.
 struct TileGeom {

@@ -35,7 +35,8 @@ the shift mask and the input-mask bias. A cross-modulator block first
 adds its cross-attention over all H*W tokens (`layers.py:722-738`). Then
 one LeFF kernel, or the plain `Mlp`. The attention-image, attention-block
 and LeFF kernels are differentiated by their backward kernels (every
-window, head dim 8, 16, 32 or 64, LeFF at C 8-1024); `Mlp` and the
+window, every head dim a multiple of 8 up to 64, LeFF at every C a
+multiple of 8); `Mlp` and the
 cross-modulator's attention are plain
 PyTorch under autograd, as in JAX. The depthwise kernel has no backward,
 in JAX either (`train.train_step` refuses a conv-projection model on the
@@ -91,10 +92,7 @@ from uformer_tpu_torch.ops.kernels import (
     stage_reference,
 )
 from uformer_tpu_torch.ops.kernels.leff import pad_hidden
-from uformer_tpu_torch.ops.kernels.window_attention import (
-    BACKWARD_HEAD_DIMS,
-    FORWARD_HEAD_DIMS,
-)
+from uformer_tpu_torch.ops.kernels.window_attention import HEAD_DIMS
 from uformer_tpu_torch.ops.masks import input_mask_bias, shift_mask_on
 from uformer_tpu_torch.ops.norm import layer_norm
 from uformer_tpu_torch.ops.relpos import relative_position_index
@@ -108,11 +106,10 @@ from uformer_tpu_torch.ops.window import (
 Params = Dict[str, torch.Tensor]
 LEFF_MLPS = ("leff", "fastleff")  # fastleff: the same function and keys
 GEOMETRY_NOT_ON_KERNEL_PATH = (
-    f"the kernels take every window and head dim in {BACKWARD_HEAD_DIMS} "
-    f"forward and backward, and head dim in {FORWARD_HEAD_DIMS} forward "
-    f"only (the train step needs the backward); any other head dim runs "
-    f"on the plain path only (ROADMAP.md, port queue 2 item 9: other head "
-    f"dims)")
+    f"the kernels take every window and head dim in {HEAD_DIMS} (the "
+    f"multiples of 8 up to 64) forward and backward; any other head dim "
+    f"runs on the plain path only (ROADMAP.md, port queue 2 item 9: other "
+    f"head dims)")
 
 
 class _Prepared:
@@ -627,16 +624,16 @@ class LeWinBlock(_Prepared, nn.Module):
         """Why the train step's kernel path cannot differentiate this
         block, or None. The attention backward kernels cover the image
         route and the windowed branch at every window (below 8 on packed
-        tiles, above 8 `csrc/attention_wide.cu`) and head dim 8, 16, 32 or
-        64 (BACKWARD_HEAD_DIMS; 24-56 run forward only), and the LeFF
-        backward kernel C 8-1024;
+        tiles, above 8 `csrc/attention_wide.cu`) and every head dim of
+        HEAD_DIMS (8-64, multiples of 8), and the LeFF backward kernel
+        every C a multiple of 8;
         Mlp and the cross-modulator's attention are plain PyTorch. Conv
         projection runs the depthwise kernel, which has no backward (in JAX
         either)."""
         if self.attn.token_projection == "conv":
             return DWCONV_BACKWARD_NOT_PORTED
         if self.dim % self.num_heads \
-                or self.dim // self.num_heads not in BACKWARD_HEAD_DIMS:
+                or self.dim // self.num_heads not in HEAD_DIMS:
             return GEOMETRY_NOT_ON_KERNEL_PATH
         return None
 

@@ -5,21 +5,21 @@ Every arch of the JAX registry: UNet (the pure-conv baseline, at
 and LeFF: Uformer_T, Uformer_S, Uformer_S_noshift, Uformer_B,
 Uformer_B_fastleff, and Uformer at any embed dim and window. Every one
 builds and runs on the CPU (the kernels' plain versions). On the card the
-forward (eval, serving, the CLIs) runs through the kernels at every window
-and head dim 8, 16, 32 and 64 (head dim is the embed dim in this family):
-every arch here at embed 8, 16, 32 or 64, any `--win_size` and any
-`--train_ps` (head dims 24, 40, 48 and 56, so Uformer at embed 24-56,
-serve there too, through kernels 5, 3 and 2 at window 8 and kernel 5
-at any other, forward only; a
-stage built below the window runs at window min(reso, win); below 8,
-64 // N whole windows of N = win² tokens to a kernel tile; above 8, the
-key-chunked kernels of `csrc/attention_wide.cu`, whose backward holds dS
-for a bounded group of windows at a time), and so does training: the
-backward kernels take the same windows and head dims 8, 16, 32 and 64,
-LeFF at C 8 to 1024 too. Other head dims have no kernel for what a path
-needs: the wrappers raise before any launch, and the train step refuses
-a model at such a head dim (24-56 too) before any launch
-(`LeWinBlock.backward_gap`, ROADMAP.md's port queue 2 item 9).
+forward (eval, serving, the CLIs) and training run through the kernels at
+every window and every head dim that is a multiple of 8 up to 64 (head
+dim is the embed dim in this family): every arch here at `--embed_dim`
+8-64 in steps of 8, any `--win_size` and any `--train_ps`. Head dims 8,
+16, 32 and 64 run the tensor-core bodies; 24, 40, 48 and 56 (Uformer at
+embed 24-56, C 24-896, no power of two) the one-window bodies of kernels
+1, 5 and 6 and the stage kernel (bf16 through zero-padded WMMA
+fragments) and LeFF's `leff_tile` forward and `csrc/leff_bwd_heads.cu`
+backward. A stage built below the window runs at window min(reso, win);
+below 8, 64 // N whole windows of N = win² tokens to a kernel tile;
+above 8, the key-chunked kernels of `csrc/attention_wide.cu`, whose
+backward holds dS for a bounded group of windows at a time. Other head
+dims have no kernel for what a path needs: the wrappers raise before any
+launch, and the train step refuses a model at such a head dim before any
+launch (`LeWinBlock.backward_gap`, ROADMAP.md's port queue 2 item 9).
 `use_checkpoint` recomputes each
 Uformer block in the
 backward (UNet ignores it, as in JAX). `img_size` is

@@ -24,19 +24,20 @@ between two windows), on the same bodies: bf16 at C 8-64 the narrow body
 on packed tiles (`csrc/attention_block_packed.cu`), else a tile per block.
 Head dim 8 runs at every C (bf16: the narrow body at C 8-64, a tile per
 block at C % 128 == 0). Head dims 24, 40, 48 and 56 (`--embed_dim`
-24-56: C 24-896, none a power of two) run forward only, a window (tile)
-per block at windows 1-8 and `attention_wide` above. Windows above 8 (N
+24-56: C 24-896, none a power of two) run a window (tile) per block at
+windows 1-8, both ways, and `attention_wide` above. Windows above 8 (N
 = win² > 64 tokens, any size) run `csrc/attention_wide.cu` through
 `attention_wide`: the projections over 64-row tiles of tokens, the core
-with a key-chunked online softmax, both ways, at any head dim 8, 16, 32
-or 64 (forward also 24, 40, 48 and 56); the backward holds dS for a
-bounded group of windows at a time (`DS_BUDGET`).
+with a key-chunked online softmax, both ways, at every head dim of
+`HEAD_DIMS`; the backward holds dS for a bounded group of windows at a
+time (`DS_BUDGET`).
 
 Its backward, `fused_attention_block_bwd`, is the port of
 `attention_block.py:fused_attention_block_bwd` in its own layout (kernel
 source `csrc/attention_block_bwd.cu`: in bf16 the tensor-core body
 `csrc/attention_bwd_mma.cuh`, in fp32 `csrc/attention_window_bwd.cuh`,
-with the identity token map), windows 1-8 and head dim 8, 16, 32 or 64: at
+with the identity token map; head dims 24-56 in both dtypes on the
+one-window body of `csrc/attention_bwd_heads.cu`), windows 1-8: at
 N < 64 on the forward's packed tiles (`csrc/attention_block_bwd_packed.cu`,
 the operands' tiles from `packed_operands`, the tile gradients of the bias
 and the modulator folded back by `fold_tile_bias`, `fold_tile_tokens`);
@@ -59,7 +60,7 @@ from uformer_tpu_torch.ops.kernels.attention_wide import (
 )
 from uformer_tpu_torch.ops.kernels.wgrad import colsum, sm_count, wgrad
 from uformer_tpu_torch.ops.kernels.window_attention import (
-    FORWARD_HEAD_DIMS,
+    HEAD_DIMS,
     TILE,
     check_head_dim,
     check_window,
@@ -108,7 +109,7 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
     Weight layouts are the kernels' (in, out), as `fused_attention_image`
     takes them; mod (N, C) in x's dtype or None; bias (nH, N, N); ln_s,
     ln_b read only with has_ln. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel (head dim in FORWARD_HEAD_DIMS) or
+    CUDA tensor launches the kernel (head dim in HEAD_DIMS) or
     raises."""
     kw = dict(win=win, shift=shift, H=H, W=W, scale=scale,
               num_heads=num_heads, has_ln=has_ln, w_off=w_off)
@@ -119,7 +120,7 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
     _launch.check_input(x, "(Bw, N, C)")
     Bw, N, C = x.shape
     check_window(win, shift, H, W)
-    check_head_dim(C, num_heads, FORWARD_HEAD_DIMS)
+    check_head_dim(C, num_heads)
     if N != win * win or w_off < 0:
         raise ValueError(f"kernel needs N = win² and w_off >= 0: N={N} "
                          f"win={win} w_off={w_off}")
@@ -229,6 +230,8 @@ def attention_block_vjp_reference(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv,
 
 
 MMA_WIDTHS = (8, 16, 32, 64, 128, 256, 512, 1024)  # C of the bf16 tiles
+# D of the bf16 tiles; the other head dims take a window a block
+MMA_HEAD_DIMS = (8, 16, 32, 64)
 
 
 def windows_per_item(windows: int, C: int, sms: int) -> int:
@@ -252,11 +255,13 @@ def attention_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
     allocates the per-token buffers of `windows` 64-row tiles (8x8
     windows, or at N < 64 packed tiles of 64 // N windows of N tokens,
     whose mod and bias come as their (64, C) and (nH, 64, 64) tiles) and
-    the partial sums of their work items (bf16: `windows_per_item` tiles
-    each, or `heads_per_block` heads of one tile, C 8-1024 in powers of 2,
-    at most 16 heads; fp32: one tile; head dim 64 at C 512 and 1024
-    writes every tile's fp32 dxm to part_dxm and ends it in a second
-    launch), and returns ([(name, run)],
+    the partial sums of their work items (bf16 at MMA_HEAD_DIMS:
+    `windows_per_item` tiles each, or `heads_per_block` heads of one tile,
+    C 8-1024 in powers of 2, at most 16 heads; fp32, and bf16 at head dims
+    24-56: one tile; head dim 64 at C 512 and 1024 writes every tile's
+    fp32 dxm to part_dxm and ends it in a second launch, and bf16 at head
+    dims 24-56 writes it there where it misses shared memory), and
+    returns ([(name, run)],
     result): the body, launch(lib, is_bf16, wn, hpb, *pointers) (a C
     entry taking x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx,
     xm_w, dqkv_w, o_img, dbias_part, dmod_part, dln_part, x_scratch,
@@ -282,14 +287,15 @@ def attention_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
         _launch.expect(t, name, shape, tdt, dev)
     lib = load()
     is_bf16 = int(dt == torch.bfloat16)
-    if is_bf16 and (C not in MMA_WIDTHS or num_heads > 16):
+    tiled = is_bf16 and C // num_heads in MMA_HEAD_DIMS
+    if tiled and (C not in MMA_WIDTHS or num_heads > 16):
         raise ValueError(f"bf16 backward kernel needs C in {MMA_WIDTHS} "
                          f"and at most 16 heads: C={C} heads={num_heads}")
     M = windows * 64
     hpb = (heads_per_block(windows, C, num_heads, sm_count(dev))
-           if is_bf16 else num_heads)
+           if tiled else num_heads)
     wn = (windows_per_item(windows, C, sm_count(dev))
-          if is_bf16 and hpb == num_heads else 1)
+          if tiled and hpb == num_heads else 1)
     items = -(-windows // wn)
 
     def empty(*shape, dtype=dt):
@@ -399,8 +405,9 @@ def fused_attention_block_bwd(x: torch.Tensor, g: torch.Tensor,
     weight gradients are then reduced over every token by
     `csrc/wgrad.cu`. Inputs as `fused_attention_block` takes them. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernels
-    (any win, head dim 8, 16, 32 or 64, w_off 0: the JAX kernel has no
-    offset; above window 8 `csrc/attention_wide.cu`) or raises."""
+    (any win, w_off 0: the JAX kernel has no
+    offset; above window 8 `csrc/attention_wide.cu`) or raises. Head
+    dim in HEAD_DIMS: 24-56 on `csrc/attention_bwd_heads.cu`."""
     kw = dict(win=win, shift=shift, H=H, W=W, scale=scale,
               num_heads=num_heads, has_ln=has_ln, w_off=w_off)
     if x.device.type == "cpu":

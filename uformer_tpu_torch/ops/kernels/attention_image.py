@@ -2,7 +2,7 @@
 
 Port of `uformer_tpu/ops/pallas/attention_image.py:fused_attention_image`
 (kernel source `csrc/attention_image.cu`), window 8 (as the JAX
-kernel, `attention_image.py:665`), head dim 8, 16, 32 or 64. On the
+kernel, `attention_image.py:665`), head dim 8-64, a multiple of 8. On the
 H100 a window is little work at every width, so latency between small
 products sets the pace. In bf16 two persistent bodies on `mma.sync` read
 and write the NHWC image once: at C 16-64 (`csrc/attention_narrow_mma.cuh`)
@@ -16,14 +16,17 @@ O wo of depth 8 on mma.sync.m16n8k8) and the wide body at C 128 (16-wide
 products over zeroed pad columns; training reaches it, as the stage
 kernel runs only in eval). Head dim 64 (`--embed_dim 64`) runs the
 narrow body at C 64 (one head) and the wide one at C 128-512 (two
-windows a work item at most). fp32, and bf16 at C 1024, run one window
-per block (`csrc/attention_window.cuh`).
+windows a work item at most). fp32, and bf16 at C 1024 and at head dims
+24, 40, 48 and 56 (`--embed_dim` 24-56, C 384-896 on the image route),
+run one window per block (`csrc/attention_window.cuh`; those head dims
+on kernel 5's instantiation, `csrc/attention_block_heads.cu`).
 `attention_image_reference` is the plain PyTorch version with the JAX
 reference's signature (`attention_image.py:432`). Its backward,
 `fused_attention_image_bwd` (kernel source `csrc/attention_bwd.cu`),
-takes head dim 8, 16, 32 and 64, as the forward does (head dim 64 at C
-512 and 1024 with g streamed and dxm through device memory,
-`csrc/attention_bwd_mma.cuh`'s kBig).
+takes every head dim the forward does (head dim 64 at C 512 and 1024
+with g streamed and dxm through device memory,
+`csrc/attention_bwd_mma.cuh`'s kBig; 24-56 one window a block,
+`csrc/attention_bwd_heads.cu`).
 """
 
 from __future__ import annotations
@@ -131,7 +134,7 @@ def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
     wkv (C, 2C) = [k | v] in x's dtype; mod (64, C) in x's dtype or None;
     bq, bkv, bo, ln_s, ln_b float32; bias (nH, 64, 64) float32.
     A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel (win 8, head dim 8, 16 or 32; its body and windows per
+    the kernel (win 8, head dim in HEAD_DIMS; its body and windows per
     work item from `attention_image_plan`) or raises."""
     if x.device.type == "cpu":
         fused_attention_image.plain_calls += 1
@@ -217,8 +220,8 @@ def fused_attention_image_bwd(x: torch.Tensor, g: torch.Tensor,
     VJP; the weight gradients are then reduced over every token by
     `csrc/wgrad.cu` (`attention_image_bwd_parts` lists the launches). Inputs as
     `fused_attention_image` takes them. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernels (win 8, head dim 8, 16,
-    32 or 64; in bf16 head dim 8 from C = 32) or raises."""
+    version; a CUDA tensor launches the kernels (win 8, head dim in
+    HEAD_DIMS; in bf16 head dim 8 from C = 32) or raises."""
     kw = dict(win=win, shift=shift, scale=scale, num_heads=num_heads,
               has_ln=has_ln, residual=residual)
     if x.device.type == "cpu":

@@ -16,7 +16,9 @@ no power of two (C 24-896; C 24, 40, 56 are 8 mod 16, hidden 96-3584)
 run `leff_tile` in both dtypes, its bf16 products 16 wider where C is 8
 mod 16 and, at C 768 and 896, its weight chunk staged in pieces. The
 backward takes C 8-1024 too (at C = 1024 2 x 8 and 4 x 8 tiles in bf16,
-1 x 8 and 2 x 8 in fp32). C = 8 (an embed-8 model's outer stages) runs the
+1 x 8 and 2 x 8 in fp32; at C that is no power of two, bf16 on the WMMA
+tiles of `csrc/leff_bwd_heads.cu`, a tile a block, and fp32 on the FMA
+loops, which take any C). C = 8 (an embed-8 model's outer stages) runs the
 narrow tile too, on its 32-wide hidden zero-padded to one 64-wide chunk
 (`pad_hidden`: exact, as GELU(0) = 0; the model pads once, in
 `LeFF.kernel_params`), and so does its backward, `fused_leff_bwd` (its products of depth 8 on
@@ -154,6 +156,11 @@ def leff_vjp_reference(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
     return (grads[0],) + tuple(_f32(d) for d in grads[1:])
 
 
+# C of the bf16 backward's tensor-core tiles, which may split a tile's
+# hidden chunks over blocks; every other C takes a tile a block
+BWD_MMA_WIDTHS = (8, 16, 32, 64, 128, 256, 512, 1024)
+
+
 def chunks_per_block(tiles: int, chunks: int, C: int, sms: int) -> int:
     """Hidden chunks (of HIDDEN_CHUNK channels) that one block of a LeFF
     backward kernel takes from a tile: all of them, unless C >= 256 and
@@ -175,13 +182,15 @@ def fused_leff_bwd(x: torch.Tensor, dy: torch.Tensor, w1, b1, wd, bd, w2,
 
     Kernel source `csrc/leff_bwd.cu` (two tile kernels that recompute the
     hidden from x; in bf16 the tensor-core tiles of `csrc/leff_bwd_mma.cuh`,
-    at C 8-1024, their hidden chunks split over blocks where tiles are few,
-    `chunks_per_block`), then the weight gradients reduced over every pixel
-    by `csrc/wgrad.cu` (`leff_bwd_parts` lists the launches). Any H and W.
-    Weights as `fused_leff` takes them: a hidden below HIDDEN_CHUNK (C = 8:
-    32) is padded here (`pad_hidden`) and dw1, db1, dwd, dbd and dw2 come
-    back sliced to it, unless the caller padded it (the model does, once,
-    in `LeFF.kernel_params`; autograd then slices). The padded channels'
+    at C 8-1024 in powers of two, their hidden chunks split over blocks
+    where tiles are few, `chunks_per_block`; at the other multiples of 8,
+    `csrc/leff_bwd_heads.cu`), then the weight gradients reduced over
+    every pixel by `csrc/wgrad.cu` (`leff_bwd_parts` lists the launches).
+    Any H and W. Weights as `fused_leff` takes them: a hidden that is no
+    multiple of HIDDEN_CHUNK (C = 8: 32; C 24, 40, 56: 96, 160, 224) is
+    padded here (`pad_hidden`) and dw1, db1, dwd, dbd and dw2 come back
+    sliced to it, unless the caller padded it (the model does, once, in
+    `LeFF.kernel_params`; autograd then slices). The padded channels'
     gradients are exactly 0: their hidden is GELU(0) = 0 and their w2 rows
     are 0, so dpre2, dh and dpre1 vanish there. A CPU tensor takes the
     plain version; a CUDA tensor launches the kernels or raises."""
@@ -190,8 +199,7 @@ def fused_leff_bwd(x: torch.Tensor, dy: torch.Tensor, w1, b1, wd, bd, w2,
         return leff_vjp_reference(x, dy, w1, b1, wd, bd, w2, ln_s, ln_b,
                                   has_ln=has_ln, residual=residual)
     Ch = w1.shape[-1]
-    if Ch < HIDDEN_CHUNK:
-        w1, b1, wd, bd, w2 = pad_hidden(w1, b1, wd, bd, w2)
+    w1, b1, wd, bd, w2 = pad_hidden(w1, b1, wd, bd, w2)
     parts, result = leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s, ln_b,
                                    has_ln=has_ln, residual=residual)
     with torch.cuda.device(x.device):
@@ -236,12 +244,12 @@ def leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
                          f"{tuple(x.shape)} {dt}")
     lib = load()
     is_bf16 = int(dt == torch.bfloat16)
+    check_width(C)
     tha = lib.uf_leff_bwd_tile_rows(0, is_bf16, C)
     thb = lib.uf_leff_bwd_tile_rows(1, is_bf16, C)
-    if (C % 16 and C != 8) or Ch % HIDDEN_CHUNK or not tha:
-        raise ValueError(f"kernel needs C = 8 or C % 16 == 0 (bf16: C 8, "
-                         f"16, ..., 1024) and Ch % {HIDDEN_CHUNK} == 0: "
-                         f"C={C} Ch={Ch}")
+    if Ch % HIDDEN_CHUNK or not tha or not thb:
+        raise ValueError(f"kernel needs a tile for C (C % 8 == 0) and Ch % "
+                         f"{HIDDEN_CHUNK} == 0: C={C} Ch={Ch}")
     if has_ln:
         _launch.expect(ln_s, "ln_s", (C,), f32, dev)
         _launch.expect(ln_b, "ln_b", (C,), f32, dev)
@@ -259,7 +267,7 @@ def leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
 
     def split(th):
         return (chunks_per_block(tiles(th), chunks, C, sm_count(dev))
-                if is_bf16 else chunks)
+                if is_bf16 and C in BWD_MMA_WIDTHS else chunks)
 
     def empty(*shape, dtype=dt):
         return torch.empty(*shape, dtype=dtype, device=dev)

@@ -22,10 +22,11 @@ window 8: the kernels take 64-row tiles of 64 // N whole windows
 windows of a tile, so each row weighs only its own window's keys); padding
 rows read as zeros and are never written. In bf16 a head of 8 takes its
 QKᵀ on mma.sync.m16n8k8. Head dim 64 (every block of an `--embed_dim 64`
-model) runs at every window on the same bodies, both ways (`HEAD_DIMS`).
-Head dims 24, 40, 48 and 56 run forward only, in kernels 2, 3 and 5
-(`FORWARD_HEAD_DIMS`), not in this one; other head dims: ROADMAP.md,
-port queue 2 item 9.
+model) runs at every window on the same bodies, both ways. Head dims
+24, 40, 48 and 56 (`--embed_dim` 24-56) run in kernels 1, 3, 5 and 6,
+both ways (`HEAD_DIMS`), not in this one, which keeps
+`WINDOW_ATTENTION_HEAD_DIMS` (its bf16 register core has no body for
+them); other head dims: ROADMAP.md, port queue 2 item 9.
 
 Unlike the block kernels, which fold the softmax scale into q before
 rounding it, this kernel scales the float32 logits (the TPU kernel's
@@ -44,11 +45,12 @@ from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.kernels.attention_wide import wide_window_attention
 from uformer_tpu_torch.ops.masks import shift_window_mask
 
-HEAD_DIMS = (8, 16, 32, 64)  # every attention kernel's heads, both ways
-BACKWARD_HEAD_DIMS = HEAD_DIMS  # kernels 1, 4 and 6 and the train step
-# kernels 3 and 5 forward (and kernel 2 at their widths): every multiple
-# of 8 up to 64
-FORWARD_HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56, 64)
+# kernels 1, 3, 5 and 6, forward and backward (and kernels 2 and 7 at
+# their widths): every multiple of 8 up to 64
+HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56, 64)
+FORWARD_HEAD_DIMS = HEAD_DIMS
+BACKWARD_HEAD_DIMS = HEAD_DIMS  # kernels 1 and 6 and the train step
+WINDOW_ATTENTION_HEAD_DIMS = (8, 16, 32, 64)  # kernel 4 alone
 TILE = 64  # rows of a kernel's window tile
 
 
@@ -84,8 +86,8 @@ def check_window(win: int, shift: int, H: int, W: int,
 def check_head_dim(C: int, num_heads: int,
                    head_dims: tuple = HEAD_DIMS) -> None:
     """Raise unless the kernel takes head dim C / num_heads: one of
-    `head_dims`, at every window it takes (HEAD_DIMS: kernels 1, 4 and
-    6; FORWARD_HEAD_DIMS: kernels 3 and 5)."""
+    `head_dims`, at every window it takes (HEAD_DIMS: kernels 1, 3, 5 and
+    6; WINDOW_ATTENTION_HEAD_DIMS: kernel 4)."""
     D = C // num_heads if num_heads > 0 and C % num_heads == 0 else None
     if D not in head_dims:
         raise ValueError(f"kernel needs head dim in {tuple(head_dims)}: "
@@ -184,7 +186,8 @@ def window_attention_reference(q, k, v, bias, *, win, shift, H, W, scale):
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, *, win: int, shift: int,
                            H: int, W: int, scale: float) -> torch.Tensor:
-    """q, k, v: (nH, Bw, N, D), N = win² (any win), D in HEAD_DIMS,
+    """q, k, v: (nH, Bw, N, D), N = win² (any win), D in
+    WINDOW_ATTENTION_HEAD_DIMS,
     float32 or bfloat16; bias
     (nH, N, N) float32. Returns (nH, Bw, N, D). A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel or raises."""
@@ -195,7 +198,7 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch.check_input(q, "(nH, Bw, N, D)")
     nH, Bw, N, D = q.shape
     check_window(win, shift, H, W)
-    check_head_dim(D, 1)
+    check_head_dim(D, 1, WINDOW_ATTENTION_HEAD_DIMS)
     if N != win * win:
         raise ValueError(f"kernel needs N = win²: N={N} win={win}")
     for name, t in (("q", q), ("k", k), ("v", v)):

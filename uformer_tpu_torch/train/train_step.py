@@ -76,8 +76,8 @@ def make_optimizer(params: Iterable[torch.Tensor], lr_schedule: Schedule,
 
 def blocks_without_backward_kernel(model: nn.Module) -> List[str]:
     """Names of the blocks the backward kernels do not cover (conv
-    projection or a head dim other than 8, 16, 32 or 64; the block's
-    `backward_gap` says why)."""
+    projection or a head dim that is no multiple of 8 up to 64; the
+    block's `backward_gap` says why)."""
     return [name for name, m in model.named_modules()
             if isinstance(m, LeWinBlock) and m.backward_gap is not None]
 
@@ -116,12 +116,13 @@ def make_train_step(model: nn.Module, loss_fn: Callable = charbonnier_loss,
     runs the kernels' plain versions under torch autograd (the comparison
     path). After the step each parameter's `.grad` holds its gradient.
     On the card the kernel path runs every attention and LeFF sub-block
-    forward and backward through the kernels (every window, head dim 8,
-    16, 32 and 64, LeFF at C 8-1024: every registry arch at any
-    `--train_ps`, `--embed_dim` 8, 16, 32 or 64 and any `--win_size`),
-    and raises
-    NotImplementedError before the step for a model with blocks in
-    `blocks_without_backward_kernel` (conv projection, other head
+    forward and backward through the kernels (every window, every head
+    dim a multiple of 8 up to 64, LeFF at every C a multiple of 8: every
+    registry arch at any `--train_ps`, `--embed_dim` 8-64 in steps of 8
+    and any `--win_size`; head dims 24-56 on one-window and one-tile
+    bodies, `csrc/attention_bwd_heads.cu`, `csrc/leff_bwd_heads.cu`), and
+    raises NotImplementedError before the step for a model with blocks
+    in `blocks_without_backward_kernel` (conv projection, other head
     dims).
 
     With a `parallel.Mesh` that has a process group, the batch is this
