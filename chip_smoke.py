@@ -269,7 +269,10 @@ Phases, each raising on failure (no phase is caught):
                kernel), each against the plain path on one generator and
                timed (masks drawn on the card); the train CLI at
                --win_size 16 (16 steps of bs4 on seeded 128^2 pairs);
-               kernel 4 alone at N = 256 beside SDPA.
+               kernel 4 alone at N = 256 beside SDPA, and on the
+               tensor-core core at N 256 (D 32, 64), 1024 and 4096
+               beside SDPA, its bound and the CUDA-core core's earlier
+               time (WIDE_CORE_ROWS).
  21. head dim 64 - `--arch Uformer --embed_dim 64` (every block at head
                dim 64, C 64-1024, hidden up to 4096) through the forward
                kernels. Each kernel against its plain version at every
@@ -396,7 +399,15 @@ phase 21, `_eval` the fp32 CLI frame's; `launches_e64train_e64`,
 `_serve_win16` a request's; `launches_win32_serve` a request's in phase
 23, `_train` and `_cli` a step's there; `launches_heads_e48`, `_e24` a
 bf16 request's in phase 24, `_e48_fp32` the fp32 one's;
-`launches_train_heads_e48`, `_e24` and `_cli` a step's in phase 25);
+`launches_train_heads_e48`, `_e24` and `_cli` a step's in phase 25;
+kernels 4 and 5 carry `core_mma_launches` and `core_fma_launches`, their
+shared core's launches above window 8 by body (bf16 on the tensor cores,
+fp32 on the CUDA cores) summed over the sites in `core_bodies`: phase
+20's kernel checks, a served request of each serve phase, phase 17's
+kernel 5 on the spatial path; every bf16 request of phases 20, 22 and
+23 runs the tensor-core body at each kernel-5 launch and never the
+CUDA-core one, and phase 17 holds each body's launches to its calls by
+dtype);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -420,6 +431,7 @@ import torch
 import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
+STARTED = time.perf_counter()  # the phases' clock (`phase`)
 BATCH_CHECK, BATCH_SERVE, RES_SERVE, RES_GOLDEN = 2, 8, 256, 128
 BATCH_TRAIN, RES_TRAIN, N_TRAIN_STEPS = 32, 128, 3
 N_REQUESTS = 4
@@ -542,7 +554,9 @@ LAYERS = ([f"encoderlayer_{k}" for k in range(4)] + ["conv"]
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """A phase's header, with the seconds since the script's import."""
+    print(f"== {name} (at {time.perf_counter() - STARTED:.1f} s)",
+          flush=True)
 
 
 def card_line() -> str:
@@ -1195,12 +1209,16 @@ def serve_phase(make_model, device, expected: dict, label: str,
                 batch: int = BATCH_SERVE):
     """A bf16 Restorer of make_model() (a float32 model at 256^2 on the
     card) answers N_REQUESTS requests of `batch`, each launching
-    `expected`; returns the summary, the per-kernel launch totals and the
+    `expected` and never the wide core's CUDA-core body; where the
+    model's window is above 8, each kernel-5 launch runs the tensor-core
+    body. Returns the summary, the per-kernel launch totals and the
     checks of kernel path against plain path."""
     from uformer_tpu_torch.ops import kernels as K
     from uformer_tpu_torch.restore import Restorer
 
     restorer = Restorer(make_model(), torch.bfloat16, device)
+    wide_core = any(getattr(m, "win_size", 0) > 8
+                    for m in restorer.model.modules())
     gen = torch.Generator(device="cpu").manual_seed(1)
     shape = (batch, RES_SERVE, RES_SERVE, 3)
     requests = [torch.rand(shape, generator=gen)
@@ -1211,8 +1229,10 @@ def serve_phase(make_model, device, expected: dict, label: str,
 
     K.reset_counts()
     per_request, ms, enqueue_ms, device_ms = [], [], [], []
+    bodies = []
     for x in requests[1:]:
         before = K.launch_counts()
+        body_before = K.core_counts()["attention_block"]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -1225,6 +1245,9 @@ def serve_phase(make_model, device, expected: dict, label: str,
         device_ms.append(start.elapsed_time(end))
         after = K.launch_counts()
         per_request.append({k: after[k] - before[k] for k in after})
+        body_after = K.core_counts()["attention_block"]
+        bodies.append({k: body_after[k] - body_before[k]
+                       for k in body_after})
         if tuple(y.shape) != shape or not bool(torch.isfinite(y).all()) \
                 or float(y.min()) < 0.0 or float(y.max()) > 1.0:
             raise RuntimeError(f"{label}: bad output {tuple(y.shape)}")
@@ -1236,6 +1259,15 @@ def serve_phase(make_model, device, expected: dict, label: str,
         if c != expected:
             raise RuntimeError(f"{label}: request {i} launched {c}, "
                                f"expected {expected}")
+        wide = c["attention_block"] if wide_core else 0
+        if bodies[i] != {"core_mma_launches": wide,
+                         "core_fma_launches": 0}:
+            raise RuntimeError(f"{label}: request {i} ran the wide core's "
+                               f"bodies {bodies[i]}, expected {wide} "
+                               f"tensor-core launches and no CUDA-core one")
+    if wide_core:
+        print(f"  wide core: {bodies[0]['core_mma_launches']} tensor-core "
+              f"launches a request, no CUDA-core one", flush=True)
     med = float(np.median(ms))
     mps = batch * RES_SERVE * RES_SERVE / 1e6 / (med / 1e3)
     print(f"  median {med:.3f} ms/request  {mps:.2f} MP/s  peak "
@@ -1257,17 +1289,20 @@ def serve_phase(make_model, device, expected: dict, label: str,
     summary = {"ms_per_request": ms, "median_ms": med, "mp_per_s": mps,
                "host_enqueue_ms": enqueue_ms, "device_ms": device_ms,
                "max_memory_allocated_bytes": peak,
-               "launches_per_request": per_request}
+               "launches_per_request": per_request,
+               "core_bodies_per_request": bodies}
     return restorer, requests[1].to(device), summary, launches, checks
 
 
 def timing_phase(restorer, x, s: int = 2, peak: float = PEAK_BF16,
-                 layers=LAYERS, forward: bool = True):
+                 layers=LAYERS, forward: bool = True, reps: int = 10,
+                 warmup: int = 2):
     """Device time of each kernel and of its plain version on the inputs
     the forward of x (bs8 256^2 bf16 in the serve phases) gives it, stage
     by stage (the stages in `layers`), with each call's bound (s bytes a
     value, operations at `peak`), and (with `forward`) of the whole
-    forward on each path. Returns the rows, the per-kernel totals over
+    forward on each path; each time a mean over `reps` calls after
+    `warmup` (the forward's over reps // 2). Returns the rows, the per-kernel totals over
     those stages (ms, plain ms, launches, bound) and the forward's times
     (None without `forward`)."""
     from uformer_tpu_torch.ops import kernels as K
@@ -1345,8 +1380,8 @@ def timing_phase(restorer, x, s: int = 2, peak: float = PEAK_BF16,
                     xin = K.fused_leff(xa, *largs, **lkw)
             for kernel, fused, plain, cost in pair:
                 # plain, kernel, kernel, plain: alternate the order
-                p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(fused),
-                                  cuda_ms(fused), cuda_ms(plain))
+                p1, k1, k2, p2 = (cuda_ms(f, reps, warmup) for f in (
+                    plain, fused, fused, plain))
                 k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
                 b_ms = tally(totals, kernel, k_ms, p_ms, cost, peak=peak)
                 rows.append({"layer": name, "kernel": kernel,
@@ -1360,10 +1395,9 @@ def timing_phase(restorer, x, s: int = 2, peak: float = PEAK_BF16,
                       flush=True)
         if not forward:
             return rows, totals, None
-        p1 = cuda_ms(lambda: model(x, plain=True), reps=5)
-        k1 = cuda_ms(lambda: model(x), reps=5)
-        k2 = cuda_ms(lambda: model(x), reps=5)
-        p2 = cuda_ms(lambda: model(x, plain=True), reps=5)
+        p1, k1, k2, p2 = (cuda_ms(f, max(1, reps // 2), warmup) for f in (
+            lambda: model(x, plain=True), lambda: model(x), lambda: model(x),
+            lambda: model(x, plain=True)))
     fwd = {"kernel_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
            "runs_ms": {"plain": [p1, p2], "kernel": [k1, k2]}}
     for kernel, t in totals.items():
@@ -2410,9 +2444,10 @@ def eval_phase(tmp: Path, sd, device, card: str):
               f"{100 * t['host_share']:.1f}%  [{card}]", flush=True)
     # where an fp32 request's time goes: each kernel against its plain
     # version at bs32 256^2, 4 bytes a value, operations at the float32
-    # rate (TF32 is off)
+    # rate (TF32 is off); 2 calls a time (the kernel path's forward takes
+    # over a second)
     rows, totals, fwd = timing_phase(rs[torch.float32], x_dev, s=4,
-                                     peak=PEAK_FP32)
+                                     peak=PEAK_FP32, reps=2, warmup=1)
     summary.update(fp32_timing=rows, fp32_totals=totals, fp32_forward=fwd)
     del x_dev
     t0 = time.perf_counter()
@@ -3835,12 +3870,15 @@ def kernel5_spatial(checks: Checks, model, device, H: int, W: int,
     fp32 and bf16; then, with timed_widths, timed at rank 0's shapes of
     each width C 32-512 (the encoder and the bottleneck), against its
     plain version and its bound."""
+    from uformer_tpu_torch.ops import kernels as K
     from uformer_tpu_torch.ops.kernels import (attention_block_reference,
                                                fused_attention_block)
     from uformer_tpu_torch.parallel.spatial import stage_at
 
     gen = torch.Generator(device="cpu").manual_seed(PAR_SEED)
     timed = {}
+    K.reset_counts()
+    wide_calls = {torch.float32: 0, torch.bfloat16: 0}
     for k in range(9):
         layer = stage_at(model, k)
         lvl = k if k < 5 else 8 - k
@@ -3862,6 +3900,7 @@ def kernel5_spatial(checks: Checks, model, device, H: int, W: int,
                     args = (x32.to(dt), p["mod"], p["ln1_s"], p["ln1_b"],
                             p["wq"], p["bq"], p["wkv"], p["bkv"], p["wo"],
                             p["bo"], p["bias"])
+                    wide_calls[dt] += win > 8
                     outs[dt] = (
                         fused_attention_block(*args, **kw).float(),
                         attention_block_reference(*args, **kw).float(),
@@ -3882,6 +3921,15 @@ def kernel5_spatial(checks: Checks, model, device, H: int, W: int,
                 if timed_widths and k <= 4 and r == 0 and (
                         blk.dim not in timed or blk.shift_size):
                     timed[blk.dim] = (per, blk, outs)
+    # every bf16 call above window 8 on the tensor-core core, every fp32
+    # one on the CUDA-core core
+    ran = K.core_counts()["attention_block"]
+    if (ran["core_mma_launches"], ran["core_fma_launches"]) != (
+            wide_calls[torch.bfloat16], wide_calls[torch.float32]):
+        raise RuntimeError(f"kernel 5 on the spatial path, {world} ranks: "
+                           f"wide core bodies {ran} for "
+                           f"{wide_calls[torch.bfloat16]} bf16 and "
+                           f"{wide_calls[torch.float32]} fp32 calls")
     rows = []
     for C, (per, blk, outs) in sorted(timed.items()):
         row = {"C": C, "windows": per, "heads": blk.num_heads,
@@ -3905,7 +3953,7 @@ def kernel5_spatial(checks: Checks, model, device, H: int, W: int,
               f"{b['bound_by']}); fp32 {f['ms']:.3f} (plain "
               f"{f['plain_ms']:.3f}, bound {f['bound_ms']:.4f})  "
               f"[{card}]", flush=True)
-    return {"rows": rows}
+    return {"rows": rows, "core_bodies": ran}
 
 
 def spatial_window_checks(checks: Checks, two: list, x_win: dict,
@@ -3925,8 +3973,9 @@ def spatial_window_checks(checks: Checks, two: list, x_win: dict,
         n = len(checks.rows)
         side = SPATIAL_WIN_SIDE[win]
         for world in SPATIAL_WIN_WORLDS[win]:
-            kernel5_spatial(checks, model, device, side, side, world, card,
-                            timed_widths=False)
+            out[f"kernel5_win{win}_{world}ranks"] = kernel5_spatial(
+                checks, model, device, side, side, world, card,
+                timed_widths=False)["core_bodies"]
         worst = max(r["err"] / r["bound"] for r in checks.rows[n:])
         print(f"  kernel 5 at window {win} on the spatial path: "
               f"{len(checks.rows) - n} (stage, rank, dtype) checks on "
@@ -5158,6 +5207,9 @@ WIDE_CHECK_WINDOWS = (9, 12, 16)
 WIDE_BLOCK_CASES = ((32, 1, False, True), (32, 2, True, False),
                     (16, 2, True, True))
 WIDE_CORE_CASES = ((2, 32), (1, 8))  # kernel 4: (heads, head dim)
+# kernel 4 at head dims 24-56 (from its own seed, after the cases above,
+# whose draws stay as they were)
+WIDE_CORE_HEAD_CASES = ((1, 24), (2, 40), (2, 48), (1, 56))
 WIDE_IMAGES = 2
 # the path: `--arch Uformer --embed_dim 32 --win_size 16` (depths 2 x 9,
 # heads 1-16, head dim 32), seeded weights; served bf16 batch 8 at 256^2
@@ -5178,16 +5230,27 @@ WIDE_DROP_LAUNCHES = {(0.1, 0.0): dict(NO_LAUNCHES, attention_block=18,
                       (0.1, 0.1): dict(NO_LAUNCHES)}
 WIDE_CLI_SET = (32, 2, 4, 2)  # train pairs, val pairs, batch, epochs
 WIDE_CORE_TIMING = (1, 512, 32)  # kernel 4 alone: (heads, windows, D)
+# kernel 4 alone above window 8 on the tensor-core core, bf16, beside SDPA
+# and its bound: (heads, windows, win, D, shift, image side, the
+# CUDA-core core's eager ms at that shape: PERF.md §6 row 4, NVIDIA H100
+# 80GB HBM3 at 700 W; none was timed at N 4096)
+WIDE_CORE_ROWS = ((1, 512, 16, 64, 8, 256, 0.693),
+                  (1, 128, 32, 32, 16, 256, 1.459),
+                  (1, 512, 16, 32, 8, 256, 0.374),
+                  (1, 32, 64, 32, 32, 256, None))
 
 
-def wide_kernel_checks(checks: Checks, device, seed: int = 23) -> None:
+def wide_kernel_checks(checks: Checks, device, seed: int = 23) -> dict:
     """Kernels 4, 5 and 6 at windows 9, 12 and 16 (N 81, 144, 256), shift
     0 and win // 2, against their plain versions: fp32 (TF32 off) within
     1e-4 (1 + max|ref|), bf16 under phase 19's gates (`compare`;
     `pooled_grad_bound` over GEOM_DRAWS draws), operands by the golden
-    rule from `seed`; each backward run twice on one input, equal bits."""
+    rule from `seed`; each backward run twice on one input, equal bits;
+    then kernel 4 at WIDE_CORE_HEAD_CASES from seed + 1. Returns kernels 4
+    and 5's core launches by body over the checks (`K.core_counts`)."""
     from uformer_tpu_torch.ops import kernels as K
 
+    K.reset_counts()
     draw = GoldenDraws(seed, device)
     mat, xin = draw.mat, draw.xin
 
@@ -5243,7 +5306,68 @@ def wide_kernel_checks(checks: Checks, device, seed: int = 23) -> None:
                              for n, a in runs[-1][3].items())
                 checks.add("attention_block_bwd", f"{what} repeat",
                            float(differ), 0.0, "bits")
+    draw = GoldenDraws(seed + 1, device)
+    for win in WIDE_CHECK_WINDOWS:
+        N, H = win * win, 4 * win
+        Bw = WIDE_IMAGES * 16
+        for shift in (0, win // 2):
+            for nH, D in WIDE_CORE_HEAD_CASES:
+                k, v = draw.xin(nH, Bw, N, D), draw.xin(nH, Bw, N, D)
+                bias = torch.from_numpy(draw.mat(nH, N, N, fan_in=nH)).to(
+                    device)
+                kw = dict(win=win, shift=shift, H=H, W=H, scale=D ** -0.5)
+
+                def run(fn, kw=kw, k=k, v=v, bias=bias):
+                    return lambda x, dt: fn(x, k.to(dt), v.to(dt), bias,
+                                            **kw)
+
+                compare(checks, "window_attention",
+                        f"win {win} shift {shift} (nH, Bw, N, D)=({nH}, "
+                        f"{Bw}, {N}, {D})", run(K.fused_window_attention),
+                        run(K.window_attention_reference),
+                        draw.xin(nH, Bw, N, D))
     torch.cuda.synchronize()
+    return K.core_counts()
+
+
+def wide_core_rows(device, card: str) -> list:
+    """Kernel 4 at each WIDE_CORE_ROWS shape by `time_core`, printed with
+    the CUDA-core core's time at that shape and the ratios to SDPA and to
+    the bound."""
+    from uformer_tpu_torch.ops.kernels.attention_wide import core_windows
+
+    gen = torch.Generator(device="cpu").manual_seed(22)
+    rows = []
+    for nH, Bw, win, D, shift, res, old_ms in WIDE_CORE_ROWS:
+        N = win * win
+        q, k, v = (torch.randn((nH, Bw, N, D), generator=gen)
+                   .to(device, torch.bfloat16) for _ in range(3))
+        bias = (0.5 * torch.randn((nH, N, N), generator=gen)).to(device)
+        with torch.no_grad():
+            out = time_core(q, k, v, bias, win=win, shift=shift, res=res)
+        G = core_windows(Bw, nH, N, D, torch.cuda.get_device_properties(
+            device).multi_processor_count)
+        tiles = -(-N // 64)
+        # bytes the blocks ask of L2, counted from the shapes (not
+        # measured): each window's K and V once a query tile, each 64 x
+        # 64 fp32 bias block once a block; q and the output once
+        l2 = (nH * Bw * tiles * N * D * 2 * 2
+              + nH * tiles * -(-Bw // G) * tiles * 64 * 64 * 4
+              + 2 * nH * Bw * N * D * 2)
+        out.update(windows_a_block=G,
+                   vs_library=out["ms"] / out["library_ms"],
+                   vs_bound=out["ms"] / out["bound_ms"])
+        was = (f"{old_ms:.3f} ms on the CUDA cores in PERF.md"
+               if old_ms is not None else "not timed on the CUDA cores")
+        print(f"  wide core {tuple(out['shape'])} shift {shift}: "
+              f"{out['ms']:.4f} ms ({was}), {out['vs_library']:.2f}x SDPA, "
+              f"{out['vs_bound']:.1f}x its bound, G {G}; {l2 / 2**20:.0f} "
+              f"MiB asked of L2 by the shapes' count, "
+              f"{l2 / out['graph_ms'] / 1e9:.2f} TB/s at the graphed time  "
+              f"[{card}]", flush=True)
+        rows.append(out)
+        del q, k, v
+    return rows
 
 
 def wide_window_phase(tmp: Path, device, card: str) -> tuple:
@@ -5256,8 +5380,9 @@ def wide_window_phase(tmp: Path, device, card: str) -> tuple:
     backward calls, a step with dropout at each WIDE_DROP_LAUNCHES rate
     against the plain path on one generator, then timed as the step
     without dropout (masks drawn on the card), the train CLI at --win_size
-    16; kernel 4 alone at N = 256 beside SDPA. Returns the checks, the
-    summary and the launches counted per path."""
+    16; kernel 4 alone at N = 256 beside SDPA, then at WIDE_CORE_ROWS
+    (`wide_core_rows`). Returns the checks, the summary and the launches
+    counted per path."""
     from uformer_tpu_torch.convert import load_numpy_state_dict
     from uformer_tpu_torch.models import Uformer
     from uformer_tpu_torch.models.registry import arch_config
@@ -5265,7 +5390,7 @@ def wide_window_phase(tmp: Path, device, card: str) -> tuple:
     checks, summary, launches = Checks(), {"card": card}, {}
     t0 = time.perf_counter()
     torch.backends.cudnn.deterministic = True
-    wide_kernel_checks(checks, device)
+    summary["kernel_check_bodies"] = wide_kernel_checks(checks, device)
     summary["kernel_checks_s"] = time.perf_counter() - t0
     # the bias tables follow each stage's window: weights per train_ps
     sds = {ps: seeded_for(dict(WIDE_ARCH, train_ps=ps), SEED_WIDE)
@@ -5344,6 +5469,8 @@ def wide_window_phase(tmp: Path, device, card: str) -> tuple:
     with torch.no_grad():
         summary["core"] = time_core(q, k, v, bias, win=16, shift=8,
                                     res=16 * int(round((Bw / 2) ** 0.5)))
+    del q, k, v
+    summary["core_rows"] = wide_core_rows(device, card)
     return checks, summary, launches
 
 
@@ -6556,6 +6683,31 @@ def run_self_contained(num: str, device, card: str) -> tuple:
     return checks, summary, launches
 
 
+def core_entry(phases: dict, name: str, parallel: dict = None) -> dict:
+    """The kernels line's core keys of kernel `name`: its core's launches
+    above window 8 by body at each site of `phases` ({num: (checks,
+    summary, launches)}) that counted them (`core_bodies`: phase 20's
+    kernel checks, a served request of kernel 5, and with `parallel`
+    phase 17's kernel 5 on the spatial path at windows 2-32), and each
+    body's sum."""
+    sites = {}
+    if parallel is not None and name == "attention_block":
+        sites.update((f"17 {key}", val) for key, val
+                     in parallel["spatial_windows"].items()
+                     if key.endswith("ranks"))
+    for num, (_, summ, _) in phases.items():
+        if "kernel_check_bodies" in summ:
+            sites[f"{num} kernel checks"] = summ["kernel_check_bodies"][name]
+        for key, val in summ.items():
+            if name == "attention_block" and isinstance(val, dict) \
+                    and "core_bodies_per_request" in val:
+                sites[f"{num} {key} request"] = \
+                    val["core_bodies_per_request"][0]
+    return {**{body: sum(c[body] for c in sites.values())
+               for body in ("core_mma_launches", "core_fma_launches")},
+            "core_bodies": sites}
+
+
 def only_kernels(results: dict) -> list:
     """The kernels line of an `--only` run: every kernel with a check in
     the phases that ran, its launches summed over their paths, its worst
@@ -6584,6 +6736,8 @@ def only_kernels(results: dict) -> list:
                          bound_ms=timed["bound_ms"],
                          bound_by=bound_by(timed),
                          library_ms=timed.get("library_ms"))
+        if name in ("window_attention", "attention_block"):
+            entry.update(core_entry(results, name))
         kernels.append(entry)
     return kernels
 
@@ -6975,6 +7129,8 @@ def run(device, card: str, json_path) -> list:
                     "attention_block_bwd"):
             # windows above 8 (phases 20 and 23)
             entry["wide_source"] = "uformer_tpu_torch/csrc/attention_wide.cu"
+        if name in ("window_attention", "attention_block"):
+            entry.update(core_entry(later, name, parallel))
         if name == "attention_block":
             entry["spatial"] = parallel["kernel5"]["rows"]
         if name == "window_attention":
@@ -6988,6 +7144,11 @@ def run(device, card: str, json_path) -> list:
                                    "bound_ms", "library_ms")}
                 for c in core["more"] + [wide["core"]]
                 + head64["core_timing"] + [head64t["core"], above16["core"]]]
+            entry["wide_core_rows"] = [
+                {k: c[k] for k in ("shape", "shift", "ms", "graph_ms",
+                                   "plain_ms", "bound_ms", "library_ms",
+                                   "windows_a_block")}
+                for c in wide["core_rows"]]
         for label, key, tt in (("serve Uformer_T", "serve_t", t_totals),
                                ("train Uformer_B", "train", ttotals),
                                ("train Uformer_T", "train_t", tttotals),

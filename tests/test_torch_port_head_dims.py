@@ -21,11 +21,12 @@ On the CPU, with numpy inputs from a seed and fp32 throughout, each within
   - the limits: kernels 1, 3, 5 and 6 take head dims 24-56 both ways
     (FORWARD_HEAD_DIMS = BACKWARD_HEAD_DIMS = HEAD_DIMS, since their
     backward was ported: tests/test_torch_port_head_dims_bwd.py) and
-    kernel 2 every C of 8's multiples; kernel 4 refuses them
-    (WINDOW_ATTENTION_HEAD_DIMS), and head dims 12, 20 and 128 are refused
-    everywhere, naming ROADMAP queue 2 item 9; a model at embed 20 has its
-    train step refused (`LeWinBlock.backward_gap`), and the spatial
-    path's card check takes the embed-48 and embed-24 models.
+    kernel 2 every C of 8's multiples; kernel 4 refuses them at windows
+    1-8 (WINDOW_ATTENTION_HEAD_DIMS; above window 8 it takes them,
+    tests/test_torch_port_wide_core_mma.py), and head dims 12, 20 and 128
+    are refused everywhere, naming ROADMAP queue 2 item 9; a model at
+    embed 20 has its train step refused (`LeWinBlock.backward_gap`), and
+    the spatial path's card check takes the embed-48 and embed-24 models.
 The launch routes of the two models (4/0/10/10 and 2/0/14/14 at 256^2)
 are cases of tests/test_torch_port_geometry.py's ROUTES. The tests marked
 `gpu` hold each extended kernel against its plain version on the card
@@ -281,7 +282,8 @@ def test_uformer_matches_jax(jx, opt):
 
 def test_forward_and_backward_head_dims():
     """The kernels take every multiple of 8 up to 64 both ways; kernel 4
-    (no model path calls it) the powers of two among them."""
+    (no model path calls it) the powers of two among them at windows
+    1-8."""
     assert FORWARD_HEAD_DIMS == (8, 16, 24, 32, 40, 48, 56, 64)
     assert BACKWARD_HEAD_DIMS == HEAD_DIMS == FORWARD_HEAD_DIMS
     assert set(HEAD_DIMS) - set(WINDOW_ATTENTION_HEAD_DIMS) == \
@@ -292,8 +294,8 @@ def test_forward_and_backward_head_dims():
 def test_new_head_dims_forward_only(D):
     """Kernels 3 and 5 (FORWARD_HEAD_DIMS), kernel 2 (every C the family
     builds at D: D nH for nH 1-16), kernel 1 and the backward (HEAD_DIMS)
-    take head dim D; kernel 4 (WINDOW_ATTENTION_HEAD_DIMS) refuses it,
-    naming ROADMAP queue 2 item 9."""
+    take head dim D; kernel 4 at windows 1-8 (WINDOW_ATTENTION_HEAD_DIMS)
+    refuses it, naming ROADMAP queue 2 item 9."""
     for nH in (1, 2, 4, 8, 16):
         check_head_dim(D * nH, nH, FORWARD_HEAD_DIMS)
         check_width(D * nH)

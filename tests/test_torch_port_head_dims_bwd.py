@@ -27,7 +27,8 @@ On the CPU, with numpy inputs from a seed and fp32 throughout, each within
     launch routes (the plain calls of kernels 1, 5, 2, 6 and 7);
   - the limits: every block of the embed 24, 40, 48 and 56 models has a
     backward kernel; head dims 12, 20 and 128 are refused everywhere,
-    naming ROADMAP queue 2 item 9; kernel 4 still refuses 24-56.
+    naming ROADMAP queue 2 item 9; kernel 4 still refuses 24-56 at
+    windows 1-8 and takes them above (`window_attention_head_dims`).
 The tests marked `gpu` hold each extended kernel against its plain
 version on the card (`python -m pytest -m gpu
 tests/test_torch_port_head_dims_bwd.py`), within `chip_smoke.py`'s
@@ -51,6 +52,7 @@ from uformer_tpu_torch.ops.kernels.leff import pad_hidden
 from uformer_tpu_torch.ops.kernels.window_attention import (
     HEAD_DIMS,
     WINDOW_ATTENTION_HEAD_DIMS,
+    window_attention_head_dims,
     check_head_dim,
 )
 from uformer_tpu_torch.train import TrainState, make_optimizer, \
@@ -426,12 +428,15 @@ def test_other_head_dims_still_refused(D):
 
 @pytest.mark.parametrize("D", NEW_DIMS)
 def test_window_attention_still_refuses_new_head_dims(D):
-    """Kernel 4 (no model path calls it) keeps its own head dims: its bf16
-    register core has no body for 24-56 (ROADMAP queue 2 item 9)."""
+    """Kernel 4 (no model path calls it) keeps its own head dims at
+    windows 1-8: its bf16 register core has no body for 24-56 (ROADMAP
+    queue 2 item 9). Above window 8 its wide core takes them."""
     assert WINDOW_ATTENTION_HEAD_DIMS == (8, 16, 32, 64)
     assert D in HEAD_DIMS
+    assert window_attention_head_dims(64) == WINDOW_ATTENTION_HEAD_DIMS
     with pytest.raises(ValueError, match=ITEM9):
         check_head_dim(D, 1, WINDOW_ATTENTION_HEAD_DIMS)
+    check_head_dim(D, 1, window_attention_head_dims(81))
 
 
 # ---- the kernels on the card -----------------------------------------------

@@ -14,15 +14,19 @@
 //     wide_gemm_f32 in fp32; [Wq | Wkv] read in place as two parts), with
 //     LN1 and the modulator applied first per token (wide_xm, ln_row's
 //     arithmetic);
-//   - the core (wide_core_fwd) takes one (window, head, 64 query rows) a
-//     block and walks the keys in 64-key chunks with a running max and
-//     running sum in fp32 (online softmax): only the head's 64 x D query
-//     tile and one 64 x D chunk of K and V sit in shared memory. N that is
-//     no multiple of 64 pads query rows with zeros (never written) and
-//     keys with -inf logits (weight exactly 0). The relative-position bias
-//     (nH, N, N) is read per chunk through L2, never staged whole; the
-//     SW-MSA shift mask is computed inline from each token's region id
-//     (JAX's _region_ids: slices from size - win and size - shift);
+//   - the core takes one head and 64 query rows of a window a block and
+//     walks the keys in 64-key chunks with a running max and running sum
+//     in fp32 (online softmax), never holding a window's N x N logits. N
+//     that is no multiple of 64 pads query rows with zeros (never
+//     written) and keys with -inf logits (weight exactly 0); the SW-MSA
+//     shift mask is computed inline from each token's region id (JAX's
+//     _region_ids: slices from size - win and size - shift). bf16 runs on
+//     the tensor cores (wide_core_mma.cuh: G windows a block sharing each
+//     staged bias block, K and V by cp.async two stages deep, S and P in
+//     registers); fp32 runs wide_core_fwd on the CUDA cores (the 64 x D
+//     query tile and one 64 x D chunk of K and V in shared memory, the
+//     relative-position bias read per chunk through L2), whose checks
+//     hold at 1e-4 with TF32 off, which the tensor cores could not;
 //   - the backward recomputes from x as JAX's does: q, k, v by the same
 //     projection, the logits q k^T scaled in fp32 (JAX's kernel 6 takes
 //     the unscaled q there, where its forward folds the scale into q),
@@ -45,48 +49,24 @@
 // What bounds it on the H100: at the win-16 Uformer's serve stage 0 (C 32,
 // one head, 2048 windows of a batch-8 256^2 image) the core's 2 N D
 // multiply-adds a token against 2 x 2 D bytes of q, k, v and O make it
-// bound by operations (the tensor cores' 989 TFLOP/s); the projections
-// are bound by operations from C 64 on. The bf16 projections run on the
-// tensor cores; the core still computes on the CUDA cores in fp32
-// (operands rounded as the working dtype holds them), a simple body that
-// is right first: its times stand beside the bound in PERF.md.
+// bound by operations (the tensor cores' 989 TFLOP/s) from N 256 on; at
+// small D the bias table's bytes and the softmax's exp and fp32
+// arithmetic weigh as much as the products (wide_core_mma.cuh says what
+// its design does about each). The projections are bound by operations
+// from C 64 on and run on the tensor cores in bf16. The backward's cores
+// (wide_core_bwd_q, wide_core_bwd_kv) still compute on the CUDA cores in
+// fp32 (operands rounded as the working dtype holds them), a simple body
+// that is right first: its times stand beside the bound in PERF.md.
 #include "common.cuh"
 #include "mma_tile.cuh"
+#include "wide_core_mma.cuh"
 #include "window_core.cuh"
 
 namespace uf {
 namespace wide {
 
 constexpr int kT = 256;  // threads of every kernel here
-constexpr int kR = 64;   // query rows of a tile, keys of a chunk
 constexpr int ldt = kR + 1;
-
-// Region id (0..8) of token t of the window at place wl of the image's
-// (H / win) x (W / win) windows (row-major) at shift s; 0 unshifted.
-__device__ __forceinline__ int region(int wl, int t, int H, int W, int win,
-                                      int s) {
-  if (!s) return 0;
-  const int nWw = W / win;
-  return 3 * region_id_w((wl / nWw) * win + t / win, H, s, win) +
-         region_id_w((wl % nWw) * win + t % win, W, s, win);
-}
-
-// A per-head operand of (window w, head h, token t, channel d) at
-// base + w sw + h sh + t st + d (the wrappers keep each stride below 2^31).
-struct View {
-  int sw, sh, st;
-  __device__ __forceinline__ size_t at(int w, int h, int t) const {
-    return (size_t)w * sw + (size_t)h * sh + (size_t)t * st;
-  }
-};
-
-struct CoreArgs {
-  View in, out;
-  const float* bias;  // (nH, N, N)
-  int Bw, nH, N, H, W, win, shift, w_off;
-  float scale;        // applied to q (scale_q) or to the fp32 logits
-  int scale_q;        // 1: q rounded times the rounded scale (kernel 5)
-};
 
 // Shared-memory tiles of the cores: four fp32 64 x D operand tiles (ld
 // D + 1), one 64 x 64 logit / probability tile (ld 65), and 64 rows each
@@ -273,8 +253,8 @@ __device__ Carve carve(unsigned char* smem) {
   return c;
 }
 
-// Kernel 4 and kernel 5's core: out = softmax(logits) v per (window, head,
-// query tile).
+// Kernel 4 and kernel 5's fp32 core: out = softmax(logits) v per (window,
+// head, query tile), on the CUDA cores (bf16: wide_core_mma.cuh).
 template <typename T, int D>
 __global__ void __launch_bounds__(kT)
     wide_core_fwd(const T* q, const T* k, const T* v, T* out, CoreArgs a) {
@@ -751,8 +731,8 @@ __global__ void __launch_bounds__(kT)
 }
 
 template <typename T, int D>
-static int core_fwd(const T* q, const T* k, const T* v, T* out,
-                    const CoreArgs& a, cudaStream_t s) {
+static int core_fwd_fma(const T* q, const T* k, const T* v, T* out,
+                        const CoreArgs& a, cudaStream_t s) {
   const size_t smem = CoreSmem<D>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
       wide_core_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -760,6 +740,35 @@ static int core_fwd(const T* q, const T* k, const T* v, T* out,
   if (e) return (int)e;
   const long long blocks = (long long)a.Bw * a.nH * ((a.N + kR - 1) / kR);
   wide_core_fwd<T, D><<<(unsigned)blocks, kT, smem, s>>>(q, k, v, out, a);
+  return (int)cudaGetLastError();
+}
+
+// bf16: the tensor-core core, G windows (1, 2 or 4) a block. The bias
+// block comes in 16-byte copies where its rows allow them (N % 4 == 0,
+// the table 16-byte aligned), else in 4-byte ones.
+template <int D>
+static int core_fwd_mma(const bf16* q, const bf16* k, const bf16* v,
+                        bf16* out, const CoreArgs& a, int G,
+                        cudaStream_t s) {
+  if (G != 1 && G != 2 && G != kMmaMaxG) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+      16)
+    return (int)cudaErrorMisalignedAddress;
+  if (a.in.sw % 8 || a.in.sh % 8 || a.in.st % 8 || a.out.sw % 8 ||
+      a.out.sh % 8 || a.out.st % 8)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = MmaCore<D>::bytes(G);
+  cudaError_t e = cudaFuncSetAttribute(
+      wide_core_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e) return (int)e;
+  const int bias16 =
+      a.N % 4 == 0 && reinterpret_cast<uintptr_t>(a.bias) % 16 == 0;
+  const long long blocks =
+      (long long)((a.Bw + G - 1) / G) * a.nH * ((a.N + kR - 1) / kR);
+  wide_core_mma<D><<<(unsigned)blocks, 128 * G, smem, s>>>(q, k, v, out, a,
+                                                           G, bias16);
   return (int)cudaGetLastError();
 }
 
@@ -784,22 +793,31 @@ static int core_bwd(const T* qkv, T* o_tok, const BwdArgs& b,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int D>
+static int core_fwd(const T* q, const T* k, const T* v, T* out,
+                    const CoreArgs& a, int G, cudaStream_t s) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return core_fwd_mma<D>(q, k, v, out, a, G, s);
+  else
+    return core_fwd_fma<T, D>(q, k, v, out, a, s);
+}
+
 template <typename T>
 static int core_fwd_d(int D, const void* q, const void* k, const void* v,
-                      void* out, const CoreArgs& a, cudaStream_t s) {
+                      void* out, const CoreArgs& a, int G, cudaStream_t s) {
   auto Q = static_cast<const T*>(q);
   auto K = static_cast<const T*>(k);
   auto V = static_cast<const T*>(v);
   auto O = static_cast<T*>(out);
   switch (D) {
-    case 8: return core_fwd<T, 8>(Q, K, V, O, a, s);
-    case 16: return core_fwd<T, 16>(Q, K, V, O, a, s);
-    case 24: return core_fwd<T, 24>(Q, K, V, O, a, s);
-    case 32: return core_fwd<T, 32>(Q, K, V, O, a, s);
-    case 40: return core_fwd<T, 40>(Q, K, V, O, a, s);
-    case 48: return core_fwd<T, 48>(Q, K, V, O, a, s);
-    case 56: return core_fwd<T, 56>(Q, K, V, O, a, s);
-    case 64: return core_fwd<T, 64>(Q, K, V, O, a, s);
+    case 8: return core_fwd<T, 8>(Q, K, V, O, a, G, s);
+    case 16: return core_fwd<T, 16>(Q, K, V, O, a, G, s);
+    case 24: return core_fwd<T, 24>(Q, K, V, O, a, G, s);
+    case 32: return core_fwd<T, 32>(Q, K, V, O, a, G, s);
+    case 40: return core_fwd<T, 40>(Q, K, V, O, a, G, s);
+    case 48: return core_fwd<T, 48>(Q, K, V, O, a, G, s);
+    case 56: return core_fwd<T, 56>(Q, K, V, O, a, G, s);
+    case 64: return core_fwd<T, 64>(Q, K, V, O, a, G, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -930,20 +948,22 @@ int uf_wide_gemm(int is_bf16, int b_trans, int out_f32, const void* a,
 // The core: out = softmax(q k^T [scale] + bias [+ mask]) v per window and
 // head. q, k, v share the strides (sw, sh, st) (window, head, token); out
 // has its own. scale_q: q is rounded times the rounded scale (the block);
-// else the fp32 logits are scaled (kernel 4). The caller keeps the
-// strides and Bw nH ceil(N / 64) blocks below 2^31.
+// else the fp32 logits are scaled (kernel 4). bf16 runs the tensor-core
+// core with G windows a block (1, 2 or 4; q, k, v and out 16-byte
+// aligned, their strides multiples of 8); fp32 the CUDA-core core, which
+// ignores G. The caller keeps the strides and the blocks below 2^31.
 int uf_wide_core(int is_bf16, const void* q, const void* k, const void* v,
                  int in_sw, int in_sh, int in_st, const float* bias,
                  void* out, int out_sw, int out_sh, int out_st, int Bw,
                  int nH, int N, int D, int H, int W, int win, int shift,
-                 int w_off, float scale, int scale_q, void* stream) {
+                 int w_off, float scale, int scale_q, int G, void* stream) {
   wide::CoreArgs a = wide::core_args(Bw, nH, N, H, W, win, shift, w_off,
                                      scale, scale_q, bias);
   a.in = {in_sw, in_sh, in_st};
   a.out = {out_sw, out_sh, out_st};
   auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? wide::core_fwd_d<bf16>(D, q, k, v, out, a, s)
-                 : wide::core_fwd_d<float>(D, q, k, v, out, a, s);
+  return is_bf16 ? wide::core_fwd_d<bf16>(D, q, k, v, out, a, G, s)
+                 : wide::core_fwd_d<float>(D, q, k, v, out, a, G, s);
 }
 
 // The backward core of the block on Bw windows and nH heads of rows C

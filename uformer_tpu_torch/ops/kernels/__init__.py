@@ -3,8 +3,10 @@ its plain PyTorch version.
 
 Every wrapper counts its kernel launches (`wrapper.launches`) and, apart,
 the calls it answered with the plain version (`wrapper.plain_calls`),
-which it takes for a CPU tensor only. Importing this package builds
-nothing: the CUDA library is built at the first launch (`_build.load`).
+which it takes for a CPU tensor only; kernels 4 and 5 also count their
+core's launches above window 8 by body (`core_counts`); `reset_counts`
+zeroes every count. Importing this package builds nothing: the CUDA
+library is built at the first launch (`_build.load`).
 The `*_ad` functions are the differentiable forms: their backward is the
 backward kernel (`*_bwd`).
 """
@@ -54,12 +56,18 @@ WRAPPERS = {"stage": fused_stage, "attention_image": fused_attention_image,
             "window_attention": fused_window_attention,
             "attention_block": fused_attention_block,
             "dwconv3x3": dwconv3x3, "dwconv3x3_qkv": dwconv3x3_qkv}
+# the wrappers whose wide core (above window 8) has two bodies
+CORE_WRAPPERS = ("window_attention", "attention_block")
+CORE_BODIES = ("core_mma_launches", "core_fma_launches")
 
 
 def reset_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
         fn.plain_calls = 0
+    for name in CORE_WRAPPERS:
+        for body in CORE_BODIES:
+            setattr(WRAPPERS[name], body, 0)
 
 
 def launch_counts() -> dict:
@@ -68,3 +76,11 @@ def launch_counts() -> dict:
 
 def plain_counts() -> dict:
     return {name: fn.plain_calls for name, fn in WRAPPERS.items()}
+
+
+def core_counts() -> dict:
+    """{kernel: {body: launches}} of kernels 4 and 5's core above window
+    8: `core_mma_launches` (bf16, tensor cores) and `core_fma_launches`
+    (fp32, CUDA cores)."""
+    return {name: {body: getattr(WRAPPERS[name], body)
+                   for body in CORE_BODIES} for name in CORE_WRAPPERS}

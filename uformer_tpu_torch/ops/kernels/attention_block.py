@@ -140,7 +140,7 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
         _launch.expect(t, name, shape, tdt, dev)
     if N > TILE:
         y = wide_attention_block(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
-                                 bo, bias, **kw)
+                                 bo, bias, **kw, count=fused_attention_block)
         fused_attention_block.launches += 1
         return y
     is_bf16 = int(dt == torch.bfloat16)
@@ -169,6 +169,9 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
 
 fused_attention_block.launches = 0
 fused_attention_block.plain_calls = 0
+# launches above window 8 by the core's body (`attention_wide._core`)
+fused_attention_block.core_mma_launches = 0
+fused_attention_block.core_fma_launches = 0
 
 
 def packed_operands(mod: Optional[torch.Tensor], bias: torch.Tensor,

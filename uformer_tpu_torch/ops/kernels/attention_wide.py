@@ -5,9 +5,12 @@ not fit one 64-row tile, so these wrappers run a short chain of kernels
 where windows 1-8 run one: the q | k | v projection over 64-row tiles of
 tokens (`wide_gemm_mma` on the tensor cores in bf16, `[Wq | Wkv]` read in place
 as two parts; after LN1 and the modulator where they apply, `wide_xm`),
-the window core with a key-chunked online softmax (`wide_core_fwd`: 64
-query rows of one window and head a block, 64-key chunks, the bias read
-per chunk, the SW-MSA mask inline from region ids), the output
+the window core with a key-chunked online softmax (64 query rows of one
+window and head, 64-key chunks, the SW-MSA mask inline from region ids;
+in bf16 on the tensor cores, `csrc/wide_core_mma.cuh`, `core_windows`
+windows a block sharing each staged bias block; in fp32 `wide_core_fwd`
+on the CUDA cores, the bias read per chunk; each launch counted on its
+wrapper by body, `core_mma_launches` or `core_fma_launches`), the output
 projection; the backward recomputes q, k and v, runs the core's VJP
 without atomics (`wide_core_bwd_q`, `wide_core_bwd_kv`) over groups of
 windows (and, where one window's heads pass the budget, of heads) whose
@@ -26,7 +29,7 @@ import torch
 
 from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
-from uformer_tpu_torch.ops.kernels.wgrad import colsum, wgrad
+from uformer_tpu_torch.ops.kernels.wgrad import colsum, sm_count, wgrad
 
 MAX_C = 1024  # the LayerNorm VJP's lanes hold at most 32 channels each
 LN_ROWS = 64  # tokens of one block of the LayerNorm VJP (its dln partial)
@@ -35,6 +38,25 @@ LN_ROWS = 64  # tokens of one block of the LayerNorm VJP (its dln partial)
 DS_BUDGET = 256 << 20
 INT_MAX = 2 ** 31 - 1  # the kernels' token, block, stride and dS-row indices
 ROWS = 64  # query rows of a core block, keys of a chunk
+# windows a block of the bf16 core: 4 at head dims 56-64, 2 below
+# (`core_windows`)
+MMA_WIDE_HEADS = 56
+
+def core_windows(Bw: int, nH: int, N: int, D: int, sms: int) -> int:
+    """Windows G a block of the bf16 core (four warps a window): 4 at head
+    dims of MMA_WIDE_HEADS and up, where a window's q, K and V tiles
+    (45 KB) leave room for one block an SM at any G, so four windows give
+    it 16 warps; 2 below, where two 2-window blocks fit an SM (16 warps)
+    at half the warps a barrier waits for; halved while the grid
+    (nH ceil(N / 64) ceil(Bw / G) blocks) has fewer blocks than the
+    `sms` SMs, and never above Bw. A block stages each bias block once
+    for its G windows. On an H100 G 2 ran 10-25% faster than 4 at head
+    dims 8-32, and 4 11-17% faster than 2 at 64 (PERF.md §6)."""
+    tiles = -(-N // ROWS)
+    G = 4 if D >= MMA_WIDE_HEADS else 2
+    while G > 1 and (G > Bw or nH * tiles * -(-Bw // G) < sms):
+        G //= 2
+    return G
 
 
 def check_int32(**sizes: int) -> None:
@@ -109,30 +131,49 @@ def _qkv(lib, xm, wq, bq, wkv, bkv, stream):
     return qkv
 
 
-def wide_window_attention(q, k, v, bias, *, win, shift, H, W, scale):
+def _core(lib, q, k, v, in_view, bias, out, out_view, *, Bw, nH, N, D, H,
+          W, win, shift, w_off, scale, scale_q, count):
+    """The forward core on q, k, v (data pointers) of shared strides
+    `in_view` into `out` (strides `out_view`), (window, head, token); the
+    body by dtype, its launch counted on the wrapper `count`: the
+    tensor-core body (bf16, csrc/wide_core_mma.cuh) in
+    `core_mma_launches`, the CUDA-core one (fp32, wide_core_fwd) in
+    `core_fma_launches`."""
+    bf16 = out.dtype == torch.bfloat16
+    G = core_windows(Bw, nH, N, D, sm_count(out.device)) if bf16 else 1
+    err = lib.uf_wide_core(int(bf16), q, k, v, *in_view, bias.data_ptr(),
+                           out.data_ptr(), *out_view, Bw, nH, N, D, H, W,
+                           win, shift, w_off, float(scale), int(scale_q), G,
+                           _launch.stream(out))
+    _launch.check(err, "attention_wide core kernel")
+    if bf16:
+        count.core_mma_launches += 1
+    else:
+        count.core_fma_launches += 1
+
+
+def wide_window_attention(q, k, v, bias, *, win, shift, H, W, scale, count):
     """Kernel 4 at N > 64: q, k, v (nH, Bw, N, D) -> (nH, Bw, N, D), the
-    fp32 logits scaled (as `window_attention_reference`)."""
+    fp32 logits scaled (as `window_attention_reference`); the core's
+    launch counted on `count` (`_core`)."""
     nH, Bw, N, D = q.shape
     check_int32(blocks=nH * Bw * -(-N // ROWS), head_stride=Bw * N * D)
     lib = load()
     out = torch.empty_like(q)
     view = (N * D, Bw * N * D, D)  # (window, head, token) strides
     with torch.cuda.device(q.device):
-        err = lib.uf_wide_core(_bf16(q), q.data_ptr(), k.data_ptr(),
-                               v.data_ptr(), *view, bias.data_ptr(),
-                               out.data_ptr(), *view, Bw, nH, N, D, H, W,
-                               win, shift, 0, float(scale), 0,
-                               _launch.stream(q))
-    _launch.check(err, "attention_wide core kernel")
+        _core(lib, q.data_ptr(), k.data_ptr(), v.data_ptr(), view, bias, out,
+              view, Bw=Bw, nH=nH, N=N, D=D, H=H, W=W, win=win, shift=shift,
+              w_off=0, scale=scale, scale_q=False, count=count)
     return out
 
 
 def wide_attention_block(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias,
                          *, win, shift, H, W, scale, num_heads, has_ln,
-                         w_off):
+                         w_off, count):
     """Kernel 5 at N > 64 on (Bw, N, C) windows: [LN] + mod, q | k | v,
     the core (q rounded times the rounded scale, as the block's plain
-    version), the output projection."""
+    version; its launch counted on `count`), the output projection."""
     Bw, N, C = x.shape
     D = C // num_heads
     check_int32(tokens=Bw * N, blocks=Bw * num_heads * -(-N // ROWS),
@@ -143,12 +184,11 @@ def wide_attention_block(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias,
         qkv = _qkv(lib, _xm(lib, x, mod, ln_s, ln_b, has_ln, stream), wq, bq,
                    wkv, bkv, stream)
         o = torch.empty(Bw * N, C, dtype=x.dtype, device=x.device)
-        err = lib.uf_wide_core(
-            _bf16(x), qkv.data_ptr(), qkv[:, C:].data_ptr(),
-            qkv[:, 2 * C:].data_ptr(), N * 3 * C, D, 3 * C, bias.data_ptr(),
-            o.data_ptr(), N * C, D, C, Bw, num_heads, N, D, H, W, win, shift,
-            w_off, float(scale), 1, stream)
-        _launch.check(err, "attention_wide core kernel")
+        _core(lib, qkv.data_ptr(), qkv[:, C:].data_ptr(),
+              qkv[:, 2 * C:].data_ptr(), (N * 3 * C, D, 3 * C), bias, o,
+              (N * C, D, C), Bw=Bw, nH=num_heads, N=N, D=D, H=H, W=W,
+              win=win, shift=shift, w_off=w_off, scale=scale, scale_q=True,
+              count=count)
         y = torch.empty_like(x)
         _gemm(lib, o, wo, bo, y.view(-1, C), b_trans=False, stream=stream)
     return y

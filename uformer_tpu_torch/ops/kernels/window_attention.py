@@ -15,18 +15,21 @@ run. `window_attention_reference` is the plain PyTorch version.
 
 Windows above 8 (N = win² > 64 tokens, of any size) run
 `csrc/attention_wide.cu`'s core with a key-chunked online softmax
-(`attention_wide`), which never holds a whole window. Windows of N =
-win² < 64 tokens (win 1-7) and head dim 8 run on the same bodies as
-window 8: the kernels take 64-row tiles of 64 // N whole windows
-(`packed_tiles`), with the bias as its tile (`tile_bias`: -inf between two
-windows of a tile, so each row weighs only its own window's keys); padding
-rows read as zeros and are never written. In bf16 a head of 8 takes its
-QKᵀ on mma.sync.m16n8k8. Head dim 64 (every block of an `--embed_dim 64`
-model) runs at every window on the same bodies, both ways. Head dims
-24, 40, 48 and 56 (`--embed_dim` 24-56) run in kernels 1, 3, 5 and 6,
-both ways (`HEAD_DIMS`), not in this one, which keeps
-`WINDOW_ATTENTION_HEAD_DIMS` (its bf16 register core has no body for
-them); other head dims: ROADMAP.md, port queue 2 item 9.
+(`attention_wide`), which never holds a whole window: in bf16 on the
+tensor cores (`csrc/wide_core_mma.cuh`), in fp32 on the CUDA cores, at
+every head dim of `HEAD_DIMS`. Windows of N = win² < 64 tokens (win 1-7)
+and head dim 8 run on the same bodies as window 8: the kernels take
+64-row tiles of 64 // N whole windows (`packed_tiles`), with the bias as
+its tile (`tile_bias`: -inf between two windows of a tile, so each row
+weighs only its own window's keys); padding rows read as zeros and are
+never written. In bf16 a head of 8 takes its QKᵀ on mma.sync.m16n8k8.
+Head dim 64 (every block of an `--embed_dim 64` model) runs at every
+window on the same bodies, both ways. Head dims 24, 40, 48 and 56
+(`--embed_dim` 24-56) run in kernels 1, 3, 5 and 6, both ways
+(`HEAD_DIMS`), and in this one above window 8; at windows 1-8 it keeps
+`WINDOW_ATTENTION_HEAD_DIMS` (its bf16 register core,
+`csrc/window_core_mma.cuh`, has no body for them); other head dims:
+ROADMAP.md, port queue 2 item 9.
 
 Unlike the block kernels, which fold the softmax scale into q before
 rounding it, this kernel scales the float32 logits (the TPU kernel's
@@ -50,7 +53,7 @@ from uformer_tpu_torch.ops.masks import shift_window_mask
 HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56, 64)
 FORWARD_HEAD_DIMS = HEAD_DIMS
 BACKWARD_HEAD_DIMS = HEAD_DIMS  # kernels 1 and 6 and the train step
-WINDOW_ATTENTION_HEAD_DIMS = (8, 16, 32, 64)  # kernel 4 alone
+WINDOW_ATTENTION_HEAD_DIMS = (8, 16, 32, 64)  # kernel 4 at windows 1-8
 TILE = 64  # rows of a kernel's window tile
 
 
@@ -86,13 +89,21 @@ def check_window(win: int, shift: int, H: int, W: int,
 def check_head_dim(C: int, num_heads: int,
                    head_dims: tuple = HEAD_DIMS) -> None:
     """Raise unless the kernel takes head dim C / num_heads: one of
-    `head_dims`, at every window it takes (HEAD_DIMS: kernels 1, 3, 5 and
-    6; WINDOW_ATTENTION_HEAD_DIMS: kernel 4)."""
+    `head_dims` (HEAD_DIMS: kernels 1, 3, 5 and 6 at every window, kernel
+    4 above window 8; WINDOW_ATTENTION_HEAD_DIMS: kernel 4 at windows
+    1-8, `window_attention_head_dims`)."""
     D = C // num_heads if num_heads > 0 and C % num_heads == 0 else None
     if D not in head_dims:
         raise ValueError(f"kernel needs head dim in {tuple(head_dims)}: "
                          f"C={C}, num_heads={num_heads} (other head dims: "
                          f"ROADMAP.md, port queue 2 item 9)")
+
+
+def window_attention_head_dims(N: int) -> tuple:
+    """The head dims kernel 4 takes at windows of N tokens: HEAD_DIMS above
+    64 tokens (`csrc/attention_wide.cu`), WINDOW_ATTENTION_HEAD_DIMS at
+    64 and below (the register core has no body for 24, 40, 48, 56)."""
+    return HEAD_DIMS if N > TILE else WINDOW_ATTENTION_HEAD_DIMS
 
 
 @functools.lru_cache(maxsize=None)
@@ -186,11 +197,11 @@ def window_attention_reference(q, k, v, bias, *, win, shift, H, W, scale):
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, *, win: int, shift: int,
                            H: int, W: int, scale: float) -> torch.Tensor:
-    """q, k, v: (nH, Bw, N, D), N = win² (any win), D in
-    WINDOW_ATTENTION_HEAD_DIMS,
-    float32 or bfloat16; bias
-    (nH, N, N) float32. Returns (nH, Bw, N, D). A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel or raises."""
+    """q, k, v: (nH, Bw, N, D), N = win² (any win), D in HEAD_DIMS above
+    window 8 and in WINDOW_ATTENTION_HEAD_DIMS at windows 1-8
+    (`window_attention_head_dims`), float32 or bfloat16; bias (nH, N, N)
+    float32. Returns (nH, Bw, N, D). A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel or raises."""
     if q.device.type == "cpu":
         fused_window_attention.plain_calls += 1
         return window_attention_reference(q, k, v, bias, win=win,
@@ -198,7 +209,7 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch.check_input(q, "(nH, Bw, N, D)")
     nH, Bw, N, D = q.shape
     check_window(win, shift, H, W)
-    check_head_dim(D, 1, WINDOW_ATTENTION_HEAD_DIMS)
+    check_head_dim(D, 1, window_attention_head_dims(N))
     if N != win * win:
         raise ValueError(f"kernel needs N = win²: N={N} win={win}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -206,7 +217,8 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch.expect(bias, "bias", (nH, N, N), torch.float32, q.device)
     if N > TILE:
         out = wide_window_attention(q, k, v, bias, win=win, shift=shift, H=H,
-                                    W=W, scale=scale)
+                                    W=W, scale=scale,
+                                    count=fused_window_attention)
         fused_window_attention.launches += 1
         return out
     bias = tile_bias(bias, N)
@@ -231,3 +243,6 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 fused_window_attention.launches = 0
 fused_window_attention.plain_calls = 0
+# launches above window 8 by the core's body (`attention_wide._core`)
+fused_window_attention.core_mma_launches = 0
+fused_window_attention.core_fma_launches = 0
