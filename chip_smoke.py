@@ -272,7 +272,14 @@ Phases, each raising on failure (no phase is caught):
                kernel 4 alone at N = 256 beside SDPA, and on the
                tensor-core core at N 256 (D 32, 64), 1024 and 4096
                beside SDPA, its bound and the CUDA-core core's earlier
-               time (WIDE_CORE_ROWS).
+               time (WIDE_CORE_ROWS); kernel 6's core alone at the same
+               shapes, bf16 on the tensor cores and fp32 on the CUDA
+               cores, beside autograd's backward of SDPA with one float
+               mask that requires grad (its backend named) and the bound
+               (`time_core_bwd`). Every kernel-6 call above window 8 in
+               phases 17-25 is held to its body by dtype
+               (`wide_bwd_bodies`: bf16 on the tensor cores, fp32 on the
+               CUDA cores), and each bf16 train step prints its count.
  21. head dim 64 - `--arch Uformer --embed_dim 64` (every block at head
                dim 64, C 64-1024, hidden up to 4096) through the forward
                kernels. Each kernel against its plain version at every
@@ -400,25 +407,30 @@ phase 21, `_eval` the fp32 CLI frame's; `launches_e64train_e64`,
 23, `_train` and `_cli` a step's there; `launches_heads_e48`, `_e24` a
 bf16 request's in phase 24, `_e48_fp32` the fp32 one's;
 `launches_train_heads_e48`, `_e24` and `_cli` a step's in phase 25;
-kernels 4 and 5 carry `core_mma_launches` and `core_fma_launches`, their
-shared core's launches above window 8 by body (bf16 on the tensor cores,
+kernels 4, 5 and 6 carry `core_mma_launches` and `core_fma_launches`,
+their core's launches above window 8 by body (bf16 on the tensor cores,
 fp32 on the CUDA cores) summed over the sites in `core_bodies`: phase
-20's kernel checks, a served request of each serve phase, phase 17's
-kernel 5 on the spatial path; every bf16 request of phases 20, 22 and
-23 runs the tensor-core body at each kernel-5 launch and never the
-CUDA-core one, and phase 17 holds each body's launches to its calls by
-dtype);
+20's kernel checks, a served request of each serve phase (kernel 5), a
+bf16 train step of each train cell (kernel 6), phase 17's kernel 5 on
+the spatial path; every bf16 request of phases 20, 22 and 23 runs the
+tensor-core body at each kernel-5 launch and never the CUDA-core one,
+every kernel-6 call above window 8 runs its dtype's body, and phase 17
+holds each body's launches to its calls by dtype; kernel 6's entry adds
+`wide_core_rows`, its core alone beside SDPA's backward);
 the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import copy
 import gc
 import importlib.util
 import itertools
 import json
+import queue
 import re
 import subprocess
 import sys
@@ -575,7 +587,7 @@ def rms_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).pow(2).mean().sqrt())
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     """Mean device time of fn() over reps, by CUDA events."""
     for _ in range(warmup):
         fn()
@@ -591,7 +603,7 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def graph_ms(fn, n: int = 20) -> float:
-    """Device time of one fn() from a CUDA graph of n calls, replayed 10
+    """Device time of one fn() from a CUDA graph of n calls, replayed 5
     times: the kernels alone, without the host's cost of launching them."""
     fn()
     graph = torch.cuda.CUDAGraph()
@@ -711,6 +723,63 @@ def kernel_count(counts: dict, name: str) -> int:
                            else 0)
 
 
+def wide_bwd_calls(model) -> int:
+    """Kernel 6's calls above window 8 in one train step of `model`: each
+    windowed block off the image route whose window passes 8 runs its
+    backward once."""
+    from uformer_tpu_torch.models.layers import LeWinBlock
+
+    return sum(isinstance(b, LeWinBlock) and not b.image_route
+               and b.win_size ** 2 > 64 for b in model.modules())
+
+
+def wide_bodies_now() -> dict:
+    from uformer_tpu_torch.ops import kernels as K
+
+    return dict(K.core_counts()["attention_block_bwd"])
+
+
+def wide_bodies_line(steps: dict) -> str:
+    """A step's kernel-6 core launches above window 8 by body, in words."""
+    b = steps["wide_bwd_bodies"]
+    return (f"kernel 6 above window 8 {b['core_mma_launches']} tensor-core "
+            f"and {b['core_fma_launches']} CUDA-core launches a step")
+
+
+def wide_bwd_bodies(label: str, bf16_calls: int, fp32_calls: int,
+                    before: dict = None) -> dict:
+    """Kernel 6's core launches above window 8 by body (`K.core_counts`,
+    since `before` or else since the last reset) against its calls there
+    by dtype: every bf16 call on the tensor-core body and none on the
+    CUDA-core one, every fp32 call on the CUDA-core body. Raises
+    otherwise; returns the counts."""
+    now = wide_bodies_now()
+    got = {k: v - (before or {}).get(k, 0) for k, v in now.items()}
+    want = {"core_mma_launches": bf16_calls, "core_fma_launches": fp32_calls}
+    if got != want:
+        raise RuntimeError(f"{label}: kernel 6's core above window 8 ran "
+                           f"{got}, expected {want}")
+    return got
+
+
+@contextlib.contextmanager
+def without_init():
+    """Modules built inside skip torch.nn.init's random fills: for a model
+    whose every parameter is then loaded (`load_numpy_state_dict` raises
+    on a missing one), or whose parameters' names and shapes alone are
+    read. The fills cost seconds a model on the host."""
+    init = torch.nn.init
+    fills = {n: getattr(init, n) for n in ("kaiming_uniform_", "uniform_",
+                                           "normal_", "trunc_normal_")}
+    for n in fills:
+        setattr(init, n, lambda t, *a, **k: t)
+    try:
+        yield
+    finally:
+        for n, f in fills.items():
+            setattr(init, n, f)
+
+
 def golden_module():
     """tests/golden/generate.py, loaded by path: a site package named
     `tests` may shadow the repo's directory."""
@@ -750,7 +819,8 @@ def build_model(sd, train_ps: int, device, arch: str = "Uformer_B"):
     from uformer_tpu_torch import get_arch
     from uformer_tpu_torch.convert import load_numpy_state_dict
 
-    model = get_arch({"arch": arch, "train_ps": train_ps})
+    with without_init():
+        model = get_arch({"arch": arch, "train_ps": train_ps})
     return load_numpy_state_dict(model, sd).to(device).eval()
 
 
@@ -760,7 +830,8 @@ def t_weights():
     LayerNorm scales near 1, small biases)."""
     from uformer_tpu_torch import get_arch
 
-    model = get_arch({"arch": "Uformer_T"})
+    with without_init():
+        model = get_arch({"arch": "Uformer_T"})
     keys_shapes = [[k, list(v.shape)] for k, v in model.named_parameters()]
     return golden_module().seeded_state_dict(keys_shapes, SEED_T)
 
@@ -1295,8 +1366,8 @@ def serve_phase(make_model, device, expected: dict, label: str,
 
 
 def timing_phase(restorer, x, s: int = 2, peak: float = PEAK_BF16,
-                 layers=LAYERS, forward: bool = True, reps: int = 10,
-                 warmup: int = 2):
+                 layers=LAYERS, forward: bool = True, reps: int = 5,
+                 warmup: int = 1):
     """Device time of each kernel and of its plain version on the inputs
     the forward of x (bs8 256^2 bf16 in the serve phases) gives it, stage
     by stage (the stages in `layers`), with each call's bound (s bytes a
@@ -1885,6 +1956,7 @@ def train_kernel_checks(model, device, batch: int) -> Checks:
             what = f"{name} {shape} shift={shift} res={int(residual)}"
             for kernel, (fused, plain) in calls.items():
                 if kernel.endswith("bwd"):
+                    before = wide_bodies_now()
                     got16 = fused(x.bfloat16(), g.bfloat16(), torch.bfloat16)
                     grad_bound(checks, kernel, what,
                                fused(x, g, torch.float32),
@@ -1898,6 +1970,10 @@ def train_kernel_checks(model, device, batch: int) -> Checks:
                                  for n, a in got16.items())
                     checks.add(kernel, f"{what} repeat", float(differ), 0.0,
                                "bits")
+                    wide = int(kernel == "attention_block_bwd"
+                               and blk.win_size ** 2 > 64)
+                    wide_bwd_bodies(f"{what} {kernel}", 2 * wide, wide,
+                                    before)
     torch.cuda.synchronize()
     return checks
 
@@ -1946,8 +2022,10 @@ def whole_step_checks(make_model, device, batch_size: int, label: str,
 
     model = make_model()
     batch = train_batch(batch_size, batch_seed, device, res)
+    wide = wide_bwd_calls(model) if expected.get("attention_block_bwd") \
+        else 0
     # the gradient at the output of each step, by (plain, bf16)
-    counted, cot, step = {}, {}, []
+    counted, cot, step, bodies = {}, {}, [], {}
 
     def at_output(module, inputs, out):
         def swap(g):
@@ -1974,6 +2052,9 @@ def whole_step_checks(make_model, device, batch_size: int, label: str,
                                f"and none")
         if not plain:
             counted.update(launched)
+            bf16 = dtype == torch.bfloat16
+            bodies[str(dtype)] = wide_bwd_bodies(
+                f"{label} {dtype}", wide if bf16 else 0, 0 if bf16 else wide)
         out = {"loss": loss.reshape(1)}
         out.update({n: p.grad.clone() for n, p in model.named_parameters()
                     if p.grad is not None})
@@ -2001,7 +2082,8 @@ def whole_step_checks(make_model, device, batch_size: int, label: str,
     cotangent["shared_sign_changes"] = float(
         (flips[True] & flips[False]).sum()
         / flips[True].sum().clamp(min=1))
-    return checks, {"launches": counted, "cotangent": cotangent}
+    return checks, {"launches": counted, "cotangent": cotangent,
+                    "wide_bwd_bodies": bodies}
 
 
 def train_timing(make_model, device, expected: dict, label: str):
@@ -2423,7 +2505,7 @@ def eval_phase(tmp: Path, sd, device, card: str):
         _, secs, peak = host_run(
             lambda r=r: restore_sidd(r.numpy, noisy, SIDD_BATCH), device)
         torch.cuda.reset_peak_memory_stats(device)
-        ms = cuda_ms(lambda r=r: r(x_dev), reps=5)
+        ms = cuda_ms(lambda r=r: r(x_dev), reps=2)
         own = SIDD_BATCH * side * side / 1e6 / (ms / 1e3)
         timing[str(dt)] = {
             "loop_s": secs, "loop_mp_per_s": mpix / secs,
@@ -2444,10 +2526,10 @@ def eval_phase(tmp: Path, sd, device, card: str):
               f"{100 * t['host_share']:.1f}%  [{card}]", flush=True)
     # where an fp32 request's time goes: each kernel against its plain
     # version at bs32 256^2, 4 bytes a value, operations at the float32
-    # rate (TF32 is off); 2 calls a time (the kernel path's forward takes
-    # over a second)
+    # rate (TF32 is off); 1 call a time, each stage warm from the requests
+    # above (the kernel path's forward takes over a second)
     rows, totals, fwd = timing_phase(rs[torch.float32], x_dev, s=4,
-                                     peak=PEAK_FP32, reps=2, warmup=1)
+                                     peak=PEAK_FP32, reps=1, warmup=0)
     summary.update(fp32_timing=rows, fp32_totals=totals, fp32_forward=fwd)
     del x_dev
     t0 = time.perf_counter()
@@ -3663,7 +3745,7 @@ def rank_step(sd, device, world: int) -> dict:
 
 
 def rank_spatial(sd, device, x: np.ndarray, dtypes: tuple,
-                 reps: int = 3) -> dict:
+                 reps: int = 1) -> dict:
     """Serve B's Uformer_B forward of x (the whole batch, on every rank)
     split along H over the ranks, bf16 and fp32: the result (rank 0; the
     others its crc32), launches and plain calls, ms a forward on the host
@@ -3922,7 +4004,8 @@ def kernel5_spatial(checks: Checks, model, device, H: int, W: int,
                         blk.dim not in timed or blk.shift_size):
                     timed[blk.dim] = (per, blk, outs)
     # every bf16 call above window 8 on the tensor-core core, every fp32
-    # one on the CUDA-core core
+    # one on the CUDA-core core; the forward ran kernel 6's core nowhere
+    wide_bwd_bodies(f"kernel 5 on the spatial path, {world} ranks", 0, 0)
     ran = K.core_counts()["attention_block"]
     if (ran["core_mma_launches"], ran["core_fma_launches"]) != (
             wide_calls[torch.bfloat16], wide_calls[torch.float32]):
@@ -4173,15 +4256,21 @@ def parallel_phase(tmp: Path, sd, device, card: str) -> tuple:
               "frame": frame, "result_dir": tmp / "gopro_out",
               "dtypes": (torch.bfloat16, torch.float32), "x_win": x_win,
               "x_e48": x_e48}
+    # the 2 ranks, the 4 ranks and the train CLI's 2 ranks under torchrun
+    # run side by side (each group its own processes and store or port):
+    # the ranks' times below share the card with the other groups
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    cli = pool.submit(train_cli_two_ranks, tmp / "cli", card)
     t0 = time.perf_counter()
+    four = pool.submit(spawn_ranks, par_rank, 4, ("spatial",),
+                       {"spatial": x4, "dtypes": (torch.float32,)},
+                       backend="gloo", device="cuda:0",
+                       timeout_s=PAR_TIMEOUT_S, num_threads=None)
     two = spawn_ranks(par_rank, 2, ("step", "spatial", "eval",
                                     "spatial_win", "spatial_e48"), inputs,
                       backend="gloo", device="cuda:0",
                       timeout_s=PAR_TIMEOUT_S, num_threads=None)
-    four = spawn_ranks(par_rank, 4, ("spatial",),
-                       {"spatial": x4, "dtypes": (torch.float32,)},
-                       backend="gloo", device="cuda:0",
-                       timeout_s=PAR_TIMEOUT_S, num_threads=None)
+    four = four.result()
     summary["ranks_s"] = time.perf_counter() - t0
 
     # the 2-rank DDP step against the one-process bs32 step
@@ -4233,7 +4322,8 @@ def parallel_phase(tmp: Path, sd, device, card: str) -> tuple:
           f"generator equal bits to the one-process step's, gradients "
           f"equal on both ranks; median "
           f"{summary['ddp2']['ms_per_rank']} ms a step per rank (the ranks "
-          f"time-slice one card: not a scaling figure)  [{card}]",
+          f"time-slice one card with the other groups: not a scaling "
+          f"figure)  [{card}]",
           flush=True)
 
     # the spatial forward against the unsharded model on the padded frame
@@ -4291,7 +4381,7 @@ def parallel_phase(tmp: Path, sd, device, card: str) -> tuple:
             sp = spatial[f"{world} ranks {dt}"]
             print(f"  spatial {world} ranks {label} {dt}: "
                   f"{[round(v, 2) for v in sp['ms_per_rank']]} ms a forward "
-                  f"per rank, exchanges "
+                  f"per rank (groups side by side), exchanges "
                   f"{[round(v, 2) for v in sp['exchange_ms_per_rank']]} ms "
                   f"({[round(100 * v, 1) for v in sp['exchange_share']]}%; "
                   f"{sp['exchange_calls']:.0f} calls, "
@@ -4357,7 +4447,8 @@ def parallel_phase(tmp: Path, sd, device, card: str) -> tuple:
           f"(fp32); GoPro harness PSNR/SSIM {evals[0]['gopro']} on both, "
           f"rank 0 wrote {written}  [{card}]", flush=True)
 
-    summary["train_cli"] = train_cli_two_ranks(tmp / "cli", card)
+    summary["train_cli"] = cli.result()
+    pool.shutdown()
     launches = {"spatial": two[0]["spatial"][str(torch.bfloat16)]["counts"],
                 "ddp": steps[0]["counts"]}
     return checks, summary, launches
@@ -4417,7 +4508,8 @@ def seeded_for(opt: dict, seed: int):
     get_arch(opt), by the golden weights' rule."""
     from uformer_tpu_torch import get_arch
 
-    model = get_arch(opt)
+    with without_init():
+        model = get_arch(opt)
     keys_shapes = [[k, list(v.shape)] for k, v in model.named_parameters()]
     return golden_module().seeded_state_dict(keys_shapes, seed)
 
@@ -4426,7 +4518,9 @@ def build_arch(opt: dict, sd, device):
     from uformer_tpu_torch import get_arch
     from uformer_tpu_torch.convert import load_numpy_state_dict
 
-    return load_numpy_state_dict(get_arch(opt), sd).to(device).eval()
+    with without_init():
+        model = get_arch(opt)
+    return load_numpy_state_dict(model, sd).to(device).eval()
 
 
 def _prm(inp: dict, device, low: tuple) -> dict:
@@ -4442,20 +4536,53 @@ class GoldenDraws:
     weights' rule (`tests/golden/generate.py:_seeded_value`, as every
     seeded model here draws them): matrices N(0, 1 / fan-in), LayerNorm
     scales 1 + N(0, 0.05²), biases N(0, 0.02²); inputs N(0, 1) on the
-    card, rounded to bf16-representable fp32 (`xin`)."""
+    card, rounded to bf16-representable fp32 (`xin`). `skip` passes over
+    a draw that is not kept: by drawing it, or with `jumps` (the states
+    `log` took in a replay of the same draws) by setting the generator's
+    state. With `feed`, each draw is taken from that queue, where a replay
+    of the same draws on another thread (`feed_draws`) put it ahead;
+    with `sink`, each draw is also put there."""
 
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, jumps: dict = None,
+                 log: dict = None, feed: queue.Queue = None,
+                 sink: queue.Queue = None):
         self.rng, self.device = np.random.default_rng(seed), device
+        self.jumps, self.log, self.draws = jumps, log, 0
+        self.feed, self.sink = feed, sink
+
+    def normal(self, shape):
+        self.draws += 1
+        if self.feed is None:
+            a = self.rng.standard_normal(shape)
+            if self.sink is not None:
+                self.sink.put(a, timeout=FEED_TIMEOUT_S)
+            return a
+        a = self.feed.get(timeout=FEED_TIMEOUT_S)
+        if isinstance(a, BaseException):
+            raise RuntimeError(f"draw {self.draws}: the replay failed") \
+                from a
+        if a.shape != np.shape(np.broadcast_to(0.0, shape)):
+            raise RuntimeError(f"draw {self.draws}: the replay drew "
+                               f"{a.shape}, not {shape}")
+        return a
+
+    def skip(self, *shape):
+        if self.jumps is None:
+            self.normal(shape)
+        else:
+            self.draws += 1
+            self.rng.bit_generator.state = self.jumps[self.draws]
+        if self.log is not None:
+            self.log[self.draws] = self.rng.bit_generator.state
 
     def mat(self, *shape, fan_in):
-        return (self.rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
-            np.float32)
+        return (self.normal(shape) / np.sqrt(fan_in)).astype(np.float32)
 
     def scale(self, n):
-        return (1.0 + 0.05 * self.rng.standard_normal(n)).astype(np.float32)
+        return (1.0 + 0.05 * self.normal(n)).astype(np.float32)
 
     def bias(self, n):
-        return (0.02 * self.rng.standard_normal(n)).astype(np.float32)
+        return (0.02 * self.normal(n)).astype(np.float32)
 
     def xin(self, *shape):
         return torch.from_numpy(self.mat(*shape, fan_in=1)).to(
@@ -4789,6 +4916,9 @@ GEOM_TOKENS = 1 << 15
 # path's is heavy-tailed at head dim 16 and 32 too (PERF.md §6); fp32 is
 # checked per draw
 GEOM_DRAWS = 4
+# the longest a draw waits for its replay on another thread, and the
+# replay for room in the queue (`GoldenDraws`' feed and sink)
+FEED_TIMEOUT_S = 300
 GEOM_BWD_SHAPES = (
     [(w, s, C, nH, ln, mod, None) for w in (1, 2, 3, 4, 5, 6, 7)
      for s in sorted({0, w // 2})
@@ -4817,7 +4947,7 @@ def attn_bwd_cost(tokens, C, N, s=2):
 
 
 def geometry_bwd_checks(checks: Checks, device, seed: int = 19,
-                        select=None) -> None:
+                        select=None, draw: GoldenDraws = None) -> None:
     """Each extended backward kernel (and kernel 1's wide body at head dim
     8) against its plain version at every new shape, fp32 (TF32 off) and
     bf16: `grad_bound` per gradient (fp32 per draw, bf16 on each
@@ -4828,10 +4958,10 @@ def geometry_bwd_checks(checks: Checks, device, seed: int = 19,
     as `train_kernel_checks` draws them; all drawn from `seed`. With
     `select`, only the cases (kernel, C, has_ln) it keeps are run, every
     case's operands still drawn in order, so a case sees the operands of
-    the full run at that seed."""
+    the full run at that seed (`draw`, if given, draws them)."""
     from uformer_tpu_torch.ops import kernels as K
 
-    draw = GoldenDraws(seed, device)
+    draw = draw or GoldenDraws(seed, device)
     mat, scale, bias, xin, attn_prm = (draw.mat, draw.scale, draw.bias,
                                        draw.xin, draw.attn_prm)
 
@@ -4841,7 +4971,7 @@ def geometry_bwd_checks(checks: Checks, device, seed: int = 19,
         runs = []
         for _ in range(GEOM_DRAWS):
             if not keep:  # the draws in order, without the card
-                mat(*shape, fan_in=1), mat(*shape, fan_in=1)
+                draw.skip(*shape), draw.skip(*shape)
                 continue
             x, g = xin(*shape), xin(*shape)
             runs.append([dict(zip(names, f(*a))) for f, a in (
@@ -4881,15 +5011,16 @@ def geometry_bwd_checks(checks: Checks, device, seed: int = 19,
                                                   **kw), (2, 128, 128, C), C,
                   True)
         if C == 128:  # kernel 1's wide body at head dim 8
-            x1 = xin(4, 32, 32, C) if select is None else \
-                mat(4, 32, 32, C, fan_in=1)
             if select is None:
+                x1 = xin(4, 32, 32, C)
                 compare(checks, "attention_image", f"wide {what}",
                         lambda x, dt, p=prm, kw=kw: K.fused_attention_image(
                             x, *p[dt].values(), **kw),
                         lambda x, dt, p=prm, kw=kw:
                         K.attention_image_reference(x, *p[dt].values(),
                                                     **kw), x1)
+            else:
+                draw.skip(4, 32, 32, C)
     C = 8
     lp = _prm(dict(w1=mat(C, 4 * C, fan_in=C), b1=bias(4 * C),
                    wd=mat(3, 3, 4 * C, fan_in=9), bd=bias(4 * C),
@@ -4917,6 +5048,8 @@ def geometry_step_timing(model, batch, expected: dict, label: str) -> dict:
     from uformer_tpu_torch.ops import kernels as K
 
     out = {"kernel_ms": [], "plain_ms": [], "loss": [], "peak_mib": 0.0}
+    wide = wide_bwd_calls(model) if expected.get("attention_block_bwd") \
+        else 0
     for plain in (True, False, False, False, True):
         _, state, step = run_step(model, plain, torch.bfloat16, batch, 50,
                                   lambda s: 0.0)
@@ -4941,6 +5074,7 @@ def geometry_step_timing(model, batch, expected: dict, label: str) -> dict:
                 raise RuntimeError(f"{label}: step launched "
                                    f"{K.launch_counts()}, loss "
                                    f"{float(loss)}")
+            out["wide_bwd_bodies"] = wide_bwd_bodies(label, wide, 0)
     out["kernel_ms_median"] = float(np.median(out["kernel_ms"]))
     out["plain_ms_median"] = float(np.median(out["plain_ms"]))
     return out
@@ -4987,8 +5121,9 @@ def geometry_kernel_timing(model, batch: int, label: str) -> tuple:
                 args = (x, g) if kernel.endswith("bwd") else (x,)
                 k_fn = (lambda f=fused, a=args: f(*a, torch.bfloat16))
                 p_fn = (lambda f=plain, a=args: f(*a, torch.bfloat16))
-                p1, k1, k2, p2 = (cuda_ms(p_fn, reps=3), cuda_ms(k_fn, reps=3),
-                                  cuda_ms(k_fn, reps=3), cuda_ms(p_fn, reps=3))
+                reps = dict(reps=1, warmup=1)
+                p1, k1, k2, p2 = (cuda_ms(p_fn, **reps), cuda_ms(k_fn, **reps),
+                                  cuda_ms(k_fn, **reps), cuda_ms(p_fn, **reps))
                 k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
                 b_ms = tally(totals, kernel, k_ms, p_ms, costs[kernel], n)
                 row = {"model": label, "layer": name, "shift": shift,
@@ -5143,8 +5278,8 @@ def train_cell(checks: Checks, summary: dict, launches: dict, label: str,
     print(f"  {label} bs{bs} {side}^2 bf16 step: kernel path "
           f"{steps['kernel_ms_median']:.3f} ms, plain path "
           f"{steps['plain_ms_median']:.3f} ms, loss "
-          f"{steps['loss'][0]:.6f}; {time.perf_counter() - t1:.1f} s  "
-          f"[{card}]", flush=True)
+          f"{steps['loss'][0]:.6f}; {wide_bodies_line(steps)}; "
+          f"{time.perf_counter() - t1:.1f} s  [{card}]", flush=True)
     del model, batch
     torch.cuda.empty_cache()
 
@@ -5164,8 +5299,17 @@ def train_geometry_phase(tmp: Path, device, card: str) -> tuple:
     checks, summary, launches = Checks(), {"card": card}, {}
     t0 = time.perf_counter()
     torch.backends.cudnn.deterministic = True
-    geometry_bwd_checks(checks, device)
-    seeded_bwd_checks(checks, device, DX_SEEDS[1:], c8_ln)
+    with concurrent.futures.ThreadPoolExecutor(len(DX_SEEDS)) as pool:
+        # the first seed's draws made ahead of their use, and the later
+        # seeds' skipped draws replayed, on the host meanwhile
+        feed = queue.Queue(maxsize=3)
+        pool.submit(feed_draws, DX_SEEDS[0], feed)
+        jumps = {seed: pool.submit(skip_states, seed)
+                 for seed in DX_SEEDS[1:]}
+        geometry_bwd_checks(checks, device, DX_SEEDS[0],
+                            draw=GoldenDraws(DX_SEEDS[0], device, feed=feed))
+        seeded_bwd_checks(checks, device, DX_SEEDS[1:], c8_ln,
+                          {seed: f.result() for seed, f in jumps.items()})
     summary["kernel_checks_s"] = time.perf_counter() - t0
     for label, (opt, seed, bs, side, expected) in TRAIN_GEOM.items():
         train_cell(checks, summary, launches, label, opt, seed, bs, side,
@@ -5187,12 +5331,41 @@ def c8_ln(kernel: str, C: int, has_ln: bool) -> bool:
                                             "leff_bwd")
 
 
-def seeded_bwd_checks(checks: Checks, device, seeds, select=None) -> None:
+def feed_draws(seed: int, feed: queue.Queue) -> None:
+    """`geometry_bwd_checks`'s draws at `seed`, every one, put on `feed` in
+    order by a replay on the host (every case left out, each left-out
+    draw still drawn): `GoldenDraws`' feed for the run that keeps them
+    all. A failure is put there too."""
+    cpu = torch.device("cpu")
+    try:
+        geometry_bwd_checks(Checks(), cpu, seed, lambda *a: False,
+                            GoldenDraws(seed, cpu, sink=feed))
+    except BaseException as exc:  # the run that takes the draws raises it
+        with contextlib.suppress(queue.Full):
+            feed.put_nowait(exc)
+
+
+def skip_states(seed: int) -> dict:
+    """`geometry_bwd_checks`'s draws at `seed` replayed on the host, every
+    case left out: the generator's state after each draw a case leaves
+    out, by the number of draws up to it (`GoldenDraws`' jumps)."""
+    cpu, log = torch.device("cpu"), {}
+    geometry_bwd_checks(Checks(), cpu, seed, lambda *a: False,
+                        GoldenDraws(seed, cpu, log=log))
+    return log
+
+
+def seeded_bwd_checks(checks: Checks, device, seeds, select=None,
+                      jumps: dict = None) -> None:
     """`geometry_bwd_checks` at each seed (its cases in `select` only, if
-    given), each row named with its seed."""
+    given; the draws it leaves out passed over by `jumps[seed]`, from
+    `skip_states`, if given), each row named with its seed."""
     for seed in seeds:
         sub = Checks()
-        geometry_bwd_checks(sub, device, seed=seed, select=select)
+        draw = GoldenDraws(seed, device, jumps=jumps[seed]) if jumps \
+            else None
+        geometry_bwd_checks(sub, device, seed=seed, select=select,
+                            draw=draw)
         for r in sub.rows:
             r["what"] = f"seed {seed} {r['what']}"
         checks.rows += sub.rows
@@ -5246,13 +5419,15 @@ def wide_kernel_checks(checks: Checks, device, seed: int = 23) -> dict:
     1e-4 (1 + max|ref|), bf16 under phase 19's gates (`compare`;
     `pooled_grad_bound` over GEOM_DRAWS draws), operands by the golden
     rule from `seed`; each backward run twice on one input, equal bits;
-    then kernel 4 at WIDE_CORE_HEAD_CASES from seed + 1. Returns kernels 4
-    and 5's core launches by body over the checks (`K.core_counts`)."""
+    then kernel 4 at WIDE_CORE_HEAD_CASES from seed + 1. Returns kernels
+    4, 5 and 6's core launches by body over the checks (`K.core_counts`),
+    kernel 6's held to its calls by dtype (`wide_bwd_bodies`)."""
     from uformer_tpu_torch.ops import kernels as K
 
     K.reset_counts()
     draw = GoldenDraws(seed, device)
     mat, xin = draw.mat, draw.xin
+    bwd_cases = 0
 
     for win in WIDE_CHECK_WINDOWS:
         N, H = win * win, 4 * win
@@ -5306,6 +5481,9 @@ def wide_kernel_checks(checks: Checks, device, seed: int = 23) -> dict:
                              for n, a in runs[-1][3].items())
                 checks.add("attention_block_bwd", f"{what} repeat",
                            float(differ), 0.0, "bits")
+                bwd_cases += 1
+    wide_bwd_bodies("phase 20's kernel checks", (GEOM_DRAWS + 1) * bwd_cases,
+                    GEOM_DRAWS * bwd_cases)
     draw = GoldenDraws(seed + 1, device)
     for win in WIDE_CHECK_WINDOWS:
         N, H = win * win, 4 * win
@@ -5330,10 +5508,109 @@ def wide_kernel_checks(checks: Checks, device, seed: int = 23) -> dict:
     return K.core_counts()
 
 
+def core_bwd_cost(nH, Bw, N, D, s=2):
+    """Kernel 6's core alone: JAX's six N x N x D products a (window,
+    head) (q k^T, P v, dO v^T, P^T dO, dS k, dS^T q); q, k, v and dO read,
+    O, dq, dk and dv written once, the bias table read and dbias written
+    (fp32)."""
+    return (12 * nH * Bw * N * N * D,
+            8 * nH * Bw * N * D * s + 2 * nH * N * N * 4)
+
+
+SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+
+
+def time_core_bwd(nH: int, Bw: int, win: int, D: int, shift: int,
+                  res: int, device, gen) -> dict:
+    """Kernel 6's core alone at (nH, Bw, N = win², D) windows of res x res
+    images: the "core" part of `wide_block_bwd_parts` (O, dq | dk | dv and
+    dbias from q | k | v and dO, its dS folded by colsum; LN off, no
+    modulator), bf16 on the tensor cores and fp32 on the CUDA cores,
+    beside torch.autograd's backward of F.scaled_dot_product_attention on
+    bf16 q, k, v with the bias and the shift mask as one float mask that
+    requires grad (a yardstick the port never calls; the first of
+    SDPA_BACKENDS that runs it, named), in the order library, mma, fma,
+    fma, mma, library; the bound of `core_bwd_cost`."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from uformer_tpu_torch.ops.kernels.attention_block import \
+        attention_block_bwd_parts
+    from uformer_tpu_torch.ops.kernels.window_attention import window_mask
+
+    N, C = win * win, nH * D
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen)
+
+    w = {k: rnd(*shape, scale=C ** -0.5) for k, shape in (
+        ("wq", (C, C)), ("wkv", (C, 2 * C)), ("wo", (C, C)))}
+    bias = rnd(nH, N, N, scale=0.5).to(device)
+    x, g = rnd(Bw, N, C), rnd(Bw, N, C)
+    kw = dict(win=win, shift=shift, H=res, W=res, scale=D ** -0.5,
+              num_heads=nH, has_ln=False)
+    core = {}
+    for dt in (torch.bfloat16, torch.float32):
+        parts, _ = attention_block_bwd_parts(
+            x.to(device, dt), g.to(device, dt), None, None, None,
+            w["wq"].to(device, dt), torch.zeros(C, device=device),
+            w["wkv"].to(device, dt), torch.zeros(2 * C, device=device),
+            w["wo"].to(device, dt), torch.zeros(C, device=device), bias,
+            **kw)
+        parts = dict(parts)
+        parts["recompute"]()
+        core[dt] = parts["core"]
+    q, k, v = (rnd(Bw, nH, N, D).to(device, torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    mask = bias[None].expand(Bw, nH, N, N)
+    if shift:
+        m = window_mask(res, res, win, shift, Bw, 0, device)
+        mask = mask + m.repeat(Bw // m.shape[0], 1, 1)[:, None]
+    mask = mask.to(torch.bfloat16).contiguous().requires_grad_(True)
+    dout = rnd(Bw, nH, N, D).to(device, torch.bfloat16)
+    backend = None
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                y = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                   scale=D ** -0.5)
+                torch.autograd.grad(y, (q, k, v, mask), dout,
+                                    retain_graph=True)
+            backend = name
+            break
+        except RuntimeError:
+            continue
+
+    if backend is None:
+        raise RuntimeError(f"no SDPA backend ran the backward at "
+                           f"{(nH, Bw, N, D)}")
+
+    def library():
+        return torch.autograd.grad(y, (q, k, v, mask), dout,
+                                   retain_graph=True)
+
+    reps = dict(reps=3, warmup=1)
+    l1, m1, f1 = (cuda_ms(library, **reps), cuda_ms(core[torch.bfloat16],
+                                                    **reps),
+                  cuda_ms(core[torch.float32], **reps))
+    f2, m2, l2 = (cuda_ms(core[torch.float32], **reps),
+                  cuda_ms(core[torch.bfloat16], **reps),
+                  cuda_ms(library, **reps))
+    t = {}
+    tally(t, "core", (m1 + m2) / 2, (f1 + f2) / 2,
+          core_bwd_cost(nH, Bw, N, D))
+    out = dict(t["core"], shape=[nH, Bw, N, D], shift=shift,
+               fp32_cuda_core_ms=(f1 + f2) / 2, library_ms=(l1 + l2) / 2,
+               library_backend=backend, bound_by=bound_by(t["core"]))
+    del out["plain_ms"]  # the core alone has no plain version of its own
+    del q, k, v, mask, dout, y
+    return out
+
+
 def wide_core_rows(device, card: str) -> list:
     """Kernel 4 at each WIDE_CORE_ROWS shape by `time_core`, printed with
     the CUDA-core core's time at that shape and the ratios to SDPA and to
-    the bound."""
+    the bound; then kernel 6's core alone at the same shape
+    (`time_core_bwd`) beside SDPA's backward."""
     from uformer_tpu_torch.ops.kernels.attention_wide import core_windows
 
     gen = torch.Generator(device="cpu").manual_seed(22)
@@ -5365,6 +5642,16 @@ def wide_core_rows(device, card: str) -> list:
               f"MiB asked of L2 by the shapes' count, "
               f"{l2 / out['graph_ms'] / 1e9:.2f} TB/s at the graphed time  "
               f"[{card}]", flush=True)
+        bwd = time_core_bwd(nH, Bw, win, D, shift, res, device, gen)
+        out["bwd"] = bwd
+        print(f"  wide backward core {tuple(bwd['shape'])} shift {shift}: "
+              f"tensor cores {bwd['ms']:.4f} ms, CUDA cores (fp32) "
+              f"{bwd['fp32_cuda_core_ms']:.4f} ms, SDPA backward "
+              f"({bwd['library_backend']}) {bwd['library_ms']:.4f} ms, "
+              f"bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']}); "
+              f"{bwd['ms'] / bwd['library_ms']:.2f}x SDPA, "
+              f"{bwd['ms'] / bwd['bound_ms']:.1f}x its bound  [{card}]",
+              flush=True)
         rows.append(out)
         del q, k, v
     return rows
@@ -5440,7 +5727,7 @@ def wide_window_phase(tmp: Path, device, card: str) -> tuple:
     print(f"  win16 bs{WIDE_TRAIN_BATCH} {RES_TRAIN}^2 bf16 step: kernel "
           f"path {steps['kernel_ms_median']:.3f} ms, plain path "
           f"{steps['plain_ms_median']:.3f} ms, loss {steps['loss'][0]:.6f}"
-          f"  [{card}]", flush=True)
+          f"; {wide_bodies_line(steps)}  [{card}]", flush=True)
     for (drop, attn_drop), expected in WIDE_DROP_LAUNCHES.items():
         name = f"drop {drop} attn_drop {attn_drop}"
         dsteps = geometry_step_timing(
@@ -5533,10 +5820,11 @@ def timed_compare(checks: Checks, kernel: str, what: str, fused, plain,
     n = len(checks.rows)
     compare(checks, kernel, what, fused, plain, x32)
     x16 = x32.bfloat16()
-    p1, k1 = cuda_ms(lambda: plain(x16, torch.bfloat16), reps=3, warmup=1), \
-        cuda_ms(lambda: fused(x16, torch.bfloat16), reps=3, warmup=1)
-    k2, p2 = cuda_ms(lambda: fused(x16, torch.bfloat16), reps=3, warmup=1), \
-        cuda_ms(lambda: plain(x16, torch.bfloat16), reps=3, warmup=1)
+    # one call a time: both are warm at this shape from `compare`
+    p1, k1 = cuda_ms(lambda: plain(x16, torch.bfloat16), reps=1, warmup=0), \
+        cuda_ms(lambda: fused(x16, torch.bfloat16), reps=1, warmup=0)
+    k2, p2 = cuda_ms(lambda: fused(x16, torch.bfloat16), reps=1, warmup=0), \
+        cuda_ms(lambda: plain(x16, torch.bfloat16), reps=1, warmup=0)
     t = {}
     tally(t, kernel, (k1 + k2) / 2, (p1 + p2) / 2, cost)
     row = dict(t[kernel], what=what, bound_by=bound_by(t[kernel]),
@@ -5831,7 +6119,7 @@ def bwd_case(checks: Checks, kernel: str, what: str, fused, plain, shape,
     and g (`pooled_grad_bound`), run twice on the last draw (equal bits),
     then its bf16 call timed in turns with the plain VJP beside the bound
     of `cost`. fused and plain map (x, g, dtype) to the gradients' dict."""
-    runs = []
+    runs, before = [], wide_bodies_now()
     for _ in range(GEOM_DRAWS):
         x, g = xin(*shape), xin(*shape)
         runs.append([f(*a) for f, a in (
@@ -5845,6 +6133,10 @@ def bwd_case(checks: Checks, kernel: str, what: str, fused, plain, shape,
     differ = sum(a is not None and not torch.equal(a, again[k])
                  for k, a in runs[-1][3].items())
     checks.add(kernel, f"{what} repeat", float(differ), 0.0, "bits")
+    if kernel == "attention_block_bwd":
+        wide = int(shape[1] > 64)
+        wide_bwd_bodies(what, (GEOM_DRAWS + 1) * wide, GEOM_DRAWS * wide,
+                        before)
 
     def k_fn():
         return fused(x16, g16, torch.bfloat16)
@@ -5852,10 +6144,11 @@ def bwd_case(checks: Checks, kernel: str, what: str, fused, plain, shape,
     def p_fn():
         return plain(x16, g16, torch.bfloat16)
 
-    p1, k1, k2, p2 = (cuda_ms(p_fn, reps=3, warmup=1),
-                      cuda_ms(k_fn, reps=3, warmup=1),
-                      cuda_ms(k_fn, reps=3, warmup=1),
-                      cuda_ms(p_fn, reps=3, warmup=1))
+    # one call a time: both are warm at this shape from the checks
+    p1, k1, k2, p2 = (cuda_ms(p_fn, reps=1, warmup=0),
+                      cuda_ms(k_fn, reps=1, warmup=0),
+                      cuda_ms(k_fn, reps=1, warmup=0),
+                      cuda_ms(p_fn, reps=1, warmup=0))
     t = {}
     tally(t, kernel, (k1 + k2) / 2, (p1 + p2) / 2, cost)
     rows = checks.rows[n:]
@@ -5863,10 +6156,17 @@ def bwd_case(checks: Checks, kernel: str, what: str, fused, plain, shape,
     row = dict(t[kernel], what=what, bound_by=bound_by(t[kernel]),
                worst=worst["err"] / max(worst["bound"], 1e-30),
                worst_what=f"{worst['dtype']} {worst['what']}")
-    print(f"  {kernel:19s} {what:44s} worst err/bound {row['worst']:.3f}; "
-          f"bf16 kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})  [{card}]",
-          flush=True)
+    # kernel 6's pooled bf16 dbias, its check nearest the gate above
+    # window 16 (PERF.md §6)
+    dbias = [r["err"] / r["bound"] for r in rows
+             if r["what"] == f"{what} x{GEOM_DRAWS} dbias"]
+    if dbias:
+        row["dbias"] = dbias[0]
+    print(f"  {kernel:19s} {what:44s} worst err/bound {row['worst']:.3f}"
+          + (f", bf16 dbias {row['dbias']:.3f}" if dbias else "")
+          + f"; bf16 kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+          f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})  "
+          f"[{card}]", flush=True)
     return row
 
 
@@ -6076,6 +6376,7 @@ def grouped_bits(checks: Checks, what: str, fused, x, g, nH: int) -> dict:
 
     Bw, N, _ = x.shape
     x16, g16 = x.bfloat16(), g.bfloat16()
+    before = wide_bodies_now()
     one = fused(x16, g16, torch.bfloat16)
     budget = AW.DS_BUDGET
     AW.DS_BUDGET = N * N * 4
@@ -6084,6 +6385,7 @@ def grouped_bits(checks: Checks, what: str, fused, x, g, nH: int) -> dict:
         a, b = (fused(x16, g16, torch.bfloat16) for _ in range(2))
     finally:
         AW.DS_BUDGET = budget
+    wide_bwd_bodies(f"{what} grouped", 3, 0, before)
     at_budget = len(AW.ds_groups(Bw, nH, N))
     if groups < 3 or groups <= at_budget:
         raise RuntimeError(f"{what}: {groups} dS groups at the lowered "
@@ -6181,12 +6483,15 @@ def above16_kernel_checks(checks: Checks, device, card: str,
 
 
 def wide_ds_bytes(model, batch: int, side: int) -> dict:
-    """The fp32 dS of every windowed block above window 8 in one train
-    step of `model` at batch x side^2: the grouped scratch the backward
-    allocates (`attention_wide.ds_groups`) against the (Bw, nH, N, N)
-    buffer of a single group, and the groups, at the largest."""
+    """The fp32 dS of every windowed block above window 8 in one bf16
+    train step of `model` at batch x side^2: the grouped scratch the
+    backward allocates (`attention_wide.ds_groups` at the tensor-core
+    core's `bwd_core_windows`, each block's windows summed) against the
+    (Bw, nH, N, N) buffer of a single group, and the groups, at the
+    largest."""
     from uformer_tpu_torch.models.layers import LeWinBlock
     from uformer_tpu_torch.ops.kernels import attention_wide as AW
+    from uformer_tpu_torch.ops.kernels.wgrad import sm_count
 
     out = {"scratch_bytes": 0, "single_group_bytes": 0, "groups": 0,
            "budget_bytes": AW.DS_BUDGET}
@@ -6198,9 +6503,12 @@ def wide_ds_bytes(model, batch: int, side: int) -> dict:
         r = side * res[name.split(".")[0]] // res["encoderlayer_0"]
         N, nH = blk.win_size ** 2, blk.num_heads
         Bw = batch * (r // blk.win_size) ** 2
-        groups = AW.ds_groups(Bw, nH, N)
+        G = AW.bwd_core_windows(Bw, nH, N, sm_count(
+            next(model.parameters()).device))
+        groups = AW.ds_groups(Bw, nH, N, G)
         _, n, _, nh = groups[0]
-        out["scratch_bytes"] = max(out["scratch_bytes"], n * nh * N * N * 4)
+        out["scratch_bytes"] = max(out["scratch_bytes"],
+                                   -(-n // min(G, n)) * nh * N * N * 4)
         out["single_group_bytes"] = max(out["single_group_bytes"],
                                         Bw * nH * N * N * 4)
         out["groups"] = max(out["groups"], len(groups))
@@ -6687,9 +6995,9 @@ def core_entry(phases: dict, name: str, parallel: dict = None) -> dict:
     """The kernels line's core keys of kernel `name`: its core's launches
     above window 8 by body at each site of `phases` ({num: (checks,
     summary, launches)}) that counted them (`core_bodies`: phase 20's
-    kernel checks, a served request of kernel 5, and with `parallel`
-    phase 17's kernel 5 on the spatial path at windows 2-32), and each
-    body's sum."""
+    kernel checks, a served request of kernel 5, a bf16 train step's
+    kernel 6, and with `parallel` phase 17's kernel 5 on the spatial path
+    at windows 2-32), and each body's sum."""
     sites = {}
     if parallel is not None and name == "attention_block":
         sites.update((f"17 {key}", val) for key, val
@@ -6703,6 +7011,9 @@ def core_entry(phases: dict, name: str, parallel: dict = None) -> dict:
                     and "core_bodies_per_request" in val:
                 sites[f"{num} {key} request"] = \
                     val["core_bodies_per_request"][0]
+            if name == "attention_block_bwd" and isinstance(val, dict) \
+                    and "wide_bwd_bodies" in val:
+                sites[f"{num} {key} step"] = val["wide_bwd_bodies"]
     return {**{body: sum(c[body] for c in sites.values())
                for body in ("core_mma_launches", "core_fma_launches")},
             "core_bodies": sites}
@@ -6736,7 +7047,8 @@ def only_kernels(results: dict) -> list:
                          bound_ms=timed["bound_ms"],
                          bound_by=bound_by(timed),
                          library_ms=timed.get("library_ms"))
-        if name in ("window_attention", "attention_block"):
+        if name in ("window_attention", "attention_block",
+                    "attention_block_bwd"):
             entry.update(core_entry(results, name))
         kernels.append(entry)
     return kernels
@@ -7129,10 +7441,16 @@ def run(device, card: str, json_path) -> list:
                     "attention_block_bwd"):
             # windows above 8 (phases 20 and 23)
             entry["wide_source"] = "uformer_tpu_torch/csrc/attention_wide.cu"
-        if name in ("window_attention", "attention_block"):
+        if name in ("window_attention", "attention_block",
+                    "attention_block_bwd"):
             entry.update(core_entry(later, name, parallel))
         if name == "attention_block":
             entry["spatial"] = parallel["kernel5"]["rows"]
+        if name == "attention_block_bwd":
+            # its bf16 core above window 8 alone, beside SDPA's backward
+            entry["wide_bwd_source"] = \
+                "uformer_tpu_torch/csrc/wide_core_bwd_mma.cuh"
+            entry["wide_core_rows"] = [c["bwd"] for c in wide["core_rows"]]
         if name == "window_attention":
             entry["on_path"] = ("no model path calls it (nor in the JAX "
                                 "package); its bf16 register core "

@@ -40,7 +40,11 @@
 //     heads (the caller's pointers offset to the group's first window and
 //     head, w_off its first window's place), which colsum folds into
 //     dbias group after group in a fixed order: the fp32 scratch is
-//     bounded by the caller's budget, not by Bw nH N^2;
+//     bounded by the caller's budget, not by Bw nH N^2. That is the fp32
+//     core, on the CUDA cores; bf16 runs the tensor-core core
+//     (wide_core_bwd_mma.cuh, attention_wide_bwd_mma.cu: the forward's core
+//     for O and the statistics, then dq and dk | dv at JAX's rounding
+//     points, dS summed over each block's windows before it leaves);
 //     dxm = [dq | dk | dv] [Wq | Wkv]^T out in fp32;
 //     the LayerNorm VJP on that fp32 dxm (JAX's dtok) per token
 //     (wide_ln_bwd, with fixed per-block dln partials); dmod is colsum of
@@ -53,10 +57,11 @@
 // small D the bias table's bytes and the softmax's exp and fp32
 // arithmetic weigh as much as the products (wide_core_mma.cuh says what
 // its design does about each). The projections are bound by operations
-// from C 64 on and run on the tensor cores in bf16. The backward's cores
-// (wide_core_bwd_q, wide_core_bwd_kv) still compute on the CUDA cores in
-// fp32 (operands rounded as the working dtype holds them), a simple body
-// that is right first: its times stand beside the bound in PERF.md.
+// from C 64 on and run on the tensor cores in bf16. The backward's fp32
+// cores (wide_core_bwd_q, wide_core_bwd_kv) compute on the CUDA cores, a
+// simple body whose checks hold at 1e-4; bf16 takes the tensor-core
+// backward (wide_core_bwd_mma.cuh), whose times stand beside the bound in
+// PERF.md.
 #include "common.cuh"
 #include "mma_tile.cuh"
 #include "wide_core_mma.cuh"
@@ -767,8 +772,8 @@ static int core_fwd_mma(const bf16* q, const bf16* k, const bf16* v,
       a.N % 4 == 0 && reinterpret_cast<uintptr_t>(a.bias) % 16 == 0;
   const long long blocks =
       (long long)((a.Bw + G - 1) / G) * a.nH * ((a.N + kR - 1) / kR);
-  wide_core_mma<D><<<(unsigned)blocks, 128 * G, smem, s>>>(q, k, v, out, a,
-                                                           G, bias16);
+  wide_core_mma<D><<<(unsigned)blocks, 128 * G, smem, s>>>(
+      q, k, v, out, a, G, bias16, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -822,20 +827,20 @@ static int core_fwd_d(int D, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
+// fp32 only: bf16 runs attention_wide_bwd_mma.cu
 static int core_bwd_d(int D, const void* qkv, void* o_tok, const BwdArgs& b,
                       cudaStream_t s) {
-  auto Q = static_cast<const T*>(qkv);
-  auto O = static_cast<T*>(o_tok);
+  auto Q = static_cast<const float*>(qkv);
+  auto O = static_cast<float*>(o_tok);
   switch (D) {
-    case 8: return core_bwd<T, 8>(Q, O, b, s);
-    case 16: return core_bwd<T, 16>(Q, O, b, s);
-    case 24: return core_bwd<T, 24>(Q, O, b, s);
-    case 32: return core_bwd<T, 32>(Q, O, b, s);
-    case 40: return core_bwd<T, 40>(Q, O, b, s);
-    case 48: return core_bwd<T, 48>(Q, O, b, s);
-    case 56: return core_bwd<T, 56>(Q, O, b, s);
-    case 64: return core_bwd<T, 64>(Q, O, b, s);
+    case 8: return core_bwd<float, 8>(Q, O, b, s);
+    case 16: return core_bwd<float, 16>(Q, O, b, s);
+    case 24: return core_bwd<float, 24>(Q, O, b, s);
+    case 32: return core_bwd<float, 32>(Q, O, b, s);
+    case 40: return core_bwd<float, 40>(Q, O, b, s);
+    case 48: return core_bwd<float, 48>(Q, O, b, s);
+    case 56: return core_bwd<float, 56>(Q, O, b, s);
+    case 64: return core_bwd<float, 64>(Q, O, b, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -966,17 +971,18 @@ int uf_wide_core(int is_bf16, const void* q, const void* k, const void* v,
                  : wide::core_fwd_d<float>(D, q, k, v, out, a, G, s);
 }
 
-// The backward core of the block on Bw windows and nH heads of rows C
-// wide: qkv (Bw N, 3C) rows of q | k | v; dO (Bw N, C) fp32; each pointer
-// (and bias, (nH, N, N) of its heads) at the group's first window and
-// head, w_off the first window's place in its image. Writes o_tok (Bw N,
-// C), dqkv (Bw N, 3C) = dq | dk | dv (dq and dk with the scale) in those
-// heads' columns, ds (Bw, nH, N, N) fp32 and stats (Bw, nH, N, 2).
-int uf_wide_core_bwd(int is_bf16, const void* qkv, const float* dO,
-                     const float* bias, void* o_tok, void* dqkv, float* ds,
-                     float* stats, int Bw, int nH, int N, int D, int C,
-                     int H, int W, int win, int shift, int w_off,
-                     float scale, void* stream) {
+// The fp32 backward core of the block (bf16: uf_wide_core_bwd_mma) on Bw
+// windows and nH heads of rows C wide: qkv (Bw N, 3C) rows of q | k | v;
+// dO (Bw N, C) fp32; each pointer (and bias, (nH, N, N) of its heads) at
+// the group's first window and head, w_off the first window's place in
+// its image. Writes o_tok (Bw N, C), dqkv (Bw N, 3C) = dq | dk | dv (dq
+// and dk with the scale) in those heads' columns, ds (Bw, nH, N, N) fp32
+// and stats (Bw, nH, N, 2).
+int uf_wide_core_bwd(const void* qkv, const float* dO, const float* bias,
+                     void* o_tok, void* dqkv, float* ds, float* stats,
+                     int Bw, int nH, int N, int D, int C, int H, int W,
+                     int win, int shift, int w_off, float scale,
+                     void* stream) {
   wide::BwdArgs b;
   // the fp32 logits scaled, from the unscaled q, as JAX's backward kernel
   // takes them (attention_block.py:674-678)
@@ -988,9 +994,8 @@ int uf_wide_core_bwd(int is_bf16, const void* qkv, const float* dO,
   b.ds = ds;
   b.stats = stats;
   b.dqkv = dqkv;
-  auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? wide::core_bwd_d<bf16>(D, qkv, o_tok, b, s)
-                 : wide::core_bwd_d<float>(D, qkv, o_tok, b, s);
+  return wide::core_bwd_d(D, qkv, o_tok, b,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // dx (M, C) from the fp32 dxm (M, C): the LayerNorm VJP with has_ln (its

@@ -44,6 +44,12 @@
 // (tests/test_torch_port_wide_core_mma.py) holds them within the bf16
 // gates; PERF.md gives the ratios.
 //
+// With STATS (the backward's first pass, wide_core_bwd_mma.cuh) it also
+// writes each live row's statistics as a float4 (m log2 e, 1 / l,
+// rowsum(dO O), 0) at stats[(w nH + h) N + i]: the row max and sum of the
+// same exponentials, and JAX's rowsum(dP P) taken from the fp32 O before
+// its rounding and from dO (bf16, at O's strides).
+//
 // What bounds it on the H100: 4 N^2 D operations a (window, head) against
 // 8 N D bytes of q, k, v and O: operations from N 256 on at D 32 (the
 // tensor cores' 989 TFLOP/s); the softmax's exp and its fp32 arithmetic
@@ -130,16 +136,102 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// The 64 x 64 fp32 bias block of head h, rows i0.., columns j0.., into
+// `bs` (row stride ldb), zero past N: 16-byte copies where the rows allow
+// them (bias16), else 4-byte ones. Part of the caller's cp.async group.
+__device__ __forceinline__ void load_bias_block(float* bs, int ldb,
+                                                const CoreArgs& a, int h,
+                                                int i0, int j0, int bias16) {
+  const int N = a.N, tid = threadIdx.x, nthr = blockDim.x;
+  if (bias16) {
+    for (int idx = tid; idx < kR * kR / 4; idx += nthr) {
+      const int r = idx / (kR / 4), c4 = (idx % (kR / 4)) * 4;
+      const int i = i0 + r, j = j0 + c4;
+      const bool ok = i < N && j < N;
+      cp_async16(bs + r * ldb + c4,
+                 a.bias + (ok ? ((size_t)h * N + i) * N + j : 0), ok);
+    }
+  } else {
+    for (int idx = tid; idx < kR * kR; idx += nthr) {
+      const int r = idx / kR, cc = idx % kR, i = i0 + r, j = j0 + cc;
+      const bool ok = i < N && j < N;
+      cp_async4(bs + r * ldb + cc,
+                a.bias + (ok ? ((size_t)h * N + i) * N + j : 0), ok);
+    }
+  }
+}
+
+// 64 rows from t0 of one operand (bf16, D wide, at view `vw`) of the G
+// windows from w0 into the tiles tile(gg) (row stride ldk), zero-filled
+// past N and Bw. Part of the caller's cp.async group.
+template <int D, typename F>
+__device__ __forceinline__ void load_rows_mma(F tile, int ldk,
+                                              const bf16* src, const View& vw,
+                                              const CoreArgs& a, int G,
+                                              int w0, int h, int t0) {
+  constexpr int P8 = D / 8;
+  for (int idx = threadIdx.x; idx < G * kR * P8; idx += blockDim.x) {
+    const int gg = idx / (kR * P8), r = (idx / P8) % kR, p = idx % P8;
+    const int t = t0 + r;
+    const bool ok = w0 + gg < a.Bw && t < a.N;
+    cp_async16(tile(gg) + r * ldk + 8 * p,
+               src + (ok ? vw.at(w0 + gg, h, t) + 8 * p : 0), ok);
+  }
+}
+
+// acc[8][4] += A[16 x D] B^T, A's 16 rows at `arow` (lane & 15's row of a
+// 16-row slice, ldmatrix-ready), B a 64 x D tile stored row-major (N x K).
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const bf16* arow,
+                                        const bf16* B, int ldk) {
+  constexpr int KF = D / 16, TAIL = D % 16;
+  const int lane = threadIdx.x & 31;
+  if constexpr (KF > 0) {
+    uint32_t fa[KF][4];
+#pragma unroll
+    for (int ks = 0; ks < KF; ++ks)
+      ldsm_x4(fa[ks], arow + ks * 16 + (lane >> 4) * 8);
+    warp_mma_ra<8, KF, true>(acc, fa, B, ldk);
+  }
+  if constexpr (TAIL != 0) {  // the k8 tail: one m16k8 fragment
+    uint32_t r2[2];
+    ldsm_x2(r2, arow + KF * 16);
+    const uint32_t t8[4] = {r2[0], r2[1], 0u, 0u};
+    warp_mma_ra8<8, true>(acc, t8, B + KF * 16, ldk);
+  }
+}
+
+// Whether the window at place wl of the image mixes regions: shifted,
+// in the image's last row or column of windows.
+__device__ __forceinline__ bool mixes_regions(const CoreArgs& a, int wl) {
+  const int nWw = a.W / a.win;
+  return a.shift && ((wl / nWw) * a.win >= a.H - a.win ||
+                     (wl % nWw) * a.win >= a.W - a.win);
+}
+
+// The region ids of tokens t0 .. t0 + 63 of the G windows from w0 into
+// dst[gg 64 + t], -1 past N and Bw: plain stores, read after the caller's
+// next barrier.
+__device__ __forceinline__ void stage_regions(int* dst, const CoreArgs& a,
+                                              int G, int w0, int t0) {
+  const int nW = (a.H / a.win) * (a.W / a.win);
+  for (int idx = threadIdx.x; idx < G * kR; idx += blockDim.x) {
+    const int gg = idx / kR, t = t0 + idx % kR;
+    dst[idx] = w0 + gg < a.Bw && t < a.N
+                   ? region((a.w_off + w0 + gg) % nW, t, a.H, a.W, a.win,
+                            a.shift)
+                   : -1;
+  }
+}
+
 // Block (t, h, wg): query tile t, head h, windows wg G .. wg G + G - 1
 // (tiles fastest, so neighbouring blocks share a window's K and V).
-template <int D>
+template <int D, bool STATS = false>
 __global__ void __launch_bounds__(32 * 4 * kMmaMaxG, 1)
     wide_core_mma(const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                  CoreArgs a, int G, int bias16) {
+                  CoreArgs a, int G, int bias16, const bf16* dO,
+                  float4* stats) {
   using L = MmaCore<D>;
-  constexpr int KF = D / 16;   // k16 steps of q k^T
-  constexpr int TAIL = D % 16; // 8: one m16n8k8 step after them
-  constexpr int P8 = D / 8;    // 16-byte pieces of a q, k or v row
   extern __shared__ __align__(128) unsigned char smem[];
   float* Bs = reinterpret_cast<float*>(smem);
   bf16* tiles = reinterpret_cast<bf16*>(smem + 2 * L::bias_stage);
@@ -160,58 +252,25 @@ __global__ void __launch_bounds__(32 * 4 * kMmaMaxG, 1)
   const int g = warp >> 2, r0 = (warp & 3) * 16;  // window, first row
   const int w = w0 + g;
   const bool live = w < a.Bw;
-  const int nW = (a.H / a.win) * (a.W / a.win), nWw = a.W / a.win;
+  const int nW = (a.H / a.win) * (a.W / a.win);
   const int chunks = (N + kR - 1) / kR;
 
   // K, V and the bias block of chunk c into stage st, one cp.async group;
   // then (plain stores, read after the next barriers) the key region ids
   auto load_chunk = [&](int c, int st) {
     const int j0 = c * kR;
-    for (int idx = tid; idx < G * kR * P8; idx += nthr) {
-      const int gg = idx / (kR * P8), r = (idx / P8) % kR, p = idx % P8;
-      const int j = j0 + r;
-      const bool ok = w0 + gg < a.Bw && j < N;
-      const size_t off = ok ? a.in.at(w0 + gg, h, j) + 8 * p : 0;
-      cp_async16(KVs(gg, 0, st) + r * L::ldk + 8 * p, k + off, ok);
-      cp_async16(KVs(gg, 1, st) + r * L::ldk + 8 * p, v + off, ok);
-    }
-    float* bs = Bs + (size_t)st * kR * L::ldb;
-    if (bias16) {
-      for (int idx = tid; idx < kR * kR / 4; idx += nthr) {
-        const int r = idx / (kR / 4), c4 = (idx % (kR / 4)) * 4;
-        const int i = i0 + r, j = j0 + c4;
-        const bool ok = i < N && j < N;
-        cp_async16(bs + r * L::ldb + c4,
-                   a.bias + (ok ? ((size_t)h * N + i) * N + j : 0), ok);
-      }
-    } else {
-      for (int idx = tid; idx < kR * kR; idx += nthr) {
-        const int r = idx / kR, cc = idx % kR, i = i0 + r, j = j0 + cc;
-        const bool ok = i < N && j < N;
-        cp_async4(bs + r * L::ldb + cc,
-                  a.bias + (ok ? ((size_t)h * N + i) * N + j : 0), ok);
-      }
-    }
+    load_rows_mma<D>([&](int gg) { return KVs(gg, 0, st); }, L::ldk, k,
+                     a.in, a, G, w0, h, j0);
+    load_rows_mma<D>([&](int gg) { return KVs(gg, 1, st); }, L::ldk, v,
+                     a.in, a, G, w0, h, j0);
+    load_bias_block(Bs + (size_t)st * kR * L::ldb, L::ldb, a, h, i0, j0,
+                    bias16);
     cp_async_commit();
-    if (a.shift)
-      for (int idx = tid; idx < G * kR; idx += nthr) {
-        const int gg = idx / kR, t = idx % kR, j = j0 + t;
-        rk[(st * G + gg) * kR + t] =
-            w0 + gg < a.Bw && j < N
-                ? region((a.w_off + w0 + gg) % nW, j, a.H, a.W, a.win,
-                         a.shift)
-                : -1;
-      }
+    if (a.shift) stage_regions(rk + st * G * kR, a, G, w0, j0);
   };
 
   // the q tiles join chunk 0's group
-  for (int idx = tid; idx < G * kR * P8; idx += nthr) {
-    const int gg = idx / (kR * P8), r = (idx / P8) % kR, p = idx % P8;
-    const int i = i0 + r;
-    const bool ok = w0 + gg < a.Bw && i < N;
-    cp_async16(Qs(gg) + r * L::ldk + 8 * p,
-               q + (ok ? a.in.at(w0 + gg, h, i) + 8 * p : 0), ok);
-  }
+  load_rows_mma<D>(Qs, L::ldk, q, a.in, a, G, w0, h, i0);
   load_chunk(0, 0);
   if (chunks > 1) load_chunk(1, 1);
 
@@ -219,8 +278,7 @@ __global__ void __launch_bounds__(32 * 4 * kMmaMaxG, 1)
   // whether the window mixes regions (the image's last row or column of
   // windows, shifted)
   const int wl = (a.w_off + w) % nW;
-  const bool mixed = a.shift && ((wl / nWw) * a.win >= a.H - a.win ||
-                                 (wl % nWw) * a.win >= a.W - a.win);
+  const bool mixed = mixes_regions(a, wl);
   int rq[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -257,19 +315,7 @@ __global__ void __launch_bounds__(32 * 4 * kMmaMaxG, 1)
       const bf16* ks_ = KVs(g, 0, st);
       float s[8][4];
       zero_acc(s);
-      if constexpr (KF > 0) {  // q's A fragments, read again each chunk
-        uint32_t qa[KF][4];
-#pragma unroll
-        for (int ks = 0; ks < KF; ++ks)
-          ldsm_x4(qa[ks], qrow + ks * 16 + (lane >> 4) * 8);
-        warp_mma_ra<8, KF, true>(s, qa, ks_, L::ldk);
-      }
-      if constexpr (TAIL != 0) {  // the k8 tail: one m16k8 fragment
-        uint32_t r2[2];
-        ldsm_x2(r2, qrow + KF * 16);
-        const uint32_t qt8[4] = {r2[0], r2[1], 0u, 0u};
-        warp_mma_ra8<8, true>(s, qt8, ks_ + KF * 16, L::ldk);
-      }
+      mma_abt<D>(s, qrow, ks_, L::ldk);  // q's fragments read each chunk
       const float* brow =
           Bs + ((size_t)st * kR + r0 + gq) * L::ldb + 2 * t4;
       const int* rkc = rk + (st * G + g) * kR + 2 * t4;
@@ -337,6 +383,28 @@ __global__ void __launch_bounds__(32 * 4 * kMmaMaxG, 1)
     t += __shfl_xor_sync(0xffffffffu, t, 1);
     t += __shfl_xor_sync(0xffffffffu, t, 2);
     inv[hh] = 1.0f / t;
+  }
+  if constexpr (STATS) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = i0 + r0 + gq + 8 * hh;
+      float dsum = 0.f;
+      if (i < N) {
+        const bf16* drow = dO + a.out.at(w, h, i) + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          const float2 d2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(drow + 8 * n));
+          dsum = fmaf(o[n][2 * hh] * inv[hh], d2.x, dsum);
+          dsum = fmaf(o[n][2 * hh + 1] * inv[hh], d2.y, dsum);
+        }
+      }
+      dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+      dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
+      if (i < N && t4 == 0)
+        stats[((size_t)w * a.nH + h) * N + i] =
+            make_float4(m[hh] * kLog2e, inv[hh], dsum, 0.f);
+    }
   }
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {

@@ -3,8 +3,8 @@ its plain PyTorch version.
 
 Every wrapper counts its kernel launches (`wrapper.launches`) and, apart,
 the calls it answered with the plain version (`wrapper.plain_calls`),
-which it takes for a CPU tensor only; kernels 4 and 5 also count their
-core's launches above window 8 by body (`core_counts`); `reset_counts`
+which it takes for a CPU tensor only; kernels 4, 5 and 6 also count
+their core's launches above window 8 by body (`core_counts`); `reset_counts`
 zeroes every count. Importing this package builds nothing: the CUDA
 library is built at the first launch (`_build.load`).
 The `*_ad` functions are the differentiable forms: their backward is the
@@ -57,7 +57,8 @@ WRAPPERS = {"stage": fused_stage, "attention_image": fused_attention_image,
             "attention_block": fused_attention_block,
             "dwconv3x3": dwconv3x3, "dwconv3x3_qkv": dwconv3x3_qkv}
 # the wrappers whose wide core (above window 8) has two bodies
-CORE_WRAPPERS = ("window_attention", "attention_block")
+CORE_WRAPPERS = ("window_attention", "attention_block",
+                 "attention_block_bwd")
 CORE_BODIES = ("core_mma_launches", "core_fma_launches")
 
 
@@ -79,8 +80,8 @@ def plain_counts() -> dict:
 
 
 def core_counts() -> dict:
-    """{kernel: {body: launches}} of kernels 4 and 5's core above window
-    8: `core_mma_launches` (bf16, tensor cores) and `core_fma_launches`
-    (fp32, CUDA cores)."""
+    """{kernel: {body: launches}} of kernels 4, 5 and 6's core above
+    window 8: `core_mma_launches` (bf16, tensor cores) and
+    `core_fma_launches` (fp32, CUDA cores)."""
     return {name: {body: getattr(WRAPPERS[name], body)
                    for body in CORE_BODIES} for name in CORE_WRAPPERS}

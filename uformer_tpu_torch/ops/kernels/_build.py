@@ -62,7 +62,8 @@ _SIGNATURES = {
                     + [_P],
     "uf_wide_core": [_I] + [_P] * 3 + [_I] * 3 + [_P] * 2 + [_I] * 12
                     + [_F, _I, _I, _P],
-    "uf_wide_core_bwd": [_I] + [_P] * 7 + [_I] * 10 + [_F, _P],
+    "uf_wide_core_bwd": [_P] * 7 + [_I] * 10 + [_F, _P],
+    "uf_wide_core_bwd_mma": [_P] * 7 + [_I] * 10 + [_F, _I, _I, _P],
     "uf_wide_ln_bwd": [_I] + [_P] * 5 + [_I] * 5 + [_P],
     "uf_error_string": [_I],
 }

@@ -30,7 +30,8 @@ windows 1-8, both ways, and `attention_wide` above. Windows above 8 (N
 `attention_wide`: the projections over 64-row tiles of tokens, the core
 with a key-chunked online softmax, both ways, at every head dim of
 `HEAD_DIMS`; the backward holds dS for a bounded group of windows at a
-time (`DS_BUDGET`).
+time (`DS_BUDGET`), its bf16 core on the tensor cores
+(`csrc/wide_core_bwd_mma.cuh`), its fp32 core on the CUDA cores.
 
 Its backward, `fused_attention_block_bwd`, is the port of
 `attention_block.py:fused_attention_block_bwd` in its own layout (kernel
@@ -456,7 +457,8 @@ def attention_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
         return wide_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv,
                                     wo, bias, win=win, shift=shift, H=H, W=W,
                                     scale=scale, num_heads=num_heads,
-                                    has_ln=has_ln)
+                                    has_ln=has_ln,
+                                    count=fused_attention_block_bwd)
     mod, bias = packed_operands(mod, bias, N)
 
     def launch(lib, is_bf16, wn, hpb, *ptrs):
@@ -472,6 +474,10 @@ def attention_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
 
 fused_attention_block_bwd.launches = 0
 fused_attention_block_bwd.plain_calls = 0
+# launches above window 8 by the core's body (`attention_wide`'s
+# `wide_block_bwd_parts`)
+fused_attention_block_bwd.core_mma_launches = 0
+fused_attention_block_bwd.core_fma_launches = 0
 
 
 class _AttentionBlock(torch.autograd.Function):

@@ -11,13 +11,18 @@ in bf16 on the tensor cores, `csrc/wide_core_mma.cuh`, `core_windows`
 windows a block sharing each staged bias block; in fp32 `wide_core_fwd`
 on the CUDA cores, the bias read per chunk; each launch counted on its
 wrapper by body, `core_mma_launches` or `core_fma_launches`), the output
-projection; the backward recomputes q, k and v, runs the core's VJP
-without atomics (`wide_core_bwd_q`, `wide_core_bwd_kv`) over groups of
+projection; the backward recomputes q, k, v and dO = g Wo^T (in the
+working dtype), runs the core's VJP without atomics over groups of
 windows (and, where one window's heads pass the budget, of heads) whose
 fp32 dS fits `DS_BUDGET` (`ds_groups`), folding each group's dS into
-dbias in a fixed order (one group: the whole batch at once), dxm and the
-LayerNorm VJP on the fp32 dxm, and reduces the weight, bias, modulator
-and LayerNorm gradients by `csrc/wgrad.cu` (`wgrad`, `colsum`) in a fixed
+dbias in a fixed order (one group: the whole batch at once): in bf16 on
+the tensor cores (`csrc/wide_core_bwd_mma.cuh`: the forward's core for O
+and the row statistics, then dq and dk | dv at JAX's rounding points,
+`bwd_core_windows` windows a block whose dS leaves summed), in fp32 on
+the CUDA cores (`wide_core_bwd_q`, `wide_core_bwd_kv`), each launch
+counted by body on `count` as the forward's; then dxm and the LayerNorm
+VJP on the fp32 dxm, and reduces the weight, bias, modulator and
+LayerNorm gradients by `csrc/wgrad.cu` (`wgrad`, `colsum`) in a fixed
 order. Each is called by its kernel's wrapper (`fused_window_attention`,
 `fused_attention_block`, `fused_attention_block_bwd`) on CUDA tensors
 only, after the wrapper's checks; the plain versions are the wrappers'.
@@ -41,6 +46,7 @@ ROWS = 64  # query rows of a core block, keys of a chunk
 # windows a block of the bf16 core: 4 at head dims 56-64, 2 below
 # (`core_windows`)
 MMA_WIDE_HEADS = 56
+BWD_MAX_G = 2  # windows a block of the bf16 backward's dq and dk | dv passes
 
 def core_windows(Bw: int, nH: int, N: int, D: int, sms: int) -> int:
     """Windows G a block of the bf16 core (four warps a window): 4 at head
@@ -59,6 +65,21 @@ def core_windows(Bw: int, nH: int, N: int, D: int, sms: int) -> int:
     return G
 
 
+def bwd_core_windows(Bw: int, nH: int, N: int, sms: int) -> int:
+    """Windows G a block of the bf16 backward's dq and dk | dv passes
+    (four warps a window; their accumulators take up to 255 registers a
+    thread, so at most BWD_MAX_G windows): BWD_MAX_G, halved while the
+    grid (nH ceil(N / 64) ceil(Bw / G) blocks) has fewer blocks than the
+    `sms` SMs, and never above Bw. A block stages each bias block once for
+    its G windows and sums their dS before it leaves, so the dS scratch
+    and colsum's read shrink G times."""
+    tiles = -(-N // ROWS)
+    G = BWD_MAX_G
+    while G > 1 and (G > Bw or nH * tiles * -(-Bw // G) < sms):
+        G //= 2
+    return G
+
+
 def check_int32(**sizes: int) -> None:
     """Raise before any launch where a size passes the kernels' 32-bit
     indices, naming it."""
@@ -68,19 +89,21 @@ def check_int32(**sizes: int) -> None:
                              f"kernels' 32-bit index ({INT_MAX})")
 
 
-def ds_groups(Bw: int, nH: int, N: int):
+def ds_groups(Bw: int, nH: int, N: int, G: int = 1):
     """The backward core's groups, in the order their dS folds into
     dbias: (first window, windows, first head, heads), each group's fp32
-    dS (windows x heads x N² floats) within DS_BUDGET where one head of
-    one window fits it. Every head of as many windows as fit; where one
-    window's heads do not, one window at a time in groups of heads."""
+    dS (ceil(windows / G) x heads x N² floats: G windows a block summed
+    before they leave) within DS_BUDGET where one head of one window fits
+    it. Every head of as many windows as fit (a multiple of G, but for
+    the last group); where one window's heads do not, one window at a
+    time in groups of heads."""
     per_head = N * N * 4
     heads = max(1, min(nH, DS_BUDGET // per_head))
     if heads < nH:
         return [(w0, 1, h0, min(heads, nH - h0)) for w0 in range(Bw)
                 for h0 in range(0, nH, heads)]
-    G = max(1, min(Bw, DS_BUDGET // (nH * per_head)))
-    return [(w0, min(G, Bw - w0), 0, nH) for w0 in range(0, Bw, G)]
+    n = max(1, min(Bw, G * (DS_BUDGET // (nH * per_head))))
+    return [(w0, min(n, Bw - w0), 0, nH) for w0 in range(0, Bw, n)]
 
 
 def _bf16(t: torch.Tensor) -> int:
@@ -195,23 +218,30 @@ def wide_attention_block(x, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bo, bias,
 
 
 def wide_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
-                         *, win, shift, H, W, scale, num_heads, has_ln):
+                         *, win, shift, H, W, scale, num_heads, has_ln,
+                         count):
     """Kernel 6 at N > 64, unrun, as `attention_bwd_parts` returns it:
     ([(name, run)], result). The parts: "recompute" (xm, q | k | v, dO =
-    g Wo^T in fp32), "core" (O, dq | dk | dv and dbias: per `ds_groups`
-    group its dS into a scratch of at most DS_BUDGET bytes, folded into
-    dbias by colsum), "dxm" (dxm = dqkv [Wq | Wkv]^T in fp32, then dx by
-    the LayerNorm VJP), the two weight gradients by `wgrad`, and "colsum"
-    (dmod over windows, dln over the VJP's blocks)."""
+    g Wo^T in the working dtype), "core" (O, dq | dk | dv and dbias: per
+    `ds_groups` group its dS into a scratch of at most DS_BUDGET bytes,
+    folded into dbias by colsum; bf16 on the tensor cores, its launch
+    counted in `count.core_mma_launches`, fp32 on the CUDA cores in
+    `count.core_fma_launches`), "dxm" (dxm = dqkv [Wq | Wkv]^T in fp32,
+    then dx by the LayerNorm VJP), the two weight gradients by `wgrad`,
+    and "colsum" (dmod over windows, dln over the VJP's blocks)."""
     Bw, N, C = x.shape
     D = C // num_heads
     if C > MAX_C:
         raise ValueError(f"backward kernel at windows above 8 needs C <= "
                          f"{MAX_C}: C={C}")
-    groups = ds_groups(Bw, num_heads, N)
+    bf16 = x.dtype == torch.bfloat16
+    sms = sm_count(x.device)
+    G = bwd_core_windows(Bw, num_heads, N, sms) if bf16 else 1
+    groups = ds_groups(Bw, num_heads, N, G)
+    _, n0, _, hg = groups[0]  # the largest group
+    ds_rows = -(-n0 // min(G, n0))  # its dS rows
     check_int32(tokens=Bw * N, blocks=Bw * num_heads * -(-N // ROWS),
-                window_stride=N * 3 * C,
-                ds_row=groups[0][1] * groups[0][3] * N * N)
+                window_stride=N * 3 * C, ds_row=ds_rows * hg * N * N)
     lib = load()
     dev, dt, f32 = x.device, x.dtype, torch.float32
     M = Bw * N
@@ -223,36 +253,48 @@ def wide_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
     def recompute():
         buf["xm"] = _xm(lib, x, mod, ln_s, ln_b, has_ln, stream)
         buf["qkv"] = qkv = _qkv(lib, buf["xm"], wq, bq, wkv, bkv, stream)
-        buf["do"] = do = torch.empty(M, C, dtype=f32, device=dev)
+        # dO in the working dtype: JAX's dog_h, rounded once (bf16)
+        buf["do"] = do = torch.empty(M, C, dtype=dt, device=dev)
         _gemm(lib, g.view(-1, C), wo, None, do, b_trans=True, stream=stream)
-
-    _, G, _, hg = groups[0]  # the largest group
 
     def core():
         buf["o"] = o = torch.empty(M, C, dtype=dt, device=dev)
         buf["dqkv"] = dqkv = torch.empty(M, 3 * C, dtype=dt, device=dev)
-        buf["ds"] = ds = torch.empty(G * hg * N * N, dtype=f32, device=dev)
-        buf["stats"] = stats = torch.empty(G * hg * N * 2, dtype=f32,
-                                           device=dev)
+        buf["ds"] = ds = torch.empty(ds_rows * hg * N * N, dtype=f32,
+                                     device=dev)
+        # bf16: a float4 a row (m log2 e, 1 / l, rowsum(dO O), 0); fp32:
+        # the row max and sum
+        buf["stats"] = stats = torch.empty(n0 * hg * N * (4 if bf16 else 2),
+                                           dtype=f32, device=dev)
         buf["dbias"] = dbias = (torch.empty(num_heads * N * N, dtype=f32,
                                             device=dev)
                                 if len(groups) > 1 else None)
         for w0, n, h0, nh in groups:
             t0, c0 = w0 * N, h0 * D  # first token, first head's column
-            err = lib.uf_wide_core_bwd(
-                _bf16(x), _at(buf["qkv"], t0 * 3 * C + c0),
-                _at(buf["do"], t0 * C + c0), _at(bias, h0 * N * N),
-                _at(o, t0 * C + c0), _at(dqkv, t0 * 3 * C + c0),
-                ds.data_ptr(), stats.data_ptr(), n, nh, N, D, C, H, W, win,
-                shift, w0, float(scale), stream)
+            ptrs = (_at(buf["qkv"], t0 * 3 * C + c0),
+                    _at(buf["do"], t0 * C + c0), _at(bias, h0 * N * N),
+                    _at(o, t0 * C + c0), _at(dqkv, t0 * 3 * C + c0),
+                    ds.data_ptr(), stats.data_ptr(), n, nh, N, D, C, H, W,
+                    win, shift, w0, float(scale))
+            gn = min(G, n)  # a group of one window takes one a block
+            if bf16:
+                err = lib.uf_wide_core_bwd_mma(
+                    *ptrs, gn, core_windows(n, nh, N, D, sms), stream)
+            else:
+                err = lib.uf_wide_core_bwd(*ptrs, stream)
             _launch.check(err, "attention_wide backward core kernel")
-            part = colsum(ds[:n * nh * N * N].view(n, nh * N * N))
+            rows = -(-n // gn)
+            part = colsum(ds[:rows * nh * N * N].view(rows, nh * N * N))
             if dbias is None:
                 buf["dbias"] = part
             elif w0 == 0:
                 dbias[h0 * N * N:(h0 + nh) * N * N].copy_(part)
             else:
                 dbias[h0 * N * N:(h0 + nh) * N * N].add_(part)
+        if bf16:
+            count.core_mma_launches += 1
+        else:
+            count.core_fma_launches += 1
 
     def dxm():
         buf["dxm"] = dxm_ = torch.empty(M, C, dtype=f32, device=dev)

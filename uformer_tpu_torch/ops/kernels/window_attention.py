@@ -40,13 +40,12 @@ from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 
 from uformer_tpu_torch.ops.kernels import _launch
 from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.kernels.attention_wide import wide_window_attention
-from uformer_tpu_torch.ops.masks import shift_window_mask
+from uformer_tpu_torch.ops.masks import NEG_BIAS, shift_window_regions
 
 # kernels 1, 3, 5 and 6, forward and backward (and kernels 2 and 7 at
 # their widths): every multiple of 8 up to 64
@@ -168,12 +167,16 @@ def window_mask(H: int, W: int, win: int, shift: int, n: int, w_off: int,
     """The SW-MSA mask of n windows whose first lies at place w_off of the
     H x W image's nW windows (row-major, wrapping): the image's (nW, win²,
     win²) mask when the n windows are whole images from place 0, which
-    `ops.attention.window_attention` tiles, else one per window."""
-    mask = shift_window_mask(H, W, win, shift)
-    nW = mask.shape[0]
+    `ops.attention.window_attention` tiles, else one per window. Built on
+    `device` from the windows' region ids (`shift_window_mask`'s values)."""
+    region = torch.from_numpy(shift_window_regions(H, W, win, shift)).to(
+        device)
+    nW = region.shape[0]
     if n % nW or w_off % nW:
-        mask = mask[(w_off + np.arange(n)) % nW]
-    return torch.from_numpy(mask).to(device)
+        region = region[(w_off + torch.arange(n, device=device)) % nW]
+    differ = region[:, None, :] != region[:, :, None]
+    return torch.zeros(differ.shape, dtype=torch.float32,
+                       device=device).masked_fill_(differ, NEG_BIAS)
 
 
 def window_attention_reference(q, k, v, bias, *, win, shift, H, W, scale):

@@ -20,6 +20,15 @@ NEG_BIAS = -100.0
 def shift_window_mask(H: int, W: int, win: int, shift: int) -> np.ndarray:
     """Additive SW-MSA mask, shape (nW, win*win, win*win), float32: the
     9-region construction of the reference, partitioned into windows."""
+    r = shift_window_regions(H, W, win, shift)
+    diff = r[:, None, :] - r[:, :, None]
+    return np.where(diff != 0, np.float32(NEG_BIAS), np.float32(0.0))
+
+
+def shift_window_regions(H: int, W: int, win: int,
+                         shift: int) -> np.ndarray:
+    """The pre-shift region of each token of each window, (nW, win*win)
+    int32: two tokens may attend to each other where theirs are equal."""
     if not 0 < shift < win:
         raise ValueError(f"shift={shift} must lie in (0, {win})")
     region = np.zeros((H, W), dtype=np.int32)
@@ -31,9 +40,7 @@ def shift_window_mask(H: int, W: int, win: int, shift: int) -> np.ndarray:
             region[hs, ws] = cnt
             cnt += 1
     r = region.reshape(H // win, win, W // win, win)
-    r = r.transpose(0, 2, 1, 3).reshape(-1, win * win)  # nW, win*win
-    diff = r[:, None, :] - r[:, :, None]
-    return np.where(diff != 0, np.float32(NEG_BIAS), np.float32(0.0))
+    return r.transpose(0, 2, 1, 3).reshape(-1, win * win)  # nW, win*win
 
 
 @functools.lru_cache(maxsize=64)

@@ -14,7 +14,9 @@ fp32, and dbias summed over windows in fp32, with the logits in each of
 two forms: "jax", the fp32 q k^T times the scale (JAX's kernel 6,
 `attention_block.py:674-678`, and the port's), and "q", q rounded times
 the rounded scale (the forward's, and the port's backward before it took
-JAX's). Each is held against the fp32 plain VJP (fp32 weights), beside
+JAX's); dO stays fp32 in both (the CUDA-core core's; the tensor-core
+core's own points, dO rounded to bf16 among them, are emulated in
+`tests/test_torch_port_wide_core_bwd_mma.py`). Each is held against the fp32 plain VJP (fp32 weights), beside
 the plain bf16 VJP, over GEOM_DRAWS draws pooled, by `chip_smoke.py`'s
 gate (max error within 1.5x the plain bf16 VJP's + 1e-3 max(1,
 max|ref|)); the line gives each form's error over its gate.
