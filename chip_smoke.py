@@ -29,7 +29,12 @@ Phases, each raising on failure (no phase is caught):
                every C 16-512 on an 8 x 8 image, non-square and
                partial-tile images and 64 x 64 at C = 32, the stage at
                C = 512 with 16 heads on 8 x 8 and at C = 256 with shift
-               on 16 x 16.
+               on 16 x 16; the fp32 stage on its three-pass TF32 bodies
+               at every C 64-512 and head dim 16 and 32 (shift 0 and 4,
+               modulator on and off, two windows an item with the last
+               half dead; one launch of the new body each), and the fp32
+               block alone (`f32_tile_timing`: three TF32 passes and the
+               FMA yardstick against fp64, timed beside torch.matmul).
   4. golden  - Uformer_B at 128^2, fp32, through the kernels, stage by stage
                against the recorded torch activations of
                tests/golden/uformer_b_128.npz; then the conv-projection,
@@ -107,7 +112,11 @@ Phases, each raising on failure (no phase is caught):
                clamp; the restore loop's MP/s on host arrays against the
                restorer's own at bs32 (and the plain path's), each kernel's
                fp32 time at bs32 256^2 against its plain version and its
-               bound (4 bytes a value, operations at the float32 rate), the
+               bound (4 bytes a value, the products three times at the
+               TF32 rate and the rest at the float32 rate; the bound with
+               every operation at the float32 rate beside it), every fp32
+               stage and LeFF launch of the fp32 SIDD CLI and bs32 request
+               on the three-pass TF32 bodies (`f32_bodies`), the
                scoring's seconds, the frame's ms and peak memory.
  15. train loop - the train CLI (uformer_tpu_torch.train.cli, in-process)
                with the reference denoise recipe: Uformer_B, bs32, 128^2,
@@ -494,8 +503,14 @@ EVAL_TRAIN_PS, SIDD_SET, SIDD_BATCH = 128, (2, 32, 256), 32
 GOPRO_HW, EVAL_TILE = (720, 1280), dict(tile=256, overlap=32, tile_batch=8)
 BF16_PSNR_BUDGET_DB = 0.05  # BASELINE.json, ROADMAP.md
 # H100 SXM (NVIDIA data sheet): dense bf16 tensor-core FLOP/s, float32
-# FLOP/s outside the tensor cores, HBM bytes/s
+# FLOP/s outside the tensor cores, HBM bytes/s, dense TF32 tensor-core
+# FLOP/s (the fp32 bodies' products take three TF32 passes)
 PEAK_BF16, PEAK_FP32, PEAK_HBM = 989e12, 67e12, 3.35e12
+PEAK_TF32 = 495e12
+# the fp32 block alone (csrc/mma_tf32.cuh) at the stage's output
+# projection: (rows, C) of the C x C product, enc2's and dec0's tokens of
+# the bs32 256^2 fp32 eval request
+F32_TILE_SHAPES = [(131072, 128), (32768, 512)]
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "stage": ("uformer_tpu_torch/csrc/stage.cu",
               "uformer_tpu/ops/pallas/stage.py:418"),
@@ -695,14 +710,24 @@ def rate(cost, k_ms: float, b_ms: float) -> str:
 
 
 def tally(totals: dict, kernel: str, k_ms: float, p_ms: float, cost,
-          n: int = 1, peak: float = PEAK_BF16) -> float:
+          n: int = 1, peak: float = PEAK_BF16,
+          products: float = None) -> float:
     """Add n calls of `kernel` (its time, its plain version's, and the
     bound of `cost` = (operations, bytes), the operations at `peak`) to
-    totals; returns the bound of the n calls in ms."""
+    totals; returns the bound of the n calls in ms. With `products` (the
+    operations of its matrix products, fp32): the operations' time is
+    the products three times at the TF32 rate (the three-pass split) and
+    the rest at the fp32 rate, and `bound_fp32_ms` keeps the bound with
+    every operation at the fp32 rate beside it."""
     t = totals.setdefault(kernel, {"ms": 0.0, "plain_ms": 0.0,
                                    "launches": 0, "bound_ms": 0.0,
                                    "op_ms": 0.0, "byte_ms": 0.0})
     op, byte = cost[0] / peak * 1e3, cost[1] / PEAK_HBM * 1e3
+    if products is not None:
+        t.setdefault("bound_fp32_ms", 0.0)
+        t["bound_fp32_ms"] += n * max(cost[0] / PEAK_FP32 * 1e3, byte)
+        op = (3 * products / PEAK_TF32
+              + (cost[0] - products) / PEAK_FP32) * 1e3
     t["ms"] += n * k_ms
     t["plain_ms"] += n * p_ms
     t["launches"] += n
@@ -1197,8 +1222,126 @@ def tile_phase(device) -> Checks:
                 lambda x, dt, prm=prm, kw=kw: K.fused_stage(x, prm[dt], **kw),
                 lambda x, dt, prm=prm, kw=kw: K.stage_reference(x, prm[dt],
                                                                 **kw), x32)
+    f32_stage_checks(checks, device)
     torch.cuda.synchronize()
     return checks
+
+
+def accumulation_bound(K: int, fma: bool) -> float:
+    """The worst relative error (over sum_k |a_k| |b_k|) of the fp32
+    block's accumulation at depth K: the FMA loop rounds each of its K
+    adds to nearest (2^-24 of the running sum, at most sum |a||b|); the
+    three-pass block sums the exact products of one or two k8 steps from
+    zero on the tensor cores, rounding toward zero up to six times (2^-23
+    of the group's sum each), and adds the sums to nearest."""
+    if fma:
+        return K * 2.0 ** -24
+    return 6 * 2.0 ** -23 + (K // 8) * 2.0 ** -24
+
+
+def f32_stage_checks(checks: Checks, device) -> None:
+    """The fp32 stage on its three-pass TF32 bodies at every (C, head dim)
+    they take (C 64-512, head dim 16 and 32), two blocks (shift 0, then
+    4), with and without the modulator, on a 16 x 24 image and, where a
+    work item may hold two windows, on 2 SMs - 3 windows (two an item, the
+    last item half dead): against the plain fp32 version, one launch of
+    the new body each (`K.core_counts`)."""
+    from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.ops.kernels import stage as S
+    from uformer_tpu_torch.ops.kernels.wgrad import sm_count
+
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    sms = sm_count(device)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(device)
+
+    for C in S.F32_WIDTHS:
+        for D in S.F32_HEAD_DIMS:
+            nH, Ch, n = C // D, 4 * C, 2
+            p = dict(ln1_s=1.0 + rnd(n, C, scale=0.1),
+                     ln1_b=rnd(n, C, scale=0.1),
+                     wq=rnd(n, C, C, scale=C ** -0.5), bq=rnd(n, C, scale=0.1),
+                     wk=rnd(n, C, C, scale=C ** -0.5), bk=rnd(n, C, scale=0.1),
+                     wv=rnd(n, C, C, scale=C ** -0.5), bv=rnd(n, C, scale=0.1),
+                     wo=rnd(n, C, C, scale=C ** -0.5), bo=rnd(n, C, scale=0.1),
+                     bias=rnd(n, nH, 64, 64, scale=0.5),
+                     mod=rnd(n, 64, C, scale=0.1),
+                     ln2_s=1.0 + rnd(n, C, scale=0.1),
+                     ln2_b=rnd(n, C, scale=0.1),
+                     w1=rnd(n, C, Ch, scale=C ** -0.5), b1=rnd(n, Ch, scale=0.1),
+                     wd=rnd(n, 3, 3, Ch, scale=1 / 3), bd=rnd(n, Ch, scale=0.1),
+                     w2=rnd(n, Ch, C, scale=Ch ** -0.5), b2=rnd(n, C, scale=0.1))
+            shapes = [(2, 16, 24)]
+            if C <= 128:  # where an item may hold two windows
+                shapes.append((1, 8, 8 * (2 * sms - 3)))
+            for B, H, W in shapes:
+                for has_mod in (True, False):
+                    kw = dict(scale=D ** -0.5, num_heads=nH, use_shift=True,
+                              has_mod=has_mod)
+                    x = rnd(B, H, W, C)
+                    K.reset_counts()
+                    got = K.fused_stage(x, p, **kw)
+                    bodies = K.core_counts()["stage"]
+                    if bodies != {"f32_mma_launches": 1,
+                                  "f32_fma_launches": 0}:
+                        raise RuntimeError(f"fp32 stage C {C} D {D}: bodies "
+                                           f"{bodies}")
+                    ref = K.stage_reference(x, p, **kw)
+                    checks.add("stage", f"fp32 body C={C} D={D} ({B}, {H}, "
+                               f"{W}) mod={has_mod}",
+                               max_err(got, ref),
+                               1e-4 * (1.0 + float(ref.abs().max())), "fp32")
+
+
+def f32_tile_timing(checks: Checks, device, card: str) -> list:
+    """The fp32 block alone (`csrc/mma_tf32.cuh`, `mma.f32_product`) at
+    F32_TILE_SHAPES, 64 rows a block: (a) the three-pass TF32 product the
+    fp32 bodies run and (b) the register-tiled FMA yardstick, each timed
+    (CUDA events, 10 calls after one) and held against an fp64 product
+    within its accumulation's bound; torch.matmul in fp32 (TF32 off; a
+    yardstick the port never calls) timed beside them; the bound of the
+    three-pass product (3 x its operations at the TF32 rate, or its bytes)
+    and of fp32 on the CUDA cores."""
+    from uformer_tpu_torch.ops.kernels.mma import f32_product
+
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    rows = []
+    for M, C in F32_TILE_SHAPES:
+        a = torch.randn(M, C, generator=gen).to(device)
+        b = (torch.randn(C, C, generator=gen) / C ** 0.5).to(device)
+        ref = a.double() @ b.double()
+        scale = a.double().abs() @ b.double().abs()
+        ops, nbytes = 2 * M * C * C, 4 * (2 * M * C + C * C)
+        row = {"shape": [M, C, C],
+               "library_ms": cuda_ms(lambda: torch.matmul(a, b), reps=10),
+               "library_max_abs_err": max_err(torch.matmul(a, b).double(),
+                                              ref),
+               "bound_ms": max(3 * ops / PEAK_TF32, nbytes / PEAK_HBM) * 1e3,
+               "bound_fp32_ms": max(ops / PEAK_FP32,
+                                    nbytes / PEAK_HBM) * 1e3}
+        for key, fma in (("tf32x3", False), ("fma", True)):
+            got = f32_product(a, b, fma=fma).double()
+            rel = float(((got - ref).abs() / scale).max())
+            checks.add("f32_block", f"{key} ({M}, {C}) @ ({C}, {C})", rel,
+                       accumulation_bound(C, fma), "fp32")
+            row.update({f"{key}_ms": cuda_ms(
+                lambda fma=fma: f32_product(a, b, fma=fma), reps=10),
+                f"{key}_max_abs_err": max_err(got, ref),
+                f"{key}_rel_err": rel})
+        rows.append(row)
+        print(f"  fp32 block ({M}, {C}) @ ({C}, {C}): three-pass TF32 "
+              f"{row['tf32x3_ms']:.4f} ms (err {row['tf32x3_max_abs_err']:.2e},"
+              f" {row['tf32x3_rel_err']:.2e} of sum |a||b|), FMA "
+              f"{row['fma_ms']:.4f} ms (err {row['fma_max_abs_err']:.2e}, "
+              f"{row['fma_rel_err']:.2e}), torch.matmul fp32 "
+              f"{row['library_ms']:.4f} ms (err "
+              f"{row['library_max_abs_err']:.2e}); bound "
+              f"{row['bound_ms']:.4f} ms (CUDA cores alone "
+              f"{row['bound_fp32_ms']:.4f})  [{card}]", flush=True)
+        del a, b, ref, scale
+    torch.cuda.empty_cache()
+    return rows
 
 
 def to_nhwc(a: np.ndarray) -> np.ndarray:
@@ -1367,11 +1510,13 @@ def serve_phase(make_model, device, expected: dict, label: str,
 
 def timing_phase(restorer, x, s: int = 2, peak: float = PEAK_BF16,
                  layers=LAYERS, forward: bool = True, reps: int = 5,
-                 warmup: int = 1):
+                 warmup: int = 1, tf32x3: bool = False):
     """Device time of each kernel and of its plain version on the inputs
     the forward of x (bs8 256^2 bf16 in the serve phases) gives it, stage
     by stage (the stages in `layers`), with each call's bound (s bytes a
-    value, operations at `peak`), and (with `forward`) of the whole
+    value, operations at `peak`; with `tf32x3`, fp32, the products three
+    times at the TF32 rate and the rest at `peak`, the bound at `peak`
+    alone kept beside it), and (with `forward`) of the whole
     forward on each path; each time a mean over `reps` calls after
     `warmup` (the forward's over reps // 2). Returns the rows, the per-kernel totals over
     those stages (ms, plain ms, launches, bound) and the forward's times
@@ -1454,15 +1599,27 @@ def timing_phase(restorer, x, s: int = 2, peak: float = PEAK_BF16,
                 p1, k1, k2, p2 = (cuda_ms(f, reps, warmup) for f in (
                     plain, fused, fused, plain))
                 k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-                b_ms = tally(totals, kernel, k_ms, p_ms, cost, peak=peak)
-                rows.append({"layer": name, "kernel": kernel,
-                             "shape": list(inputs[name].shape),
-                             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                             "tflops": cost[0] / (k_ms * 1e-3) / 1e12})
+                prod = None
+                if tf32x3:  # all but LeFF's depthwise taps are products
+                    taps = tokens * 18 * 4 * C
+                    prod = cost[0] - {"stage": len(layer.blocks) * taps,
+                                      "leff": taps}.get(kernel, 0)
+                b_ms = tally(totals, kernel, k_ms, p_ms, cost, peak=peak,
+                             products=prod)
+                row = {"layer": name, "kernel": kernel,
+                       "shape": list(inputs[name].shape),
+                       "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                       "tflops": cost[0] / (k_ms * 1e-3) / 1e12}
+                also = ""
+                if tf32x3:
+                    row["bound_fp32_ms"] = max(cost[0] / peak,
+                                               cost[1] / PEAK_HBM) * 1e3
+                    also = f" (CUDA cores alone {row['bound_fp32_ms']:.4f})"
+                rows.append(row)
                 print(f"  {name:16s} {kernel:16s} "
                       f"{str(tuple(inputs[name].shape)):22s} kernel "
                       f"{k_ms:8.3f} ms  plain {p_ms:8.3f} ms  bound "
-                      f"{b_ms:7.4f} ms  {rate(cost, k_ms, b_ms)}",
+                      f"{b_ms:7.4f} ms{also}  {rate(cost, k_ms, b_ms)}",
                       flush=True)
         if not forward:
             return rows, totals, None
@@ -1472,9 +1629,13 @@ def timing_phase(restorer, x, s: int = 2, peak: float = PEAK_BF16,
     fwd = {"kernel_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
            "runs_ms": {"plain": [p1, p2], "kernel": [k1, k2]}}
     for kernel, t in totals.items():
+        also = (f"; every operation at {peak / 1e12:.0f} TFLOP/s "
+                f"{t['bound_fp32_ms']:7.4f} ms" if "bound_fp32_ms" in t
+                else "")
         print(f"  {kernel:16s} per forward: {t['launches']} launches, "
               f"kernel {t['ms']:8.3f} ms, plain {t['plain_ms']:8.3f} ms, "
-              f"bound {t['bound_ms']:7.4f} ms ({bound_by(t)})", flush=True)
+              f"bound {t['bound_ms']:7.4f} ms ({bound_by(t)}){also}",
+              flush=True)
     dt = "bf16" if model.dtype == torch.bfloat16 else "fp32"
     print(f"  forward bs{x.shape[0]} {x.shape[1]}^2 {dt}: kernel path "
           f"{fwd['kernel_ms']:.3f} ms, plain path {fwd['plain_ms']:.3f} ms",
@@ -2387,6 +2548,22 @@ def host_run(fn, device) -> tuple:
             torch.cuda.max_memory_allocated(device))
 
 
+def f32_bodies(what: str, calls: int) -> dict:
+    """Every fp32 stage and LeFF launch of the last `calls` forwards ran
+    the three-pass TF32 bodies (EXPECTED_LAUNCHES' stage and leff each)
+    and none the generic ones; returns the counts."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    want = {k: {"f32_mma_launches": calls * EXPECTED_LAUNCHES[k],
+                "f32_fma_launches": 0} for k in ("stage", "leff")}
+    got = {k: K.core_counts()[k] for k in want}
+    if got != want:
+        raise RuntimeError(f"{what}: fp32 bodies {got}, expected {want}")
+    print(f"  {what}: fp32 stage and LeFF launches by body {got}",
+          flush=True)
+    return got
+
+
 def check_launches(what: str, calls: int) -> None:
     """Every forward of the last `calls` took the main path's kernels
     (EXPECTED_LAUNCHES each) and no plain version ran."""
@@ -2450,6 +2627,9 @@ def eval_phase(tmp: Path, sd, device, card: str):
             "--device", "cuda"])
         secs = time.perf_counter() - t0
         check_launches(f"SIDD CLI {name}", requests)
+        if name == "float32":
+            summary["f32_bodies_sidd_cli"] = f32_bodies(
+                f"SIDD CLI {name}", requests)
         for k, v in K.launch_counts().items():
             launches[k] += v
         out = sio.loadmat(tmp / name / "Idenoised.mat")["Idenoised"]
@@ -2475,6 +2655,9 @@ def eval_phase(tmp: Path, sd, device, card: str):
         K.reset_counts()
         rs[dt].numpy(noisy[0, :SIDD_BATCH])
         check_launches(f"SIDD request {dt}", 1)
+        if dt == torch.float32:
+            summary["f32_bodies_request"] = f32_bodies(
+                f"SIDD bs{SIDD_BATCH} request {dt}", 1)
     # the plain path's outputs, and both paths' before the clamp: most of
     # the seeded model's output lies outside [0, 1]
     ref, raw, ref_raw = {}, {}, {}
@@ -2525,11 +2708,13 @@ def eval_phase(tmp: Path, sd, device, card: str):
               f"{t['plain_ms']:.3f} ms): host share "
               f"{100 * t['host_share']:.1f}%  [{card}]", flush=True)
     # where an fp32 request's time goes: each kernel against its plain
-    # version at bs32 256^2, 4 bytes a value, operations at the float32
-    # rate (TF32 is off); 1 call a time, each stage warm from the requests
-    # above (the kernel path's forward takes over a second)
+    # version at bs32 256^2, 4 bytes a value, the products three times at
+    # the TF32 rate and the rest at the float32 rate (the bound at the
+    # float32 rate alone beside it; TF32 is off for the plain path); 1
+    # call a time, each stage warm from the requests above
     rows, totals, fwd = timing_phase(rs[torch.float32], x_dev, s=4,
-                                     peak=PEAK_FP32, reps=1, warmup=0)
+                                     peak=PEAK_FP32, reps=1, warmup=0,
+                                     tf32x3=True)
     summary.update(fp32_timing=rows, fp32_totals=totals, fp32_forward=fwd)
     del x_dev
     t0 = time.perf_counter()
@@ -7182,6 +7367,7 @@ def run(device, card: str, json_path) -> list:
     dw_checks.raise_if_failed("kernels dwconv3x3")
     del model_bc
     tile_checks = tile_phase(device)
+    f32_tiles = f32_tile_timing(tile_checks, device, card)
     tile_checks.raise_if_failed("kernels tensor-core tiles")
 
     phase("golden")
@@ -7295,6 +7481,7 @@ def run(device, card: str, json_path) -> list:
               "kernel_checks": (kchecks.rows + t_kchecks.rows
                                 + ai_checks.rows + dw_checks.rows
                                 + tile_checks.rows),
+              "f32_tiles": f32_tiles,
               "golden_checks": gchecks.rows + gcchecks.rows,
               "serve_checks": schecks.rows + t_schecks.rows + bc_schecks.rows,
               "serve": serve,
@@ -7517,6 +7704,16 @@ def run(device, card: str, json_path) -> list:
                 entry.update({f"ms_{key}": tt[name]["ms"],
                               f"plain_ms_{key}": tt[name]["plain_ms"],
                               f"bound_ms_{key}": tt[name]["bound_ms"]})
+                if "bound_fp32_ms" in tt[name]:
+                    entry[f"bound_fp32_ms_{key}"] = \
+                        tt[name]["bound_fp32_ms"]
+        if name in ("stage", "leff"):
+            # fp32 at C 64-512 (stage) and 16-512 (leff): the three-pass
+            # TF32 bodies, counted by body on the eval's bs32 request
+            entry["f32_source"] = ("uformer_tpu_torch/csrc/stage_f32.cu"
+                                   if name == "stage" else
+                                   "uformer_tpu_torch/csrc/leff_f32.cu")
+            entry["f32_bodies_eval"] = evals["f32_bodies_request"][name]
         kernels.append(entry)
     return kernels
 

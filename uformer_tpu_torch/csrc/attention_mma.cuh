@@ -89,9 +89,9 @@ struct AttnWide {
 
 // The token map of M = 64 WN rows, windows w0 .. of the image's (B, H / 8,
 // W / 8) windows (pix -1 past the last); the caller synchronises.
-__device__ __forceinline__ void wide_tokens(const AttnParams<bf16>& p,
-                                            int w0, int M, int* pix,
-                                            int* rid) {
+template <typename T>
+__device__ __forceinline__ void wide_tokens(const AttnParams<T>& p, int w0,
+                                            int M, int* pix, int* rid) {
   const int H = p.H, W = p.W, sh = p.shift;
   const int nWw = W / 8, nW = (H / 8) * nWw, n_win = p.B * nW;
   for (int i = threadIdx.x; i < M; i += kThreads) {

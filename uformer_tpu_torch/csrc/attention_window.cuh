@@ -5,9 +5,13 @@
 // attention_image.cu (one window per block), stage.cu (a persistent block
 // walks many windows) and attention_block.cu (one window, or one packed
 // tile of windows of N = win^2 < 64 tokens, per block, windows already
-// partitioned). WMMA fragments are 16 wide: a bf16 head of 8, 24, 40 or
-// 56 takes its products 16 wide rounded up, columns D..D+7 of q, k, v and
-// of the staged weights zero (exact), and needs staged weights; fp32's FMA
+// partitioned). In fp32 the stage runs it only at head dims 8, 24-56 and
+// 64 and at C 1024: at C 64-512, head dims 16 and 32, its fp32 attention
+// is attention_f32.cuh's (three-pass TF32 on the tensor cores).
+//
+// WMMA fragments are 16 wide: a bf16 head of 8, 24, 40 or 56 takes its
+// products 16 wide rounded up, columns D..D+7 of q, k, v and of the
+// staged weights zero (exact), and needs staged weights; fp32's FMA
 // products take any D. WMMA has no bf16 k8 shape (m16n8k8 is mma.sync's,
 // which these block-wide products do not use), so a product whose depth
 // is 8 mod 16 (a head of 24-56, or C 24, 40, 56) takes a zero pad to the

@@ -4,10 +4,14 @@
 //
 // The block product runs on the tensor cores through WMMA (16x16x16 bf16
 // fragments, fp32 accumulation) for bf16 operands, and as plain FMA loops
-// for fp32 operands (the fp32 path exists for exact comparisons, not for
-// speed). Operands may sit in shared or global memory; WMMA needs 32-byte
-// aligned fragment pointers and leading dimensions that are multiples of
-// 8 elements (16-bit) or 4 (fp32 accumulators), which every caller keeps.
+// for fp32 operands. Those fp32 loops serve the generic bodies only
+// (attention_window.cuh, leff_tile.cuh, the backward's): the fp32 stage at
+// C 64-512, head dims 16 and 32, and fp32 LeFF at C 16-512 (the eval CLI's
+// default dtype) run three-pass TF32 products on the tensor cores instead
+// (mma_tf32.cuh, attention_f32.cuh, leff_f32.cuh). Operands may sit in
+// shared or global memory; WMMA needs 32-byte aligned fragment pointers
+// and leading dimensions that are multiples of 8 elements (16-bit) or 4
+// (fp32 accumulators), which every caller keeps.
 #pragma once
 
 #include <cuda_bf16.h>

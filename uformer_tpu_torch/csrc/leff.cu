@@ -12,12 +12,25 @@
 // 1024, weights streamed through a cp.async ring) and the narrow one (C
 // 16-64, weights resident, one persistent block per SM walking 8 x 16
 // tiles, the next halo prefetched; also C = 8, its 32-wide hidden
-// zero-padded to 64 by the host). fp32 (the exact-check path), and bf16
-// at other widths, run the WMMA/FMA tile of leff_tile.cuh, one TH x 8
+// zero-padded to 64 by the host). fp32 at C 16-512 (every fp32 LeFF of
+// Uformer_T, _S and _B: the eval CLI's default dtype) runs the three-pass
+// TF32 tile of leff_f32.cuh (leff_f32.cu, a tile a block). fp32 at C 8
+// and at widths that are no power of two or 1024, and bf16 at widths
+// without an mma tile, run the WMMA/FMA tile of leff_tile.cuh, one TH x 8
 // tile per block (1 x 8 in fp32 at C = 1024), partial tiles masked.
+#include "leff_f32.cuh"
 #include "leff_mma.cuh"
 
 namespace uf {
+
+// Kernel 2 on the three-pass TF32 tile (leff_f32.cu), leff_f32_rows(C)
+// rows a tile; cudaErrorInvalidValue where it has no such tile.
+int leff_f32(const LeffParams<float>& p, cudaStream_t stream);
+
+// Whether fp32 at (C, Ch) runs that tile.
+__host__ inline bool f32_tile(int C, int Ch) {
+  return leff_f32_fits(C) && Ch % kLeffChunk == 0;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) leff_kernel(LeffParams<T> p) {
@@ -111,7 +124,8 @@ template <typename T>
 static int run(const void* x, void* y, const float* ln_s, const float* ln_b,
                const void* w1, const float* b1, const void* wd,
                const float* bd, const void* w2, const float* b2, int B, int H,
-               int W, int C, int Ch, int has_ln, int residual, void* stream) {
+               int W, int C, int Ch, int has_ln, int residual,
+               void* stream) {
   LeffParams<T> p;
   p.x = static_cast<const T*>(x);
   p.y = static_cast<T*>(y);
@@ -132,6 +146,8 @@ static int run(const void* x, void* y, const float* ln_s, const float* ln_b,
   p.has_ln = has_ln;
   p.residual = residual;
   auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same<T, float>::value)
+    if (f32_tile(C, Ch)) return leff_f32(p, s);
   if constexpr (std::is_same<T, bf16>::value) {
     if (wide_tile(2, C, Ch)) {
       if (C == 128) return launch_wide<128>(p, s);
@@ -160,13 +176,14 @@ static int run(const void* x, void* y, const float* ln_s, const float* ln_b,
 
 extern "C" {
 
-// The tile's rows for this dtype and width: 1 where the mma tiles run,
-// else leff_tile's tile height (8, 4, 2 or 1). Every tile masks partial
-// tiles, so any H and W run; the spatial path sizes its slabs' halo by
-// it.
+// The tile's rows for this dtype and width: 1 where the mma tiles run
+// (bf16's, and fp32's three-pass TF32 tile at C 16-512), else leff_tile's
+// tile height (8, 4, 2 or 1). Every tile masks partial tiles, so any H and
+// W run; the spatial path sizes its slabs' halo by it.
 int uf_leff_tile_rows(int is_bf16, int C, int Ch) {
   const int ts = is_bf16 ? 2 : 4;
   if (uf::wide_tile(ts, C, Ch) || uf::narrow_tile(ts, C, Ch)) return 1;
+  if (!is_bf16 && uf::f32_tile(C, Ch)) return 1;
   return uf::leff_tile_rows(ts, C);
 }
 

@@ -1,6 +1,8 @@
 // One TH x 8 output tile of the LeFF sub-block, computed by one thread
 // block (a partial tile at the image's edge masked). Shared by leff.cu
-// (one tile per block) and stage.cu.
+// (one tile per block) and stage.cu. In fp32 they run it only at C 8, at
+// widths that are no power of two and at C 1024: fp32 at C 16-512 is
+// leff_f32.cuh's tile (three-pass TF32 on the tensor cores).
 //
 //   y = [x +] W2 . GELU(dw3x3(GELU(W1 . LN2(x) + b1)) + bd) + b2
 //
@@ -14,7 +16,7 @@
 // In bf16 each chunk's weights (W1[:, k:k+64], then W2[k:k+64, :]) are
 // first copied into shared memory with 16-byte loads, and the products
 // take their B fragments from there rather than one fragment at a time
-// from device memory. fp32 (the exact-check path) has no room for the
+// from device memory. fp32 (this tile) has no room for the
 // copy and reads them from device memory; at C = 1024 (an --embed_dim 64
 // model's bottleneck and dec0, hidden 4096) its tile is 1 x 8, a halo of
 // 32 rows of 4 KB. In bf16 at C 768 and 896 (an --embed_dim 48 or 56

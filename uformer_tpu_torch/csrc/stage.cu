@@ -19,8 +19,14 @@
 // is attn_wide_item_l2 (one window an item, O through the block's scratch
 // slot in L2) and the LeFF tile 4 x 8; every work item streams the
 // block's weights through its cp.async ring, from L2 after the first
-// items read them from HBM. fp32 (the exact-check path) and other widths
-// run attention_window.cuh and leff_tile.cuh.
+// items read them from HBM. In fp32 at C 64-512, head dim 16 or 32
+// (every fp32 stage of Uformer_T, _S and _B: the eval CLI's default
+// dtype), both halves run on the three-pass TF32 tiles of mma_tf32.cuh
+// (stage_f32.cu): the attention of attention_f32.cuh (1 or 2 windows per
+// work item, picked here as for bf16) and the LeFF tile of leff_f32.cuh
+// (8 x 8, 4 x 8 at C 512). fp32 at other widths and head dims (8, 24-56, 64; C 1024),
+// and bf16 at the widths without a tensor-core body, run
+// attention_window.cuh and leff_tile.cuh.
 //
 // What bounds it on the H100: at the 16^2..64^2 stages each sub-block is
 // tens of microseconds of work, so per-kernel launches, tails and weight
@@ -34,13 +40,13 @@
 
 namespace uf {
 
-// Windows per work item of the wide attention: the most (up to 512 / C;
-// 2 at head dim 64: attn_wide_wn_fits) that do not add a round of items
-// over the `slots` resident blocks.
-static int wide_windows(int n_win, int slots, int C, int D) {
+// Windows per work item of the tensor-core attention: the most, up to
+// max_wn (a power of two), that do not add a round of items over the
+// `slots` resident blocks.
+static int item_windows(int n_win, int slots, int max_wn) {
   int best = 1;
   long best_cost = -1;
-  for (int wn = 1; wn * C <= 512 && (D < 64 || wn <= 2); wn *= 2) {
+  for (int wn = 1; wn <= max_wn; wn *= 2) {
     const int items = (n_win + wn - 1) / wn;
     const long cost = (long)((items + slots - 1) / slots) * wn;
     if (best_cost < 0 || cost <= best_cost) {
@@ -49,6 +55,15 @@ static int wide_windows(int n_win, int slots, int C, int D) {
     }
   }
   return best;
+}
+
+// The card's SMs, in *sms.
+static cudaError_t card_sms(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
 }
 
 template <int D, int CW, int WN>
@@ -68,12 +83,12 @@ static int launch_rows(const StageParams<bf16>& p, int th,
 // up to 128 registers fill an SM's register file).
 template <int D, int CW>
 static int launch_wide(const StageParams<bf16>& p, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  const cudaError_t e = card_sms(&sms);
   if (e != cudaSuccess) return (int)e;
-  const int wn = wide_windows(p.B * (p.H / 8) * (p.W / 8), sms, CW, D);
+  // up to 512 / C windows an item, 2 at head dim 64 (attn_wide_wn_fits)
+  const int most = D == 64 && 512 / CW > 2 ? 2 : 512 / CW;
+  const int wn = item_windows(p.B * (p.H / 8) * (p.W / 8), sms, most);
   const int th = leff_wide_rows(p.B, p.H, p.W, CW, sms);
   if constexpr (attn_wide_wn_fits(CW, D, 4))
     if (wn == 4) return launch_rows<D, CW, 4>(p, th, stream);
@@ -128,6 +143,17 @@ static int run(const void* x, void* buf, void* out, void* scratch,
   p.use_shift = use_shift;
   p.scale = scale;
   auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same<T, float>::value)
+    if (nH > 0 && C % nH == 0 && stage_f32_fits(C, C / nH)) {
+      // the three-pass TF32 bodies: windows per attention item as the
+      // bf16 body picks them, up to attn_f32_max_windows
+      int sms = 0;
+      const cudaError_t e = card_sms(&sms);
+      if (e != cudaSuccess) return (int)e;
+      const int wn = item_windows(B * (H / 8) * (W / 8), sms,
+                                  attn_f32_max_windows(C));
+      return C / nH == 16 ? stage_f32<16>(p, wn, s) : stage_f32<32>(p, wn, s);
+    }
   if (is_new_head_dim(C, nH)) return stage_heads<T>(p, s);
   return with_head_dim(C, nH, [&](auto d) {
     constexpr int D = decltype(d)::value;
@@ -151,6 +177,8 @@ extern "C" {
 // Returns a cudaError_t (0 on success). is_bf16 selects bf16 (else fp32) for the
 // activations and the weight matrices; biases, LayerNorm parameters and
 // the relative-position bias are fp32. mod may be null (no modulator).
+// fp32 at C 64-512, head dim 16 or 32, runs the three-pass TF32 bodies
+// (stage_f32), other fp32 calls the generic ones.
 int uf_stage(int is_bf16, const void* x, void* buf, void* out, void* scratch,
              const float* ln1_s, const float* ln1_b, const void* wq,
              const float* bq, const void* wk, const float* bk, const void* wv,

@@ -1,5 +1,6 @@
 // The whole-stage kernel's body (stage.cu) and its launch, shared by
-// stage.cu (head dims 8, 16, 32, 64) and stage_heads.cu (24, 40, 48, 56),
+// stage.cu (head dims 8, 16, 32, 64), stage_heads.cu (24, 40, 48, 56) and
+// stage_f32.cu / stage_f32_d16.cu (fp32 at head dims 32 / 16, C 64-512),
 // which nvcc compiles in parallel.
 #pragma once
 
@@ -7,7 +8,9 @@
 
 #include <algorithm>
 
+#include "attention_f32.cuh"
 #include "attention_mma.cuh"
+#include "leff_f32.cuh"
 #include "leff_mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -64,9 +67,24 @@ __device__ __noinline__ void leff_wide_all(const LeffParams<bf16>& l,
     leff_wide_tile<C, TH>(l, it, smem);
 }
 
-// CW: the width of the tensor-core sub-blocks (bf16), with WN windows per
-// attention item and TH rows per LeFF tile; or 0 for attention_window and
-// leff_tile
+// The fp32 halves on the three-pass TF32 tiles, as the two above.
+template <int C, int D, int WN>
+__device__ __noinline__ void attn_f32_all(const AttnParams<float>& a,
+                                          int n_win, unsigned char* smem) {
+  for (int it = blockIdx.x; it < (n_win + WN - 1) / WN; it += gridDim.x)
+    attn_f32_item<C, D, WN>(a, it, smem);
+}
+
+template <int C, int TH>
+__device__ __noinline__ void leff_f32_all(const LeffParams<float>& l,
+                                          int n_tile, unsigned char* smem) {
+  for (int it = blockIdx.x; it < n_tile; it += gridDim.x)
+    leff_f32_tile<C, TH>(l, it, smem);
+}
+
+// CW: the width of the tensor-core sub-blocks (bf16 on mma.sync m16n8k16,
+// fp32 on the three-pass TF32 tiles), with WN windows per attention item
+// and TH rows per LeFF tile; or 0 for attention_window and leff_tile
 template <typename T, int D, int CW, int WN, int TH>
 __global__ void __launch_bounds__(kThreads, 1)
     stage_kernel(StageParams<T> p) {
@@ -108,10 +126,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     if constexpr (CW > 0) {
       // the callee takes its parameters by reference: from shared memory,
       // not from the stack
-      __shared__ AttnParams<bf16> as;
+      __shared__ AttnParams<T> as;
       if (threadIdx.x == 0) as = a;
       __syncthreads();
-      attn_wide_all<CW, D, WN>(as, n_win, smem);
+      if constexpr (std::is_same<T, bf16>::value)
+        attn_wide_all<CW, D, WN>(as, n_win, smem);
+      else
+        attn_f32_all<CW, D, WN>(as, n_win, smem);
     } else {
       for (int it = blockIdx.x; it < n_win; it += gridDim.x)
         attention_window<T, D>(a, it, smem, blockIdx.x);
@@ -138,10 +159,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     l.has_ln = 1;
     l.residual = 1;
     if constexpr (CW > 0) {
-      __shared__ LeffParams<bf16> ls;  // as `as` above
+      __shared__ LeffParams<T> ls;  // as `as` above
       if (threadIdx.x == 0) ls = l;
       __syncthreads();
-      leff_wide_all<CW, TH>(ls, n_tile, smem);
+      if constexpr (std::is_same<T, bf16>::value)
+        leff_wide_all<CW, TH>(ls, n_tile, smem);
+      else
+        leff_f32_all<CW, TH>(ls, n_tile, smem);
     } else {
       for (int it = blockIdx.x; it < n_tile; it += gridDim.x)
         leff_tile<T>(l, it, smem);
@@ -153,9 +177,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <typename T, int D, int CW, int WN, int TH>
 int launch_stage(StageParams<T> p, cudaStream_t stream) {
   size_t smem;
-  if constexpr (CW > 0) {
+  if constexpr (CW > 0 && std::is_same<T, bf16>::value) {
     p.TH = TH;
     smem = std::max(attn_wide_smem<CW, D, WN>(), LeffWide<CW, TH>::total);
+  } else if constexpr (CW > 0) {
+    p.TH = TH;
+    smem = std::max(AttnF32<CW, D, WN>::total, LeffF32<CW, TH>::total);
   } else {
     p.TH = leff_tile_rows(sizeof(T), p.C);
     smem = std::max(attn_layout<D>(sizeof(T), p.C).total,
@@ -190,5 +217,33 @@ int launch_stage(StageParams<T> p, cudaStream_t stream) {
 // one-window attention body and leff_tile, in fp32 and bf16.
 template <typename T>
 int stage_heads(const StageParams<T>& p, cudaStream_t stream);
+
+// Whether the fp32 stage has its three-pass TF32 bodies at (C, D).
+__host__ __device__ constexpr bool stage_f32_fits(int C, int D) {
+  return attn_f32_fits(C, D) && leff_f32_fits(C);
+}
+
+// The fp32 stage on the three-pass TF32 bodies at head dim D (16 or 32)
+// and C 64-512: wn windows per attention item (1, or 2 at C <= 128) and
+// leff_f32_rows(C) rows per LeFF tile; cudaErrorInvalidValue for a (C,
+// wn) without an instantiation.
+template <int D>
+int stage_f32(const StageParams<float>& p, int wn, cudaStream_t stream) {
+  if (wn == 2) {
+    if (p.C == 64) return launch_stage<float, D, 64, 2, 8>(p, stream);
+    if (p.C == 128) return launch_stage<float, D, 128, 2, 8>(p, stream);
+  }
+  if (wn == 1) {
+    if (p.C == 64) return launch_stage<float, D, 64, 1, 8>(p, stream);
+    if (p.C == 128) return launch_stage<float, D, 128, 1, 8>(p, stream);
+    if (p.C == 256) return launch_stage<float, D, 256, 1, 8>(p, stream);
+    if (p.C == 512) return launch_stage<float, D, 512, 1, 4>(p, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+extern template int stage_f32<16>(const StageParams<float>&, int,
+                                  cudaStream_t);
+extern template int stage_f32<32>(const StageParams<float>&, int,
+                                  cudaStream_t);
 
 }  // namespace uf

@@ -12,7 +12,11 @@ The counterpart of `scripts/_common.py` and the four
 CPU). `--dtype float32` (the default, for checkpoint parity) runs each
 restorer call with TF32 off for matmuls and cuDNN, as the JAX scripts ask
 for "highest" matmul precision; the process's own TF32 flags are put back
-after each call. `--token_projection` and `--token_mlp` take only the
+after each call. The fp32 stage and LeFF kernels of the named archs (C
+16-512, head dims 16 and 32) take their products as three TF32 passes on
+the tensor cores (`csrc/mma_tf32.cuh`: each operand split into two TF32
+parts), about fp32's accuracy, whatever the TF32 flags say; the flags
+govern the plain PyTorch ops around them. `--token_projection` and `--token_mlp` take only the
 named archs' linear / leff (the reference's `get_arch` fixes them; the
 JAX scripts accept the flags and ignore them): any other value raises.
 

@@ -9,6 +9,8 @@ to compare them within one run:
     python -m uformer_tpu_torch.forward_ab --what dwconv3x3 --roots ...
     python -m uformer_tpu_torch.forward_ab --what leff --roots ...
     python -m uformer_tpu_torch.forward_ab --what stage --roots ...
+    python -m uformer_tpu_torch.forward_ab --what stage --fp32 --roots ...
+    python -m uformer_tpu_torch.forward_ab --what leff --fp32 --roots ...
     python -m uformer_tpu_torch.forward_ab --what train --roots ...
     python -m uformer_tpu_torch.forward_ab --what train_t --roots ...
     python -m uformer_tpu_torch.forward_ab --what leff_bwd --roots ...
@@ -72,8 +74,18 @@ windowed (stage, shift) of the win-16 models' steps (`--arch Uformer
 modulator) and at the 1024-token windows of the win-32 one, each timed
 eagerly (the mean of 3 calls after one), with a digest of the forward's output and of every gradient (at window 16
 one dS group: the parent's digests there mean the grouped backward left
-those bits as they were). Prints one JSON line per root (ms), then the
-card's name and power limit.
+those bits as they were). With `--fp32` (stage and leff only, TF32 off
+for matmul and cuDNN): `stage` runs `fused_stage` in fp32 at every stage
+of Uformer_B's fp32 eval request (the SIDD CLI's bs32 256^2 at train_ps
+128: the bottleneck unshifted, the decoder's modulator; matrices N(0, 1 /
+fan-in)), each the mean of 3 calls after one (CUDA events), beside its
+plain version, and splits it into its halves: the LeFF half is `blocks`
+launches of `fused_leff` at the stage's shape on its first block's LeFF
+weights, the attention half the rest; with the fp32 bodies each ran
+(`K.core_counts`, where the root counts them) and a digest of the
+output's bits. `leff` runs `fused_leff` in fp32 at the request's kernel-2
+calls (C 32 and 64) and at every stage's LeFF shape, the same way. Prints
+one JSON line per root (ms), then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -288,6 +300,123 @@ for cell, name, B, res, C, nH, n, mod in stages:
                  "sha256": digest.hexdigest()[:16]})
 print(json.dumps({"rows": rows}))
 """
+_F32_COMMON = _KERNEL_COMMON + """
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+f32 = torch.float32
+# (stage, B, res, C, heads, blocks, modulator, shift) of the fp32 eval
+# request: Uformer_B, bs32 256^2, train_ps 128 (the bottleneck unshifted)
+STAGES = [("enc2", 32, 64, 128, 4, 8, False, True),
+          ("enc3", 32, 32, 256, 8, 8, False, True),
+          ("conv", 32, 16, 512, 16, 2, False, False),
+          ("dec0", 32, 32, 512, 16, 8, True, True),
+          ("dec1", 32, 64, 256, 8, 8, True, True),
+          ("dec2", 32, 128, 128, 4, 2, True, True)]
+# the request's kernel-2 calls: enc0, enc1 (2 blocks), dec3
+LEFF_CALLS = [("enc0", 32, 256, 32, 1), ("enc1", 32, 128, 64, 2),
+              ("dec3", 32, 256, 64, 1)]
+
+def digest32(y):
+    # a digest of an fp32 output's bits: equal in two roots, equal outputs
+    return hashlib.sha256(y.contiguous().view(torch.int32).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+def bodies(name):
+    # the fp32 launches by body since the last reset, where the root
+    # counts them
+    counts = K.core_counts() if hasattr(K, "core_counts") else {}
+    return counts.get(name)
+
+def timed(fn):
+    fn()
+    return ms(fn, 3)
+
+def leff_weights(C, n=1):
+    Ch = 4 * C
+    return (rnd(C, Ch, scale=C ** -0.5, dtype=f32),
+            rnd(Ch, scale=0.1, dtype=f32), rnd(3, 3, Ch, scale=1 / 3, dtype=f32),
+            rnd(Ch, scale=0.1, dtype=f32), rnd(Ch, C, scale=Ch ** -0.5, dtype=f32),
+            rnd(C, scale=0.1, dtype=f32))
+
+def leff_row(where, x, w, ln, blocks):
+    run = lambda: K.fused_leff(x, *w, residual=True, **ln)
+    K.reset_counts()
+    y = run()
+    body = bodies("leff")
+    ref = K.leff_reference(x, *w, residual=True, **ln)
+    return {"where": where, "shape": list(x.shape), "blocks": blocks,
+            "ms": timed(run),
+            "plain_ms": timed(lambda: K.leff_reference(x, *w, residual=True,
+                                                       **ln)),
+            "max_abs_err": float((y - ref).abs().max()),
+            "sha256": digest32(y), "bodies": body}
+"""
+
+_STAGE_F32 = _F32_COMMON + """
+rows = []
+for name, B, res, C, nH, n, mod, shift in STAGES:
+    Ch = 4 * C
+    s = C ** -0.5
+    w = [leff_weights(C) for _ in range(n)]
+    p = dict(ln1_s=1.0 + rnd(n, C, scale=0.1, dtype=f32),
+             ln1_b=rnd(n, C, scale=0.1, dtype=f32),
+             wq=rnd(n, C, C, scale=s, dtype=f32),
+             bq=rnd(n, C, scale=0.1, dtype=f32),
+             wk=rnd(n, C, C, scale=s, dtype=f32),
+             bk=rnd(n, C, scale=0.1, dtype=f32),
+             wv=rnd(n, C, C, scale=s, dtype=f32),
+             bv=rnd(n, C, scale=0.1, dtype=f32),
+             wo=rnd(n, C, C, scale=s, dtype=f32),
+             bo=rnd(n, C, scale=0.1, dtype=f32),
+             bias=rnd(n, nH, 64, 64, scale=0.5, dtype=f32),
+             mod=rnd(n, 64, C, scale=0.1, dtype=f32),
+             ln2_s=1.0 + rnd(n, C, scale=0.1, dtype=f32),
+             ln2_b=rnd(n, C, scale=0.1, dtype=f32))
+    for i, k in enumerate(("w1", "b1", "wd", "bd", "w2", "b2")):
+        p[k] = torch.stack([wj[i] for wj in w]).contiguous()
+    kw = dict(scale=(C // nH) ** -0.5, num_heads=nH, use_shift=shift,
+              has_mod=mod)
+    x = rnd(B, res, res, C, dtype=f32)
+    run = lambda: K.fused_stage(x, p, **kw)
+    K.reset_counts()
+    y = run()
+    body = bodies("stage")
+    ref = K.stage_reference(x, p, **kw)
+    stage_ms = timed(run)
+    ln = dict(ln_s=p["ln2_s"][0], ln_b=p["ln2_b"][0])
+    leff_ms = timed(lambda: K.fused_leff(x, *w[0], residual=True, **ln))
+    rows.append({"stage": name, "shape": [B, res, res, C], "blocks": n,
+                 "ms": stage_ms, "leff_half_ms": n * leff_ms,
+                 "attention_half_ms": stage_ms - n * leff_ms,
+                 "plain_ms": timed(lambda: K.stage_reference(x, p, **kw)),
+                 "max_abs_err": float((y - ref).abs().max()),
+                 "sha256": digest32(y), "bodies": body})
+    del x, y, ref, p, w
+    torch.cuda.empty_cache()
+print(json.dumps({"rows": rows,
+                  "ms": sum(r["ms"] for r in rows),
+                  "attention_half_ms": sum(r["attention_half_ms"]
+                                           for r in rows),
+                  "leff_half_ms": sum(r["leff_half_ms"] for r in rows),
+                  "plain_ms": sum(r["plain_ms"] for r in rows)}))
+"""
+
+_LEFF_F32 = _F32_COMMON + """
+rows = []
+for where, B, res, C, n in LEFF_CALLS + [(s[0] + " half", s[1], s[2], s[3],
+                                          s[5]) for s in STAGES]:
+    ln = dict(ln_s=1.0 + rnd(C, scale=0.1, dtype=f32),
+              ln_b=rnd(C, scale=0.1, dtype=f32))
+    rows.append(leff_row(where, rnd(B, res, res, C, dtype=f32),
+                         leff_weights(C), ln, n))
+    torch.cuda.empty_cache()
+request = [r for r in rows if not r["where"].endswith("half")]
+print(json.dumps({"rows": rows,
+                  "request_ms": sum(r["blocks"] * r["ms"] for r in request),
+                  "request_plain_ms": sum(r["blocks"] * r["plain_ms"]
+                                          for r in request)}))
+"""
+
 _TRAIN = """
 import json, statistics, torch
 from uformer_tpu_torch import get_arch
@@ -625,14 +754,20 @@ _CHILDREN = {"forward": _CHILD.replace(
              "attention_bwd": _ATTN_BWD, "bwd_split": _BWD_SPLIT,
              "attention_block": _ATTN_BLOCK,
              "window_attention": _WINDOW_ATTN, "wide": _WIDE}
+_CHILDREN_F32 = {"stage": _STAGE_F32, "leff": _LEFF_F32}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--roots", nargs="+", required=True)
     ap.add_argument("--what", choices=tuple(_CHILDREN), default="forward")
+    ap.add_argument("--fp32", action="store_true",
+                    help="stage and leff in fp32 at the fp32 eval request's "
+                    "shapes (TF32 off)")
     args = ap.parse_args()
-    child = _CHILDREN[args.what]
+    if args.fp32 and args.what not in _CHILDREN_F32:
+        ap.error(f"--fp32 takes --what {' or '.join(_CHILDREN_F32)}")
+    child = (_CHILDREN_F32 if args.fp32 else _CHILDREN)[args.what]
     for root in args.roots:
         out = subprocess.run([sys.executable, "-c", child], cwd=root,
                              capture_output=True, text=True, check=True)

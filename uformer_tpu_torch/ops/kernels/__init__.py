@@ -4,8 +4,9 @@ its plain PyTorch version.
 Every wrapper counts its kernel launches (`wrapper.launches`) and, apart,
 the calls it answered with the plain version (`wrapper.plain_calls`),
 which it takes for a CPU tensor only; kernels 4, 5 and 6 also count
-their core's launches above window 8 by body (`core_counts`); `reset_counts`
-zeroes every count. Importing this package builds nothing: the CUDA
+their core's launches above window 8 by body, and kernels 3 and 2 their
+fp32 launches by body (`core_counts`); `reset_counts` zeroes every
+count. Importing this package builds nothing: the CUDA
 library is built at the first launch (`_build.load`).
 The `*_ad` functions are the differentiable forms: their backward is the
 backward kernel (`*_bwd`).
@@ -60,14 +61,20 @@ WRAPPERS = {"stage": fused_stage, "attention_image": fused_attention_image,
 CORE_WRAPPERS = ("window_attention", "attention_block",
                  "attention_block_bwd")
 CORE_BODIES = ("core_mma_launches", "core_fma_launches")
+# the wrappers whose fp32 launches have two bodies: the three-pass TF32
+# tiles and the generic FMA ones
+F32_WRAPPERS = ("stage", "leff")
+F32_BODIES = ("f32_mma_launches", "f32_fma_launches")
+BODIES = {**dict.fromkeys(CORE_WRAPPERS, CORE_BODIES),
+          **dict.fromkeys(F32_WRAPPERS, F32_BODIES)}
 
 
 def reset_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
         fn.plain_calls = 0
-    for name in CORE_WRAPPERS:
-        for body in CORE_BODIES:
+    for name, bodies in BODIES.items():
+        for body in bodies:
             setattr(WRAPPERS[name], body, 0)
 
 
@@ -80,8 +87,10 @@ def plain_counts() -> dict:
 
 
 def core_counts() -> dict:
-    """{kernel: {body: launches}} of kernels 4, 5 and 6's core above
-    window 8: `core_mma_launches` (bf16, tensor cores) and
-    `core_fma_launches` (fp32, CUDA cores)."""
-    return {name: {body: getattr(WRAPPERS[name], body)
-                   for body in CORE_BODIES} for name in CORE_WRAPPERS}
+    """{kernel: {body: launches}}: kernels 4, 5 and 6's core above window
+    8, `core_mma_launches` (bf16, tensor cores) and `core_fma_launches`
+    (fp32, CUDA cores); kernels 3 and 2's fp32 launches,
+    `f32_mma_launches` (three-pass TF32 on the tensor cores) and
+    `f32_fma_launches` (the generic FMA bodies)."""
+    return {name: {body: getattr(WRAPPERS[name], body) for body in bodies}
+            for name, bodies in BODIES.items()}

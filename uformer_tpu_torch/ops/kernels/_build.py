@@ -57,6 +57,7 @@ _SIGNATURES = {
     "uf_dwconv3x3": [_I, _I] + [_P] * 4 + [_I] * 12 + [_P],
     "uf_dwconv3x3_slots": [_I] * 5,
     "uf_mma_check": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "uf_tf32_check": [_P, _P, _P, _I, _I, _I, _P],
     "uf_wide_xm": [_I] + [_P] * 5 + [_I] * 4 + [_P],
     "uf_wide_gemm": [_I] * 3 + [_P] * 3 + [_I] + [_P] * 3 + [_I] * 3
                     + [_P],

@@ -9,12 +9,17 @@ tensor-core tiles keep the second product's accumulator in registers:
 cp.async ring at C 128-512 (4 x 8 at C = 1024, an `--embed_dim 64`
 model's bottleneck and dec0, hidden 4096), and persistent blocks over
 8 x 16 tiles with the weights resident at C 16-64; they mask partial
-tiles, so any H and W run. fp32 (the exact-check path) keeps TH x 8
-tiles, also masking partial ones (an embed-8 model's 4 x 4 bottleneck;
-1 x 8 at C = 1024). The widths of an `--embed_dim` 24-56 model that are
-no power of two (C 24-896; C 24, 40, 56 are 8 mod 16, hidden 96-3584)
-run `leff_tile` in both dtypes, its bf16 products 16 wider where C is 8
-mod 16 and, at C 768 and 896, its weight chunk staged in pieces. The
+tiles, so any H and W run. fp32 at C 16-512 (every fp32 LeFF of
+Uformer_T, _S and _B: the eval CLI's default dtype) runs the three-pass
+TF32 tile of `csrc/leff_f32.cuh` (8 x 8 outputs, 4 x 8 at C 512, weights
+through a cp.async ring); fp32 at the other widths keeps `leff_tile`'s
+TH x 8 FMA tiles, also masking partial ones (an embed-8 model's 4 x 4
+bottleneck; 1 x 8 at C = 1024). `fused_leff` counts its fp32 launches
+by body: `f32_mma_launches` (three-pass TF32) and `f32_fma_launches`
+(`leff_tile`). The widths of an `--embed_dim` 24-56 model that are no
+power of two (C 24-896; C 24, 40, 56 are 8 mod 16, hidden 96-3584) run
+`leff_tile` in both dtypes, its bf16 products 16 wider where C is 8 mod
+16 and, at C 768 and 896, its weight chunk staged in pieces. The
 backward takes C 8-1024 too (at C = 1024 2 x 8 and 4 x 8 tiles in bf16,
 1 x 8 and 2 x 8 in fp32; at C that is no power of two, bf16 on the WMMA
 tiles of `csrc/leff_bwd_heads.cu`, a tile a block, and fp32 on the FMA
@@ -38,6 +43,14 @@ from uformer_tpu_torch.ops.kernels.wgrad import colsum, sm_count, wgrad
 from uformer_tpu_torch.ops.norm import layer_norm
 
 HIDDEN_CHUNK = 64  # the kernel walks the hidden in chunks of this width
+# fp32 widths of the three-pass TF32 tile (csrc/leff_f32.cuh)
+F32_WIDTHS = (16, 32, 64, 128, 256, 512)
+
+
+def f32_tile(C: int, Ch: int) -> bool:
+    """Whether fp32 LeFF at width C and hidden Ch (padded to whole
+    chunks) runs the three-pass TF32 tile (`csrc/leff.cu:f32_tile`)."""
+    return C in F32_WIDTHS and Ch % HIDDEN_CHUNK == 0
 
 
 def leff_reference(x, w1, b1, wd, bd, w2, b2, ln_s=None, ln_b=None,
@@ -96,6 +109,8 @@ def fused_leff(x: torch.Tensor, w1, b1, wd, bd, w2, b2, ln_s=None, ln_b=None,
     Ch = w1.shape[-1]
     lib = load()
     is_bf16 = int(x.dtype == torch.bfloat16)
+    # fp32: the three-pass TF32 tile where it has one, else leff_tile
+    tf32x3 = not is_bf16 and f32_tile(C, Ch)
     dt, dev, f32 = x.dtype, x.device, torch.float32
     has_ln = ln_s is not None
     if has_ln:
@@ -115,11 +130,17 @@ def fused_leff(x: torch.Tensor, w1, b1, wd, bd, w2, b2, ln_s=None, ln_b=None,
             int(has_ln), int(residual), _launch.stream(x))
     _launch.check(err, "leff kernel")
     fused_leff.launches += 1
+    if tf32x3:
+        fused_leff.f32_mma_launches += 1
+    elif not is_bf16:
+        fused_leff.f32_fma_launches += 1
     return y
 
 
 fused_leff.launches = 0
 fused_leff.plain_calls = 0
+fused_leff.f32_mma_launches = 0
+fused_leff.f32_fma_launches = 0
 
 
 def tile_rows(x: torch.Tensor, Ch: int) -> int:

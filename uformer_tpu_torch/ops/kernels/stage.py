@@ -9,10 +9,17 @@ stage image ping-ponging between two buffers that largely stay in L2.
 In bf16 at C 128-512 both halves run on tensor-core tiles with register
 accumulators: the attention of `csrc/attention_mma.cuh` (1-4 windows per
 work item) and the wide LeFF tile of `csrc/leff_mma.cuh` (as `fused_leff`).
-Other widths and fp32 run the one-window attention body and LeFF's
-`leff_tile`: among them the stages of an `--embed_dim` 24-56 model (C
-384-896, head dims 24-56, `csrc/stage_heads.cu`). `stage_reference` is
-the plain PyTorch version with the JAX reference's signature
+In fp32 at C 64-512, head dim 16 or 32 (every fp32 stage of Uformer_T,
+_S and _B: the eval CLI's default dtype) both halves run on the
+three-pass TF32 tiles (`csrc/stage_f32.cu`): the attention of
+`csrc/attention_f32.cuh` (1 or 2 windows per work item, picked by
+`csrc/stage.cu` as for bf16) and the LeFF tile of `csrc/leff_f32.cuh`. Other widths and head dims, and
+bf16 where no tensor-core body exists, run the one-window attention body
+and LeFF's `leff_tile`: among them the stages of an `--embed_dim` 24-56
+model (C 384-896, head dims 24-56, `csrc/stage_heads.cu`). `fused_stage`
+counts its fp32 launches by body: `f32_mma_launches` (three-pass TF32)
+and `f32_fma_launches` (the generic bodies). `stage_reference` is the
+plain PyTorch version with the JAX reference's signature
 (`stage.py:389`).
 """
 
@@ -27,10 +34,7 @@ from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.kernels.attention_image import (
     attention_image_reference,
 )
-from uformer_tpu_torch.ops.kernels.leff import (
-    HIDDEN_CHUNK,
-    leff_reference,
-)
+from uformer_tpu_torch.ops.kernels.leff import HIDDEN_CHUNK, leff_reference
 from uformer_tpu_torch.ops.kernels.window_attention import (
     FORWARD_HEAD_DIMS,
     check_head_dim,
@@ -40,6 +44,17 @@ from uformer_tpu_torch.ops.kernels.window_attention import (
 STAGE_KEYS = ("ln1_s", "ln1_b", "wq", "bq", "wk", "bk", "wv", "bv", "wo",
               "bo", "bias", "mod", "ln2_s", "ln2_b", "w1", "b1", "wd", "bd",
               "w2", "b2")
+
+
+# fp32 stages on the three-pass TF32 bodies (csrc/stage_f32.cu)
+F32_WIDTHS = (64, 128, 256, 512)
+F32_HEAD_DIMS = (16, 32)
+
+
+def f32_stage(C: int, D: int) -> bool:
+    """Whether an fp32 stage of width C at head dim D runs the three-pass
+    TF32 bodies (`csrc/stage.cuh:stage_f32_fits`)."""
+    return C in F32_WIDTHS and D in F32_HEAD_DIMS
 
 
 def stage_reference(x, p, *, scale, num_heads, use_shift, has_mod):
@@ -105,7 +120,10 @@ def fused_stage(x: torch.Tensor, p: Dict[str, torch.Tensor], *, scale: float,
         _launch.expect(p.get(name), name, shape, tdt, dev)
     out = torch.empty_like(x)
     buf = torch.empty_like(x)
-    regions = lib.uf_attention_needs_scratch(is_bf16, C, C // num_heads)
+    # fp32 on the three-pass TF32 bodies, which need no scratch
+    tf32x3 = not is_bf16 and f32_stage(C, C // num_heads)
+    regions = 0 if tf32x3 else lib.uf_attention_needs_scratch(
+        is_bf16, C, C // num_heads)
     scratch = (torch.empty((regions,) + x.shape, dtype=dt, device=dev)
                if regions else None)
     ptrs = [p[k].data_ptr() if (k != "mod" or has_mod) else None
@@ -117,8 +135,14 @@ def fused_stage(x: torch.Tensor, p: Dict[str, torch.Tensor], *, scale: float,
             int(use_shift), float(scale), _launch.stream(x))
     _launch.check(err, "stage kernel (cooperative launch)")
     fused_stage.launches += 1
+    if tf32x3:
+        fused_stage.f32_mma_launches += 1
+    elif not is_bf16:
+        fused_stage.f32_fma_launches += 1
     return out
 
 
 fused_stage.launches = 0
 fused_stage.plain_calls = 0
+fused_stage.f32_mma_launches = 0
+fused_stage.f32_fma_launches = 0
