@@ -385,10 +385,27 @@ Phases, each raising on failure (no phase is caught):
                fp32 and bf16, bf16 steps timed with their peak memory,
                each backward call timed); the train CLI at --embed_dim 48
                (16 steps of bs8 on seeded 128^2 pairs, a save an epoch).
+ 26. head dims 72-128 - kernels 5, 3 and 2 at head dims 72-128 in steps
+               of 8 (C up to 2048; one-window bodies of width 80, 96, 112
+               and 128): kernel 5 at every head dim on 1 and 16 heads at
+               window 8, shifts 0 and 4, LN and modulator, and on 16 heads
+               in packed window-4 tiles; kernel 3 at the stages of e72,
+               e96 and e128 (C 128-2048) on 2 x 16^2; kernel 2 at C = D
+               and 16 D; each against its plain version (fp32, bf16) and
+               timed in both dtypes beside it and its bound (and the bound
+               with the weights' re-reads from HBM past the L2). Uformer at
+               --embed_dim 72 (seeded 1288: 2 stage, 14 kernel-5 and 14
+               LeFF launches a request) and 128 (seeded 1289: 9 stage
+               launches) served (4 bf16 requests of batch 8 at 256^2, no
+               plain call, against the plain path, timed per kernel, peak
+               memory); one fp32 request of e96 at --train_ps 64 (seeded
+               1290: 5/8/8) against the plain path; e72's fp32 forward
+               (seeded 1291) sharded over 2 ranks against the unsharded
+               kernel path.
 
     python3 chip_smoke.py --only 25[,24,...]
 
-runs the build and then only the named phases of 19-25 (by number or by
+runs the build and then only the named phases of 19-26 (by number or by
 function name), each printing its result, then a kernels line of what
 ran and the last line; it exits 1 without that line if a phase failed.
 
@@ -416,6 +433,8 @@ phase 21, `_eval` the fp32 CLI frame's; `launches_e64train_e64`,
 23, `_train` and `_cli` a step's there; `launches_heads_e48`, `_e24` a
 bf16 request's in phase 24, `_e48_fp32` the fp32 one's;
 `launches_train_heads_e48`, `_e24` and `_cli` a step's in phase 25;
+`launches_big_heads_e72`, `_e128` a bf16 request's in phase 26,
+`_e96ps64_fp32` the fp32 one's, `_spatial_e72` rank 0's sharded forward;
 kernels 4, 5 and 6 carry `core_mma_launches` and `core_fma_launches`,
 their core's launches above window 8 by body (bf16 on the tensor cores,
 fp32 on the CUDA cores) summed over the sites in `core_bodies`: phase
@@ -7145,6 +7164,358 @@ def heads_train_phase(tmp: Path, device, card: str) -> tuple:
     return checks, summary, launches
 
 
+# phase 26, head dims 72-128: `--arch Uformer --embed_dim 72-128` (heads
+# 1-2-4-8-16-16-8-4-2, every block at head dim E, C = E nH up to 2048)
+# served through kernels 5, 3 and 2 on their one-window bodies at widths
+# 80, 96, 112 and 128 (`csrc/*_big_heads.cu`). Serve cells: label ->
+# (get_arch options, weight seed, launches a request by JAX's routes,
+# layers.py:757-775 and 979-985: the stage where C % 128 == 0, kernels 5
+# and 2 a block elsewhere, never kernel 1)
+BIG_MODELS = {
+    "e72": ({"arch": "Uformer", "embed_dim": 72, "train_ps": 128}, 1288,
+            dict(NO_LAUNCHES, stage=2, attention_block=14, leff=14)),
+    "e128": ({"arch": "Uformer", "embed_dim": 128, "train_ps": 128}, 1289,
+             dict(NO_LAUNCHES, stage=9)),
+}
+# one fp32 request (the eval CLI's default dtype): e96 built at
+# --train_ps 64, its bottleneck per block at window 4 (packed tiles, C 1536)
+BIG_FP32 = ({"arch": "Uformer", "embed_dim": 96, "train_ps": 64}, 1290,
+            dict(NO_LAUNCHES, stage=5, attention_block=8, leff=8))
+# the spatial path at head dim 72 (e72 built at 256^2), fp32 on 2 ranks
+SPATIAL_E72 = ({"arch": "Uformer", "embed_dim": 72, "train_ps": RES_SERVE},
+               1291)
+BIG_DIMS = tuple(range(72, 129, 8))  # the head dims this phase adds
+# kernel 3 at the stages of e72 (C 1152), e96 (384-1536), e128 (128-2048)
+BIG_STAGES = ((1152, 16), (384, 4), (768, 8), (1536, 16), (128, 1),
+              (256, 2), (512, 4), (1024, 8), (2048, 16))
+# kernel 2 at C = D and 16 D (hidden 4C; 288, 352, 416 and 480 padded)
+BIG_LEFF_C = sorted({D * nH for D in BIG_DIMS for nH in (1, 16)})
+L2_BYTES = 50e6  # the H100's L2
+
+
+def reread_bytes(weight_bytes: float, items: int) -> float:
+    """The bytes `items` work items read again from HBM when each streams
+    a layer's weights that do not fit the L2 (0 where they do: the first
+    item's read leaves them there)."""
+    return (items - 1) * weight_bytes if weight_bytes > L2_BYTES else 0.0
+
+
+def leff_tiles(lib, is_bf16: int, B: int, H: int, W: int, C: int) -> int:
+    """Work items of `leff_tile` (TH x 8 tiles) on a B x H x W image."""
+    th = lib.uf_leff_tile_rows(is_bf16, C, 4 * C)
+    return B * -(-H // th) * -(-W // 8)
+
+
+def dual_timed_compare(checks: Checks, kernel: str, what: str, fused, plain,
+                       x32, cost, reread, card: str) -> dict:
+    """`compare`, then in each dtype the kernel and its plain version
+    timed in turns on the same input (CUDA events, one call each after
+    the checks' warm calls) beside its bound: cost(s) = (operations, bytes)
+    at s bytes a value (each input read once, each output written once),
+    operations at 989 TFLOP/s in bf16 and 67 in fp32 (the generic bodies
+    run fp32 on the CUDA cores), bytes at 3.35 TB/s; and beside it the
+    bound with reread(s) bytes more, the weights the work items read again
+    from HBM past the L2."""
+    n = len(checks.rows)
+    compare(checks, kernel, what, fused, plain, x32)
+    row = {"what": what, "checks": checks.rows[n:]}
+    parts = []
+    for dt, s, peak, key in ((torch.float32, 4, PEAK_FP32, "fp32"),
+                             (torch.bfloat16, 2, PEAK_BF16, "bf16")):
+        x = x32.to(dt)
+        p1, k1, k2, p2 = (cuda_ms(lambda f=f: f(x, dt), reps=1, warmup=0)
+                          for f in (plain, fused, fused, plain))
+        ops, nbytes = cost(s)
+        t = {}
+        tally(t, kernel, (k1 + k2) / 2, (p1 + p2) / 2, (ops, nbytes),
+              peak=peak)
+        extra = reread(s)
+        row[key] = dict(t[kernel], bound_by=bound_by(t[kernel]),
+                        reread_bytes=extra,
+                        bound_reread_ms=max(ops / peak, (nbytes + extra)
+                                            / PEAK_HBM) * 1e3)
+        r = row[key]
+        parts.append(f"{key} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+                     f"bound {r['bound_ms']:.4f} {r['bound_by']}"
+                     + (f", {r['bound_reread_ms']:.4f} with the weights' "
+                        f"re-reads" if extra else "") + ")")
+    f32, b16 = checks.rows[n], checks.rows[n + 1]
+    print(f"  {kernel:15s} {what:34s} err fp32 {f32['err']:.2e}/"
+          f"{f32['bound']:.2e} bf16 {b16['err']:.2e}/{b16['bound']:.2e}; "
+          + "; ".join(parts) + f"  [{card}]", flush=True)
+    return row
+
+
+def big_heads_kernel_checks(checks: Checks, device, card: str) -> list:
+    """Kernels 5, 3 and 2 at head dims 72-128 against their plain
+    versions, fp32 (TF32 off) and bf16 by `compare`, each timed in both
+    dtypes (`dual_timed_compare`): kernel 5 at every new head dim on 1 and
+    16 heads at window 8, shifts 0 and 4, LN and modulator, and on 16
+    heads (C 16 D) in packed window-4 tiles at w_off 37; kernel 3 at
+    BIG_STAGES on 2 x 16^2; kernel 2 at every BIG_LEFF_C with LN and
+    residual on 2 x 16 x 24. Returns the timed rows."""
+    from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.ops.kernels._build import load
+
+    lib = load()
+    rng = np.random.default_rng(26)
+
+    def mk(*shape, fan_in=None, scale=0.3):
+        a = rng.standard_normal(shape)
+        return (a / np.sqrt(fan_in) if fan_in else a * scale).astype(
+            np.float32)
+
+    def xin(*shape):
+        return torch.from_numpy(mk(*shape, scale=1.0)).to(
+            device).bfloat16().float()
+
+    rows = []
+    Bw = HEADS_IMAGES * 16
+    for D in BIG_DIMS:
+        for win, nH, shift, w_off in ((8, 1, 0, 0), (8, 1, 4, 0),
+                                      (8, 16, 0, 0), (8, 16, 4, 0),
+                                      (4, 16, 2, 37)):
+            C, N, H = D * nH, win * win, 4 * win
+            prm = _prm(dict(mod=mk(N, C, scale=0.1),
+                            ln_s=1.0 + mk(C, scale=0.1),
+                            ln_b=mk(C, scale=0.1), wq=mk(C, C, fan_in=C),
+                            bq=mk(C, scale=0.02),
+                            wkv=mk(C, 2 * C, fan_in=C),
+                            bkv=mk(2 * C, scale=0.02),
+                            wo=mk(C, C, fan_in=C), bo=mk(C, scale=0.02),
+                            bias=mk(nH, N, N, scale=0.5)),
+                       device, ("mod", "wq", "wkv", "wo"))
+            kw = dict(win=win, shift=shift, H=H, W=H, scale=D ** -0.5,
+                      num_heads=nH, has_ln=True, w_off=w_off)
+            tiles = -(-Bw // (64 // N))
+            rows.append(dual_timed_compare(
+                checks, "attention_block",
+                f"D {D} C {C} win {win} shift {shift} off {w_off}",
+                lambda x, dt, p=prm, kw=kw: K.fused_attention_block(
+                    x, *p[dt].values(), **kw),
+                lambda x, dt, p=prm, kw=kw: K.attention_block_reference(
+                    x, *p[dt].values(), **kw),
+                xin(Bw, N, C),
+                lambda s, C=C, nH=nH, N=N: attn_cost(Bw * N, C, nH, s=s,
+                                                     N=N),
+                lambda s, C=C, tiles=tiles: reread_bytes(4 * C * C * s,
+                                                         tiles), card))
+    for C, nH in BIG_STAGES:
+        n, Ch, side = 2, 4 * C, 16
+        sprm = _prm(dict(
+            ln1_s=1.0 + mk(n, C, scale=0.1), ln1_b=mk(n, C, scale=0.1),
+            wq=mk(n, C, C, fan_in=C), bq=mk(n, C, scale=0.02),
+            wk=mk(n, C, C, fan_in=C), bk=mk(n, C, scale=0.02),
+            wv=mk(n, C, C, fan_in=C), bv=mk(n, C, scale=0.02),
+            wo=mk(n, C, C, fan_in=C), bo=mk(n, C, scale=0.02),
+            bias=mk(n, nH, 64, 64, scale=0.5), mod=mk(n, 64, C, scale=0.1),
+            ln2_s=1.0 + mk(n, C, scale=0.1), ln2_b=mk(n, C, scale=0.1),
+            w1=mk(n, C, Ch, fan_in=C), b1=mk(n, Ch, scale=0.02),
+            wd=mk(n, 3, 3, Ch, fan_in=9), bd=mk(n, Ch, scale=0.02),
+            w2=mk(n, Ch, C, fan_in=Ch), b2=mk(n, C, scale=0.02)),
+            device, ("wq", "wk", "wv", "wo", "mod", "w1", "wd", "w2"))
+        kw = dict(scale=(C // nH) ** -0.5, num_heads=nH, use_shift=True,
+                  has_mod=True)
+        windows = 2 * (side // 8) ** 2
+
+        def stage_reread(s, C=C, windows=windows, side=side):
+            tiles = leff_tiles(lib, int(s == 2), 2, side, side, C)
+            return n * (reread_bytes(4 * C * C * s, windows)
+                        + reread_bytes((2 * C * 4 * C + 36 * C) * s, tiles))
+
+        rows.append(dual_timed_compare(
+            checks, "stage", f"D {C // nH} C {C} 2x{side}^2",
+            lambda x, dt, p=sprm, kw=kw: K.fused_stage(x, p[dt], **kw),
+            lambda x, dt, p=sprm, kw=kw: K.stage_reference(x, p[dt], **kw),
+            xin(2, side, side, C),
+            lambda s, C=C, nH=nH, Ch=Ch: stage_cost(2 * side * side, C, nH,
+                                                    Ch, n, s=s),
+            stage_reread, card))
+    for C in BIG_LEFF_C:
+        Ch = 4 * C
+        lprm = _prm(dict(w1=mk(C, Ch, fan_in=C), b1=mk(Ch, scale=0.02),
+                         wd=mk(3, 3, Ch, fan_in=9), bd=mk(Ch, scale=0.02),
+                         w2=mk(Ch, C, fan_in=Ch), b2=mk(C, scale=0.02),
+                         ln_s=1.0 + mk(C, scale=0.1), ln_b=mk(C, scale=0.1)),
+                    device, ("w1", "wd", "w2"))
+
+        def run(fn, p=lprm):
+            def call(x, dt):
+                q = p[dt]
+                return fn(x, *(q[k] for k in ("w1", "b1", "wd", "bd", "w2",
+                                              "b2")),
+                          ln_s=q["ln_s"], ln_b=q["ln_b"], residual=True)
+            return call
+
+        rows.append(dual_timed_compare(
+            checks, "leff", f"C {C} Ch {Ch} 2x16x24", run(K.fused_leff),
+            run(K.leff_reference), xin(2, 16, 24, C),
+            lambda s, C=C, Ch=Ch: leff_cost(2 * 16 * 24, C, Ch, s=s),
+            lambda s, C=C, Ch=Ch: reread_bytes(
+                (2 * C * Ch + 9 * Ch) * s,
+                leff_tiles(lib, int(s == 2), 2, 16, 24, C)), card))
+    torch.cuda.synchronize()
+    return rows
+
+
+def big_fp32_request(device, checks: Checks, card: str) -> dict:
+    """One fp32 bs8 256^2 request of e96 built at --train_ps 64 (BIG_FP32)
+    through a Restorer (TF32 off): its launches, no plain call, the clamped
+    output and the output before the clamp against the plain path within
+    1e-4 (1 + max|ref|)."""
+    from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.restore import Restorer
+
+    opt, seed, expected = BIG_FP32
+    restorer = Restorer(build_arch(opt, seeded_for(opt, seed), device),
+                        torch.float32, device)
+    x = torch.rand((BATCH_SERVE, RES_SERVE, RES_SERVE, 3),
+                   generator=torch.Generator(device="cpu").manual_seed(3))
+    restorer(x)  # warm-up
+    torch.cuda.synchronize()
+    K.reset_counts()
+    t0 = time.perf_counter()
+    y = restorer(x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = K.launch_counts()
+    if got != expected or any(K.plain_counts().values()):
+        raise RuntimeError(f"e96 ps64 fp32 request: launches {got}, plain "
+                           f"calls {K.plain_counts()}; expected {expected}")
+    xd = x.to(device)
+    with torch.no_grad():
+        raw = restorer.model(xd).float()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = restorer.model(xd, plain=True).float()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    for what, a, b in (("clamped", y, ref.clamp(0.0, 1.0)),
+                       ("before the clamp", raw, ref)):
+        checks.add("model", f"serve e96 ps64 fp32 bs8 256^2 request {what}",
+                   max_err(a, b), 1e-4 * (1.0 + float(b.abs().max())),
+                   "fp32")
+    print(f"  serve e96 ps64 fp32 bs{BATCH_SERVE} {RES_SERVE}^2: one "
+          f"request {ms:.3f} ms (the plain path's forward {plain_ms:.3f} "
+          f"ms), launches {got}, no plain call; against the plain path "
+          f"{checks.rows[-2]['err']:.2e} (clamped), "
+          f"{checks.rows[-1]['err']:.2e} (before)  [{card}]", flush=True)
+    del restorer
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_forward_ms": plain_ms, "launches": got}
+
+
+def rank_spatial_e72(rank: int, world: int, x: np.ndarray) -> dict:
+    """One rank of the fp32 sharded forward of x at --embed_dim 72
+    (SPATIAL_E72) on cuda:0: the result (rank 0; the others its crc32),
+    launches and plain calls."""
+    import torch.distributed as dist
+
+    from uformer_tpu_torch.parallel import spatial as S
+    from uformer_tpu_torch.restore import Restorer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    opt, seed = SPATIAL_E72
+    r = Restorer(build_arch(opt, seeded_for(opt, seed), device),
+                 torch.float32, device)
+    xt = torch.from_numpy(x).to(device)
+    S.check_spatial_card(r.model)
+    y, counts, plain = launches_of(
+        lambda: S.run_uformer_spatially_sharded(r.model, xt,
+                                                dist.group.WORLD))
+    y = y.float().cpu().numpy()
+    return {"y": y if dist.get_rank() == 0 else None, "crc": bits_crc(y),
+            "counts": counts, "plain": plain}
+
+
+def spatial_e72_check(checks: Checks, device, card: str) -> dict:
+    """e72's fp32 forward of one 256^2 image sharded over 2 ranks on the
+    card (gloo) against the unsharded kernel path within 1e-4 (1 +
+    max|ref|): SPATIAL_WIN_LAUNCHES a rank (every block through kernels 5
+    and 2, C 1152 at the bottleneck and dec0 too), no plain call, equal
+    results on both ranks."""
+    from uformer_tpu_torch.parallel.multihost import spawn_ranks
+    from uformer_tpu_torch.restore import Restorer
+
+    x = np.random.default_rng(PAR_SEED + 5).uniform(
+        0, 1, (1, RES_SERVE, RES_SERVE, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    two = spawn_ranks(rank_spatial_e72, 2, x, backend="gloo",
+                      device="cuda:0", timeout_s=PAR_TIMEOUT_S,
+                      num_threads=None)
+    ranks_s = time.perf_counter() - t0
+    opt, seed = SPATIAL_E72
+    model = build_arch(opt, seeded_for(opt, seed), device)
+    with torch.no_grad():
+        ref = Restorer(model, torch.float32, device).model(
+            torch.from_numpy(x).to(device)).float().cpu().numpy()
+    for r, row in enumerate(two):
+        expect_counts(f"spatial e72 2 ranks fp32 rank {r}", row["counts"],
+                      row["plain"], SPATIAL_WIN_LAUNCHES)
+    if two[0]["crc"] != two[1]["crc"]:
+        raise RuntimeError("spatial e72 fp32: the ranks' results differ")
+    diff = float(np.abs(two[0]["y"] - ref).max())
+    checks.add("model", f"spatial e72 2 ranks {RES_SERVE}^2 bs1 fp32 "
+               f"against unsharded kernel path", diff,
+               1e-4 * (1.0 + float(np.abs(ref).max())), "fp32")
+    print(f"  spatial e72 2 ranks fp32: 18 kernel-5 and 18 kernel-2 "
+          f"launches a rank, no plain call; against the unsharded kernel "
+          f"path max diff {diff:.3e}; ranks {ranks_s:.1f} s  [{card}]",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"max_diff_vs_unsharded_kernels": diff,
+            "launches": two[0]["counts"], "ranks_s": ranks_s}
+
+
+def big_heads_phase(tmp: Path, device, card: str) -> tuple:
+    """Phase 26: kernels 5, 3 and 2 at head dims 72-128 against their
+    plain versions, each timed in fp32 and bf16 (`big_heads_kernel_checks`);
+    the serve cells e72 and e128 (BIG_MODELS: 4 bf16 requests of batch 8
+    at 256^2, their launches, no plain call, against the plain path, each
+    kernel's time per stage and the forward on both paths, peak memory);
+    one fp32 request of e96 at --train_ps 64 against the plain path; e72's
+    fp32 forward on 2 ranks against one. Returns the checks, the summary
+    and the launches per path."""
+    from uformer_tpu_torch.ops import kernels as K
+
+    checks, summary, launches = Checks(), {"card": card}, {}
+    t0 = time.perf_counter()
+    summary["kernel_rows"] = big_heads_kernel_checks(checks, device, card)
+    summary["kernel_checks_s"] = time.perf_counter() - t0
+    for label, (opt, seed, expected) in BIG_MODELS.items():
+        sd = seeded_for(opt, seed)
+        restorer, x, serve, _, schecks = serve_phase(
+            lambda opt=opt, sd=sd: build_arch(opt, sd, device), device,
+            expected, f"serve {label}")
+        if any(K.plain_counts().values()):
+            raise RuntimeError(f"serve {label}: plain calls "
+                               f"{K.plain_counts()}")
+        checks.rows += schecks.rows
+        checks.failed += schecks.failed
+        launches[label] = serve["launches_per_request"][0]
+        rows, totals, fwd = timing_phase(restorer, x, reps=2)
+        summary.update({f"serve_{label}": serve, f"timing_{label}": rows,
+                        f"timing_totals_{label}": totals,
+                        f"forward_{label}": fwd})
+        print(f"  serve {label} bs{BATCH_SERVE} {RES_SERVE}^2 bf16: "
+              f"{serve['median_ms']:.3f} ms a request, "
+              f"{serve['mp_per_s']:.2f} MP/s, kernel path "
+              f"{fwd['kernel_ms']:.3f} ms against plain path "
+              f"{fwd['plain_ms']:.3f} ms a forward, peak "
+              f"{serve['max_memory_allocated_bytes'] / 2**20:.1f} MiB  "
+              f"[{card}]", flush=True)
+        del restorer, x, sd
+        torch.cuda.empty_cache()
+    summary["fp32_e96ps64"] = big_fp32_request(device, checks, card)
+    launches["e96ps64_fp32"] = summary["fp32_e96ps64"]["launches"]
+    summary["spatial_e72"] = spatial_e72_check(checks, device, card)
+    launches["spatial_e72"] = summary["spatial_e72"]["launches"]
+    return checks, summary, launches
+
+
 # the phases that take (tmp, device, card) alone: number -> (name, function,
 # key of its report, key of its launches on the kernels line), in order;
 # `--only` picks among them
@@ -7159,6 +7530,8 @@ SELF_CONTAINED = {
     "24": ("head dims 24-56", "heads_phase", "heads", "heads"),
     "25": ("train head dims 24-56", "heads_train_phase", "heads_train",
            "train_heads"),
+    "26": ("head dims 72-128", "big_heads_phase", "big_heads",
+           "big_heads"),
 }
 
 
@@ -7243,7 +7616,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", type=Path, help="write the full report here")
     ap.add_argument("--only", help="run the build, then only these of "
-                    "phases 19-25 (numbers or function names, comma "
+                    "phases 19-26 (numbers or function names, comma "
                     "separated)")
     args = ap.parse_args()
     only = None
@@ -7462,7 +7835,7 @@ def run(device, card: str, json_path) -> list:
     print(f"  phase 18 took {geometries['s']:.1f} s", flush=True)
     gchecks18.raise_if_failed("geometries")
 
-    # phases 19-25: each raises on a failed check before the next starts
+    # phases 19-26: each raises on a failed check before the next starts
     later = {}
     for num in SELF_CONTAINED:
         later[num] = run_self_contained(num, device, card)
@@ -7473,7 +7846,8 @@ def run(device, card: str, json_path) -> list:
         (gchecks22, head64t, head64t_launches), \
         (gchecks23, above16, above16_launches), \
         (gchecks24, heads, heads_launches), \
-        (gchecks25, heads_t, heads_t_launches) = later.values()
+        (gchecks25, heads_t, heads_t_launches), \
+        (gchecks26, big, big_launches) = later.values()
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
@@ -7511,7 +7885,8 @@ def run(device, card: str, json_path) -> list:
               "above16_checks": gchecks23.rows, "above16": above16,
               "heads_checks": gchecks24.rows, "heads": heads,
               "heads_train_checks": gchecks25.rows,
-              "heads_train": heads_t}
+              "heads_train": heads_t,
+              "big_heads_checks": gchecks26.rows, "big_heads": big}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -7535,7 +7910,7 @@ def run(device, card: str, json_path) -> list:
                    + tile_checks.rows + mchecks.rows + pchecks.rows
                    + gchecks18.rows + gchecks19.rows + gchecks20.rows
                    + gchecks21.rows + gchecks22.rows + gchecks23.rows
-                   + gchecks24.rows + gchecks25.rows
+                   + gchecks24.rows + gchecks25.rows + gchecks26.rows
                    if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
@@ -7569,7 +7944,9 @@ def run(device, card: str, json_path) -> list:
                               + sum(kernel_count(c, name)
                                     for c in heads_launches.values())
                               + sum(kernel_count(c, name)
-                                    for c in heads_t_launches.values())),
+                                    for c in heads_t_launches.values())
+                              + sum(kernel_count(c, name)
+                                    for c in big_launches.values())),
                  "launches_serve": kernel_count(launches, name),
                  "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
@@ -7605,6 +7982,8 @@ def run(device, card: str, json_path) -> list:
                     for path, c in heads_launches.items()},
                  **{f"launches_train_heads_{path}": kernel_count(c, name)
                     for path, c in heads_t_launches.items()},
+                 **{f"launches_big_heads_{path}": kernel_count(c, name)
+                    for path, c in big_launches.items()},
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -7699,7 +8078,11 @@ def run(device, card: str, json_path) -> list:
                                ("train e48", "train_e48",
                                 heads_t["timing_totals_e48"]),
                                ("train e24", "train_e24",
-                                heads_t["timing_totals_e24"])):
+                                heads_t["timing_totals_e24"]),
+                               ("serve e72", "e72",
+                                big["timing_totals_e72"]),
+                               ("serve e128", "e128",
+                                big["timing_totals_e128"])):
             if name in tt and label not in where:
                 entry.update({f"ms_{key}": tt[name]["ms"],
                               f"plain_ms_{key}": tt[name]["plain_ms"],

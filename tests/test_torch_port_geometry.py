@@ -412,7 +412,15 @@ ROUTES = [("Uformer_B ps64", dict(arch="Uformer_B", train_ps=64), 128,
           ("Uformer e48", dict(arch="Uformer", embed_dim=48, train_ps=128),
            256, (4, 0, 10, 10)),
           ("Uformer e24", dict(arch="Uformer", embed_dim=24, train_ps=128),
-           256, (2, 0, 14, 14))]
+           256, (2, 0, 14, 14)),
+          ("Uformer e72", dict(arch="Uformer", embed_dim=72, train_ps=128),
+           128, (2, 0, 14, 14)),
+          ("Uformer e96", dict(arch="Uformer", embed_dim=96, train_ps=128),
+           128, (6, 0, 6, 6)),
+          ("Uformer e128", dict(arch="Uformer", embed_dim=128,
+                                train_ps=128), 128, (9, 0, 0, 0)),
+          ("Uformer e96 ps64", dict(arch="Uformer", embed_dim=96,
+                                    train_ps=64), 128, (5, 0, 8, 8))]
 
 
 def _flagship():

@@ -302,10 +302,12 @@ def test_embed64_uformer_matches_jax(jx):
 def test_forward_checks_take_head_dim_64():
     """Head dim 64 is one of the kernels' head dims both ways (the
     backward's since head dim 64's backward was ported), at every window
-    1-16; the backward takes every head dim of the forward (8-64, the
-    multiples of 8, since head dims 24-56's backward was ported)."""
-    assert BACKWARD_HEAD_DIMS == FORWARD_HEAD_DIMS == \
-        (8, 16, 24, 32, 40, 48, 56, 64)
+    1-16; the backward takes every head dim of the forward up to 64 (the
+    multiples of 8, since head dims 24-56's backward was ported), the
+    forward kernels 3 and 5 at windows 1-8 also 72-128."""
+    assert BACKWARD_HEAD_DIMS == (8, 16, 24, 32, 40, 48, 56, 64)
+    assert FORWARD_HEAD_DIMS == BACKWARD_HEAD_DIMS + tuple(range(72, 129,
+                                                                 8))
     for C, nH in ((64, 1), (128, 2), (512, 8), (1024, 16)):
         check_head_dim(C, nH)
         check_head_dim(C, nH, FORWARD_HEAD_DIMS)
@@ -317,8 +319,10 @@ def test_forward_checks_take_head_dim_64():
                                       (2048, 16, 8), (64, 1, 9),
                                       (1024, 16, 16)])
 def test_head_dim_128_and_wide_windows_at_64_raise(C, nH, win):
-    """Head dim 128 has no kernel either way (ROADMAP queue 2 item 9);
-    head dim 64 runs at every window, 17 and 32 too, and a head dim of 20
+    """Head dim 128 is refused by the default check (kernels 1 and 6,
+    and kernel 5 above window 8: ROADMAP queue 2 item 9; the forward
+    kernels 3 and 5 take it at windows 1-8, FORWARD_HEAD_DIMS); head dim
+    64 runs at every window, 17 and 32 too, and a head dim of 20
     has no kernel at any window, forward either (item 9 again)."""
     if C // nH == 128:
         with pytest.raises(ValueError,

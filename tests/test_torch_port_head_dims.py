@@ -281,11 +281,13 @@ def test_uformer_matches_jax(jx, opt):
 # ---- the checks ------------------------------------------------------------
 
 def test_forward_and_backward_head_dims():
-    """The kernels take every multiple of 8 up to 64 both ways; kernel 4
-    (no model path calls it) the powers of two among them at windows
-    1-8."""
-    assert FORWARD_HEAD_DIMS == (8, 16, 24, 32, 40, 48, 56, 64)
-    assert BACKWARD_HEAD_DIMS == HEAD_DIMS == FORWARD_HEAD_DIMS
+    """The kernels take every multiple of 8 up to 64 both ways, and the
+    forward kernels 3 and 5 at windows 1-8 every multiple of 8 up to 128
+    (tests/test_torch_port_head_dims_above64.py); kernel 4 (no model path
+    calls it) the powers of two among 8-64 at windows 1-8."""
+    assert FORWARD_HEAD_DIMS == tuple(range(8, 129, 8))
+    assert BACKWARD_HEAD_DIMS == HEAD_DIMS == \
+        (8, 16, 24, 32, 40, 48, 56, 64)
     assert set(HEAD_DIMS) - set(WINDOW_ATTENTION_HEAD_DIMS) == \
         set(NEW_DIMS)
 
@@ -305,14 +307,18 @@ def test_new_head_dims_forward_only(D):
         check_head_dim(D, 1, WINDOW_ATTENTION_HEAD_DIMS)
 
 
-@pytest.mark.parametrize("D", [12, 20, 128])
+@pytest.mark.parametrize("D", [12, 20, 136])
 def test_other_head_dims_refused_everywhere(D):
-    """A head dim that is no multiple of 8, or above 64, has no kernel
-    either way (ROADMAP queue 2 item 9)."""
+    """A head dim that is no multiple of 8, or above 128, has no kernel
+    either way, and head dim 128 none backward (ROADMAP queue 2 item
+    9)."""
     for dims in (FORWARD_HEAD_DIMS, BACKWARD_HEAD_DIMS):
         for nH in (1, 4, 16):
             with pytest.raises(ValueError, match=ITEM9):
                 check_head_dim(D * nH, nH, dims)
+    for nH in (1, 4, 16):
+        with pytest.raises(ValueError, match=ITEM9):
+            check_head_dim(128 * nH, nH, BACKWARD_HEAD_DIMS)
     if D % 8:
         with pytest.raises(ValueError, match="C % 8"):
             check_width(D)

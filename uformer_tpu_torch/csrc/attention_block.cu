@@ -6,7 +6,8 @@
 // and partitioned, [LN1] + modulator, q/kv projection, fp32-softmax
 // window attention with relative-position bias and the inline SW-MSA
 // mask, output projection. The attention branch only, no residual. Head
-// dim 8, 16, 32 or 64, and 24, 40, 48 or 56 (attention_block_heads.cu);
+// dim 8, 16, 32 or 64, 24, 40, 48 or 56 (attention_block_heads.cu), and
+// 72-128 in steps of 8 (attention_block_big_heads.cu);
 // window win 1-8 (N = win^2 tokens). Window i lies at
 // place (w_off + i) mod nW of its H x W image (nW = (H / win)(W / win)),
 // which sets its region ids (from size - win, as the TPU kernel's
@@ -32,7 +33,11 @@
 //     none a power of two) run only here, in bf16 on weights staged in
 //     zero-padded chunks (attention_window.cuh: attn_stage_w); C >= 128 runs here at window 8 on no model
 //     path: the model's image route takes every C % 128 == 0
-//     (models/layers.py:LeWinBlock.image_route);
+//     (models/layers.py:LeWinBlock.image_route). Head dims 72-128
+//     (--embed_dim 72-128: C 72-2048) run here too, on bodies of width 80,
+//     96, 112 or 128 that project q, k and v in turn; xm and O go to the
+//     block's scratch slot where they miss shared memory (in bf16 from C
+//     448-768, in fp32 from C 224-384);
 //   - windows of N = win^2 < 64 tokens (a stage below the window, or
 //     --win_size below 8) in packed tiles: a block (or, in bf16 at C
 //     8-64, a group of four warps of attention_block_packed.cu) takes 64
@@ -97,6 +102,8 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
   const int G = 64 / (win * win), tiles = (Bw + G - 1) / G;
   if (is_new_head_dim(C, nH))
     return attention_block_heads<T>(p, packed ? tiles : Bw, packed, s);
+  if (is_big_head_dim(C, nH))
+    return attention_block_big_heads<T>(p, packed ? tiles : Bw, packed, s);
   return with_head_dim(C, nH, [&](auto d) {
     constexpr int Dd = decltype(d)::value;
     return packed ? launch_block<T, Dd, true>(p, tiles, s)

@@ -1,7 +1,7 @@
 // Kernel 5's one-window-per-block body (attention_window.cuh) and its
-// launch, shared by attention_block.cu (head dims 8, 16, 32, 64) and
-// attention_block_heads.cu (24, 40, 48, 56), which nvcc compiles in
-// parallel.
+// launch, shared by attention_block.cu (head dims 8, 16, 32, 64),
+// attention_block_heads.cu (24, 40, 48, 56) and
+// attention_block_big_heads.cu (72-128), which nvcc compiles in parallel.
 #pragma once
 
 #include "attention_image.cuh"
@@ -39,5 +39,11 @@ int launch_block(const AttnParams<T>& p, int Bw, cudaStream_t stream) {
 template <typename T>
 int attention_block_heads(const AttnParams<T>& p, int blocks, bool packed,
                           cudaStream_t stream);
+
+// Kernel 5 at head dim C / nH in 72-128, a multiple of 8
+// (is_big_head_dim), on `blocks` windows, or packed tiles with `packed`.
+template <typename T>
+int attention_block_big_heads(const AttnParams<T>& p, int blocks,
+                              bool packed, cudaStream_t stream);
 
 }  // namespace uf

@@ -123,7 +123,9 @@ const char* uf_error_string(int err) {
 // memory, 0, 1 or 2 (attention_window.cuh: the head outputs, then the
 // LN1 output too): the caller passes a scratch tensor of that many times
 // the input's shape and dtype (attention_image in fp32 or at widths
-// without a bf16 body, stage, attention_block). D 8-64, a multiple of 8.
+// without a bf16 body, stage, attention_block). D 8-128, a multiple of 8
+// (72-128 on the body of the next multiple of 16, with_big_head_dim);
+// any other D, which no body takes, a negated cudaErrorInvalidValue.
 int uf_attention_needs_scratch(int is_bf16, int C, int D) {
   const int ts = is_bf16 ? 2 : 4;
   switch (D) {
@@ -134,8 +136,13 @@ int uf_attention_needs_scratch(int is_bf16, int C, int D) {
     case 40: return uf::attn_layout<40>(ts, C).regions();
     case 48: return uf::attn_layout<48>(ts, C).regions();
     case 56: return uf::attn_layout<56>(ts, C).regions();
+    case 64: return uf::attn_layout<64>(ts, C).regions();
+    case 72: case 80: return uf::attn_layout<80>(ts, C).regions();
+    case 88: case 96: return uf::attn_layout<96>(ts, C).regions();
+    case 104: case 112: return uf::attn_layout<112>(ts, C).regions();
+    case 120: case 128: return uf::attn_layout<128>(ts, C).regions();
   }
-  return uf::attn_layout<64>(ts, C).regions();
+  return -(int)cudaErrorInvalidValue;
 }
 
 // The blocks of kernel 1's persistent bf16 body for (C, D) at wn windows

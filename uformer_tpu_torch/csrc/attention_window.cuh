@@ -1,7 +1,9 @@
 // One 8x8 window of the LeWin attention sub-block, computed by one thread
 // block, for head dim D in {8, 16, 32, 64} (both ways) and, forward only,
 // {24, 40, 48, 56} (stage.cu and attention_block.cu through
-// with_new_head_dim, each in its own translation unit). Shared by
+// with_new_head_dim, each in its own translation unit) and 72-128 in
+// steps of 8 (with_big_head_dim: the body of width D in {80, 96, 112,
+// 128} takes the head dim C / nH, D or D - 8, at run time). Shared by
 // attention_image.cu (one window per block), stage.cu (a persistent block
 // walks many windows) and attention_block.cu (one window, or one packed
 // tile of windows of N = win^2 < 64 tokens, per block, windows already
@@ -39,13 +41,25 @@
 // them too, at any C: the last chunk's rows past C, up to the next 16,
 // and xm's and O's columns C..C+7 are zero.
 //
+// Head dims 72-128 (an --embed_dim 72-128 model: C 72-2048): the three
+// 64 x D accumulators of q, k and v would not fit beside the staged
+// chunk and the q, k, v tiles (about 260 KB in bf16 at D 128), so the
+// body projects q, k and v in turn into one 64 x D accumulator, each over
+// its own staged chunks (128 x D) of the weight; a head of 72, 88, 104 or
+// 120 runs the next multiple of 16, its columns hd..D-1 of q, k, v and of
+// the staged chunks zero (exact in both dtypes; fp32 reads its weights
+// from device memory over the hd true columns). The softmax scale is the
+// host's, of the true head dim.
+//
 // The 64 x C tiles of the LN1 output (xm) and of the concatenated head
 // outputs (O) stay in shared memory where they fit beside the working
 // set, xm first (every head's three projections read it, O only the
 // output projection); otherwise each goes to the block's slot of the
 // scratch tensor in device memory (L2), read there by the same products:
 // at head dim 64, fp32 from C = 256 (O) and 512 (xm), bf16 from C = 512
-// (O) and 1024 (xm: an --embed_dim 64 model's bottleneck and dec0).
+// (O) and 1024 (xm: an --embed_dim 64 model's bottleneck and dec0); at
+// head dims 72-128 O from C 448-768 and xm from C 1024-1792 in bf16, O
+// from C 224-384 and xm from C 448-768 in fp32.
 #pragma once
 
 #include "window_core.cuh"
@@ -84,14 +98,20 @@ struct AttnParams {
 // whole 16-wide fragment of a device-memory weight covers (their chunks
 // then carry zero pads).
 __host__ __device__ constexpr bool attn_stage_w(int C, int D) {
-  return C % 128 == 0 || (D > 8 && D % 16) || C % 16;
+  return C % 128 == 0 || (D > 8 && D % 16) || C % 16 || D > 64;
 }
+
+// Whether the body of width D takes its head dim at run time and
+// projects q, k and v in turn (head dims 72-128).
+__host__ __device__ constexpr bool attn_big_head(int D) { return D > 64; }
 
 // Shared-memory layout of one window's working set.
 template <int D>
 struct AttnLayout {
   static constexpr int kD16 = (D + 15) / 16 * 16;  // a bf16 head's products
-  static constexpr int kQKV = 3 * kD16 > 64 ? 3 * kD16 : 64;  // widest acc
+  // the widest accumulator: [q | k | v], or one of them at head dims 72-128
+  static constexpr int kQKV = attn_big_head(D) ? kD16
+                              : (3 * kD16 > 64 ? 3 * kD16 : 64);
   static constexpr int ldq = D + 8, ldp = 72, ldacc = kQKV + 4;
   static constexpr int kWChunk = 128, ldw = kQKV + 8;  // staged weights
   int ldx, ldo;
@@ -113,8 +133,9 @@ __host__ __device__ inline AttnLayout<D> attn_layout(int tsize, int C) {
   L.acc = cv.take(64 * L_::ldacc * sizeof(float));
   L.pix = cv.take(64 * sizeof(int));
   L.rid = cv.take(64 * sizeof(int));
-  // staged weights: [q | k | v] head columns (kWChunk x 3D) or a wo chunk
-  // (kWChunk x 64), at most C rounded up to 16 rows; bf16 where
+  // staged weights: [q | k | v] head columns (kWChunk x 3D; one of them,
+  // kWChunk x D, at head dims 72-128) or a wo chunk (kWChunk x 64), at
+  // most C rounded up to 16 rows; bf16 where
   // attn_stage_w says so
   L.w_smem = tsize == 2 && attn_stage_w(C, D);
   const int w_rows = C < L_::kWChunk ? (C + 15) / 16 * 16 : L_::kWChunk;
@@ -203,6 +224,9 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
                 KW = L_::kWChunk, ldw = L_::ldw;
   constexpr int kHeadTiles = 4 * (D / 16);  // 16x16 tiles of a 64 x D tile
   constexpr int DP = padded_head<T, D>();    // the products' head width
+  constexpr bool kBig = attn_big_head(D);
+  // the head dim: D, or at head dims 72-128 C / nH (D or D - 8)
+  const int hd = kBig ? C / p.nH : D;
 
   // (a) token map, then the gather
   if constexpr (kPacked)
@@ -230,8 +254,45 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
   __syncthreads();
 
   for (int h = 0; h < p.nH; ++h) {
-    const int c0 = h * D;
-    if (stage_w) {
+    const int c0 = h * hd;
+    if constexpr (kBig) {
+      // q, k and v in turn, each into acc's first D columns
+      for (int m = 0; m < 3; ++m) {
+        const T* wm = m == 0 ? p.wq : (m == 1 ? p.wk : p.wv);
+        const int ldm = m == 0 ? C : p.ldkv;
+        const float* bm = m == 0 ? p.bq : (m == 1 ? p.bk : p.bv);
+        const float sc = m == 0 ? p.scale : 1.0f;
+        T* dst = m == 0 ? q : (m == 1 ? k : v);
+        if (stage_w) {
+          // kr x hd chunks, zero to kr16 rows and D columns
+          for (int kc = 0; kc < C; kc += KW) {
+            const int kr = min(KW, C - kc), kr16 = (kr + 15) & ~15;
+            stage_tile<T>(wbuf, ldw, wm + (size_t)kc * ldm + c0, ldm, kr,
+                          hd);
+            zero_pad<T>(wbuf, ldw, kr16, D, kr, hd);
+            __syncthreads();
+            if (kc == 0)
+              block_gemm<T, false, false, false, NW>(xm, ldx, wbuf, ldw, acc,
+                                                     lda, 64, D, kr16);
+            else
+              block_gemm<T, false, true, false, NW>(xm + kc, ldx, wbuf, ldw,
+                                                    acc, lda, 64, D, kr16);
+            __syncthreads();
+          }
+        } else {
+          block_gemm<T, false, false, false, NW>(xm, ldx, wm + c0, ldm, acc,
+                                                 lda, 64, hd, C);
+          __syncthreads();
+        }
+        for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
+          const int t = idx / D, d = idx % D;
+          dst[t * ldq + d] =
+              d < hd ? from_f<T>((acc[t * lda + d] + bm[c0 + d]) * sc)
+                     : from_f<T>(0.f);
+        }
+        __syncthreads();
+      }
+    } else if (stage_w) {
       // [q | k | v] = xm @ wbuf, accumulated over the chunks; a last chunk
       // of kr rows (C 8 mod 16) is zero from row kr to kr16
       for (int kc = 0; kc < C; kc += KW) {
@@ -267,23 +328,26 @@ __device__ void attention_window(const AttnParams<T>& p, int item,
                                              2 * kHeadTiles);
       __syncthreads();
     }
-    for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
-      const int t = idx / D, d = idx % D;
-      q[t * ldq + d] = from_f<T>((acc[t * lda + d] + p.bq[c0 + d]) * p.scale);
-      k[t * ldq + d] = from_f<T>(acc[t * lda + DP + d] + p.bk[c0 + d]);
-      v[t * ldq + d] = from_f<T>(acc[t * lda + 2 * DP + d] + p.bv[c0 + d]);
-    }
-    if constexpr (DP != D)  // zero pad columns: exact 16-wide products
-      for (int t = tid; t < 64; t += blockDim.x) {
-        *reinterpret_cast<uint4*>(q + t * ldq + D) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(k + t * ldq + D) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(v + t * ldq + D) = make_uint4(0, 0, 0, 0);
+    if constexpr (!kBig) {
+      for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
+        const int t = idx / D, d = idx % D;
+        q[t * ldq + d] =
+            from_f<T>((acc[t * lda + d] + p.bq[c0 + d]) * p.scale);
+        k[t * ldq + d] = from_f<T>(acc[t * lda + DP + d] + p.bk[c0 + d]);
+        v[t * ldq + d] = from_f<T>(acc[t * lda + 2 * DP + d] + p.bv[c0 + d]);
       }
-    __syncthreads();
+      if constexpr (DP != D)  // zero pad columns: exact 16-wide products
+        for (int t = tid; t < 64; t += blockDim.x) {
+          *reinterpret_cast<uint4*>(q + t * ldq + D) = make_uint4(0, 0, 0, 0);
+          *reinterpret_cast<uint4*>(k + t * ldq + D) = make_uint4(0, 0, 0, 0);
+          *reinterpret_cast<uint4*>(v + t * ldq + D) = make_uint4(0, 0, 0, 0);
+        }
+      __syncthreads();
+    }
     window_core<T, D, NW>(q, k, v, ldq, p.bias + (size_t)h * 4096,
                       p.shift ? rid : nullptr, 1.0f, P, ldp, acc, lda);
-    for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
-      const int t = idx / D, d = idx % D;
+    for (int idx = tid; idx < 64 * hd; idx += blockDim.x) {
+      const int t = idx / hd, d = idx % hd;
       O[t * ldo + c0 + d] = from_f<T>(acc[t * lda + d]);
     }
     __syncthreads();
@@ -355,6 +419,28 @@ int with_new_head_dim(int C, int nH, F f) {
     case 40: return f(std::integral_constant<int, 40>{});
     case 48: return f(std::integral_constant<int, 48>{});
     case 56: return f(std::integral_constant<int, 56>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Whether C / nH is a head dim of 72-128, a multiple of 8: the forward's
+// one-window bodies of width (C / nH) rounded up to 16 (kernels 3 and 5,
+// each instantiated in a translation unit of its own, *_big_heads.cu).
+__host__ inline bool is_big_head_dim(int C, int nH) {
+  if (nH <= 0 || C % nH) return false;
+  const int D = C / nH;
+  return D > 64 && D <= 128 && D % 8 == 0;
+}
+
+// with_head_dim for those head dims: f gets the body's width, 80, 96, 112
+// or 128 (the head dim itself, or the next multiple of 16).
+template <typename F>
+int with_big_head_dim(int C, int nH, F f) {
+  switch (is_big_head_dim(C, nH) ? (C / nH + 15) / 16 * 16 : 0) {
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 112: return f(std::integral_constant<int, 112>{});
+    case 128: return f(std::integral_constant<int, 128>{});
   }
   return (int)cudaErrorInvalidValue;
 }

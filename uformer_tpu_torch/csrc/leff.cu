@@ -17,7 +17,10 @@
 // TF32 tile of leff_f32.cuh (leff_f32.cu, a tile a block). fp32 at C 8
 // and at widths that are no power of two or 1024, and bf16 at widths
 // without an mma tile, run the WMMA/FMA tile of leff_tile.cuh, one TH x 8
-// tile per block (1 x 8 in fp32 at C = 1024), partial tiles masked.
+// tile per block (1 x 8 in fp32 at C = 1024), partial tiles masked; at C
+// 1408-2048 (an --embed_dim 88-128 model's bottleneck and dec0) its halo
+// goes to the caller's scratch slots, one a block, and the blocks walk
+// the tiles over them.
 #include "leff_f32.cuh"
 #include "leff_mma.cuh"
 
@@ -32,10 +35,14 @@ __host__ inline bool f32_tile(int C, int Ch) {
   return leff_f32_fits(C) && Ch % kLeffChunk == 0;
 }
 
+// leff_tile over the image's tiles from blockIdx.x in steps of gridDim.x
+// (one each where the grid has a block a tile), slot blockIdx.x
 template <typename T>
 __global__ void __launch_bounds__(kThreads) leff_kernel(LeffParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  leff_tile<T>(p, blockIdx.x, smem);
+  const int tiles = p.B * ((p.H + p.TH - 1) / p.TH) * ((p.W + 7) / 8);
+  for (int it = blockIdx.x; it < tiles; it += gridDim.x)
+    leff_tile<T>(p, it, smem, blockIdx.x);
 }
 
 template <int C, int TH>
@@ -124,8 +131,8 @@ template <typename T>
 static int run(const void* x, void* y, const float* ln_s, const float* ln_b,
                const void* w1, const float* b1, const void* wd,
                const float* bd, const void* w2, const float* b2, int B, int H,
-               int W, int C, int Ch, int has_ln, int residual,
-               void* stream) {
+               int W, int C, int Ch, int has_ln, int residual, void* scratch,
+               int slots, void* stream) {
   LeffParams<T> p;
   p.x = static_cast<const T*>(x);
   p.y = static_cast<T*>(y);
@@ -137,6 +144,7 @@ static int run(const void* x, void* y, const float* ln_s, const float* ln_b,
   p.bd = bd;
   p.w2 = static_cast<const T*>(w2);
   p.b2 = b2;
+  p.scratch = static_cast<T*>(scratch);
   p.B = B;
   p.H = H;
   p.W = W;
@@ -167,7 +175,11 @@ static int run(const void* x, void* y, const float* ln_s, const float* ln_b,
       leff_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L.total);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = B * ((H + p.TH - 1) / p.TH) * ((W + 7) / 8);
+  int blocks = B * ((H + p.TH - 1) / p.TH) * ((W + 7) / 8);
+  if (!L.x_smem) {  // the halo in the caller's slots: a block a slot
+    if (scratch == nullptr || slots < 1) return (int)cudaErrorInvalidValue;
+    if (blocks > slots) blocks = slots;
+  }
   leff_kernel<T><<<blocks, kThreads, L.total, s>>>(p);
   return (int)cudaGetLastError();
 }
@@ -187,18 +199,31 @@ int uf_leff_tile_rows(int is_bf16, int C, int Ch) {
   return uf::leff_tile_rows(ts, C);
 }
 
+// The elements (of the working dtype) of one block's scratch slot at
+// (dtype, C, Ch): leff_tile's LayerNormed halo where it misses shared
+// memory (C 1408-2048), else 0.
+int uf_leff_scratch(int is_bf16, int C, int Ch) {
+  const int ts = is_bf16 ? 2 : 4;
+  if (uf::wide_tile(ts, C, Ch) || uf::narrow_tile(ts, C, Ch)) return 0;
+  if (!is_bf16 && uf::f32_tile(C, Ch)) return 0;
+  return (int)uf::leff_layout(ts, C, uf::leff_tile_rows(ts, C)).slot;
+}
+
 // Returns a cudaError_t (0 on success). is_bf16 selects bf16 (else fp32)
 // for x, y, w1, wd and w2; biases and LayerNorm parameters are fp32.
+// scratch: `slots` slots of uf_leff_scratch elements each where that is
+// not 0 (the launch then takes at most `slots` blocks), else ignored.
 int uf_leff(int is_bf16, const void* x, void* y, const float* ln_s,
             const float* ln_b, const void* w1, const float* b1,
             const void* wd, const float* bd, const void* w2, const float* b2,
             int B, int H, int W, int C, int Ch, int has_ln, int residual,
-            void* stream) {
+            void* scratch, int slots, void* stream) {
   if (is_bf16)
     return uf::run<uf::bf16>(x, y, ln_s, ln_b, w1, b1, wd, bd, w2, b2, B, H,
-                             W, C, Ch, has_ln, residual, stream);
+                             W, C, Ch, has_ln, residual, scratch, slots,
+                             stream);
   return uf::run<float>(x, y, ln_s, ln_b, w1, b1, wd, bd, w2, b2, B, H, W, C,
-                        Ch, has_ln, residual, stream);
+                        Ch, has_ln, residual, scratch, slots, stream);
 }
 
 }  // extern "C"

@@ -26,6 +26,16 @@
 // the bf16 products run 16 wider: the first over C + 8 (xn's columns and
 // W1's rows past C zero), the second into C + 8 columns (W2's past C
 // zero).
+//
+// At C 1152-2048 (an --embed_dim 72-128 model's bottleneck and dec0,
+// hidden 4608-8192) the tile is 2 x 8 in bf16 (1 x 8 in fp32) and, where
+// its LayerNormed halo does not fit beside the rest (bf16 from C 1408,
+// fp32 from C 1408: 30 rows of C + 8), the halo goes to the block's slot
+// of a scratch tensor in device memory (L2), read there by the first
+// product; the weight chunk is then staged in pieces as large as the
+// room left. The blocks walk the tiles over as many slots as the scratch
+// holds. Every tile re-reads the layer's weights (64 MB in bf16 at C
+// 2048, more than the 50 MB L2 holds).
 #pragma once
 
 #include "common.cuh"
@@ -44,6 +54,8 @@ struct LeffParams {
   const float* bd;    // (Ch,)
   const T* w2;        // (Ch, C)
   const float* b2;    // (C,)
+  T* scratch;         // the blocks' slots of LeffLayout::slot elements
+                      // where the halo misses shared memory, else null
   int B, H, W, C, Ch, TH;
   int has_ln, residual;
 };
@@ -55,12 +67,16 @@ struct LeffLayout {
   static constexpr int ldh = kLeffChunk + 4, ldg = kLeffChunk + 8;
   int TH, Mo, nh, Mh, C16, kw, ldx, lda, ldw1, ldw2;
   size_t xn, acc, hid, g, hpix, w, total;
+  bool x_smem;  // the LayerNormed halo in shared memory, else in a slot
+  size_t slot;  // elements of T of a block's scratch slot (0: none)
 };
 
 // The layout with the weight chunk staged (bf16) in pieces of kw rows of
-// W1 / columns of W2: kw = C16 (C rounded up to 16) stages it whole.
+// W1 / columns of W2: kw = C16 (C rounded up to 16) stages it whole; the
+// halo in shared memory, or with x_smem false in the block's scratch slot.
 __host__ __device__ inline LeffLayout leff_layout_kw(int tsize, int C,
-                                                     int TH, int kw) {
+                                                     int TH, int kw,
+                                                     bool x_smem = true) {
   LeffLayout L;
   Carver cv;
   L.TH = TH;
@@ -71,7 +87,9 @@ __host__ __device__ inline LeffLayout leff_layout_kw(int tsize, int C,
   L.kw = kw;
   L.ldx = C + 8;  // >= C16
   L.lda = L.C16 + 4;
-  L.xn = cv.take((size_t)L.Mh * L.ldx * tsize);
+  L.x_smem = x_smem;
+  L.slot = x_smem ? 0 : (size_t)L.Mh * L.ldx;
+  L.xn = x_smem ? cv.take((size_t)L.Mh * L.ldx * tsize) : 0;
   L.acc = cv.take((size_t)L.Mo * L.lda * sizeof(float));
   L.hid = cv.take((size_t)L.Mh * LeffLayout::ldh * sizeof(float));
   L.g = cv.take((size_t)L.Mo * LeffLayout::ldg * tsize);
@@ -90,21 +108,28 @@ __host__ __device__ inline LeffLayout leff_layout_kw(int tsize, int C,
 }
 
 // The layout at tile height TH: the whole chunk staged where it fits, else
-// (bf16 at C 768 and 896) the largest pieces of a multiple of 64 that do.
+// (bf16 at C 768-1280) the largest pieces of a multiple of 64 that do;
+// where none does, the same with the halo in the scratch slot (C 1408 and
+// more).
 __host__ __device__ inline LeffLayout leff_layout(int tsize, int C, int TH) {
   const int C16 = (C + 15) / 16 * 16;
-  LeffLayout L = leff_layout_kw(tsize, C, TH, C16);
-  for (int kw = (C16 - 1) / kLeffChunk * kLeffChunk;
-       tsize == 2 && L.total > kSmemLimit && kw >= kLeffChunk;
-       kw -= kLeffChunk)
-    L = leff_layout_kw(tsize, C, TH, kw);
+  LeffLayout L;
+  for (int in_smem = 1; in_smem >= 0; --in_smem) {
+    L = leff_layout_kw(tsize, C, TH, C16, in_smem);
+    for (int kw = (C16 - 1) / kLeffChunk * kLeffChunk;
+         tsize == 2 && L.total > kSmemLimit && kw >= kLeffChunk;
+         kw -= kLeffChunk)
+      L = leff_layout_kw(tsize, C, TH, kw, in_smem);
+    if (L.total <= kSmemLimit) break;
+  }
   return L;
 }
 
 // Tile height: the tallest of 8, 4, 2 rows whose working set fits with the
-// whole weight chunk staged; where none does, 1 in fp32 (C = 1024) and 2 in
-// bf16 (C 768-1024; the products are 16 rows deep), whose chunk is then
-// staged in pieces (leff_layout).
+// whole weight chunk staged; where none does, 1 in fp32 (C 1024-2048) and
+// 2 in bf16 (C 768-2048; the products are 16 rows deep), whose chunk is
+// then staged in pieces and, from C 1408, whose halo goes to the scratch
+// slot (leff_layout).
 __host__ __device__ inline int leff_tile_rows(int tsize, int C) {
   const int C16 = (C + 15) / 16 * 16;
   for (int th = 8; th > 1; th >>= 1)
@@ -112,9 +137,11 @@ __host__ __device__ inline int leff_tile_rows(int tsize, int C) {
   return tsize == 4 ? 1 : 2;
 }
 
+// slot: the block's slot of p.scratch, used where the layout's halo
+// misses shared memory.
 template <typename T>
 __device__ void leff_tile(const LeffParams<T>& p, int item,
-                          unsigned char* smem) {
+                          unsigned char* smem, int slot) {
   const LeffLayout L = leff_layout(sizeof(T), p.C, p.TH);
   const int C = p.C, Ch = p.Ch, H = p.H, W = p.W, TH = p.TH;
   const int tid = threadIdx.x, warp = tid >> 5;
@@ -124,7 +151,8 @@ __device__ void leff_tile(const LeffParams<T>& p, int item,
   const int b = item / nT, r0 = ((item % nT) / nTw) * TH,
             c0 = (item % nTw) * 8;
 
-  T* xn = reinterpret_cast<T*>(smem + L.xn);
+  T* xn = L.x_smem ? reinterpret_cast<T*>(smem + L.xn)
+                   : p.scratch + (size_t)slot * L.slot;
   float* acc = reinterpret_cast<float*>(smem + L.acc);
   float* hid = reinterpret_cast<float*>(smem + L.hid);
   T* g = reinterpret_cast<T*>(smem + L.g);

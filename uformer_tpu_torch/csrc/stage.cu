@@ -7,9 +7,12 @@
 // depth-stacked arrays at index j; the shift is on for odd j when
 // use_shift. Head dim 8 (at C = 128 in bf16's tensor-core body: an
 // embed-8 model's bottleneck and dec0), 16, 32 or 64 (an --embed_dim 64
-// model's stages, C 128-1024), and 24, 40, 48 or 56 (stage_heads.cu: an
+// model's stages, C 128-1024), 24, 40, 48 or 56 (stage_heads.cu: an
 // --embed_dim 24-56 model's stages at C 384-896, the generic bodies
-// below). In bf16 at C 128, 256 and 512 both halves
+// below), and 72-128 in steps of 8 (stage_big_heads.cu: an --embed_dim
+// 72-128 model's stages at C 128-2048, C % 128 == 0, on the generic
+// bodies; at C 1408-2048 the LeFF tile's halo in the attention's scratch
+// slots). In bf16 at C 128, 256 and 512 both halves
 // run on mma.sync with register accumulators and weights streamed through
 // cp.async rings: the attention of attention_mma.cuh (1-4 windows per work
 // item) and the wide LeFF tile of leff_mma.cuh (8 or 16 x 8 outputs), the
@@ -141,6 +144,7 @@ static int run(const void* x, void* buf, void* out, void* scratch,
   p.nH = nH;
   p.Ch = Ch;
   p.use_shift = use_shift;
+  p.leff_slots = 0;
   p.scale = scale;
   auto s = static_cast<cudaStream_t>(stream);
   if constexpr (std::is_same<T, float>::value)
@@ -155,6 +159,7 @@ static int run(const void* x, void* buf, void* out, void* scratch,
       return C / nH == 16 ? stage_f32<16>(p, wn, s) : stage_f32<32>(p, wn, s);
     }
   if (is_new_head_dim(C, nH)) return stage_heads<T>(p, s);
+  if (is_big_head_dim(C, nH)) return stage_big_heads<T>(p, s);
   return with_head_dim(C, nH, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if constexpr (std::is_same<T, bf16>::value) {

@@ -1,7 +1,7 @@
 // The whole-stage kernel's body (stage.cu) and its launch, shared by
-// stage.cu (head dims 8, 16, 32, 64), stage_heads.cu (24, 40, 48, 56) and
-// stage_f32.cu / stage_f32_d16.cu (fp32 at head dims 32 / 16, C 64-512),
-// which nvcc compiles in parallel.
+// stage.cu (head dims 8, 16, 32, 64), stage_heads.cu (24, 40, 48, 56),
+// stage_big_heads.cu (72-128) and stage_f32.cu / stage_f32_d16.cu (fp32
+// at head dims 32 / 16, C 64-512), which nvcc compiles in parallel.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -33,6 +33,9 @@ struct StageParams {
   const T *w1, *wd, *w2;
   const float *b1, *bd, *b2;
   int n, B, H, W, C, nH, Ch, TH, use_shift;
+  // leff_tile's halo slots in o_scratch where it misses shared memory (C
+  // 1408-2048): the LeFF half runs on that many blocks; 0: every block
+  int leff_slots;
   float scale;
 };
 
@@ -156,6 +159,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     l.C = C;
     l.Ch = Ch;
     l.TH = p.TH;
+    l.scratch = p.o_scratch;
     l.has_ln = 1;
     l.residual = 1;
     if constexpr (CW > 0) {
@@ -167,8 +171,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       else
         leff_f32_all<CW, TH>(ls, n_tile, smem);
     } else {
-      for (int it = blockIdx.x; it < n_tile; it += gridDim.x)
-        leff_tile<T>(l, it, smem);
+      // the attention half is done with the scratch (grid.sync above): its
+      // slots now hold the LeFF halos, where they miss shared memory
+      const int ls = p.leff_slots > 0 && p.leff_slots < (int)gridDim.x
+                         ? p.leff_slots
+                         : (int)gridDim.x;
+      if ((int)blockIdx.x < ls)
+        for (int it = blockIdx.x; it < n_tile; it += ls)
+          leff_tile<T>(l, it, smem, blockIdx.x);
     }
     grid.sync();
   }
@@ -185,8 +195,18 @@ int launch_stage(StageParams<T> p, cudaStream_t stream) {
     smem = std::max(AttnF32<CW, D, WN>::total, LeffF32<CW, TH>::total);
   } else {
     p.TH = leff_tile_rows(sizeof(T), p.C);
-    smem = std::max(attn_layout<D>(sizeof(T), p.C).total,
-                    leff_layout(sizeof(T), p.C, p.TH).total);
+    const AttnLayout<D> La = attn_layout<D>(sizeof(T), p.C);
+    const LeffLayout Lf = leff_layout(sizeof(T), p.C, p.TH);
+    smem = std::max(La.total, Lf.total);
+    p.leff_slots = 0;
+    if (!Lf.x_smem) {
+      // the LeFF halos in the attention's scratch (La.regions() tiles of
+      // 64 x C a window), as many as it holds
+      const size_t held = (size_t)La.regions() * p.B * p.H * p.W * p.C;
+      if (p.o_scratch == nullptr || held < Lf.slot)
+        return (int)cudaErrorInvalidValue;
+      p.leff_slots = (int)std::min<size_t>(held / Lf.slot, 1 << 30);
+    }
   }
   auto kernel = stage_kernel<T, D, CW, WN, TH>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -217,6 +237,11 @@ int launch_stage(StageParams<T> p, cudaStream_t stream) {
 // one-window attention body and leff_tile, in fp32 and bf16.
 template <typename T>
 int stage_heads(const StageParams<T>& p, cudaStream_t stream);
+
+// The same at head dims 72-128, a multiple of 8 (is_big_head_dim), on
+// the attention body of the next multiple of 16.
+template <typename T>
+int stage_big_heads(const StageParams<T>& p, cudaStream_t stream);
 
 // Whether the fp32 stage has its three-pass TF32 bodies at (C, D).
 __host__ __device__ constexpr bool stage_f32_fits(int C, int D) {

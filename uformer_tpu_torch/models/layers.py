@@ -36,7 +36,10 @@ adds its cross-attention over all H*W tokens (`layers.py:722-738`). Then
 one LeFF kernel, or the plain `Mlp`. The attention-image, attention-block
 and LeFF kernels are differentiated by their backward kernels (every
 window, every head dim a multiple of 8 up to 64, LeFF at every C a
-multiple of 8); `Mlp` and the
+multiple of 8 up to 1024); head dims 72-128 (`--embed_dim` 72-128) run
+forward only, the stage kernel at every win-8 level with C % 128 == 0
+and kernels 5 and 2 a block elsewhere at windows 1-8, and a train step
+refuses them before any launch (`backward_gap`); `Mlp` and the
 cross-modulator's attention are plain
 PyTorch under autograd, as in JAX. The depthwise kernel has no backward,
 in JAX either (`train.train_step` refuses a conv-projection model on the
@@ -92,7 +95,7 @@ from uformer_tpu_torch.ops.kernels import (
     stage_reference,
 )
 from uformer_tpu_torch.ops.kernels.leff import pad_hidden
-from uformer_tpu_torch.ops.kernels.window_attention import HEAD_DIMS
+from uformer_tpu_torch.ops.kernels.window_attention import BACKWARD_HEAD_DIMS
 from uformer_tpu_torch.ops.masks import input_mask_bias, shift_mask_on
 from uformer_tpu_torch.ops.norm import layer_norm
 from uformer_tpu_torch.ops.relpos import relative_position_index
@@ -106,10 +109,11 @@ from uformer_tpu_torch.ops.window import (
 Params = Dict[str, torch.Tensor]
 LEFF_MLPS = ("leff", "fastleff")  # fastleff: the same function and keys
 GEOMETRY_NOT_ON_KERNEL_PATH = (
-    f"the kernels take every window and head dim in {HEAD_DIMS} (the "
-    f"multiples of 8 up to 64) forward and backward; any other head dim "
-    f"runs on the plain path only (ROADMAP.md, port queue 2 item 9: other "
-    f"head dims)")
+    f"the kernels take every window and head dim in {BACKWARD_HEAD_DIMS} "
+    f"(the multiples of 8 up to 64) forward and backward, and head dims "
+    f"72-128 forward only at windows 1-8; any other head dim, and 72-128 "
+    f"in training, runs on the plain path only (ROADMAP.md, port queue 2 "
+    f"item 9: other head dims)")
 
 
 class _Prepared:
@@ -625,15 +629,16 @@ class LeWinBlock(_Prepared, nn.Module):
         block, or None. The attention backward kernels cover the image
         route and the windowed branch at every window (below 8 on packed
         tiles, above 8 `csrc/attention_wide.cu`) and every head dim of
-        HEAD_DIMS (8-64, multiples of 8), and the LeFF backward kernel
-        every C a multiple of 8;
+        BACKWARD_HEAD_DIMS (8-64, multiples of 8: head dims 72-128 run
+        forward only), and the LeFF backward kernel every C a multiple of
+        8 up to 1024;
         Mlp and the cross-modulator's attention are plain PyTorch. Conv
         projection runs the depthwise kernel, which has no backward (in JAX
         either)."""
         if self.attn.token_projection == "conv":
             return DWCONV_BACKWARD_NOT_PORTED
         if self.dim % self.num_heads \
-                or self.dim // self.num_heads not in HEAD_DIMS:
+                or self.dim // self.num_heads not in BACKWARD_HEAD_DIMS:
             return GEOMETRY_NOT_ON_KERNEL_PATH
         return None
 

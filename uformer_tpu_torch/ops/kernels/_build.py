@@ -42,7 +42,8 @@ _SIGNATURES = {
     "uf_window_attention": [_I] + [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
     "uf_window_attention_slots": [_I] * 3,
     "uf_leff_tile_rows": [_I, _I, _I],
-    "uf_leff": [_I] + [_P] * 10 + [_I] * 7 + [_P],
+    "uf_leff_scratch": [_I, _I, _I],
+    "uf_leff": [_I] + [_P] * 10 + [_I] * 7 + [_P, _I, _P],
     "uf_stage": [_I] + [_P] * 24 + [_I] * 8 + [_F, _P],
     "uf_attention_bwd_scratch": [_I, _I, _I],
     "uf_attention_bwd": [_I] + [_P] * 21 + [_I] * 6 + [_F] + [_I] * 4

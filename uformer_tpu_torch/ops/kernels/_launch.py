@@ -57,6 +57,16 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({name})")
 
 
+def scratch_regions(lib, is_bf16: int, C: int, D: int) -> int:
+    """The 64 x C scratch tiles a window of the one-window attention body
+    needs at (dtype, C, head dim D), 0-2 (`uf_attention_needs_scratch`);
+    raises for a head dim no body takes."""
+    n = lib.uf_attention_needs_scratch(is_bf16, C, D)
+    if n < 0:
+        check(-n, f"uf_attention_needs_scratch(C={C}, D={D})")
+    return n
+
+
 @functools.lru_cache(maxsize=None)
 def resident_blocks(entry: str, device_index: int, *args: int) -> int:
     """Blocks of a persistent kernel resident on the card at once

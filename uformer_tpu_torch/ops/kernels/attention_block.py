@@ -25,7 +25,13 @@ on packed tiles (`csrc/attention_block_packed.cu`), else a tile per block.
 Head dim 8 runs at every C (bf16: the narrow body at C 8-64, a tile per
 block at C % 128 == 0). Head dims 24, 40, 48 and 56 (`--embed_dim`
 24-56: C 24-896, none a power of two) run a window (tile) per block at
-windows 1-8, both ways, and `attention_wide` above. Windows above 8 (N
+windows 1-8, both ways, and `attention_wide` above. Head dims 72-128 in
+steps of 8 (`--embed_dim` 72-128: C 72-2048) run the forward only, at
+windows 1-8 (`FORWARD_HEAD_DIMS`), a window (tile) per block on the body
+of the next multiple of 16, which projects q, k and v in turn
+(`csrc/attention_block_big_heads.cu`); above window 8 and in the
+backward they are refused before any launch (ROADMAP.md, port queue 2
+item 9). Windows above 8 (N
 = win² > 64 tokens, any size) run `csrc/attention_wide.cu` through
 `attention_wide`: the projections over 64-row tiles of tokens, the core
 with a key-chunked online softmax, both ways, at every head dim of
@@ -61,6 +67,7 @@ from uformer_tpu_torch.ops.kernels.attention_wide import (
 )
 from uformer_tpu_torch.ops.kernels.wgrad import colsum, sm_count, wgrad
 from uformer_tpu_torch.ops.kernels.window_attention import (
+    FORWARD_HEAD_DIMS,
     HEAD_DIMS,
     TILE,
     check_head_dim,
@@ -110,8 +117,8 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
     Weight layouts are the kernels' (in, out), as `fused_attention_image`
     takes them; mod (N, C) in x's dtype or None; bias (nH, N, N); ln_s,
     ln_b read only with has_ln. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel (head dim in HEAD_DIMS) or
-    raises."""
+    CUDA tensor launches the kernel (head dim in FORWARD_HEAD_DIMS at
+    windows 1-8, in HEAD_DIMS above) or raises."""
     kw = dict(win=win, shift=shift, H=H, W=W, scale=scale,
               num_heads=num_heads, has_ln=has_ln, w_off=w_off)
     if x.device.type == "cpu":
@@ -121,7 +128,9 @@ def fused_attention_block(x: torch.Tensor, mod: Optional[torch.Tensor],
     _launch.check_input(x, "(Bw, N, C)")
     Bw, N, C = x.shape
     check_window(win, shift, H, W)
-    check_head_dim(C, num_heads)
+    # head dims 72-128 at windows 1-8 only (above: ROADMAP.md item 9)
+    check_head_dim(C, num_heads,
+                   HEAD_DIMS if N > TILE else FORWARD_HEAD_DIMS)
     if N != win * win or w_off < 0:
         raise ValueError(f"kernel needs N = win² and w_off >= 0: N={N} "
                          f"win={win} w_off={w_off}")
@@ -202,7 +211,7 @@ def block_plan(lib, Bw: int, C: int, D: int, is_bf16: int, dev,
                                         dev.index, is_bf16, C, D, wn,
                                         int(N < TILE))
         return wn, _launch.persistent_grid(-(-items // wn), slots), 0
-    return 1, items, lib.uf_attention_needs_scratch(is_bf16, C, D)
+    return 1, items, _launch.scratch_regions(lib, is_bf16, C, D)
 
 
 def vjp_reference(fn, x, g, args, has_ln, **kw):

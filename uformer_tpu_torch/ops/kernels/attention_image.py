@@ -168,7 +168,7 @@ def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
                                         dev.index, is_bf16, C, D, wn)
         grid = _launch.persistent_grid(-(-windows // wn), slots)
     else:
-        regions = lib.uf_attention_needs_scratch(is_bf16, C, D)
+        regions = _launch.scratch_regions(lib, is_bf16, C, D)
         scratch = (torch.empty((regions,) + x.shape, dtype=dt, device=dev)
                    if regions else None)
     y = torch.empty_like(x)

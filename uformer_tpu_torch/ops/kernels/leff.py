@@ -19,8 +19,12 @@ by body: `f32_mma_launches` (three-pass TF32) and `f32_fma_launches`
 (`leff_tile`). The widths of an `--embed_dim` 24-56 model that are no
 power of two (C 24-896; C 24, 40, 56 are 8 mod 16, hidden 96-3584) run
 `leff_tile` in both dtypes, its bf16 products 16 wider where C is 8 mod
-16 and, at C 768 and 896, its weight chunk staged in pieces. The
-backward takes C 8-1024 too (at C = 1024 2 x 8 and 4 x 8 tiles in bf16,
+16 and, at C 768 and 896, its weight chunk staged in pieces. So do the
+widths of an `--embed_dim` 72-128 model (C 72-2048, hidden up to 8192;
+72, 88, 104 and 120 are 8 mod 16), in the forward only: from C 1152 its
+tile is 2 x 8 in bf16 (1 x 8 in fp32), and from C 1408 its LayerNormed
+halo goes to a scratch slot in device memory, one a block, the blocks
+walking the tiles (`uf_leff_scratch`). The backward takes C 8-1024 too (at C = 1024 2 x 8 and 4 x 8 tiles in bf16,
 1 x 8 and 2 x 8 in fp32; at C that is no power of two, bf16 on the WMMA
 tiles of `csrc/leff_bwd_heads.cu`, a tile a block, and fp32 on the FMA
 loops, which take any C). C = 8 (an embed-8 model's outer stages) runs the
@@ -43,6 +47,8 @@ from uformer_tpu_torch.ops.kernels.wgrad import colsum, sm_count, wgrad
 from uformer_tpu_torch.ops.norm import layer_norm
 
 HIDDEN_CHUNK = 64  # the kernel walks the hidden in chunks of this width
+MAX_C = 2048  # the forward's widest C (an --embed_dim 128 model's bottleneck)
+BWD_MAX_C = 1024  # the backward's (ROADMAP.md, port queue 2 item 9)
 # fp32 widths of the three-pass TF32 tile (csrc/leff_f32.cuh)
 F32_WIDTHS = (16, 32, 64, 128, 256, 512)
 
@@ -81,12 +87,16 @@ def pad_hidden(w1, b1, wd, bd, w2):
             F.pad(w2, (0, 0, 0, pad)).contiguous())
 
 
-def check_width(C: int) -> None:
-    """Raise unless the kernel takes width C: a multiple of 8 (every C of
-    the family: 8-1024, the powers of two on the tensor-core tiles, the
-    rest on `leff_tile`)."""
+def check_width(C: int, max_c: int = MAX_C) -> None:
+    """Raise unless the kernel takes width C: a multiple of 8 up to max_c
+    (MAX_C: the forward, every C of the family, 8-2048, the powers of two
+    up to 1024 on the tensor-core tiles, the rest on `leff_tile`;
+    BWD_MAX_C: the backward, 8-1024)."""
     if C <= 0 or C % 8:
         raise ValueError(f"kernel needs C % 8 == 0: C={C}")
+    if C > max_c:
+        raise ValueError(f"kernel needs C <= {max_c}: C={C} (wider: "
+                         f"ROADMAP.md, port queue 2 item 9)")
 
 
 def fused_leff(x: torch.Tensor, w1, b1, wd, bd, w2, b2, ln_s=None, ln_b=None,
@@ -94,7 +104,7 @@ def fused_leff(x: torch.Tensor, w1, b1, wd, bd, w2, b2, ln_s=None, ln_b=None,
     """x: (B, H, W, C) -> (B, H, W, C).
 
     w1 (C, Ch), wd (3, 3, Ch), w2 (Ch, C) in x's dtype; b1, bd, b2, ln_s,
-    ln_b float32; C a multiple of 8. A CPU tensor takes the plain
+    ln_b float32; C a multiple of 8 up to MAX_C. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises (a hidden that is
     no multiple of HIDDEN_CHUNK is padded here, `pad_hidden`, unless the
     caller padded it)."""
@@ -122,12 +132,19 @@ def fused_leff(x: torch.Tensor, w1, b1, wd, bd, w2, b2, ln_s=None, ln_b=None,
             ("w2", w2, (Ch, C), dt), ("b2", b2, (C,), f32)):
         _launch.expect(t, name, shape, tdt, dev)
     y = torch.empty_like(x)
+    # leff_tile's halo where it misses shared memory: a slot a block, one
+    # block an SM
+    slot, slots, scratch = lib.uf_leff_scratch(is_bf16, C, Ch), 0, None
+    if slot:
+        slots = sm_count(dev)
+        scratch = torch.empty(slots * slot, dtype=dt, device=dev)
     with torch.cuda.device(dev):
         err = lib.uf_leff(
             is_bf16, x.data_ptr(), y.data_ptr(), _launch.ptr(ln_s),
             _launch.ptr(ln_b), w1.data_ptr(), b1.data_ptr(), wd.data_ptr(),
             bd.data_ptr(), w2.data_ptr(), b2.data_ptr(), B, H, W, C, Ch,
-            int(has_ln), int(residual), _launch.stream(x))
+            int(has_ln), int(residual), _launch.ptr(scratch), slots,
+            _launch.stream(x))
     _launch.check(err, "leff kernel")
     fused_leff.launches += 1
     if tf32x3:
@@ -213,8 +230,9 @@ def fused_leff_bwd(x: torch.Tensor, dy: torch.Tensor, w1, b1, wd, bd, w2,
     sliced to it, unless the caller padded it (the model does, once, in
     `LeFF.kernel_params`; autograd then slices). The padded channels'
     gradients are exactly 0: their hidden is GELU(0) = 0 and their w2 rows
-    are 0, so dpre2, dh and dpre1 vanish there. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernels or raises."""
+    are 0, so dpre2, dh and dpre1 vanish there. C up to BWD_MAX_C. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernels or
+    raises."""
     if x.device.type == "cpu":
         fused_leff_bwd.plain_calls += 1
         return leff_vjp_reference(x, dy, w1, b1, wd, bd, w2, ln_s, ln_b,
@@ -263,9 +281,9 @@ def leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
     if dy.shape != x.shape or dy.dtype != dt:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must match x "
                          f"{tuple(x.shape)} {dt}")
+    check_width(C, BWD_MAX_C)
     lib = load()
     is_bf16 = int(dt == torch.bfloat16)
-    check_width(C)
     tha = lib.uf_leff_bwd_tile_rows(0, is_bf16, C)
     thb = lib.uf_leff_bwd_tile_rows(1, is_bf16, C)
     if Ch % HIDDEN_CHUNK or not tha or not thb:

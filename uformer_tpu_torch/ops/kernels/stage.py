@@ -16,7 +16,11 @@ three-pass TF32 tiles (`csrc/stage_f32.cu`): the attention of
 `csrc/stage.cu` as for bf16) and the LeFF tile of `csrc/leff_f32.cuh`. Other widths and head dims, and
 bf16 where no tensor-core body exists, run the one-window attention body
 and LeFF's `leff_tile`: among them the stages of an `--embed_dim` 24-56
-model (C 384-896, head dims 24-56, `csrc/stage_heads.cu`). `fused_stage`
+model (C 384-896, head dims 24-56, `csrc/stage_heads.cu`) and of an
+`--embed_dim` 72-128 model (C 128-2048, head dims 72-128 in steps of 8,
+`csrc/stage_big_heads.cu`: the attention body of the next multiple of 16
+projecting q, k and v in turn; from C 1408 the LeFF tile's halo in the
+attention's scratch). `fused_stage`
 counts its fp32 launches by body: `f32_mma_launches` (three-pass TF32)
 and `f32_fma_launches` (the generic bodies). `stage_reference` is the
 plain PyTorch version with the JAX reference's signature
@@ -93,9 +97,9 @@ def fused_stage(x: torch.Tensor, p: Dict[str, torch.Tensor], *, scale: float,
     _launch.check_input(x)
     B, H, W, C = x.shape
     n, Ch = p["w1"].shape[0], p["w1"].shape[-1]
+    check_head_dim(C, num_heads, FORWARD_HEAD_DIMS)
     lib = load()
     is_bf16 = int(x.dtype == torch.bfloat16)
-    check_head_dim(C, num_heads, FORWARD_HEAD_DIMS)
     if H % 8 or W % 8 or Ch % HIDDEN_CHUNK:
         raise ValueError(f"kernel needs H and W multiples of 8 and "
                          f"Ch % {HIDDEN_CHUNK} == 0: C={C} H={H} W={W} "
@@ -122,8 +126,8 @@ def fused_stage(x: torch.Tensor, p: Dict[str, torch.Tensor], *, scale: float,
     buf = torch.empty_like(x)
     # fp32 on the three-pass TF32 bodies, which need no scratch
     tf32x3 = not is_bf16 and f32_stage(C, C // num_heads)
-    regions = 0 if tf32x3 else lib.uf_attention_needs_scratch(
-        is_bf16, C, C // num_heads)
+    regions = 0 if tf32x3 else _launch.scratch_regions(
+        lib, is_bf16, C, C // num_heads)
     scratch = (torch.empty((regions,) + x.shape, dtype=dt, device=dev)
                if regions else None)
     ptrs = [p[k].data_ptr() if (k != "mod" or has_mod) else None

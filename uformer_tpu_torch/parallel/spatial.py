@@ -52,7 +52,10 @@ from uformer_tpu_torch.eval.padding import tile_weights
 from uformer_tpu_torch.models.layers import LEFF_MLPS, LeWinBlock
 from uformer_tpu_torch.ops.kernels import fused_attention_block, fused_leff
 from uformer_tpu_torch.ops.kernels.leff import tile_rows
-from uformer_tpu_torch.ops.kernels.window_attention import FORWARD_HEAD_DIMS
+from uformer_tpu_torch.ops.kernels.window_attention import (
+    FORWARD_HEAD_DIMS,
+    HEAD_DIMS,
+)
 from uformer_tpu_torch.ops.window import window_partition, window_reverse
 from uformer_tpu_torch.parallel.multihost import (
     all_gather_rows,
@@ -281,16 +284,22 @@ def check_spatial_card(model: nn.Module) -> None:
     kernel 5 does not take forward on the card (ROADMAP.md port queue 2
     item 9). Every window runs there: kernel 5 takes each rank's windows at
     its own w_off (packed tiles below 8, `csrc/attention_wide.cu` above),
-    at every head dim of FORWARD_HEAD_DIMS (the path is a forward). The CPU
+    at every head dim of HEAD_DIMS (8-64; the path is a forward), and at
+    windows 1-8 at every head dim of FORWARD_HEAD_DIMS (8-128). The CPU
     runs every head dim on the plain versions."""
     for name, blk in model.named_modules():
-        if isinstance(blk, LeWinBlock) and (
-                blk.dim % blk.num_heads
-                or blk.dim // blk.num_heads not in FORWARD_HEAD_DIMS):
+        if not isinstance(blk, LeWinBlock):
+            continue
+        D = blk.dim // blk.num_heads if blk.dim % blk.num_heads == 0 \
+            else None
+        dims = HEAD_DIMS if blk.win_size > 8 else FORWARD_HEAD_DIMS
+        if D not in dims:
             raise NotImplementedError(
-                f"{name}: C {blk.dim} on {blk.num_heads} heads: the spatial "
-                f"path runs head dims {FORWARD_HEAD_DIMS} on the card "
-                f"(other head dims: ROADMAP.md, port queue 2 item 9)")
+                f"{name}: C {blk.dim} on {blk.num_heads} heads at window "
+                f"{blk.win_size}: the spatial path runs head dims 8-128 "
+                f"(multiples of 8) at windows 1-8 and {HEAD_DIMS} above "
+                f"on the card (other head dims: ROADMAP.md, port queue 2 "
+                f"item 9)")
 
 
 def _leff_slab_halo(x: torch.Tensor, Ch: int, group: Group) -> int:
