@@ -402,10 +402,30 @@ Phases, each raising on failure (no phase is caught):
                1290: 5/8/8) against the plain path; e72's fp32 forward
                (seeded 1291) sharded over 2 ranks against the unsharded
                kernel path.
+ 27. train head dims 72-128 - the backward at head dims 72-128: kernel 1
+               and its VJP at C = D on 2 x 16^2 and at C 16 D on one 8 x 8
+               image (shifts 0 and 4, residual each way), kernel 6 at
+               window 8 on one head (LN, modulator) and on packed window-4
+               tiles at 16 heads (neither), every head dim 72-128 on one
+               head and each at 16 heads in one of the two layouts;
+               kernel 7 at C 1152, 1536 and 2048 (hidden 4C), LN and
+               residual each way; each against its plain version (fp32,
+               bf16 pooled over 4 draws), run twice (equal bits) and timed
+               in bf16 beside it and its bound (and the bound with the
+               weights' re-reads from HBM past the L2). Training cells, one
+               whole step kernel path against plain path in fp32 and bf16,
+               then bf16 steps timed with their peak memory and each
+               backward call timed: Uformer at --embed_dim 72 (seeded
+               1292, bs8 128^2: 4 image / 14 windowed / 18 LeFF launches
+               each way a step), 128 (seeded 1293: 18/0/18) and 96 at
+               --train_ps 64 (seeded 1294, bs8 64^2: 10/8/18, the
+               bottleneck's 2 on packed window-4 tiles at C 1536); the
+               train CLI at --embed_dim 72 (8 steps of bs8 on seeded
+               128^2 pairs, one epoch).
 
     python3 chip_smoke.py --only 25[,24,...]
 
-runs the build and then only the named phases of 19-26 (by number or by
+runs the build and then only the named phases of 19-27 (by number or by
 function name), each printing its result, then a kernels line of what
 ran and the last line; it exits 1 without that line if a phase failed.
 
@@ -435,6 +455,8 @@ bf16 request's in phase 24, `_e48_fp32` the fp32 one's;
 `launches_train_heads_e48`, `_e24` and `_cli` a step's in phase 25;
 `launches_big_heads_e72`, `_e128` a bf16 request's in phase 26,
 `_e96ps64_fp32` the fp32 one's, `_spatial_e72` rank 0's sharded forward;
+`launches_train_big_heads_e72`, `_e128`, `_e96ps64` and `_cli` a step's
+in phase 27;
 kernels 4, 5 and 6 carry `core_mma_launches` and `core_fma_launches`,
 their core's launches above window 8 by body (bf16 on the tensor cores,
 fp32 on the CUDA cores) summed over the sites in `core_bodies`: phase
@@ -5304,9 +5326,9 @@ def geometry_kernel_timing(model, batch: int, label: str) -> tuple:
             shape, tokens = (batch, res, res, C), batch * res * res
             head8 = C // blk.num_heads == 8
             # kernel 1's forward timed where its training path is new:
-            # head dim 8 at C >= 128, and head dims 24-56
+            # head dim 8 at C >= 128, and head dims 24-56 and 72-128
             new_fwd = (head8 and C >= 128) or \
-                C // blk.num_heads in HEADS_NEW
+                C // blk.num_heads in HEADS_NEW + BIG_DIMS
             calls, parts = block_calls(layer, blk, residual,
                                        (torch.bfloat16,))
             costs = {"attention_bwd": attn_bwd_cost(tokens, C, N),
@@ -5422,10 +5444,12 @@ def train_cli_run(tmp: Path, device, label: str, arch_args: list,
 
 def train_cell(checks: Checks, summary: dict, launches: dict, label: str,
                opt: dict, seed: int, bs: int, side: int, expected: dict,
-               device, card: str) -> None:
-    """One training cell of phases 19 and 22: get_arch(opt) on weights
-    seeded from `seed`, its kernels at every training geometry at batch bs
-    (`train_kernel_checks`), one whole step of bs at side^2 kernel path
+               device, card: str, kernel_checks: bool = True) -> None:
+    """One training cell of phases 19, 22, 25 and 27: get_arch(opt) on
+    weights seeded from `seed`, its kernels at every training geometry at
+    batch bs (`train_kernel_checks`; not with kernel_checks False, where
+    the phase's own kernel checks hold the new shapes), one whole step of
+    bs at side^2 kernel path
     against plain path, fp32 and bf16 (`expected` launches; HELD_OWN_LOSS:
     bf16 rows held, and the step from the fp32 loss gradient gated), then
     bf16 steps timed and each backward call against its plain VJP and
@@ -5438,7 +5462,8 @@ def train_cell(checks: Checks, summary: dict, launches: dict, label: str,
         return build_arch(opt, sd, device)
 
     torch.backends.cudnn.deterministic = True
-    kchecks = train_kernel_checks(make(), device, bs)
+    kchecks = (train_kernel_checks(make(), device, bs) if kernel_checks
+               else Checks())
     schecks, info = whole_step_checks(
         make, device, bs, f"train {label}", expected, res=side)
     launches[label] = info["launches"]
@@ -7516,6 +7541,195 @@ def big_heads_phase(tmp: Path, device, card: str) -> tuple:
     return checks, summary, launches
 
 
+# phase 27, the backward at head dims 72-128: `--arch Uformer --embed_dim
+# 72`, `128`, and `96` at --train_ps 64 trained through kernels 1, 5 and 2
+# forward and 6 and 7 backward (`csrc/attention_bwd_big_heads.cu`,
+# `csrc/leff_bwd_heads.cu` at C 1152-2048). Cells: label -> (get_arch
+# options, weight seed, batch, side, launches a step by JAX's routes,
+# layers.py:771-775: the image route where C % 128 == 0 at window 8, the
+# windowed branch elsewhere, the same count each way; the e96 ps64
+# bottleneck, 4 x 4 at 64^2, at window 4 on packed tiles)
+BIG_TRAIN = {
+    "e72": ({"arch": "Uformer", "embed_dim": 72, "train_ps": 128}, 1292, 8,
+            RES_TRAIN,
+            dict(NO_LAUNCHES, attention_image=4, attention_bwd=4,
+                 attention_block=14, attention_block_bwd=14, leff=18,
+                 leff_bwd=18)),
+    "e128": ({"arch": "Uformer", "embed_dim": 128, "train_ps": 128}, 1293,
+             8, RES_TRAIN,
+             dict(NO_LAUNCHES, attention_image=18, attention_bwd=18,
+                  leff=18, leff_bwd=18)),
+    "e96ps64": ({"arch": "Uformer", "embed_dim": 96, "train_ps": 64}, 1294,
+                8, 64,
+                dict(NO_LAUNCHES, attention_image=10, attention_bwd=10,
+                     attention_block=8, attention_block_bwd=8, leff=18,
+                     leff_bwd=18)),
+}
+# kernel 7 at the widest levels of e72, e96 and e128
+BIG_LEFF_BWD_C = (1152, 1536, 2048)
+# the 16-head cases (C 16 D) of kernels 1 and 6: the image layout at
+# these head dims (e72's and e128's C 1152 and 2048 among them), packed
+# window-4 tiles at the others (e96 ps64's bottleneck, C 1536, among
+# them); every head dim runs both layouts on one head
+BIG_IMAGE_16 = (72, 104, 120, 128)
+# the train CLI at --embed_dim 72: train pairs, val pairs, batch, epochs
+BIG_CLI_SET = (64, 2, 8, 1)
+
+
+def big_bwd_reread(kernel: str, lib, s: int, C: int, items) -> float:
+    """The weights' bytes that the work items of a backward call read again
+    from HBM past the L2 (`reread_bytes`): kernel 6 (and kernel 1) reads
+    its weights on each of `items` windows (kernel 6: wo once, wq and wkv
+    twice, 7 C^2 values; kernel 1: 4 C^2); kernel 7's tiles read W1 and W2
+    (A) and W1 twice (B), 2 C 4C values each, on the (B, H, W) image
+    `items`."""
+    if kernel == "leff_bwd":
+        B, H, W = items
+        tiles = [B * -(-H // th) * -(-W // 8) for th in (
+            lib.uf_leff_bwd_tile_rows(w, int(s == 2), C) for w in (0, 1))]
+        return sum(reread_bytes(2 * C * 4 * C * s, t) for t in tiles)
+    n = 4 if kernel == "attention_image" else 7
+    return reread_bytes(n * C * C * s, items)
+
+
+def big_bwd_kernel_checks(checks: Checks, device, card: str,
+                          seed: int = 27) -> list:
+    """Kernel 1 and its VJP at C = D on 2 x 16^2 (shift 4, residual) at
+    every head dim 72-128 and at C = 16 D on one 8 x 8 image (neither) at
+    BIG_IMAGE_16; kernel 6 windowed at window 8 on one head (LN and
+    modulator) at every head dim and on packed window-4 tiles at 16 heads
+    (C 16 D, neither) at the others; kernel 7 at BIG_LEFF_BWD_C (LN and
+    residual each way); each against its
+    plain version: fp32 (TF32 off) within 1e-4 (1 + max|ref|), bf16 under
+    phase 19's gates (`bwd_case`: pooled over GEOM_DRAWS draws, run twice
+    for equal bits; kernel 1 by `timed_compare`), every call timed in bf16
+    beside its plain version and its bound, the bound with the weights'
+    re-reads past the L2 beside it (`big_bwd_reread`). Operands by the
+    golden rule from `seed`. Returns the timed rows."""
+    from uformer_tpu_torch.ops import kernels as K
+    from uformer_tpu_torch.ops.kernels._build import load
+
+    lib = load()
+    draw = GoldenDraws(seed, device)
+    mat, scale, bias, xin, attn_prm = (draw.mat, draw.scale, draw.bias,
+                                       draw.xin, draw.attn_prm)
+
+    def grads(fn, names, p, kw):
+        return lambda x, g, dt: dict(zip(names, fn(x, g, *p[dt].values(),
+                                                   **kw)))
+
+    def reread(row, kernel, C, items, cost):
+        extra = big_bwd_reread(kernel, lib, 2, C, items)
+        ops, nbytes = cost
+        row["reread_bytes"] = extra
+        row["bound_reread_ms"] = max(ops / PEAK_BF16,
+                                     (nbytes + extra) / PEAK_HBM) * 1e3
+        if extra:
+            print(f"    with the weights' re-reads past the L2: bound "
+                  f"{row['bound_reread_ms']:.4f} ms  [{card}]", flush=True)
+        return row
+
+    rows = []
+    for D in BIG_DIMS:
+        for nH, img, shift, res in ((1, (HEADS_IMAGES, 16, 16), 4, True),
+                                    (16, (1, 8, 8), 0, False)):
+            if nH == 16 and D not in BIG_IMAGE_16:
+                continue
+            C = D * nH
+            prm = attn_prm(C, nH, 64, True)
+            kw = dict(win=8, shift=shift, scale=D ** -0.5, num_heads=nH,
+                      has_ln=True, residual=res)
+            shape = img + (C,)
+            tokens = img[0] * img[1] * img[2]
+            what = f"image C {C} D {D} {shape} shift {shift} res {int(res)}"
+            rows.append(reread(timed_compare(
+                checks, "attention_image", what,
+                lambda x, dt, p=prm, kw=kw: K.fused_attention_image(
+                    x, *p[dt].values(), **kw),
+                lambda x, dt, p=prm, kw=kw: K.attention_image_reference(
+                    x, *p[dt].values(), **kw), xin(*shape),
+                attn_cost(tokens, C, nH), card), "attention_image", C,
+                tokens // 64, attn_cost(tokens, C, nH)))
+            rows.append(reread(bwd_case(
+                checks, "attention_bwd", what,
+                grads(K.fused_attention_image_bwd, ATTN_GRADS, prm, kw),
+                grads(K.attention_image_vjp_reference, ATTN_GRADS, prm, kw),
+                shape, xin, attn_bwd_cost(tokens, C, 64), card),
+                "attention_bwd", C, tokens // 64,
+                attn_bwd_cost(tokens, C, 64)))
+    for D in BIG_DIMS:
+        for win, nH, on in ((8, 1, True), (4, 16, False)):
+            if nH == 16 and D in BIG_IMAGE_16:
+                continue
+            C, N = D * nH, win * win
+            Bw = HEADS_IMAGES * 16
+            prm = attn_prm(C, nH, N, on)
+            kw = dict(win=win, shift=win // 2, H=4 * win, W=4 * win,
+                      scale=D ** -0.5, num_heads=nH, has_ln=on)
+            what = (f"win {win} C {C} D {D} Bw {Bw} ln {int(on)} mod "
+                    f"{int(on)}")
+            cost = attn_bwd_cost(Bw * N, C, N)
+            rows.append(reread(bwd_case(
+                checks, "attention_block_bwd", what,
+                grads(K.fused_attention_block_bwd, ATTN_GRADS, prm, kw),
+                grads(K.attention_block_vjp_reference, ATTN_GRADS, prm, kw),
+                (Bw, N, C), xin, cost, card), "attention_block_bwd", C,
+                -(-Bw // (64 // N)), cost))
+    for C in BIG_LEFF_BWD_C:
+        Ch = 4 * C
+        lp = _prm(dict(w1=mat(C, Ch, fan_in=C), b1=bias(Ch),
+                       wd=mat(3, 3, Ch, fan_in=9), bd=bias(Ch),
+                       w2=mat(Ch, C, fan_in=Ch), ln_s=scale(C),
+                       ln_b=bias(C)), device, ("w1", "wd", "w2"))
+        for on in (True, False):
+            def run(fn, on=on, lp=lp):
+                def call(x, g, dt):
+                    p = lp[dt]
+                    ln = (p["ln_s"], p["ln_b"]) if on else (None, None)
+                    return dict(zip(LEFF_GRADS, fn(
+                        x, g, *(p[k] for k in ("w1", "b1", "wd", "bd",
+                                               "w2")),
+                        *ln, has_ln=on, residual=on)))
+                return call
+            tokens = 2 * 16 * 24
+            cost = bwd_cost(leff_cost(tokens, C, Ch), tokens, C)
+            rows.append(reread(bwd_case(
+                checks, "leff_bwd", f"C {C} Ch {Ch} 2x16x24 ln/res {int(on)}",
+                run(K.fused_leff_bwd), run(K.leff_vjp_reference),
+                (2, 16, 24, C), xin, cost, card), "leff_bwd", C,
+                (2, 16, 24), cost))
+    torch.cuda.synchronize()
+    return rows
+
+
+def big_train_phase(tmp: Path, device, card: str) -> tuple:
+    """Phase 27: the backward at head dims 72-128 (`big_bwd_kernel_checks`);
+    the training cells of BIG_TRAIN by `train_cell` (one whole step kernel
+    path against plain path in fp32 and bf16, bf16 steps timed with their
+    peak memory and each backward call timed; the kernel checks above stand
+    for the per-geometry ones); the train CLI at --embed_dim 72. Returns
+    the checks, the summary and the launches per path."""
+    checks, summary, launches = Checks(), {"card": card}, {}
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    summary["kernel_rows"] = big_bwd_kernel_checks(checks, device, card)
+    torch.backends.cudnn.deterministic = False
+    summary["kernel_checks_s"] = time.perf_counter() - t0
+    for label, (opt, seed, bs, side, expected) in BIG_TRAIN.items():
+        train_cell(checks, summary, launches, label, opt, seed, bs, side,
+                   expected, device, card, kernel_checks=False)
+        print(f"  train {label}: peak "
+              f"{summary[f'steps_{label}']['peak_mib']:.1f} MiB a bf16 "
+              f"kernel path step  [{card}]", flush=True)
+    opt = BIG_TRAIN["e72"][0]
+    summary["cli"] = train_cli_run(
+        tmp, device, "train CLI e72", ["--arch", "Uformer", "--embed_dim",
+                                       str(opt["embed_dim"])], RES_TRAIN,
+        BIG_CLI_SET, dict(BIG_TRAIN["e72"][4]))
+    launches["cli"] = summary["cli"]["launches"]
+    return checks, summary, launches
+
+
 # the phases that take (tmp, device, card) alone: number -> (name, function,
 # key of its report, key of its launches on the kernels line), in order;
 # `--only` picks among them
@@ -7532,6 +7746,8 @@ SELF_CONTAINED = {
            "train_heads"),
     "26": ("head dims 72-128", "big_heads_phase", "big_heads",
            "big_heads"),
+    "27": ("train head dims 72-128", "big_train_phase", "big_train",
+           "train_big_heads"),
 }
 
 
@@ -7616,7 +7832,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", type=Path, help="write the full report here")
     ap.add_argument("--only", help="run the build, then only these of "
-                    "phases 19-26 (numbers or function names, comma "
+                    "phases 19-27 (numbers or function names, comma "
                     "separated)")
     args = ap.parse_args()
     only = None
@@ -7835,7 +8051,7 @@ def run(device, card: str, json_path) -> list:
     print(f"  phase 18 took {geometries['s']:.1f} s", flush=True)
     gchecks18.raise_if_failed("geometries")
 
-    # phases 19-26: each raises on a failed check before the next starts
+    # phases 19-27: each raises on a failed check before the next starts
     later = {}
     for num in SELF_CONTAINED:
         later[num] = run_self_contained(num, device, card)
@@ -7847,7 +8063,8 @@ def run(device, card: str, json_path) -> list:
         (gchecks23, above16, above16_launches), \
         (gchecks24, heads, heads_launches), \
         (gchecks25, heads_t, heads_t_launches), \
-        (gchecks26, big, big_launches) = later.values()
+        (gchecks26, big, big_launches), \
+        (gchecks27, big_t, big_t_launches) = later.values()
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
@@ -7886,7 +8103,8 @@ def run(device, card: str, json_path) -> list:
               "heads_checks": gchecks24.rows, "heads": heads,
               "heads_train_checks": gchecks25.rows,
               "heads_train": heads_t,
-              "big_heads_checks": gchecks26.rows, "big_heads": big}
+              "big_heads_checks": gchecks26.rows, "big_heads": big,
+              "big_train_checks": gchecks27.rows, "big_train": big_t}
     if json_path is not None:
         json_path.parent.mkdir(parents=True, exist_ok=True)
         json_path.write_text(json.dumps(report, indent=1))
@@ -7911,6 +8129,7 @@ def run(device, card: str, json_path) -> list:
                    + gchecks18.rows + gchecks19.rows + gchecks20.rows
                    + gchecks21.rows + gchecks22.rows + gchecks23.rows
                    + gchecks24.rows + gchecks25.rows + gchecks26.rows
+                   + gchecks27.rows
                    if r["kernel"] == name]
         errs = [r["err"] for r in rows_of if r["dtype"] == "fp32"]
         errs16 = [r["err"] for r in rows_of if r["dtype"] == "bf16"]
@@ -7946,7 +8165,9 @@ def run(device, card: str, json_path) -> list:
                               + sum(kernel_count(c, name)
                                     for c in heads_t_launches.values())
                               + sum(kernel_count(c, name)
-                                    for c in big_launches.values())),
+                                    for c in big_launches.values())
+                              + sum(kernel_count(c, name)
+                                    for c in big_t_launches.values())),
                  "launches_serve": kernel_count(launches, name),
                  "launches_serve_t": kernel_count(t_launches, name),
                  "launches_train": train_launches[name],
@@ -7984,6 +8205,8 @@ def run(device, card: str, json_path) -> list:
                     for path, c in heads_t_launches.items()},
                  **{f"launches_big_heads_{path}": kernel_count(c, name)
                     for path, c in big_launches.items()},
+                 **{f"launches_train_big_heads_{path}": kernel_count(c, name)
+                    for path, c in big_t_launches.items()},
                  "max_abs_err": max(errs),
                  "bf16_max_abs_err_vs_fp32": max(errs16),
                  "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -8082,7 +8305,13 @@ def run(device, card: str, json_path) -> list:
                                ("serve e72", "e72",
                                 big["timing_totals_e72"]),
                                ("serve e128", "e128",
-                                big["timing_totals_e128"])):
+                                big["timing_totals_e128"]),
+                               ("train e72", "train_e72",
+                                big_t["timing_totals_e72"]),
+                               ("train e128", "train_e128",
+                                big_t["timing_totals_e128"]),
+                               ("train e96 train_ps 64", "train_e96ps64",
+                                big_t["timing_totals_e96ps64"])):
             if name in tt and label not in where:
                 entry.update({f"ms_{key}": tt[name]["ms"],
                               f"plain_ms_{key}": tt[name]["plain_ms"],

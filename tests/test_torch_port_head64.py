@@ -45,8 +45,8 @@ from uformer_tpu_torch.models.layers import GEOMETRY_NOT_ON_KERNEL_PATH
 from uformer_tpu_torch.models.registry import arch_config, get_arch
 from uformer_tpu_torch.ops import kernels as K
 from uformer_tpu_torch.ops.kernels.window_attention import (
-    BACKWARD_HEAD_DIMS,
     FORWARD_HEAD_DIMS,
+    HEAD_DIMS,
     check_head_dim,
     check_window,
 )
@@ -304,10 +304,9 @@ def test_forward_checks_take_head_dim_64():
     backward's since head dim 64's backward was ported), at every window
     1-16; the backward takes every head dim of the forward up to 64 (the
     multiples of 8, since head dims 24-56's backward was ported), the
-    forward kernels 3 and 5 at windows 1-8 also 72-128."""
-    assert BACKWARD_HEAD_DIMS == (8, 16, 24, 32, 40, 48, 56, 64)
-    assert FORWARD_HEAD_DIMS == BACKWARD_HEAD_DIMS + tuple(range(72, 129,
-                                                                 8))
+    kernels 1, 3, 5 and 6 at windows 1-8 also 72-128, both ways."""
+    assert HEAD_DIMS == (8, 16, 24, 32, 40, 48, 56, 64)
+    assert FORWARD_HEAD_DIMS == HEAD_DIMS + tuple(range(72, 129, 8))
     for C, nH in ((64, 1), (128, 2), (512, 8), (1024, 16)):
         check_head_dim(C, nH)
         check_head_dim(C, nH, FORWARD_HEAD_DIMS)
@@ -319,11 +318,11 @@ def test_forward_checks_take_head_dim_64():
                                       (2048, 16, 8), (64, 1, 9),
                                       (1024, 16, 16)])
 def test_head_dim_128_and_wide_windows_at_64_raise(C, nH, win):
-    """Head dim 128 is refused by the default check (kernels 1 and 6,
-    and kernel 5 above window 8: ROADMAP queue 2 item 9; the forward
-    kernels 3 and 5 take it at windows 1-8, FORWARD_HEAD_DIMS); head dim
-    64 runs at every window, 17 and 32 too, and a head dim of 20
-    has no kernel at any window, forward either (item 9 again)."""
+    """Head dim 128 is refused by the default check (kernels 4, 5 and 6
+    above window 8: ROADMAP queue 2 item 9; kernels 1, 3, 5 and 6 take it
+    at windows 1-8, FORWARD_HEAD_DIMS); head dim 64 runs at every window,
+    17 and 32 too, and a head dim of 20 has no kernel at any window,
+    forward either (item 9 again)."""
     if C // nH == 128:
         with pytest.raises(ValueError,
                            match="ROADMAP.md, port queue 2 item 9"):
@@ -339,10 +338,12 @@ def test_head_dim_128_and_wide_windows_at_64_raise(C, nH, win):
 
 @pytest.mark.parametrize("C,nH", [(64, 1), (1024, 16)])
 def test_backward_check_refuses_head_dim_64(C, nH):
-    """The backward check takes head dim 64 (C 64 and 1024, the embed-64
-    model's narrowest and widest blocks) and refuses head dim 128 (twice
-    the width at the same heads), naming ROADMAP queue 2 item 9."""
-    assert C // nH in BACKWARD_HEAD_DIMS
+    """The check of the backward above window 8 (the default, HEAD_DIMS)
+    takes head dim 64 (C 64 and 1024, the embed-64 model's narrowest and
+    widest blocks) and refuses head dim 128 (twice the width at the same
+    heads), naming ROADMAP queue 2 item 9; at windows 1-8 the backward
+    takes 128 too (FORWARD_HEAD_DIMS)."""
+    assert C // nH in HEAD_DIMS
     check_head_dim(C, nH)
     with pytest.raises(ValueError, match="ROADMAP.md, port queue 2 item 9"):
         check_head_dim(2 * C, nH)

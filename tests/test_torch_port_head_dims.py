@@ -18,13 +18,14 @@ On the CPU, with numpy inputs from a seed and fp32 throughout, each within
     cut to 1, as tests/test_torch_port_family.py cuts them) at 128^2
     against JAX `get_arch` with attn_backend="jnp" on the same weights,
     carried across by the state_dict converter;
-  - the limits: kernels 1, 3, 5 and 6 take head dims 24-56 both ways
-    (FORWARD_HEAD_DIMS = BACKWARD_HEAD_DIMS = HEAD_DIMS, since their
+  - the limits: kernels 1, 3, 5 and 6 take head dims 24-56 both ways at
+    every window (HEAD_DIMS, within FORWARD_HEAD_DIMS, since their
     backward was ported: tests/test_torch_port_head_dims_bwd.py) and
     kernel 2 every C of 8's multiples; kernel 4 refuses them at windows
     1-8 (WINDOW_ATTENTION_HEAD_DIMS; above window 8 it takes them,
-    tests/test_torch_port_wide_core_mma.py), and head dims 12, 20 and 128
-    are refused everywhere, naming ROADMAP queue 2 item 9; a model at
+    tests/test_torch_port_wide_core_mma.py), head dims 12, 20 and 136
+    are refused everywhere and 128 above window 8, naming ROADMAP queue
+    2 item 9; a model at
     embed 20 has its train step refused (`LeWinBlock.backward_gap`), and
     the spatial path's card check takes the embed-48 and embed-24 models.
 The launch routes of the two models (4/0/10/10 and 2/0/14/14 at 256^2)
@@ -47,7 +48,6 @@ from uformer_tpu_torch.ops import kernels as K
 from uformer_tpu_torch.ops.kernels.attention_image import _check_geometry
 from uformer_tpu_torch.ops.kernels.leff import check_width, pad_hidden
 from uformer_tpu_torch.ops.kernels.window_attention import (
-    BACKWARD_HEAD_DIMS,
     FORWARD_HEAD_DIMS,
     HEAD_DIMS,
     WINDOW_ATTENTION_HEAD_DIMS,
@@ -281,13 +281,13 @@ def test_uformer_matches_jax(jx, opt):
 # ---- the checks ------------------------------------------------------------
 
 def test_forward_and_backward_head_dims():
-    """The kernels take every multiple of 8 up to 64 both ways, and the
-    forward kernels 3 and 5 at windows 1-8 every multiple of 8 up to 128
-    (tests/test_torch_port_head_dims_above64.py); kernel 4 (no model path
-    calls it) the powers of two among 8-64 at windows 1-8."""
+    """The kernels take every multiple of 8 up to 64 both ways at every
+    window, and kernels 1, 3, 5 and 6 at windows 1-8 every multiple of 8
+    up to 128, both ways (tests/test_torch_port_head_dims_above64.py,
+    tests/test_torch_port_head_dims_bwd_above64.py); kernel 4 (no model
+    path calls it) the powers of two among 8-64 at windows 1-8."""
     assert FORWARD_HEAD_DIMS == tuple(range(8, 129, 8))
-    assert BACKWARD_HEAD_DIMS == HEAD_DIMS == \
-        (8, 16, 24, 32, 40, 48, 56, 64)
+    assert HEAD_DIMS == (8, 16, 24, 32, 40, 48, 56, 64)
     assert set(HEAD_DIMS) - set(WINDOW_ATTENTION_HEAD_DIMS) == \
         set(NEW_DIMS)
 
@@ -310,15 +310,16 @@ def test_new_head_dims_forward_only(D):
 @pytest.mark.parametrize("D", [12, 20, 136])
 def test_other_head_dims_refused_everywhere(D):
     """A head dim that is no multiple of 8, or above 128, has no kernel
-    either way, and head dim 128 none backward (ROADMAP queue 2 item
-    9)."""
-    for dims in (FORWARD_HEAD_DIMS, BACKWARD_HEAD_DIMS):
+    either way, and head dim 128 none above window 8, forward or backward
+    (ROADMAP queue 2 item 9); at windows 1-8 it has both."""
+    for dims in (FORWARD_HEAD_DIMS, HEAD_DIMS):
         for nH in (1, 4, 16):
             with pytest.raises(ValueError, match=ITEM9):
                 check_head_dim(D * nH, nH, dims)
     for nH in (1, 4, 16):
         with pytest.raises(ValueError, match=ITEM9):
-            check_head_dim(128 * nH, nH, BACKWARD_HEAD_DIMS)
+            check_head_dim(128 * nH, nH, HEAD_DIMS)
+        check_head_dim(128 * nH, nH, FORWARD_HEAD_DIMS)
     if D % 8:
         with pytest.raises(ValueError, match="C % 8"):
             check_width(D)

@@ -17,13 +17,14 @@ On the CPU, with numpy inputs from a seed and fp32 throughout, each within
   - the port's plain path of the embed-72 Uformer (depths cut to 1) at
     128^2 against JAX `get_arch` with attn_backend="jnp" on the same
     weights, carried across by the state_dict converter;
-  - the limits: the forward takes head dims 72-128 in kernels 3 and 5 at
-    windows 1-8 (FORWARD_HEAD_DIMS) and kernel 2 every C the family
-    builds up to 2048; kernel 4, kernel 5 above window 8, kernel 1,
-    kernel 6, kernel 7 above C 1024 and the train step refuse them, naming
-    ROADMAP queue 2 item 9; head dims 12, 20 and 136 are refused
-    everywhere; the spatial path's card check takes embed 72 and refuses
-    it at --win_size 16.
+  - the limits: kernels 1, 3, 5 and 6 take head dims 72-128 at windows
+    1-8 (FORWARD_HEAD_DIMS), kernels 2 and 7 every C the family builds up
+    to 2048, and the train step the e72, e96 and e128 models at window 8
+    (tests/test_torch_port_head_dims_bwd_above64.py holds the backward);
+    kernel 4, kernels 5 and 6 above window 8 and the train step at
+    --win_size 16 refuse them, naming ROADMAP queue 2 item 9; head dims
+    12, 20 and 136 are refused everywhere; the spatial path's card check
+    takes embed 72 and refuses it at --win_size 16.
 The launch routes of e72, e96, e128 and e96 at --train_ps 64 are cases of
 tests/test_torch_port_geometry.py's ROUTES. The tests marked `gpu` hold
 each extended kernel against its plain version on the card at every new
@@ -42,14 +43,13 @@ from uformer_tpu_torch.models.layers import GEOMETRY_NOT_ON_KERNEL_PATH
 from uformer_tpu_torch.models.registry import arch_config, get_arch
 from uformer_tpu_torch.ops import kernels as K
 from uformer_tpu_torch.ops.kernels.attention_image import _check_geometry
+from uformer_tpu_torch.ops.kernels import window_attention
 from uformer_tpu_torch.ops.kernels.leff import (
-    BWD_MAX_C,
     MAX_C,
     check_width,
     pad_hidden,
 )
 from uformer_tpu_torch.ops.kernels.window_attention import (
-    BACKWARD_HEAD_DIMS,
     FORWARD_HEAD_DIMS,
     HEAD_DIMS,
     check_head_dim,
@@ -282,43 +282,41 @@ def test_uformer_e72_matches_jax(jx):
 # ---- the checks ------------------------------------------------------------
 
 def test_forward_head_dims_reach_128():
-    """The forward kernels 3 and 5 take every multiple of 8 up to 128 at
-    windows 1-8; the backward, kernel 1 and kernel 5 above window 8 keep
-    8-64."""
+    """Kernels 1, 3, 5 and 6 take every multiple of 8 up to 128 at windows
+    1-8, forward and backward alike (the window decides, not the
+    direction: no backward set of its own); kernels 5 and 6 above window
+    8 keep 8-64; LeFF's kernels 2 and 7 take C up to 2048 both ways."""
     assert FORWARD_HEAD_DIMS == HEAD_DIMS + BIG_DIMS
-    assert BACKWARD_HEAD_DIMS == HEAD_DIMS == tuple(range(8, 65, 8))
-    assert (MAX_C, BWD_MAX_C) == (2048, 1024)
+    assert HEAD_DIMS == tuple(range(8, 65, 8))
+    assert not hasattr(window_attention, "BACKWARD_HEAD_DIMS")
+    assert MAX_C == 2048
 
 
 @pytest.mark.parametrize("D", BIG_DIMS)
 def test_big_head_dims_forward_only(D):
-    """Kernels 3 and 5 at windows 1-8 (FORWARD_HEAD_DIMS) and kernel 2
-    (every C = D nH the family builds, up to 2048) take head dim D; kernel
-    4 at every window, kernel 5 above window 8, kernel 1, kernel 6 and
-    kernel 7 above C 1024 refuse it, naming ROADMAP queue 2 item 9."""
+    """Head dim D is no longer forward only: kernels 1, 3, 5 and 6 at
+    windows 1-8 (FORWARD_HEAD_DIMS, kernel 1's and kernel 6's image
+    geometry at window 8) and kernels 2 and 7 (every C = D nH the family
+    builds, up to 2048) take it; kernel 4 at every window and kernels 5
+    and 6 above window 8 refuse it, naming ROADMAP queue 2 item 9."""
     for nH in HEADS:
         C = D * nH
-        check_head_dim(C, nH, FORWARD_HEAD_DIMS)  # kernels 3 and 5, win 1-8
-        check_width(C)  # kernel 2
-        for dims in (HEAD_DIMS, BACKWARD_HEAD_DIMS,  # kernel 5 above 8, 6
+        check_head_dim(C, nH, FORWARD_HEAD_DIMS)  # kernels 1, 3, 5, 6
+        check_width(C)  # kernels 2 and 7
+        _check_geometry(torch.empty(1, 8, 8, C), 8, 0, nH)  # kernels 1, 6
+        for dims in (HEAD_DIMS,  # kernels 5 and 6 above window 8
                      window_attention_head_dims(64),  # kernel 4, win 1-8
                      window_attention_head_dims(81)):  # kernel 4 above
             with pytest.raises(ValueError, match=ITEM9):
                 check_head_dim(C, nH, dims)
-        with pytest.raises(ValueError, match=ITEM9):  # kernels 1 and 6
-            _check_geometry(torch.empty(1, 8, 8, C), 8, 0, nH)
-        if C > 1024:
-            with pytest.raises(ValueError, match=ITEM9):  # kernel 7
-                check_width(C, BWD_MAX_C)
-        else:
-            check_width(C, BWD_MAX_C)
 
 
 @pytest.mark.parametrize("D", [12, 20, 136])
 def test_other_head_dims_refused_everywhere(D):
     """A head dim that is no multiple of 8, or above 128, has no kernel
-    either way (ROADMAP queue 2 item 9); kernel 2 refuses C past 2048."""
-    for dims in (FORWARD_HEAD_DIMS, BACKWARD_HEAD_DIMS):
+    either way (ROADMAP queue 2 item 9); kernels 2 and 7 refuse C past
+    2048."""
+    for dims in (FORWARD_HEAD_DIMS, HEAD_DIMS):
         for nH in HEADS:
             with pytest.raises(ValueError, match=ITEM9):
                 check_head_dim(D * nH, nH, dims)
@@ -330,19 +328,26 @@ def test_other_head_dims_refused_everywhere(D):
                                  dict(E72, embed_dim=96, train_ps=64)],
                          ids=["e72", "e128", "e96ps64"])
 def test_training_refused_serving_taken(opt):
-    """Every block of an embed 72-128 model is refused by the train step
-    before any launch (no backward kernel at head dims above 64), naming
-    what is left; the spatial path's card check (a forward at windows
-    1-8) takes the model. Built on the meta device: the checks read the
-    geometry only."""
+    """An embed 72-128 model trains at window 8: no block is left to the
+    train step's refusal, and the spatial path's card check (a forward at
+    windows 1-8) takes it. At --win_size 16 every block at window 16 is
+    refused before any launch (kernel 6 above window 8 keeps head dims
+    8-64), naming what is left; the blocks that fall back to window 8
+    (resolution 8 and below) are not. Built on the meta device: the checks
+    read the geometry only."""
     with torch.device("meta"):
         model = get_arch(opt)
-    uncovered = blocks_without_backward_kernel(model)
-    assert len(uncovered) == 18
-    gap = model.get_submodule(uncovered[0]).backward_gap
-    assert gap == GEOMETRY_NOT_ON_KERNEL_PATH and ITEM9 in gap
-    assert str(BACKWARD_HEAD_DIMS) in gap
+        win16 = get_arch(dict(opt, win_size=16))
+    assert blocks_without_backward_kernel(model) == []
     check_spatial_card(model)
+    uncovered = blocks_without_backward_kernel(win16)
+    blocks = {n: m for n, m in win16.named_modules()
+              if hasattr(m, "backward_gap")}
+    assert uncovered == [n for n, m in blocks.items() if m.win_size > 8]
+    assert 0 < len(uncovered) < 18
+    gap = win16.get_submodule(uncovered[0]).backward_gap
+    assert gap == GEOMETRY_NOT_ON_KERNEL_PATH and ITEM9 in gap
+    assert str(HEAD_DIMS) in gap
 
 
 def test_spatial_card_check_refuses_e72_above_window_8():

@@ -410,10 +410,12 @@ def test_new_head_dims_have_a_backward_kernel_everywhere(D, win):
 
 @pytest.mark.parametrize("D", [12, 20, 128])
 def test_other_head_dims_still_refused(D):
-    """A head dim that is no multiple of 8, or above 64, has no kernel
-    either way (ROADMAP queue 2 item 9): the wrappers' checks raise, and a
-    model at embed 20 (head dim 20 in every block) has no backward kernel
-    for any block."""
+    """A head dim that is no multiple of 8 has no kernel either way, and
+    one above 64 none above window 8 or in kernel 4 (ROADMAP queue 2 item
+    9; at windows 1-8 kernels 1, 5 and 6 take 72-128,
+    tests/test_torch_port_head_dims_bwd_above64.py): the wrappers' checks
+    raise, and a model at embed 20 (head dim 20 in every block) has no
+    backward kernel for any block."""
     for dims in (HEAD_DIMS, WINDOW_ATTENTION_HEAD_DIMS):
         for nH in (1, 4, 16):
             with pytest.raises(ValueError, match=ITEM9):

@@ -38,7 +38,7 @@ from uformer_tpu_torch.convert import load_numpy_state_dict, \
 from uformer_tpu_torch.models import Uformer
 from uformer_tpu_torch.ops import kernels as K
 from uformer_tpu_torch.ops.kernels.window_attention import (
-    BACKWARD_HEAD_DIMS,
+    HEAD_DIMS,
     check_head_dim,
     check_window,
 )
@@ -374,7 +374,7 @@ def test_windows_up_to_16_pass_and_17_raises():
             check_window(*bad)
     with pytest.raises(ValueError):  # kernels 1 and 3 keep window 8
         check_window(16, 0, 32, 32, windows=(8,))
-    for D in BACKWARD_HEAD_DIMS:  # head dim 64 too, both ways
+    for D in HEAD_DIMS:  # head dim 64 too, both ways, above window 8
         check_head_dim(D, 1)
     with pytest.raises(ValueError, match="ROADMAP.md, port queue 2 item 9"):
         check_head_dim(128, 1)

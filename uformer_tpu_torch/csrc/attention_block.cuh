@@ -41,7 +41,8 @@ int attention_block_heads(const AttnParams<T>& p, int blocks, bool packed,
                           cudaStream_t stream);
 
 // Kernel 5 at head dim C / nH in 72-128, a multiple of 8
-// (is_big_head_dim), on `blocks` windows, or packed tiles with `packed`.
+// (is_big_head_dim), on `blocks` windows, or packed tiles with `packed`;
+// kernel 1 at those head dims too, on p.windows = 0, a block a window.
 template <typename T>
 int attention_block_big_heads(const AttnParams<T>& p, int blocks,
                               bool packed, cudaStream_t stream);

@@ -1,6 +1,7 @@
 // Backward of the windowed LeWin attention block for Hopper (sm_90a), head
 // dim 8, 16, 32 or 64; 24, 40, 48 and 56 on the one-window body of
-// attention_bwd_heads.cu (both dtypes, every window 1-8).
+// attention_bwd_heads.cu, 72-128 on attention_bwd_big_heads.cu's (both
+// dtypes, every window 1-8).
 //
 // Replaces uformer_tpu/ops/pallas/attention_block.py:
 // fused_attention_block_bwd in its own layout (its unpacked form; the
@@ -30,23 +31,6 @@
 #include "attention_bwd_mma.cuh"
 
 namespace uf {
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    attention_block_bwd_kernel(AttnBwdParams<T> p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const auto L = attn_bwd_layout<D>(sizeof(T), p.C);
-  const int tid = threadIdx.x, w = blockIdx.x;
-  const int nW = (p.H / 8) * (p.W / 8);
-  int* pix = reinterpret_cast<int*>(smem + L.pix);
-  int* rid = reinterpret_cast<int*>(smem + L.rid);
-  if (tid < 64) {
-    pix[tid] = w * 64 + tid;
-    rid[tid] = window_region(w % nW, tid, p.H, p.W, p.shift);
-  }
-  __syncthreads();
-  attention_window_bwd<T, D>(p, w, smem);
-}
 
 // (two blocks per SM at C <= 64, whose latency-bound windows fill each
 // other's gaps between barriers; 64 registers, 24-128 B of spills)
@@ -79,9 +63,7 @@ static int run(const AttnBwdParams<T>& p, int Bw, int wn, int hpb,
                                        p, wn, Bw, hpb, stream);
     });
   } else {
-    return launch_attn_bwd(p, Bw, stream, [](auto d) {
-      return attention_block_bwd_kernel<T, decltype(d)::value>;
-    });
+    return launch_attn_bwd(p, Bw, 1, stream);
   }
 }
 
@@ -112,11 +94,14 @@ int uf_attention_block_bwd(int is_bf16, const void* x, const void* g,
   auto s = static_cast<cudaStream_t>(stream);
   const int tiles = win < 8 ? (Bw + 64 / (win * win) - 1) / (64 / (win * win))
                             : Bw;
-  if (uf::is_new_head_dim(C, nH)) {  // attention_bwd_heads.cu
+  const bool big = uf::is_big_head_dim(C, nH);
+  if (uf::is_new_head_dim(C, nH) || big) {  // the one-window bodies
     auto run = [&](auto p) {
       p.win = win;
       p.n_win = Bw;
-      return uf::attention_bwd_heads(p, tiles, win == 8 ? 1 : 2, s);
+      const int map = win == 8 ? 1 : 2;
+      return big ? uf::attention_bwd_big_heads(p, tiles, map, s)
+                 : uf::attention_bwd_heads(p, tiles, map, s);
     };
     if (is_bf16)
       return run(uf::attn_bwd_params<uf::bf16>(

@@ -31,20 +31,6 @@ __device__ __forceinline__ void packed_token(const PackedTokens& tok, int w,
   *rid = tok.s ? tok.region(w, t) : 0;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    attention_block_bwd_packed_kernel(AttnBwdParams<float> p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const auto L = attn_bwd_layout<D>(sizeof(float), p.C);
-  const PackedTokens tok(p.H, p.W, p.shift, 0, p.win, p.n_win);
-  const int tid = threadIdx.x, w = blockIdx.x;
-  int* pix = reinterpret_cast<int*>(smem + L.pix);
-  int* rid = reinterpret_cast<int*>(smem + L.rid);
-  if (tid < 64) packed_token(tok, w, tid, pix + tid, rid + tid);
-  __syncthreads();
-  attention_window_bwd<float, D>(p, w, smem);
-}
-
 template <int C, int D>
 __global__ void __launch_bounds__(kThreads, C <= 64 ? 2 : 1)
     attention_block_bwd_packed_mma_kernel(AttnBwdParams<bf16> p, int wn,
@@ -76,9 +62,7 @@ int attention_block_bwd_packed(const AttnBwdParams<bf16>& p, int tiles,
 
 int attention_block_bwd_packed(const AttnBwdParams<float>& p, int tiles,
                                cudaStream_t stream) {
-  return launch_attn_bwd(p, tiles, stream, [](auto d) {
-    return attention_block_bwd_packed_kernel<decltype(d)::value>;
-  });
+  return launch_attn_bwd(p, tiles, 2, stream);
 }
 
 }  // namespace uf

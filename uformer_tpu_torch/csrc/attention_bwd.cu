@@ -1,7 +1,8 @@
 // Backward of the image-layout LeWin attention sub-block for Hopper
 // (sm_90a), head dim 16, 32 or 64, and 8 (bf16: from C = 32, where the
 // JAX package's image route starts); head dims 24, 40, 48 and 56 on the
-// one-window body of attention_bwd_heads.cu.
+// one-window body of attention_bwd_heads.cu, 72-128 on its width-80-128
+// instantiations in attention_bwd_big_heads.cu.
 //
 // Replaces uformer_tpu/ops/pallas/attention_block.py:
 // fused_attention_block_bwd (and its pixel-packed narrow-C variant) as the
@@ -25,26 +26,6 @@
 #include "attention_bwd_mma.cuh"
 
 namespace uf {
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_kernel(AttnBwdParams<T> p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const auto L = attn_bwd_layout<D>(sizeof(T), p.C);
-  const int H = p.H, W = p.W, s = p.shift, tid = threadIdx.x;
-  const int nWw = W / 8, nW = (H / 8) * nWw, w = blockIdx.x;
-  const int b = w / nW, wi = (w % nW) / nWw, wj = w % nWw;
-  int* pix = reinterpret_cast<int*>(smem + L.pix);
-  int* rid = reinterpret_cast<int*>(smem + L.rid);
-  if (tid < 64) {
-    const int gr = wi * 8 + tid / 8, gc = wj * 8 + tid % 8;
-    const int r = (gr + s) % H, c = (gc + s) % W;
-    pix[tid] = (b * H + r) * W + c;
-    rid[tid] = s ? 3 * region_id(gr, H, s) + region_id(gc, W, s) : 0;
-  }
-  __syncthreads();
-  attention_window_bwd<T, D>(p, w, smem);
-}
 
 // bf16: work item blockIdx.x, windows wn blockIdx.x .. of n_win, heads
 // hpb blockIdx.y ..; with `finish`, the end of window blockIdx.x after a
@@ -79,6 +60,8 @@ static int run(const AttnBwdParams<T>& p, int wn, int hpb,
   const int n_win = p.B * (p.H / 8) * (p.W / 8);
   if (is_new_head_dim(p.C, p.nH))  // attention_bwd_heads.cu
     return attention_bwd_heads(p, n_win, 0, stream);
+  if (is_big_head_dim(p.C, p.nH))  // attention_bwd_big_heads.cu
+    return attention_bwd_big_heads(p, n_win, 0, stream);
   if constexpr (std::is_same<T, bf16>::value) {
     return with_bwd_tile<32>(p.C, p.nH, [&](auto c, auto d) {
       constexpr int C = decltype(c)::value, D = decltype(d)::value;
@@ -86,9 +69,7 @@ static int run(const AttnBwdParams<T>& p, int wn, int hpb,
                                        wn, n_win, hpb, stream);
     });
   } else {
-    return launch_attn_bwd(p, n_win, stream, [](auto d) {
-      return attention_bwd_kernel<T, decltype(d)::value>;
-    });
+    return launch_attn_bwd(p, n_win, 0, stream);
   }
 }
 
@@ -100,24 +81,33 @@ extern "C" {
 // memory; the caller then passes a (windows, 64, C) scratch of the input's
 // dtype. bf16: bit 2: the tile is kBig (attention_bwd_mma.cuh), whose
 // every window ends through part_dxm, which the caller then passes with
-// or without a head split. C / nH is 8-64, a multiple of 8 (checked by
+// or without a head split. C / nH is 8-128, a multiple of 8 (checked by
 // the caller); at 24, 40, 48 and 56 the bits are attention_bwd_heads.cu's
-// (bf16: bits 0 and 1 too, and bit 2 where the fp32 dxm goes to
-// part_dxm, one window a block).
+// and at 72-128 attention_bwd_big_heads.cu's (bf16: bits 0 and 1 too, and
+// bit 2 where the fp32 dxm goes to part_dxm, one window a block); any
+// other head dim, which no body takes, a negated cudaErrorInvalidValue.
 int uf_attention_bwd_scratch(int is_bf16, int C, int nH) {
+  const int ts = is_bf16 ? 2 : 4;
+  if (nH <= 0 || C % nH || (C / nH) % 8 || C / nH > 128)
+    return -(int)cudaErrorInvalidValue;
   if (uf::is_new_head_dim(C, nH))
-    return uf::attention_bwd_heads_scratch(is_bf16 ? 2 : 4, C, nH);
+    return uf::attention_bwd_heads_scratch(ts, C, nH);
+  if (uf::is_big_head_dim(C, nH))
+    return uf::attention_bwd_big_heads_scratch(ts, C, nH);
   if (is_bf16)
     return uf::with_bwd_tile(C, nH, [](auto c, auto d) {
       return uf::attn_bwd_big(decltype(c)::value, decltype(d)::value) ? 4
                                                                       : 0;
     });
-  return uf::attn_bwd_scratch(4, C, nH);
+  return uf::with_head_dim(C, nH, [&](auto d) {
+    return uf::attn_bwd_window_scratch<decltype(d)::value>(ts, C);
+  });
 }
 
 // Returns a cudaError_t. is_bf16 selects bf16 (else fp32) for x, g, mod,
-// the weight matrices and every per-token output; head dims 24-56 take
-// one window a block in both dtypes (wn and hpb ignored); in bf16 (C
+// the weight matrices and every per-token output; head dims 24-56 and
+// 72-128 take one window a block in both dtypes (wn and hpb ignored); in
+// bf16 (C
 // 16-1024 in powers of 2, head dim 8 from C = 32, at most 16 heads) a
 // block takes wn
 // windows and the partial sums are per block (ceil(windows / wn) rows),

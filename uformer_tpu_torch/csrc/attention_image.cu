@@ -5,7 +5,7 @@
 // partition, modulator, q/kv projection, fp32-softmax window attention
 // with relative-position bias and the inline SW-MSA mask, output
 // projection, reverse, unshift and [residual], reading and writing the
-// NHWC image once. Head dim 8, 16, 32 or 64.
+// NHWC image once. Head dim 8-128, a multiple of 8.
 //
 // What bounds it on the H100: per window the projections are 4*64*C*C
 // MACs against 2*64*C bytes of activations; at every width the card
@@ -24,7 +24,11 @@
 // 384-896 where the image route takes an --embed_dim 24-56 model's
 // blocks, in training) run kernel 5's instantiation of the one-window
 // body (attention_block_heads.cu) with the image token map, in both
-// dtypes. Head dim 8 runs the narrow body at
+// dtypes, and head dims 72-128 (an --embed_dim 72-128 model's blocks where
+// C % 128 == 0, in training; in eval the stage takes them) its width-80-128
+// instantiation (attention_block_big_heads.cu: q, k and v projected in
+// turn, xm and O through the block's scratch slot where they miss shared
+// memory). Head dim 8 runs the narrow body at
 // C 32 and 64 and the wide one at C 128; head dim 64 (--embed_dim 64) the
 // narrow body at C 64 (one head) and the wide one at C 128-512. fp32 (the
 // exact-check path) and bf16 at other widths (C 1024) run one window per
@@ -98,6 +102,8 @@ static int run(const void* x, void* y, const void* mod, const float* ln_s,
   auto s = static_cast<cudaStream_t>(stream);
   if (is_new_head_dim(C, nH))
     return attention_block_heads(p, B * (H / 8) * (W / 8), false, s);
+  if (is_big_head_dim(C, nH))
+    return attention_block_big_heads(p, B * (H / 8) * (W / 8), false, s);
   if constexpr (std::is_same<T, bf16>::value) {
     const int D = nH > 0 ? C / nH : 0;
     if (nH > 0 && C % nH == 0 && attn_narrow_fits(C, D) &&

@@ -1,8 +1,12 @@
 // Backward of one 8x8 window of the LeWin attention sub-block, computed by
 // one thread block from its 64 gathered tokens, for head dim D in {8, 16,
 // 32, 64} in fp32: the exact-check path (bf16 runs attention_bwd_mma.cuh,
-// the same function on mma.sync tiles); and for D in {24, 40, 48, 56} in
-// fp32 and bf16 (attention_bwd_heads.cu, a translation unit of its own).
+// the same function on mma.sync tiles); for D in {24, 40, 48, 56} in
+// fp32 and bf16 (attention_bwd_heads.cu, a translation unit of its own);
+// and for head dims 72-128 in steps of 8 in fp32 and bf16
+// (attention_bwd_big_heads.cu, its own unit): the body of width D in {80,
+// 96, 112, 128} takes the head dim C / nH (D or D - 8) at run time, as the
+// forward's attention_window.cuh does.
 // attention_bwd.cu runs it on the image layout (tokens gathered at the
 // shifted coordinates); attention_block_bwd.cu on (Bw, 64, C) windows with
 // the identity token map, and attention_block_bwd_packed.cu on 64-row
@@ -19,6 +23,21 @@
 // and dxm kept in fp32 for dmod, dln_s / dln_b and the LayerNorm VJP: in
 // shared memory over the dead xm and dO tiles where both fit there, else
 // in the window's slot of part_dxm (uf_attention_bwd_scratch's bit 2).
+//
+// Head dims 72-128: [q | k | v] and [dq | dk | dv] of one head in a
+// 64 x 3D accumulator, beside the staged chunk and the q, k, v, dO tiles,
+// would need about 262 KB in bf16 at D 128 (the 64 x 3D fp32 accumulator
+// alone 99 KB), over the 227 KB a block has. So, as the forward, the body
+// keeps one 64 x D accumulator and makes q, k and v (each over its own
+// staged chunks of the weight) and then dq, dk and dv in turn, each of the
+// latter written to dqkv_w as it is made; xm, dO and bf16's fp32 dxm go to
+// their global slots (x_scratch, do_scratch, part_dxm) where they miss
+// shared memory. A head of 72, 88, 104 or 120 runs the next multiple of 16
+// with zero columns hd..D-1 in q, k, v, dO and the staged chunks (exact),
+// and writes only its hd true columns of dqkv_w, o_img and, through them,
+// every gradient: a write at the padded width would land in the next
+// head's columns. In fp32 dS has no low half (it is 0), and P and its
+// fp32 copy share one tile, which leaves room for dO's head tile.
 //
 // A padding row of a tile (pix -1) reads x = g = 0 and is never written:
 // its dO, dS and so its dq, dk, dv and dxm are exactly 0, and a real row's
@@ -38,6 +57,7 @@
 #pragma once
 
 #include "attention_window.cuh"
+#include "window_core_mma.cuh"
 
 namespace uf {
 
@@ -75,12 +95,18 @@ constexpr int kBwdChunk = 64;  // bf16: K rows of a staged operand chunk
 
 template <int D>
 struct AttnBwdLayout {
+  // head dims 72-128: one 64 x D accumulator, q, k, v and dq, dk, dv in turn
+  static constexpr bool kBig = attn_big_head(D);
   static constexpr int kD16 = (D + 15) / 16 * 16;  // a bf16 head's products
-  static constexpr int kQKV = 3 * kD16 > 64 ? 3 * kD16 : 64;  // widest acc
-  static constexpr int ldq = D + 8, ldp = 72, ldsp = 68, ldacc = kQKV + 4;
-  // bf16 staging: [q | k | v] head columns (kBwdChunk x 3 kD16), or the two
-  // operands of a dO or dxm product (64 x kBwdChunk each)
-  static constexpr int ldw = 3 * kD16 + 8, lds = kBwdChunk + 8;
+  // the widest accumulator: [q | k | v], or one of them at head dims 72-128
+  static constexpr int kQKV = kBig ? kD16 : (3 * kD16 > 64 ? 3 * kD16 : 64);
+  static constexpr int ldq = D + 8, ldp = 72, ldsp = kBig ? ldp : 68,
+                       ldacc = kQKV + 4;
+  // bf16 staging: [q | k | v] head columns (kBwdChunk x 3 kD16; one of
+  // them at head dims 72-128), or the two operands of a dO or dxm product
+  // (64 x kBwdChunk each)
+  static constexpr int ldw = (kBig ? kD16 : 3 * kD16) + 8,
+                       lds = kBwdChunk + 8;
   static constexpr size_t kStage =
       kBwdChunk * ldw > 2 * 64 * lds ? kBwdChunk * ldw : 2 * 64 * lds;
   int ldx, ldd;
@@ -102,16 +128,20 @@ __host__ __device__ inline AttnBwdLayout<D> attn_bwd_layout(int ts, int C) {
   L.k = cv.take(64 * L_::ldq * ts);
   L.v = cv.take(64 * L_::ldq * ts);
   L.pt = cv.take(64 * L_::ldp * ts);
-  L.sp = cv.take(64 * L_::ldsp * sizeof(float));
+  // fp32 at head dims 72-128: P is its own fp32 copy
+  const bool f32_big = L_::kBig && ts == 4;
+  L.sp = f32_big ? L.pt : cv.take(64 * L_::ldsp * sizeof(float));
   L.acc = cv.take(64 * L_::ldacc * sizeof(float));
   L.pix = cv.take(64 * sizeof(int));
   L.rid = cv.take(64 * sizeof(int));
   L.stats = cv.take(128 * sizeof(float));
-  // dS as the sum of two values of T (in fp32 the second is 0)
+  // dS as the sum of two values of T (in fp32 the second is 0, and at
+  // head dims 72-128 not stored)
   L.dsh = cv.take(64 * L_::ldp * ts);
-  L.dsl = cv.take(64 * L_::ldp * ts);
-  // bf16: the head's dO tile and the staged operand chunks
-  L.dh = ts == 2 ? cv.take(64 * L_::ldq * ts) : 0;
+  L.dsl = f32_big ? 0 : cv.take(64 * L_::ldp * ts);
+  // the head's dO tile (bf16, and fp32 at head dims 72-128, zero past the
+  // head's columns) and bf16's staged operand chunks
+  L.dh = ts == 2 || L_::kBig ? cv.take(64 * L_::ldq * ts) : 0;
   L.w = ts == 2 ? cv.take(L_::kStage * ts) : 0;
   // the token tile (xm, later dxm) and dO: in shared memory when they
   // fit, else in a global slot per window (row stride C); X and dO
@@ -174,33 +204,6 @@ AttnBwdParams<T> attn_bwd_params(
   return p;
 }
 
-// Bit 0: a window's xm tile, bit 1: its dO tile, misses shared memory at
-// head dim C / nH (8, 16, 32 or 64; the wrappers check first); the caller then
-// passes a (windows, 64, C) scratch of the input's dtype for it.
-inline int attn_bwd_scratch(int ts, int C, int nH) {
-  return with_head_dim(C, nH, [&](auto d) {
-    const auto L = attn_bwd_layout<decltype(d)::value>(ts, C);
-    return (L.x_smem ? 0 : 1) | (L.do_smem ? 0 : 2);
-  });
-}
-
-// Launches kernel_of(d) (d an integral_constant of the head dim C / nH),
-// a __global__ function of AttnBwdParams<T>, with one block of kThreads
-// threads per window and the layout's shared memory. Returns a cudaError_t.
-template <typename T, typename KernelOf>
-int launch_attn_bwd(const AttnBwdParams<T>& p, int windows,
-                    cudaStream_t stream, KernelOf kernel_of) {
-  return with_head_dim(p.C, p.nH, [&](auto d) {
-    const auto L = attn_bwd_layout<decltype(d)::value>(sizeof(T), p.C);
-    const auto kernel = kernel_of(d);
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<windows, kThreads, L.total, stream>>>(p);
-    return (int)cudaGetLastError();
-  });
-}
-
 // bf16: acc[64 x N16] (+)= A[64 x K] B^T with B an N x K row-major block
 // (ldb) of a weight, A 64 rows (lda) in shared or device memory: both
 // staged in chunks of kBwdChunk columns into `stage` (64 x lds each),
@@ -237,8 +240,10 @@ __device__ void staged_product_nt(const bf16* A, int lda, const bf16* B,
 // unshifted). Both live in the layout's pix / rid slots, filled and
 // synchronised by the caller.
 // The block has kThreads threads. fp32 at every D (FMA products); bf16 at
-// D 24-56 (WMMA products through staged operands, the header's rounding
-// points), where a C of 8 mod 16 keeps the xm tile in shared memory.
+// D 24-56 and 80-128 (WMMA products through staged operands, the header's
+// rounding points), where a C of 8 mod 16 keeps the xm tile in shared
+// memory. At D 80-128 the head dim is C / nH (D, or D - 8 over zero
+// columns) and q, k, v and dq, dk, dv are made in turn.
 template <typename T, int D>
 __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
                                      unsigned char* smem) {
@@ -253,6 +258,9 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
   // 16x16 tiles of a 64 x D head tile: products issued back to back start
   // on different warps
   constexpr int kHeadTiles = 4 * (DP / 16);
+  constexpr bool kBig = L_::kBig;
+  constexpr bool kLo = kBf16 || !kBig;  // dS's low half is stored
+  const int hd = kBig ? C / p.nH : D;   // the true head dim
   T* q = reinterpret_cast<T*>(smem + L.q);
   T* k = reinterpret_cast<T*>(smem + L.k);
   T* v = reinterpret_cast<T*>(smem + L.v);
@@ -264,7 +272,7 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
   float* stats = reinterpret_cast<float*>(smem + L.stats);
   T* DSh = reinterpret_cast<T*>(smem + L.dsh);
   T* DSl = reinterpret_cast<T*>(smem + L.dsl);
-  T* dh = reinterpret_cast<T*>(smem + L.dh);     // bf16: the head's dO
+  T* dh = reinterpret_cast<T*>(smem + L.dh);     // the head's dO
   T* wst = reinterpret_cast<T*>(smem + L.w);     // bf16: staged chunks
   T* X = L.x_smem ? reinterpret_cast<T*>(smem + L.x)
                   : p.x_scratch + (size_t)w * 64 * C;
@@ -315,8 +323,47 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
 
   T* dqkv = p.dqkv_w + (size_t)w * 64 * C3;
   for (int h = 0; h < p.nH; ++h) {
-    const int c0 = h * D;
-    if constexpr (kBf16) {
+    const int c0 = h * hd;
+    if constexpr (kBig) {
+      // q, k and v in turn into acc's first D columns (bf16: each over its
+      // own staged chunks, zero to D columns and 16-row depths), rounded
+      // into their tiles with zero columns from hd; the head's dO beside
+      for (int m = 0; m < 3; ++m) {
+        const T* wm = m == 0 ? p.wq : p.wkv + (m - 1) * C;
+        const int ldm = m == 0 ? C : 2 * C;
+        const float* bm = m == 0 ? p.bq : p.bkv + (m - 1) * C;
+        const float sc = m == 0 ? p.scale : 1.0f;
+        T* dst = m == 0 ? q : (m == 1 ? k : v);
+        if constexpr (kBf16) {
+          for (int kc = 0; kc < C; kc += kBwdChunk) {
+            const int kr = min(kBwdChunk, C - kc), kr16 = (kr + 15) & ~15;
+            stage_tile<T>(wst, ldw, wm + (size_t)kc * ldm + c0, ldm, kr, hd);
+            zero_pad<T>(wst, ldw, kr16, D, kr, hd);
+            __syncthreads();
+            if (kc == 0)
+              block_gemm<T, false, false>(X, ldx, wst, ldw, acc, lda, 64, D,
+                                          kr16);
+            else
+              block_gemm<T, false, true>(X + kc, ldx, wst, ldw, acc, lda,
+                                         64, D, kr16);
+            __syncthreads();
+          }
+        } else {
+          block_gemm<T, false, false>(X, ldx, wm + c0, ldm, acc, lda, 64, hd,
+                                      C);
+          __syncthreads();
+        }
+        for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
+          const int t = idx / D, d = idx % D;
+          dst[t * ldq + d] =
+              d < hd ? from_f<T>((acc[t * lda + d] + bm[c0 + d]) * sc)
+                     : from_f<T>(0.f);
+          if (m == 0)
+            dh[t * ldq + d] = d < hd ? DO[t * ldd + c0 + d] : from_f<T>(0.f);
+        }
+        __syncthreads();
+      }
+    } else if constexpr (kBf16) {
       // [q | k | v] = xm [Wq | Wk | Wv][:, head], the weights' head
       // columns staged in chunks of kBwdChunk rows (the forward's
       // attention_window.cuh), zero to DP columns and 16-row depths
@@ -350,22 +397,26 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
                                   2 * kHeadTiles);
       __syncthreads();
     }
-    for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
-      const int t = idx / D, d = idx % D;
-      q[t * ldq + d] = from_f<T>((acc[t * lda + d] + p.bq[c0 + d]) * p.scale);
-      k[t * ldq + d] = from_f<T>(acc[t * lda + DP + d] + p.bkv[c0 + d]);
-      v[t * ldq + d] =
-          from_f<T>(acc[t * lda + 2 * DP + d] + p.bkv[C + c0 + d]);
-      if constexpr (kBf16) dh[t * ldq + d] = DO[t * ldd + c0 + d];
-    }
-    if constexpr (DP != D)  // zero pad columns: exact 16-wide products
-      for (int t = tid; t < 64; t += blockDim.x) {
-        *reinterpret_cast<uint4*>(q + t * ldq + D) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(k + t * ldq + D) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(v + t * ldq + D) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(dh + t * ldq + D) = make_uint4(0, 0, 0, 0);
+    if constexpr (!kBig) {
+      for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
+        const int t = idx / D, d = idx % D;
+        q[t * ldq + d] =
+            from_f<T>((acc[t * lda + d] + p.bq[c0 + d]) * p.scale);
+        k[t * ldq + d] = from_f<T>(acc[t * lda + DP + d] + p.bkv[c0 + d]);
+        v[t * ldq + d] =
+            from_f<T>(acc[t * lda + 2 * DP + d] + p.bkv[C + c0 + d]);
+        if constexpr (kBf16) dh[t * ldq + d] = DO[t * ldd + c0 + d];
       }
-    __syncthreads();
+      if constexpr (DP != D)  // zero pad columns: exact 16-wide products
+        for (int t = tid; t < 64; t += blockDim.x) {
+          *reinterpret_cast<uint4*>(q + t * ldq + D) = make_uint4(0, 0, 0, 0);
+          *reinterpret_cast<uint4*>(k + t * ldq + D) = make_uint4(0, 0, 0, 0);
+          *reinterpret_cast<uint4*>(v + t * ldq + D) = make_uint4(0, 0, 0, 0);
+          *reinterpret_cast<uint4*>(dh + t * ldq + D) =
+              make_uint4(0, 0, 0, 0);
+        }
+      __syncthreads();
+    }
     block_gemm<T, true, false>(q, ldq, k, ldq, acc, lda, 64, 64, DP);
     __syncthreads();
     const float* bias_h = p.bias + (size_t)h * 4096;
@@ -388,15 +439,15 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
     // this head's output, for dWo
     block_gemm<T, false, false>(PT, ldp, v, ldq, acc, lda, 64, DP, 64);
     __syncthreads();
-    for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
-      const int t = idx / D, d = idx % D;
+    for (int idx = tid; idx < 64 * hd; idx += blockDim.x) {
+      const int t = idx / hd, d = idx % hd;
       if (pix[t] >= 0)
         p.o_img[(size_t)pix[t] * C + c0 + d] = from_f<T>(acc[t * lda + d]);
     }
     __syncthreads();
     // dP = dO_h v^T; dS = P (dP - rowsum(dP P)), fp32
-    const T* doh = kBf16 ? dh : DO + c0;
-    const int ldo = kBf16 ? ldq : ldd;
+    const T* doh = kBf16 || kBig ? dh : DO + c0;
+    const int ldo = kBf16 || kBig ? ldq : ldd;
     block_gemm<T, true, false>(doh, ldo, v, ldq, acc, lda, 64, 64, DP);
     __syncthreads();
     float* dbias = p.dbias_part + ((size_t)w * p.nH + h) * 4096;
@@ -409,8 +460,10 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
       const T h0 = from_f<T>(ds0), h1 = from_f<T>(ds1);
       DSh[t * ldp + lane] = h0;
       DSh[t * ldp + lane + 32] = h1;
-      DSl[t * ldp + lane] = from_f<T>(ds0 - to_f<T>(h0));
-      DSl[t * ldp + lane + 32] = from_f<T>(ds1 - to_f<T>(h1));
+      if constexpr (kLo) {
+        DSl[t * ldp + lane] = from_f<T>(ds0 - to_f<T>(h0));
+        DSl[t * ldp + lane + 32] = from_f<T>(ds1 - to_f<T>(h1));
+      }
       dbias[t * 64 + lane] = ds0;
       dbias[t * 64 + lane + 32] = ds1;
     }
@@ -419,23 +472,53 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
     // in as the sum of its two bf16 halves (hi + lo), so the products keep
     // about 17 bits of the fp32 dS on the tensor cores. Each lo product
     // starts on the warps of its hi product, whose tiles it accumulates.
-    block_gemm<T, false, false>(DSh, ldp, k, ldq, acc, lda, 64, DP, 64);
-    block_gemm<T, false, false, true>(DSh, ldp, q, ldq, acc + DP, lda, 64,
-                                      DP, 64, kHeadTiles);
-    block_gemm<T, false, false, true>(PT, ldp, doh, ldo, acc + 2 * DP, lda,
-                                      64, DP, 64, 2 * kHeadTiles);
-    block_gemm<T, false, true>(DSl, ldp, k, ldq, acc, lda, 64, DP, 64);
-    block_gemm<T, false, true, true>(DSl, ldp, q, ldq, acc + DP, lda, 64,
-                                     DP, 64, kHeadTiles);
-    __syncthreads();
-    for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
-      const int t = idx / D, d = idx % D;
-      T* row = dqkv + (size_t)t * C3 + c0 + d;
-      row[0] = from_f<T>(rnd<T>(acc[t * lda + d]) * p.scale);
-      row[C] = from_f<T>(acc[t * lda + DP + d]);
-      row[2 * C] = from_f<T>(acc[t * lda + 2 * DP + d]);
+    if constexpr (kBig) {
+      // dq, dk and dv in turn into acc's first D columns, each written to
+      // dqkv_w at the head's hd true columns as it is made
+      for (int m = 0; m < 3; ++m) {
+        if (m == 0) {
+          block_gemm<T, false, false>(DSh, ldp, k, ldq, acc, lda, 64, DP, 64);
+          if constexpr (kLo)
+            block_gemm<T, false, true>(DSl, ldp, k, ldq, acc, lda, 64, DP,
+                                       64);
+        } else if (m == 1) {
+          block_gemm<T, false, false, true>(DSh, ldp, q, ldq, acc, lda, 64,
+                                            DP, 64);
+          if constexpr (kLo)
+            block_gemm<T, false, true, true>(DSl, ldp, q, ldq, acc, lda, 64,
+                                             DP, 64);
+        } else {
+          block_gemm<T, false, false, true>(PT, ldp, doh, ldo, acc, lda, 64,
+                                            DP, 64);
+        }
+        __syncthreads();
+        for (int idx = tid; idx < 64 * hd; idx += blockDim.x) {
+          const int t = idx / hd, d = idx % hd;
+          const float a = acc[t * lda + d];
+          dqkv[(size_t)t * C3 + m * C + c0 + d] =
+              from_f<T>(m == 0 ? rnd<T>(a) * p.scale : a);
+        }
+        __syncthreads();
+      }
+    } else {
+      block_gemm<T, false, false>(DSh, ldp, k, ldq, acc, lda, 64, DP, 64);
+      block_gemm<T, false, false, true>(DSh, ldp, q, ldq, acc + DP, lda, 64,
+                                        DP, 64, kHeadTiles);
+      block_gemm<T, false, false, true>(PT, ldp, doh, ldo, acc + 2 * DP,
+                                        lda, 64, DP, 64, 2 * kHeadTiles);
+      block_gemm<T, false, true>(DSl, ldp, k, ldq, acc, lda, 64, DP, 64);
+      block_gemm<T, false, true, true>(DSl, ldp, q, ldq, acc + DP, lda, 64,
+                                       DP, 64, kHeadTiles);
+      __syncthreads();
+      for (int idx = tid; idx < 64 * D; idx += blockDim.x) {
+        const int t = idx / D, d = idx % D;
+        T* row = dqkv + (size_t)t * C3 + c0 + d;
+        row[0] = from_f<T>(rnd<T>(acc[t * lda + d]) * p.scale);
+        row[C] = from_f<T>(acc[t * lda + DP + d]);
+        row[2 * C] = from_f<T>(acc[t * lda + 2 * DP + d]);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   // dxm = dq Wq^T + [dk | dv] Wkv^T, in 64-column chunks. fp32: rounded to
@@ -522,15 +605,93 @@ __device__ void attention_window_bwd(const AttnBwdParams<T>& p, int w,
   }
 }
 
-// Kernel 6 at head dims 24, 40, 48 and 56 (is_new_head_dim), one window
-// (or packed tile) a block of attention_window_bwd: `map` 0 the image
-// layout (attention_bwd.cu's token map), 1 (Bw, 64, C) windows, 2 packed
-// tiles of p.win (attention_block_bwd_packed.cu's); 0 or a cudaError_t
-// (attention_bwd_heads.cu). Its scratch needs as uf_attention_bwd_scratch
-// returns them: bits 0 and 1 the xm and dO tiles, bit 2 (bf16) part_dxm.
+// Kernel 6 one window (or packed tile) a block of attention_window_bwd
+// (fp32 at every head dim; bf16 at 24-56 and 72-128): `map` 0 the image
+// layout (the shifted 8x8 windows gathered from the NHWC image), 1 (Bw,
+// 64, C) windows, 2 packed tiles of p.win (PackedTokens).
+template <typename T, int D, int kMap>
+__global__ void __launch_bounds__(kThreads)
+    attention_bwd_window_kernel(AttnBwdParams<T> p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const auto L = attn_bwd_layout<D>(sizeof(T), p.C);
+  const int tid = threadIdx.x, w = blockIdx.x;
+  const int H = p.H, W = p.W, s = p.shift;
+  int* pix = reinterpret_cast<int*>(smem + L.pix);
+  int* rid = reinterpret_cast<int*>(smem + L.rid);
+  if (tid < 64) {
+    if constexpr (kMap == 0) {
+      const int nWw = W / 8, nW = (H / 8) * nWw;
+      const int b = w / nW, wl = w % nW;
+      const int gr = (wl / nWw) * 8 + tid / 8, gc = (wl % nWw) * 8 + tid % 8;
+      pix[tid] = (b * H + (gr + s) % H) * W + (gc + s) % W;
+      rid[tid] = window_region(wl, tid, H, W, s);
+    } else if constexpr (kMap == 1) {
+      pix[tid] = w * 64 + tid;
+      rid[tid] = window_region(w % ((H / 8) * (W / 8)), tid, H, W, s);
+    } else {
+      const PackedTokens tok(H, W, s, 0, p.win, p.n_win);
+      pix[tid] = tok.valid(w, tid) ? tok.pix(w, tid) : -1;
+      rid[tid] = s ? tok.region(w, tid) : 0;
+    }
+  }
+  __syncthreads();
+  attention_window_bwd<T, D>(p, w, smem);
+}
+
+// Launches attention_bwd_window_kernel on `windows` blocks (windows or
+// packed tiles) in token map `map`; 0 or a cudaError_t.
+template <typename T, int D>
+int launch_attn_bwd_window(const AttnBwdParams<T>& p, int windows, int map,
+                           cudaStream_t stream) {
+  const auto L = attn_bwd_layout<D>(sizeof(T), p.C);
+  // a C of 8 mod 16 reads the xm tile's zero pad columns: shared memory
+  if (sizeof(T) == 2 && p.C % 16 && !L.x_smem)
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = map == 0   ? attention_bwd_window_kernel<T, D, 0>
+                      : map == 1 ? attention_bwd_window_kernel<T, D, 1>
+                                 : attention_bwd_window_kernel<T, D, 2>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<windows, kThreads, L.total, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// launch_attn_bwd_window at head dim C / nH in 8, 16, 32, 64 (fp32, the
+// exact-check path of attention_bwd.cu, attention_block_bwd.cu and
+// attention_block_bwd_packed.cu).
+template <typename T>
+int launch_attn_bwd(const AttnBwdParams<T>& p, int windows, int map,
+                    cudaStream_t stream) {
+  return with_head_dim(p.C, p.nH, [&](auto d) {
+    return launch_attn_bwd_window<T, decltype(d)::value>(p, windows, map,
+                                                         stream);
+  });
+}
+
+// The one-window body's scratch needs at (dtype size ts, C): bits 0 and 1
+// the xm and dO tiles miss shared memory (a (windows, 64, C) scratch of
+// the input's dtype each), bit 2 (bf16) the fp32 dxm goes to part_dxm.
+template <int D>
+int attn_bwd_window_scratch(int ts, int C) {
+  const auto L = attn_bwd_layout<D>(ts, C);
+  return (L.x_smem ? 0 : 1) | (L.do_smem ? 0 : 2) |
+         (ts == 2 && !L.dxm_smem(ts) ? 4 : 0);
+}
+
+// Kernel 6 at head dims 24, 40, 48 and 56 (is_new_head_dim) by
+// launch_attn_bwd_window, in `map` (attention_bwd_heads.cu); its scratch
+// needs as uf_attention_bwd_scratch returns them.
 template <typename T>
 int attention_bwd_heads(const AttnBwdParams<T>& p, int windows, int map,
                         cudaStream_t stream);
 int attention_bwd_heads_scratch(int ts, int C, int nH);
+
+// The same at head dims 72-128, multiples of 8 (is_big_head_dim), on the
+// body of width (C / nH) rounded up to 16 (attention_bwd_big_heads.cu).
+template <typename T>
+int attention_bwd_big_heads(const AttnBwdParams<T>& p, int windows, int map,
+                            cudaStream_t stream);
+int attention_bwd_big_heads_scratch(int ts, int C, int nH);
 
 }  // namespace uf

@@ -35,8 +35,15 @@
 // masked, and the hidden chunks of a tile split over blocks where tiles
 // are few (host's choice); at C that is no power of two (an --embed_dim
 // 24-56 model's 24-896) the WMMA tiles of leff_bwd_heads.cu, one tile a
-// block. fp32 (the exact-check path) runs the FMA loops below at every C,
-// one tile per block, partial tiles masked too.
+// block, and at C 1152-2048 (an --embed_dim 72-128 model's widest
+// levels) the same tiles, C 2048 too (no leff_bwd_mma.cuh tile is that
+// wide). fp32 (the exact-check path) runs the FMA loops below at every C,
+// one tile per block, partial tiles masked too. Where a tile's LN(x)
+// (the halo's in A, the outputs' in B) would not fit shared memory
+// beside the rest (bf16 A from C 1408 and B at C 2048, fp32 A from C
+// 1280), it goes to the block's slot of a scratch in device memory
+// (uf_leff_bwd_scratch) and the tile takes the most rows that fit
+// without it.
 #include "leff_bwd_mma.cuh"
 
 namespace uf {
@@ -45,10 +52,14 @@ namespace uf {
 
 struct LeffBwdLayout {
   static constexpr int ldh = kLeffChunk + 4, ldg = kLeffChunk + 8;
-  int TH, Mo, nh, Mh, ldx, lda;
+  int TH, Mo, nh, Mh, ldx, ldy, lda;
   size_t xn, dyt, hid, dg, hpix, red;           // kernel A
   size_t acc, dp2, dp1, stats;                  // kernel B (and xn, hid)
   size_t opix, total;
+  bool xn_smem;  // the LN(x) tile in shared memory, else in xn_scratch
+  __host__ __device__ int xn_rows(int which) const {
+    return which == 0 ? Mh : Mo;
+  }
 };
 
 // which = 0: kernel A, 1: kernel B; fp32 tiles
@@ -61,34 +72,52 @@ __host__ __device__ inline LeffBwdLayout leff_bwd_layout(int which, int C,
   L.Mo = TH * 8;
   L.nh = (TH + 2) * 10;
   L.Mh = (L.nh + 15) / 16 * 16;
-  L.ldx = C + 8;
+  L.ldy = C + 8;
   L.lda = C + 4;
   constexpr int ldh = LeffBwdLayout::ldh, ldg = LeffBwdLayout::ldg;
   L.dyt = L.dg = L.red = L.acc = L.dp2 = L.dp1 = L.stats = 0;
   L.hpix = cv.take((size_t)L.Mh * sizeof(int));
   L.opix = cv.take((size_t)L.Mo * sizeof(int));
   if (which == 0) {
-    L.xn = cv.take((size_t)L.Mh * L.ldx * ts);
-    L.dyt = cv.take((size_t)L.Mo * L.ldx * ts);
+    L.dyt = cv.take((size_t)L.Mo * L.ldy * ts);
     L.hid = cv.take((size_t)L.Mh * ldh * sizeof(float));
     L.dg = cv.take((size_t)L.Mo * ldh * sizeof(float));
     L.red = cv.take((size_t)kRowStep * kLeffChunk * 10 * sizeof(float));
   } else {
-    L.xn = cv.take((size_t)L.Mo * L.ldx * ts);
     L.acc = cv.take((size_t)L.Mo * L.lda * sizeof(float));
     L.hid = cv.take((size_t)L.Mo * ldh * sizeof(float));
     L.dp2 = cv.take((size_t)L.Mh * ldh * sizeof(float));
     L.dp1 = cv.take((size_t)L.Mo * ldg * ts);
     L.stats = cv.take((size_t)2 * L.Mo * sizeof(float));
   }
+  // the tile's LN(x), last: in shared memory where it fits
+  const size_t xn = (size_t)L.xn_rows(which) * (C + 8) * ts;
+  L.xn_smem = cv.off + xn <= kSmemLimit;
+  L.xn = L.xn_smem ? cv.take(xn) : 0;
+  L.ldx = L.xn_smem ? C + 8 : C;
   L.total = cv.off;
   return L;
 }
 
+// the most rows (8, 4, 2, 1) with LN(x) in shared memory (1 x 8: C 1024's
+// and 1152's kernel A), else without it (kernel A from C 1280)
 __host__ __device__ inline int leff_bwd_tile_rows_f32(int which, int C) {
-  for (int th = 8; th > 1; th >>= 1)
-    if (leff_bwd_layout(which, C, th).total <= kSmemLimit) return th;
-  return 1;  // C = 1024's kernel A
+  for (int in_smem = 1; in_smem >= 0; --in_smem)
+    for (int th = 8; th >= 1; th >>= 1) {
+      const LeffBwdLayout L = leff_bwd_layout(which, C, th);
+      if (L.total <= kSmemLimit && L.xn_smem >= in_smem) return th;
+    }
+  return 0;
+}
+
+// the LN(x) tile of kernel `which`'s block: in shared memory, or the
+// block's slot of p.xn_scratch
+__device__ float* xn_tile(const LeffBwdParams<float>& p,
+                          const LeffBwdLayout& L, int which,
+                          unsigned char* smem) {
+  return L.xn_smem ? reinterpret_cast<float*>(smem + L.xn)
+                   : p.xn_scratch +
+                         (size_t)blockIdx.x * L.xn_rows(which) * p.C;
 }
 
 // halo pixel indices of tile `item` (-1 outside the image or padding
@@ -107,7 +136,7 @@ __global__ void __launch_bounds__(kThreads)
   const LeffBwdLayout L = leff_bwd_layout(0, p.C, p.TH);
   const int C = p.C, Ch = p.Ch;
   const int tid = threadIdx.x, warp = tid >> 5;
-  T* xn = reinterpret_cast<T*>(smem + L.xn);
+  T* xn = xn_tile(p, L, 0, smem);
   T* dyt = reinterpret_cast<T*>(smem + L.dyt);
   float* hid = reinterpret_cast<float*>(smem + L.hid);
   float* dg = reinterpret_cast<float*>(smem + L.dg);
@@ -115,7 +144,7 @@ __global__ void __launch_bounds__(kThreads)
   int* hpix = reinterpret_cast<int*>(smem + L.hpix);
   int* opix = reinterpret_cast<int*>(smem + L.opix);
   constexpr int ldh = LeffBwdLayout::ldh;
-  const int ldx = L.ldx, Mh = L.Mh, Mo = L.Mo;
+  const int ldx = L.ldx, ldy = L.ldy, Mh = L.Mh, Mo = L.Mo;
   tile_geometry(p, blockIdx.x, Mh, L.nh, Mo, hpix, opix);
   __syncthreads();
   for (int idx = tid; idx < Mh * C; idx += blockDim.x) {
@@ -124,7 +153,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (int idx = tid; idx < Mo * C; idx += blockDim.x) {
     const int o = idx / C, c = idx % C;
-    dyt[o * ldx + c] = opix[o] >= 0 ? p.dy[(size_t)opix[o] * C + c] : 0.f;
+    dyt[o * ldy + c] = opix[o] >= 0 ? p.dy[(size_t)opix[o] * C + c] : 0.f;
   }
   __syncthreads();
   if (p.has_ln) {
@@ -147,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
       hid[i * ldh + j] = hpix[i] >= 0 ? gelu(hid[i * ldh + j] + b1j) : 0.f;
     __syncthreads();
     // dg = dy . W2[k0:k0+64, :]^T
-    block_gemm<T, true, false>(dyt, ldx, p.w2 + (size_t)k0 * C, C, dg, ldh,
+    block_gemm<T, true, false>(dyt, ldy, p.w2 + (size_t)k0 * C, C, dg, ldh,
                                Mo, kLeffChunk, C);
     __syncthreads();
     float dwd[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -192,7 +221,7 @@ __global__ void __launch_bounds__(kThreads)
   const LeffBwdLayout L = leff_bwd_layout(1, p.C, p.TH);
   const int C = p.C, Ch = p.Ch;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  T* xn = reinterpret_cast<T*>(smem + L.xn);
+  T* xn = xn_tile(p, L, 1, smem);
   float* acc = reinterpret_cast<float*>(smem + L.acc);
   float* hid = reinterpret_cast<float*>(smem + L.hid);
   float* dp2 = reinterpret_cast<float*>(smem + L.dp2);
@@ -387,7 +416,10 @@ static int run_mma(int which, LeffBwdParams<bf16>& p, int groups,
 
 static int run_f32(int which, LeffBwdParams<float>& p, cudaStream_t stream) {
   p.TH = leff_bwd_tile_rows_f32(which, p.C);
+  if (!p.TH) return (int)cudaErrorInvalidValue;
   const LeffBwdLayout L = leff_bwd_layout(which, p.C, p.TH);
+  if (!L.xn_smem && p.xn_scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
   auto kernel = which == 0 ? leff_bwd_a_kernel : leff_bwd_b_kernel;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
@@ -403,8 +435,9 @@ static int run_bwd(int which, const void* x, const void* dy,
                    const float* b1, const void* wd, const float* bd,
                    const void* w2, void* g, void* dpre2, float* part_a,
                    void* dx, void* ln, void* dpre1, float* part_b,
-                   float* part_dln, int cpg, int B, int H, int W, int C,
-                   int Ch, int has_ln, int residual, void* stream) {
+                   float* part_dln, void* xn_scratch, int cpg, int B, int H,
+                   int W, int C, int Ch, int has_ln, int residual,
+                   void* stream) {
   LeffBwdParams<T> p;
   p.x = static_cast<const T*>(x);
   p.dy = static_cast<const T*>(dy);
@@ -423,6 +456,7 @@ static int run_bwd(int which, const void* x, const void* dy,
   p.dpre1 = static_cast<T*>(dpre1);
   p.part_b = part_b;
   p.part_dln = part_dln;
+  p.xn_scratch = static_cast<T*>(xn_scratch);
   p.B = B;
   p.H = H;
   p.W = W;
@@ -494,29 +528,51 @@ int uf_leff_bwd_tile_rows(int which, int is_bf16, int C) {
   return uf::leff_bwd_tile_rows(which, is_bf16 ? 2 : 4, C);
 }
 
+// Rows of kernel `which`'s LN(x) tile (the halo's in A, the outputs' in
+// B) that go to device memory because they miss shared memory, 0 where
+// they fit: the caller then passes xn_scratch of tiles x rows x C values
+// of the input's dtype (A and B may share one, each taking its own
+// tiles' slots).
+int uf_leff_bwd_scratch(int which, int is_bf16, int C) {
+  if (!is_bf16) {
+    const int th = uf::leff_bwd_tile_rows_f32(which, C);
+    if (!th) return 0;
+    const auto L = uf::leff_bwd_layout(which, C, th);
+    return L.xn_smem ? 0 : L.xn_rows(which);
+  }
+  switch (C) {
+    case 8: case 16: case 32: case 64: case 128: case 256: case 512:
+    case 1024:
+      return 0;  // leff_bwd_mma.cuh's tiles
+  }
+  return uf::leff_bwd_heads_scratch(which, C);
+}
+
 // One of the backward kernels: which = 0: A, 1: B, 2: (bf16) the finish
 // of a B split into groups of cpg hidden chunks (cpg >= Ch / 64: no
 // split; fp32 never splits). A reads x, dy, LN, w1, b1, wd, bd, w2 and
 // writes g, dpre2, part_a; B reads x, dy, LN, w1, b1, wd, dpre2 and writes
 // dx, ln, dpre1, part_b, or, split, ln, dpre1, db1's part of part_b and
 // part_dln (groups x tiles x TH 8 x C fp32); the finish reads part_dln, x,
-// dy, LN and writes dx and the rest of part_b. Pointers a kernel does not
+// dy, LN and writes dx and the rest of part_b. xn_scratch: where
+// uf_leff_bwd_scratch gives rows for A or B. Pointers a kernel does not
 // use may be null. Returns a cudaError_t.
 int uf_leff_bwd(int which, int is_bf16, const void* x, const void* dy,
                 const float* ln_s, const float* ln_b, const void* w1,
                 const float* b1, const void* wd, const float* bd,
                 const void* w2, void* g, void* dpre2, float* part_a, void* dx,
                 void* ln, void* dpre1, float* part_b, float* part_dln,
-                int cpg, int B, int H, int W, int C, int Ch, int has_ln,
-                int residual, void* stream) {
+                void* xn_scratch, int cpg, int B, int H, int W, int C,
+                int Ch, int has_ln, int residual, void* stream) {
   if (is_bf16)
     return uf::run_bwd<uf::bf16>(which, x, dy, ln_s, ln_b, w1, b1, wd, bd, w2,
                                  g, dpre2, part_a, dx, ln, dpre1, part_b,
-                                 part_dln, cpg, B, H, W, C, Ch, has_ln,
-                                 residual, stream);
+                                 part_dln, xn_scratch, cpg, B, H, W, C, Ch,
+                                 has_ln, residual, stream);
   return uf::run_bwd<float>(which, x, dy, ln_s, ln_b, w1, b1, wd, bd, w2, g,
                             dpre2, part_a, dx, ln, dpre1, part_b, part_dln,
-                            cpg, B, H, W, C, Ch, has_ln, residual, stream);
+                            xn_scratch, cpg, B, H, W, C, Ch, has_ln,
+                            residual, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
 // Kernel 7 (leff_bwd.cu) in bf16 at the widths that are no power of two:
-// an --embed_dim 24-56 model's C 24-896 (hidden 4C, padded to a multiple
-// of 64 by the host; C 24, 40 and 56 are 8 mod 16). leff_bwd.cu's fp32
+// an --embed_dim 24-56 model's C 24-896 and an --embed_dim 72-128 model's
+// C 72-2048 but the powers of two up to 1024 (hidden 4C, padded to a
+// multiple of 64 by the host; C 24-120 may be 8 mod 16), C 2048 too
+// (above leff_bwd_mma.cuh's tiles, a power of two). leff_bwd.cu's fp32
 // FMA kernels A and B, on WMMA fragments through shared memory, as the
 // forward's leff_tile.cuh takes these widths:
 //   - a product of depth C (h and pre1 = LN(x) W1, dg = dy W2^T) takes
@@ -14,8 +16,13 @@
 // dg in fp32, dpre2 rounded after GELU', dbd from the fp32 dpre2 and dwd
 // from the rounded one; dpre1 rounded once, db1 from its fp32 value; the
 // LayerNorm VJP on the fp32 dLN. One block per TH x 8 output tile, every
-// hidden chunk (no split), TH the most of 8, 4, 2 that fits shared memory.
-// Its own translation unit, so that nvcc builds it beside leff_bwd.cu.
+// hidden chunk (no split), TH the most of 8, 4, 2 that fits shared memory
+// with the tile's LN(x) (the halo's in A, the outputs' in B); where none
+// does (A from C 1408, B at C 2048: the halo of 48 x (C + 8) bf16 or the
+// 16 x (C + 4) fp32 dLN accumulator fills the block's 227 KB), the most
+// that fits without it, its LN(x) then in the block's slot of
+// p.xn_scratch in device memory (L2), read there by the W1 products. Its
+// own translation unit, so that nvcc builds it beside leff_bwd.cu.
 //
 // What bounds it on the H100: the products of 2 C Ch multiply-adds a
 // pixel (three of them, as kernel 7's other widths), here block-wide WMMA
@@ -32,8 +39,12 @@ constexpr int ldh = kLeffChunk + 4, ldg = kLeffChunk + 8;
 constexpr int ldw = kLeffChunk + 8, ldt = kChunk + 8;
 
 struct Layout {
-  int TH, Mo, nh, Mh, ldx, lda;
+  int TH, Mo, nh, Mh, ldx, ldy, lda;
   size_t xn, dyt, hid, dg, red, acc, dp2, dp1, stats, w, hpix, opix, total;
+  bool xn_smem;  // the LN(x) tile in shared memory, else in xn_scratch
+  __host__ __device__ int xn_rows(int which) const {
+    return which == 0 ? Mh : Mo;
+  }
 };
 
 // which = 0: kernel A, 1: kernel B
@@ -44,7 +55,7 @@ __host__ __device__ inline Layout layout(int which, int C, int TH) {
   L.Mo = TH * 8;
   L.nh = (TH + 2) * 10;
   L.Mh = (L.nh + 15) / 16 * 16;
-  L.ldx = C + 8;
+  L.ldy = C + 8;
   L.lda = (C + 15) / 16 * 16 + 4;
   L.dyt = L.dg = L.red = L.acc = L.dp2 = L.dp1 = L.stats = 0;
   L.hpix = cv.take((size_t)L.Mh * sizeof(int));
@@ -55,21 +66,33 @@ __host__ __device__ inline Layout layout(int which, int C, int TH) {
                                                        : kLeffChunk * ldt;
   L.w = cv.take(piece * sizeof(bf16));
   if (which == 0) {
-    L.xn = cv.take((size_t)L.Mh * L.ldx * sizeof(bf16));
-    L.dyt = cv.take((size_t)L.Mo * L.ldx * sizeof(bf16));
+    L.dyt = cv.take((size_t)L.Mo * L.ldy * sizeof(bf16));
     L.hid = cv.take((size_t)L.Mh * ldh * sizeof(float));
     L.dg = cv.take((size_t)L.Mo * ldh * sizeof(float));
     L.red = cv.take((size_t)kRowStep * kLeffChunk * 10 * sizeof(float));
   } else {
-    L.xn = cv.take((size_t)L.Mo * L.ldx * sizeof(bf16));
     L.acc = cv.take((size_t)L.Mo * L.lda * sizeof(float));
     L.hid = cv.take((size_t)L.Mo * ldh * sizeof(float));
     L.dp2 = cv.take((size_t)L.Mh * ldh * sizeof(float));
     L.dp1 = cv.take((size_t)L.Mo * ldg * sizeof(bf16));
     L.stats = cv.take((size_t)2 * L.Mo * sizeof(float));
   }
+  // the tile's LN(x), last: in shared memory where it fits
+  const size_t xn = (size_t)L.xn_rows(which) * (C + 8) * sizeof(bf16);
+  L.xn_smem = cv.off + xn <= kSmemLimit;
+  L.xn = L.xn_smem ? cv.take(xn) : 0;
+  L.ldx = L.xn_smem ? C + 8 : C;
   L.total = cv.off;
   return L;
+}
+
+// the LN(x) tile of kernel `which`'s block: in shared memory, or the
+// block's slot of p.xn_scratch
+__device__ bf16* xn_tile(const LeffBwdParams<bf16>& p, const Layout& L,
+                         int which, unsigned char* smem) {
+  return L.xn_smem ? reinterpret_cast<bf16*>(smem + L.xn)
+                   : p.xn_scratch +
+                         (size_t)blockIdx.x * L.xn_rows(which) * p.C;
 }
 
 // halo pixel indices of tile `item` (-1 outside the image or padding
@@ -123,7 +146,7 @@ __global__ void __launch_bounds__(kThreads)
   const Layout L = layout(0, p.C, p.TH);
   const int C = p.C, Ch = p.Ch;
   const int tid = threadIdx.x, warp = tid >> 5;
-  bf16* xn = reinterpret_cast<bf16*>(smem + L.xn);
+  bf16* xn = xn_tile(p, L, 0, smem);
   bf16* dyt = reinterpret_cast<bf16*>(smem + L.dyt);
   float* hid = reinterpret_cast<float*>(smem + L.hid);
   float* dg = reinterpret_cast<float*>(smem + L.dg);
@@ -131,11 +154,11 @@ __global__ void __launch_bounds__(kThreads)
   bf16* ws = reinterpret_cast<bf16*>(smem + L.w);
   int* hpix = reinterpret_cast<int*>(smem + L.hpix);
   int* opix = reinterpret_cast<int*>(smem + L.opix);
-  const int ldx = L.ldx, Mh = L.Mh, Mo = L.Mo;
+  const int ldx = L.ldx, ldy = L.ldy, Mh = L.Mh, Mo = L.Mo;
   geometry(p, L, hpix, opix);
   __syncthreads();
   gather(xn, ldx, p.x, hpix, Mh, C);
-  gather(dyt, ldx, p.dy, opix, Mo, C);
+  gather(dyt, ldy, p.dy, opix, Mo, C);
   __syncthreads();
   if (p.has_ln) {
     for (int i = warp; i < Mh; i += kWarps)
@@ -165,10 +188,10 @@ __global__ void __launch_bounds__(kThreads)
       zero_pad<bf16>(ws, ldt, kLeffChunk, kr16, kLeffChunk, kr);
       __syncthreads();
       if (kc == 0)
-        block_gemm<bf16, true, false>(dyt, ldx, ws, ldt, dg, ldh, Mo,
+        block_gemm<bf16, true, false>(dyt, ldy, ws, ldt, dg, ldh, Mo,
                                       kLeffChunk, kr16);
       else
-        block_gemm<bf16, true, true>(dyt + kc, ldx, ws, ldt, dg, ldh, Mo,
+        block_gemm<bf16, true, true>(dyt + kc, ldy, ws, ldt, dg, ldh, Mo,
                                      kLeffChunk, kr16);
     }
     __syncthreads();
@@ -215,7 +238,7 @@ __global__ void __launch_bounds__(kThreads)
   const Layout L = layout(1, p.C, p.TH);
   const int C = p.C, Ch = p.Ch;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  bf16* xn = reinterpret_cast<bf16*>(smem + L.xn);
+  bf16* xn = xn_tile(p, L, 1, smem);
   float* acc = reinterpret_cast<float*>(smem + L.acc);
   float* hid = reinterpret_cast<float*>(smem + L.hid);
   float* dp2 = reinterpret_cast<float*>(smem + L.dp2);
@@ -338,9 +361,20 @@ __global__ void __launch_bounds__(kThreads)
 
 int leff_bwd_heads_rows(int which, int C) {
   if (C % 8) return 0;
-  for (int th = 8; th > 1; th >>= 1)
-    if (layout(which, C, th).total <= kSmemLimit) return th;
+  // the most rows with LN(x) in shared memory, else without it
+  for (int in_smem = 1; in_smem >= 0; --in_smem)
+    for (int th = 8; th > 1; th >>= 1) {
+      const Layout L = layout(which, C, th);
+      if (L.total <= kSmemLimit && L.xn_smem >= in_smem) return th;
+    }
   return 0;
+}
+
+int leff_bwd_heads_scratch(int which, int C) {
+  const int th = leff_bwd_heads_rows(which, C);
+  if (!th) return 0;
+  const Layout L = layout(which, C, th);
+  return L.xn_smem ? 0 : L.xn_rows(which);
 }
 
 int leff_bwd_heads(int which, LeffBwdParams<bf16>& p, cudaStream_t stream) {
@@ -348,6 +382,9 @@ int leff_bwd_heads(int which, LeffBwdParams<bf16>& p, cudaStream_t stream) {
   if (!p.TH || which > 1 || p.Ch % kLeffChunk)
     return (int)cudaErrorInvalidValue;
   const Layout L = layout(which, p.C, p.TH);
+  // a C of 8 mod 16 reads the LN(x) tile's zero pad columns: shared memory
+  if (!L.xn_smem && (p.xn_scratch == nullptr || p.C % 16))
+    return (int)cudaErrorInvalidValue;
   auto kernel = which == 0 ? leff_bwd_a_heads_kernel : leff_bwd_b_heads_kernel;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);

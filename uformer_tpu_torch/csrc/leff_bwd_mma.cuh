@@ -59,6 +59,8 @@ struct LeffBwdParams {
   T* dpre1;           // (B, H, W, Ch)                             [B]
   float* part_b;      // (tiles, C + Ch): dln_s, then db1           [B]
   float* part_dln;    // (groups, tiles, TH * 8, C) fp32 dLN partials [B]
+  T* xn_scratch;      // (tiles, rows, C): a tile's LN(x) where it misses
+                      // shared memory (uf_leff_bwd_scratch)   [A or B]
   int B, H, W, C, Ch, TH;
   int cpg;            // hidden chunks per blockIdx.y group
   int has_ln, residual;
@@ -66,10 +68,13 @@ struct LeffBwdParams {
 
 constexpr int kRowStep = kThreads / kLeffChunk;  // 8 row groups
 
-// bf16 at a C that is no power of two (leff_bwd_heads.cu, one tile a
-// block, every hidden chunk): the output rows of kernel `which`'s tile (0
-// A, 1 B), 0 where none fits; the launch of A or B, 0 or a cudaError_t.
+// bf16 at a C that is no power of two or above 1024 (leff_bwd_heads.cu,
+// one tile a block, every hidden chunk): the output rows of kernel
+// `which`'s tile (0 A, 1 B), 0 where none fits; the rows of its LN(x)
+// tile in p.xn_scratch, 0 where it fits shared memory; the launch of A or
+// B, 0 or a cudaError_t.
 int leff_bwd_heads_rows(int which, int C);
+int leff_bwd_heads_scratch(int which, int C);
 int leff_bwd_heads(int which, LeffBwdParams<bf16>& p, cudaStream_t stream);
 
 // Output pixel o of tile `item` (TH x 8 outputs of a (B, ceil(H / TH),

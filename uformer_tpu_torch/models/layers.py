@@ -95,7 +95,10 @@ from uformer_tpu_torch.ops.kernels import (
     stage_reference,
 )
 from uformer_tpu_torch.ops.kernels.leff import pad_hidden
-from uformer_tpu_torch.ops.kernels.window_attention import BACKWARD_HEAD_DIMS
+from uformer_tpu_torch.ops.kernels.window_attention import (
+    FORWARD_HEAD_DIMS,
+    HEAD_DIMS,
+)
 from uformer_tpu_torch.ops.masks import input_mask_bias, shift_mask_on
 from uformer_tpu_torch.ops.norm import layer_norm
 from uformer_tpu_torch.ops.relpos import relative_position_index
@@ -109,11 +112,11 @@ from uformer_tpu_torch.ops.window import (
 Params = Dict[str, torch.Tensor]
 LEFF_MLPS = ("leff", "fastleff")  # fastleff: the same function and keys
 GEOMETRY_NOT_ON_KERNEL_PATH = (
-    f"the kernels take every window and head dim in {BACKWARD_HEAD_DIMS} "
-    f"(the multiples of 8 up to 64) forward and backward, and head dims "
-    f"72-128 forward only at windows 1-8; any other head dim, and 72-128 "
-    f"in training, runs on the plain path only (ROADMAP.md, port queue 2 "
-    f"item 9: other head dims)")
+    f"the kernels take every window and head dim in {HEAD_DIMS} (the "
+    f"multiples of 8 up to 64) forward and backward, and head dims 72-128 "
+    f"both ways at windows 1-8; any other head dim, and 72-128 above "
+    f"window 8, runs on the plain path only (ROADMAP.md, port queue 2 "
+    f"item 9: other head dims, and 72-128 above window 8 in part 2)")
 
 
 class _Prepared:
@@ -629,16 +632,17 @@ class LeWinBlock(_Prepared, nn.Module):
         block, or None. The attention backward kernels cover the image
         route and the windowed branch at every window (below 8 on packed
         tiles, above 8 `csrc/attention_wide.cu`) and every head dim of
-        BACKWARD_HEAD_DIMS (8-64, multiples of 8: head dims 72-128 run
-        forward only), and the LeFF backward kernel every C a multiple of
-        8 up to 1024;
+        HEAD_DIMS (8-64, multiples of 8), and at windows 1-8 every head dim
+        of FORWARD_HEAD_DIMS (72-128 too), and the LeFF backward kernel
+        every C a multiple of 8 up to 2048;
         Mlp and the cross-modulator's attention are plain PyTorch. Conv
         projection runs the depthwise kernel, which has no backward (in JAX
         either)."""
         if self.attn.token_projection == "conv":
             return DWCONV_BACKWARD_NOT_PORTED
+        dims = HEAD_DIMS if self.win_size > 8 else FORWARD_HEAD_DIMS
         if self.dim % self.num_heads \
-                or self.dim // self.num_heads not in BACKWARD_HEAD_DIMS:
+                or self.dim // self.num_heads not in dims:
             return GEOMETRY_NOT_ON_KERNEL_PATH
         return None
 

@@ -14,11 +14,12 @@ embed 24-56, C 24-896, no power of two) the one-window bodies of kernels
 1, 5 and 6 and the stage kernel (bf16 through zero-padded WMMA
 fragments) and LeFF's `leff_tile` forward and `csrc/leff_bwd_heads.cu`
 backward. Uformer at `--embed_dim` 72-128 in steps of 8 (head dims
-72-128, C up to 2048) serves and evaluates through the kernels at
-windows 1-8 (the stage kernel and kernels 5 and 2 on their one-window
-bodies, `window_attention.FORWARD_HEAD_DIMS`); above window 8, in the
-spatial path above window 8 and in training the card refuses it before
-any launch (ROADMAP.md's port queue 2 item 9). A stage built below the
+72-128, C up to 2048) serves, evaluates and trains through the kernels
+at windows 1-8 (the stage kernel and kernels 1, 5 and 2 on their
+one-window bodies, `window_attention.FORWARD_HEAD_DIMS`, and their
+backward kernels 6 and 7); above window 8, serving, the spatial path and
+training alike, the card refuses it before any launch (ROADMAP.md's port
+queue 2 item 9). A stage built below the
 window runs at window min(reso, win);
 below 8, 64 // N whole windows of N = win² tokens to a kernel tile;
 above 8, the key-chunked kernels of `csrc/attention_wide.cu`, whose

@@ -51,7 +51,8 @@ _SIGNATURES = {
     "uf_attention_block_bwd": [_I] + [_P] * 21 + [_I] * 7 + [_F] + [_I] * 3
                               + [_P],
     "uf_leff_bwd_tile_rows": [_I, _I, _I],
-    "uf_leff_bwd": [_I, _I] + [_P] * 17 + [_I] * 8 + [_P],
+    "uf_leff_bwd_scratch": [_I, _I, _I],
+    "uf_leff_bwd": [_I, _I] + [_P] * 18 + [_I] * 8 + [_P],
     "uf_leff_dln_b": [_I] + [_P] * 3 + [_I] * 2 + [_P],
     "uf_wgrad": [_I, _P, _I, _P, _I] + [_P] * 4 + [_I] * 4 + [_P],
     "uf_colsum": [_I, _P, _I, _P, _P, _I, _I, _I, _P],

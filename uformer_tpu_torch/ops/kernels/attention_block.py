@@ -26,12 +26,13 @@ Head dim 8 runs at every C (bf16: the narrow body at C 8-64, a tile per
 block at C % 128 == 0). Head dims 24, 40, 48 and 56 (`--embed_dim`
 24-56: C 24-896, none a power of two) run a window (tile) per block at
 windows 1-8, both ways, and `attention_wide` above. Head dims 72-128 in
-steps of 8 (`--embed_dim` 72-128: C 72-2048) run the forward only, at
-windows 1-8 (`FORWARD_HEAD_DIMS`), a window (tile) per block on the body
-of the next multiple of 16, which projects q, k and v in turn
-(`csrc/attention_block_big_heads.cu`); above window 8 and in the
-backward they are refused before any launch (ROADMAP.md, port queue 2
-item 9). Windows above 8 (N
+steps of 8 (`--embed_dim` 72-128: C 72-2048) run both ways at windows
+1-8 (`FORWARD_HEAD_DIMS`), a window (tile) per block on the body of the
+next multiple of 16, which projects q, k and v in turn
+(`csrc/attention_block_big_heads.cu`) and in the backward makes dq, dk
+and dv in turn (`csrc/attention_bwd_big_heads.cu`); above window 8 they
+are refused before any launch (ROADMAP.md, port queue 2 item 9).
+Windows above 8 (N
 = win² > 64 tokens, any size) run `csrc/attention_wide.cu` through
 `attention_wide`: the projections over 64-row tiles of tokens, the core
 with a key-chunked online softmax, both ways, at every head dim of
@@ -43,8 +44,9 @@ Its backward, `fused_attention_block_bwd`, is the port of
 `attention_block.py:fused_attention_block_bwd` in its own layout (kernel
 source `csrc/attention_block_bwd.cu`: in bf16 the tensor-core body
 `csrc/attention_bwd_mma.cuh`, in fp32 `csrc/attention_window_bwd.cuh`,
-with the identity token map; head dims 24-56 in both dtypes on the
-one-window body of `csrc/attention_bwd_heads.cu`), windows 1-8: at
+with the identity token map; head dims 24-56 and 72-128 in both dtypes on
+the one-window body, `csrc/attention_bwd_heads.cu` and
+`csrc/attention_bwd_big_heads.cu`), windows 1-8: at
 N < 64 on the forward's packed tiles (`csrc/attention_block_bwd_packed.cu`,
 the operands' tiles from `packed_operands`, the tile gradients of the bias
 and the modulator folded back by `fold_tile_bias`, `fold_tile_tokens`);
@@ -271,9 +273,11 @@ def attention_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
     the partial sums of their work items (bf16 at MMA_HEAD_DIMS:
     `windows_per_item` tiles each, or `heads_per_block` heads of one tile,
     C 8-1024 in powers of 2, at most 16 heads; fp32, and bf16 at head dims
-    24-56: one tile; head dim 64 at C 512 and 1024 writes every tile's
-    fp32 dxm to part_dxm and ends it in a second launch, and bf16 at head
-    dims 24-56 writes it there where it misses shared memory), and
+    24-56 and 72-128: one tile; head dim 64 at C 512 and 1024 writes every
+    tile's fp32 dxm to part_dxm and ends it in a second launch, and bf16
+    at head dims 24-56 and 72-128 writes it there where it misses shared
+    memory; the xm and dO tiles go to their scratches where they miss it,
+    `uf_attention_bwd_scratch`), and
     returns ([(name, run)],
     result): the body, launch(lib, is_bf16, wn, hpb, *pointers) (a C
     entry taking x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias, dx,
@@ -315,6 +319,9 @@ def attention_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo, bias,
         return torch.empty(*shape, dtype=dtype, device=dev)
 
     need = lib.uf_attention_bwd_scratch(is_bf16, C, num_heads)
+    if need < 0:
+        _launch.check(-need, f"uf_attention_bwd_scratch(C={C}, "
+                      f"heads={num_heads})")
     x_scr = empty(M, C) if need & 1 else None
     do_scr = empty(M, C) if need & 2 else None
     dx, o_tok = torch.empty_like(x), torch.empty_like(x)
@@ -420,7 +427,9 @@ def fused_attention_block_bwd(x: torch.Tensor, g: torch.Tensor,
     tensor takes the plain version; a CUDA tensor launches the kernels
     (any win, w_off 0: the JAX kernel has no
     offset; above window 8 `csrc/attention_wide.cu`) or raises. Head
-    dim in HEAD_DIMS: 24-56 on `csrc/attention_bwd_heads.cu`."""
+    dim in FORWARD_HEAD_DIMS at windows 1-8 (24-56 on
+    `csrc/attention_bwd_heads.cu`, 72-128 on
+    `csrc/attention_bwd_big_heads.cu`), in HEAD_DIMS above."""
     kw = dict(win=win, shift=shift, H=H, W=W, scale=scale,
               num_heads=num_heads, has_ln=has_ln, w_off=w_off)
     if x.device.type == "cpu":
@@ -446,7 +455,9 @@ def attention_block_bwd_parts(x, g, mod, ln_s, ln_b, wq, bq, wkv, bkv, wo,
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
                          f"{tuple(x.shape)} {x.dtype}")
     check_window(win, shift, H, W)
-    check_head_dim(C, num_heads)
+    # head dims 72-128 at windows 1-8 only (above: ROADMAP.md item 9)
+    check_head_dim(C, num_heads,
+                   HEAD_DIMS if N > TILE else FORWARD_HEAD_DIMS)
     if N != win * win or w_off != 0:
         raise ValueError(f"backward kernel needs N = win² and w_off = 0: "
                          f"N={N} win={win} w_off={w_off}")

@@ -2,7 +2,7 @@
 
 Port of `uformer_tpu/ops/pallas/attention_image.py:fused_attention_image`
 (kernel source `csrc/attention_image.cu`), window 8 (as the JAX
-kernel, `attention_image.py:665`), head dim 8-64, a multiple of 8. On the
+kernel, `attention_image.py:665`), head dim 8-128, a multiple of 8. On the
 H100 a window is little work at every width, so latency between small
 products sets the pace. In bf16 two persistent bodies on `mma.sync` read
 and write the NHWC image once: at C 16-64 (`csrc/attention_narrow_mma.cuh`)
@@ -17,16 +17,19 @@ products over zeroed pad columns; training reaches it, as the stage
 kernel runs only in eval). Head dim 64 (`--embed_dim 64`) runs the
 narrow body at C 64 (one head) and the wide one at C 128-512 (two
 windows a work item at most). fp32, and bf16 at C 1024 and at head dims
-24, 40, 48 and 56 (`--embed_dim` 24-56, C 384-896 on the image route),
-run one window per block (`csrc/attention_window.cuh`; those head dims
-on kernel 5's instantiation, `csrc/attention_block_heads.cu`).
+24, 40, 48 and 56 (`--embed_dim` 24-56, C 384-896 on the image route)
+and 72-128 (`--embed_dim` 72-128 in training: every block with C % 128
+== 0, C 128-2048), run one window per block (`csrc/attention_window.cuh`;
+those head dims on kernel 5's instantiations,
+`csrc/attention_block_heads.cu` and `csrc/attention_block_big_heads.cu`).
 `attention_image_reference` is the plain PyTorch version with the JAX
 reference's signature (`attention_image.py:432`). Its backward,
 `fused_attention_image_bwd` (kernel source `csrc/attention_bwd.cu`),
 takes every head dim the forward does (head dim 64 at C 512 and 1024
 with g streamed and dxm through device memory,
 `csrc/attention_bwd_mma.cuh`'s kBig; 24-56 one window a block,
-`csrc/attention_bwd_heads.cu`).
+`csrc/attention_bwd_heads.cu`; 72-128 one window a block on the body of
+the next multiple of 16, `csrc/attention_bwd_big_heads.cu`).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from uformer_tpu_torch.ops.kernels.attention_block import (
 )
 from uformer_tpu_torch.ops.kernels.wgrad import sm_count
 from uformer_tpu_torch.ops.kernels.window_attention import (
+    FORWARD_HEAD_DIMS,
     check_head_dim,
     check_window,
 )
@@ -100,7 +104,9 @@ def attention_image_plan(windows: int, C: int, D: int, bf16: bool,
     most of 4, 2, 1 windows (one per group of four warps) that still
     leaves a work item per SM, the wide body at C 128-512 (head dim 8 at
     C 128) with `wide_windows`; else ("window", 1), one window per
-    block (fp32, and bf16 at C 1024)."""
+    block (fp32, and bf16 at C 1024 and at head dims 24-56 and 72-128)."""
+    if D > 64:
+        return "window", 1
     if bf16 and C in NARROW_WIDTHS and C >= D:
         for wn in (4, 2):
             if -(-windows // wn) >= sms:
@@ -113,11 +119,11 @@ def attention_image_plan(windows: int, C: int, D: int, bf16: bool,
 
 def _check_geometry(x, win, shift, num_heads):
     """Kernels 1 and 6's image-layout geometry: window 8; head dim in
-    HEAD_DIMS (in bf16 head dim 8 from C = 32, where JAX's image route
-    starts)."""
+    FORWARD_HEAD_DIMS (in bf16 head dim 8 from C = 32, where JAX's image
+    route starts)."""
     _, H, W, C = x.shape
     check_window(win, shift, H, W, windows=(8,))
-    check_head_dim(C, num_heads)
+    check_head_dim(C, num_heads, FORWARD_HEAD_DIMS)
     if x.dtype == torch.bfloat16 and C // num_heads == 8 and C < 32:
         raise ValueError(f"bf16 kernel takes head dim 8 from C = 32: C={C}")
 
@@ -134,8 +140,8 @@ def fused_attention_image(x: torch.Tensor, mod: Optional[torch.Tensor],
     wkv (C, 2C) = [k | v] in x's dtype; mod (64, C) in x's dtype or None;
     bq, bkv, bo, ln_s, ln_b float32; bias (nH, 64, 64) float32.
     A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel (win 8, head dim in HEAD_DIMS; its body and windows per
-    work item from `attention_image_plan`) or raises."""
+    the kernel (win 8, head dim in FORWARD_HEAD_DIMS; its body and
+    windows per work item from `attention_image_plan`) or raises."""
     if x.device.type == "cpu":
         fused_attention_image.plain_calls += 1
         return attention_image_reference(
@@ -221,7 +227,7 @@ def fused_attention_image_bwd(x: torch.Tensor, g: torch.Tensor,
     `csrc/wgrad.cu` (`attention_image_bwd_parts` lists the launches). Inputs as
     `fused_attention_image` takes them. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernels (win 8, head dim in
-    HEAD_DIMS; in bf16 head dim 8 from C = 32) or raises."""
+    FORWARD_HEAD_DIMS; in bf16 head dim 8 from C = 32) or raises."""
     kw = dict(win=win, shift=shift, scale=scale, num_heads=num_heads,
               has_ln=has_ln, residual=residual)
     if x.device.type == "cpu":

@@ -21,16 +21,20 @@ power of two (C 24-896; C 24, 40, 56 are 8 mod 16, hidden 96-3584) run
 `leff_tile` in both dtypes, its bf16 products 16 wider where C is 8 mod
 16 and, at C 768 and 896, its weight chunk staged in pieces. So do the
 widths of an `--embed_dim` 72-128 model (C 72-2048, hidden up to 8192;
-72, 88, 104 and 120 are 8 mod 16), in the forward only: from C 1152 its
-tile is 2 x 8 in bf16 (1 x 8 in fp32), and from C 1408 its LayerNormed
-halo goes to a scratch slot in device memory, one a block, the blocks
-walking the tiles (`uf_leff_scratch`). The backward takes C 8-1024 too (at C = 1024 2 x 8 and 4 x 8 tiles in bf16,
-1 x 8 and 2 x 8 in fp32; at C that is no power of two, bf16 on the WMMA
-tiles of `csrc/leff_bwd_heads.cu`, a tile a block, and fp32 on the FMA
-loops, which take any C). C = 8 (an embed-8 model's outer stages) runs the
-narrow tile too, on its 32-wide hidden zero-padded to one 64-wide chunk
-(`pad_hidden`: exact, as GELU(0) = 0; the model pads once, in
-`LeFF.kernel_params`), and so does its backward, `fused_leff_bwd` (its products of depth 8 on
+72, 88, 104 and 120 are 8 mod 16): from C 1152 its tile is 2 x 8 in
+bf16 (1 x 8 in fp32), and from C 1408 its LayerNormed halo goes to a
+scratch slot in device memory, one a block, the blocks walking the tiles
+(`uf_leff_scratch`). The backward takes every C too (at C = 1024 2 x 8
+and 4 x 8 tiles in bf16, 1 x 8 and 2 x 8 in fp32; at C that is no power
+of two, and at C 2048, bf16 on the WMMA tiles of
+`csrc/leff_bwd_heads.cu`, a tile a block, and fp32 on the FMA loops,
+which take any C; where a tile's LayerNormed rows miss shared memory,
+bf16 A from C 1408 and B at C 2048, fp32 A from C 1280, they go to the
+block's slot of a scratch in device memory, `uf_leff_bwd_scratch`). C = 8
+(an embed-8 model's outer stages) runs the narrow tile too, on its
+32-wide hidden zero-padded to one 64-wide chunk (`pad_hidden`: exact, as
+GELU(0) = 0; the model pads once, in `LeFF.kernel_params`), and so does
+its backward, `fused_leff_bwd` (its products of depth 8 on
 mma.sync.m16n8k8). `leff_reference` is the plain PyTorch version with
 the JAX reference's signature (`leff.py:504`).
 """
@@ -47,8 +51,8 @@ from uformer_tpu_torch.ops.kernels.wgrad import colsum, sm_count, wgrad
 from uformer_tpu_torch.ops.norm import layer_norm
 
 HIDDEN_CHUNK = 64  # the kernel walks the hidden in chunks of this width
-MAX_C = 2048  # the forward's widest C (an --embed_dim 128 model's bottleneck)
-BWD_MAX_C = 1024  # the backward's (ROADMAP.md, port queue 2 item 9)
+# the widest C, both ways (an --embed_dim 128 model's bottleneck)
+MAX_C = 2048
 # fp32 widths of the three-pass TF32 tile (csrc/leff_f32.cuh)
 F32_WIDTHS = (16, 32, 64, 128, 256, 512)
 
@@ -87,15 +91,15 @@ def pad_hidden(w1, b1, wd, bd, w2):
             F.pad(w2, (0, 0, 0, pad)).contiguous())
 
 
-def check_width(C: int, max_c: int = MAX_C) -> None:
-    """Raise unless the kernel takes width C: a multiple of 8 up to max_c
-    (MAX_C: the forward, every C of the family, 8-2048, the powers of two
-    up to 1024 on the tensor-core tiles, the rest on `leff_tile`;
-    BWD_MAX_C: the backward, 8-1024)."""
+def check_width(C: int) -> None:
+    """Raise unless the kernels take width C, both ways: a multiple of 8 up
+    to MAX_C (every C of the family, 8-2048; the powers of two up to 1024
+    on the tensor-core tiles, the rest on `leff_tile` forward and
+    `csrc/leff_bwd_heads.cu` backward in bf16)."""
     if C <= 0 or C % 8:
         raise ValueError(f"kernel needs C % 8 == 0: C={C}")
-    if C > max_c:
-        raise ValueError(f"kernel needs C <= {max_c}: C={C} (wider: "
+    if C > MAX_C:
+        raise ValueError(f"kernel needs C <= {MAX_C}: C={C} (wider: "
                          f"ROADMAP.md, port queue 2 item 9)")
 
 
@@ -230,7 +234,7 @@ def fused_leff_bwd(x: torch.Tensor, dy: torch.Tensor, w1, b1, wd, bd, w2,
     sliced to it, unless the caller padded it (the model does, once, in
     `LeFF.kernel_params`; autograd then slices). The padded channels'
     gradients are exactly 0: their hidden is GELU(0) = 0 and their w2 rows
-    are 0, so dpre2, dh and dpre1 vanish there. C up to BWD_MAX_C. A CPU
+    are 0, so dpre2, dh and dpre1 vanish there. C up to MAX_C. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernels or
     raises."""
     if x.device.type == "cpu":
@@ -281,11 +285,13 @@ def leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
     if dy.shape != x.shape or dy.dtype != dt:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must match x "
                          f"{tuple(x.shape)} {dt}")
-    check_width(C, BWD_MAX_C)
+    check_width(C)
     lib = load()
     is_bf16 = int(dt == torch.bfloat16)
     tha = lib.uf_leff_bwd_tile_rows(0, is_bf16, C)
     thb = lib.uf_leff_bwd_tile_rows(1, is_bf16, C)
+    rows_a = lib.uf_leff_bwd_scratch(0, is_bf16, C)
+    rows_b = lib.uf_leff_bwd_scratch(1, is_bf16, C)
     if Ch % HIDDEN_CHUNK or not tha or not thb:
         raise ValueError(f"kernel needs a tile for C (C % 8 == 0) and Ch % "
                          f"{HIDDEN_CHUNK} == 0: C={C} Ch={Ch}")
@@ -321,16 +327,21 @@ def leff_bwd_parts(x, dy, w1, b1, wd, bd, w2, ln_s=None, ln_b=None, *,
     part_b = empty(tiles(thb), C + Ch, dtype=f32)
     part_dln = (empty(groups, tiles(thb), thb * 8, C, dtype=f32)
                 if groups > 1 else None)
+    # a tile's LayerNormed rows where they miss shared memory, a slot a
+    # tile (A's halo, B's outputs): A and B run in turn and share it
+    slots = max(tiles(tha) * rows_a, tiles(thb) * rows_b)
+    xn_scr = empty(slots, C) if slots else None
     common = (x.data_ptr(), dy.data_ptr(), *ln_p, w1.data_ptr(),
               b1.data_ptr(), wd.data_ptr(), bd.data_ptr())
     a_ptrs = (*common, w2.data_ptr(), g.data_ptr(), dpre2.data_ptr(),
-              part_a.data_ptr(), None, None, None, None, None, cpg_a)
+              part_a.data_ptr(), None, None, None, None, None,
+              _launch.ptr(xn_scr), cpg_a)
     b_ptrs = (*common, None, None, dpre2.data_ptr(), None, dx.data_ptr(),
               ln.data_ptr(), dpre1.data_ptr(), part_b.data_ptr(),
-              _launch.ptr(part_dln), cpg_b)
+              _launch.ptr(part_dln), _launch.ptr(xn_scr), cpg_b)
     out = {}
     # the launches hold raw pointers: keep every buffer alive with them
-    buffers = (g, dpre2, dpre1, dx, ln, part_a, part_b, part_dln)
+    buffers = (g, dpre2, dpre1, dx, ln, part_a, part_b, part_dln, xn_scr)
 
     def kernel(which, ptrs, what):
         def run():

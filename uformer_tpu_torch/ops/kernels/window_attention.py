@@ -29,10 +29,10 @@ window on the same bodies, both ways. Head dims 24, 40, 48 and 56
 (`HEAD_DIMS`), and in this one above window 8; at windows 1-8 it keeps
 `WINDOW_ATTENTION_HEAD_DIMS` (its bf16 register core,
 `csrc/window_core_mma.cuh`, has no body for them). Head dims 72-128 in
-steps of 8 (`--embed_dim` 72-128) run the forward kernels 2, 3 and 5 at
-windows 1-8 (`FORWARD_HEAD_DIMS`), not this kernel; other head dims, and
-72-128 in the backward, above window 8 and here: ROADMAP.md, port queue
-2 item 9.
+steps of 8 (`--embed_dim` 72-128) run kernels 1, 3, 5 and 6 at windows
+1-8 (`FORWARD_HEAD_DIMS`, both ways: the window, not the direction,
+decides), not this kernel; other head dims, and 72-128 above window 8
+and here: ROADMAP.md, port queue 2 item 9.
 
 Unlike the block kernels, which fold the softmax scale into q before
 rounding it, this kernel scales the float32 logits (the TPU kernel's
@@ -50,13 +50,12 @@ from uformer_tpu_torch.ops.kernels._build import load
 from uformer_tpu_torch.ops.kernels.attention_wide import wide_window_attention
 from uformer_tpu_torch.ops.masks import NEG_BIAS, shift_window_regions
 
-# kernels 1, 3, 5 and 6, forward and backward (and kernels 2 and 7 at
-# their widths), at every window: every multiple of 8 up to 64
+# kernels 5 and 6 above window 8, and kernel 4 there: every multiple of
+# 8 up to 64
 HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56, 64)
-# kernels 3 and 5 at windows 1-8 (the serve and eval forward): every
-# multiple of 8 up to 128
+# kernels 1, 3, 5 and 6 at windows 1-8 (kernels 1 and 3 at window 8 only),
+# forward and backward: every multiple of 8 up to 128
 FORWARD_HEAD_DIMS = tuple(range(8, 129, 8))
-BACKWARD_HEAD_DIMS = HEAD_DIMS  # kernels 1 and 6 and the train step
 WINDOW_ATTENTION_HEAD_DIMS = (8, 16, 32, 64)  # kernel 4 at windows 1-8
 TILE = 64  # rows of a kernel's window tile
 
@@ -93,8 +92,8 @@ def check_window(win: int, shift: int, H: int, W: int,
 def check_head_dim(C: int, num_heads: int,
                    head_dims: tuple = HEAD_DIMS) -> None:
     """Raise unless the kernel takes head dim C / num_heads: one of
-    `head_dims` (HEAD_DIMS: kernels 1, 5 and 6 at every window, kernel 4
-    above window 8; FORWARD_HEAD_DIMS: kernels 3 and 5 at windows 1-8;
+    `head_dims` (HEAD_DIMS: kernels 4, 5 and 6 above window 8;
+    FORWARD_HEAD_DIMS: kernels 1, 3, 5 and 6 at windows 1-8, both ways;
     WINDOW_ATTENTION_HEAD_DIMS: kernel 4 at windows 1-8,
     `window_attention_head_dims`)."""
     D = C // num_heads if num_heads > 0 and C % num_heads == 0 else None

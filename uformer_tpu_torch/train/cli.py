@@ -10,8 +10,15 @@
 
 Every flag of `config.Options` (the reference's, with its defaults), plus
 `--device` (default cuda; with no card it fails, it never falls back to
-the CPU). Logs and checkpoints go to <save_dir>/<mode>/<arch><env>/;
-`--resume` continues from its models/model_latest.pth.
+the CPU). On the card every step runs through the kernels: every arch of
+the registry, and `--arch Uformer` at `--embed_dim` 8-64 in steps of 8 at
+any `--win_size` and at 72-128 up to window 8 (`python -m
+uformer_tpu_torch.train.cli --arch Uformer --embed_dim 72 ...`); another
+geometry (conv projection, a head dim no multiple of 8 or above 128,
+72-128 above window 8) is refused before the first step, naming
+ROADMAP.md's port queue 2 item 9. Logs and checkpoints go to
+<save_dir>/<mode>/<arch><env>/; `--resume` continues from its
+models/model_latest.pth.
 
 Data-parallel over N cards, one process each:
 

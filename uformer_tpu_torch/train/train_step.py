@@ -7,14 +7,16 @@ Charbonnier loss; backward (through the backward kernels on the card);
 AdamW with weight decay on every parameter (the reference trainers never
 use the model's no-decay sets); optional global-norm clipping. MixUp runs
 once the epoch passes `mixup_after_epoch`. On the card the kernel path
-trains every linear-projection model at every window and head dim 8, 16,
-32 or 64 (Uformer_B, Uformer_T and the rest of the registry at any
-`--train_ps`, Uformer at embed 8, 16, 32 or 64 and any win_size; LeFF or
-Mlp, with or without a cross-modulator, with or without
-`use_checkpoint`): the attention-image, attention-block and LeFF kernels
-and their backward kernels; UNet trains on cuDNN alone. It refuses any
-other model (conv projection, other head dims: 24-56 run forward only)
-before the step runs; no plain version stands in on the card. Over a
+trains every linear-projection model at every window and every head dim
+a multiple of 8 up to 64, and at windows 1-8 head dims 72-128 too
+(Uformer_B, Uformer_T and the rest of the registry at any `--train_ps`,
+Uformer at `--embed_dim` 8-64 in steps of 8 and any win_size, and at
+72-128 up to window 8; LeFF or Mlp, with or without a cross-modulator,
+with or without `use_checkpoint`): the attention-image, attention-block
+and LeFF kernels and their backward kernels; UNet trains on cuDNN alone.
+It refuses any other model (conv projection, head dims no multiple of 8
+or above 128, head dims 72-128 above window 8) before the step runs; no
+plain version stands in on the card. Over a
 data mesh the step runs under DistributedDataParallel
 (`make_train_step(mesh=...)`).
 """
@@ -76,8 +78,8 @@ def make_optimizer(params: Iterable[torch.Tensor], lr_schedule: Schedule,
 
 def blocks_without_backward_kernel(model: nn.Module) -> List[str]:
     """Names of the blocks the backward kernels do not cover (conv
-    projection or a head dim that is no multiple of 8 up to 64; the
-    block's `backward_gap` says why)."""
+    projection; a head dim that is no multiple of 8 up to 64, or at
+    windows 1-8 up to 128; the block's `backward_gap` says why)."""
     return [name for name, m in model.named_modules()
             if isinstance(m, LeWinBlock) and m.backward_gap is not None]
 
@@ -117,13 +119,15 @@ def make_train_step(model: nn.Module, loss_fn: Callable = charbonnier_loss,
     path). After the step each parameter's `.grad` holds its gradient.
     On the card the kernel path runs every attention and LeFF sub-block
     forward and backward through the kernels (every window, every head
-    dim a multiple of 8 up to 64, LeFF at every C a multiple of 8: every
-    registry arch at any `--train_ps`, `--embed_dim` 8-64 in steps of 8
-    and any `--win_size`; head dims 24-56 on one-window and one-tile
-    bodies, `csrc/attention_bwd_heads.cu`, `csrc/leff_bwd_heads.cu`), and
+    dim a multiple of 8 up to 64, and at windows 1-8 up to 128, LeFF at
+    every C a multiple of 8 up to 2048: every registry arch at any
+    `--train_ps`, `--embed_dim` 8-64 in steps of 8 and any `--win_size`,
+    72-128 up to window 8; head dims 24-56 and 72-128 on one-window and
+    one-tile bodies, `csrc/attention_bwd_heads.cu`,
+    `csrc/attention_bwd_big_heads.cu`, `csrc/leff_bwd_heads.cu`), and
     raises NotImplementedError before the step for a model with blocks
     in `blocks_without_backward_kernel` (conv projection, other head
-    dims).
+    dims, 72-128 above window 8).
 
     With a `parallel.Mesh` that has a process group, the batch is this
     rank's rows of the global batch (an even share), the model runs under
